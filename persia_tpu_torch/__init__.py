@@ -1,0 +1,24 @@
+"""persia_tpu_torch — the PyTorch/CUDA port of persia_tpu.
+
+The port mirrors ``persia_tpu``'s layout, module for module, and imports
+nothing of it (nor JAX): the host plane it needs (batch wire format,
+hashing, store, worker) is its own copy. Device code is PyTorch, and every
+device kernel is written by hand for Hopper (``persia_tpu_torch/csrc``),
+built with ``nvcc`` at first use and bound with ``ctypes``.
+
+This slice covers the serving path:
+
+  serving     persia_tpu_torch.serving.engine.InferenceEngine
+  user API    persia_tpu_torch.ctx.InferCtx (predict / predict_from_bytes)
+  emb worker  persia_tpu_torch.embedding.worker (dedup, routing, pooling)
+  param srv   persia_tpu_torch.embedding.store (numpy, lookup path)
+  dense       persia_tpu_torch.parallel.train_step (eval step) + models.DLRM
+  kernels     persia_tpu_torch.ops (dot_interaction, flash_attention)
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
+(``persia_tpu_torch.device.resolve_device``).
+"""
+
+__version__ = "0.1.0"
+
+__all__ = ["__version__"]

@@ -1,0 +1,162 @@
+"""Embedding parameter store, lookup path (counterpart of
+``persia_tpu/embedding/store.py``).
+
+One parameter-server replica held in process: internal shards, each an
+insertion-ordered dict used as an O(1) LRU, with entries ``(dim, [emb |
+optimizer state])``. Lookup semantics are the reference's:
+
+- train: LRU-touch hits; a miss passes the admit gate, then gets the seeded
+  by-sign init (or reads zeros if it is not admitted);
+- infer: zeros on miss, no touch, no admission.
+
+The per-sign hashes and the init rows are computed vectorized for the whole
+call; the entries and their order are the same as the reference's
+sign-by-sign loop. The gradient path comes with the training slice.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from persia_tpu_torch.config import HyperParameters
+from persia_tpu_torch.embedding.hashing import init_for_signs, splitmix64
+from persia_tpu_torch.embedding.optim import OptimizerConfig
+
+
+class _Shard:
+    """One internal shard: insertion-ordered dict as an LRU."""
+
+    __slots__ = ("entries", "capacity")
+
+    def __init__(self, capacity: int):
+        self.entries: Dict[int, Tuple[int, np.ndarray]] = {}
+        self.capacity = capacity
+
+    def get_refresh(self, sign: int) -> Optional[Tuple[int, np.ndarray]]:
+        e = self.entries.pop(sign, None)
+        if e is not None:
+            self.entries[sign] = e  # reinsert → most-recently-used
+        return e
+
+    def insert(self, sign: int, dim: int, vec: np.ndarray) -> None:
+        if sign in self.entries:
+            self.entries.pop(sign)
+        elif len(self.entries) >= self.capacity:
+            self.entries.pop(next(iter(self.entries)))  # evict LRU
+        self.entries[sign] = (dim, vec)
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+
+class EmbeddingStore:
+    """One parameter-server replica's store (numpy)."""
+
+    def __init__(
+        self,
+        capacity: int = 1 << 20,
+        num_internal_shards: int = 8,
+        hyperparams: HyperParameters = HyperParameters(),
+        optimizer: Optional[OptimizerConfig] = None,
+        seed: int = 0,
+    ):
+        if num_internal_shards <= 0 or capacity <= 0:
+            raise ValueError("capacity and num_internal_shards must be positive")
+        per_shard = max(1, capacity // num_internal_shards)
+        self._shards = [_Shard(per_shard) for _ in range(num_internal_shards)]
+        self._num_shards = num_internal_shards
+        # one coarse lock: lookups may come from several serving threads
+        self._lock = threading.RLock()
+        self.hyperparams = hyperparams
+        self.optimizer = optimizer
+        self.seed = seed
+
+    def _state_dim(self, dim: int) -> int:
+        return self.optimizer.state_dim(dim) if self.optimizer is not None else 0
+
+    def _shard_indices(self, signs: np.ndarray) -> List[int]:
+        h = splitmix64(signs ^ np.uint64(0xA5A5A5A5))
+        return (h % np.uint64(self._num_shards)).astype(np.int64).tolist()
+
+    def _admitted(self, signs: np.ndarray) -> np.ndarray:
+        p = self.hyperparams.admit_probability
+        if p >= 1.0:
+            return np.ones(len(signs), dtype=bool)
+        if p <= 0.0:
+            return np.zeros(len(signs), dtype=bool)
+        h = splitmix64(signs ^ np.uint64(0xC0FFEE))
+        return (h % np.uint64(1 << 24)).astype(np.float64) / float(1 << 24) < p
+
+    def lookup(self, signs: np.ndarray, dim: int, train: bool) -> np.ndarray:
+        """Fetch ``(len(signs), dim)`` embedding rows."""
+        signs = np.asarray(signs, dtype=np.uint64)
+        with self._lock:
+            return self._lookup_locked(signs, dim, train)
+
+    def _lookup_locked(self, signs: np.ndarray, dim: int, train: bool) -> np.ndarray:
+        out = np.zeros((len(signs), dim), dtype=np.float32)
+        if not len(signs):
+            return out
+        shard_idx = self._shard_indices(signs)
+        sign_list = signs.tolist()
+        if not train:
+            for i, (s, k) in enumerate(zip(sign_list, shard_idx)):
+                entry = self._shards[k].entries.get(s)
+                if entry is not None and entry[0] == dim:
+                    out[i] = entry[1][:dim]
+            return out
+
+        entry_len = dim + self._state_dim(dim)
+        admitted = self._admitted(signs)
+        fresh: Dict[int, np.ndarray] = {}  # sign -> entry created by this call
+        fresh_rows: List[Tuple[int, int]] = []  # (out row, sign) read from a fresh entry
+        for i, (s, k) in enumerate(zip(sign_list, shard_idx)):
+            shard = self._shards[k]
+            entry = shard.get_refresh(s)
+            if entry is not None and entry[0] == dim:  # a hit; another dim re-inits
+                if s in fresh:
+                    fresh_rows.append((i, s))
+                else:
+                    out[i] = entry[1][:dim]
+                continue
+            if entry is None and not admitted[i]:
+                continue
+            vec = np.empty(entry_len, dtype=np.float32)
+            shard.insert(s, dim, vec)
+            fresh[s] = vec
+            fresh_rows.append((i, s))
+        if fresh:
+            new_signs = np.fromiter(fresh.keys(), dtype=np.uint64, count=len(fresh))
+            rows = init_for_signs(
+                new_signs, self.seed, dim, self.hyperparams.resolved_init_method()
+            )
+            state = self.optimizer.init_state(dim) if self.optimizer is not None else None
+            for vec, row in zip(fresh.values(), rows):
+                vec[:dim] = row
+                if state is not None:
+                    vec[dim:] = state
+            for i, s in fresh_rows:
+                out[i] = fresh[s][:dim]
+        return out
+
+    def lookup_batched(
+        self, signs: np.ndarray, key_ofs: np.ndarray, dims: np.ndarray, train: bool
+    ) -> np.ndarray:
+        """Multi-slot lookup in one call: group g covers
+        ``signs[key_ofs[g]:key_ofs[g+1]]`` with dim ``dims[g]``. Returns one
+        flat f32 buffer, the groups' ``(count_g, dims[g])`` rows back to
+        back. State effects are exactly sequential per-group ``lookup``
+        calls."""
+        key_ofs = np.asarray(key_ofs, dtype=np.int64)
+        parts = [
+            self.lookup(signs[key_ofs[g]:key_ofs[g + 1]], int(dims[g]), train).reshape(-1)
+            for g in range(len(dims))
+        ]
+        return np.concatenate(parts) if parts else np.empty(0, np.float32)
+
+    def size(self) -> int:
+        with self._lock:
+            return sum(len(s) for s in self._shards)

@@ -1,0 +1,84 @@
+"""The port's package rules: it imports neither JAX (nor flax/optax) nor
+any module of ``persia_tpu``; importing it loads no JAX; and its entry
+points raise without a card unless the caller asks for the CPU."""
+
+import ast
+import json
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "persia_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "persia_tpu")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0], node.lineno
+
+
+def test_port_sources_import_no_jax_and_no_reference():
+    files = _port_files()
+    assert len(files) > 10 and all(f.exists() for f in files)
+    bad = [
+        f"{f.relative_to(ROOT)}:{line} imports {root}"
+        for f in files
+        for root, line in _imported_roots(f)
+        if root in FORBIDDEN
+    ]
+    assert not bad, bad
+
+
+def test_importing_the_port_loads_no_jax():
+    modules = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT.rglob("*.py")
+    )
+    code = (
+        "import importlib, json, sys\n"
+        "before = {m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax')}\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "after = {m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'persia_tpu')}\n"
+        "print(json.dumps(sorted(after - before)))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    from persia_tpu_torch.config import EmbeddingConfig, SlotConfig
+    from persia_tpu_torch.ctx import InferCtx
+    from persia_tpu_torch.device import resolve_device
+    from persia_tpu_torch.embedding.store import EmbeddingStore
+    from persia_tpu_torch.embedding.worker import EmbeddingWorker
+    from persia_tpu_torch.models import DLRM
+    from persia_tpu_torch.serving.engine import InferenceEngine
+
+    cfg = EmbeddingConfig(slots_config={"a": SlotConfig(dim=16)})
+    worker = EmbeddingWorker(cfg, [EmbeddingStore()])
+    model = DLRM(13, 1, device="cpu")
+    with pytest.raises(RuntimeError):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        InferCtx(model, worker, cfg)
+    ctx = InferCtx(model, worker, cfg, device="cpu")
+    with pytest.raises(RuntimeError):
+        InferenceEngine(ctx)
+    assert InferenceEngine(ctx, device="cpu").device == torch.device("cpu")
