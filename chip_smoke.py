@@ -7,18 +7,22 @@ Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
 
 1. build the port's CUDA kernels from ``persia_tpu_torch/csrc`` (nvcc, sm_90a);
-2. flash_attention on the card vs its plain version (dense f32 softmax);
+2. flash_attention on the card vs its plain version (dense f32 softmax):
+   the bf16 route (wgmma) at every head dim, ragged L=1000, and the f32
+   route (FMA);
 3. dot_interaction on the card vs its plain version at the serving shape;
 4. the paths, each with the launch counts set to 0 just before and read
-   just after: the flash-attention entry point at (B=4, L=1024, H=8, D=64),
+   just after: the flash-attention entry point at (B=4, L=1024, H=8, D=64)
+   in bf16, causal and not (the wgmma kernel), and in f32 (the FMA kernel);
    and the serving slice at bench width — DLRM (13 dense features, 26
    single-id slots of dim 16, bottom (256, 64, 16), top (512, 256)) behind
    ``InferenceEngine(InferCtx(...))``, answering 5 requests of B=4096 zipf
    ids through ``predict_from_bytes``, held against the same engine on the
    CPU;
-5. CUDA-event timings of each kernel beside its plain version, the library
-   call that computes the same function, and the card's bound; the serving
-   latency and throughput.
+5. timings of each kernel beside its plain version, the library call that
+   computes the same function, and the card's bound, each by CUDA-graph
+   replay (host enqueue cost out of the number; eager times beside them);
+   the serving latency and throughput.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -26,6 +30,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -40,6 +45,8 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 BATCH, N_DENSE, N_SLOTS, EMB_DIM, VOCAB = 4096, 13, 26, 16, 1_000_000
 BOTTOM, TOP = (256, 64, EMB_DIM), (512, 256)
 REQUESTS, WARM_BATCHES, SEED = 5, 8, 0
+FA_SOURCE = {"wgmma_bf16": "persia_tpu_torch/csrc/flash_attention_hopper.cu",
+             "fma_f32": "persia_tpu_torch/csrc/flash_attention.cu"}
 
 
 def card_line() -> str:
@@ -50,24 +57,32 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def check_close(name, out, ref, rtol, atol) -> float:
+def check_close(name, out, ref, rtol, atol, base=None) -> float:
     """Fail unless |out - ref| <= atol + rtol * |ref| everywhere (in f32);
-    returns the max abs error."""
+    returns the max abs error. ``base``, a tighter (rtol, atol), is only
+    reported: how many elements exceed it and by what factor at most."""
     import torch
 
     out, ref = out.float(), ref.float()
     err = (out - ref).abs()
     max_err = float(err.max())
     ok = bool(torch.isfinite(out).all()) and bool((err <= atol + rtol * ref.abs()).all())
-    print(f"  {name}: max_abs_err={max_err:.3e} tolerance=atol {atol:g} + rtol {rtol:g}*|ref| "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+    extra = ""
+    if base is not None:
+        ratio = err / (base[1] + base[0] * ref.abs())
+        extra = (f" [beyond rtol {base[0]:g} atol {base[1]:g}: {int((ratio > 1).sum())} of "
+                 f"{ratio.numel()}, at most {float(ratio.max()):.2f}x]")
+    print(f"  {name}: max_abs_err={max_err:.3e} tolerance=atol {atol:.4g} + rtol {rtol:g}*|ref| "
+          f"{'ok' if ok else 'FAIL'}{extra}", flush=True)
     if not ok:
         raise SystemExit(f"{name} disagrees with its plain version")
     return max_err
 
 
-def time_ms(fn, iters=50, warmup=5) -> float:
-    """Mean device time of one call, by CUDA events around ``iters`` calls."""
+def eager_ms(fn, iters=50, warmup=5) -> float:
+    """Mean time of one eager call, by CUDA events around ``iters`` calls.
+    Where a call's kernel is shorter than its host-side enqueue, this
+    measures the host, not the card."""
     import torch
 
     for _ in range(warmup):
@@ -80,6 +95,42 @@ def time_ms(fn, iters=50, warmup=5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls=20, replays=10, warmup=3) -> float:
+    """Mean device time of one call with the host out of the loop: ``calls``
+    calls captured into one CUDA graph, the graph replayed ``replays``
+    times between two events. A call that cannot be captured raises."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up (builds, allocator) off the capture
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    torch.cuda.synchronize()
+    return ms
+
+
+def timings(fn, calls=20, eager_iters=50) -> dict:
+    """Graph-replayed ms (the number every comparison uses) and eager ms."""
+    return {"graph": graph_ms(fn, calls=calls), "eager": eager_ms(fn, iters=eager_iters)}
 
 
 def bound(bytes_moved: float, ops: float, dtype: str):
@@ -136,6 +187,57 @@ def device_busy_ms(step, batches):
     return sum(per.values()), top
 
 
+KERNEL_NAMES = ("fa_fwd_wgmma_kernel", "flash_attention_fwd_kernel",
+                "dot_interaction_mma_kernel", "dot_interaction_kernel")
+
+
+def kernel_label(mangled: str):
+    """'fa_fwd_wgmma_kernel<64>' from a mangled kernel name, or None."""
+    for name in KERNEL_NAMES:
+        if name + "I" in mangled:
+            args = mangled.split(name + "I", 1)[1].split("EEv", 1)[0]
+            tokens = re.finditer(r"13__nv_bfloat16|Li(\d+)E|f", args)
+            parts = ["bf16" if t.group(0)[0] == "1" else (t.group(1) or "f32") for t in tokens]
+            return f"{name}<{','.join(parts)}>"
+    return None
+
+
+def build_summary(build_log: str, library) -> dict:
+    """Per kernel: ptxas registers, static shared memory and spill bytes
+    (from the build's -Xptxas -v), and counts of the Hopper instructions in
+    its SASS (cuobjdump -sass on the built library)."""
+    out, current = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = kernel_label(m.group(1))
+            if current:
+                out[current] = {}
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[current]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m:
+            out[current]["registers"] = int(m.group(1))
+            out[current]["static_smem_bytes"] = int(m.group(2) or 0)
+    sass = subprocess.run(["cuobjdump", "-sass", str(library)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    current = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = kernel_label(line.split("Function :", 1)[1].strip())
+            continue
+        if current:
+            for op in ("HGMMA", "UTMALDG", "UTMASTG", "HMMA"):
+                if re.search(rf"\b{op}\b", line):
+                    counts = out.setdefault(current, {}).setdefault("sass", {})
+                    counts[op] = counts.get(op, 0) + 1
+    return out
+
+
 def phase_build():
     from persia_tpu_torch.ops import _kernels
 
@@ -144,29 +246,35 @@ def phase_build():
     _kernels.library()
     print(f"  built {_kernels.library_path().name} in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_kernels.build_seconds:.1f} s)", flush=True)
-    print(_kernels.build_log, flush=True)
+    if not _kernels.build_log:
+        print("  (library built before this run: no ptxas report, SASS counts only)", flush=True)
+    summary = build_summary(_kernels.build_log, _kernels.library_path())
+    for name, info in summary.items():
+        print(f"  {name}: {json.dumps(info)}", flush=True)
+    fa = summary.get("fa_fwd_wgmma_kernel<64>", {}).get("sass", {})
+    if not (fa.get("HGMMA") and fa.get("UTMALDG")):
+        raise SystemExit(f"the bf16 flash-attention kernel's SASS lacks HGMMA or UTMALDG: {fa}")
+    return summary
 
 
 def phase_flash_attention(dev):
     import torch
 
     from persia_tpu_torch.ops import flash_attention
-    from persia_tpu_torch.ops.flash_attention import reference_attention
+    from persia_tpu_torch.ops.flash_attention import reference_attention, route_tolerance
 
     print("== phase 2: flash_attention vs reference_attention", flush=True)
-    # f32: only the order of the 1024-term softmax sums differs; bf16: the
-    # same f32 math on both sides, each rounding once to bf16 (<= 1 ulp)
-    tol = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2 ** -7, 1e-3)}
+    # tolerances and their reasons: ops/flash_attention.py::route_tolerance
     cases = [
         ((4, 1024, 8, 64), dtype, causal)
         for dtype in (torch.bfloat16, torch.float32) for causal in (False, True)
     ] + [
         ((4, 1000, 8, 64), torch.bfloat16, True),
         ((4, 1000, 8, 64), torch.float32, True),
-        ((4, 256, 8, 16), torch.bfloat16, False),
         ((4, 256, 8, 16), torch.float32, True),
         ((2, 512, 4, 32), torch.float32, True),
-        ((2, 512, 4, 128), torch.bfloat16, False),
+    ] + [
+        ((2, 1000, 4, d), torch.bfloat16, causal) for d in (16, 32, 128) for causal in (False, True)
     ]
     g = torch.Generator(device="cpu").manual_seed(SEED)
     errs = {}
@@ -176,8 +284,11 @@ def phase_flash_attention(dev):
         torch.cuda.synchronize()
         ref = reference_attention(q, k, v, causal=causal)
         name = f"flash_attention{list(shape)} {str(dtype)[6:]} causal={causal}"
-        errs[(shape, dtype, causal)] = check_close(name, out, ref, *tol[dtype])
-    return errs[((4, 1024, 8, 64), torch.bfloat16, False)]
+        # reported beside it: bf16 held without the P-rounding term of its atol
+        base = (2 ** -7, 1e-3) if dtype == torch.bfloat16 else None
+        errs[(shape, dtype, causal)] = check_close(name, out, ref, *route_tolerance(v), base=base)
+    return {"bf16": errs[((4, 1024, 8, 64), torch.bfloat16, False)],
+            "f32": errs[((4, 1024, 8, 64), torch.float32, False)]}
 
 
 def phase_dot_interaction(dev):
@@ -190,6 +301,8 @@ def phase_dot_interaction(dev):
     g = torch.Generator(device="cpu").manual_seed(SEED + 1)
     feats = torch.randn((BATCH, N_SLOTS + 1, EMB_DIM), generator=g)
     errs = {}
+    # bf16 (tensor cores): f32 sums in the tensor cores' order, one bf16
+    # rounding each side (<= 1 ulp apart); f32 (FMA walk): the same f32 sum
     for dtype, tol in ((torch.bfloat16, (2 ** -7, 1e-3)), (torch.float32, (1e-5, 1e-5))):
         x = feats.to(dev, dtype)
         out = dot_interaction(x)
@@ -204,20 +317,23 @@ def path_flash_attention(dev):
 
     from persia_tpu_torch import ops
 
-    print("== phase 4a: flash-attention path", flush=True)
+    print("== phase 4a: flash-attention path (bf16 both masks, f32 once)", flush=True)
     g = torch.Generator(device="cpu").manual_seed(SEED + 2)
-    q, k, v = (torch.randn((4, 1024, 8, 64), generator=g).to(dev, torch.bfloat16) for _ in range(3))
+    qkv = [torch.randn((4, 1024, 8, 64), generator=g).to(dev) for _ in range(3)]
+    bf = [x.to(torch.bfloat16) for x in qkv]
     ops.reset_launch_counts()
-    outs = [ops.flash_attention(q, k, v, causal=c) for c in (False, True)]
+    outs = [ops.flash_attention(*bf, causal=c) for c in (False, True)]
+    outs.append(ops.flash_attention(*qkv, causal=False))
     torch.cuda.synchronize()
-    launches = ops.flash_attention.launches
+    routes = dict(ops.flash_attention.launches_by_route)
     for o in outs:
-        if o.shape != q.shape or not bool(torch.isfinite(o.float()).all()):
+        if o.shape != qkv[0].shape or not bool(torch.isfinite(o.float()).all()):
             raise SystemExit("flash_attention path: bad output")
-    if launches != 2:
-        raise SystemExit(f"flash_attention path launched the kernel {launches} times, expected 2")
-    print(f"  flash_attention launches={launches}", flush=True)
-    return launches
+    if routes != {"wgmma_bf16": 2, "fma_f32": 1} or ops.flash_attention.launches != 3:
+        raise SystemExit(f"flash_attention path launched {routes}, expected "
+                         f"wgmma_bf16 twice and fma_f32 once")
+    print(f"  flash_attention launches by route={routes}", flush=True)
+    return routes
 
 
 def path_serving(dev):
@@ -350,39 +466,61 @@ def phase_timing(dev, card, launches, errs, feats_shape):
     rows = []
 
     b, l, h, d = 4, 1024, 8, 64
-    q, k, v = (torch.randn((b, l, h, d), generator=g).to(dev, torch.bfloat16) for _ in range(3))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    for causal in (False, True):
+    q, k, v = (torch.randn((b, l, h, d), generator=g).to(dev) for _ in range(3))
+    def timed(row, kernel, plain, library, plain_calls=20):
+        """Fill a row's times: graph-replayed (``ms``, ``plain_ms``,
+        ``library_ms``) and eager (``*eager_ms``), kernel and library in
+        turns (library, kernel, kernel, library) so drift shows."""
+        lib0, k0 = timings(library), timings(kernel)
+        k1, lib1 = timings(kernel), timings(library)
+        plain_t = timings(plain, calls=plain_calls, eager_iters=plain_calls)
+        row.update(
+            ms=min(k0["graph"], k1["graph"]), eager_ms=min(k0["eager"], k1["eager"]),
+            ms_runs=[k0["graph"], k1["graph"]],
+            plain_ms=plain_t["graph"], plain_eager_ms=plain_t["eager"],
+            library_ms=min(lib0["graph"], lib1["graph"]),
+            library_eager_ms=min(lib0["eager"], lib1["eager"]),
+            library_ms_runs=[lib0["graph"], lib1["graph"]],
+        )
+        return row
+
+    cases = [("wgmma_bf16", torch.bfloat16, False), ("wgmma_bf16", torch.bfloat16, True),
+             ("fma_f32", torch.float32, False)]
+    for route, dtype, causal in cases:
+        x = [t.to(dtype) for t in (q, k, v)]
+        xt = [t.transpose(1, 2) for t in x]
+        width = x[0].element_size()
         pairs = l * (l + 1) // 2 if causal else l * l
-        bms, by = bound(4 * b * l * h * d * 2, 4 * b * h * d * pairs, "bfloat16")
-        rows.append(dict(
-            name="flash_attention", route="cuda",
-            source="persia_tpu_torch/csrc/flash_attention.cu",
-            replaces="persia_tpu/ops/flash_attention.py:107",
-            shape=[b, l, h, d], dtype="bfloat16", causal=causal,
-            launches=launches["flash_attention"], max_abs_err=errs["flash_attention"],
-            ms=time_ms(lambda: ops.flash_attention(q, k, v, causal=causal)),
-            plain_ms=time_ms(lambda: reference_attention(q, k, v, causal=causal), iters=10),
-            bound_ms=bms, bound_by=by,
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)),
+        bms, by = bound(4 * b * l * h * d * width, 4 * b * h * d * pairs, str(dtype)[6:])
+        rows.append(timed(
+            dict(name="flash_attention", route="cuda", cuda_route=route,
+                 source=FA_SOURCE[route], replaces="persia_tpu/ops/flash_attention.py:107",
+                 shape=[b, l, h, d], dtype=str(dtype)[6:], causal=causal,
+                 launches=launches["flash_attention"][route],
+                 max_abs_err=errs["flash_attention"]["bf16" if route == "wgmma_bf16" else "f32"],
+                 bound_ms=bms, bound_by=by),
+            kernel=lambda: ops.flash_attention(*x, causal=causal),
+            plain=lambda: reference_attention(*x, causal=causal),
+            library=lambda: F.scaled_dot_product_attention(*xt, is_causal=causal),
+            plain_calls=4,
         ))
 
     feats = torch.randn(feats_shape, generator=g).to(dev, torch.bfloat16)
     bsz, n, dim = feats_shape
     pairs = n * (n - 1) // 2
     bms, by = bound(bsz * n * dim * 2 + bsz * pairs * 2, 2 * bsz * pairs * dim, "bfloat16")
-    rows.append(dict(
-        name="dot_interaction", route="cuda",
-        source="persia_tpu_torch/csrc/dot_interaction.cu",
-        replaces="persia_tpu/models/dlrm.py:50",
-        shape=list(feats_shape), dtype="bfloat16",
-        launches=launches["dot_interaction"], max_abs_err=errs["dot_interaction"],
-        ms=time_ms(lambda: ops.dot_interaction(feats)),
-        plain_ms=time_ms(lambda: dot_interaction_reference(feats)),
-        bound_ms=bms, bound_by=by,
+    rows.append(timed(
+        dict(name="dot_interaction", route="cuda", cuda_route="cuda",
+             source="persia_tpu_torch/csrc/dot_interaction.cu",
+             replaces="persia_tpu/models/dlrm.py:50",
+             shape=list(feats_shape), dtype="bfloat16",
+             launches=launches["dot_interaction"], max_abs_err=errs["dot_interaction"],
+             bound_ms=bms, bound_by=by),
+        kernel=lambda: ops.dot_interaction(feats),
+        plain=lambda: dot_interaction_reference(feats),
         # the full (B, n, n) product: a superset of the function, the
         # nearest one-call yardstick
-        library_ms=time_ms(lambda: torch.bmm(feats, feats.transpose(1, 2))),
+        library=lambda: torch.bmm(feats, feats.transpose(1, 2)),
     ))
     for r in rows:
         print(json.dumps({"kernel_timing": r, "card": card}), flush=True)
@@ -403,18 +541,21 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    phase_build()
+    build = phase_build()
     errs = {"flash_attention": phase_flash_attention(dev),
             "dot_interaction": phase_dot_interaction(dev)}
-    fa_launches = path_flash_attention(dev)
+    fa_routes = path_flash_attention(dev)
     launches, serving, feats_shape = path_serving(dev)
-    launches["flash_attention"] = fa_launches
+    launches["flash_attention"] = fa_routes
     rows = phase_timing(dev, card, launches, errs, feats_shape)
     print(json.dumps({"serving": serving, "card": card}), flush=True)
+    print(json.dumps({"build": build, "card": card}), flush=True)
 
-    # one entry per kernel: the flash-attention row is the non-causal one
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # one entry per kernel (the bf16 flash-attention entry is its
+    # non-causal row); times graph-replayed, eager beside them
+    keys = ("name", "route", "cuda_route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "eager_ms",
+            "library_eager_ms")
     kernels = [{k: r[k] for k in keys} for r in rows if not r.get("causal")]
     print(json.dumps({"kernels": kernels, "card": card}), flush=True)
     print(card, flush=True)

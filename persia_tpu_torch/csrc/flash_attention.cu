@@ -1,17 +1,18 @@
-// Flash attention forward: q, k, v, out [B, L, H, D] (f32 or bf16), tiled
-// online softmax, the [L, L] score matrix never leaves the SM.
+// Flash attention forward, f32: q, k, v, out [B, L, H, D], tiled online
+// softmax, the [L, L] score matrix never leaves the SM. bf16 inputs take
+// the tensor-core kernel of flash_attention_hopper.cu; f32 stays here, on
+// the FMA pipes, because TF32 tensor cores would not keep the TPU kernel's
+// f32 numerics (this kernel matches them to 1e-4).
 //
 // Replaces: persia_tpu/ops/flash_attention.py:33-82 `_fa_kernel`, launched
-// by `_fa_forward` (pallas_call at :107). Same arithmetic: scores q.k *
+// by `_fa_forward` (pallas_call at :107), for f32. Same arithmetic: scores q.k *
 // scale in f32, keys at or past L masked (and keys after the query under
 // `causal`), running max m / sum l / accumulator acc in f32, output
 // acc / max(l, 1e-30) in the input type.
 //
 // Bound on the H100: operations. At (B=4, L=1024, H=8, D=64) the function
-// does 4*B*H*L*L*D = 8.6 GFLOP over 16.8 MB of bf16 in and out, ~510
-// FLOP/byte, above the ~295 FLOP/byte balance point. This first kernel
-// computes on the f32 FMA pipes (67 TFLOP/s), not the tensor cores, so it
-// runs far from the bf16 bound; mma/wgmma with TMA-fed tiles is later work.
+// does 4*B*H*L*L*D = 8.6 GFLOP over 33.6 MB of f32 in and out, on the f32
+// FMA pipes (67 TFLOP/s): at least 0.128 ms.
 //
 // Design. The TPU kernel walks a grid (B*H, q blocks, k blocks) whose last
 // axis runs in order and carries m/l/acc in VMEM scratch. On Hopper blocks
@@ -25,7 +26,8 @@
 //   thread's dims are interleaved float4 chunks, so the TPR threads of a row
 //   hit distinct banks while rows of a warp broadcast;
 // - 128 threads per block: 128 query rows for D <= 32, 64 for D = 64, 32 for
-//   D = 128; k/v tiles take at most 32 KB of static shared memory;
+//   D = 128 (ops/plans.py::fma_rows); k/v tiles take at most 32 KB of static
+//   shared memory;
 // - causal: k tiles wholly above the block's last query are never visited
 //   (the TPU kernel's `block_live` skip); ragged L: keys past L are masked
 //   and loaded as zeros, so L is never padded.
@@ -162,42 +164,36 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-void launch(const void* q, const void* k, const void* v, void* out, int batch, int seq_len,
-            int heads, float scale, int causal, cudaStream_t stream) {
-  const dim3 grid((seq_len + Tile<D>::kRows - 1) / Tile<D>::kRows, batch * heads);
-  flash_attention_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), seq_len, heads, scale, causal);
-}
-
-template <typename T>
-int dispatch_dim(const void* q, const void* k, const void* v, void* out, int batch, int seq_len,
-                 int heads, int dim, float scale, int causal, cudaStream_t stream) {
-  switch (dim) {
-    case 16: launch<T, 16>(q, k, v, out, batch, seq_len, heads, scale, causal, stream); break;
-    case 32: launch<T, 32>(q, k, v, out, batch, seq_len, heads, scale, causal, stream); break;
-    case 64: launch<T, 64>(q, k, v, out, batch, seq_len, heads, scale, causal, stream); break;
-    case 128: launch<T, 128>(q, k, v, out, batch, seq_len, heads, scale, causal, stream); break;
-    default: return cudaErrorInvalidValue;
-  }
+template <int D>
+int launch(const float* q, const float* k, const float* v, float* out, int q_blocks, int batch,
+           int seq_len, int heads, float scale, int causal, cudaStream_t stream) {
+  if (q_blocks != (seq_len + Tile<D>::kRows - 1) / Tile<D>::kRows) return cudaErrorInvalidValue;
+  const dim3 grid(q_blocks, batch * heads);
+  flash_attention_fwd_kernel<float, D><<<grid, kThreads, 0, stream>>>(q, k, v, out, seq_len, heads,
+                                                                      scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int persia_flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                                          int batch, int seq_len, int heads, int dim, float scale,
-                                          int causal, int dtype, void* stream) {
+// f32 only; q_blocks from ops/plans.py::fma_rows. Returns a CUDA error code.
+extern "C" int persia_flash_attention_fwd_fma(const void* q, const void* k, const void* v,
+                                              void* out, int batch, int seq_len, int heads,
+                                              int dim, float scale, int causal, int q_blocks,
+                                              void* stream) {
   if (batch <= 0 || seq_len <= 0 || heads <= 0 || batch * heads > 65535) {
     return cudaErrorInvalidValue;
   }
+  const auto* qf = static_cast<const float*>(q);
+  const auto* kf = static_cast<const float*>(k);
+  const auto* vf = static_cast<const float*>(v);
+  auto* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == persia::kFloat32) {
-    return dispatch_dim<float>(q, k, v, out, batch, seq_len, heads, dim, scale, causal, s);
+  switch (dim) {
+    case 16: return launch<16>(qf, kf, vf, of, q_blocks, batch, seq_len, heads, scale, causal, s);
+    case 32: return launch<32>(qf, kf, vf, of, q_blocks, batch, seq_len, heads, scale, causal, s);
+    case 64: return launch<64>(qf, kf, vf, of, q_blocks, batch, seq_len, heads, scale, causal, s);
+    case 128: return launch<128>(qf, kf, vf, of, q_blocks, batch, seq_len, heads, scale, causal, s);
+    default: return cudaErrorInvalidValue;
   }
-  if (dtype == persia::kBFloat16) {
-    return dispatch_dim<__nv_bfloat16>(q, k, v, out, batch, seq_len, heads, dim, scale, causal, s);
-  }
-  return cudaErrorInvalidValue;
 }

@@ -1,7 +1,8 @@
 """Device kernels written by hand for Hopper (CUDA C++ in
 ``persia_tpu_torch/csrc``), each beside its plain PyTorch version. A CPU
 tensor takes the plain version; a CUDA tensor launches the kernel, and each
-wrapper counts its launches in ``<wrapper>.launches``."""
+wrapper counts its launches in ``<wrapper>.launches`` (flash attention also
+per route, in ``flash_attention.launches_by_route``)."""
 
 from persia_tpu_torch.ops.dot_interaction import dot_interaction  # noqa: F401
 from persia_tpu_torch.ops.flash_attention import flash_attention  # noqa: F401
@@ -12,3 +13,5 @@ KERNEL_WRAPPERS = (dot_interaction, flash_attention)
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+        for route in getattr(fn, "launches_by_route", {}):
+            fn.launches_by_route[route] = 0

@@ -115,12 +115,15 @@ def library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.persia_dot_interaction.restype = i32
-            lib.persia_dot_interaction.argtypes = [vp, vp, i32, i32, i32, i32, vp]
-            lib.persia_dot_interaction_rows_per_block.restype = i32
-            lib.persia_dot_interaction_rows_per_block.argtypes = [i32, i32]
-            lib.persia_flash_attention_fwd.restype = i32
-            lib.persia_flash_attention_fwd.argtypes = [
+            lib.persia_dot_interaction.argtypes = [vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, vp]
+            lib.persia_flash_attention_fwd_fma.restype = i32
+            lib.persia_flash_attention_fwd_fma.argtypes = [
                 vp, vp, vp, vp, i32, i32, i32, i32, f32, i32, i32, vp,
+            ]
+            lib.persia_flash_attention_fwd_wgmma.restype = i32
+            lib.persia_flash_attention_fwd_wgmma.argtypes = [
+                vp, vp, vp, vp, i32, i32, i32, i32, f32, i32,
+                i32, i32, i32, i32, i32, i32, i32, i32, vp,
             ]
             _lib = lib
         return _lib

@@ -1,5 +1,5 @@
-"""DLRM dot interaction: the CUDA kernel (``csrc/dot_interaction.cu``) and
-its plain PyTorch version.
+"""DLRM dot interaction: the CUDA kernel (``csrc/dot_interaction.cu``, its
+geometry from ``plans.dot_plan``) and its plain PyTorch version.
 
 ``feats (B, n, d)`` → ``(B, n(n-1)/2)``: the strict upper triangle of
 ``feats @ feats^T`` per row, in ``triu_indices(n, k=1)`` row-major pair
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from persia_tpu_torch.ops import _kernels
+from persia_tpu_torch.ops import _kernels, plans
 
 _DTYPES = {torch.float32: _kernels.DTYPE_F32, torch.bfloat16: _kernels.DTYPE_BF16}
 
@@ -43,12 +43,13 @@ def dot_interaction(feats: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, n * (n - 1) // 2), dtype=feats.dtype, device=feats.device)
     if out.numel() == 0:
         return out
-    lib = _kernels.library()
-    if lib.persia_dot_interaction_rows_per_block(n, d) == 0:
+    plan = plans.dot_plan(b, n, d, feats.element_size())
+    if plan.rows_per_block == 0:
         raise ValueError(f"dot_interaction: one row of (n={n}, d={d}) exceeds shared memory")
     with torch.cuda.device(feats.device):
-        rc = lib.persia_dot_interaction(
-            feats.data_ptr(), out.data_ptr(), b, n, d, _DTYPES[feats.dtype],
+        rc = _kernels.library().persia_dot_interaction(
+            feats.data_ptr(), out.data_ptr(), b, n, d, _DTYPES[feats.dtype], int(plan.mma),
+            plan.rows_per_block, plan.feat_stride, plan.smem_bytes,
             _kernels.stream_handle(feats),
         )
     _kernels.check(rc, "dot_interaction")

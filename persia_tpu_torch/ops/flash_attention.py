@@ -1,24 +1,33 @@
-"""Flash attention forward: the CUDA kernel (``csrc/flash_attention.cu``)
-and its plain PyTorch version.
+"""Flash attention forward: two CUDA kernels and their plain PyTorch
+version.
 
 Counterpart of ``persia_tpu/ops/flash_attention.py`` (the repo's one Pallas
 kernel). The public layout stays the reference's ``[B, L, H, D]``; the
-kernel reads it strided, so there is no transpose or padding copy. The
-plain version is ``reference_attention``, the dense f32 softmax of
+kernels read it in place, so there is no transpose or padding copy. The
+route is chosen by dtype, explicitly:
+
+- bf16 → ``csrc/flash_attention_hopper.cu`` (``wgmma_bf16``): TMA-fed
+  tiles, both products on the tensor cores, P rounded to bf16 before P·V;
+- f32 → ``csrc/flash_attention.cu`` (``fma_f32``): the f32 FMA pipes, which
+  keep the reference's f32 numerics (TF32 tensor cores would not).
+
+``flash_attention.launches`` counts every launch and
+``flash_attention.launches_by_route`` each route's. The plain version is
+``reference_attention``, the dense f32 softmax of
 ``persia_tpu/parallel/sequence.py:126-135,184-188``. The backward (a dense
 recompute in the reference) comes with the training slice.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from persia_tpu_torch.ops import _kernels
+from persia_tpu_torch.ops import _kernels, plans
 
 _NEG_BIG = -1e30
-_DTYPES = {torch.float32: _kernels.DTYPE_F32, torch.bfloat16: _kernels.DTYPE_BF16}
+ROUTES = {torch.bfloat16: "wgmma_bf16", torch.float32: "fma_f32"}
 HEAD_DIMS = (16, 32, 64, 128)
 
 
@@ -40,6 +49,24 @@ def reference_attention(
         s = torch.where(mask[None, :, None, :], s, torch.full_like(s, _NEG_BIG))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqhk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def route_tolerance(v: torch.Tensor) -> Tuple[float, float]:
+    """(rtol, atol) to which a kernel's output is held against
+    ``reference_attention`` on the same inputs; the route follows v's dtype.
+
+    - f32 (``fma_f32``): (1e-4, 1e-4). Both sides compute in f32; only the
+      order of the sums differs.
+    - bf16 (``wgmma_bf16``): rtol 2^-7 covers the one bf16 rounding of the
+      output on each side. atol is 1e-3 + 2^-9 * max|v|: the kernel rounds
+      each probability to bf16 before P.V (relative error <= 2^-9), which
+      moves an output by at most 2^-9 * sum(p|v|) / sum(p) <= 2^-9 * max|v|.
+      Over many keys these errors average out; on a row that attends to a
+      few keys (the first rows under ``causal``) they do not.
+    """
+    if v.dtype == torch.float32:
+        return 1e-4, 1e-4
+    return 2 ** -7, 1e-3 + 2 ** -9 * float(v.float().abs().max())
 
 
 def flash_attention(
@@ -66,7 +93,7 @@ def flash_attention(
         raise ValueError(f"unsupported device {q.device}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k, v must lie on one device")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"flash_attention takes float32 or bfloat16 q, k, v of one dtype, got "
             f"{q.dtype}, {k.dtype}, {v.dtype}"
@@ -81,15 +108,29 @@ def flash_attention(
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    route = ROUTES[q.dtype]
+    if route == "wgmma_bf16" and scale <= 0:
+        # the kernel takes the row max of unscaled scores, so it needs
+        # scale > 0; the same softmax: (-q)·k·(-scale), or 0·k·1 for 0
+        q, scale = (-q, -scale) if scale < 0 else (torch.zeros_like(q), 1.0)
+    lib = _kernels.library()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, l, h, d,
+            float(scale), int(bool(causal)))
     with torch.cuda.device(q.device):
-        rc = _kernels.library().persia_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, l, h, d, float(scale), int(bool(causal)), _DTYPES[q.dtype],
-            _kernels.stream_handle(q),
-        )
-    _kernels.check(rc, "flash_attention")
+        stream = _kernels.stream_handle(q)
+        if route == "wgmma_bf16":
+            p = plans.flash_plan(b, l, h, d, causal)
+            rc = lib.persia_flash_attention_fwd_wgmma(
+                *args, p.grid, p.q_tiles, p.block_q, p.block_k, p.stages, p.box_cols,
+                p.swizzle_bytes, p.smem_bytes, stream,
+            )
+        else:
+            rc = lib.persia_flash_attention_fwd_fma(*args, -(-l // plans.fma_rows(d)), stream)
+    _kernels.check(rc, f"flash_attention ({route})")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = {route: 0 for route in ROUTES.values()}

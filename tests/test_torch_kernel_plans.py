@@ -1,0 +1,129 @@
+"""The launch geometry of the port's CUDA kernels (persia_tpu_torch/ops/
+plans.py), checked on the CPU: the kernels take these numbers as given."""
+
+import itertools
+
+import pytest
+
+from persia_tpu_torch.ops import plans
+
+FLASH_SHAPES = [
+    (4, 1024, 8, 64), (2, 1000, 4, 16), (2, 37, 3, 32), (1, 8, 1, 128), (8, 2048, 16, 64),
+    (3, 65, 2, 128), (2, 300, 3, 16),
+]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_plan_covers_every_tile_once(shape, causal):
+    b, l, h, d = shape
+    p = plans.flash_plan(b, l, h, d, causal)
+    seen = [p.block_tile(block) for block in range(p.grid)]
+    assert len(seen) == len(set(seen)) == b * h * p.q_tiles
+    assert set(seen) == set(itertools.product(range(b), range(h), range(p.q_tiles)))
+    # the tiles cover every query row, and no tile starts past L
+    assert (p.q_tiles - 1) * p.block_q < l <= p.q_tiles * p.block_q
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_plan_launches_longest_first(shape):
+    b, l, h, d = shape
+    p = plans.flash_plan(b, l, h, d, causal=True)
+    work = [p.key_tiles(p.block_tile(block)[2]) for block in range(p.grid)]
+    assert work == sorted(work, reverse=True)
+    # causal visits the key tiles up to the diagonal; non-causal all of them
+    full = plans.flash_plan(b, l, h, d, causal=False)
+    for qt in range(p.q_tiles):
+        assert p.key_tiles(qt) == -(-min(l, (qt + 1) * p.block_q) // p.block_k)
+        assert full.key_tiles(qt) == -(-l // full.block_k)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_plan_box_swizzle_and_shared_memory(d):
+    p = plans.flash_plan(4, 1024, 8, d, causal=False)
+    # a TMA box row is exactly the swizzle width the wgmma descriptors name
+    assert p.box_cols * 2 == p.swizzle_bytes
+    assert p.swizzle_bytes == {16: 32, 32: 64, 64: 128, 128: 128}[d]
+    assert p.boxes * p.box_cols == d
+    # tiles keep the 1024-byte alignment of the 128-byte swizzle
+    assert p.tile_bytes_q % plans.SMEM_ALIGN == 0 and p.tile_bytes_kv % plans.SMEM_ALIGN == 0
+    assert p.stages >= 2
+    used = p.tile_bytes_q + 2 * p.stages * p.tile_bytes_kv + 8 * (1 + 2 * p.stages)
+    assert p.smem_bytes == used + plans.SMEM_ALIGN
+    assert p.smem_bytes <= plans.SMEM_MAX
+    # blocks that fit one SM's 228 KB, each with its 1 KB system share: four
+    # up to D=64 (registers allow four), two at D=128
+    per_sm = 233_472 // (p.smem_bytes + 1024)
+    assert per_sm >= (4 if d <= 64 else 2)
+
+
+@pytest.mark.parametrize("d", [8, 24, 48, 200])
+def test_flash_plan_rejects_head_dims_without_a_kernel(d):
+    with pytest.raises(ValueError):
+        plans.flash_plan(1, 64, 1, d, causal=False)
+
+
+@pytest.mark.parametrize("d,rows", [(16, 128), (32, 128), (64, 64), (128, 32)])
+def test_fma_rows(d, rows):
+    assert plans.fma_rows(d) == rows
+
+
+DOT_SHAPES = [(4096, 27, 16), (4095, 27, 16), (33, 2, 8), (7, 60, 48), (5, 9, 24), (3, 100, 64)]
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("shape", DOT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_dot_plan_rows_fit(shape, elem):
+    b, n, d = shape
+    p = plans.dot_plan(b, n, d, elem)
+    assert 1 <= p.rows_per_block <= plans.DOT_MAX_ROWS
+    assert p.threads == 32 * p.rows_per_block  # one warp per batch row
+    assert p.grid * p.rows_per_block >= b > (p.grid - 1) * p.rows_per_block
+    smem = plans.dot_smem_bytes(p.rows_per_block, n, d, elem, p.mma)
+    assert p.smem_bytes == smem <= plans.SMEM_STATIC
+    # the most rows that fit: one more would not (or the cap is reached)
+    if p.rows_per_block < plans.DOT_MAX_ROWS:
+        assert plans.dot_smem_bytes(p.rows_per_block + 1, n, d, elem, p.mma) > plans.SMEM_STATIC
+
+
+def test_dot_plan_serving_shape():
+    p = plans.dot_plan(4096, 27, 16, 2)  # bf16: the tensor-core path
+    assert p.mma and (p.rows_per_block, p.threads, p.grid, p.feat_stride) == (8, 256, 512, 24)
+    p = plans.dot_plan(4096, 27, 16, 4)  # f32: the FMA walk
+    assert not p.mma and (p.rows_per_block, p.threads, p.grid, p.feat_stride) == (8, 256, 512, 20)
+
+
+@pytest.mark.parametrize(
+    "n,d,elem,mma",
+    [(27, 16, 2, True), (32, 64, 2, True), (33, 16, 2, False), (27, 16, 4, False),
+     (27, 8, 2, False), (27, 24, 2, False), (2, 48, 2, True)],
+)
+def test_dot_plan_takes_the_tensor_cores_where_they_fit(n, d, elem, mma):
+    assert plans.dot_plan(64, n, d, elem).mma is mma
+
+
+def test_dot_plan_refuses_a_row_that_does_not_fit():
+    assert plans.dot_plan(4, 200, 64, 4).rows_per_block == 0
+
+
+@pytest.mark.parametrize("d", [16, 32, 48, 64])
+def test_dot_mma_feature_stride_is_conflict_free(d):
+    """One ldmatrix phase reads 8 rows of 16 bytes: the 8 rows start on
+    distinct 16-byte bank groups."""
+    stride_bytes = plans.dot_feat_stride(d, mma=True) * 2
+    assert stride_bytes % 16 == 0  # ldmatrix rows are 16-byte aligned
+    assert len({(row * stride_bytes // 16) % 8 for row in range(8)}) == 8
+
+
+@pytest.mark.parametrize("d", [8, 16, 32, 48, 64, 5, 7, 24, 30])
+def test_dot_feature_stride_is_conflict_free(d):
+    """Reading one feature row per lane: the served widths read 16 bytes per
+    lane (8 lanes per shared-memory wavefront), other widths 4 bytes (32
+    lanes); either way every lane of a wavefront lands on its own banks."""
+    stride = plans.dot_feat_stride(d)
+    assert stride >= d
+    if d in plans.DOT_SPECIALISED_DIMS:
+        banks = [(lane * stride + w) % 32 for lane in range(8) for w in range(4)]
+    else:
+        banks = [(lane * stride) % 32 for lane in range(32)]
+    assert len(set(banks)) == len(banks)

@@ -13,7 +13,7 @@ import torch
 
 from persia_tpu_torch.ops import dot_interaction, flash_attention
 from persia_tpu_torch.ops.dot_interaction import dot_interaction_reference
-from persia_tpu_torch.ops.flash_attention import reference_attention
+from persia_tpu_torch.ops.flash_attention import reference_attention, route_tolerance
 
 pytestmark = pytest.mark.gpu
 
@@ -34,10 +34,11 @@ def _randn(shape, seed, dev, dtype=torch.float32):
 @pytest.mark.parametrize(
     "dtype,rtol,atol", [(torch.float32, 1e-5, 1e-5), (torch.bfloat16, 2 ** -7, 1e-3)]
 )
-@pytest.mark.parametrize("b,n,d", [(4096, 27, 16), (33, 2, 8), (7, 60, 48)])
+@pytest.mark.parametrize("b,n,d", [(4096, 27, 16), (4095, 27, 16), (33, 2, 8), (7, 60, 48), (5, 9, 24)])
 def test_dot_interaction_kernel_matches_plain(cuda, b, n, d, dtype, rtol, atol):
-    """f32 differs from the plain version only in summation order; bf16 by
-    at most one rounding of two f32 sums that differ in order."""
+    """f32 (the FMA walk) differs from the plain version only in summation
+    order; bf16 (tensor cores where d and n allow) by at most one rounding
+    of two f32 sums that differ in order."""
     feats = _randn((b, n, d), seed=n, dev=cuda, dtype=dtype)
     before = dot_interaction.launches
     out = dot_interaction(feats)
@@ -63,12 +64,64 @@ def test_flash_attention_kernel_matches_plain_f32(cuda, d, causal, l):
 
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_attention_kernel_matches_plain_bf16(cuda, causal):
-    """bf16: the same f32 math on both sides, each rounding once to bf16."""
+    """bf16 (the wgmma route) at an explicit scale; tolerance and its reason:
+    route_tolerance."""
     q, k, v = (_randn((2, 200, 4, 64), seed=50 + i, dev=cuda, dtype=torch.bfloat16) for i in range(3))
     out = flash_attention(q, k, v, causal=causal, scale=0.2)
     ref = reference_attention(q, k, v, causal=causal, scale=0.2)
     assert out.dtype == torch.bfloat16
-    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
+    rtol, atol = route_tolerance(v)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l", [8, 37, 300, 1000, 1024])
+def test_flash_attention_wgmma_matches_plain(cuda, d, causal, l):
+    """The bf16 kernel at every head dim, ragged and whole tiles."""
+    q, k, v = (_randn((2, l, 3, d), seed=7 * d + l + i, dev=cuda, dtype=torch.bfloat16) for i in range(3))
+    before = dict(flash_attention.launches_by_route)
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_route["wgmma_bf16"] == before["wgmma_bf16"] + 1
+    rtol, atol = route_tolerance(v)
+    torch.testing.assert_close(out.float(), reference_attention(q, k, v, causal=causal).float(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_wgmma_many_waves(cuda, causal):
+    """4096 blocks, many waves over the 132 SMs: every (b, h, q tile) once."""
+    q, k, v = (_randn((8, 2048, 16, 64), seed=90 + i, dev=cuda, dtype=torch.bfloat16) for i in range(3))
+    out = flash_attention(q, k, v, causal=causal)
+    rtol, atol = route_tolerance(v)
+    torch.testing.assert_close(out.float(), reference_attention(q, k, v, causal=causal).float(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("scale", [-0.3, 0.0])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_wgmma_nonpositive_scale(cuda, scale, causal):
+    """The kernel needs scale > 0; the wrapper rewrites the others into the
+    same softmax."""
+    q, k, v = (_randn((2, 100, 2, 32), seed=70 + i, dev=cuda, dtype=torch.bfloat16) for i in range(3))
+    out = flash_attention(q, k, v, causal=causal, scale=scale)
+    rtol, atol = route_tolerance(v)
+    ref = reference_attention(q, k, v, causal=causal, scale=scale)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+def test_flash_attention_routes_follow_dtype(cuda):
+    q = _randn((1, 70, 2, 32), seed=3, dev=cuda)
+    before = dict(flash_attention.launches_by_route)
+    flash_attention(q, q, q)
+    assert flash_attention.launches_by_route == {**before, "fma_f32": before["fma_f32"] + 1}
+    qb = q.to(torch.bfloat16)
+    flash_attention(qb, qb, qb)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_route == {
+        "fma_f32": before["fma_f32"] + 1, "wgmma_bf16": before["wgmma_bf16"] + 1,
+    }
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
