@@ -6,23 +6,28 @@
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
 
-1. build the port's CUDA kernels from ``persia_tpu_torch/csrc`` (nvcc, sm_90a);
+1. build the port's CUDA kernels from ``persia_tpu_torch/csrc`` (nvcc,
+   sm_90a); the flash-attention kernels' SASS must hold wgmma (HGMMA) and
+   TMA loads (UTMALDG), the f32 one without spills;
 2. flash_attention on the card vs its plain version (dense f32 softmax):
-   the bf16 route (wgmma) at every head dim, ragged L=1000, and the f32
-   route (FMA);
+   the bf16 route (wgmma) and the f32 route (split TF32 on wgmma, its
+   pre-pass held bit for bit to ``tf32_split_planes_reference``) at every
+   head dim, ragged L=1000;
 3. dot_interaction on the card vs its plain version at the serving shape;
 4. the paths, each with the launch counts set to 0 just before and read
    just after: the flash-attention entry point at (B=4, L=1024, H=8, D=64)
-   in bf16, causal and not (the wgmma kernel), and in f32 (the FMA kernel);
-   and the serving slice at bench width — DLRM (13 dense features, 26
+   in bf16 and in f32, causal and not; and the serving slice at bench
+   width — DLRM (13 dense features, 26
    single-id slots of dim 16, bottom (256, 64, 16), top (512, 256)) behind
    ``InferenceEngine(InferCtx(...))``, answering 5 requests of B=4096 zipf
    ids through ``predict_from_bytes``, held against the same engine on the
    CPU;
 5. timings of each kernel beside its plain version, the library call that
    computes the same function, and the card's bound, each by CUDA-graph
-   replay (host enqueue cost out of the number; eager times beside them);
-   the serving latency and throughput.
+   replay (host enqueue cost out of the number; eager times beside them):
+   flash attention per route and mask (the f32 route's pre-pass also on
+   its own), the name of the kernel SDPA runs for f32 (torch.profiler),
+   the dot interaction; the serving latency and throughput.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -38,15 +43,16 @@ import time
 import numpy as np
 
 # the card's published peaks (H100 SXM data sheet, dense): HBM bytes/s and
-# operations/s by input type (f32 without the tensor cores)
+# operations/s by type (float32: the FMA pipes; tf32: the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "tf32": 494.7e12, "float32": 67e12}
 
 BATCH, N_DENSE, N_SLOTS, EMB_DIM, VOCAB = 4096, 13, 26, 16, 1_000_000
 BOTTOM, TOP = (256, 64, EMB_DIM), (512, 256)
 REQUESTS, WARM_BATCHES, SEED = 5, 8, 0
 FA_SOURCE = {"wgmma_bf16": "persia_tpu_torch/csrc/flash_attention_hopper.cu",
-             "fma_f32": "persia_tpu_torch/csrc/flash_attention.cu"}
+             "tf32x3": "persia_tpu_torch/csrc/flash_attention_tf32.cu"}
+FA_REPLACES = "persia_tpu/ops/flash_attention.py:107"
 
 
 def card_line() -> str:
@@ -187,7 +193,7 @@ def device_busy_ms(step, batches):
     return sum(per.values()), top
 
 
-KERNEL_NAMES = ("fa_fwd_wgmma_kernel", "flash_attention_fwd_kernel",
+KERNEL_NAMES = ("fa_fwd_wgmma_kernel", "fa_fwd_tf32x3_kernel", "tf32_split_kernel",
                 "dot_interaction_mma_kernel", "dot_interaction_kernel")
 
 
@@ -251,33 +257,52 @@ def phase_build():
     summary = build_summary(_kernels.build_log, _kernels.library_path())
     for name, info in summary.items():
         print(f"  {name}: {json.dumps(info)}", flush=True)
-    fa = summary.get("fa_fwd_wgmma_kernel<64>", {}).get("sass", {})
-    if not (fa.get("HGMMA") and fa.get("UTMALDG")):
-        raise SystemExit(f"the bf16 flash-attention kernel's SASS lacks HGMMA or UTMALDG: {fa}")
+    for kernel in ("fa_fwd_wgmma_kernel<64>", "fa_fwd_tf32x3_kernel<64>"):
+        fa = summary.get(kernel, {}).get("sass", {})
+        if not (fa.get("HGMMA") and fa.get("UTMALDG")):
+            raise SystemExit(f"{kernel}'s SASS lacks HGMMA or UTMALDG: {fa}")
+    spills = {k: v["spill_bytes"] for k, v in summary.items()
+              if k.startswith("fa_fwd_tf32x3_kernel") and v.get("spill_bytes")}
+    if spills:
+        raise SystemExit(f"the f32 flash-attention kernel spills: {spills}")
     return summary
 
 
 def phase_flash_attention(dev):
     import torch
 
-    from persia_tpu_torch.ops import flash_attention
-    from persia_tpu_torch.ops.flash_attention import reference_attention, route_tolerance
+    from persia_tpu_torch.ops import flash_attention, tf32_split_planes
+    from persia_tpu_torch.ops.flash_attention import (
+        reference_attention, route_tolerance, tf32_split_planes_reference,
+    )
 
     print("== phase 2: flash_attention vs reference_attention", flush=True)
     # tolerances and their reasons: ops/flash_attention.py::route_tolerance
+    dtypes = (torch.bfloat16, torch.float32)
     cases = [
-        ((4, 1024, 8, 64), dtype, causal)
-        for dtype in (torch.bfloat16, torch.float32) for causal in (False, True)
+        ((4, 1024, 8, 64), dtype, causal) for dtype in dtypes for causal in (False, True)
     ] + [
-        ((4, 1000, 8, 64), torch.bfloat16, True),
-        ((4, 1000, 8, 64), torch.float32, True),
-        ((4, 256, 8, 16), torch.float32, True),
-        ((2, 512, 4, 32), torch.float32, True),
+        ((4, 1000, 8, 64), dtype, True) for dtype in dtypes
     ] + [
-        ((2, 1000, 4, d), torch.bfloat16, causal) for d in (16, 32, 128) for causal in (False, True)
+        ((2, 1000, 4, d), dtype, causal)
+        for d in (16, 32, 128) for dtype in dtypes for causal in (False, True)
     ]
     g = torch.Generator(device="cpu").manual_seed(SEED)
     errs = {}
+    # the f32 route's pre-pass: its planes equal the plain version's bit
+    # for bit (the rounding is cvt.rna.tf32's)
+    for shape in ((4, 1024, 8, 64), (2, 1000, 4, 16), (2, 1000, 4, 128)):
+        q, k, v = (torch.randn(shape, generator=g).to(dev) for _ in range(3))
+        planes = tf32_split_planes(q, k, v)
+        torch.cuda.synchronize()
+        ref = tf32_split_planes_reference(q, k, v)
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(planes, ref))
+        err = max(float((a - b).abs().max()) for a, b in zip(planes, ref))
+        print(f"  tf32_split_planes{list(shape)}: bitwise {'ok' if same else 'FAIL'} "
+              f"(max_abs_err={err:.3e})", flush=True)
+        if not same:
+            raise SystemExit("tf32_split_planes disagrees with its plain version")
+        errs.setdefault("tf32_split_planes", err)
     for shape, dtype, causal in cases:
         q, k, v = (torch.randn(shape, generator=g).to(dev, dtype) for _ in range(3))
         out = flash_attention(q, k, v, causal=causal)
@@ -288,7 +313,8 @@ def phase_flash_attention(dev):
         base = (2 ** -7, 1e-3) if dtype == torch.bfloat16 else None
         errs[(shape, dtype, causal)] = check_close(name, out, ref, *route_tolerance(v), base=base)
     return {"bf16": errs[((4, 1024, 8, 64), torch.bfloat16, False)],
-            "f32": errs[((4, 1024, 8, 64), torch.float32, False)]}
+            "f32": errs[((4, 1024, 8, 64), torch.float32, False)],
+            "tf32_split_planes": errs["tf32_split_planes"]}
 
 
 def phase_dot_interaction(dev):
@@ -317,23 +343,23 @@ def path_flash_attention(dev):
 
     from persia_tpu_torch import ops
 
-    print("== phase 4a: flash-attention path (bf16 both masks, f32 once)", flush=True)
+    print("== phase 4a: flash-attention path (bf16 and f32, both masks)", flush=True)
     g = torch.Generator(device="cpu").manual_seed(SEED + 2)
     qkv = [torch.randn((4, 1024, 8, 64), generator=g).to(dev) for _ in range(3)]
     bf = [x.to(torch.bfloat16) for x in qkv]
     ops.reset_launch_counts()
-    outs = [ops.flash_attention(*bf, causal=c) for c in (False, True)]
-    outs.append(ops.flash_attention(*qkv, causal=False))
+    outs = [ops.flash_attention(*x, causal=c) for x in (bf, qkv) for c in (False, True)]
     torch.cuda.synchronize()
     routes = dict(ops.flash_attention.launches_by_route)
+    split = ops.tf32_split_planes.launches
     for o in outs:
         if o.shape != qkv[0].shape or not bool(torch.isfinite(o.float()).all()):
             raise SystemExit("flash_attention path: bad output")
-    if routes != {"wgmma_bf16": 2, "fma_f32": 1} or ops.flash_attention.launches != 3:
-        raise SystemExit(f"flash_attention path launched {routes}, expected "
-                         f"wgmma_bf16 twice and fma_f32 once")
-    print(f"  flash_attention launches by route={routes}", flush=True)
-    return routes
+    if routes != {"wgmma_bf16": 2, "tf32x3": 2} or ops.flash_attention.launches != 4 or split != 2:
+        raise SystemExit(f"flash_attention path launched {routes} and the pre-pass {split} "
+                         f"times, expected each route and the pre-pass twice")
+    print(f"  flash_attention launches by route={routes}, tf32_split_planes={split}", flush=True)
+    return {**routes, "tf32_split_planes": split}
 
 
 def path_serving(dev):
@@ -453,13 +479,22 @@ def path_serving(dev):
     return launches, serving, feats_shape
 
 
+def sdpa_kernels(fn) -> list:
+    """Names of the CUDA kernels one call of ``fn`` runs, by torch.profiler."""
+    _, top = device_busy_ms(lambda _: fn(), [None])
+    return list(top)
+
+
 def phase_timing(dev, card, launches, errs, feats_shape):
     import torch
     import torch.nn.functional as F
 
     from persia_tpu_torch import ops
     from persia_tpu_torch.ops.dot_interaction import dot_interaction_reference
-    from persia_tpu_torch.ops.flash_attention import reference_attention
+    from persia_tpu_torch.ops.flash_attention import (
+        reference_attention, tf32_split_planes_reference,
+    )
+    from persia_tpu_torch.ops.plans import tf32_plan
 
     print("== phase 5: timing", flush=True)
     g = torch.Generator(device="cpu").manual_seed(SEED + 3)
@@ -467,43 +502,74 @@ def phase_timing(dev, card, launches, errs, feats_shape):
 
     b, l, h, d = 4, 1024, 8, 64
     q, k, v = (torch.randn((b, l, h, d), generator=g).to(dev) for _ in range(3))
-    def timed(row, kernel, plain, library, plain_calls=20):
+    def timed(row, kernel, plain, library=None, plain_calls=20):
         """Fill a row's times: graph-replayed (``ms``, ``plain_ms``,
         ``library_ms``) and eager (``*eager_ms``), kernel and library in
         turns (library, kernel, kernel, library) so drift shows."""
-        lib0, k0 = timings(library), timings(kernel)
-        k1, lib1 = timings(kernel), timings(library)
+        lib0 = timings(library) if library else None
+        k0, k1 = timings(kernel), timings(kernel)
+        lib1 = timings(library) if library else None
         plain_t = timings(plain, calls=plain_calls, eager_iters=plain_calls)
         row.update(
             ms=min(k0["graph"], k1["graph"]), eager_ms=min(k0["eager"], k1["eager"]),
             ms_runs=[k0["graph"], k1["graph"]],
             plain_ms=plain_t["graph"], plain_eager_ms=plain_t["eager"],
-            library_ms=min(lib0["graph"], lib1["graph"]),
-            library_eager_ms=min(lib0["eager"], lib1["eager"]),
-            library_ms_runs=[lib0["graph"], lib1["graph"]],
+            library_ms=min(lib0["graph"], lib1["graph"]) if library else None,
+            library_eager_ms=min(lib0["eager"], lib1["eager"]) if library else None,
+            library_ms_runs=[lib0["graph"], lib1["graph"]] if library else None,
         )
         return row
 
+    # f32 rows are bounded by the split-TF32 work (three TF32 products per
+    # product) on the tensor cores; the same work on the FMA pipes, once,
+    # is printed beside it as fma_bound_ms
     cases = [("wgmma_bf16", torch.bfloat16, False), ("wgmma_bf16", torch.bfloat16, True),
-             ("fma_f32", torch.float32, False)]
+             ("tf32x3", torch.float32, False), ("tf32x3", torch.float32, True)]
     for route, dtype, causal in cases:
         x = [t.to(dtype) for t in (q, k, v)]
         xt = [t.transpose(1, 2) for t in x]
         width = x[0].element_size()
         pairs = l * (l + 1) // 2 if causal else l * l
-        bms, by = bound(4 * b * l * h * d * width, 4 * b * h * d * pairs, str(dtype)[6:])
+        ops_ = 4 * b * h * d * pairs
+        extra = {}
+        if route == "tf32x3":
+            bms, by = bound(4 * b * l * h * d * width, 3 * ops_, "tf32")
+            extra = dict(bound_note="3 x operations / 494.7 TFLOP/s (TF32)",
+                         fma_bound_ms=bound(4 * b * l * h * d * width, ops_, "float32")[0])
+        else:
+            bms, by = bound(4 * b * l * h * d * width, ops_, "bfloat16")
+        library = lambda: F.scaled_dot_product_attention(*xt, is_causal=causal)  # noqa: E731
+        if dtype == torch.float32:
+            extra["library_kernels"] = sdpa_kernels(library)
+            print(f"  SDPA f32 causal={causal} runs: {extra['library_kernels']}", flush=True)
         rows.append(timed(
             dict(name="flash_attention", route="cuda", cuda_route=route,
-                 source=FA_SOURCE[route], replaces="persia_tpu/ops/flash_attention.py:107",
+                 source=FA_SOURCE[route], replaces=FA_REPLACES,
                  shape=[b, l, h, d], dtype=str(dtype)[6:], causal=causal,
                  launches=launches["flash_attention"][route],
                  max_abs_err=errs["flash_attention"]["bf16" if route == "wgmma_bf16" else "f32"],
-                 bound_ms=bms, bound_by=by),
+                 bound_ms=bms, bound_by=by, **extra),
             kernel=lambda: ops.flash_attention(*x, causal=causal),
             plain=lambda: reference_attention(*x, causal=causal),
-            library=lambda: F.scaled_dot_product_attention(*xt, is_causal=causal),
+            library=library,
             plain_calls=4,
         ))
+
+    # the f32 route's pre-pass alone (its time is inside the f32 rows):
+    # reads q, k, v once, writes six planes; no PyTorch call computes it
+    pad = tf32_plan(b, l, h, d, False).seq_pad
+    bms, by = bound(3 * b * l * h * d * 4 + 6 * b * h * pad * d * 4, 0, "float32")
+    rows.append(timed(
+        dict(name="tf32_split_planes", route="cuda", cuda_route="tf32x3",
+             source=FA_SOURCE["tf32x3"], replaces=FA_REPLACES,
+             shape=[b, l, h, d], dtype="float32",
+             launches=launches["flash_attention"]["tf32_split_planes"],
+             max_abs_err=errs["flash_attention"]["tf32_split_planes"],
+             bound_ms=bms, bound_by=by),
+        kernel=lambda: ops.tf32_split_planes(q, k, v),
+        plain=lambda: tf32_split_planes_reference(q, k, v),
+        plain_calls=4,
+    ))
 
     feats = torch.randn(feats_shape, generator=g).to(dev, torch.bfloat16)
     bsz, n, dim = feats_shape
@@ -551,8 +617,8 @@ def main() -> int:
     print(json.dumps({"serving": serving, "card": card}), flush=True)
     print(json.dumps({"build": build, "card": card}), flush=True)
 
-    # one entry per kernel (the bf16 flash-attention entry is its
-    # non-causal row); times graph-replayed, eager beside them
+    # one entry per kernel (each flash-attention route by its non-causal
+    # row); times graph-replayed, eager beside them
     keys = ("name", "route", "cuda_route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "eager_ms",
             "library_eager_ms")

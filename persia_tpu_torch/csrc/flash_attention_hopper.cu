@@ -3,10 +3,10 @@
 // {16, 32, 64, 128}.
 //
 // Replaces: persia_tpu/ops/flash_attention.py:33-82 `_fa_kernel`, launched
-// by `_fa_forward` (pallas_call at :107), for bf16 inputs; f32 inputs stay
-// on the FMA kernel of flash_attention.cu. Same function: scores q.k*scale
-// accumulated in f32, keys at or past L masked (and keys after the query
-// under `causal`), online max / sum / accumulator in f32, masked
+// by `_fa_forward` (pallas_call at :107), for bf16 inputs (f32 inputs take
+// the split-TF32 kernel of flash_attention_tf32.cu). Same function: scores
+// q.k*scale accumulated in f32, keys at or past L masked (and keys after
+// the query under `causal`), online max / sum / accumulator in f32, masked
 // probabilities zero, output acc / max(l, 1e-30) rounded once to bf16.
 //
 // Numerics, the one departure from the TPU kernel: P.V multiplies P rounded
@@ -52,8 +52,6 @@
 // - output: normalised, rounded to bf16, written into the Q tile's shared
 //   memory in the same swizzled layout and stored by TMA, which clips rows
 //   >= L.
-
-#include <cuda.h>  // CUtensorMap and its enums (no driver library is linked)
 
 #include <initializer_list>
 
@@ -311,47 +309,14 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime's entry-point
-// query, so the library links no libcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                            cudaEnableDefault, &found);
-#else
-    const cudaError_t rc =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (rc != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // a map over a contiguous bf16 [B, L, H, D] tensor, box {box_cols, 1, 64, 1}
-bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int batch, int seq_len,
-                int heads, int dim, int box_cols, int swizzle_bytes) {
-  const cuuint64_t dims[4] = {cuuint64_t(dim), cuuint64_t(heads), cuuint64_t(seq_len),
-                              cuuint64_t(batch)};
+bool encode_map(CUtensorMap* map, const void* ptr, int batch, int seq_len, int heads, int dim,
+                int box_cols, int swizzle_bytes) {
   const cuuint64_t row = cuuint64_t(dim) * 2;
-  const cuuint64_t strides[3] = {row, row * heads, row * heads * seq_len};  // bytes, dims 1..3
-  const cuuint32_t box[4] = {cuuint32_t(box_cols), 1, cuuint32_t(kBlockK), 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle = swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                           : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr,
+                       {cuuint64_t(dim), cuuint64_t(heads), cuuint64_t(seq_len), cuuint64_t(batch)},
+                       {row, row * heads, row * heads * seq_len},
+                       {cuuint32_t(box_cols), 1, cuuint32_t(kBlockK), 1}, swizzle_bytes);
 }
 
 template <int D>
@@ -396,13 +361,11 @@ extern "C" int persia_flash_attention_fwd_wgmma(const void* q, const void* k, co
   for (const void* p : {q, k, v, static_cast<const void*>(out)}) {
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorMisalignedAddress;
   }
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
   CUtensorMap maps[4];
   const void* ptrs[4] = {q, k, v, out};
   for (int i = 0; i < 4; ++i) {
-    if (!encode_map(encode, &maps[i], ptrs[i], batch, seq_len, heads, dim, box_cols,
-                    swizzle_bytes)) {
+    if (!encode_map(&maps[i], ptrs[i], batch, seq_len, heads, dim, box_cols, swizzle_bytes)) {
       return cudaErrorInvalidValue;
     }
   }

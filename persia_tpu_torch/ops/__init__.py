@@ -2,12 +2,13 @@
 ``persia_tpu_torch/csrc``), each beside its plain PyTorch version. A CPU
 tensor takes the plain version; a CUDA tensor launches the kernel, and each
 wrapper counts its launches in ``<wrapper>.launches`` (flash attention also
-per route, in ``flash_attention.launches_by_route``)."""
+per route, in ``flash_attention.launches_by_route``; its f32 route's
+pre-pass in ``tf32_split_planes.launches``)."""
 
 from persia_tpu_torch.ops.dot_interaction import dot_interaction  # noqa: F401
-from persia_tpu_torch.ops.flash_attention import flash_attention  # noqa: F401
+from persia_tpu_torch.ops.flash_attention import flash_attention, tf32_split_planes  # noqa: F401
 
-KERNEL_WRAPPERS = (dot_interaction, flash_attention)
+KERNEL_WRAPPERS = (dot_interaction, flash_attention, tf32_split_planes)
 
 
 def reset_launch_counts() -> None:

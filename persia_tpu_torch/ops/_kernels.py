@@ -116,9 +116,12 @@ def library() -> ctypes.CDLL:
             vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.persia_dot_interaction.restype = i32
             lib.persia_dot_interaction.argtypes = [vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, vp]
-            lib.persia_flash_attention_fwd_fma.restype = i32
-            lib.persia_flash_attention_fwd_fma.argtypes = [
-                vp, vp, vp, vp, i32, i32, i32, i32, f32, i32, i32, vp,
+            lib.persia_tf32_split.restype = i32
+            lib.persia_tf32_split.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
+            lib.persia_flash_attention_fwd_tf32x3.restype = i32
+            lib.persia_flash_attention_fwd_tf32x3.argtypes = [
+                vp, vp, vp, i32, i32, i32, i32, f32, i32,
+                i32, i32, i32, i32, i32, i32, i32, i32, i32, vp,
             ]
             lib.persia_flash_attention_fwd_wgmma.restype = i32
             lib.persia_flash_attention_fwd_wgmma.argtypes = [

@@ -22,24 +22,9 @@ FA_STAGES = 2
 FA_SWIZZLE_MAX = 128  # bytes: the widest TMA/wgmma swizzle
 
 
-@dataclass(frozen=True)
-class FlashPlan:
-    batch: int
-    seq_len: int
-    heads: int
-    dim: int
-    causal: bool
-    block_q: int
-    block_k: int
-    stages: int
-    q_tiles: int
-    grid: int  # one block per (q tile, b, h)
-    box_cols: int  # inner extent of one TMA box, elements
-    boxes: int  # boxes per tile row: D / box_cols
-    swizzle_bytes: int  # TMA swizzle == wgmma layout type
-    tile_bytes_q: int
-    tile_bytes_kv: int
-    smem_bytes: int  # dynamic shared memory, alignment slack included
+class _QTileOrder:
+    """How a flash-attention kernel maps blocks to (b, h, q tile) and how
+    many key tiles each visits (both kernels alike)."""
 
     def block_tile(self, block: int):
         """(b, h, q tile) of a block, as the kernel maps it: q tiles
@@ -57,6 +42,26 @@ class FlashPlan:
         if self.causal:
             keys = min(keys, (q_tile + 1) * self.block_q)
         return -(-keys // self.block_k)
+
+
+@dataclass(frozen=True)
+class FlashPlan(_QTileOrder):
+    batch: int
+    seq_len: int
+    heads: int
+    dim: int
+    causal: bool
+    block_q: int
+    block_k: int
+    stages: int
+    q_tiles: int
+    grid: int  # one block per (q tile, b, h)
+    box_cols: int  # inner extent of one TMA box, elements
+    boxes: int  # boxes per tile row: D / box_cols
+    swizzle_bytes: int  # TMA swizzle == wgmma layout type
+    tile_bytes_q: int
+    tile_bytes_kv: int
+    smem_bytes: int  # dynamic shared memory, alignment slack included
 
 
 def flash_plan(batch: int, seq_len: int, heads: int, dim: int, causal: bool) -> FlashPlan:
@@ -77,10 +82,69 @@ def flash_plan(batch: int, seq_len: int, heads: int, dim: int, causal: bool) -> 
     )
 
 
-def fma_rows(dim: int) -> int:
-    """Query rows per block of the f32 kernel (csrc/flash_attention.cu):
-    128 threads, D/32 of them per row (one for D <= 32)."""
-    return 128 // max(1, dim // 32)
+# flash attention, f32 (csrc/flash_attention_tf32.cu): split TF32 planes
+# written by a pre-pass, one warpgroup per 64 query rows, keys in tiles of 32
+TF32_BLOCK_Q = 64
+TF32_BLOCK_K = 32
+TF32_STAGES = 2
+TF32_SEQ_ALIGN = 64  # the planes hold whole q tiles
+TF32_BOX_COLS_MAX = 32  # f32 columns in a 128-byte swizzle row
+# position p of each group of 8 in a V^T row holds key TF32_KEY_ORDER[p]:
+# the S accumulator gives a thread keys 2t, 2t+1 of a group and the TF32 A
+# fragment wants columns t, t+4, so P enters P.V without a shuffle
+TF32_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+@dataclass(frozen=True)
+class Tf32Plan(_QTileOrder):
+    batch: int
+    seq_len: int
+    heads: int
+    dim: int
+    causal: bool
+    block_q: int
+    block_k: int
+    stages: int
+    seq_pad: int  # rows of every plane: L rounded up to whole q tiles
+    q_tiles: int
+    grid: int  # main kernel: one block per (q tile, b, h)
+    box_cols: int  # inner extent of one Q/K plane TMA box, f32 elements
+    boxes: int  # boxes per plane row: D / box_cols
+    swizzle_bytes: int  # Q/K planes and the output (the V^T planes: 128)
+    tile_bytes_q: int  # one Q plane tile (hi or lo): 64 x D
+    tile_bytes_k: int  # one K plane tile: 32 x D
+    tile_bytes_vt: int  # one V^T plane tile: D x 32
+    stage_bytes: int  # k_hi, k_lo, v_hi, v_lo
+    smem_bytes: int  # dynamic shared memory, alignment slack included
+
+    @property
+    def plane_shapes(self):
+        """Shapes of the pre-pass outputs: qk [4, B*H, L_pad, D] (q_hi,
+        q_lo, k_hi, k_lo) and vt [2, B*H, D, L_pad] (v_hi, v_lo)."""
+        bh = self.batch * self.heads
+        return (4, bh, self.seq_pad, self.dim), (2, bh, self.dim, self.seq_pad)
+
+
+def tf32_plan(batch: int, seq_len: int, heads: int, dim: int, causal: bool) -> Tf32Plan:
+    if dim not in (16, 32, 64, 128):
+        raise ValueError(f"no split-TF32 plan for head dim {dim}")
+    box_cols = min(dim, TF32_BOX_COLS_MAX)
+    tile_q = TF32_BLOCK_Q * dim * 4
+    tile_k = TF32_BLOCK_K * dim * 4
+    tile_vt = dim * TF32_BLOCK_K * 4
+    stage = 2 * tile_k + 2 * tile_vt
+    barriers = 8 * (1 + 2 * TF32_STAGES)
+    smem = SMEM_ALIGN + 2 * tile_q + TF32_STAGES * stage + barriers
+    seq_pad = -(-seq_len // TF32_SEQ_ALIGN) * TF32_SEQ_ALIGN
+    q_tiles = -(-seq_len // TF32_BLOCK_Q)
+    return Tf32Plan(
+        batch=batch, seq_len=seq_len, heads=heads, dim=dim, causal=bool(causal),
+        block_q=TF32_BLOCK_Q, block_k=TF32_BLOCK_K, stages=TF32_STAGES, seq_pad=seq_pad,
+        q_tiles=q_tiles, grid=q_tiles * batch * heads,
+        box_cols=box_cols, boxes=dim // box_cols, swizzle_bytes=box_cols * 4,
+        tile_bytes_q=tile_q, tile_bytes_k=tile_k, tile_bytes_vt=tile_vt, stage_bytes=stage,
+        smem_bytes=smem,
+    )
 
 
 # dot interaction (csrc/dot_interaction.cu): one warp per batch row

@@ -63,9 +63,61 @@ def test_flash_plan_rejects_head_dims_without_a_kernel(d):
         plans.flash_plan(1, 64, 1, d, causal=False)
 
 
-@pytest.mark.parametrize("d,rows", [(16, 128), (32, 128), (64, 64), (128, 32)])
-def test_fma_rows(d, rows):
-    assert plans.fma_rows(d) == rows
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_tf32_plan_covers_every_tile_once_longest_first(shape, causal):
+    b, l, h, d = shape
+    p = plans.tf32_plan(b, l, h, d, causal)
+    seen = [p.block_tile(block) for block in range(p.grid)]
+    assert len(seen) == len(set(seen)) == b * h * p.q_tiles
+    assert set(seen) == set(itertools.product(range(b), range(h), range(p.q_tiles)))
+    assert (p.q_tiles - 1) * p.block_q < l <= p.q_tiles * p.block_q
+    work = [p.key_tiles(tile[2]) for tile in seen]
+    assert work == sorted(work, reverse=True)
+    for qt in range(p.q_tiles):
+        keys = min(l, (qt + 1) * p.block_q) if causal else l
+        assert p.key_tiles(qt) == -(-keys // p.block_k)
+    # the planes hold whole q tiles, so no TMA box of Q, K or V^T leaves them
+    assert p.seq_pad % p.block_q == 0 and p.seq_pad % p.block_k == 0
+    assert l <= p.seq_pad < l + plans.TF32_SEQ_ALIGN
+    assert p.plane_shapes == ((4, b * h, p.seq_pad, d), (2, b * h, d, p.seq_pad))
+
+
+@pytest.mark.parametrize("d,blocks", [(16, 2), (32, 2), (64, 2), (128, 1)])
+def test_tf32_plan_shared_memory_and_blocks_per_sm(d, blocks):
+    p = plans.tf32_plan(4, 1024, 8, d, causal=False)
+    # a Q/K box row is the swizzle width: 64 bytes at D=16, else 128
+    assert p.box_cols * 4 == p.swizzle_bytes == (64 if d == 16 else 128)
+    assert p.boxes * p.box_cols == d
+    # every tile keeps the 1024-byte alignment of the 128-byte swizzle
+    for tile in (p.tile_bytes_q, p.tile_bytes_k, p.tile_bytes_vt, p.stage_bytes):
+        assert tile % plans.SMEM_ALIGN == 0
+    assert p.tile_bytes_q == 64 * d * 4 and p.tile_bytes_k == p.tile_bytes_vt == 32 * d * 4
+    assert p.stages >= 2
+    used = 2 * p.tile_bytes_q + p.stages * p.stage_bytes + 8 * (1 + 2 * p.stages)
+    assert p.smem_bytes == used + plans.SMEM_ALIGN <= plans.SMEM_MAX
+    # blocks that fit one SM's 228 KB, each with its 1 KB system share: the
+    # kernel's __launch_bounds__ target (two up to D=64, one at D=128); at
+    # the main shape's D=64 exactly two (2 x 97 KB)
+    per_sm = 233_472 // (p.smem_bytes + 1024)
+    assert per_sm >= blocks
+    if d == 64:
+        assert per_sm == 2
+
+
+@pytest.mark.parametrize("d", [8, 24, 48, 200])
+def test_tf32_plan_rejects_head_dims_without_a_kernel(d):
+    with pytest.raises(ValueError):
+        plans.tf32_plan(1, 64, 1, d, causal=False)
+
+
+def test_tf32_key_order_is_a_permutation_within_each_group_of_8():
+    """Position p of a V^T group holds key TF32_KEY_ORDER[p]; the A fragment
+    reads positions t and t+4 from the accumulator's keys 2t and 2t+1."""
+    order = plans.TF32_KEY_ORDER
+    assert sorted(order) == list(range(8))
+    for t in range(4):
+        assert (order[t], order[t + 4]) == (2 * t, 2 * t + 1)
 
 
 DOT_SHAPES = [(4096, 27, 16), (4095, 27, 16), (33, 2, 8), (7, 60, 48), (5, 9, 24), (3, 100, 64)]

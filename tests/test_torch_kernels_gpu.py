@@ -11,9 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from persia_tpu_torch.ops import dot_interaction, flash_attention
+from persia_tpu_torch.ops import dot_interaction, flash_attention, tf32_split_planes
 from persia_tpu_torch.ops.dot_interaction import dot_interaction_reference
-from persia_tpu_torch.ops.flash_attention import reference_attention, route_tolerance
+from persia_tpu_torch.ops.flash_attention import (
+    reference_attention,
+    route_tolerance,
+    tf32_split_planes_reference,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -50,16 +54,48 @@ def test_dot_interaction_kernel_matches_plain(cuda, b, n, d, dtype, rtol, atol):
 
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("l", [8, 37, 300])
+@pytest.mark.parametrize("l", [8, 37, 300, 1000, 1024])
 def test_flash_attention_kernel_matches_plain_f32(cuda, d, causal, l):
-    """f32 vs the dense f32 plain version: only the order of the softmax
-    sums differs."""
+    """f32 (split TF32, pre-pass + main kernel) vs the dense f32 plain
+    version at every head dim, ragged and whole tiles; tolerance and its
+    reason: route_tolerance."""
     q, k, v = (_randn((2, l, 3, d), seed=d + l + i, dev=cuda) for i in range(3))
-    before = flash_attention.launches
+    before = flash_attention.launches_by_route["tf32x3"], tf32_split_planes.launches
     out = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
+    after = flash_attention.launches_by_route["tf32x3"], tf32_split_planes.launches
+    assert after == (before[0] + 1, before[1] + 1)
+    assert out.dtype == torch.float32
     torch.testing.assert_close(out, reference_attention(q, k, v, causal=causal), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 3, 16), (1, 300, 2, 32), (2, 1000, 3, 64), (1, 64, 2, 128)])
+def test_tf32_split_planes_kernel_matches_plain_bitwise(cuda, shape):
+    """The pre-pass rounds as cvt.rna.tf32 does: its planes equal the plain
+    version's bit for bit, padding and V^T key order included."""
+    q, k, v = (_randn(shape, seed=sum(shape) + i, dev=cuda) for i in range(3))
+    qk, vt = tf32_split_planes(q, k, v)
+    torch.cuda.synchronize()
+    ref_qk, ref_vt = tf32_split_planes_reference(q, k, v)
+    assert torch.equal(qk.view(torch.int32), ref_qk.view(torch.int32))
+    assert torch.equal(vt.view(torch.int32), ref_vt.view(torch.int32))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_tf32x3_many_waves(cuda, causal):
+    """4096 blocks, many waves over the 132 SMs: every (b, h, q tile) once."""
+    q, k, v = (_randn((8, 2048, 16, 64), seed=95 + i, dev=cuda) for i in range(3))
+    out = flash_attention(q, k, v, causal=causal)
+    torch.testing.assert_close(out, reference_attention(q, k, v, causal=causal), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("scale", [-0.3, 0.0])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_tf32x3_nonpositive_scale(cuda, scale, causal):
+    q, k, v = (_randn((2, 100, 2, 32), seed=75 + i, dev=cuda) for i in range(3))
+    out = flash_attention(q, k, v, causal=causal, scale=scale)
+    ref = reference_attention(q, k, v, causal=causal, scale=scale)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -115,12 +151,12 @@ def test_flash_attention_routes_follow_dtype(cuda):
     q = _randn((1, 70, 2, 32), seed=3, dev=cuda)
     before = dict(flash_attention.launches_by_route)
     flash_attention(q, q, q)
-    assert flash_attention.launches_by_route == {**before, "fma_f32": before["fma_f32"] + 1}
+    assert flash_attention.launches_by_route == {**before, "tf32x3": before["tf32x3"] + 1}
     qb = q.to(torch.bfloat16)
     flash_attention(qb, qb, qb)
     torch.cuda.synchronize()
     assert flash_attention.launches_by_route == {
-        "fma_f32": before["fma_f32"] + 1, "wgmma_bf16": before["wgmma_bf16"] + 1,
+        "tf32x3": before["tf32x3"] + 1, "wgmma_bf16": before["wgmma_bf16"] + 1,
     }
 
 
@@ -131,6 +167,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.zeros((2, 16, 2, 16), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         flash_attention(x, x, x)
+    with pytest.raises(TypeError):
+        tf32_split_planes(*(x.to(torch.bfloat16),) * 3)  # the pre-pass takes f32 only
     x = torch.zeros((2, 2, 16, 16), device=cuda).transpose(1, 2)
     with pytest.raises(ValueError):
         flash_attention(x, x, x)  # not contiguous
