@@ -13,21 +13,30 @@ result line:
    the bf16 route (wgmma) and the f32 route (split TF32 on wgmma, its
    pre-pass held bit for bit to ``tf32_split_planes_reference``) at every
    head dim, ragged L=1000;
-3. dot_interaction on the card vs its plain version at the serving shape;
+3. the DLRM kernels on the card vs their plain versions, at the bench
+   shape and at edge shapes: the dot interaction and its backward, the
+   grouped gather-pool forward and backward (L=4, counts, f32, a group of
+   70 slots), and the backward's bitwise determinism;
 4. the paths, each with the launch counts set to 0 just before and read
-   just after: the flash-attention entry point at (B=4, L=1024, H=8, D=64)
-   in bf16 and in f32, causal and not; and the serving slice at bench
-   width — DLRM (13 dense features, 26
-   single-id slots of dim 16, bottom (256, 64, 16), top (512, 256)) behind
-   ``InferenceEngine(InferCtx(...))``, answering 5 requests of B=4096 zipf
-   ids through ``predict_from_bytes``, held against the same engine on the
+   just after: (a) the flash-attention entry point at (B=4, L=1024, H=8,
+   D=64) in bf16 and in f32, causal and not; (b) the serving slice at bench
+   width — DLRM (13 dense features, 26 single-id slots of dim 16, bottom
+   (256, 64, 16), top (512, 256)) behind ``InferenceEngine(InferCtx(...))``,
+   answering 5 requests of B=4096 zipf ids through ``predict_from_bytes``,
+   held against the same engine on the CPU; (c) the training slice at the
+   same width — ``TrainCtx(...).train_step`` with device pooling, a bf16
+   wire, sparse Adagrad(0.05) on the numpy store and Adam(1e-3) on the dense
+   tower: 2 warm-up and 8 measured steps, then 5 steps stage by stage,
+   its first 3 losses and its PS rows held against the same steps on the
    CPU;
 5. timings of each kernel beside its plain version, the library call that
    computes the same function, and the card's bound, each by CUDA-graph
    replay (host enqueue cost out of the number; eager times beside them):
    flash attention per route and mask (the f32 route's pre-pass also on
    its own), the name of the kernel SDPA runs for f32 (torch.profiler),
-   the dot interaction; the serving latency and throughput.
+   the dot interaction and its backward, the gather-pool forward and
+   backward at the training path's own inputs; the serving latency and
+   throughput; the training throughput and stage breakdown.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -50,6 +59,7 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "tf32": 494.7e12, "float32": 67e12}
 BATCH, N_DENSE, N_SLOTS, EMB_DIM, VOCAB = 4096, 13, 26, 16, 1_000_000
 BOTTOM, TOP = (256, 64, EMB_DIM), (512, 256)
 REQUESTS, WARM_BATCHES, SEED = 5, 8, 0
+TRAIN_WARMUP, TRAIN_STEPS, TRAIN_STAGED, TRAIN_CPU_STEPS = 2, 8, 5, 3
 FA_SOURCE = {"wgmma_bf16": "persia_tpu_torch/csrc/flash_attention_hopper.cu",
              "tf32x3": "persia_tpu_torch/csrc/flash_attention_tf32.cu"}
 FA_REPLACES = "persia_tpu/ops/flash_attention.py:107"
@@ -72,13 +82,14 @@ def check_close(name, out, ref, rtol, atol, base=None) -> float:
     out, ref = out.float(), ref.float()
     err = (out - ref).abs()
     max_err = float(err.max())
+    atol_shown = float(atol.max()) if torch.is_tensor(atol) else atol
     ok = bool(torch.isfinite(out).all()) and bool((err <= atol + rtol * ref.abs()).all())
     extra = ""
     if base is not None:
         ratio = err / (base[1] + base[0] * ref.abs())
         extra = (f" [beyond rtol {base[0]:g} atol {base[1]:g}: {int((ratio > 1).sum())} of "
                  f"{ratio.numel()}, at most {float(ratio.max()):.2f}x]")
-    print(f"  {name}: max_abs_err={max_err:.3e} tolerance=atol {atol:.4g} + rtol {rtol:g}*|ref| "
+    print(f"  {name}: max_abs_err={max_err:.3e} tolerance=atol {atol_shown:.4g} + rtol {rtol:g}*|ref| "
           f"{'ok' if ok else 'FAIL'}{extra}", flush=True)
     if not ok:
         raise SystemExit(f"{name} disagrees with its plain version")
@@ -151,8 +162,10 @@ def zipf_ids(rng, n, vocab, offset, a=1.2):
     return (raw + np.uint64(offset)) % np.uint64(vocab)
 
 
-def zipf_batch_maker(seed):
-    from persia_tpu_torch.data import IDTypeFeatureWithSingleID, NonIDTypeFeature, PersiaBatch
+def zipf_batch_maker(seed, labels=False):
+    """The bench's batches: zipf ids per slot, normal dense features and,
+    for training, 0/1 labels."""
+    from persia_tpu_torch.data import IDTypeFeatureWithSingleID, Label, NonIDTypeFeature, PersiaBatch
 
     rng = np.random.default_rng(seed)
     offsets = rng.integers(0, VOCAB, N_SLOTS, dtype=np.uint64)
@@ -163,14 +176,19 @@ def zipf_batch_maker(seed):
             for i in range(N_SLOTS)
         ]
         dense = rng.normal(size=(BATCH, N_DENSE)).astype(np.float32)
-        return PersiaBatch(ids, non_id_type_features=[NonIDTypeFeature(dense)], requires_grad=False)
+        if not labels:
+            return PersiaBatch(ids, non_id_type_features=[NonIDTypeFeature(dense)], requires_grad=False)
+        y = [Label(rng.integers(0, 2, (BATCH, 1)).astype(np.float32))]
+        return PersiaBatch(ids, non_id_type_features=[NonIDTypeFeature(dense)], labels=y, requires_grad=True)
 
     return make
 
 
 def device_busy_ms(step, batches):
     """Kernel time per call of ``step`` summed by torch.profiler over the
-    device's own events, and the largest kernels (names cut to 80 chars)."""
+    device's own events (kernels and copies; user annotations such as the
+    optimizer's range, which span kernels, are left out), and the largest
+    ones (names cut to 80 chars)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -180,13 +198,10 @@ def device_busy_ms(step, batches):
             step(b)
         torch.cuda.synchronize()
     per = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue  # a CPU op's device time repeats its kernels' time
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0.0)
-        per[e.key[:80]] = per.get(e.key[:80], 0.0) + t / 1e3 / len(batches)  # us -> ms
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        per[e.name[:80]] = per.get(e.name[:80], 0.0) + e.time_range.elapsed_us() / 1e3 / len(batches)
     if not sum(per.values()):
         return None, {}
     top = dict(sorted(per.items(), key=lambda kv: -kv[1])[:8])
@@ -194,7 +209,11 @@ def device_busy_ms(step, batches):
 
 
 KERNEL_NAMES = ("fa_fwd_wgmma_kernel", "fa_fwd_tf32x3_kernel", "tf32_split_kernel",
-                "dot_interaction_mma_kernel", "dot_interaction_kernel")
+                "dot_interaction_mma_kernel", "dot_interaction_kernel",
+                "dot_interaction_bwd_mma_kernel", "dot_interaction_bwd_kernel",
+                "gather_pool_fwd_kernel", "gather_pool_bwd_kernel")
+DOT_REPLACES = "persia_tpu/models/dlrm.py:50"
+POOL_REPLACES = "persia_tpu/parallel/train_step.py:81"
 
 
 def kernel_label(mangled: str):
@@ -317,25 +336,112 @@ def phase_flash_attention(dev):
             "tf32_split_planes": errs["tf32_split_planes"]}
 
 
-def phase_dot_interaction(dev):
+def pool_inputs(dev, dtype, batch, specs, seed):
+    """A group of device-pooled slots as the staging gives them: rows padded
+    to one P with zero rows past D, pads indexing row D, the CSR. ``specs``
+    is [(distinct D, ids per sample L, counts?)]; zipf row choice."""
     import torch
 
-    from persia_tpu_torch.ops import dot_interaction
-    from persia_tpu_torch.ops.dot_interaction import dot_interaction_reference
+    from persia_tpu_torch.ops import PoolSlot
+    from persia_tpu_torch.ops.embedding_pool import pool_csr
 
-    print("== phase 3: dot_interaction vs its plain version", flush=True)
+    rng = np.random.default_rng(seed)
+    p = max(d for d, _, _ in specs) + 1
+    rows, slots = [], []
+    for d, L, with_counts in specs:
+        r = np.zeros((p, EMB_DIM), np.float32)
+        r[:d] = rng.standard_normal((d, EMB_DIM))
+        counts = rng.integers(0 if L > 1 else 1, L + 1, batch).astype(np.int32)
+        index = np.full((batch, L), d, np.int32)
+        ids = np.minimum(rng.zipf(1.2, (batch, L)) - 1, d - 1)
+        keep = np.arange(L)[None, :] < counts[:, None]
+        index[keep] = ids[keep]
+        order, offsets = pool_csr(index, p)
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        rows.append(t(r).to(dtype))
+        slots.append(PoolSlot(t(index), t(counts.reshape(-1, 1)) if with_counts else None,
+                              t(order), t(offsets)))
+    return rows, slots
+
+
+def phase_kernels(dev):
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.ops.dot_interaction import (
+        dot_interaction_bwd_reference, dot_interaction_reference,
+    )
+    from persia_tpu_torch.ops.embedding_pool import (
+        gather_pool_bwd_reference, gather_pool_fwd_reference,
+    )
+
+    print("== phase 3: DLRM kernels vs their plain versions", flush=True)
     g = torch.Generator(device="cpu").manual_seed(SEED + 1)
-    feats = torch.randn((BATCH, N_SLOTS + 1, EMB_DIM), generator=g)
+    bench = (BATCH, N_SLOTS + 1, EMB_DIM)
     errs = {}
     # bf16 (tensor cores): f32 sums in the tensor cores' order, one bf16
     # rounding each side (<= 1 ulp apart); f32 (FMA walk): the same f32 sum
     for dtype, tol in ((torch.bfloat16, (2 ** -7, 1e-3)), (torch.float32, (1e-5, 1e-5))):
-        x = feats.to(dev, dtype)
-        out = dot_interaction(x)
+        x = torch.randn(bench, generator=g).to(dev, dtype)
+        out = ops.dot_interaction(x)
         torch.cuda.synchronize()
-        errs[dtype] = check_close(f"dot_interaction{list(x.shape)} {str(dtype)[6:]}", out,
-                                  dot_interaction_reference(x), *tol)
-    return errs[torch.bfloat16]  # the serving path's dtype
+        errs[("dot", dtype)] = check_close(f"dot_interaction{list(x.shape)} {str(dtype)[6:]}", out,
+                                           dot_interaction_reference(x), *tol)
+    # backward: bf16 rounds two f32 sums of ~n terms once (atol for the
+    # sums near 0); f32 differs in summation order only. Edge shapes: n not
+    # a multiple of 8 on the tensor cores, d=24 on the FMA walk
+    for shape, dtype, tol in (
+        (bench, torch.bfloat16, (2 ** -7, 1e-2)), (bench, torch.float32, (1e-5, 1e-5)),
+        ((333, 13, 16), torch.bfloat16, (2 ** -7, 1e-2)), ((100, 27, 24), torch.bfloat16, (2 ** -7, 1e-2)),
+        ((77, 32, 64), torch.float32, (1e-5, 1e-5)),
+    ):
+        b, n, d = shape
+        x = torch.randn(shape, generator=g).to(dev, dtype)
+        gr = torch.randn((b, n * (n - 1) // 2), generator=g).to(dev, dtype)
+        out = ops.dot_interaction_bwd(x, gr)
+        torch.cuda.synchronize()
+        err = check_close(f"dot_interaction_bwd{list(shape)} {str(dtype)[6:]}", out,
+                          dot_interaction_bwd_reference(x, gr), *tol)
+        errs.setdefault(("dot_bwd", dtype), err)
+    # gather-pool: the forward sums the same f32 values in l order on both
+    # sides. The backward sums a row's n terms in CSR order, index_add_ in
+    # the order of its atomics: each f32 sum is within (n-1) u sum|x| of the
+    # exact one (u = 2^-24), so the two within twice that, per element (hot
+    # zipf rows hold hundreds of terms); bf16 then rounds each once
+    cases = [
+        ("bench", torch.bfloat16, BATCH, [(2000, 1, False)] * N_SLOTS),
+        ("L=4 counts", torch.bfloat16, 1000, [(300, 4, True), (50, 4, False), (700, 1, True)]),
+        ("L=4 counts", torch.float32, 1000, [(300, 4, True), (50, 4, False), (700, 1, True)]),
+        ("70 slots", torch.bfloat16, 64, [(20 + s, 1 + s % 3, s % 2 == 0) for s in range(70)]),
+    ]
+    for label, dtype, batch, specs in cases:
+        rows, slots = pool_inputs(dev, dtype, batch, specs, seed=len(specs))
+        out = ops.gather_pool_fwd(rows, slots)
+        gr = torch.randn(out.shape, generator=g).to(dev)
+        grads = ops.gather_pool_bwd(gr, rows, slots)
+        torch.cuda.synchronize()
+        name = f"gather_pool {label} {str(dtype)[6:]} B={batch} S={len(specs)}"
+        err = check_close(f"{name} fwd", out, gather_pool_fwd_reference(rows, slots), 1e-6, 1e-6)
+        errs.setdefault(("pool_fwd", dtype), err)
+        ref = gather_pool_bwd_reference(gr, rows, slots)
+        abs_sums = gather_pool_bwd_reference(gr.abs(), [r.float() for r in rows], slots)
+        order = torch.cat([
+            2 * (s.offsets[1:] - s.offsets[:-1]).float()[:, None] * 2 ** -24 * a
+            for s, a in zip(slots, abs_sums)
+        ])
+        tol = (1e-6, order) if dtype == torch.float32 else (2 ** -7, 1e-3 + order)
+        err = check_close(f"{name} bwd", torch.cat(grads), torch.cat(ref), *tol)
+        errs.setdefault(("pool_bwd", dtype), err)
+        if label == "bench":
+            again = ops.gather_pool_bwd(gr, rows, slots)
+            same = all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(grads, again))
+            print(f"  {name} bwd twice: bitwise {'ok' if same else 'FAIL'}", flush=True)
+            if not same:
+                raise SystemExit("gather_pool_bwd is not deterministic")
+    return {"dot_interaction": errs[("dot", torch.bfloat16)],
+            "dot_interaction_bwd": errs[("dot_bwd", torch.bfloat16)],
+            "gather_pool_fwd": errs[("pool_fwd", torch.bfloat16)],
+            "gather_pool_bwd": errs[("pool_bwd", torch.bfloat16)]}
 
 
 def path_flash_attention(dev):
@@ -411,9 +517,11 @@ def path_serving(dev):
     wall = time.perf_counter() - t_all
     launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
 
-    if launches["dot_interaction"] != REQUESTS or engine.forwards != REQUESTS:
+    expected = {fn.__name__: 0 for fn in ops.KERNEL_WRAPPERS}
+    expected.update(dot_interaction=REQUESTS, gather_pool_fwd=REQUESTS)
+    if launches != expected or engine.forwards != REQUESTS:
         raise SystemExit(f"serving path: launches {launches}, forwards {engine.forwards}; "
-                         f"expected one dot_interaction per forward")
+                         f"expected one dot_interaction and one gather_pool_fwd per forward")
     print(f"  launches={launches} forwards={engine.forwards}", flush=True)
     # where a request's time goes: the same requests again, stage by stage,
     # each stage ending in a synchronize (host clock); "forward_stream" is
@@ -479,18 +587,160 @@ def path_serving(dev):
     return launches, serving, feats_shape
 
 
+def path_training(dev):
+    """Phase 4c: ``TrainCtx.train_step`` at bench width on the card."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.config import EmbeddingConfig, SlotConfig
+    from persia_tpu_torch.ctx import TrainCtx
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.embedding.store import EmbeddingStore
+    from persia_tpu_torch.embedding.worker import EmbeddingWorker
+    from persia_tpu_torch.models import DLRM
+    from persia_tpu_torch.weights import dlrm_state_dict_from_flax, seeded_flax_params_like
+
+    print(f"== phase 4c: training path (DLRM at bench width, B={BATCH}, TrainCtx.train_step)", flush=True)
+    cfg = EmbeddingConfig(
+        slots_config={f"cat_{i}": SlotConfig(dim=EMB_DIM) for i in range(N_SLOTS)},
+        feature_index_prefix_bit=8,
+    )
+    make_batch = zipf_batch_maker(SEED + 10, labels=True)
+    warm = [make_batch() for _ in range(WARM_BATCHES)]
+    batches = [make_batch() for _ in range(TRAIN_WARMUP + TRAIN_STEPS + TRAIN_STAGED + 2)]
+
+    def train_ctx(device, sd):
+        store = EmbeddingStore(capacity=1 << 25, num_internal_shards=64,
+                               optimizer=Adagrad(lr=0.05).config, seed=1)
+        worker = EmbeddingWorker(cfg, [store], device_pooling=True)
+        for b in warm:  # admit the stream's hot rows, as the serving path does
+            worker.forward_directly(b, train=True)
+        model = DLRM(N_DENSE, N_SLOTS, EMB_DIM, BOTTOM, TOP, device="cpu")
+        sd = sd or dlrm_state_dict_from_flax(seeded_flax_params_like(model, SEED))
+        model.load_state_dict(sd)
+        ctx = TrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3), Adagrad(lr=0.05),
+                       worker, cfg, device=device, wire_dtype="bfloat16").__enter__()
+        return ctx, store, sd
+
+    t0 = time.perf_counter()
+    ctx, store, sd = train_ctx(dev, None)
+    print(f"  store warmed with {WARM_BATCHES} admitting lookups: {store.size()} rows "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    worker = ctx.worker
+
+    def checked_step(batch):
+        m = ctx.train_step(batch)
+        if not np.isfinite(m["loss"]) or worker.staleness != 0:
+            raise SystemExit(f"training path: loss {m['loss']}, staleness {worker.staleness}")
+        return m["loss"]
+
+    losses = [checked_step(b) for b in batches[:TRAIN_WARMUP]]
+    ops.reset_launch_counts()
+    t_all = time.perf_counter()
+    for i, b in enumerate(batches[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_STEPS]):
+        losses.append(checked_step(b))
+        if len(losses) == TRAIN_CPU_STEPS:  # the PS rows after the steps the CPU repeats
+            snapshot = {sign: vec.copy() for sh in store._shards for sign, (_, vec) in sh.entries.items()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_all
+    launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+    expected = {fn.__name__: 0 for fn in ops.KERNEL_WRAPPERS}
+    expected.update(dot_interaction=TRAIN_STEPS, dot_interaction_bwd=TRAIN_STEPS,
+                    gather_pool_fwd=TRAIN_STEPS, gather_pool_bwd=TRAIN_STEPS)
+    if launches != expected:
+        raise SystemExit(f"training path: launches {launches}, expected {expected}")
+    print(f"  launches={launches} over {TRAIN_STEPS} steps; losses {[round(x, 5) for x in losses]}",
+          flush=True)
+
+    # stage by stage, each stage ending in a synchronize (host clock); the
+    # step's device span by CUDA events
+    stages = {k: [] for k in ("lookup", "stage_h2d", "step", "step_stream", "grads_d2h", "update")}
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    staged = batches[TRAIN_WARMUP + TRAIN_STEPS:]
+    for b in staged[:TRAIN_STAGED]:
+        t0 = time.perf_counter()
+        ref = worker.put_forward_ids(b)
+        emb_batches = worker.forward_batch_id(ref, train=True)
+        t1 = time.perf_counter()
+        device_batch, counts = ctx.prepare_features(b, emb_batches, csr=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ev0.record()
+        header, gpacked = ctx.run_step(device_batch)
+        ev1.record()
+        ev1.synchronize()
+        t3 = time.perf_counter()
+        metrics, emb_grads = ctx.fetch_step_output(header, gpacked, device_batch)
+        t4 = time.perf_counter()
+        slot_grads = ctx.emb_grads_to_slot_grads(emb_batches, emb_grads, counts)
+        worker.update_gradient_batched(ref, slot_grads)
+        t5 = time.perf_counter()
+        for k, a, c in (("lookup", t0, t1), ("stage_h2d", t1, t2), ("step", t2, t3),
+                        ("grads_d2h", t3, t4), ("update", t4, t5)):
+            stages[k].append((c - a) * 1e3)
+        stages["step_stream"].append(ev0.elapsed_time(ev1))
+        losses.append(metrics["loss"])
+    # device time of the step alone (these batches' gradients are dropped)
+    refs, device_batches = [], []
+    for b in staged[TRAIN_STAGED:]:
+        refs.append(worker.put_forward_ids(b))
+        device_batches.append(ctx.prepare_features(b, worker.forward_batch_id(refs[-1]), csr=True)[0])
+    busy_ms, top_kernels = device_busy_ms(ctx.run_step, device_batches)
+    for ref in refs:
+        worker.abort_gradient(ref)
+    if worker.staleness != 0 or not all(np.isfinite(losses)):
+        raise SystemExit(f"training path: staleness {worker.staleness}, losses {losses}")
+
+    # the same first steps on the CPU, with its own store: bf16 rounds at
+    # other points there
+    cpu, cpu_store, _ = train_ctx("cpu", sd)
+    cpu_losses = [cpu.train_step(b)["loss"] for b in batches[:TRAIN_CPU_STEPS]]
+    loss_err = max(abs(a - c) for a, c in zip(losses, cpu_losses))
+    print(f"  first {TRAIN_CPU_STEPS} losses card {losses[:TRAIN_CPU_STEPS]} cpu {cpu_losses}: "
+          f"max_abs_err={loss_err:.3e} tolerance=2e-2 {'ok' if loss_err <= 2e-2 else 'FAIL'}", flush=True)
+    cpu_rows = {sign: vec for sh in cpu_store._shards for sign, (_, vec) in sh.entries.items()}
+    if set(cpu_rows) != set(snapshot):
+        raise SystemExit(f"training path: the card's store holds {len(snapshot)} signs, the CPU's "
+                         f"{len(cpu_rows)}")
+    row_err = max(float(np.abs(snapshot[k] - v).max()) for k, v in cpu_rows.items())
+    print(f"  PS entries after {TRAIN_CPU_STEPS} steps, card vs cpu ({len(cpu_rows)} rows): "
+          f"max_abs_err={row_err:.3e} tolerance=1e-2 {'ok' if row_err <= 1e-2 else 'FAIL'}", flush=True)
+    if loss_err > 2e-2 or row_err > 1e-2:
+        raise SystemExit("training path: card and CPU disagree")
+
+    training = {
+        "batch": BATCH, "measured_steps": TRAIN_STEPS, "warmup_steps": TRAIN_WARMUP,
+        "samples_per_s": TRAIN_STEPS * BATCH / wall,
+        "step_ms_mean": wall / TRAIN_STEPS * 1e3,
+        "losses": losses,
+        "loss_max_abs_err_vs_cpu": loss_err, "ps_entry_max_abs_err_vs_cpu": row_err,
+        "stage_ms_p50": {k: float(np.percentile(v, 50)) for k, v in stages.items()},
+        "stage_ms_all": stages,
+        "step_device_busy_ms": busy_ms,
+        "step_top_kernels_ms": top_kernels,
+        "store_rows": store.size(),
+    }
+    # the inputs of the kernels' timing: the last staged step's batch
+    return launches, training, device_batches[-1]
+
+
 def sdpa_kernels(fn) -> list:
     """Names of the CUDA kernels one call of ``fn`` runs, by torch.profiler."""
-    _, top = device_busy_ms(lambda _: fn(), [None])
+    _, top = device_busy_ms(lambda _: fn(), [None] * 3)
     return list(top)
 
 
-def phase_timing(dev, card, launches, errs, feats_shape):
+def phase_timing(dev, card, launches, errs, feats_shape, train_batch):
     import torch
     import torch.nn.functional as F
 
     from persia_tpu_torch import ops
-    from persia_tpu_torch.ops.dot_interaction import dot_interaction_reference
+    from persia_tpu_torch.ops.dot_interaction import (
+        dot_interaction_bwd_reference, dot_interaction_reference,
+    )
+    from persia_tpu_torch.ops.embedding_pool import (
+        gather_pool_bwd_reference, gather_pool_fwd_reference,
+    )
     from persia_tpu_torch.ops.flash_attention import (
         reference_attention, tf32_split_planes_reference,
     )
@@ -577,16 +827,81 @@ def phase_timing(dev, card, launches, errs, feats_shape):
     bms, by = bound(bsz * n * dim * 2 + bsz * pairs * 2, 2 * bsz * pairs * dim, "bfloat16")
     rows.append(timed(
         dict(name="dot_interaction", route="cuda", cuda_route="cuda",
-             source="persia_tpu_torch/csrc/dot_interaction.cu",
-             replaces="persia_tpu/models/dlrm.py:50",
+             source="persia_tpu_torch/csrc/dot_interaction.cu", replaces=DOT_REPLACES,
              shape=list(feats_shape), dtype="bfloat16",
-             launches=launches["dot_interaction"], max_abs_err=errs["dot_interaction"],
-             bound_ms=bms, bound_by=by),
+             launches=launches["training"]["dot_interaction"],
+             launches_by_path={p: launches[p]["dot_interaction"] for p in ("serving", "training")},
+             max_abs_err=errs["dot_interaction"], bound_ms=bms, bound_by=by),
         kernel=lambda: ops.dot_interaction(feats),
         plain=lambda: dot_interaction_reference(feats),
         # the full (B, n, n) product: a superset of the function, the
         # nearest one-call yardstick
         library=lambda: torch.bmm(feats, feats.transpose(1, 2)),
+    ))
+
+    # the backward: reads feats and g, writes dfeats; 2 (n - 1) d FLOP per
+    # feature row. Yardstick: bmm of the symmetrised (B, n, n) gradient
+    gpair = torch.randn((bsz, pairs), generator=g).to(dev, torch.bfloat16)
+    iu, ju = torch.triu_indices(n, n, offset=1, device=dev)
+    gsym = torch.zeros((bsz, n, n), device=dev, dtype=torch.bfloat16)
+    gsym[:, iu, ju] = gpair
+    gsym[:, ju, iu] = gpair
+    bms, by = bound(2 * bsz * n * dim * 2 + bsz * pairs * 2, 2 * bsz * n * (n - 1) * dim, "bfloat16")
+    rows.append(timed(
+        dict(name="dot_interaction_bwd", route="cuda", cuda_route="cuda",
+             source="persia_tpu_torch/csrc/dot_interaction.cu", replaces=DOT_REPLACES,
+             shape=list(feats_shape), dtype="bfloat16",
+             launches=launches["training"]["dot_interaction_bwd"],
+             max_abs_err=errs["dot_interaction_bwd"], bound_ms=bms, bound_by=by),
+        kernel=lambda: ops.dot_interaction_bwd(feats, gpair),
+        plain=lambda: dot_interaction_bwd_reference(feats, gpair),
+        library=lambda: torch.bmm(gsym, feats),
+    ))
+
+    # the gather-pool pair at the training path's own inputs (one staged
+    # step's batch): bytes = each input once, each output once
+    emb = [e for e in train_batch["emb"] if "pool_index" in e]
+    prow = [e["distinct"] for e in emb]
+    pslots = [ops.PoolSlot(e["pool_index"], e.get("pool_counts"), e["pool_order"], e["pool_offsets"])
+              for e in emb]
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts if t is not None)  # noqa: E731
+    pooled = ops.gather_pool_fwd(prow, pslots)
+    gpool = torch.randn(pooled.shape, generator=g).to(dev)
+    p_rows, width = prow[0].shape
+    shape = [bsz, len(prow), width, p_rows]
+    # yardsticks: the slots' tables side by side, indexes shifted into them
+    table = torch.cat(prow)
+    shift = torch.arange(len(prow), device=dev, dtype=torch.int64)[None, :, None] * p_rows
+    flat_idx = (torch.stack([s.index.long() for s in pslots], 1) + shift).reshape(bsz * len(prow), -1)
+    acc = torch.zeros(table.shape, device=dev, dtype=torch.float32)
+    fwd_in = nbytes(prow) + nbytes([s.index for s in pslots] + [s.counts for s in pslots])
+    bms, by = bound(fwd_in + pooled.numel() * 4, pooled.numel() * flat_idx.shape[1], "float32")
+    rows.append(timed(
+        dict(name="gather_pool_fwd", route="cuda", cuda_route="cuda",
+             source="persia_tpu_torch/csrc/embedding_pool.cu", replaces=POOL_REPLACES,
+             shape=shape, dtype=str(prow[0].dtype)[6:],
+             launches=launches["training"]["gather_pool_fwd"],
+             launches_by_path={p: launches[p]["gather_pool_fwd"] for p in ("serving", "training")},
+             max_abs_err=errs["gather_pool_fwd"], bound_ms=bms, bound_by=by,
+             library_note="F.embedding_bag(mode='sum') over the slots' tables side by side, bf16 out"),
+        kernel=lambda: ops.gather_pool_fwd(prow, pslots),
+        plain=lambda: gather_pool_fwd_reference(prow, pslots),
+        library=lambda: F.embedding_bag(flat_idx, table, mode="sum"),
+    ))
+    bwd_in = gpool.numel() * 4 + nbytes([s.order for s in pslots] + [s.offsets for s in pslots]
+                                        + [s.counts for s in pslots])
+    bms, by = bound(bwd_in + nbytes(prow), gpool.numel() * flat_idx.shape[1], "float32")
+    grad_flat = gpool.reshape(bsz * len(prow), width)
+    rows.append(timed(
+        dict(name="gather_pool_bwd", route="cuda", cuda_route="cuda",
+             source="persia_tpu_torch/csrc/embedding_pool.cu", replaces=POOL_REPLACES,
+             shape=shape, dtype=str(prow[0].dtype)[6:],
+             launches=launches["training"]["gather_pool_bwd"],
+             max_abs_err=errs["gather_pool_bwd"], bound_ms=bms, bound_by=by,
+             library_note="index_add_ of the (B*S, dim) f32 gradient into the tables side by side (L=1)"),
+        kernel=lambda: ops.gather_pool_bwd(gpool, prow, pslots),
+        plain=lambda: gather_pool_bwd_reference(gpool, prow, pslots),
+        library=(lambda: acc.index_add_(0, flat_idx[:, 0], grad_flat)) if flat_idx.shape[1] == 1 else None,
     ))
     for r in rows:
         print(json.dumps({"kernel_timing": r, "card": card}), flush=True)
@@ -608,13 +923,15 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     build = phase_build()
-    errs = {"flash_attention": phase_flash_attention(dev),
-            "dot_interaction": phase_dot_interaction(dev)}
+    errs = {"flash_attention": phase_flash_attention(dev), **phase_kernels(dev)}
     fa_routes = path_flash_attention(dev)
-    launches, serving, feats_shape = path_serving(dev)
-    launches["flash_attention"] = fa_routes
-    rows = phase_timing(dev, card, launches, errs, feats_shape)
+    serving_launches, serving, feats_shape = path_serving(dev)
+    training_launches, training, train_batch = path_training(dev)
+    launches = {"flash_attention": fa_routes, "serving": serving_launches,
+                "training": training_launches}
+    rows = phase_timing(dev, card, launches, errs, feats_shape, train_batch)
     print(json.dumps({"serving": serving, "card": card}), flush=True)
+    print(json.dumps({"training": training, "card": card}), flush=True)
     print(json.dumps({"build": build, "card": card}), flush=True)
 
     # one entry per kernel (each flash-attention route by its non-causal

@@ -6,14 +6,19 @@ hashing, store, worker) is its own copy. Device code is PyTorch, and every
 device kernel is written by hand for Hopper (``persia_tpu_torch/csrc``),
 built with ``nvcc`` at first use and bound with ``ctypes``.
 
-This slice covers the serving path:
+The port covers the serving path and synchronous hybrid training:
 
   serving     persia_tpu_torch.serving.engine.InferenceEngine
-  user API    persia_tpu_torch.ctx.InferCtx (predict / predict_from_bytes)
-  emb worker  persia_tpu_torch.embedding.worker (dedup, routing, pooling)
-  param srv   persia_tpu_torch.embedding.store (numpy, lookup path)
-  dense       persia_tpu_torch.parallel.train_step (eval step) + models.DLRM
-  kernels     persia_tpu_torch.ops (dot_interaction, flash_attention)
+  user API    persia_tpu_torch.ctx.InferCtx (predict / predict_from_bytes),
+              persia_tpu_torch.ctx.TrainCtx (train_step / eval_batch)
+  emb worker  persia_tpu_torch.embedding.worker (dedup, routing, pooling,
+              gradient return)
+  param srv   persia_tpu_torch.embedding.store (numpy; lookup and the
+              sparse optimizers of embedding.optim)
+  dense       persia_tpu_torch.parallel.train_step (train and eval steps) +
+              models.DLRM; host<->device bf16 wire in persia_tpu_torch.wire
+  kernels     persia_tpu_torch.ops (dot_interaction and its backward, the
+              grouped gather-pool forward and backward, flash_attention)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``persia_tpu_torch.device.resolve_device``).

@@ -1,6 +1,7 @@
 """Configuration layer (counterpart of ``persia_tpu/config.py``), trimmed to
-the fields the serving slice reads: the per-slot embedding schema, the
-feature-group prefixes, and the embedding hyperparameters."""
+the fields the serving and training slices read: the per-slot embedding
+schema, the feature groups and their prefixes, and the embedding
+hyperparameters."""
 
 from __future__ import annotations
 
@@ -107,6 +108,14 @@ class EmbeddingConfig:
 
     def slot(self, name: str) -> SlotConfig:
         return self.slots_config[name]
+
+    def group_of(self, slot_name: str) -> int:
+        """Index of the slot's feature group: the optimizer group whose Adam
+        beta powers its gradients advance."""
+        for idx, members in enumerate(self.feature_groups.values()):
+            if slot_name in members:
+                return idx
+        raise KeyError(slot_name)
 
 
 INIT_UNIFORM = "uniform"

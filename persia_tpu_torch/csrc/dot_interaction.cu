@@ -35,6 +35,25 @@
 // division.
 // Dots accumulate in f32 and round once to the output type; the FMA path
 // sums in order over d, the tensor cores in their own order.
+//
+// Backward (dot_interaction_bwd): with g (B, n(n-1)/2) the gradient of the
+// output and G the symmetric n x n matrix holding g(i, j) at (i, j) and
+// (j, i) with a zero diagonal, dfeats[b, i] = sum_{j != i} G[b, i, j]
+// feats[b, j], accumulated in f32 and rounded once to the input type. It
+// replaces XLA's autodiff of the same einsum + triu gather (two batched
+// products and their sum). Bytes bound too: at the bench shape it reads
+// 3.5 MB of features and 2.9 MB of g and writes 3.5 MB, for 2 x 27 x 26 x
+// 16 FLOP a row. Paths and geometry from plans.py::dot_bwd_plan:
+// - tensor cores (bf16, d in {16, 32, 48, 64}, n <= 32): a warp per batch
+//   row scatters g into a zero-padded symmetric 32 x 32 bf16 tile in shared
+//   memory (the block's pair -> (i, j) table computed once), copies the row's
+//   features into 32 zero-padded rows, and multiplies the two on mma.sync
+//   m16n8k16: A = the tile by ldmatrix, B = the features by ldmatrix.trans
+//   (they are k-major there). The result goes from the accumulators to
+//   device memory as bf16 pairs;
+// - FMA walk (f32, other shapes): a block widens rows_per_block rows of
+//   features and g to f32 in shared memory; each thread owns (row, i, t)
+//   and sums over j in order.
 
 #include <cstdint>
 
@@ -301,6 +320,153 @@ dot_interaction_mma_kernel(const __nv_bfloat16* __restrict__ feats,
   store_span(stage, dst, rows * pairs, shift);
 }
 
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// out index of pair (i, j), i < j: pair_first(i, n) + j
+__device__ __forceinline__ int pair_first(int i, int n) { return (i * (2 * n - i - 1) >> 1) - i - 1; }
+
+constexpr int kGsymStride = 40;  // bf16 elements: rows 80 bytes apart, ldmatrix conflict-free
+
+// bf16, D in {16, 32, 48, 64}, n <= 32; one warp per batch row.
+template <int D>
+__global__ void __launch_bounds__(32 * kMaxRows)
+dot_interaction_bwd_mma_kernel(const __nv_bfloat16* __restrict__ feats,
+                               const __nv_bfloat16* __restrict__ grad,
+                               __nv_bfloat16* __restrict__ out, int batch, int n,
+                               int rows_per_block) {
+  constexpr int kStride = D + 8;  // feature rows 16-byte aligned, ldmatrix.trans conflict-free
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int pairs = n * (n - 1) / 2;
+  const int b0 = blockIdx.x * rows_per_block;
+  const int rows = min(rows_per_block, batch - b0);
+  uint16_t* table = reinterpret_cast<uint16_t*>(smem);  // pair p -> (i << 8) | j
+  const int table_bytes = (pairs * 2 + 15) / 16 * 16;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  __nv_bfloat16* gsym = reinterpret_cast<__nv_bfloat16*>(smem + table_bytes) + warp * 32 * kGsymStride;
+  __nv_bfloat16* f = reinterpret_cast<__nv_bfloat16*>(smem + table_bytes) +
+                     rows_per_block * 32 * kGsymStride + warp * 32 * kStride;
+
+  // 1. the pair table (once per block); each warp zeroes its tile and the
+  // padding rows n..31 of its features
+  if (threadIdx.x < n - 1) {
+    const int i = threadIdx.x;
+    const int first = pair_first(i, n);
+    for (int j = i + 1; j < n; ++j) table[first + j] = static_cast<uint16_t>((i << 8) | j);
+  }
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  for (int c = lane; c < 32 * kGsymStride / 8; c += 32) reinterpret_cast<uint4*>(gsym)[c] = zero;
+  for (int c = n * kStride / 8 + lane; c < 32 * kStride / 8; c += 32) reinterpret_cast<uint4*>(f)[c] = zero;
+  __syncthreads();
+  if (warp >= rows) return;
+
+  // 2. g into the symmetric tile, the row's features into shared memory
+  const int b = b0 + warp;
+  const __nv_bfloat16* g = grad + static_cast<size_t>(b) * pairs;
+  for (int p = lane; p < pairs; p += 32) {
+    const int ij = table[p];
+    const int i = ij >> 8, j = ij & 0xFF;
+    gsym[i * kGsymStride + j] = g[p];
+    gsym[j * kGsymStride + i] = g[p];
+  }
+  const uint32_t* src = reinterpret_cast<const uint32_t*>(feats + static_cast<size_t>(b) * n * D);
+  for (int w = lane; w < n * D / 2; w += 32) {
+    const int row = (2 * w) / D;
+    *reinterpret_cast<uint32_t*>(f + row * kStride + (2 * w - row * D)) = src[w];
+  }
+  __syncwarp();
+
+  // 3. dfeats (32 x D) = Gsym (32 x 32) . feats (32 x D), rows i < n kept
+  const uint32_t gb = static_cast<uint32_t>(__cvta_generic_to_shared(gsym));
+  const uint32_t fb = static_cast<uint32_t>(__cvta_generic_to_shared(f));
+  float c[2][D / 8][4];
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+    for (int nb = 0; nb < D / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[mb][nb][e] = 0.f;
+  const bool live1 = n > 16;  // the second 16 rows hold outputs
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    uint32_t a[2][4];
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb) {  // A: rows 16mb + 0..15, k 16ks + 0..15
+      const int row = 16 * mb + (lane & 7) + 8 * ((lane >> 3) & 1);
+      ldmatrix_x4(a[mb], gb + (row * kGsymStride + 16 * ks + 8 * (lane >> 4)) * 2);
+    }
+#pragma unroll
+    for (int np = 0; np < D / 16; ++np) {  // B of column blocks 2np and 2np+1: k rows, t columns
+      uint32_t bf[4];
+      ldmatrix_x4_trans(bf, fb + ((16 * ks + (lane & 15)) * kStride + 16 * np + 8 * (lane >> 4)) * 2);
+      mma_bf16(c[0][2 * np], a[0], bf[0], bf[1]);
+      mma_bf16(c[0][2 * np + 1], a[0], bf[2], bf[3]);
+      if (live1) {
+        mma_bf16(c[1][2 * np], a[1], bf[0], bf[1]);
+        mma_bf16(c[1][2 * np + 1], a[1], bf[2], bf[3]);
+      }
+    }
+  }
+  // accumulator entries 2h, 2h+1 of block (mb, nb): i = 16mb + lane/4 + 8h,
+  // t = 8nb + 2(lane%4) + {0, 1}
+  __nv_bfloat16* o = out + static_cast<size_t>(b) * n * D;
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = 16 * mb + lane / 4 + 8 * h;
+      if (i >= n) continue;
+#pragma unroll
+      for (int nb = 0; nb < D / 8; ++nb) {
+        const int t = 8 * nb + 2 * (lane % 4);
+        *reinterpret_cast<__nv_bfloat162*>(o + i * D + t) =
+            __floats2bfloat162_rn(c[mb][nb][2 * h], c[mb][nb][2 * h + 1]);
+      }
+    }
+  }
+}
+
+// every dtype and shape: rows_per_block rows widened to f32 in shared memory
+template <typename T>
+__global__ void dot_interaction_bwd_kernel(const T* __restrict__ feats, const T* __restrict__ grad,
+                                           T* __restrict__ out, int batch, int n, int d,
+                                           int rows_per_block) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int nd = n * d;
+  const int pairs = n * (n - 1) / 2;
+  const int b0 = blockIdx.x * rows_per_block;
+  const int rows = min(rows_per_block, batch - b0);
+  float* f = reinterpret_cast<float*>(smem);  // rows x n x d
+  float* g = f + rows_per_block * nd;  // rows x pairs
+  for (int e = threadIdx.x; e < rows * nd; e += blockDim.x) {
+    f[e] = persia::to_f32(feats[static_cast<size_t>(b0) * nd + e]);
+  }
+  for (int e = threadIdx.x; e < rows * pairs; e += blockDim.x) {
+    g[e] = persia::to_f32(grad[static_cast<size_t>(b0) * pairs + e]);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < rows * nd; e += blockDim.x) {
+    const int r = e / nd;
+    const int rem = e - r * nd;
+    const int i = rem / d;
+    const int t = rem - i * d;
+    const float* fr = f + r * nd + t;
+    const float* gr = g + r * pairs;
+    const int first_i = pair_first(i, n);
+    float acc = 0.f;
+    for (int j = 0; j < n; ++j) {
+      if (j == i) continue;
+      const int p = j < i ? pair_first(j, n) + i : first_i + j;
+      acc = fmaf(gr[p], fr[j * d], acc);
+    }
+    persia::store_f32(out + static_cast<size_t>(b0) * nd + e, acc);
+  }
+}
+
 template <typename T>
 int launch(const void* feats, void* out, int batch, int n, int d, int rows, int stride,
            int smem, cudaStream_t s) {
@@ -335,7 +501,62 @@ int launch_mma(const void* feats, void* out, int batch, int n, int d, int rows, 
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_bwd_mma(const void* feats, const void* grad, void* out, int batch, int n, int d,
+                   int rows, int smem, cudaStream_t s) {
+  const dim3 grid((batch + rows - 1) / rows);
+  const dim3 block(32 * rows);
+  const auto* x = static_cast<const __nv_bfloat16*>(feats);
+  const auto* g = static_cast<const __nv_bfloat16*>(grad);
+  auto* y = static_cast<__nv_bfloat16*>(out);
+  switch (d) {
+    case 16: dot_interaction_bwd_mma_kernel<16><<<grid, block, smem, s>>>(x, g, y, batch, n, rows); break;
+    case 32: dot_interaction_bwd_mma_kernel<32><<<grid, block, smem, s>>>(x, g, y, batch, n, rows); break;
+    case 48: dot_interaction_bwd_mma_kernel<48><<<grid, block, smem, s>>>(x, g, y, batch, n, rows); break;
+    case 64: dot_interaction_bwd_mma_kernel<64><<<grid, block, smem, s>>>(x, g, y, batch, n, rows); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// Geometry and path from ops/plans.py::dot_bwd_plan; returns a CUDA error code.
+extern "C" int persia_dot_interaction_bwd(const void* feats, const void* grad, void* out,
+                                          int batch, int n, int d, int dtype, int use_mma,
+                                          int rows_per_block, int threads, int smem_bytes,
+                                          void* stream) {
+  if (n < 2 || d < 1 || batch <= 0 || rows_per_block < 1 || rows_per_block > kMaxRows) {
+    return cudaErrorInvalidValue;
+  }
+  if (dtype != persia::kFloat32 && dtype != persia::kBFloat16) return cudaErrorInvalidValue;
+  const long long pairs = n * (n - 1) / 2;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (use_mma) {
+    const bool fits = dtype == persia::kBFloat16 && d % 16 == 0 && d <= 64 && n <= 32;
+    const long long need = rows_per_block * (32LL * kGsymStride * 2 + 32LL * (d + 8) * 2) +
+                           (pairs * 2 + 15) / 16 * 16;
+    if (!fits || threads != 32 * rows_per_block || smem_bytes != need || smem_bytes > 48 * 1024) {
+      return cudaErrorInvalidValue;
+    }
+    return launch_bwd_mma(feats, grad, out, batch, n, d, rows_per_block, smem_bytes, s);
+  }
+  const long long need = 4LL * rows_per_block * (n * d + pairs);
+  if (threads < 32 || threads > 1024 || threads % 32 != 0 || smem_bytes != need ||
+      smem_bytes > 48 * 1024) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid((batch + rows_per_block - 1) / rows_per_block);
+  if (dtype == persia::kFloat32) {
+    dot_interaction_bwd_kernel<float><<<grid, threads, smem_bytes, s>>>(
+        static_cast<const float*>(feats), static_cast<const float*>(grad),
+        static_cast<float*>(out), batch, n, d, rows_per_block);
+  } else {
+    dot_interaction_bwd_kernel<__nv_bfloat16><<<grid, threads, smem_bytes, s>>>(
+        static_cast<const __nv_bfloat16*>(feats), static_cast<const __nv_bfloat16*>(grad),
+        static_cast<__nv_bfloat16*>(out), batch, n, d, rows_per_block);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Geometry and path from ops/plans.py::dot_plan; returns a CUDA error code.
 extern "C" int persia_dot_interaction(const void* feats, void* out, int batch, int n, int d,

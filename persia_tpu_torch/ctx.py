@@ -1,7 +1,9 @@
-"""User-facing contexts (counterpart of ``persia_tpu/ctx.py``), serving
-subset: ``stage_embeddings`` and ``EmbeddingCtx.prepare_features`` turn the
-worker's numpy outputs into tensors on the ctx's device, and ``InferCtx``
-runs the lookup-direct forward."""
+"""User-facing contexts (counterpart of ``persia_tpu/ctx.py``):
+``stage_embeddings`` and ``EmbeddingCtx.prepare_features`` turn the
+worker's numpy outputs into tensors on the ctx's device; ``TrainCtx`` runs
+the synchronous hybrid training step (lookup → forward, backward and dense
+update on the device → gradient return to the parameter servers);
+``InferCtx`` runs the lookup-direct forward."""
 
 from __future__ import annotations
 
@@ -19,8 +21,20 @@ from persia_tpu_torch.embedding.worker import (
     FeatureEmbeddingBatch,
     SumEmbeddingBatch,
 )
-from persia_tpu_torch.parallel.train_step import build_eval_step
+from persia_tpu_torch.ops.embedding_pool import pool_csr
+from persia_tpu_torch.parallel.train_step import (
+    TrainState,
+    build_eval_step,
+    build_train_step,
+    init_train_state,
+    unpack_step_grads,
+    unpack_step_header,
+    unpack_step_header_dynamic,
+)
 from persia_tpu_torch.utils import round_up_pow2
+from persia_tpu_torch.wire import BF16Host, tensor_to_host_f32
+
+WIRE_DTYPES = (None, "float32", "bfloat16")
 
 
 def _pad_bucket(n: int) -> int:
@@ -31,14 +45,26 @@ def _pad_bucket(n: int) -> int:
     return -(-n // 512) * 512
 
 
+def _wire(arr: np.ndarray, bf16: bool):
+    return BF16Host.from_f32(arr) if bf16 else arr
+
+
 def stage_embeddings(
     emb_batches: Sequence[FeatureEmbeddingBatch],
+    dtype: Optional[str] = None,
+    csr: bool = False,
 ) -> Tuple[List[Dict], List[Optional[int]]]:
     """Convert worker outputs into the device batch's ``emb`` entries
-    (numpy). Raw and device-pooled slots pad their distinct rows to a
+    (host arrays). Raw and device-pooled slots pad their distinct rows to a
     bucketed size, zero rows absorbing padded index entries; device-pooled
-    slots share one bucket. Returns (entries, true distinct counts) — None
+    slots share one bucket. ``dtype="bfloat16"`` ships the float rows as
+    bf16 (``BF16Host``). ``csr`` adds each device-pooled slot's
+    row → positions CSR (``pool_order``, ``pool_offsets``), which the
+    backward kernel walks. Returns (entries, true distinct counts) — None
     for host-pooled slots."""
+    if dtype not in WIRE_DTYPES:
+        raise ValueError(f"wire dtype must be one of {WIRE_DTYPES}, got {dtype!r}")
+    bf16 = dtype == "bfloat16"
     entries: List[Dict] = []
     counts: List[Optional[int]] = []
     shared_p = 0
@@ -49,36 +75,40 @@ def stage_embeddings(
         shared_p = _pad_bucket(shared_p)
     for eb in emb_batches:
         if isinstance(eb, SumEmbeddingBatch):
-            entries.append({"pooled": eb.pooled})
+            entries.append({"pooled": _wire(eb.pooled, bf16)})
             counts.append(None)
         elif isinstance(eb, DevicePooledBatch):
             d, dim = eb.distinct.shape
-            padded = np.zeros((shared_p, dim), dtype=eb.distinct.dtype)
+            padded = np.zeros((shared_p, dim), dtype=np.float32)
             padded[:d] = eb.distinct
             # uint16 indexes when the padded table allows: fewer bytes to the
             # device, widened there
             idx_dtype = np.uint16 if shared_p <= 0xFFFF else np.int32
             entry = {
-                "distinct": padded,
+                "distinct": _wire(padded, bf16),
                 "pool_index": np.ascontiguousarray(eb.index, dtype=idx_dtype),
             }
             if eb.sqrt_scaling:
                 entry["pool_counts"] = eb.counts.reshape(-1, 1).astype(np.int32)
+            if csr:
+                entry["pool_order"], entry["pool_offsets"] = pool_csr(eb.index, shared_p)
             entries.append(entry)
             counts.append(d)
         else:
             d, dim = eb.distinct.shape
             p = round_up_pow2(d + 1)
-            padded = np.zeros((p, dim), dtype=eb.distinct.dtype)
+            padded = np.zeros((p, dim), dtype=np.float32)
             padded[:d] = eb.distinct
             index = np.where(eb.index == d, p - 1, eb.index).astype(np.int32)
             mask = eb.index != d
-            entries.append({"distinct": padded, "index": index, "mask": mask})
+            entries.append({"distinct": _wire(padded, bf16), "index": index, "mask": mask})
             counts.append(d)
     return entries, counts
 
 
-def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+def _to_device(arr, device: torch.device) -> torch.Tensor:
+    if isinstance(arr, BF16Host):
+        return arr.to(device)
     if arr.dtype == np.uint16:
         # torch's uint16 has few kernels: ship the bits as int16, widen on
         # the device
@@ -88,19 +118,27 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 class EmbeddingCtx:
-    """Feature preparation: worker outputs → the device batch."""
+    """Feature preparation: worker outputs → the device batch.
+    ``wire_dtype`` ("bfloat16", or None / "float32") is the dtype of the
+    embedding rows and their gradients between host and device."""
 
-    def __init__(self, worker: EmbeddingWorker, embedding_config: EmbeddingConfig, device=None):
+    def __init__(
+        self, worker: EmbeddingWorker, embedding_config: EmbeddingConfig, device=None,
+        wire_dtype: Optional[str] = None,
+    ):
+        if wire_dtype not in WIRE_DTYPES:
+            raise ValueError(f"wire_dtype must be one of {WIRE_DTYPES}, got {wire_dtype!r}")
         self.worker = worker
         self.embedding_config = embedding_config
         self.device = resolve_device(device)
+        self.wire_dtype = None if wire_dtype == "float32" else wire_dtype
 
     def prepare_features(
-        self, batch: PersiaBatch, emb_batches: Sequence[FeatureEmbeddingBatch]
+        self, batch: PersiaBatch, emb_batches: Sequence[FeatureEmbeddingBatch], csr: bool = False,
     ) -> Tuple[Dict, List[Optional[int]]]:
         """The device batch (tensors on ``self.device``) + true distinct
         counts per slot."""
-        entries, counts = stage_embeddings(emb_batches)
+        entries, counts = stage_embeddings(emb_batches, dtype=self.wire_dtype, csr=csr)
         dev = self.device
         device_batch = {
             "dense": [_to_device(f.data.astype(np.float32), dev) for f in batch.non_id_type_features],
@@ -108,6 +146,121 @@ class EmbeddingCtx:
             "emb": [{k: _to_device(a, dev) for k, a in e.items()} for e in entries],
         }
         return device_batch, counts
+
+    def emb_grads_to_slot_grads(
+        self,
+        emb_batches: Sequence[FeatureEmbeddingBatch],
+        emb_grads: Sequence[np.ndarray],
+        counts: Sequence[Optional[int]],
+    ) -> Dict[str, np.ndarray]:
+        """Strip the padding rows and key the host gradients by slot name
+        for the worker's gradient path."""
+        out = {}
+        for eb, g, d in zip(emb_batches, emb_grads, counts):
+            g = np.asarray(g, dtype=np.float32)
+            out[eb.name] = g if d is None else g[:d]
+        return out
+
+
+class TrainCtx(EmbeddingCtx):
+    """Synchronous hybrid training over the lookup-direct path.
+
+    ``dense_optimizer`` is a ``torch.optim`` optimizer over ``model``'s
+    parameters (``torch.optim.Adam`` in the reference's configs);
+    ``embedding_optimizer`` a sparse one of ``persia_tpu_torch.embedding.optim``,
+    registered on every parameter-server replica by ``__enter__``. The model
+    moves to the ctx's device.
+    """
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        dense_optimizer: torch.optim.Optimizer,
+        embedding_optimizer,
+        worker: EmbeddingWorker,
+        embedding_config: EmbeddingConfig,
+        device=None,
+        grad_scale: float = 1.0,
+        loss_fn=None,
+        wire_dtype: Optional[str] = None,
+        dynamic_loss_scale: bool = False,
+        loss_scale_init: float = float(2 ** 15),
+        loss_scale_growth_interval: int = 2000,
+        loss_scale_max: float = float(2 ** 24),
+    ):
+        super().__init__(worker, embedding_config, device=device, wire_dtype=wire_dtype)
+        self.model = model.to(self.device)
+        self.dense_optimizer = dense_optimizer
+        self.embedding_optimizer = embedding_optimizer
+        self.grad_scale = grad_scale
+        self.dynamic_loss_scale = dynamic_loss_scale
+        self._loss_scale_init = loss_scale_init if dynamic_loss_scale else None
+        kwargs = {} if loss_fn is None else {"loss_fn": loss_fn}
+        self._train_step = build_train_step(
+            self.model, dense_optimizer,
+            dynamic_loss_scale=dynamic_loss_scale,
+            growth_interval=loss_scale_growth_interval,
+            max_scale=loss_scale_max,
+            **kwargs,
+        )
+        self._eval_step = build_eval_step(self.model)
+        self.state: Optional[TrainState] = None
+
+    def __enter__(self):
+        self.worker.register_optimizer(self.embedding_optimizer.config)
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def init_state(self) -> TrainState:
+        self.state = init_train_state(self.model, self.dense_optimizer, self._loss_scale_init)
+        return self.state
+
+    def run_step(self, device_batch: Dict):
+        """The device step on a staged batch: (header, gpacked) on the
+        device."""
+        if self.state is None:
+            self.init_state()
+        return self._train_step(self.state, device_batch)
+
+    def fetch_step_output(self, header, gpacked, device_batch: Dict):
+        """Device→host copies of a step's outputs: (metrics, per-slot
+        gradients as f32 arrays)."""
+        h = header.cpu().numpy()
+        if self.dynamic_loss_scale:
+            loss, preds, scale, finite = unpack_step_header_dynamic(h, device_batch)
+            metrics = {"loss": loss, "preds": preds, "loss_scale": scale, "grads_finite": finite}
+        else:
+            loss, preds = unpack_step_header(h, device_batch)
+            metrics = {"loss": loss, "preds": preds}
+        return metrics, unpack_step_grads(tensor_to_host_f32(gpacked), device_batch)
+
+    def train_step(self, batch: PersiaBatch) -> Dict:
+        """One synchronous hybrid step: lookup → device step → gradient
+        return. Returns host metrics {loss, preds} (with the dynamic loss
+        scale also {loss_scale, grads_finite})."""
+        ref = self.worker.put_forward_ids(batch)
+        emb_batches = self.worker.forward_batch_id(ref, train=True)
+        try:
+            device_batch, counts = self.prepare_features(batch, emb_batches, csr=True)
+            header, gpacked = self.run_step(device_batch)
+            metrics, emb_grads = self.fetch_step_output(header, gpacked, device_batch)
+            slot_grads = self.emb_grads_to_slot_grads(emb_batches, emb_grads, counts)
+        except Exception:
+            # release the staleness slot and the stashed layout
+            self.worker.abort_gradient(ref)
+            raise
+        # embedding gradients ship scaled; the worker divides by the dynamic
+        # loss scale composed with the static grad_scale
+        scale = metrics.get("loss_scale", 1.0) * self.grad_scale
+        self.worker.update_gradient_batched(ref, slot_grads, scale_factor=scale)
+        return metrics
+
+    def eval_batch(self, batch: PersiaBatch) -> np.ndarray:
+        emb_batches = self.worker.forward_directly(batch, train=False)
+        device_batch, _ = self.prepare_features(batch, emb_batches)
+        return self._eval_step(device_batch).cpu().numpy()
 
 
 class InferCtx(EmbeddingCtx):

@@ -1,7 +1,9 @@
-"""Sparse (embedding) optimizer configs (counterpart of
-``persia_tpu/embedding/optim.py``), as far as the store needs them: the
-width of the optimizer state kept after each embedding (``[emb | state]``)
-and its initial value. The update math comes with the training slice."""
+"""Sparse (embedding) optimizers (counterpart of
+``persia_tpu/embedding/optim.py``): the configs registered to every
+parameter-server replica, the width and initial value of the optimizer
+state kept after each embedding (``[emb | state]``), and the per-entry
+update. The update is numpy in the reference's operation order, so the
+entries it writes equal the reference's bit for bit."""
 
 from __future__ import annotations
 
@@ -45,6 +47,54 @@ class OptimizerConfig:
         if self.kind == OPTIMIZER_ADAGRAD:
             return np.full(n, self.initialization, dtype=np.float32)
         return np.zeros(n, dtype=np.float32)
+
+    def update_dense(
+        self,
+        emb: np.ndarray,
+        state: np.ndarray,
+        grad: np.ndarray,
+        batch_state: Tuple[float, float],
+    ) -> None:
+        """In-place update of one entry. ``batch_state`` = accumulated
+        (beta1^t, beta2^t) for Adam, kept per feature group and advanced
+        once per gradient batch."""
+        if self.kind == OPTIMIZER_SGD:
+            if self.weight_decay:
+                grad = grad + self.weight_decay * emb
+            emb -= self.lr * grad
+        elif self.kind == OPTIMIZER_ADAGRAD:
+            if self.weight_decay:
+                grad = grad + self.weight_decay * emb
+            if self.vectorwise_shared:
+                g2 = float(np.mean(grad * grad))
+                state[0] = state[0] * self.g_square_momentum + g2
+                emb -= self.lr * grad / np.sqrt(state[0] + self.eps)
+            else:
+                state *= self.g_square_momentum
+                state += (grad * grad).astype(np.float32)
+                emb -= self.lr * grad / np.sqrt(state + self.eps)
+        elif self.kind == OPTIMIZER_ADAM:
+            dim = emb.shape[0]
+            m = state[:dim]
+            v = state[dim:]
+            m *= self.beta1
+            m += (1.0 - self.beta1) * grad
+            v *= self.beta2
+            v += (1.0 - self.beta2) * grad * grad
+            beta1_pow, beta2_pow = batch_state
+            m_hat = m / (1.0 - beta1_pow)
+            v_hat = v / (1.0 - beta2_pow)
+            emb -= self.lr * m_hat / (np.sqrt(v_hat) + self.eps)
+        else:
+            raise ValueError(f"unknown optimizer kind {self.kind}")
+
+    def advance_batch_state(self, prev: Tuple[float, float]) -> Tuple[float, float]:
+        if self.kind != OPTIMIZER_ADAM:
+            return prev
+        return (prev[0] * self.beta1, prev[1] * self.beta2)
+
+    def initial_batch_state(self) -> Tuple[float, float]:
+        return (1.0, 1.0)
 
 
 class SGD:

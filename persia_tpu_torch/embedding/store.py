@@ -1,4 +1,4 @@
-"""Embedding parameter store, lookup path (counterpart of
+"""Embedding parameter store (counterpart of
 ``persia_tpu/embedding/store.py``).
 
 One parameter-server replica held in process: internal shards, each an
@@ -6,12 +6,18 @@ insertion-ordered dict used as an O(1) LRU, with entries ``(dim, [emb |
 optimizer state])``. Lookup semantics are the reference's:
 
 - train: LRU-touch hits; a miss passes the admit gate, then gets the seeded
-  by-sign init (or reads zeros if it is not admitted);
+  by-sign init (or reads zeros if it is not admitted); an entry whose width
+  is not ``dim`` + the registered optimizer's state re-inits;
 - infer: zeros on miss, no touch, no admission.
+
+The gradient path applies the registered sparse optimizer entry by entry,
+then clamps to ±``weight_bound``; a sign that is not present is counted in
+``grad_misses`` and skipped. Adam's beta powers are kept per feature group
+and advanced once per gradient batch.
 
 The per-sign hashes and the init rows are computed vectorized for the whole
 call; the entries and their order are the same as the reference's
-sign-by-sign loop. The gradient path comes with the training slice.
+sign-by-sign loop.
 """
 
 from __future__ import annotations
@@ -73,6 +79,14 @@ class EmbeddingStore:
         self.hyperparams = hyperparams
         self.optimizer = optimizer
         self.seed = seed
+        # Adam's accumulated (beta1^t, beta2^t) per feature group
+        self._batch_state: Dict[int, Tuple[float, float]] = {}
+        self.grad_misses = 0  # gradient rows whose sign was absent
+
+    def register_optimizer(self, optimizer: OptimizerConfig) -> None:
+        with self._lock:
+            self.optimizer = optimizer
+            self._batch_state.clear()
 
     def _state_dim(self, dim: int) -> int:
         return self.optimizer.state_dim(dim) if self.optimizer is not None else 0
@@ -113,10 +127,15 @@ class EmbeddingStore:
         admitted = self._admitted(signs)
         fresh: Dict[int, np.ndarray] = {}  # sign -> entry created by this call
         fresh_rows: List[Tuple[int, int]] = []  # (out row, sign) read from a fresh entry
+        no_optimizer = self.optimizer is None
         for i, (s, k) in enumerate(zip(sign_list, shard_idx)):
             shard = self._shards[k]
             entry = shard.get_refresh(s)
-            if entry is not None and entry[0] == dim:  # a hit; another dim re-inits
+            # a hit; another dim or entry width re-inits (with no optimizer
+            # registered, a wider entry, one restored with its state, is kept)
+            if entry is not None and entry[0] == dim and (
+                len(entry[1]) == entry_len or (no_optimizer and len(entry[1]) >= dim)
+            ):
                 if s in fresh:
                     fresh_rows.append((i, s))
                 else:
@@ -156,6 +175,75 @@ class EmbeddingStore:
             for g in range(len(dims))
         ]
         return np.concatenate(parts) if parts else np.empty(0, np.float32)
+
+    def advance_batch_state(self, group: int) -> None:
+        """Advance Adam's beta powers of ``group`` once per gradient batch."""
+        if self.optimizer is None:
+            return
+        with self._lock:
+            prev = self._batch_state.get(group, self.optimizer.initial_batch_state())
+            self._batch_state[group] = self.optimizer.advance_batch_state(prev)
+
+    def update_gradients(self, signs: np.ndarray, grads: np.ndarray, group: int = 0) -> None:
+        """Apply the registered optimizer to each sign's entry in turn, then
+        clamp the embedding to ±weight_bound. Absent signs (evicted, never
+        admitted, or of another width) are skipped and counted."""
+        if self.optimizer is None:
+            raise RuntimeError("no optimizer registered")
+        if grads.shape[0] != len(signs):
+            raise ValueError("signs/grads length mismatch")
+        signs = np.asarray(signs, dtype=np.uint64)
+        with self._lock:
+            self._update_locked(signs, grads, group)
+
+    def _update_locked(self, signs: np.ndarray, grads: np.ndarray, group: int) -> None:
+        if not len(signs):
+            return
+        opt = self.optimizer
+        dim = grads.shape[1]
+        entry_len = dim + self._state_dim(dim)
+        # a group never advanced takes the first batch's powers
+        batch_state = self._batch_state.get(
+            group, opt.advance_batch_state(opt.initial_batch_state())
+        )
+        bound = self.hyperparams.weight_bound
+        misses = 0
+        for i, (s, k) in enumerate(zip(signs.tolist(), self._shard_indices(signs))):
+            entry = self._shards[k].get_refresh(s)
+            if entry is None or entry[0] != dim or len(entry[1]) != entry_len:
+                misses += 1
+                continue
+            vec = entry[1]
+            opt.update_dense(vec[:dim], vec[dim:], grads[i], batch_state)
+            if bound > 0:
+                np.clip(vec[:dim], -bound, bound, out=vec[:dim])
+        self.grad_misses += misses
+
+    def update_batched(
+        self, signs: np.ndarray, key_ofs: np.ndarray, dims: np.ndarray,
+        grads: np.ndarray, opt_groups: np.ndarray,
+    ) -> None:
+        """Multi-slot gradient update in one call; ``grads`` is flat in
+        ``lookup_batched``'s layout. Exactly sequential per-group
+        ``update_gradients`` calls."""
+        key_ofs = np.asarray(key_ofs, dtype=np.int64)
+        grads = np.asarray(grads, dtype=np.float32).reshape(-1)
+        off = 0
+        for g in range(len(dims)):
+            d = int(dims[g])
+            ks = signs[key_ofs[g]:key_ofs[g + 1]]
+            size = len(ks) * d
+            self.update_gradients(ks, grads[off:off + size].reshape(len(ks), d), int(opt_groups[g]))
+            off += size
+
+    def get_embedding_entry(self, sign: int) -> Optional[np.ndarray]:
+        """The sign's whole entry ``[emb | optimizer state]`` (no LRU touch),
+        or None."""
+        sign = int(sign)
+        with self._lock:
+            k = self._shard_indices(np.array([sign], dtype=np.uint64))[0]
+            e = self._shards[k].entries.get(sign)
+            return None if e is None else e[1]
 
     def size(self) -> int:
         with self._lock:

@@ -1,17 +1,21 @@
-"""Embedding-worker tier, lookup-direct subset (counterpart of
-``persia_tpu/embedding/worker.py``): id preprocessing (prefix, dedup,
-hash-stack), sharded lookup over parameter-server replicas, and the
-pooling/layout postprocess that hands each slot to the device.
+"""Embedding-worker tier (counterpart of ``persia_tpu/embedding/worker.py``):
+id preprocessing (prefix, dedup, hash-stack), sharded lookup over
+parameter-server replicas, the pooling/layout postprocess that hands each
+slot to the device, and the synchronous gradient return: the post-forward
+buffer and its staleness count, per-slot device gradients turned into
+per-key gradients, and one batched update per replica.
 
 The numpy routines here are the ones the reference falls back to when its
-native worker core is missing; they produce the same arrays bit for bit.
-The gradient path comes with the training slice.
+native worker core is missing; they produce the same arrays bit for bit
+(the gradient accumulation of host-pooled slots sums in ``np.add.at``'s
+order, where the native core sums in its own).
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -19,6 +23,11 @@ from persia_tpu_torch.config import EmbeddingConfig, SlotConfig
 from persia_tpu_torch.data import IDTypeFeature, PersiaBatch
 from persia_tpu_torch.embedding.hashing import add_index_prefix, hash_stack, sign_to_shard
 from persia_tpu_torch.utils import round_up_pow2
+
+
+class ForwardIdNotFound(RuntimeError):
+    """A forward or gradient call named a batch ref the worker does not
+    hold (already consumed, aborted, or never buffered)."""
 
 
 @dataclass
@@ -139,6 +148,7 @@ class ShardedLookup:
         if not replicas:
             raise ValueError("need at least one PS replica")
         self.replicas = list(replicas)
+        self.batch_advances: Dict[int, int] = {}
 
     def lookup_groups(self, groups: Sequence, train: bool) -> List[np.ndarray]:
         """Multi-slot lookup, one call per replica: ``groups`` is ``[(keys,
@@ -166,6 +176,41 @@ class ShardedLookup:
                 if b < e:
                     outs[g][pos[b:e] - key_ofs[g]] = rows
         return outs
+
+    def update_groups(self, groups: Sequence) -> None:
+        """Multi-slot gradient fan-out, one call per replica:
+        ``groups`` is ``[(keys, grads (n, dim) f32, opt_group), ...]``. The
+        caller advances Adam's batch state once per batch per group first."""
+        if not groups:
+            return
+        dims = np.fromiter((g.shape[1] for _, g, _ in groups), dtype=np.uint32, count=len(groups))
+        opt_groups = np.fromiter((og for _, _, og in groups), dtype=np.int32, count=len(groups))
+        key_ofs = np.zeros(len(groups) + 1, dtype=np.int64)
+        np.cumsum([len(k) for k, _, _ in groups], out=key_ofs[1:])
+        all_keys = np.concatenate([np.asarray(k, dtype=np.uint64) for k, _, _ in groups])
+        n = len(self.replicas)
+        if n == 1:
+            flat = np.concatenate([np.asarray(g, dtype=np.float32).reshape(-1) for _, g, _ in groups])
+            self.replicas[0].update_batched(all_keys, key_ofs, dims, flat, opt_groups)
+            return
+        shard = sign_to_shard(all_keys, n)
+        for r in range(n):
+            pos = np.flatnonzero(shard == r)
+            if not len(pos):
+                continue
+            sub_ofs = np.searchsorted(pos, key_ofs).astype(np.int64)
+            flat = np.concatenate([
+                np.asarray(groups[g][1], dtype=np.float32)[pos[sub_ofs[g]:sub_ofs[g + 1]] - key_ofs[g]].reshape(-1)
+                for g in range(len(groups))
+            ])
+            self.replicas[r].update_batched(all_keys[pos], sub_ofs, dims, flat, opt_groups)
+
+    def advance_batch_state(self, group: int) -> None:
+        """Advance ``group``'s Adam beta powers on every replica, counted in
+        ``batch_advances``."""
+        self.batch_advances[group] = self.batch_advances.get(group, 0) + 1
+        for r in self.replicas:
+            r.advance_batch_state(group)
 
 
 def _sum_hashstack_rounds(slot: ProcessedSlot, rows: np.ndarray) -> np.ndarray:
@@ -220,11 +265,67 @@ def postprocess_slot(
     return RawEmbeddingBatch(slot.name, rows, index, sample_id_num)
 
 
-class EmbeddingWorker:
-    """The worker tier over in-process replicas: lookup-direct forward.
+def slot_gradient_to_keys(
+    slot: ProcessedSlot, grad: np.ndarray, scale_factor: float = 1.0,
+    device_pooled: bool = False,
+) -> Optional[np.ndarray]:
+    """A slot's device gradient as per-table-key gradients, (len(keys), dim)
+    f32, or None when the slot is skipped for a non-finite value.
 
-    ``device_pooling``: sum slots ship unpooled (``DevicePooledBatch``) and
-    are pooled on the device.
+    - host-pooled sum slot: ``grad`` is (B, dim); every id of sample b gets
+      ``grad[b]`` (times 1/sqrt(n_ids) with sqrt scaling), summed per
+      distinct sign;
+    - device-pooled sum slot: ``grad`` is (D, dim), already per distinct
+      sign with the sqrt scaling applied by the device;
+    - raw slot: ``grad`` is (D, dim) per distinct row (divided by sqrt(D)
+      with sqrt scaling, as the forward scaled the rows);
+    - hash-stack keys each receive their distinct id's gradient.
+
+    ``grad`` is divided by ``scale_factor`` first (a loss scale)."""
+    if not np.isfinite(grad).all():
+        return None
+    grad = grad.astype(np.float32)
+    if scale_factor != 1.0:
+        grad = grad / np.float32(scale_factor)
+    dim = slot.config.dim
+    if slot.config.embedding_summation and device_pooled:
+        if grad.shape[0] != slot.num_distinct:
+            raise ValueError(
+                f"device-pooled slot {slot.name!r}: grad rows {grad.shape[0]} "
+                f"!= distinct {slot.num_distinct}"
+            )
+        per_distinct = grad
+    elif slot.config.embedding_summation:
+        if slot.config.sqrt_scaling:
+            scale = 1.0 / np.sqrt(np.maximum(slot.counts, 1)).astype(np.float32)
+            grad = grad * scale[:, None]
+        per_distinct = np.zeros((slot.num_distinct, dim), dtype=np.float32)
+        if len(slot.inverse):
+            np.add.at(per_distinct, slot.inverse, grad[slot.sample_of_id])
+    else:
+        if grad.shape[0] != slot.num_distinct:
+            raise ValueError(
+                f"raw slot {slot.name!r}: grad rows {grad.shape[0]} != distinct {slot.num_distinct}"
+            )
+        per_distinct = grad
+        if slot.config.sqrt_scaling:
+            per_distinct = per_distinct / np.sqrt(np.maximum(slot.num_distinct, 1)).astype(np.float32)
+    if slot.rounds > 1:
+        return np.repeat(per_distinct, slot.rounds, axis=0)
+    return per_distinct
+
+
+class EmbeddingWorker:
+    """The worker tier over in-process replicas.
+
+    Serving calls ``forward_directly``. Training buffers a batch's ids
+    (``put_forward_ids`` → a ref), looks them up (``forward_batch_id``,
+    which keeps the batch's layout in the post-forward buffer and counts it
+    in ``staleness``), and returns its gradients
+    (``update_gradient_batched``) or drops them (``abort_gradient``).
+
+    ``device_pooling``: sum slots ship unpooled (``DevicePooledBatch``), are
+    pooled on the device, and their gradients come back per distinct sign.
     """
 
     def __init__(
@@ -236,6 +337,82 @@ class EmbeddingWorker:
         self.embedding_config = embedding_config
         self.lookup_router = ShardedLookup(replicas)
         self.device_pooling = device_pooling
+        self.forward_id_buffer: Dict[int, List[ProcessedSlot]] = {}
+        self.post_forward_buffer: Dict[int, List[ProcessedSlot]] = {}
+        self.staleness = 0  # batches looked up whose gradients are not back
+        self._ref_id = 0
+        self._buf_lock = threading.Lock()
+        # one gradient batch at a time: Adam's batch-state advance is atomic
+        # with its batch's updates
+        self._grad_lock = threading.Lock()
+
+    def register_optimizer(self, optimizer) -> None:
+        """Register the sparse optimizer on every replica."""
+        for r in self.lookup_router.replicas:
+            r.register_optimizer(optimizer)
+
+    def put_forward_ids(self, batch: PersiaBatch) -> int:
+        """Preprocess and buffer a batch's ids; returns its ref."""
+        slots = preprocess_batch(batch.id_type_features, self.embedding_config)
+        with self._buf_lock:
+            self._ref_id += 1
+            self.forward_id_buffer[self._ref_id] = slots
+            return self._ref_id
+
+    def forward_batch_id(self, ref: int, train: bool = True) -> List[FeatureEmbeddingBatch]:
+        """Look up a buffered batch; with ``train`` its layout waits in the
+        post-forward buffer for the gradients."""
+        with self._buf_lock:
+            slots = self.forward_id_buffer.pop(ref, None)
+        if slots is None:
+            raise ForwardIdNotFound(f"forward id {ref} not found (expired or already consumed)")
+        out = self._lookup_slots(slots, train)
+        if train:
+            with self._buf_lock:
+                self.post_forward_buffer[ref] = slots
+                self.staleness += 1
+        return out
+
+    def abort_gradient(self, ref: int) -> None:
+        """Drop a looked-up batch without applying gradients (its step
+        failed), releasing its staleness slot."""
+        with self._buf_lock:
+            if self.post_forward_buffer.pop(ref, None) is not None:
+                self.staleness = max(0, self.staleness - 1)
+
+    def update_gradient_batched(
+        self, ref: int, slot_grads: Dict[str, np.ndarray], scale_factor: float = 1.0,
+    ) -> Dict[str, int]:
+        """Gradient return of a looked-up batch: per-slot device gradients
+        (keyed by slot name) → per-key gradients → one update per replica.
+        Returns the slots skipped for a non-finite gradient."""
+        with self._buf_lock:
+            slots = self.post_forward_buffer.pop(ref, None)
+            if slots is not None:
+                self.staleness = max(0, self.staleness - 1)
+        if slots is None:
+            raise ForwardIdNotFound(
+                f"forward id {ref} not found in post-forward buffer "
+                "(already updated, aborted, or never forwarded)"
+            )
+        cfg = self.embedding_config
+        skipped: Dict[str, int] = {}
+        trip = []
+        for slot in slots:
+            grad = slot_grads.get(slot.name)
+            if grad is None:
+                continue
+            per_key = slot_gradient_to_keys(slot, grad, scale_factor, device_pooled=self.device_pooling)
+            if per_key is None:
+                skipped[slot.name] = 1
+                continue
+            trip.append((slot.keys, per_key, cfg.group_of(slot.name)))
+        with self._grad_lock:
+            groups = {cfg.group_of(s.name) for s in slots if s.name in slot_grads}
+            for g in sorted(groups):
+                self.lookup_router.advance_batch_state(g)
+            self.lookup_router.update_groups(trip)
+        return skipped
 
     def _lookup_slots(self, slots: Sequence[ProcessedSlot], train: bool) -> List[FeatureEmbeddingBatch]:
         rows_list = self.lookup_router.lookup_groups([(s.keys, s.config.dim) for s in slots], train)

@@ -3,12 +3,23 @@
 tensor takes the plain version; a CUDA tensor launches the kernel, and each
 wrapper counts its launches in ``<wrapper>.launches`` (flash attention also
 per route, in ``flash_attention.launches_by_route``; its f32 route's
-pre-pass in ``tf32_split_planes.launches``)."""
+pre-pass in ``tf32_split_planes.launches``). ``dot_interaction`` and
+``embedding_pool`` are differentiable: their backward passes launch
+``dot_interaction_bwd`` and ``gather_pool_bwd``."""
 
-from persia_tpu_torch.ops.dot_interaction import dot_interaction  # noqa: F401
+from persia_tpu_torch.ops.dot_interaction import dot_interaction, dot_interaction_bwd  # noqa: F401
+from persia_tpu_torch.ops.embedding_pool import (  # noqa: F401
+    PoolSlot,
+    embedding_pool,
+    gather_pool_bwd,
+    gather_pool_fwd,
+)
 from persia_tpu_torch.ops.flash_attention import flash_attention, tf32_split_planes  # noqa: F401
 
-KERNEL_WRAPPERS = (dot_interaction, flash_attention, tf32_split_planes)
+KERNEL_WRAPPERS = (
+    dot_interaction, dot_interaction_bwd, gather_pool_fwd, gather_pool_bwd,
+    flash_attention, tf32_split_planes,
+)
 
 
 def reset_launch_counts() -> None:

@@ -213,3 +213,72 @@ def dot_plan(batch: int, n: int, d: int, elem_bytes: int) -> DotPlan:
         threads=32 * rows, grid=grid, feat_stride=dot_feat_stride(d, mma),
         smem_bytes=dot_smem_bytes(rows, n, d, elem_bytes, mma) if rows else 0,
     )
+
+
+@dataclass(frozen=True)
+class DotBwdPlan:
+    batch: int
+    n: int
+    d: int
+    elem_bytes: int
+    mma: bool  # bf16 on the tensor cores; else the f32 FMA walk
+    rows_per_block: int  # 0: one row does not fit
+    threads: int
+    grid: int
+    smem_bytes: int
+
+
+DOT_BWD_THREADS = 256  # the FMA walk's block; the tensor-core path runs a warp per row
+DOT_BWD_GSYM_STRIDE = 40  # bf16 elements between rows of the 32 x 32 symmetric tile
+
+
+def dot_bwd_smem_bytes(rows: int, n: int, d: int, mma: bool) -> int:
+    """Tensor-core path: per row a zero-padded symmetric 32 x 32 bf16 tile
+    of the pair gradients (stride 40) and 32 bf16 feature rows (stride
+    d + 8), plus the block's (i, j) table of the pairs (2 bytes each). FMA
+    walk: per row its features and pair gradients widened to f32."""
+    pairs = n * (n - 1) // 2
+    if mma:
+        per_row = 32 * DOT_BWD_GSYM_STRIDE * 2 + 32 * (d + 8) * 2
+        return rows * per_row + -(-pairs * 2 // 16) * 16
+    return rows * 4 * (n * d + pairs)
+
+
+def dot_bwd_plan(batch: int, n: int, d: int, elem_bytes: int) -> DotBwdPlan:
+    """Geometry of ``dot_interaction_bwd`` (csrc/dot_interaction.cu): the
+    tensor-core path takes the shapes the forward's does."""
+    mma = dot_uses_mma(n, d, elem_bytes)
+    rows = 0
+    for r in range(DOT_MAX_ROWS, 0, -1):
+        if dot_bwd_smem_bytes(r, n, d, mma) <= SMEM_STATIC:
+            rows = r
+            break
+    return DotBwdPlan(
+        batch=batch, n=n, d=d, elem_bytes=elem_bytes, mma=mma, rows_per_block=rows,
+        threads=32 * rows if mma else DOT_BWD_THREADS,
+        grid=-(-batch // rows) if rows else 0,
+        smem_bytes=dot_bwd_smem_bytes(rows, n, d, mma) if rows else 0,
+    )
+
+
+# grouped gather-pool (csrc/embedding_pool.cu): one launch for up to
+# POOL_MAX_SLOTS slots, one thread per output element
+POOL_MAX_SLOTS = 64
+POOL_THREADS = 256
+
+
+@dataclass(frozen=True)
+class PoolPlan:
+    fwd_grid: int  # over batch x slots x dim
+    bwd_grid: tuple  # (blocks over max rows x dim, slots)
+    threads: int
+
+
+def pool_plan(batch: int, slots: int, dim: int, max_rows: int) -> PoolPlan:
+    if not 1 <= slots <= POOL_MAX_SLOTS:
+        raise ValueError(f"one launch pools 1..{POOL_MAX_SLOTS} slots, got {slots}")
+    return PoolPlan(
+        fwd_grid=-(-batch * slots * dim // POOL_THREADS),
+        bwd_grid=(-(-max_rows * dim // POOL_THREADS), slots),
+        threads=POOL_THREADS,
+    )

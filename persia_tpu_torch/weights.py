@@ -1,15 +1,17 @@
-"""Carry dense weights across from the reference's flax layout.
+"""Carry dense weights, and Adam's moments, across from the reference's
+flax/optax layout.
 
 flax names a model's ``Dense`` layers ``Dense_0 … Dense_k`` in call order,
 each ``{"kernel": (in, out), "bias": (out,)}``; the port's models keep their
 ``nn.Linear`` layers in ``layers`` in the same order, with ``weight`` (out,
-in). Parameters arrive as nested dicts of numpy arrays, so this module needs
-neither JAX nor flax.
+in). Parameters and optax's ``ScaleByAdamState`` leaves (``mu``, ``nu``,
+``count``) arrive as nested dicts of numpy arrays, so this module needs
+neither JAX nor flax nor optax.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -24,8 +26,34 @@ def dlrm_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     for i, name in enumerate(names):
         kernel = np.asarray(params[name]["kernel"], dtype=np.float32)
         bias = np.asarray(params[name]["bias"], dtype=np.float32)
-        out[f"layers.{i}.weight"] = torch.from_numpy(np.ascontiguousarray(kernel.T))
+        out[f"layers.{i}.weight"] = torch.from_numpy(np.array(kernel.T))  # a writable copy
         out[f"layers.{i}.bias"] = torch.from_numpy(bias.copy())
+    return out
+
+
+def adam_state_from_optax(
+    params: Sequence[torch.nn.Parameter], mu: Mapping, nu: Mapping, count
+) -> Dict[torch.nn.Parameter, Dict[str, torch.Tensor]]:
+    """``torch.optim.Adam`` state for ``params`` (a DLRM's parameters in
+    ``model.parameters()`` order: layers.0.weight, layers.0.bias, …) from
+    optax ``scale_by_adam``'s first and second moments (flax layout) and its
+    step count. Load it with ``optimizer.state.update(...)``: the two
+    optimizers then continue alike (optax's bias corrections use the same
+    count as torch's ``step``)."""
+    moments = [dlrm_state_dict_from_flax(m) for m in (mu, nu)]
+    names = list(moments[0])
+    if len(names) != len(params):
+        raise ValueError(f"{len(names)} moment leaves for {len(params)} parameters")
+    out = {}
+    for p, name in zip(params, names):
+        m, v = (mo[name] for mo in moments)
+        if m.shape != p.shape:
+            raise ValueError(f"{name}: moment shape {tuple(m.shape)} != parameter {tuple(p.shape)}")
+        out[p] = {
+            "step": torch.tensor(float(np.asarray(count))),
+            "exp_avg": m.to(p.device),
+            "exp_avg_sq": v.to(p.device),
+        }
     return out
 
 

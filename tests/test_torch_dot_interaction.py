@@ -1,13 +1,15 @@
-"""The port's DLRM dot interaction vs the reference's einsum + triu gather
-(``persia_tpu/models/dlrm.py:49-53``), on the CPU through the plain
-version (the kernel on a card: tests/test_torch_kernels_gpu.py)."""
+"""The port's DLRM dot interaction and its backward vs the reference's
+einsum + triu gather (``persia_tpu/models/dlrm.py:49-53``) and its
+``jax.vjp``, on the CPU through the plain versions (the kernels on a card:
+tests/test_torch_kernels_gpu.py)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from persia_tpu_torch.ops import dot_interaction
+from persia_tpu_torch.ops import dot_interaction, dot_interaction_bwd
 
 
 def _jax_interaction(feats: np.ndarray, dtype) -> np.ndarray:
@@ -67,3 +69,48 @@ def test_rejects_bad_rank():
     with pytest.raises(ValueError):
         dot_interaction(torch.zeros(2, 3))
 
+
+
+def _jax_vjp(feats: np.ndarray, grad: np.ndarray, dtype) -> np.ndarray:
+    def inter(f):
+        out = jnp.einsum("bnd,bmd->bnm", f, f)
+        iu, ju = jnp.triu_indices(f.shape[1], k=1)
+        return out[:, iu, ju]
+
+    _, vjp = jax.vjp(inter, jnp.asarray(feats, dtype=dtype))
+    (g,) = vjp(jnp.asarray(grad, dtype=dtype))
+    return np.asarray(g.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("n", [2, 5, 27])
+def test_backward_matches_jax_vjp_f32(n):
+    """f32: the vjp is two batched products and their sum; the port one sum
+    per output over j != i. Order only, so 1e-5; the autograd of the
+    differentiable entry point and ``dot_interaction_bwd`` agree exactly."""
+    feats = _feats(16, n, 16, seed=20 + n)
+    grad = np.random.default_rng(n).standard_normal((16, n * (n - 1) // 2)).astype(np.float32)
+    x = torch.from_numpy(feats).requires_grad_(True)
+    (dx,) = torch.autograd.grad(dot_interaction(x), x, torch.from_numpy(grad))
+    ref = _jax_vjp(feats, grad, jnp.float32)
+    np.testing.assert_allclose(dx.numpy(), ref, rtol=1e-5, atol=1e-5)
+    direct = dot_interaction_bwd(torch.from_numpy(feats), torch.from_numpy(grad))
+    assert torch.equal(direct, dx)
+
+
+@pytest.mark.parametrize("n", [2, 5, 27])
+def test_backward_matches_jax_vjp_bf16(n):
+    """bf16: the reference rounds each of its two products and their sum to
+    bf16, the port one f32 sum once; one bf16 ulp (2^-7 relative) of the
+    largest term for the outputs that cancel."""
+    rng = np.random.default_rng(30 + n)
+    feats = np.array(jnp.asarray(_feats(16, n, 16, seed=30 + n), jnp.bfloat16).astype(jnp.float32))
+    grad = np.array(jnp.asarray(rng.standard_normal((16, n * (n - 1) // 2)), jnp.bfloat16).astype(jnp.float32))
+    dx = dot_interaction_bwd(torch.from_numpy(feats).to(torch.bfloat16), torch.from_numpy(grad).to(torch.bfloat16))
+    assert dx.dtype == torch.bfloat16 and dx.shape == feats.shape
+    ref = _jax_vjp(feats, grad, jnp.bfloat16)
+    np.testing.assert_allclose(dx.float().numpy(), ref, rtol=2 ** -7, atol=2 ** -7 * np.abs(ref).max())
+
+
+def test_backward_rejects_mismatched_grad():
+    with pytest.raises(ValueError):
+        dot_interaction_bwd(torch.zeros(2, 3, 4), torch.zeros(2, 2))

@@ -179,3 +179,54 @@ def test_dot_feature_stride_is_conflict_free(d):
     else:
         banks = [(lane * stride) % 32 for lane in range(32)]
     assert len(set(banks)) == len(banks)
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("shape", [(4096, 27, 16), (4095, 27, 16), (33, 2, 8), (7, 32, 64), (7, 60, 48),
+                                   (5, 9, 24), (9, 17, 48)])
+def test_dot_bwd_plan_rows_fit(shape, elem):
+    """The backward's rows fit the static shared memory, cover the batch,
+    and the tensor-core path runs a warp per row."""
+    b, n, d = shape
+    p = plans.dot_bwd_plan(b, n, d, elem)
+    assert 1 <= p.rows_per_block <= plans.DOT_MAX_ROWS
+    assert p.smem_bytes == plans.dot_bwd_smem_bytes(p.rows_per_block, n, d, p.mma) <= plans.SMEM_STATIC
+    assert (p.grid - 1) * p.rows_per_block < b <= p.grid * p.rows_per_block
+    assert p.mma == plans.dot_uses_mma(n, d, elem)
+    assert p.threads == (32 * p.rows_per_block if p.mma else plans.DOT_BWD_THREADS)
+
+
+def test_dot_bwd_plan_bench_shape():
+    """(4096, 27, 16) bf16: 8 rows a block on the tensor cores; per row a
+    32 x 40 bf16 symmetric tile and 32 feature rows of 24 bf16, plus the
+    block's 351-entry pair table (rounded to 16 bytes)."""
+    p = plans.dot_bwd_plan(4096, 27, 16, 2)
+    assert (p.mma, p.rows_per_block, p.threads, p.grid) == (True, 8, 256, 512)
+    assert p.smem_bytes == 8 * (32 * 40 * 2 + 32 * 24 * 2) + 704
+
+
+def test_dot_bwd_gsym_stride_is_conflict_free():
+    """ldmatrix reads 8 rows of 16 bytes of the symmetric tile at once: the
+    rows' 16-byte bank groups must differ."""
+    stride_bytes = plans.DOT_BWD_GSYM_STRIDE * 2
+    assert stride_bytes % 16 == 0
+    assert len({(r * stride_bytes // 16) % 8 for r in range(8)}) == 8
+
+
+def test_dot_bwd_plan_refuses_a_row_that_does_not_fit():
+    assert plans.dot_bwd_plan(4, 200, 64, 4).rows_per_block == 0
+
+
+@pytest.mark.parametrize("batch,slots,dim,rows", [(4096, 26, 16, 2560), (1, 1, 1, 1), (333, 64, 8, 17)])
+def test_pool_plan_covers_every_element(batch, slots, dim, rows):
+    p = plans.pool_plan(batch, slots, dim, rows)
+    fwd = batch * slots * dim
+    assert (p.fwd_grid - 1) * p.threads < fwd <= p.fwd_grid * p.threads
+    bx, by = p.bwd_grid
+    assert (bx - 1) * p.threads < rows * dim <= bx * p.threads and by == slots
+
+
+@pytest.mark.parametrize("slots", [0, plans.POOL_MAX_SLOTS + 1])
+def test_pool_plan_refuses_group_sizes_without_a_launch(slots):
+    with pytest.raises(ValueError):
+        plans.pool_plan(16, slots, 16, 8)

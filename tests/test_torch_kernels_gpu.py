@@ -1,5 +1,5 @@
 """The port's CUDA kernels on a card, each held to its plain version, and the
-serving slice on the card held to the same engine on the CPU.
+serving and training slices on the card held to the same code on the CPU.
 
 Every test needs a card and skips without one. This file imports no JAX,
 so it also runs where only PyTorch is installed:
@@ -11,8 +11,25 @@ import numpy as np
 import pytest
 import torch
 
-from persia_tpu_torch.ops import dot_interaction, flash_attention, tf32_split_planes
-from persia_tpu_torch.ops.dot_interaction import dot_interaction_reference
+from persia_tpu_torch.ops import (
+    PoolSlot,
+    dot_interaction,
+    dot_interaction_bwd,
+    embedding_pool,
+    flash_attention,
+    gather_pool_bwd,
+    gather_pool_fwd,
+    tf32_split_planes,
+)
+from persia_tpu_torch.ops.dot_interaction import (
+    dot_interaction_bwd_reference,
+    dot_interaction_reference,
+)
+from persia_tpu_torch.ops.embedding_pool import (
+    gather_pool_bwd_reference,
+    gather_pool_fwd_reference,
+    pool_csr,
+)
 from persia_tpu_torch.ops.flash_attention import (
     reference_attention,
     route_tolerance,
@@ -213,3 +230,227 @@ def test_serving_slice_on_card_matches_cpu(cuda):
         assert dot_interaction.launches == before + (1 if device is None else 0)
     assert np.isfinite(preds[None]).all()
     np.testing.assert_allclose(preds[None], preds["cpu"], rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize(
+    "dtype,rtol,atol", [(torch.float32, 1e-5, 1e-5), (torch.bfloat16, 2 ** -7, 1e-2)]
+)
+@pytest.mark.parametrize("b,n,d", [(4096, 27, 16), (4095, 27, 16), (33, 2, 8), (7, 32, 64), (7, 60, 48),
+                                   (5, 9, 24), (9, 17, 48)])
+def test_dot_interaction_bwd_kernel_matches_plain(cuda, b, n, d, dtype, rtol, atol):
+    """Both sum in f32 and round once: f32 differs from the plain version
+    (two products and their sum) in order only; bf16 by one rounding of two
+    f32 sums of ~n terms of magnitude ~d."""
+    feats = _randn((b, n, d), seed=n + d, dev=cuda, dtype=dtype)
+    g = _randn((b, n * (n - 1) // 2), seed=n + d + 1, dev=cuda, dtype=dtype)
+    before = dot_interaction_bwd.launches
+    out = dot_interaction_bwd(feats, g)
+    torch.cuda.synchronize()
+    assert dot_interaction_bwd.launches == before + 1
+    assert out.shape == feats.shape and out.dtype == dtype
+    torch.testing.assert_close(out.float(), dot_interaction_bwd_reference(feats, g).float(),
+                               rtol=rtol, atol=atol)
+
+
+def test_dot_interaction_autograd_launches_the_backward_kernel(cuda):
+    feats = _randn((64, 27, 16), seed=5, dev=cuda, dtype=torch.bfloat16).requires_grad_(True)
+    g = _randn((64, 351), seed=6, dev=cuda, dtype=torch.bfloat16)
+    before = dot_interaction.launches, dot_interaction_bwd.launches
+    (dx,) = torch.autograd.grad(dot_interaction(feats), feats, g)
+    torch.cuda.synchronize()
+    assert (dot_interaction.launches, dot_interaction_bwd.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(dx.float(), dot_interaction_bwd_reference(feats.detach(), g).float(),
+                               rtol=2 ** -7, atol=1e-2)
+
+
+def _pool_group(dev, dtype, batch, slot_specs, seed):
+    """Rows and PoolSlots of a group: slot_specs is [(distinct D, L, counts?)];
+    rows are padded to one P with zero rows past D, pads index row D."""
+    rng = np.random.default_rng(seed)
+    p = max(d for d, _, _ in slot_specs) + 1
+    rows, slots = [], []
+    for d, L, with_counts in slot_specs:
+        r = np.zeros((p, 16), np.float32)
+        r[:d] = rng.standard_normal((d, 16))
+        counts = rng.integers(0 if L > 1 else 1, L + 1, batch).astype(np.int32)
+        index = np.full((batch, L), d, np.int32)
+        for bi, c in enumerate(counts):
+            index[bi, :c] = rng.integers(0, d, c)
+        order, offsets = pool_csr(index, p)
+        rows.append(torch.from_numpy(r).to(dev, dtype))
+        slots.append(PoolSlot(
+            torch.from_numpy(index).to(dev),
+            torch.from_numpy(counts.reshape(-1, 1)).to(dev) if with_counts else None,
+            torch.from_numpy(order).to(dev), torch.from_numpy(offsets).to(dev),
+        ))
+    return rows, slots
+
+
+POOL_CASES = {
+    "bench": (4096, [(1500, 1, False)] * 26),
+    "counts_L4": (1000, [(300, 4, True), (50, 4, False), (700, 1, True)]),
+    "pads_L2": (333, [(5, 2, True), (1, 2, False)]),
+    "70_slots": (64, [(20 + s, 1 + s % 3, s % 2 == 0) for s in range(70)]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(POOL_CASES))
+def test_gather_pool_kernels_match_plain(cuda, case, dtype):
+    """Forward: f32 sums of the same rows (in l order on both sides).
+    Backward: f32 sums, the kernel in CSR order, index_add_ in its own, one
+    rounding to the row dtype. 70 slots: two launches each way."""
+    batch, specs = POOL_CASES[case]
+    rows, slots = _pool_group(cuda, dtype, batch, specs, seed=len(specs))
+    launches = -(-len(specs) // 64)
+    before = gather_pool_fwd.launches, gather_pool_bwd.launches
+    out = gather_pool_fwd(rows, slots)
+    g = _randn(out.shape, seed=7, dev=cuda)
+    grads = gather_pool_bwd(g, rows, slots)
+    torch.cuda.synchronize()
+    assert (gather_pool_fwd.launches, gather_pool_bwd.launches) == (before[0] + launches, before[1] + launches)
+    assert out.shape == (batch, len(specs), 16) and out.dtype == torch.float32
+    torch.testing.assert_close(out, gather_pool_fwd_reference(rows, slots), rtol=1e-6, atol=1e-6)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=2 ** -7, atol=1e-3)
+    for got, ref in zip(grads, gather_pool_bwd_reference(g, rows, slots)):
+        assert got.dtype == dtype and got.shape == ref.shape
+        torch.testing.assert_close(got.float(), ref.float(), **tol)
+
+
+def test_gather_pool_bwd_is_deterministic(cuda):
+    """Every row is written once, in CSR order: two calls agree bit for bit
+    on a hot-row (zipf) index."""
+    batch, rng = 4096, np.random.default_rng(3)
+    rows, slots = [], []
+    for _ in range(4):
+        index = np.minimum(rng.zipf(1.2, (batch, 1)) - 1, 511).astype(np.int32)
+        order, offsets = pool_csr(index, 513)
+        rows.append(torch.zeros((513, 16), device=cuda, dtype=torch.bfloat16))
+        slots.append(PoolSlot(torch.from_numpy(index).to(cuda), None,
+                              torch.from_numpy(order).to(cuda), torch.from_numpy(offsets).to(cuda)))
+    g = _randn((batch, 4, 16), seed=8, dev=cuda)
+    a, b = gather_pool_bwd(g, rows, slots), gather_pool_bwd(g, rows, slots)
+    for x, y in zip(a, b):
+        assert torch.equal(x.view(torch.int16), y.view(torch.int16))
+
+
+def test_embedding_pool_autograd_on_card(cuda):
+    rows, slots = _pool_group(cuda, torch.bfloat16, 256, [(40, 2, True), (9, 1, False)], seed=4)
+    leaves = [r.clone().requires_grad_(True) for r in rows]
+    before = gather_pool_fwd.launches, gather_pool_bwd.launches
+    pooled = embedding_pool(leaves, slots)
+    torch.stack(pooled, 1).pow(2).sum().backward()
+    torch.cuda.synchronize()
+    assert (gather_pool_fwd.launches, gather_pool_bwd.launches) == (before[0] + 1, before[1] + 1)
+    ref = gather_pool_bwd_reference(2 * gather_pool_fwd_reference(rows, slots), rows, slots)
+    for leaf, r in zip(leaves, ref):
+        torch.testing.assert_close(leaf.grad.float(), r.float(), rtol=2 ** -7, atol=1e-3)
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    rows, slots = _pool_group(cuda, torch.float32, 8, [(3, 1, False)], seed=1)
+    with pytest.raises(TypeError):
+        gather_pool_fwd([rows[0].half()], slots)
+    with pytest.raises(ValueError):
+        gather_pool_bwd(torch.zeros((8, 1, 16), device=cuda), rows, [slots[0]._replace(order=None)])
+    with pytest.raises(ValueError):
+        gather_pool_fwd(rows, [slots[0]._replace(index=slots[0].index.long())])
+    x = torch.zeros((4, 3, 8), device=cuda)
+    with pytest.raises(ValueError):
+        dot_interaction_bwd(x, torch.zeros((4, 2), device=cuda))
+
+
+def _train_pair(device_pooling, wire_dtype, steps):
+    """The flagship-shaped TrainCtx (4 single-id + 1 raw slot, 2 replicas)
+    on the card and on the CPU from the same weights and batches."""
+    from persia_tpu_torch.config import EmbeddingConfig, SlotConfig
+    from persia_tpu_torch.ctx import TrainCtx
+    from persia_tpu_torch.data import IDTypeFeature, Label, NonIDTypeFeature, PersiaBatch
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.embedding.store import EmbeddingStore
+    from persia_tpu_torch.embedding.worker import EmbeddingWorker
+    from persia_tpu_torch.models import DLRM
+    from persia_tpu_torch.weights import dlrm_state_dict_from_flax, seeded_flax_params_like
+
+    slots = {f"cat_{i}": SlotConfig(dim=16) for i in range(4)}
+    slots["hist"] = SlotConfig(dim=16, embedding_summation=False, sample_fixed_size=8)
+    cfg = EmbeddingConfig(slots_config=slots, feature_index_prefix_bit=8)
+    out, sd = {}, None
+    for device in (None, "cpu"):
+        model = DLRM(13, 5, 16, (32, 16), (64, 32), compute_dtype=torch.float32, device="cpu")
+        sd = sd or dlrm_state_dict_from_flax(seeded_flax_params_like(model, 2))
+        model.load_state_dict(sd)
+        stores = [EmbeddingStore(capacity=1 << 16, num_internal_shards=4, seed=3) for _ in range(2)]
+        worker = EmbeddingWorker(cfg, stores, device_pooling=device_pooling)
+        ctx = TrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3), Adagrad(lr=0.1), worker, cfg,
+                       device=device, wire_dtype=wire_dtype).__enter__()
+        rng = np.random.default_rng(0)
+        losses = []
+        for _ in range(steps):
+            b = 256
+            feats = [IDTypeFeature(f"cat_{i}", [rng.integers(0, 300, 1, dtype=np.uint64) for _ in range(b)])
+                     for i in range(4)]
+            feats.append(IDTypeFeature("hist", [rng.integers(0, 64, rng.integers(0, 8), dtype=np.uint64)
+                                                for _ in range(b)]))
+            batch = PersiaBatch(feats, non_id_type_features=[NonIDTypeFeature(rng.normal(size=(b, 13)).astype(np.float32))],
+                                labels=[Label(rng.integers(0, 2, (b, 1)).astype(np.float32))], requires_grad=True)
+            losses.append(ctx.train_step(batch)["loss"])
+            assert worker.staleness == 0
+        out[device] = (ctx, losses, stores)
+    return out
+
+
+@pytest.mark.parametrize("device_pooling,wire_dtype", [(True, None), (True, "bfloat16"), (False, None)])
+def test_training_slice_on_card_matches_cpu(cuda, device_pooling, wire_dtype):
+    """Three TrainCtx steps on the card and on the CPU: losses, dense
+    parameters and every PS entry agree (f32 compute; the card's kernels
+    sum in other orders, and the bf16 wire rounds their sums)."""
+    before = {fn.__name__: fn.launches for fn in (dot_interaction, dot_interaction_bwd, gather_pool_fwd,
+                                                   gather_pool_bwd)}
+    runs = _train_pair(device_pooling, wire_dtype, steps=3)
+    pooled = 3 if device_pooling else 0
+    assert dot_interaction.launches - before["dot_interaction"] == 3
+    assert dot_interaction_bwd.launches - before["dot_interaction_bwd"] == 3
+    assert gather_pool_fwd.launches - before["gather_pool_fwd"] == pooled
+    assert gather_pool_bwd.launches - before["gather_pool_bwd"] == pooled
+    (card, card_losses, card_stores), (cpu, cpu_losses, cpu_stores) = runs[None], runs["cpu"]
+    tol = 1e-4 if wire_dtype is None else 1e-3
+    np.testing.assert_allclose(card_losses, cpu_losses, rtol=0, atol=tol)
+    for k, v in cpu.model.state_dict().items():
+        np.testing.assert_allclose(card.model.state_dict()[k].cpu().numpy(), v.numpy(), rtol=0, atol=tol)
+    for a, b in zip(card_stores, cpu_stores):
+        assert a.size() == b.size()
+        for shard in b._shards:
+            for sign, (_, vec) in shard.entries.items():
+                np.testing.assert_allclose(a.get_embedding_entry(sign), vec, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_dlrm_backward_on_card_reaches_the_embeddings(cuda, compute_dtype):
+    """Through the interaction kernel's autograd, every embedding input gets
+    a non-zero gradient on the card, equal to the CPU port's: before the
+    backward kernel, the card's interaction output had no grad_fn and these
+    were None. f32 compute: the kernels sum in other orders (1e-4); bf16:
+    the devices round at other points in every layer of the backward, so
+    each slot's gradient is held to 1e-1 of its norm (a bug in the
+    interaction's backward moves it by its whole size)."""
+    from persia_tpu_torch.models import DLRM
+    from persia_tpu_torch.weights import dlrm_state_dict_from_flax, seeded_flax_params_like
+
+    rng = np.random.default_rng(9)
+    dense = rng.standard_normal((512, 13)).astype(np.float32)
+    embs = rng.standard_normal((26, 512, 16)).astype(np.float32)
+    grads, sd = {}, None
+    for device in ("cuda", "cpu"):
+        model = DLRM(13, 26, 16, (256, 64, 16), (512, 256), compute_dtype=compute_dtype, device=device)
+        sd = sd or dlrm_state_dict_from_flax(seeded_flax_params_like(model, 4))
+        model.load_state_dict(sd)
+        leaves = [torch.from_numpy(e).to(device).requires_grad_(True) for e in embs]
+        model([torch.from_numpy(dense).to(device)], leaves).sum().backward()
+        grads[device] = [l.grad for l in leaves]
+    for g_card, g_cpu in zip(grads["cuda"], grads["cpu"]):
+        assert g_card is not None and bool(g_card.abs().sum() > 0)
+        if compute_dtype == torch.float32:
+            torch.testing.assert_close(g_card.cpu(), g_cpu, rtol=1e-4, atol=1e-5)
+        else:
+            assert float((g_card.cpu() - g_cpu).norm() / g_cpu.norm()) < 1e-1

@@ -1,6 +1,7 @@
-"""The port's package rules: it imports neither JAX (nor flax/optax) nor
-any module of ``persia_tpu``; importing it loads no JAX; and its entry
-points raise without a card unless the caller asks for the CPU."""
+"""The port's package rules: it imports neither JAX (nor flax, optax or
+ml_dtypes) nor any module of ``persia_tpu``; importing it loads no JAX; and
+its entry points raise without a card unless the caller asks for the
+CPU."""
 
 import ast
 import json
@@ -13,7 +14,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "persia_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "persia_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "persia_tpu")
 
 
 def _port_files():
@@ -50,7 +51,7 @@ def test_importing_the_port_loads_no_jax():
         "import importlib, json, sys\n"
         "before = {m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax')}\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
-        "after = {m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'persia_tpu')}\n"
+        "after = {m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'ml_dtypes', 'persia_tpu')}\n"
         "print(json.dumps(sorted(after - before)))\n"
     )
     out = subprocess.run(
@@ -82,3 +83,24 @@ def test_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError):
         InferenceEngine(ctx)
     assert InferenceEngine(ctx, device="cpu").device == torch.device("cpu")
+
+
+def test_train_ctx_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    from persia_tpu_torch.config import EmbeddingConfig, SlotConfig
+    from persia_tpu_torch.ctx import TrainCtx
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.embedding.store import EmbeddingStore
+    from persia_tpu_torch.embedding.worker import EmbeddingWorker
+    from persia_tpu_torch.models import DLRM
+
+    cfg = EmbeddingConfig(slots_config={"a": SlotConfig(dim=16)})
+    worker = EmbeddingWorker(cfg, [EmbeddingStore()])
+    model = DLRM(13, 1, device="cpu")
+    opt = torch.optim.Adam(model.parameters())
+    with pytest.raises(RuntimeError):
+        TrainCtx(model, opt, Adagrad(), worker, cfg)
+    with pytest.raises(ValueError):
+        TrainCtx(model, opt, Adagrad(), worker, cfg, device="cpu", wire_dtype="float16")
+    assert TrainCtx(model, opt, Adagrad(), worker, cfg, device="cpu").device == torch.device("cpu")
