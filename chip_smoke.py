@@ -15,8 +15,11 @@ result line:
    head dim, ragged L=1000;
 3. the DLRM kernels on the card vs their plain versions, at the bench
    shape and at edge shapes: the dot interaction and its backward, the
-   grouped gather-pool forward and backward (L=4, counts, f32, a group of
-   70 slots), and the backward's bitwise determinism;
+   grouped gather-pool forward and backward (zipf(1.2) ids at the bench
+   shape, all positions on one row, a segment ending on a chunk edge, L=4,
+   counts, f32 rows of dim 8, 24 and 10, a group of 70 slots), the
+   backward's bitwise determinism and, without counts, its sums bit for
+   bit against ``plans.pool_bwd_model`` (its own order, in numpy);
 4. the paths, each with the launch counts set to 0 just before and read
    just after: (a) the flash-attention entry point at (B=4, L=1024, H=8,
    D=64) in bf16 and in f32, causal and not; (b) the serving slice at bench
@@ -35,8 +38,10 @@ result line:
    flash attention per route and mask (the f32 route's pre-pass also on
    its own), the name of the kernel SDPA runs for f32 (torch.profiler),
    the dot interaction and its backward, the gather-pool forward and
-   backward at the training path's own inputs; the serving latency and
-   throughput; the training throughput and stage breakdown.
+   backward at the training path's own inputs, warm and also cold (inputs
+   rotated through more than the 50 MB L2, one copy per captured call,
+   beside their library calls); the serving latency and throughput; the
+   training throughput and stage breakdown.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -150,6 +155,23 @@ def timings(fn, calls=20, eager_iters=50) -> dict:
     return {"graph": graph_ms(fn, calls=calls), "eager": eager_ms(fn, iters=eager_iters)}
 
 
+COLD_BYTES = 72e6  # rotated input copies per cold timing: more than the 50 MB L2
+
+
+def cold_ms(fn, make_copy, nbytes: int) -> dict:
+    """Graph-replayed ms of ``fn(*inputs)`` with the inputs cold in L2:
+    copies from ``make_copy()`` (>= 8 of them, > COLD_BYTES in all), one per
+    captured call in turn, so a copy is reused only after the others have
+    passed through the cache."""
+    import itertools
+
+    n = max(8, -(-int(COLD_BYTES) // nbytes))
+    copies = [make_copy() for _ in range(n)]
+    it = itertools.cycle(copies)
+    ms = graph_ms(lambda: fn(*next(it)), calls=n, replays=5)
+    return {"ms": ms, "copies": n, "bytes_per_copy": nbytes}
+
+
 def bound(bytes_moved: float, ops: float, dtype: str):
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[dtype]
@@ -211,7 +233,12 @@ def device_busy_ms(step, batches):
 KERNEL_NAMES = ("fa_fwd_wgmma_kernel", "fa_fwd_tf32x3_kernel", "tf32_split_kernel",
                 "dot_interaction_mma_kernel", "dot_interaction_kernel",
                 "dot_interaction_bwd_mma_kernel", "dot_interaction_bwd_kernel",
-                "gather_pool_fwd_kernel", "gather_pool_bwd_kernel")
+                "gather_pool_fwd_kernel", "gather_pool_bwd_chunks_kernel", "gather_pool_bwd_rows_kernel")
+# SASS counted per kernel: Hopper's matrix and TMA instructions, and the
+# 16-byte global loads and stores (and the shuffles) of the gather-pool
+SASS_OPS = {"HGMMA": r"\bHGMMA\b", "UTMALDG": r"\bUTMALDG\b", "UTMASTG": r"\bUTMASTG\b",
+            "HMMA": r"\bHMMA\b", "LDG.128": r"\bLDG\.E\.128\b", "STG.128": r"\bSTG\.E\.128\b",
+            "STG.64": r"\bSTG\.E\.64\b", "SHFL": r"\bSHFL\."}
 DOT_REPLACES = "persia_tpu/models/dlrm.py:50"
 POOL_REPLACES = "persia_tpu/parallel/train_step.py:81"
 
@@ -229,8 +256,8 @@ def kernel_label(mangled: str):
 
 def build_summary(build_log: str, library) -> dict:
     """Per kernel: ptxas registers, static shared memory and spill bytes
-    (from the build's -Xptxas -v), and counts of the Hopper instructions in
-    its SASS (cuobjdump -sass on the built library)."""
+    (from the build's -Xptxas -v), and counts of the instructions of
+    SASS_OPS in its SASS (cuobjdump -sass on the built library)."""
     out, current = {}, None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -256,8 +283,8 @@ def build_summary(build_log: str, library) -> dict:
             current = kernel_label(line.split("Function :", 1)[1].strip())
             continue
         if current:
-            for op in ("HGMMA", "UTMALDG", "UTMASTG", "HMMA"):
-                if re.search(rf"\b{op}\b", line):
+            for op, pattern in SASS_OPS.items():
+                if re.search(pattern, line):
                     counts = out.setdefault(current, {}).setdefault("sass", {})
                     counts[op] = counts.get(op, 0) + 1
     return out
@@ -336,10 +363,27 @@ def phase_flash_attention(dev):
             "tf32_split_planes": errs["tf32_split_planes"]}
 
 
-def pool_inputs(dev, dtype, batch, specs, seed):
+def pool_ids(rng, batch, L, d, ids):
+    """(batch, L) row ids in [0, d): "clipped", zipf(1.2) ranks clipped at
+    d - 1 (a pile on the last row); "zipf", the
+    ranks mod d (the hottest row ~18 % of the positions); "one_row", every
+    id on row 0; "edge", row 0 takes exactly 64 positions and row 1 the
+    next 128, so both end on an edge of 64-position chunks (the rest zipf)."""
+    z = rng.zipf(1.2, (batch, L)) - 1
+    if ids == "clipped":
+        return np.minimum(z, d - 1)
+    if ids == "zipf":
+        return z % d
+    if ids == "one_row":
+        return np.zeros((batch, L), np.int64)
+    flat = np.concatenate([np.zeros(64), np.ones(128), 2 + z.reshape(-1)[192:] % (d - 2)])
+    return rng.permutation(flat).reshape(batch, L).astype(np.int64)
+
+
+def pool_inputs(dev, dtype, batch, specs, seed, dim=EMB_DIM, ids="clipped"):
     """A group of device-pooled slots as the staging gives them: rows padded
     to one P with zero rows past D, pads indexing row D, the CSR. ``specs``
-    is [(distinct D, ids per sample L, counts?)]; zipf row choice."""
+    is [(distinct D, ids per sample L, counts?)]; ``ids`` as pool_ids."""
     import torch
 
     from persia_tpu_torch.ops import PoolSlot
@@ -349,19 +393,35 @@ def pool_inputs(dev, dtype, batch, specs, seed):
     p = max(d for d, _, _ in specs) + 1
     rows, slots = [], []
     for d, L, with_counts in specs:
-        r = np.zeros((p, EMB_DIM), np.float32)
-        r[:d] = rng.standard_normal((d, EMB_DIM))
+        r = np.zeros((p, dim), np.float32)
+        r[:d] = rng.standard_normal((d, dim))
         counts = rng.integers(0 if L > 1 else 1, L + 1, batch).astype(np.int32)
         index = np.full((batch, L), d, np.int32)
-        ids = np.minimum(rng.zipf(1.2, (batch, L)) - 1, d - 1)
         keep = np.arange(L)[None, :] < counts[:, None]
-        index[keep] = ids[keep]
+        index[keep] = pool_ids(rng, batch, L, d, ids)[keep]
         order, offsets = pool_csr(index, p)
         t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
         rows.append(t(r).to(dtype))
         slots.append(PoolSlot(t(index), t(counts.reshape(-1, 1)) if with_counts else None,
                               t(order), t(offsets)))
     return rows, slots
+
+
+def pool_schedule_bits(grad, slots, num_rows, dim):
+    """What the backward kernel must give for slots without counts, by
+    ``plans.pool_bwd_model`` (its f32 sums in its own order): a list of
+    (P, dim) f32 arrays."""
+    from persia_tpu_torch.ops import plans
+
+    out = []
+    g = grad.cpu().numpy()
+    for s, slot in enumerate(slots):
+        index = slot.index.cpu().numpy()
+        order = slot.order.cpu().numpy()
+        L = index.shape[1]
+        plan = plans.pool_plan(index.shape[0], 1, dim, 4, num_rows, L)
+        out.append(plans.pool_bwd_model(g[order // L, s], index.reshape(-1)[order], num_rows, plan))
+    return out
 
 
 def phase_kernels(dev):
@@ -404,23 +464,31 @@ def phase_kernels(dev):
                           dot_interaction_bwd_reference(x, gr), *tol)
         errs.setdefault(("dot_bwd", dtype), err)
     # gather-pool: the forward sums the same f32 values in l order on both
-    # sides. The backward sums a row's n terms in CSR order, index_add_ in
-    # the order of its atomics: each f32 sum is within (n-1) u sum|x| of the
-    # exact one (u = 2^-24), so the two within twice that, per element (hot
-    # zipf rows hold hundreds of terms); bf16 then rounds each once
+    # sides. The backward sums a row's n terms in its own fixed order,
+    # index_add_ in the order of its atomics: each f32 sum is within (n-1) u
+    # sum|x| of the exact one (u = 2^-24), so the two within twice that, per
+    # element (hot zipf rows hold hundreds of terms); bf16 then rounds each
+    # once. Cases without counts are also held bit for bit to the kernel's
+    # own order (plans.pool_bwd_model), and the zipf ones to a second call
     cases = [
-        ("bench", torch.bfloat16, BATCH, [(2000, 1, False)] * N_SLOTS),
-        ("L=4 counts", torch.bfloat16, 1000, [(300, 4, True), (50, 4, False), (700, 1, True)]),
-        ("L=4 counts", torch.float32, 1000, [(300, 4, True), (50, 4, False), (700, 1, True)]),
-        ("70 slots", torch.bfloat16, 64, [(20 + s, 1 + s % 3, s % 2 == 0) for s in range(70)]),
+        ("bench", torch.bfloat16, BATCH, [(2000, 1, False)] * N_SLOTS, EMB_DIM, "clipped"),
+        ("zipf(1.2) bench", torch.bfloat16, BATCH, [(1500, 1, False)] * N_SLOTS, EMB_DIM, "zipf"),
+        ("one row", torch.bfloat16, BATCH, [(1500, 1, False)] * 4, EMB_DIM, "one_row"),
+        ("chunk edge", torch.bfloat16, 1000, [(300, 1, False)] * 3, EMB_DIM, "edge"),
+        ("L=4 counts", torch.bfloat16, 1000, [(300, 4, True), (50, 4, False), (700, 1, True)], EMB_DIM, "clipped"),
+        ("L=4 counts", torch.float32, 1000, [(300, 4, True), (50, 4, False), (700, 1, True)], EMB_DIM, "clipped"),
+        ("dim 8", torch.float32, 1000, [(300, 4, True), (50, 1, False)], 8, "zipf"),
+        ("dim 24", torch.float32, 777, [(200, 2, True), (30, 1, False)], 24, "zipf"),
+        ("dim 10 scalar path", torch.float32, 500, [(60, 1, False), (9, 3, False)], 10, "zipf"),
+        ("70 slots", torch.bfloat16, 64, [(20 + s, 1 + s % 3, s % 2 == 0) for s in range(70)], EMB_DIM, "clipped"),
     ]
-    for label, dtype, batch, specs in cases:
-        rows, slots = pool_inputs(dev, dtype, batch, specs, seed=len(specs))
+    for label, dtype, batch, specs, dim, ids in cases:
+        rows, slots = pool_inputs(dev, dtype, batch, specs, seed=len(specs), dim=dim, ids=ids)
         out = ops.gather_pool_fwd(rows, slots)
         gr = torch.randn(out.shape, generator=g).to(dev)
         grads = ops.gather_pool_bwd(gr, rows, slots)
         torch.cuda.synchronize()
-        name = f"gather_pool {label} {str(dtype)[6:]} B={batch} S={len(specs)}"
+        name = f"gather_pool {label} {str(dtype)[6:]} B={batch} S={len(specs)} dim={dim}"
         err = check_close(f"{name} fwd", out, gather_pool_fwd_reference(rows, slots), 1e-6, 1e-6)
         errs.setdefault(("pool_fwd", dtype), err)
         ref = gather_pool_bwd_reference(gr, rows, slots)
@@ -432,12 +500,21 @@ def phase_kernels(dev):
         tol = (1e-6, order) if dtype == torch.float32 else (2 ** -7, 1e-3 + order)
         err = check_close(f"{name} bwd", torch.cat(grads), torch.cat(ref), *tol)
         errs.setdefault(("pool_bwd", dtype), err)
-        if label == "bench":
+        if ids in ("clipped", "zipf") and label != "L=4 counts":
             again = ops.gather_pool_bwd(gr, rows, slots)
-            same = all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(grads, again))
+            same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8)) for a, b in zip(grads, again))
             print(f"  {name} bwd twice: bitwise {'ok' if same else 'FAIL'}", flush=True)
             if not same:
                 raise SystemExit("gather_pool_bwd is not deterministic")
+        if all(s.counts is None for s in slots):
+            want = pool_schedule_bits(gr, slots, rows[0].shape[0], dim)
+            bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            same = all(torch.equal(a.cpu().view(bits), torch.from_numpy(w).to(dtype).view(bits))
+                       for a, w in zip(grads, want))
+            print(f"  {name} bwd vs its schedule (plans.pool_bwd_model): bitwise {'ok' if same else 'FAIL'}",
+                  flush=True)
+            if not same:
+                raise SystemExit("gather_pool_bwd does not follow its schedule")
     return {"dot_interaction": errs[("dot", torch.bfloat16)],
             "dot_interaction_bwd": errs[("dot_bwd", torch.bfloat16)],
             "gather_pool_fwd": errs[("pool_fwd", torch.bfloat16)],
@@ -859,7 +936,9 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch):
     ))
 
     # the gather-pool pair at the training path's own inputs (one staged
-    # step's batch): bytes = each input once, each output once
+    # step's batch): bytes = each input once, each output once (the
+    # function's: the backward kernel's index reads and partials are not
+    # counted, so the rows compare across designs)
     emb = [e for e in train_batch["emb"] if "pool_index" in e]
     prow = [e["distinct"] for e in emb]
     pslots = [ops.PoolSlot(e["pool_index"], e.get("pool_counts"), e["pool_order"], e["pool_offsets"])
@@ -874,35 +953,78 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch):
     shift = torch.arange(len(prow), device=dev, dtype=torch.int64)[None, :, None] * p_rows
     flat_idx = (torch.stack([s.index.long() for s in pslots], 1) + shift).reshape(bsz * len(prow), -1)
     acc = torch.zeros(table.shape, device=dev, dtype=torch.float32)
+    grad_flat = gpool.reshape(bsz * len(prow), width)
+    clone = lambda t: None if t is None else t.clone()  # noqa: E731
+
+    def clone_group(rows_, slots_):
+        return [r.clone() for r in rows_], [ops.PoolSlot(*map(clone, s)) for s in slots_]
+
+    def with_cold(row, kernel, make_copy, copy_bytes, library=None, make_lib_copy=None, lib_bytes=0):
+        """Cold times beside the warm ones (library, kernel, kernel, library)
+        and the share read from the cold kernel time."""
+        lib0 = cold_ms(library, make_lib_copy, lib_bytes) if library else None
+        k0, k1 = cold_ms(kernel, make_copy, copy_bytes), cold_ms(kernel, make_copy, copy_bytes)
+        lib1 = cold_ms(library, make_lib_copy, lib_bytes) if library else None
+        row.update(
+            cold_ms=min(k0["ms"], k1["ms"]), cold_ms_runs=[k0["ms"], k1["ms"]],
+            cold_copies=k0["copies"], cold_bytes_per_copy=copy_bytes,
+            library_cold_ms=min(lib0["ms"], lib1["ms"]) if library else None,
+            library_cold_copies=lib0["copies"] if library else None,
+        )
+        row["cold_share"] = row["bound_ms"] / row["cold_ms"]
+        return row
+
     fwd_in = nbytes(prow) + nbytes([s.index for s in pslots] + [s.counts for s in pslots])
     bms, by = bound(fwd_in + pooled.numel() * 4, pooled.numel() * flat_idx.shape[1], "float32")
-    rows.append(timed(
-        dict(name="gather_pool_fwd", route="cuda", cuda_route="cuda",
-             source="persia_tpu_torch/csrc/embedding_pool.cu", replaces=POOL_REPLACES,
-             shape=shape, dtype=str(prow[0].dtype)[6:],
-             launches=launches["training"]["gather_pool_fwd"],
-             launches_by_path={p: launches[p]["gather_pool_fwd"] for p in ("serving", "training")},
-             max_abs_err=errs["gather_pool_fwd"], bound_ms=bms, bound_by=by,
-             library_note="F.embedding_bag(mode='sum') over the slots' tables side by side, bf16 out"),
-        kernel=lambda: ops.gather_pool_fwd(prow, pslots),
-        plain=lambda: gather_pool_fwd_reference(prow, pslots),
-        library=lambda: F.embedding_bag(flat_idx, table, mode="sum"),
+    rows.append(with_cold(
+        timed(
+            dict(name="gather_pool_fwd", route="cuda", cuda_route="cuda",
+                 source="persia_tpu_torch/csrc/embedding_pool.cu", replaces=POOL_REPLACES,
+                 shape=shape, dtype=str(prow[0].dtype)[6:],
+                 launches=launches["training"]["gather_pool_fwd"],
+                 launches_by_path={p: launches[p]["gather_pool_fwd"] for p in ("serving", "training")},
+                 max_abs_err=errs["gather_pool_fwd"], bound_ms=bms, bound_by=by,
+                 library_note="F.embedding_bag(mode='sum') over the slots' tables side by side, bf16 out"),
+            kernel=lambda: ops.gather_pool_fwd(prow, pslots),
+            plain=lambda: gather_pool_fwd_reference(prow, pslots),
+            library=lambda: F.embedding_bag(flat_idx, table, mode="sum"),
+        ),
+        kernel=ops.gather_pool_fwd, make_copy=lambda: clone_group(prow, pslots), copy_bytes=fwd_in,
+        library=lambda i, t: F.embedding_bag(i, t, mode="sum"),
+        make_lib_copy=lambda: (flat_idx.clone(), table.clone()), lib_bytes=nbytes([flat_idx, table]),
     ))
     bwd_in = gpool.numel() * 4 + nbytes([s.order for s in pslots] + [s.offsets for s in pslots]
                                         + [s.counts for s in pslots])
     bms, by = bound(bwd_in + nbytes(prow), gpool.numel() * flat_idx.shape[1], "float32")
-    grad_flat = gpool.reshape(bsz * len(prow), width)
-    rows.append(timed(
-        dict(name="gather_pool_bwd", route="cuda", cuda_route="cuda",
-             source="persia_tpu_torch/csrc/embedding_pool.cu", replaces=POOL_REPLACES,
-             shape=shape, dtype=str(prow[0].dtype)[6:],
-             launches=launches["training"]["gather_pool_bwd"],
-             max_abs_err=errs["gather_pool_bwd"], bound_ms=bms, bound_by=by,
-             library_note="index_add_ of the (B*S, dim) f32 gradient into the tables side by side (L=1)"),
-        kernel=lambda: ops.gather_pool_bwd(gpool, prow, pslots),
-        plain=lambda: gather_pool_bwd_reference(gpool, prow, pslots),
-        library=(lambda: acc.index_add_(0, flat_idx[:, 0], grad_flat)) if flat_idx.shape[1] == 1 else None,
+    # a cold copy also holds the index the kernel reads
+    bwd_copy = bwd_in + nbytes([s.index for s in pslots])
+    single_id = flat_idx.shape[1] == 1
+    rows.append(with_cold(
+        timed(
+            dict(name="gather_pool_bwd", route="cuda", cuda_route="cuda",
+                 source="persia_tpu_torch/csrc/embedding_pool.cu", replaces=POOL_REPLACES,
+                 shape=shape, dtype=str(prow[0].dtype)[6:],
+                 launches=launches["training"]["gather_pool_bwd"],
+                 max_abs_err=errs["gather_pool_bwd"], bound_ms=bms, bound_by=by,
+                 library_note="index_add_ of the (B*S, dim) f32 gradient into the tables side by side (L=1)"),
+            kernel=lambda: ops.gather_pool_bwd(gpool, prow, pslots),
+            plain=lambda: gather_pool_bwd_reference(gpool, prow, pslots),
+            library=(lambda: acc.index_add_(0, flat_idx[:, 0], grad_flat)) if single_id else None,
+        ),
+        kernel=lambda gr, r, sl: ops.gather_pool_bwd(gr, r, sl),
+        make_copy=lambda: (gpool.clone(), *clone_group(prow, pslots)), copy_bytes=bwd_copy,
+        library=(lambda i, gr: acc.index_add_(0, i, gr)) if single_id else None,
+        make_lib_copy=lambda: (flat_idx[:, 0].clone(), grad_flat.clone()),
+        lib_bytes=nbytes([flat_idx[:, 0], grad_flat]),
     ))
+    # the backward's two passes apart (torch.profiler), and its time where
+    # every position of each slot hits one row (the bench shape otherwise)
+    _, top = device_busy_ms(lambda _: ops.gather_pool_bwd(gpool, prow, pslots), [None] * 20)
+    rows[-1]["pass_ms"] = {re.search(r"gather_pool_\w+", k).group(0): v for k, v in top.items()
+                           if "gather_pool" in k}
+    one_rows, one_slots = pool_inputs(dev, prow[0].dtype, bsz, [(p_rows - 1, 1, False)] * len(prow),
+                                      seed=SEED, ids="one_row")
+    rows[-1]["one_row_ms"] = graph_ms(lambda: ops.gather_pool_bwd(gpool, one_rows, one_slots))
     for r in rows:
         print(json.dumps({"kernel_timing": r, "card": card}), flush=True)
     return rows
@@ -938,8 +1060,8 @@ def main() -> int:
     # row); times graph-replayed, eager beside them
     keys = ("name", "route", "cuda_route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "eager_ms",
-            "library_eager_ms")
-    kernels = [{k: r[k] for k in keys} for r in rows if not r.get("causal")]
+            "library_eager_ms", "cold_ms", "library_cold_ms")
+    kernels = [{k: r.get(k) for k in keys} for r in rows if not r.get("causal")]
     print(json.dumps({"kernels": kernels, "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

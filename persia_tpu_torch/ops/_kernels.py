@@ -125,10 +125,12 @@ def library() -> ctypes.CDLL:
             ]
             lib.persia_dot_interaction_bwd.restype = i32
             lib.persia_dot_interaction_bwd.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, vp]
-            for name in ("persia_gather_pool_fwd", "persia_gather_pool_bwd"):
-                fn = getattr(lib, name)
-                fn.restype = i32
-                fn.argtypes = [vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, vp]
+            lib.persia_gather_pool_fwd.restype = i32
+            lib.persia_gather_pool_fwd.argtypes = [vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, vp]
+            lib.persia_gather_pool_bwd.restype = i32
+            lib.persia_gather_pool_bwd.argtypes = [
+                vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, vp,
+            ]
             lib.persia_flash_attention_fwd_wgmma.restype = i32
             lib.persia_flash_attention_fwd_wgmma.argtypes = [
                 vp, vp, vp, vp, i32, i32, i32, i32, f32, i32,

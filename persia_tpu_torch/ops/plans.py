@@ -8,7 +8,10 @@ card (``tests/test_torch_kernel_plans.py``).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
+
+import numpy as np
 
 SMEM_MAX = 232_448  # bytes of shared memory one H100 block can use (227 KB)
 SMEM_STATIC = 48 * 1024  # usable without cudaFuncSetAttribute
@@ -261,24 +264,187 @@ def dot_bwd_plan(batch: int, n: int, d: int, elem_bytes: int) -> DotBwdPlan:
     )
 
 
-# grouped gather-pool (csrc/embedding_pool.cu): one launch for up to
-# POOL_MAX_SLOTS slots, one thread per output element
+# grouped gather-pool (csrc/embedding_pool.cu): one launch each way for up
+# to POOL_MAX_SLOTS slots, the slot on grid y. The backward is two passes:
+# chunks of the sorted positions (one warp each), then one thread group per
+# row that combines the chunks' partial sums
 POOL_MAX_SLOTS = 64
-POOL_THREADS = 256
+POOL_THREADS = 256  # forward and pass-2 blocks
+POOL_CHUNK_WARPS = 4  # pass-1 warps a block, one chunk each
+POOL_GROUP_POSITIONS = 8  # consecutive sorted positions one lane group walks
+POOL_SCALAR_LANES = 8  # most lanes a position takes on the scalar path
+
+
+def _pow2_ceil(x: int) -> int:
+    return 1 << max(x - 1, 0).bit_length()
 
 
 @dataclass(frozen=True)
 class PoolPlan:
-    fwd_grid: int  # over batch x slots x dim
-    bwd_grid: tuple  # (blocks over max rows x dim, slots)
-    threads: int
+    batch: int
+    slots: int
+    dim: int
+    # forward: one thread per (sample, slot, fwd_vec columns), in that order
+    fwd_vec: int  # 16-byte loads: 8 bf16 or 4 f32 columns; 1 on the general path
+    fwd_threads: int
+    fwd_grid: int
+    # backward pass 1: a warp takes a chunk of a slot's sorted positions; a
+    # lane group of lanes_per_pos lanes holds one position's columns
+    # (bwd_vec each, col_tiles times), walking POOL_GROUP_POSITIONS positions
+    bwd_vec: int  # 4: float4 columns; 1: scalar columns, the last tile ragged
+    lanes_per_pos: int
+    col_tiles: int
+    chunk: int  # positions a warp takes
+    max_chunks: int  # chunks of the slot with the most positions
+    chunk_grid: tuple  # (chunk blocks of POOL_CHUNK_WARPS warps, slots)
+    # backward pass 2: thread (x, y) of block (bx, slot) takes row
+    # bx * row_block[1] + y and bwd_vec columns from x * bwd_vec
+    row_block: tuple
+    row_grid: tuple  # (row blocks, slots)
+
+    @property
+    def groups(self) -> int:
+        """Lane groups of a warp in pass 1."""
+        return 32 // self.lanes_per_pos
+
+    @property
+    def scratch_shape(self) -> tuple:
+        """Pass 1's f32 partial sums: per slot and chunk, the sum of its
+        first segment where that began in the chunk before ([..., 0, :]) and
+        of its last where that goes on into the next ([..., 1, :])."""
+        return (self.slots, self.max_chunks, 2, self.dim)
+
+    def chunks(self, positions: int) -> int:
+        """Chunks of a slot with ``positions`` sorted positions (B * L)."""
+        return -(-positions // self.chunk)
+
+    def group_positions(self, chunk: int, group: int) -> range:
+        """The sorted positions lane group ``group`` of chunk ``chunk`` walks
+        (some may lie past the slot's end)."""
+        k = chunk * self.chunk + group * POOL_GROUP_POSITIONS
+        return range(k, k + POOL_GROUP_POSITIONS)
+
+    def row_partials(self, start: int, end: int):
+        """How pass 2 writes the row whose sorted positions are
+        [start, end): None, zeros (an empty row); [], pass 1 wrote it (one
+        chunk); else the (chunk, half) partials it sums, in this order."""
+        if end <= start:
+            return None
+        first, last = start // self.chunk, (end - 1) // self.chunk
+        if first == last:
+            return []
+        return [(first, 1)] + [(c, 0) for c in range(first + 1, last + 1)]
 
 
-def pool_plan(batch: int, slots: int, dim: int, max_rows: int) -> PoolPlan:
+@functools.lru_cache(maxsize=256)
+def pool_plan(batch: int, slots: int, dim: int, elem_bytes: int, max_rows: int, max_ids: int = 1,
+              aligned: bool = True) -> PoolPlan:
+    """Geometry of ``gather_pool_fwd`` and ``gather_pool_bwd`` for a group
+    of ``slots`` slots of rows of ``dim`` elements of ``elem_bytes`` bytes,
+    ``max_rows`` rows and ``max_ids`` ids per sample at most. ``aligned``:
+    the pointers the 16-byte paths read (the forward's rows, the backward's
+    gradient) are 16-byte aligned."""
     if not 1 <= slots <= POOL_MAX_SLOTS:
         raise ValueError(f"one launch pools 1..{POOL_MAX_SLOTS} slots, got {slots}")
+    if elem_bytes not in (2, 4) or min(batch, dim, max_rows, max_ids) < 1:
+        raise ValueError("a pooled group needs bf16 or f32 rows and positive sizes")
+    wide = 16 // elem_bytes
+    fwd_vec = wide if aligned and dim % wide == 0 else 1
+    fwd_items = batch * slots * (dim // fwd_vec)
+    if aligned and dim % 4 == 0:
+        quads = dim // 4
+        bwd_vec, lanes = 4, min(quads & -quads, 32)  # the largest power of 2 dividing it
+    else:
+        bwd_vec, lanes = 1, min(_pow2_ceil(dim), POOL_SCALAR_LANES)
+    col_tiles = -(-dim // (lanes * bwd_vec))
+    chunk = 32 // lanes * POOL_GROUP_POSITIONS
+    max_chunks = -(-batch * max_ids // chunk)
+    rx = min(dim // bwd_vec, POOL_THREADS)
+    ry = POOL_THREADS // rx
     return PoolPlan(
-        fwd_grid=-(-batch * slots * dim // POOL_THREADS),
-        bwd_grid=(-(-max_rows * dim // POOL_THREADS), slots),
-        threads=POOL_THREADS,
+        batch=batch, slots=slots, dim=dim,
+        fwd_vec=fwd_vec, fwd_threads=POOL_THREADS, fwd_grid=-(-fwd_items // POOL_THREADS),
+        bwd_vec=bwd_vec, lanes_per_pos=lanes, col_tiles=col_tiles, chunk=chunk, max_chunks=max_chunks,
+        chunk_grid=(-(-max_chunks // POOL_CHUNK_WARPS), slots),
+        row_block=(rx, ry), row_grid=(-(-max_rows // ry), slots),
     )
+
+
+def pool_bwd_model(values: np.ndarray, rows: np.ndarray, num_rows: int, plan: PoolPlan) -> np.ndarray:
+    """The backward kernel's f32 sums for one slot, in numpy, in the
+    kernel's order: ``values`` (n, dim) f32 are the scaled gradient rows of
+    the slot's sorted positions, ``rows`` (n,) their rows (ascending).
+    Returns (num_rows, dim) f32; raises if a row would be written other than
+    once. Pass 1 per chunk: each lane group sums its segments in position
+    order; a segmented inclusive scan (Hillis-Steele) carries the groups'
+    last segments forward; segments that begin and end in the chunk are
+    stored, the chunk's first and last otherwise go to the partials. Pass 2
+    sums a multi-chunk row's partials in chunk order."""
+    values = np.asarray(values, dtype=np.float32)
+    rows = np.asarray(rows, dtype=np.int64)
+    n, dim = values.shape
+    C, G, K = plan.chunk, plan.groups, POOL_GROUP_POSITIONS
+    chunks = plan.chunks(n)
+    no_row = np.iinfo(np.int64).max
+    r_all = np.full(chunks * C, no_row, np.int64)
+    r_all[:n] = rows
+    x_all = np.zeros((chunks * C, dim), np.float32)
+    x_all[:n] = values
+    out = np.zeros((num_rows, dim), np.float32)
+    writes = np.zeros(num_rows, np.int64)
+    partials = np.zeros((chunks, 2, dim), np.float32)
+    for c in range(chunks):
+        k0 = c * C
+        r = r_all[k0:k0 + C].reshape(G, K)
+        x = x_all[k0:k0 + C].reshape(G, K, dim)
+        before = r_all[k0 - 1] if k0 > 0 else -1
+        after = r_all[k0 + C] if k0 + C < n else -1
+        continues = [g > 0 and r[g - 1, -1] == r[g, 0] for g in range(G)]
+        tails = []
+        for g in range(G):
+            acc = x[g, 0]
+            for i in range(1, K):
+                acc = acc + x[g, i] if r[g, i] == r[g, i - 1] else x[g, i]
+            tails.append(acc)
+        scan = list(tails)
+        flag = [not continues[g] or r[g, 0] != r[g, -1] for g in range(G)]
+        d = 1
+        while d < G:
+            old, old_flag = list(scan), list(flag)
+            for g in range(d, G):
+                if not old_flag[g]:
+                    scan[g] = old[g - d] + old[g]
+                flag[g] = old_flag[g] or old_flag[g - d]
+            d *= 2
+        for g in range(G):
+            acc = scan[g - 1] + x[g, 0] if continues[g] else x[g, 0]
+            for i in range(K):
+                if i > 0:
+                    acc = acc + x[g, i] if r[g, i] == r[g, i - 1] else x[g, i]
+                row = r[g, i]
+                chunk_end = i == K - 1 and g == G - 1
+                nxt = r[g, i + 1] if i < K - 1 else (r[g + 1, 0] if g < G - 1 else None)
+                if row == no_row or (not chunk_end and nxt == row):
+                    continue
+                if row == r[0, 0] and before == row:
+                    partials[c, 0] = acc
+                elif chunk_end and after == row:
+                    partials[c, 1] = acc
+                else:
+                    out[row] = acc
+                    writes[row] += 1
+    starts = np.searchsorted(rows, np.arange(num_rows + 1))
+    for row in range(num_rows):
+        parts = plan.row_partials(int(starts[row]), int(starts[row + 1]))
+        if parts == []:
+            continue
+        acc = np.zeros(dim, np.float32)
+        if parts:
+            acc = partials[parts[0]].copy()
+            for part in parts[1:]:
+                acc = acc + partials[part]
+        out[row] = acc
+        writes[row] += 1
+    if not (writes == 1).all():
+        raise AssertionError(f"rows written other than once: {np.flatnonzero(writes != 1)[:10]}")
+    return out

@@ -219,14 +219,22 @@ def test_dot_bwd_plan_refuses_a_row_that_does_not_fit():
 
 @pytest.mark.parametrize("batch,slots,dim,rows", [(4096, 26, 16, 2560), (1, 1, 1, 1), (333, 64, 8, 17)])
 def test_pool_plan_covers_every_element(batch, slots, dim, rows):
-    p = plans.pool_plan(batch, slots, dim, rows)
-    fwd = batch * slots * dim
-    assert (p.fwd_grid - 1) * p.threads < fwd <= p.fwd_grid * p.threads
-    bx, by = p.bwd_grid
-    assert (bx - 1) * p.threads < rows * dim <= bx * p.threads and by == slots
+    """Forward: a thread for every (sample, slot, vector of columns);
+    backward: the chunks cover every position (L = 1) and pass 2 every row
+    and column."""
+    for elem in (2, 4):
+        p = plans.pool_plan(batch, slots, dim, elem, rows)
+        items = batch * slots * dim // p.fwd_vec
+        assert dim % p.fwd_vec == 0 and p.fwd_threads % 32 == 0
+        assert (p.fwd_grid - 1) * p.fwd_threads < items <= p.fwd_grid * p.fwd_threads
+        assert (p.max_chunks - 1) * p.chunk < batch <= p.max_chunks * p.chunk
+        assert p.chunk_grid[0] * plans.POOL_CHUNK_WARPS >= p.max_chunks and p.chunk_grid[1] == slots
+        rx, ry = p.row_block
+        assert (p.row_grid[0] - 1) * ry < rows <= p.row_grid[0] * ry and p.row_grid[1] == slots
+        assert (p.col_tiles - 1) * p.lanes_per_pos * p.bwd_vec < dim <= p.col_tiles * p.lanes_per_pos * p.bwd_vec
 
 
 @pytest.mark.parametrize("slots", [0, plans.POOL_MAX_SLOTS + 1])
 def test_pool_plan_refuses_group_sizes_without_a_launch(slots):
     with pytest.raises(ValueError):
-        plans.pool_plan(16, slots, 16, 8)
+        plans.pool_plan(16, slots, 16, 2, 8)
