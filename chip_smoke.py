@@ -22,16 +22,25 @@ result line:
    bit against ``plans.pool_bwd_model`` (its own order, in numpy);
 4. the paths, each with the launch counts set to 0 just before and read
    just after: (a) the flash-attention entry point at (B=4, L=1024, H=8,
-   D=64) in bf16 and in f32, causal and not; (b) the serving slice at bench
-   width — DLRM (13 dense features, 26 single-id slots of dim 16, bottom
-   (256, 64, 16), top (512, 256)) behind ``InferenceEngine(InferCtx(...))``,
+   D=64) in bf16 and in f32, causal and not, and its backward (a dense
+   recompute that launches no kernel) against the CPU port's; (b) the
+   serving slice at bench width — DLRM (13 dense features, 26 single-id
+   slots of dim 16, bottom (256, 64, 16), top (512, 256)) behind
+   ``InferenceEngine(InferCtx(...))`` on the native store and worker cores,
    answering 5 requests of B=4096 zipf ids through ``predict_from_bytes``,
-   held against the same engine on the CPU; (c) the training slice at the
-   same width — ``TrainCtx(...).train_step`` with device pooling, a bf16
-   wire, sparse Adagrad(0.05) on the numpy store and Adam(1e-3) on the dense
-   tower: 2 warm-up and 8 measured steps, then 5 steps stage by stage,
-   its first 3 losses and its PS rows held against the same steps on the
-   CPU;
+   held against the same engine on the CPU over the numpy store; (c) the
+   training slice at the same width — ``TrainCtx(...).train_step`` with
+   device pooling, a bf16 wire, sparse Adagrad(0.05) on the native store and
+   Adam(1e-3) on the dense tower: 2 warm-up and 8 measured steps, then 5
+   steps stage by stage, its first 3 losses and its PS rows held against
+   the same steps on the CPU over the numpy store; (d) the pipelined
+   training path at the same width and the bench's settings —
+   ``DataLoader(num_workers=4, staleness=4)`` and
+   ``TrainCtx.train_step_prepared(..., fetch_metrics=False)`` over 32
+   batches after 2 synchronous warm-up steps, the window whole after
+   ``flush``, and 4 batches with ``reproducible=True, staleness=1`` held to
+   ``train_step`` on the same batches. Phases 4b-4d fail unless the native
+   cores build (``g++``) and serve them: no numpy fallback;
 5. timings of each kernel beside its plain version, the library call that
    computes the same function, and the card's bound, each by CUDA-graph
    replay (host enqueue cost out of the number; eager times beside them):
@@ -41,7 +50,8 @@ result line:
    backward at the training path's own inputs, warm and also cold (inputs
    rotated through more than the 50 MB L2, one copy per captured call,
    beside their library calls); the serving latency and throughput; the
-   training throughput and stage breakdown.
+   training throughput and stage breakdown; and (5b) the flash-attention
+   backward, a dense recompute, beside SDPA's backward.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -52,6 +62,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -65,6 +76,11 @@ BATCH, N_DENSE, N_SLOTS, EMB_DIM, VOCAB = 4096, 13, 26, 16, 1_000_000
 BOTTOM, TOP = (256, 64, EMB_DIM), (512, 256)
 REQUESTS, WARM_BATCHES, SEED = 5, 8, 0
 TRAIN_WARMUP, TRAIN_STEPS, TRAIN_STAGED, TRAIN_CPU_STEPS = 2, 8, 5, 3
+PIPE_WORKERS, PIPE_STALENESS, PIPE_BATCHES, PIPE_PROFILED, PIPE_REPRO = 4, 4, 32, 8, 4
+# (lookup threads, variant): "serial_stage" lets one thread stage at a time,
+# "switch_0.5ms" runs the interpreter's thread switch interval at 0.5 ms
+PIPE_SWEEP = ((1, None), (2, None), (4, None), (4, "serial_stage"), (4, "switch_0.5ms"))
+PIPE_SWEEP_BATCHES = 16
 FA_SOURCE = {"wgmma_bf16": "persia_tpu_torch/csrc/flash_attention_hopper.cu",
              "tf32x3": "persia_tpu_torch/csrc/flash_attention_tf32.cu"}
 FA_REPLACES = "persia_tpu/ops/flash_attention.py:107"
@@ -526,34 +542,72 @@ def path_flash_attention(dev):
 
     from persia_tpu_torch import ops
 
-    print("== phase 4a: flash-attention path (bf16 and f32, both masks)", flush=True)
+    print("== phase 4a: flash-attention path (bf16 and f32, both masks, forward and backward)", flush=True)
     g = torch.Generator(device="cpu").manual_seed(SEED + 2)
     qkv = [torch.randn((4, 1024, 8, 64), generator=g).to(dev) for _ in range(3)]
     bf = [x.to(torch.bfloat16) for x in qkv]
+    leaves = [[x.clone().requires_grad_(True) for x in group] for group in (bf, qkv) for _ in range(2)]
     ops.reset_launch_counts()
-    outs = [ops.flash_attention(*x, causal=c) for x in (bf, qkv) for c in (False, True)]
+    outs = [ops.flash_attention(*x, causal=c) for x, c in zip(leaves, (False, True, False, True))]
+    for o in outs:  # the backward: a dense recompute, no kernel of its own
+        o.float().sum().backward()
     torch.cuda.synchronize()
     routes = dict(ops.flash_attention.launches_by_route)
     split = ops.tf32_split_planes.launches
-    for o in outs:
+    for o, x in zip(outs, leaves):
         if o.shape != qkv[0].shape or not bool(torch.isfinite(o.float()).all()):
             raise SystemExit("flash_attention path: bad output")
+        if o.grad_fn is None or not all(bool(torch.isfinite(t.grad.float()).all()) for t in x):
+            raise SystemExit("flash_attention path: no finite q, k, v gradients")
     if routes != {"wgmma_bf16": 2, "tf32x3": 2} or ops.flash_attention.launches != 4 or split != 2:
         raise SystemExit(f"flash_attention path launched {routes} and the pre-pass {split} "
                          f"times, expected each route and the pre-pass twice")
-    print(f"  flash_attention launches by route={routes}, tf32_split_planes={split}", flush=True)
-    return {**routes, "tf32_split_planes": split}
+    print(f"  flash_attention launches by route={routes}, tf32_split_planes={split} "
+          f"(forward and backward of each)", flush=True)
+    # the card's gradients against the CPU port's (both the dense
+    # recompute) at a shape the CPU takes quickly, route tolerances
+    from persia_tpu_torch.ops.flash_attention import route_tolerance
+
+    grad_err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for causal, scale in ((False, None), (True, None), (False, -0.2)):
+            host = [torch.randn((2, 256, 2, 64), generator=g).to(dtype) for _ in range(3)]
+            grads = []
+            for d in (dev, "cpu"):
+                x = [t.to(d).requires_grad_(True) for t in host]
+                ops.flash_attention(*x, causal=causal, scale=scale).float().square().sum().backward()
+                grads.append([t.grad.cpu().float() for t in x])
+            rtol, atol = route_tolerance(host[2])
+            for a, b in zip(*grads):
+                grad_err = max(grad_err, check_close(
+                    f"flash_attention dq/dk/dv [2, 256, 2, 64] {str(dtype)[6:]} causal={causal} "
+                    f"scale={scale}, card vs cpu", a, b, rtol, atol))
+    return {**routes, "tf32_split_planes": split, "grad_max_abs_err_vs_cpu": grad_err}
+
+
+def make_store(backend, **kw):
+    """A store of ``backend``; for "native", fail unless the C++ core and
+    the native worker core both serve (no numpy fallback)."""
+    from persia_tpu_torch.embedding import native_worker
+    from persia_tpu_torch.embedding.native_store import create_store, store_backend_name
+
+    store = create_store(backend, **kw)
+    name = store_backend_name(store)
+    if backend == "native":
+        worker_core = native_worker.available()
+        print(f"  store backend={name}, native worker core={worker_core}", flush=True)
+        if name != "native" or not worker_core:
+            raise SystemExit("the native store or worker core did not build or load")
+    return store
 
 
 def path_serving(dev):
     import torch
 
     from persia_tpu_torch import ops
-    from persia_tpu_torch.config import EmbeddingConfig, SlotConfig
     from persia_tpu_torch.ctx import InferCtx
     from persia_tpu_torch.data import PersiaBatch
     from persia_tpu_torch.embedding.optim import Adagrad
-    from persia_tpu_torch.embedding.store import EmbeddingStore
     from persia_tpu_torch.embedding.worker import EmbeddingWorker
     from persia_tpu_torch.models import DLRM
     from persia_tpu_torch.parallel.train_step import build_eval_step
@@ -561,22 +615,21 @@ def path_serving(dev):
     from persia_tpu_torch.weights import dlrm_state_dict_from_flax, seeded_flax_params_like
 
     print("== phase 4b: serving path (DLRM at bench width, 5 requests of B=4096)", flush=True)
-    cfg = EmbeddingConfig(
-        slots_config={f"cat_{i}": SlotConfig(dim=EMB_DIM) for i in range(N_SLOTS)},
-        feature_index_prefix_bit=8,
-    )
-    store = EmbeddingStore(capacity=1 << 22, num_internal_shards=64,
-                           optimizer=Adagrad(lr=0.05).config, seed=1)
-    worker = EmbeddingWorker(cfg, [store], device_pooling=True)
+    cfg = bench_cfg()
     make_batch = zipf_batch_maker(SEED)
-    t0 = time.perf_counter()
-    for _ in range(WARM_BATCHES):  # admit the stream's hot rows; the tail misses → zeros
-        worker.forward_directly(make_batch(), train=True)
-    print(f"  store warmed with {WARM_BATCHES} admitting lookups: {store.size()} rows "
-          f"in {time.perf_counter() - t0:.1f} s", flush=True)
-
+    warm = [make_batch() for _ in range(WARM_BATCHES)]
     engines, sd = {}, None
-    for device in (dev, "cpu"):
+    # the card's engine on the native cores; the CPU's on the numpy store
+    # (the golden model), warmed alike: the two cores held to each other
+    for device, backend in ((dev, "native"), ("cpu", "numpy")):
+        store = make_store(backend, capacity=1 << 22, num_internal_shards=64,
+                             optimizer=Adagrad(lr=0.05).config, seed=1)
+        worker = EmbeddingWorker(cfg, [store], device_pooling=True)
+        t0 = time.perf_counter()
+        for b in warm:  # admit the stream's hot rows; the tail misses → zeros
+            worker.forward_directly(b, train=True)
+        print(f"  {backend} store warmed with {WARM_BATCHES} admitting lookups: {store.size()} rows "
+              f"in {time.perf_counter() - t0:.2f} s", flush=True)
         model = DLRM(N_DENSE, N_SLOTS, EMB_DIM, BOTTOM, TOP, device=device)
         sd = sd or dlrm_state_dict_from_flax(seeded_flax_params_like(model, SEED))
         model.load_state_dict(sd)
@@ -664,45 +717,75 @@ def path_serving(dev):
     return launches, serving, feats_shape
 
 
-def path_training(dev):
-    """Phase 4c: ``TrainCtx.train_step`` at bench width on the card."""
+def bench_cfg():
+    from persia_tpu_torch.config import EmbeddingConfig, SlotConfig
+
+    return EmbeddingConfig(
+        slots_config={f"cat_{i}": SlotConfig(dim=EMB_DIM) for i in range(N_SLOTS)},
+        feature_index_prefix_bit=8,
+    )
+
+
+def bench_train_ctx(device, backend, warm, sd=None):
+    """The bench's training ctx (bf16 wire, Adagrad(0.05), Adam(1e-3)) over
+    one store of ``backend`` (capacity 2^25, 64 internal shards), warmed by
+    admitting lookups of ``warm``; returns (ctx, store, weights)."""
     import torch
 
-    from persia_tpu_torch import ops
-    from persia_tpu_torch.config import EmbeddingConfig, SlotConfig
     from persia_tpu_torch.ctx import TrainCtx
     from persia_tpu_torch.embedding.optim import Adagrad
-    from persia_tpu_torch.embedding.store import EmbeddingStore
     from persia_tpu_torch.embedding.worker import EmbeddingWorker
     from persia_tpu_torch.models import DLRM
     from persia_tpu_torch.weights import dlrm_state_dict_from_flax, seeded_flax_params_like
 
+    cfg = bench_cfg()
+    store = make_store(backend, capacity=1 << 25, num_internal_shards=64,
+                         optimizer=Adagrad(lr=0.05).config, seed=1)
+    worker = EmbeddingWorker(cfg, [store], device_pooling=True)
+    for b in warm:  # admit the stream's hot rows, as the serving path does
+        worker.forward_directly(b, train=True)
+    model = DLRM(N_DENSE, N_SLOTS, EMB_DIM, BOTTOM, TOP, device="cpu")
+    sd = sd or dlrm_state_dict_from_flax(seeded_flax_params_like(model, SEED))
+    model.load_state_dict(sd)
+    ctx = TrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3), Adagrad(lr=0.05),
+                   worker, cfg, device=device, wire_dtype="bfloat16").__enter__()
+    return ctx, store, sd
+
+
+def batch_keys(batches):
+    """The table keys (signs) of ``batches``' ids, sorted and distinct."""
+    from persia_tpu_torch.embedding.worker import preprocess_batch
+
+    cfg = bench_cfg()
+    return np.unique(np.concatenate([s.keys for b in batches for s in preprocess_batch(b.id_type_features, cfg)]))
+
+
+def entries_of(store, signs):
+    """{sign: whole entry} for the signs present in ``store``."""
+    out = {}
+    for sign in signs.tolist():
+        e = store.get_embedding_entry(sign)
+        if e is not None:
+            out[sign] = e.copy()
+    return out
+
+
+def path_training(dev):
+    """Phase 4c: ``TrainCtx.train_step`` at bench width on the card, over
+    the native store and worker cores."""
+    import torch
+
+    from persia_tpu_torch import ops
+
     print(f"== phase 4c: training path (DLRM at bench width, B={BATCH}, TrainCtx.train_step)", flush=True)
-    cfg = EmbeddingConfig(
-        slots_config={f"cat_{i}": SlotConfig(dim=EMB_DIM) for i in range(N_SLOTS)},
-        feature_index_prefix_bit=8,
-    )
     make_batch = zipf_batch_maker(SEED + 10, labels=True)
     warm = [make_batch() for _ in range(WARM_BATCHES)]
     batches = [make_batch() for _ in range(TRAIN_WARMUP + TRAIN_STEPS + TRAIN_STAGED + 2)]
 
-    def train_ctx(device, sd):
-        store = EmbeddingStore(capacity=1 << 25, num_internal_shards=64,
-                               optimizer=Adagrad(lr=0.05).config, seed=1)
-        worker = EmbeddingWorker(cfg, [store], device_pooling=True)
-        for b in warm:  # admit the stream's hot rows, as the serving path does
-            worker.forward_directly(b, train=True)
-        model = DLRM(N_DENSE, N_SLOTS, EMB_DIM, BOTTOM, TOP, device="cpu")
-        sd = sd or dlrm_state_dict_from_flax(seeded_flax_params_like(model, SEED))
-        model.load_state_dict(sd)
-        ctx = TrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3), Adagrad(lr=0.05),
-                       worker, cfg, device=device, wire_dtype="bfloat16").__enter__()
-        return ctx, store, sd
-
     t0 = time.perf_counter()
-    ctx, store, sd = train_ctx(dev, None)
+    ctx, store, sd = bench_train_ctx(dev, "native", warm)
     print(f"  store warmed with {WARM_BATCHES} admitting lookups: {store.size()} rows "
-          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
     worker = ctx.worker
 
     def checked_step(batch):
@@ -713,13 +796,14 @@ def path_training(dev):
 
     losses = [checked_step(b) for b in batches[:TRAIN_WARMUP]]
     ops.reset_launch_counts()
-    t_all = time.perf_counter()
+    step_ms = []
     for i, b in enumerate(batches[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_STEPS]):
-        losses.append(checked_step(b))
-        if len(losses) == TRAIN_CPU_STEPS:  # the PS rows after the steps the CPU repeats
-            snapshot = {sign: vec.copy() for sh in store._shards for sign, (_, vec) in sh.entries.items()}
+        t = time.perf_counter()
+        losses.append(checked_step(b))  # ends in the gradients' copy to the host and the update
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        if len(losses) == TRAIN_CPU_STEPS:  # the PS rows after the steps the CPU repeats (untimed)
+            snapshot = entries_of(store, batch_keys(warm + batches[:TRAIN_CPU_STEPS]))
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t_all
     launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
     expected = {fn.__name__: 0 for fn in ops.KERNEL_WRAPPERS}
     expected.update(dot_interaction=TRAIN_STEPS, dot_interaction_bwd=TRAIN_STEPS,
@@ -728,6 +812,7 @@ def path_training(dev):
         raise SystemExit(f"training path: launches {launches}, expected {expected}")
     print(f"  launches={launches} over {TRAIN_STEPS} steps; losses {[round(x, 5) for x in losses]}",
           flush=True)
+    print(f"  step ms: {[round(x, 2) for x in step_ms]}", flush=True)
 
     # stage by stage, each stage ending in a synchronize (host clock); the
     # step's device span by CUDA events
@@ -768,27 +853,31 @@ def path_training(dev):
     if worker.staleness != 0 or not all(np.isfinite(losses)):
         raise SystemExit(f"training path: staleness {worker.staleness}, losses {losses}")
 
-    # the same first steps on the CPU, with its own store: bf16 rounds at
-    # other points there
-    cpu, cpu_store, _ = train_ctx("cpu", sd)
+    # the same first steps on the CPU over the numpy store (the golden
+    # model): bf16 rounds at other points there
+    cpu, cpu_store, _ = bench_train_ctx("cpu", "numpy", warm, sd)
     cpu_losses = [cpu.train_step(b)["loss"] for b in batches[:TRAIN_CPU_STEPS]]
     loss_err = max(abs(a - c) for a, c in zip(losses, cpu_losses))
     print(f"  first {TRAIN_CPU_STEPS} losses card {losses[:TRAIN_CPU_STEPS]} cpu {cpu_losses}: "
           f"max_abs_err={loss_err:.3e} tolerance=2e-2 {'ok' if loss_err <= 2e-2 else 'FAIL'}", flush=True)
     cpu_rows = {sign: vec for sh in cpu_store._shards for sign, (_, vec) in sh.entries.items()}
     if set(cpu_rows) != set(snapshot):
-        raise SystemExit(f"training path: the card's store holds {len(snapshot)} signs, the CPU's "
-                         f"{len(cpu_rows)}")
+        raise SystemExit(f"training path: the card's native store holds {len(snapshot)} of the batches' "
+                         f"signs, the CPU's numpy store {len(cpu_rows)}")
     row_err = max(float(np.abs(snapshot[k] - v).max()) for k, v in cpu_rows.items())
-    print(f"  PS entries after {TRAIN_CPU_STEPS} steps, card vs cpu ({len(cpu_rows)} rows): "
-          f"max_abs_err={row_err:.3e} tolerance=1e-2 {'ok' if row_err <= 1e-2 else 'FAIL'}", flush=True)
+    print(f"  PS entries after {TRAIN_CPU_STEPS} steps, card (native store) vs cpu (numpy store), "
+          f"{len(cpu_rows)} rows: max_abs_err={row_err:.3e} tolerance=1e-2 "
+          f"{'ok' if row_err <= 1e-2 else 'FAIL'}", flush=True)
     if loss_err > 2e-2 or row_err > 1e-2:
         raise SystemExit("training path: card and CPU disagree")
 
+    wall = sum(step_ms) / 1e3
     training = {
         "batch": BATCH, "measured_steps": TRAIN_STEPS, "warmup_steps": TRAIN_WARMUP,
+        "store_backend": "native",
         "samples_per_s": TRAIN_STEPS * BATCH / wall,
         "step_ms_mean": wall / TRAIN_STEPS * 1e3,
+        "step_ms_max": max(step_ms), "step_ms_all": step_ms,
         "losses": losses,
         "loss_max_abs_err_vs_cpu": loss_err, "ps_entry_max_abs_err_vs_cpu": row_err,
         "stage_ms_p50": {k: float(np.percentile(v, 50)) for k, v in stages.items()},
@@ -799,6 +888,241 @@ def path_training(dev):
     }
     # the inputs of the kernels' timing: the last staged step's batch
     return launches, training, device_batches[-1]
+
+
+def timed_calls(obj, name, sink, cpu_sink, lock=None):
+    """Shadow ``obj.name`` with a wrapper that appends each call's ms to
+    ``sink`` and the CPU ms its thread spent in it to ``cpu_sink`` (with
+    ``lock``, calls run one at a time, the wait for it included); returns
+    the function that takes the wrapper away."""
+    fn = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        t, c = time.perf_counter(), time.thread_time()
+        try:
+            if lock is None:
+                return fn(*args, **kwargs)
+            with lock:
+                return fn(*args, **kwargs)
+        finally:
+            sink.append((time.perf_counter() - t) * 1e3)
+            cpu_sink.append((time.thread_time() - c) * 1e3)
+
+    setattr(obj, name, wrapper)
+    return lambda: delattr(obj, name)
+
+
+def device_busy_union_ms(fn):
+    """Wall ms of ``fn()`` and the ms in it that the card was busy: the
+    union of the device's own event intervals (kernels and copies, on any
+    stream) by torch.profiler, user annotations left out."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return wall, (busy / 1e3 if spans else None)
+
+
+def path_pipelined(dev):
+    """Phase 4d: the pipelined training path (``DataLoader`` +
+    ``train_step_prepared``) at bench width and the bench's settings."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.data_loader import DataLoader
+
+    print(f"== phase 4d: pipelined training (DataLoader num_workers={PIPE_WORKERS}, "
+          f"staleness={PIPE_STALENESS}, B={BATCH}, train_step_prepared)", flush=True)
+    make_batch = zipf_batch_maker(SEED + 20, labels=True)
+    warm = [make_batch() for _ in range(WARM_BATCHES)]
+    sync_warm = [make_batch() for _ in range(TRAIN_WARMUP)]
+    batches = [make_batch() for _ in range(PIPE_BATCHES + PIPE_PROFILED)]
+    sweep = [[make_batch() for _ in range(PIPE_SWEEP_BATCHES)] for _ in PIPE_SWEEP]
+    repro = [make_batch() for _ in range(PIPE_REPRO)]
+    ctx, store, sd = bench_train_ctx(dev, "native", warm)
+    print(f"  store warmed with {WARM_BATCHES} admitting lookups: {store.size()} rows", flush=True)
+    for b in sync_warm:
+        ctx.train_step(b)
+
+    def run(stream, step_ms=None, workers=PIPE_WORKERS, parts=None):
+        """Train the whole stream through a fresh loader; returns it,
+        flushed and shut down. ``step_ms`` gets each step's time since the
+        previous step ended (the wait for its batch included); ``parts``
+        the consumer's wait and step apart."""
+        loader = DataLoader(iter(stream), ctx, num_workers=workers, staleness=PIPE_STALENESS)
+        t = time.perf_counter()
+        it = iter(loader)
+        for tb in it:
+            got = time.perf_counter()
+            ctx.train_step_prepared(tb, loader, fetch_metrics=False)
+            now = time.perf_counter()
+            if step_ms is not None:
+                step_ms.append((now - t) * 1e3)
+            if parts is not None:
+                parts["wait"].append((got - t) * 1e3)
+                parts["step"].append((now - got) * 1e3)
+            t = now
+        loader.flush()
+        loader.shutdown()
+        return loader
+
+    ops.reset_launch_counts()
+    step_ms = []
+    t0 = time.perf_counter()
+    loader = run(batches[:PIPE_BATCHES], step_ms)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+    expected = {fn.__name__: 0 for fn in ops.KERNEL_WRAPPERS}
+    expected.update(dot_interaction=PIPE_BATCHES, dot_interaction_bwd=PIPE_BATCHES,
+                    gather_pool_fwd=PIPE_BATCHES, gather_pool_bwd=PIPE_BATCHES)
+    final = ctx.last_prepared_metrics()
+    window = loader.staleness_state()
+    print(f"  launches={launches} over {PIPE_BATCHES} batches; final loss {final['loss']:.5f}; "
+          f"after flush: staleness {ctx.worker.staleness}, window {window}", flush=True)
+    print(f"  step ms: {[round(x, 2) for x in step_ms]}", flush=True)
+    if launches != expected:
+        raise SystemExit(f"pipelined path: launches {launches}, expected {expected}")
+    if not np.isfinite(final["loss"]) or ctx.worker.staleness != 0 or window != {
+            "outstanding_gradient_batches": 0, "free_permits": PIPE_STALENESS, "staleness": PIPE_STALENESS}:
+        raise SystemExit("pipelined path: non-finite loss, or the staleness window not whole after flush")
+
+    # the card's busy share of the same loop over more batches, profiled
+    # apart (the profiler's cost stays out of the numbers above)
+    prof_wall, busy = device_busy_union_ms(lambda: run(batches[PIPE_BATCHES:]))
+    print(f"  profiled loop of {PIPE_PROFILED} batches: {prof_wall:.1f} ms, card busy {busy} ms", flush=True)
+
+    # where a pipelined batch's time goes, at 1, 2 and 4 lookup threads
+    # and in two diagnostic variants (PIPE_SWEEP): the host stages timed
+    # inside the loop (lookup and staging on the lookup threads, the update
+    # on the gradient threads: wall ms and the CPU ms of the thread in
+    # them; the consumer's wait for a batch and its step)
+    sweep_out = {}
+    for (workers, variant), stream in zip(PIPE_SWEEP, sweep):
+        parts = {k: [] for k in ("lookup", "stage", "update", "wait", "step",
+                                 "lookup_cpu", "stage_cpu", "update_cpu")}
+        restore = [timed_calls(ctx.worker, "forward_batch_id", parts["lookup"], parts["lookup_cpu"]),
+                   timed_calls(ctx, "prepare_features", parts["stage"], parts["stage_cpu"],
+                               lock=threading.Lock() if variant == "serial_stage" else None),
+                   timed_calls(ctx.worker, "update_gradient_batched", parts["update"], parts["update_cpu"])]
+        interval = sys.getswitchinterval()
+        if variant == "switch_0.5ms":
+            sys.setswitchinterval(0.0005)
+        try:
+            t = time.perf_counter()
+            run(stream, workers=workers, parts=parts)
+            torch.cuda.synchronize()
+            sweep_wall = time.perf_counter() - t
+        finally:
+            sys.setswitchinterval(interval)
+            for undo in restore:
+                undo()
+        label = f"{workers}" + (f" {variant}" if variant else "")
+        sweep_out[label] = {"samples_per_s": len(stream) * BATCH / sweep_wall,
+                            **{f"{k}_ms_p50": float(np.percentile(v, 50)) for k, v in parts.items()},
+                            "step_ms_max": max(parts["step"]), "wait_ms_max": max(parts["wait"])}
+        print(f"  {label} lookup thread(s), {len(stream)} batches: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in sweep_out[label].items()), flush=True)
+
+    # reproducible, staleness 1: the loader against train_step on the same
+    # batches, from the same weights and an empty native store each
+    results = []
+    for pipelined in (False, True):
+        c, st, _ = bench_train_ctx(dev, "native", [], sd)
+        if pipelined:
+            ld = DataLoader(iter(repro), c, num_workers=PIPE_WORKERS, staleness=1, reproducible=True)
+            losses = [c.train_step_prepared(tb, ld)["loss"] for tb in ld]
+            ld.flush()
+            ld.shutdown()
+        else:
+            losses = [c.train_step(b)["loss"] for b in repro]
+        results.append((losses, entries_of(st, batch_keys(repro)), st.size()))
+    (l_sync, e_sync, n_sync), (l_pipe, e_pipe, n_pipe) = results
+    loss_err = max(abs(a - b) for a, b in zip(l_sync, l_pipe))
+    same_rows = set(e_sync) == set(e_pipe) and len(e_sync) == n_sync == n_pipe
+    row_err = max(float(np.abs(e_sync[k] - e_pipe[k]).max()) for k in e_sync) if same_rows else float("inf")
+    ok = same_rows and loss_err <= 1e-5 and row_err <= 1e-5
+    print(f"  reproducible staleness=1 loader vs train_step, {PIPE_REPRO} batches: losses max_abs_err="
+          f"{loss_err:.3e}, PS entries ({len(e_sync)} rows) max_abs_err={row_err:.3e} tolerance=1e-5 "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit("pipelined path: the reproducible loader disagrees with train_step")
+
+    return launches, {
+        "batch": BATCH, "batches": PIPE_BATCHES, "num_workers": PIPE_WORKERS,
+        "staleness": PIPE_STALENESS, "warmup_sync_steps": TRAIN_WARMUP, "store_backend": "native",
+        "samples_per_s": PIPE_BATCHES * BATCH / wall,
+        "wall_ms": wall * 1e3, "step_ms_max": max(step_ms),
+        "step_ms_p50": float(np.percentile(step_ms, 50)), "step_ms_all": step_ms,
+        "final_loss": final["loss"],
+        "profiled_batches": PIPE_PROFILED, "profiled_wall_ms": prof_wall, "device_busy_ms": busy,
+        "device_busy_share": busy / prof_wall if busy is not None else None,
+        "repro_loss_max_abs_err": loss_err, "repro_ps_entry_max_abs_err": row_err,
+        "by_lookup_threads": sweep_out,
+        "store_rows": store.size(),
+    }
+
+
+def time_flash_backward(dev, card):
+    """The flash-attention backward, a dense recompute (the gradient of
+    ``reference_attention`` at the saved q, k, v; it launches no kernel of
+    its own), against SDPA's backward on the same inputs and output
+    gradient at (4, 1024, 8, 64): ``torch.autograd.grad`` of each forward's
+    output, by CUDA events around 20 eager calls (a call is far longer than
+    its host enqueue). Bound: 10·B·H·D·(key, query pairs) operations (S
+    recomputed, dP, dS·K, dSᵀ·Q, Pᵀ·dO), bf16 at its tensor-core rate, f32
+    at three TF32 passes as the forward's f32 rows; bytes q, k, v, dO read
+    and dq, dk, dv written once."""
+    import torch
+    import torch.nn.functional as F
+
+    from persia_tpu_torch import ops
+
+    print("== phase 5b: flash-attention backward (dense recompute) vs SDPA's backward", flush=True)
+    g = torch.Generator(device="cpu").manual_seed(SEED + 4)
+    b, l, h, d = 4, 1024, 8, 64
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for causal in (False, True):
+            q, k, v, grad = (torch.randn((b, l, h, d), generator=g).to(dev, dtype) for _ in range(4))
+            leaves = [t.requires_grad_(True) for t in (q, k, v)]
+            ours = ops.flash_attention(*leaves, causal=causal)
+            sdpa = F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in leaves), is_causal=causal)
+            grad_t = grad.transpose(1, 2)
+            ours_bwd = lambda: torch.autograd.grad(ours, leaves, grad, retain_graph=True)  # noqa: E731
+            sdpa_bwd = lambda: torch.autograd.grad(sdpa, leaves, grad_t, retain_graph=True)  # noqa: E731
+            lib0, k0, k1, lib1 = (eager_ms(f, iters=20, warmup=3) for f in (sdpa_bwd, ours_bwd, ours_bwd, sdpa_bwd))
+            err = max(float((a.float() - c.float()).abs().max()) for a, c in zip(ours_bwd(), sdpa_bwd()))
+            pairs = l * (l + 1) // 2 if causal else l * l
+            width = q.element_size()
+            ops_ = 10 * b * h * d * pairs
+            bms, by = (bound(7 * b * l * h * d * width, ops_, "bfloat16") if dtype == torch.bfloat16
+                       else bound(7 * b * l * h * d * width, 3 * ops_, "tf32"))
+            row = {"name": "flash_attention_bwd", "how": "dense recompute (reference_attention autograd)",
+                   "replaces": "persia_tpu/ops/flash_attention.py:139", "shape": [b, l, h, d],
+                   "dtype": str(dtype)[6:], "causal": causal, "ms": min(k0, k1), "ms_runs": [k0, k1],
+                   "library_ms": min(lib0, lib1), "library_ms_runs": [lib0, lib1],
+                   "library": "scaled_dot_product_attention backward", "bound_ms": bms, "bound_by": by,
+                   "max_abs_diff_vs_library": err}
+            print(json.dumps({"flash_bwd_timing": row, "card": card}), flush=True)
+            rows.append(row)
+            del ours, sdpa
+    return rows
 
 
 def sdpa_kernels(fn) -> list:
@@ -1049,11 +1373,14 @@ def main() -> int:
     fa_routes = path_flash_attention(dev)
     serving_launches, serving, feats_shape = path_serving(dev)
     training_launches, training, train_batch = path_training(dev)
+    pipelined_launches, pipelined = path_pipelined(dev)
     launches = {"flash_attention": fa_routes, "serving": serving_launches,
-                "training": training_launches}
+                "training": training_launches, "pipelined": pipelined_launches}
     rows = phase_timing(dev, card, launches, errs, feats_shape, train_batch)
+    time_flash_backward(dev, card)
     print(json.dumps({"serving": serving, "card": card}), flush=True)
     print(json.dumps({"training": training, "card": card}), flush=True)
+    print(json.dumps({"pipelined": pipelined, "card": card}), flush=True)
     print(json.dumps({"build": build, "card": card}), flush=True)
 
     # one entry per kernel (each flash-attention route by its non-causal

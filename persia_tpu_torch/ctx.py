@@ -2,12 +2,13 @@
 ``stage_embeddings`` and ``EmbeddingCtx.prepare_features`` turn the
 worker's numpy outputs into tensors on the ctx's device; ``TrainCtx`` runs
 the synchronous hybrid training step (lookup → forward, backward and dense
-update on the device → gradient return to the parameter servers);
-``InferCtx`` runs the lookup-direct forward."""
+update on the device → gradient return to the parameter servers) and the
+pipelined one, on batches a ``persia_tpu_torch.data_loader.DataLoader``
+looked up and staged; ``InferCtx`` runs the lookup-direct forward."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +33,7 @@ from persia_tpu_torch.parallel.train_step import (
     unpack_step_header_dynamic,
 )
 from persia_tpu_torch.utils import round_up_pow2
-from persia_tpu_torch.wire import BF16Host, tensor_to_host_f32
+from persia_tpu_torch.wire import BF16Host, bf16_bits_to_f32, tensor_to_host_f32
 
 WIRE_DTYPES = (None, "float32", "bfloat16")
 
@@ -81,12 +82,9 @@ def stage_embeddings(
             d, dim = eb.distinct.shape
             padded = np.zeros((shared_p, dim), dtype=np.float32)
             padded[:d] = eb.distinct
-            # uint16 indexes when the padded table allows: fewer bytes to the
-            # device, widened there
-            idx_dtype = np.uint16 if shared_p <= 0xFFFF else np.int32
             entry = {
                 "distinct": _wire(padded, bf16),
-                "pool_index": np.ascontiguousarray(eb.index, dtype=idx_dtype),
+                "pool_index": np.ascontiguousarray(eb.index, dtype=np.int32),
             }
             if eb.sqrt_scaling:
                 entry["pool_counts"] = eb.counts.reshape(-1, 1).astype(np.int32)
@@ -106,15 +104,43 @@ def stage_embeddings(
     return entries, counts
 
 
-def _to_device(arr, device: torch.device) -> torch.Tensor:
+def _host_bits(arr) -> Tuple[np.ndarray, Optional[torch.dtype]]:
+    """A host array's contiguous bytes as numpy, and the dtype to view them
+    as once on the device (None: their own); bf16 travels as int16 bits."""
     if isinstance(arr, BF16Host):
-        return arr.to(device)
-    if arr.dtype == np.uint16:
-        # torch's uint16 has few kernels: ship the bits as int16, widen on
-        # the device
-        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).to(device)
-        return t.to(torch.int32) & 0xFFFF
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+        return np.ascontiguousarray(arr.bits).view(np.int16), torch.bfloat16
+    return np.ascontiguousarray(arr), None
+
+
+def _to_device(arrays: Sequence, device: torch.device, non_blocking: bool = False) -> List[torch.Tensor]:
+    """Host arrays (numpy or ``BF16Host``) as tensors on ``device``. On a
+    card they travel in one copy: packed at 16-byte offsets into one pinned
+    buffer, copied on the current stream (``non_blocking``: without waiting
+    for it), and viewed back out of the device buffer."""
+    host = [_host_bits(a) for a in arrays]
+    if device.type != "cuda":
+        out = [torch.from_numpy(a).to(device) for a, _ in host]
+    else:
+        offsets, total = [], 0
+        for a, _ in host:
+            offsets.append(total)
+            total += -(-a.nbytes // 16) * 16
+        pinned = torch.empty(max(total, 16), dtype=torch.uint8, pin_memory=True)
+        buf = pinned.numpy()
+        for (a, _), o in zip(host, offsets):
+            buf[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+        staged = pinned.to(device, non_blocking=non_blocking)
+        out = [staged[o:o + a.nbytes].view(torch.from_numpy(a[:0].reshape(-1)).dtype).view(a.shape)
+               for (a, _), o in zip(host, offsets)]
+    return [t if as_dtype is None else t.view(as_dtype) for t, (_, as_dtype) in zip(out, host)]
+
+
+def staged_tensors(device_batch: Dict) -> List[torch.Tensor]:
+    """Every tensor of a device batch."""
+    out = list(device_batch["dense"]) + list(device_batch["labels"])
+    for e in device_batch["emb"]:
+        out.extend(e.values())
+    return out
 
 
 class EmbeddingCtx:
@@ -135,15 +161,24 @@ class EmbeddingCtx:
 
     def prepare_features(
         self, batch: PersiaBatch, emb_batches: Sequence[FeatureEmbeddingBatch], csr: bool = False,
+        non_blocking: bool = False,
     ) -> Tuple[Dict, List[Optional[int]]]:
         """The device batch (tensors on ``self.device``) + true distinct
-        counts per slot."""
+        counts per slot. On a card the batch travels in one copy from pinned
+        memory, on the current stream; ``non_blocking``: without waiting for
+        it, the caller ordering the batch's use after it (``DataLoader``
+        records an event)."""
         entries, counts = stage_embeddings(emb_batches, dtype=self.wire_dtype, csr=csr)
-        dev = self.device
+        dense = [f.data.astype(np.float32) for f in batch.non_id_type_features]
+        labels = [l.data.astype(np.float32) for l in batch.labels]
+        keys = [list(e) for e in entries]
+        flat = _to_device(dense + labels + [e[k] for e, ks in zip(entries, keys) for k in ks],
+                          self.device, non_blocking)
+        it = iter(flat)
         device_batch = {
-            "dense": [_to_device(f.data.astype(np.float32), dev) for f in batch.non_id_type_features],
-            "labels": [_to_device(l.data.astype(np.float32), dev) for l in batch.labels],
-            "emb": [{k: _to_device(a, dev) for k, a in e.items()} for e in entries],
+            "dense": [next(it) for _ in dense],
+            "labels": [next(it) for _ in labels],
+            "emb": [{k: next(it) for k in ks} for ks in keys],
         }
         return device_batch, counts
 
@@ -205,6 +240,10 @@ class TrainCtx(EmbeddingCtx):
         )
         self._eval_step = build_eval_step(self.model)
         self.state: Optional[TrainState] = None
+        # pipelined steps: the gradients' device→host stream (a card only),
+        # and the header of the last step whose metrics were not fetched
+        self._d2h_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        self._deferred_header = None
 
     def __enter__(self):
         self.worker.register_optimizer(self.embedding_optimizer.config)
@@ -224,17 +263,20 @@ class TrainCtx(EmbeddingCtx):
             self.init_state()
         return self._train_step(self.state, device_batch)
 
-    def fetch_step_output(self, header, gpacked, device_batch: Dict):
-        """Device→host copies of a step's outputs: (metrics, per-slot
-        gradients as f32 arrays)."""
+    def _metrics(self, header, device_batch: Dict) -> Dict:
+        """The step header's device→host copy as metrics: {loss, preds},
+        with the dynamic loss scale also {loss_scale, grads_finite}."""
         h = header.cpu().numpy()
         if self.dynamic_loss_scale:
             loss, preds, scale, finite = unpack_step_header_dynamic(h, device_batch)
-            metrics = {"loss": loss, "preds": preds, "loss_scale": scale, "grads_finite": finite}
-        else:
-            loss, preds = unpack_step_header(h, device_batch)
-            metrics = {"loss": loss, "preds": preds}
-        return metrics, unpack_step_grads(tensor_to_host_f32(gpacked), device_batch)
+            return {"loss": loss, "preds": preds, "loss_scale": scale, "grads_finite": finite}
+        loss, preds = unpack_step_header(h, device_batch)
+        return {"loss": loss, "preds": preds}
+
+    def fetch_step_output(self, header, gpacked, device_batch: Dict):
+        """Device→host copies of a step's outputs: (metrics, per-slot
+        gradients as f32 arrays)."""
+        return self._metrics(header, device_batch), unpack_step_grads(tensor_to_host_f32(gpacked), device_batch)
 
     def train_step(self, batch: PersiaBatch) -> Dict:
         """One synchronous hybrid step: lookup → device step → gradient
@@ -256,6 +298,80 @@ class TrainCtx(EmbeddingCtx):
         scale = metrics.get("loss_scale", 1.0) * self.grad_scale
         self.worker.update_gradient_batched(ref, slot_grads, scale_factor=scale)
         return metrics
+
+    def _grads_to_host_async(self, gpacked: torch.Tensor) -> Callable[[], np.ndarray]:
+        """Start the packed gradients' copy to the host; returns a function
+        that waits for it and gives the host f32 array. On a card the copy
+        runs on a side stream, after the step's work on the current stream,
+        into a pinned buffer that lives until that function's result is
+        dropped."""
+        if self._d2h_stream is None:
+            return lambda: tensor_to_host_f32(gpacked)
+        side = self._d2h_stream
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            host = torch.empty(gpacked.shape, dtype=gpacked.dtype, pin_memory=True)
+            host.copy_(gpacked, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(side)
+        gpacked.record_stream(side)  # its memory stays until the copy has read it
+
+        def fetch() -> np.ndarray:
+            copied.synchronize()
+            if host.dtype == torch.bfloat16:
+                return bf16_bits_to_f32(host.view(torch.int16).numpy())
+            return host.numpy()
+
+        return fetch
+
+    def train_step_prepared(self, training_batch, loader, fetch_metrics: bool = True) -> Optional[Dict]:
+        """Pipelined step on a batch from a ``DataLoader``: the device step,
+        then the embedding gradients return asynchronously through the
+        loader's ``BackwardEngine`` (bounded staleness). The device step of
+        batch N overlaps the lookup of batch N+k.
+
+        ``fetch_metrics=False`` (static loss scale only: the dynamic scale
+        is read every step) skips the per-step header copy and returns
+        None; ``last_prepared_metrics`` reads the last one after the loop."""
+        device_batch = training_batch.device_batch
+        defer = not fetch_metrics and not self.dynamic_loss_scale
+        if not defer:
+            self._deferred_header = None  # this step's metrics are fresher
+        try:
+            if training_batch.ready is not None:
+                # the staging stream's copies first; their memory is in use
+                # on this stream until the step's work here is done
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(training_batch.ready)
+                for t in staged_tensors(device_batch):
+                    t.record_stream(stream)
+            header, gpacked = self.run_step(device_batch)
+            fetch = self._grads_to_host_async(gpacked)
+            if defer:
+                # keep the label shape, not the batch: holding the batch
+                # would pin its device tensors until the deferred fetch
+                self._deferred_header = (header, tuple(device_batch["labels"][0].shape))
+                metrics = None
+            else:
+                metrics = self._metrics(header, device_batch)
+        except Exception:
+            loader.mark_consumed(training_batch)
+            raise
+        # as in train_step: the worker divides by the dynamic loss scale
+        # composed with the static grad_scale
+        scale = (metrics or {}).get("loss_scale", 1.0) * self.grad_scale
+        loader.backward_packed(training_batch, fetch, scale_factor=scale)
+        return metrics
+
+    def last_prepared_metrics(self) -> Optional[Dict]:
+        """The metrics of the last ``fetch_metrics=False`` step (one
+        device→host copy), or None."""
+        if self._deferred_header is None:
+            return None
+        header, label_shape = self._deferred_header
+        self._deferred_header = None
+        h = header.cpu().numpy()
+        return {"loss": float(h[0]), "preds": h[1:].reshape(label_shape)}
 
     def eval_batch(self, batch: PersiaBatch) -> np.ndarray:
         emb_batches = self.worker.forward_directly(batch, train=False)

@@ -5,22 +5,25 @@ slot to the device, and the synchronous gradient return: the post-forward
 buffer and its staleness count, per-slot device gradients turned into
 per-key gradients, and one batched update per replica.
 
-The numpy routines here are the ones the reference falls back to when its
-native worker core is missing; they produce the same arrays bit for bit
-(the gradient accumulation of host-pooled slots sums in ``np.add.at``'s
-order, where the native core sums in its own).
+The hot loops (dedup, sum pooling, gradient accumulation, index matrices,
+shard partitioning) run in the native worker core
+(``embedding/native_worker.py``) where it builds, and in numpy otherwise,
+at the reference's call sites. Both give the same arrays bit for bit,
+except that native dedup lists the distinct ids in first-seen order where
+``np.unique`` sorts them; every consumer pairs them with their inverse.
 """
 
 from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from persia_tpu_torch.config import EmbeddingConfig, SlotConfig
 from persia_tpu_torch.data import IDTypeFeature, PersiaBatch
+from persia_tpu_torch.embedding import native_worker
 from persia_tpu_torch.embedding.hashing import add_index_prefix, hash_stack, sign_to_shard
 from persia_tpu_torch.utils import round_up_pow2
 
@@ -93,11 +96,15 @@ FeatureEmbeddingBatch = Union[SumEmbeddingBatch, RawEmbeddingBatch, DevicePooled
 
 def preprocess_slot(feature: IDTypeFeature, config: SlotConfig, prefix_bit: int) -> ProcessedSlot:
     """Dedup + prefix + hashstack for one slot. Dedup runs on the prefixed
-    signs; hashstack expands each distinct sign into ``rounds`` table keys
-    whose rows are summed."""
+    signs (first-seen order natively, sorted in numpy); hashstack expands
+    each distinct sign into ``rounds`` table keys whose rows are summed."""
     flat, counts = feature.flat_counts()
     flat = add_index_prefix(flat.astype(np.uint64, copy=False), config.index_prefix, prefix_bit)
-    distinct, inverse = np.unique(flat, return_inverse=True)
+    native = native_worker.dedup(flat)
+    if native is not None:
+        distinct, inverse = native
+    else:
+        distinct, inverse = np.unique(flat, return_inverse=True)
     hs = config.hash_stack_config
     if hs.enabled:
         rounds = hs.hash_stack_rounds
@@ -139,6 +146,18 @@ def _split_flat_rows(flat: np.ndarray, key_ofs: np.ndarray, dims: np.ndarray) ->
     return out
 
 
+def _partition_positions(signs: np.ndarray, n: int) -> List[Tuple[int, np.ndarray]]:
+    """[(replica, ascending positions of its keys)] for the replicas that
+    own any of ``signs`` under ``sign_to_shard`` routing."""
+    part = native_worker.shard_partition(signs, n)
+    if part is None:
+        shard = sign_to_shard(signs, n)
+        return [(r, pos) for r in range(n) if len(pos := np.flatnonzero(shard == r))]
+    pos, counts = part
+    ends = np.cumsum(counts)
+    return [(r, pos[ends[r] - counts[r]:ends[r]]) for r in range(n) if counts[r]]
+
+
 class ShardedLookup:
     """Routes table keys across parameter-server replicas by
     ``sign_to_shard`` and reassembles the replies. ``replicas`` are
@@ -164,11 +183,7 @@ class ShardedLookup:
             flat = self.replicas[0].lookup_batched(all_keys, key_ofs, dims, train)
             return _split_flat_rows(flat, key_ofs, dims)
         outs = [np.zeros((len(k), int(d)), dtype=np.float32) for k, d in groups]
-        shard = sign_to_shard(all_keys, n)
-        for r in range(n):
-            pos = np.flatnonzero(shard == r)
-            if not len(pos):
-                continue
+        for r, pos in _partition_positions(all_keys, n):
             sub_ofs = np.searchsorted(pos, key_ofs).astype(np.int64)
             flat = self.replicas[r].lookup_batched(all_keys[pos], sub_ofs, dims, train)
             for g, rows in enumerate(_split_flat_rows(flat, sub_ofs, dims)):
@@ -193,11 +208,7 @@ class ShardedLookup:
             flat = np.concatenate([np.asarray(g, dtype=np.float32).reshape(-1) for _, g, _ in groups])
             self.replicas[0].update_batched(all_keys, key_ofs, dims, flat, opt_groups)
             return
-        shard = sign_to_shard(all_keys, n)
-        for r in range(n):
-            pos = np.flatnonzero(shard == r)
-            if not len(pos):
-                continue
+        for r, pos in _partition_positions(all_keys, n):
             sub_ofs = np.searchsorted(pos, key_ofs).astype(np.int64)
             flat = np.concatenate([
                 np.asarray(groups[g][1], dtype=np.float32)[pos[sub_ofs[g]:sub_ofs[g + 1]] - key_ofs[g]].reshape(-1)
@@ -222,6 +233,9 @@ def _sum_hashstack_rounds(slot: ProcessedSlot, rows: np.ndarray) -> np.ndarray:
 def _index_matrix(slot: ProcessedSlot, width: int) -> np.ndarray:
     """(B, width) int32: each sample's first ``width`` distinct positions,
     padded with D."""
+    native = native_worker.raw_index(slot.counts, slot.inverse, width, slot.num_distinct)
+    if native is not None:
+        return native
     index = np.full((slot.batch_size, width), slot.num_distinct, dtype=np.int32)
     starts = np.zeros(slot.batch_size, dtype=np.int64)
     np.cumsum(slot.counts[:-1], out=starts[1:])
@@ -248,8 +262,11 @@ def postprocess_slot(
             slot.name, rows, _index_matrix(slot, L), counts, slot.config.sqrt_scaling
         )
     if slot.config.embedding_summation:
-        pooled = np.zeros((slot.batch_size, dim), dtype=np.float32)
+        pooled = None
         if len(slot.inverse):
+            pooled = native_worker.sum_pool(rows, slot.inverse, slot.sample_of_id, slot.batch_size)
+        if pooled is None:
+            pooled = np.zeros((slot.batch_size, dim), dtype=np.float32)
             np.add.at(pooled, slot.sample_of_id, rows[slot.inverse])
         if slot.config.sqrt_scaling:
             scale = 1.0 / np.sqrt(np.maximum(slot.counts, 1)).astype(np.float32)
@@ -299,8 +316,11 @@ def slot_gradient_to_keys(
         if slot.config.sqrt_scaling:
             scale = 1.0 / np.sqrt(np.maximum(slot.counts, 1)).astype(np.float32)
             grad = grad * scale[:, None]
-        per_distinct = np.zeros((slot.num_distinct, dim), dtype=np.float32)
+        per_distinct = None
         if len(slot.inverse):
+            per_distinct = native_worker.grad_accum(grad, slot.inverse, slot.sample_of_id, slot.num_distinct)
+        if per_distinct is None:
+            per_distinct = np.zeros((slot.num_distinct, dim), dtype=np.float32)
             np.add.at(per_distinct, slot.inverse, grad[slot.sample_of_id])
     else:
         if grad.shape[0] != slot.num_distinct:

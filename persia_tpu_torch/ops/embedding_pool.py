@@ -57,7 +57,10 @@ def pool_csr(index: np.ndarray, rows: int):
     positions (b * L + l) are ``order[offsets[r]:offsets[r + 1]]``, in
     ascending order."""
     flat = np.asarray(index, dtype=np.int64).reshape(-1)
-    order = np.argsort(flat, kind="stable").astype(np.int32)
+    # a stable sort of 16-bit keys is a radix sort: several times faster
+    # than a merge sort of the same keys as int64, and the same order
+    keys = flat.astype(np.uint16) if rows <= 1 << 16 else flat
+    order = np.argsort(keys, kind="stable").astype(np.int32)
     offsets = np.zeros(rows + 1, dtype=np.int32)
     np.cumsum(np.bincount(flat, minlength=rows), out=offsets[1:])
     return order, offsets

@@ -19,8 +19,12 @@ route is chosen by dtype, explicitly:
 ``flash_attention.launches_by_route`` each route's;
 ``tf32_split_planes.launches`` counts the pre-pass. The plain version of
 the whole is ``reference_attention``, the dense f32 softmax of
-``persia_tpu/parallel/sequence.py:126-135,184-188``. The backward (a dense
-recompute in the reference) comes with the training slice.
+``persia_tpu/parallel/sequence.py:126-135,184-188``.
+
+The backward is the reference's (``persia_tpu/ops/flash_attention.py:130-149``):
+a dense recompute, the gradient of ``reference_attention`` at the saved q, k
+and v. On the card it runs in plain PyTorch and launches no kernel of its
+own.
 """
 
 from __future__ import annotations
@@ -175,6 +179,26 @@ def _check_cuda_inputs(q, k, v, dtypes) -> None:
         raise ValueError("flash_attention needs contiguous [B, L, H, D] tensors")
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The card's forward kernels with the reference's backward: the
+    gradient of ``reference_attention`` at the caller's (q, k, v, scale)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        return _launch(q, k, v, causal, scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = reference_attention(*leaves, causal=ctx.causal, scale=ctx.scale)
+            dq, dk, dv = torch.autograd.grad(out, leaves, grad)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -183,13 +207,19 @@ def flash_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Tiled attention: q, k, v [B, L, H, D] → [B, L, H, D]. A CPU tensor
-    goes through the plain version; a CUDA tensor through the kernels."""
+    goes through the plain version; a CUDA tensor through the kernels. Both
+    are differentiable in q, k and v."""
     _check_shapes(q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return reference_attention(q, k, v, causal=causal, scale=scale)
     _check_cuda_inputs(q, k, v, tuple(ROUTES))
+    return _FlashAttention.apply(q, k, v, bool(causal), float(scale))
+
+
+def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+    """The forward kernels on checked CUDA inputs."""
     b, l, h, d = q.shape
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -200,7 +230,7 @@ def flash_attention(
         # scale > 0; the same softmax: (-q)·k·(-scale), or 0·k·1 for 0
         q, scale = (-q, -scale) if scale < 0 else (torch.zeros_like(q), 1.0)
     lib = _kernels.library()
-    shape = (b, l, h, d, float(scale), int(bool(causal)))
+    shape = (b, l, h, d, float(scale), int(causal))
     if route == "tf32x3":
         qk, vt = tf32_split_planes(q, k, v)
     with torch.cuda.device(q.device):

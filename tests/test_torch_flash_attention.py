@@ -1,9 +1,11 @@
 """The port's flash attention vs the reference's Pallas kernel (interpret
 mode on the CPU, as tests/test_flash_attention.py runs it) and its dense
-oracle, on the cases of that file; and the f32 route's split-TF32
-arithmetic, emulated in torch (the kernels on a card:
+oracle, on the cases of that file; its q, k and v gradients vs ``jax.grad``
+of the reference's (whose backward is a dense recompute); and the f32
+route's split-TF32 arithmetic, emulated in torch (the kernels on a card:
 tests/test_torch_kernels_gpu.py)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -72,6 +74,41 @@ def test_explicit_scale():
     jq, jk, jv = (jnp.asarray(a) for a in arrays)
     ref = np.asarray(jax_flash_attention(jq, jk, jv, scale=0.3, block_q=8, block_k=8))
     np.testing.assert_allclose(_port(arrays, scale=0.3).numpy(), ref, atol=1e-5, rtol=1e-5)
+
+
+GRAD_CASES = [
+    ("dense", dict(), False, None, torch.float32),
+    ("causal", dict(), True, None, torch.float32),
+    ("ragged_l37", dict(l=37, seed=1), True, None, torch.float32),
+    ("scale_0.3", dict(l=24, seed=7), False, 0.3, torch.float32),
+    ("bf16_causal", dict(seed=3), True, None, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("name,shape,causal,scale,dtype", GRAD_CASES, ids=[c[0] for c in GRAD_CASES])
+def test_gradients_match_jax(name, shape, causal, scale, dtype):
+    """dq, dk, dv of sum(out * w): the port's autograd on the CPU vs
+    ``jax.grad`` through the reference's ``custom_vjp`` (the Pallas forward
+    in interpret mode, the dense recompute backward). Both differentiate
+    the dense f32 softmax: f32 to 1e-5; bf16 (inputs, output and gradients
+    each rounded once) to 3e-2, the bf16 forward's tolerance."""
+    arrays = _qkv(**shape)
+    if dtype == torch.bfloat16:
+        arrays = [np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32)) for a in arrays]
+    w = np.random.default_rng(99).standard_normal(arrays[0].shape).astype(np.float32)
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+
+    def loss(q, k, v):
+        out = jax_flash_attention(q, k, v, causal=causal, scale=scale, block_q=16, block_k=16)
+        return jnp.sum(out.astype(jnp.float32) * w)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a, jdtype) for a in arrays))
+    q, k, v = (torch.from_numpy(a).to(dtype).requires_grad_(True) for a in arrays)
+    (flash_attention(q, k, v, causal=causal, scale=scale).float() * torch.from_numpy(w)).sum().backward()
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=3e-2, rtol=3e-2)
+    for got, ref in zip((q.grad, k.grad, v.grad), want):
+        assert got.dtype == dtype and got.shape == q.shape
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), **tol)
 
 
 def test_rejects_bad_rank_and_mismatched_shapes():

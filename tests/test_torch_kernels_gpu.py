@@ -426,42 +426,59 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
         dot_interaction_bwd(x, torch.zeros((4, 2), device=cuda))
 
 
-def _train_pair(device_pooling, wire_dtype, steps):
-    """The flagship-shaped TrainCtx (4 single-id + 1 raw slot, 2 replicas)
-    on the card and on the CPU from the same weights and batches."""
+def _flagship_cfg():
     from persia_tpu_torch.config import EmbeddingConfig, SlotConfig
+
+    slots = {f"cat_{i}": SlotConfig(dim=16) for i in range(4)}
+    slots["hist"] = SlotConfig(dim=16, embedding_summation=False, sample_fixed_size=8)
+    return EmbeddingConfig(slots_config=slots, feature_index_prefix_bit=8)
+
+
+def _flagship_ctx(device, device_pooling=True, wire_dtype=None, backend="numpy"):
+    """The flagship-shaped TrainCtx (4 single-id + 1 raw slot, 2 replicas,
+    f32 compute) from seeded weights; its stores."""
     from persia_tpu_torch.ctx import TrainCtx
-    from persia_tpu_torch.data import IDTypeFeature, Label, NonIDTypeFeature, PersiaBatch
+    from persia_tpu_torch.embedding.native_store import create_store
     from persia_tpu_torch.embedding.optim import Adagrad
-    from persia_tpu_torch.embedding.store import EmbeddingStore
     from persia_tpu_torch.embedding.worker import EmbeddingWorker
     from persia_tpu_torch.models import DLRM
     from persia_tpu_torch.weights import dlrm_state_dict_from_flax, seeded_flax_params_like
 
-    slots = {f"cat_{i}": SlotConfig(dim=16) for i in range(4)}
-    slots["hist"] = SlotConfig(dim=16, embedding_summation=False, sample_fixed_size=8)
-    cfg = EmbeddingConfig(slots_config=slots, feature_index_prefix_bit=8)
-    out, sd = {}, None
+    cfg = _flagship_cfg()
+    model = DLRM(13, 5, 16, (32, 16), (64, 32), compute_dtype=torch.float32, device="cpu")
+    model.load_state_dict(dlrm_state_dict_from_flax(seeded_flax_params_like(model, 2)))
+    stores = [create_store(backend, capacity=1 << 16, num_internal_shards=4, seed=3) for _ in range(2)]
+    worker = EmbeddingWorker(cfg, stores, device_pooling=device_pooling)
+    ctx = TrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3), Adagrad(lr=0.1), worker, cfg,
+                   device=device, wire_dtype=wire_dtype).__enter__()
+    return ctx, stores
+
+
+def _flagship_batches(n, b=256, seed=0):
+    from persia_tpu_torch.data import IDTypeFeature, Label, NonIDTypeFeature, PersiaBatch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        feats = [IDTypeFeature(f"cat_{i}", [rng.integers(0, 300, 1, dtype=np.uint64) for _ in range(b)])
+                 for i in range(4)]
+        feats.append(IDTypeFeature("hist", [rng.integers(0, 64, rng.integers(0, 8), dtype=np.uint64)
+                                            for _ in range(b)]))
+        out.append(PersiaBatch(feats, non_id_type_features=[NonIDTypeFeature(rng.normal(size=(b, 13)).astype(np.float32))],
+                               labels=[Label(rng.integers(0, 2, (b, 1)).astype(np.float32))], requires_grad=True))
+    return out
+
+
+def _train_pair(device_pooling, wire_dtype, steps):
+    """The flagship-shaped TrainCtx on the card and on the CPU from the
+    same weights and batches."""
+    out = {}
     for device in (None, "cpu"):
-        model = DLRM(13, 5, 16, (32, 16), (64, 32), compute_dtype=torch.float32, device="cpu")
-        sd = sd or dlrm_state_dict_from_flax(seeded_flax_params_like(model, 2))
-        model.load_state_dict(sd)
-        stores = [EmbeddingStore(capacity=1 << 16, num_internal_shards=4, seed=3) for _ in range(2)]
-        worker = EmbeddingWorker(cfg, stores, device_pooling=device_pooling)
-        ctx = TrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3), Adagrad(lr=0.1), worker, cfg,
-                       device=device, wire_dtype=wire_dtype).__enter__()
-        rng = np.random.default_rng(0)
+        ctx, stores = _flagship_ctx(device, device_pooling, wire_dtype)
         losses = []
-        for _ in range(steps):
-            b = 256
-            feats = [IDTypeFeature(f"cat_{i}", [rng.integers(0, 300, 1, dtype=np.uint64) for _ in range(b)])
-                     for i in range(4)]
-            feats.append(IDTypeFeature("hist", [rng.integers(0, 64, rng.integers(0, 8), dtype=np.uint64)
-                                                for _ in range(b)]))
-            batch = PersiaBatch(feats, non_id_type_features=[NonIDTypeFeature(rng.normal(size=(b, 13)).astype(np.float32))],
-                                labels=[Label(rng.integers(0, 2, (b, 1)).astype(np.float32))], requires_grad=True)
+        for batch in _flagship_batches(steps):
             losses.append(ctx.train_step(batch)["loss"])
-            assert worker.staleness == 0
+            assert ctx.worker.staleness == 0
         out[device] = (ctx, losses, stores)
     return out
 
@@ -520,3 +537,78 @@ def test_dlrm_backward_on_card_reaches_the_embeddings(cuda, compute_dtype):
             torch.testing.assert_close(g_card.cpu(), g_cpu, rtol=1e-4, atol=1e-5)
         else:
             assert float((g_card.cpu() - g_cpu).norm() / g_cpu.norm()) < 1e-1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal,scale", [(False, None), (True, None), (False, -0.2)])
+def test_flash_attention_backward_on_card_matches_cpu(cuda, dtype, causal, scale):
+    """The card's output has a grad_fn, and its q, k, v gradients (the dense
+    recompute, launching no kernel) match the CPU port's at the route
+    tolerance; a negative scale is differentiated as the caller gave it,
+    not as the launch rewrote it."""
+    shape = (2, 200, 3, 64)
+    host = [_randn(shape, seed=40 + i, dev="cpu", dtype=dtype) for i in range(3)]
+    w = _randn(shape, seed=50, dev="cpu")
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [x.to(dev).requires_grad_(True) for x in host]
+        before = flash_attention.launches
+        out = flash_attention(*leaves, causal=causal, scale=scale)
+        assert out.requires_grad and (out.grad_fn is not None)
+        (out.float() * w.to(dev)).sum().backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert flash_attention.launches == before + 1
+        grads[dev.type] = [l.grad for l in leaves]
+    rtol, atol = route_tolerance(host[2])
+    for g_card, g_cpu in zip(grads["cuda"], grads["cpu"]):
+        assert g_card.dtype == dtype and bool(torch.isfinite(g_card.float()).all())
+        torch.testing.assert_close(g_card.cpu().float(), g_cpu.float(), rtol=rtol, atol=atol)
+
+
+def test_pipelined_loader_on_card_with_native_cores(cuda):
+    """The DataLoader on the card with the native store and worker and four
+    lookup threads (staging on their own streams): every loss finite,
+    every kernel of the step launched once a step, the window whole after
+    flush. Then reproducible with staleness 1 against ``train_step`` on the
+    same batches: the same losses and PS entries within 1e-5."""
+    from persia_tpu_torch.data_loader import DataLoader
+    from persia_tpu_torch.embedding import native_worker
+    from persia_tpu_torch.embedding.native_store import store_backend_name
+    from persia_tpu_torch.embedding.worker import preprocess_batch
+
+    assert native_worker.available()
+    ctx, stores = _flagship_ctx(None, wire_dtype="bfloat16", backend="native")
+    assert all(store_backend_name(s) == "native" for s in stores)
+    before = dot_interaction.launches, gather_pool_bwd.launches
+    loader = DataLoader(iter(_flagship_batches(12)), ctx, num_workers=4, staleness=4)
+    for tb in loader:
+        ctx.train_step_prepared(tb, loader, fetch_metrics=False)
+    loader.flush()
+    assert np.isfinite(ctx.last_prepared_metrics()["loss"])
+    assert (dot_interaction.launches - before[0], gather_pool_bwd.launches - before[1]) == (12, 12)
+    assert ctx.worker.staleness == 0
+    assert loader.staleness_state() == {"outstanding_gradient_batches": 0, "free_permits": 4, "staleness": 4}
+    loader.shutdown()
+
+    batches = _flagship_batches(4, seed=1)
+    sync, sync_stores = _flagship_ctx(None, wire_dtype="bfloat16", backend="native")
+    want = [sync.train_step(b)["loss"] for b in batches]
+    pipe, pipe_stores = _flagship_ctx(None, wire_dtype="bfloat16", backend="native")
+    loader = DataLoader(iter(batches), pipe, num_workers=4, staleness=1, reproducible=True)
+    got = [pipe.train_step_prepared(tb, loader)["loss"] for tb in loader]
+    loader.flush()
+    loader.shutdown()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    signs = np.unique(np.concatenate([s.keys for b in batches
+                                      for s in preprocess_batch(b.id_type_features, _flagship_cfg())]))
+    assert [s.size() for s in pipe_stores] == [s.size() for s in sync_stores]
+    rows = 0
+    for a, b in zip(pipe_stores, sync_stores):
+        for sign in signs.tolist():
+            ea, eb = a.get_embedding_entry(sign), b.get_embedding_entry(sign)
+            assert (ea is None) == (eb is None)
+            if ea is not None:
+                np.testing.assert_allclose(ea, eb, rtol=0, atol=1e-5)
+                rows += 1
+    assert rows == sum(s.size() for s in sync_stores) > 0

@@ -30,9 +30,14 @@ def _imported_roots(path: pathlib.Path):
             yield node.module.split(".")[0], node.lineno
 
 
+NATIVE_MODULES = ("data_loader.py", "embedding/_native_build.py", "embedding/native_store.py",
+                  "embedding/native_worker.py")
+
+
 def test_port_sources_import_no_jax_and_no_reference():
     files = _port_files()
     assert len(files) > 10 and all(f.exists() for f in files)
+    assert all(PORT / m in files for m in NATIVE_MODULES)
     bad = [
         f"{f.relative_to(ROOT)}:{line} imports {root}"
         for f in files
@@ -104,3 +109,14 @@ def test_train_ctx_raises_without_a_card():
     with pytest.raises(ValueError):
         TrainCtx(model, opt, Adagrad(), worker, cfg, device="cpu", wire_dtype="float16")
     assert TrainCtx(model, opt, Adagrad(), worker, cfg, device="cpu").device == torch.device("cpu")
+
+
+def test_native_cores_are_the_ports_own_copies():
+    """The host cores build from ``persia_tpu_torch/native`` (not the
+    reference's ``native/``) into a directory git ignores."""
+    from persia_tpu_torch.embedding import _native_build
+
+    assert _native_build.NATIVE_SRC == PORT / "native"
+    assert {p.name for p in _native_build.NATIVE_SRC.glob("*.cpp")} == {"ps.cpp", "worker.cpp"}
+    rel = _native_build.BUILD_DIR.relative_to(ROOT).as_posix()
+    assert rel + "/" in (ROOT / ".gitignore").read_text().split()

@@ -6,8 +6,10 @@ Both sides train the same 5 batches from the same weights and compare the
 per-step loss and predictions, the final dense parameters, and every PS
 entry (embedding and optimizer state), store sizes and staleness.
 
-The reference worker runs its numpy dedup (the sorted order the port
-copies). Tolerances: f32 compute and an f32 wire, 1e-5 relative (sums in
+Every test runs twice: with both packages' workers on their numpy
+routines (dedup in sorted order), and with both on their native cores
+(dedup in first-seen order, which also orders the stores' LRU).
+Tolerances: f32 compute and an f32 wire, 1e-5 relative (sums in
 other orders); a bf16 wire rounds the rows and gradients that cross it,
 so entries to 1e-3 and dense parameters to 1e-4 (a gradient one bf16 ulp
 apart moves an Adam step by up to its relative size); bf16 compute (with
@@ -37,6 +39,7 @@ from persia_tpu.parallel.train_step import LossScaleState as JaxLossScale
 from persia_tpu.parallel.train_step import TrainState as JaxTrainState
 import persia_tpu_torch.config as tcfg
 from persia_tpu_torch.ctx import TrainCtx
+from persia_tpu_torch.embedding import native_worker as tnative_worker
 from persia_tpu_torch.embedding import optim as toptim
 from persia_tpu_torch.embedding.store import EmbeddingStore
 from persia_tpu_torch.embedding.worker import EmbeddingWorker
@@ -69,9 +72,15 @@ def _batch(seed, b=16):
     )
 
 
-@pytest.fixture(autouse=True)
-def numpy_dedup(monkeypatch):
-    monkeypatch.setattr(native_worker, "_load_lib", lambda: None)
+@pytest.fixture(autouse=True, params=["numpy", "native"])
+def worker_core(request, monkeypatch):
+    """Both workers on their numpy routines, or both on their native cores."""
+    if request.param == "numpy":
+        monkeypatch.setattr(native_worker, "_load_lib", lambda: None)
+        monkeypatch.setattr(tnative_worker, "_load_lib", lambda: None)
+    else:
+        assert native_worker.available() and tnative_worker.available()
+    return request.param
 
 
 def _pair(device_pooling=True, wire_dtype=None, compute=torch.float32, sparse="adagrad",

@@ -1,6 +1,7 @@
 """The port's host plane vs ``persia_tpu``'s: batch wire format, hashing and
 seeded init, store admission, and ``EmbeddingWorker.forward_directly`` — all
-integer and float arrays bitwise equal."""
+integer and float arrays bitwise equal, with both workers on their numpy
+routines and with both on their native cores."""
 
 import dataclasses
 
@@ -17,6 +18,7 @@ from persia_tpu.embedding.worker import EmbeddingWorker as JaxWorker
 import persia_tpu_torch.config as tcfg
 import persia_tpu_torch.data as tdata
 from persia_tpu_torch.embedding import hashing as thashing
+from persia_tpu_torch.embedding import native_worker as tnative_worker
 from persia_tpu_torch.embedding.optim import Adagrad
 from persia_tpu_torch.embedding.store import EmbeddingStore
 from persia_tpu_torch.embedding.worker import EmbeddingWorker
@@ -59,12 +61,17 @@ def _jax_batch(seed, b=24):
     )
 
 
-@pytest.fixture
-def jax_numpy_worker(monkeypatch):
-    """Run the reference worker on its numpy golden routines, which the port
-    copies: the reference's optional native core dedups in first-seen order
-    instead of sorted (its tests hold the two equal up to that order)."""
-    monkeypatch.setattr(native_worker, "_load_lib", lambda: None)
+@pytest.fixture(params=["numpy", "native"])
+def worker_core(request, monkeypatch):
+    """Both workers on their numpy routines (dedup sorted), or both on their
+    native cores (dedup in first-seen order): the two orders differ, so
+    the packages are held to each other one core at a time."""
+    if request.param == "numpy":
+        monkeypatch.setattr(native_worker, "_load_lib", lambda: None)
+        monkeypatch.setattr(tnative_worker, "_load_lib", lambda: None)
+    else:
+        assert native_worker.available() and tnative_worker.available()
+    return request.param
 
 
 def _assert_same(a_list, b_list):
@@ -143,7 +150,7 @@ def test_store_lookup_bitwise(admit):
 
 @pytest.mark.parametrize("device_pooling", [False, True])
 @pytest.mark.parametrize("replicas", [1, 2])
-def test_forward_directly_bitwise(jax_numpy_worker, device_pooling, replicas):
+def test_forward_directly_bitwise(worker_core, device_pooling, replicas):
     jc, tc = _configs()
     mk = dict(capacity=1 << 12, num_internal_shards=4, seed=3)
     jw = JaxWorker(jc, [JaxStore(optimizer=JaxAdagrad(lr=0.1).config, **mk) for _ in range(replicas)],

@@ -3,11 +3,11 @@
 return (``put_forward_ids`` → ``forward_batch_id`` →
 ``update_gradient_batched`` / ``abort_gradient``) with its staleness count.
 
-Both workers preprocess with the reference's numpy dedup (sorted order,
-the one the port copies). The host-pooled accumulation is ``np.add.at`` in
-the port; the reference's native core sums in its own order, so with it
-the per-key gradients agree to 1e-6, and bit for bit without it. Keys and
-every integer are exact."""
+Every test runs with both workers on their numpy routines (dedup sorted,
+``np.add.at``) and with both on their native cores (dedup in first-seen
+order, the native accumulation, which adds in ``np.add.at``'s order).
+Keys, every integer and the per-key gradients are exact; the stores'
+entries are held to 1e-6."""
 
 import numpy as np
 import pytest
@@ -20,6 +20,7 @@ from persia_tpu.embedding.optim import Adam as JaxAdam
 from persia_tpu.embedding.store import EmbeddingStore as JaxStore
 import persia_tpu_torch.config as tcfg
 import persia_tpu_torch.data as tdata
+from persia_tpu_torch.embedding import native_worker as tnative_worker
 from persia_tpu_torch.embedding import worker as tworker
 from persia_tpu_torch.embedding.optim import Adam
 from persia_tpu_torch.embedding.store import EmbeddingStore
@@ -61,10 +62,15 @@ def _batch(seed, b=24):
     )
 
 
-@pytest.fixture
-def numpy_dedup(monkeypatch):
-    monkeypatch.setattr(native_worker, "_load_lib", lambda: None)
-    return monkeypatch
+@pytest.fixture(params=["numpy", "native"])
+def worker_core(request, monkeypatch):
+    """Both workers on their numpy routines, or both on their native cores."""
+    if request.param == "numpy":
+        monkeypatch.setattr(native_worker, "_load_lib", lambda: None)
+        monkeypatch.setattr(tnative_worker, "_load_lib", lambda: None)
+    else:
+        assert native_worker.available() and tnative_worker.available()
+    return request.param
 
 
 def _grad_for(slot, device_pooled, rng):
@@ -73,16 +79,13 @@ def _grad_for(slot, device_pooled, rng):
     return rng.standard_normal((rows, slot.config.dim)).astype(np.float32)
 
 
-@pytest.mark.parametrize("native_accum", [False, True])
 @pytest.mark.parametrize("device_pooled", [False, True])
 @pytest.mark.parametrize("scale", [1.0, 8.0])
-def test_slot_gradient_to_keys(numpy_dedup, native_accum, device_pooled, scale):
+def test_slot_gradient_to_keys(worker_core, device_pooled, scale):
     jc, tc = _configs()
     batch = _batch(1)
     jslots = jworker.preprocess_batch(batch.id_type_features, jc).slots
     tslots = tworker.preprocess_batch(tdata.PersiaBatch.from_bytes(batch.to_bytes()).id_type_features, tc)
-    if native_accum:
-        numpy_dedup.undo()  # the reference accumulates in its native core where built
     rng = np.random.default_rng(2)
     for js, ts in zip(jslots, tslots):
         np.testing.assert_array_equal(js.keys, ts.keys)
@@ -90,16 +93,13 @@ def test_slot_gradient_to_keys(numpy_dedup, native_accum, device_pooled, scale):
         a = jworker.slot_gradient_to_keys(js, grad, scale, device_pooled=device_pooled)
         b = tworker.slot_gradient_to_keys(ts, grad, scale, device_pooled=device_pooled)
         assert b.dtype == np.float32 and b.shape == a.shape == (len(ts.keys), ts.config.dim)
-        if native_accum:
-            np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-6)
-        else:
-            np.testing.assert_array_equal(b, a)
+        np.testing.assert_array_equal(b, a)
         grad[0, 0] = np.nan  # a non-finite value skips the whole slot
         assert jworker.slot_gradient_to_keys(js, grad, scale, device_pooled=device_pooled) is None
         assert tworker.slot_gradient_to_keys(ts, grad, scale, device_pooled=device_pooled) is None
 
 
-def test_slot_gradient_rejects_wrong_row_count(numpy_dedup):
+def test_slot_gradient_rejects_wrong_row_count(worker_core):
     _, tc = _configs()
     ts = tworker.preprocess_batch(tdata.PersiaBatch.from_bytes(_batch(1).to_bytes()).id_type_features, tc)[3]
     with pytest.raises(ValueError):
@@ -131,7 +131,7 @@ def _grads(emb_batches, rng, nan_slot=None):
 
 @pytest.mark.parametrize("device_pooling", [False, True])
 @pytest.mark.parametrize("replicas", [1, 2])
-def test_update_gradient_batched_and_staleness(numpy_dedup, device_pooling, replicas):
+def test_update_gradient_batched_and_staleness(worker_core, device_pooling, replicas):
     """Three batches: the second aborted, the others updated (one with a
     non-finite slot, skipped on both sides). Stores, staleness, refs and
     Adam's per-group batch advances agree."""
@@ -167,7 +167,7 @@ def test_update_gradient_batched_and_staleness(numpy_dedup, device_pooling, repl
                 np.testing.assert_allclose(tr.get_embedding_entry(sign), vec, rtol=1e-6, atol=1e-7)
 
 
-def test_forward_directly_keeps_no_training_state(numpy_dedup):
+def test_forward_directly_keeps_no_training_state(worker_core):
     _, tw = _worker_pair(True, 1)
     tw.forward_directly(tdata.PersiaBatch.from_bytes(_batch(1).to_bytes()), train=True)
     assert tw.staleness == 0 and not tw.post_forward_buffer and not tw.forward_id_buffer
