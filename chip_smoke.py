@@ -20,6 +20,14 @@ result line:
    counts, f32 rows of dim 8, 24 and 10, a group of 70 slots), the
    backward's bitwise determinism and, without counts, its sums bit for
    bit against ``plans.pool_bwd_model`` (its own order, in numpy);
+   (3b) the fused tier's kernels: K4 ``fused_gather`` bit for bit against
+   its plain version (stacked at the bench shape on uniform and zipf(1.2)
+   ids with pads and ids past the vocab, a bf16 table with a pooled (B, 5)
+   slot, unstacked with NaN rows, dim 10), K5 ``sparse_update`` bit for bit
+   against its plain version on the CPU (SGD, Adagrad, Adagrad vectorwise,
+   all with weight decay, and Adam, on uniform, zipf(1.2) and one-row
+   streams with pads; the bench's 26 stacked tables with Adagrad(0.05); a
+   bf16 table);
 4. the paths, each with the launch counts set to 0 just before and read
    just after: (a) the flash-attention entry point at (B=4, L=1024, H=8,
    D=64) in bf16 and in f32, causal and not, and its backward (a dense
@@ -40,7 +48,17 @@ result line:
    batches after 2 synchronous warm-up steps, the window whole after
    ``flush``, and 4 batches with ``reproducible=True, staleness=1`` held to
    ``train_step`` on the same batches. Phases 4b-4d fail unless the native
-   cores build (``g++``) and serve them: no numpy fallback;
+   cores build (``g++``) and serve them: no numpy fallback; (e) the fused
+   all-on-card tier at the bench's configuration (``bench.py:100-221``: 26
+   stacked tables of 1M x 16 f32 with their Adagrad(0.05) state on the
+   card, Adam(1e-3), B=4096, uniform ids): the CUDA-graph step held bit for
+   bit to the eager step over 5 steps from one state, its first 3 losses,
+   the rows they touched and what the steps changed in them held to the
+   CPU port's from a copy of the state, 100 timed graph steps, synced
+   steps, 100 eager steps (the counted run: a graph replay goes through no
+   wrapper; K4 and K5 once a step), a zipf(1.2) stream, the card's busy time a graph step and its kernels' runs from
+   the device trace (K4 and K5 once a step), and
+   ``FusedTrainCtx.train_pipelined`` (depth 2) over 32 batches;
 5. timings of each kernel beside its plain version, the library call that
    computes the same function, and the card's bound, each by CUDA-graph
    replay (host enqueue cost out of the number; eager times beside them):
@@ -50,8 +68,11 @@ result line:
    backward at the training path's own inputs, warm and also cold (inputs
    rotated through more than the 50 MB L2, one copy per captured call,
    beside their library calls); the serving latency and throughput; the
-   training throughput and stage breakdown; and (5b) the flash-attention
-   backward, a dense recompute, beside SDPA's backward.
+   training throughput and stage breakdown; K4 and K5 at the fused path's
+   inputs, warm and cold (fresh batches rotated over the 1.66 GB table;
+   K5 on uniform and zipf(1.2) ids, ``torch.sort``'s time beside it);
+   and (5b) the flash-attention backward, a dense recompute, beside SDPA's
+   backward.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -225,8 +246,10 @@ def zipf_batch_maker(seed, labels=False):
 def device_busy_ms(step, batches):
     """Kernel time per call of ``step`` summed by torch.profiler over the
     device's own events (kernels and copies; user annotations such as the
-    optimizer's range, which span kernels, are left out), and the largest
-    ones (names cut to 80 chars)."""
+    optimizer's range, which span kernels, are left out), the largest
+    ones (names cut to 80 chars), and how many times each of the port's
+    kernels (``KERNEL_NAMES``) ran in all: the device's own count, which a
+    CUDA graph's replays (which go through no wrapper) also show."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -236,20 +259,24 @@ def device_busy_ms(step, batches):
             step(b)
         torch.cuda.synchronize()
     per = {}
+    runs = dict.fromkeys(KERNEL_NAMES, 0)
     for e in prof.events():
         if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
         per[e.name[:80]] = per.get(e.name[:80], 0.0) + e.time_range.elapsed_us() / 1e3 / len(batches)
+        for k in KERNEL_NAMES:
+            runs[k] += bool(re.search(rf"\b{k}\b", e.name))
     if not sum(per.values()):
-        return None, {}
+        return None, {}, runs
     top = dict(sorted(per.items(), key=lambda kv: -kv[1])[:8])
-    return sum(per.values()), top
+    return sum(per.values()), top, runs
 
 
 KERNEL_NAMES = ("fa_fwd_wgmma_kernel", "fa_fwd_tf32x3_kernel", "tf32_split_kernel",
                 "dot_interaction_mma_kernel", "dot_interaction_kernel",
                 "dot_interaction_bwd_mma_kernel", "dot_interaction_bwd_kernel",
-                "gather_pool_fwd_kernel", "gather_pool_bwd_chunks_kernel", "gather_pool_bwd_rows_kernel")
+                "gather_pool_fwd_kernel", "gather_pool_bwd_chunks_kernel", "gather_pool_bwd_rows_kernel",
+                "fused_gather_kernel", "sparse_update_kernel")
 # SASS counted per kernel: Hopper's matrix and TMA instructions, and the
 # 16-byte global loads and stores (and the shuffles) of the gather-pool
 SASS_OPS = {"HGMMA": r"\bHGMMA\b", "UTMALDG": r"\bUTMALDG\b", "UTMASTG": r"\bUTMASTG\b",
@@ -259,14 +286,25 @@ DOT_REPLACES = "persia_tpu/models/dlrm.py:50"
 POOL_REPLACES = "persia_tpu/parallel/train_step.py:81"
 
 
+def _template_arg(t) -> str:
+    if t.group(0).startswith("13"):
+        return "bf16"
+    if t.group(1):
+        return t.group(1)
+    if t.group(2):
+        return "vec4" if t.group(2) == "1" else "vec1"
+    if t.group(3):
+        return f"uint{t.group(3)}"
+    return "f32"
+
+
 def kernel_label(mangled: str):
     """'fa_fwd_wgmma_kernel<64>' from a mangled kernel name, or None."""
     for name in KERNEL_NAMES:
         if name + "I" in mangled:
             args = mangled.split(name + "I", 1)[1].split("EEv", 1)[0]
-            tokens = re.finditer(r"13__nv_bfloat16|Li(\d+)E|f", args)
-            parts = ["bf16" if t.group(0)[0] == "1" else (t.group(1) or "f32") for t in tokens]
-            return f"{name}<{','.join(parts)}>"
+            tokens = re.finditer(r"13__nv_bfloat16|Li(\d+)E|Lb([01])E|5uint([24])|f", args)
+            return f"{name}<{','.join(map(_template_arg, tokens)) or args}>"
     return None
 
 
@@ -683,7 +721,7 @@ def path_serving(dev):
                         ("forward", t3, t4), ("d2h", t4, t5)):
             stages[k].append((b - a) * 1e3)
         stages["forward_stream"].append(ev0.elapsed_time(ev1))
-    busy_ms, top_kernels = device_busy_ms(eval_step, device_batches)
+    busy_ms, top_kernels, _ = device_busy_ms(eval_step, device_batches)
 
     # the same engine on the CPU (plain versions); bf16 rounds at other
     # points there, probabilities (sigmoid slope <= 1/4) agree to 2e-2
@@ -847,7 +885,7 @@ def path_training(dev):
     for b in staged[TRAIN_STAGED:]:
         refs.append(worker.put_forward_ids(b))
         device_batches.append(ctx.prepare_features(b, worker.forward_batch_id(refs[-1]), csr=True)[0])
-    busy_ms, top_kernels = device_busy_ms(ctx.run_step, device_batches)
+    busy_ms, top_kernels, _ = device_busy_ms(ctx.run_step, device_batches)
     for ref in refs:
         worker.abort_gradient(ref)
     if worker.staleness != 0 or not all(np.isfinite(losses)):
@@ -1078,6 +1116,389 @@ def path_pipelined(dev):
     }
 
 
+K4_SOURCE, K4_REPLACES = "persia_tpu_torch/csrc/fused_gather.cu", "persia_tpu/parallel/fused_step.py:242"
+K5_SOURCE, K5_REPLACES = "persia_tpu_torch/csrc/sparse_update.cu", "persia_tpu/ops/sparse_update.py:123"
+
+
+def same_bits(a, b) -> bool:
+    """Bit-for-bit equality of two tensors (NaNs included)."""
+    import torch
+
+    a, b = a.detach().reshape(-1), b.detach().reshape(-1)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    return torch.equal(a.cpu().view(torch.uint8), b.cpu().view(torch.uint8))
+
+
+def fused_ids(rng, kind, n, vocab):
+    """n ids in [0, vocab): uniform, zipf(1.2) (rank 1 at id 0) or one row."""
+    if kind == "uniform":
+        ids = rng.integers(0, vocab, n)
+    elif kind == "zipf":
+        ids = (rng.zipf(1.2, n) - 1) % vocab
+    else:
+        ids = np.full(n, vocab // 3)
+    return ids.astype(np.int32)
+
+
+def phase_fused_kernels(dev):
+    """Phase 3b: K4 and K5 against their plain versions at bench shapes."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.embedding.optim import SGD, Adagrad, Adam
+    from persia_tpu_torch.ops.fused_gather import fused_gather_reference
+    from persia_tpu_torch.ops.sparse_update import init_sparse_state, sparse_update_reference
+
+    print("== phase 3b: fused-tier kernels vs their plain versions", flush=True)
+    rng = np.random.default_rng(SEED + 5)
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def slot_ids(kind, shape, vocab=VOCAB):
+        ids = fused_ids(rng, kind, int(np.prod(shape)), vocab)
+        ids[rng.random(ids.size) < 0.05] = -1  # padding
+        ids[:3] = vocab + np.arange(3)  # past the slot's vocab
+        return torch.from_numpy(ids.reshape(shape)).to(dev)
+
+    # K4 copies rows: it must equal its plain version bit for bit (NaNs too)
+    table = torch.randn((N_SLOTS * VOCAB, EMB_DIM), device=dev, generator=g)
+    offsets = [s * VOCAB for s in range(N_SLOTS)]
+    narrow = torch.randn((3 * 1000, 10), device=dev, generator=g)
+    cases = [
+        ("bench: 26 stacked slots, uniform", table, [slot_ids("uniform", (BATCH,)) for _ in range(N_SLOTS)],
+         offsets, VOCAB, True),
+        ("bench: 26 stacked slots, zipf(1.2)", table, [slot_ids("zipf", (BATCH,)) for _ in range(N_SLOTS)],
+         offsets, VOCAB, True),
+        ("bf16 table, 3 single-id slots and a pooled (B, 5) slot", table[:4 * VOCAB].to(torch.bfloat16),
+         [slot_ids("uniform", (BATCH,)) for _ in range(3)] + [slot_ids("zipf", (BATCH, 5))], offsets[:4], VOCAB,
+         True),
+        ("unstacked f32 (NaN past the vocab)", table[:VOCAB], [slot_ids("uniform", (BATCH,))], [0], VOCAB, False),
+        ("unstacked bf16 (B, 3)", table[:VOCAB].to(torch.bfloat16), [slot_ids("zipf", (BATCH, 3))], [0], VOCAB,
+         False),
+        ("dim 10 (4-byte vectors), 3 slots", narrow, [slot_ids("uniform", (777,), 1000) for _ in range(3)],
+         [0, 1000, 2000], 1000, True),
+    ]
+    for label, tbl, ids, offs, vocab, stacked in cases:
+        vocabs = [vocab] * len(ids)
+        out = ops.fused_gather(tbl, ids, offs, vocabs, stacked)
+        ref = fused_gather_reference(tbl, ids, offs, vocabs, stacked)
+        torch.cuda.synchronize()
+        ok = same_bits(out, ref)
+        print(f"  fused_gather {label}: {out.shape[0]} rows ({int(out.isnan().any(1).sum())} NaN): "
+              f"max_abs_err=0 tolerance=0 (bitwise) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"fused_gather {label} disagrees with its plain version")
+    del table, cases
+
+    # K5 sums each row's gradients in sorted order, as the plain version on
+    # the CPU does (index_add_ in index order), and rounds every operation
+    # once, as the plain version does: the two must agree bit for bit. The
+    # plain version on the card sums with index_add_'s atomics, in another
+    # order: its difference is printed, not held
+    n = N_SLOTS * BATCH
+    adagrad = Adagrad(lr=0.05).config
+    k5 = [("bench: 26 stacked slots of 1M, Adagrad(0.05), uniform", adagrad, "uniform", True, torch.float32),
+          ("bench: 26 stacked slots of 1M, Adagrad(0.05), zipf(1.2)", adagrad, "zipf", True, torch.float32),
+          ("bf16 table, Adagrad(0.05), zipf(1.2)", adagrad, "zipf", False, torch.bfloat16)]
+    for name, opt in (("SGD(0.1, wd 0.01)", SGD(lr=0.1, weight_decay=0.01)),
+                      ("Adagrad(0.05, momentum 0.95, wd 0.01)",
+                       Adagrad(lr=0.05, g_square_momentum=0.95, weight_decay=0.01)),
+                      ("Adagrad vectorwise(0.05, wd 0.01)", Adagrad(lr=0.05, vectorwise_shared=True, weight_decay=0.01)),
+                      ("Adam(0.01, wd 0.1 ignored), powers at t=3", Adam(lr=0.01, weight_decay=0.1))):
+        for kind in ("uniform", "zipf", "one_row"):
+            k5.append((f"{name}, {kind}", opt.config, kind, False, torch.float32))
+    errs = {"fused_gather": 0.0}
+    for label, cfg, kind, bench, dtype in k5:
+        vocab = N_SLOTS * VOCAB if bench else VOCAB
+        if bench:  # each slot's ids in its own rows of the stacked table
+            ids = np.concatenate([fused_ids(rng, kind, BATCH, VOCAB) + s * VOCAB for s in range(N_SLOTS)])
+        else:
+            ids = fused_ids(rng, kind, n, vocab)
+        ids[rng.random(n) < 0.05] = -1  # masked padding
+        ids[:3] = vocab + 1  # live past the table: dropped
+        idt = torch.from_numpy(ids.astype(np.int32)).to(dev)
+        mask = idt >= 0
+        grads = torch.randn((n, EMB_DIM), device=dev, generator=g) * 0.1
+        tbl = (torch.randn((vocab, EMB_DIM), device=dev, generator=g) * 0.05).to(dtype)
+        st = init_sparse_state(cfg, vocab, EMB_DIM, device=dev)
+        for k, v in st.items():
+            v.uniform_(0.01, 1.0, generator=g)
+        bs = torch.tensor([cfg.beta1 ** 3, cfg.beta2 ** 3], dtype=torch.float32, device=dev)
+        cpu_tbl, cpu_st = tbl.cpu(), {k: v.cpu() for k, v in st.items()}
+        plain_tbl, plain_st = tbl.clone(), {k: v.clone() for k, v in st.items()}
+        ops.sparse_update(cfg, tbl, st, idt, grads, bs, mask=mask)
+        sparse_update_reference(cfg, plain_tbl, plain_st, idt, grads, bs, mask=mask)
+        sparse_update_reference(cfg, cpu_tbl, cpu_st, idt.cpu(), grads.cpu(), bs.cpu(), mask=mask.cpu())
+        torch.cuda.synchronize()
+        ok = same_bits(tbl, cpu_tbl) and all(same_bits(st[k], cpu_st[k]) for k in st)
+        err = max([float((tbl.cpu().float() - cpu_tbl.float()).abs().max())]
+                  + [float((st[k].cpu() - cpu_st[k]).abs().max()) for k in st])
+        card_err = max([float((tbl.float() - plain_tbl.float()).abs().max())]
+                       + [float((st[k] - plain_st[k]).abs().max()) for k in st])
+        rows = int(torch.unique(idt[mask & (idt < vocab)]).numel())
+        print(f"  sparse_update {label}: {rows} rows touched; vs the plain version on the CPU: max_abs_err="
+              f"{err:.3e} tolerance=0 (bitwise) {'ok' if ok else 'FAIL'}; vs the plain version on the card "
+              f"(index_add_ atomics): {card_err:.3e}", flush=True)
+        if not ok:
+            raise SystemExit(f"sparse_update {label} disagrees with its plain version")
+        errs.setdefault("sparse_update", err)
+        del tbl, st, cpu_tbl, cpu_st, plain_tbl, plain_st
+    torch.cuda.empty_cache()
+    return errs
+
+
+FUSED_HOST_BATCHES, FUSED_CHECK, FUSED_TIMED, FUSED_SYNCED, FUSED_PROFILED, FUSED_PIPE = 8, 5, 100, 40, 8, 32
+# card against CPU after 3 fused steps, |delta_card - delta_cpu| / |delta_cpu|
+# over the touched rows: both run DLRM in bf16, whose roundings differ, and
+# read 7.2e-2 on the H100 (the accumulators do not move: Adagrad's 0.01
+# start absorbs g^2 ~ 1e-10); twice that still fails an update that did
+# nothing (1), half the step (0.5) or the wrong sign (2)
+FUSED_DELTA_RTOL = 0.15
+
+
+def fused_host_batches(seed, n, kind="uniform"):
+    """The bench's fused batches (``bench.py:122-139``): for each slot in
+    sorted order B int32 ids, uniform in [0, VOCAB) (or zipf(1.2) with a
+    per-slot shift), then normal dense features and 0/1 labels."""
+    rng = np.random.default_rng(seed)
+    names = sorted(f"cat_{i}" for i in range(N_SLOTS))
+    shift = dict(zip(names, rng.integers(0, VOCAB, N_SLOTS)))
+    out = []
+    for _ in range(n):
+        if kind == "uniform":
+            ids = {nm: rng.integers(0, VOCAB, BATCH, dtype=np.int32) for nm in names}
+        else:
+            ids = {nm: ((rng.zipf(1.2, BATCH) - 1 + shift[nm]) % VOCAB).astype(np.int32) for nm in names}
+        dense = rng.normal(size=(BATCH, N_DENSE)).astype(np.float32)
+        labels = rng.integers(0, 2, (BATCH, 1)).astype(np.float32)
+        out.append({"dense": [dense], "labels": [labels], "ids": ids})
+    return out
+
+
+def check_launches(path, launches, expected):
+    if launches != expected:
+        raise SystemExit(f"{path}: launches {launches}, expected {expected}")
+
+
+def fused_state_tensors(state):
+    """Every tensor a fused step updates."""
+    out = [p for p in state.model.parameters()]
+    for st in state.optimizer.state.values():
+        out.extend(v for v in st.values() if hasattr(v, "data_ptr"))
+    out.extend(state.tables.values())
+    for st in state.emb_state.values():
+        out.extend(st.values())
+    return out + [state.emb_batch_state, state.step]
+
+
+def path_fused(dev):
+    """Phase 4e: the fused all-on-card tier at bench width
+    (``bench.py:100-221``): ``build_fused_train_step`` as a CUDA-graph
+    step and eagerly, and ``FusedTrainCtx.train_pipelined``."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.data import IDTypeFeatureWithSingleID, Label, NonIDTypeFeature, PersiaBatch
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.models import DLRM
+    from persia_tpu_torch.parallel.fused_ctx import FusedTrainCtx
+    from persia_tpu_torch.parallel.fused_step import (
+        FusedSlotSpec, build_fused_train_step, fused_batch_to_device, group_stacked_specs, init_fused_state,
+    )
+    from persia_tpu_torch.weights import fused_state_from_flax, fused_state_to_flax
+
+    print(f"== phase 4e: fused training (26 stacked tables of 1M x 16 on the card, B={BATCH}, "
+          f"build_fused_train_step)", flush=True)
+    specs = {f"cat_{i}": FusedSlotSpec(vocab=VOCAB, dim=EMB_DIM) for i in range(N_SLOTS)}
+    cfg = Adagrad(lr=0.05).config
+    (group,) = group_stacked_specs(specs, sorted(specs))
+
+    def new_model(device):
+        m = DLRM(N_DENSE, N_SLOTS, EMB_DIM, BOTTOM, TOP, device=device,
+                 generator=torch.Generator().manual_seed(SEED))
+        return m, torch.optim.Adam(m.parameters(), lr=1e-3)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_fused_state(*new_model(dev), torch.Generator().manual_seed(SEED), specs, cfg, stack=True,
+                             device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    host = fused_host_batches(SEED + 30, FUSED_HOST_BATCHES)
+    zipf_host = fused_host_batches(SEED + 31, FUSED_HOST_BATCHES, "zipf")
+    graph_step = build_fused_train_step(cfg, specs, stack=True, jit=True)
+    eager_step = build_fused_train_step(cfg, specs, stack=True, jit=False)
+
+    def on_card(h):
+        return fused_batch_to_device(h, dev)
+
+    # the graph step against the eager step, FUSED_CHECK steps from one
+    # state, bit for bit; the rows the first steps touch kept for the CPU
+    manifest, arrays0 = fused_state_to_flax(state)
+    twin = fused_state_from_flax(manifest, arrays0, *new_model(dev), device=dev)
+    touched = torch.from_numpy(np.unique(np.concatenate(
+        [h["ids"][nm] + off for h in host[:TRAIN_CPU_STEPS] for nm, off in zip(group.slots, group.offsets)])))
+
+    def touched_rows(st):
+        return st.tables[group.name][touched.to(st.tables[group.name].device)].cpu()
+
+    init_rows = touched_rows(state)
+    g_losses, e_losses = [], []
+    for i in range(FUSED_CHECK):
+        b = on_card(host[i % FUSED_HOST_BATCHES])
+        state, (loss, _) = graph_step(state, b)
+        twin, (loss2, _) = eager_step(twin, b)
+        g_losses.append(loss)
+        e_losses.append(loss2)
+        if i + 1 == TRAIN_CPU_STEPS:
+            card_rows = touched_rows(state)
+    torch.cuda.synchronize()
+    same = same_bits(torch.stack(g_losses), torch.stack(e_losses)) and all(
+        same_bits(a, c) for a, c in zip(fused_state_tensors(state), fused_state_tensors(twin)))
+    g_losses = torch.stack(g_losses).cpu().tolist()
+    print(f"  graph step vs eager step, {FUSED_CHECK} steps from one state: losses {g_losses}; losses, "
+          f"tables, optimizer states and parameters bitwise {'ok' if same else 'FAIL'}", flush=True)
+    if not same:
+        raise SystemExit("fused path: the graph step and the eager step disagree")
+
+    # the same first steps on the CPU from a copy of the initial state
+    cpu_state = fused_state_from_flax(manifest, arrays0, *new_model("cpu"), device="cpu")
+    del arrays0
+    cpu_step = build_fused_train_step(cfg, specs, stack=True)
+    cpu_losses = []
+    for h in host[:TRAIN_CPU_STEPS]:
+        cpu_losses.append(float(cpu_step(cpu_state, fused_batch_to_device(h, "cpu"))[1][0]))
+    loss_err = max(abs(a - c) for a, c in zip(g_losses, cpu_losses))
+    cpu_rows = touched_rows(cpu_state)
+    row_err = float((card_rows - cpu_rows).abs().max())
+    # what the steps changed in the rows, card against CPU: the norm of the
+    # difference of the deltas over the norm of the CPU's delta (an update
+    # that did nothing reads 1, one that zeroed the rows far more)
+    delta_max = float((cpu_rows - init_rows).abs().max())
+    delta_err = float((card_rows - cpu_rows).norm() / (cpu_rows - init_rows).norm())
+    ok = loss_err <= 2e-2 and row_err <= 1e-2 and delta_err <= FUSED_DELTA_RTOL
+    print(f"  first {TRAIN_CPU_STEPS} losses card {g_losses[:TRAIN_CPU_STEPS]} cpu {cpu_losses}: "
+          f"max_abs_err={loss_err:.3e} tolerance=2e-2; the {touched.numel()} rows they touched: "
+          f"max_abs_err={row_err:.3e} tolerance=1e-2; their deltas (largest {delta_max:.3e}): "
+          f"|card - cpu| / |cpu| = {delta_err:.3e} tolerance={FUSED_DELTA_RTOL:g} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise SystemExit("fused path: card and CPU disagree")
+    del cpu_state, card_rows, cpu_rows, init_rows
+
+    def run(step, st, stream, n, synced=None):
+        """n steps over the host batches (staged each step, as the bench
+        stages them), then a synchronize; returns (state, seconds,
+        losses). ``synced`` gets each step's ms with a synchronize after
+        it."""
+        losses = []
+        t = time.perf_counter()
+        for i in range(n):
+            t1 = time.perf_counter()
+            st, (loss, _) = step(st, on_card(stream[i % len(stream)]))
+            losses.append(loss)
+            if synced is not None:
+                torch.cuda.synchronize()
+                synced.append((time.perf_counter() - t1) * 1e3)
+        torch.cuda.synchronize()
+        return st, time.perf_counter() - t, torch.stack(losses).cpu().numpy()
+
+    state, wall, losses = run(graph_step, state, host, FUSED_TIMED)
+    print(f"  graph step: {FUSED_TIMED} steps in {wall * 1e3:.1f} ms, {FUSED_TIMED * BATCH / wall:.1f} samples/s",
+          flush=True)
+    synced = []
+    state, _, more = run(graph_step, state, host, FUSED_SYNCED, synced)
+    # the main path as the wrappers count it: a graph replay goes through
+    # no wrapper, so the counted run is the eager step's (the graph step's
+    # kernels are counted on the card, from the trace, below)
+    ops.reset_launch_counts()
+    twin, e_wall, e_losses = run(eager_step, twin, host, FUSED_TIMED)
+    launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+    expected = {fn.__name__: 0 for fn in ops.KERNEL_WRAPPERS}
+    expected.update(dot_interaction=FUSED_TIMED, dot_interaction_bwd=FUSED_TIMED,
+                    fused_gather=FUSED_TIMED, sparse_update=FUSED_TIMED)
+    print(f"  eager step: {FUSED_TIMED} steps, launches={launches}", flush=True)
+    check_launches("fused path (eager step)", launches, expected)
+    e_synced = []
+    twin, _, _ = run(eager_step, twin, host, FUSED_SYNCED, e_synced)
+    state, z_wall, z_losses = run(graph_step, state, zipf_host, FUSED_TIMED)
+    all_losses = np.concatenate([losses, more, e_losses, z_losses])
+    if not np.isfinite(all_losses).all():
+        raise SystemExit("fused path: a non-finite loss")
+    print(f"  eager step: {FUSED_TIMED * BATCH / e_wall:.1f} samples/s; graph step on zipf(1.2) ids: "
+          f"{FUSED_TIMED * BATCH / z_wall:.1f} samples/s; synced step p50 graph "
+          f"{np.percentile(synced, 50):.3f} ms (longest {max(synced):.3f}), eager "
+          f"{np.percentile(e_synced, 50):.3f} ms (longest {max(e_synced):.3f})", flush=True)
+    # where the eager step's host time goes: PyTorch's operators by their
+    # own CPU time over 3 steps (torch.profiler), ms a step
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        twin, _, _ = run(eager_step, twin, host, 3)
+    eager_cpu = {e.key[:60]: e.self_cpu_time_total / 1e3 / 3 for e in sorted(
+        prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:10]}
+    print(f"  eager step, host CPU ms a step by operator: {eager_cpu}", flush=True)
+    del twin
+    torch.cuda.empty_cache()
+
+    # the card's own time a step (torch.profiler), graph and eager
+    prof_batches = [on_card(h) for h in host]
+    busy, top, runs = device_busy_ms(lambda b: graph_step(state, b), prof_batches)
+    step_ms = wall / FUSED_TIMED * 1e3
+    graph_runs = {"fused_gather": runs["fused_gather_kernel"], "sparse_update": runs["sparse_update_kernel"],
+                  "dot_interaction": runs["dot_interaction_kernel"] + runs["dot_interaction_mma_kernel"],
+                  "dot_interaction_bwd": runs["dot_interaction_bwd_kernel"] + runs["dot_interaction_bwd_mma_kernel"]}
+    print(f"  card busy {busy} ms of a {step_ms:.3f} ms graph step; top kernels {top}; kernel runs on the card "
+          f"in {len(prof_batches)} graph steps (trace): {graph_runs}", flush=True)
+    check_launches("fused path (graph step, traced)", graph_runs, dict.fromkeys(graph_runs, len(prof_batches)))
+
+    # FusedTrainCtx.train_pipelined (depth 2, k=1) over FUSED_PIPE batches
+    def persia_batch(h):
+        ids = [IDTypeFeatureWithSingleID(nm, h["ids"][nm].astype(np.uint64)) for nm in sorted(h["ids"])]
+        return PersiaBatch(ids, non_id_type_features=[NonIDTypeFeature(h["dense"][0])],
+                           labels=[Label(h["labels"][0])], requires_grad=True)
+
+    pbatches = [persia_batch(host[i % FUSED_HOST_BATCHES]) for i in range(FUSED_PIPE + 2)]
+    ctx = FusedTrainCtx(*new_model(dev), Adagrad(lr=0.05), specs, stack=True, seed=SEED, device=dev)
+    ctx.train_pipelined(pbatches[:2], pipeline_depth=2)  # builds the tables and captures the step
+    t = time.perf_counter()
+    m = ctx.train_pipelined(pbatches[2:], pipeline_depth=2, dispatch_k=1)
+    pipe_wall = time.perf_counter() - t
+    pipe_stats = ctx.pipeline_stats()
+    if len(m["losses"]) != FUSED_PIPE or not np.isfinite(m["losses"]).all():
+        raise SystemExit(f"fused path: pipelined losses {m.get('losses')}")
+    print(f"  train_pipelined (depth 2, k=1), {FUSED_PIPE} batches: {FUSED_PIPE * BATCH / pipe_wall:.1f} "
+          f"samples/s; {pipe_stats}", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    del ctx
+
+    fused = {
+        "batch": BATCH, "slots": N_SLOTS, "vocab_per_slot": VOCAB, "dim": EMB_DIM, "stacked": True,
+        "sparse_optimizer": "Adagrad(lr=0.05)", "dense_optimizer": "Adam(lr=1e-3)",
+        "table_init_s": init_s, "peak_device_bytes": peak,
+        "graph_equals_eager_steps": FUSED_CHECK,
+        "loss_max_abs_err_vs_cpu": loss_err, "row_max_abs_err_vs_cpu": row_err, "rows_compared": touched.numel(),
+        "row_delta_rel_err_vs_cpu": delta_err, "row_delta_max": delta_max, "delta_rel_tolerance": FUSED_DELTA_RTOL,
+        "eager_step_launches": {k: launches[k] for k in graph_runs},
+        "graph_step_kernel_runs_traced": graph_runs, "traced_graph_steps": len(prof_batches),
+        "graph_samples_per_s": FUSED_TIMED * BATCH / wall, "graph_step_ms_mean": step_ms,
+        "eager_samples_per_s": FUSED_TIMED * BATCH / e_wall,
+        "zipf_graph_samples_per_s": FUSED_TIMED * BATCH / z_wall,
+        "timed_steps": FUSED_TIMED,
+        "graph_step_ms_p50_synced": float(np.percentile(synced, 50)), "graph_step_ms_max_synced": max(synced),
+        "eager_step_ms_p50_synced": float(np.percentile(e_synced, 50)), "eager_step_ms_max_synced": max(e_synced),
+        "graph_step_device_busy_ms": busy,
+        "graph_step_idle_share": None if busy is None else 1 - busy / step_ms,
+        "graph_step_top_kernels_ms": top, "eager_step_top_cpu_ms": eager_cpu,
+        "pipelined_samples_per_s": FUSED_PIPE * BATCH / pipe_wall, "pipelined_batches": FUSED_PIPE,
+        "pipelined_stats": pipe_stats,
+        "losses_first": g_losses, "loss_last": float(all_losses[-1]),
+    }
+    inputs = {"table": state.tables[group.name], "state": state.emb_state[group.name], "group": group,
+              "cfg": cfg, "batch": on_card(host[0]), "zipf_batch": on_card(zipf_host[0])}
+    return launches, fused, inputs
+
+
 def time_flash_backward(dev, card):
     """The flash-attention backward, a dense recompute (the gradient of
     ``reference_attention`` at the saved q, k, v; it launches no kernel of
@@ -1127,11 +1548,11 @@ def time_flash_backward(dev, card):
 
 def sdpa_kernels(fn) -> list:
     """Names of the CUDA kernels one call of ``fn`` runs, by torch.profiler."""
-    _, top = device_busy_ms(lambda _: fn(), [None] * 3)
+    _, top, _ = device_busy_ms(lambda _: fn(), [None] * 3)
     return list(top)
 
 
-def phase_timing(dev, card, launches, errs, feats_shape, train_batch):
+def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused):
     import torch
     import torch.nn.functional as F
 
@@ -1343,12 +1764,106 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch):
     ))
     # the backward's two passes apart (torch.profiler), and its time where
     # every position of each slot hits one row (the bench shape otherwise)
-    _, top = device_busy_ms(lambda _: ops.gather_pool_bwd(gpool, prow, pslots), [None] * 20)
+    _, top, _ = device_busy_ms(lambda _: ops.gather_pool_bwd(gpool, prow, pslots), [None] * 20)
     rows[-1]["pass_ms"] = {re.search(r"gather_pool_\w+", k).group(0): v for k, v in top.items()
                            if "gather_pool" in k}
     one_rows, one_slots = pool_inputs(dev, prow[0].dtype, bsz, [(p_rows - 1, 1, False)] * len(prow),
                                       seed=SEED, ids="one_row")
     rows[-1]["one_row_ms"] = graph_ms(lambda: ops.gather_pool_bwd(gpool, one_rows, one_slots))
+
+    # the fused tier's kernels at the fused path's own inputs (one bench
+    # batch of 26 x 4096 ids, the stacked 26M x 16 table and its Adagrad
+    # state, as phase 4e left them); warm (the same batch each call) and
+    # cold (fresh batches, rotated: the rows they name spread over the
+    # 1.66 GB table, > 72 MB of distinct rows in all), the share read from
+    # the cold time
+    from persia_tpu_torch.ops.fused_gather import fused_gather_reference, gather_rows, update_ids
+    from persia_tpu_torch.ops.sparse_update import PAD_SENTINEL, sparse_update_reference, sparse_update_sorted
+
+    grp, tbl, acc, cfg = fused["group"], fused["table"], fused["state"], fused["cfg"]
+    vocabs = [VOCAB] * len(grp.slots)
+    fresh = np.random.default_rng(SEED + 7)
+
+    def fresh_ids(kind):
+        """One fresh batch's ids per slot, as ``fused_host_batches`` draws
+        them (zipf with a fresh per-slot shift: other hot rows each time)."""
+        if kind == "uniform":
+            ids = [fresh.integers(0, VOCAB, BATCH, dtype=np.int32) for _ in grp.slots]
+        else:
+            ids = [((fresh.zipf(1.2, BATCH) - 1 + fresh.integers(0, VOCAB)) % VOCAB).astype(np.int32)
+                   for _ in grp.slots]
+        return [torch.from_numpy(i).to(dev) for i in ids]
+
+    def flat_rows(ids):
+        return torch.cat([gather_rows(i, o, VOCAB, True) for i, o in zip(ids, grp.offsets)])
+
+    ids = [fused["batch"]["ids"][nm] for nm in grp.slots]
+    n_pos = sum(i.numel() for i in ids)
+    k4_rows = flat_rows(ids)
+    k4_copy = n_pos * 4 + n_pos * EMB_DIM * 4  # the ids and the rows they name
+    bms, by = bound(n_pos * 4 + 2 * n_pos * EMB_DIM * 4, 0, "float32")
+    rows.append(with_cold(
+        timed(
+            dict(name="fused_gather", route="cuda", cuda_route="cuda", source=K4_SOURCE, replaces=K4_REPLACES,
+                 shape=[n_pos, EMB_DIM, tbl.shape[0]], dtype="float32", launches=launches["fused"]["fused_gather"],
+                 max_abs_err=errs["fused_gather"], bound_ms=bms, bound_by=by,
+                 library_note="torch.index_select of the table at the clamped, offset rows (int64)"),
+            kernel=lambda: ops.fused_gather(tbl, ids, grp.offsets, vocabs, True),
+            plain=lambda: fused_gather_reference(tbl, ids, grp.offsets, vocabs, True),
+            library=lambda: torch.index_select(tbl, 0, k4_rows),
+        ),
+        kernel=lambda i: ops.fused_gather(tbl, i, grp.offsets, vocabs, True),
+        make_copy=lambda: (fresh_ids("uniform"),), copy_bytes=k4_copy,
+        library=lambda r: torch.index_select(tbl, 0, r),
+        make_lib_copy=lambda: (flat_rows(fresh_ids("uniform")),), lib_bytes=n_pos * 8 + n_pos * EMB_DIM * 4,
+    ))
+
+    def k5_inputs(ids):
+        """K5's inputs for one batch: the step's sentinel-routed update ids,
+        sorted; gradients of the step's size; the touched rows; the bound."""
+        flat = torch.cat([update_ids(i, o, VOCAB) for i, o in zip(ids, grp.offsets)])
+        sids, perm = torch.sort(flat, stable=True)
+        grads = torch.randn((flat.numel(), EMB_DIM), generator=g).to(dev) * 1e-3
+        touched = int(torch.unique(sids[sids != PAD_SENTINEL]).numel())
+        n = flat.numel()
+        # sorted ids, permutation and gradients read once; each touched
+        # row and its accumulator read and written once; the segment sums
+        # and ~8 operations a touched element
+        nbytes = n * 4 + n * 8 + n * EMB_DIM * 4 + touched * EMB_DIM * 4 * 4
+        b_, by_ = bound(nbytes + 8, n * EMB_DIM + touched * EMB_DIM * 8, "float32")
+        return flat, sids, perm, grads, touched, nbytes, b_, by_
+
+    bs = torch.ones(2, device=dev)
+    k5 = {}
+    for kind in ("uniform", "zipf"):
+        batch = fused["batch" if kind == "uniform" else "zipf_batch"]
+        flat, sids, perm, grads, touched, nbytes, bms, by = k5_inputs([batch["ids"][nm] for nm in grp.slots])
+        runs = [graph_ms(lambda: sparse_update_sorted(cfg, tbl, acc, sids, perm, grads, bs)) for _ in range(2)]
+        cold = [cold_ms(lambda si, pe, gr: sparse_update_sorted(cfg, tbl, acc, si, pe, gr, bs),
+                        lambda: k5_inputs(fresh_ids(kind))[1:4], nbytes) for _ in range(2)]
+        sort_ms = graph_ms(lambda: torch.sort(flat, stable=True))
+        k5[kind] = dict(ms=min(runs), ms_runs=runs, cold_ms=min(c["ms"] for c in cold),
+                        cold_ms_runs=[c["ms"] for c in cold], cold_copies=cold[0]["copies"], sort_ms=sort_ms,
+                        bound_ms=bms, bound_by=by, touched_rows=touched, bytes=nbytes,
+                        eager_ms=eager_ms(lambda: sparse_update_sorted(cfg, tbl, acc, sids, perm, grads, bs)),
+                        # its boolean masks synchronise: timed eagerly, sort included
+                        plain_ms=eager_ms(lambda: sparse_update_reference(cfg, tbl, acc, flat, grads, bs),
+                                          iters=10, warmup=2))
+    u, z = k5["uniform"], k5["zipf"]
+    rows.append(dict(
+        name="sparse_update", route="cuda", cuda_route="cuda", source=K5_SOURCE, replaces=K5_REPLACES,
+        shape=[n_pos, EMB_DIM, tbl.shape[0]], dtype="float32", optimizer="Adagrad(lr=0.05)",
+        launches=launches["fused"]["sparse_update"], max_abs_err=errs["sparse_update"],
+        ms=u["ms"], ms_runs=u["ms_runs"], eager_ms=u["eager_ms"], bound_ms=u["bound_ms"], bound_by=u["bound_by"],
+        cold_ms=u["cold_ms"], cold_ms_runs=u["cold_ms_runs"], cold_copies=u["cold_copies"],
+        cold_bytes_per_copy=u["bytes"], cold_share=u["bound_ms"] / u["cold_ms"],
+        plain_ms=u["plain_ms"], plain_note="eager (boolean masks synchronise), the sort included",
+        library_ms=None, library_note="none: no PyTorch call computes it",
+        sort_ms=u["sort_ms"], touched_rows=u["touched_rows"],
+        zipf_ms=z["ms"], zipf_ms_runs=z["ms_runs"], zipf_cold_ms=z["cold_ms"], zipf_cold_ms_runs=z["cold_ms_runs"],
+        zipf_bound_ms=z["bound_ms"], zipf_cold_share=z["bound_ms"] / z["cold_ms"], zipf_sort_ms=z["sort_ms"],
+        zipf_plain_ms=z["plain_ms"], zipf_touched_rows=z["touched_rows"],
+    ))
     for r in rows:
         print(json.dumps({"kernel_timing": r, "card": card}), flush=True)
     return rows
@@ -1369,25 +1884,28 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     build = phase_build()
-    errs = {"flash_attention": phase_flash_attention(dev), **phase_kernels(dev)}
+    errs = {"flash_attention": phase_flash_attention(dev), **phase_kernels(dev), **phase_fused_kernels(dev)}
     fa_routes = path_flash_attention(dev)
     serving_launches, serving, feats_shape = path_serving(dev)
     training_launches, training, train_batch = path_training(dev)
     pipelined_launches, pipelined = path_pipelined(dev)
+    fused_launches, fused, fused_inputs = path_fused(dev)
     launches = {"flash_attention": fa_routes, "serving": serving_launches,
-                "training": training_launches, "pipelined": pipelined_launches}
-    rows = phase_timing(dev, card, launches, errs, feats_shape, train_batch)
+                "training": training_launches, "pipelined": pipelined_launches, "fused": fused_launches}
+    rows = phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused_inputs)
     time_flash_backward(dev, card)
     print(json.dumps({"serving": serving, "card": card}), flush=True)
     print(json.dumps({"training": training, "card": card}), flush=True)
     print(json.dumps({"pipelined": pipelined, "card": card}), flush=True)
     print(json.dumps({"build": build, "card": card}), flush=True)
+    print(json.dumps({"fused": fused, "card": card}), flush=True)
 
     # one entry per kernel (each flash-attention route by its non-causal
     # row); times graph-replayed, eager beside them
     keys = ("name", "route", "cuda_route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "eager_ms",
-            "library_eager_ms", "cold_ms", "library_cold_ms")
+            "library_eager_ms", "cold_ms", "library_cold_ms", "sort_ms", "zipf_ms", "zipf_cold_ms",
+            "zipf_bound_ms", "zipf_sort_ms")
     kernels = [{k: r.get(k) for k in keys} for r in rows if not r.get("causal")]
     print(json.dumps({"kernels": kernels, "card": card}), flush=True)
     print(card, flush=True)

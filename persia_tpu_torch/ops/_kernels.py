@@ -136,6 +136,13 @@ def library() -> ctypes.CDLL:
                 vp, vp, vp, vp, i32, i32, i32, i32, f32, i32,
                 i32, i32, i32, i32, i32, i32, i32, i32, vp,
             ]
+            lib.persia_fused_gather.restype = i32
+            lib.persia_fused_gather.argtypes = [vp, i32, ctypes.c_longlong, i32, vp, i32, i32, vp, vp]
+            lib.persia_sparse_update.restype = i32
+            lib.persia_sparse_update.argtypes = [
+                vp, i32, ctypes.c_longlong, i32, vp, vp, vp, vp, vp, i32, vp,
+                i32, i32, f32, f32, f32, f32, f32, f32, f32, f32, vp,
+            ]
             _lib = lib
         return _lib
 

@@ -26,6 +26,7 @@ autograd scatters back onto the distinct rows.
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -70,6 +71,18 @@ def _split_emb(emb: List[Dict]) -> Tuple[List, List]:
             diff.append(e["distinct"])
             static.append((e["index"], e["mask"]))
     return diff, static
+
+
+logger = logging.getLogger("persia_tpu_torch.train_step")
+
+
+def _note_nonfinite_loss(loss: float) -> float:
+    """Finite guard on a host loss read: a NaN or Inf loss is logged
+    instead of flowing on silently (the reference also counts it in its
+    metrics registry, which the port does not have yet)."""
+    if not np.isfinite(loss):
+        logger.warning("non-finite loss %r", loss)
+    return loss
 
 
 def default_loss_fn(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Carry dense weights, and Adam's moments, across from the reference's
-flax/optax layout.
+flax/optax layout; and the fused tier's whole state, both ways.
 
 flax names a model's ``Dense`` layers ``Dense_0 … Dense_k`` in call order,
 each ``{"kernel": (in, out), "bias": (out,)}``; the port's models keep their
@@ -11,7 +11,8 @@ neither JAX nor flax nor optax.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+import re
+from typing import Callable, Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -70,3 +71,130 @@ def seeded_flax_params_like(model: torch.nn.Module, seed: int) -> Dict[str, Dict
             "bias": (0.05 * rng.standard_normal(b)).astype(np.float32),
         }
     return out
+
+
+# ---------------------------------------------------------------------------
+# The fused tier's whole state (``persia_tpu/parallel/fused_ctx.py``'s
+# checkpoint): every leaf of the reference's ``FusedTrainState`` for a DLRM
+# trained with ``optax.adam``, keyed by its ``jax.tree_util.keystr`` path,
+# in the reference's leaf order (dict keys sorted).
+
+_PATH_KEYS = re.compile(r"\['([^']*)'\]")
+
+
+def _host_array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bf16 as its raw 16-bit words in a 2-byte void
+    dtype (numpy has no bf16)."""
+    t = t.detach()
+    t = t.clone() if t.device.type == "cpu" else t.cpu()  # never a view of the live state
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def _host_tensor(a: np.ndarray) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _fused_leaves(state) -> List[Tuple[str, Callable[[], np.ndarray]]]:
+    """(path, array getter) of every leaf, in the reference's order."""
+    layers = state.model.layers
+    names = sorted(f"Dense_{i}" for i in range(len(layers)))
+    opt = state.optimizer.state
+    out: List[Tuple[str, Callable[[], np.ndarray]]] = []
+
+    def dense(prefix, get):
+        for name in names:
+            layer = layers[int(name.rsplit("_", 1)[1])]
+            out.append((f"{prefix}['{name}']['bias']", lambda l=layer: _host_array(get(l.bias))))
+            out.append((f"{prefix}['{name}']['kernel']", lambda l=layer: _host_array(get(l.weight).T)))
+
+    dense(".params", lambda p: p)
+    first = layers[0].weight
+    out.append((".opt_state[0].count",
+                lambda: np.asarray(int(float(opt[first]["step"])) if opt.get(first) else 0, np.int32)))
+    dense(".opt_state[0].mu", lambda p: opt[p]["exp_avg"])
+    dense(".opt_state[0].nu", lambda p: opt[p]["exp_avg_sq"])
+    for name in sorted(state.tables):
+        out.append((f".tables['{name}']", lambda t=state.tables[name]: _host_array(t)))
+    for name in sorted(state.emb_state):
+        for k in sorted(state.emb_state[name]):
+            out.append((f".emb_state['{name}']['{k}']", lambda t=state.emb_state[name][k]: _host_array(t)))
+    out.append((".emb_batch_state", lambda: _host_array(state.emb_batch_state)))
+    out.append((".step", lambda: _host_array(state.step.to(torch.int32)).reshape(())))
+    return out
+
+
+def fused_state_manifest(state) -> List[str]:
+    """The leaf paths of ``state`` as the reference names them."""
+    return [path for path, _ in _fused_leaves(state)]
+
+
+def fused_state_to_flax(state) -> Tuple[List[str], List[np.ndarray]]:
+    """(paths, arrays): the port's ``FusedTrainState`` as the reference's
+    leaves (flax kernels (in, out), optax's Adam moments and count)."""
+    leaves = _fused_leaves(state)
+    return [p for p, _ in leaves], [get() for _, get in leaves]
+
+
+def fused_state_from_flax(manifest: Sequence[str], arrays: Sequence[np.ndarray], model: torch.nn.Module,
+                          optimizer: torch.optim.Optimizer, device=None, into=None):
+    """The port's ``FusedTrainState`` from the reference's leaves (numpy
+    arrays in ``manifest``'s order): ``model``'s parameters and
+    ``optimizer``'s (an Adam over them) state are loaded in place, the
+    tables and their state made on ``device`` (``cuda`` unless given).
+    With ``into``, a state of the same layout, its tables, their state, the
+    powers and the step are instead overwritten in place from the host
+    arrays (no second copy on the device), and ``into`` returned."""
+    from persia_tpu_torch.device import resolve_device
+    from persia_tpu_torch.parallel.fused_step import FusedTrainState, prepare_dense_optimizer
+
+    if len(manifest) != len(arrays):
+        raise ValueError(f"{len(manifest)} paths for {len(arrays)} arrays")
+    dev = resolve_device(device)
+    params: Dict = {}
+    moments: Dict[str, Dict] = {"mu": {}, "nu": {}}
+    tables, emb_state = {}, {}
+    count = batch_state = step = None
+
+    def put(a, live):
+        if live is None:
+            return _host_tensor(a).to(dev)
+        return live.copy_(_host_tensor(a).view(live.shape))
+
+    for path, a in zip(manifest, arrays):
+        keys = _PATH_KEYS.findall(path)
+        if path.startswith(".params["):
+            params.setdefault(keys[0], {})[keys[1]] = a
+        elif path == ".opt_state[0].count":
+            count = a
+        elif path.startswith((".opt_state[0].mu[", ".opt_state[0].nu[")):
+            moments[path[14:16]].setdefault(keys[0], {})[keys[1]] = a
+        elif path.startswith(".tables["):
+            tables[keys[0]] = put(a, into and into.tables[keys[0]])
+        elif path.startswith(".emb_state["):
+            emb_state.setdefault(keys[0], {})[keys[1]] = put(a, into and into.emb_state[keys[0]][keys[1]])
+        elif path == ".emb_batch_state":
+            batch_state = put(np.asarray(a, np.float32), into and into.emb_batch_state)
+        elif path == ".step":
+            step = put(np.asarray(a, np.int32).reshape(()), into and into.step)
+        else:
+            raise ValueError(f"unknown fused-state leaf {path!r}")
+    if count is None or batch_state is None or step is None:
+        raise ValueError("the fused state lacks the Adam count, the batch powers or the step")
+    model.load_state_dict(dlrm_state_dict_from_flax(params))
+    model.to(dev)
+    prepare_dense_optimizer(optimizer, dev)
+    params_list = list(model.parameters())
+    for p, st in adam_state_from_optax(params_list, moments["mu"], moments["nu"], count).items():
+        for k, v in st.items():
+            optimizer.state[p][k].copy_(v)
+    if into is not None:
+        return into
+    for name in tables:
+        emb_state.setdefault(name, {})
+    return FusedTrainState(model=model, optimizer=optimizer, tables=tables, emb_state=emb_state,
+                           emb_batch_state=batch_state, step=step)

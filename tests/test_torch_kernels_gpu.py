@@ -612,3 +612,269 @@ def test_pipelined_loader_on_card_with_native_cores(cuda):
                 np.testing.assert_allclose(ea, eb, rtol=0, atol=1e-5)
                 rows += 1
     assert rows == sum(s.size() for s in sync_stores) > 0
+
+
+# --------------------------------------------------------------- fused tier
+
+
+def _bits(t):
+    t = t.detach().cpu().contiguous().reshape(-1)
+    return t.view(torch.uint8)
+
+
+FUSED_GATHER_CASES = {
+    # (dtype, dim, slot shapes, vocab, stacked)
+    "stacked_f32": (torch.float32, 16, [(4096,)] * 5, 1000, True),
+    "stacked_bf16_pooled": (torch.bfloat16, 16, [(512,), (512, 5)], 1000, True),
+    "unstacked_nan": (torch.float32, 16, [(777,)], 1000, False),
+    "unstacked_bf16_bag": (torch.bfloat16, 8, [(100, 3)], 300, False),
+    "dim_10": (torch.float32, 10, [(300,), (50, 2)], 200, True),
+    "dim_3_bf16": (torch.bfloat16, 3, [(300,)], 200, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_GATHER_CASES))
+def test_fused_gather_kernel_matches_plain(cuda, case):
+    """K4 copies rows: bit for bit its plain version, pads, clamps and NaN
+    rows included."""
+    from persia_tpu_torch.ops import fused_gather
+    from persia_tpu_torch.ops.fused_gather import fused_gather_reference
+
+    dtype, dim, shapes, vocab, stacked = FUSED_GATHER_CASES[case]
+    rng = np.random.default_rng(len(case))
+    table = _randn((vocab * len(shapes), dim), 3, cuda, dtype)
+    ids = []
+    for s in shapes:
+        a = rng.integers(-1, vocab + 3, s).astype(np.int32)
+        a.reshape(-1)[:2] = [vocab + 7, -1]
+        ids.append(torch.from_numpy(a).to(cuda))
+    offsets = [i * vocab for i in range(len(shapes))] if stacked else [0]
+    before = fused_gather.launches
+    out = fused_gather(table, ids, offsets, [vocab] * len(ids), stacked)
+    ref = fused_gather_reference(table, ids, offsets, [vocab] * len(ids), stacked)
+    assert fused_gather.launches == before + 1
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert torch.equal(_bits(out), _bits(ref))
+    assert bool(out.isnan().any()) != stacked
+
+
+def _k5_inputs(kind, cfg, vocab, n, dim, dtype, seed):
+    from persia_tpu_torch.ops.sparse_update import init_sparse_state
+
+    rng = np.random.default_rng(seed)
+    if kind == "uniform":
+        ids = rng.integers(0, vocab, n)
+    elif kind == "zipf":
+        ids = (rng.zipf(1.2, n) - 1) % vocab
+    else:
+        ids = np.full(n, 5)
+    ids = ids.astype(np.int32)
+    ids[rng.random(n) < 0.1] = -1
+    ids[:2] = vocab + 1
+    table = (torch.from_numpy(rng.standard_normal((vocab, dim)).astype(np.float32)) * 0.05).to(dtype)
+    state = init_sparse_state(cfg, vocab, dim)
+    for v in state.values():
+        v.copy_(torch.from_numpy(rng.uniform(0.01, 1.0, v.shape).astype(np.float32)))
+    grads = torch.from_numpy(rng.standard_normal((n, dim)).astype(np.float32))
+    return torch.from_numpy(ids), table, state, grads
+
+
+@pytest.mark.parametrize("kind", ["uniform", "zipf", "one_row"])
+@pytest.mark.parametrize("opt", ["sgd_wd", "adagrad_wd", "adagrad_vw", "adam", "adagrad_bf16"])
+def test_sparse_update_kernel_matches_cpu_plain_bitwise(cuda, opt, kind):
+    """K5 sums each row's gradients in sorted order and rounds each
+    operation once, as the plain version does on the CPU: bit for bit."""
+    from persia_tpu_torch.embedding.optim import SGD, Adagrad, Adam
+    from persia_tpu_torch.ops import sparse_update
+
+    cfg = {"sgd_wd": SGD(lr=0.1, weight_decay=0.01), "adagrad_wd": Adagrad(lr=0.05, g_square_momentum=0.95,
+                                                                           weight_decay=0.01),
+           "adagrad_vw": Adagrad(lr=0.05, vectorwise_shared=True, weight_decay=0.01),
+           "adam": Adam(lr=0.01, weight_decay=0.1), "adagrad_bf16": Adagrad(lr=0.05)}[opt].config
+    dtype = torch.bfloat16 if opt.endswith("bf16") else torch.float32
+    ids, table, state, grads = _k5_inputs(kind, cfg, 5000, 20000, 16, dtype, seed=len(opt + kind))
+    bs = torch.tensor([cfg.beta1 ** 2, cfg.beta2 ** 2])
+    mask = ids >= 0
+    card_t, card_s = table.to(cuda), {k: v.to(cuda) for k, v in state.items()}
+    before = sparse_update.launches
+    sparse_update(cfg, card_t, card_s, ids.to(cuda), grads.to(cuda), bs.to(cuda), mask=mask.to(cuda))
+    sparse_update(cfg, table, state, ids, grads, bs, mask=mask)
+    assert sparse_update.launches == before + 1
+    assert torch.equal(_bits(card_t), _bits(table))
+    for k in state:
+        assert torch.equal(_bits(card_s[k]), _bits(state[k])), k
+
+
+def _fused_setup(dev, seed=0, compute=torch.bfloat16):
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.models import DLRM
+    from persia_tpu_torch.parallel.fused_step import FusedSlotSpec, init_fused_state
+
+    specs = {f"s{i}": FusedSlotSpec(vocab=1000, dim=16) for i in range(4)}
+    specs["bag"] = FusedSlotSpec(vocab=500, dim=16, sqrt_scaling=True)
+    model = DLRM(13, 5, 16, (64, 16), (64, 32), compute_dtype=compute, device=dev,
+                 generator=torch.Generator().manual_seed(seed))
+    state = init_fused_state(model, torch.optim.Adam(model.parameters(), lr=1e-3), torch.Generator().manual_seed(1),
+                             specs, Adagrad(lr=0.05).config, stack=True, device=dev)
+    return specs, Adagrad(lr=0.05).config, state
+
+
+def _fused_batches(dev, n, seed=0, b=256):
+    out = []
+    for i in range(n):
+        rng = np.random.default_rng(seed + i)
+        ids = {f"s{s}": rng.integers(-1, 1000, b).astype(np.int32) for s in range(4)}
+        ids["bag"] = rng.integers(-1, 500, (b, 3)).astype(np.int32)
+        out.append({"dense": [torch.from_numpy(rng.standard_normal((b, 13)).astype(np.float32)).to(dev)],
+                    "labels": [torch.from_numpy(rng.integers(0, 2, (b, 1)).astype(np.float32)).to(dev)],
+                    "ids": {k: torch.from_numpy(v).to(dev) for k, v in ids.items()}})
+    return out
+
+
+def _state_bits(state):
+    from persia_tpu_torch.weights import fused_state_to_flax
+
+    return [np.ascontiguousarray(a).view(np.uint8) for a in fused_state_to_flax(state)[1]]
+
+
+def _traced_kernels(fn, names):
+    """How many times each kernel in ``names`` ran on the card during
+    ``fn()``, from torch.profiler's device trace."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(names, 0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for n in names:
+                counts[n] += bool(re.search(rf"\b{n}\b", e.name))
+    return counts
+
+
+def test_fused_graph_step_equals_eager_step(cuda):
+    """The CUDA-graph step (jit=True) and the eager step give the same bits
+    over 5 steps, and the K-step graph the same bits as K single steps.
+    The eager step calls K4's and K5's wrappers once a step; the graph
+    step calls them only at its first call (the capture's warm-up and the
+    capture), and each replay runs each kernel once on the card (device
+    trace)."""
+    from persia_tpu_torch.ops import fused_gather, sparse_update
+    from persia_tpu_torch.parallel.fused_step import build_fused_multi_step, build_fused_train_step
+
+    batches = _fused_batches(cuda, 5)
+    results = []
+    for jit in (False, True):
+        specs, cfg, state = _fused_setup(cuda)
+        step = build_fused_train_step(cfg, specs, stack=True, jit=jit)
+        losses = []
+        for i, b in enumerate(batches):
+            before = (fused_gather.launches, sparse_update.launches)
+            state, (loss, _) = step(state, b)
+            per_call = (2 if i == 0 else 0) if jit else 1
+            assert (fused_gather.launches - before[0], sparse_update.launches - before[1]) == (per_call, per_call)
+            losses.append(loss)
+        results.append((torch.stack(losses).cpu(), _state_bits(state)))
+    assert torch.equal(results[0][0], results[1][0])
+    assert all(np.array_equal(a, b) for a, b in zip(results[0][1], results[1][1]))
+    traced = _traced_kernels(lambda: [step(state, b) for b in batches[:3]],
+                             ("fused_gather_kernel", "sparse_update_kernel"))
+    assert traced == {"fused_gather_kernel": 3, "sparse_update_kernel": 3}
+    specs, cfg, state = _fused_setup(cuda)
+    multi = build_fused_multi_step(cfg, specs, 5, stack=True)
+    state, (losses, _) = multi(state, tuple(batches))
+    assert torch.equal(losses.cpu(), results[0][0])
+    assert all(np.array_equal(a, b) for a, b in zip(_state_bits(state), results[0][1]))
+
+
+def test_fused_card_step_matches_cpu_step(cuda):
+    """Three f32 steps on the card against the same steps on the CPU (K4
+    and K5 against their plain versions, cuBLAS against the CPU's
+    matmuls): losses to rtol 1e-4, tables to 1e-5."""
+    from persia_tpu_torch.models import DLRM
+    from persia_tpu_torch.parallel.fused_step import build_fused_train_step
+    from persia_tpu_torch.weights import fused_state_from_flax, fused_state_to_flax
+
+    specs, cfg, state = _fused_setup(cuda, compute=torch.float32)
+    manifest, arrays = fused_state_to_flax(state)
+    model = DLRM(13, 5, 16, (64, 16), (64, 32), compute_dtype=torch.float32, device="cpu")
+    cpu_state = fused_state_from_flax(manifest, arrays, model, torch.optim.Adam(model.parameters(), lr=1e-3),
+                                      device="cpu")
+    step, cpu_step = build_fused_train_step(cfg, specs, stack=True), build_fused_train_step(cfg, specs, stack=True)
+    for b in _fused_batches(cuda, 3, seed=7):
+        cb = {"dense": [x.cpu() for x in b["dense"]], "labels": [x.cpu() for x in b["labels"]],
+              "ids": {k: v.cpu() for k, v in b["ids"].items()}}
+        state, (loss, _) = step(state, b)
+        cpu_state, (cpu_loss, _) = cpu_step(cpu_state, cb)
+        np.testing.assert_allclose(float(loss), float(cpu_loss), rtol=1e-4)
+    for name, t in state.tables.items():
+        np.testing.assert_allclose(t.cpu().numpy(), cpu_state.tables[name].numpy(), rtol=0, atol=1e-5)
+
+
+def test_fused_ctx_pipelined_on_card_equals_step_loop(cuda):
+    """``FusedTrainCtx.train_pipelined`` on the card (a feed thread staging
+    on its own stream) lands on the ``train_step`` loop's bits."""
+    from persia_tpu_torch.data import IDTypeFeatureWithSingleID, Label, NonIDTypeFeature, PersiaBatch
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.models import DLRM
+    from persia_tpu_torch.parallel.fused_ctx import FusedTrainCtx
+    from persia_tpu_torch.parallel.fused_step import FusedSlotSpec
+
+    def batch(seed):
+        rng = np.random.default_rng(seed)
+        ids = [IDTypeFeatureWithSingleID(n, rng.integers(0, 500, 256).astype(np.uint64)) for n in ("a", "b")]
+        return PersiaBatch(ids, non_id_type_features=[NonIDTypeFeature(rng.standard_normal((256, 13)).astype(
+            np.float32))], labels=[Label(rng.integers(0, 2, (256, 1)).astype(np.float32))], requires_grad=True)
+
+    def ctx():
+        m = DLRM(13, 2, 16, (32, 16), (32,), device=cuda, generator=torch.Generator().manual_seed(0))
+        return FusedTrainCtx(m, torch.optim.Adam(m.parameters(), lr=1e-3), Adagrad(lr=0.05),
+                             {n: FusedSlotSpec(vocab=500, dim=16) for n in ("a", "b")}, device=cuda)
+
+    batches = [batch(i) for i in range(10)]
+    seq = ctx()
+    for b in batches:
+        seq.train_step(b, fetch_metrics=False)
+    pipe = ctx()
+    m = pipe.train_pipelined(batches[:4], pipeline_depth=2)
+    m = pipe.train_pipelined(batches[4:], pipeline_depth=2)
+    assert len(m["losses"]) == 6
+    assert all(np.array_equal(a, b) for a, b in zip(_state_bits(seq.state), _state_bits(pipe.state)))
+
+
+def test_fused_ctx_checkpoint_loads_in_place_on_card(cuda, tmp_path):
+    """``load_checkpoint`` writes the host arrays into the live tensors: the
+    captured graph step stays valid, and training on from the checkpoint
+    lands on the same bits as the first time through."""
+    from persia_tpu_torch.data import IDTypeFeatureWithSingleID, Label, NonIDTypeFeature, PersiaBatch
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.models import DLRM
+    from persia_tpu_torch.parallel.fused_ctx import FusedTrainCtx
+    from persia_tpu_torch.parallel.fused_step import FusedSlotSpec
+
+    def batch(seed):
+        rng = np.random.default_rng(seed)
+        ids = [IDTypeFeatureWithSingleID(n, rng.integers(0, 500, 256).astype(np.uint64)) for n in ("a", "b")]
+        return PersiaBatch(ids, non_id_type_features=[NonIDTypeFeature(rng.standard_normal((256, 13)).astype(
+            np.float32))], labels=[Label(rng.integers(0, 2, (256, 1)).astype(np.float32))], requires_grad=True)
+
+    m = DLRM(13, 2, 16, (32, 16), (32,), device=cuda, generator=torch.Generator().manual_seed(0))
+    ctx = FusedTrainCtx(m, torch.optim.Adam(m.parameters(), lr=1e-3), Adagrad(lr=0.05),
+                        {n: FusedSlotSpec(vocab=500, dim=16) for n in ("a", "b")}, device=cuda)
+    batches = [batch(i) for i in range(4)]
+    for b in batches[:2]:
+        ctx.train_step(b, fetch_metrics=False)
+    ctx.dump_checkpoint(str(tmp_path))
+    for b in batches[2:]:
+        ctx.train_step(b, fetch_metrics=False)
+    first = _state_bits(ctx.state)
+    ptrs = [t.data_ptr() for t in ctx.state.tables.values()]
+    ctx.load_checkpoint(str(tmp_path))
+    assert [t.data_ptr() for t in ctx.state.tables.values()] == ptrs
+    for b in batches[2:]:
+        ctx.train_step(b, fetch_metrics=False)
+    assert all(np.array_equal(a, b) for a, b in zip(first, _state_bits(ctx.state)))

@@ -120,3 +120,21 @@ def test_native_cores_are_the_ports_own_copies():
     assert {p.name for p in _native_build.NATIVE_SRC.glob("*.cpp")} == {"ps.cpp", "worker.cpp"}
     rel = _native_build.BUILD_DIR.relative_to(ROOT).as_posix()
     assert rel + "/" in (ROOT / ".gitignore").read_text().split()
+
+
+def test_fused_tier_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.models import DLRM
+    from persia_tpu_torch.parallel.fused_ctx import FusedTrainCtx
+    from persia_tpu_torch.parallel.fused_step import FusedSlotSpec, init_fused_state
+
+    specs = {"a": FusedSlotSpec(vocab=8, dim=16)}
+    model = DLRM(13, 1, device="cpu")
+    opt = torch.optim.Adam(model.parameters())
+    with pytest.raises(RuntimeError):
+        FusedTrainCtx(model, opt, Adagrad(), specs)
+    with pytest.raises(RuntimeError):
+        init_fused_state(model, opt, torch.Generator(), specs, Adagrad().config)
+    assert FusedTrainCtx(model, opt, Adagrad(), specs, device="cpu").device == torch.device("cpu")
