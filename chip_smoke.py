@@ -8,7 +8,8 @@ result line:
 
 1. build the port's CUDA kernels from ``persia_tpu_torch/csrc`` (nvcc,
    sm_90a); the flash-attention kernels' SASS must hold wgmma (HGMMA) and
-   TMA loads (UTMALDG), the f32 one without spills;
+   TMA loads (UTMALDG), the f32 one without spills; K5's kernels and the
+   routing kernel on the dim-16 f32 path without spills;
 2. flash_attention on the card vs its plain version (dense f32 softmax):
    the bf16 route (wgmma) and the f32 route (split TF32 on wgmma, its
    pre-pass held bit for bit to ``tf32_split_planes_reference``) at every
@@ -23,11 +24,16 @@ result line:
    (3b) the fused tier's kernels: K4 ``fused_gather`` bit for bit against
    its plain version (stacked at the bench shape on uniform and zipf(1.2)
    ids with pads and ids past the vocab, a bf16 table with a pooled (B, 5)
-   slot, unstacked with NaN rows, dim 10), K5 ``sparse_update`` bit for bit
-   against its plain version on the CPU (SGD, Adagrad, Adagrad vectorwise,
-   all with weight decay, and Adam, on uniform, zipf(1.2) and one-row
-   streams with pads; the bench's 26 stacked tables with Adagrad(0.05); a
-   bf16 table);
+   slot, unstacked with NaN rows, dim 10), the routing of the update ids
+   (``update_keys``) bit for bit against its plain version (26 slots of
+   B=4096 with pads, ids past the vocab and ids < -1; 130 slots, two
+   launches), K5 ``sparse_update`` bit for bit against its plain version on
+   the CPU (SGD, Adagrad, Adagrad vectorwise, all with weight decay, and
+   Adam, on uniform, zipf(1.2) and one-row streams with pads, on hot
+   segments (762, 318, 180 positions and the long threshold - 1, at it and
+   + 1) and on segments ending on a staged tile's edge; the bench's 26
+   stacked tables with Adagrad(0.05); a bf16 table), each case's longest
+   segment printed;
 4. the paths, each with the launch counts set to 0 just before and read
    just after: (a) the flash-attention entry point at (B=4, L=1024, H=8,
    D=64) in bf16 and in f32, causal and not, and its backward (a dense
@@ -56,9 +62,13 @@ result line:
    the rows they touched and what the steps changed in them held to the
    CPU port's from a copy of the state, 100 timed graph steps, synced
    steps, 100 eager steps (the counted run: a graph replay goes through no
-   wrapper; K4 and K5 once a step), a zipf(1.2) stream, the card's busy time a graph step and its kernels' runs from
-   the device trace (K4 and K5 once a step), and
-   ``FusedTrainCtx.train_pipelined`` (depth 2) over 32 batches;
+   wrapper; K4, the routing and K5 once a step), a zipf(1.2) stream, the
+   card's busy time a graph step and its kernels' runs from the device
+   trace (K4, the routing kernel and K5's three kernels once a step),
+   beside the same with the update ids routed slot by slot by the plain
+   version (in turns: new, plain, new; card busy and PyTorch elementwise
+   kernels a step), and ``FusedTrainCtx.train_pipelined`` (depth 2) over
+   32 batches;
 5. timings of each kernel beside its plain version, the library call that
    computes the same function, and the card's bound, each by CUDA-graph
    replay (host enqueue cost out of the number; eager times beside them):
@@ -70,7 +80,10 @@ result line:
    beside their library calls); the serving latency and throughput; the
    training throughput and stage breakdown; K4 and K5 at the fused path's
    inputs, warm and cold (fresh batches rotated over the 1.66 GB table;
-   K5 on uniform and zipf(1.2) ids, ``torch.sort``'s time beside it);
+   K5 on uniform and zipf(1.2) ids with the longest segment printed, each
+   of its steps apart (torch.profiler), ``torch.sort``'s time beside it,
+   and every position on one row); the routing pass against its bound and
+   its plain version, ``torch.sort`` beside both;
    and (5b) the flash-attention backward, a dense recompute, beside SDPA's
    backward.
 
@@ -249,7 +262,8 @@ def device_busy_ms(step, batches):
     optimizer's range, which span kernels, are left out), the largest
     ones (names cut to 80 chars), and how many times each of the port's
     kernels (``KERNEL_NAMES``) ran in all: the device's own count, which a
-    CUDA graph's replays (which go through no wrapper) also show."""
+    CUDA graph's replays (which go through no wrapper) also show; under
+    "elementwise", the runs of PyTorch's elementwise kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -259,13 +273,14 @@ def device_busy_ms(step, batches):
             step(b)
         torch.cuda.synchronize()
     per = {}
-    runs = dict.fromkeys(KERNEL_NAMES, 0)
+    runs = dict.fromkeys(KERNEL_NAMES + ("elementwise",), 0)
     for e in prof.events():
         if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
         per[e.name[:80]] = per.get(e.name[:80], 0.0) + e.time_range.elapsed_us() / 1e3 / len(batches)
         for k in KERNEL_NAMES:
             runs[k] += bool(re.search(rf"\b{k}\b", e.name))
+        runs["elementwise"] += "elementwise_kernel" in e.name
     if not sum(per.values()):
         return None, {}, runs
     top = dict(sorted(per.items(), key=lambda kv: -kv[1])[:8])
@@ -276,7 +291,12 @@ KERNEL_NAMES = ("fa_fwd_wgmma_kernel", "fa_fwd_tf32x3_kernel", "tf32_split_kerne
                 "dot_interaction_mma_kernel", "dot_interaction_kernel",
                 "dot_interaction_bwd_mma_kernel", "dot_interaction_bwd_kernel",
                 "gather_pool_fwd_kernel", "gather_pool_bwd_chunks_kernel", "gather_pool_bwd_rows_kernel",
-                "fused_gather_kernel", "sparse_update_kernel")
+                "fused_gather_kernel", "update_keys_kernel", "sparse_update_segments_kernel",
+                "sparse_update_long_kernel", "sparse_update_short_kernel")
+# K5's kernels, and the routing's: on the dim-16 f32 path none may spill
+K5_KERNELS = ("sparse_update_segments_kernel", "sparse_update_long_kernel", "sparse_update_short_kernel")
+K5_DIM16 = ("sparse_update_segments_kernel", "sparse_update_long_kernel<f32,4>",
+            "sparse_update_short_kernel<f32,4,1>", "update_keys_kernel")
 # SASS counted per kernel: Hopper's matrix and TMA instructions, and the
 # 16-byte global loads and stores (and the shuffles) of the gather-pool
 SASS_OPS = {"HGMMA": r"\bHGMMA\b", "UTMALDG": r"\bUTMALDG\b", "UTMASTG": r"\bUTMASTG\b",
@@ -299,12 +319,16 @@ def _template_arg(t) -> str:
 
 
 def kernel_label(mangled: str):
-    """'fa_fwd_wgmma_kernel<64>' from a mangled kernel name, or None."""
+    """'fa_fwd_wgmma_kernel<64>' from a mangled kernel name (a kernel that
+    is no template: its name alone), or None."""
     for name in KERNEL_NAMES:
         if name + "I" in mangled:
             args = mangled.split(name + "I", 1)[1].split("EEv", 1)[0]
             tokens = re.finditer(r"13__nv_bfloat16|Li(\d+)E|Lb([01])E|5uint([24])|f", args)
             return f"{name}<{','.join(map(_template_arg, tokens)) or args}>"
+    for name in KERNEL_NAMES:
+        if f"{len(name)}{name}" in mangled:
+            return name
     return None
 
 
@@ -365,6 +389,11 @@ def phase_build():
               if k.startswith("fa_fwd_tf32x3_kernel") and v.get("spill_bytes")}
     if spills:
         raise SystemExit(f"the f32 flash-attention kernel spills: {spills}")
+    if _kernels.build_log:
+        k5 = {k: summary.get(k, {}).get("spill_bytes") for k in K5_DIM16}
+        print(f"  K5 and the routing on the dim-16 path, spill bytes: {k5}", flush=True)
+        if any(v is None or v for v in k5.values()):
+            raise SystemExit(f"K5's dim-16 path spills or was not reported: {k5}")
     return summary
 
 
@@ -1118,6 +1147,7 @@ def path_pipelined(dev):
 
 K4_SOURCE, K4_REPLACES = "persia_tpu_torch/csrc/fused_gather.cu", "persia_tpu/parallel/fused_step.py:242"
 K5_SOURCE, K5_REPLACES = "persia_tpu_torch/csrc/sparse_update.cu", "persia_tpu/ops/sparse_update.py:123"
+ROUTING_REPLACES = "persia_tpu/parallel/fused_step.py:389"
 
 
 def same_bits(a, b) -> bool:
@@ -1141,14 +1171,56 @@ def fused_ids(rng, kind, n, vocab):
     return ids.astype(np.int32)
 
 
+def k5_lengths(n):
+    """K5's chosen segment lengths: hot rows (as many positions as zipf(1.2)'s
+    hottest rows of a bench slot hold) and the long threshold - 1, at it and
+    + 1; segments ending on a staged tile's edge (1 and 2 tiles) and one
+    row past it."""
+    from persia_tpu_torch.ops import plans
+
+    t, rows = plans.K5_LONG_MIN, plans.sparse_update_plan(n, EMB_DIM).tile_rows
+    return {"hot": (762, 318, 180, t + 1, t, t - 1), "tile_edge": (rows, 2 * rows, rows + 1, 3 * rows)}
+
+
+def k5_ids(rng, kind, n, vocab):
+    """n ids for K5's exact check and the positions padding may not take:
+    ``fused_ids``' streams, or (``k5_lengths``) uniform ids with rows of
+    chosen lengths at random positions past the first 3."""
+    keep = np.zeros(n, bool)
+    if kind not in ("hot", "tile_edge"):
+        return fused_ids(rng, kind, n, vocab), keep
+    ids = rng.integers(0, vocab // 2, n).astype(np.int32)
+    where = rng.permutation(n - 3) + 3
+    k = 0
+    for i, length in enumerate(k5_lengths(n)[kind]):
+        ids[where[k:k + length]] = vocab // 2 + i  # rows the uniform ids never name
+        keep[where[k:k + length]] = True
+        k += length
+    return ids, keep
+
+
+def longest_segment(sids) -> int:
+    """Positions of the longest run of one row among sorted ids (the
+    padding sentinel's run left out)."""
+    import torch
+
+    from persia_tpu_torch.ops.sparse_update import PAD_SENTINEL
+
+    live = sids[sids != PAD_SENTINEL]
+    return int(torch.unique_consecutive(live, return_counts=True)[1].max()) if live.numel() else 0
+
+
 def phase_fused_kernels(dev):
-    """Phase 3b: K4 and K5 against their plain versions at bench shapes."""
+    """Phase 3b: K4, the routing and K5 against their plain versions at
+    bench shapes."""
     import torch
 
     from persia_tpu_torch import ops
     from persia_tpu_torch.embedding.optim import SGD, Adagrad, Adam
     from persia_tpu_torch.ops.fused_gather import fused_gather_reference
-    from persia_tpu_torch.ops.sparse_update import init_sparse_state, sparse_update_reference
+    from persia_tpu_torch.ops.sparse_update import (
+        init_sparse_state, sparse_update_reference, update_keys_reference,
+    )
 
     print("== phase 3b: fused-tier kernels vs their plain versions", flush=True)
     rng = np.random.default_rng(SEED + 5)
@@ -1190,6 +1262,24 @@ def phase_fused_kernels(dev):
             raise SystemExit(f"fused_gather {label} disagrees with its plain version")
     del table, cases
 
+    # the routing: integers, bit for bit its plain version (the per-slot
+    # update_ids, on the card): the bench's 26 slots with pads, ids past the
+    # vocab and ids < -1, and 130 slots (two launches) with (B, 3) slots
+    def routed(nslots, shape, vocab):
+        ids = [torch.from_numpy(rng.integers(-4, vocab + 4, shape).astype(np.int32)).to(dev)
+               for _ in range(nslots)]
+        return ids, [s * vocab for s in range(nslots)], [vocab] * nslots
+
+    for label, (ids, offs, vocabs) in (("bench: 26 slots of B=4096", routed(N_SLOTS, (BATCH,), VOCAB)),
+                                       ("130 slots of (64, 3)", routed(130, (64, 3), 1000))):
+        out = ops.update_keys(ids, offs, vocabs)
+        ok = same_bits(out, update_keys_reference(ids, offs, vocabs))
+        torch.cuda.synchronize()
+        print(f"  update_keys {label}: {out.numel()} keys ({int((out == 2 ** 31 - 1).sum())} at the sentinel): "
+              f"max_abs_err=0 tolerance=0 (bitwise) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"update_keys {label} disagrees with its plain version")
+
     # K5 sums each row's gradients in sorted order, as the plain version on
     # the CPU does (index_add_ in index order), and rounds every operation
     # once, as the plain version does: the two must agree bit for bit. The
@@ -1205,16 +1295,17 @@ def phase_fused_kernels(dev):
                        Adagrad(lr=0.05, g_square_momentum=0.95, weight_decay=0.01)),
                       ("Adagrad vectorwise(0.05, wd 0.01)", Adagrad(lr=0.05, vectorwise_shared=True, weight_decay=0.01)),
                       ("Adam(0.01, wd 0.1 ignored), powers at t=3", Adam(lr=0.01, weight_decay=0.1))):
-        for kind in ("uniform", "zipf", "one_row"):
+        for kind in ("uniform", "zipf", "one_row", "hot", "tile_edge"):
             k5.append((f"{name}, {kind}", opt.config, kind, False, torch.float32))
-    errs = {"fused_gather": 0.0}
+    errs = {"fused_gather": 0.0, "update_keys": 0.0}
     for label, cfg, kind, bench, dtype in k5:
         vocab = N_SLOTS * VOCAB if bench else VOCAB
+        keep = np.zeros(n, bool)
         if bench:  # each slot's ids in its own rows of the stacked table
             ids = np.concatenate([fused_ids(rng, kind, BATCH, VOCAB) + s * VOCAB for s in range(N_SLOTS)])
         else:
-            ids = fused_ids(rng, kind, n, vocab)
-        ids[rng.random(n) < 0.05] = -1  # masked padding
+            ids, keep = k5_ids(rng, kind, n, vocab)
+        ids[(rng.random(n) < 0.05) & ~keep] = -1  # masked padding
         ids[:3] = vocab + 1  # live past the table: dropped
         idt = torch.from_numpy(ids.astype(np.int32)).to(dev)
         mask = idt >= 0
@@ -1236,7 +1327,9 @@ def phase_fused_kernels(dev):
         card_err = max([float((tbl.float() - plain_tbl.float()).abs().max())]
                        + [float((st[k] - plain_st[k]).abs().max()) for k in st])
         rows = int(torch.unique(idt[mask & (idt < vocab)]).numel())
-        print(f"  sparse_update {label}: {rows} rows touched; vs the plain version on the CPU: max_abs_err="
+        longest = longest_segment(torch.sort(idt[mask & (idt < vocab)])[0])
+        print(f"  sparse_update {label}: {rows} rows touched, longest segment {longest}; vs the plain version on "
+              f"the CPU: max_abs_err="
               f"{err:.3e} tolerance=0 (bitwise) {'ok' if ok else 'FAIL'}; vs the plain version on the card "
               f"(index_add_ atomics): {card_err:.3e}", flush=True)
         if not ok:
@@ -1416,7 +1509,7 @@ def path_fused(dev):
     launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
     expected = {fn.__name__: 0 for fn in ops.KERNEL_WRAPPERS}
     expected.update(dot_interaction=FUSED_TIMED, dot_interaction_bwd=FUSED_TIMED,
-                    fused_gather=FUSED_TIMED, sparse_update=FUSED_TIMED)
+                    fused_gather=FUSED_TIMED, update_keys=FUSED_TIMED, sparse_update=FUSED_TIMED)
     print(f"  eager step: {FUSED_TIMED} steps, launches={launches}", flush=True)
     check_launches("fused path (eager step)", launches, expected)
     e_synced = []
@@ -1441,15 +1534,39 @@ def path_fused(dev):
     del twin
     torch.cuda.empty_cache()
 
-    # the card's own time a step (torch.profiler), graph and eager
+    # the card's own time a step (torch.profiler), and the kernels' runs;
+    # then the same with the update ids routed slot by slot (the plain
+    # version, as before the routing kernel), in turns: new, plain, new
+    from persia_tpu_torch.ops.sparse_update import update_keys_reference
+    from persia_tpu_torch.parallel import fused_step as fused_step_module
+
     prof_batches = [on_card(h) for h in host]
-    busy, top, runs = device_busy_ms(lambda b: graph_step(state, b), prof_batches)
     step_ms = wall / FUSED_TIMED * 1e3
-    graph_runs = {"fused_gather": runs["fused_gather_kernel"], "sparse_update": runs["sparse_update_kernel"],
+
+    def traced(step):
+        busy_, top_, runs_ = device_busy_ms(lambda b: step(state, b), prof_batches)
+        return busy_, top_, runs_, runs_["elementwise"] / len(prof_batches)
+
+    busy, top, runs, elementwise = traced(graph_step)
+    fused_step_module.update_keys = update_keys_reference
+    try:
+        plain_routing_step = build_fused_train_step(cfg, specs, stack=True, jit=True)
+        plain_routing_step(state, prof_batches[0])  # captured with the per-slot routing
+    finally:
+        fused_step_module.update_keys = ops.update_keys
+    busy_plain, _, runs_plain, elementwise_plain = traced(plain_routing_step)
+    busy2, _, _, elementwise2 = traced(graph_step)
+    del plain_routing_step
+    graph_runs = {"fused_gather": runs["fused_gather_kernel"], "update_keys": runs["update_keys_kernel"],
+                  **{k: runs[k] for k in K5_KERNELS},
                   "dot_interaction": runs["dot_interaction_kernel"] + runs["dot_interaction_mma_kernel"],
                   "dot_interaction_bwd": runs["dot_interaction_bwd_kernel"] + runs["dot_interaction_bwd_mma_kernel"]}
     print(f"  card busy {busy} ms of a {step_ms:.3f} ms graph step; top kernels {top}; kernel runs on the card "
           f"in {len(prof_batches)} graph steps (trace): {graph_runs}", flush=True)
+    print(f"  routing in one launch vs slot by slot (plain version), card busy a graph step: {busy} and {busy2} ms "
+          f"vs {busy_plain} ms; PyTorch elementwise kernels a step: {elementwise} and {elementwise2} vs "
+          f"{elementwise_plain} (routing kernel runs {runs['update_keys_kernel']} vs "
+          f"{runs_plain['update_keys_kernel']})", flush=True)
     check_launches("fused path (graph step, traced)", graph_runs, dict.fromkeys(graph_runs, len(prof_batches)))
 
     # FusedTrainCtx.train_pipelined (depth 2, k=1) over FUSED_PIPE batches
@@ -1479,7 +1596,8 @@ def path_fused(dev):
         "graph_equals_eager_steps": FUSED_CHECK,
         "loss_max_abs_err_vs_cpu": loss_err, "row_max_abs_err_vs_cpu": row_err, "rows_compared": touched.numel(),
         "row_delta_rel_err_vs_cpu": delta_err, "row_delta_max": delta_max, "delta_rel_tolerance": FUSED_DELTA_RTOL,
-        "eager_step_launches": {k: launches[k] for k in graph_runs},
+        "eager_step_launches": {k: launches[k] for k in ("fused_gather", "update_keys", "sparse_update",
+                                                         "dot_interaction", "dot_interaction_bwd")},
         "graph_step_kernel_runs_traced": graph_runs, "traced_graph_steps": len(prof_batches),
         "graph_samples_per_s": FUSED_TIMED * BATCH / wall, "graph_step_ms_mean": step_ms,
         "eager_samples_per_s": FUSED_TIMED * BATCH / e_wall,
@@ -1487,7 +1605,10 @@ def path_fused(dev):
         "timed_steps": FUSED_TIMED,
         "graph_step_ms_p50_synced": float(np.percentile(synced, 50)), "graph_step_ms_max_synced": max(synced),
         "eager_step_ms_p50_synced": float(np.percentile(e_synced, 50)), "eager_step_ms_max_synced": max(e_synced),
-        "graph_step_device_busy_ms": busy,
+        "graph_step_device_busy_ms": busy, "graph_step_device_busy_ms_runs": [busy, busy2],
+        "graph_step_elementwise_kernels": elementwise,
+        "plain_routing_graph_step_device_busy_ms": busy_plain,
+        "plain_routing_graph_step_elementwise_kernels": elementwise_plain,
         "graph_step_idle_share": None if busy is None else 1 - busy / step_ms,
         "graph_step_top_kernels_ms": top, "eager_step_top_cpu_ms": eager_cpu,
         "pipelined_samples_per_s": FUSED_PIPE * BATCH / pipe_wall, "pipelined_batches": FUSED_PIPE,
@@ -1777,8 +1898,10 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused):
     # cold (fresh batches, rotated: the rows they name spread over the
     # 1.66 GB table, > 72 MB of distinct rows in all), the share read from
     # the cold time
-    from persia_tpu_torch.ops.fused_gather import fused_gather_reference, gather_rows, update_ids
-    from persia_tpu_torch.ops.sparse_update import PAD_SENTINEL, sparse_update_reference, sparse_update_sorted
+    from persia_tpu_torch.ops.fused_gather import fused_gather_reference, gather_rows
+    from persia_tpu_torch.ops.sparse_update import (
+        PAD_SENTINEL, sparse_update_reference, sparse_update_sorted, update_keys_reference,
+    )
 
     grp, tbl, acc, cfg = fused["group"], fused["table"], fused["state"], fused["cfg"]
     vocabs = [VOCAB] * len(grp.slots)
@@ -1821,7 +1944,7 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused):
     def k5_inputs(ids):
         """K5's inputs for one batch: the step's sentinel-routed update ids,
         sorted; gradients of the step's size; the touched rows; the bound."""
-        flat = torch.cat([update_ids(i, o, VOCAB) for i, o in zip(ids, grp.offsets)])
+        flat = update_keys_reference(ids, grp.offsets, vocabs)
         sids, perm = torch.sort(flat, stable=True)
         grads = torch.randn((flat.numel(), EMB_DIM), generator=g).to(dev) * 1e-3
         touched = int(torch.unique(sids[sids != PAD_SENTINEL]).numel())
@@ -1842,7 +1965,16 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused):
         cold = [cold_ms(lambda si, pe, gr: sparse_update_sorted(cfg, tbl, acc, si, pe, gr, bs),
                         lambda: k5_inputs(fresh_ids(kind))[1:4], nbytes) for _ in range(2)]
         sort_ms = graph_ms(lambda: torch.sort(flat, stable=True))
+        # each of K5's steps apart (torch.profiler over 20 warm calls)
+        _, top, _ = device_busy_ms(lambda _: sparse_update_sorted(cfg, tbl, acc, sids, perm, grads, bs), [None] * 20)
+        stages = {re.search(r"sparse_update_\w+_kernel|Memset", k).group(0): v for k, v in top.items()
+                  if "sparse_update" in k or "Memset" in k}
+        longest = longest_segment(sids)
+        print(f"  sparse_update {kind}: {touched} rows touched, longest segment {longest}; warm {runs} ms, cold "
+              f"{[c['ms'] for c in cold]} ms (bound {bms:.5f}); torch.sort {sort_ms:.5f} ms; steps {stages}",
+              flush=True)
         k5[kind] = dict(ms=min(runs), ms_runs=runs, cold_ms=min(c["ms"] for c in cold),
+                        longest_segment=longest, stage_ms=stages,
                         cold_ms_runs=[c["ms"] for c in cold], cold_copies=cold[0]["copies"], sort_ms=sort_ms,
                         bound_ms=bms, bound_by=by, touched_rows=touched, bytes=nbytes,
                         eager_ms=eager_ms(lambda: sparse_update_sorted(cfg, tbl, acc, sids, perm, grads, bs)),
@@ -1850,6 +1982,13 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused):
                         plain_ms=eager_ms(lambda: sparse_update_reference(cfg, tbl, acc, flat, grads, bs),
                                           iters=10, warmup=2))
     u, z = k5["uniform"], k5["zipf"]
+    # every position of the batch on one row: one long segment
+    one = torch.full((n_pos,), grp.offsets[0] + 5, dtype=torch.int32, device=dev)
+    one_perm = torch.arange(n_pos, device=dev)
+    one_grads = torch.randn((n_pos, EMB_DIM), generator=g).to(dev) * 1e-3
+    one_row_ms = min(graph_ms(lambda: sparse_update_sorted(cfg, tbl, acc, one, one_perm, one_grads, bs))
+                     for _ in range(2))
+    print(f"  sparse_update one row ({n_pos} positions): {one_row_ms:.5f} ms", flush=True)
     rows.append(dict(
         name="sparse_update", route="cuda", cuda_route="cuda", source=K5_SOURCE, replaces=K5_REPLACES,
         shape=[n_pos, EMB_DIM, tbl.shape[0]], dtype="float32", optimizer="Adagrad(lr=0.05)",
@@ -1863,6 +2002,20 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused):
         zipf_ms=z["ms"], zipf_ms_runs=z["ms_runs"], zipf_cold_ms=z["cold_ms"], zipf_cold_ms_runs=z["cold_ms_runs"],
         zipf_bound_ms=z["bound_ms"], zipf_cold_share=z["bound_ms"] / z["cold_ms"], zipf_sort_ms=z["sort_ms"],
         zipf_plain_ms=z["plain_ms"], zipf_touched_rows=z["touched_rows"],
+        longest_segment=u["longest_segment"], zipf_longest_segment=z["longest_segment"],
+        stage_ms=u["stage_ms"], zipf_stage_ms=z["stage_ms"], one_row_ms=one_row_ms,
+    ))
+    # the routing pass at the fused path's own batch: reads the ids, writes
+    # the keys; its plain version (per-slot comparisons, a where, a cast and
+    # the cat) and torch.sort beside it
+    bms, by = bound(2 * n_pos * 4, 0, "float32")
+    rows.append(timed(
+        dict(name="update_keys", route="cuda", cuda_route="cuda", source=K5_SOURCE, replaces=ROUTING_REPLACES,
+             shape=[len(ids), BATCH], dtype="int32", launches=launches["fused"]["update_keys"],
+             max_abs_err=errs["update_keys"], bound_ms=bms, bound_by=by, sort_ms=u["sort_ms"],
+             library_note="none: no one PyTorch call computes it"),
+        kernel=lambda: ops.update_keys(ids, grp.offsets, vocabs),
+        plain=lambda: update_keys_reference(ids, grp.offsets, vocabs),
     ))
     for r in rows:
         print(json.dumps({"kernel_timing": r, "card": card}), flush=True)
@@ -1905,7 +2058,7 @@ def main() -> int:
     keys = ("name", "route", "cuda_route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "eager_ms",
             "library_eager_ms", "cold_ms", "library_cold_ms", "sort_ms", "zipf_ms", "zipf_cold_ms",
-            "zipf_bound_ms", "zipf_sort_ms")
+            "zipf_bound_ms", "zipf_sort_ms", "longest_segment", "zipf_longest_segment", "one_row_ms")
     kernels = [{k: r.get(k) for k in keys} for r in rows if not r.get("causal")]
     print(json.dumps({"kernels": kernels, "card": card}), flush=True)
     print(card, flush=True)

@@ -6,8 +6,9 @@ per route, in ``flash_attention.launches_by_route``; its f32 route's
 pre-pass in ``tf32_split_planes.launches``). ``dot_interaction`` and
 ``embedding_pool`` are differentiable: their backward passes launch
 ``dot_interaction_bwd`` and ``gather_pool_bwd``. The fused tier's
-``fused_gather`` (K4) and ``sparse_update`` (K5) update nothing through
-autograd: the gathered rows are the step's differentiated leaves."""
+``fused_gather`` (K4), ``update_keys`` (the routing of the update ids)
+and ``sparse_update`` (K5) update nothing through autograd: the gathered
+rows are the step's differentiated leaves."""
 
 from persia_tpu_torch.ops.dot_interaction import dot_interaction, dot_interaction_bwd  # noqa: F401
 from persia_tpu_torch.ops.embedding_pool import (  # noqa: F401
@@ -18,11 +19,11 @@ from persia_tpu_torch.ops.embedding_pool import (  # noqa: F401
 )
 from persia_tpu_torch.ops.flash_attention import flash_attention, tf32_split_planes  # noqa: F401
 from persia_tpu_torch.ops.fused_gather import fused_gather  # noqa: F401
-from persia_tpu_torch.ops.sparse_update import sparse_update  # noqa: F401
+from persia_tpu_torch.ops.sparse_update import sparse_update, update_keys  # noqa: F401
 
 KERNEL_WRAPPERS = (
     dot_interaction, dot_interaction_bwd, gather_pool_fwd, gather_pool_bwd,
-    flash_attention, tf32_split_planes, fused_gather, sparse_update,
+    flash_attention, tf32_split_planes, fused_gather, update_keys, sparse_update,
 )
 
 

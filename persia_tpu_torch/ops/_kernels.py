@@ -141,8 +141,11 @@ def library() -> ctypes.CDLL:
             lib.persia_sparse_update.restype = i32
             lib.persia_sparse_update.argtypes = [
                 vp, i32, ctypes.c_longlong, i32, vp, vp, vp, vp, vp, i32, vp,
-                i32, i32, f32, f32, f32, f32, f32, f32, f32, f32, vp,
+                i32, i32, f32, f32, f32, f32, f32, f32, f32, f32,
+                vp, i32, i32, vp,
             ]
+            lib.persia_update_keys.restype = i32
+            lib.persia_update_keys.argtypes = [vp, i32, vp, vp]
             _lib = lib
         return _lib
 

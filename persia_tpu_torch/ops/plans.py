@@ -448,3 +448,72 @@ def pool_bwd_model(values: np.ndarray, rows: np.ndarray, num_rows: int, plan: Po
     if not (writes == 1).all():
         raise AssertionError(f"rows written other than once: {np.flatnonzero(writes != 1)[:10]}")
     return out
+
+
+# fused sparse optimizer update, K5 (csrc/sparse_update.cu): a first pass
+# lists the segments (runs of one row among the sorted ids), split at
+# K5_LONG_MIN positions; a short segment goes to a group of lanes, a long
+# one to a block that stages its rows into shared memory, tile_rows rows a
+# tile. The kernel derives its lane groups and grids from N, dim and vec.
+K5_LONG_MIN = 32  # positions from which a segment is long (kLongMin)
+K5_TILE_ROWS_MAX = 128
+K5_TILE_CHUNKS = 1024  # 16-byte (or 4-byte, scalar) pieces of one staged tile
+K5_MAX_UNITS = 256  # column units (4 columns, or 1 on the scalar path) a row may have
+
+
+def _pow2_floor(x: int) -> int:
+    return 1 << (max(x, 1).bit_length() - 1)
+
+
+@dataclass(frozen=True)
+class SparseUpdatePlan:
+    n: int  # sorted positions
+    dim: int
+    vec: int  # 4: 16-byte rows (8 for a bf16 table); 1: scalar columns
+    tile_rows: int  # rows of one staged tile of a long segment
+
+    @property
+    def units(self) -> int:
+        """Column units of a row: dim / vec."""
+        return self.dim // self.vec
+
+    @property
+    def scratch_ints(self) -> int:
+        """int32 scratch: 2 counters (padded to 16 bytes), the short list
+        (start, length) x n, the long list x the most long segments n
+        positions can hold."""
+        return 4 + 2 * self.n + 2 * (self.n // K5_LONG_MIN)
+
+
+@functools.lru_cache(maxsize=256)
+def sparse_update_plan(n: int, dim: int, aligned: bool = True) -> SparseUpdatePlan:
+    """Geometry of K5 for ``n`` sorted positions of rows of ``dim``
+    columns. ``aligned``: the table, the gradients and the per-column state
+    start on 16 bytes (8 for a bf16 table). A row takes 16-byte access where
+    dim % 4 == 0 and it is aligned, else scalar columns."""
+    if n < 0 or dim < 1:
+        raise ValueError("K5 needs n >= 0 and dim >= 1")
+    vec = 4 if aligned and dim % 4 == 0 else 1
+    units = dim // vec
+    if units > K5_MAX_UNITS:
+        raise ValueError(f"K5 takes rows of at most {K5_MAX_UNITS * 4} columns (a multiple of 4, aligned) "
+                         f"or {K5_MAX_UNITS} otherwise, got {dim}")
+    return SparseUpdatePlan(n=n, dim=dim, vec=vec,
+                            tile_rows=min(K5_TILE_ROWS_MAX, _pow2_floor(K5_TILE_CHUNKS // units)))
+
+
+def k5_segments(sorted_ids: np.ndarray, num_rows: int):
+    """K5's first pass, in numpy: the segments of ``sorted_ids`` (ascending
+    int32) whose id lies in [0, num_rows), as (start, length) lists, short
+    ones (length < K5_LONG_MIN) and long ones, each in position order (the
+    kernel's lists are in position order within each block of positions;
+    the blocks append in any order, which changes no bit)."""
+    ids = np.asarray(sorted_ids, dtype=np.int64)
+    n = ids.shape[0]
+    heads = np.flatnonzero(np.r_[True, ids[1:] != ids[:-1]]) if n else np.zeros(0, np.int64)
+    ends = np.r_[heads[1:], n] if n else heads
+    short, long_ = [], []
+    for s, e in zip(heads.tolist(), ends.tolist()):
+        if 0 <= ids[s] < num_rows:
+            (long_ if e - s >= K5_LONG_MIN else short).append((s, e - s))
+    return short, long_

@@ -21,19 +21,26 @@ Both versions update ``table`` and ``state`` in place (the counterpart of
 the reference's donated buffers) and return them. A CPU tensor takes the
 plain version (``dedup_gradients``, ``_apply_rows``, ``index_add_``); a CUDA
 tensor ``torch.sort`` (the reference's ``jnp.argsort``, XLA's sort outside
-any kernel) and one launch of K5, which finds the segment heads itself and
-writes each touched row once (distinct segments name distinct rows, so no
-atomics).
+any kernel) and K5: a pass that lists the segments (runs of one id) as
+short or long, then a block for each long segment (its rows staged into
+shared memory, summed in sorted order) and a lane group for each short
+one. Each segment writes only its own row, so no float is summed with
+atomics, and K5 equals its plain version bit for bit. The segment lists,
+in numpy, are ``plans.k5_segments``.
+
+``update_keys`` routes a table's update ids in one launch (the
+``update_keys_kernel`` of ``csrc/sparse_update.cu``): per slot, an id in
+the slot's [0, vocab) becomes id + offset, any other id the sentinel.
 
 One difference from the reference, at the direct call only: an id < 0 that
 no mask covers is dropped here, where JAX wraps it to row V + id. The fused
-step routes its padding to the sentinel itself (``fused_gather.update_ids``),
-so it never passes one.
+step routes its padding to the sentinel itself (``update_keys``), so it
+never passes one.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,10 +51,19 @@ from persia_tpu_torch.embedding.optim import (
     OPTIMIZER_SGD,
     OptimizerConfig,
 )
-from persia_tpu_torch.ops import _kernels
+from persia_tpu_torch.ops import _kernels, plans
+from persia_tpu_torch.ops.fused_gather import update_ids
 
 PAD_SENTINEL = int(np.iinfo(np.int32).max)
+MAX_SLOTS = 128  # slots one launch of update_keys routes
 _DTYPES = {torch.float32: _kernels.DTYPE_F32, torch.bfloat16: _kernels.DTYPE_BF16}
+# ``UpdateSlots`` of csrc/sparse_update.cu, passed by pointer
+_SLOTS = np.dtype([
+    ("ids", "<u8", (MAX_SLOTS,)),
+    ("start", "<i4", (MAX_SLOTS + 1,)),
+    ("offset", "<i4", (MAX_SLOTS,)),
+    ("vocab", "<i4", (MAX_SLOTS,)),
+])
 
 
 def init_sparse_state(
@@ -194,6 +210,10 @@ def _check(cfg, table, state, sids, perm, grads, batch_state) -> None:
             raise ValueError(f"every input must be on the table's device {dev}")
 
 
+def _aligned(*tensors, bytes_: int = 16) -> bool:
+    return all(t is None or t.data_ptr() % bytes_ == 0 for t in tensors)
+
+
 def _launch(cfg, table, state, sids, perm, grads, batch_state) -> None:
     _check(cfg, table, state, sids, perm, grads, batch_state)
     n = sids.shape[0]
@@ -201,6 +221,14 @@ def _launch(cfg, table, state, sids, perm, grads, batch_state) -> None:
         return
     s0 = state.get("acc", state.get("m"))
     s1 = state.get("v")
+    per_column = s0 if not (cfg.kind == OPTIMIZER_ADAGRAD and cfg.vectorwise_shared) else None
+    aligned = _aligned(grads, per_column, s1) and _aligned(table, bytes_=4 * table.element_size())
+    plan = plans.sparse_update_plan(n, table.shape[1], aligned)
+    stream = _kernels.stream_handle(table)
+    # K5's counters and segment lists, reset by its first stage. Freed
+    # after the call, stream-ordered; under graph capture the graph's own
+    # pool keeps it for the graph's life, so a replay needs no host.
+    scratch = torch.empty(plan.scratch_ints, dtype=torch.int32, device=table.device)
     lib = _kernels.library()
     with torch.cuda.device(table.device):
         rc = lib.persia_sparse_update(
@@ -209,7 +237,7 @@ def _launch(cfg, table, state, sids, perm, grads, batch_state) -> None:
             sids.data_ptr(), perm.data_ptr(), grads.data_ptr(), n, batch_state.data_ptr(),
             cfg.kind, int(bool(cfg.vectorwise_shared)), cfg.lr, cfg.weight_decay, cfg.g_square_momentum,
             cfg.eps, cfg.beta1, 1.0 - cfg.beta1, cfg.beta2, 1.0 - cfg.beta2,
-            _kernels.stream_handle(table),
+            scratch.data_ptr(), plan.vec, plan.tile_rows, stream,
         )
     _kernels.check(rc, "sparse_update")
     sparse_update.launches += 1
@@ -228,7 +256,7 @@ def sparse_update(
     returns ``(table, state)``, the same tensors. ``batch_state`` is the
     f32[2] (beta1^t, beta2^t) for Adam (ones when None); ``mask`` (N,) bool
     marks live entries. A CPU table takes the plain version; a CUDA table
-    ``torch.sort`` and one launch of K5."""
+    ``torch.sort`` and K5 (its three kernels count as one launch)."""
     if batch_state is None:
         batch_state = torch.ones(2, dtype=torch.float32, device=table.device)
     if table.device.type == "cpu":
@@ -242,8 +270,8 @@ def sparse_update(
 
 def sparse_update_sorted(cfg, table, state, sids, perm, grads, batch_state):
     """K5 alone on ids already sorted (``torch.sort(masked_ids,
-    stable=True)``): what ``sparse_update`` launches after its sort, for
-    timing the kernel apart from the sort. CUDA tensors only."""
+    stable=True)``): every stage ``sparse_update`` launches after its sort,
+    for timing K5 apart from the sort. CUDA tensors only."""
     if table.device.type != "cuda":
         raise ValueError("sparse_update_sorted launches the kernel: CUDA tensors only")
     _launch(cfg, table, state, sids, perm, grads, batch_state)
@@ -260,3 +288,53 @@ def masked_flat_ids_grads(
     gradients for ``sparse_update``: (flat ids, flat grads (N, D), mask)."""
     mask = (ids >= 0).reshape(-1)
     return ids.reshape(-1), grads.reshape(-1, grads.shape[-1]), mask
+
+
+def update_keys_reference(ids: Sequence[torch.Tensor], offsets: Sequence[int], vocabs: Sequence[int]) -> torch.Tensor:
+    """Plain version: each slot's ``update_ids``, concatenated."""
+    return torch.cat([update_ids(i, o, v) for i, o, v in zip(ids, offsets, vocabs)])
+
+
+def update_keys(ids: Sequence[torch.Tensor], offsets: Sequence[int], vocabs: Sequence[int]) -> torch.Tensor:
+    """One table's flat int32 update keys, slot after slot: for each slot's
+    ids ((B,) or (B, L) int32, -1 = padding) an id in [0, vocab) becomes
+    id + offset (its row in the table), any other id ``PAD_SENTINEL``.
+    A CPU tensor takes the plain version; CUDA tensors one launch per
+    group of at most 128 slots."""
+    if not ids or not (len(ids) == len(offsets) == len(vocabs)):
+        raise ValueError("need ids, an offset and a vocab for each slot, and at least one slot")
+    dev = ids[0].device
+    if dev.type == "cpu":
+        return update_keys_reference(ids, offsets, vocabs)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    for i, o, v in zip(ids, offsets, vocabs):
+        if i.dtype != torch.int32 or i.device != dev or not i.is_contiguous():
+            raise ValueError("a slot's ids must be contiguous int32 on one device")
+        if v < 1 or o < 0 or o + v > PAD_SENTINEL:
+            raise ValueError(f"slot rows [{o}, {o + v}) must lie in [0, {PAD_SENTINEL})")
+    counts = [i.numel() for i in ids]
+    if sum(counts) > PAD_SENTINEL:
+        raise ValueError("a table's positions must fit int32")
+    out = torch.empty(sum(counts), dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out
+    lib = _kernels.library()
+    stream = _kernels.stream_handle(out)
+    pos = 0
+    with torch.cuda.device(dev):
+        for s0 in range(0, len(ids), MAX_SLOTS):
+            part = range(s0, min(len(ids), s0 + MAX_SLOTS))
+            params = np.zeros(1, _SLOTS)
+            params["ids"][0, :len(part)] = [ids[s].data_ptr() for s in part]
+            params["start"][0, 1:len(part) + 1] = np.cumsum([counts[s] for s in part])
+            params["offset"][0, :len(part)] = [offsets[s] for s in part]
+            params["vocab"][0, :len(part)] = [vocabs[s] for s in part]
+            rc = lib.persia_update_keys(params.ctypes.data, len(part), out[pos:].data_ptr(), stream)
+            _kernels.check(rc, "update_keys")
+            update_keys.launches += 1
+            pos += sum(counts[s] for s in part)
+    return out
+
+
+update_keys.launches = 0

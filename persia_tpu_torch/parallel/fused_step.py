@@ -3,7 +3,8 @@
 the card's memory, and the whole hybrid step run on the card.
 
     ids → gather (K4) → DLRM forward and backward → Adam on the dense tower
-        → sort + sparse optimizer update of the touched rows (K5)
+        → update ids routed (``update_keys``) → sort → sparse optimizer
+        update of the touched rows (K5)
 
 Per step only the raw batch (int32 ids, dense features, labels) goes in;
 no embedding or gradient crosses to the host.
@@ -18,12 +19,12 @@ the reference: pooling and masking stay in ``_model_inputs``, under
 autograd, so the gather needs no backward kernel.
 
 ``jit=True`` on a card (the counterpart of ``jax.jit``): the step replays a
-CUDA graph of the whole step (gather, forward, backward, Adam, sort, K5),
-captured at the first call for the batch's shapes. The batch is copied
-into the graph's static input buffers; the capture's warm-up runs on the
-caller's state and then restores it bit for bit (the dense state whole,
-the tables' and their optimizer state's touched rows only, so a capture
-needs no second copy of the tables). Adam is built
+CUDA graph of the whole step (gather, forward, backward, Adam, routing,
+sort, K5), captured at the first call for the batch's shapes. The batch
+is copied into the graph's static input buffers; the capture's warm-up
+runs on the caller's state and then restores it bit for bit (the dense
+state whole, the tables' and their optimizer state's touched rows only,
+so a capture needs no second copy of the tables). Adam is built
 ``capturable`` on a card in both the eager and the graph step, so the two
 give the same bits. On the CPU both are eager.
 
@@ -46,8 +47,8 @@ import torch
 from persia_tpu_torch.ctx import _to_device
 from persia_tpu_torch.device import resolve_device
 from persia_tpu_torch.embedding.optim import OptimizerConfig
-from persia_tpu_torch.ops.fused_gather import fused_gather, update_ids
-from persia_tpu_torch.ops.sparse_update import init_sparse_state, sparse_update
+from persia_tpu_torch.ops.fused_gather import fused_gather
+from persia_tpu_torch.ops.sparse_update import init_sparse_state, sparse_update, update_keys
 from persia_tpu_torch.parallel.stage_graph import StageGraph
 from persia_tpu_torch.parallel.train_step import default_loss_fn
 
@@ -331,8 +332,9 @@ def init_fused_state(
 
 def _update_ids(ids, slots, offsets, vocabs) -> torch.Tensor:
     """One table's flat update ids, padding and out-of-range ids at the
-    sentinel (``update_ids``), slot after slot as the gather wrote them."""
-    return torch.cat([update_ids(ids[n], off, v) for n, off, v in zip(slots, offsets, vocabs)])
+    sentinel, slot after slot as the gather wrote them: one launch of
+    ``update_keys`` on a card."""
+    return update_keys([ids[n] for n in slots], offsets, vocabs)
 
 
 def _step_body(sparse_cfg, specs, slot_order, loss_fn, plan):

@@ -705,6 +705,181 @@ def test_sparse_update_kernel_matches_cpu_plain_bitwise(cuda, opt, kind):
         assert torch.equal(_bits(card_s[k]), _bits(state[k])), k
 
 
+K5_STREAMS = ["uniform", "zipf", "one_row", "length_t_minus_1", "length_t", "length_t_plus_1", "tile_edge",
+              "empty", "all_padding"]
+
+
+def _k5_stream(kind, dim, vocab, seed):
+    """(ids, mask, grads) on the CPU: the CPU schedule tests' streams
+    (tests/test_torch_sparse_schedule.py), one row's segment at the long
+    threshold - 1, at it and + 1, or ending on a staged tile's edge."""
+    from persia_tpu_torch.ops import plans
+
+    rng = np.random.default_rng(seed)
+    t, rows, n = plans.K5_LONG_MIN, plans.sparse_update_plan(1, dim).tile_rows, 4000
+    if kind == "uniform":
+        ids = rng.integers(0, vocab, n)
+    elif kind == "zipf":
+        ids = (rng.zipf(1.2, n) - 1) % vocab
+    elif kind == "one_row":
+        ids = np.full(n, 7)
+    elif kind.startswith("length_"):
+        k = {"length_t_minus_1": t - 1, "length_t": t, "length_t_plus_1": t + 1}[kind]
+        ids = np.r_[np.full(k, 11), 12 + np.arange(n - k) % (vocab - 12)][rng.permutation(n)]
+    elif kind == "tile_edge":
+        ids = np.r_[np.full(2 * rows, 3), np.full(rows, 150), np.full(rows + 1, 60), rng.integers(0, vocab, 500)]
+        ids = ids[rng.permutation(ids.size)]
+        n = ids.size
+    elif kind == "empty":
+        ids, n = np.zeros(0), 0
+    else:
+        ids = rng.integers(0, vocab, n)
+    ids = ids.astype(np.int32)
+    mask = rng.random(n) >= 0.1
+    if kind in ("one_row", "tile_edge"):
+        mask[:] = True
+    if kind == "all_padding":
+        mask[:] = False
+    if kind.startswith("length_"):
+        mask[ids == 11] = True
+    if kind in ("uniform", "zipf"):
+        ids[:2] = [vocab + 4, -3]
+        mask[:2] = True
+    grads = rng.standard_normal((n, dim)).astype(np.float32)
+    return torch.from_numpy(ids), torch.from_numpy(mask), torch.from_numpy(grads)
+
+
+def _k5_case(cuda, cfg, ids, mask, grads, dim, vocab, dtype, seed, unaligned=False):
+    """K5 on the card and its plain version on the CPU from one state:
+    tables and optimizer state bit for bit, one launch counted."""
+    from persia_tpu_torch.ops import sparse_update
+    from persia_tpu_torch.ops.sparse_update import init_sparse_state
+
+    rng = np.random.default_rng(seed)
+    table = (torch.from_numpy(rng.standard_normal((vocab, dim)).astype(np.float32)) * 0.05).to(dtype)
+    state = init_sparse_state(cfg, vocab, dim)
+    for v in state.values():
+        v.copy_(torch.from_numpy(rng.uniform(0.01, 1.0, v.shape).astype(np.float32)))
+    bs = torch.tensor([cfg.beta1 ** 3, cfg.beta2 ** 3])
+    card_t, card_s = table.to(cuda), {k: v.to(cuda) for k, v in state.items()}
+    card_g = grads.to(cuda)
+    if unaligned:  # the same gradients 4 bytes off a 16-byte boundary: the scalar path
+        card_g = torch.empty(grads.numel() + 1, device=cuda)[1:].view(grads.shape).copy_(card_g)
+    before = sparse_update.launches
+    sparse_update(cfg, card_t, card_s, ids.to(cuda), card_g, bs.to(cuda), mask=mask.to(cuda))
+    sparse_update(cfg, table, state, ids, grads, bs, mask=mask)
+    torch.cuda.synchronize()
+    assert sparse_update.launches == before + (1 if ids.numel() else 0)
+    assert torch.equal(_bits(card_t), _bits(table))
+    for k in state:
+        assert torch.equal(_bits(card_s[k]), _bits(state[k])), k
+
+
+@pytest.mark.parametrize("dim", [8, 10, 16, 24, 64, 128])
+@pytest.mark.parametrize("kind", K5_STREAMS)
+def test_sparse_update_kernel_schedule_cases_bitwise(cuda, kind, dim):
+    """K5 bit for bit its plain version on every stream of the CPU schedule
+    tests, for SGD, Adagrad, vectorwise Adagrad and Adam, all with weight
+    decay, at dims 8 to 128 (10: the scalar path), and a bf16 table."""
+    from persia_tpu_torch.embedding.optim import SGD, Adagrad, Adam
+
+    opts = [SGD(lr=0.1, weight_decay=0.01), Adagrad(lr=0.05, g_square_momentum=0.95, weight_decay=0.01),
+            Adagrad(lr=0.05, vectorwise_shared=True, weight_decay=0.02), Adam(lr=0.01, weight_decay=0.1)]
+    ids, mask, grads = _k5_stream(kind, dim, 300, seed=len(kind) + dim)
+    for i, opt in enumerate(opts):
+        _k5_case(cuda, opt.config, ids, mask, grads, dim, 300, torch.float32, seed=i)
+    _k5_case(cuda, Adagrad(lr=0.05).config, ids, mask, grads, dim, 300, torch.bfloat16, seed=9)
+
+
+@pytest.mark.parametrize("opt", ["adagrad_wd", "adagrad_vw", "adam"])
+def test_sparse_update_kernel_unaligned_gradients_bitwise(cuda, opt):
+    """Gradients off a 16-byte boundary take the scalar path: the same bits."""
+    from persia_tpu_torch.embedding.optim import Adagrad, Adam
+
+    cfg = {"adagrad_wd": Adagrad(lr=0.05, weight_decay=0.01), "adagrad_vw": Adagrad(lr=0.05, vectorwise_shared=True),
+           "adam": Adam(lr=0.01)}[opt].config
+    ids, mask, grads = _k5_stream("zipf", 16, 300, seed=5)
+    _k5_case(cuda, cfg, ids, mask, grads, 16, 300, torch.float32, seed=1, unaligned=True)
+
+
+@pytest.mark.parametrize("opt", ["adagrad", "adagrad_vw", "adam"])
+def test_sparse_update_kernel_one_row_at_bench_size_bitwise(cuda, opt):
+    """106,496 positions (26 slots of B=4096) on one row: one long segment
+    of 832 staged tiles, bit for bit."""
+    from persia_tpu_torch.embedding.optim import Adagrad, Adam
+
+    cfg = {"adagrad": Adagrad(lr=0.05), "adagrad_vw": Adagrad(lr=0.05, vectorwise_shared=True),
+           "adam": Adam(lr=0.01)}[opt].config
+    n = 26 * 4096
+    rng = np.random.default_rng(2)
+    ids = torch.full((n,), 1234, dtype=torch.int32)
+    grads = torch.from_numpy(rng.standard_normal((n, 16)).astype(np.float32))
+    _k5_case(cuda, cfg, ids, torch.ones(n, dtype=torch.bool), grads, 16, 5000, torch.float32, seed=3)
+
+
+def test_sparse_update_graphs_on_two_streams_bitwise(cuda):
+    """Two updates of one shape captured in two CUDA graphs and replayed at
+    once on two streams, 5 times each: each graph owns its scratch, so
+    both tables and accumulators stay bit for bit the plain version's."""
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.ops import sparse_update
+    from persia_tpu_torch.ops.sparse_update import init_sparse_state
+
+    cfg = Adagrad(lr=0.05, vectorwise_shared=True).config
+    bs = torch.ones(2)
+    cases, graphs = [], []
+    for seed in (7, 8):
+        ids, mask, grads = _k5_stream("zipf", 16, 300, seed=seed)
+        table = torch.from_numpy((np.random.default_rng(seed).standard_normal((300, 16)) * 0.05).astype(np.float32))
+        state = init_sparse_state(cfg, 300, 16)
+        cases.append((ids, mask, grads, table, state))
+        args = (ids.to(cuda), grads.to(cuda), bs.to(cuda), mask.to(cuda))
+        warm_t, warm_s = table.to(cuda), {k: v.to(cuda) for k, v in state.items()}
+        sparse_update(cfg, warm_t, warm_s, args[0], args[1], args[2], mask=args[3])  # builds and loads K5
+        card_t, card_s = table.to(cuda), {k: v.to(cuda) for k, v in state.items()}
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            sparse_update(cfg, card_t, card_s, args[0], args[1], args[2], mask=args[3])
+        graphs.append((g, card_t, card_s, args))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    for _ in range(5):
+        for (g, *_), s in zip(graphs, streams):
+            with torch.cuda.stream(s):
+                g.replay()
+    torch.cuda.synchronize()
+    for (ids, mask, grads, table, state), (_, card_t, card_s, _) in zip(cases, graphs):
+        for _ in range(5):
+            sparse_update(cfg, table, state, ids, grads, bs, mask=mask)
+        assert torch.equal(_bits(card_t), _bits(table))
+        assert torch.equal(_bits(card_s["acc"]), _bits(state["acc"]))
+
+
+@pytest.mark.parametrize("slots", [1, 26, 130])
+def test_update_keys_kernel_matches_plain_bitwise(cuda, slots):
+    """The routing kernel: pads, ids >= vocab and < -1, (B,) and (B, L)
+    slots, offsets up to 2**31 - 101; one launch a group of 128 slots."""
+    from persia_tpu_torch.ops import update_keys
+    from persia_tpu_torch.ops.sparse_update import update_keys_reference
+
+    rng = np.random.default_rng(slots)
+    ids, offsets, vocabs = [], [], []
+    for s in range(slots):
+        vocab = int(rng.integers(1, 300))
+        offset = 2 ** 31 - 401 if s == slots - 1 else int(rng.integers(0, 1 << 26))
+        shape = (4096,) if s % 2 == 0 else (100, 3)
+        a = rng.integers(-5, vocab + 5, shape).astype(np.int32)
+        ids.append(torch.from_numpy(a).to(cuda))
+        offsets.append(offset)
+        vocabs.append(vocab)
+    before = update_keys.launches
+    got = update_keys(ids, offsets, vocabs)
+    want = update_keys_reference([i.cpu() for i in ids], offsets, vocabs)
+    assert update_keys.launches == before + -(-slots // 128)
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+
+
 def _fused_setup(dev, seed=0, compute=torch.bfloat16):
     from persia_tpu_torch.embedding.optim import Adagrad
     from persia_tpu_torch.models import DLRM
@@ -759,31 +934,34 @@ def _traced_kernels(fn, names):
 def test_fused_graph_step_equals_eager_step(cuda):
     """The CUDA-graph step (jit=True) and the eager step give the same bits
     over 5 steps, and the K-step graph the same bits as K single steps.
-    The eager step calls K4's and K5's wrappers once a step; the graph
-    step calls them only at its first call (the capture's warm-up and the
-    capture), and each replay runs each kernel once on the card (device
-    trace)."""
-    from persia_tpu_torch.ops import fused_gather, sparse_update
+    The eager step calls the wrappers of K4, the routing and K5 once a
+    step; the graph step calls them only at its first call (the capture's
+    warm-up and the capture; the warm-up also routes the ids to find the
+    rows it restores), and each replay runs each of their kernels once on
+    the card (device trace): K4, the routing, and K5's three."""
+    from persia_tpu_torch.ops import fused_gather, sparse_update, update_keys
     from persia_tpu_torch.parallel.fused_step import build_fused_multi_step, build_fused_train_step
 
     batches = _fused_batches(cuda, 5)
     results = []
+    counted = (fused_gather, update_keys, sparse_update)
     for jit in (False, True):
         specs, cfg, state = _fused_setup(cuda)
         step = build_fused_train_step(cfg, specs, stack=True, jit=jit)
         losses = []
         for i, b in enumerate(batches):
-            before = (fused_gather.launches, sparse_update.launches)
+            before = [fn.launches for fn in counted]
             state, (loss, _) = step(state, b)
-            per_call = (2 if i == 0 else 0) if jit else 1
-            assert (fused_gather.launches - before[0], sparse_update.launches - before[1]) == (per_call, per_call)
+            per_call = ((2, 3, 2) if i == 0 else (0, 0, 0)) if jit else (1, 1, 1)
+            assert tuple(fn.launches - b0 for fn, b0 in zip(counted, before)) == per_call
             losses.append(loss)
         results.append((torch.stack(losses).cpu(), _state_bits(state)))
     assert torch.equal(results[0][0], results[1][0])
     assert all(np.array_equal(a, b) for a, b in zip(results[0][1], results[1][1]))
-    traced = _traced_kernels(lambda: [step(state, b) for b in batches[:3]],
-                             ("fused_gather_kernel", "sparse_update_kernel"))
-    assert traced == {"fused_gather_kernel": 3, "sparse_update_kernel": 3}
+    names = ("fused_gather_kernel", "update_keys_kernel", "sparse_update_segments_kernel",
+             "sparse_update_long_kernel", "sparse_update_short_kernel")
+    traced = _traced_kernels(lambda: [step(state, b) for b in batches[:3]], names)
+    assert traced == dict.fromkeys(names, 3)
     specs, cfg, state = _fused_setup(cuda)
     multi = build_fused_multi_step(cfg, specs, 5, stack=True)
     state, (losses, _) = multi(state, tuple(batches))
