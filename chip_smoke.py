@@ -68,7 +68,28 @@ result line:
    beside the same with the update ids routed slot by slot by the plain
    version (in turns: new, plain, new; card busy and PyTorch elementwise
    kernels a step), and ``FusedTrainCtx.train_pipelined`` (depth 2) over
-   32 batches;
+   32 batches; (f) durable state on the hybrid tier at the training path's
+   width and settings (native store 2^25, 64 shards): (a) an uninterrupted
+   run of 12 ``train_step``s after a cold ``resume``, ``snapshot_job``
+   every 4 (each snapshot's PS capture, dense bytes and commit timed);
+   a second run on fresh stores, snapshots at 4 and 8, abandoned after
+   step 9; fresh stores and ctx ``resume(restore_ps=True)`` from the fence
+   at 8 (timed) and replay steps 9-12 (the counted run: K0, K3, K1, K2 4
+   times each): the dense state's flax bytes byte-equal and every PS
+   shard's dump byte-equal to the uninterrupted run's, or the phase fails
+   naming what differs; (b) ``resume(restore_ps=False)`` over the crashed
+   run's store: the replayed step moves no entry, ``journal_skips`` at
+   least 1 a replayed step; (c) ``EmbeddingWorker.dump`` of one replica
+   and ``load`` into two (timed): each replica holds its own signs, their
+   union the dump's entries; (d) the port's manifest read back, beside the
+   reference's (``tests/fixtures/jax_train_ctx_manifest``): every blob's
+   crc, the same layout, its dense state loaded into a DLRM on the card
+   and its shards into native stores, both written back byte-equal; one
+   snapshot and one rewind resume of the store filled to a quarter of its
+   capacity with synthetic rows (ms a MiB; the restored dumps and dense
+   bytes equal to the snapshot's); and the journal's host cost, the step's
+   samples/s armed and not (96 steps a side in turns, the mean difference
+   with its standard error, ``payload_crc`` timed);
 5. timings of each kernel beside its plain version, the library call that
    computes the same function, and the card's bound, each by CUDA-graph
    replay (host enqueue cost out of the number; eager times beside them):
@@ -93,7 +114,9 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import pathlib
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -115,6 +138,21 @@ PIPE_WORKERS, PIPE_STALENESS, PIPE_BATCHES, PIPE_PROFILED, PIPE_REPRO = 4, 4, 32
 # "switch_0.5ms" runs the interpreter's thread switch interval at 0.5 ms
 PIPE_SWEEP = ((1, None), (2, None), (4, None), (4, "serial_stage"), (4, "switch_0.5ms"))
 PIPE_SWEEP_BATCHES = 16
+# phase 4f: the uninterrupted run's steps, the snapshot interval, the step
+# the crashed run dies after, and the steps of each side of the journal's
+# cost (armed and not, in turns)
+DUR_STEPS, DUR_EVERY, DUR_KILL, JOURNAL_COST_STEPS = 12, 4, 9, 96
+# phase 4f's store at a stated fill: synthetic rows loaded into the bench
+# store (a quarter of its 2^25-row capacity) before one snapshot and one
+# rewind resume
+DUR_FILL_ROWS = 1 << 23
+# job directories and the checkpoint of phase 4f (inside the checkout,
+# ignored by git, removed when the phase ends)
+STATE_DIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_state"
+# a job directory the reference's TrainCtx wrote (tests/test_torch_resume.py
+# writes it): DLRM of the flagship's shape, two replicas of 4 shards
+FIXTURE_DIR = pathlib.Path(__file__).resolve().parent / "tests" / "fixtures" / "jax_train_ctx_manifest"
+FIXTURE_MODEL = dict(num_slots=5, bottom_mlp=(32, 16), top_mlp=(64, 32))
 FA_SOURCE = {"wgmma_bf16": "persia_tpu_torch/csrc/flash_attention_hopper.cu",
              "tf32x3": "persia_tpu_torch/csrc/flash_attention_tf32.cu"}
 FA_REPLACES = "persia_tpu/ops/flash_attention.py:107"
@@ -793,10 +831,11 @@ def bench_cfg():
     )
 
 
-def bench_train_ctx(device, backend, warm, sd=None):
+def bench_train_ctx(device, backend, warm, sd=None, store=None):
     """The bench's training ctx (bf16 wire, Adagrad(0.05), Adam(1e-3)) over
-    one store of ``backend`` (capacity 2^25, 64 internal shards), warmed by
-    admitting lookups of ``warm``; returns (ctx, store, weights)."""
+    one store of ``backend`` (capacity 2^25, 64 internal shards; or over
+    ``store``), warmed by admitting lookups of ``warm``; returns (ctx,
+    store, weights)."""
     import torch
 
     from persia_tpu_torch.ctx import TrainCtx
@@ -806,8 +845,9 @@ def bench_train_ctx(device, backend, warm, sd=None):
     from persia_tpu_torch.weights import dlrm_state_dict_from_flax, seeded_flax_params_like
 
     cfg = bench_cfg()
-    store = make_store(backend, capacity=1 << 25, num_internal_shards=64,
-                         optimizer=Adagrad(lr=0.05).config, seed=1)
+    if store is None:
+        store = make_store(backend, capacity=1 << 25, num_internal_shards=64,
+                           optimizer=Adagrad(lr=0.05).config, seed=1)
     worker = EmbeddingWorker(cfg, [store], device_pooling=True)
     for b in warm:  # admit the stream's hot rows, as the serving path does
         worker.forward_directly(b, train=True)
@@ -958,11 +998,13 @@ def path_training(dev):
 
 
 def timed_calls(obj, name, sink, cpu_sink, lock=None):
-    """Shadow ``obj.name`` with a wrapper that appends each call's ms to
-    ``sink`` and the CPU ms its thread spent in it to ``cpu_sink`` (with
-    ``lock``, calls run one at a time, the wait for it included); returns
-    the function that takes the wrapper away."""
+    """Shadow ``obj.name`` (an object's method, or a module's or a class's
+    function) with a wrapper that appends each call's ms to ``sink`` and
+    the CPU ms its thread spent in it to ``cpu_sink`` (with ``lock``, calls
+    run one at a time, the wait for it included); returns the function that
+    takes the wrapper away."""
     fn = getattr(obj, name)
+    own = name in vars(obj)  # a module's or a class's: put the original back
 
     def wrapper(*args, **kwargs):
         t, c = time.perf_counter(), time.thread_time()
@@ -976,7 +1018,7 @@ def timed_calls(obj, name, sink, cpu_sink, lock=None):
             cpu_sink.append((time.thread_time() - c) * 1e3)
 
     setattr(obj, name, wrapper)
-    return lambda: delattr(obj, name)
+    return (lambda: setattr(obj, name, fn)) if own else (lambda: delattr(obj, name))
 
 
 def device_busy_union_ms(fn):
@@ -1143,6 +1185,354 @@ def path_pipelined(dev):
         "by_lookup_threads": sweep_out,
         "store_rows": store.size(),
     }
+
+
+def shard_dumps(store):
+    return [store.dump_shard(i) for i in range(store.num_internal_shards)]
+
+
+def dump_entries(dumps) -> dict:
+    """{sign: the entry's bytes (dim, len and floats)} of shard dumps."""
+    from persia_tpu_torch.checkpoint import iter_shard_entries
+    return {s: e[8:] for blob in dumps for s, e in iter_shard_entries(blob)}
+
+
+def synthetic_shard_blobs(rows, template, seed, chunk=1 << 20):
+    """Shard payloads of ``rows`` entries with random signs and values, each
+    laid out as ``template`` (an entry of a real dump: its dim and length),
+    ``chunk`` entries a payload."""
+    rng = np.random.default_rng(seed)
+    dim, ln = (int(v) for v in np.frombuffer(template, "<u4", 2, 8))
+    entry = np.dtype([("sign", "<u8"), ("dim", "<u4"), ("len", "<u4"), ("data", "<f4", (ln,))])
+    for start in range(0, rows, chunk):
+        e = np.empty(min(chunk, rows - start), entry)
+        e["sign"] = rng.integers(1, 1 << 63, len(e), dtype=np.uint64)
+        e["dim"], e["len"] = dim, ln
+        e["data"] = rng.random((len(e), ln), dtype=np.float32)
+        yield np.uint32(len(e)).tobytes() + e.tobytes()
+
+
+def dense_diff(a, b) -> str:
+    """Where two dense ``TrainState``s differ: each differing parameter or
+    Adam state tensor with its largest difference."""
+    out = []
+    for (name, pa), pb in zip(a.model.named_parameters(), b.model.parameters()):
+        pairs = [("", pa, pb)] + [(f".{k}", a.optimizer.state[pa][k], b.optimizer.state[pb][k])
+                                  for k in ("exp_avg", "exp_avg_sq", "step")]
+        for key, x, y in pairs:
+            x, y = x.detach().double().cpu(), y.detach().double().cpu()
+            if not (x == y).all():
+                out.append(f"{name}{key} {float((x - y).abs().max()):.3e}")
+    return "; ".join(out) or "none"
+
+
+def tree_leaves(tree, prefix=""):
+    """(path, dtype name) of a nested dict's leaves, layer numbers as "i"."""
+    if isinstance(tree, dict):
+        return [leaf for k, v in tree.items() for leaf in tree_leaves(v, f"{prefix}['{k}']")]
+    return [(re.sub(r"Dense_\d+", "Dense_i", prefix), None if tree is None else str(tree.dtype))]
+
+
+def manifest_layout(m):
+    """A manifest's layout: its meta keys, its components' names with the
+    replica and shard numbers as "r" and "i", and its dense state's leaves."""
+    from persia_tpu_torch.serialization import msgpack_restore
+
+    names = {re.sub(r"replica_\d+_shard_\d+", "replica_r_shard_i", n) for n in m.components}
+    return sorted(k for k in m.meta if k != "datetime"), names, sorted(set(tree_leaves(
+        msgpack_restore(m.read_blob("dense.state")))))
+
+
+def cross_package(dev, card_manifest):
+    """(d): the reference's job directory (the fixture) read by the port on
+    the card: every blob's crc, the same layout as the manifest the port
+    wrote on the card, its dense state loaded into a DLRM on the card and
+    written back to the reference's bytes, its shards restored into native
+    stores and dumped back to the reference's bytes."""
+    import torch
+
+    from persia_tpu_torch import jobstate
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.models import DLRM
+    from persia_tpu_torch.parallel.train_step import init_train_state
+    from persia_tpu_torch.weights import train_state_from_flax_bytes, train_state_to_flax_bytes
+
+    fixture = jobstate.JobStateManager(str(FIXTURE_DIR)).latest()
+    if fixture is None:
+        raise SystemExit(f"durable state: no manifest in {FIXTURE_DIR}")
+    for name in fixture.components:
+        fixture.read_blob(name)
+    same_layout = manifest_layout(fixture) == manifest_layout(card_manifest)
+    raw = fixture.read_blob("dense.state")
+    model = DLRM(N_DENSE, FIXTURE_MODEL["num_slots"], EMB_DIM, FIXTURE_MODEL["bottom_mlp"],
+                 FIXTURE_MODEL["top_mlp"], device=dev)
+    state = init_train_state(model, torch.optim.Adam(model.parameters(), lr=1e-3))
+    dense_same = train_state_to_flax_bytes(train_state_from_flax_bytes(state, raw)) == raw
+    stores = [make_store("native", capacity=1 << 16, num_internal_shards=4) for _ in range(fixture.meta["ps_replicas"])]
+    restored = jobstate.restore_ps(fixture, stores, optimizer=Adagrad(lr=0.1).config)
+    shards_same = all(st.dump_shard(i) == fixture.read_blob(f"ps/replica_{r}_shard_{i}.emb")
+                      for r, st in enumerate(stores) for i in range(st.num_internal_shards))
+    print(f"  (d) the reference's manifest (step {fixture.step}) read on the card: crc ok, layout "
+          f"{'same as' if same_layout else 'DIFFERS from'} the port's; dense state written back "
+          f"{'byte-equal' if dense_same else 'DIFFERENT'}; {restored} PS entries restored and dumped back "
+          f"{'byte-equal' if shards_same else 'DIFFERENT'}", flush=True)
+    if not (same_layout and dense_same and shards_same):
+        raise SystemExit(f"durable state: the reference's manifest and the port's disagree: "
+                         f"{manifest_layout(fixture)} vs {manifest_layout(card_manifest)}")
+    return restored
+
+
+def path_durable(dev):
+    """Phase 4f: durable state on the hybrid tier at bench width."""
+    from persia_tpu_torch import ops
+
+    print(f"== phase 4f: durable state (TrainCtx at bench width, B={BATCH}, native store: snapshot_job, "
+          f"resume, the apply-journal, dump and load)", flush=True)
+    shutil.rmtree(STATE_DIR, ignore_errors=True)
+    try:
+        return durable_cases(dev, ops)
+    finally:
+        shutil.rmtree(STATE_DIR, ignore_errors=True)
+
+
+def durable_cases(dev, ops):
+    import torch
+
+    from persia_tpu_torch import ctx as ctx_module
+    from persia_tpu_torch import jobstate
+    from persia_tpu_torch.embedding import worker as worker_module
+    from persia_tpu_torch.embedding.hashing import sign_to_shard
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.embedding.worker import EmbeddingWorker
+    from persia_tpu_torch.weights import train_state_to_flax_bytes
+
+    make_batch = zipf_batch_maker(SEED + 30, labels=True)
+    batches = [make_batch() for _ in range(DUR_STEPS)]
+    cost_batches = [make_batch() for _ in range(JOURNAL_COST_STEPS + TRAIN_WARMUP)]
+    job_base, job = STATE_DIR / "job_base", STATE_DIR / "job"
+
+    # (a) the uninterrupted run: a cold resume arms the journal, 12 steps,
+    # a snapshot every 4; each snapshot's parts timed
+    parts = {k: [] for k in ("ps_capture", "dense_bytes", "commit")}
+    undo = [timed_calls(jobstate, "capture_ps", parts["ps_capture"], []),
+            timed_calls(ctx_module, "train_state_to_flax_bytes", parts["dense_bytes"], []),
+            timed_calls(jobstate.EpochWriter, "commit", parts["commit"], [])]
+    snap_ms, snaps = [], []
+    try:
+        base, base_store, sd = bench_train_ctx(dev, "native", [])
+        if base.resume(job_base) is not None:
+            raise SystemExit("durable state: a resume on an empty job directory found a manifest")
+        for i, b in enumerate(batches):
+            base.train_step(b)
+            if (i + 1) % DUR_EVERY == 0:
+                t = time.perf_counter()
+                snaps.append(base.snapshot_job(job_base))
+                snap_ms.append((time.perf_counter() - t) * 1e3)
+    finally:
+        for u in undo:
+            u()
+    ps_bytes = [m.meta["ps_bytes"] for m in snaps]
+    dense_bytes = len(snaps[-1].read_blob("dense.state"))
+    print(f"  uninterrupted: {DUR_STEPS} steps, {base_store.size()} PS rows; snapshot ms {snap_ms} "
+          f"(PS capture {parts['ps_capture']}, dense bytes {parts['dense_bytes']}, commit {parts['commit']}); "
+          f"PS bytes {ps_bytes}, dense bytes {dense_bytes}", flush=True)
+
+    # the crashed run on fresh stores: snapshots at 4 and 8, dies after 9
+    # with step 9's gradients applied past the fence
+    crash, crash_store, _ = bench_train_ctx(dev, "native", [], sd)
+    crash.resume(job)
+    for i, b in enumerate(batches[:DUR_KILL]):
+        crash.train_step(b)
+        if (i + 1) % DUR_EVERY == 0:
+            crash.snapshot_job(job)
+    del crash  # the trainer dies; its store survives for (b)
+
+    # (a) rewind: fresh stores and ctx, the PS restored from the fence
+    rebuilt, rebuilt_store, _ = bench_train_ctx(dev, "native", [], sd)
+    t = time.perf_counter()
+    m = rebuilt.resume(job, restore_ps=True)
+    resume_s = time.perf_counter() - t
+    info = rebuilt.last_resume_info
+    fence = DUR_EVERY * (DUR_KILL // DUR_EVERY)
+    if m is None or m.step != fence:
+        raise SystemExit(f"durable state: resumed at {m and m.step}, expected the fence at {fence}")
+    ops.reset_launch_counts()
+    for b in batches[m.step:]:
+        rebuilt.train_step(b)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+    replayed = DUR_STEPS - m.step
+    expected = {fn.__name__: 0 for fn in ops.KERNEL_WRAPPERS}
+    expected.update(dot_interaction=replayed, dot_interaction_bwd=replayed,
+                    gather_pool_fwd=replayed, gather_pool_bwd=replayed)
+    dense_same = train_state_to_flax_bytes(rebuilt.state) == train_state_to_flax_bytes(base.state)
+    base_dumps = shard_dumps(base_store)
+    ps_same = shard_dumps(rebuilt_store) == base_dumps
+    print(f"  (a) rewind resume from the fence at {m.step}: {info['ps_entries_restored']} PS entries restored, "
+          f"resume {resume_s:.4f} s (resume_job {info['time_to_resume_s']} s); replayed {replayed} steps, "
+          f"launches={launches}; dense state bytes {'equal' if dense_same else 'DIFFER'} to the uninterrupted "
+          f"run's, PS shard dumps ({len(base_dumps)}) {'equal' if ps_same else 'DIFFER'}", flush=True)
+    if launches != expected:
+        raise SystemExit(f"durable state: launches {launches}, expected {expected}")
+    if not (dense_same and ps_same):
+        a, b = dump_entries(shard_dumps(rebuilt_store)), dump_entries(base_dumps)
+        moved = [k for k in b if a.get(k) != b[k]]
+        err = max((float(np.abs(np.frombuffer(a[k][8:], np.float32) - np.frombuffer(b[k][8:], np.float32)).max())
+                   for k in moved if k in a and len(a[k]) == len(b[k])), default=0.0)
+        raise SystemExit(f"durable state: the resumed run differs from the uninterrupted one: dense "
+                         f"{dense_diff(rebuilt.state, base.state)}; PS entries differing {len(moved)} of {len(b)} "
+                         f"(max abs err {err:.3e})")
+    del rebuilt, rebuilt_store
+
+    # (b) journal resume: the crashed run's store as the crash left it; the
+    # replayed window moves no entry, each replayed step skipped
+    before = dump_entries(shard_dumps(crash_store))
+    jctx, _, _ = bench_train_ctx(dev, "native", [], sd, store=crash_store)
+    m = jctx.resume(job, restore_ps=False)
+    for b in batches[m.step:DUR_KILL]:
+        jctx.train_step(b)
+    skips = jctx.worker.lookup_router.journal_skips
+    unmoved = dump_entries(shard_dumps(crash_store)) == before
+    print(f"  (b) journal resume from the fence at {m.step}: {DUR_KILL - m.step} replayed step(s), "
+          f"journal_skips={skips}, PS entries ({len(before)}) {'unmoved' if unmoved else 'MOVED'}", flush=True)
+    if not unmoved or skips < DUR_KILL - m.step:
+        raise SystemExit("durable state: the journal resume applied a replayed batch again")
+    del jctx, crash_store
+
+    # (c) re-shard on load: the uninterrupted run's store dumped as one
+    # replica, loaded into two
+    ckpt = str(STATE_DIR / "ckpt")
+    t = time.perf_counter()
+    base.worker.dump(ckpt)
+    dump_ms = (time.perf_counter() - t) * 1e3
+    two = [make_store("native", capacity=1 << 25, num_internal_shards=64, optimizer=Adagrad(lr=0.05).config,
+                      seed=1) for _ in range(2)]
+    t = time.perf_counter()
+    loaded = EmbeddingWorker(bench_cfg(), two, device_pooling=True).load(ckpt)
+    load_ms = (time.perf_counter() - t) * 1e3
+    src = dump_entries(base_dumps)
+    halves = [dump_entries(shard_dumps(s)) for s in two]
+    owned = all((sign_to_shard(np.fromiter(h, np.uint64, len(h)), 2) == r).all() for r, h in enumerate(halves))
+    same = loaded == len(src) == len(halves[0]) + len(halves[1]) and {**halves[0], **halves[1]} == src
+    print(f"  (c) re-shard on load: dump {dump_ms:.1f} ms, load into 2 replicas {load_ms:.1f} ms, "
+          f"{loaded} entries ({len(halves[0])} + {len(halves[1])}); each replica holds its own signs: {owned}; "
+          f"entries {'equal' if same else 'DIFFER'}", flush=True)
+    if not (owned and same):
+        raise SystemExit("durable state: the re-sharded load differs from the dump")
+    del two, base, base_store
+
+    # (d) across the packages: the manifest the port wrote here, read back
+    # through the port's reader, beside the reference's
+    card_manifest = jobstate.JobStateManager(str(job_base)).latest()
+    if card_manifest is None or card_manifest.step != DUR_STEPS:
+        raise SystemExit("durable state: the port's manifest does not read back")
+    for name in card_manifest.components:
+        card_manifest.read_blob(name)
+    fixture_entries = cross_package(dev, card_manifest)
+
+    fill = durable_at_fill(dev, sd, batches[0], base_dumps)
+
+    # the journal's host cost: phase 4c's step with the journal armed and
+    # not, on the same batches, in turns (plain, armed, armed, plain, ...);
+    # payload_crc timed on its own in the armed steps
+    plain, _, _ = bench_train_ctx(dev, "native", [], sd)
+    armed, _, _ = bench_train_ctx(dev, "native", [], sd)
+    armed.resume(STATE_DIR / "job_cost")
+    for b in cost_batches[:TRAIN_WARMUP]:
+        plain.train_step(b)
+        armed.train_step(b)
+    crc_ms, step_ms = [], {"plain": [], "armed": []}
+    undo = timed_calls(worker_module, "payload_crc", crc_ms, [])
+    try:
+        for i, b in enumerate(cost_batches[TRAIN_WARMUP:]):
+            order = (("plain", plain), ("armed", armed)) if i % 2 == 0 else (("armed", armed), ("plain", plain))
+            for name, c in order:
+                t = time.perf_counter()
+                c.train_step(b)
+                step_ms[name].append((time.perf_counter() - t) * 1e3)
+    finally:
+        undo()
+    rate = {k: len(v) * BATCH / (sum(v) / 1e3) for k, v in step_ms.items()}
+    # each batch's armed step less its plain step: the mean and its standard
+    # error say whether the runs resolve the journal's cost
+    diff = np.array(step_ms["armed"]) - np.array(step_ms["plain"])
+    diff_mean, diff_se = float(diff.mean()), float(diff.std(ddof=1) / np.sqrt(len(diff)))
+    print(f"  journal cost ({JOURNAL_COST_STEPS} steps a side): samples/s armed {rate['armed']:.1f}, not armed "
+          f"{rate['plain']:.1f}; armed - plain step {diff_mean:.3f} ms (standard error {diff_se:.3f}: "
+          f"{'resolved' if abs(diff_mean) > 2 * diff_se else 'not resolved'} at 2 standard errors); "
+          f"payload_crc ms mean {np.mean(crc_ms):.3f}, max {max(crc_ms):.3f}", flush=True)
+    return launches, {
+        "batch": BATCH, "steps": DUR_STEPS, "snapshot_every": DUR_EVERY, "killed_after": DUR_KILL,
+        "snapshot_ms": snap_ms, "snapshot_ps_capture_ms": parts["ps_capture"],
+        "snapshot_dense_bytes_ms": parts["dense_bytes"], "snapshot_commit_ms": parts["commit"],
+        "ps_bytes": ps_bytes, "dense_bytes": dense_bytes,
+        "time_to_resume_s": resume_s, "resume_job_s": info["time_to_resume_s"],
+        "ps_entries_restored": info["ps_entries_restored"],
+        "rewind_dense_bytes_equal": dense_same, "rewind_ps_dumps_equal": ps_same,
+        "journal_skips": skips, "journal_replay_unmoved": unmoved,
+        "dump_ms": dump_ms, "load_ms": load_ms, "reshard_entries": loaded,
+        "samples_per_s_journal_armed": rate["armed"], "samples_per_s_journal_not_armed": rate["plain"],
+        "step_ms_armed": step_ms["armed"], "step_ms_not_armed": step_ms["plain"],
+        "step_ms_armed_less_plain_mean": diff_mean, "step_ms_armed_less_plain_se": diff_se,
+        "payload_crc_ms": crc_ms, "fixture_entries_restored": fixture_entries, "at_fill": fill,
+    }
+
+
+def durable_at_fill(dev, sd, batch, dumps):
+    """One snapshot and one rewind resume of the bench store filled with
+    ``DUR_FILL_ROWS`` synthetic rows (laid out as the trained rows of
+    ``dumps``) and trained one step on ``batch``: each part's ms, ms a MiB of
+    PS bytes, and the restored store's dumps and dense bytes equal to the
+    snapshotted ones."""
+    from persia_tpu_torch import ctx as ctx_module
+    from persia_tpu_torch import jobstate
+    from persia_tpu_torch.checkpoint import iter_shard_entries
+    from persia_tpu_torch.weights import train_state_to_flax_bytes
+
+    job = STATE_DIR / "job_fill"
+    template = next(e for blob in dumps for _, e in iter_shard_entries(blob))
+    filled, filled_store, _ = bench_train_ctx(dev, "native", [], sd)
+    t = time.perf_counter()
+    loaded = sum(filled_store.load_shard_bytes(b) for b in synthetic_shard_blobs(DUR_FILL_ROWS, template, SEED + 31))
+    fill_s = time.perf_counter() - t
+    filled.resume(job)
+    filled.train_step(batch)
+    rows, capacity = filled_store.size(), 1 << 25
+    parts = {k: [] for k in ("ps_capture", "dense_bytes", "commit")}
+    undo = [timed_calls(jobstate, "capture_ps", parts["ps_capture"], []),
+            timed_calls(ctx_module, "train_state_to_flax_bytes", parts["dense_bytes"], []),
+            timed_calls(jobstate.EpochWriter, "commit", parts["commit"], [])]
+    try:
+        t = time.perf_counter()
+        snap = filled.snapshot_job(job)
+        snap_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        for u in undo:
+            u()
+    ps_mib = snap.meta["ps_bytes"] / 2**20
+
+    rebuilt, rebuilt_store, _ = bench_train_ctx(dev, "native", [], sd)
+    t = time.perf_counter()
+    m = rebuilt.resume(job, restore_ps=True)
+    resume_s = time.perf_counter() - t
+    restored = rebuilt.last_resume_info["ps_entries_restored"]
+    same = (m.step == snap.step and restored == rows
+            and train_state_to_flax_bytes(rebuilt.state) == train_state_to_flax_bytes(filled.state)
+            and all(filled_store.dump_shard(i) == rebuilt_store.dump_shard(i)
+                    for i in range(filled_store.num_internal_shards)))
+    print(f"  at fill: {loaded} synthetic rows loaded in {fill_s:.2f} s, {rows} rows after a step "
+          f"({100 * rows / capacity:.1f} % of {capacity}); snapshot {snap_ms:.1f} ms (PS capture "
+          f"{parts['ps_capture'][0]:.1f}, dense bytes {parts['dense_bytes'][0]:.1f}, commit {parts['commit'][0]:.1f}) "
+          f"for {ps_mib:.1f} MiB of PS bytes, {parts['ps_capture'][0] / ps_mib:.3f} ms a MiB; rewind resume "
+          f"{resume_s:.3f} s, {resume_s * 1e3 / ps_mib:.3f} ms a MiB, {restored} entries; dumps and dense bytes "
+          f"{'equal' if same else 'DIFFER'}", flush=True)
+    if not same:
+        raise SystemExit("durable state: the filled store's rewind resume differs from its snapshot")
+    return {"rows": rows, "capacity": capacity, "fill_load_s": fill_s, "snapshot_ms": snap_ms,
+            "ps_capture_ms": parts["ps_capture"][0], "dense_bytes_ms": parts["dense_bytes"][0],
+            "commit_ms": parts["commit"][0], "ps_bytes": snap.meta["ps_bytes"],
+            "ps_capture_ms_per_mib": parts["ps_capture"][0] / ps_mib, "time_to_resume_s": resume_s,
+            "resume_ms_per_mib": resume_s * 1e3 / ps_mib, "ps_entries_restored": restored}
 
 
 K4_SOURCE, K4_REPLACES = "persia_tpu_torch/csrc/fused_gather.cu", "persia_tpu/parallel/fused_step.py:242"
@@ -1773,7 +2163,7 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused):
              source="persia_tpu_torch/csrc/dot_interaction.cu", replaces=DOT_REPLACES,
              shape=list(feats_shape), dtype="bfloat16",
              launches=launches["training"]["dot_interaction"],
-             launches_by_path={p: launches[p]["dot_interaction"] for p in ("serving", "training")},
+             launches_by_path={p: launches[p]["dot_interaction"] for p in ("serving", "training", "pipelined", "durable")},
              max_abs_err=errs["dot_interaction"], bound_ms=bms, bound_by=by),
         kernel=lambda: ops.dot_interaction(feats),
         plain=lambda: dot_interaction_reference(feats),
@@ -1795,6 +2185,7 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused):
              source="persia_tpu_torch/csrc/dot_interaction.cu", replaces=DOT_REPLACES,
              shape=list(feats_shape), dtype="bfloat16",
              launches=launches["training"]["dot_interaction_bwd"],
+             launches_by_path={p: launches[p]["dot_interaction_bwd"] for p in ("training", "pipelined", "durable")},
              max_abs_err=errs["dot_interaction_bwd"], bound_ms=bms, bound_by=by),
         kernel=lambda: ops.dot_interaction_bwd(feats, gpair),
         plain=lambda: dot_interaction_bwd_reference(feats, gpair),
@@ -1848,7 +2239,7 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused):
                  source="persia_tpu_torch/csrc/embedding_pool.cu", replaces=POOL_REPLACES,
                  shape=shape, dtype=str(prow[0].dtype)[6:],
                  launches=launches["training"]["gather_pool_fwd"],
-                 launches_by_path={p: launches[p]["gather_pool_fwd"] for p in ("serving", "training")},
+                 launches_by_path={p: launches[p]["gather_pool_fwd"] for p in ("serving", "training", "pipelined", "durable")},
                  max_abs_err=errs["gather_pool_fwd"], bound_ms=bms, bound_by=by,
                  library_note="F.embedding_bag(mode='sum') over the slots' tables side by side, bf16 out"),
             kernel=lambda: ops.gather_pool_fwd(prow, pslots),
@@ -1871,6 +2262,7 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused):
                  source="persia_tpu_torch/csrc/embedding_pool.cu", replaces=POOL_REPLACES,
                  shape=shape, dtype=str(prow[0].dtype)[6:],
                  launches=launches["training"]["gather_pool_bwd"],
+                 launches_by_path={p: launches[p]["gather_pool_bwd"] for p in ("training", "pipelined", "durable")},
                  max_abs_err=errs["gather_pool_bwd"], bound_ms=bms, bound_by=by,
                  library_note="index_add_ of the (B*S, dim) f32 gradient into the tables side by side (L=1)"),
             kernel=lambda: ops.gather_pool_bwd(gpool, prow, pslots),
@@ -2043,13 +2435,16 @@ def main() -> int:
     training_launches, training, train_batch = path_training(dev)
     pipelined_launches, pipelined = path_pipelined(dev)
     fused_launches, fused, fused_inputs = path_fused(dev)
+    durable_launches, durable = path_durable(dev)
     launches = {"flash_attention": fa_routes, "serving": serving_launches,
-                "training": training_launches, "pipelined": pipelined_launches, "fused": fused_launches}
+                "training": training_launches, "pipelined": pipelined_launches,
+                "durable": durable_launches, "fused": fused_launches}
     rows = phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused_inputs)
     time_flash_backward(dev, card)
     print(json.dumps({"serving": serving, "card": card}), flush=True)
     print(json.dumps({"training": training, "card": card}), flush=True)
     print(json.dumps({"pipelined": pipelined, "card": card}), flush=True)
+    print(json.dumps({"durable": durable, "card": card}), flush=True)
     print(json.dumps({"build": build, "card": card}), flush=True)
     print(json.dumps({"fused": fused, "card": card}), flush=True)
 

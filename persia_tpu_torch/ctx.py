@@ -4,7 +4,14 @@ worker's numpy outputs into tensors on the ctx's device; ``TrainCtx`` runs
 the synchronous hybrid training step (lookup → forward, backward and dense
 update on the device → gradient return to the parameter servers) and the
 pipelined one, on batches a ``persia_tpu_torch.data_loader.DataLoader``
-looked up and staged; ``InferCtx`` runs the lookup-direct forward."""
+looked up and staged; ``InferCtx`` runs the lookup-direct forward.
+
+Durable state: ``EmbeddingCtx.dump_checkpoint`` / ``load_checkpoint`` write
+and read a checkpoint directory (the dense state in flax's bytes, the
+tables as per-shard files), and ``TrainCtx.snapshot_job`` / ``resume``
+commit and rebuild step-fenced job manifests (``persia_tpu_torch.jobstate``):
+a resumed run replays from the fence bit for bit, each gradient batch
+reaching the parameter servers through their apply-journal."""
 
 from __future__ import annotations
 
@@ -13,6 +20,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from persia_tpu_torch import jobstate
+from persia_tpu_torch.checkpoint import dump_dense, load_dense
 from persia_tpu_torch.config import EmbeddingConfig
 from persia_tpu_torch.data import PersiaBatch
 from persia_tpu_torch.device import resolve_device
@@ -33,6 +42,7 @@ from persia_tpu_torch.parallel.train_step import (
     unpack_step_header_dynamic,
 )
 from persia_tpu_torch.utils import round_up_pow2
+from persia_tpu_torch.weights import train_state_from_flax_bytes, train_state_to_flax_bytes
 from persia_tpu_torch.wire import BF16Host, bf16_bits_to_f32, tensor_to_host_f32
 
 WIRE_DTYPES = (None, "float32", "bfloat16")
@@ -196,6 +206,27 @@ class EmbeddingCtx:
             out[eb.name] = g if d is None else g[:d]
         return out
 
+    def _dense_state(self) -> Optional[TrainState]:
+        """The dense training state a checkpoint carries (None: none)."""
+        return None
+
+    def dump_checkpoint(self, dst: str) -> None:
+        """The dense state (``dense.ckpt``, flax's bytes) and the embedding
+        tables (``EmbeddingWorker.dump``) into the directory ``dst``."""
+        state = self._dense_state()
+        if state is not None:
+            dump_dense(train_state_to_flax_bytes(state), dst)
+        self.worker.dump(dst)
+
+    def load_checkpoint(self, src: str) -> None:
+        """Load a checkpoint directory of either package: the dense state,
+        where both it and the ctx have one, in place, and the tables."""
+        state = self._dense_state()
+        raw = load_dense(src, missing_ok=True) if state is not None else None
+        if raw is not None:
+            train_state_from_flax_bytes(state, raw)
+        self.worker.load(src)
+
 
 class TrainCtx(EmbeddingCtx):
     """Synchronous hybrid training over the lookup-direct path.
@@ -244,6 +275,11 @@ class TrainCtx(EmbeddingCtx):
         # and the header of the last step whose metrics were not fetched
         self._d2h_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self._deferred_header = None
+        # job state: the epoch of the last manifest (None: no journal ids
+        # until a snapshot or resume arms them) and the steps trained
+        self._job_epoch: Optional[int] = None
+        self._global_step = 0
+        self.last_resume_info: Optional[Dict] = None
 
     def __enter__(self):
         self.worker.register_optimizer(self.embedding_optimizer.config)
@@ -255,6 +291,72 @@ class TrainCtx(EmbeddingCtx):
     def init_state(self) -> TrainState:
         self.state = init_train_state(self.model, self.dense_optimizer, self._loss_scale_init)
         return self.state
+
+    def _dense_state(self) -> TrainState:
+        return self.state if self.state is not None else self.init_state()
+
+    # ----------------------------------------------------------- job state
+
+    def _ps_replicas(self) -> List:
+        return self.worker.lookup_router.replicas
+
+    def snapshot_job(self, job_state, loader=None, generators=None) -> jobstate.Manifest:
+        """A step-fenced snapshot: ``loader`` (if given) flushed, then the
+        PS shards, the dense state (flax's bytes), the loader cursor and the
+        RNG streams (numpy's global one and the named ``generators``)
+        committed as one manifest epoch. ``job_state`` is a
+        ``JobStateManager`` or its root directory."""
+        mgr = jobstate.coerce_manager(job_state)
+        if loader is not None:
+            loader.flush()  # the fence: no gradient in flight past here
+        router = self.worker.lookup_router
+        manifest = jobstate.snapshot_job(
+            mgr, self._global_step,
+            state_bytes=train_state_to_flax_bytes(self.state) if self.state is not None else None,
+            replicas=self._ps_replicas(),
+            batch_advances=dict(router.batch_advances),
+            components={"loader.json": {"consumed_batches": self._global_step,
+                                        "staleness_outstanding": 0}},
+            meta={"kind": "train_ctx"},
+            generators=generators,
+        )
+        self._job_epoch = manifest.job_epoch
+        return manifest
+
+    def resume(self, job_state, restore_ps: bool = True, generators=None) -> Optional[jobstate.Manifest]:
+        """Rebuild the fence state of the newest good manifest (the RNG
+        streams too, ``generators`` as in ``snapshot_job``), or on a cold
+        start arm the journal at epoch 0. Returns the manifest or None;
+        ``last_resume_info`` holds the recovery numbers.
+
+        ``restore_ps`` rewinds the PS to the fence (the replayed window
+        applies again: bit for bit an uninterrupted run); without it the PS
+        keeps what the crashed run applied and the journal skips the
+        replayed batches it holds (exactly once). The dense state loads in
+        place; the router's cumulative Adam batch advances continue from
+        the fence's."""
+        mgr = jobstate.coerce_manager(job_state)
+        router = self.worker.lookup_router
+        manifest, info = jobstate.resume_job(
+            mgr, replicas=self._ps_replicas(), rewind_ps=restore_ps,
+            optimizer=self.embedding_optimizer.config, generators=generators,
+        )
+        self.last_resume_info = info
+        if manifest is None:
+            self._job_epoch = 0
+            self._global_step = 0
+            return None
+        if manifest.has("dense.state"):
+            train_state_from_flax_bytes(self._dense_state(), manifest.read_blob("dense.state"))
+        router.batch_advances = dict(info["batch_advances"])
+        self._job_epoch = manifest.job_epoch
+        self._global_step = manifest.step
+        return manifest
+
+    def _journal_id(self) -> Optional[int]:
+        if self._job_epoch is None:
+            return None
+        return jobstate.make_journal_id(self._job_epoch, self._global_step)
 
     def run_step(self, device_batch: Dict):
         """The device step on a staged batch: (header, gpacked) on the
@@ -296,7 +398,9 @@ class TrainCtx(EmbeddingCtx):
         # embedding gradients ship scaled; the worker divides by the dynamic
         # loss scale composed with the static grad_scale
         scale = metrics.get("loss_scale", 1.0) * self.grad_scale
-        self.worker.update_gradient_batched(ref, slot_grads, scale_factor=scale)
+        self.worker.update_gradient_batched(ref, slot_grads, scale_factor=scale,
+                                            journal_id=self._journal_id())
+        self._global_step += 1
         return metrics
 
     def _grads_to_host_async(self, gpacked: torch.Tensor) -> Callable[[], np.ndarray]:
@@ -360,7 +464,8 @@ class TrainCtx(EmbeddingCtx):
         # as in train_step: the worker divides by the dynamic loss scale
         # composed with the static grad_scale
         scale = (metrics or {}).get("loss_scale", 1.0) * self.grad_scale
-        loader.backward_packed(training_batch, fetch, scale_factor=scale)
+        loader.backward_packed(training_batch, fetch, scale_factor=scale, journal_id=self._journal_id())
+        self._global_step += 1
         return metrics
 
     def last_prepared_metrics(self) -> Optional[Dict]:

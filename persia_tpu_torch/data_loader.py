@@ -64,8 +64,10 @@ class _WorkerError:
 class BackwardEngine:
     """Asynchronous gradient return.
 
-    ``push`` queues ``(ref, slot_grads, scale)``; a worker thread applies
-    ``worker.update_gradient_batched`` and releases the staleness permit.
+    ``push`` queues ``(ref, slot_grads, scale, journal_id)``; a worker
+    thread applies ``worker.update_gradient_batched`` (through the PS
+    apply-journal when ``journal_id`` is given) and releases the staleness
+    permit.
     ``slot_grads`` may be a zero-argument callable that produces the per-slot
     gradients, so the device→host copy is waited for on this thread. An
     error aborts the batch's gradient (releasing its staleness slot) and is
@@ -93,23 +95,27 @@ class BackwardEngine:
         with self._lock:
             return self._pending
 
-    def push(self, ref: int, slot_grads, scale_factor: float = 1.0) -> None:
+    def push(self, ref: int, slot_grads, scale_factor: float = 1.0,
+             journal_id: Optional[int] = None) -> None:
         with self._lock:
             if self._error is not None:
                 raise RuntimeError("backward engine failed") from self._error
             self._pending += 1
-        self._q.put((ref, slot_grads, scale_factor))
+        self._q.put((ref, slot_grads, scale_factor, journal_id))
 
     def _run(self):
         while True:
             item = self._q.get()
             if item is _SENTINEL:
                 return
-            ref, slot_grads, scale = item
+            ref, slot_grads, scale, journal_id = item
             try:
                 if callable(slot_grads):
                     slot_grads = slot_grads()
-                self._worker.update_gradient_batched(ref, slot_grads, scale_factor=scale)
+                # an un-journaled apply passes no journal id at all, as the
+                # reference's engine does
+                extra = {} if journal_id is None else {"journal_id": journal_id}
+                self._worker.update_gradient_batched(ref, slot_grads, scale_factor=scale, **extra)
             except BaseException as e:  # noqa: BLE001 — raised to the trainer by flush/push
                 self._worker.abort_gradient(ref)
                 with self._lock:
@@ -135,6 +141,30 @@ class BackwardEngine:
             self._q.put(_SENTINEL)
         for t in self._threads:
             t.join(timeout=5)
+
+
+class BatchCursor:
+    """The loader cursor a job-state manifest records: wraps a batch
+    iterable, counts what it hands out, and skips the batches a crashed run
+    already consumed. Skipping happens here, before any lookup or staging;
+    a source that yields the same batch at the same ordinal every run (what
+    a bit-identical resume needs) resumes where the fence left it."""
+
+    def __init__(self, batches: Iterable[PersiaBatch], skip: int = 0):
+        self._batches = batches
+        self.skip = int(skip)
+        self.consumed = int(skip)  # the ordinal of the next batch handed out
+
+    def __iter__(self) -> Iterator[PersiaBatch]:
+        it = iter(self._batches)
+        for _ in range(self.skip):
+            next(it, None)
+        for b in it:
+            yield b
+            self.consumed += 1
+
+    def state(self) -> Dict:
+        return {"consumed_batches": self.consumed}
 
 
 class _Permits:
@@ -354,11 +384,12 @@ class DataLoader:
     # --------------------------------------------------------------- grads
 
     def backward_packed(self, training_batch: PersiaTrainingBatch, gpacked,
-                        scale_factor: float = 1.0) -> None:
+                        scale_factor: float = 1.0, journal_id: Optional[int] = None) -> None:
         """Queue a step's packed embedding gradients for asynchronous
         return. ``gpacked`` is a zero-argument callable returning their host
         f32 copy (it may wait for a device→host copy) or such an array; the
-        engine thread splits it per slot."""
+        engine thread splits it per slot. ``journal_id`` tags the apply for
+        the PS apply-journal."""
 
         def slot_grads():
             packed = gpacked() if callable(gpacked) else np.asarray(gpacked, dtype=np.float32)
@@ -367,7 +398,7 @@ class DataLoader:
                 training_batch.emb_batches, emb_grads, training_batch.counts
             )
 
-        self.backward_engine.push(training_batch.ref, slot_grads, scale_factor)
+        self.backward_engine.push(training_batch.ref, slot_grads, scale_factor, journal_id)
 
     def mark_consumed(self, training_batch: PersiaTrainingBatch) -> None:
         """Return the staleness permit of a batch that sends no gradient (an

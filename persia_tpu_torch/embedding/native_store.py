@@ -82,6 +82,21 @@ def _load_lib() -> ctypes.CDLL:
         lib.ps_clear.argtypes = [p]
         lib.ps_grad_misses.restype = i64
         lib.ps_grad_misses.argtypes = [p]
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        lib.ps_dump_shard_size.restype = i64
+        lib.ps_dump_shard_size.argtypes = [p, u32]
+        lib.ps_dump_shard.restype = i64
+        lib.ps_dump_shard.argtypes = [p, u32, u8p, i64]
+        lib.ps_load_shard.restype = i64
+        lib.ps_load_shard.argtypes = [p, u8p, i64]
+        lib.ps_journal_record.restype = None
+        lib.ps_journal_record.argtypes = [p, u64, u32]
+        lib.ps_journal_probe.restype = i32
+        lib.ps_journal_probe.argtypes = [p, u64, u32]
+        lib.ps_journal_len.restype = i64
+        lib.ps_journal_len.argtypes = [p]
+        lib.ps_journal_clear.restype = None
+        lib.ps_journal_clear.argtypes = [p]
         _LIB = lib
         return lib
 
@@ -127,6 +142,7 @@ class NativeEmbeddingStore:
         self._h = self._lib.ps_create(capacity, num_internal_shards, seed)
         if not self._h:
             raise MemoryError("ps_create failed")
+        self._num_shards = num_internal_shards
         self.seed = seed
         self.optimizer: Optional[OptimizerConfig] = None
         self.hyperparams = hyperparams
@@ -260,11 +276,64 @@ class NativeEmbeddingStore:
         raise RuntimeError(f"entry for sign {sign} kept changing concurrently")
 
     def clear(self) -> None:
-        """Drop every entry and Adam's batch powers."""
+        """Drop every entry and Adam's batch powers (not the journal)."""
         self._lib.ps_clear(self._h)
 
     def size(self) -> int:
         return int(self._lib.ps_size(self._h))
+
+    @property
+    def num_internal_shards(self) -> int:
+        return self._num_shards
+
+    # ------------------------------------------------------------ checkpoint
+
+    def dump_shard(self, shard_idx: int) -> bytes:
+        """One internal shard in the checkpoint wire format (the numpy
+        store's ``dump_shard``), from the least to the most recently used
+        entry."""
+        n = self._lib.ps_dump_shard_size(self._h, shard_idx)
+        if n < 0:
+            raise IndexError(f"shard {shard_idx} out of range")
+        # the size and the dump take the shard's lock apart: a dump racing
+        # with training can see the shard grow in between (the dump then
+        # returns -1), so measure again with headroom and retry
+        for _ in range(8):
+            buf = np.empty(max(n, 4), dtype=np.uint8)
+            written = self._lib.ps_dump_shard(self._h, shard_idx, _ptr(buf, ctypes.c_uint8), len(buf))
+            if written >= 0:
+                return buf[:written].tobytes()
+            n = max(self._lib.ps_dump_shard_size(self._h, shard_idx), n * 2)
+        raise RuntimeError("dump_shard failed: the shard kept growing concurrently")
+
+    def load_shard_bytes(self, raw: bytes) -> int:
+        """Load a dump's entries, each routed by its sign (a dump of any
+        shard layout loads); returns the entries loaded. Raises
+        ``ValueError`` on a payload shorter than its counts say."""
+        buf = np.frombuffer(raw, dtype=np.uint8)
+        n = self._lib.ps_load_shard(self._h, _ptr(buf, ctypes.c_uint8), len(buf))
+        if n < 0:
+            raise ValueError("corrupt shard payload")
+        return int(n)
+
+    # --------------------------------------------------------- apply-journal
+
+    def journal_record(self, journal_id: int, crc: int) -> None:
+        self._lib.ps_journal_record(self._h, journal_id, crc & 0xFFFFFFFF)
+
+    def journal_probe(self, journal_id: int, crc: int) -> int:
+        """1: already applied (the crc matches); 0: unknown; -1: the id
+        was recorded with another payload crc."""
+        return int(self._lib.ps_journal_probe(self._h, journal_id, crc & 0xFFFFFFFF))
+
+    def journal_len(self) -> int:
+        return int(self._lib.ps_journal_len(self._h))
+
+    def journal_clear(self) -> None:
+        self._lib.ps_journal_clear(self._h)
+
+    # probe, apply and record through the methods above
+    update_batched_journaled = EmbeddingStore.update_batched_journaled
 
 
 def native_available() -> bool:

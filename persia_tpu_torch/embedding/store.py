@@ -18,10 +18,20 @@ and advanced once per gradient batch.
 The per-sign hashes and the init rows are computed vectorized for the whole
 call; the entries and their order are the same as the reference's
 sign-by-sign loop.
+
+Durable state: ``dump_shard`` writes one internal shard in the checkpoint
+wire format (u32 count, then per entry u64 sign, u32 dim, u32 len and len
+f32), from the least to the most recently used entry, the bytes the native
+core writes; ``load_shard_bytes`` routes each entry by its sign. The
+apply-journal (``journal_*``, ``update_batched_journaled``) remembers the
+gradient batches applied since the last snapshot fence, so a resumed
+trainer's replay applies each exactly once.
 """
 
 from __future__ import annotations
 
+import logging
+import struct
 import threading
 from typing import Dict, List, Optional, Tuple
 
@@ -30,6 +40,11 @@ import numpy as np
 from persia_tpu_torch.config import HyperParameters
 from persia_tpu_torch.embedding.hashing import init_for_signs, splitmix64
 from persia_tpu_torch.embedding.optim import OptimizerConfig
+
+logger = logging.getLogger("persia_tpu_torch.store")
+
+_ENTRY_HEAD = struct.Struct("<QII")  # sign, dim, len
+_COUNT = struct.Struct("<I")
 
 
 class _Shard:
@@ -82,6 +97,10 @@ class EmbeddingStore:
         # Adam's accumulated (beta1^t, beta2^t) per feature group
         self._batch_state: Dict[int, Tuple[float, float]] = {}
         self.grad_misses = 0  # gradient rows whose sign was absent
+        # the apply-journal: id -> payload crc32, in insertion order, the
+        # oldest dropped past _journal_cap (the native core's ring)
+        self._journal: Dict[int, int] = {}
+        self._journal_cap = 1 << 16
 
     def register_optimizer(self, optimizer: OptimizerConfig) -> None:
         with self._lock:
@@ -248,3 +267,102 @@ class EmbeddingStore:
     def size(self) -> int:
         with self._lock:
             return sum(len(s) for s in self._shards)
+
+    def clear(self) -> None:
+        """Drop every entry and Adam's batch powers (not the journal)."""
+        with self._lock:
+            for shard in self._shards:
+                shard.entries.clear()
+            self._batch_state.clear()
+
+    @property
+    def num_internal_shards(self) -> int:
+        return self._num_shards
+
+    # ------------------------------------------------------------ checkpoint
+
+    def dump_shard(self, shard_idx: int) -> bytes:
+        """One internal shard in the checkpoint wire format, from the least
+        to the most recently used entry."""
+        if not 0 <= shard_idx < self._num_shards:
+            raise IndexError(f"shard {shard_idx} out of range")
+        with self._lock:  # a snapshot; serialised outside the lock
+            items = list(self._shards[shard_idx].entries.items())
+        parts = [_COUNT.pack(len(items))]
+        for sign, (dim, vec) in items:
+            parts.append(_ENTRY_HEAD.pack(sign, dim, len(vec)))
+            parts.append(vec.tobytes())
+        return b"".join(parts)
+
+    def load_shard_bytes(self, raw: bytes) -> int:
+        """Load a dump's entries, each routed by its sign and inserted as
+        the most recently used (a dump of any shard layout loads); returns
+        the entries loaded. Raises ``ValueError`` on a payload shorter than
+        its counts say."""
+        raw = memoryview(raw)
+        if len(raw) < 4:
+            raise ValueError("corrupt shard payload")
+        (n,) = _COUNT.unpack_from(raw, 0)
+        off = 4
+        with self._lock:
+            for _ in range(n):
+                if len(raw) - off < 16:
+                    raise ValueError("corrupt shard payload")
+                sign, dim, ln = _ENTRY_HEAD.unpack_from(raw, off)
+                off += 16
+                if len(raw) - off < 4 * ln:
+                    raise ValueError("corrupt shard payload")
+                vec = np.frombuffer(raw, dtype=np.float32, count=ln, offset=off).copy()
+                off += 4 * ln
+                k = self._shard_indices(np.array([sign], dtype=np.uint64))[0]
+                self._shards[k].insert(sign, dim, vec)
+        return n
+
+    # --------------------------------------------------------- apply-journal
+
+    def journal_record(self, journal_id: int, crc: int) -> None:
+        with self._lock:
+            if journal_id not in self._journal and len(self._journal) >= self._journal_cap:
+                del self._journal[next(iter(self._journal))]
+            self._journal[journal_id] = crc & 0xFFFFFFFF
+
+    def journal_probe(self, journal_id: int, crc: int) -> int:
+        """1: already applied (the crc matches); 0: unknown; -1: the id
+        was recorded with another payload crc."""
+        with self._lock:
+            rec = self._journal.get(journal_id)
+        if rec is None:
+            return 0
+        return 1 if rec == (crc & 0xFFFFFFFF) else -1
+
+    def journal_len(self) -> int:
+        with self._lock:
+            return len(self._journal)
+
+    def journal_clear(self) -> None:
+        """Forget every id: a rewind to a fence (clear + shard load) must,
+        so the batches past the fence apply again."""
+        with self._lock:
+            self._journal.clear()
+
+    def update_batched_journaled(
+        self, journal_id: int, crc: int, signs, key_ofs, dims, grads, opt_groups,
+    ) -> bool:
+        """``update_batched`` once per journal id: a batch whose id is
+        recorded (the crashed run applied it past the last fence) is
+        skipped and False returned; otherwise it is applied, its id
+        recorded and True returned. An id recorded with another payload
+        crc (a journal-only resume recomputed the window against entries
+        already past the fence) is skipped too, and logged: the first
+        application stands. Probe, apply and record are not one atomic
+        step against a PS crash, but a PS crash loses the store and
+        recovers by a rewind, which clears the journal with the data."""
+        st = self.journal_probe(journal_id, crc)
+        if st == -1:
+            logger.warning("apply-journal id %#x replayed with another payload crc; "
+                           "the first application stands", journal_id)
+        if st != 0:
+            return False
+        self.update_batched(signs, key_ofs, dims, grads, opt_groups)
+        self.journal_record(journal_id, crc)
+        return True

@@ -3,7 +3,10 @@ id preprocessing (prefix, dedup, hash-stack), sharded lookup over
 parameter-server replicas, the pooling/layout postprocess that hands each
 slot to the device, and the synchronous gradient return: the post-forward
 buffer and its staleness count, per-slot device gradients turned into
-per-key gradients, and one batched update per replica.
+per-key gradients, and one batched update per replica, optionally through
+the replicas' apply-journal (exactly once across a trainer's crash and
+resume). ``EmbeddingWorker.dump`` and ``load`` fan a checkpoint out to the
+replicas (``persia_tpu_torch.checkpoint``).
 
 The hot loops (dedup, sum pooling, gradient accumulation, index matrices,
 shard partitioning) run in the native worker core
@@ -16,6 +19,7 @@ except that native dedup lists the distinct ids in first-seen order where
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -25,6 +29,7 @@ from persia_tpu_torch.config import EmbeddingConfig, SlotConfig
 from persia_tpu_torch.data import IDTypeFeature, PersiaBatch
 from persia_tpu_torch.embedding import native_worker
 from persia_tpu_torch.embedding.hashing import add_index_prefix, hash_stack, sign_to_shard
+from persia_tpu_torch.jobstate import journal_shard_id, payload_crc
 from persia_tpu_torch.utils import round_up_pow2
 
 
@@ -168,6 +173,7 @@ class ShardedLookup:
             raise ValueError("need at least one PS replica")
         self.replicas = list(replicas)
         self.batch_advances: Dict[int, int] = {}
+        self.journal_skips = 0  # journaled replica applies skipped as already applied
 
     def lookup_groups(self, groups: Sequence, train: bool) -> List[np.ndarray]:
         """Multi-slot lookup, one call per replica: ``groups`` is ``[(keys,
@@ -192,10 +198,23 @@ class ShardedLookup:
                     outs[g][pos[b:e] - key_ofs[g]] = rows
         return outs
 
-    def update_groups(self, groups: Sequence) -> None:
+    def _update_replica(self, r: int, keys, key_ofs, dims, flat, opt_groups, journal_id) -> None:
+        """One replica's share of a gradient batch; with ``journal_id`` (a
+        ``jobstate.make_journal_id`` base) through its apply-journal, under
+        the id ``journal_shard_id(journal_id, r)`` and the crc of (keys,
+        gradients), counting a skipped duplicate in ``journal_skips``."""
+        rep = self.replicas[r]
+        if journal_id is None:
+            rep.update_batched(keys, key_ofs, dims, flat, opt_groups)
+        elif not rep.update_batched_journaled(journal_shard_id(journal_id, r), payload_crc(keys, flat),
+                                              keys, key_ofs, dims, flat, opt_groups):
+            self.journal_skips += 1
+
+    def update_groups(self, groups: Sequence, journal_id: Optional[int] = None) -> None:
         """Multi-slot gradient fan-out, one call per replica:
         ``groups`` is ``[(keys, grads (n, dim) f32, opt_group), ...]``. The
-        caller advances Adam's batch state once per batch per group first."""
+        caller advances Adam's batch state once per batch per group first.
+        ``journal_id`` routes each replica's apply through its journal."""
         if not groups:
             return
         dims = np.fromiter((g.shape[1] for _, g, _ in groups), dtype=np.uint32, count=len(groups))
@@ -206,7 +225,7 @@ class ShardedLookup:
         n = len(self.replicas)
         if n == 1:
             flat = np.concatenate([np.asarray(g, dtype=np.float32).reshape(-1) for _, g, _ in groups])
-            self.replicas[0].update_batched(all_keys, key_ofs, dims, flat, opt_groups)
+            self._update_replica(0, all_keys, key_ofs, dims, flat, opt_groups, journal_id)
             return
         for r, pos in _partition_positions(all_keys, n):
             sub_ofs = np.searchsorted(pos, key_ofs).astype(np.int64)
@@ -214,7 +233,7 @@ class ShardedLookup:
                 np.asarray(groups[g][1], dtype=np.float32)[pos[sub_ofs[g]:sub_ofs[g + 1]] - key_ofs[g]].reshape(-1)
                 for g in range(len(groups))
             ])
-            self.replicas[r].update_batched(all_keys[pos], sub_ofs, dims, flat, opt_groups)
+            self._update_replica(r, all_keys[pos], sub_ofs, dims, flat, opt_groups, journal_id)
 
     def advance_batch_state(self, group: int) -> None:
         """Advance ``group``'s Adam beta powers on every replica, counted in
@@ -371,6 +390,25 @@ class EmbeddingWorker:
         for r in self.lookup_router.replicas:
             r.register_optimizer(optimizer)
 
+    def dump(self, path: str) -> None:
+        """Checkpoint every replica into ``path``, under one session id so
+        that markers of an earlier dump there cannot complete this one."""
+        from persia_tpu_torch.checkpoint import dump_store  # checkpoint → hashing → this package
+
+        session = f"s{time.time_ns()}"
+        replicas = self.lookup_router.replicas
+        for i, r in enumerate(replicas):
+            dump_store(r, path, replica_index=i, replica_size=len(replicas), session=session)
+
+    def load(self, path: str) -> int:
+        """Load a checkpoint into every replica, re-sharding by sign when
+        the replica count changed; returns the entries loaded."""
+        from persia_tpu_torch.checkpoint import load_store
+
+        replicas = self.lookup_router.replicas
+        return sum(load_store(r, path, replica_index=i, replica_size=len(replicas))
+                   for i, r in enumerate(replicas))
+
     def put_forward_ids(self, batch: PersiaBatch) -> int:
         """Preprocess and buffer a batch's ids; returns its ref."""
         slots = preprocess_batch(batch.id_type_features, self.embedding_config)
@@ -402,10 +440,13 @@ class EmbeddingWorker:
 
     def update_gradient_batched(
         self, ref: int, slot_grads: Dict[str, np.ndarray], scale_factor: float = 1.0,
+        journal_id: Optional[int] = None,
     ) -> Dict[str, int]:
         """Gradient return of a looked-up batch: per-slot device gradients
-        (keyed by slot name) → per-key gradients → one update per replica.
-        Returns the slots skipped for a non-finite gradient."""
+        (keyed by slot name) → per-key gradients → one update per replica
+        (through the replicas' apply-journal with ``journal_id``, a
+        ``jobstate.make_journal_id`` base). Returns the slots skipped for a
+        non-finite gradient."""
         with self._buf_lock:
             slots = self.post_forward_buffer.pop(ref, None)
             if slots is not None:
@@ -431,7 +472,7 @@ class EmbeddingWorker:
             groups = {cfg.group_of(s.name) for s in slots if s.name in slot_grads}
             for g in sorted(groups):
                 self.lookup_router.advance_batch_state(g)
-            self.lookup_router.update_groups(trip)
+            self.lookup_router.update_groups(trip, journal_id=journal_id)
         return skipped
 
     def _lookup_slots(self, slots: Sequence[ProcessedSlot], train: bool) -> List[FeatureEmbeddingBatch]:

@@ -13,7 +13,13 @@
 //   - gradient updates apply the registered sparse optimizer (SGD,
 //     Adagrad +- vectorwise, Adam with per-group batch beta powers), clamp
 //     to +-weight_bound, and count the rows whose sign is absent
-//     (grad misses).
+//     (grad misses);
+//   - the checkpoint unit: one internal shard dumped in the wire format
+//     shared with the numpy store, from the least to the most recently
+//     used entry, and loaded back routed by sign;
+//   - the bounded apply-journal: ids of gradient batches already applied
+//     since the last snapshot fence, each with its payload's crc32, so a
+//     resumed trainer's replay applies each batch exactly once.
 //
 // Numeric contract: identical splitmix64 shard routing, admit gate, seeded
 // init and per-element update formulas to the port's numpy store
@@ -23,8 +29,8 @@
 // and everything integer (entries present, eviction, misses) exactly.
 // Parity: tests/test_torch_native_store.py.
 //
-// Checkpoint dump and load, the apply-journal, range export and delete,
-// the non-finite scrub, checkout and probe are not part of this copy.
+// Range export and delete, the non-finite scrub, checkout and probe are
+// not part of this copy.
 //
 // C ABI only (ctypes-friendly); no Python headers needed.
 
@@ -37,6 +43,7 @@
 #include <map>
 #include <mutex>
 #include <new>
+#include <unordered_map>
 #include <vector>
 
 namespace {
@@ -229,6 +236,47 @@ struct Store {
   // admitted) or held an entry of another dim or width
   std::atomic<int64_t> grad_misses{0};
 
+  // Bounded apply-journal: id -> payload crc32 of the gradient batches
+  // applied since the last snapshot fence. FIFO-bounded (the ring evicts
+  // the oldest id once journal_cap ids are held), which is safe because a
+  // resume only replays ids newer than the last committed fence.
+  std::unordered_map<uint64_t, uint32_t> journal_map;
+  std::vector<uint64_t> journal_ring;  // insertion order
+  size_t journal_cap = 1 << 16;
+  size_t journal_head = 0;  // ring slot the next insert overwrites when full
+  std::mutex journal_mu;
+
+  void journal_record(uint64_t id, uint32_t crc) {
+    std::lock_guard<std::mutex> g(journal_mu);
+    auto it = journal_map.find(id);
+    if (it != journal_map.end()) {
+      it->second = crc;
+      return;
+    }
+    if (journal_ring.size() < journal_cap) {
+      journal_ring.push_back(id);
+    } else {
+      journal_map.erase(journal_ring[journal_head]);
+      journal_ring[journal_head] = id;
+      journal_head = (journal_head + 1) % journal_cap;
+    }
+    journal_map.emplace(id, crc);
+  }
+
+  // 1 = applied (crc matches), 0 = unknown, -1 = applied with another crc
+  int journal_probe(uint64_t id, uint32_t crc) {
+    std::lock_guard<std::mutex> g(journal_mu);
+    auto it = journal_map.find(id);
+    if (it == journal_map.end()) return 0;
+    return it->second == crc ? 1 : -1;
+  }
+
+  void journal_clear() {
+    std::lock_guard<std::mutex> g(journal_mu);
+    journal_map.clear();
+    journal_ring.clear();
+    journal_head = 0;
+  }
 
   Store(uint64_t capacity, uint32_t n_shards, uint64_t seed_) : shards(n_shards) {
     num_shards = n_shards;
@@ -793,5 +841,98 @@ void ps_clear(void* h) {
 }
 
 int64_t ps_grad_misses(void* h) { return ((Store*)h)->grad_misses.load(); }
+
+// Checkpoint wire format, shared with the numpy store:
+//   u32 entry_count, then per entry: u64 sign, u32 dim, u32 len, len * f32.
+// Entries go out from the least to the most recently used, so a dump
+// loaded back (each insert becoming the most recent) rebuilds the same LRU
+// order, and later evictions match an uninterrupted run's.
+int64_t ps_dump_shard_size(void* h, uint32_t shard) {
+  Store* s = (Store*)h;
+  if (shard >= s->num_shards) return -1;
+  Shard& sh = s->shards[shard];
+  std::lock_guard<std::mutex> g(sh.mu);
+  int64_t bytes = 4;
+  for (int32_t e = sh.lru_tail; e >= 0; e = sh.entries[e].prev)
+    bytes += 16 + (int64_t)sh.entries[e].len * 4;
+  return bytes;
+}
+
+// returns the bytes written, or -1 (no such shard, or cap too small)
+int64_t ps_dump_shard(void* h, uint32_t shard, uint8_t* out, int64_t cap) {
+  Store* s = (Store*)h;
+  if (shard >= s->num_shards) return -1;
+  Shard& sh = s->shards[shard];
+  std::lock_guard<std::mutex> g(sh.mu);
+  uint8_t* p = out;
+  uint8_t* end = out + cap;
+  if (p + 4 > end) return -1;
+  uint32_t cnt = (uint32_t)sh.count;
+  std::memcpy(p, &cnt, 4);
+  p += 4;
+  for (int32_t e = sh.lru_tail; e >= 0; e = sh.entries[e].prev) {
+    const Entry& en = sh.entries[e];
+    int64_t need = 16 + (int64_t)en.len * 4;
+    if (p + need > end) return -1;
+    std::memcpy(p, &en.sign, 8);
+    std::memcpy(p + 8, &en.dim, 4);
+    std::memcpy(p + 12, &en.len, 4);
+    std::memcpy(p + 16, en.data, (size_t)en.len * 4);
+    p += need;
+  }
+  return p - out;
+}
+
+// Loads a dump (of any shard layout: each entry routes by its sign),
+// replacing entries of the same sign. Returns the entries loaded, or -1 on
+// a payload shorter than its counts say (entries before the tear stay).
+int64_t ps_load_shard(void* h, const uint8_t* data, int64_t len) {
+  Store* s = (Store*)h;
+  if (len < 4) return -1;
+  uint32_t cnt;
+  std::memcpy(&cnt, data, 4);
+  const uint8_t* p = data + 4;
+  const uint8_t* end = data + len;
+  for (uint32_t i = 0; i < cnt; ++i) {
+    if (end - p < 16) return -1;
+    uint64_t sign;
+    uint32_t edim, elen;
+    std::memcpy(&sign, p, 8);
+    std::memcpy(&edim, p + 8, 4);
+    std::memcpy(&elen, p + 12, 4);
+    p += 16;
+    if (end - p < (int64_t)elen * 4) return -1;
+    Shard& sh = s->shard_of(sign);
+    {
+      std::lock_guard<std::mutex> g(sh.mu);
+      size_t pos = sh.find_pos(sign);
+      if (pos != SIZE_MAX) sh.remove_entry(sh.table_slot[pos]);
+      int32_t e = sh.insert(sign, edim, elen);
+      std::memcpy(sh.entries[e].data, p, (size_t)elen * 4);
+    }
+    p += (int64_t)elen * 4;
+  }
+  return (int64_t)cnt;
+}
+
+// The apply-journal (see Store::journal_*). It is not part of the dump: a
+// rewind to a fence (clear + shard load) also clears it, so the replayed
+// post-fence batches apply again.
+void ps_journal_record(void* h, uint64_t id, uint32_t crc) {
+  ((Store*)h)->journal_record(id, crc);
+}
+
+// 1 = already applied (crc matches), 0 = unknown id, -1 = crc mismatch
+int32_t ps_journal_probe(void* h, uint64_t id, uint32_t crc) {
+  return ((Store*)h)->journal_probe(id, crc);
+}
+
+int64_t ps_journal_len(void* h) {
+  Store* s = (Store*)h;
+  std::lock_guard<std::mutex> g(s->journal_mu);
+  return (int64_t)s->journal_map.size();
+}
+
+void ps_journal_clear(void* h) { ((Store*)h)->journal_clear(); }
 
 }  // extern "C"

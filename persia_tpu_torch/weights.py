@@ -1,5 +1,7 @@
 """Carry dense weights, and Adam's moments, across from the reference's
-flax/optax layout; and the fused tier's whole state, both ways.
+flax/optax layout; the hybrid tier's dense ``TrainState`` as the bytes
+``flax.serialization.to_bytes`` writes for the reference's; and the fused
+tier's whole state, both ways.
 
 flax names a model's ``Dense`` layers ``Dense_0 … Dense_k`` in call order,
 each ``{"kernel": (in, out), "bias": (out,)}``; the port's models keep their
@@ -17,6 +19,8 @@ from typing import Callable, Dict, List, Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
+from persia_tpu_torch.serialization import msgpack_restore, msgpack_serialize
+
 
 def dlrm_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """The port's DLRM ``state_dict`` from the reference DLRM's ``params``."""
@@ -29,6 +33,21 @@ def dlrm_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
         bias = np.asarray(params[name]["bias"], dtype=np.float32)
         out[f"layers.{i}.weight"] = torch.from_numpy(np.array(kernel.T))  # a writable copy
         out[f"layers.{i}.bias"] = torch.from_numpy(bias.copy())
+    return out
+
+
+def dlrm_state_dict_to_flax(model: torch.nn.Module, tensor_of=lambda p: p) -> Dict[str, Dict[str, np.ndarray]]:
+    """The inverse of ``dlrm_state_dict_from_flax``: ``{"Dense_i": {"bias",
+    "kernel" (in, out)}}`` as host arrays, with the names and leaves in
+    sorted order (the order of a state the reference's step returned).
+    ``tensor_of`` maps each parameter to the tensor to take (an Adam
+    moment of it, say)."""
+    layers = model.layers
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    for name in sorted(f"Dense_{i}" for i in range(len(layers))):
+        layer = layers[int(name.rsplit("_", 1)[1])]
+        out[name] = {"bias": _host_array(tensor_of(layer.bias)),
+                     "kernel": np.ascontiguousarray(_host_array(tensor_of(layer.weight)).T)}
     return out
 
 
@@ -56,6 +75,94 @@ def adam_state_from_optax(
             "exp_avg_sq": v.to(p.device),
         }
     return out
+
+
+def _adam_of(state):
+    opt = state.optimizer
+    if not isinstance(opt, torch.optim.Adam) or any(g.get("amsgrad") for g in opt.param_groups):
+        raise ValueError(f"the dense state maps to optax's adam: expected torch.optim.Adam, got {opt!r}")
+    return opt
+
+
+def _scalar_state_dtype() -> torch.dtype:
+    """The dtype ``torch.optim.Adam`` gives a new ``step`` tensor."""
+    return torch.float64 if torch.get_default_dtype() == torch.float64 else torch.float32
+
+
+def train_state_to_flax_bytes(state) -> bytes:
+    """The port's hybrid ``TrainState`` (a DLRM, ``torch.optim.Adam``) as the
+    bytes ``flax.serialization.to_bytes`` writes for the reference's
+    ``TrainState`` carrying the same arrays: ``params`` (kernels (in,
+    out)), ``batch_stats`` ``{}``, ``opt_state`` as ``optax.adam``'s chain
+    (``count``, ``mu``, ``nu``; then the learning-rate scale's empty state),
+    ``step`` and ``loss_scale`` (``None``, or ``scale`` and
+    ``good_steps``). Before Adam's first step its moments are zeros and its
+    count 0."""
+    model, opt = state.model, _adam_of(state)
+    first = next(iter(model.parameters()))
+    count = int(float(opt.state[first]["step"])) if opt.state.get(first) else 0
+
+    def moment(key):
+        return lambda p: opt.state[p][key] if opt.state.get(p) else torch.zeros_like(p)
+
+    ls = state.loss_scale
+    tree = {
+        "params": dlrm_state_dict_to_flax(model),
+        "batch_stats": {},
+        "opt_state": {"0": {"count": np.asarray(count, np.int32),
+                            "mu": dlrm_state_dict_to_flax(model, moment("exp_avg")),
+                            "nu": dlrm_state_dict_to_flax(model, moment("exp_avg_sq"))},
+                      "1": {}},
+        "step": np.asarray(state.step, np.int32),
+        "loss_scale": None if ls is None else {"scale": np.asarray(ls.scale, np.float32),
+                                               "good_steps": np.asarray(ls.good_steps, np.int32)},
+    }
+    return msgpack_serialize(tree)
+
+
+def train_state_from_flax_bytes(state, raw: bytes):
+    """Load the bytes of a reference ``TrainState`` (or of
+    ``train_state_to_flax_bytes``) into ``state`` in place: the model's
+    parameters, Adam's moments and ``step`` tensors (those that exist are
+    overwritten, so a captured or cached step stays valid; missing ones are
+    made as Adam makes them), the step and the loss scale. Returns
+    ``state``."""
+    tree = msgpack_restore(raw)
+    model, opt = state.model, _adam_of(state)
+    adam = tree["opt_state"]["0"]
+    layers = model.layers
+    if sorted(tree["params"]) != sorted(f"Dense_{i}" for i in range(len(layers))):
+        raise ValueError(f"the bytes hold layers {sorted(tree['params'])}, the model {len(layers)}")
+    if (tree["loss_scale"] is None) != (state.loss_scale is None):
+        raise ValueError("the bytes and the state disagree on a dynamic loss scale")
+    groups = {id(p): g for g in opt.param_groups for p in g["params"]}
+    count = float(np.asarray(adam["count"]))
+    with torch.no_grad():
+        for name, leaves in tree["params"].items():
+            layer = layers[int(name.rsplit("_", 1)[1])]
+            for p, key, t in ((layer.weight, "kernel", True), (layer.bias, "bias", False)):
+                host = [leaves[key], adam["mu"][name][key], adam["nu"][name][key]]
+                host = [_host_tensor(a.T if t else a).to(p.device) for a in host]
+                if host[0].shape != p.shape or host[0].dtype != p.dtype:
+                    raise ValueError(f"{name}.{key}: {host[0].dtype} {tuple(host[0].shape)} in the bytes, "
+                                     f"{p.dtype} {tuple(p.shape)} in the model")
+                p.copy_(host[0])
+                st = opt.state[p]
+                if not st:
+                    g = groups[id(p)]
+                    on_device = g.get("capturable") or g.get("fused")
+                    st["step"] = torch.zeros((), dtype=torch.float32 if g.get("fused") else _scalar_state_dtype(),
+                                             device=p.device if on_device else "cpu")
+                    st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                    st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                st["step"].fill_(count)
+                st["exp_avg"].copy_(host[1])
+                st["exp_avg_sq"].copy_(host[2])
+    state.step = int(np.asarray(tree["step"]))
+    if state.loss_scale is not None:
+        state.loss_scale.scale = float(np.asarray(tree["loss_scale"]["scale"], np.float32))
+        state.loss_scale.good_steps = int(np.asarray(tree["loss_scale"]["good_steps"]))
+    return state
 
 
 def seeded_flax_params_like(model: torch.nn.Module, seed: int) -> Dict[str, Dict[str, np.ndarray]]:

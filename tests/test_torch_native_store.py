@@ -10,6 +10,10 @@ the reference's (``native/ps.cpp``) and against the port's numpy store.
   it); floats after updates to rtol 2e-5, atol 1e-6, the reference's own
   tolerance between its two cores (``-mfma`` contracts the update's
   multiply-adds); survivor sets and grad misses exactly.
+- Durable state, against the reference's core: ``dump_shard`` bytes after
+  lookup and update streams, the LRU survivors of a store rebuilt by
+  ``load_shard_bytes``, the bounded apply-journal and
+  ``update_batched_journaled``.
 """
 
 import platform
@@ -281,3 +285,114 @@ def test_create_store_and_backend_name(monkeypatch):
     assert ns.store_backend_name(ns.create_store("auto", **kw)) == "numpy"
     with pytest.raises(RuntimeError):
         ns.create_store("native", **kw)
+
+
+# ------------------------------------------------------------ durable state
+
+
+def _stream(stores, steps=12, n=48, vocab=160, seed=4):
+    """Train lookups and updates (with grad misses) over overlapping signs."""
+    rng = np.random.default_rng(seed)
+    for step in range(steps):
+        signs = rng.integers(0, vocab, size=n, dtype=np.uint64)
+        upd = np.concatenate([signs, rng.integers(vocab, 2 * vocab, size=4, dtype=np.uint64)])
+        g = rng.normal(size=(len(upd), 8)).astype(np.float32)
+        for st in stores:
+            st.lookup(signs, 8, train=True)
+            st.advance_batch_state(step % 2)
+            st.update_gradients(upd, g, step % 2)
+
+
+@pytest.mark.parametrize("opt", ["sgd_wd", "adagrad", "adam"])
+def test_dump_shard_bytes_match_reference_core(opt):
+    """After the same lookup and update stream (evicting), every shard's
+    dump is the reference core's byte for byte: the same entries, from the
+    least to the most recently used."""
+    port, ref, _ = _trio(opt, capacity=96)
+    _stream((port, ref))
+    assert port.size() == ref.size() == 96
+    assert port.num_internal_shards == ref.num_internal_shards == 4
+    for i in range(4):
+        assert port.dump_shard(i) == ref.dump_shard(i), i
+    with pytest.raises(IndexError):
+        port.dump_shard(4)
+
+
+@pytest.mark.parametrize("opt", ["adagrad", "adam"])
+def test_loaded_store_keeps_the_lru_order(opt):
+    """A store rebuilt from the dumps (loaded into an empty store of
+    another shard count too) evicts as the original does: after further
+    inserts past capacity, the survivors and their dumps match the
+    original's and the reference core's, rebuilt the same way."""
+    port, ref, _ = _trio(opt, capacity=64, num_internal_shards=1)
+    _stream((port, ref), steps=6, n=24, vocab=80)
+    rebuilt = []
+    for src, mod, cfgmod, optmod in ((port, ns, tcfg, toptim), (ref, jns, jcfg, joptim)):
+        st = mod.NativeEmbeddingStore(optimizer=OPTS[opt](optmod).config, capacity=64,
+                                      num_internal_shards=1, seed=9)
+        assert st.load_shard_bytes(src.dump_shard(0)) == src.size()
+        rebuilt.append(st)
+    assert rebuilt[0].dump_shard(0) == port.dump_shard(0) == ref.dump_shard(0)
+    rng = np.random.default_rng(8)
+    for _ in range(5):
+        signs = rng.integers(0, 200, size=20, dtype=np.uint64)
+        for st in (port, ref, *rebuilt):
+            st.lookup(signs, 8, train=True)
+    assert port.dump_shard(0) == ref.dump_shard(0) == rebuilt[0].dump_shard(0) == rebuilt[1].dump_shard(0)
+    present = [s for s in range(200) if port.get_embedding_entry(s) is not None]
+    assert len(present) == 64
+    assert present == [s for s in range(200) if rebuilt[0].get_embedding_entry(s) is not None]
+
+
+def test_load_rejects_a_torn_payload():
+    port, _, _ = _trio()
+    port.lookup(np.arange(10, dtype=np.uint64), 8, train=True)
+    blob = b"".join(port.dump_shard(i)[4:] for i in range(4))
+    whole = np.uint32(port.size()).tobytes() + blob
+    fresh = ns.NativeEmbeddingStore(capacity=2048, num_internal_shards=2, seed=9)
+    assert fresh.load_shard_bytes(whole) == 10
+    for cut in (b"", whole[:3], whole[:-1], whole[:20]):
+        with pytest.raises(ValueError):
+            fresh.load_shard_bytes(cut)
+
+
+def test_journal_bounded_probe_and_clear():
+    """The journal keeps the newest 65,536 ids (the oldest go first; a
+    re-record keeps its place); probe gives 1 (same crc), 0 (unknown) and
+    -1 (another crc), as the reference core's does on the same calls."""
+    port, ref, _ = _trio()
+    cap = 1 << 16
+    for st in (port, ref):
+        for i in range(cap + 10):
+            st.journal_record(i, i * 3)
+        st.journal_record(cap + 9, 5)  # a re-record: same place, new crc
+    for st in (port, ref):
+        assert st.journal_len() == cap
+    for jid, crc in ((0, 0), (9, 27), (10, 30), (cap + 8, 3 * (cap + 8)), (cap + 8, 1), (cap + 9, 5),
+                     (cap + 9, 3 * (cap + 9)), (1 << 63, 0)):
+        assert port.journal_probe(jid, crc) == ref.journal_probe(jid, crc), (jid, crc)
+    assert [port.journal_probe(j, c) for j, c in ((0, 0), (10, 30), (10, 31))] == [0, 1, -1]
+    port.journal_clear()
+    assert port.journal_len() == 0 and port.journal_probe(10, 30) == 0
+
+
+@pytest.mark.parametrize("opt", ["adagrad", "adam"])
+def test_update_batched_journaled_skips_a_duplicate(opt):
+    """The first journaled apply of an id applies and records it; a second
+    (same or another payload crc) is skipped, on both cores alike."""
+    port, ref, _ = _trio(opt, capacity=1 << 14)
+    groups, signs, key_ofs, dims, ogs = _batched_fixture(5)
+    grads = np.random.default_rng(6).normal(size=int(np.diff(key_ofs) @ dims)).astype(np.float32)
+    for st in (port, ref):
+        st.lookup_batched(signs, key_ofs, dims, train=True)
+        assert st.update_batched_journaled(77, 1234, signs, key_ofs, dims, grads, ogs) is True
+    after = {s: port.get_embedding_entry(s) for s in np.unique(signs).tolist()}
+    for st in (port, ref):
+        assert st.update_batched_journaled(77, 1234, signs, key_ofs, dims, grads, ogs) is False
+        assert st.update_batched_journaled(77, 99, signs, key_ofs, dims, grads, ogs) is False
+        assert st.journal_len() == 1 and st.journal_probe(77, 1234) == 1
+    for s, e in after.items():
+        np.testing.assert_array_equal(port.get_embedding_entry(s), e)
+        np.testing.assert_array_equal(ref.get_embedding_entry(s), e)
+    assert port.update_batched_journaled(78, 1234, signs, key_ofs, dims, grads, ogs) is True
+    assert any(not np.array_equal(port.get_embedding_entry(s), e) for s, e in after.items())

@@ -1,5 +1,6 @@
-"""The port's package rules: it imports neither JAX (nor flax, optax or
-ml_dtypes) nor any module of ``persia_tpu``; importing it loads no JAX; and
+"""The port's package rules: it imports neither JAX (nor flax, optax,
+msgpack or ml_dtypes: the machine with the card has neither of the last
+two) nor any module of ``persia_tpu``; importing it loads none of them; and
 its entry points raise without a card unless the caller asks for the
 CPU."""
 
@@ -14,7 +15,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "persia_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "persia_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "ml_dtypes", "persia_tpu")
 
 
 def _port_files():
@@ -31,7 +32,7 @@ def _imported_roots(path: pathlib.Path):
 
 
 NATIVE_MODULES = ("data_loader.py", "embedding/_native_build.py", "embedding/native_store.py",
-                  "embedding/native_worker.py")
+                  "embedding/native_worker.py", "jobstate.py", "checkpoint.py", "serialization.py")
 
 
 def test_port_sources_import_no_jax_and_no_reference():
@@ -54,9 +55,10 @@ def test_importing_the_port_loads_no_jax():
     )
     code = (
         "import importlib, json, sys\n"
-        "before = {m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax')}\n"
+        "roots = ('jax', 'flax', 'optax', 'msgpack', 'ml_dtypes', 'persia_tpu')\n"
+        "before = {m for m in sys.modules if m.split('.')[0] in roots}\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
-        "after = {m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'ml_dtypes', 'persia_tpu')}\n"
+        "after = {m for m in sys.modules if m.split('.')[0] in roots}\n"
         "print(json.dumps(sorted(after - before)))\n"
     )
     out = subprocess.run(
