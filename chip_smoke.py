@@ -9,7 +9,8 @@ result line:
 1. build the port's CUDA kernels from ``persia_tpu_torch/csrc`` (nvcc,
    sm_90a); the flash-attention kernels' SASS must hold wgmma (HGMMA) and
    TMA loads (UTMALDG), the f32 one without spills; K5's kernels and the
-   routing kernel on the dim-16 f32 path without spills;
+   routing kernel on the dim-16 f32 path without spills; K6-K9's kernels
+   (raw gather, segment sum, attention pool) reported;
 2. flash_attention on the card vs its plain version (dense f32 softmax):
    the bf16 route (wgmma) and the f32 route (split TF32 on wgmma, its
    pre-pass held bit for bit to ``tf32_split_planes_reference``) at every
@@ -34,6 +35,17 @@ result line:
    + 1) and on segments ending on a staged tile's edge; the bench's 26
    stacked tables with Adagrad(0.05); a bf16 table), each case's longest
    segment printed;
+   (3c) the DIN path's kernels at its shape (B=1024, L=50, dim 16, two raw
+   slots of 26,000 and 9,000 distinct rows), both dtypes: K6
+   ``raw_gather_fwd`` bit for bit; K7 ``raw_gather_bwd`` within twice the
+   f32 sum-order bound and one rounding of its plain version (index_add_),
+   bit for bit twice and against its schedule (``plans.pool_bwd_model``),
+   on Taobao-length histories with an empty and a full one and on every
+   position on one row, the pad row zero; K8 ``attention_pool_fwd``
+   (weights to 1e-6, the pooled rows inside their f64 envelope: an f32 sum
+   in any order, then one rounding) and K9 ``attention_pool_bwd`` (d_hist
+   bit for bit, d_logits inside its envelope), kernel and plain version
+   alike, nothing at masked positions or on the empty row;
 4. the paths, each with the launch counts set to 0 just before and read
    just after: (a) the flash-attention entry point at (B=4, L=1024, H=8,
    D=64) in bf16 and in f32, causal and not, and its backward (a dense
@@ -89,7 +101,25 @@ result line:
    capacity with synthetic rows (ms a MiB; the restored dumps and dense
    bytes equal to the snapshot's); and the journal's host cost, the step's
    samples/s armed and not (96 steps a side in turns, the mean difference
-   with its standard error, ``payload_crc`` timed);
+   with its standard error, ``payload_crc`` timed); (g) DIN on Taobao at
+   ``examples/taobao_din/train.py``'s width (B=1024, 50-long histories,
+   dim 16, the items and cates feature groups, DIN attention (36,), top
+   (200, 80), Adagrad(0.05) on two native-store replicas of 2^20 rows and
+   16 shards, Adam(1e-3), the f32 wire, ``TaobaoSynthetic(seed=42)`` at its
+   default vocabularies): 3 reproducible staleness-1 loader steps held to
+   ``train_step`` on the CPU over numpy stores (losses 2e-2, PS rows
+   1e-2), then 16 batches through ``DataLoader(num_workers=4,
+   staleness=4)`` + ``train_step_prepared`` (the counted run: K6 and K7
+   once a step, K8 and K9 once a raw slot), stage p50s, the card's busy
+   time a step, the held-out AUC over 4 batches (not gated); (h) the
+   trained dense state as flax's bytes loaded into a DIN behind
+   ``InferenceEngine(InferCtx(...))``, 5 requests of B=1024 through
+   ``predict_from_bytes`` held to the same weights on the CPU (2e-2; K6
+   once, K8 twice a request); (i) DeepFM and DCN-v2 (3 cross layers) on
+   Avazu at ``examples/avazu/train.py``'s width (21 fields of dim 16, deep
+   (256, 128), B=4096): 8 ``TrainCtx.train_step``s each, the first 3
+   losses held to the CPU port (2e-2), no kernel of the port launched
+   (host pooling);
 5. timings of each kernel beside its plain version, the library call that
    computes the same function, and the card's bound, each by CUDA-graph
    replay (host enqueue cost out of the number; eager times beside them):
@@ -104,7 +134,10 @@ result line:
    K5 on uniform and zipf(1.2) ids with the longest segment printed, each
    of its steps apart (torch.profiler), ``torch.sort``'s time beside it,
    and every position on one row); the routing pass against its bound and
-   its plain version, ``torch.sort`` beside both;
+   its plain version, ``torch.sort`` beside both; K6-K9 at the DIN path's
+   own step (K6 beside ``torch.index_select``, K7 beside ``index_add_``
+   with the longest segments and every position on one row, K8 beside the
+   softmax + bmm composite), warm and cold;
    and (5b) the flash-attention backward, a dense recompute, beside SDPA's
    backward.
 
@@ -153,6 +186,17 @@ STATE_DIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_stat
 # writes it): DLRM of the flagship's shape, two replicas of 4 shards
 FIXTURE_DIR = pathlib.Path(__file__).resolve().parent / "tests" / "fixtures" / "jax_train_ctx_manifest"
 FIXTURE_MODEL = dict(num_slots=5, bottom_mlp=(32, 16), top_mlp=(64, 32))
+# phases 3c and 4g-4h: DIN on Taobao at examples/taobao_din/train.py's
+# width (B, the history length, dim, the attention unit and the top MLP);
+# the reproducible steps held to the CPU, the counted loader's batches, the
+# held-out batches, the profiled steps and the serving requests
+DIN_BATCH, DIN_HIST, DIN_DIM, DIN_ATT, DIN_TOP = 1024, 50, 16, (36,), (200, 80)
+DIN_REPRO, DIN_BATCHES, DIN_EVAL, DIN_PROFILED, DIN_REQUESTS = 3, 16, 4, 4, 5
+DIN_KERNELS = ("raw_gather_fwd", "raw_gather_bwd", "attention_pool_fwd", "attention_pool_bwd")
+RAW_SOURCE, RAW_REPLACES = "persia_tpu_torch/csrc/raw_gather.cu", "persia_tpu/parallel/train_step.py:90"
+ATT_SOURCE, ATT_REPLACES = "persia_tpu_torch/csrc/attention_pool.cu", "persia_tpu/models/din.py:67"
+# phase 4i: DeepFM and DCN-v2 on Avazu at examples/avazu/train.py's width
+AVAZU_FIELDS, AVAZU_BATCH, AVAZU_STEPS, AVAZU_CPU_STEPS, AVAZU_DEEP = 21, 4096, 8, 3, (256, 128)
 FA_SOURCE = {"wgmma_bf16": "persia_tpu_torch/csrc/flash_attention_hopper.cu",
              "tf32x3": "persia_tpu_torch/csrc/flash_attention_tf32.cu"}
 FA_REPLACES = "persia_tpu/ops/flash_attention.py:107"
@@ -164,6 +208,27 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def check_envelope(name, out, ref, envelope, ref_envelope) -> float:
+    """Fail unless the kernel's ``out`` lies inside its f64 ``envelope``
+    (lo, hi) and the plain version's ``ref`` inside ``ref_envelope``;
+    returns the max abs error of out against ref."""
+    import torch
+
+    from persia_tpu_torch.testing.envelopes import outside
+
+    bad, bad_ref = outside(out, envelope), outside(ref, ref_envelope)
+    max_err = float((out.float() - ref.float()).abs().max())
+    width = float((envelope[1] - envelope[0]).max())
+    straddle = int((envelope[1] != envelope[0]).sum())
+    ok = bool(torch.isfinite(out).all()) and bad == 0 and bad_ref == 0
+    print(f"  {name}: max_abs_err={max_err:.3e}; outside the envelope: kernel {bad}, plain {bad_ref} of "
+          f"{out.numel()} (envelope widest {width:.3e}, {straddle} not one value) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise SystemExit(f"{name} disagrees with its plain version")
+    return max_err
 
 
 def check_close(name, out, ref, rtol, atol, base=None) -> float:
@@ -328,9 +393,14 @@ def device_busy_ms(step, batches):
 KERNEL_NAMES = ("fa_fwd_wgmma_kernel", "fa_fwd_tf32x3_kernel", "tf32_split_kernel",
                 "dot_interaction_mma_kernel", "dot_interaction_kernel",
                 "dot_interaction_bwd_mma_kernel", "dot_interaction_bwd_kernel",
-                "gather_pool_fwd_kernel", "gather_pool_bwd_chunks_kernel", "gather_pool_bwd_rows_kernel",
+                "gather_pool_fwd_kernel", "segment_sum_chunks_kernel", "segment_sum_rows_kernel",
                 "fused_gather_kernel", "update_keys_kernel", "sparse_update_segments_kernel",
-                "sparse_update_long_kernel", "sparse_update_short_kernel")
+                "sparse_update_long_kernel", "sparse_update_short_kernel",
+                "raw_gather_fwd_kernel", "attention_pool_fwd_kernel", "attention_pool_bwd_kernel")
+# the DIN path's kernels (K6-K9; K7 is the segment-sum's slot-major
+# instance, the ones whose last template argument is true)
+DIN_KERNEL_NAMES = ("raw_gather_fwd_kernel", "segment_sum_chunks_kernel", "segment_sum_rows_kernel",
+                    "attention_pool_fwd_kernel", "attention_pool_bwd_kernel")
 # K5's kernels, and the routing's: on the dim-16 f32 path none may spill
 K5_KERNELS = ("sparse_update_segments_kernel", "sparse_update_long_kernel", "sparse_update_short_kernel")
 K5_DIM16 = ("sparse_update_segments_kernel", "sparse_update_long_kernel<f32,4>",
@@ -345,15 +415,16 @@ POOL_REPLACES = "persia_tpu/parallel/train_step.py:81"
 
 
 def _template_arg(t) -> str:
-    if t.group(0).startswith("13"):
+    tok = t.group(0)
+    if tok.startswith("13"):
         return "bf16"
     if t.group(1):
         return t.group(1)
     if t.group(2):
-        return "vec4" if t.group(2) == "1" else "vec1"
+        return "true" if t.group(2) == "1" else "false"
     if t.group(3):
         return f"uint{t.group(3)}"
-    return "f32"
+    return {"f": "f32", "j": "u32", "t": "u16"}.get(tok, "same")  # S<n>_: a type repeated
 
 
 def kernel_label(mangled: str):
@@ -362,7 +433,7 @@ def kernel_label(mangled: str):
     for name in KERNEL_NAMES:
         if name + "I" in mangled:
             args = mangled.split(name + "I", 1)[1].split("EEv", 1)[0]
-            tokens = re.finditer(r"13__nv_bfloat16|Li(\d+)E|Lb([01])E|5uint([24])|f", args)
+            tokens = re.finditer(r"13__nv_bfloat16|Li(\d+)E|Lb([01])E|5uint([24])|S\d*_|f|j|t", args)
             return f"{name}<{','.join(map(_template_arg, tokens)) or args}>"
     for name in KERNEL_NAMES:
         if f"{len(name)}{name}" in mangled:
@@ -428,6 +499,11 @@ def phase_build():
     if spills:
         raise SystemExit(f"the f32 flash-attention kernel spills: {spills}")
     if _kernels.build_log:
+        din = {k: v for k, v in summary.items() if k.split("<")[0] in DIN_KERNEL_NAMES}
+        print(f"  K6-K9 (raw gather, segment sum, attention pool): {json.dumps(din)}", flush=True)
+        missing = [n for n in DIN_KERNEL_NAMES if not any(k.split("<")[0] == n for k in din)]
+        if missing:
+            raise SystemExit(f"the build reported nothing for {missing}")
         k5 = {k: summary.get(k, {}).get("spill_bytes") for k in K5_DIM16}
         print(f"  K5 and the routing on the dim-16 path, spill bytes: {k5}", flush=True)
         if any(v is None or v for v in k5.values()):
@@ -717,7 +793,7 @@ def path_serving(dev):
     from persia_tpu_torch.models import DLRM
     from persia_tpu_torch.parallel.train_step import build_eval_step
     from persia_tpu_torch.serving.engine import InferenceEngine
-    from persia_tpu_torch.weights import dlrm_state_dict_from_flax, seeded_flax_params_like
+    from persia_tpu_torch.weights import seeded_flax_params_like, state_dict_from_flax
 
     print("== phase 4b: serving path (DLRM at bench width, 5 requests of B=4096)", flush=True)
     cfg = bench_cfg()
@@ -736,7 +812,7 @@ def path_serving(dev):
         print(f"  {backend} store warmed with {WARM_BATCHES} admitting lookups: {store.size()} rows "
               f"in {time.perf_counter() - t0:.2f} s", flush=True)
         model = DLRM(N_DENSE, N_SLOTS, EMB_DIM, BOTTOM, TOP, device=device)
-        sd = sd or dlrm_state_dict_from_flax(seeded_flax_params_like(model, SEED))
+        sd = sd or state_dict_from_flax(model, seeded_flax_params_like(model, SEED))
         model.load_state_dict(sd)
         engines[device] = InferenceEngine(InferCtx(model, worker, cfg, device=device), device=device)
     requests = [make_batch().to_bytes() for _ in range(REQUESTS)]
@@ -842,7 +918,7 @@ def bench_train_ctx(device, backend, warm, sd=None, store=None):
     from persia_tpu_torch.embedding.optim import Adagrad
     from persia_tpu_torch.embedding.worker import EmbeddingWorker
     from persia_tpu_torch.models import DLRM
-    from persia_tpu_torch.weights import dlrm_state_dict_from_flax, seeded_flax_params_like
+    from persia_tpu_torch.weights import seeded_flax_params_like, state_dict_from_flax
 
     cfg = bench_cfg()
     if store is None:
@@ -852,18 +928,19 @@ def bench_train_ctx(device, backend, warm, sd=None, store=None):
     for b in warm:  # admit the stream's hot rows, as the serving path does
         worker.forward_directly(b, train=True)
     model = DLRM(N_DENSE, N_SLOTS, EMB_DIM, BOTTOM, TOP, device="cpu")
-    sd = sd or dlrm_state_dict_from_flax(seeded_flax_params_like(model, SEED))
+    sd = sd or state_dict_from_flax(model, seeded_flax_params_like(model, SEED))
     model.load_state_dict(sd)
     ctx = TrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3), Adagrad(lr=0.05),
                    worker, cfg, device=device, wire_dtype="bfloat16").__enter__()
     return ctx, store, sd
 
 
-def batch_keys(batches):
-    """The table keys (signs) of ``batches``' ids, sorted and distinct."""
+def batch_keys(batches, cfg=None):
+    """The table keys (signs) of ``batches``' ids (under ``cfg``, the
+    bench's by default), sorted and distinct."""
     from persia_tpu_torch.embedding.worker import preprocess_batch
 
-    cfg = bench_cfg()
+    cfg = cfg or bench_cfg()
     return np.unique(np.concatenate([s.keys for b in batches for s in preprocess_batch(b.id_type_features, cfg)]))
 
 
@@ -2010,6 +2087,436 @@ def path_fused(dev):
     return launches, fused, inputs
 
 
+# ---------------------------------------------------------------------------
+# DIN on Taobao (examples/taobao_din/train.py) and DeepFM / DCN-v2 on Avazu
+# (examples/avazu/train.py): phases 3c, 4g, 4h and 4i
+
+
+def raw_inputs(dev, dtype, seed, case, batch=DIN_BATCH, hist=DIN_HIST, distinct=(26_000, 9_000)):
+    """A raw group at the DIN path's shape: per slot ``d`` distinct rows of
+    dim 16 (P = round_up_pow2(d + 1), rows past d zero) and a (B, L) index
+    with Taobao's history lengths (1..L valid positions, pads at P - 1),
+    sample 0 with no history and sample 1 with a full one ("taobao"), or
+    every position on one row ("one_row"); with each slot's CSR."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.utils import round_up_pow2
+
+    rng = np.random.default_rng(seed)
+    rows, slots = [], []
+    for d in distinct:
+        p = round_up_pow2(d + 1)
+        r = np.zeros((p, DIN_DIM), np.float32)
+        r[:d] = rng.standard_normal((d, DIN_DIM))
+        if case == "one_row":
+            index = np.full((batch, hist), 3, np.int32)
+        else:
+            lengths = rng.integers(1, hist + 1, batch)
+            lengths[0], lengths[1] = 0, hist
+            index = np.where(np.arange(hist)[None, :] < lengths[:, None], rng.integers(0, d, (batch, hist)),
+                             p - 1).astype(np.int32)
+        order, offsets = ops.raw_csr(index, p)
+        rows.append(torch.from_numpy(r).to(dev, dtype))
+        slots.append(ops.RawSlot(*(torch.from_numpy(a).to(dev) for a in (index, order, offsets))))
+    return rows, slots
+
+
+def raw_bwd_tolerance(grad, rows, slots, dtype):
+    """Per element: twice the f32 sum-order bound of its row's n terms (the
+    kernel sums a row in its fixed tree order, index_add_ in stream order),
+    then one rounding: 1e-6 relative in f32, one bf16 ulp (2^-8) in bf16."""
+    from persia_tpu_torch.ops.raw_gather import raw_gather_bwd_reference
+
+    abs_sums = raw_gather_bwd_reference(grad.abs().float(), [r.float() for r in rows], slots)
+    rtol = 1e-6 if dtype == np.float32 else 2 ** -8
+    return rtol, [2 * (s.offsets[1:] - s.offsets[:-1]).float()[:, None] * 2 ** -24 * a
+                  for s, a in zip(slots, abs_sums)]
+
+
+def att_inputs(dev, dtype, seed, batch=DIN_BATCH, hist=DIN_HIST):
+    """K8/K9's inputs at the DIN path's shape: f32 logits, Taobao's masks
+    (sample 0 with no history, sample 1 a full one), history rows zero at
+    the pads, the pooled rows' gradient."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, hist + 1, batch)
+    lengths[0], lengths[1] = 0, hist
+    mask = np.arange(hist)[None, :] < lengths[:, None]
+    h = rng.standard_normal((batch, hist, DIN_DIM)).astype(np.float32)
+    h[~mask] = 0.0
+    logits = (2 * rng.standard_normal((batch, hist))).astype(np.float32)
+    d_out = rng.standard_normal((batch, DIN_DIM)).astype(np.float32)
+    return (torch.from_numpy(logits).to(dev), torch.from_numpy(mask).to(dev), torch.from_numpy(h).to(dev, dtype),
+            torch.from_numpy(d_out).to(dev, dtype))
+
+
+def phase_din_kernels(dev):
+    """Phase 3c: K6-K9 against their plain versions on the card."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.ops import plans
+    from persia_tpu_torch.ops.attention_pool import attention_pool_bwd_reference, attention_pool_fwd_reference
+    from persia_tpu_torch.ops.raw_gather import raw_gather_bwd_reference, raw_gather_fwd_reference
+    from persia_tpu_torch.testing.envelopes import attention_pool_bwd_envelope, attention_pool_fwd_envelope
+
+    print(f"== phase 3c: DIN kernels vs their plain versions (B={DIN_BATCH}, L={DIN_HIST}, dim {DIN_DIM})",
+          flush=True)
+    g = torch.Generator(device="cpu").manual_seed(SEED + 9)
+    errs = {}
+    for dtype, ndt in ((torch.bfloat16, None), (torch.float32, np.float32)):
+        name = str(dtype)[6:]
+        for case in ("taobao", "one_row"):
+            rows, slots = raw_inputs(dev, dtype, SEED + len(case), case)
+            out = ops.raw_gather_fwd(rows, slots)
+            grad = torch.randn(out.shape, generator=g).to(dev, dtype)
+            grads = ops.raw_gather_bwd(grad, rows, slots)
+            again = ops.raw_gather_bwd(grad, rows, slots)
+            torch.cuda.synchronize()
+            label = f"raw_gather {case} {name} {list(out.shape)}"
+            same = torch.equal(out.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                               raw_gather_fwd_reference(rows, slots).view(
+                                   torch.int16 if dtype == torch.bfloat16 else torch.int32))
+            print(f"  {label} fwd: bitwise {'ok' if same else 'FAIL'}", flush=True)
+            if not same:
+                raise SystemExit("raw_gather_fwd disagrees with its plain version")
+            errs.setdefault(("raw_fwd", dtype), 0.0)
+            rtol, extra = raw_bwd_tolerance(grad, rows, slots, ndt)
+            err = check_close(f"{label} bwd", torch.cat(grads), torch.cat(raw_gather_bwd_reference(grad, rows, slots)),
+                              rtol, torch.cat(extra) + 1e-30)
+            errs.setdefault(("raw_bwd", dtype), err)
+            twice = all(torch.equal(a, b) for a, b in zip(grads, again))
+            print(f"  {label} bwd twice: bitwise {'ok' if twice else 'FAIL'}", flush=True)
+            if not twice:
+                raise SystemExit("raw_gather_bwd is not deterministic")
+            if case == "taobao":  # the kernel's order, by plans.pool_bwd_model, for the category slot
+                slot, got = slots[1], grads[1]
+                order = slot.order.cpu().numpy()[:int(slot.offsets[-1])]  # the live positions
+                plan = plans.pool_plan(slot.order.numel(), 1, DIN_DIM, got.element_size(), got.shape[0], 1)
+                want = plans.pool_bwd_model(grad[1].reshape(-1, DIN_DIM).float().cpu().numpy()[order],
+                                            slot.index.cpu().numpy().reshape(-1)[order], got.shape[0], plan)
+                bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+                sched = torch.equal(got.cpu().view(bits), torch.from_numpy(want).to(dtype).view(bits))
+                print(f"  {label} bwd vs its schedule (plans.pool_bwd_model): bitwise "
+                      f"{'ok' if sched else 'FAIL'}", flush=True)
+                if not sched:
+                    raise SystemExit("raw_gather_bwd does not follow its schedule")
+        # the attention pool: weights to 1e-6 (exp and sums in another
+        # order); the pooled rows and d_logits inside their f64 envelopes
+        # (persia_tpu_torch.testing.envelopes: an f32 sum in any order, then
+        # one rounding to the dtype), the kernel and the plain version each
+        # with its own weights; d_hist bit for bit; nothing at masked
+        # positions or on an empty row
+        logits, mask, hist, d_out = att_inputs(dev, dtype, SEED + 3)
+        out, w = ops.attention_pool_fwd(logits, mask, hist)
+        d_logits, d_hist = ops.attention_pool_bwd(d_out, mask, hist, w)
+        torch.cuda.synchronize()
+        ref_out, ref_w = attention_pool_fwd_reference(logits, mask, hist)
+        ref_dl, ref_dh = attention_pool_bwd_reference(d_out, mask, hist, w)
+        label = f"attention_pool {name} {list(hist.shape)}"
+        check_close(f"{label} weights", w, ref_w, 1e-6, 1e-12)
+        err = check_envelope(f"{label} fwd", out, ref_out, attention_pool_fwd_envelope(w, hist),
+                             attention_pool_fwd_envelope(ref_w, hist))
+        errs.setdefault(("att_fwd", dtype), err)
+        check_close(f"{label} bwd d_hist", d_hist, ref_dh, 0.0, 0.0)
+        env = attention_pool_bwd_envelope(d_out, mask, hist, w)
+        err = check_envelope(f"{label} bwd d_logits", d_logits, ref_dl, env, env)
+        errs.setdefault(("att_bwd", dtype), err)
+        empty = bool(out[0].any()) or bool(d_logits[0].any()) or bool(d_logits[~mask].any())
+        print(f"  {label}: the empty row and masked positions zero: {'FAIL' if empty else 'ok'}", flush=True)
+        if empty:
+            raise SystemExit("attention_pool leaks into masked positions")
+    # the path's dtypes: the f32 wire for K6/K7, bf16 compute for K8/K9
+    return {"raw_gather_fwd": errs[("raw_fwd", torch.float32)], "raw_gather_bwd": errs[("raw_bwd", torch.float32)],
+            "attention_pool_fwd": errs[("att_fwd", torch.bfloat16)],
+            "attention_pool_bwd": errs[("att_bwd", torch.bfloat16)]}
+
+
+def din_cfg():
+    from persia_tpu_torch.config import EmbeddingConfig, SlotConfig
+
+    raw = dict(dim=DIN_DIM, embedding_summation=False, sample_fixed_size=DIN_HIST)
+    return EmbeddingConfig(
+        slots_config={"item": SlotConfig(dim=DIN_DIM), "cate": SlotConfig(dim=DIN_DIM),
+                      "hist_item": SlotConfig(**raw), "hist_cate": SlotConfig(**raw)},
+        feature_index_prefix_bit=8,
+        feature_groups={"items": ["item", "hist_item"], "cates": ["cate", "hist_cate"]},
+    )
+
+
+def din_ctx(device, backend, sd=None):
+    """``examples/taobao_din/train.py``'s ``build_ctx`` through the port: two
+    PS replicas of ``backend`` (2^20 rows, 16 shards, Adagrad(0.05), seeds
+    13 and 14), DIN(attention (36,), top (200, 80)), Adam(1e-3), the f32
+    wire; weights from SEED. Returns (ctx, stores, weights)."""
+    import torch
+
+    from persia_tpu_torch.ctx import TrainCtx
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.embedding.worker import EmbeddingWorker
+    from persia_tpu_torch.models import DIN
+    from persia_tpu_torch.weights import seeded_flax_params_like, state_dict_from_flax
+
+    cfg = din_cfg()
+    stores = [make_store(backend, capacity=1 << 20, num_internal_shards=16, optimizer=Adagrad(lr=0.05).config,
+                         seed=13 + r) for r in range(2)]
+    model = DIN(1, 2, 2, DIN_DIM, DIN_ATT, DIN_TOP, device="cpu")
+    sd = sd or state_dict_from_flax(model, seeded_flax_params_like(model, SEED))
+    model.load_state_dict(sd)
+    ctx = TrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3), Adagrad(lr=0.05), EmbeddingWorker(cfg, stores),
+                   cfg, device=device).__enter__()
+    return ctx, stores, sd
+
+
+def entries_of_stores(stores, batches, cfg):
+    """{sign: entry} of ``batches``' signs over the replicas that hold them."""
+    out = {}
+    for store in stores:
+        out.update(entries_of(store, batch_keys(batches, cfg)))
+    return out
+
+
+def path_din(dev):
+    """Phases 4g (DIN on Taobao, hybrid training) and 4h (DIN serving)."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.ctx import InferCtx, stage_embeddings
+    from persia_tpu_torch.data_loader import DataLoader
+    from persia_tpu_torch.models import DIN
+    from persia_tpu_torch.serialization import msgpack_restore
+    from persia_tpu_torch.serving.engine import InferenceEngine
+    from persia_tpu_torch.testing import TaobaoSynthetic, roc_auc
+    from persia_tpu_torch.weights import state_dict_from_flax, train_state_to_flax_bytes
+
+    print(f"== phase 4g: DIN on Taobao, hybrid training (B={DIN_BATCH}, L={DIN_HIST}, DataLoader "
+          f"num_workers={PIPE_WORKERS}, staleness={PIPE_STALENESS})", flush=True)
+    t0 = time.perf_counter()
+    n = DIN_REPRO + DIN_BATCHES + DIN_PROFILED
+    batches = list(TaobaoSynthetic(num_samples=n * DIN_BATCH, max_hist=DIN_HIST, seed=42).batches(DIN_BATCH))
+    held_out = list(TaobaoSynthetic(num_samples=DIN_EVAL * DIN_BATCH, max_hist=DIN_HIST, seed=4242).batches(
+        DIN_BATCH, requires_grad=False))
+    requests = [b.to_bytes() for b in TaobaoSynthetic(num_samples=DIN_REQUESTS * DIN_BATCH, max_hist=DIN_HIST,
+                                                      seed=777).batches(DIN_BATCH, requires_grad=False)]
+    print(f"  {n + DIN_EVAL + DIN_REQUESTS} TaobaoSynthetic batches in {time.perf_counter() - t0:.2f} s", flush=True)
+    repro, train, profiled = batches[:DIN_REPRO], batches[DIN_REPRO:DIN_REPRO + DIN_BATCHES], batches[-DIN_PROFILED:]
+    cfg = din_cfg()
+
+    # reproducible, staleness 1 on the card; train_step on the CPU over the
+    # numpy stores (the golden model) from the same weights and initial rows
+    ctx, stores, sd = din_ctx(dev, "native")
+    loader = DataLoader(iter(repro), ctx, num_workers=PIPE_WORKERS, staleness=1, reproducible=True)
+    card_losses = [ctx.train_step_prepared(tb, loader)["loss"] for tb in loader]
+    loader.flush()
+    loader.shutdown()
+    card_rows = entries_of_stores(stores, repro, cfg)
+    cpu, cpu_stores, _ = din_ctx("cpu", "numpy", sd)
+    cpu_losses = [cpu.train_step(b)["loss"] for b in repro]
+    cpu_rows = entries_of_stores(cpu_stores, repro, cfg)
+    loss_err = max(abs(a - c) for a, c in zip(card_losses, cpu_losses))
+    print(f"  first {DIN_REPRO} losses (reproducible, staleness 1) card {card_losses} cpu {cpu_losses}: "
+          f"max_abs_err={loss_err:.3e} tolerance=2e-2 {'ok' if loss_err <= 2e-2 else 'FAIL'}", flush=True)
+    if set(card_rows) != set(cpu_rows) or not card_rows:
+        raise SystemExit(f"DIN training: the card's stores hold {len(card_rows)} of the batches' signs, "
+                         f"the CPU's {len(cpu_rows)}")
+    row_err = max(float(np.abs(card_rows[k] - v).max()) for k, v in cpu_rows.items())
+    print(f"  PS entries after {DIN_REPRO} steps, card (native) vs cpu (numpy), {len(cpu_rows)} rows: "
+          f"max_abs_err={row_err:.3e} tolerance=1e-2 {'ok' if row_err <= 1e-2 else 'FAIL'}", flush=True)
+    if loss_err > 2e-2 or row_err > 1e-2 or not all(np.isfinite(card_losses)):
+        raise SystemExit("DIN training: card and CPU disagree")
+
+    # the example's loop: DataLoader(num_workers=4, staleness=4), counted,
+    # each host stage timed inside it
+    parts = {k: [] for k in ("lookup", "stage", "update", "lookup_cpu", "stage_cpu", "update_cpu")}
+    restore = [timed_calls(ctx.worker, "forward_batch_id", parts["lookup"], parts["lookup_cpu"]),
+               timed_calls(ctx, "prepare_features", parts["stage"], parts["stage_cpu"]),
+               timed_calls(ctx.worker, "update_gradient_batched", parts["update"], parts["update_cpu"])]
+    ops.reset_launch_counts()
+    step_ms = []
+    t0 = time.perf_counter()
+    try:
+        loader = DataLoader(iter(train), ctx, num_workers=PIPE_WORKERS, staleness=PIPE_STALENESS)
+        t = time.perf_counter()
+        for tb in loader:
+            ctx.train_step_prepared(tb, loader, fetch_metrics=False)
+            now = time.perf_counter()
+            step_ms.append((now - t) * 1e3)
+            t = now
+        loader.flush()
+        loader.shutdown()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+    finally:
+        for undo in restore:
+            undo()
+    expected = {fn.__name__: 0 for fn in ops.KERNEL_WRAPPERS}
+    expected.update(raw_gather_fwd=DIN_BATCHES, raw_gather_bwd=DIN_BATCHES,
+                    attention_pool_fwd=2 * DIN_BATCHES, attention_pool_bwd=2 * DIN_BATCHES)
+    final = ctx.last_prepared_metrics()
+    print(f"  launches={launches} over {DIN_BATCHES} batches; final loss {final['loss']:.5f}; "
+          f"staleness after flush {ctx.worker.staleness}", flush=True)
+    check_launches("DIN training path", launches, expected)
+    if not np.isfinite(final["loss"]) or ctx.worker.staleness != 0:
+        raise SystemExit("DIN training: non-finite loss, or gradients still in flight after flush")
+
+    # the card's busy time a step: the device step alone, profiled apart
+    refs, device_batches, looked_up = [], [], []
+    for b in profiled:
+        refs.append(ctx.worker.put_forward_ids(b))
+        looked_up.append(ctx.worker.forward_batch_id(refs[-1], train=True))
+        device_batches.append(ctx.prepare_features(b, looked_up[-1], csr=True)[0])
+    busy_ms, top_kernels, _ = device_busy_ms(ctx.run_step, device_batches)
+    for ref in refs:
+        ctx.worker.abort_gradient(ref)
+    # the host's staging of a looked-up batch without and with the CSRs the
+    # backward kernels walk (raw_csr for the raw slots, pool_csr for the
+    # pooled): what the CSRs cost the host a step (median of 3 passes)
+    stage_host_ms = {}
+    for csr in (False, True):
+        times = []
+        for _ in range(3):
+            for embs in looked_up:
+                t0 = time.perf_counter()
+                stage_embeddings(embs, dtype=ctx.wire_dtype, csr=csr)
+                times.append((time.perf_counter() - t0) * 1e3)
+        stage_host_ms["with_csr" if csr else "without_csr"] = float(np.median(times))
+
+    preds = np.concatenate([ctx.eval_batch(b) for b in held_out])
+    auc = roc_auc(np.concatenate([b.labels[0].data for b in held_out]), preds)
+    stage_p50 = {k: float(np.percentile(v, 50)) for k, v in parts.items()}
+    training = {
+        "batch": DIN_BATCH, "history": DIN_HIST, "batches": DIN_BATCHES, "num_workers": PIPE_WORKERS,
+        "staleness": PIPE_STALENESS, "store_backend": "native", "wire": "float32",
+        "samples_per_s": DIN_BATCHES * DIN_BATCH / wall, "wall_ms": wall * 1e3,
+        "step_ms_p50": float(np.percentile(step_ms, 50)), "step_ms_max": max(step_ms), "step_ms_all": step_ms,
+        "stage_ms_p50": stage_p50, "stage_host_ms": stage_host_ms, "final_loss": final["loss"],
+        "repro_losses": card_losses,
+        "loss_max_abs_err_vs_cpu": loss_err, "ps_entry_max_abs_err_vs_cpu": row_err,
+        "step_device_busy_ms": busy_ms, "step_top_kernels_ms": top_kernels,
+        "kernel_launches_per_step": {k: launches[k] / DIN_BATCHES for k in DIN_KERNELS},
+        "held_out_auc": auc, "held_out_batches": DIN_EVAL,
+        "store_rows": sum(s.size() for s in stores),
+    }
+    print(f"  {training['samples_per_s']:.1f} samples/s; step p50 {training['step_ms_p50']:.2f} ms, longest "
+          f"{training['step_ms_max']:.2f}; stage p50 {json.dumps(stage_p50)}; staging a batch on the host "
+          f"{json.dumps(stage_host_ms)} ms; card busy {busy_ms} ms a step; "
+          f"launches a step {training['kernel_launches_per_step']}; held-out AUC {auc:.5f} "
+          f"({DIN_EVAL} batches, not gated)", flush=True)
+
+    # phase 4h: the trained dense state as flax's bytes, loaded into a
+    # fresh DIN behind InferenceEngine(InferCtx) on the card; the same
+    # weights on the CPU over the same stores (lookups only: zeros on miss)
+    print(f"== phase 4h: DIN serving ({DIN_REQUESTS} requests of B={DIN_BATCH})", flush=True)
+    params = msgpack_restore(train_state_to_flax_bytes(ctx.state))["params"]
+    engines = {}
+    for device in (dev, "cpu"):
+        model = DIN(1, 2, 2, DIN_DIM, DIN_ATT, DIN_TOP, device=device)
+        model.load_state_dict(state_dict_from_flax(model, params))
+        engines[device] = InferenceEngine(InferCtx(model, ctx.worker, cfg, device=device), device=device)
+    engine = engines[dev]
+    ops.reset_launch_counts()
+    latencies, served = [], []
+    t_all = time.perf_counter()
+    for raw in requests:
+        t = time.perf_counter()
+        served.append(engine.predict_from_bytes(raw))
+        latencies.append((time.perf_counter() - t) * 1e3)
+    wall = time.perf_counter() - t_all
+    serving_launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+    expected = {fn.__name__: 0 for fn in ops.KERNEL_WRAPPERS}
+    expected.update(raw_gather_fwd=DIN_REQUESTS, attention_pool_fwd=2 * DIN_REQUESTS)
+    print(f"  launches={serving_launches} forwards={engine.forwards}", flush=True)
+    check_launches("DIN serving path", serving_launches, expected)
+    err = 0.0
+    for raw, p in zip(requests, served):
+        if p.shape != (DIN_BATCH, 1) or not np.isfinite(p).all():
+            raise SystemExit(f"DIN serving: bad predictions, shape {p.shape}")
+        err = max(err, float(np.abs(p - engines["cpu"].predict_from_bytes(raw)).max()))
+    print(f"  card vs cpu engine: max_abs_err={err:.3e} tolerance=2e-2 {'ok' if err <= 2e-2 else 'FAIL'}", flush=True)
+    if err > 2e-2:
+        raise SystemExit("DIN serving: card and CPU predictions disagree")
+    serving = {
+        "requests": DIN_REQUESTS, "batch": DIN_BATCH, "latency_ms_p50": float(np.percentile(latencies, 50)),
+        "latency_ms_max": max(latencies), "latency_ms_all": latencies,
+        "samples_per_s": DIN_REQUESTS * DIN_BATCH / wall, "pred_max_abs_err_vs_cpu": err,
+    }
+    print(f"  serving p50 {serving['latency_ms_p50']:.2f} ms, slowest (cold) {serving['latency_ms_max']:.2f} ms, "
+          f"{serving['samples_per_s']:.1f} samples/s", flush=True)
+    launches = {"din_training": launches, "din_serving": serving_launches}
+    return launches, {"training": training, "serving": serving}, device_batches[-1]
+
+
+def avazu_ctx(name, device, backend, sd=None):
+    """``examples/avazu/train.py``'s ``build_ctx`` (hybrid) through the port:
+    21 fields of dim 16, two PS replicas of ``backend`` (2^20 rows, 16
+    shards, Adagrad(0.05), seeds 11 and 12), deep MLP (256, 128), DCN-v2
+    with 3 full-rank cross layers, Adam(1e-3); weights from SEED."""
+    import torch
+
+    from persia_tpu_torch.config import EmbeddingConfig, SlotConfig
+    from persia_tpu_torch.ctx import TrainCtx
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.embedding.worker import EmbeddingWorker
+    from persia_tpu_torch.models import DCNv2, DeepFM
+    from persia_tpu_torch.weights import seeded_flax_params_like, state_dict_from_flax
+
+    cfg = EmbeddingConfig(slots_config={f"field_{i}": SlotConfig(dim=EMB_DIM) for i in range(AVAZU_FIELDS)},
+                          feature_index_prefix_bit=8)
+    stores = [make_store(backend, capacity=1 << 20, num_internal_shards=16, optimizer=Adagrad(lr=0.05).config,
+                         seed=11 + r) for r in range(2)]
+    if name == "deepfm":
+        model = DeepFM(2, AVAZU_FIELDS, EMB_DIM, AVAZU_DEEP, device="cpu")
+    else:
+        model = DCNv2(2, AVAZU_FIELDS, EMB_DIM, 3, None, AVAZU_DEEP, device="cpu")
+    sd = sd or state_dict_from_flax(model, seeded_flax_params_like(model, SEED))
+    model.load_state_dict(sd)
+    ctx = TrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3), Adagrad(lr=0.05), EmbeddingWorker(cfg, stores),
+                   cfg, device=device).__enter__()
+    return ctx, sd
+
+
+def path_avazu(dev):
+    """Phase 4i: DeepFM and DCN-v2 on Avazu, ``TrainCtx.train_step``."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.testing import AvazuSynthetic
+
+    print(f"== phase 4i: DeepFM and DCN-v2 on Avazu, hybrid (B={AVAZU_BATCH}, {AVAZU_STEPS} steps each)", flush=True)
+    batches = list(AvazuSynthetic(num_samples=AVAZU_STEPS * AVAZU_BATCH, seed=42).batches(AVAZU_BATCH))
+    out, all_launches = {}, {}
+    for name in ("deepfm", "dcnv2"):
+        ctx, sd = avazu_ctx(name, dev, "native")
+        ops.reset_launch_counts()
+        losses, step_ms = [], []
+        for b in batches:
+            t = time.perf_counter()
+            losses.append(ctx.train_step(b)["loss"])  # ends in the gradients' copy to the host and the update
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+        # host-pooled fields (the example's worker): no kernel of this port runs
+        check_launches(f"{name} on Avazu", launches, {fn.__name__: 0 for fn in ops.KERNEL_WRAPPERS})
+        cpu, _ = avazu_ctx(name, "cpu", "numpy", sd)
+        cpu_losses = [cpu.train_step(b)["loss"] for b in batches[:AVAZU_CPU_STEPS]]
+        err = max(abs(a - c) for a, c in zip(losses, cpu_losses))
+        ok = err <= 2e-2 and all(np.isfinite(losses)) and ctx.worker.staleness == 0
+        print(f"  {name}: losses {[round(x, 5) for x in losses]}; first {AVAZU_CPU_STEPS} vs cpu max_abs_err="
+              f"{err:.3e} tolerance=2e-2 {'ok' if ok else 'FAIL'}; step ms p50 {np.percentile(step_ms, 50):.2f}, "
+              f"longest {max(step_ms):.2f}", flush=True)
+        if not ok:
+            raise SystemExit(f"{name} on Avazu: card and CPU disagree, or a loss is not finite")
+        out[name] = {"batch": AVAZU_BATCH, "steps": AVAZU_STEPS, "losses": losses,
+                     "loss_max_abs_err_vs_cpu": err, "step_ms_p50": float(np.percentile(step_ms, 50)),
+                     "step_ms_max": max(step_ms), "step_ms_all": step_ms,
+                     "samples_per_s": AVAZU_STEPS * AVAZU_BATCH / (sum(step_ms) / 1e3)}
+        all_launches[name] = launches
+    return all_launches, out
+
+
 def time_flash_backward(dev, card):
     """The flash-attention backward, a dense recompute (the gradient of
     ``reference_attention`` at the saved q, k, v; it launches no kernel of
@@ -2063,7 +2570,7 @@ def sdpa_kernels(fn) -> list:
     return list(top)
 
 
-def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused):
+def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused, din_batch):
     import torch
     import torch.nn.functional as F
 
@@ -2278,8 +2785,8 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused):
     # the backward's two passes apart (torch.profiler), and its time where
     # every position of each slot hits one row (the bench shape otherwise)
     _, top, _ = device_busy_ms(lambda _: ops.gather_pool_bwd(gpool, prow, pslots), [None] * 20)
-    rows[-1]["pass_ms"] = {re.search(r"gather_pool_\w+", k).group(0): v for k, v in top.items()
-                           if "gather_pool" in k}
+    rows[-1]["pass_ms"] = {re.search(r"segment_sum_\w+", k).group(0): v for k, v in top.items()
+                           if "segment_sum" in k}
     one_rows, one_slots = pool_inputs(dev, prow[0].dtype, bsz, [(p_rows - 1, 1, False)] * len(prow),
                                       seed=SEED, ids="one_row")
     rows[-1]["one_row_ms"] = graph_ms(lambda: ops.gather_pool_bwd(gpool, one_rows, one_slots))
@@ -2352,10 +2859,10 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused):
     k5 = {}
     for kind in ("uniform", "zipf"):
         batch = fused["batch" if kind == "uniform" else "zipf_batch"]
-        flat, sids, perm, grads, touched, nbytes, bms, by = k5_inputs([batch["ids"][nm] for nm in grp.slots])
+        flat, sids, perm, grads, touched, k5_bytes, bms, by = k5_inputs([batch["ids"][nm] for nm in grp.slots])
         runs = [graph_ms(lambda: sparse_update_sorted(cfg, tbl, acc, sids, perm, grads, bs)) for _ in range(2)]
         cold = [cold_ms(lambda si, pe, gr: sparse_update_sorted(cfg, tbl, acc, si, pe, gr, bs),
-                        lambda: k5_inputs(fresh_ids(kind))[1:4], nbytes) for _ in range(2)]
+                        lambda: k5_inputs(fresh_ids(kind))[1:4], k5_bytes) for _ in range(2)]
         sort_ms = graph_ms(lambda: torch.sort(flat, stable=True))
         # each of K5's steps apart (torch.profiler over 20 warm calls)
         _, top, _ = device_busy_ms(lambda _: sparse_update_sorted(cfg, tbl, acc, sids, perm, grads, bs), [None] * 20)
@@ -2368,7 +2875,7 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused):
         k5[kind] = dict(ms=min(runs), ms_runs=runs, cold_ms=min(c["ms"] for c in cold),
                         longest_segment=longest, stage_ms=stages,
                         cold_ms_runs=[c["ms"] for c in cold], cold_copies=cold[0]["copies"], sort_ms=sort_ms,
-                        bound_ms=bms, bound_by=by, touched_rows=touched, bytes=nbytes,
+                        bound_ms=bms, bound_by=by, touched_rows=touched, bytes=k5_bytes,
                         eager_ms=eager_ms(lambda: sparse_update_sorted(cfg, tbl, acc, sids, perm, grads, bs)),
                         # its boolean masks synchronise: timed eagerly, sort included
                         plain_ms=eager_ms(lambda: sparse_update_reference(cfg, tbl, acc, flat, grads, bs),
@@ -2409,6 +2916,141 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused):
         kernel=lambda: ops.update_keys(ids, grp.offsets, vocabs),
         plain=lambda: update_keys_reference(ids, grp.offsets, vocabs),
     ))
+    # K6-K9 at the DIN path's own inputs (one staged step of phase 4g: the
+    # two raw slots of B x L positions with their CSR, the f32 wire) and,
+    # for K8/K9, that step's history rows cast to bf16 as the model casts
+    # them, with its masks; warm and cold (> 72 MB of input copies)
+    from persia_tpu_torch.ops.attention_pool import attention_pool_bwd_reference, attention_pool_fwd_reference
+    from persia_tpu_torch.ops.raw_gather import raw_gather_bwd_reference, raw_gather_fwd_reference
+
+    raw_e = [e for e in din_batch["emb"] if "mask" in e]
+    rrows = [e["distinct"] for e in raw_e]
+    rslots = [ops.RawSlot(e["index"], e["order"], e["offsets"]) for e in raw_e]
+    gathered = ops.raw_gather_fwd(rrows, rslots)
+    n_slots, bsz, hist_len, dim = gathered.shape
+    elem = gathered.element_size()
+    din_launches = {p: {k: launches[p][k] for k in DIN_KERNELS} for p in ("din_training", "din_serving")}
+    table = torch.cat(rrows)
+    starts = np.cumsum([0] + [r.shape[0] for r in rrows[:-1]])
+    flat = torch.cat([s.index.reshape(-1).long() + int(o) for s, o in zip(rslots, starts)])
+
+    def clone_raw(rows_, slots_):
+        return [r.clone() for r in rows_], [ops.RawSlot(*map(clone, s)) for s in slots_]
+
+    # K6 reads the index and the distinct rows it names, writes the positions' rows
+    named = sum(int(torch.unique(s.index).numel()) for s in rslots) * dim * elem
+    idx_bytes = nbytes([s.index for s in rslots])
+    bms, by = bound(idx_bytes + named + gathered.numel() * elem, 0, "float32")
+    raw_copy = nbytes(rrows) + idx_bytes
+    rows.append(with_cold(
+        timed(
+            dict(name="raw_gather_fwd", route="cuda", cuda_route="cuda", source=RAW_SOURCE, replaces=RAW_REPLACES,
+                 shape=[n_slots, bsz, hist_len, dim], dtype=str(gathered.dtype)[6:],
+                 launches=launches["din_training"]["raw_gather_fwd"],
+                 launches_by_path={p: v["raw_gather_fwd"] for p, v in din_launches.items()},
+                 max_abs_err=errs["raw_gather_fwd"], bound_ms=bms, bound_by=by, named_rows_bytes=named,
+                 library_note="torch.index_select of the slots' rows side by side (int64 index)"),
+            kernel=lambda: ops.raw_gather_fwd(rrows, rslots),
+            plain=lambda: raw_gather_fwd_reference(rrows, rslots),
+            library=lambda: torch.index_select(table, 0, flat),
+        ),
+        kernel=lambda r, s: ops.raw_gather_fwd(r, s), make_copy=lambda: clone_raw(rrows, rslots), copy_bytes=raw_copy,
+        library=lambda t, i: torch.index_select(t, 0, i),
+        make_lib_copy=lambda: (table.clone(), flat.clone()), lib_bytes=nbytes([table, flat]),
+    ))
+    # K7 reads the live positions' gradients and their CSR entries, writes
+    # every distinct row (the pad row's positions are not in the CSR)
+    rgrad = torch.randn(gathered.shape, generator=g).to(dev, gathered.dtype)
+    live = [int(s.offsets[-1]) for s in rslots]
+    csr_bytes = nbytes([s.offsets for s in rslots]) + 4 * sum(live)
+    bms, by = bound(sum(live) * dim * elem + csr_bytes + nbytes(rrows), sum(live) * dim, "float32")
+    acc_lib = torch.zeros(table.shape, device=dev, dtype=table.dtype)
+    rgrad_flat = rgrad.reshape(-1, dim)
+    pad_rows = torch.cat([torch.full((s.index.numel(),), int(o) + r.shape[0] - 1, device=dev)
+                          for s, o, r in zip(rslots, starts, rrows)])
+    live_sel = torch.nonzero(flat != pad_rows).reshape(-1)
+    flat_live, rgrad_live = flat[live_sel], rgrad_flat[live_sel]
+    longest = [int((s.offsets[1:] - s.offsets[:-1]).max()) for s in rslots]
+    rows.append(with_cold(
+        timed(
+            dict(name="raw_gather_bwd", route="cuda", cuda_route="cuda", source=RAW_SOURCE, replaces=RAW_REPLACES,
+                 shape=[n_slots, bsz, hist_len, dim], dtype=str(gathered.dtype)[6:],
+                 launches=launches["din_training"]["raw_gather_bwd"],
+                 launches_by_path={p: v["raw_gather_bwd"] for p, v in din_launches.items()},
+                 max_abs_err=errs["raw_gather_bwd"], bound_ms=bms, bound_by=by,
+                 live_positions=live, longest_segment=longest,
+                 library_note="Tensor.index_add_ (atomic) of the live positions' gradients into the slots' rows "
+                              "side by side, in the wire dtype"),
+            kernel=lambda: ops.raw_gather_bwd(rgrad, rrows, rslots),
+            plain=lambda: raw_gather_bwd_reference(rgrad, rrows, rslots),
+            library=lambda: acc_lib.index_add_(0, flat_live, rgrad_live),
+        ),
+        kernel=lambda gr, r, sl: ops.raw_gather_bwd(gr, r, sl),
+        make_copy=lambda: (rgrad.clone(), *clone_raw(rrows, rslots)),
+        copy_bytes=rgrad.numel() * elem + nbytes([s.order for s in rslots] + [s.offsets for s in rslots]) + raw_copy,
+        library=lambda i, gr: acc_lib.index_add_(0, i, gr),
+        make_lib_copy=lambda: (flat_live.clone(), rgrad_live.clone()), lib_bytes=nbytes([flat_live, rgrad_live]),
+    ))
+    # K7 with every position of both slots on one row, and its two passes apart
+    one_rows, one_slots = raw_inputs(dev, gathered.dtype, SEED, "one_row", batch=bsz, hist=hist_len,
+                                     distinct=[r.shape[0] - 1 for r in rrows])
+    rows[-1]["one_row_ms"] = min(graph_ms(lambda: ops.raw_gather_bwd(rgrad, one_rows, one_slots)) for _ in range(2))
+    _, top, _ = device_busy_ms(lambda _: ops.raw_gather_bwd(rgrad, rrows, rslots), [None] * 20)
+    rows[-1]["pass_ms"] = {re.search(r"segment_sum_\w+", k).group(0): v for k, v in top.items() if "segment_sum" in k}
+    print(f"  raw_gather_bwd: live positions {live} of {bsz * hist_len} a slot, longest segment {longest}; "
+          f"one row of {bsz * hist_len} positions a slot {rows[-1]['one_row_ms']:.5f} ms; "
+          f"passes {rows[-1]['pass_ms']}", flush=True)
+
+    # K8, K9: the step's masks and history rows in bf16; a masked position's
+    # row is not needed (bound: the valid positions' rows)
+    mask = raw_e[0]["mask"]
+    hist = gathered[0].to(torch.bfloat16)
+    logits = torch.randn(mask.shape, generator=g).to(dev)
+    valid = int(mask.sum())
+    out, w = ops.attention_pool_fwd(logits, mask, hist)
+    d_out = torch.randn(out.shape, generator=g).to(dev, torch.bfloat16)
+    small = logits.numel() * 4 + mask.numel()  # logits or d_logits, the mask
+    bms, by = bound(small + valid * dim * 2 + out.numel() * 2 + w.numel() * 4, valid * dim * 2, "float32")
+    masked = torch.where(mask, logits, float("-inf"))
+    att_copy = nbytes([logits, mask, hist])
+
+    def composite():  # two PyTorch calls: softmax over L, then the weighted sum
+        return torch.bmm(torch.softmax(masked, dim=1).to(torch.bfloat16)[:, None, :], hist)
+
+    rows.append(with_cold(
+        timed(
+            dict(name="attention_pool_fwd", route="cuda", cuda_route="cuda", source=ATT_SOURCE, replaces=ATT_REPLACES,
+                 shape=[bsz, hist_len, dim], dtype="bfloat16", valid_positions=valid,
+                 launches=launches["din_training"]["attention_pool_fwd"],
+                 launches_by_path={p: v["attention_pool_fwd"] for p, v in din_launches.items()},
+                 max_abs_err=errs["attention_pool_fwd"], bound_ms=bms, bound_by=by,
+                 composite_ms=min(graph_ms(composite) for _ in range(2)),
+                 library_note="none: no one PyTorch call computes it; composite_ms is torch.softmax + torch.bmm "
+                              "(two calls, no mask on empty rows)"),
+            kernel=lambda: ops.attention_pool_fwd(logits, mask, hist),
+            plain=lambda: attention_pool_fwd_reference(logits, mask, hist),
+        ),
+        kernel=lambda lg, m, h: ops.attention_pool_fwd(lg, m, h),
+        make_copy=lambda: (logits.clone(), mask.clone(), hist.clone()), copy_bytes=att_copy,
+    ))
+    # reads d_out, the mask, the valid rows and w; writes d_hist and d_logits
+    bms, by = bound(small + d_out.numel() * 2 + valid * dim * 2 + w.numel() * 4 + hist.numel() * 2,
+                    3 * valid * dim, "float32")
+    rows.append(with_cold(
+        timed(
+            dict(name="attention_pool_bwd", route="cuda", cuda_route="cuda", source=ATT_SOURCE, replaces=ATT_REPLACES,
+                 shape=[bsz, hist_len, dim], dtype="bfloat16", valid_positions=valid,
+                 launches=launches["din_training"]["attention_pool_bwd"],
+                 launches_by_path={p: v["attention_pool_bwd"] for p, v in din_launches.items()},
+                 max_abs_err=errs["attention_pool_bwd"], bound_ms=bms, bound_by=by,
+                 library_note="none: no one PyTorch call computes it"),
+            kernel=lambda: ops.attention_pool_bwd(d_out, mask, hist, w),
+            plain=lambda: attention_pool_bwd_reference(d_out, mask, hist, w),
+        ),
+        kernel=lambda d, m, h, w_: ops.attention_pool_bwd(d, m, h, w_),
+        make_copy=lambda: (d_out.clone(), mask.clone(), hist.clone(), w.clone()),
+        copy_bytes=att_copy + nbytes([d_out, w]) - logits.numel() * 4,
+    ))
     for r in rows:
         print(json.dumps({"kernel_timing": r, "card": card}), flush=True)
     return rows
@@ -2429,17 +3071,20 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     build = phase_build()
-    errs = {"flash_attention": phase_flash_attention(dev), **phase_kernels(dev), **phase_fused_kernels(dev)}
+    errs = {"flash_attention": phase_flash_attention(dev), **phase_kernels(dev), **phase_fused_kernels(dev),
+            **phase_din_kernels(dev)}
     fa_routes = path_flash_attention(dev)
     serving_launches, serving, feats_shape = path_serving(dev)
     training_launches, training, train_batch = path_training(dev)
     pipelined_launches, pipelined = path_pipelined(dev)
     fused_launches, fused, fused_inputs = path_fused(dev)
     durable_launches, durable = path_durable(dev)
+    din_launches, din, din_batch = path_din(dev)
+    avazu_launches, avazu = path_avazu(dev)
     launches = {"flash_attention": fa_routes, "serving": serving_launches,
                 "training": training_launches, "pipelined": pipelined_launches,
-                "durable": durable_launches, "fused": fused_launches}
-    rows = phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused_inputs)
+                "durable": durable_launches, "fused": fused_launches, **din_launches}
+    rows = phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused_inputs, din_batch)
     time_flash_backward(dev, card)
     print(json.dumps({"serving": serving, "card": card}), flush=True)
     print(json.dumps({"training": training, "card": card}), flush=True)
@@ -2447,13 +3092,16 @@ def main() -> int:
     print(json.dumps({"durable": durable, "card": card}), flush=True)
     print(json.dumps({"build": build, "card": card}), flush=True)
     print(json.dumps({"fused": fused, "card": card}), flush=True)
+    print(json.dumps({"din": din, "card": card}), flush=True)
+    print(json.dumps({"avazu": avazu, "avazu_launches": avazu_launches, "card": card}), flush=True)
 
     # one entry per kernel (each flash-attention route by its non-causal
     # row); times graph-replayed, eager beside them
     keys = ("name", "route", "cuda_route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "eager_ms",
             "library_eager_ms", "cold_ms", "library_cold_ms", "sort_ms", "zipf_ms", "zipf_cold_ms",
-            "zipf_bound_ms", "zipf_sort_ms", "longest_segment", "zipf_longest_segment", "one_row_ms")
+            "zipf_bound_ms", "zipf_sort_ms", "longest_segment", "zipf_longest_segment", "one_row_ms",
+            "composite_ms")
     kernels = [{k: r.get(k) for k in keys} for r in rows if not r.get("causal")]
     print(json.dumps({"kernels": kernels, "card": card}), flush=True)
     print(card, flush=True)

@@ -1,0 +1,305 @@
+// DIN's masked attention pool (K8) and its backward (K9).
+//
+// Forward (attention_pool_fwd): for each sample b, over its L history
+// positions, with x = logits where mask, -inf elsewhere, and 0 everywhere
+// on a row with no valid position,
+//   w[b, l] = softmax(x[b])[l] where mask[b, l], else 0     (f32, saved)
+//   out[b, :] = sum_l round_T(w[b, l]) * hist[b, l, :]
+// summed in f32 and rounded once to T (bf16 or f32, hist's dtype).
+// Backward (attention_pool_bwd), from d_out (B, dim) in T:
+//   d_hist[b, l, :] = round_T(round_T(w[b, l]) * d_out[b, :])
+//   g[b, l] = round_T(sum_c d_out[b, c] * hist[b, l, c]) where mask, else 0
+//   d_logits[b, l] = w[b, l] * (g[b, l] - sum_j w[b, j] g[b, j]) where mask,
+//                    else 0
+// so masked positions and all-masked rows get a zero gradient and no NaN,
+// as jax.grad gives through the reference's two `where`s.
+//
+// Replaces: persia_tpu/models/din.py:67-72, the `where`s, softmax, cast and
+// einsum that XLA fuses around DIN's attention logits, and their autodiff;
+// there is no Pallas kernel for it.
+//
+// Bound on the H100: bytes. At DIN's Taobao shape (B=1024, L=50, dim 16,
+// bf16) the forward reads the logits (0.2 MB), the mask (51 KB) and the
+// history rows (1.6 MB) and writes the weights (0.2 MB) and 32 KB of
+// interests; the backward reads as much and writes d_hist (1.6 MB) and
+// d_logits. A few operations per byte.
+//
+// Design: one warp per sample row; a block holds a few. The warp's lanes
+// walk the row's positions for the max, the sum and the weights (shuffle
+// trees, so two runs give the same bits); the rounded weights (and, in the
+// backward, g) go to shared memory for the pooling, where a lane group
+// takes one position's row with 16-byte loads (8 bf16 or 4 f32 columns a
+// lane) and the groups' partial sums meet in a shuffle tree. Positions
+// whose mask is off are not loaded in the forward: their weight is 0.
+// Geometry comes from ops/plans.py::attention_pool_plan and is checked
+// here.
+
+#include <cmath>
+#include <cstdint>
+
+#include "vec.cuh"
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxPoolThreads = 256;
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = __fadd_rn(x, __shfl_xor_sync(kFull, x, off));
+  return x;
+}
+
+// x rounded to T and widened back (round to nearest even)
+__device__ __forceinline__ float round_as(float x, float*) { return x; }
+__device__ __forceinline__ float round_as(float x, __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kMaxPoolThreads)
+attention_pool_fwd_kernel(const float* __restrict__ logits, const uint8_t* __restrict__ mask,
+                          const T* __restrict__ hist, T* __restrict__ out, float* __restrict__ weights,
+                          int batch, int L, int dim, int lanes_log2) {
+  extern __shared__ float smem[];  // per warp: the L rounded weights
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= batch) return;  // the whole warp
+  float* w_round = smem + warp * L;
+  const float* lg = logits + 1LL * b * L;
+  const uint8_t* mk = mask + 1LL * b * L;
+  float* w_out = weights + 1LL * b * L;
+
+  float mx = -INFINITY;
+  bool any = false;
+  for (int l = lane; l < L; l += 32) {
+    if (mk[l]) {
+      any = true;
+      mx = fmaxf(mx, lg[l]);
+    }
+  }
+  any = __any_sync(kFull, any);
+  mx = warp_max(mx);
+  if (!any) mx = 0.f;  // x is 0 everywhere
+  float sum = 0.f;
+  for (int l = lane; l < L; l += 32) {
+    const float x = any ? (mk[l] ? lg[l] : -INFINITY) : 0.f;
+    sum = __fadd_rn(sum, expf(x - mx));
+  }
+  sum = warp_sum(sum);
+  for (int l = lane; l < L; l += 32) {
+    const float x = any ? (mk[l] ? lg[l] : -INFINITY) : 0.f;
+    const float w = mk[l] ? __fdiv_rn(expf(x - mx), sum) : 0.f;
+    w_out[l] = w;
+    w_round[l] = round_as(w, static_cast<T*>(nullptr));
+  }
+  __syncwarp();
+
+  // pooling: lane group g (2^lanes_log2 lanes, one position's row) walks
+  // positions g, g + groups, ...; lanes_log2 makes the vectors' count a
+  // multiple of the group's lanes, so every lane runs the same trips
+  const int lanes = 1 << lanes_log2;
+  const int groups = 32 >> lanes_log2;
+  const int g = lane >> lanes_log2;
+  const int vecs = dim / VEC;
+  const T* h = hist + 1LL * b * L * dim;
+  for (int v = lane & (lanes - 1); v < vecs; v += lanes) {
+    float acc[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
+    for (int l = g; l < L; l += groups) {
+      if (!mk[l]) continue;
+      float x[VEC];
+      load_f32(h + 1LL * l * dim + v * VEC, x);
+      const float w = w_round[l];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) acc[j] = __fmaf_rn(w, x[j], acc[j]);
+    }
+    for (int off = lanes; off < 32; off <<= 1) {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) acc[j] = __fadd_rn(acc[j], __shfl_xor_sync(kFull, acc[j], off));
+    }
+    if (g == 0) store_as(out + 1LL * b * dim + v * VEC, acc);
+  }
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kMaxPoolThreads)
+attention_pool_bwd_kernel(const T* __restrict__ d_out, const uint8_t* __restrict__ mask,
+                          const T* __restrict__ hist, const float* __restrict__ weights,
+                          T* __restrict__ d_hist, float* __restrict__ d_logits, int batch, int L, int dim,
+                          int lanes_log2) {
+  extern __shared__ float smem[];  // per warp: L rounded weights, then L values of g
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= batch) return;  // the whole warp
+  float* w_round = smem + warp * 2 * L;
+  float* g_sh = w_round + L;
+  const uint8_t* mk = mask + 1LL * b * L;
+  const float* w = weights + 1LL * b * L;
+  for (int l = lane; l < L; l += 32) w_round[l] = round_as(w[l], static_cast<T*>(nullptr));
+  __syncwarp();
+
+  const int lanes = 1 << lanes_log2;
+  const int groups = 32 >> lanes_log2;
+  const int g = lane >> lanes_log2;
+  const int v0 = lane & (lanes - 1);
+  const int vecs = dim / VEC;
+  const T* h = hist + 1LL * b * L * dim;
+  T* dh = d_hist + 1LL * b * L * dim;
+  const T* di_row = d_out + 1LL * b * dim;
+  // every lane runs the same trips (positions in steps of groups, vectors
+  // in steps of lanes), so the shuffles below see the whole warp
+  for (int l0 = 0; l0 < L; l0 += groups) {
+    const int l = l0 + g;
+    const bool live = l < L;
+    const bool valid = live && mk[l];
+    float dot = 0.f;
+    for (int v = v0; v < vecs; v += lanes) {
+      if (!live) continue;
+      float di[VEC];
+      load_f32(di_row + v * VEC, di);
+      const float wr = w_round[l];
+      float prod[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) prod[j] = __fmul_rn(wr, di[j]);
+      store_as(dh + 1LL * l * dim + v * VEC, prod);
+      if (valid) {
+        float x[VEC];
+        load_f32(h + 1LL * l * dim + v * VEC, x);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) dot = __fmaf_rn(di[j], x[j], dot);
+      }
+    }
+    for (int off = 1; off < lanes; off <<= 1) dot = __fadd_rn(dot, __shfl_xor_sync(kFull, dot, off));
+    if (live && v0 == 0) g_sh[l] = valid ? round_as(dot, static_cast<T*>(nullptr)) : 0.f;
+  }
+  __syncwarp();
+  float s = 0.f;
+  for (int l = lane; l < L; l += 32) s = __fmaf_rn(w[l], g_sh[l], s);
+  s = warp_sum(s);
+  float* dl = d_logits + 1LL * b * L;
+  for (int l = lane; l < L; l += 32) dl[l] = mk[l] ? __fmul_rn(w[l], __fsub_rn(g_sh[l], s)) : 0.f;
+}
+
+bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
+
+int log2_exact(int x) {
+  if (x < 1 || (x & (x - 1)) != 0) return -1;
+  int k = 0;
+  while ((1 << k) < x) ++k;
+  return k;
+}
+
+// the checks both entry points share: shapes, the vector width and its
+// alignment, the lane groups and the launch's geometry
+int check_launch(int dtype, int batch, int L, int dim, int vec, int lanes, int warps, int grid, int smem,
+                 int smem_per_warp, const void* hist, const void* big) {
+  if ((dtype != persia::kFloat32 && dtype != persia::kBFloat16) || batch < 1 || L < 1 || dim < 1 ||
+      1LL * batch * L * dim >= INT32_MAX) {
+    return cudaErrorInvalidValue;
+  }
+  const int wide = dtype == persia::kFloat32 ? 4 : 8;
+  if ((vec != 1 && vec != wide) || dim % vec != 0) return cudaErrorInvalidValue;
+  if (vec > 1 && (!aligned16(hist) || !aligned16(big))) return cudaErrorInvalidValue;
+  const int lanes_log2 = log2_exact(lanes);
+  if (lanes_log2 < 0 || lanes > 32 || (dim / vec) % lanes != 0) return cudaErrorInvalidValue;
+  if (warps < 1 || warps * 32 > kMaxPoolThreads || 1LL * grid * warps < batch ||
+      1LL * (grid - 1) * warps >= batch || smem != warps * smem_per_warp || smem > 48 * 1024) {
+    return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// Forward: logits (B, L) f32, mask (B, L) bytes 0/1, hist (B, L, dim) T,
+// out (B, dim) T, weights (B, L) f32. vec = 8 (bf16) or 4 (f32) for
+// 16-byte loads (dim a multiple of vec, hist and out 16-byte aligned), else
+// 1; lanes (a power of 2 dividing dim / vec) a position's lane group. grid
+// blocks of warps warps, smem = warps * L * 4 bytes. Returns a CUDA error
+// code.
+extern "C" int persia_attention_pool_fwd(const void* logits, const void* mask, const void* hist, void* out,
+                                         void* weights, int dtype, int batch, int L, int dim, int vec,
+                                         int lanes, int warps, int grid, int smem, void* stream) {
+  int rc = check_launch(dtype, batch, L, dim, vec, lanes, warps, grid, smem, L * 4, hist, out);
+  if (rc != cudaSuccess) return rc;
+  if (logits == nullptr || mask == nullptr || weights == nullptr) return cudaErrorInvalidValue;
+  const int lanes_log2 = log2_exact(lanes);
+  const float* lg = static_cast<const float*>(logits);
+  const uint8_t* mk = static_cast<const uint8_t*>(mask);
+  float* w = static_cast<float*>(weights);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = warps * 32;
+  if (dtype == persia::kFloat32) {
+    const float* h = static_cast<const float*>(hist);
+    float* o = static_cast<float*>(out);
+    if (vec == 4) {
+      attention_pool_fwd_kernel<float, 4><<<grid, threads, smem, st>>>(lg, mk, h, o, w, batch, L, dim, lanes_log2);
+    } else {
+      attention_pool_fwd_kernel<float, 1><<<grid, threads, smem, st>>>(lg, mk, h, o, w, batch, L, dim, lanes_log2);
+    }
+  } else {
+    const __nv_bfloat16* h = static_cast<const __nv_bfloat16*>(hist);
+    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+    if (vec == 8) {
+      attention_pool_fwd_kernel<__nv_bfloat16, 8><<<grid, threads, smem, st>>>(lg, mk, h, o, w, batch, L, dim,
+                                                                               lanes_log2);
+    } else {
+      attention_pool_fwd_kernel<__nv_bfloat16, 1><<<grid, threads, smem, st>>>(lg, mk, h, o, w, batch, L, dim,
+                                                                               lanes_log2);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Backward: d_out (B, dim) T, mask, hist and the forward's weights as
+// above; d_hist (B, L, dim) T, d_logits (B, L) f32. The same geometry, smem
+// = warps * 2 * L * 4 bytes. Returns a CUDA error code.
+extern "C" int persia_attention_pool_bwd(const void* d_out, const void* mask, const void* hist,
+                                         const void* weights, void* d_hist, void* d_logits, int dtype, int batch,
+                                         int L, int dim, int vec, int lanes, int warps, int grid, int smem,
+                                         void* stream) {
+  int rc = check_launch(dtype, batch, L, dim, vec, lanes, warps, grid, smem, 2 * L * 4, hist, d_hist);
+  if (rc != cudaSuccess) return rc;
+  if (d_out == nullptr || mask == nullptr || weights == nullptr || d_logits == nullptr ||
+      (vec > 1 && !aligned16(d_out))) {
+    return cudaErrorInvalidValue;
+  }
+  const int lanes_log2 = log2_exact(lanes);
+  const uint8_t* mk = static_cast<const uint8_t*>(mask);
+  const float* w = static_cast<const float*>(weights);
+  float* dl = static_cast<float*>(d_logits);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = warps * 32;
+  if (dtype == persia::kFloat32) {
+    const float* di = static_cast<const float*>(d_out);
+    const float* h = static_cast<const float*>(hist);
+    float* dh = static_cast<float*>(d_hist);
+    if (vec == 4) {
+      attention_pool_bwd_kernel<float, 4><<<grid, threads, smem, st>>>(di, mk, h, w, dh, dl, batch, L, dim,
+                                                                       lanes_log2);
+    } else {
+      attention_pool_bwd_kernel<float, 1><<<grid, threads, smem, st>>>(di, mk, h, w, dh, dl, batch, L, dim,
+                                                                       lanes_log2);
+    }
+  } else {
+    const __nv_bfloat16* di = static_cast<const __nv_bfloat16*>(d_out);
+    const __nv_bfloat16* h = static_cast<const __nv_bfloat16*>(hist);
+    __nv_bfloat16* dh = static_cast<__nv_bfloat16*>(d_hist);
+    if (vec == 8) {
+      attention_pool_bwd_kernel<__nv_bfloat16, 8><<<grid, threads, smem, st>>>(di, mk, h, w, dh, dl, batch, L,
+                                                                               dim, lanes_log2);
+    } else {
+      attention_pool_bwd_kernel<__nv_bfloat16, 1><<<grid, threads, smem, st>>>(di, mk, h, w, dh, dl, batch, L,
+                                                                               dim, lanes_log2);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}

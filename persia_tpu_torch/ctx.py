@@ -32,6 +32,7 @@ from persia_tpu_torch.embedding.worker import (
     SumEmbeddingBatch,
 )
 from persia_tpu_torch.ops.embedding_pool import pool_csr
+from persia_tpu_torch.ops.raw_gather import raw_csr
 from persia_tpu_torch.parallel.train_step import (
     TrainState,
     build_eval_step,
@@ -69,10 +70,13 @@ def stage_embeddings(
     (host arrays). Raw and device-pooled slots pad their distinct rows to a
     bucketed size, zero rows absorbing padded index entries; device-pooled
     slots share one bucket. ``dtype="bfloat16"`` ships the float rows as
-    bf16 (``BF16Host``). ``csr`` adds each device-pooled slot's
-    row → positions CSR (``pool_order``, ``pool_offsets``), which the
-    backward kernel walks. Returns (entries, true distinct counts) — None
-    for host-pooled slots."""
+    bf16 (``BF16Host``). ``csr`` adds each device-pooled and raw slot's
+    row → positions CSR (``pool_order``, ``pool_offsets``; ``order``,
+    ``offsets``, without the pad row's positions), which the backward
+    kernels walk. A raw slot's index is
+    range-checked against its P rows here, before the copy: the card's
+    gather never reads outside them. Returns (entries, true distinct counts)
+    — None for host-pooled slots."""
     if dtype not in WIRE_DTYPES:
         raise ValueError(f"wire dtype must be one of {WIRE_DTYPES}, got {dtype!r}")
     bf16 = dtype == "bfloat16"
@@ -108,8 +112,12 @@ def stage_embeddings(
             padded = np.zeros((p, dim), dtype=np.float32)
             padded[:d] = eb.distinct
             index = np.where(eb.index == d, p - 1, eb.index).astype(np.int32)
-            mask = eb.index != d
-            entries.append({"distinct": _wire(padded, bf16), "index": index, "mask": mask})
+            if index.size and (index.min() < 0 or index.max() >= p):
+                raise ValueError(f"raw slot {eb.name!r}: an index lies outside its {p} rows")
+            entry = {"distinct": _wire(padded, bf16), "index": index, "mask": eb.index != d}
+            if csr:
+                entry["order"], entry["offsets"] = raw_csr(index, p)
+            entries.append(entry)
             counts.append(d)
     return entries, counts
 

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from persia_tpu_torch.device import resolve_device
+from persia_tpu_torch.models.layers import dense, dense_f32, lecun_init_, slot_vector
 from persia_tpu_torch.ops import dot_interaction
 
 
@@ -53,22 +54,15 @@ class DLRM(nn.Module):
         self.layers = nn.ModuleList(
             nn.Linear(i, o, device=dev) for i, o in zip(ins, outs)
         )
-        self._init(generator)
+        lecun_init_(self.layers, generator)
 
-    @torch.no_grad()
-    def _init(self, generator: Optional[torch.Generator]) -> None:
-        """LeCun-normal kernels and zero biases (flax ``Dense``'s defaults),
-        drawn on the CPU from ``generator`` so that a seed gives the same
-        weights on every device."""
-        for layer in self.layers:
-            w = torch.randn(layer.weight.shape, generator=generator) * layer.in_features ** -0.5
-            layer.weight.copy_(w)
-            layer.bias.zero_()
+    def flax_modules(self):
+        """(flax path, layer) in call order: ``Dense_0 … Dense_k``."""
+        return [((f"Dense_{i}",), layer) for i, layer in enumerate(self.layers)]
 
     def _mlp(self, x: torch.Tensor, layers: Sequence[nn.Linear]) -> torch.Tensor:
-        dt = self.compute_dtype
         for layer in layers:
-            x = F.relu(F.linear(x, layer.weight.to(dt), layer.bias.to(dt)))
+            x = F.relu(dense(x, layer, self.compute_dtype))
         return x
 
     def forward(self, non_id_features: List[torch.Tensor], embeddings: List) -> torch.Tensor:
@@ -76,18 +70,8 @@ class DLRM(nn.Module):
         dense = torch.cat([f.to(dt) for f in non_id_features], dim=1)
         bottom = self._mlp(dense, self.layers[: self.num_bottom])  # (B, d)
 
-        embs = []
-        for emb in embeddings:
-            if isinstance(emb, tuple):  # raw slot → mean-pool into one vector
-                gathered, mask = emb
-                m = mask[..., None].to(gathered.dtype)
-                denom = torch.clamp(m.sum(dim=1), min=1.0)
-                embs.append(((gathered * m).sum(dim=1) / denom).to(dt))
-            else:
-                embs.append(emb.to(dt))
-
+        embs = [slot_vector(e, dt) for e in embeddings]  # a raw slot mean-pools
         feats = torch.stack([bottom, *embs], dim=1)  # (B, n, d)
         inter = dot_interaction(feats)  # (B, n(n-1)/2)
         x = self._mlp(torch.cat([bottom, inter], dim=1), self.layers[self.num_bottom : -1])
-        head = self.layers[-1]
-        return F.linear(x.float(), head.weight, head.bias)  # f32 head
+        return dense_f32(x, self.layers[-1])  # f32 head

@@ -8,8 +8,15 @@ pre-pass in ``tf32_split_planes.launches``). ``dot_interaction`` and
 ``dot_interaction_bwd`` and ``gather_pool_bwd``. The fused tier's
 ``fused_gather`` (K4), ``update_keys`` (the routing of the update ids)
 and ``sparse_update`` (K5) update nothing through autograd: the gathered
-rows are the step's differentiated leaves."""
+rows are the step's differentiated leaves. The raw-slot path's
+``raw_gather`` (K6, backward K7) and DIN's ``attention_pool`` (K8,
+backward K9) are differentiable too."""
 
+from persia_tpu_torch.ops.attention_pool import (  # noqa: F401
+    attention_pool,
+    attention_pool_bwd,
+    attention_pool_fwd,
+)
 from persia_tpu_torch.ops.dot_interaction import dot_interaction, dot_interaction_bwd  # noqa: F401
 from persia_tpu_torch.ops.embedding_pool import (  # noqa: F401
     PoolSlot,
@@ -19,11 +26,13 @@ from persia_tpu_torch.ops.embedding_pool import (  # noqa: F401
 )
 from persia_tpu_torch.ops.flash_attention import flash_attention, tf32_split_planes  # noqa: F401
 from persia_tpu_torch.ops.fused_gather import fused_gather  # noqa: F401
+from persia_tpu_torch.ops.raw_gather import RawSlot, raw_csr, raw_gather, raw_gather_bwd, raw_gather_fwd  # noqa: F401
 from persia_tpu_torch.ops.sparse_update import sparse_update, update_keys  # noqa: F401
 
 KERNEL_WRAPPERS = (
     dot_interaction, dot_interaction_bwd, gather_pool_fwd, gather_pool_bwd,
     flash_attention, tf32_split_planes, fused_gather, update_keys, sparse_update,
+    raw_gather_fwd, raw_gather_bwd, attention_pool_fwd, attention_pool_bwd,
 )
 
 

@@ -450,6 +450,81 @@ def pool_bwd_model(values: np.ndarray, rows: np.ndarray, num_rows: int, plan: Po
     return out
 
 
+# raw-slot gather, K6 (csrc/raw_gather.cu): one thread per (slot on grid
+# y, position, unit of the row), the units fastest. Its backward, K7, is the
+# gather-pool's two-pass segment-sum (pool_plan) over B * L positions of
+# one id each.
+RAW_THREADS = 256
+
+
+@dataclass(frozen=True)
+class RawGatherPlan:
+    positions: int  # B * L
+    unit_bytes: int  # 16, or the element's bytes
+    row_units: int
+    threads: int
+    grid: tuple  # (position blocks, slots)
+
+
+@functools.lru_cache(maxsize=256)
+def raw_gather_plan(positions: int, slots: int, dim: int, elem_bytes: int, aligned: bool = True) -> RawGatherPlan:
+    """Geometry of ``raw_gather_fwd`` for a group of ``slots`` slots of
+    ``positions`` positions each and rows of ``dim`` elements of
+    ``elem_bytes`` bytes. ``aligned``: the rows and the output start on 16
+    bytes. A row whose bytes are a multiple of 16 moves in 16-byte units,
+    else element by element."""
+    if not 1 <= slots <= POOL_MAX_SLOTS:
+        raise ValueError(f"one launch gathers 1..{POOL_MAX_SLOTS} slots, got {slots}")
+    if elem_bytes not in (2, 4) or positions < 1 or dim < 1:
+        raise ValueError("a raw group needs bf16 or f32 rows and positive sizes")
+    row_bytes = dim * elem_bytes
+    unit = 16 if aligned and row_bytes % 16 == 0 else elem_bytes
+    row_units = row_bytes // unit
+    return RawGatherPlan(positions=positions, unit_bytes=unit, row_units=row_units, threads=RAW_THREADS,
+                         grid=(-(-positions * row_units // RAW_THREADS), slots))
+
+
+# DIN's masked attention pool, K8 and K9 (csrc/attention_pool.cu): one warp
+# per sample row, ATT_POOL_WARPS a block; a lane group of lanes lanes takes
+# one position's row, vec columns a lane (16-byte loads)
+ATT_POOL_WARPS = 4
+ATT_POOL_SMEM_MAX = SMEM_STATIC  # the weights (and g) of each warp's row
+
+
+@dataclass(frozen=True)
+class AttentionPoolPlan:
+    batch: int
+    seq_len: int
+    dim: int
+    vec: int  # 8 bf16 or 4 f32 columns a load; 1 on the general path
+    lanes: int  # lanes of a position's group: a power of 2 dividing dim / vec
+    warps: int
+    grid: int
+    fwd_smem: int  # bytes: the rounded weights of each warp's row
+    bwd_smem: int  # bytes: the rounded weights and g of each warp's row
+
+
+@functools.lru_cache(maxsize=256)
+def attention_pool_plan(batch: int, seq_len: int, dim: int, elem_bytes: int, aligned: bool = True
+                        ) -> AttentionPoolPlan:
+    """Geometry of ``attention_pool_fwd`` and ``attention_pool_bwd`` for
+    (B, L) logits over (B, L, dim) history rows of ``elem_bytes`` bytes.
+    ``aligned``: the history, its gradient and the pooled rows start on 16
+    bytes."""
+    if elem_bytes not in (2, 4) or min(batch, seq_len, dim) < 1:
+        raise ValueError("the attention pool needs bf16 or f32 rows and positive sizes")
+    wide = 16 // elem_bytes
+    vec = wide if aligned and dim % wide == 0 else 1
+    units = dim // vec
+    lanes = min(units & -units, 32)  # the largest power of 2 dividing it
+    bwd_smem = ATT_POOL_WARPS * 2 * seq_len * 4
+    if bwd_smem > ATT_POOL_SMEM_MAX:
+        raise ValueError(f"the attention pool takes at most {ATT_POOL_SMEM_MAX // (8 * ATT_POOL_WARPS)} "
+                         f"positions a row, got {seq_len}")
+    return AttentionPoolPlan(batch=batch, seq_len=seq_len, dim=dim, vec=vec, lanes=lanes, warps=ATT_POOL_WARPS,
+                             grid=-(-batch // ATT_POOL_WARPS), fwd_smem=bwd_smem // 2, bwd_smem=bwd_smem)
+
+
 # fused sparse optimizer update, K5 (csrc/sparse_update.cu): a first pass
 # lists the segments (runs of one row among the sorted ids), split at
 # K5_LONG_MIN positions; a short segment goes to a group of lanes, a long

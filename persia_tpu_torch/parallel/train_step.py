@@ -13,15 +13,17 @@ entries are in the wire dtype):
                    ["pool_counts": (B, 1) i32],
                    ["pool_order": (B*L,) i32, "pool_offsets": (P+1,) i32]}  # device-pooled slot
                 | {"distinct": (P, D), "index": (B, L) i32,
-                   "mask": (B, L) bool} ... ],                         # raw slot
+                   "mask": (B, L) bool,
+                   ["order": (B*L,) i32, "offsets": (P+1,) i32]} ... ],  # raw slot
     }
 
 The train step runs forward, loss, backward and the dense optimizer's
 update, and returns the embedding inputs' gradients packed for one
 device→host copy. Device-pooled slots of one dim and dtype are pooled by one
 ``ops.embedding_pool`` launch (its backward, another, gives the
-per-distinct gradients); raw slots gather with ``distinct[index]``, whose
-autograd scatters back onto the distinct rows.
+per-distinct gradients); raw slots of one dim, dtype and (B, L) gather by
+one ``ops.raw_gather`` launch, whose backward scatters back onto the
+distinct rows.
 """
 
 from __future__ import annotations
@@ -34,25 +36,30 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from persia_tpu_torch.ops import PoolSlot, embedding_pool
+from persia_tpu_torch.ops import PoolSlot, RawSlot, embedding_pool, raw_gather
 
 
 def _embedding_model_inputs(emb_diff: List, emb_static: List) -> List:
     """Rebuild per-slot model inputs from (differentiable, static) halves."""
     out: List = [None] * len(emb_diff)
     groups: Dict[Tuple, List[int]] = {}  # device-pooled slots by (device, dtype, dim)
+    raw_groups: Dict[Tuple, List[int]] = {}  # raw slots by (device, dtype, dim, (B, L))
     for i, (diff, static) in enumerate(zip(emb_diff, emb_static)):
         if static is None:  # pooled slot: diff IS the (B, dim) tensor
             out[i] = diff
         elif isinstance(static, PoolSlot):
             groups.setdefault((diff.device, diff.dtype, diff.shape[1]), []).append(i)
-        else:  # raw slot: (gathered (B, L, dim), mask)
-            index, mask = static
-            out[i] = (diff[index.long()], mask)
+        else:  # raw slot: (RawSlot, mask) → (gathered (B, L, dim), mask)
+            key = (diff.device, diff.dtype, diff.shape[1], tuple(static[0].index.shape))
+            raw_groups.setdefault(key, []).append(i)
     for members in groups.values():
         pooled = embedding_pool([emb_diff[i] for i in members], [emb_static[i] for i in members])
         for i, p in zip(members, pooled):
             out[i] = p
+    for members in raw_groups.values():
+        gathered = raw_gather([emb_diff[i] for i in members], [emb_static[i][0] for i in members])
+        for i, g in zip(members, gathered):
+            out[i] = (g, emb_static[i][1])
     return out
 
 
@@ -69,7 +76,7 @@ def _split_emb(emb: List[Dict]) -> Tuple[List, List]:
             ))
         else:
             diff.append(e["distinct"])
-            static.append((e["index"], e["mask"]))
+            static.append((RawSlot(e["index"], e.get("order"), e.get("offsets")), e["mask"]))
     return diff, static
 
 

@@ -3,12 +3,15 @@ flax/optax layout; the hybrid tier's dense ``TrainState`` as the bytes
 ``flax.serialization.to_bytes`` writes for the reference's; and the fused
 tier's whole state, both ways.
 
-flax names a model's ``Dense`` layers ``Dense_0 … Dense_k`` in call order,
-each ``{"kernel": (in, out), "bias": (out,)}``; the port's models keep their
-``nn.Linear`` layers in ``layers`` in the same order, with ``weight`` (out,
-in). Parameters and optax's ``ScaleByAdamState`` leaves (``mu``, ``nu``,
-``count``) arrive as nested dicts of numpy arrays, so this module needs
-neither JAX nor flax nor optax.
+flax names a model's parameters by module path: a ``Dense`` layer is
+``{"kernel": (in, out), "bias": (out,)}`` under its name (``Dense_0 …
+Dense_k`` in call order where unnamed, ``att_0/Dense_1`` inside a
+submodule). Each of the port's models lists its ``nn.Linear`` layers (and
+bare parameters) under those paths in ``flax_modules()``; a torch
+``weight`` is (out, in), the transpose of flax's kernel. Parameters and
+optax's ``ScaleByAdamState`` leaves (``mu``, ``nu``, ``count``) arrive as
+nested dicts of numpy arrays, so this module needs neither JAX nor flax nor
+optax.
 """
 
 from __future__ import annotations
@@ -21,59 +24,91 @@ import torch
 
 from persia_tpu_torch.serialization import msgpack_restore, msgpack_serialize
 
+Path = Tuple[str, ...]
 
-def dlrm_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """The port's DLRM ``state_dict`` from the reference DLRM's ``params``."""
-    names = sorted(params, key=lambda k: int(k.rsplit("_", 1)[1]))
-    if names != [f"Dense_{i}" for i in range(len(names))]:
-        raise ValueError(f"expected flax params Dense_0 … Dense_k, got {sorted(params)}")
+
+def flax_leaves(model: torch.nn.Module) -> List[Tuple[Path, torch.nn.Parameter, bool]]:
+    """(flax path, parameter, transposed) of each of ``model``'s
+    parameters, in call order: a layer's kernel (transposed) before its
+    bias."""
+    out = []
+    for path, m in model.flax_modules():
+        if isinstance(m, torch.nn.Linear):
+            out.append((path + ("kernel",), m.weight, True))
+            if m.bias is not None:
+                out.append((path + ("bias",), m.bias, False))
+        else:
+            out.append((path, m, False))
+    return out
+
+
+def _flat_paths(tree: Mapping, prefix: Path = ()) -> List[Path]:
+    out = []
+    for k, v in tree.items():
+        out.extend(_flat_paths(v, prefix + (k,)) if isinstance(v, Mapping) else [prefix + (k,)])
+    return out
+
+
+def _at(tree: Mapping, path: Path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _check_paths(model: torch.nn.Module, tree: Mapping, what: str) -> List[Tuple[Path, torch.nn.Parameter, bool]]:
+    leaves = flax_leaves(model)
+    if sorted(_flat_paths(tree)) != sorted(path for path, _, _ in leaves):
+        raise ValueError(f"{what} holds {sorted('/'.join(p) for p in _flat_paths(tree))}, the model "
+                         f"{sorted('/'.join(p) for p, _, _ in leaves)}")
+    return leaves
+
+
+def state_dict_from_flax(model: torch.nn.Module, params: Mapping) -> Dict[str, torch.Tensor]:
+    """``model``'s ``state_dict`` from the reference model's ``params``."""
+    names = {id(p): n for n, p in model.named_parameters()}
     out: Dict[str, torch.Tensor] = {}
-    for i, name in enumerate(names):
-        kernel = np.asarray(params[name]["kernel"], dtype=np.float32)
-        bias = np.asarray(params[name]["bias"], dtype=np.float32)
-        out[f"layers.{i}.weight"] = torch.from_numpy(np.array(kernel.T))  # a writable copy
-        out[f"layers.{i}.bias"] = torch.from_numpy(bias.copy())
+    for path, p, transposed in _check_paths(model, params, "params"):
+        a = np.asarray(_at(params, path), dtype=np.float32)
+        out[names[id(p)]] = torch.from_numpy(np.array(a.T if transposed else a))  # a writable copy
     return out
 
 
-def dlrm_state_dict_to_flax(model: torch.nn.Module, tensor_of=lambda p: p) -> Dict[str, Dict[str, np.ndarray]]:
-    """The inverse of ``dlrm_state_dict_from_flax``: ``{"Dense_i": {"bias",
-    "kernel" (in, out)}}`` as host arrays, with the names and leaves in
-    sorted order (the order of a state the reference's step returned).
-    ``tensor_of`` maps each parameter to the tensor to take (an Adam
-    moment of it, say)."""
-    layers = model.layers
-    out: Dict[str, Dict[str, np.ndarray]] = {}
-    for name in sorted(f"Dense_{i}" for i in range(len(layers))):
-        layer = layers[int(name.rsplit("_", 1)[1])]
-        out[name] = {"bias": _host_array(tensor_of(layer.bias)),
-                     "kernel": np.ascontiguousarray(_host_array(tensor_of(layer.weight)).T)}
-    return out
+def state_dict_to_flax(model: torch.nn.Module, tensor_of=lambda p: p) -> Dict:
+    """The inverse of ``state_dict_from_flax``: flax's nested params as
+    host arrays, the names at every level in sorted order (the order of a
+    state the reference's step returned). ``tensor_of`` maps each parameter
+    to the tensor to take (an Adam moment of it, say)."""
+    out: Dict = {}
+    for path, p, transposed in flax_leaves(model):
+        a = _host_array(tensor_of(p))
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.ascontiguousarray(a.T) if transposed else a
+
+    def ordered(tree):
+        return {k: ordered(tree[k]) if isinstance(tree[k], dict) else tree[k] for k in sorted(tree)}
+
+    return ordered(out)
 
 
 def adam_state_from_optax(
-    params: Sequence[torch.nn.Parameter], mu: Mapping, nu: Mapping, count
+    model: torch.nn.Module, mu: Mapping, nu: Mapping, count
 ) -> Dict[torch.nn.Parameter, Dict[str, torch.Tensor]]:
-    """``torch.optim.Adam`` state for ``params`` (a DLRM's parameters in
-    ``model.parameters()`` order: layers.0.weight, layers.0.bias, …) from
-    optax ``scale_by_adam``'s first and second moments (flax layout) and its
-    step count. Load it with ``optimizer.state.update(...)``: the two
-    optimizers then continue alike (optax's bias corrections use the same
-    count as torch's ``step``)."""
-    moments = [dlrm_state_dict_from_flax(m) for m in (mu, nu)]
-    names = list(moments[0])
-    if len(names) != len(params):
-        raise ValueError(f"{len(names)} moment leaves for {len(params)} parameters")
+    """``torch.optim.Adam`` state for ``model``'s parameters from optax
+    ``scale_by_adam``'s first and second moments (flax layout) and its step
+    count. Load it with ``optimizer.state.update(...)``: the two optimizers
+    then continue alike (optax's bias corrections use the same count as
+    torch's ``step``)."""
+    moments = [state_dict_from_flax(model, m) for m in (mu, nu)]
     out = {}
-    for p, name in zip(params, names):
-        m, v = (mo[name] for mo in moments)
-        if m.shape != p.shape:
-            raise ValueError(f"{name}: moment shape {tuple(m.shape)} != parameter {tuple(p.shape)}")
-        out[p] = {
-            "step": torch.tensor(float(np.asarray(count))),
-            "exp_avg": m.to(p.device),
-            "exp_avg_sq": v.to(p.device),
-        }
+    for name, p in model.named_parameters():
+        m, v = moments[0][name], moments[1][name]
+        if m.shape != p.shape or v.shape != p.shape:
+            raise ValueError(f"{name}: moment shapes {tuple(m.shape)}, {tuple(v.shape)} != parameter "
+                             f"{tuple(p.shape)}")
+        out[p] = {"step": torch.tensor(float(np.asarray(count))), "exp_avg": m.to(p.device),
+                  "exp_avg_sq": v.to(p.device)}
     return out
 
 
@@ -90,8 +125,8 @@ def _scalar_state_dtype() -> torch.dtype:
 
 
 def train_state_to_flax_bytes(state) -> bytes:
-    """The port's hybrid ``TrainState`` (a DLRM, ``torch.optim.Adam``) as the
-    bytes ``flax.serialization.to_bytes`` writes for the reference's
+    """The port's hybrid ``TrainState`` (any of the port's models,
+    ``torch.optim.Adam``) as the bytes ``flax.serialization.to_bytes`` writes for the reference's
     ``TrainState`` carrying the same arrays: ``params`` (kernels (in,
     out)), ``batch_stats`` ``{}``, ``opt_state`` as ``optax.adam``'s chain
     (``count``, ``mu``, ``nu``; then the learning-rate scale's empty state),
@@ -107,11 +142,11 @@ def train_state_to_flax_bytes(state) -> bytes:
 
     ls = state.loss_scale
     tree = {
-        "params": dlrm_state_dict_to_flax(model),
+        "params": state_dict_to_flax(model),
         "batch_stats": {},
         "opt_state": {"0": {"count": np.asarray(count, np.int32),
-                            "mu": dlrm_state_dict_to_flax(model, moment("exp_avg")),
-                            "nu": dlrm_state_dict_to_flax(model, moment("exp_avg_sq"))},
+                            "mu": state_dict_to_flax(model, moment("exp_avg")),
+                            "nu": state_dict_to_flax(model, moment("exp_avg_sq"))},
                       "1": {}},
         "step": np.asarray(state.step, np.int32),
         "loss_scale": None if ls is None else {"scale": np.asarray(ls.scale, np.float32),
@@ -130,34 +165,30 @@ def train_state_from_flax_bytes(state, raw: bytes):
     tree = msgpack_restore(raw)
     model, opt = state.model, _adam_of(state)
     adam = tree["opt_state"]["0"]
-    layers = model.layers
-    if sorted(tree["params"]) != sorted(f"Dense_{i}" for i in range(len(layers))):
-        raise ValueError(f"the bytes hold layers {sorted(tree['params'])}, the model {len(layers)}")
+    leaves = _check_paths(model, tree["params"], "the bytes")
     if (tree["loss_scale"] is None) != (state.loss_scale is None):
         raise ValueError("the bytes and the state disagree on a dynamic loss scale")
     groups = {id(p): g for g in opt.param_groups for p in g["params"]}
     count = float(np.asarray(adam["count"]))
     with torch.no_grad():
-        for name, leaves in tree["params"].items():
-            layer = layers[int(name.rsplit("_", 1)[1])]
-            for p, key, t in ((layer.weight, "kernel", True), (layer.bias, "bias", False)):
-                host = [leaves[key], adam["mu"][name][key], adam["nu"][name][key]]
-                host = [_host_tensor(a.T if t else a).to(p.device) for a in host]
-                if host[0].shape != p.shape or host[0].dtype != p.dtype:
-                    raise ValueError(f"{name}.{key}: {host[0].dtype} {tuple(host[0].shape)} in the bytes, "
-                                     f"{p.dtype} {tuple(p.shape)} in the model")
-                p.copy_(host[0])
-                st = opt.state[p]
-                if not st:
-                    g = groups[id(p)]
-                    on_device = g.get("capturable") or g.get("fused")
-                    st["step"] = torch.zeros((), dtype=torch.float32 if g.get("fused") else _scalar_state_dtype(),
-                                             device=p.device if on_device else "cpu")
-                    st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
-                    st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
-                st["step"].fill_(count)
-                st["exp_avg"].copy_(host[1])
-                st["exp_avg_sq"].copy_(host[2])
+        for path, p, transposed in leaves:
+            host = [_at(t, path) for t in (tree["params"], adam["mu"], adam["nu"])]
+            host = [_host_tensor(a.T if transposed else a).to(p.device) for a in host]
+            if host[0].shape != p.shape or host[0].dtype != p.dtype:
+                raise ValueError(f"{'/'.join(path)}: {host[0].dtype} {tuple(host[0].shape)} in the bytes, "
+                                 f"{p.dtype} {tuple(p.shape)} in the model")
+            p.copy_(host[0])
+            st = opt.state[p]
+            if not st:
+                g = groups[id(p)]
+                on_device = g.get("capturable") or g.get("fused")
+                st["step"] = torch.zeros((), dtype=torch.float32 if g.get("fused") else _scalar_state_dtype(),
+                                         device=p.device if on_device else "cpu")
+                st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            st["step"].fill_(count)
+            st["exp_avg"].copy_(host[1])
+            st["exp_avg_sq"].copy_(host[2])
     state.step = int(np.asarray(tree["step"]))
     if state.loss_scale is not None:
         state.loss_scale.scale = float(np.asarray(tree["loss_scale"]["scale"], np.float32))
@@ -165,18 +196,23 @@ def train_state_from_flax_bytes(state, raw: bytes):
     return state
 
 
-def seeded_flax_params_like(model: torch.nn.Module, seed: int) -> Dict[str, Dict[str, np.ndarray]]:
-    """Random parameters in the flax layout for the ``nn.Linear`` layers of
-    ``model.layers``, from a numpy seed: LeCun-normal kernels and small
-    normal biases (non-zero, so a check also covers the bias path)."""
+def seeded_flax_params_like(model: torch.nn.Module, seed: int) -> Dict:
+    """Random parameters in the flax layout for ``model`` (its
+    ``flax_modules()``), from a numpy seed, drawn leaf by leaf in call
+    order: LeCun-normal kernels, small normal biases (non-zero, so a check
+    also covers the bias path) and bare parameters."""
     rng = np.random.default_rng(seed)
-    out = {}
-    for i, layer in enumerate(model.layers):
-        a, b = layer.in_features, layer.out_features
-        out[f"Dense_{i}"] = {
-            "kernel": (rng.standard_normal((a, b)) / np.sqrt(a)).astype(np.float32),
-            "bias": (0.05 * rng.standard_normal(b)).astype(np.float32),
-        }
+    out: Dict = {}
+    for path, p, transposed in flax_leaves(model):
+        if transposed:
+            a, b = p.shape[1], p.shape[0]
+            value = (rng.standard_normal((a, b)) / np.sqrt(a)).astype(np.float32)
+        else:
+            value = (0.05 * rng.standard_normal(tuple(p.shape))).astype(np.float32)
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = value
     return out
 
 
@@ -292,11 +328,10 @@ def fused_state_from_flax(manifest: Sequence[str], arrays: Sequence[np.ndarray],
             raise ValueError(f"unknown fused-state leaf {path!r}")
     if count is None or batch_state is None or step is None:
         raise ValueError("the fused state lacks the Adam count, the batch powers or the step")
-    model.load_state_dict(dlrm_state_dict_from_flax(params))
+    model.load_state_dict(state_dict_from_flax(model, params))
     model.to(dev)
     prepare_dense_optimizer(optimizer, dev)
-    params_list = list(model.parameters())
-    for p, st in adam_state_from_optax(params_list, moments["mu"], moments["nu"], count).items():
+    for p, st in adam_state_from_optax(model, moments["mu"], moments["nu"], count).items():
         for k, v in st.items():
             optimizer.state[p][k].copy_(v)
     if into is not None:

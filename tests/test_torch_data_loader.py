@@ -45,7 +45,7 @@ from persia_tpu_torch.embedding import optim as toptim
 from persia_tpu_torch.embedding.worker import EmbeddingWorker
 from persia_tpu_torch.embedding.worker import preprocess_batch as tpreprocess
 from persia_tpu_torch.models import DLRM
-from persia_tpu_torch.weights import dlrm_state_dict_from_flax, seeded_flax_params_like
+from persia_tpu_torch.weights import seeded_flax_params_like, state_dict_from_flax
 
 DIM, BOTTOM, TOP, STEPS = 16, (32, 16), (64, 32), 5
 TIGHT = dict(rtol=1e-5, atol=1e-6)
@@ -76,7 +76,7 @@ def _batch(data, seed, b=16, requires_grad=True):
 
 def _port_ctx(store="native", wire_dtype=None, **extra):
     model = DLRM(13, 5, DIM, BOTTOM, TOP, compute_dtype=torch.float32, device="cpu")
-    model.load_state_dict(dlrm_state_dict_from_flax(seeded_flax_params_like(model, 11)))
+    model.load_state_dict(state_dict_from_flax(model, seeded_flax_params_like(model, 11)))
     stores = [tns.create_store(store, capacity=1 << 16, num_internal_shards=4, seed=3) for _ in range(2)]
     worker = EmbeddingWorker(_cfg(tcfg), stores, device_pooling=True)
     return TrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3), toptim.Adagrad(lr=0.1),
@@ -121,7 +121,7 @@ def test_reproducible_loader_matches_reference():
     for (_, a), (_, b) in zip(want, got):
         np.testing.assert_allclose(b["loss"], a["loss"], **TIGHT)
         np.testing.assert_allclose(b["preds"], a["preds"], **TIGHT)
-    ref = dlrm_state_dict_from_flax(jax.tree.map(np.asarray, jctx.state.params))
+    ref = state_dict_from_flax(tctx.model, jax.tree.map(np.asarray, jctx.state.params))
     for k, v in tctx.model.state_dict().items():
         np.testing.assert_allclose(v.numpy(), ref[k].numpy(), err_msg=k, **TIGHT)
     jrouter, trouter = jctx.worker.lookup_router, tctx.worker.lookup_router

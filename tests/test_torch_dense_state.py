@@ -9,6 +9,10 @@
   the port;
 - the round trip through ``train_state_from_flax_bytes`` is exact, in
   place (the parameter and Adam state tensors keep their identity);
+- for DIN, DeepFM and DCN-v2 (full-rank and rank 4), the reference's
+  ``TrainState`` after optax's Adam steps loads into the port and writes
+  back byte-equal, and the port's state after its own Adam steps is read
+  by ``flax.serialization.from_bytes`` and written back byte-equal;
 - the msgpack subset equals flax's on other trees, and reads flax's
   chunked form of large arrays.
 """
@@ -25,11 +29,11 @@ import torch
 from persia_tpu.parallel.train_step import LossScaleState as JaxLossScale
 from persia_tpu.parallel.train_step import TrainState as JaxTrainState
 from persia_tpu_torch import serialization
-from persia_tpu_torch.models import DLRM
+from persia_tpu_torch.models import DCNv2, DeepFM, DIN, DLRM
 from persia_tpu_torch.parallel.train_step import LossScaleState, init_train_state
 from persia_tpu_torch.weights import (
-    dlrm_state_dict_from_flax,
     seeded_flax_params_like,
+    state_dict_from_flax,
     train_state_from_flax_bytes,
     train_state_to_flax_bytes,
 )
@@ -38,7 +42,7 @@ from persia_tpu_torch.weights import (
 def _port_state(dynamic=False, bf16_layer=False, steps=2, seed=0):
     """A port DLRM state after ``steps`` Adam steps on random gradients."""
     model = DLRM(13, 3, 8, (16, 8), (16,), device="cpu")
-    model.load_state_dict(dlrm_state_dict_from_flax(seeded_flax_params_like(model, seed)))
+    model.load_state_dict(state_dict_from_flax(model, seeded_flax_params_like(model, seed)))
     if bf16_layer:
         model.layers[1].to(torch.bfloat16)
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)
@@ -130,6 +134,52 @@ def test_reads_the_reference_bytes_and_rejects_a_mismatch():
     sgd = init_train_state(state.model, torch.optim.SGD(state.model.parameters(), lr=0.1))
     with pytest.raises(ValueError):
         train_state_to_flax_bytes(sgd)
+
+
+OTHER_MODELS = {
+    "din": lambda: DIN(1, 2, 2, 8, (16,), (32, 16), device="cpu"),
+    "deepfm": lambda: DeepFM(2, 5, 8, (16, 8), device="cpu"),
+    "dcnv2": lambda: DCNv2(2, 5, 8, 2, None, (16,), device="cpu"),
+    "dcnv2_rank4": lambda: DCNv2(2, 5, 8, 2, 4, (16,), device="cpu"),
+}
+
+
+@pytest.mark.parametrize("steps", [0, 2])
+@pytest.mark.parametrize("name", OTHER_MODELS)
+def test_other_models_bytes_equal_flax_both_ways(name, steps):
+    model = OTHER_MODELS[name]()
+    params = jax.tree.map(jnp.asarray, seeded_flax_params_like(model, 3))
+    adam = optax.adam(1e-3)
+    opt_state = adam.init(params)
+    rng = np.random.default_rng(4)
+    for _ in range(steps):
+        grads = jax.tree.map(lambda p: jnp.asarray(rng.standard_normal(p.shape), jnp.float32), params)
+        updates, opt_state = adam.update(grads, opt_state, params)
+        params = optax.apply_updates(params, updates)
+    ref = JaxTrainState(params=params, batch_stats={}, opt_state=opt_state, step=jnp.asarray(steps, jnp.int32),
+                        loss_scale=None)
+    raw = fser.to_bytes(ref)
+
+    state = init_train_state(model, torch.optim.Adam(model.parameters(), lr=1e-3))
+    train_state_from_flax_bytes(state, raw)
+    assert train_state_to_flax_bytes(state) == raw
+    want = state_dict_from_flax(model, jax.tree.map(np.asarray, params))
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, want[k]), k
+
+    g = torch.Generator().manual_seed(5)
+    for _ in range(2):
+        for p in model.parameters():
+            p.grad = torch.randn(p.shape, generator=g)
+        state.optimizer.step()
+        state.step += 1
+    mine = train_state_to_flax_bytes(state)
+    back = fser.from_bytes(ref, mine)
+    assert int(back.opt_state[0].count) == steps + 2 and int(back.step) == steps + 2
+    assert fser.to_bytes(back) == mine
+    with pytest.raises(ValueError):
+        train_state_from_flax_bytes(init_train_state(DLRM(13, 3, 8, (16, 8), (16,), device="cpu"),
+                                                     torch.optim.Adam(model.parameters())), mine)
 
 
 def test_msgpack_subset_equals_flax_on_other_trees():

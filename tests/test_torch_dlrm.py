@@ -14,7 +14,7 @@ from persia_tpu.parallel.train_step import _embedding_model_inputs as jax_model_
 from persia_tpu.parallel.train_step import _split_emb as jax_split_emb
 from persia_tpu_torch.models import DLRM
 from persia_tpu_torch.parallel.train_step import _embedding_model_inputs, _split_emb
-from persia_tpu_torch.weights import dlrm_state_dict_from_flax, seeded_flax_params_like
+from persia_tpu_torch.weights import seeded_flax_params_like, state_dict_from_flax
 
 B, DENSE, DIM = 32, 13, 16
 BOTTOM, TOP = (32, DIM), (64, 32)
@@ -60,7 +60,7 @@ def _params(seed, num_slots):
 
 def _port_logits(params, dense, emb, dtype):
     model = DLRM(DENSE, len(emb), DIM, BOTTOM, TOP, compute_dtype=dtype, device="cpu")
-    model.load_state_dict(dlrm_state_dict_from_flax(params))
+    model.load_state_dict(state_dict_from_flax(model, params))
     emb_t = [{k: torch.from_numpy(v.astype(np.int32) if v.dtype == np.uint16 else v)
               for k, v in e.items()} for e in emb]
     with torch.no_grad():
@@ -81,7 +81,7 @@ def test_layer_widths_and_state_dict_match_reference():
     )["params"]
     shapes = lambda p: {k: {n: tuple(a.shape) for n, a in v.items()} for k, v in p.items()}
     assert shapes(ref) == shapes(params)
-    sd = dlrm_state_dict_from_flax(params)
+    sd = state_dict_from_flax(model, params)
     model.load_state_dict(sd, strict=True)
     assert set(sd) == set(model.state_dict())
     np.testing.assert_array_equal(sd["layers.0.weight"].numpy(), params["Dense_0"]["kernel"].T)

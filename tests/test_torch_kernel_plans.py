@@ -238,3 +238,47 @@ def test_pool_plan_covers_every_element(batch, slots, dim, rows):
 def test_pool_plan_refuses_group_sizes_without_a_launch(slots):
     with pytest.raises(ValueError):
         plans.pool_plan(16, slots, 16, 2, 8)
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("positions,slots,dim,aligned", [
+    (51200, 2, 16, True), (45, 3, 10, True), (7, 1, 128, True), (100, 2, 16, False), (33, 64, 4, True),
+])
+def test_raw_gather_plan_covers_every_unit(positions, slots, dim, elem, aligned):
+    p = plans.raw_gather_plan(positions, slots, dim, elem, aligned)
+    row_bytes = dim * elem
+    assert p.unit_bytes * p.row_units == row_bytes
+    assert p.unit_bytes == (16 if aligned and row_bytes % 16 == 0 else elem)
+    items = positions * p.row_units
+    assert (p.grid[0] - 1) * p.threads < items <= p.grid[0] * p.threads and p.grid[1] == slots
+
+
+def test_raw_gather_plan_refuses_group_sizes_without_a_launch():
+    for slots in (0, plans.POOL_MAX_SLOTS + 1):
+        with pytest.raises(ValueError):
+            plans.raw_gather_plan(10, slots, 16, 2)
+    with pytest.raises(ValueError):
+        plans.raw_gather_plan(10, 1, 16, 8)
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("batch,seq,dim,aligned", [
+    (1024, 50, 16, True), (33, 7, 10, True), (5, 100, 64, True), (9, 1, 8, False), (3, 600, 128, True),
+])
+def test_attention_pool_plan_lane_groups_divide_the_row(batch, seq, dim, elem, aligned):
+    p = plans.attention_pool_plan(batch, seq, dim, elem, aligned)
+    wide = 16 // elem
+    assert p.vec == (wide if aligned and dim % wide == 0 else 1)
+    units = dim // p.vec
+    assert units % p.lanes == 0 and p.lanes & (p.lanes - 1) == 0 and p.lanes <= 32
+    assert (p.grid - 1) * p.warps < batch <= p.grid * p.warps
+    assert p.bwd_smem == 2 * p.fwd_smem == p.warps * 2 * seq * 4 <= plans.SMEM_STATIC
+
+
+def test_attention_pool_plan_refuses_rows_past_shared_memory():
+    longest = plans.SMEM_STATIC // (8 * plans.ATT_POOL_WARPS)
+    plans.attention_pool_plan(4, longest, 16, 2)
+    with pytest.raises(ValueError):
+        plans.attention_pool_plan(4, longest + 1, 16, 2)
+    with pytest.raises(ValueError):
+        plans.attention_pool_plan(4, 10, 16, 1)

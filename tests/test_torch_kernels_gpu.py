@@ -204,7 +204,7 @@ def test_serving_slice_on_card_matches_cpu(cuda):
     from persia_tpu_torch.embedding.worker import EmbeddingWorker
     from persia_tpu_torch.models import DLRM
     from persia_tpu_torch.serving.engine import InferenceEngine
-    from persia_tpu_torch.weights import dlrm_state_dict_from_flax, seeded_flax_params_like
+    from persia_tpu_torch.weights import seeded_flax_params_like, state_dict_from_flax
 
     slots = {f"cat_{i}": SlotConfig(dim=16) for i in range(4)}
     slots["hist"] = SlotConfig(dim=16, embedding_summation=False, sample_fixed_size=8)
@@ -222,7 +222,7 @@ def test_serving_slice_on_card_matches_cpu(cuda):
     preds, sd = {}, None
     for device in (None, "cpu"):  # None: the default device, the card
         model = DLRM(13, 5, 16, (32, 16), (64, 32), device=device)
-        sd = sd or dlrm_state_dict_from_flax(seeded_flax_params_like(model, 1))
+        sd = sd or state_dict_from_flax(model, seeded_flax_params_like(model, 1))
         model.load_state_dict(sd)
         engine = InferenceEngine(InferCtx(model, worker, cfg, device=device), device=device)
         before = dot_interaction.launches
@@ -442,11 +442,11 @@ def _flagship_ctx(device, device_pooling=True, wire_dtype=None, backend="numpy")
     from persia_tpu_torch.embedding.optim import Adagrad
     from persia_tpu_torch.embedding.worker import EmbeddingWorker
     from persia_tpu_torch.models import DLRM
-    from persia_tpu_torch.weights import dlrm_state_dict_from_flax, seeded_flax_params_like
+    from persia_tpu_torch.weights import seeded_flax_params_like, state_dict_from_flax
 
     cfg = _flagship_cfg()
     model = DLRM(13, 5, 16, (32, 16), (64, 32), compute_dtype=torch.float32, device="cpu")
-    model.load_state_dict(dlrm_state_dict_from_flax(seeded_flax_params_like(model, 2)))
+    model.load_state_dict(state_dict_from_flax(model, seeded_flax_params_like(model, 2)))
     stores = [create_store(backend, capacity=1 << 16, num_internal_shards=4, seed=3) for _ in range(2)]
     worker = EmbeddingWorker(cfg, stores, device_pooling=device_pooling)
     ctx = TrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3), Adagrad(lr=0.1), worker, cfg,
@@ -518,7 +518,7 @@ def test_dlrm_backward_on_card_reaches_the_embeddings(cuda, compute_dtype):
     each slot's gradient is held to 1e-1 of its norm (a bug in the
     interaction's backward moves it by its whole size)."""
     from persia_tpu_torch.models import DLRM
-    from persia_tpu_torch.weights import dlrm_state_dict_from_flax, seeded_flax_params_like
+    from persia_tpu_torch.weights import seeded_flax_params_like, state_dict_from_flax
 
     rng = np.random.default_rng(9)
     dense = rng.standard_normal((512, 13)).astype(np.float32)
@@ -526,7 +526,7 @@ def test_dlrm_backward_on_card_reaches_the_embeddings(cuda, compute_dtype):
     grads, sd = {}, None
     for device in ("cuda", "cpu"):
         model = DLRM(13, 26, 16, (256, 64, 16), (512, 256), compute_dtype=compute_dtype, device=device)
-        sd = sd or dlrm_state_dict_from_flax(seeded_flax_params_like(model, 4))
+        sd = sd or state_dict_from_flax(model, seeded_flax_params_like(model, 4))
         model.load_state_dict(sd)
         leaves = [torch.from_numpy(e).to(device).requires_grad_(True) for e in embs]
         model([torch.from_numpy(dense).to(device)], leaves).sum().backward()
@@ -1056,3 +1056,212 @@ def test_fused_ctx_checkpoint_loads_in_place_on_card(cuda, tmp_path):
     for b in batches[2:]:
         ctx.train_step(b, fetch_metrics=False)
     assert all(np.array_equal(a, b) for a, b in zip(first, _state_bits(ctx.state)))
+
+
+# --- the raw-slot gather (K6, K7) and DIN's attention pool (K8, K9) -------
+
+def _raw_group(dev, dtype, b, l, dim, case, seed, slots=2):
+    """Rows (P, dim) of ``dtype`` (rows past d zero) and RawSlots with CSR
+    on ``dev``: random ids with pads at P - 1 and an all-padding row, every
+    position on one row, or all padding."""
+    from persia_tpu_torch.ops import RawSlot, raw_csr
+
+    rng = np.random.default_rng(seed)
+    rows, raw = [], []
+    for s in range(slots):
+        d = 37 + 500 * s
+        p = 1 << int(np.ceil(np.log2(d + 1)))
+        r = np.zeros((p, dim), np.float32)
+        r[:d] = rng.standard_normal((d, dim))
+        if case == "random":
+            index = np.where(rng.random((b, l)) < 0.5, rng.integers(0, d, (b, l)), p - 1)
+            index[0] = p - 1
+        elif case == "one_row":
+            index = np.full((b, l), 3)
+        else:
+            index = np.full((b, l), p - 1)
+        index = index.astype(np.int32)
+        order, offsets = raw_csr(index, p)
+        rows.append(torch.from_numpy(r).to(dev, dtype))
+        raw.append(RawSlot(*(torch.from_numpy(a).to(dev) for a in (index, order, offsets))))
+    return rows, raw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,b,l,dim", [("random", 1024, 50, 16), ("one_row", 1024, 50, 16),
+                                          ("all_masked", 64, 50, 16), ("random", 77, 9, 10),
+                                          ("random", 33, 5, 24), ("random", 40, 3, 128)])
+def test_raw_gather_kernels_match_plain(cuda, case, b, l, dim, dtype):
+    """K6 copies rows: bit for bit. K7 sums each row's terms in f32 in its
+    fixed order, index_add_ in stream order: within twice the f32
+    sum-order bound of the row, then one rounding (1e-6 relative in f32,
+    one bf16 ulp in bf16); the pad row zero; two calls agree bit for
+    bit."""
+    from persia_tpu_torch.ops import raw_gather_bwd, raw_gather_fwd
+    from persia_tpu_torch.ops.raw_gather import raw_gather_bwd_reference, raw_gather_fwd_reference
+
+    rows, raw = _raw_group(cuda, dtype, b, l, dim, case, seed=dim)
+    before = raw_gather_fwd.launches, raw_gather_bwd.launches
+    out = raw_gather_fwd(rows, raw)
+    g = _randn(out.shape, seed=5, dev=cuda, dtype=dtype)
+    grads = raw_gather_bwd(g, rows, raw)
+    again = raw_gather_bwd(g, rows, raw)
+    torch.cuda.synchronize()
+    assert (raw_gather_fwd.launches, raw_gather_bwd.launches) == (before[0] + 1, before[1] + 2)
+    assert out.shape == (len(rows), b, l, dim) and out.dtype == dtype
+    assert torch.equal(out, raw_gather_fwd_reference(rows, raw))
+    abs_sums = raw_gather_bwd_reference(g.abs().float(), [r.float() for r in rows], raw)
+    rtol = 1e-6 if dtype == torch.float32 else 2 ** -8
+    for got, ref, a, s, rep in zip(grads, raw_gather_bwd_reference(g, rows, raw), abs_sums, raw, again):
+        n = (s.offsets[1:] - s.offsets[:-1]).float()[:, None]
+        err = (got.float() - ref.float()).abs()
+        assert bool((err <= 2 * n * 2 ** -24 * a + rtol * ref.float().abs() + 1e-30).all()), float(err.max())
+        assert torch.equal(got, rep) and not got[-1].any()
+
+
+_OUT_OF_RANGE = """
+import sys
+import torch
+from persia_tpu_torch.ops import RawSlot, raw_csr, raw_gather_bwd, raw_gather_fwd
+rows = torch.randn(8, 16, device="cuda")
+index = torch.tensor([[0, 8, -1, 7]], dtype=torch.int32)
+if sys.argv[1] == "fwd":
+    raw_gather_fwd([rows], [RawSlot(index.cuda())])
+else:  # a CSR that lists position 2 (index -1) among row 0's
+    order, offsets = raw_csr(index.clamp(min=0).numpy(), 9)
+    slot = RawSlot(index.cuda(), torch.from_numpy(order).cuda(), torch.from_numpy(offsets[:9]).cuda())
+    raw_gather_bwd(torch.randn(1, 1, 4, 16, device="cuda"), [rows], [slot])
+torch.cuda.synchronize()
+print("no fault")
+"""
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_raw_gather_never_reads_out_of_range(cuda, direction):
+    """An index outside [0, P) stops K6 and K7 with a device-side assert,
+    as index_select does on the card (the host raises before staging one);
+    in a process of its own, since the fault ends its CUDA context."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([root, os.environ.get("PYTHONPATH", "")]))
+    run = subprocess.run([sys.executable, "-c", _OUT_OF_RANGE, direction], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode != 0 and "no fault" not in run.stdout, run.stdout + run.stderr
+    assert "assert" in run.stderr.lower(), run.stderr[-2000:]
+
+
+def test_raw_gather_autograd_on_card(cuda):
+    from persia_tpu_torch.ops import raw_gather, raw_gather_bwd, raw_gather_fwd
+    from persia_tpu_torch.ops.raw_gather import raw_gather_bwd_reference
+
+    rows, raw = _raw_group(cuda, torch.bfloat16, 256, 10, 16, "random", seed=2)
+    leaves = [r.clone().requires_grad_(True) for r in rows]
+    before = raw_gather_fwd.launches, raw_gather_bwd.launches
+    out = raw_gather(leaves, raw)
+    torch.stack(out).float().pow(2).sum().backward()
+    torch.cuda.synchronize()
+    assert (raw_gather_fwd.launches, raw_gather_bwd.launches) == (before[0] + 1, before[1] + 1)
+    ref = raw_gather_bwd_reference(2 * torch.stack(out).detach(), rows, raw)
+    for leaf, r in zip(leaves, ref):
+        torch.testing.assert_close(leaf.grad.float(), r.float(), rtol=2 ** -7, atol=1e-3)
+
+
+def _pool_inputs(dev, dtype, b, l, dim, seed):
+    rng = np.random.default_rng(seed)
+    logits = torch.from_numpy((2 * rng.standard_normal((b, l))).astype(np.float32)).to(dev)
+    mask = rng.random((b, l)) < 0.5
+    mask[0] = False
+    mask[1] = True
+    hist = rng.standard_normal((b, l, dim)).astype(np.float32)
+    hist[~mask] = 0.0
+    d_out = _randn((b, dim), seed=seed + 1, dev=dev, dtype=dtype)
+    return logits, torch.from_numpy(mask).to(dev), torch.from_numpy(hist).to(dev, dtype), d_out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,dim", [(1024, 50, 16), (33, 7, 10), (5, 100, 64), (9, 1, 8), (3, 600, 16)])
+def test_attention_pool_kernels_match_plain(cuda, b, l, dim, dtype):
+    """K8's weights to 1e-6 relative (exp and the sums in another order),
+    its pooled rows inside their f64 envelope (an f32 sum in any order,
+    then one rounding), the plain version's too; K9's d_hist bit for bit,
+    d_logits inside its envelope; masked positions and all-masked rows
+    exactly zero."""
+    from persia_tpu_torch.ops import attention_pool_bwd, attention_pool_fwd
+    from persia_tpu_torch.ops.attention_pool import attention_pool_bwd_reference, attention_pool_fwd_reference
+    from persia_tpu_torch.testing.envelopes import attention_pool_bwd_envelope, attention_pool_fwd_envelope, outside
+
+    logits, mask, hist, d_out = _pool_inputs(cuda, dtype, b, l, dim, seed=dim)
+    before = attention_pool_fwd.launches, attention_pool_bwd.launches
+    out, w = attention_pool_fwd(logits, mask, hist)
+    d_logits, d_hist = attention_pool_bwd(d_out, mask, hist, w)
+    torch.cuda.synchronize()
+    assert (attention_pool_fwd.launches, attention_pool_bwd.launches) == (before[0] + 1, before[1] + 1)
+    ref_out, ref_w = attention_pool_fwd_reference(logits, mask, hist)
+    ref_dl, ref_dh = attention_pool_bwd_reference(d_out, mask, hist, w)
+    torch.testing.assert_close(w, ref_w, rtol=1e-6, atol=1e-12)
+    assert outside(out, attention_pool_fwd_envelope(w, hist)) == 0
+    assert outside(ref_out, attention_pool_fwd_envelope(ref_w, hist)) == 0
+    assert not out[0].any() and not d_logits[0].any() and not d_logits[~mask].any()
+    assert bool(torch.isfinite(d_logits).all()) and bool(torch.isfinite(d_hist.float()).all())
+    torch.testing.assert_close(d_hist.float(), ref_dh.float(), rtol=0, atol=0)
+    env = attention_pool_bwd_envelope(d_out, mask, hist, w)
+    assert outside(d_logits, env) == 0 and outside(ref_dl, env) == 0, float((d_logits - ref_dl).abs().max())
+
+
+def _din_cfg(hist=12):
+    from persia_tpu_torch.config import EmbeddingConfig, SlotConfig
+
+    return EmbeddingConfig(
+        slots_config={
+            "item": SlotConfig(dim=16), "cate": SlotConfig(dim=16),
+            "hist_item": SlotConfig(dim=16, embedding_summation=False, sample_fixed_size=hist),
+            "hist_cate": SlotConfig(dim=16, embedding_summation=False, sample_fixed_size=hist),
+        },
+        feature_index_prefix_bit=8,
+        feature_groups={"items": ["item", "hist_item"], "cates": ["cate", "hist_cate"]},
+    )
+
+
+@pytest.mark.parametrize("wire_dtype", [None, "bfloat16"])
+def test_din_training_on_card_matches_cpu(cuda, wire_dtype):
+    """Three DIN TrainCtx steps on Taobao-shaped batches, on the card and on
+    the CPU from the same weights (f32 compute): losses, dense parameters
+    and every PS entry agree; K6-K9 ran once a step each (K8, K9 once a raw
+    slot)."""
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.ctx import TrainCtx
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.embedding.store import EmbeddingStore
+    from persia_tpu_torch.embedding.worker import EmbeddingWorker
+    from persia_tpu_torch.models import DIN
+    from persia_tpu_torch.testing import TaobaoSynthetic
+
+    batches = list(TaobaoSynthetic(num_samples=3 * 128, item_vocab=3000, max_hist=12, seed=1).batches(128))
+    out = {}
+    for device in (cuda, "cpu"):
+        model = DIN(1, 2, 2, 16, (36,), (64, 32), compute_dtype=torch.float32, device="cpu",
+                    generator=torch.Generator().manual_seed(0))
+        stores = [EmbeddingStore(capacity=1 << 16, num_internal_shards=4, optimizer=Adagrad(lr=0.05).config,
+                                 seed=13 + r) for r in range(2)]
+        ctx = TrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3), Adagrad(lr=0.05),
+                       EmbeddingWorker(_din_cfg(), stores), _din_cfg(), device=device,
+                       wire_dtype=wire_dtype).__enter__()
+        before = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+        losses = [ctx.train_step(b)["loss"] for b in batches]
+        after = {fn.__name__: fn.launches - before[fn.__name__] for fn in ops.KERNEL_WRAPPERS}
+        out[str(device)] = (ctx, losses, stores, after)
+    (card, card_losses, card_stores, launches), (cpu, cpu_losses, cpu_stores, _) = out[str(cuda)], out["cpu"]
+    assert (launches["raw_gather_fwd"], launches["raw_gather_bwd"]) == (3, 3)
+    assert (launches["attention_pool_fwd"], launches["attention_pool_bwd"]) == (6, 6)
+    tol = 1e-4 if wire_dtype is None else 1e-3
+    np.testing.assert_allclose(card_losses, cpu_losses, rtol=0, atol=tol)
+    for k, v in cpu.model.state_dict().items():
+        np.testing.assert_allclose(card.model.state_dict()[k].cpu().numpy(), v.numpy(), rtol=0, atol=tol)
+    for a, b in zip(card_stores, cpu_stores):
+        assert a.size() == b.size()
+        for shard in b._shards:
+            for sign, (_, vec) in shard.entries.items():
+                np.testing.assert_allclose(a.get_embedding_entry(sign), vec, rtol=0, atol=tol)

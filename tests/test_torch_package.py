@@ -33,12 +33,15 @@ def _imported_roots(path: pathlib.Path):
 
 NATIVE_MODULES = ("data_loader.py", "embedding/_native_build.py", "embedding/native_store.py",
                   "embedding/native_worker.py", "jobstate.py", "checkpoint.py", "serialization.py")
+# the DIN / Avazu slice: its models, its two ops and the synthetic data
+SLICE_MODULES = ("models/din.py", "models/deepfm.py", "models/dcn.py", "models/layers.py", "ops/raw_gather.py",
+                 "ops/attention_pool.py", "testing/__init__.py", "testing/datasets.py", "testing/envelopes.py")
 
 
 def test_port_sources_import_no_jax_and_no_reference():
     files = _port_files()
     assert len(files) > 10 and all(f.exists() for f in files)
-    assert all(PORT / m in files for m in NATIVE_MODULES)
+    assert all(PORT / m in files for m in NATIVE_MODULES + SLICE_MODULES)
     bad = [
         f"{f.relative_to(ROOT)}:{line} imports {root}"
         for f in files
@@ -110,6 +113,32 @@ def test_train_ctx_raises_without_a_card():
         TrainCtx(model, opt, Adagrad(), worker, cfg)
     with pytest.raises(ValueError):
         TrainCtx(model, opt, Adagrad(), worker, cfg, device="cpu", wire_dtype="float16")
+    assert TrainCtx(model, opt, Adagrad(), worker, cfg, device="cpu").device == torch.device("cpu")
+
+
+def test_din_train_ctx_and_models_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    from persia_tpu_torch.config import EmbeddingConfig, SlotConfig
+    from persia_tpu_torch.ctx import TrainCtx
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.embedding.store import EmbeddingStore
+    from persia_tpu_torch.embedding.worker import EmbeddingWorker
+    from persia_tpu_torch.models import DCNv2, DeepFM, DIN
+
+    for build in (lambda d: DIN(1, 2, 2, device=d), lambda d: DeepFM(2, 21, device=d),
+                  lambda d: DCNv2(2, 21, device=d)):
+        with pytest.raises(RuntimeError):
+            build(None)
+    cfg = EmbeddingConfig(slots_config={
+        "item": SlotConfig(dim=16),
+        "hist_item": SlotConfig(dim=16, embedding_summation=False, sample_fixed_size=50),
+    }, feature_groups={"items": ["item", "hist_item"]})
+    worker = EmbeddingWorker(cfg, [EmbeddingStore()])
+    model = DIN(1, 1, 1, device="cpu")
+    opt = torch.optim.Adam(model.parameters())
+    with pytest.raises(RuntimeError):
+        TrainCtx(model, opt, Adagrad(), worker, cfg)
     assert TrainCtx(model, opt, Adagrad(), worker, cfg, device="cpu").device == torch.device("cpu")
 
 

@@ -55,7 +55,7 @@ from persia_tpu_torch.embedding import optim as toptim
 from persia_tpu_torch.embedding.native_store import create_store
 from persia_tpu_torch.embedding.worker import EmbeddingWorker
 from persia_tpu_torch.models import DLRM
-from persia_tpu_torch.weights import dlrm_state_dict_from_flax, seeded_flax_params_like, train_state_to_flax_bytes
+from persia_tpu_torch.weights import seeded_flax_params_like, state_dict_from_flax, train_state_to_flax_bytes
 
 DIM, BOTTOM, TOP = 16, (32, 16), (64, 32)
 STEPS, K, KILL_AT = 12, 4, 9
@@ -93,7 +93,7 @@ def _stores(backend, n=2):
 
 def _ctx(stores, sparse="adagrad", dynamic=False, wire_dtype="bfloat16", compute=torch.bfloat16):
     model = DLRM(13, 5, DIM, BOTTOM, TOP, compute_dtype=compute, device="cpu")
-    model.load_state_dict(dlrm_state_dict_from_flax(seeded_flax_params_like(model, 11)))
+    model.load_state_dict(state_dict_from_flax(model, seeded_flax_params_like(model, 11)))
     worker = EmbeddingWorker(_cfg(tcfg), stores, device_pooling=True)
     return TrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3), SPARSE[sparse](toptim), worker,
                     _cfg(tcfg), device="cpu", wire_dtype=wire_dtype, dynamic_loss_scale=dynamic,

@@ -25,7 +25,7 @@ from persia_tpu_torch.embedding.store import EmbeddingStore
 from persia_tpu_torch.embedding.worker import EmbeddingWorker
 from persia_tpu_torch.models import DLRM
 from persia_tpu_torch.serving.engine import InferenceEngine
-from persia_tpu_torch.weights import dlrm_state_dict_from_flax, seeded_flax_params_like
+from persia_tpu_torch.weights import seeded_flax_params_like, state_dict_from_flax
 
 DIM, N_CAT, BOTTOM, TOP = 16, 4, (32, 16), (64, 32)
 
@@ -63,7 +63,7 @@ def _pair(device_pooling, compute_dtype):
     each store warmed by the same admitting lookup."""
     model = DLRM(13, N_CAT + 1, DIM, BOTTOM, TOP, compute_dtype=compute_dtype, device="cpu")
     params = seeded_flax_params_like(model, 11)
-    model.load_state_dict(dlrm_state_dict_from_flax(params))
+    model.load_state_dict(state_dict_from_flax(model, params))
     warm = _batch(100, b=64)
 
     jw = JaxWorker(_cfg(jcfg), _stores(JaxStore, JaxAdagrad(lr=0.1).config), device_pooling=device_pooling)

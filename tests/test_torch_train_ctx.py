@@ -44,7 +44,7 @@ from persia_tpu_torch.embedding import optim as toptim
 from persia_tpu_torch.embedding.store import EmbeddingStore
 from persia_tpu_torch.embedding.worker import EmbeddingWorker
 from persia_tpu_torch.models import DLRM
-from persia_tpu_torch.weights import adam_state_from_optax, dlrm_state_dict_from_flax, seeded_flax_params_like
+from persia_tpu_torch.weights import adam_state_from_optax, seeded_flax_params_like, state_dict_from_flax
 
 DIM, BOTTOM, TOP, STEPS = 16, (32, 16), (64, 32), 5
 
@@ -89,7 +89,7 @@ def _pair(device_pooling=True, wire_dtype=None, compute=torch.float32, sparse="a
     sparse_opt = {"adagrad": lambda m: m.Adagrad(lr=0.1), "adam": lambda m: m.Adam(lr=0.01)}[sparse]
     model = DLRM(13, 5, DIM, BOTTOM, TOP, compute_dtype=compute, device="cpu")
     params = seeded_flax_params_like(model, 11)
-    model.load_state_dict(dlrm_state_dict_from_flax(params))
+    model.load_state_dict(state_dict_from_flax(model, params))
     kw = dict(capacity=1 << 16, num_internal_shards=4, seed=3)
     extra = dict(wire_dtype=wire_dtype, dynamic_loss_scale=dynamic, grad_scale=grad_scale,
                  loss_scale_growth_interval=2)
@@ -127,7 +127,7 @@ def _step_both(jctx, tctx, seed, tol):
 
 
 def _compare_final(jctx, tctx, dense_tol, entry_tol):
-    ref = dlrm_state_dict_from_flax(jax.tree.map(np.asarray, jctx.state.params))
+    ref = state_dict_from_flax(tctx.model, jax.tree.map(np.asarray, jctx.state.params))
     for k, v in tctx.model.state_dict().items():
         np.testing.assert_allclose(v.numpy(), ref[k].numpy(), err_msg=k, **dense_tol)
     jrouter, trouter = jctx.worker.lookup_router, tctx.worker.lookup_router
@@ -190,9 +190,9 @@ def test_train_ctx_resumes_from_a_jax_train_state():
         _step_both(jctx, tctx, step, TIGHT)
     jstate = jax.tree.map(np.asarray, jctx.state)
     adam = jstate.opt_state[0]
-    tctx.model.load_state_dict(dlrm_state_dict_from_flax(jstate.params))
+    tctx.model.load_state_dict(state_dict_from_flax(tctx.model, jstate.params))
     opt = tctx.state.optimizer
-    opt.state.update(adam_state_from_optax(list(tctx.model.parameters()), adam.mu, adam.nu, adam.count))
+    opt.state.update(adam_state_from_optax(tctx.model, adam.mu, adam.nu, adam.count))
     assert all(float(s["step"]) == 2 for s in opt.state.values())
     for step in range(2, STEPS):
         _step_both(jctx, tctx, step, TIGHT)

@@ -17,7 +17,7 @@ from persia_tpu.parallel import train_step as jts
 from persia_tpu_torch.models import DLRM
 from persia_tpu_torch.ops.embedding_pool import pool_csr
 from persia_tpu_torch.parallel import train_step as tts
-from persia_tpu_torch.weights import dlrm_state_dict_from_flax, seeded_flax_params_like
+from persia_tpu_torch.weights import seeded_flax_params_like, state_dict_from_flax
 
 B, DIM, BOTTOM, TOP = 32, 16, (32, 16), (64, 32)
 
@@ -66,7 +66,7 @@ def _jax_batch(h):
 def _pair(compute, dynamic=False, growth_interval=2000):
     model = DLRM(13, 4, DIM, BOTTOM, TOP, compute_dtype=compute, device="cpu")
     params = seeded_flax_params_like(model, 7)
-    model.load_state_dict(dlrm_state_dict_from_flax(params))
+    model.load_state_dict(state_dict_from_flax(model, params))
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)
     kw = dict(dynamic_loss_scale=dynamic, growth_interval=growth_interval)
     tstate = tts.init_train_state(model, opt, loss_scale_init=2.0 ** 15 if dynamic else None)
@@ -86,7 +86,7 @@ def _pair(compute, dynamic=False, growth_interval=2000):
 
 
 def _params_close(model, jparams, **tol):
-    ref = dlrm_state_dict_from_flax(jax.tree.map(np.asarray, jparams))
+    ref = state_dict_from_flax(model, jax.tree.map(np.asarray, jparams))
     for k, v in model.state_dict().items():
         np.testing.assert_allclose(v.numpy(), ref[k].numpy(), err_msg=k, **tol)
 
