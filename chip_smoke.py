@@ -2,6 +2,11 @@
 """Drive the PyTorch/CUDA port (``persia_tpu_torch``) on one card.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
+    python3 chip_smoke.py --ab ROOT OUT.npz     # K2, K7-K9 of the tree ROOT
+    python3 chip_smoke.py --ab-compare A.npz B.npz ...
+
+(``--ab``: see ``ab_run``; it compares two trees' kernels, parent and
+change, in one call.)
 
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
@@ -10,7 +15,8 @@ result line:
    sm_90a); the flash-attention kernels' SASS must hold wgmma (HGMMA) and
    TMA loads (UTMALDG), the f32 one without spills; K5's kernels and the
    routing kernel on the dim-16 f32 path without spills; K6-K9's kernels
-   (raw gather, segment sum, attention pool) reported;
+   (raw gather and its scatter-add, attention pool) and K2's two passes
+   reported;
 2. flash_attention on the card vs its plain version (dense f32 softmax):
    the bf16 route (wgmma) and the f32 route (split TF32 on wgmma, its
    pre-pass held bit for bit to ``tf32_split_planes_reference``) at every
@@ -39,9 +45,11 @@ result line:
    slots of 26,000 and 9,000 distinct rows), both dtypes: K6
    ``raw_gather_fwd`` bit for bit; K7 ``raw_gather_bwd`` within twice the
    f32 sum-order bound and one rounding of its plain version (index_add_),
-   bit for bit twice and against its schedule (``plans.pool_bwd_model``),
-   on Taobao-length histories with an empty and a full one and on every
-   position on one row, the pad row zero; K8 ``attention_pool_fwd``
+   bit for bit twice and against its schedule (``plans.raw_bwd_model``),
+   on Taobao-length histories with an empty and a full one (where no row
+   is long: also bit for bit its plain version run on the CPU) and on
+   every position on one row (long rows), the pad row zero; K8
+   ``attention_pool_fwd``
    (weights to 1e-6, the pooled rows inside their f64 envelope: an f32 sum
    in any order, then one rounding) and K9 ``attention_pool_bwd`` (d_hist
    bit for bit, d_logits inside its envelope), kernel and plain version
@@ -136,8 +144,9 @@ result line:
    and every position on one row); the routing pass against its bound and
    its plain version, ``torch.sort`` beside both; K6-K9 at the DIN path's
    own step (K6 beside ``torch.index_select``, K7 beside ``index_add_``
-   with the longest segments and every position on one row, K8 beside the
-   softmax + bmm composite), warm and cold;
+   with their ratio, the longest segments, every position on one row and
+   its kernels a call in the device trace, K8 beside the softmax + bmm
+   composite), warm and cold;
    and (5b) the flash-attention backward, a dense recompute, beside SDPA's
    backward.
 
@@ -396,11 +405,12 @@ KERNEL_NAMES = ("fa_fwd_wgmma_kernel", "fa_fwd_tf32x3_kernel", "tf32_split_kerne
                 "gather_pool_fwd_kernel", "segment_sum_chunks_kernel", "segment_sum_rows_kernel",
                 "fused_gather_kernel", "update_keys_kernel", "sparse_update_segments_kernel",
                 "sparse_update_long_kernel", "sparse_update_short_kernel",
-                "raw_gather_fwd_kernel", "attention_pool_fwd_kernel", "attention_pool_bwd_kernel")
-# the DIN path's kernels (K6-K9; K7 is the segment-sum's slot-major
-# instance, the ones whose last template argument is true)
-DIN_KERNEL_NAMES = ("raw_gather_fwd_kernel", "segment_sum_chunks_kernel", "segment_sum_rows_kernel",
-                    "attention_pool_fwd_kernel", "attention_pool_bwd_kernel")
+                "raw_gather_fwd_kernel", "raw_gather_bwd_kernel", "attention_pool_fwd_kernel",
+                "attention_pool_bwd_kernel")
+# the DIN path's kernels (K6-K9) and K2's two passes
+DIN_KERNEL_NAMES = ("raw_gather_fwd_kernel", "raw_gather_bwd_kernel", "attention_pool_fwd_kernel",
+                    "attention_pool_bwd_kernel")
+K2_KERNEL_NAMES = ("segment_sum_chunks_kernel", "segment_sum_rows_kernel")
 # K5's kernels, and the routing's: on the dim-16 f32 path none may spill
 K5_KERNELS = ("sparse_update_segments_kernel", "sparse_update_long_kernel", "sparse_update_short_kernel")
 K5_DIM16 = ("sparse_update_segments_kernel", "sparse_update_long_kernel<f32,4>",
@@ -500,8 +510,10 @@ def phase_build():
         raise SystemExit(f"the f32 flash-attention kernel spills: {spills}")
     if _kernels.build_log:
         din = {k: v for k, v in summary.items() if k.split("<")[0] in DIN_KERNEL_NAMES}
-        print(f"  K6-K9 (raw gather, segment sum, attention pool): {json.dumps(din)}", flush=True)
-        missing = [n for n in DIN_KERNEL_NAMES if not any(k.split("<")[0] == n for k in din)]
+        print(f"  K6-K9 (raw gather and its scatter-add, attention pool): {json.dumps(din)}", flush=True)
+        k2 = {k: v for k, v in summary.items() if k.split("<")[0] in K2_KERNEL_NAMES}
+        print(f"  K2 (the gather-pool's two-pass segment sum): {json.dumps(k2)}", flush=True)
+        missing = [n for n in DIN_KERNEL_NAMES + K2_KERNEL_NAMES if not any(k.split("<")[0] == n for k in summary)]
         if missing:
             raise SystemExit(f"the build reported nothing for {missing}")
         k5 = {k: summary.get(k, {}).get("spill_bytes") for k in K5_DIM16}
@@ -2097,7 +2109,8 @@ def raw_inputs(dev, dtype, seed, case, batch=DIN_BATCH, hist=DIN_HIST, distinct=
     dim 16 (P = round_up_pow2(d + 1), rows past d zero) and a (B, L) index
     with Taobao's history lengths (1..L valid positions, pads at P - 1),
     sample 0 with no history and sample 1 with a full one ("taobao"), or
-    every position on one row ("one_row"); with each slot's CSR."""
+    every position on one row ("one_row"); with each slot's CSR (that of
+    the package imported, ``ops.raw_csr``'s arrays in order)."""
     import torch
 
     from persia_tpu_torch import ops
@@ -2116,9 +2129,8 @@ def raw_inputs(dev, dtype, seed, case, batch=DIN_BATCH, hist=DIN_HIST, distinct=
             lengths[0], lengths[1] = 0, hist
             index = np.where(np.arange(hist)[None, :] < lengths[:, None], rng.integers(0, d, (batch, hist)),
                              p - 1).astype(np.int32)
-        order, offsets = ops.raw_csr(index, p)
         rows.append(torch.from_numpy(r).to(dev, dtype))
-        slots.append(ops.RawSlot(*(torch.from_numpy(a).to(dev) for a in (index, order, offsets))))
+        slots.append(ops.RawSlot(*(torch.from_numpy(a).to(dev) for a in (index, *ops.raw_csr(index, p)))))
     return rows, slots
 
 
@@ -2132,6 +2144,19 @@ def raw_bwd_tolerance(grad, rows, slots, dtype):
     rtol = 1e-6 if dtype == np.float32 else 2 ** -8
     return rtol, [2 * (s.offsets[1:] - s.offsets[:-1]).float()[:, None] * 2 ** -24 * a
                   for s, a in zip(slots, abs_sums)]
+
+
+def raw_schedule_bits(grad, slots, dtype):
+    """K7's sums by ``plans.raw_bwd_model`` (its order, in numpy) for each
+    slot, rounded to ``dtype``, as bits on the CPU."""
+    import torch
+
+    from persia_tpu_torch.ops import plans
+
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    return [torch.from_numpy(plans.raw_bwd_model(g.reshape(-1, g.shape[-1]).float().cpu().numpy(),
+                                                 s.order.cpu().numpy(), s.offsets.cpu().numpy())).to(dtype).view(bits)
+            for g, s in zip(grad, slots)]
 
 
 def att_inputs(dev, dtype, seed, batch=DIN_BATCH, hist=DIN_HIST):
@@ -2157,7 +2182,6 @@ def phase_din_kernels(dev):
     import torch
 
     from persia_tpu_torch import ops
-    from persia_tpu_torch.ops import plans
     from persia_tpu_torch.ops.attention_pool import attention_pool_bwd_reference, attention_pool_fwd_reference
     from persia_tpu_torch.ops.raw_gather import raw_gather_bwd_reference, raw_gather_fwd_reference
     from persia_tpu_torch.testing.envelopes import attention_pool_bwd_envelope, attention_pool_fwd_envelope
@@ -2191,18 +2215,28 @@ def phase_din_kernels(dev):
             print(f"  {label} bwd twice: bitwise {'ok' if twice else 'FAIL'}", flush=True)
             if not twice:
                 raise SystemExit("raw_gather_bwd is not deterministic")
-            if case == "taobao":  # the kernel's order, by plans.pool_bwd_model, for the category slot
-                slot, got = slots[1], grads[1]
-                order = slot.order.cpu().numpy()[:int(slot.offsets[-1])]  # the live positions
-                plan = plans.pool_plan(slot.order.numel(), 1, DIN_DIM, got.element_size(), got.shape[0], 1)
-                want = plans.pool_bwd_model(grad[1].reshape(-1, DIN_DIM).float().cpu().numpy()[order],
-                                            slot.index.cpu().numpy().reshape(-1)[order], got.shape[0], plan)
-                bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
-                sched = torch.equal(got.cpu().view(bits), torch.from_numpy(want).to(dtype).view(bits))
-                print(f"  {label} bwd vs its schedule (plans.pool_bwd_model): bitwise "
-                      f"{'ok' if sched else 'FAIL'}", flush=True)
-                if not sched:
-                    raise SystemExit("raw_gather_bwd does not follow its schedule")
+            # K7's own order (plans.raw_bwd_model), both slots; where no row
+            # is long (the Taobao histories) that is the plain version's
+            # stream order, run on the CPU; the pad row zero
+            bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            sched = all(torch.equal(got.cpu().view(bits), want)
+                        for got, want in zip(grads, raw_schedule_bits(grad, slots, dtype)))
+            print(f"  {label} bwd vs its schedule (plans.raw_bwd_model): bitwise {'ok' if sched else 'FAIL'}",
+                  flush=True)
+            if not sched:
+                raise SystemExit("raw_gather_bwd does not follow its schedule")
+            if case == "taobao":
+                if any(s.long_chunks.numel() for s in slots):
+                    raise SystemExit("the Taobao histories were to have no long row")
+                cpu = raw_gather_bwd_reference(grad.cpu(), [r.cpu() for r in rows],
+                                               [ops.RawSlot(*(t.cpu() for t in s)) for s in slots])
+                plain = all(torch.equal(a.cpu().view(bits), b.view(bits)) for a, b in zip(grads, cpu))
+                print(f"  {label} bwd vs the plain version on the CPU: bitwise {'ok' if plain else 'FAIL'}",
+                      flush=True)
+                if not plain:
+                    raise SystemExit("raw_gather_bwd disagrees with its plain version's stream order")
+            if any(bool(got[-1].any()) for got in grads):
+                raise SystemExit("raw_gather_bwd wrote the pad row")
         # the attention pool: weights to 1e-6 (exp and sums in another
         # order); the pooled rows and d_logits inside their f64 envelopes
         # (persia_tpu_torch.testing.envelopes: an f32 sum in any order, then
@@ -2925,7 +2959,7 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused, din
 
     raw_e = [e for e in din_batch["emb"] if "mask" in e]
     rrows = [e["distinct"] for e in raw_e]
-    rslots = [ops.RawSlot(e["index"], e["order"], e["offsets"]) for e in raw_e]
+    rslots = [ops.RawSlot(e["index"], e["order"], e["offsets"], e["long_chunks"]) for e in raw_e]
     gathered = ops.raw_gather_fwd(rrows, rslots)
     n_slots, bsz, hist_len, dim = gathered.shape
     elem = gathered.element_size()
@@ -2991,15 +3025,24 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused, din
         library=lambda i, gr: acc_lib.index_add_(0, i, gr),
         make_lib_copy=lambda: (flat_live.clone(), rgrad_live.clone()), lib_bytes=nbytes([flat_live, rgrad_live]),
     ))
-    # K7 with every position of both slots on one row, and its two passes apart
+    # K7 with every position of both slots on one row (long rows: a block a
+    # chunk), and the device's events over 20 calls by name (a kernel a
+    # call, no memset; the trace may miss some events, so they are counted
+    # by name, not held to 20)
     one_rows, one_slots = raw_inputs(dev, gathered.dtype, SEED, "one_row", batch=bsz, hist=hist_len,
                                      distinct=[r.shape[0] - 1 for r in rrows])
-    rows[-1]["one_row_ms"] = min(graph_ms(lambda: ops.raw_gather_bwd(rgrad, one_rows, one_slots)) for _ in range(2))
-    _, top, _ = device_busy_ms(lambda _: ops.raw_gather_bwd(rgrad, rrows, rslots), [None] * 20)
-    rows[-1]["pass_ms"] = {re.search(r"segment_sum_\w+", k).group(0): v for k, v in top.items() if "segment_sum" in k}
+    k7 = rows[-1]
+    k7["one_row_ms"] = min(graph_ms(lambda: ops.raw_gather_bwd(rgrad, one_rows, one_slots)) for _ in range(2))
+    _, top, runs = device_busy_ms(lambda _: ops.raw_gather_bwd(rgrad, rrows, rslots), [None] * 20)
+    k7["trace_20_calls"] = {"raw_gather_bwd_kernel": runs["raw_gather_bwd_kernel"],
+                            "segment_sum": runs["segment_sum_chunks_kernel"] + runs["segment_sum_rows_kernel"],
+                            "device_events_ms_a_call": top}
+    k7["index_add_over_kernel"] = {"warm": k7["library_ms"] / k7["ms"], "cold": k7["library_cold_ms"] / k7["cold_ms"]}
     print(f"  raw_gather_bwd: live positions {live} of {bsz * hist_len} a slot, longest segment {longest}; "
-          f"one row of {bsz * hist_len} positions a slot {rows[-1]['one_row_ms']:.5f} ms; "
-          f"passes {rows[-1]['pass_ms']}", flush=True)
+          f"warm {k7['ms']:.5f} ms, cold {k7['cold_ms']:.5f} ms; index_add_ {k7['library_ms']:.5f} warm, "
+          f"{k7['library_cold_ms']:.5f} cold (index_add_ / K7: {k7['index_add_over_kernel']['warm']:.3f} warm, "
+          f"{k7['index_add_over_kernel']['cold']:.3f} cold); one row of {bsz * hist_len} positions a slot "
+          f"{k7['one_row_ms']:.5f} ms; 20 calls in the trace: {k7['trace_20_calls']}", flush=True)
 
     # K8, K9: the step's masks and history rows in bf16; a masked position's
     # row is not needed (bound: the valid positions' rows)
@@ -3056,12 +3099,128 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused, din
     return rows
 
 
+def ab_run(root: str, out_path: str) -> int:
+    """``--ab ROOT OUT.npz``: K2, K7, K8 and K9 of the package in the
+    checkout ROOT (another commit's tree, unpacked), on this script's
+    seeded inputs: phase 3c's for K7 (both dtypes, the Taobao histories
+    and every position on one row), K8 and K9 (both dtypes), phase 3's
+    zipf(1.2) bench case for K2. Their outputs' bits go to OUT.npz; their
+    graph-replayed times, warm and cold (K7 beside ``index_add_`` over the
+    live positions, at f32; K8 and K9 at bf16), are printed as one JSON
+    line. Run it over two trees in turns (A, B, B, A) in one call, then
+    ``--ab-compare``."""
+    sys.path.insert(0, str(pathlib.Path(root).resolve()))
+    import torch
+
+    import persia_tpu_torch
+    from persia_tpu_torch import ops
+
+    from persia_tpu_torch.ops import _kernels
+
+    dev = torch.device("cuda", 0)
+    pkg = str(pathlib.Path(persia_tpu_torch.__file__).resolve().parent)
+    _kernels.library()
+    if _kernels.build_log:  # registers, shared memory and spills of this tree's K2, K7-K9
+        summary = build_summary(_kernels.build_log, _kernels.library_path())
+        print(json.dumps({"ab_build": {k: v for k, v in summary.items()
+                                       if k.split("<")[0] in DIN_KERNEL_NAMES + K2_KERNEL_NAMES
+                                       or k.startswith("segment_sum")}, "package": pkg}), flush=True)
+    as_bits = lambda t: t.contiguous().view(torch.uint8).cpu().numpy()  # noqa: E731
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    bits, times = {"root": np.array(str(pathlib.Path(root).resolve()))}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        logits, mask, hist, d_out = att_inputs(dev, dtype, SEED + 3)
+        out, w = ops.attention_pool_fwd(logits, mask, hist)
+        d_logits, d_hist = ops.attention_pool_bwd(d_out, mask, hist, w)
+        bits.update({f"att_fwd_out_{name}": as_bits(out), f"att_fwd_w_{name}": as_bits(w),
+                     f"att_bwd_dlogits_{name}": as_bits(d_logits), f"att_bwd_dhist_{name}": as_bits(d_hist)})
+        if dtype == torch.bfloat16:
+            copy = nbytes([logits, mask, hist])
+            times["attention_pool_fwd"] = {
+                "warm_ms": [graph_ms(lambda: ops.attention_pool_fwd(logits, mask, hist)) for _ in range(2)],
+                "cold_ms": [cold_ms(lambda lg, m, h: ops.attention_pool_fwd(lg, m, h),
+                                    lambda: (logits.clone(), mask.clone(), hist.clone()), copy)["ms"]
+                            for _ in range(2)]}
+            times["attention_pool_bwd"] = {
+                "warm_ms": [graph_ms(lambda: ops.attention_pool_bwd(d_out, mask, hist, w)) for _ in range(2)],
+                "cold_ms": [cold_ms(lambda d, m, h, w_: ops.attention_pool_bwd(d, m, h, w_),
+                                    lambda: (d_out.clone(), mask.clone(), hist.clone(), w.clone()),
+                                    nbytes([d_out, mask, hist, w]))["ms"] for _ in range(2)]}
+    g = torch.Generator(device="cpu").manual_seed(SEED + 9)
+    for dtype in (torch.bfloat16, torch.float32):
+        for case in ("taobao", "one_row"):
+            rows, slots = raw_inputs(dev, dtype, SEED + len(case), case)
+            grad = torch.randn((len(rows), DIN_BATCH, DIN_HIST, DIN_DIM), generator=g).to(dev, dtype)
+            for i, r in enumerate(ops.raw_gather_bwd(grad, rows, slots)):
+                bits[f"k7_{case}_{str(dtype)[6:]}_{i}"] = as_bits(r)
+            if dtype == torch.float32:
+                key = "raw_gather_bwd" if case == "taobao" else "raw_gather_bwd_one_row"
+                times[key] = {"warm_ms": [graph_ms(lambda: ops.raw_gather_bwd(grad, rows, slots))
+                                          for _ in range(2)]}
+            if dtype == torch.float32 and case == "taobao":
+                clone = lambda: (grad.clone(), [r.clone() for r in rows],  # noqa: E731
+                                 [ops.RawSlot(*(t.clone() for t in s)) for s in slots])
+                times[key]["cold_ms"] = [cold_ms(lambda gr, r, sl: ops.raw_gather_bwd(gr, r, sl), clone,
+                                                 nbytes([grad, *rows, *(t for s in slots for t in s)]))["ms"]
+                                         for _ in range(2)]
+                # index_add_ of the live positions' gradients into the slots' rows side by side
+                starts = np.cumsum([0] + [r.shape[0] for r in rows[:-1]])
+                flat = torch.cat([s.index.reshape(-1).long() + int(o) for s, o in zip(slots, starts)])
+                live = torch.cat([s.index.reshape(-1) != r.shape[0] - 1 for s, r in zip(slots, rows)])
+                idx, src = flat[live], grad.reshape(-1, DIN_DIM)[live]
+                acc = torch.zeros((sum(r.shape[0] for r in rows), DIN_DIM), device=dev, dtype=dtype)
+                times["index_add_"] = {
+                    "warm_ms": [graph_ms(lambda: acc.index_add_(0, idx, src)) for _ in range(2)],
+                    "cold_ms": [cold_ms(lambda i, x: acc.index_add_(0, i, x), lambda: (idx.clone(), src.clone()),
+                                        nbytes([idx, src]))["ms"] for _ in range(2)]}
+    rows, slots = pool_inputs(dev, torch.bfloat16, BATCH, [(1500, 1, False)] * N_SLOTS, seed=N_SLOTS, ids="zipf")
+    pooled = ops.gather_pool_fwd(rows, slots)
+    gpool = torch.randn(pooled.shape, generator=g).to(dev)
+    for i, r in enumerate(ops.gather_pool_bwd(gpool, rows, slots)):
+        bits[f"k2_zipf_{i}"] = as_bits(r)
+    times["gather_pool_bwd"] = {
+        "warm_ms": [graph_ms(lambda: ops.gather_pool_bwd(gpool, rows, slots)) for _ in range(2)],
+        "cold_ms": [cold_ms(lambda gr: ops.gather_pool_bwd(gr, rows, slots), lambda: (gpool.clone(),),
+                            nbytes([gpool]))["ms"] for _ in range(2)]}
+    torch.cuda.synchronize()
+    np.savez(out_path, **bits)
+    print(json.dumps({"ab": {"root": root, "package": pkg, "times": times}, "card": card_line()}), flush=True)
+    return 0
+
+
+def ab_compare(paths) -> int:
+    """``--ab-compare A.npz B.npz ...``: K2's, K8's and K9's bits equal in
+    every file, K7's in the files of one tree; prints which differ."""
+    runs = [dict(np.load(p)) for p in paths]
+    report, ok = {}, True
+    for key in sorted(runs[0]):
+        if key == "root":
+            continue
+        same_tree = key.startswith("k7_")
+        groups = {}
+        for run in runs:
+            groups.setdefault(str(run["root"]) if same_tree else "all", []).append(run[key])
+        equal = all(np.array_equal(a, group[0]) for group in groups.values() for a in group)
+        report[key] = "bitwise" if equal else "DIFFER"
+        ok &= equal
+    k7_trees = {str(r["root"]) for r in runs}
+    if len(k7_trees) == 2:  # K7's bits between the trees: reported, not required
+        a, b = ({k: v for k, v in r.items() if k.startswith("k7_")} for r in
+                (next(r for r in runs if str(r["root"]) == t) for t in sorted(k7_trees)))
+        report["k7_between_trees"] = {k: bool(np.array_equal(a[k], b[k])) for k in sorted(a)}
+    print(json.dumps({"ab_compare": report, "files": list(paths), "ok": ok}), flush=True)
+    return 0 if ok else 1
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--ab"]:
+        return ab_run(sys.argv[2], sys.argv[3])
     import persia_tpu_torch  # noqa: F401  (fails where the package is absent)
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain versions in full f32
@@ -3112,4 +3271,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ab_compare(sys.argv[2:]) if sys.argv[1:2] == ["--ab-compare"] else main())

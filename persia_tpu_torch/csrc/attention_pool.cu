@@ -24,15 +24,19 @@
 // interests; the backward reads as much and writes d_hist (1.6 MB) and
 // d_logits. A few operations per byte.
 //
-// Design: one warp per sample row; a block holds a few. The warp's lanes
-// walk the row's positions for the max, the sum and the weights (shuffle
-// trees, so two runs give the same bits); the rounded weights (and, in the
-// backward, g) go to shared memory for the pooling, where a lane group
-// takes one position's row with 16-byte loads (8 bf16 or 4 f32 columns a
-// lane) and the groups' partial sums meet in a shuffle tree. Positions
-// whose mask is off are not loaded in the forward: their weight is 0.
-// Geometry comes from ops/plans.py::attention_pool_plan and is checked
-// here.
+// Design: one warp per sample row; a block holds a few. The forward issues
+// every global load at its top: a lane's logits and mask bytes (positions
+// lane + 32 i, kept in registers for the max, the sum and the weights),
+// and, as soon as the mask is known (a ballot gives every lane the row's
+// mask), the 16-byte history rows of its lane group's positions (the
+// first kAhead; DIN's 50 positions are at most 7 a group), never a masked
+// one, which land while the softmax runs. The max and the sum are
+// shuffle trees, so two runs give the same bits; the rounded weights stay
+// in registers and reach the pooling lanes by shuffle. In the pooling a
+// lane group takes one position's row (8 bf16 or 4 f32 columns a lane)
+// and the groups' partial sums meet in a shuffle tree. The backward keeps
+// its rounded weights and g in shared memory. Geometry comes from
+// ops/plans.py::attention_pool_plan and is checked here.
 
 #include <cmath>
 #include <cstdint>
@@ -62,66 +66,124 @@ __device__ __forceinline__ float round_as(float x, __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-template <typename T, int VEC>
+// a[k] for a warp-uniform k (0 past the end), without indexing registers
+template <typename V, int N>
+__device__ __forceinline__ V pick(const V (&a)[N], int k) {
+  V r = V(0);
+#pragma unroll
+  for (int i = 0; i < N; ++i) r = i == k ? a[i] : r;
+  return r;
+}
+
+// PL: the positions a lane holds for the softmax, lane + 32 i for i < PL
+// (L <= 32 * PL, at most kMaxPerLane); kAhead: the history rows a lane has
+// in flight
+constexpr int kMaxPerLane = 48;  // 1536 positions: the longest row the plan takes (the backward's smem)
+constexpr int kAhead = 8;
+
+template <typename T, int VEC, int PL>
 __global__ void __launch_bounds__(kMaxPoolThreads)
 attention_pool_fwd_kernel(const float* __restrict__ logits, const uint8_t* __restrict__ mask,
                           const T* __restrict__ hist, T* __restrict__ out, float* __restrict__ weights,
                           int batch, int L, int dim, int lanes_log2) {
-  extern __shared__ float smem[];  // per warp: the L rounded weights
+  using U = typename RowUnit<T, VEC>::type;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= batch) return;  // the whole warp
-  float* w_round = smem + warp * L;
   const float* lg = logits + 1LL * b * L;
   const uint8_t* mk = mask + 1LL * b * L;
   float* w_out = weights + 1LL * b * L;
 
+  // the lane's mask bytes and logits, loaded once; the row's mask in every
+  // lane as a word per 32 positions
+  float x[PL];
+  unsigned bits[PL];
+#pragma unroll
+  for (int i = 0; i < PL; ++i) {
+    const int l = lane + 32 * i;
+    const bool on = l < L && __ldg(mk + l);
+    x[i] = l < L ? __ldg(lg + l) : 0.f;
+    bits[i] = __ballot_sync(kFull, on);
+  }
+
+  // pooling geometry: lane group g (2^lanes_log2 lanes, one position's
+  // row) takes positions g + groups * q; those of one q lie in one mask
+  // word, q >> lanes_log2. lanes_log2 makes the vectors' count a multiple
+  // of the group's lanes, so every lane runs the same trips
+  const int groups = 32 >> lanes_log2;
+  const int g = lane >> lanes_log2;
+  const int v0 = lane & ((1 << lanes_log2) - 1);
+  const int vecs = dim / VEC;
+  const int walk = (L + groups - 1) / groups;  // positions a group walks
+  const T* h = hist + 1LL * b * L * dim;
+  U rows[kAhead];
+  auto request = [&](int q0, int v) {  // the valid rows of positions q0.., never a masked one
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) {
+      const int l = g + groups * (q0 + i);
+      if ((pick(bits, (q0 + i) >> lanes_log2) >> (l & 31)) & 1u) {
+        rows[i] = __ldg(reinterpret_cast<const U*>(h + 1LL * l * dim) + v);
+      }
+    }
+  };
+  request(0, v0);  // in flight while the softmax runs
+
   float mx = -INFINITY;
   bool any = false;
-  for (int l = lane; l < L; l += 32) {
-    if (mk[l]) {
+#pragma unroll
+  for (int i = 0; i < PL; ++i) {
+    if ((bits[i] >> lane) & 1u) {
       any = true;
-      mx = fmaxf(mx, lg[l]);
+      mx = fmaxf(mx, x[i]);
     }
   }
   any = __any_sync(kFull, any);
   mx = warp_max(mx);
   if (!any) mx = 0.f;  // x is 0 everywhere
   float sum = 0.f;
-  for (int l = lane; l < L; l += 32) {
-    const float x = any ? (mk[l] ? lg[l] : -INFINITY) : 0.f;
-    sum = __fadd_rn(sum, expf(x - mx));
+#pragma unroll
+  for (int i = 0; i < PL; ++i) {
+    if (lane + 32 * i < L) {
+      const float xi = any ? (((bits[i] >> lane) & 1u) ? x[i] : -INFINITY) : 0.f;
+      sum = __fadd_rn(sum, expf(xi - mx));
+    }
   }
   sum = warp_sum(sum);
-  for (int l = lane; l < L; l += 32) {
-    const float x = any ? (mk[l] ? lg[l] : -INFINITY) : 0.f;
-    const float w = mk[l] ? __fdiv_rn(expf(x - mx), sum) : 0.f;
-    w_out[l] = w;
-    w_round[l] = round_as(w, static_cast<T*>(nullptr));
+  float w_round[PL];  // the lane's positions' weights, rounded to T
+#pragma unroll
+  for (int i = 0; i < PL; ++i) {
+    const int l = lane + 32 * i;
+    w_round[i] = 0.f;
+    if (l < L) {
+      const bool on = (bits[i] >> lane) & 1u;
+      const float xi = any ? (on ? x[i] : -INFINITY) : 0.f;
+      const float w = on ? __fdiv_rn(expf(xi - mx), sum) : 0.f;
+      w_out[l] = w;
+      w_round[i] = round_as(w, static_cast<T*>(nullptr));
+    }
   }
-  __syncwarp();
 
-  // pooling: lane group g (2^lanes_log2 lanes, one position's row) walks
-  // positions g, g + groups, ...; lanes_log2 makes the vectors' count a
-  // multiple of the group's lanes, so every lane runs the same trips
-  const int lanes = 1 << lanes_log2;
-  const int groups = 32 >> lanes_log2;
-  const int g = lane >> lanes_log2;
-  const int vecs = dim / VEC;
-  const T* h = hist + 1LL * b * L * dim;
-  for (int v = lane & (lanes - 1); v < vecs; v += lanes) {
+  // pooling: each group's positions in order, their weights by shuffle
+  for (int v = v0; v < vecs; v += 1 << lanes_log2) {
     float acc[VEC];
 #pragma unroll
     for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
-    for (int l = g; l < L; l += groups) {
-      if (!mk[l]) continue;
-      float x[VEC];
-      load_f32(h + 1LL * l * dim + v * VEC, x);
-      const float w = w_round[l];
+    for (int q0 = 0; q0 < walk; q0 += kAhead) {
+      if (v != v0 || q0 > 0) request(q0, v);
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) acc[j] = __fmaf_rn(w, x[j], acc[j]);
+      for (int i = 0; i < kAhead; ++i) {
+        const int q = q0 + i;
+        const int l = g + groups * q;
+        const float w = __shfl_sync(kFull, pick(w_round, q >> lanes_log2), l & 31);
+        if ((pick(bits, q >> lanes_log2) >> (l & 31)) & 1u) {
+          float xv[VEC];
+          widen(rows[i], xv);
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) acc[j] = __fmaf_rn(w, xv[j], acc[j]);
+        }
+      }
     }
-    for (int off = lanes; off < 32; off <<= 1) {
+    for (int off = 1 << lanes_log2; off < 32; off <<= 1) {
 #pragma unroll
       for (int j = 0; j < VEC; ++j) acc[j] = __fadd_rn(acc[j], __shfl_xor_sync(kFull, acc[j], off));
     }
@@ -217,20 +279,36 @@ int check_launch(int dtype, int batch, int L, int dim, int vec, int lanes, int w
   return cudaSuccess;
 }
 
+// the forward at the fewest softmax positions a lane that cover L
+template <typename T, int VEC>
+void launch_fwd(const float* lg, const uint8_t* mk, const T* h, T* o, float* w, int batch, int L, int dim,
+                int lanes_log2, int grid, int threads, cudaStream_t st) {
+  if (L <= 32 * 2) {
+    attention_pool_fwd_kernel<T, VEC, 2><<<grid, threads, 0, st>>>(lg, mk, h, o, w, batch, L, dim, lanes_log2);
+  } else if (L <= 32 * 8) {
+    attention_pool_fwd_kernel<T, VEC, 8><<<grid, threads, 0, st>>>(lg, mk, h, o, w, batch, L, dim, lanes_log2);
+  } else {
+    attention_pool_fwd_kernel<T, VEC, kMaxPerLane><<<grid, threads, 0, st>>>(lg, mk, h, o, w, batch, L, dim,
+                                                                              lanes_log2);
+  }
+}
+
 }  // namespace
 
 // Forward: logits (B, L) f32, mask (B, L) bytes 0/1, hist (B, L, dim) T,
-// out (B, dim) T, weights (B, L) f32. vec = 8 (bf16) or 4 (f32) for
-// 16-byte loads (dim a multiple of vec, hist and out 16-byte aligned), else
-// 1; lanes (a power of 2 dividing dim / vec) a position's lane group. grid
-// blocks of warps warps, smem = warps * L * 4 bytes. Returns a CUDA error
-// code.
+// out (B, dim) T, weights (B, L) f32, L <= 32 * kMaxPerLane. vec = 8 (bf16)
+// or 4 (f32) for 16-byte loads (dim a multiple of vec, hist and out 16-byte
+// aligned), else 1; lanes (a power of 2 dividing dim / vec) a position's
+// lane group. grid blocks of warps warps, no shared memory. Returns a CUDA
+// error code.
 extern "C" int persia_attention_pool_fwd(const void* logits, const void* mask, const void* hist, void* out,
                                          void* weights, int dtype, int batch, int L, int dim, int vec,
-                                         int lanes, int warps, int grid, int smem, void* stream) {
-  int rc = check_launch(dtype, batch, L, dim, vec, lanes, warps, grid, smem, L * 4, hist, out);
+                                         int lanes, int warps, int grid, void* stream) {
+  int rc = check_launch(dtype, batch, L, dim, vec, lanes, warps, grid, 0, 0, hist, out);
   if (rc != cudaSuccess) return rc;
-  if (logits == nullptr || mask == nullptr || weights == nullptr) return cudaErrorInvalidValue;
+  if (logits == nullptr || mask == nullptr || weights == nullptr || L > 32 * kMaxPerLane) {
+    return cudaErrorInvalidValue;
+  }
   const int lanes_log2 = log2_exact(lanes);
   const float* lg = static_cast<const float*>(logits);
   const uint8_t* mk = static_cast<const uint8_t*>(mask);
@@ -241,19 +319,17 @@ extern "C" int persia_attention_pool_fwd(const void* logits, const void* mask, c
     const float* h = static_cast<const float*>(hist);
     float* o = static_cast<float*>(out);
     if (vec == 4) {
-      attention_pool_fwd_kernel<float, 4><<<grid, threads, smem, st>>>(lg, mk, h, o, w, batch, L, dim, lanes_log2);
+      launch_fwd<float, 4>(lg, mk, h, o, w, batch, L, dim, lanes_log2, grid, threads, st);
     } else {
-      attention_pool_fwd_kernel<float, 1><<<grid, threads, smem, st>>>(lg, mk, h, o, w, batch, L, dim, lanes_log2);
+      launch_fwd<float, 1>(lg, mk, h, o, w, batch, L, dim, lanes_log2, grid, threads, st);
     }
   } else {
     const __nv_bfloat16* h = static_cast<const __nv_bfloat16*>(hist);
     __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
     if (vec == 8) {
-      attention_pool_fwd_kernel<__nv_bfloat16, 8><<<grid, threads, smem, st>>>(lg, mk, h, o, w, batch, L, dim,
-                                                                               lanes_log2);
+      launch_fwd<__nv_bfloat16, 8>(lg, mk, h, o, w, batch, L, dim, lanes_log2, grid, threads, st);
     } else {
-      attention_pool_fwd_kernel<__nv_bfloat16, 1><<<grid, threads, smem, st>>>(lg, mk, h, o, w, batch, L, dim,
-                                                                               lanes_log2);
+      launch_fwd<__nv_bfloat16, 1>(lg, mk, h, o, w, batch, L, dim, lanes_log2, grid, threads, st);
     }
   }
   return static_cast<int>(cudaGetLastError());

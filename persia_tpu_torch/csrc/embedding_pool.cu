@@ -36,8 +36,8 @@
 //   slots' fields from the parameter struct into shared memory first. Other
 //   dims and alignments take VEC = 1.
 // - Backward, two launches, no float atomics, every row written once: the
-//   two-pass segment-sum of csrc/segment_sum.cuh (shared with K7), where a
-//   position (b, l) carries its sample's scaled gradient. The time does not
+//   two-pass segment-sum of csrc/segment_sum.cuh, where a position (b, l)
+//   carries its sample's scaled gradient. The time does not
 //   follow the longest segment: a row holding all B positions costs 1/C of
 //   them in each chunk of C plus one pass-2 sum of B / C partials. Pads
 //   point at row D and sum there, as the reference's autodiff does; the
@@ -140,7 +140,7 @@ extern "C" int persia_gather_pool_bwd(const PoolSlotsParams* p, void* grad, void
                                       int lanes_per_pos, int col_tiles, int max_chunks, int chunk_warps,
                                       int chunk_grid_x, int row_block_x, int row_block_y,
                                       int row_grid_x, void* stream) {
-  return segment_sum<false>(p, grad, partials, dtype, nslots, batch, dim, out_slots, slot0, vec, lanes_per_pos,
-                            col_tiles, max_chunks, chunk_warps, chunk_grid_x, row_block_x, row_block_y,
-                            row_grid_x, static_cast<cudaStream_t>(stream));
+  return segment_sum(p, grad, partials, dtype, nslots, batch, dim, out_slots, slot0, vec, lanes_per_pos,
+                     col_tiles, max_chunks, chunk_warps, chunk_grid_x, row_block_x, row_block_y, row_grid_x,
+                     static_cast<cudaStream_t>(stream));
 }

@@ -1,22 +1,12 @@
-// The two-pass segment-sum shared by the port's scatter-adds: the backward
-// of the grouped gather-pool (K2, csrc/embedding_pool.cu) and of the raw-slot
-// gather (K7, csrc/raw_gather.cu). For each slot s of a group and each of its
-// P_s rows r,
-//   out_s[r, :] = sum over positions k with index_s[k] == r of x_s[k, :]
-// summed in f32 and rounded once to T. A CSR of the index, built on the
-// host, lists the positions sorted by row, ascending within a row (order_s),
-// and each row's span in that list (offsets_s).
-//
-// Where x comes from is the kernels' one difference:
-// - K2 (SLOT_MAJOR false): a position (b, l) of slot s carries its sample's
-//   pooled gradient, scaled: x = scale_s[b] * g[b, slot0 + s, :], g
-//   (B, out_slots, dim) f32;
-// - K7 (SLOT_MAJOR true): every position carries its own gradient, the
-//   caller passing B * L positions of one id each: x = g[slot0 + s, k, :],
-//   g (out_slots, B * L, dim) in the rows' dtype T.
-//   Its CSR lists the positions of every row but the pad row P - 1
-//   (offsets[P] of them, the pad positions sorted last, past the list):
-//   that row's segment is empty and written 0.
+// The two-pass segment-sum of the grouped gather-pool's backward (K2,
+// csrc/embedding_pool.cu). For each slot s of a group and each of its P_s
+// rows r,
+//   out_s[r, :] = sum over positions (b, l) with index_s[b, l] == r of
+//                 scale_s[b] * g[b, slot0 + s, :]
+// summed in f32 and rounded once to T, g (B, out_slots, dim) f32: each
+// position carries its sample's pooled gradient, scaled. A CSR of the
+// index, built on the host, lists the positions sorted by row, ascending
+// within a row (order_s), and each row's span in that list (offsets_s).
 //
 // Pass 1: the sorted positions of a slot are cut into chunks of C, one warp
 // a chunk. A lane group (`lanes` lanes, one row's columns, VEC each) walks 8
@@ -39,46 +29,14 @@
 // of them in each chunk plus one pass-2 sum of n / C partials.
 #pragma once
 
-#include <cassert>
-#include <climits>
-#include <cstdint>
-#include <type_traits>
-
-#include "vec.cuh"
-
-// outside the anonymous namespace: the C entry points take it, and a
-// parameter of an internal type would give them internal linkage too
-constexpr int kMaxSlots = 64;
-
-struct PoolSlotsParams {
-  void* rows[kMaxSlots];  // (P, dim) T: the forward reads them, the backward writes its output here
-  const int32_t* index[kMaxSlots];  // (B, L)
-  const int32_t* counts[kMaxSlots];  // (B,) or null: no sqrt scaling
-  const int32_t* order[kMaxSlots];  // backward: (B * L,) positions sorted by row
-  const int32_t* offsets[kMaxSlots];  // backward: (P + 1,)
-  int num_rows[kMaxSlots];  // P
-  int ids_per_sample[kMaxSlots];  // L
-};
+#include "slot_params.cuh"
 
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kGroupPositions = 8;  // consecutive sorted positions a lane group walks
 constexpr int kNoRow = INT_MAX;  // positions past a slot's end (sorts last)
-constexpr int kMaxThreads = 256;
 constexpr int kPass2Batch = 16;  // partials pass 2 loads before it adds them
-
-// Stops the kernel where a row index lies outside [0, rows): a device-side
-// assert, as PyTorch's index_select raises on the card (the launch's
-// stream reports cudaErrorAssert). The host range-checks every staged
-// index, so the main path never takes it; K6 reads and K7 writes nothing
-// outside the rows.
-__device__ __forceinline__ void check_row(int r, int rows) {
-  if (static_cast<unsigned>(r) >= static_cast<unsigned>(rows)) {
-    assert(!"row index outside the slot's rows");
-    __trap();  // also where NDEBUG takes the assert out
-  }
-}
 
 __device__ __forceinline__ float sample_scale(const int32_t* counts, int b) {
   return counts == nullptr ? 1.f : rsqrtf(static_cast<float>(max(__ldg(counts + b), 1)));
@@ -86,21 +44,20 @@ __device__ __forceinline__ float sample_scale(const int32_t* counts, int b) {
 
 // Pass 1: one warp per chunk of a slot's sorted positions (see the head of
 // the file). VEC = 4 (4 columns a load) or 1; a lane group of 2^lanes_log2
-// lanes holds one position's columns, col_tiles times. GradT is the
-// gradient's type: f32 (K2) or T (K7).
-template <typename T, typename GradT, int VEC, bool SLOT_MAJOR>
+// lanes holds one position's columns, col_tiles times.
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kMaxThreads)
-segment_sum_chunks_kernel(const __grid_constant__ PoolSlotsParams p, const GradT* __restrict__ grad,
+segment_sum_chunks_kernel(const __grid_constant__ PoolSlotsParams p, const float* __restrict__ grad,
                           float* __restrict__ partials, int batch, int dim, int out_slots, int slot0,
                           int lanes_log2, int col_tiles, int max_chunks) {
   const int s = blockIdx.y;
   const int L = p.ids_per_sample[s];
-  const int n_all = batch * L;  // the length of order
+  const int n = batch * L;  // the length of order
   const int lanes = 1 << lanes_log2;
   const int groups = 32 >> lanes_log2;
   const int chunk_len = groups * kGroupPositions;
   const int chunk = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (chunk * chunk_len >= n_all) return;  // the whole warp
+  if (chunk * chunk_len >= n) return;  // the whole warp
   const int lane = threadIdx.x & 31;
   const int g = lane >> lanes_log2;
   const int v = lane & (lanes - 1);
@@ -108,21 +65,6 @@ segment_sum_chunks_kernel(const __grid_constant__ PoolSlotsParams p, const GradT
   const int32_t* order = p.order[s];
   const int32_t* index = p.index[s];
   const int32_t* counts = p.counts[s];
-
-  // K7's CSR leaves the pad row's positions out (they sort last): it lists
-  // n = offsets[P] of them, a count loaded beside the chunk's order
-  // entries; K2's lists all n_all
-  int n = n_all;
-  int pre[kGroupPositions];
-  if constexpr (SLOT_MAJOR) {
-#pragma unroll
-    for (int i = 0; i < kGroupPositions; ++i) {
-      const int k = k0 + g * kGroupPositions + i;
-      pre[i] = k < n_all ? __ldg(order + k) : 0;
-    }
-    n = min(__ldg(p.offsets[s] + p.num_rows[s]), n_all);
-    if (k0 >= n) return;  // the whole warp
-  }
   int row[kGroupPositions], goff[kGroupPositions];
   float scale[kGroupPositions];
 #pragma unroll
@@ -132,10 +74,10 @@ segment_sum_chunks_kernel(const __grid_constant__ PoolSlotsParams p, const GradT
     goff[i] = 0;
     scale[i] = 0.f;
     if (k < n) {
-      const int pos = SLOT_MAJOR ? pre[i] : __ldg(order + k);
+      const int pos = __ldg(order + k);
       const int b = L == 1 ? pos : pos / L;
       row[i] = __ldg(index + pos);
-      goff[i] = (SLOT_MAJOR ? (slot0 + s) * batch + b : b * out_slots + slot0 + s) * dim;
+      goff[i] = (b * out_slots + slot0 + s) * dim;
       scale[i] = sample_scale(counts, b);
     }
   }
@@ -221,8 +163,6 @@ segment_sum_chunks_kernel(const __grid_constant__ PoolSlotsParams p, const GradT
       if (starts_before || ends_after) {
         store_as(part + (starts_before ? 0 : dim) + c, acc);
       } else {
-        // K7 checks: its index may come from any caller of raw_gather_bwd
-        if constexpr (SLOT_MAJOR) check_row(row[i], p.num_rows[s]);
         store_as(out_rows + row[i] * dim + c, acc);
       }
     }
@@ -273,45 +213,13 @@ segment_sum_rows_kernel(const __grid_constant__ PoolSlotsParams p, const float* 
   }
 }
 
-inline bool fits_int(long long x) { return x >= 0 && x < INT_MAX; }
-
-inline bool aligned(const void* ptr, int bytes) { return reinterpret_cast<uintptr_t>(ptr) % bytes == 0; }
-
-inline int log2_exact(int x) {
-  if (x < 1 || (x & (x - 1)) != 0) return -1;
-  int k = 0;
-  while ((1 << k) < x) ++k;
-  return k;
-}
-
-// the group's pointers, the shapes and every product the kernels form in
-// 32-bit index math
-inline int check_group(const PoolSlotsParams* p, int nslots, int batch, int dim, int out_slots, int slot0,
-                bool backward) {
-  if (p == nullptr || nslots < 1 || nslots > kMaxSlots || batch < 1 || dim < 1 || slot0 < 0 ||
-      slot0 + nslots > out_slots || !fits_int(1LL * batch * out_slots * dim)) {
-    return cudaErrorInvalidValue;
-  }
-  for (int s = 0; s < nslots; ++s) {
-    if (p->rows[s] == nullptr || p->index[s] == nullptr || p->num_rows[s] < 1 ||
-        p->ids_per_sample[s] < 1 || !fits_int(1LL * p->num_rows[s] * dim) ||
-        !fits_int(1LL * batch * p->ids_per_sample[s])) {
-      return cudaErrorInvalidValue;
-    }
-    if (backward && (p->order[s] == nullptr || p->offsets[s] == nullptr)) {
-      return cudaErrorInvalidValue;
-    }
-  }
-  return cudaSuccess;
-}
-
 inline bool block_ok(int x, int y) { return x >= 1 && y >= 1 && x * y >= 32 && x * y <= kMaxThreads; }
 
-template <typename T, typename GradT, int VEC, bool SLOT_MAJOR>
-int launch_bwd(const PoolSlotsParams* p, const GradT* grad, float* partials, int batch, int dim,
+template <typename T, int VEC>
+int launch_bwd(const PoolSlotsParams* p, const float* grad, float* partials, int batch, int dim,
                int out_slots, int slot0, int lanes_log2, int col_tiles, int chunk_len, int max_chunks,
                dim3 chunk_grid, int chunk_threads, dim3 row_grid, dim3 row_block, cudaStream_t stream) {
-  segment_sum_chunks_kernel<T, GradT, VEC, SLOT_MAJOR><<<chunk_grid, chunk_threads, 0, stream>>>(
+  segment_sum_chunks_kernel<T, VEC><<<chunk_grid, chunk_threads, 0, stream>>>(
       *p, grad, partials, batch, dim, out_slots, slot0, lanes_log2, col_tiles, max_chunks);
   int rc = static_cast<int>(cudaGetLastError());
   if (rc != cudaSuccess) return rc;
@@ -320,19 +228,17 @@ int launch_bwd(const PoolSlotsParams* p, const GradT* grad, float* partials, int
   return static_cast<int>(cudaGetLastError());
 }
 
-// Both passes on one stream: the body of the C entry points of K2 and K7.
-// vec = 4 (4 columns a load: dim == col_tiles * lanes_per_pos * 4, the
-// gradient 16-byte aligned) or 1 (scalar columns, the last tile ragged). A
-// chunk is 32 / lanes_per_pos * 8 positions; partials is (nslots,
-// max_chunks, 2, dim) f32. Pass 1: grid (chunk_grid_x, nslots) of
-// chunk_warps warps; pass 2: grid (row_grid_x, nslots) of blocks
-// (row_block_x, row_block_y). The gradient is f32 for K2 and in the rows'
-// dtype for K7 (SLOT_MAJOR). Returns a CUDA error code.
-template <bool SLOT_MAJOR>
-int segment_sum(const PoolSlotsParams* p, const void* grad, void* partials, int dtype, int nslots, int batch,
-                int dim, int out_slots, int slot0, int vec, int lanes_per_pos, int col_tiles, int max_chunks,
-                int chunk_warps, int chunk_grid_x, int row_block_x, int row_block_y, int row_grid_x,
-                cudaStream_t st) {
+// Both passes on one stream: the body of K2's C entry point. vec = 4 (4
+// columns a load: dim == col_tiles * lanes_per_pos * 4, the gradient
+// 16-byte aligned) or 1 (scalar columns, the last tile ragged). A chunk is
+// 32 / lanes_per_pos * 8 positions; partials is (nslots, max_chunks, 2,
+// dim) f32. Pass 1: grid (chunk_grid_x, nslots) of chunk_warps warps; pass
+// 2: grid (row_grid_x, nslots) of blocks (row_block_x, row_block_y). The
+// gradient is f32. Returns a CUDA error code.
+inline int segment_sum(const PoolSlotsParams* p, const void* grad, void* partials, int dtype, int nslots,
+                       int batch, int dim, int out_slots, int slot0, int vec, int lanes_per_pos, int col_tiles,
+                       int max_chunks, int chunk_warps, int chunk_grid_x, int row_block_x, int row_block_y,
+                       int row_grid_x, cudaStream_t st) {
   int rc = check_group(p, nslots, batch, dim, out_slots, slot0, true);
   if (rc != cudaSuccess) return rc;
   const int lanes_log2 = log2_exact(lanes_per_pos);
@@ -370,23 +276,19 @@ int segment_sum(const PoolSlotsParams* p, const void* grad, void* partials, int 
   const dim3 row_block(row_block_x, row_block_y);
   float* part = static_cast<float*>(partials);
   const int threads = chunk_warps * 32;
+  const float* g = static_cast<const float*>(grad);
   if (dtype == persia::kFloat32) {
-    const float* g = static_cast<const float*>(grad);
     return vec == 4
-        ? launch_bwd<float, float, 4, SLOT_MAJOR>(p, g, part, batch, dim, out_slots, slot0, lanes_log2, col_tiles,
-                                                  chunk_len, max_chunks, chunk_grid, threads, row_grid, row_block, st)
-        : launch_bwd<float, float, 1, SLOT_MAJOR>(p, g, part, batch, dim, out_slots, slot0, lanes_log2, col_tiles,
-                                                  chunk_len, max_chunks, chunk_grid, threads, row_grid, row_block, st);
+        ? launch_bwd<float, 4>(p, g, part, batch, dim, out_slots, slot0, lanes_log2, col_tiles, chunk_len,
+                               max_chunks, chunk_grid, threads, row_grid, row_block, st)
+        : launch_bwd<float, 1>(p, g, part, batch, dim, out_slots, slot0, lanes_log2, col_tiles, chunk_len,
+                               max_chunks, chunk_grid, threads, row_grid, row_block, st);
   }
-  using G = typename std::conditional<SLOT_MAJOR, __nv_bfloat16, float>::type;
-  const G* g = static_cast<const G*>(grad);
   return vec == 4
-      ? launch_bwd<__nv_bfloat16, G, 4, SLOT_MAJOR>(p, g, part, batch, dim, out_slots, slot0, lanes_log2,
-                                                    col_tiles, chunk_len, max_chunks, chunk_grid, threads,
-                                                    row_grid, row_block, st)
-      : launch_bwd<__nv_bfloat16, G, 1, SLOT_MAJOR>(p, g, part, batch, dim, out_slots, slot0, lanes_log2,
-                                                    col_tiles, chunk_len, max_chunks, chunk_grid, threads,
-                                                    row_grid, row_block, st);
+      ? launch_bwd<__nv_bfloat16, 4>(p, g, part, batch, dim, out_slots, slot0, lanes_log2, col_tiles, chunk_len,
+                                     max_chunks, chunk_grid, threads, row_grid, row_block, st)
+      : launch_bwd<__nv_bfloat16, 1>(p, g, part, batch, dim, out_slots, slot0, lanes_log2, col_tiles, chunk_len,
+                                     max_chunks, chunk_grid, threads, row_grid, row_block, st);
 }
 
 }  // namespace

@@ -35,6 +35,36 @@ __device__ __forceinline__ void load_f32(const __nv_bfloat16* p, float (&v)[1]) 
   v[0] = persia::to_f32(*p);
 }
 
+// A lane's share of a row as one load: 16 bytes (4 f32 or 8 bf16) or one
+// element. widen() makes it VEC f32 where it is used, so a row in flight
+// holds 4 registers (or 1), not VEC.
+template <typename T, int VEC>
+struct RowUnit {
+  using type = T;
+};
+template <>
+struct RowUnit<float, 4> {
+  using type = float4;
+};
+template <>
+struct RowUnit<__nv_bfloat16, 8> {
+  using type = uint4;
+};
+
+__device__ __forceinline__ void widen(const float4& q, float (&v)[4]) {
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void widen(const uint4& q, float (&v)[8]) {
+  const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {  // bf16 -> f32 is exact: the bits move up
+    v[2 * j] = __uint_as_float(w[j] << 16);
+    v[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void widen(float x, float (&v)[1]) { v[0] = x; }
+__device__ __forceinline__ void widen(__nv_bfloat16 x, float (&v)[1]) { v[0] = persia::to_f32(x); }
+
 // N f32 values stored as T: 16-byte f32 stores, 16-byte stores of 8 bf16
 // and 8-byte stores of 4 (round to nearest even), or one element
 __device__ __forceinline__ void store_as(float* p, const float (&v)[8]) {

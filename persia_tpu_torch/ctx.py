@@ -72,8 +72,8 @@ def stage_embeddings(
     slots share one bucket. ``dtype="bfloat16"`` ships the float rows as
     bf16 (``BF16Host``). ``csr`` adds each device-pooled and raw slot's
     row → positions CSR (``pool_order``, ``pool_offsets``; ``order``,
-    ``offsets``, without the pad row's positions), which the backward
-    kernels walk. A raw slot's index is
+    ``offsets``, without the pad row's positions, and ``long_chunks``),
+    which the backward kernels walk. A raw slot's index is
     range-checked against its P rows here, before the copy: the card's
     gather never reads outside them. Returns (entries, true distinct counts)
     — None for host-pooled slots."""
@@ -116,7 +116,7 @@ def stage_embeddings(
                 raise ValueError(f"raw slot {eb.name!r}: an index lies outside its {p} rows")
             entry = {"distinct": _wire(padded, bf16), "index": index, "mask": eb.index != d}
             if csr:
-                entry["order"], entry["offsets"] = raw_csr(index, p)
+                entry["order"], entry["offsets"], entry["long_chunks"] = raw_csr(index, p)
             entries.append(entry)
             counts.append(d)
     return entries, counts

@@ -45,13 +45,22 @@ def slot_vector(emb, dtype: torch.dtype) -> torch.Tensor:
     return ((gathered * m).sum(dim=1) / denom).to(dtype)
 
 
+# the std of a unit normal truncated to [-2, 2] (flax's variance_scaling)
+_TRUNC_STD = 0.87962566103423978
+
+
 @torch.no_grad()
 def lecun_init_(layers: Iterable[nn.Linear], generator: Optional[torch.Generator]) -> None:
     """LeCun-normal kernels and zero biases (flax ``Dense``'s defaults),
     drawn on the CPU from ``generator`` so that a seed gives the same
-    weights on every device."""
+    weights on every device. flax's ``lecun_normal`` is a normal truncated
+    at two of its sigmas, sigma = 1 / sqrt(fan_in) / 0.87962566 (the std
+    of a unit normal cut at +-2), so the kernel's std is 1 / sqrt(fan_in)
+    and no |w| * sqrt(fan_in) exceeds 2.2737."""
     for layer in layers:
-        w = torch.randn(layer.weight.shape, generator=generator) * layer.in_features ** -0.5
+        sigma = layer.in_features ** -0.5 / _TRUNC_STD
+        w = torch.empty(layer.weight.shape)
+        torch.nn.init.trunc_normal_(w, 0.0, sigma, -2 * sigma, 2 * sigma, generator=generator)
         layer.weight.copy_(w)
         if layer.bias is not None:
             layer.bias.zero_()

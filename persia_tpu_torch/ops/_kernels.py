@@ -149,10 +149,9 @@ def library() -> ctypes.CDLL:
             lib.persia_raw_gather_fwd.restype = i32
             lib.persia_raw_gather_fwd.argtypes = [vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, vp]
             lib.persia_raw_gather_bwd.restype = i32
-            lib.persia_raw_gather_bwd.argtypes = lib.persia_gather_pool_bwd.argtypes
+            lib.persia_raw_gather_bwd.argtypes = [vp, vp, vp, *[i32] * 13, vp]
             lib.persia_attention_pool_fwd.restype = i32
-            lib.persia_attention_pool_fwd.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32,
-                                                      i32, vp]
+            lib.persia_attention_pool_fwd.argtypes = [vp, vp, vp, vp, vp, *[i32] * 8, vp]
             lib.persia_attention_pool_bwd.restype = i32
             lib.persia_attention_pool_bwd.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32,
                                                       i32, i32, vp]

@@ -91,7 +91,7 @@ def _fwd(logits: torch.Tensor, mask: torch.Tensor, hist: torch.Tensor):
     with torch.cuda.device(hist.device):
         rc = _kernels.library().persia_attention_pool_fwd(
             logits.data_ptr(), mask.data_ptr(), hist.data_ptr(), out.data_ptr(), w.data_ptr(), _DTYPES[hist.dtype],
-            b, l, dim, plan.vec, plan.lanes, plan.warps, plan.grid, plan.fwd_smem, _kernels.stream_handle(hist),
+            b, l, dim, plan.vec, plan.lanes, plan.warps, plan.grid, _kernels.stream_handle(hist),
         )
     _kernels.check(rc, "attention_pool_fwd")
     attention_pool_fwd.launches += 1

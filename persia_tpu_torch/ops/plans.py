@@ -451,9 +451,7 @@ def pool_bwd_model(values: np.ndarray, rows: np.ndarray, num_rows: int, plan: Po
 
 
 # raw-slot gather, K6 (csrc/raw_gather.cu): one thread per (slot on grid
-# y, position, unit of the row), the units fastest. Its backward, K7, is the
-# gather-pool's two-pass segment-sum (pool_plan) over B * L positions of
-# one id each.
+# y, position, unit of the row), the units fastest
 RAW_THREADS = 256
 
 
@@ -484,11 +482,97 @@ def raw_gather_plan(positions: int, slots: int, dim: int, elem_bytes: int, align
                          grid=(-(-positions * row_units // RAW_THREADS), slots))
 
 
+# its scatter-add, K7 (csrc/raw_gather.cu): one launch, the slot on grid y.
+# A lane group takes one row and sums its positions in stream order. A row
+# of K7_LONG_MIN positions or more is long: ``raw_csr`` lists its chunks of
+# K7_CHUNK positions, each summed by a block of the same launch, and the
+# last of the row's blocks to finish sums the chunk sums in chunk order.
+K7_LONG_MIN = 32  # positions from which a row is long (kLongMin)
+K7_CHUNK = 256  # positions of one chunk of a long row (kChunk)
+K7_THREADS = 256
+K7_STAGE_FLOATS = 4096  # f32 a long block stages at a time (kStageFloats)
+
+
+@dataclass(frozen=True)
+class RawBwdPlan:
+    slots: int
+    dim: int
+    vec: int  # 16-byte access: 8 bf16 or 4 f32 columns a lane; 1 on the general path
+    lanes: int  # lanes of a row's group: the largest power of 2 dividing dim / vec, at most 32
+    threads: int
+    short_blocks: int  # grid x from 0: threads / lanes rows a block, over the most rows a slot has
+    long_blocks: int  # grid x after them: a listed long-row chunk a block, the most a slot lists
+    tile_rows: int  # gradient rows (or chunk sums) a long block stages at a time
+    smem_bytes: int  # dynamic shared memory: none without long rows
+
+    @property
+    def scratch_ints(self) -> int:
+        """int32 scratch, zeroed: a ticket counter per listed chunk (padded
+        to 16 bytes), then each chunk's f32 sum; none without long rows."""
+        if not self.long_blocks:
+            return 0
+        n = self.slots * self.long_blocks
+        return -(-n // 4) * 4 + n * self.dim
+
+
+@functools.lru_cache(maxsize=256)
+def raw_gather_bwd_plan(slots: int, dim: int, elem_bytes: int, max_rows: int, long_blocks: int,
+                        aligned: bool = True) -> RawBwdPlan:
+    """Geometry of ``raw_gather_bwd`` for a group of ``slots`` slots of
+    rows of ``dim`` elements of ``elem_bytes`` bytes, at most ``max_rows``
+    rows and ``long_blocks`` listed long-row chunks a slot. ``aligned``: the
+    gradient and the rows start on 16 bytes."""
+    if not 1 <= slots <= POOL_MAX_SLOTS:
+        raise ValueError(f"one launch scatters 1..{POOL_MAX_SLOTS} slots, got {slots}")
+    if elem_bytes not in (2, 4) or min(dim, max_rows) < 1 or long_blocks < 0:
+        raise ValueError("a raw group needs bf16 or f32 rows and positive sizes")
+    wide = 16 // elem_bytes
+    vec = wide if aligned and dim % wide == 0 else 1
+    units = dim // vec
+    if units > K7_THREADS:
+        raise ValueError(f"raw_gather_bwd takes rows of at most {K7_THREADS} column units "
+                         f"({K7_THREADS * wide} columns, aligned), got {dim} columns")
+    lanes = min(units & -units, 32)
+    tile_rows = min(K7_CHUNK, K7_STAGE_FLOATS // dim)
+    smem = 4 * (tile_rows * dim + K7_CHUNK) + 16 if long_blocks else 0
+    return RawBwdPlan(slots=slots, dim=dim, vec=vec, lanes=lanes, threads=K7_THREADS,
+                      short_blocks=-(-max_rows * lanes // K7_THREADS), long_blocks=long_blocks,
+                      tile_rows=tile_rows, smem_bytes=smem)
+
+
+def raw_bwd_model(values: np.ndarray, order: np.ndarray, offsets: np.ndarray) -> np.ndarray:
+    """K7's f32 sums for one slot, in numpy, in the kernel's order:
+    ``values`` (B * L, dim) f32 are the positions' gradients, ``order`` and
+    ``offsets`` the slot's CSR. Returns (P, dim) f32, the pad row P - 1
+    zero. A short row (fewer than K7_LONG_MIN positions) sums its positions
+    in stream order from 0, as a sequential ``index_add_`` does; a long row
+    sums each chunk of K7_CHUNK of its positions so, then the chunk sums in
+    chunk order from 0. The order does not depend on the launch geometry."""
+    values = np.asarray(values, dtype=np.float32)
+    offsets = np.asarray(offsets, dtype=np.int64)
+    rows, dim = offsets.shape[0] - 1, values.shape[1]
+    lens = np.diff(offsets)[:-1]
+    row = np.repeat(np.arange(rows - 1), lens)  # of each listed position but the pad row's
+    k = np.arange(row.shape[0]) + offsets[0]
+    x = values[np.asarray(order, dtype=np.int64)[k]]
+    out = np.zeros((rows, dim), np.float32)
+    long_ = lens[row] >= K7_LONG_MIN
+    np.add.at(out, row[~long_], x[~long_])  # in order, one f32 rounding an add
+    r, c = row[long_], (k[long_] - offsets[row[long_]]) // K7_CHUNK
+    new = np.r_[True, (r[1:] != r[:-1]) | (c[1:] != c[:-1])] if r.size else np.zeros(0, bool)
+    chunk = np.cumsum(new) - 1
+    sums = np.zeros((int(new.sum()), dim), np.float32)
+    np.add.at(sums, chunk, x[long_])
+    np.add.at(out, r[new], sums)
+    return out
+
+
 # DIN's masked attention pool, K8 and K9 (csrc/attention_pool.cu): one warp
 # per sample row, ATT_POOL_WARPS a block; a lane group of lanes lanes takes
-# one position's row, vec columns a lane (16-byte loads)
+# one position's row, vec columns a lane (16-byte loads). The forward keeps
+# its weights in registers, the backward its weights and g in shared memory
 ATT_POOL_WARPS = 4
-ATT_POOL_SMEM_MAX = SMEM_STATIC  # the weights (and g) of each warp's row
+ATT_POOL_SMEM_MAX = SMEM_STATIC  # the backward's weights and g of each warp's row
 
 
 @dataclass(frozen=True)
@@ -500,7 +584,6 @@ class AttentionPoolPlan:
     lanes: int  # lanes of a position's group: a power of 2 dividing dim / vec
     warps: int
     grid: int
-    fwd_smem: int  # bytes: the rounded weights of each warp's row
     bwd_smem: int  # bytes: the rounded weights and g of each warp's row
 
 
@@ -522,7 +605,7 @@ def attention_pool_plan(batch: int, seq_len: int, dim: int, elem_bytes: int, ali
         raise ValueError(f"the attention pool takes at most {ATT_POOL_SMEM_MAX // (8 * ATT_POOL_WARPS)} "
                          f"positions a row, got {seq_len}")
     return AttentionPoolPlan(batch=batch, seq_len=seq_len, dim=dim, vec=vec, lanes=lanes, warps=ATT_POOL_WARPS,
-                             grid=-(-batch // ATT_POOL_WARPS), fwd_smem=bwd_smem // 2, bwd_smem=bwd_smem)
+                             grid=-(-batch // ATT_POOL_WARPS), bwd_smem=bwd_smem)
 
 
 # fused sparse optimizer update, K5 (csrc/sparse_update.cu): a first pass

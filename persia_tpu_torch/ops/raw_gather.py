@@ -1,6 +1,6 @@
 """The raw-slot gather and its scatter-add: the CUDA kernels K6 and K7
 (``csrc/raw_gather.cu``, geometry from ``plans.raw_gather_plan`` and
-``plans.pool_plan``) and their plain PyTorch versions.
+``plans.raw_gather_bwd_plan``) and their plain PyTorch versions.
 
 A raw (sequence) slot arrives as its distinct rows ``(P, dim)`` (f32 or
 bf16, the wire dtype; P = ``round_up_pow2(D + 1)``, rows past the true
@@ -16,17 +16,22 @@ P - 1. For a group of slots of one dim, one dtype and one (B, L):
 
 The reference runs both through XLA (``persia_tpu/parallel/train_step.py:
 88-91``: ``diff[index]`` and its autodiff scatter-add, which sums in the wire
-dtype). The kernel's backward is the gather-pool's two-pass segment-sum over
-the slot's CSR (row -> its positions, ascending; ``raw_csr`` on the host,
-which leaves the pad row's positions out), each position carrying its own
-gradient: no atomics, one write per row, so two runs give the same bits.
+dtype). The kernel's backward walks the slot's CSR (row -> its positions,
+ascending; ``raw_csr`` on the host, which leaves the pad row's positions
+out and lists the long rows' chunks): a row's positions are summed in
+stream order, a long row's chunk by chunk and then the chunk sums in
+order (``plans.raw_bwd_model``). No atomics on floats, one write per row,
+so two runs give the same bits, and a short row gives those of the plain
+version's sequential ``index_add_``.
 
 An index outside [0, P) raises: on the CPU at once (``index_select``),
 where the batch is staged (``ctx.stage_embeddings``) before the copy, and
-in the kernels as a device-side assert, as PyTorch's own ``index_select``
-does on the card (the launch's stream then reports ``cudaErrorAssert``);
-no kernel reads or writes outside the rows. The reference's
-``diff[index]`` clamps instead.
+in the forward kernel as a device-side assert, as PyTorch's own
+``index_select`` does on the card (the launch's stream then reports
+``cudaErrorAssert``); the backward kernel never reads the index, and stops
+the same way on a CSR entry outside the slot's positions. No kernel reads
+or writes outside its tensors. The reference's ``diff[index]`` clamps
+instead.
 
 ``raw_gather`` is the differentiable entry point (one
 ``torch.autograd.Function``): a CPU tensor takes the plain versions, a CUDA
@@ -43,23 +48,44 @@ import torch
 from persia_tpu_torch.ops import _kernels, plans
 from persia_tpu_torch.ops.embedding_pool import _DTYPES, _ELEM_BYTES, _PARAMS, MAX_SLOTS, pool_csr
 
+# the backward's parameter struct (RawBwdSlots in csrc/raw_gather.cu)
+_BWD_PARAMS = np.dtype([
+    ("rows", "<u8", (MAX_SLOTS,)),
+    ("order", "<u8", (MAX_SLOTS,)),
+    ("offsets", "<u8", (MAX_SLOTS,)),
+    ("long_chunks", "<u8", (MAX_SLOTS,)),
+    ("num_rows", "<i4", (MAX_SLOTS,)),
+    ("long_count", "<i4", (MAX_SLOTS,)),
+])
+
 
 class RawSlot(NamedTuple):
-    """The integer side of one raw slot (on the rows' device)."""
+    """The integer side of one raw slot (on the rows' device); the backward
+    kernel needs the CSR, all three fields of ``raw_csr``."""
 
     index: torch.Tensor  # (B, L) int32, pads == P - 1
     order: Optional[torch.Tensor] = None  # (B*L,) int32: positions sorted by row
-    offsets: Optional[torch.Tensor] = None  # (P+1,) int32: row r's span in ``order`` (``raw_csr``)
+    offsets: Optional[torch.Tensor] = None  # (P+1,) int32: row r's span in ``order``
+    long_chunks: Optional[torch.Tensor] = None  # (M, 2) int32: the long rows' (row, chunk)
 
 
-def raw_csr(index: np.ndarray, rows: int) -> Tuple[np.ndarray, np.ndarray]:
-    """(order, offsets) of a raw slot's (B, L) index over its ``rows``
-    rows: ``pool_csr``'s, with the pad row (``rows - 1``) left empty. Its
-    positions sort last in ``order`` and lie past ``offsets[rows]``, so the
-    backward kernel does not walk them."""
+def raw_csr(index: np.ndarray, rows: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(order, offsets, long_chunks) of a raw slot's (B, L) index over its
+    ``rows`` rows: ``pool_csr``'s order and offsets, with the pad row
+    (``rows - 1``) left empty (its positions sort last in ``order`` and lie
+    past ``offsets[rows]``, so the backward kernel does not walk them), and
+    the chunks the backward kernel's long blocks take: (row, chunk) int32
+    pairs, (M, 2), for every row but the pad row with
+    ``plans.K7_LONG_MIN`` positions or more, its ceil(n / ``K7_CHUNK``)
+    chunks in order, the rows ascending."""
     order, offsets = pool_csr(index, rows)
     offsets[-1] = offsets[-2]
-    return order, offsets
+    lens = np.diff(offsets)[:-1]
+    long_rows = np.flatnonzero(lens >= plans.K7_LONG_MIN)
+    chunks = -(-lens[long_rows] // plans.K7_CHUNK)
+    first = np.repeat(np.cumsum(chunks) - chunks, chunks)
+    long_chunks = np.stack([np.repeat(long_rows, chunks), np.arange(first.shape[0]) - first], 1)
+    return order, offsets, long_chunks.astype(np.int32)
 
 
 def raw_gather_fwd_reference(rows: Sequence[torch.Tensor], slots: Sequence[RawSlot]) -> torch.Tensor:
@@ -89,7 +115,7 @@ class _Group:
     the kernels' parameter structs, one per launch of at most 64 slots:
     each slot's index is B * L positions of one id each. The autograd
     Function builds it in the forward and reuses it in the backward, which
-    only adds the CSR and points ``rows`` at its outputs."""
+    adds the CSR's struct and points its ``rows`` at its outputs."""
 
     def __init__(self, rows: Sequence[torch.Tensor], slots: Sequence[RawSlot]):
         if not rows or len(rows) != len(slots):
@@ -130,25 +156,28 @@ class _Group:
         self._csr = False
 
     def add_csr(self) -> None:
-        """Check each slot's CSR (order, offsets) and add its pointers."""
+        """Check each slot's CSR (order, offsets, long_chunks) and fill the
+        backward's parameter structs."""
         if self._csr:
             return
-        order, offsets = [], []
         i32, dev = torch.int32, self.device
+        self.bwd_params = np.zeros(len(self.launches), _BWD_PARAMS)
+        self.long_counts = []
+        fields = {"order": [], "offsets": [], "long_chunks": []}
         for slot, p in zip(self.slots, self.num_rows):
-            o, f = slot.order, slot.offsets
-            if o is None or f is None:
-                raise ValueError("raw_gather_bwd needs each slot's CSR (order, offsets)")
-            if (o.dtype is not i32 or f.dtype is not i32 or o.device != dev or f.device != dev
-                    or not o.is_contiguous() or not f.is_contiguous()):
+            o, f, c = slot.order, slot.offsets, slot.long_chunks
+            if o is None or f is None or c is None:
+                raise ValueError("raw_gather_bwd needs each slot's CSR (order, offsets, long_chunks: raw_csr)")
+            if any(t.dtype is not i32 or t.device != dev or not t.is_contiguous() for t in (o, f, c)):
                 raise ValueError("a slot's CSR must be contiguous int32 on the rows' device")
-            if o.numel() != self.positions or f.numel() != p + 1:
+            if o.numel() != self.positions or f.numel() != p + 1 or c.dim() != 2 or c.shape[1] != 2:
                 raise ValueError("a slot's CSR does not match its index and rows")
-            order.append(o.data_ptr())
-            offsets.append(f.data_ptr())
+            for name, t in zip(fields, (o, f, c)):
+                fields[name].append(t.data_ptr())
+            self.long_counts.append(c.shape[0])
         for i, (s0, s1) in enumerate(self.launches):
-            self.params["order"][i, :s1 - s0] = order[s0:s1]
-            self.params["offsets"][i, :s1 - s0] = offsets[s0:s1]
+            for name, values in (*fields.items(), ("num_rows", self.num_rows), ("long_count", self.long_counts)):
+                self.bwd_params[name][i, :s1 - s0] = values[s0:s1]
         self._csr = True
 
 
@@ -180,27 +209,27 @@ def _bwd(group: _Group, grad: torch.Tensor) -> List[torch.Tensor]:
     group.add_csr()
     grad = grad.contiguous()
     n, dim, dtype, dev = len(group.num_rows), group.dim, group.dtype, group.device
-    outs = [torch.empty((p, dim), dtype=dtype, device=dev) for p in group.num_rows]
     if group.positions * dim == 0:
-        return outs
+        return [torch.zeros((p, dim), dtype=dtype, device=dev) for p in group.num_rows]
+    outs = [torch.empty((p, dim), dtype=dtype, device=dev) for p in group.num_rows]
     aligned = grad.data_ptr() % 16 == 0
     lib = _kernels.library()
     stream = _kernels.stream_handle(grad)
     with torch.cuda.device(dev):
         for i, (s0, s1) in enumerate(group.launches):
-            plan = plans.pool_plan(group.positions, s1 - s0, dim, _ELEM_BYTES[dtype], max(group.num_rows[s0:s1]),
-                                   1, aligned)
-            params = group.params[i:i + 1].copy()  # the kernel writes where ``rows`` points
+            plan = plans.raw_gather_bwd_plan(s1 - s0, dim, _ELEM_BYTES[dtype], max(group.num_rows[s0:s1]),
+                                             max(group.long_counts[s0:s1]), aligned)
+            params = group.bwd_params[i:i + 1].copy()  # the kernel writes where ``rows`` points
             params["rows"][0, :s1 - s0] = [o.data_ptr() for o in outs[s0:s1]]
-            partials = torch.empty(plan.scratch_shape, dtype=torch.float32, device=dev)
+            # the long rows' ticket counters start at 0: a memset, only where a slot lists long rows
+            scratch = torch.zeros(plan.scratch_ints, dtype=torch.int32, device=dev) if plan.long_blocks else None
             rc = lib.persia_raw_gather_bwd(
-                params.ctypes.data, grad.data_ptr(), partials.data_ptr(), _DTYPES[dtype], s1 - s0,
-                group.positions, dim, n, s0, plan.bwd_vec, plan.lanes_per_pos, plan.col_tiles,
-                plan.max_chunks, plans.POOL_CHUNK_WARPS, plan.chunk_grid[0], *plan.row_block,
-                plan.row_grid[0], stream,
+                params.ctypes.data, grad.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                _DTYPES[dtype], s1 - s0, group.positions, dim, n, s0, plan.vec, plan.lanes, plan.threads,
+                plan.short_blocks, plan.long_blocks, plan.tile_rows, plan.smem_bytes, stream,
             )
             _kernels.check(rc, "raw_gather_bwd")
-            raw_gather_bwd.launches += 1  # both passes: one call of the kernel pair
+            raw_gather_bwd.launches += 1
     return outs
 
 
@@ -223,9 +252,9 @@ def raw_gather_fwd(rows: Sequence[torch.Tensor], slots: Sequence[RawSlot]) -> to
 def raw_gather_bwd(grad: torch.Tensor, rows: Sequence[torch.Tensor], slots: Sequence[RawSlot]) -> List[torch.Tensor]:
     """Per-slot row gradients (P, dim) in the rows' dtype from the gathered
     rows' gradient ``grad`` (S, B, L, dim), same dtype; the pad row P - 1
-    zero. A CPU tensor takes the plain version; a CUDA tensor two kernel
-    launches per 64 slots (counted as one), which walk each slot's CSR
-    (``raw_csr``) and write every row once."""
+    zero. A CPU tensor takes the plain version; a CUDA tensor one kernel
+    launch per 64 slots, which walks each slot's CSR (``raw_csr``) and
+    writes every row once."""
     group = _Group(rows, slots)
     _check_grad(grad, group)
     if group.device.type == "cpu":

@@ -14,7 +14,8 @@ entries are in the wire dtype):
                    ["pool_order": (B*L,) i32, "pool_offsets": (P+1,) i32]}  # device-pooled slot
                 | {"distinct": (P, D), "index": (B, L) i32,
                    "mask": (B, L) bool,
-                   ["order": (B*L,) i32, "offsets": (P+1,) i32]} ... ],  # raw slot
+                   ["order": (B*L,) i32, "offsets": (P+1,) i32,
+                    "long_chunks": (M, 2) i32]} ... ],  # raw slot
     }
 
 The train step runs forward, loss, backward and the dense optimizer's
@@ -76,7 +77,7 @@ def _split_emb(emb: List[Dict]) -> Tuple[List, List]:
             ))
         else:
             diff.append(e["distinct"])
-            static.append((RawSlot(e["index"], e.get("order"), e.get("offsets")), e["mask"]))
+            static.append((RawSlot(e["index"], e.get("order"), e.get("offsets"), e.get("long_chunks")), e["mask"]))
     return diff, static
 
 
@@ -206,18 +207,20 @@ def build_train_step(
 
 
 def unpack_step_header(header: np.ndarray, batch: Dict):
-    """Host view of the step's small output: (loss, preds)."""
+    """Host view of the step's small output: (loss, preds). A NaN or Inf
+    loss is logged (``_note_nonfinite_loss``)."""
     shape = tuple(batch["labels"][0].shape)
     n = int(np.prod(shape))
-    return float(header[0]), header[1:1 + n].reshape(shape)
+    return _note_nonfinite_loss(float(header[0])), header[1:1 + n].reshape(shape)
 
 
 def unpack_step_header_dynamic(header: np.ndarray, batch: Dict):
     """Header view for a ``dynamic_loss_scale`` step:
-    (loss, preds, scale_used, grads_finite)."""
+    (loss, preds, scale_used, grads_finite). A NaN or Inf loss is logged."""
     shape = tuple(batch["labels"][0].shape)
     n = int(np.prod(shape))
-    return float(header[0]), header[3:3 + n].reshape(shape), float(header[1]), bool(header[2] > 0.5)
+    loss = _note_nonfinite_loss(float(header[0]))
+    return loss, header[3:3 + n].reshape(shape), float(header[1]), bool(header[2] > 0.5)
 
 
 def unpack_step_grads(gpacked: np.ndarray, batch: Dict) -> List[np.ndarray]:

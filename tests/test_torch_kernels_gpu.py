@@ -1081,10 +1081,20 @@ def _raw_group(dev, dtype, b, l, dim, case, seed, slots=2):
         else:
             index = np.full((b, l), p - 1)
         index = index.astype(np.int32)
-        order, offsets = raw_csr(index, p)
         rows.append(torch.from_numpy(r).to(dev, dtype))
-        raw.append(RawSlot(*(torch.from_numpy(a).to(dev) for a in (index, order, offsets))))
+        raw.append(RawSlot(*(torch.from_numpy(a).to(dev) for a in (index, *raw_csr(index, p)))))
     return rows, raw
+
+
+def _raw_schedule_bits(grad, raw, dtype):
+    """``plans.raw_bwd_model`` (K7's order, in numpy) of each slot, rounded
+    to ``dtype``, as bits."""
+    from persia_tpu_torch.ops import plans
+
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    return [torch.from_numpy(plans.raw_bwd_model(g.reshape(-1, g.shape[-1]).float().cpu().numpy(),
+                                                 s.order.cpu().numpy(), s.offsets.cpu().numpy())).to(dtype).view(bits)
+            for g, s in zip(grad, raw)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1092,11 +1102,13 @@ def _raw_group(dev, dtype, b, l, dim, case, seed, slots=2):
                                           ("all_masked", 64, 50, 16), ("random", 77, 9, 10),
                                           ("random", 33, 5, 24), ("random", 40, 3, 128)])
 def test_raw_gather_kernels_match_plain(cuda, case, b, l, dim, dtype):
-    """K6 copies rows: bit for bit. K7 sums each row's terms in f32 in its
-    fixed order, index_add_ in stream order: within twice the f32
-    sum-order bound of the row, then one rounding (1e-6 relative in f32,
-    one bf16 ulp in bf16); the pad row zero; two calls agree bit for
-    bit."""
+    """K6 copies rows: bit for bit. K7 bit for bit its schedule
+    (``plans.raw_bwd_model``: a row's terms in f32 in stream order, a long
+    row's chunk by chunk) and, where it differs from index_add_'s stream
+    order (the one-row case's long row), within twice the f32 sum-order
+    bound of the row, then one rounding (1e-6 relative in f32, one bf16 ulp
+    in bf16) of the plain version; the pad row zero; two calls agree bit
+    for bit."""
     from persia_tpu_torch.ops import raw_gather_bwd, raw_gather_fwd
     from persia_tpu_torch.ops.raw_gather import raw_gather_bwd_reference, raw_gather_fwd_reference
 
@@ -1117,6 +1129,44 @@ def test_raw_gather_kernels_match_plain(cuda, case, b, l, dim, dtype):
         err = (got.float() - ref.float()).abs()
         assert bool((err <= 2 * n * 2 ** -24 * a + rtol * ref.float().abs() + 1e-30).all()), float(err.max())
         assert torch.equal(got, rep) and not got[-1].any()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for got, want in zip(grads, _raw_schedule_bits(g, raw, dtype)):
+        assert torch.equal(got.cpu().view(bits), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim", [16, 10])
+def test_raw_gather_bwd_long_rows_match_their_schedule(cuda, dim, dtype):
+    """K7's long rows: rows of K7_LONG_MIN - 1, K7_LONG_MIN and + 1
+    positions, of one chunk and one position past it, of several chunks,
+    and every position of a slot on one row, each bit for bit
+    ``plans.raw_bwd_model`` (the chunk sums in chunk order, whichever
+    block finishes last) and run to run; the short rows beside them and
+    the pad row as always. One launch a call."""
+    from persia_tpu_torch.ops import RawSlot, plans, raw_csr, raw_gather_bwd
+
+    t, c = plans.K7_LONG_MIN, plans.K7_CHUNK
+    rng = np.random.default_rng(dim)
+    b, l, p = 64, 160, 4096
+    lengths = [t - 1, t, t + 1, c, c + 1, 3 * c + 5]
+    flat = np.concatenate([np.full(n, r) for r, n in enumerate(lengths)])
+    rest = b * l - flat.size
+    flat = np.concatenate([flat, rng.integers(len(lengths), p - 1, rest // 2), np.full(rest - rest // 2, p - 1)])
+    cases = [rng.permutation(flat).reshape(b, l), np.full((b, l), 5)]
+    rows = [torch.zeros((p, dim), device=cuda, dtype=dtype) for _ in cases]
+    raw = [RawSlot(*(torch.from_numpy(a).to(cuda) for a in (i.astype(np.int32), *raw_csr(i.astype(np.int32), p))))
+           for i in cases]
+    assert [s.long_chunks.shape[0] for s in raw] == [1 + 1 + 1 + 2 + 4, -(-b * l // c)]
+    g = _randn((len(cases), b, l, dim), seed=dim + 1, dev=cuda, dtype=dtype)
+    before = raw_gather_bwd.launches
+    grads = raw_gather_bwd(g, rows, raw)
+    again = raw_gather_bwd(g, rows, raw)
+    torch.cuda.synchronize()
+    assert raw_gather_bwd.launches == before + 2
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for got, rep, want in zip(grads, again, _raw_schedule_bits(g, raw, dtype)):
+        assert torch.equal(got.cpu().view(bits), want) and torch.equal(got, rep)
+        assert not got[-1].any()
 
 
 _OUT_OF_RANGE = """
@@ -1127,10 +1177,11 @@ rows = torch.randn(8, 16, device="cuda")
 index = torch.tensor([[0, 8, -1, 7]], dtype=torch.int32)
 if sys.argv[1] == "fwd":
     raw_gather_fwd([rows], [RawSlot(index.cuda())])
-else:  # a CSR that lists position 2 (index -1) among row 0's
-    order, offsets = raw_csr(index.clamp(min=0).numpy(), 9)
-    slot = RawSlot(index.cuda(), torch.from_numpy(order).cuda(), torch.from_numpy(offsets[:9]).cuda())
-    raw_gather_bwd(torch.randn(1, 1, 4, 16, device="cuda"), [rows], [slot])
+else:  # a CSR whose order lists position 4 of the 4 positions
+    order, offsets, long_chunks = (torch.from_numpy(a).cuda() for a in raw_csr(index.clamp(0, 7).numpy(), 8))
+    order[0] = 4
+    raw_gather_bwd(torch.randn(1, 1, 4, 16, device="cuda"), [rows], [RawSlot(index.cuda(), order, offsets,
+                                                                             long_chunks)])
 torch.cuda.synchronize()
 print("no fault")
 """
@@ -1138,9 +1189,11 @@ print("no fault")
 
 @pytest.mark.parametrize("direction", ["fwd", "bwd"])
 def test_raw_gather_never_reads_out_of_range(cuda, direction):
-    """An index outside [0, P) stops K6 and K7 with a device-side assert,
-    as index_select does on the card (the host raises before staging one);
-    in a process of its own, since the fault ends its CUDA context."""
+    """An index outside [0, P) stops K6 with a device-side assert, as
+    index_select does on the card (the host raises before staging one);
+    K7 reads no index, and a CSR entry outside the slot's positions stops
+    it the same way; in a process of its own, since the fault ends its
+    CUDA context."""
     import os
     import subprocess
     import sys

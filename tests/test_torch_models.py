@@ -202,6 +202,27 @@ CTX_MODELS = {
 }
 
 
+@pytest.mark.parametrize("fan_in,fan_out", [(512, 256), (13, 256)])
+def test_lecun_init_draws_flax_lecun_normal(fan_in, fan_out):
+    """Every model's own initialisation (``layers.lecun_init_``) draws
+    flax ``Dense``'s default kernel: a normal truncated at two sigmas whose
+    std is 1 / sqrt(fan_in), so |w| * sqrt(fan_in) <= 2 / 0.87962566; zero
+    biases; the std within 3 % of ``flax.linen.Dense(...).init``'s at the
+    same shape."""
+    import flax.linen as fnn
+
+    from persia_tpu_torch.models.layers import lecun_init_
+
+    layer = torch.nn.Linear(fan_in, fan_out)
+    lecun_init_([layer], torch.Generator().manual_seed(0))
+    w = layer.weight.detach().numpy().astype(np.float64) * np.sqrt(fan_in)
+    assert np.abs(w).max() <= 2.2737 + 1e-6
+    assert not layer.bias.detach().any()
+    ref = fnn.Dense(fan_out).init(jax.random.PRNGKey(0), jnp.zeros((1, fan_in)))["params"]["kernel"]
+    ref = np.asarray(ref, np.float64) * np.sqrt(fan_in)
+    assert abs(w.std() / ref.std() - 1) < 0.03, (w.std(), ref.std())
+
+
 @pytest.mark.parametrize("name", CTX_MODELS)
 def test_model_trains(name):
     ctx = _ctx(CTX_MODELS[name]())

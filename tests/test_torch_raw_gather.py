@@ -145,9 +145,11 @@ def test_staging_range_checks_the_raw_index():
     assert count == 10 and entry["distinct"].shape == (16, 4)
     np.testing.assert_array_equal(entry["index"], [[0, 3, 15], [9, 15, 15]])
     np.testing.assert_array_equal(entry["mask"], index != 10)
-    order, offsets = raw_csr(entry["index"], 16)
+    order, offsets, long_chunks = raw_csr(entry["index"], 16)
     np.testing.assert_array_equal(entry["order"], order)
     np.testing.assert_array_equal(entry["offsets"], offsets)
+    np.testing.assert_array_equal(entry["long_chunks"], long_chunks)
+    assert long_chunks.shape == (0, 2)
     np.testing.assert_array_equal(offsets[[0, 1, 4, 10, 15, 16]], [0, 1, 2, 3, 3, 3])
     assert "order" not in stage_embeddings([eb])[0][0]
     for bad in (np.array([[0, 16]], np.int32), np.array([[-2, 0]], np.int32)):
@@ -162,7 +164,7 @@ def test_raw_csr_leaves_the_pad_row_out(case):
     pad positions after them."""
     rows, index = _slot(np.random.default_rng(4), 12, 8, 11, 4, case)
     p = rows.shape[0]
-    order, offsets = raw_csr(index, p)
+    order, offsets, _ = raw_csr(index, p)
     pool_order, pool_offsets = pool_csr(index, p)
     np.testing.assert_array_equal(order, pool_order)
     np.testing.assert_array_equal(offsets[:-1], pool_offsets[:-1])

@@ -164,3 +164,22 @@ def test_loss_scale_clips_at_max(max_scale):
                                  max_scale=max_scale)
     tstep(tstate, _torch_batch(_host_batch(3)))
     assert tstate.loss_scale.scale == min(2.0 ** 16, max_scale)
+
+
+@pytest.mark.parametrize("loss", [float("nan"), float("inf"), 0.25])
+def test_unpacked_loss_runs_the_nonfinite_guard(caplog, loss):
+    """``unpack_step_header`` and ``unpack_step_header_dynamic`` pass the
+    host loss through ``_note_nonfinite_loss``, as the reference does
+    (``persia_tpu/parallel/train_step.py:294,304``): a NaN or Inf loss logs
+    the port's warning once for each, a finite one nothing."""
+    batch = {"labels": [np.zeros((4, 1), np.float32)]}
+    header = np.array([loss, 0.1, 0.2, 0.3, 0.4], np.float32)
+    dynamic = np.array([loss, 2.0 ** 15, 1.0, 0.1, 0.2, 0.3, 0.4], np.float32)
+    with caplog.at_level("WARNING", logger="persia_tpu_torch.train_step"):
+        got, preds = tts.unpack_step_header(header, batch)
+        got_d, preds_d, scale, finite = tts.unpack_step_header_dynamic(dynamic, batch)
+    np.testing.assert_array_equal([got, got_d], [loss, loss])
+    np.testing.assert_array_equal(preds, preds_d)
+    assert preds.shape == (4, 1) and (scale, finite) == (2.0 ** 15, True)
+    warned = [r for r in caplog.records if "non-finite loss" in r.getMessage()]
+    assert len(warned) == (0 if np.isfinite(loss) else 2)
