@@ -16,7 +16,8 @@ result line:
    TMA loads (UTMALDG), the f32 one without spills; K5's kernels and the
    routing kernel on the dim-16 f32 path without spills; K6-K9's kernels
    (raw gather and its scatter-add, attention pool) and K2's two passes
-   reported;
+   reported, K9 by template, K8 and K9 at the DIN path's template (2
+   positions a lane) without spills;
 2. flash_attention on the card vs its plain version (dense f32 softmax):
    the bf16 route (wgmma) and the f32 route (split TF32 on wgmma, its
    pre-pass held bit for bit to ``tf32_split_planes_reference``) at every
@@ -53,7 +54,9 @@ result line:
    (weights to 1e-6, the pooled rows inside their f64 envelope: an f32 sum
    in any order, then one rounding) and K9 ``attention_pool_bwd`` (d_hist
    bit for bit, d_logits inside its envelope), kernel and plain version
-   alike, nothing at masked positions or on the empty row;
+   alike, nothing at masked positions or on the empty row, no NaN; K8 and
+   K9 again at their edges (``ATT_EDGE_CASES``: every template, a lane
+   group walking past kAhead, the scalar path) on random masks;
 4. the paths, each with the launch counts set to 0 just before and read
    just after: (a) the flash-attention entry point at (B=4, L=1024, H=8,
    D=64) in bf16 and in f32, causal and not, and its backward (a dense
@@ -146,7 +149,9 @@ result line:
    own step (K6 beside ``torch.index_select``, K7 beside ``index_add_``
    with their ratio, the longest segments, every position on one row and
    its kernels a call in the device trace, K8 beside the softmax + bmm
-   composite), warm and cold;
+   composite, K9's registers and its kernels in the device trace), warm
+   and cold; the one-launch floor (a one-element ``add_``, twice) and the
+   routing pass's time over it;
    and (5b) the flash-attention backward, a dense recompute, beside SDPA's
    backward.
 
@@ -204,6 +209,13 @@ DIN_REPRO, DIN_BATCHES, DIN_EVAL, DIN_PROFILED, DIN_REQUESTS = 3, 16, 4, 4, 5
 DIN_KERNELS = ("raw_gather_fwd", "raw_gather_bwd", "attention_pool_fwd", "attention_pool_bwd")
 RAW_SOURCE, RAW_REPLACES = "persia_tpu_torch/csrc/raw_gather.cu", "persia_tpu/parallel/train_step.py:90"
 ATT_SOURCE, ATT_REPLACES = "persia_tpu_torch/csrc/attention_pool.cu", "persia_tpu/models/din.py:67"
+# K8/K9's template at the DIN path's shape (bf16, 16-byte vectors, 2
+# positions a lane), and the kernels' edge cases (B, L, dim) that phase 3c
+# and --ab add: positions a lane (L <= 32, 64, 256, 1536: 1, 2, 8, 48; past
+# 256 K9's g goes through shared memory), a lane group walking more than
+# kAhead positions (L = 200), the scalar path (dim 10)
+ATT_DIN_TEMPLATE = "bf16,8,2"
+ATT_EDGE_CASES = [(37, l, 16) for l in (32, 33, 64, 65, 200, 256, 257, 1536)] + [(37, 200, 10)]
 # phase 4i: DeepFM and DCN-v2 on Avazu at examples/avazu/train.py's width
 AVAZU_FIELDS, AVAZU_BATCH, AVAZU_STEPS, AVAZU_CPU_STEPS, AVAZU_DEEP = 21, 4096, 8, 3, (256, 128)
 FA_SOURCE = {"wgmma_bf16": "persia_tpu_torch/csrc/flash_attention_hopper.cu",
@@ -516,6 +528,15 @@ def phase_build():
         missing = [n for n in DIN_KERNEL_NAMES + K2_KERNEL_NAMES if not any(k.split("<")[0] == n for k in summary)]
         if missing:
             raise SystemExit(f"the build reported nothing for {missing}")
+        k9 = {k: (v.get("registers"), v.get("spill_bytes")) for k, v in summary.items()
+              if k.startswith("attention_pool_bwd_kernel<")}
+        print(f"  K9 by template (registers, spill bytes): {k9}", flush=True)
+        din_path = {f"{n}<{t}>": summary.get(f"{n}<{t}>", {}).get("spill_bytes")
+                    for n in ("attention_pool_fwd_kernel", "attention_pool_bwd_kernel")
+                    for t in (ATT_DIN_TEMPLATE, "f32,4,2")}
+        print(f"  K8 and K9 on the DIN path, spill bytes: {din_path}", flush=True)
+        if any(v is None or v for v in din_path.values()):
+            raise SystemExit(f"K8 or K9 spills on the DIN path or was not reported: {din_path}")
         k5 = {k: summary.get(k, {}).get("spill_bytes") for k in K5_DIM16}
         print(f"  K5 and the routing on the dim-16 path, spill bytes: {k5}", flush=True)
         if any(v is None or v for v in k5.values()):
@@ -2159,20 +2180,25 @@ def raw_schedule_bits(grad, slots, dtype):
             for g, s in zip(grad, slots)]
 
 
-def att_inputs(dev, dtype, seed, batch=DIN_BATCH, hist=DIN_HIST):
-    """K8/K9's inputs at the DIN path's shape: f32 logits, Taobao's masks
-    (sample 0 with no history, sample 1 a full one), history rows zero at
-    the pads, the pooled rows' gradient."""
+def att_inputs(dev, dtype, seed, batch=DIN_BATCH, hist=DIN_HIST, dim=DIN_DIM, prefix=True):
+    """K8/K9's inputs, by default at the DIN path's shape: f32 logits,
+    Taobao's masks (a valid prefix; ``prefix=False``: each position valid
+    with probability 1/2), sample 0 with no history, sample 1 a full one,
+    history rows zero at the pads, the pooled rows' gradient."""
     import torch
 
     rng = np.random.default_rng(seed)
-    lengths = rng.integers(1, hist + 1, batch)
-    lengths[0], lengths[1] = 0, hist
-    mask = np.arange(hist)[None, :] < lengths[:, None]
-    h = rng.standard_normal((batch, hist, DIN_DIM)).astype(np.float32)
+    if prefix:
+        lengths = rng.integers(1, hist + 1, batch)
+        lengths[0], lengths[1] = 0, hist
+        mask = np.arange(hist)[None, :] < lengths[:, None]
+    else:
+        mask = rng.random((batch, hist)) < 0.5
+        mask[0], mask[1] = False, True
+    h = rng.standard_normal((batch, hist, dim)).astype(np.float32)
     h[~mask] = 0.0
     logits = (2 * rng.standard_normal((batch, hist))).astype(np.float32)
-    d_out = rng.standard_normal((batch, DIN_DIM)).astype(np.float32)
+    d_out = rng.standard_normal((batch, dim)).astype(np.float32)
     return (torch.from_numpy(logits).to(dev), torch.from_numpy(mask).to(dev), torch.from_numpy(h).to(dev, dtype),
             torch.from_numpy(d_out).to(dev, dtype))
 
@@ -2243,25 +2269,33 @@ def phase_din_kernels(dev):
         # one rounding to the dtype), the kernel and the plain version each
         # with its own weights; d_hist bit for bit; nothing at masked
         # positions or on an empty row
-        logits, mask, hist, d_out = att_inputs(dev, dtype, SEED + 3)
-        out, w = ops.attention_pool_fwd(logits, mask, hist)
-        d_logits, d_hist = ops.attention_pool_bwd(d_out, mask, hist, w)
-        torch.cuda.synchronize()
-        ref_out, ref_w = attention_pool_fwd_reference(logits, mask, hist)
-        ref_dl, ref_dh = attention_pool_bwd_reference(d_out, mask, hist, w)
-        label = f"attention_pool {name} {list(hist.shape)}"
-        check_close(f"{label} weights", w, ref_w, 1e-6, 1e-12)
-        err = check_envelope(f"{label} fwd", out, ref_out, attention_pool_fwd_envelope(w, hist),
-                             attention_pool_fwd_envelope(ref_w, hist))
-        errs.setdefault(("att_fwd", dtype), err)
-        check_close(f"{label} bwd d_hist", d_hist, ref_dh, 0.0, 0.0)
-        env = attention_pool_bwd_envelope(d_out, mask, hist, w)
-        err = check_envelope(f"{label} bwd d_logits", d_logits, ref_dl, env, env)
-        errs.setdefault(("att_bwd", dtype), err)
-        empty = bool(out[0].any()) or bool(d_logits[0].any()) or bool(d_logits[~mask].any())
-        print(f"  {label}: the empty row and masked positions zero: {'FAIL' if empty else 'ok'}", flush=True)
-        if empty:
-            raise SystemExit("attention_pool leaks into masked positions")
+        # (at the DIN shape first, its errors the ones reported; then the
+        # kernels' edge cases, random masks)
+        for b, l, dim in [(DIN_BATCH, DIN_HIST, DIN_DIM)] + ATT_EDGE_CASES:
+            din = (b, l, dim) == (DIN_BATCH, DIN_HIST, DIN_DIM)
+            logits, mask, hist, d_out = att_inputs(dev, dtype, SEED + 3 + (0 if din else l), b, l, dim, prefix=din)
+            out, w = ops.attention_pool_fwd(logits, mask, hist)
+            d_logits, d_hist = ops.attention_pool_bwd(d_out, mask, hist, w)
+            torch.cuda.synchronize()
+            ref_out, ref_w = attention_pool_fwd_reference(logits, mask, hist)
+            ref_dl, ref_dh = attention_pool_bwd_reference(d_out, mask, hist, w)
+            label = f"attention_pool {name} {list(hist.shape)}"
+            check_close(f"{label} weights", w, ref_w, 1e-6, 1e-12)
+            err = check_envelope(f"{label} fwd", out, ref_out, attention_pool_fwd_envelope(w, hist),
+                                 attention_pool_fwd_envelope(ref_w, hist))
+            errs.setdefault(("att_fwd", dtype), err)
+            check_close(f"{label} bwd d_hist", d_hist, ref_dh, 0.0, 0.0)
+            if not same_bits(d_hist, ref_dh):  # signed zeros at masked positions too
+                raise SystemExit(f"{label} bwd d_hist is not bit for bit its plain version")
+            env = attention_pool_bwd_envelope(d_out, mask, hist, w)
+            err = check_envelope(f"{label} bwd d_logits", d_logits, ref_dl, env, env)
+            errs.setdefault(("att_bwd", dtype), err)
+            leak = bool(out[0].any()) or bool(d_logits[0].any()) or bool(d_logits[~mask].any())
+            nan = not (bool(torch.isfinite(d_logits).all()) and bool(torch.isfinite(d_hist.float()).all()))
+            print(f"  {label}: the empty row and masked positions zero, no NaN: "
+                  f"{'FAIL' if leak or nan else 'ok'}", flush=True)
+            if leak or nan:
+                raise SystemExit("attention_pool leaks into masked positions or writes a NaN")
     # the path's dtypes: the f32 wire for K6/K7, bf16 compute for K8/K9
     return {"raw_gather_fwd": errs[("raw_fwd", torch.float32)], "raw_gather_bwd": errs[("raw_bwd", torch.float32)],
             "attention_pool_fwd": errs[("att_fwd", torch.bfloat16)],
@@ -2604,7 +2638,7 @@ def sdpa_kernels(fn) -> list:
     return list(top)
 
 
-def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused, din_batch):
+def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused, din_batch, build):
     import torch
     import torch.nn.functional as F
 
@@ -2623,6 +2657,11 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused, din
     print("== phase 5: timing", flush=True)
     g = torch.Generator(device="cpu").manual_seed(SEED + 3)
     rows = []
+    # the one-launch floor: a one-element in-place add_, timed as every
+    # kernel is (20 calls in a graph, 10 replays), twice
+    one = torch.zeros(1, device=dev)
+    floor = [graph_ms(lambda: one.add_(1.0)) for _ in range(2)]
+    print(f"  launch_floor_ms {floor} (a one-element add_, graph-replayed)", flush=True)
 
     b, l, h, d = 4, 1024, 8, 64
     q, k, v = (torch.randn((b, l, h, d), generator=g).to(dev) for _ in range(3))
@@ -3067,6 +3106,7 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused, din
                  launches=launches["din_training"]["attention_pool_fwd"],
                  launches_by_path={p: v["attention_pool_fwd"] for p, v in din_launches.items()},
                  max_abs_err=errs["attention_pool_fwd"], bound_ms=bms, bound_by=by,
+                 registers=build.get(f"attention_pool_fwd_kernel<{ATT_DIN_TEMPLATE}>", {}).get("registers"),
                  composite_ms=min(graph_ms(composite) for _ in range(2)),
                  library_note="none: no one PyTorch call computes it; composite_ms is torch.softmax + torch.bmm "
                               "(two calls, no mask on empty rows)"),
@@ -3086,6 +3126,7 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused, din
                  launches=launches["din_training"]["attention_pool_bwd"],
                  launches_by_path={p: v["attention_pool_bwd"] for p, v in din_launches.items()},
                  max_abs_err=errs["attention_pool_bwd"], bound_ms=bms, bound_by=by,
+                 registers=build.get(f"attention_pool_bwd_kernel<{ATT_DIN_TEMPLATE}>", {}).get("registers"),
                  library_note="none: no one PyTorch call computes it"),
             kernel=lambda: ops.attention_pool_bwd(d_out, mask, hist, w),
             plain=lambda: attention_pool_bwd_reference(d_out, mask, hist, w),
@@ -3094,16 +3135,31 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused, din
         make_copy=lambda: (d_out.clone(), mask.clone(), hist.clone(), w.clone()),
         copy_bytes=att_copy + nbytes([d_out, w]) - logits.numel() * 4,
     ))
+    # K9 is one kernel a call: the device's events over 20 calls by name
+    k9 = rows[-1]
+    _, top, runs = device_busy_ms(lambda _: ops.attention_pool_bwd(d_out, mask, hist, w), [None] * 20)
+    k9["trace_20_calls"] = {"attention_pool_bwd_kernel": runs["attention_pool_bwd_kernel"],
+                            "device_events_ms_a_call": top}
+    print(f"  attention_pool_bwd: warm {k9['ms']:.5f} ms, cold {k9['cold_ms']:.5f} ms, bound {k9['bound_ms']:.5f} "
+          f"({k9['bound_ms'] / k9['cold_ms']:.1%} cold); registers {k9['registers']} at <{ATT_DIN_TEMPLATE}>; "
+          f"20 calls in the trace: {k9['trace_20_calls']}", flush=True)
+    if not runs["attention_pool_bwd_kernel"] or any("attention_pool_bwd_kernel" not in n for n in top):
+        raise SystemExit(f"attention_pool_bwd ran other device work than its kernel: {top}")
+    uk = next(r for r in rows if r["name"] == "update_keys")
+    uk["over_launch_floor"] = uk["ms"] / min(floor)
+    print(f"  update_keys warm {uk['ms']:.5f} ms = {uk['over_launch_floor']:.3f}x the launch floor "
+          f"{min(floor):.5f} ms", flush=True)
     for r in rows:
         print(json.dumps({"kernel_timing": r, "card": card}), flush=True)
-    return rows
+    return rows, floor
 
 
 def ab_run(root: str, out_path: str) -> int:
     """``--ab ROOT OUT.npz``: K2, K7, K8 and K9 of the package in the
     checkout ROOT (another commit's tree, unpacked), on this script's
     seeded inputs: phase 3c's for K7 (both dtypes, the Taobao histories
-    and every position on one row), K8 and K9 (both dtypes), phase 3's
+    and every position on one row), K8 and K9 (both dtypes, the DIN shape
+    and ``ATT_EDGE_CASES``), phase 3's
     zipf(1.2) bench case for K2. Their outputs' bits go to OUT.npz; their
     graph-replayed times, warm and cold (K7 beside ``index_add_`` over the
     live positions, at f32; K8 and K9 at bf16), are printed as one JSON
@@ -3135,6 +3191,13 @@ def ab_run(root: str, out_path: str) -> int:
         d_logits, d_hist = ops.attention_pool_bwd(d_out, mask, hist, w)
         bits.update({f"att_fwd_out_{name}": as_bits(out), f"att_fwd_w_{name}": as_bits(w),
                      f"att_bwd_dlogits_{name}": as_bits(d_logits), f"att_bwd_dhist_{name}": as_bits(d_hist)})
+        for b, l, dim in ATT_EDGE_CASES:  # phase 3c's edge cases
+            e_logits, e_mask, e_hist, e_dout = att_inputs(dev, dtype, SEED + 3 + l, b, l, dim, prefix=False)
+            e_out, e_w = ops.attention_pool_fwd(e_logits, e_mask, e_hist)
+            e_dl, e_dh = ops.attention_pool_bwd(e_dout, e_mask, e_hist, e_w)
+            case = f"{name}_{b}x{l}x{dim}"
+            bits.update({f"att_fwd_out_{case}": as_bits(e_out), f"att_fwd_w_{case}": as_bits(e_w),
+                         f"att_bwd_dlogits_{case}": as_bits(e_dl), f"att_bwd_dhist_{case}": as_bits(e_dh)})
         if dtype == torch.bfloat16:
             copy = nbytes([logits, mask, hist])
             times["attention_pool_fwd"] = {
@@ -3243,7 +3306,7 @@ def main() -> int:
     launches = {"flash_attention": fa_routes, "serving": serving_launches,
                 "training": training_launches, "pipelined": pipelined_launches,
                 "durable": durable_launches, "fused": fused_launches, **din_launches}
-    rows = phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused_inputs, din_batch)
+    rows, floor = phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused_inputs, din_batch, build)
     time_flash_backward(dev, card)
     print(json.dumps({"serving": serving, "card": card}), flush=True)
     print(json.dumps({"training": training, "card": card}), flush=True)
@@ -3260,9 +3323,9 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "eager_ms",
             "library_eager_ms", "cold_ms", "library_cold_ms", "sort_ms", "zipf_ms", "zipf_cold_ms",
             "zipf_bound_ms", "zipf_sort_ms", "longest_segment", "zipf_longest_segment", "one_row_ms",
-            "composite_ms")
+            "composite_ms", "registers", "over_launch_floor")
     kernels = [{k: r.get(k) for k in keys} for r in rows if not r.get("causal")]
-    print(json.dumps({"kernels": kernels, "card": card}), flush=True)
+    print(json.dumps({"kernels": kernels, "launch_floor_ms": floor, "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -569,10 +569,14 @@ def raw_bwd_model(values: np.ndarray, order: np.ndarray, offsets: np.ndarray) ->
 
 # DIN's masked attention pool, K8 and K9 (csrc/attention_pool.cu): one warp
 # per sample row, ATT_POOL_WARPS a block; a lane group of lanes lanes takes
-# one position's row, vec columns a lane (16-byte loads). The forward keeps
-# its weights in registers, the backward its weights and g in shared memory
+# one position's row, vec columns a lane (16-byte loads). A lane holds the
+# weights of positions lane + 32 i in registers, at most
+# ATT_POOL_MAX_PER_LANE of them (kMaxPerLane), which bounds a row; past
+# ATT_POOL_MID_PER_LANE a lane (kMidPerLane) the backward keeps g in shared
+# memory, L floats a warp, and needs none below
 ATT_POOL_WARPS = 4
-ATT_POOL_SMEM_MAX = SMEM_STATIC  # the backward's weights and g of each warp's row
+ATT_POOL_MID_PER_LANE = 8
+ATT_POOL_MAX_PER_LANE = 48
 
 
 @dataclass(frozen=True)
@@ -584,7 +588,7 @@ class AttentionPoolPlan:
     lanes: int  # lanes of a position's group: a power of 2 dividing dim / vec
     warps: int
     grid: int
-    bwd_smem: int  # bytes: the rounded weights and g of each warp's row
+    bwd_smem: int  # bytes: g of each warp's row, on rows past 32 * ATT_POOL_MID_PER_LANE positions
 
 
 @functools.lru_cache(maxsize=256)
@@ -600,10 +604,10 @@ def attention_pool_plan(batch: int, seq_len: int, dim: int, elem_bytes: int, ali
     vec = wide if aligned and dim % wide == 0 else 1
     units = dim // vec
     lanes = min(units & -units, 32)  # the largest power of 2 dividing it
-    bwd_smem = ATT_POOL_WARPS * 2 * seq_len * 4
-    if bwd_smem > ATT_POOL_SMEM_MAX:
-        raise ValueError(f"the attention pool takes at most {ATT_POOL_SMEM_MAX // (8 * ATT_POOL_WARPS)} "
-                         f"positions a row, got {seq_len}")
+    if seq_len > 32 * ATT_POOL_MAX_PER_LANE:
+        raise ValueError(f"the attention pool takes at most {32 * ATT_POOL_MAX_PER_LANE} positions a row, "
+                         f"got {seq_len}")
+    bwd_smem = ATT_POOL_WARPS * seq_len * 4 if seq_len > 32 * ATT_POOL_MID_PER_LANE else 0
     return AttentionPoolPlan(batch=batch, seq_len=seq_len, dim=dim, vec=vec, lanes=lanes, warps=ATT_POOL_WARPS,
                              grid=-(-batch // ATT_POOL_WARPS), bwd_smem=bwd_smem)
 

@@ -272,19 +272,29 @@ def test_attention_pool_plan_lane_groups_divide_the_row(batch, seq, dim, elem, a
     units = dim // p.vec
     assert units % p.lanes == 0 and p.lanes & (p.lanes - 1) == 0 and p.lanes <= 32
     assert (p.grid - 1) * p.warps < batch <= p.grid * p.warps
-    assert p.bwd_smem == p.warps * 2 * seq * 4 <= plans.SMEM_STATIC  # the forward needs none
+    # the forward needs no shared memory, the backward only past the register path
+    in_smem = seq > 32 * plans.ATT_POOL_MID_PER_LANE
+    assert p.bwd_smem == (p.warps * seq * 4 if in_smem else 0) <= plans.SMEM_STATIC
 
 
-def test_attention_pool_plan_refuses_rows_past_shared_memory():
-    """The backward's shared memory bounds a row; the forward holds as many
-    positions in registers (kMaxPerLane a lane in csrc/attention_pool.cu)."""
+def test_attention_pool_plan_refuses_rows_past_the_registers():
+    """A lane holds its positions' weights in registers, kMaxPerLane of
+    them (csrc/attention_pool.cu), which bounds a row in both directions;
+    the backward's g goes to shared memory past kMidPerLane a lane, and
+    fits it at the longest row."""
     import re
     from pathlib import Path
 
-    longest = plans.SMEM_STATIC // (8 * plans.ATT_POOL_WARPS)
     src = (Path(plans.__file__).resolve().parent.parent / "csrc" / "attention_pool.cu").read_text()
-    assert 32 * int(re.search(r"constexpr int kMaxPerLane = (\d+);", src).group(1)) == longest
-    plans.attention_pool_plan(4, longest, 16, 2)
+    assert int(re.search(r"constexpr int kMaxPerLane = (\d+);", src).group(1)) == plans.ATT_POOL_MAX_PER_LANE
+    assert int(re.search(r"constexpr int kMidPerLane = (\d+);", src).group(1)) == plans.ATT_POOL_MID_PER_LANE
+    longest = 32 * plans.ATT_POOL_MAX_PER_LANE
+    assert longest == 1536
+    smem = plans.attention_pool_plan(4, longest, 16, 2).bwd_smem
+    assert smem == plans.ATT_POOL_WARPS * longest * 4 <= plans.SMEM_STATIC
+    mid = 32 * plans.ATT_POOL_MID_PER_LANE
+    assert (plans.attention_pool_plan(4, mid, 16, 2).bwd_smem, plans.attention_pool_plan(4, mid + 1, 16, 2).bwd_smem) \
+        == (0, plans.ATT_POOL_WARPS * (mid + 1) * 4)
     with pytest.raises(ValueError):
         plans.attention_pool_plan(4, longest + 1, 16, 2)
     with pytest.raises(ValueError):

@@ -1234,8 +1234,17 @@ def _pool_inputs(dev, dtype, b, l, dim, seed):
     return logits, torch.from_numpy(mask).to(dev), torch.from_numpy(hist).to(dev, dtype), d_out
 
 
+# the DIN shape and earlier cases, then the kernels' edges: a lane's
+# positions (L <= 32, 64, 256 and 1536 take 1, 2, 8 and 48 a lane; past 256
+# the backward's g goes through shared memory), a lane group walking more
+# than kAhead (8) positions (L = 200 at dim 16: 13), the scalar path
+# (dim 10) with several vectors a lane
+ATT_POOL_CASES = [(1024, 50, 16), (33, 7, 10), (5, 100, 64), (9, 1, 8), (3, 600, 16)] + [
+    (37, l, 16) for l in (32, 33, 64, 65, 200, 256, 257, 1536)] + [(37, 200, 10)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,l,dim", [(1024, 50, 16), (33, 7, 10), (5, 100, 64), (9, 1, 8), (3, 600, 16)])
+@pytest.mark.parametrize("b,l,dim", ATT_POOL_CASES)
 def test_attention_pool_kernels_match_plain(cuda, b, l, dim, dtype):
     """K8's weights to 1e-6 relative (exp and the sums in another order),
     its pooled rows inside their f64 envelope (an f32 sum in any order,
