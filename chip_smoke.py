@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``persia_tpu_torch``) on one card.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
-    python3 chip_smoke.py --ab ROOT OUT.npz     # K2, K7-K9 of the tree ROOT
+    python3 chip_smoke.py --ab ROOT OUT.npz     # K2, K4, K7-K9 of the tree ROOT
     python3 chip_smoke.py --ab-compare A.npz B.npz ...
 
 (``--ab``: see ``ab_run``; it compares two trees' kernels, parent and
@@ -30,10 +30,13 @@ result line:
    backward's bitwise determinism and, without counts, its sums bit for
    bit against ``plans.pool_bwd_model`` (its own order, in numpy);
    (3b) the fused tier's kernels: K4 ``fused_gather`` bit for bit against
-   its plain version (stacked at the bench shape on uniform and zipf(1.2)
-   ids with pads and ids past the vocab, a bf16 table with a pooled (B, 5)
-   slot, unstacked with NaN rows, dim 10), the routing of the update ids
-   (``update_keys``) bit for bit against its plain version (26 slots of
+   its plain version, with and without the update keys it writes for the
+   step, and those keys bit for bit the plain routing
+   (``update_keys_reference``) (stacked at the bench shape on uniform and
+   zipf(1.2) ids with pads, ids at the vocab's last row, past it and far
+   past it, a bf16 table with a pooled (B, 5) slot, unstacked with NaN
+   rows, dim 10), the standalone routing of the update ids (``update_keys``,
+   the graph step's warm-up) bit for bit against its plain version (26 slots of
    B=4096 with pads, ids past the vocab and ids < -1; 130 slots, two
    launches), K5 ``sparse_update`` bit for bit against its plain version on
    the CPU (SGD, Adagrad, Adagrad vectorwise, all with weight decay, and
@@ -83,14 +86,18 @@ result line:
    card, Adam(1e-3), B=4096, uniform ids): the CUDA-graph step held bit for
    bit to the eager step over 5 steps from one state, its first 3 losses,
    the rows they touched and what the steps changed in them held to the
-   CPU port's from a copy of the state, 100 timed graph steps, synced
+   CPU port's from a copy of the state, the graph step's capture counted
+   (its warm-up and the capture: K4 and K5 twice, ``update_keys`` once,
+   in the warm-up), 100 timed graph steps, synced
    steps, 100 eager steps (the counted run: a graph replay goes through no
-   wrapper; K4, the routing and K5 once a step), a zipf(1.2) stream, the
+   wrapper; K4, which routes the update ids, and K5 once a step,
+   ``update_keys`` never), a zipf(1.2) stream, the
    card's busy time a graph step and its kernels' runs from the device
-   trace (K4, the routing kernel and K5's three kernels once a step),
-   beside the same with the update ids routed slot by slot by the plain
-   version (in turns: new, plain, new; card busy and PyTorch elementwise
-   kernels a step), and ``FusedTrainCtx.train_pipelined`` (depth 2) over
+   trace (K4 and K5's three kernels once a step, the routing kernel
+   never), beside the same with the update ids routed by the standalone
+   kernel after K4 without keys (in turns: new, standalone, new; card busy,
+   PyTorch elementwise kernels and kernel runs a step), and
+   ``FusedTrainCtx.train_pipelined`` (depth 2) over
    32 batches; (f) durable state on the hybrid tier at the training path's
    width and settings (native store 2^25, 64 shards): (a) an uninterrupted
    run of 12 ``train_step``s after a cold ``resume``, ``snapshot_job``
@@ -140,18 +147,20 @@ result line:
    backward at the training path's own inputs, warm and also cold (inputs
    rotated through more than the 50 MB L2, one copy per captured call,
    beside their library calls); the serving latency and throughput; the
-   training throughput and stage breakdown; K4 and K5 at the fused path's
+   training throughput and stage breakdown; K4 (with the update keys, as
+   the step calls it, and without them, in turns) and K5 at the fused path's
    inputs, warm and cold (fresh batches rotated over the 1.66 GB table;
    K5 on uniform and zipf(1.2) ids with the longest segment printed, each
    of its steps apart (torch.profiler), ``torch.sort``'s time beside it,
-   and every position on one row); the routing pass against its bound and
-   its plain version, ``torch.sort`` beside both; K6-K9 at the DIN path's
+   and every position on one row); the standalone routing pass against its
+   bound and its plain version, ``torch.sort`` beside both; K6-K9 at the DIN path's
    own step (K6 beside ``torch.index_select``, K7 beside ``index_add_``
    with their ratio, the longest segments, every position on one row and
    its kernels a call in the device trace, K8 beside the softmax + bmm
    composite, K9's registers and its kernels in the device trace), warm
-   and cold; the one-launch floor (a one-element ``add_``, twice) and the
-   routing pass's time over it;
+   and cold; the one-launch floor (a one-element ``add_``, twice), the
+   standalone routing pass's time over it, and the routing's cost inside
+   K4 (K4 with keys − K4 without);
    and (5b) the flash-attention backward, a dense recompute, beside SDPA's
    backward.
 
@@ -387,7 +396,10 @@ def device_busy_ms(step, batches):
     ones (names cut to 80 chars), and how many times each of the port's
     kernels (``KERNEL_NAMES``) ran in all: the device's own count, which a
     CUDA graph's replays (which go through no wrapper) also show; under
-    "elementwise", the runs of PyTorch's elementwise kernels."""
+    "elementwise", the runs of PyTorch's elementwise kernels; under
+    "replays", one entry a ``cudaGraphLaunch`` in the trace: the runs of
+    each of those kernels that carry its correlation id, and under
+    "events" all its device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -398,13 +410,22 @@ def device_busy_ms(step, batches):
         torch.cuda.synchronize()
     per = {}
     runs = dict.fromkeys(KERNEL_NAMES + ("elementwise",), 0)
+    replays = {e.id: dict.fromkeys(KERNEL_NAMES + ("events",), 0) for e in prof.events()
+               if e.device_type == DeviceType.CPU and e.name.startswith("cudaGraphLaunch")}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
         per[e.name[:80]] = per.get(e.name[:80], 0.0) + e.time_range.elapsed_us() / 1e3 / len(batches)
+        replay = replays.get(e.id)
+        if replay is not None:
+            replay["events"] += 1
         for k in KERNEL_NAMES:
-            runs[k] += bool(re.search(rf"\b{k}\b", e.name))
+            if re.search(rf"\b{k}\b", e.name):
+                runs[k] += 1
+                if replay is not None:
+                    replay[k] += 1
         runs["elementwise"] += "elementwise_kernel" in e.name
+    runs["replays"] = list(replays.values())
     if not sum(per.values()):
         return None, {}, runs
     top = dict(sorted(per.items(), key=lambda kv: -kv[1])[:8])
@@ -531,6 +552,9 @@ def phase_build():
         k9 = {k: (v.get("registers"), v.get("spill_bytes")) for k, v in summary.items()
               if k.startswith("attention_pool_bwd_kernel<")}
         print(f"  K9 by template (registers, spill bytes): {k9}", flush=True)
+        k4 = {k: (v.get("registers"), v.get("spill_bytes")) for k, v in summary.items()
+              if k.startswith("fused_gather_kernel<")}
+        print(f"  K4 by vector (registers, spill bytes): {k4}", flush=True)
         din_path = {f"{n}<{t}>": summary.get(f"{n}<{t}>", {}).get("spill_bytes")
                     for n in ("attention_pool_fwd_kernel", "attention_pool_bwd_kernel")
                     for t in (ATT_DIN_TEMPLATE, "f32,4,2")}
@@ -1729,10 +1753,12 @@ def phase_fused_kernels(dev):
     def slot_ids(kind, shape, vocab=VOCAB):
         ids = fused_ids(rng, kind, int(np.prod(shape)), vocab)
         ids[rng.random(ids.size) < 0.05] = -1  # padding
-        ids[:3] = vocab + np.arange(3)  # past the slot's vocab
+        ids[:5] = vocab + np.array([0, 1, 2, -1, 1 << 30])  # past the slot's vocab, its last row, far past it
         return torch.from_numpy(ids.reshape(shape)).to(dev)
 
-    # K4 copies rows: it must equal its plain version bit for bit (NaNs too)
+    # K4 copies rows: it must equal its plain version bit for bit (NaNs too),
+    # with and without the update keys; the keys (integers) bit for bit the
+    # plain routing
     table = torch.randn((N_SLOTS * VOCAB, EMB_DIM), device=dev, generator=g)
     offsets = [s * VOCAB for s in range(N_SLOTS)]
     narrow = torch.randn((3 * 1000, 10), device=dev, generator=g)
@@ -1753,18 +1779,22 @@ def phase_fused_kernels(dev):
     for label, tbl, ids, offs, vocab, stacked in cases:
         vocabs = [vocab] * len(ids)
         out = ops.fused_gather(tbl, ids, offs, vocabs, stacked)
+        rows, keys = ops.fused_gather(tbl, ids, offs, vocabs, stacked, keys=True)
         ref = fused_gather_reference(tbl, ids, offs, vocabs, stacked)
+        ref_keys = update_keys_reference(ids, offs, vocabs)
         torch.cuda.synchronize()
-        ok = same_bits(out, ref)
-        print(f"  fused_gather {label}: {out.shape[0]} rows ({int(out.isnan().any(1).sum())} NaN): "
+        ok = same_bits(out, ref) and same_bits(rows, ref) and same_bits(keys, ref_keys)
+        print(f"  fused_gather {label}: {out.shape[0]} rows ({int(out.isnan().any(1).sum())} NaN), with and "
+              f"without keys; {keys.numel()} keys ({int((keys == 2 ** 31 - 1).sum())} at the sentinel): "
               f"max_abs_err=0 tolerance=0 (bitwise) {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
-            raise SystemExit(f"fused_gather {label} disagrees with its plain version")
+            raise SystemExit(f"fused_gather {label} disagrees with its plain version (rows or keys)")
     del table, cases
 
-    # the routing: integers, bit for bit its plain version (the per-slot
-    # update_ids, on the card): the bench's 26 slots with pads, ids past the
-    # vocab and ids < -1, and 130 slots (two launches) with (B, 3) slots
+    # the standalone routing (the graph step's warm-up): integers, bit for
+    # bit its plain version (the per-slot update_ids, on the card): the
+    # bench's 26 slots with pads, ids past the vocab and ids < -1, and 130
+    # slots (two launches) with (B, 3) slots
     def routed(nslots, shape, vocab):
         ids = [torch.from_numpy(rng.integers(-4, vocab + 4, shape).astype(np.int32)).to(dev)
                for _ in range(nslots)]
@@ -1939,7 +1969,16 @@ def path_fused(dev):
     g_losses, e_losses = [], []
     for i in range(FUSED_CHECK):
         b = on_card(host[i % FUSED_HOST_BATCHES])
+        if i == 0:  # the graph step's capture, counted: its warm-up and the capture go through the wrappers
+            ops.reset_launch_counts()
         state, (loss, _) = graph_step(state, b)
+        if i == 0:
+            capture_launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+            expected = {fn.__name__: 0 for fn in ops.KERNEL_WRAPPERS}
+            # K4 routes the step's update ids; update_keys only in the warm-up
+            expected.update(dot_interaction=2, dot_interaction_bwd=2, fused_gather=2, update_keys=1, sparse_update=2)
+            print(f"  graph step's capture (warm-up and capture): launches={capture_launches}", flush=True)
+            check_launches("fused path (graph step's capture)", capture_launches, expected)
         twin, (loss2, _) = eager_step(twin, b)
         g_losses.append(loss)
         e_losses.append(loss2)
@@ -2009,7 +2048,7 @@ def path_fused(dev):
     launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
     expected = {fn.__name__: 0 for fn in ops.KERNEL_WRAPPERS}
     expected.update(dot_interaction=FUSED_TIMED, dot_interaction_bwd=FUSED_TIMED,
-                    fused_gather=FUSED_TIMED, update_keys=FUSED_TIMED, sparse_update=FUSED_TIMED)
+                    fused_gather=FUSED_TIMED, sparse_update=FUSED_TIMED)
     print(f"  eager step: {FUSED_TIMED} steps, launches={launches}", flush=True)
     check_launches("fused path (eager step)", launches, expected)
     e_synced = []
@@ -2035,39 +2074,61 @@ def path_fused(dev):
     torch.cuda.empty_cache()
 
     # the card's own time a step (torch.profiler), and the kernels' runs;
-    # then the same with the update ids routed slot by slot (the plain
-    # version, as before the routing kernel), in turns: new, plain, new
-    from persia_tpu_torch.ops.sparse_update import update_keys_reference
+    # then the same with the update ids routed by the standalone kernel
+    # after K4 without keys (the step before the routing moved into K4), in
+    # turns: new, standalone, new
     from persia_tpu_torch.parallel import fused_step as fused_step_module
+
+    def standalone_routing(table, ids, offsets, vocabs, stacked=True, keys=False):
+        rows = ops.fused_gather(table, ids, offsets, vocabs, stacked)
+        return (rows, ops.update_keys(ids, offsets, vocabs)) if keys else rows
 
     prof_batches = [on_card(h) for h in host]
     step_ms = wall / FUSED_TIMED * 1e3
 
     def traced(step):
-        busy_, top_, runs_ = device_busy_ms(lambda b: step(state, b), prof_batches)
-        return busy_, top_, runs_, runs_["elementwise"] / len(prof_batches)
+        """The graph steps over ``prof_batches``, traced until the trace
+        holds every replay whole. A trace can lose device records, a
+        replay's all of them too; a graph's replays run the same kernels,
+        so a trace with fewer replays than steps, or with replays that
+        differ, lost records: it is taken again (three traces at most).
+        A fault of the step shows in every replay and is not retraced."""
+        for attempt in range(1, 4):
+            busy_, top_, runs_ = device_busy_ms(lambda b: step(state, b), prof_batches)
+            replays = runs_["replays"]
+            if len(replays) == len(prof_batches) and replays[0]["events"] and all(r == replays[0] for r in replays):
+                return busy_, top_, runs_, runs_["elementwise"] / len(prof_batches)
+            print(f"  trace {attempt} of the graph steps lost device records: {len(replays)} graph launches "
+                  f"for {len(prof_batches)} steps, device events a launch {[r['events'] for r in replays]}",
+                  flush=True)
+        raise SystemExit("fused path: three traces of the graph steps each lost device records")
+
+    def kernel_runs(runs_):
+        return {"fused_gather": runs_["fused_gather_kernel"], "update_keys": runs_["update_keys_kernel"],
+                **{k: runs_[k] for k in K5_KERNELS},
+                "dot_interaction": runs_["dot_interaction_kernel"] + runs_["dot_interaction_mma_kernel"],
+                "dot_interaction_bwd": runs_["dot_interaction_bwd_kernel"] + runs_["dot_interaction_bwd_mma_kernel"]}
 
     busy, top, runs, elementwise = traced(graph_step)
-    fused_step_module.update_keys = update_keys_reference
+    fused_step_module.fused_gather = standalone_routing
     try:
-        plain_routing_step = build_fused_train_step(cfg, specs, stack=True, jit=True)
-        plain_routing_step(state, prof_batches[0])  # captured with the per-slot routing
+        standalone_step = build_fused_train_step(cfg, specs, stack=True, jit=True)
+        standalone_step(state, prof_batches[0])  # captured with the standalone routing kernel
     finally:
-        fused_step_module.update_keys = ops.update_keys
-    busy_plain, _, runs_plain, elementwise_plain = traced(plain_routing_step)
-    busy2, _, _, elementwise2 = traced(graph_step)
-    del plain_routing_step
-    graph_runs = {"fused_gather": runs["fused_gather_kernel"], "update_keys": runs["update_keys_kernel"],
-                  **{k: runs[k] for k in K5_KERNELS},
-                  "dot_interaction": runs["dot_interaction_kernel"] + runs["dot_interaction_mma_kernel"],
-                  "dot_interaction_bwd": runs["dot_interaction_bwd_kernel"] + runs["dot_interaction_bwd_mma_kernel"]}
+        fused_step_module.fused_gather = ops.fused_gather
+    busy_alone, _, runs_alone, elementwise_alone = traced(standalone_step)
+    busy2, _, runs2, elementwise2 = traced(graph_step)
+    del standalone_step
+    graph_runs, graph_runs2, alone_runs = kernel_runs(runs), kernel_runs(runs2), kernel_runs(runs_alone)
     print(f"  card busy {busy} ms of a {step_ms:.3f} ms graph step; top kernels {top}; kernel runs on the card "
           f"in {len(prof_batches)} graph steps (trace): {graph_runs}", flush=True)
-    print(f"  routing in one launch vs slot by slot (plain version), card busy a graph step: {busy} and {busy2} ms "
-          f"vs {busy_plain} ms; PyTorch elementwise kernels a step: {elementwise} and {elementwise2} vs "
-          f"{elementwise_plain} (routing kernel runs {runs['update_keys_kernel']} vs "
-          f"{runs_plain['update_keys_kernel']})", flush=True)
-    check_launches("fused path (graph step, traced)", graph_runs, dict.fromkeys(graph_runs, len(prof_batches)))
+    print(f"  routing in K4 vs by the standalone kernel, card busy a graph step: {busy} and {busy2} ms vs "
+          f"{busy_alone} ms; PyTorch elementwise kernels a step: {elementwise} and {elementwise2} vs "
+          f"{elementwise_alone}; kernel runs (trace) {graph_runs2} vs {alone_runs}", flush=True)
+    per_step = dict.fromkeys(graph_runs, len(prof_batches))
+    check_launches("fused path (graph step, traced)", graph_runs, {**per_step, "update_keys": 0})
+    check_launches("fused path (graph step, traced again)", graph_runs2, {**per_step, "update_keys": 0})
+    check_launches("fused path (graph step, standalone routing, traced)", alone_runs, per_step)
 
     # FusedTrainCtx.train_pipelined (depth 2, k=1) over FUSED_PIPE batches
     def persia_batch(h):
@@ -2098,7 +2159,10 @@ def path_fused(dev):
         "row_delta_rel_err_vs_cpu": delta_err, "row_delta_max": delta_max, "delta_rel_tolerance": FUSED_DELTA_RTOL,
         "eager_step_launches": {k: launches[k] for k in ("fused_gather", "update_keys", "sparse_update",
                                                          "dot_interaction", "dot_interaction_bwd")},
+        "graph_capture_launches": {k: capture_launches[k] for k in ("fused_gather", "update_keys", "sparse_update",
+                                                                    "dot_interaction", "dot_interaction_bwd")},
         "graph_step_kernel_runs_traced": graph_runs, "traced_graph_steps": len(prof_batches),
+        "standalone_routing_graph_step_kernel_runs_traced": alone_runs,
         "graph_samples_per_s": FUSED_TIMED * BATCH / wall, "graph_step_ms_mean": step_ms,
         "eager_samples_per_s": FUSED_TIMED * BATCH / e_wall,
         "zipf_graph_samples_per_s": FUSED_TIMED * BATCH / z_wall,
@@ -2107,8 +2171,8 @@ def path_fused(dev):
         "eager_step_ms_p50_synced": float(np.percentile(e_synced, 50)), "eager_step_ms_max_synced": max(e_synced),
         "graph_step_device_busy_ms": busy, "graph_step_device_busy_ms_runs": [busy, busy2],
         "graph_step_elementwise_kernels": elementwise,
-        "plain_routing_graph_step_device_busy_ms": busy_plain,
-        "plain_routing_graph_step_elementwise_kernels": elementwise_plain,
+        "standalone_routing_graph_step_device_busy_ms": busy_alone,
+        "standalone_routing_graph_step_elementwise_kernels": elementwise_alone,
         "graph_step_idle_share": None if busy is None else 1 - busy / step_ms,
         "graph_step_top_kernels_ms": top, "eager_step_top_cpu_ms": eager_cpu,
         "pipelined_samples_per_s": FUSED_PIPE * BATCH / pipe_wall, "pipelined_batches": FUSED_PIPE,
@@ -2117,7 +2181,7 @@ def path_fused(dev):
     }
     inputs = {"table": state.tables[group.name], "state": state.emb_state[group.name], "group": group,
               "cfg": cfg, "batch": on_card(host[0]), "zipf_batch": on_card(zipf_host[0])}
-    return launches, fused, inputs
+    return launches, capture_launches, fused, inputs
 
 
 # ---------------------------------------------------------------------------
@@ -2896,22 +2960,41 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused, din
     n_pos = sum(i.numel() for i in ids)
     k4_rows = flat_rows(ids)
     k4_copy = n_pos * 4 + n_pos * EMB_DIM * 4  # the ids and the rows they name
-    bms, by = bound(n_pos * 4 + 2 * n_pos * EMB_DIM * 4, 0, "float32")
+    # K4 as the step calls it, with the update keys: the ids read, each row
+    # read and written, each key written; beside it K4 without keys (its
+    # bound without the keys), before and after, so drift shows
+    bms, by = bound(n_pos * 4 + 2 * n_pos * EMB_DIM * 4 + n_pos * 4, 0, "float32")
+    no_keys = lambda: ops.fused_gather(tbl, ids, grp.offsets, vocabs, True)  # noqa: E731
+    no_keys_cold = lambda: cold_ms(lambda i: ops.fused_gather(tbl, i, grp.offsets, vocabs, True),  # noqa: E731
+                                   lambda: (fresh_ids("uniform"),), k4_copy)["ms"]
+    nk_warm, nk_cold = [graph_ms(no_keys)], [no_keys_cold()]
     rows.append(with_cold(
         timed(
             dict(name="fused_gather", route="cuda", cuda_route="cuda", source=K4_SOURCE, replaces=K4_REPLACES,
-                 shape=[n_pos, EMB_DIM, tbl.shape[0]], dtype="float32", launches=launches["fused"]["fused_gather"],
+                 shape=[n_pos, EMB_DIM, tbl.shape[0]], dtype="float32", keys=True,
+                 launches=launches["fused"]["fused_gather"],
                  max_abs_err=errs["fused_gather"], bound_ms=bms, bound_by=by,
-                 library_note="torch.index_select of the table at the clamped, offset rows (int64)"),
-            kernel=lambda: ops.fused_gather(tbl, ids, grp.offsets, vocabs, True),
-            plain=lambda: fused_gather_reference(tbl, ids, grp.offsets, vocabs, True),
+                 registers=build.get("fused_gather_kernel<uint4>", {}).get("registers"),
+                 plain_note="fused_gather_reference and update_keys_reference",
+                 library_note="torch.index_select of the table at the clamped, offset rows (int64); the rows "
+                              "only: no one PyTorch call computes the keys"),
+            kernel=lambda: ops.fused_gather(tbl, ids, grp.offsets, vocabs, True, keys=True),
+            plain=lambda: (fused_gather_reference(tbl, ids, grp.offsets, vocabs, True),
+                           update_keys_reference(ids, grp.offsets, vocabs)),
             library=lambda: torch.index_select(tbl, 0, k4_rows),
         ),
-        kernel=lambda i: ops.fused_gather(tbl, i, grp.offsets, vocabs, True),
+        kernel=lambda i: ops.fused_gather(tbl, i, grp.offsets, vocabs, True, keys=True),
         make_copy=lambda: (fresh_ids("uniform"),), copy_bytes=k4_copy,
         library=lambda r: torch.index_select(tbl, 0, r),
         make_lib_copy=lambda: (flat_rows(fresh_ids("uniform")),), lib_bytes=n_pos * 8 + n_pos * EMB_DIM * 4,
     ))
+    nk_warm.append(graph_ms(no_keys))
+    nk_cold.append(no_keys_cold())
+    k4 = rows[-1]
+    k4.update(no_keys_ms=min(nk_warm), no_keys_ms_runs=nk_warm, no_keys_cold_ms=min(nk_cold),
+              no_keys_cold_ms_runs=nk_cold, no_keys_bound_ms=bound(n_pos * 4 + 2 * n_pos * EMB_DIM * 4, 0,
+                                                                    "float32")[0])
+    k4.update(routing_cost_ms=k4["ms"] - k4["no_keys_ms"], routing_cost_cold_ms=k4["cold_ms"] - k4["no_keys_cold_ms"])
 
     def k5_inputs(ids):
         """K5's inputs for one batch: the step's sentinel-routed update ids,
@@ -2977,13 +3060,17 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused, din
         longest_segment=u["longest_segment"], zipf_longest_segment=z["longest_segment"],
         stage_ms=u["stage_ms"], zipf_stage_ms=z["stage_ms"], one_row_ms=one_row_ms,
     ))
-    # the routing pass at the fused path's own batch: reads the ids, writes
-    # the keys; its plain version (per-slot comparisons, a where, a cast and
-    # the cat) and torch.sort beside it
+    # the standalone routing pass (the graph step's warm-up; the step routes
+    # inside K4) at the fused path's own batch: reads the ids, writes the
+    # keys; its plain version (per-slot comparisons, a where, a cast and the
+    # cat) and torch.sort beside it. Its launches: the graph step's capture
+    # (the eager step launches it never)
     bms, by = bound(2 * n_pos * 4, 0, "float32")
     rows.append(timed(
         dict(name="update_keys", route="cuda", cuda_route="cuda", source=K5_SOURCE, replaces=ROUTING_REPLACES,
-             shape=[len(ids), BATCH], dtype="int32", launches=launches["fused"]["update_keys"],
+             shape=[len(ids), BATCH], dtype="int32", launches=launches["fused_capture"]["update_keys"],
+             launches_by_path={"fused graph step's capture": launches["fused_capture"]["update_keys"],
+                               "fused eager step": launches["fused"]["update_keys"]},
              max_abs_err=errs["update_keys"], bound_ms=bms, bound_by=by, sort_ms=u["sort_ms"],
              library_note="none: no one PyTorch call computes it"),
         kernel=lambda: ops.update_keys(ids, grp.offsets, vocabs),
@@ -3149,20 +3236,99 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused, din
     uk["over_launch_floor"] = uk["ms"] / min(floor)
     print(f"  update_keys warm {uk['ms']:.5f} ms = {uk['over_launch_floor']:.3f}x the launch floor "
           f"{min(floor):.5f} ms", flush=True)
+    print(f"  fused_gather with keys warm {k4['ms_runs']} cold {k4['cold_ms_runs']} ms (bound {k4['bound_ms']:.5f}, "
+          f"{k4['cold_share']:.1%} cold), without keys warm {k4['no_keys_ms_runs']} cold {k4['no_keys_cold_ms_runs']} "
+          f"ms (bound {k4['no_keys_bound_ms']:.5f}); registers {k4['registers']}; the routing inside K4 costs "
+          f"{k4['routing_cost_ms']:.5f} ms warm, {k4['routing_cost_cold_ms']:.5f} cold, against "
+          f"{uk['ms']:.5f} ms as the standalone launch (launch floor {floor})", flush=True)
     for r in rows:
         print(json.dumps({"kernel_timing": r, "card": card}), flush=True)
     return rows, floor
 
 
+# --ab's K4 cases: (label, dtype, dim, slot shapes, vocab, stacked); the
+# bench's batch (26 stacked slots of 4,096 from the 26M x 16 f32 table, its
+# rows at the fused step's size) and edges of the vector width and slots
+K4_AB_CASES = [
+    ("bench", "float32", EMB_DIM, [(BATCH,)] * N_SLOTS, VOCAB, True),
+    ("bf16_pooled", "bfloat16", EMB_DIM, [(512,), (512, 5)], 1000, True),
+    ("unstacked_nan", "float32", EMB_DIM, [(777,)], 1000, False),
+    ("dim_10", "float32", 10, [(300,), (50, 2)], 200, True),
+    ("dim_3_f32", "float32", 3, [(300,)], 200, True),
+    ("dim_3_bf16", "bfloat16", 3, [(300,)], 200, True),
+    ("129_slots", "float32", EMB_DIM, [(64,)] * 129, 50, True),
+]
+
+
+def k4_ab(dev, ops, times, as_bits) -> dict:
+    """``--ab``'s K4: each ``K4_AB_CASES`` case's rows (and, where this
+    tree's ``fused_gather`` takes ``keys``, its rows and keys with them)
+    and the plain routing's keys, as bits; into ``times``, at the bench
+    case, K4 warm and cold without keys and with them (in turns), the
+    standalone ``update_keys`` and the one-launch floor."""
+    import inspect
+
+    import torch
+
+    from persia_tpu_torch.ops.sparse_update import update_keys_reference
+
+    has_keys = "keys" in inspect.signature(ops.fused_gather).parameters
+    rng = np.random.default_rng(SEED + 13)
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    bits = {}
+    for label, dtype, dim, shapes, vocab, stacked in K4_AB_CASES:
+        table = torch.randn((vocab * len(shapes), dim), device=dev, generator=g).to(getattr(torch, dtype))
+        ids = []
+        for shape in shapes:
+            a = rng.integers(-1, vocab + 3, shape).astype(np.int32)
+            a.reshape(-1)[:4] = [vocab + 7, -1, vocab - 1, 1 << 30]
+            ids.append(torch.from_numpy(a).to(dev))
+        offs, vocabs = ([i * vocab for i in range(len(shapes))] if stacked else [0]), [vocab] * len(shapes)
+        bits[f"k4_rows_{label}"] = as_bits(ops.fused_gather(table, ids, offs, vocabs, stacked))
+        bits[f"k4_keys_ref_{label}"] = as_bits(update_keys_reference(ids, offs, vocabs))
+        if has_keys:
+            rows, keys = ops.fused_gather(table, ids, offs, vocabs, stacked, keys=True)
+            bits[f"k4_rows_keys_{label}"], bits[f"k4_keys_{label}"] = as_bits(rows), as_bits(keys)
+        if label != "bench":
+            continue
+        n_pos = sum(i.numel() for i in ids)
+        fresh_rng = np.random.default_rng(SEED + 14)  # the cold calls' batches, apart from the cases' ids
+
+        def fresh():
+            return ([torch.from_numpy(fresh_rng.integers(0, vocab, BATCH, dtype=np.int32)).to(dev)
+                     for _ in shapes],)
+
+        def k4_times(kw):
+            return {"warm_ms": graph_ms(lambda: ops.fused_gather(table, ids, offs, vocabs, True, **kw)),
+                    "cold_ms": cold_ms(lambda i: ops.fused_gather(table, i, offs, vocabs, True, **kw), fresh,
+                                       n_pos * 4 + n_pos * dim * 4)["ms"]}
+
+        sides = [{}, {"keys": True}, {"keys": True}, {}] if has_keys else [{}, {}]
+        runs = [(bool(kw), k4_times(kw)) for kw in sides]
+        for name, with_keys in (("fused_gather", False), ("fused_gather_keys", True)):
+            mine = [t for k, t in runs if k == with_keys]
+            if mine:
+                times[name] = {"warm_ms": [t["warm_ms"] for t in mine], "cold_ms": [t["cold_ms"] for t in mine]}
+        times["update_keys"] = {"warm_ms": [graph_ms(lambda: ops.update_keys(ids, offs, vocabs)) for _ in range(2)]}
+        one = torch.zeros(1, device=dev)
+        times["launch_floor"] = {"warm_ms": [graph_ms(lambda: one.add_(1.0)) for _ in range(2)]}
+        del table
+    return bits
+
+
 def ab_run(root: str, out_path: str) -> int:
-    """``--ab ROOT OUT.npz``: K2, K7, K8 and K9 of the package in the
+    """``--ab ROOT OUT.npz``: K2, K4, K7, K8 and K9 of the package in the
     checkout ROOT (another commit's tree, unpacked), on this script's
     seeded inputs: phase 3c's for K7 (both dtypes, the Taobao histories
     and every position on one row), K8 and K9 (both dtypes, the DIN shape
     and ``ATT_EDGE_CASES``), phase 3's
-    zipf(1.2) bench case for K2. Their outputs' bits go to OUT.npz; their
+    zipf(1.2) bench case for K2, ``K4_AB_CASES`` for K4 (without keys and,
+    where the tree's K4 writes them, with; the plain routing beside them).
+    Their outputs' bits go to OUT.npz; their
     graph-replayed times, warm and cold (K7 beside ``index_add_`` over the
-    live positions, at f32; K8 and K9 at bf16), are printed as one JSON
+    live positions, at f32; K8 and K9 at bf16; K4 at the fused step's batch
+    with and without keys, the standalone ``update_keys`` and the
+    one-launch floor), are printed as one JSON
     line. Run it over two trees in turns (A, B, B, A) in one call, then
     ``--ab-compare``."""
     sys.path.insert(0, str(pathlib.Path(root).resolve()))
@@ -3176,11 +3342,12 @@ def ab_run(root: str, out_path: str) -> int:
     dev = torch.device("cuda", 0)
     pkg = str(pathlib.Path(persia_tpu_torch.__file__).resolve().parent)
     _kernels.library()
-    if _kernels.build_log:  # registers, shared memory and spills of this tree's K2, K7-K9
+    if _kernels.build_log:  # registers, shared memory and spills of this tree's K2, K4, K7-K9
         summary = build_summary(_kernels.build_log, _kernels.library_path())
         print(json.dumps({"ab_build": {k: v for k, v in summary.items()
                                        if k.split("<")[0] in DIN_KERNEL_NAMES + K2_KERNEL_NAMES
-                                       or k.startswith("segment_sum")}, "package": pkg}), flush=True)
+                                       or k.startswith(("segment_sum", "fused_gather_kernel"))}, "package": pkg}),
+              flush=True)
     as_bits = lambda t: t.contiguous().view(torch.uint8).cpu().numpy()  # noqa: E731
     nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
     bits, times = {"root": np.array(str(pathlib.Path(root).resolve()))}, {}
@@ -3246,6 +3413,8 @@ def ab_run(root: str, out_path: str) -> int:
         "warm_ms": [graph_ms(lambda: ops.gather_pool_bwd(gpool, rows, slots)) for _ in range(2)],
         "cold_ms": [cold_ms(lambda gr: ops.gather_pool_bwd(gr, rows, slots), lambda: (gpool.clone(),),
                             nbytes([gpool]))["ms"] for _ in range(2)]}
+    del rows, slots, pooled, gpool
+    bits.update(k4_ab(dev, ops, times, as_bits))
     torch.cuda.synchronize()
     np.savez(out_path, **bits)
     print(json.dumps({"ab": {"root": root, "package": pkg, "times": times}, "card": card_line()}), flush=True)
@@ -3253,20 +3422,32 @@ def ab_run(root: str, out_path: str) -> int:
 
 
 def ab_compare(paths) -> int:
-    """``--ab-compare A.npz B.npz ...``: K2's, K8's and K9's bits equal in
-    every file, K7's in the files of one tree; prints which differ."""
+    """``--ab-compare A.npz B.npz ...``: K2's, K4's, K8's and K9's bits
+    equal in every file that holds them (K4's keys and its rows with keys
+    only where the tree's K4 writes keys), K7's in the files of one tree;
+    in each file K4's keys equal to the plain routing and its rows with
+    keys to its rows without; prints which differ."""
     runs = [dict(np.load(p)) for p in paths]
     report, ok = {}, True
-    for key in sorted(runs[0]):
+    for key in sorted(set().union(*runs)):
         if key == "root":
             continue
         same_tree = key.startswith("k7_")
         groups = {}
         for run in runs:
-            groups.setdefault(str(run["root"]) if same_tree else "all", []).append(run[key])
+            if key in run:
+                groups.setdefault(str(run["root"]) if same_tree else "all", []).append(run[key])
         equal = all(np.array_equal(a, group[0]) for group in groups.values() for a in group)
         report[key] = "bitwise" if equal else "DIFFER"
         ok &= equal
+    for run in runs:  # within a file: K4's keys against the plain routing, its rows with keys against without
+        for key in sorted(k for k in run if k.startswith("k4_keys_") and not k.startswith("k4_keys_ref_")):
+            case = key[len("k4_keys_"):]
+            equal = (np.array_equal(run[key], run[f"k4_keys_ref_{case}"])
+                     and np.array_equal(run[f"k4_rows_keys_{case}"], run[f"k4_rows_{case}"]))
+            report[f"{key} vs plain routing, rows with keys vs without ({run['root']})"] = (
+                "bitwise" if equal else "DIFFER")
+            ok &= equal
     k7_trees = {str(r["root"]) for r in runs}
     if len(k7_trees) == 2:  # K7's bits between the trees: reported, not required
         a, b = ({k: v for k, v in r.items() if k.startswith("k7_")} for r in
@@ -3299,13 +3480,14 @@ def main() -> int:
     serving_launches, serving, feats_shape = path_serving(dev)
     training_launches, training, train_batch = path_training(dev)
     pipelined_launches, pipelined = path_pipelined(dev)
-    fused_launches, fused, fused_inputs = path_fused(dev)
+    fused_launches, fused_capture_launches, fused, fused_inputs = path_fused(dev)
     durable_launches, durable = path_durable(dev)
     din_launches, din, din_batch = path_din(dev)
     avazu_launches, avazu = path_avazu(dev)
     launches = {"flash_attention": fa_routes, "serving": serving_launches,
                 "training": training_launches, "pipelined": pipelined_launches,
-                "durable": durable_launches, "fused": fused_launches, **din_launches}
+                "durable": durable_launches, "fused": fused_launches, "fused_capture": fused_capture_launches,
+                **din_launches}
     rows, floor = phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused_inputs, din_batch, build)
     time_flash_backward(dev, card)
     print(json.dumps({"serving": serving, "card": card}), flush=True)
@@ -3323,7 +3505,7 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "eager_ms",
             "library_eager_ms", "cold_ms", "library_cold_ms", "sort_ms", "zipf_ms", "zipf_cold_ms",
             "zipf_bound_ms", "zipf_sort_ms", "longest_segment", "zipf_longest_segment", "one_row_ms",
-            "composite_ms", "registers", "over_launch_floor")
+            "composite_ms", "registers", "over_launch_floor", "no_keys_ms", "no_keys_cold_ms", "routing_cost_ms")
     kernels = [{k: r.get(k) for k in keys} for r in rows if not r.get("causal")]
     print(json.dumps({"kernels": kernels, "launch_floor_ms": floor, "card": card}), flush=True)
     print(card, flush=True)

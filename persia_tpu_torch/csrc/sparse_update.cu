@@ -24,7 +24,9 @@
 // Routing (update_keys): for a group of slots of one table, each with its
 // ids (int32, -1 = padding), its first row in the table (offset) and its
 // vocab, the flat update keys slot after slot: id + offset where
-// 0 <= id < vocab, else INT32_MAX.
+// 0 <= id < vocab, else INT32_MAX. The fused step does not launch it: K4
+// (csrc/fused_gather.cu) writes the same keys as it gathers. It serves
+// routing without a gather (the graph step's warm-up).
 //
 // Replaces: persia_tpu/ops/sparse_update.py:55-158 (dedup_gradients,
 // _apply_rows and sparse_update's scatter-add, lowered by XLA; no Pallas

@@ -6,9 +6,10 @@ per route, in ``flash_attention.launches_by_route``; its f32 route's
 pre-pass in ``tf32_split_planes.launches``). ``dot_interaction`` and
 ``embedding_pool`` are differentiable: their backward passes launch
 ``dot_interaction_bwd`` and ``gather_pool_bwd``. The fused tier's
-``fused_gather`` (K4), ``update_keys`` (the routing of the update ids)
-and ``sparse_update`` (K5) update nothing through autograd: the gathered
-rows are the step's differentiated leaves. The raw-slot path's
+``fused_gather`` (K4, which also routes the step's update ids),
+``update_keys`` (that routing without a gather) and ``sparse_update`` (K5)
+update nothing through autograd: the gathered rows are the step's
+differentiated leaves. The raw-slot path's
 ``raw_gather`` (K6, backward K7) and DIN's ``attention_pool`` (K8,
 backward K9) are differentiable too."""
 

@@ -137,7 +137,7 @@ def library() -> ctypes.CDLL:
                 i32, i32, i32, i32, i32, i32, i32, i32, vp,
             ]
             lib.persia_fused_gather.restype = i32
-            lib.persia_fused_gather.argtypes = [vp, i32, ctypes.c_longlong, i32, vp, i32, i32, vp, vp]
+            lib.persia_fused_gather.argtypes = [vp, i32, ctypes.c_longlong, i32, vp, i32, i32, vp, vp, vp]
             lib.persia_sparse_update.restype = i32
             lib.persia_sparse_update.argtypes = [
                 vp, i32, ctypes.c_longlong, i32, vp, vp, vp, vp, vp, i32, vp,

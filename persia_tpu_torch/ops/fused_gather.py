@@ -13,13 +13,17 @@ as one (sum of B·L, dim) tensor in the table's dtype. What
 - unstacked (``:145-152``, one slot, offset 0): an id < 0 reads row 0 and
   an id >= vocab gives a row of NaN, ``take``'s "fill" mode.
 
+With ``keys=True`` the same launch also writes each position's update key
+(``update_keys_reference``: id + offset for an id in the slot's [0, vocab),
+else the ``INT32_MAX`` sentinel), the fused step's routing for K5.
+
 A CPU table takes the plain version; a CUDA table one launch per group of
 at most 128 slots.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -57,6 +61,12 @@ def update_ids(ids: torch.Tensor, offset: int, vocab: int) -> torch.Tensor:
     return torch.where((i >= 0) & (i < vocab), i + offset, _INT32_MAX).to(torch.int32)
 
 
+def update_keys_reference(ids: Sequence[torch.Tensor], offsets: Sequence[int], vocabs: Sequence[int]) -> torch.Tensor:
+    """Plain version of the update keys: each slot's ``update_ids``,
+    concatenated."""
+    return torch.cat([update_ids(i, o, v) for i, o, v in zip(ids, offsets, vocabs)])
+
+
 def fused_gather_reference(
     table: torch.Tensor, ids: Sequence[torch.Tensor], offsets: Sequence[int],
     vocabs: Sequence[int], stacked: bool = True,
@@ -71,7 +81,7 @@ def fused_gather_reference(
     return out
 
 
-def _check(table, ids, offsets, vocabs) -> int:
+def _check(table, ids, offsets, vocabs, keys: bool) -> int:
     if table.dtype not in _DTYPES or table.dim() != 2 or not table.is_contiguous():
         raise ValueError("fused_gather needs a contiguous (V, dim) float32 or bfloat16 table")
     if not ids or not (len(ids) == len(offsets) == len(vocabs)):
@@ -82,6 +92,8 @@ def _check(table, ids, offsets, vocabs) -> int:
             raise ValueError("a slot's ids must be contiguous int32 on the table's device")
         if v < 1 or o < 0 or o + v > table.shape[0]:
             raise ValueError(f"slot rows [{o}, {o + v}) outside the table's {table.shape[0]}")
+        if keys and o + v > _INT32_MAX:
+            raise ValueError(f"slot rows [{o}, {o + v}) must lie in [0, {_INT32_MAX}) for update keys")
         total += i.numel()
     if total > _INT32_MAX:
         raise ValueError("a group's positions must fit int32")
@@ -90,17 +102,21 @@ def _check(table, ids, offsets, vocabs) -> int:
 
 def fused_gather(
     table: torch.Tensor, ids: Sequence[torch.Tensor], offsets: Sequence[int],
-    vocabs: Sequence[int], stacked: bool = True,
-) -> torch.Tensor:
-    """(sum of B·L, dim) rows in the table's dtype, slot after slot."""
-    total = _check(table, ids, offsets, vocabs)
+    vocabs: Sequence[int], stacked: bool = True, keys: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """(sum of B·L, dim) rows in the table's dtype, slot after slot; with
+    ``keys``, ``(rows, keys)``: the positions' flat int32 update keys in
+    the same order, from the same launch."""
+    total = _check(table, ids, offsets, vocabs, keys)
     if table.device.type == "cpu":
-        return fused_gather_reference(table, ids, offsets, vocabs, stacked)
+        rows = fused_gather_reference(table, ids, offsets, vocabs, stacked)
+        return (rows, update_keys_reference(ids, offsets, vocabs)) if keys else rows
     if table.device.type != "cuda":
         raise ValueError(f"unsupported device {table.device}")
     out = torch.empty((total, table.shape[1]), dtype=table.dtype, device=table.device)
+    key_out = torch.empty(total, dtype=torch.int32, device=table.device) if keys else None
     if total == 0:
-        return out
+        return (out, key_out) if keys else out
     lib = _kernels.library()
     stream = _kernels.stream_handle(table)
     pos = 0
@@ -116,12 +132,13 @@ def fused_gather(
             n = sum(counts)
             rc = lib.persia_fused_gather(
                 table.data_ptr(), _DTYPES[table.dtype], table.shape[0], table.shape[1],
-                params.ctypes.data, len(part), int(stacked), out[pos:].data_ptr(), stream,
+                params.ctypes.data, len(part), int(stacked), out[pos:].data_ptr(),
+                key_out[pos:].data_ptr() if keys else None, stream,
             )
             _kernels.check(rc, "fused_gather")
             fused_gather.launches += 1
             pos += n
-    return out
+    return (out, key_out) if keys else out
 
 
 fused_gather.launches = 0

@@ -28,14 +28,18 @@ one. Each segment writes only its own row, so no float is summed with
 atomics, and K5 equals its plain version bit for bit. The segment lists,
 in numpy, are ``plans.k5_segments``.
 
-``update_keys`` routes a table's update ids in one launch (the
-``update_keys_kernel`` of ``csrc/sparse_update.cu``): per slot, an id in
-the slot's [0, vocab) becomes id + offset, any other id the sentinel.
+The routing of a table's update ids: per slot, an id in the slot's [0,
+vocab) becomes id + offset, any other id the sentinel. The fused step takes
+its keys from K4, which writes them as it gathers
+(``fused_gather(..., keys=True)``); ``update_keys`` routes them in a launch
+of its own (the ``update_keys_kernel`` of ``csrc/sparse_update.cu``) where
+there is no gather: the graph step's warm-up, finding the rows it puts
+back.
 
 One difference from the reference, at the direct call only: an id < 0 that
 no mask covers is dropped here, where JAX wraps it to row V + id. The fused
-step routes its padding to the sentinel itself (``update_keys``), so it
-never passes one.
+step routes its padding to the sentinel itself (K4's keys), so it never
+passes one.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ from persia_tpu_torch.embedding.optim import (
     OptimizerConfig,
 )
 from persia_tpu_torch.ops import _kernels, plans
-from persia_tpu_torch.ops.fused_gather import update_ids
+from persia_tpu_torch.ops.fused_gather import update_keys_reference
 
 PAD_SENTINEL = int(np.iinfo(np.int32).max)
 MAX_SLOTS = 128  # slots one launch of update_keys routes
@@ -288,11 +292,6 @@ def masked_flat_ids_grads(
     gradients for ``sparse_update``: (flat ids, flat grads (N, D), mask)."""
     mask = (ids >= 0).reshape(-1)
     return ids.reshape(-1), grads.reshape(-1, grads.shape[-1]), mask
-
-
-def update_keys_reference(ids: Sequence[torch.Tensor], offsets: Sequence[int], vocabs: Sequence[int]) -> torch.Tensor:
-    """Plain version: each slot's ``update_ids``, concatenated."""
-    return torch.cat([update_ids(i, o, v) for i, o, v in zip(ids, offsets, vocabs)])
 
 
 def update_keys(ids: Sequence[torch.Tensor], offsets: Sequence[int], vocabs: Sequence[int]) -> torch.Tensor:

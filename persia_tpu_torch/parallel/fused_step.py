@@ -2,9 +2,9 @@
 ``persia_tpu/parallel/fused_step.py``): every embedding table resident in
 the card's memory, and the whole hybrid step run on the card.
 
-    ids → gather (K4) → DLRM forward and backward → Adam on the dense tower
-        → update ids routed (``update_keys``) → sort → sparse optimizer
-        update of the touched rows (K5)
+    ids → gather and update-id routing (K4, one launch a table) → DLRM
+        forward and backward → Adam on the dense tower → sort of the
+        update ids → sparse optimizer update of the touched rows (K5)
 
 Per step only the raw batch (int32 ids, dense features, labels) goes in;
 no embedding or gradient crosses to the host.
@@ -19,7 +19,7 @@ the reference: pooling and masking stay in ``_model_inputs``, under
 autograd, so the gather needs no backward kernel.
 
 ``jit=True`` on a card (the counterpart of ``jax.jit``): the step replays a
-CUDA graph of the whole step (gather, forward, backward, Adam, routing,
+CUDA graph of the whole step (gather and routing, forward, backward, Adam,
 sort, K5), captured at the first call for the batch's shapes. The batch
 is copied into the graph's static input buffers; the capture's warm-up
 runs on the caller's state and then restores it bit for bit (the dense
@@ -233,13 +233,17 @@ def _plan(specs, slot_order, stack: bool):
 def _gather(tables, ids, plan, leaves: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
     """Per-slot gathered rows ((B, dim) or (B, L, dim)), one launch of K4 per
     table. With ``leaves``, each table's rows become a leaf that needs a
-    gradient (kept there by table name) and the slots views of it."""
+    gradient and the slots views of it; the same launch routes the table's
+    update ids, and ``leaves`` keeps (leaf, update keys) by table name."""
     out = {}
     for tname, slots, offsets, vocabs, stacked in plan:
-        rows = fused_gather(tables[tname], [ids[n] for n in slots], offsets, vocabs, stacked)
-        if leaves is not None:
+        tids = [ids[n] for n in slots]
+        if leaves is None:
+            rows = fused_gather(tables[tname], tids, offsets, vocabs, stacked)
+        else:
+            rows, keys = fused_gather(tables[tname], tids, offsets, vocabs, stacked, keys=True)
             rows = rows.detach().requires_grad_(True)
-            leaves[tname] = rows
+            leaves[tname] = (rows, keys)
         parts = torch.split(rows, [ids[n].numel() for n in slots])
         for n, p in zip(slots, parts):
             out[n] = p.view(*ids[n].shape, rows.shape[1])
@@ -330,13 +334,6 @@ def init_fused_state(
     )
 
 
-def _update_ids(ids, slots, offsets, vocabs) -> torch.Tensor:
-    """One table's flat update ids, padding and out-of-range ids at the
-    sentinel, slot after slot as the gather wrote them: one launch of
-    ``update_keys`` on a card."""
-    return update_keys([ids[n] for n in slots], offsets, vocabs)
-
-
 def _step_body(sparse_cfg, specs, slot_order, loss_fn, plan):
     """One training step on ``state``, in place: returns (loss, preds) on
     the device. What the graph captures and the eager step runs."""
@@ -358,11 +355,11 @@ def _step_body(sparse_cfg, specs, slot_order, loss_fn, plan):
         if dev not in betas:
             betas[dev] = torch.tensor([sparse_cfg.beta1, sparse_cfg.beta2], dtype=torch.float32, device=dev)
         state.emb_batch_state.mul_(betas[dev])
-        for tname, slots, offsets, vocabs, _ in plan:
-            leaf = leaves[tname]
+        for tname, *_ in plan:
+            leaf, keys = leaves[tname]
             grads = leaf.grad if leaf.grad is not None else torch.zeros_like(leaf)
-            sparse_update(sparse_cfg, state.tables[tname], state.emb_state[tname],
-                          _update_ids(ids, slots, offsets, vocabs), grads.float(), state.emb_batch_state)
+            sparse_update(sparse_cfg, state.tables[tname], state.emb_state[tname], keys, grads.float(),
+                          state.emb_batch_state)
         state.step.add_(1)
         return loss.detach(), torch.sigmoid(logits.detach())
 
@@ -409,11 +406,12 @@ class _GraphSteps:
         """Run the steps once off the capture (builds, cuBLAS, the
         allocator), then put back what they wrote: the dense state whole,
         and of each table and its optimizer state only the rows the
-        batches update."""
+        batches update (routed by ``update_keys``, a launch with no gather:
+        the step's own keys come from K4)."""
         dense = [t.clone() for t in _dense_tensors(state)]
         rows = {}
         for tname, slots, offsets, vocabs, _ in self.plan:
-            flat = torch.cat([_update_ids(b["ids"], slots, offsets, vocabs) for b in self.static])
+            flat = torch.cat([update_keys([b["ids"][n] for n in slots], offsets, vocabs) for b in self.static])
             rows[tname] = torch.unique(flat[flat < state.tables[tname].shape[0]]).long()
         saved = {t: (state.tables[t][r], {k: s[r] for k, s in state.emb_state[t].items()})
                  for t, r in rows.items()}

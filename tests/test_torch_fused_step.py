@@ -177,6 +177,71 @@ def test_update_ids_match_reference_routing(offset, vocab):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("stack", [True, False], ids=["stacked", "unstacked"])
+def test_step_takes_its_update_ids_from_the_gather(stack, monkeypatch):
+    """The step routes its update ids inside the gather (K4's keys) and
+    calls ``update_keys`` never: with it raising, five steps still match
+    the reference as ``test_five_steps_match_reference`` holds them."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the fused step called update_keys")
+
+    monkeypatch.setattr(tfs, "update_keys", refuse)
+    (jstate, jstep, _, _), (tstate, tstep, _) = _pair("adagrad", stack)
+    for i in range(5):
+        h = _host_batch(10 + i, oob=stack)
+        jstate, (jloss, jpreds) = jstep(jstate, _jb(h))
+        tstate, (tloss, tpreds) = tstep(tstate, _tb(h))
+        np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+        np.testing.assert_allclose(tpreds.numpy(), np.asarray(jpreds), **TIGHT)
+    _assert_states_close(jstate, tstate, **TIGHT)
+
+
+FUSED_GATHER_KEYS_CASES = {
+    # (slot shapes, vocab, stacked, dim)
+    "stacked_single_and_bag": ([(32,), (16, 3), (40,)], 50, True, 8),
+    "unstacked_nan": ([(64,)], 30, False, 4),
+    "unstacked_bag": ([(20, 5)], 30, False, 8),
+    "stacked_130_slots": ([(6,)] * 65 + [(3, 2)] * 65, 7, True, 2),
+    "stacked_empty_slot": ([(10,), (0,), (12,)], 9, True, 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_GATHER_KEYS_CASES))
+def test_fused_gather_keys_match_reference_routing(case):
+    """``fused_gather(..., keys=True)`` on the CPU: the rows are the keyless
+    call's, bit for bit, and the keys ``update_keys_reference``'s and the
+    reference step's routing (``where(in_range, id + offset, -1)``, then
+    the mask to ``_PAD_SENTINEL``): padding, ids at vocab - 1, at vocab and
+    far past it, more than 128 slots (the kernel's chunk), an empty slot."""
+    from persia_tpu.ops.sparse_update import _PAD_SENTINEL
+    from persia_tpu_torch.ops.fused_gather import fused_gather, fused_gather_reference, update_keys_reference
+
+    shapes, vocab, stacked, dim = FUSED_GATHER_KEYS_CASES[case]
+    rng = np.random.default_rng(len(case))
+    table = torch.from_numpy(rng.standard_normal((vocab * len(shapes), dim)).astype(np.float32))
+    ids_np = []
+    for s in shapes:
+        a = rng.integers(-1, vocab + 3, s).astype(np.int32)
+        a.reshape(-1)[:4] = [-1, vocab - 1, vocab, 1 << 30][:a.size]
+        ids_np.append(a)
+    ids = [torch.from_numpy(a) for a in ids_np]
+    offsets = [i * vocab for i in range(len(shapes))] if stacked else [0]
+    vocabs = [vocab] * len(shapes)
+    rows, keys = fused_gather(table, ids, offsets, vocabs, stacked, keys=True)
+    plain = fused_gather(table, ids, offsets, vocabs, stacked)
+    assert torch.equal(rows.view(torch.int32), plain.view(torch.int32))
+    assert torch.equal(rows.view(torch.int32), fused_gather_reference(table, ids, offsets, vocabs, stacked)
+                       .view(torch.int32))
+    assert keys.dtype == torch.int32 and keys.shape == (rows.shape[0],)
+    np.testing.assert_array_equal(keys.numpy(), update_keys_reference(ids, offsets, vocabs).numpy())
+    want = []
+    for a, o in zip(ids_np, offsets):
+        j = jnp.asarray(a)
+        routed = jnp.where((j >= 0) & (j < vocab), j + o, -1).reshape(-1)
+        want.append(np.asarray(jnp.where(routed >= 0, routed, _PAD_SENTINEL)))
+    np.testing.assert_array_equal(keys.numpy(), np.concatenate(want))
+
+
 def test_eval_step_matches_reference():
     (jstate, _, jmodel, specs_j), (tstate, _, specs_t) = _pair("adagrad", True)
     h = _host_batch(7)

@@ -623,22 +623,30 @@ def _bits(t):
 
 
 FUSED_GATHER_CASES = {
-    # (dtype, dim, slot shapes, vocab, stacked)
+    # (dtype, dim, slot shapes, vocab, stacked); a row of dim 16 f32 or bf16
+    # takes 16-byte vectors, 10 f32 8-byte, 3 f32 4-byte, 3 bf16 2-byte
     "stacked_f32": (torch.float32, 16, [(4096,)] * 5, 1000, True),
     "stacked_bf16_pooled": (torch.bfloat16, 16, [(512,), (512, 5)], 1000, True),
     "unstacked_nan": (torch.float32, 16, [(777,)], 1000, False),
     "unstacked_bf16_bag": (torch.bfloat16, 8, [(100, 3)], 300, False),
     "dim_10": (torch.float32, 10, [(300,), (50, 2)], 200, True),
+    "dim_3_f32": (torch.float32, 3, [(300,), (40, 3)], 200, True),
     "dim_3_bf16": (torch.bfloat16, 3, [(300,)], 200, True),
+    "one_slot": (torch.float32, 16, [(1000,)], 500, True),
+    "empty_slot": (torch.float32, 16, [(300,), (0,), (0, 4), (200, 2)], 100, True),
+    "129_slots": (torch.bfloat16, 16, [(64,)] * 64 + [(16, 3)] * 65, 50, True),
 }
 
 
 @pytest.mark.parametrize("case", sorted(FUSED_GATHER_CASES))
 def test_fused_gather_kernel_matches_plain(cuda, case):
     """K4 copies rows: bit for bit its plain version, pads, clamps and NaN
-    rows included."""
-    from persia_tpu_torch.ops import fused_gather
-    from persia_tpu_torch.ops.fused_gather import fused_gather_reference
+    rows included, with and without the update keys; the keys bit for bit
+    ``update_keys_reference`` (pads, ids at vocab - 1, vocab and far past
+    it), written once a position whatever the vector width; one launch a
+    call and group of 128 slots, none of ``update_keys``."""
+    from persia_tpu_torch.ops import fused_gather, update_keys
+    from persia_tpu_torch.ops.fused_gather import fused_gather_reference, update_keys_reference
 
     dtype, dim, shapes, vocab, stacked = FUSED_GATHER_CASES[case]
     rng = np.random.default_rng(len(case))
@@ -646,16 +654,22 @@ def test_fused_gather_kernel_matches_plain(cuda, case):
     ids = []
     for s in shapes:
         a = rng.integers(-1, vocab + 3, s).astype(np.int32)
-        a.reshape(-1)[:2] = [vocab + 7, -1]
+        a.reshape(-1)[:4] = [vocab + 7, -1, vocab - 1, 1 << 30][:a.size]
         ids.append(torch.from_numpy(a).to(cuda))
     offsets = [i * vocab for i in range(len(shapes))] if stacked else [0]
-    before = fused_gather.launches
-    out = fused_gather(table, ids, offsets, [vocab] * len(ids), stacked)
-    ref = fused_gather_reference(table, ids, offsets, [vocab] * len(ids), stacked)
-    assert fused_gather.launches == before + 1
+    vocabs = [vocab] * len(ids)
+    calls = -(-len(ids) // 128)
+    before, keys_before = fused_gather.launches, update_keys.launches
+    out = fused_gather(table, ids, offsets, vocabs, stacked)
+    assert fused_gather.launches == before + calls
+    rows, keys = fused_gather(table, ids, offsets, vocabs, stacked, keys=True)
+    assert fused_gather.launches == before + 2 * calls and update_keys.launches == keys_before
+    ref = fused_gather_reference(table, ids, offsets, vocabs, stacked)
     assert out.dtype == dtype and out.shape == ref.shape
-    assert torch.equal(_bits(out), _bits(ref))
+    assert torch.equal(_bits(out), _bits(ref)) and torch.equal(_bits(rows), _bits(ref))
     assert bool(out.isnan().any()) != stacked
+    want = update_keys_reference([i.cpu() for i in ids], offsets, vocabs)
+    assert keys.dtype == torch.int32 and torch.equal(keys.cpu(), want)
 
 
 def _k5_inputs(kind, cfg, vocab, n, dim, dtype, seed):
@@ -934,11 +948,13 @@ def _traced_kernels(fn, names):
 def test_fused_graph_step_equals_eager_step(cuda):
     """The CUDA-graph step (jit=True) and the eager step give the same bits
     over 5 steps, and the K-step graph the same bits as K single steps.
-    The eager step calls the wrappers of K4, the routing and K5 once a
-    step; the graph step calls them only at its first call (the capture's
-    warm-up and the capture; the warm-up also routes the ids to find the
-    rows it restores), and each replay runs each of their kernels once on
-    the card (device trace): K4, the routing, and K5's three."""
+    The eager step calls the wrappers of K4 (which routes the update ids)
+    and K5 once a step and ``update_keys`` never; the graph step calls K4's
+    and K5's only at its first call (the capture's warm-up and the
+    capture) and ``update_keys`` once there (the warm-up routes the ids to
+    find the rows it restores), and each replay runs K4 and K5's three
+    kernels once on the card and the routing kernel never (device
+    trace)."""
     from persia_tpu_torch.ops import fused_gather, sparse_update, update_keys
     from persia_tpu_torch.parallel.fused_step import build_fused_multi_step, build_fused_train_step
 
@@ -952,7 +968,7 @@ def test_fused_graph_step_equals_eager_step(cuda):
         for i, b in enumerate(batches):
             before = [fn.launches for fn in counted]
             state, (loss, _) = step(state, b)
-            per_call = ((2, 3, 2) if i == 0 else (0, 0, 0)) if jit else (1, 1, 1)
+            per_call = ((2, 1, 2) if i == 0 else (0, 0, 0)) if jit else (1, 0, 1)
             assert tuple(fn.launches - b0 for fn, b0 in zip(counted, before)) == per_call
             losses.append(loss)
         results.append((torch.stack(losses).cpu(), _state_bits(state)))
@@ -961,7 +977,7 @@ def test_fused_graph_step_equals_eager_step(cuda):
     names = ("fused_gather_kernel", "update_keys_kernel", "sparse_update_segments_kernel",
              "sparse_update_long_kernel", "sparse_update_short_kernel")
     traced = _traced_kernels(lambda: [step(state, b) for b in batches[:3]], names)
-    assert traced == dict.fromkeys(names, 3)
+    assert traced == {**dict.fromkeys(names, 3), "update_keys_kernel": 0}
     specs, cfg, state = _fused_setup(cuda)
     multi = build_fused_multi_step(cfg, specs, 5, stack=True)
     state, (losses, _) = multi(state, tuple(batches))
