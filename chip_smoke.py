@@ -60,6 +60,15 @@ result line:
    alike, nothing at masked positions or on the empty row, no NaN; K8 and
    K9 again at their edges (``ATT_EDGE_CASES``: every template, a lane
    group walking past kAhead, the scalar path) on random masks;
+   (3d) DNN's batch norm, K10 (train mode and the running statistics) and
+   K11, at the DNN paths' shapes (``BN_CASES``: B=4096 and 256 by C=128
+   and 32, B=128 by C=64 and 16), at one row (y = bias), at C=10, in f32
+   and over unequal row spans of a cluster (B=2049, 4100): y and dx
+   within one ulp of the dtype plus 1e-5 of the column's scale, the
+   statistics and the parameters' gradients within 1e-5 of the
+   plain versions on the card; bit for bit their schedules
+   (``batch_norm_*_schedule``: the plain versions with the kernels' sum
+   order) on the CPU and bit for bit twice; eval mode moves nothing;
 4. the paths, each with the launch counts set to 0 just before and read
    just after: (a) the flash-attention entry point at (B=4, L=1024, H=8,
    D=64) in bf16 and in f32, causal and not, and its backward (a dense
@@ -137,7 +146,38 @@ result line:
    Avazu at ``examples/avazu/train.py``'s width (21 fields of dim 16, deep
    (256, 128), B=4096): 8 ``TrainCtx.train_step``s each, the first 3
    losses held to the CPU port (2e-2), no kernel of the port launched
-   (host pooling);
+   (host pooling); (j) DNN with its batch statistics: (a) the adult-income
+   example's exact configuration (``persia_tpu_torch.testing.adult_income``,
+   from the reference's initial weights) for its 4 epochs on the card and
+   on the CPU, each epoch's loss and AUC printed, the final AUC of both
+   within 5e-3 of the example's pinned ``REPRODUCIBLE_AUC`` (the
+   difference printed, and the first step whose loss leaves the CPU's by
+   2e-2), K10 and K11 only (host pooling); (b) DNN at the serving bench's
+   width (8 zipf(1.2) slots of dim 16 over 100,000 ids, 8 dense features,
+   DNN(32, 128, (128, 64)), native store 2^18 / 4 shards, Adagrad(0.1),
+   Adam(3e-3)) with device pooling: 2 + 8 ``train_step``s of B=4096 (the
+   counted run: K1 and K2 once a step, K10 and K11 twice), the losses
+   within 2e-2, ``batch_stats`` within 1e-2 and 99 % of the touched PS
+   rows within 1e-2 (their Adagrad accumulators within 1e-2 of
+   themselves; every row within 5e-2 and 0.1) of the CPU port over the
+   numpy store (after the first step, from the same state: the rows within
+   1e-2 and their accumulators within 1e-2 of themselves), the five widest
+   rows with the steps that touched them, and the witness: the same steps
+   in f32 compute, card against CPU after the first step (losses and
+   statistics within 1e-5, rows and accumulators within twice the gaps
+   the first batch with its samples permuted makes on each device, and at
+   least 1e-4 and 1e-3), and
+   after the first and the last beside the card against itself
+   from Dense_2's kernel moved by one ulp (how far training grows a
+   rounding-sized difference), samples/s, step p50 and the card's busy
+   ms a step; then the trained state's flax bytes loaded into a bare DNN
+   (``model_from_flax_bytes``) behind ``InferenceEngine(InferCtx(...))``,
+   5 requests of B=256 (K1 once, K10 twice in eval mode a request) within
+   2e-2 of the CPU engine, their p50; (c) kill and resume at
+   ``bench.py:936-960``'s configuration on the card: the rewind resume bit
+   for bit the uninterrupted run (dense bytes with ``batch_stats``, every
+   PS shard), the journal resume skipping the replayed window,
+   ``time_to_resume_s`` of both;
 5. timings of each kernel beside its plain version, the library call that
    computes the same function, and the card's bound, each by CUDA-graph
    replay (host enqueue cost out of the number; eager times beside them):
@@ -160,7 +200,10 @@ result line:
    composite, K9's registers and its kernels in the device trace), warm
    and cold; the one-launch floor (a one-element ``add_``, twice), the
    standalone routing pass's time over it, and the routing's cost inside
-   K4 (K4 with keys − K4 without);
+   K4 (K4 with keys − K4 without); K10 and K11 at the DNN training path's
+   first batch norm (B=4096, C=128, bf16; C=32 and the B=256 eval mode
+   beside), warm and cold, beside ``F.batch_norm`` and aten's
+   ``native_batch_norm_backward``;
    and (5b) the flash-attention backward, a dense recompute, beside SDPA's
    backward.
 
@@ -227,6 +270,26 @@ ATT_DIN_TEMPLATE = "bf16,8,2"
 ATT_EDGE_CASES = [(37, l, 16) for l in (32, 33, 64, 65, 200, 256, 257, 1536)] + [(37, 200, 10)]
 # phase 4i: DeepFM and DCN-v2 on Avazu at examples/avazu/train.py's width
 AVAZU_FIELDS, AVAZU_BATCH, AVAZU_STEPS, AVAZU_CPU_STEPS, AVAZU_DEEP = 21, 4096, 8, 3, (256, 128)
+# phases 3d and 4j: DNN with its batch norms (K10, K11). (b) DNN at the
+# serving bench's width (benchmarks/serving_bench.py:37-68): 8 slots of dim
+# 16 over 100,000 ids, zipf(1.2), 8 dense features, DNN(32, 128, (128, 64)),
+# device pooling; its warm-up and timed steps, the steps held to the CPU,
+# the serving requests and their batch. (c) bench.py:936-960's kill and
+# resume: DNN(8, 16, (32,)), 2 slots, B=64, 12 steps, a snapshot every 4,
+# killed after 9
+DNN_SLOTS, DNN_DIM, DNN_VOCAB, DNN_DENSE, DNN_MLP = 8, 16, 100_000, 8, (32, 128, (128, 64))
+DNN_WARM, DNN_STEPS, DNN_CPU_STEPS, DNN_REQUESTS, DNN_SERVE_BATCH = 2, 8, 10, 5, 256
+DNN_RESUME = dict(steps=12, every=4, kill=9, batch=64)
+BN_SOURCE, BN_REPLACES = "persia_tpu_torch/csrc/batch_norm.cu", "persia_tpu/models/dnn.py:39"
+BN_KERNELS = ("batch_norm_fwd", "batch_norm_bwd")
+# phase 3d's cases (B, C, dtype): the DNN paths' own shapes (serving-bench
+# width: B=4096 training, B=256 serving, C=128 and 32; adult income: B=128,
+# C=64 and 16), one row (flax's variance 0), C not a multiple of 8, f32,
+# rows split over a cluster into spans of unequal length (2049, 4100)
+BN_CASES = [(4096, 128, "bfloat16"), (4096, 32, "bfloat16"), (256, 128, "bfloat16"), (256, 32, "bfloat16"),
+            (128, 64, "bfloat16"), (128, 16, "bfloat16"), (1, 10, "bfloat16"), (37, 10, "bfloat16"),
+            (2049, 128, "bfloat16"), (4100, 10, "bfloat16"), (4096, 128, "float32"), (1, 10, "float32"),
+            (37, 10, "float32"), (4100, 10, "float32")]
 FA_SOURCE = {"wgmma_bf16": "persia_tpu_torch/csrc/flash_attention_hopper.cu",
              "tf32x3": "persia_tpu_torch/csrc/flash_attention_tf32.cu"}
 FA_REPLACES = "persia_tpu/ops/flash_attention.py:107"
@@ -439,7 +502,7 @@ KERNEL_NAMES = ("fa_fwd_wgmma_kernel", "fa_fwd_tf32x3_kernel", "tf32_split_kerne
                 "fused_gather_kernel", "update_keys_kernel", "sparse_update_segments_kernel",
                 "sparse_update_long_kernel", "sparse_update_short_kernel",
                 "raw_gather_fwd_kernel", "raw_gather_bwd_kernel", "attention_pool_fwd_kernel",
-                "attention_pool_bwd_kernel")
+                "attention_pool_bwd_kernel", "batch_norm_fwd_kernel", "batch_norm_bwd_kernel")
 # the DIN path's kernels (K6-K9) and K2's two passes
 DIN_KERNEL_NAMES = ("raw_gather_fwd_kernel", "raw_gather_bwd_kernel", "attention_pool_fwd_kernel",
                     "attention_pool_bwd_kernel")
@@ -561,6 +624,11 @@ def phase_build():
         print(f"  K8 and K9 on the DIN path, spill bytes: {din_path}", flush=True)
         if any(v is None or v for v in din_path.values()):
             raise SystemExit(f"K8 or K9 spills on the DIN path or was not reported: {din_path}")
+        bn = {k: (v.get("registers"), v.get("spill_bytes")) for k, v in summary.items()
+              if k.startswith(("batch_norm_fwd_kernel<", "batch_norm_bwd_kernel<"))}
+        print(f"  K10 and K11 by template (registers, spill bytes): {bn}", flush=True)
+        if not {"batch_norm_fwd_kernel<bf16,8>", "batch_norm_bwd_kernel<bf16,8>"} <= set(bn):
+            raise SystemExit(f"the build reported nothing for K10 or K11 at the DNN path's template: {bn}")
         k5 = {k: summary.get(k, {}).get("spill_bytes") for k in K5_DIM16}
         print(f"  K5 and the routing on the dim-16 path, spill bytes: {k5}", flush=True)
         if any(v is None or v for v in k5.values()):
@@ -2649,6 +2717,546 @@ def path_avazu(dev):
     return all_launches, out
 
 
+def bn_inputs(dev, b, c, dtype, seed):
+    """(x, dy, scale, bias, running mean, running var) on ``dev``: x with
+    per-column offsets and spreads (a mean a few stds off zero, as a Dense
+    layer's output), f32 parameters and statistics."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, c)) * rng.uniform(0.5, 3.0, c) + rng.uniform(-2, 2, c)
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
+
+    return (t(x, dtype), t(rng.standard_normal((b, c)), dtype), t(1 + 0.2 * rng.standard_normal(c)),
+            t(0.1 * rng.standard_normal(c)), t(0.3 * rng.standard_normal(c)), t(rng.uniform(0.5, 2.0, c)))
+
+
+def phase_bn_kernels(dev):
+    """Phase 3d: K10 (train mode and the running statistics) and K11
+    against their plain versions on the card, and bit for bit against their
+    schedules (the plain versions with the kernels' sum order) on the CPU;
+    two runs give the same bits."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.ops.batch_norm import (
+        batch_norm_bwd_reference, batch_norm_bwd_schedule, batch_norm_fwd_reference, batch_norm_fwd_schedule,
+    )
+
+    print("== phase 3d: DNN's batch norm kernels (K10 forward, train and eval; K11 backward) vs their plain "
+          "versions", flush=True)
+    errs = {}
+    for b, c, dt in BN_CASES:
+        dtype = getattr(torch, dt)
+        x, dy, scale, bias, mean, var = bn_inputs(dev, b, c, dtype, SEED + 7 * b + c)
+        # y and dx within one ulp of the dtype plus 1e-5 of the column's
+        # scale (the sums in another order move the mean, which moves y
+        # where x sits several stds off zero); the statistics and the
+        # parameters' gradients within 1e-5
+        rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+        col = (x.float().abs().amax(0) + 1.0)[None, :]
+        for train in (True, False):
+            label = f"batch_norm {'train' if train else 'eval'} {dt} ({b}, {c})"
+            rm, rv, prm, prv, rm2, rv2 = (t.clone() for t in (mean, var) * 3)
+            y, saved = ops.batch_norm_fwd(x, scale, bias, rm, rv, train)
+            dx, ds, db = ops.batch_norm_bwd(dy, x, scale, saved, train)
+            y2, saved2 = ops.batch_norm_fwd(x, scale, bias, rm2, rv2, train)
+            dx2, ds2, db2 = ops.batch_norm_bwd(dy, x, scale, saved2, train)
+            torch.cuda.synchronize()
+            py, psaved = batch_norm_fwd_reference(x, scale, bias, prm, prv, train)
+            pdx, pds, pdb = batch_norm_bwd_reference(dy, x, scale, psaved, train)
+            m = (psaved[1] * scale).abs()[None, :]
+            e_y = check_close(f"{label} y", y, py, rel, 1e-5 * col * m)
+            check_close(f"{label} mean and rstd", saved[:2], psaved[:2], 1e-5, 1e-5 * col)
+            check_close(f"{label} running mean", rm, prm, 1e-5, 1e-6 * col[0])
+            check_close(f"{label} running var", rv, prv, 1e-5, 1e-5 * col[0] ** 2)
+            g = float(dy.float().abs().max()) * float(m.max())
+            e_dx = check_close(f"{label} dx", dx, pdx, rel, 1e-5 * g)
+            dsum = dy.float().abs().sum(0)
+            terms = (dy.float() * (x.float() - psaved[0]) * psaved[1]).abs().sum(0)  # sum |dy * x_hat|
+            check_close(f"{label} dscale", ds, pds, 1e-5, 1e-5 * terms)
+            check_close(f"{label} dbias", db, pdb, 1e-5, 1e-5 * dsum)
+            twice = all(torch.equal(p, q) for p, q in ((y, y2), (saved, saved2), (rm, rm2), (rv, rv2), (dx, dx2),
+                                                       (ds, ds2), (db, db2)))
+            host = [t.cpu() for t in (x, scale, bias, mean, var)]
+            wy, wsaved, wrm, wrv = batch_norm_fwd_schedule(*host, train)
+            wdx, wds, wdb = batch_norm_bwd_schedule(dy.cpu(), host[0], host[1], wsaved, train)
+            sched = all(torch.equal(p.cpu(), q) for p, q in ((y, wy), (saved, wsaved), (rm, wrm), (rv, wrv),
+                                                             (dx, wdx), (ds, wds), (db, wdb)))
+            still = train or (torch.equal(rm, mean) and torch.equal(rv, var))
+            print(f"  {label}: twice bitwise {'ok' if twice else 'FAIL'}; bitwise its schedule on the CPU "
+                  f"{'ok' if sched else 'FAIL'}; running statistics {'moved' if train else 'untouched'} "
+                  f"{'ok' if still else 'FAIL'}", flush=True)
+            if not (twice and sched and still):
+                raise SystemExit(f"{label}: not deterministic, off its schedule, or eval mode moved the statistics")
+            if b == 1 and train and not torch.equal(y, bias.to(dtype)[None]):
+                raise SystemExit(f"{label}: one row must give y = bias (flax's variance 0)")
+            if (b, c, dt) == (BATCH, 128, "bfloat16") and train:
+                errs = {"batch_norm_fwd": e_y, "batch_norm_bwd": e_dx}
+    return errs
+
+
+def dnn_cfg(slots=DNN_SLOTS, dim=DNN_DIM):
+    from persia_tpu_torch.config import EmbeddingConfig, SlotConfig
+
+    return EmbeddingConfig(slots_config={f"cat_{i}": SlotConfig(dim=dim) for i in range(slots)},
+                           feature_index_prefix_bit=8)
+
+
+def dnn_batch_maker(seed, rows, labels=True):
+    """The serving bench's batches (``benchmarks/serving_bench.py``): per
+    slot i, zipf(1.2) ids shifted by 1000 i, modulo 100,000; 8 normal dense
+    features; 0/1 labels for training."""
+    from persia_tpu_torch.data import IDTypeFeatureWithSingleID, Label, NonIDTypeFeature, PersiaBatch
+
+    rng = np.random.default_rng(seed)
+
+    def make():
+        ids = [IDTypeFeatureWithSingleID(f"cat_{i}", (rng.zipf(1.2, rows).astype(np.uint64) + np.uint64(i * 1000))
+                                         % np.uint64(DNN_VOCAB)) for i in range(DNN_SLOTS)]
+        dense = [NonIDTypeFeature(rng.normal(size=(rows, DNN_DENSE)).astype(np.float32))]
+        if not labels:
+            return PersiaBatch(ids, non_id_type_features=dense, requires_grad=False)
+        y = [Label(rng.integers(0, 2, (rows, 1)).astype(np.float32))]
+        return PersiaBatch(ids, non_id_type_features=dense, labels=y, requires_grad=True)
+
+    return make
+
+
+def dnn_ctx(device, backend, sd=None, compute_dtype=None):
+    """The serving bench's ``_build_ctx`` through the port, with device
+    pooling: one store of ``backend`` (2^18 rows, 4 shards, Adagrad(0.1),
+    seed 7), DNN(32, 128, (128, 64)) in bf16 compute (or
+    ``compute_dtype``), Adam(3e-3); weights from SEED, the statistics at
+    flax's start (0 and 1). Returns (ctx, store, weights)."""
+    import torch
+
+    from persia_tpu_torch.ctx import TrainCtx
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.embedding.worker import EmbeddingWorker
+    from persia_tpu_torch.models import DNN
+    from persia_tpu_torch.weights import seeded_flax_params_like, state_dict_from_flax
+
+    cfg = dnn_cfg()
+    store = make_store(backend, capacity=1 << 18, num_internal_shards=4, optimizer=Adagrad(lr=0.1).config, seed=7)
+    model = DNN(DNN_DENSE, [DNN_DIM] * DNN_SLOTS, *DNN_MLP, compute_dtype or torch.bfloat16, device="cpu")
+    sd = sd or state_dict_from_flax(model, seeded_flax_params_like(model, SEED))
+    model.load_state_dict(sd)
+    ctx = TrainCtx(model, torch.optim.Adam(model.parameters(), lr=3e-3), Adagrad(lr=0.1),
+                   EmbeddingWorker(cfg, [store], device_pooling=True), cfg, device=device).__enter__()
+    return ctx, store, sd
+
+
+def dnn_gaps(card, cpu, card_store, cpu_store, keys):
+    """Card against CPU after the same steps: the losses' largest gap, the
+    batch statistics' (mean and var apart), and each PS row's largest gap
+    of its embedding and relative gap of its Adagrad accumulator, by key."""
+    from persia_tpu_torch.weights import batch_stats_to_flax
+
+    a, b = batch_stats_to_flax(card.model), batch_stats_to_flax(cpu.model)
+    stats = {k: max(float(np.abs(a[n][k] - b[n][k]).max()) for n in b) for k in ("mean", "var")}
+    card_rows, cpu_rows = entries_of(card_store, keys), entries_of(cpu_store, keys)
+    if set(card_rows) != set(cpu_rows) or not card_rows:
+        raise SystemExit(f"DNN training: the card's store holds {len(card_rows)} of the batches' signs, the CPU's "
+                         f"{len(cpu_rows)}")
+    signs = np.array(sorted(cpu_rows), dtype=np.uint64)
+    rows = np.array([float(np.abs(card_rows[k][:DNN_DIM] - cpu_rows[k][:DNN_DIM]).max()) for k in signs.tolist()])
+    acc = np.array([float((np.abs(card_rows[k][DNN_DIM:] - cpu_rows[k][DNN_DIM:])
+                           / np.maximum(np.abs(cpu_rows[k][DNN_DIM:]), 1e-30)).max()) for k in signs.tolist()])
+    return stats, signs, rows, acc
+
+
+def permuted_batch(batch, perm):
+    """``batch`` with its samples in the order ``perm``: the same
+    arithmetic, every sum over the batch taken in another order."""
+    from persia_tpu_torch.data import IDTypeFeature, Label, NonIDTypeFeature, PersiaBatch
+
+    return PersiaBatch([IDTypeFeature(f.name, [f.data[i] for i in perm]) for f in batch.id_type_features],
+                       non_id_type_features=[NonIDTypeFeature(f.data[perm], f.name)
+                                             for f in batch.non_id_type_features],
+                       labels=[Label(f.data[perm], f.name) for f in batch.labels], requires_grad=batch.requires_grad)
+
+
+def dnn_f32_witness(dev, batches, sd, cfg):
+    """Phase 4j (b)'s witness: the same steps in f32 compute on the card,
+    on the CPU, and on the card again from the same weights with one layer
+    moved by one ulp (Dense_2's kernel, each element). After the first
+    step, from the same state on both devices, the card must equal the CPU
+    as far as the sums' order can part them, which the first batch with
+    its samples permuted measures on each device (rows and accumulators
+    within twice the larger of the two gaps, and at least 1e-4 and 1e-3):
+    a fault of K1, K2, K10 or K11 shows there, rounding does not. The
+    later steps measure
+    how training itself grows a rounding-sized difference: Adam's first
+    steps move a parameter by ~lr whatever its gradient's size, so a
+    gradient near 0 that takes the other sign parts the two runs by 2 lr."""
+    import torch
+
+    moved = {k: v.clone() for k, v in sd.items()}
+    moved["layers.2.weight"] = torch.nextafter(sd["layers.2.weight"], torch.tensor(float("inf")))
+    runs = {name: dnn_ctx(device, backend, weights, torch.float32)[:2] for name, device, backend, weights in (
+        ("card", dev, "native", sd), ("cpu", "cpu", "numpy", sd), ("card_ulp", dev, "native", moved))}
+    losses = {name: [] for name in runs}
+    readings = {}
+    spread = {}
+    for i, b in enumerate(batches):
+        for name, (ctx, _) in runs.items():
+            losses[name].append(ctx.train_step(b)["loss"])
+        if i == 0:
+            perm = np.random.default_rng(SEED).permutation(b.batch_size)
+            for name, device, backend in (("card", dev, "native"), ("cpu", "cpu", "numpy")):
+                ctx, store = dnn_ctx(device, backend, sd, torch.float32)[:2]
+                ctx.train_step(permuted_batch(b, perm))
+                _, _, rows, acc = dnn_gaps(runs[name][0], ctx, runs[name][1], store, batch_keys(batches[:1], cfg))
+                spread[name] = {"rows_max": float(rows.max()), "rows_p99": float(np.percentile(rows, 99)),
+                                "acc_max": float(acc.max())}
+        if i in (0, len(batches) - 1):
+            keys = batch_keys(batches[:i + 1], cfg)
+            (card, card_store) = runs["card"]
+            for other in ("cpu", "card_ulp"):
+                stats, _, rows, acc = dnn_gaps(card, runs[other][0], card_store, runs[other][1], keys)
+                readings[(i, other)] = {
+                    "loss": max(abs(a - c) for a, c in zip(losses["card"], losses[other])),
+                    "mean": stats["mean"], "var": stats["var"], "rows_max": float(rows.max()),
+                    "rows_p99": float(np.percentile(rows, 99)), "acc_max": float(acc.max())}
+    first = readings[(0, "cpu")]
+    # a fault that drops or misroutes a position moves its row by that
+    # position's whole step; rounding moves a row by up to what the
+    # permuted batch shows (a relu whose pre-activation lies within
+    # rounding of 0 takes the other sign, and its sample's rows move)
+    rows_bound = max(1e-4, 2 * max(v["rows_max"] for v in spread.values()))
+    acc_bound = max(1e-3, 2 * max(v["acc_max"] for v in spread.values()))
+    ok = (first["loss"] <= 1e-5 and first["mean"] <= 1e-5 and first["var"] <= 1e-5
+          and first["rows_max"] <= rows_bound and first["acc_max"] <= acc_bound)
+    last = len(batches) - 1
+
+    def fmt(r):
+        return (f"losses {r['loss']:.3e}, means {r['mean']:.3e}, variances {r['var']:.3e}, rows max "
+                f"{r['rows_max']:.3e} p99 {r['rows_p99']:.3e}, accumulators rel {r['acc_max']:.3e}")
+
+    print(f"  f32 witness, card vs cpu after the first step: {fmt(first)} (losses and statistics 1e-5, rows "
+          f"{rows_bound:.3e} and accumulators {acc_bound:.3e}: twice the first batch's permuted gaps, at least "
+          f"1e-4 and 1e-3; card "
+          f"{spread['card']}, cpu {spread['cpu']}) {'ok' if ok else 'FAIL'}; the card vs itself from Dense_2's "
+          f"kernel moved by one ulp, after the first step: {fmt(readings[(0, 'card_ulp')])}; after {last + 1} "
+          f"steps: card vs cpu "
+          f"{fmt(readings[(last, 'cpu')])}"
+          f"; card vs the card from Dense_2's kernel moved by one ulp {fmt(readings[(last, 'card_ulp')])}", flush=True)
+    return ok, {"steps": last + 1, "first_step_vs_cpu": first, "first_step_permuted": spread,
+                "last_step_vs_cpu": readings[(last, "cpu")],
+                "last_step_vs_one_ulp": readings[(last, "card_ulp")],
+                "first_step_vs_one_ulp": readings[(0, "card_ulp")]}
+
+
+def bn_launches_expected(ops, **counts):
+    expected = {fn.__name__: 0 for fn in ops.KERNEL_WRAPPERS}
+    expected.update(counts)
+    return expected
+
+
+def path_adult(dev):
+    """Phase 4j (a): the adult-income example on the card, held to its
+    pinned AUC and to the same run on the CPU."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.testing import adult_income
+
+    ai = adult_income
+    print(f"== phase 4j (a): adult income (examples/adult_income/train.py's config: VOCABS {ai.VOCABS}, dim "
+          f"{ai.DIM}, DNN({ai.DENSE_MLP}, {ai.SPARSE_MLP}, {ai.HIDDEN}), numpy store 2^18 / 4 shards, "
+          f"Adagrad(0.1), Adam(3e-3), B={ai.BATCH}, {ai.EPOCHS} epochs of {ai.TRAIN_SAMPLES}, test "
+          f"{ai.TEST_SAMPLES}; host pooling)", flush=True)
+    pinned = ai.reference_auc(pathlib.Path(__file__).resolve().parent)
+    runs = {}
+    for device in ("cpu", dev):
+        ctx, _ = ai.build_ctx(device)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        epochs = ai.train(ctx, on_epoch=lambda e, loss, auc, d=device: print(
+            f"  {d} epoch {e}: loss={loss:.4f} test_auc={auc:.6f}", flush=True))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[str(device)] = (epochs, wall, {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS},
+                             dict(ops.batch_norm_fwd.launches_by_route))
+    (card, card_wall, launches, by_route), (cpu, cpu_wall, _, _) = runs[str(dev)], runs["cpu"]
+    steps = sum(len(losses) for losses, _ in card)
+    evals = ai.EPOCHS * -(-ai.TEST_SAMPLES // ai.BATCH)
+    check_launches("adult income", launches, bn_launches_expected(
+        ops, batch_norm_fwd=2 * (steps + evals), batch_norm_bwd=2 * steps))
+    if by_route != {"train": 2 * steps, "eval": 2 * evals}:
+        raise SystemExit(f"adult income: K10's launches by mode {by_route}, expected {2 * steps} train and "
+                         f"{2 * evals} eval")
+    card_losses = np.concatenate([losses for losses, _ in card])
+    cpu_losses = np.concatenate([losses for losses, _ in cpu])
+    gap = np.abs(card_losses - cpu_losses)
+    first_off = next((i for i, d in enumerate(gap) if d > 2e-2), None)
+    auc, cpu_auc = card[-1][1], cpu[-1][1]
+    ok = abs(auc - pinned) <= 5e-3 and abs(cpu_auc - pinned) <= 5e-3 and np.isfinite(card_losses).all()
+    print(f"  final test AUC card {auc!r}, cpu {cpu_auc!r}, pinned REPRODUCIBLE_AUC {pinned!r}: card - pinned "
+          f"{auc - pinned:+.3e}, cpu - pinned {cpu_auc - pinned:+.3e} (tolerance 5e-3) {'ok' if ok else 'FAIL'}; "
+          f"per-step losses card vs cpu max |diff| {gap.max():.3e}, first step past 2e-2: {first_off}; "
+          f"{steps} steps + {evals} eval batches in {card_wall:.2f} s (cpu {cpu_wall:.2f} s); launches {launches}",
+          flush=True)
+    if not ok:
+        raise SystemExit("adult income: the final AUC is not within 5e-3 of the reference's pinned one")
+    return launches, {
+        "epochs": ai.EPOCHS, "batch": ai.BATCH, "steps": steps, "eval_batches": evals,
+        "epoch_loss": [float(np.mean(losses)) for losses, _ in card], "epoch_auc": [a for _, a in card],
+        "final_auc": auc, "cpu_final_auc": cpu_auc, "pinned_auc": pinned, "auc_minus_pinned": auc - pinned,
+        "cpu_auc_minus_pinned": cpu_auc - pinned, "loss_max_abs_diff_vs_cpu": float(gap.max()),
+        "first_step_past_2e-2": first_off, "wall_s": card_wall, "cpu_wall_s": cpu_wall,
+        "launches_by_mode": by_route,
+    }
+
+
+def path_dnn_hybrid(dev):
+    """Phase 4j (b): DNN at the serving bench's width on the hybrid tier,
+    trained and then served."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.ctx import InferCtx
+    from persia_tpu_torch.embedding.worker import preprocess_batch
+    from persia_tpu_torch.models import DNN
+    from persia_tpu_torch.serving.engine import InferenceEngine
+    from persia_tpu_torch.weights import model_from_flax_bytes, train_state_to_flax_bytes
+
+    print(f"== phase 4j (b): DNN at the serving bench's width, hybrid ({DNN_SLOTS} slots of dim {DNN_DIM} over "
+          f"{DNN_VOCAB} ids, zipf(1.2), DNN{DNN_MLP}, device pooling; {DNN_WARM} + {DNN_STEPS} steps of B={BATCH}, "
+          f"then {DNN_REQUESTS} requests of B={DNN_SERVE_BATCH})", flush=True)
+    make = dnn_batch_maker(SEED + 21, BATCH)
+    batches = [make() for _ in range(DNN_WARM + DNN_STEPS)]
+    profiled = [make() for _ in range(4)]
+    cfg = dnn_cfg()
+    ctx, store, sd = dnn_ctx(dev, "native")
+    cpu, cpu_store, _ = dnn_ctx("cpu", "numpy", sd)
+    # the first step, from the same state on both devices: the rows within
+    # 1e-2 and their accumulators within 1e-2 of themselves
+    card_losses = [ctx.train_step(batches[0])["loss"]]
+    cpu_losses = [cpu.train_step(batches[0])["loss"]]
+    first_stats, _, first_rows, first_acc = dnn_gaps(ctx, cpu, store, cpu_store, batch_keys(batches[:1], cfg))
+    first = {"loss": abs(card_losses[0] - cpu_losses[0]), "stats": max(first_stats.values()),
+             "rows_max": float(first_rows.max()), "acc_max": float(first_acc.max())}
+    first_ok = (first["loss"] <= 2e-2 and first["stats"] <= 1e-2 and first["rows_max"] <= 1e-2
+                and first["acc_max"] <= 1e-2)
+    print(f"  bf16, card vs cpu after the first step: loss {first['loss']:.3e} (2e-2), batch_stats "
+          f"{first['stats']:.3e} (1e-2), PS rows max {first['rows_max']:.3e} (1e-2), Adagrad accumulators rel max "
+          f"{first['acc_max']:.3e} (1e-2) {'ok' if first_ok else 'FAIL'}", flush=True)
+    card_losses += [ctx.train_step(b)["loss"] for b in batches[1:DNN_WARM]]
+    ops.reset_launch_counts()
+    step_ms = []
+    for b in batches[DNN_WARM:]:
+        t = time.perf_counter()
+        card_losses.append(ctx.train_step(b)["loss"])  # ends in the gradients' copy to the host and the update
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+    by_route = dict(ops.batch_norm_fwd.launches_by_route)
+    check_launches("DNN training path", launches, bn_launches_expected(
+        ops, gather_pool_fwd=DNN_STEPS, gather_pool_bwd=DNN_STEPS, batch_norm_fwd=2 * DNN_STEPS,
+        batch_norm_bwd=2 * DNN_STEPS))
+    if by_route != {"train": 2 * DNN_STEPS, "eval": 0}:
+        raise SystemExit(f"DNN training: K10's launches by mode {by_route}")
+    cpu_losses += [cpu.train_step(b)["loss"] for b in batches[1:DNN_CPU_STEPS]]
+    loss_err = max(abs(a - c) for a, c in zip(card_losses, cpu_losses))
+    keys = batch_keys(batches, cfg)
+    stats, signs, gaps, acc_gaps = dnn_gaps(ctx, cpu, store, cpu_store, keys)
+    stats_err = max(stats.values())
+    # the rows after all the steps: training grows any rounding-sized
+    # difference (the f32 witness below: card against CPU, and the card
+    # against itself from weights moved by one ulp, part as far), so
+    # 99 % of the rows within 1e-2 (embeddings) and 1e-2 of itself (the
+    # accumulator), every row within 5e-2 and 0.1 (measured in bf16:
+    # 2.28e-2 to 3.79e-2 and 4.2e-2 to 4.8e-2)
+    row_err, acc_err = float(gaps.max()), float(acc_gaps.max())
+    row_p99, acc_p99 = float(np.percentile(gaps, 99)), float(np.percentile(acc_gaps, 99))
+    counts = dict(zip(*np.unique(np.concatenate([s.keys for b in batches for s in preprocess_batch(
+        b.id_type_features, cfg)]), return_counts=True)))
+    tail = [(float(gaps[i]), int(counts[signs[i]])) for i in np.argsort(gaps)[::-1][:5]]
+    ok = (loss_err <= 2e-2 and stats_err <= 1e-2 and row_p99 <= 1e-2 and row_err <= 5e-2 and acc_p99 <= 1e-2
+          and acc_err <= 0.1 and np.isfinite(card_losses).all())
+    print(f"  losses card {[round(x, 5) for x in card_losses]} cpu {[round(x, 5) for x in cpu_losses]}: max_abs_err="
+          f"{loss_err:.3e} (tolerance 2e-2); batch_stats max_abs_err mean {stats['mean']:.3e}, var "
+          f"{stats['var']:.3e} (1e-2); PS rows ({len(gaps)}, native vs numpy) abs err p50 "
+          f"{np.percentile(gaps, 50):.3e}, p99 {row_p99:.3e} (1e-2), max {row_err:.3e} (5e-2), "
+          f"{float((gaps > 1e-2).mean()):.4%} past 1e-2; the 5 widest (gap, steps that touched the row) {tail}; "
+          f"Adagrad accumulators rel err p99 {acc_p99:.3e} (1e-2), max {acc_err:.3e} (0.1) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    witness_ok, witness = dnn_f32_witness(dev, batches[:DNN_CPU_STEPS], sd, cfg)
+    if not first_ok:
+        raise SystemExit("DNN training: card and CPU disagree after the first step")
+    if not ok:
+        raise SystemExit("DNN training: card and CPU disagree")
+    if not witness_ok:
+        raise SystemExit("DNN training: card and CPU disagree in f32 compute")
+
+    refs, device_batches = [], []
+    for b in profiled:
+        refs.append(ctx.worker.put_forward_ids(b))
+        device_batches.append(ctx.prepare_features(b, ctx.worker.forward_batch_id(refs[-1], train=True), csr=True)[0])
+    busy_ms, top_kernels, runs = device_busy_ms(ctx.run_step, device_batches)
+    for ref in refs:
+        ctx.worker.abort_gradient(ref)
+    training = {
+        "batch": BATCH, "steps": DNN_STEPS, "warm_steps": DNN_WARM, "store_backend": "native", "device_pooling": True,
+        "samples_per_s": DNN_STEPS * BATCH / (sum(step_ms) / 1e3), "step_ms_p50": float(np.percentile(step_ms, 50)),
+        "step_ms_max": max(step_ms), "step_ms_all": step_ms, "losses": card_losses,
+        "loss_max_abs_err_vs_cpu": loss_err, "batch_stats_max_abs_err_vs_cpu": stats_err,
+        "ps_row_max_abs_err_vs_cpu": row_err, "ps_row_p99_abs_err_vs_cpu": row_p99,
+        "ps_accumulator_max_rel_err_vs_cpu": acc_err, "ps_accumulator_p99_rel_err_vs_cpu": acc_p99,
+        "widest_rows_gap_and_touches": tail, "first_step_vs_cpu": first, "f32_witness": witness,
+        "step_device_busy_ms": busy_ms, "step_top_kernels_ms": top_kernels,
+        "bn_kernel_runs_4_steps": {k: runs[k] for k in ("batch_norm_fwd_kernel", "batch_norm_bwd_kernel")},
+    }
+    print(f"  {training['samples_per_s']:.1f} samples/s; step p50 {training['step_ms_p50']:.2f} ms, longest "
+          f"{training['step_ms_max']:.2f}; card busy {busy_ms} ms a step; its kernels {json.dumps(top_kernels)}; "
+          f"K10/K11 runs in 4 traced steps {training['bn_kernel_runs_4_steps']}", flush=True)
+
+    # serving: the trained state as flax's bytes, loaded into a bare DNN
+    # (model_from_flax_bytes: params and batch_stats) behind
+    # InferenceEngine(InferCtx); the same bytes on the CPU over the same store
+    raw_state = train_state_to_flax_bytes(ctx.state)
+    requests = [b.to_bytes() for b in (dnn_batch_maker(SEED + 22, DNN_SERVE_BATCH, labels=False)()
+                                       for _ in range(DNN_REQUESTS))]
+    engines = {}
+    for device in (dev, "cpu"):
+        model = model_from_flax_bytes(DNN(DNN_DENSE, [DNN_DIM] * DNN_SLOTS, *DNN_MLP, device=device), raw_state)
+        engines[device] = InferenceEngine(InferCtx(model, ctx.worker, cfg, device=device), device=device)
+    engine = engines[dev]
+    ops.reset_launch_counts()
+    latencies, served = [], []
+    for raw in requests:
+        t = time.perf_counter()
+        served.append(engine.predict_from_bytes(raw))
+        latencies.append((time.perf_counter() - t) * 1e3)
+    serving_launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+    serve_route = dict(ops.batch_norm_fwd.launches_by_route)
+    check_launches("DNN serving path", serving_launches, bn_launches_expected(
+        ops, gather_pool_fwd=DNN_REQUESTS, batch_norm_fwd=2 * DNN_REQUESTS))
+    if serve_route != {"train": 0, "eval": 2 * DNN_REQUESTS}:
+        raise SystemExit(f"DNN serving: K10's launches by mode {serve_route}")
+    err = 0.0
+    for raw, p in zip(requests, served):
+        if p.shape != (DNN_SERVE_BATCH, 1) or not np.isfinite(p).all():
+            raise SystemExit(f"DNN serving: bad predictions, shape {p.shape}")
+        err = max(err, float(np.abs(p - engines["cpu"].predict_from_bytes(raw)).max()))
+    print(f"  serving launches {serving_launches} (K10 by mode {serve_route}); card vs cpu engine max_abs_err="
+          f"{err:.3e} tolerance=2e-2 {'ok' if err <= 2e-2 else 'FAIL'}; p50 {np.percentile(latencies, 50):.2f} ms, "
+          f"slowest (cold) {max(latencies):.2f}", flush=True)
+    if err > 2e-2:
+        raise SystemExit("DNN serving: card and CPU predictions disagree")
+    serving = {"requests": DNN_REQUESTS, "batch": DNN_SERVE_BATCH,
+               "latency_ms_p50": float(np.percentile(latencies, 50)), "latency_ms_max": max(latencies),
+               "latency_ms_all": latencies, "pred_max_abs_err_vs_cpu": err}
+    return {"dnn_training": launches, "dnn_serving": serving_launches}, {"training": training, "serving": serving}
+
+
+def path_dnn_resume(dev):
+    """Phase 4j (c): kill and resume at bench.py:936-960's configuration on
+    the card, both modes."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.ctx import TrainCtx
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.embedding.store import EmbeddingStore
+    from persia_tpu_torch.embedding.worker import EmbeddingWorker
+    from persia_tpu_torch.jobstate import JobStateManager
+    from persia_tpu_torch.models import DNN
+    from persia_tpu_torch.testing import SyntheticClickDataset
+    from persia_tpu_torch.weights import (
+        batch_stats_to_flax, seeded_flax_params_like, state_dict_from_flax, train_state_to_flax_bytes,
+    )
+
+    r = DNN_RESUME
+    print(f"== phase 4j (c): DNN kill and resume (bench.py:936-960: DNN(8, 16, (32,)), 2 slots, B={r['batch']}, "
+          f"{r['steps']} steps, a snapshot every {r['every']}, killed after {r['kill']})", flush=True)
+    cfg = dnn_cfg(2, 8)
+    batches = list(SyntheticClickDataset(num_samples=r["steps"] * r["batch"], vocab_sizes=(64, 32), seed=9)
+                   .batches(r["batch"]))[:r["steps"]]
+    model0 = DNN(5, [8, 8], 8, 16, (32,), device="cpu")
+    sd = state_dict_from_flax(model0, seeded_flax_params_like(model0, SEED))
+
+    def make_ctx(stores):
+        model = DNN(5, [8, 8], 8, 16, (32,), device="cpu")
+        model.load_state_dict(sd)
+        return TrainCtx(model, torch.optim.Adam(model.parameters(), lr=3e-3), Adagrad(lr=0.1),
+                        EmbeddingWorker(cfg, stores), cfg, device=dev).__enter__()
+
+    def make_stores():
+        return [EmbeddingStore(capacity=1 << 16, num_internal_shards=4, seed=7) for _ in range(2)]
+
+    def dumps(stores):
+        return [st.dump_shard(i) for st in stores for i in range(st.num_internal_shards)]
+
+    base_stores = make_stores()
+    base = make_ctx(base_stores)
+    for b in batches:
+        base.train_step(b)
+    want_bytes, want_dumps = train_state_to_flax_bytes(base.state), dumps(base_stores)
+    out, launches = {}, {}
+    shutil.rmtree(STATE_DIR, ignore_errors=True)
+    try:
+        for mode, restore_ps in (("rewind", True), ("journal", False)):
+            mgr = JobStateManager(str(STATE_DIR / f"dnn_{mode}"))
+            stores = make_stores()
+            ctx1 = make_ctx(stores)
+            ctx1.resume(mgr)
+            for i in range(r["kill"]):
+                ctx1.train_step(batches[i])
+                if (i + 1) % r["every"] == 0:
+                    ctx1.snapshot_job(mgr)
+            del ctx1  # the trainer dies; the PS stores survive
+            t0 = time.perf_counter()
+            ctx2 = make_ctx(stores)
+            m = ctx2.resume(mgr, restore_ps=restore_ps)
+            resume_s = time.perf_counter() - t0
+            ops.reset_launch_counts()
+            for i in range(m.step, r["steps"]):
+                ctx2.train_step(batches[i])
+            torch.cuda.synchronize()
+            launches[mode] = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+            replayed = r["steps"] - m.step
+            check_launches(f"DNN resume ({mode})", launches[mode], bn_launches_expected(
+                ops, batch_norm_fwd=2 * replayed, batch_norm_bwd=2 * replayed))
+            router = ctx2.worker.lookup_router
+            out[mode] = {"time_to_resume_s": resume_s, "resumed_at_step": m.step, "steps_replayed": replayed,
+                         "journal_skips": router.journal_skips}
+            if mode == "rewind":
+                same_dense = train_state_to_flax_bytes(ctx2.state) == want_bytes
+                same_ps = dumps(stores) == want_dumps
+                stats = batch_stats_to_flax(ctx2.model)
+                moved = all(not np.array_equal(v["var"], np.ones_like(v["var"])) for v in stats.values())
+                out[mode].update(dense_bytes_equal=same_dense, ps_dumps_equal=same_ps)
+                print(f"  rewind: resumed at step {m.step} in {resume_s:.4f} s, {replayed} steps replayed; dense "
+                      f"bytes (params, batch_stats, Adam) equal to the uninterrupted run's: {same_dense}; every PS "
+                      f"shard's dump equal: {same_ps}; batch_stats moved from flax's start: {moved}", flush=True)
+                if not (same_dense and same_ps and moved):
+                    raise SystemExit("DNN rewind resume: not bit for bit the uninterrupted run")
+            else:
+                applied = r["kill"] - m.step  # replayed steps the crashed run had applied
+                print(f"  journal: resumed at step {m.step} in {resume_s:.4f} s, {replayed} steps replayed, "
+                      f"{applied} of them applied before the crash; journal_skips {router.journal_skips}", flush=True)
+                if router.journal_skips < applied:
+                    raise SystemExit("DNN journal resume: a step the crashed run applied was applied again")
+    finally:
+        shutil.rmtree(STATE_DIR, ignore_errors=True)
+    return {"dnn_resume": launches["rewind"]}, out
+
+
+def path_dnn(dev):
+    """Phase 4j: DNN with its batch statistics (a, b, c)."""
+    adult_launches, adult = path_adult(dev)
+    hybrid_launches, hybrid = path_dnn_hybrid(dev)
+    resume_launches, resume = path_dnn_resume(dev)
+    return ({"dnn_adult": adult_launches, **hybrid_launches, **resume_launches},
+            {"adult_income": adult, **hybrid, "resume": resume})
+
+
 def time_flash_backward(dev, card):
     """The flash-attention backward, a dense recompute (the gradient of
     ``reference_attention`` at the saved q, k, v; it launches no kernel of
@@ -3232,6 +3840,80 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused, din
           f"20 calls in the trace: {k9['trace_20_calls']}", flush=True)
     if not runs["attention_pool_bwd_kernel"] or any("attention_pool_bwd_kernel" not in n for n in top):
         raise SystemExit(f"attention_pool_bwd ran other device work than its kernel: {top}")
+    # K10 and K11 at the DNN training path's first batch norm (serving-bench
+    # width: B=4096, C=128, bf16) and, beside it, its second (C=32) and
+    # the serving path's eval mode (B=256); warm and cold. Bound: x (and
+    # dy) read once, y (dx) written once, the (C,) parameters and
+    # statistics; the kernels read x twice, the second time from L2.
+    # library: F.batch_norm(training=True) and aten's
+    # native_batch_norm_backward on the same inputs (their running variance
+    # is the unbiased one: a time comparison only)
+    from persia_tpu_torch.ops.batch_norm import batch_norm_bwd_reference, batch_norm_fwd_reference
+
+    bn_paths = ("dnn_adult", "dnn_training", "dnn_serving", "dnn_resume")
+    bn_launches = {p: {k: launches[p][k] for k in BN_KERNELS} for p in bn_paths}
+    bx, bdy, bscale, bbias, bmean, bvar = bn_inputs(dev, BATCH, 128, torch.bfloat16, SEED + 11)
+    brm, brv, lrm, lrv = bmean.clone(), bvar.clone(), bmean.clone(), bvar.clone()
+    n_el, cols = bx.numel(), bx.shape[1]
+    _, bsaved = ops.batch_norm_fwd(bx, bscale, bbias, brm, brv, True)
+    lib_saved = torch.ops.aten.native_batch_norm(bx, bscale, bbias, lrm, lrv, True, 0.01, 1e-5)[1:]
+
+    def bn_fwd_lib(x_):
+        return F.batch_norm(x_, lrm, lrv, bscale, bbias, True, 0.01, 1e-5)
+
+    def bn_bwd_lib(dy_, x_):
+        return torch.ops.aten.native_batch_norm_backward(dy_, x_, bscale, lrm, lrv, *lib_saved, True, 1e-5,
+                                                         [True, True, True])
+
+    def bn_extra(fn, b_, c_, train):
+        x_, dy_, sc_, bi_, m_, v_ = bn_inputs(dev, b_, c_, torch.bfloat16, SEED + b_ + c_)
+        _, sv_ = ops.batch_norm_fwd(x_, sc_, bi_, m_.clone(), v_.clone(), train)
+        if fn == "fwd":
+            return min(graph_ms(lambda: ops.batch_norm_fwd(x_, sc_, bi_, m_, v_, train)) for _ in range(2))
+        return min(graph_ms(lambda: ops.batch_norm_bwd(dy_, x_, sc_, sv_, train)) for _ in range(2))
+
+    bms, by = bound(2 * n_el * 2 + 4 * cols * 9, 8 * n_el, "float32")
+    rows.append(with_cold(
+        timed(
+            dict(name="batch_norm_fwd", route="cuda", cuda_route="cuda", source=BN_SOURCE, replaces=BN_REPLACES,
+                 shape=[BATCH, cols], dtype="bfloat16", launches=launches["dnn_training"]["batch_norm_fwd"],
+                 launches_by_path={p: v["batch_norm_fwd"] for p, v in bn_launches.items()},
+                 max_abs_err=errs["batch_norm_fwd"], bound_ms=bms, bound_by=by,
+                 registers=build.get("batch_norm_fwd_kernel<bf16,8>", {}).get("registers"),
+                 c32_ms=bn_extra("fwd", BATCH, 32, True), eval_256_ms=bn_extra("fwd", DNN_SERVE_BATCH, 128, False),
+                 library_note="F.batch_norm(training=True), f32 parameters over bf16 x: its running variance is "
+                              "the unbiased one, a time comparison only"),
+            kernel=lambda: ops.batch_norm_fwd(bx, bscale, bbias, brm, brv, True),
+            plain=lambda: batch_norm_fwd_reference(bx, bscale, bbias, brm, brv, True),
+            library=lambda: bn_fwd_lib(bx),
+        ),
+        kernel=lambda x_: ops.batch_norm_fwd(x_, bscale, bbias, brm, brv, True), make_copy=lambda: (bx.clone(),),
+        copy_bytes=n_el * 2, library=bn_fwd_lib, make_lib_copy=lambda: (bx.clone(),), lib_bytes=n_el * 2,
+    ))
+    bms, by = bound(3 * n_el * 2 + 4 * cols * 6, 12 * n_el, "float32")
+    rows.append(with_cold(
+        timed(
+            dict(name="batch_norm_bwd", route="cuda", cuda_route="cuda", source=BN_SOURCE, replaces=BN_REPLACES,
+                 shape=[BATCH, cols], dtype="bfloat16", launches=launches["dnn_training"]["batch_norm_bwd"],
+                 launches_by_path={p: v["batch_norm_bwd"] for p, v in bn_launches.items()},
+                 max_abs_err=errs["batch_norm_bwd"], bound_ms=bms, bound_by=by,
+                 registers=build.get("batch_norm_bwd_kernel<bf16,8>", {}).get("registers"),
+                 c32_ms=bn_extra("bwd", BATCH, 32, True),
+                 library_note="torch.ops.aten.native_batch_norm_backward (dx, dscale, dbias) from "
+                              "native_batch_norm's saved mean and invstd"),
+            kernel=lambda: ops.batch_norm_bwd(bdy, bx, bscale, bsaved, True),
+            plain=lambda: batch_norm_bwd_reference(bdy, bx, bscale, bsaved, True),
+            library=lambda: bn_bwd_lib(bdy, bx),
+        ),
+        kernel=lambda dy_, x_: ops.batch_norm_bwd(dy_, x_, bscale, bsaved, True),
+        make_copy=lambda: (bdy.clone(), bx.clone()), copy_bytes=2 * n_el * 2,
+        library=bn_bwd_lib, make_lib_copy=lambda: (bdy.clone(), bx.clone()), lib_bytes=2 * n_el * 2,
+    ))
+    for r in rows[-2:]:
+        print(f"  {r['name']} ({BATCH}, {cols}) bf16: warm {r['ms']:.5f} ms, cold {r['cold_ms']:.5f} ms, bound "
+              f"{r['bound_ms']:.5f} ({r['cold_share']:.1%} cold); plain {r['plain_ms']:.5f}; library "
+              f"{r['library_ms']:.5f} warm, {r['library_cold_ms']:.5f} cold; C=32 {r['c32_ms']:.5f}; registers "
+              f"{r['registers']}; launches {r['launches_by_path']}", flush=True)
     uk = next(r for r in rows if r["name"] == "update_keys")
     uk["over_launch_floor"] = uk["ms"] / min(floor)
     print(f"  update_keys warm {uk['ms']:.5f} ms = {uk['over_launch_floor']:.3f}x the launch floor "
@@ -3475,7 +4157,7 @@ def main() -> int:
 
     build = phase_build()
     errs = {"flash_attention": phase_flash_attention(dev), **phase_kernels(dev), **phase_fused_kernels(dev),
-            **phase_din_kernels(dev)}
+            **phase_din_kernels(dev), **phase_bn_kernels(dev)}
     fa_routes = path_flash_attention(dev)
     serving_launches, serving, feats_shape = path_serving(dev)
     training_launches, training, train_batch = path_training(dev)
@@ -3484,10 +4166,11 @@ def main() -> int:
     durable_launches, durable = path_durable(dev)
     din_launches, din, din_batch = path_din(dev)
     avazu_launches, avazu = path_avazu(dev)
+    dnn_launches, dnn = path_dnn(dev)
     launches = {"flash_attention": fa_routes, "serving": serving_launches,
                 "training": training_launches, "pipelined": pipelined_launches,
                 "durable": durable_launches, "fused": fused_launches, "fused_capture": fused_capture_launches,
-                **din_launches}
+                **din_launches, **dnn_launches}
     rows, floor = phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused_inputs, din_batch, build)
     time_flash_backward(dev, card)
     print(json.dumps({"serving": serving, "card": card}), flush=True)
@@ -3498,6 +4181,7 @@ def main() -> int:
     print(json.dumps({"fused": fused, "card": card}), flush=True)
     print(json.dumps({"din": din, "card": card}), flush=True)
     print(json.dumps({"avazu": avazu, "avazu_launches": avazu_launches, "card": card}), flush=True)
+    print(json.dumps({"dnn": dnn, "dnn_launches": dnn_launches, "card": card}), flush=True)
 
     # one entry per kernel (each flash-attention route by its non-causal
     # row); times graph-replayed, eager beside them
@@ -3505,7 +4189,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "eager_ms",
             "library_eager_ms", "cold_ms", "library_cold_ms", "sort_ms", "zipf_ms", "zipf_cold_ms",
             "zipf_bound_ms", "zipf_sort_ms", "longest_segment", "zipf_longest_segment", "one_row_ms",
-            "composite_ms", "registers", "over_launch_floor", "no_keys_ms", "no_keys_cold_ms", "routing_cost_ms")
+            "composite_ms", "registers", "over_launch_floor", "no_keys_ms", "no_keys_cold_ms", "routing_cost_ms",
+            "c32_ms", "eval_256_ms")
     kernels = [{k: r.get(k) for k in keys} for r in rows if not r.get("causal")]
     print(json.dumps({"kernels": kernels, "launch_floor_ms": floor, "card": card}), flush=True)
     print(card, flush=True)

@@ -1,5 +1,6 @@
-"""Layer helpers shared by the port's models: flax ``Dense`` as the
-reference runs it, a slot's one vector, and the seeded initialisation.
+"""Layer helpers shared by the port's models: flax ``Dense`` and
+``BatchNorm`` as the reference runs them, a slot's one vector, and the
+seeded initialisation.
 
 flax's ``Dense(dtype=bf16)`` casts its input, kernel and bias to bf16;
 ``Dense(1, dtype=float32)`` over bf16 activations promotes them to f32
@@ -13,6 +14,8 @@ from typing import Iterable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from persia_tpu_torch.ops import batch_norm
 
 
 def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -43,6 +46,37 @@ def slot_vector(emb, dtype: torch.dtype) -> torch.Tensor:
     m = mask[..., None].to(gathered.dtype)
     denom = torch.clamp(m.sum(dim=1), min=1.0)
     return ((gathered * m).sum(dim=1) / denom).to(dtype)
+
+
+def masked_sum(emb, dtype: torch.dtype) -> torch.Tensor:
+    """One (B, d) vector of a slot in ``dtype``, as DNN pools it: a pooled
+    slot as it is, a raw slot ``(gathered, mask)`` summed over its valid
+    positions in the rows' dtype (not averaged; an empty row gives
+    zeros)."""
+    if not isinstance(emb, tuple):
+        return emb.to(dtype)
+    gathered, mask = emb
+    return (gathered * mask[..., None].to(gathered.dtype)).sum(dim=1).to(dtype)
+
+
+class BatchNorm(nn.Module):
+    """flax's ``nn.BatchNorm(dtype=...)`` with its defaults (momentum 0.99,
+    epsilon 1e-5) over (B, C) activations (``ops.batch_norm``, K10 and K11
+    on the card): f32 ``scale`` (ones) and
+    ``bias`` (zeros) parameters, f32 ``mean`` (zeros) and ``var`` (ones)
+    buffers, flax's ``batch_stats``. In train mode it normalises with the
+    batch's statistics and moves the running ones in place; in eval mode it
+    normalises with the running ones. The output keeps the input's dtype."""
+
+    def __init__(self, features: int, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.register_buffer("mean", torch.zeros(features, device=device))
+        self.register_buffer("var", torch.ones(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return batch_norm(x, self.scale, self.bias, self.mean, self.var, self.training)
 
 
 # the std of a unit normal truncated to [-2, 2] (flax's variance_scaling)

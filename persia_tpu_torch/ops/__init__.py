@@ -11,13 +11,16 @@ pre-pass in ``tf32_split_planes.launches``). ``dot_interaction`` and
 update nothing through autograd: the gathered rows are the step's
 differentiated leaves. The raw-slot path's
 ``raw_gather`` (K6, backward K7) and DIN's ``attention_pool`` (K8,
-backward K9) are differentiable too."""
+backward K9) are differentiable too, as is DNN's ``batch_norm`` (K10
+``batch_norm_fwd``, counted also by mode in ``launches_by_route``; backward
+K11 ``batch_norm_bwd``)."""
 
 from persia_tpu_torch.ops.attention_pool import (  # noqa: F401
     attention_pool,
     attention_pool_bwd,
     attention_pool_fwd,
 )
+from persia_tpu_torch.ops.batch_norm import batch_norm, batch_norm_bwd, batch_norm_fwd  # noqa: F401
 from persia_tpu_torch.ops.dot_interaction import dot_interaction, dot_interaction_bwd  # noqa: F401
 from persia_tpu_torch.ops.embedding_pool import (  # noqa: F401
     PoolSlot,
@@ -33,7 +36,7 @@ from persia_tpu_torch.ops.sparse_update import sparse_update, update_keys  # noq
 KERNEL_WRAPPERS = (
     dot_interaction, dot_interaction_bwd, gather_pool_fwd, gather_pool_bwd,
     flash_attention, tf32_split_planes, fused_gather, update_keys, sparse_update,
-    raw_gather_fwd, raw_gather_bwd, attention_pool_fwd, attention_pool_bwd,
+    raw_gather_fwd, raw_gather_bwd, attention_pool_fwd, attention_pool_bwd, batch_norm_fwd, batch_norm_bwd,
 )
 
 

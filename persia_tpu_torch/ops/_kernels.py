@@ -155,6 +155,10 @@ def library() -> ctypes.CDLL:
             lib.persia_attention_pool_bwd.restype = i32
             lib.persia_attention_pool_bwd.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32,
                                                       i32, i32, vp]
+            lib.persia_batch_norm_fwd.restype = i32
+            lib.persia_batch_norm_fwd.argtypes = [vp] * 7 + [i32] * 4 + [f32] * 3 + [i32] * 5 + [vp]
+            lib.persia_batch_norm_bwd.restype = i32
+            lib.persia_batch_norm_bwd.argtypes = [vp] * 7 + [i32] * 9 + [vp]
             _lib = lib
         return _lib
 

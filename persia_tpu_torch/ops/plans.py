@@ -679,3 +679,100 @@ def k5_segments(sorted_ids: np.ndarray, num_rows: int):
         if 0 <= ids[s] < num_rows:
             (long_ if e - s >= K5_LONG_MIN else short).append((s, e - s))
     return short, long_
+
+
+# flax's BatchNorm, K10 and K11 (csrc/batch_norm.cu): a cluster of slices
+# blocks owns 16 bytes of a row's columns, each block one of slices equal
+# spans of the rows, row_lanes lanes a block, each lane every
+# row_lanes-th row of its span
+BN_THREADS = 256
+BN_MAX_SLICES = 8  # blocks a cluster: the portable cluster size
+BN_TARGET_BLOCKS = 128  # about one block an SM of the H100's 132
+BN_SLICE_ROWS = 256  # the fewest rows worth a block of their own
+BN_ROWS_A_LANE = 4  # rows a lane keeps in flight (kRowsAhead)
+
+
+@dataclass(frozen=True)
+class BatchNormPlan:
+    rows: int
+    cols: int
+    vec: int  # 8 bf16 or 4 f32 columns a load; 1 on the scalar path
+    groups: int  # column vectors a block: groups * vec * elem_bytes == 16
+    row_lanes: int  # lanes a column vector: a power of 2, threads / groups
+    grid: int  # one cluster a group of groups * vec columns
+    slices: int  # blocks a cluster, each a span of the rows
+
+    @property
+    def span(self) -> int:
+        """Rows a block: the last block's span may be shorter."""
+        return -(-self.rows // self.slices)
+
+    @property
+    def threads(self) -> int:
+        return self.groups * self.row_lanes
+
+    @property
+    def cols_per_block(self) -> int:
+        return self.groups * self.vec
+
+
+@functools.lru_cache(maxsize=256)
+def batch_norm_plan(rows: int, cols: int, elem_bytes: int, aligned: bool = True) -> BatchNormPlan:
+    """Geometry of ``batch_norm_fwd`` and ``batch_norm_bwd`` over (rows,
+    cols) activations of ``elem_bytes`` bytes. ``aligned``: every (B, C)
+    tensor the kernel reads or writes starts on 16 bytes. A row takes
+    16-byte loads where cols is a multiple of 8 (bf16) or 4 (f32) and it is
+    aligned, else scalar columns; either way a block's columns span 16
+    bytes of a row. The rows split into ``slices`` spans, one block each
+    (a cluster), so that the grid comes near ``BN_TARGET_BLOCKS``, with no
+    span under ``BN_SLICE_ROWS`` rows. The row lanes are the fewest powers
+    of 2 that give each lane at most ``BN_ROWS_A_LANE`` rows of a span
+    (one row where a column group's block walks every row: at the small
+    batches more lanes a block hide more of a load's latency), from a
+    warp's worth up to ``BN_THREADS`` threads."""
+    if elem_bytes not in (2, 4) or rows < 1 or cols < 1:
+        raise ValueError("batch norm needs bf16 or f32 activations and positive sizes")
+    wide = 16 // elem_bytes
+    vec = wide if aligned and cols % wide == 0 else 1
+    groups = wide // vec
+    grid = -(-cols // (groups * vec))
+    slices = max(1, min(BN_MAX_SLICES, BN_TARGET_BLOCKS // grid, rows // BN_SLICE_ROWS))
+    span = -(-rows // slices)
+    rows_a_lane = BN_ROWS_A_LANE if slices > 1 else 1
+    row_lanes = max(32 // groups, min(BN_THREADS // groups, _pow2_ceil(-(-span // rows_a_lane))))
+    return BatchNormPlan(rows=rows, cols=cols, vec=vec, groups=groups, row_lanes=row_lanes, grid=grid,
+                         slices=slices)
+
+
+def batch_norm_sum_model(values: np.ndarray, plan: BatchNormPlan) -> np.ndarray:
+    """The column sums of (rows, cols) f32 ``values`` in the order K10 and
+    K11 take them, in numpy f32: in each span of ``plan.span`` rows, each
+    row lane sums its rows (lane, lane + R, ...) in order, a warp's lanes
+    meet in a shuffle tree (xor offsets 16 down to the column groups), and
+    the warps' sums add in warp order; then the spans' sums add in order."""
+    v = np.asarray(values, dtype=np.float32)
+    out = None
+    for s in range(plan.slices):
+        part = _bn_block_sums(v[s * plan.span:(s + 1) * plan.span], plan)
+        out = part if out is None else out + part
+    return out
+
+
+def _bn_block_sums(v: np.ndarray, plan: BatchNormPlan) -> np.ndarray:
+    lanes = plan.row_lanes
+    acc = np.zeros((lanes, v.shape[1]), dtype=np.float32)
+    for r in range(v.shape[0]):
+        acc[r % lanes] = acc[r % lanes] + v[r]
+    lanes_a_warp = 32 // plan.groups  # row lanes of one warp: a warp's threads / groups
+    warps = []
+    for w in range(0, lanes, lanes_a_warp):
+        part = acc[w:w + lanes_a_warp].copy()
+        off = lanes_a_warp // 2
+        while off >= 1:  # xor offset off * groups over threads is off over row lanes
+            part = part + part[np.arange(lanes_a_warp) ^ off]
+            off //= 2
+        warps.append(part[0])
+    out = np.zeros(v.shape[1], dtype=np.float32)
+    for s in warps:
+        out = out + s
+    return out

@@ -109,9 +109,10 @@ class LossScaleState:
 
 @dataclass
 class TrainState:
-    """The dense side's training state: the module holds the parameters,
-    ``optimizer`` (a ``torch.optim.Adam`` over them) its moments; ``step``
-    counts the steps taken, skipped ones included."""
+    """The dense side's training state: the module holds the parameters
+    and any batch statistics (its batch norms' buffers, flax's
+    ``batch_stats``), ``optimizer`` (a ``torch.optim.Adam`` over them) its
+    moments; ``step`` counts the steps taken, skipped ones included."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
@@ -147,14 +148,20 @@ def build_train_step(
     (P, dim) for the others (rows past the true distinct count are padding
     the host slices off).
 
+    The model runs in train mode: a batch norm normalises with the batch's
+    statistics and moves its running ones in place during the forward.
+
     ``dynamic_loss_scale``: the loss is multiplied by the running scale
     before backward. A finite check over every dense and embedding gradient
     decides the step: finite → the dense update applies and ``good_steps``
     counts up, the scale growing by ``growth_factor`` after
     ``growth_interval`` of them; overflow → the dense update is skipped,
     the scale backs off by ``backoff_factor`` and ``good_steps`` resets.
-    The scale stays within [1, ``max_scale``]. Embedding gradients ship
-    scaled; the header's scale lets the worker divide it out."""
+    The scale stays within [1, ``max_scale``]. A skipped step still moves
+    the running statistics, as the reference's does (it takes the
+    forward's new ``batch_stats`` whatever the finite check says).
+    Embedding gradients ship scaled; the header's scale lets the worker
+    divide it out."""
     params = [p for p in model.parameters() if p.requires_grad]
     f32 = np.float32
 
@@ -245,11 +252,13 @@ def unpack_step_output(header: np.ndarray, gpacked: np.ndarray, batch: Dict):
 
 def build_eval_step(model: torch.nn.Module) -> Callable[[Dict], torch.Tensor]:
     """Returns ``eval_step(batch) -> preds``: sigmoid of the model's logits,
-    computed under ``torch.inference_mode``. The parameters are the
-    module's own."""
+    computed under ``torch.inference_mode`` with the model in eval mode
+    (batch norms on their running statistics, which stay as they are). The
+    parameters are the module's own."""
 
     @torch.inference_mode()
     def eval_step(batch: Dict) -> torch.Tensor:
+        model.eval()
         model_emb = _embedding_model_inputs(*_split_emb(batch["emb"]))
         return torch.sigmoid(model(batch["dense"], model_emb))
 

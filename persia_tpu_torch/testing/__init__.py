@@ -5,5 +5,5 @@ from persia_tpu_torch.testing.datasets import (  # noqa: F401
     AVAZU_VOCABS,
     AvazuSynthetic,
     TaobaoSynthetic,
-    roc_auc,
 )
+from persia_tpu_torch.testing.synthetic import SyntheticClickDataset, roc_auc  # noqa: F401

@@ -1,7 +1,6 @@
 """Streaming synthetic datasets shaped like the BASELINE.json configs the
 port trains (counterpart of ``persia_tpu/testing/datasets.py``, trimmed to
-Avazu for DeepFM / DCN-v2 and Taobao for DIN), and the rank AUC
-(``persia_tpu/testing/synthetic.py:roc_auc``).
+Avazu for DeepFM / DCN-v2 and Taobao for DIN).
 
 Each batch is generated on demand from ``(seed, batch_index)`` with a
 hidden, seeded ground-truth model, so AUC is learnable and exactly
@@ -24,30 +23,6 @@ from persia_tpu_torch.data import (
     PersiaBatch,
 )
 from persia_tpu_torch.embedding.hashing import splitmix64
-
-
-def roc_auc(labels: np.ndarray, scores: np.ndarray) -> float:
-    """Rank-based AUC (Mann-Whitney U), ties handled by average rank."""
-    labels = np.asarray(labels).reshape(-1)
-    scores = np.asarray(scores).reshape(-1)
-    order = np.argsort(scores, kind="mergesort")
-    ranks = np.empty_like(order, dtype=np.float64)
-    ranks[order] = np.arange(1, len(scores) + 1)
-    # average ranks over ties
-    sorted_scores = scores[order]
-    i = 0
-    while i < len(sorted_scores):
-        j = i
-        while j + 1 < len(sorted_scores) and sorted_scores[j + 1] == sorted_scores[i]:
-            j += 1
-        if j > i:
-            ranks[order[i : j + 1]] = (i + 1 + j + 1) / 2.0
-        i = j + 1
-    n_pos = labels.sum()
-    n_neg = len(labels) - n_pos
-    if n_pos == 0 or n_neg == 0:
-        return 0.5
-    return float((ranks[labels > 0.5].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
 
 
 def hash_to_unit(ids: np.ndarray, salt: int) -> np.ndarray:

@@ -6,22 +6,25 @@ tier's whole state, both ways.
 flax names a model's parameters by module path: a ``Dense`` layer is
 ``{"kernel": (in, out), "bias": (out,)}`` under its name (``Dense_0 …
 Dense_k`` in call order where unnamed, ``att_0/Dense_1`` inside a
-submodule). Each of the port's models lists its ``nn.Linear`` layers (and
-bare parameters) under those paths in ``flax_modules()``; a torch
-``weight`` is (out, in), the transpose of flax's kernel. Parameters and
-optax's ``ScaleByAdamState`` leaves (``mu``, ``nu``, ``count``) arrive as
-nested dicts of numpy arrays, so this module needs neither JAX nor flax nor
+submodule). Each of the port's models lists its ``nn.Linear`` layers,
+its batch norms (``models.layers.BatchNorm``: ``scale`` and ``bias`` under
+``params``, ``mean`` and ``var`` under ``batch_stats``) and bare parameters
+under those paths in ``flax_modules()``; a torch ``weight`` is (out, in),
+the transpose of flax's kernel. Parameters, batch statistics and optax's
+``ScaleByAdamState`` leaves (``mu``, ``nu``, ``count``) arrive as nested
+dicts of numpy arrays, so this module needs neither JAX nor flax nor
 optax.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Callable, Dict, List, Mapping, Sequence, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from persia_tpu_torch.models.layers import BatchNorm
 from persia_tpu_torch.serialization import msgpack_restore, msgpack_serialize
 
 Path = Tuple[str, ...]
@@ -30,16 +33,71 @@ Path = Tuple[str, ...]
 def flax_leaves(model: torch.nn.Module) -> List[Tuple[Path, torch.nn.Parameter, bool]]:
     """(flax path, parameter, transposed) of each of ``model``'s
     parameters, in call order: a layer's kernel (transposed) before its
-    bias."""
+    bias, a batch norm's scale before its bias."""
     out = []
     for path, m in model.flax_modules():
         if isinstance(m, torch.nn.Linear):
             out.append((path + ("kernel",), m.weight, True))
             if m.bias is not None:
                 out.append((path + ("bias",), m.bias, False))
+        elif isinstance(m, BatchNorm):
+            out += [(path + ("scale",), m.scale, False), (path + ("bias",), m.bias, False)]
         else:
             out.append((path, m, False))
     return out
+
+
+def stats_leaves(model: torch.nn.Module) -> List[Tuple[Path, torch.Tensor]]:
+    """(flax path, buffer) of each of ``model``'s batch statistics (flax's
+    ``batch_stats``): each batch norm's ``mean`` and ``var``; none for a
+    model without batch norms."""
+    out = []
+    for path, m in model.flax_modules():
+        if isinstance(m, BatchNorm):
+            out += [(path + ("mean",), m.mean), (path + ("var",), m.var)]
+    return out
+
+
+def _nest(leaves) -> Dict:
+    """Nested dicts from (path, value) pairs, every level's names sorted
+    (the order of a tree flax serialises)."""
+    out: Dict = {}
+    for path, value in leaves:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = value
+
+    def ordered(tree):
+        return {k: ordered(tree[k]) if isinstance(tree[k], dict) else tree[k] for k in sorted(tree)}
+
+    return ordered(out)
+
+
+def batch_stats_to_flax(model: torch.nn.Module) -> Dict:
+    """``model``'s batch statistics as flax's ``batch_stats`` tree of host
+    f32 arrays (``{}`` for a model without batch norms)."""
+    return _nest((path, _host_array(t)) for path, t in stats_leaves(model))
+
+
+def _check_stats(model: torch.nn.Module, batch_stats: Mapping) -> List[Tuple[Path, torch.Tensor]]:
+    leaves = stats_leaves(model)
+    if sorted(_flat_paths(batch_stats)) != sorted(path for path, _ in leaves):
+        raise ValueError(f"batch_stats holds {sorted('/'.join(p) for p in _flat_paths(batch_stats))}, the model "
+                         f"{sorted('/'.join(p) for p, _ in leaves)}")
+    return leaves
+
+
+def batch_stats_from_flax(model: torch.nn.Module, batch_stats: Mapping) -> None:
+    """Load flax's ``batch_stats`` tree into ``model``'s batch statistics,
+    in place; the tree must hold exactly the model's paths."""
+    with torch.no_grad():
+        for path, t in _check_stats(model, batch_stats):
+            a = _host_tensor(_at(batch_stats, path))
+            if a.shape != t.shape or a.dtype != t.dtype:
+                raise ValueError(f"{'/'.join(path)}: {a.dtype} {tuple(a.shape)} in the tree, "
+                                 f"{t.dtype} {tuple(t.shape)} in the model")
+            t.copy_(a.to(t.device))
 
 
 def _flat_paths(tree: Mapping, prefix: Path = ()) -> List[Path]:
@@ -63,13 +121,21 @@ def _check_paths(model: torch.nn.Module, tree: Mapping, what: str) -> List[Tuple
     return leaves
 
 
-def state_dict_from_flax(model: torch.nn.Module, params: Mapping) -> Dict[str, torch.Tensor]:
-    """``model``'s ``state_dict`` from the reference model's ``params``."""
+def state_dict_from_flax(model: torch.nn.Module, params: Mapping,
+                         batch_stats: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
+    """``model``'s ``state_dict`` from the reference model's ``params`` and,
+    for a model with batch norms, its ``batch_stats`` (where not given, the
+    model's own statistics, copied)."""
     names = {id(p): n for n, p in model.named_parameters()}
     out: Dict[str, torch.Tensor] = {}
     for path, p, transposed in _check_paths(model, params, "params"):
         a = np.asarray(_at(params, path), dtype=np.float32)
         out[names[id(p)]] = torch.from_numpy(np.array(a.T if transposed else a))  # a writable copy
+    buffers = {id(b): n for n, b in model.named_buffers()}
+    leaves = stats_leaves(model) if batch_stats is None else _check_stats(model, batch_stats)
+    for path, t in leaves:
+        out[buffers[id(t)]] = (t.detach().cpu().clone() if batch_stats is None
+                               else torch.from_numpy(np.array(_at(batch_stats, path), dtype=np.float32)))
     return out
 
 
@@ -78,18 +144,11 @@ def state_dict_to_flax(model: torch.nn.Module, tensor_of=lambda p: p) -> Dict:
     host arrays, the names at every level in sorted order (the order of a
     state the reference's step returned). ``tensor_of`` maps each parameter
     to the tensor to take (an Adam moment of it, say)."""
-    out: Dict = {}
+    leaves = []
     for path, p, transposed in flax_leaves(model):
         a = _host_array(tensor_of(p))
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = np.ascontiguousarray(a.T) if transposed else a
-
-    def ordered(tree):
-        return {k: ordered(tree[k]) if isinstance(tree[k], dict) else tree[k] for k in sorted(tree)}
-
-    return ordered(out)
+        leaves.append((path, np.ascontiguousarray(a.T) if transposed else a))
+    return _nest(leaves)
 
 
 def adam_state_from_optax(
@@ -128,7 +187,8 @@ def train_state_to_flax_bytes(state) -> bytes:
     """The port's hybrid ``TrainState`` (any of the port's models,
     ``torch.optim.Adam``) as the bytes ``flax.serialization.to_bytes`` writes for the reference's
     ``TrainState`` carrying the same arrays: ``params`` (kernels (in,
-    out)), ``batch_stats`` ``{}``, ``opt_state`` as ``optax.adam``'s chain
+    out)), ``batch_stats`` (``{}`` for a model without batch norms),
+    ``opt_state`` as ``optax.adam``'s chain
     (``count``, ``mu``, ``nu``; then the learning-rate scale's empty state),
     ``step`` and ``loss_scale`` (``None``, or ``scale`` and
     ``good_steps``). Before Adam's first step its moments are zeros and its
@@ -143,7 +203,7 @@ def train_state_to_flax_bytes(state) -> bytes:
     ls = state.loss_scale
     tree = {
         "params": state_dict_to_flax(model),
-        "batch_stats": {},
+        "batch_stats": batch_stats_to_flax(model),
         "opt_state": {"0": {"count": np.asarray(count, np.int32),
                             "mu": state_dict_to_flax(model, moment("exp_avg")),
                             "nu": state_dict_to_flax(model, moment("exp_avg_sq"))},
@@ -158,10 +218,10 @@ def train_state_to_flax_bytes(state) -> bytes:
 def train_state_from_flax_bytes(state, raw: bytes):
     """Load the bytes of a reference ``TrainState`` (or of
     ``train_state_to_flax_bytes``) into ``state`` in place: the model's
-    parameters, Adam's moments and ``step`` tensors (those that exist are
-    overwritten, so a captured or cached step stays valid; missing ones are
-    made as Adam makes them), the step and the loss scale. Returns
-    ``state``."""
+    parameters and batch statistics, Adam's moments and ``step`` tensors
+    (those that exist are overwritten, so a captured or cached step stays
+    valid; missing ones are made as Adam makes them), the step and the
+    loss scale. Returns ``state``."""
     tree = msgpack_restore(raw)
     model, opt = state.model, _adam_of(state)
     adam = tree["opt_state"]["0"]
@@ -170,6 +230,7 @@ def train_state_from_flax_bytes(state, raw: bytes):
         raise ValueError("the bytes and the state disagree on a dynamic loss scale")
     groups = {id(p): g for g in opt.param_groups for p in g["params"]}
     count = float(np.asarray(adam["count"]))
+    batch_stats_from_flax(model, tree["batch_stats"])
     with torch.no_grad():
         for path, p, transposed in leaves:
             host = [_at(t, path) for t in (tree["params"], adam["mu"], adam["nu"])]
@@ -196,24 +257,48 @@ def train_state_from_flax_bytes(state, raw: bytes):
     return state
 
 
+def model_from_flax_bytes(model: torch.nn.Module, raw: bytes) -> torch.nn.Module:
+    """Load the ``params`` and ``batch_stats`` of a reference ``TrainState``'s
+    bytes (or of ``train_state_to_flax_bytes``) into a bare ``model``, in
+    place (no optimizer: what serving needs). Returns ``model``."""
+    tree = msgpack_restore(raw)
+    model.load_state_dict(state_dict_from_flax(model, tree["params"], tree["batch_stats"]))
+    return model
+
+
 def seeded_flax_params_like(model: torch.nn.Module, seed: int) -> Dict:
     """Random parameters in the flax layout for ``model`` (its
     ``flax_modules()``), from a numpy seed, drawn leaf by leaf in call
     order: LeCun-normal kernels, small normal biases (non-zero, so a check
-    also covers the bias path) and bare parameters."""
+    also covers the bias path) and bare parameters, batch norm scales 1
+    plus a small normal."""
     rng = np.random.default_rng(seed)
+    norms = {id(m.scale) for _, m in model.flax_modules() if isinstance(m, BatchNorm)}
     out: Dict = {}
     for path, p, transposed in flax_leaves(model):
         if transposed:
             a, b = p.shape[1], p.shape[0]
             value = (rng.standard_normal((a, b)) / np.sqrt(a)).astype(np.float32)
         else:
-            value = (0.05 * rng.standard_normal(tuple(p.shape))).astype(np.float32)
+            value = ((1.0 if id(p) in norms else 0.0)
+                     + 0.05 * rng.standard_normal(tuple(p.shape))).astype(np.float32)
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = value
     return out
+
+
+def seeded_batch_stats_like(model: torch.nn.Module, seed: int) -> Dict:
+    """Random batch statistics in flax's layout for ``model``, from a numpy
+    seed: normal means, variances in [0.5, 2)."""
+    rng = np.random.default_rng(seed)
+    leaves = []
+    for path, t in stats_leaves(model):
+        shape = tuple(t.shape)
+        value = rng.standard_normal(shape) if path[-1] == "mean" else rng.uniform(0.5, 2.0, shape)
+        leaves.append((path, value.astype(np.float32)))
+    return _nest(leaves)
 
 
 # ---------------------------------------------------------------------------

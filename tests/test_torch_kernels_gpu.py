@@ -1343,3 +1343,155 @@ def test_din_training_on_card_matches_cpu(cuda, wire_dtype):
         for shard in b._shards:
             for sign, (_, vec) in shard.entries.items():
                 np.testing.assert_allclose(a.get_embedding_entry(sign), vec, rtol=0, atol=tol)
+
+
+# the DNN paths' shapes, one row, C not a multiple of 8, and rows split
+# over a cluster into spans of unequal length (2049 and 4100 rows)
+BN_CASES = [(4096, 128), (4096, 32), (256, 128), (256, 32), (128, 64), (128, 16), (1, 10), (37, 10), (300, 12),
+            (2049, 128), (4100, 10)]
+
+
+def _bn_inputs(b, c, seed, dev, dtype):
+    """x with per-column offsets and spreads (a mean a few stds off zero, as
+    a Dense layer's output), dy, scale, bias and running statistics."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, c)) * rng.uniform(0.5, 3.0, c) + rng.uniform(-2, 2, c)
+    t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)  # noqa: E731
+    return dict(x=t(x, dtype), dy=t(rng.standard_normal((b, c)), dtype), scale=t(1 + 0.2 * rng.standard_normal(c)),
+                bias=t(0.1 * rng.standard_normal(c)), mean=t(0.3 * rng.standard_normal(c)),
+                var=t(rng.uniform(0.5, 2.0, c)))
+
+
+@pytest.mark.parametrize("train", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,c", BN_CASES)
+def test_batch_norm_kernels_match_their_schedule_bitwise(cuda, b, c, dtype, train):
+    """K10 and K11 bit for bit their schedules (the plain versions with the
+    column sums in the kernels' order, ``batch_norm_*_schedule``, run on
+    the CPU): y, saved, the running statistics, dx, dscale and dbias; two
+    runs give the same bits; one launch each, counted by mode."""
+    from persia_tpu_torch.ops import batch_norm_bwd, batch_norm_fwd
+    from persia_tpu_torch.ops.batch_norm import batch_norm_bwd_schedule, batch_norm_fwd_schedule
+
+    inp = _bn_inputs(b, c, 100 * b + c, cuda, dtype)
+    cpu = {k: v.cpu() for k, v in inp.items()}
+    rm, rv = inp["mean"].clone(), inp["var"].clone()
+    before = batch_norm_fwd.launches, dict(batch_norm_fwd.launches_by_route), batch_norm_bwd.launches
+    y, saved = batch_norm_fwd(inp["x"], inp["scale"], inp["bias"], rm, rv, train)
+    dx, dscale, dbias = batch_norm_bwd(inp["dy"], inp["x"], inp["scale"], saved, train)
+    torch.cuda.synchronize()
+    mode = "train" if train else "eval"
+    assert batch_norm_fwd.launches == before[0] + 1 and batch_norm_bwd.launches == before[2] + 1
+    assert batch_norm_fwd.launches_by_route[mode] == before[1][mode] + 1
+    wy, wsaved, wrm, wrv = batch_norm_fwd_schedule(cpu["x"], cpu["scale"], cpu["bias"], cpu["mean"], cpu["var"], train)
+    wdx, wds, wdb = batch_norm_bwd_schedule(cpu["dy"], cpu["x"], cpu["scale"], wsaved, train)
+    for got, want, what in ((y, wy, "y"), (saved, wsaved, "saved"), (rm, wrm, "running mean"),
+                            (rv, wrv, "running var"), (dx, wdx, "dx"), (dscale, wds, "dscale"), (dbias, wdb, "dbias")):
+        assert torch.equal(got.cpu(), want), (what, float((got.cpu().float() - want.float()).abs().max()))
+    rm2, rv2 = inp["mean"].clone(), inp["var"].clone()
+    y2, saved2 = batch_norm_fwd(inp["x"], inp["scale"], inp["bias"], rm2, rv2, train)
+    dx2 = batch_norm_bwd(inp["dy"], inp["x"], inp["scale"], saved2, train)[0]
+    assert torch.equal(y2, y) and torch.equal(saved2, saved) and torch.equal(dx2, dx) and torch.equal(rv2, rv)
+    if not train:
+        assert torch.equal(rm, inp["mean"]) and torch.equal(rv, inp["var"])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,c", [(4096, 128), (128, 16), (1, 10), (37, 10)])
+def test_batch_norm_kernels_match_plain(cuda, b, c, dtype):
+    """The kernels against the plain versions on the card: y and dx within
+    one ulp of the dtype (2^-7 bf16, 1e-5 f32) plus 1e-5 of the column's
+    scale (the sums in another order move the mean, and where x is several
+    stds off zero that moves y), the statistics within 1e-5, the
+    parameters' gradients within 1e-5 of their terms' sum of magnitudes
+    (an f32 sum in another order)."""
+    from persia_tpu_torch.ops import batch_norm_bwd, batch_norm_fwd
+    from persia_tpu_torch.ops.batch_norm import batch_norm_bwd_reference, batch_norm_fwd_reference
+
+    inp = _bn_inputs(b, c, 7 * b + c, cuda, dtype)
+    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    for train in (True, False):
+        rm, rv, prm, prv = (inp[k].clone() for k in ("mean", "var", "mean", "var"))
+        y, saved = batch_norm_fwd(inp["x"], inp["scale"], inp["bias"], rm, rv, train)
+        py, psaved = batch_norm_fwd_reference(inp["x"], inp["scale"], inp["bias"], prm, prv, train)
+        dx, ds, db = batch_norm_bwd(inp["dy"], inp["x"], inp["scale"], saved, train)
+        pdx, pds, pdb = batch_norm_bwd_reference(inp["dy"], inp["x"], inp["scale"], psaved, train)
+        scale = inp["x"].float().abs().amax(0) + 1.0
+        m = (psaved[1] * inp["scale"]).abs()
+        torch.testing.assert_close(y.float(), py.float(), rtol=rel, atol=float((1e-5 * scale * m).max()))
+        torch.testing.assert_close(saved, psaved, rtol=1e-5, atol=1e-5 * float(scale.max()))
+        torch.testing.assert_close(rv, prv, rtol=1e-5, atol=1e-5 * float(scale.max() ** 2))
+        torch.testing.assert_close(rm, prm, rtol=1e-5, atol=1e-6 * float(scale.max()))
+        g = float(inp["dy"].float().abs().max() * m.max())
+        torch.testing.assert_close(dx.float(), pdx.float(), rtol=rel, atol=1e-5 * g)
+        dsum = float(inp["dy"].float().abs().sum(0).max())
+        terms = float((inp["dy"].float() * (inp["x"].float() - psaved[0]) * psaved[1]).abs().sum(0).max())
+        torch.testing.assert_close(ds, pds, rtol=1e-5, atol=1e-5 * terms)
+        torch.testing.assert_close(db, pdb, rtol=1e-5, atol=1e-5 * dsum)
+    if b == 1:  # flax's variance 0: x - mean is 0, y = bias, no gradient into x
+        y, _ = batch_norm_fwd(inp["x"], inp["scale"], inp["bias"], inp["mean"].clone(), inp["var"].clone(), True)
+        assert torch.equal(y, inp["bias"].to(dtype)[None])
+
+
+def test_batch_norm_autograd_on_card(cuda):
+    """``ops.batch_norm`` on a CUDA tensor goes through K10 and K11 (one
+    launch each, the running statistics moved once), and its gradients
+    equal the kernels' outputs called directly."""
+    from persia_tpu_torch.ops import batch_norm, batch_norm_bwd, batch_norm_fwd
+
+    inp = _bn_inputs(512, 64, 3, cuda, torch.bfloat16)
+    x = inp["x"].clone().requires_grad_(True)
+    scale, bias = inp["scale"].clone().requires_grad_(True), inp["bias"].clone().requires_grad_(True)
+    rm, rv = inp["mean"].clone(), inp["var"].clone()
+    before = batch_norm_fwd.launches, batch_norm_bwd.launches
+    y = batch_norm(x, scale, bias, rm, rv, True)
+    moved = rv.clone()
+    y.backward(inp["dy"])
+    assert (batch_norm_fwd.launches, batch_norm_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(rv, moved) and not torch.equal(rv, inp["var"])
+    wy, saved = batch_norm_fwd(inp["x"], inp["scale"], inp["bias"], inp["mean"].clone(), inp["var"].clone(), True)
+    wdx, wds, wdb = batch_norm_bwd(inp["dy"], inp["x"], inp["scale"], saved, True)
+    assert torch.equal(y.detach(), wy) and torch.equal(x.grad, wdx)
+    assert torch.equal(scale.grad, wds) and torch.equal(bias.grad, wdb)
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_dnn_backward_on_card_reaches_the_embeddings(cuda, compute_dtype):
+    """DNN in train mode on the card: every embedding input gets a non-zero
+    gradient through K11's autograd, equal to the CPU port's, and the
+    batch statistics move as the CPU's. f32 compute: the kernels sum in
+    other orders (1e-4), the tight check of K11's backward. bf16: the
+    devices round at other points in every layer, so each slot's gradient
+    is held to 1e-1 of its norm; a backward without its mean term (k1) or
+    its variance term (k2) moves every slot's by more than 0.15 of it
+    (``tests/test_torch_batch_norm.py::test_a_dropped_backward_term_breaks_the_card_bound``)."""
+    from persia_tpu_torch.models import DNN
+    from persia_tpu_torch.ops import batch_norm_bwd, batch_norm_fwd
+    from persia_tpu_torch.weights import batch_stats_to_flax, seeded_flax_params_like, state_dict_from_flax
+
+    rng = np.random.default_rng(9)
+    dense = rng.standard_normal((512, 8)).astype(np.float32)
+    embs = (0.3 * rng.standard_normal((8, 512, 16))).astype(np.float32)
+    grads, stats, sd = {}, {}, None
+    for device in ("cuda", "cpu"):
+        model = DNN(8, [16] * 8, 32, 128, (128, 64), compute_dtype=compute_dtype, device=device)
+        sd = sd or state_dict_from_flax(model, seeded_flax_params_like(model, 4))
+        model.load_state_dict(sd)
+        leaves = [torch.from_numpy(e).to(device).requires_grad_(True) for e in embs]
+        before = batch_norm_fwd.launches, batch_norm_bwd.launches
+        model.train()
+        model([torch.from_numpy(dense).to(device)], leaves).sum().backward()
+        if device == "cuda":
+            assert (batch_norm_fwd.launches - before[0], batch_norm_bwd.launches - before[1]) == (2, 2)
+        grads[device] = [l.grad for l in leaves]
+        stats[device] = batch_stats_to_flax(model)
+    for g_card, g_cpu in zip(grads["cuda"], grads["cpu"]):
+        assert g_card is not None and bool(g_card.abs().sum() > 0)
+        if compute_dtype == torch.float32:
+            torch.testing.assert_close(g_card.cpu(), g_cpu, rtol=1e-4, atol=1e-5)
+        else:
+            assert float((g_card.cpu() - g_cpu).norm() / g_cpu.norm()) < 1e-1
+    for name in stats["cpu"]:
+        for k in ("mean", "var"):
+            np.testing.assert_allclose(stats["cuda"][name][k], stats["cpu"][name][k], rtol=1e-2 if compute_dtype ==
+                                       torch.bfloat16 else 1e-5, atol=1e-5)
