@@ -69,6 +69,15 @@ result line:
    plain versions on the card; bit for bit their schedules
    (``batch_norm_*_schedule``: the plain versions with the kernels' sum
    order) on the CPU and bit for bit twice; eval mode moves nothing;
+   (3e) the cache tier's kernels against their plain versions on the CPU:
+   K12 ``cache_aux`` bit for bit (payload, pool and state) for SGD,
+   Adagrad (and vectorwise), Adam, f32 and bf16 aux and write-back wires,
+   misses on rows nobody evicts and every miss on a row evicted that step,
+   every row a pad, no rows; its read alone ``gather_entry_rows`` (2^18
+   rows); K13 ``cached_gather`` at the bench's (26, 4096, 1) rows on
+   2^21- and 2^18-row pools (zipf rows, pads, scales, eval misses) bit for
+   bit, at L = 4 and 8 within the f32 sum-order bound (L - 1) * 2^-23 *
+   sum |x| * |scale|, its keys, raw rows and mask bit for bit;
 4. the paths, each with the launch counts set to 0 just before and read
    just after: (a) the flash-attention entry point at (B=4, L=1024, H=8,
    D=64) in bf16 and in f32, causal and not, and its backward (a dense
@@ -177,7 +186,26 @@ result line:
    ``bench.py:936-960``'s configuration on the card: the rewind resume bit
    for bit the uninterrupted run (dense bytes with ``batch_stats``, every
    PS shard), the journal resume skipping the replayed window,
-   ``time_to_resume_s`` of both;
+   ``time_to_resume_s`` of both; (k) the cache tier
+   (``CachedTrainCtx.train_step``) at ``bench.py``'s cached configuration
+   (``bench.py:285-344``: 26 zipf(1.2) slots of dim 16 over 1M ids, DLRM
+   bottom (256, 64, 16), top (512, 256), Adam(1e-3), Adagrad(0.05),
+   native store 2^25 / 64 shards / seed 1, bf16 write-back and aux wires,
+   ``admit_touches=2``, B=4096) in two regimes, each counted (K13 once a
+   step and once for the eval batch, K12 once a step that touched the
+   pool, ``gather_entry_rows`` once for the flush, K5 once a step): the
+   fill (2^21 rows, 16 steps) and the saturated cache (2^18 rows, run
+   until the last 16 steps all evict), 3 more steps under the profiler;
+   samples/s, step p50 and longest, the host stages (``prepare_batch``,
+   staging, aux, main step, write-back), card busy ms a step, hit rate,
+   misses and evictions a step, peak device bytes; an eval batch leaves
+   the directory as it was; the same batches on the CPU port: the
+   directory's decisions (row matrices, warm, cold and evicted rows,
+   evicted signs) the same at every step, losses within 2e-2, the
+   server's entries of the batches' signs after ``flush`` within 1e-2;
+   and, with SGD, no eviction, the gate off and f32 wires, the cache
+   tier's rows after ``flush`` within 1e-2 of the hybrid ``TrainCtx``'s
+   on the same 4 batches;
 5. timings of each kernel beside its plain version, the library call that
    computes the same function, and the card's bound, each by CUDA-graph
    replay (host enqueue cost out of the number; eager times beside them):
@@ -203,7 +231,12 @@ result line:
    K4 (K4 with keys − K4 without); K10 and K11 at the DNN training path's
    first batch norm (B=4096, C=128, bf16; C=32 and the B=256 eval mode
    beside), warm and cold, beside ``F.batch_norm`` and aten's
-   ``native_batch_norm_backward``;
+   ``native_batch_norm_backward``; K12, its read alone and K13 at the
+   saturated regime's own inputs (its last step's aux pieces, its pool,
+   its flush's rows, its (26, 4096, 1) rows), warm and cold (whole copies
+   of the inputs, pool included, rotated), beside their plain versions
+   and library calls (``index_select`` + ``cat`` + ``index_copy_``;
+   ``F.embedding_bag`` with ``padding_idx``);
    and (5b) the flash-attention backward, a dense recompute, beside SDPA's
    backward.
 
@@ -3257,6 +3290,547 @@ def path_dnn(dev):
             {"adult_income": adult, **hybrid, "resume": resume})
 
 
+# ---------------------------------------------------------------------------
+# The cache tier (persia_tpu_torch/embedding/hbm_cache) at bench.py's cached
+# configuration (bench.py:285-344): phases 3e and 4k, and its kernels' rows
+# of phase 5
+
+CACHE_SOURCE = {"cache_aux": "persia_tpu_torch/csrc/cache_aux.cu",
+                "gather_entry_rows": "persia_tpu_torch/csrc/cache_aux.cu",
+                "cached_gather": "persia_tpu_torch/csrc/cached_gather.cu"}
+CACHE_REPLACES = {"cache_aux": "persia_tpu/embedding/hbm_cache/groups.py:260",
+                  "gather_entry_rows": "persia_tpu/embedding/hbm_cache/groups.py:240",
+                  "cached_gather": "persia_tpu/embedding/hbm_cache/step.py:154"}
+# the two regimes: the fill (2^21 rows, CACHE_FILL_STEPS steps) and the
+# saturated cache (2^18 rows, run until the last CACHE_SAT_TAIL steps all
+# evict; at most CACHE_SAT_MAX steps); CACHE_PROFILED steps of each under
+# the profiler; the SGD twin of the hybrid tier: its steps
+CACHE_FILL_ROWS, CACHE_SAT_ROWS = 1 << 21, 1 << 18
+CACHE_FILL_STEPS, CACHE_SAT_TAIL, CACHE_SAT_MAX, CACHE_PROFILED, CACHE_SGD_STEPS = 16, 16, 120, 3, 4
+CACHE_KERNELS = ("cache_aux", "gather_entry_rows", "cached_gather")
+
+
+def to_cpu(case):
+    """A kernel case's copy on the CPU (tensors, and dicts of them)."""
+    import torch
+
+    return {k: (v.cpu().clone() if torch.is_tensor(v) else
+                {kk: vv.cpu().clone() for kk, vv in v.items()} if isinstance(v, dict) else v)
+            for k, v in case.items()}
+
+
+def bits_equal(a, b) -> bool:
+    import torch
+
+    a, b = a.cpu(), b.cpu()
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def phase_cache_kernels(dev):
+    """Phase 3e: K12 and K13 against their plain versions (on the CPU)."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.ops.cache_aux import cache_aux_reference, gather_entry_rows_reference
+    from persia_tpu_torch.ops.cached_gather import cached_gather_reference
+    from persia_tpu_torch.testing.cache_cases import aux_case, gather_case
+
+    print("== phase 3e: cache-tier kernels (K12 cache_aux, K13 cached_gather) vs their plain versions", flush=True)
+    errs = {}
+
+    def aux_check(label, case, wb_bf16):
+        cpu = to_cpu(case)
+        pay = ops.cache_aux(**case, wb_bf16=wb_bf16)
+        ref = cache_aux_reference(**cpu, wb_bf16=wb_bf16)
+        ok = (bits_equal(pay, ref) and bits_equal(case["table"], cpu["table"])
+              and all(bits_equal(case["state"][k], cpu["state"][k]) for k in cpu["state"]))
+        err = max([float((pay.float().cpu() - ref.float()).abs().max()) if pay.numel() else 0.0,
+                   float((case["table"].cpu() - cpu["table"]).abs().max())])
+        print(f"  cache_aux {label}: payload {tuple(pay.shape)} {str(pay.dtype)[6:]}, warm {case['m_rows'].numel()}, "
+              f"cold {case['c_rows'].numel()} (padded): max_abs_err={err:.3e} tolerance=0 (bitwise) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"cache_aux {label} disagrees with its plain version")
+        errs["cache_aux"] = max(errs.get("cache_aux", 0.0), err)
+
+    # the saturated regime's pool (2^18 rows, dim 16) and a step's pieces
+    # at its scale: ~8k evictions, as many misses, each reusing an evicted
+    # row or not
+    for kind in ("sgd", "adagrad", "adagrad_vw", "adam"):
+        for aux_bf16, wb_bf16 in ((False, False), (True, True), (True, False)):
+            for reuse in (False, True):
+                case = aux_case(kind, CACHE_SAT_ROWS, EMB_DIM, 7700, 4600, 3100, reuse, aux_bf16, dev,
+                                seed=SEED + len(kind) + 2 * aux_bf16 + reuse)
+                aux_check(f"{kind} aux_wire={'bf16' if aux_bf16 else 'f32'} wb_wire={'bf16' if wb_bf16 else 'f32'} "
+                          f"{'every miss on an evicted row' if reuse else 'misses apart'}", case, wb_bf16)
+    case = aux_case("adagrad", CACHE_SAT_ROWS, EMB_DIM, 300, 200, 100, False, True, dev, seed=SEED + 30)
+    case["ev_rows"].fill_(CACHE_SAT_ROWS)
+    case["m_rows"].fill_(CACHE_SAT_ROWS + 1)
+    case["c_rows"].fill_(CACHE_SAT_ROWS + 1)
+    aux_check("every row a pad", case, True)
+    aux_check("no rows", aux_case("adam", CACHE_SAT_ROWS, EMB_DIM, 0, 0, 0, False, False, dev, seed=1), False)
+    # (a) alone in f32: the flush's read of every resident row
+    case = aux_case("adagrad", CACHE_SAT_ROWS, EMB_DIM, 1, 0, 0, False, False, dev, seed=SEED + 31)
+    rows = torch.randperm(CACHE_SAT_ROWS + 1, generator=torch.Generator().manual_seed(2))[:CACHE_SAT_ROWS].int()
+    got = ops.gather_entry_rows(case["table"], case["state"], rows.to(dev))
+    ref = gather_entry_rows_reference(case["table"].cpu(), {k: v.cpu() for k, v in case["state"].items()}, rows)
+    ok = bits_equal(got, ref)
+    print(f"  gather_entry_rows ({rows.numel()} rows): tolerance=0 (bitwise) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit("gather_entry_rows disagrees with its plain version")
+    errs["gather_entry_rows"] = 0.0
+
+    # K13: the bench's shape (26 slots x 4096, L=1) on a 2^21 pool with zipf
+    # rows, the saturated pool with scales, eval misses; L > 1 with and
+    # without scales (an f32 sum in another order: within (L - 1) * 2^-23 *
+    # sum |x| * |scale|), eval at L > 1, raw rows
+    errs["cached_gather"] = 0.0
+    for S, L, C, scale, miss, zipf in ((N_SLOTS, 1, CACHE_FILL_ROWS, False, 0, True),
+                                       (N_SLOTS, 1, CACHE_SAT_ROWS, True, 0, True),
+                                       (N_SLOTS, 1, CACHE_SAT_ROWS, False, 4000, False),
+                                       (4, 4, CACHE_SAT_ROWS, True, 0, False),
+                                       (4, 8, CACHE_SAT_ROWS, False, 0, True),
+                                       (4, 8, CACHE_SAT_ROWS, True, 1000, False)):
+        case = gather_case(S, BATCH, L, C, EMB_DIM, dev, seed=SEED + 40 + L + miss, scale=scale, miss=miss, zipf=zipf)
+        cpu = to_cpu(case)
+        keys = miss == 0
+        sc, mt = case.get("scale"), case.get("miss_table")
+        got = ops.cached_gather(case["table"], case["rows"], True, sc, keys=keys, miss_table=mt)
+        ref = cached_gather_reference(cpu["table"], cpu["rows"], True, cpu.get("scale"), keys=keys,
+                                      miss_table=cpu.get("miss_table"))
+        pooled, rpooled = (got[0], ref[0]) if keys else (got, ref)
+        err = float((pooled.cpu() - rpooled).abs().max())
+        if L == 1:
+            ok, tol = bits_equal(pooled, rpooled), "0 (bitwise)"
+        else:
+            bound_ = cached_gather_reference(cpu["table"].abs(), cpu["rows"], True,
+                                             cpu["scale"].abs() if scale else None,
+                                             miss_table=cpu["miss_table"].abs() if miss else None)
+            ok = bool(((pooled.cpu() - rpooled).abs() <= (L - 1) * 2.0 ** -23 * bound_).all())
+            tol = f"(L - 1) * 2^-23 * sum|x| * |scale| (at most {float(((L - 1) * 2.0 ** -23 * bound_).max()):.3e})"
+        if keys:
+            ok = ok and bits_equal(got[1], ref[1])
+        raw = ops.cached_gather(case["table"], case["rows"][0].contiguous(), False, keys=keys, miss_table=mt)
+        rraw = cached_gather_reference(cpu["table"], cpu["rows"][0], False, keys=keys, miss_table=cpu.get("miss_table"))
+        ok = ok and all(bits_equal(a, b) for a, b in zip(raw, rraw))
+        pads = int((cpu["rows"] == C).sum())
+        print(f"  cached_gather S={S} B={BATCH} L={L} C={C} scale={scale} eval misses={miss} ({pads} pads): "
+              f"max_abs_err={err:.3e} tolerance={tol}; keys, raw rows and mask bitwise {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise SystemExit("cached_gather disagrees with its plain version")
+        errs["cached_gather"] = max(errs["cached_gather"], err)
+    torch.cuda.empty_cache()
+    return errs
+
+
+def cache_ctx(device, rows, store, sd, sparse="adagrad", wires="bfloat16", touches=2):
+    """``_cached_tier_ctx``'s ctx (bench.py:285-344): DLRM at bench width
+    from ``sd``, Adam(1e-3), Adagrad(0.05) (or SGD(0.05)), the bf16 wires
+    and the touch gate, over ``store``."""
+    import torch
+
+    from persia_tpu_torch.embedding.hbm_cache import CachedTrainCtx
+    from persia_tpu_torch.embedding.optim import SGD, Adagrad
+    from persia_tpu_torch.embedding.worker import EmbeddingWorker
+    from persia_tpu_torch.models import DLRM
+
+    cfg = bench_cfg()
+    model = DLRM(N_DENSE, N_SLOTS, EMB_DIM, BOTTOM, TOP, device="cpu")
+    model.load_state_dict(sd)
+    opt = Adagrad(lr=0.05) if sparse == "adagrad" else SGD(lr=0.05)
+    ctx = CachedTrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3), opt, EmbeddingWorker(cfg, [store]),
+                         cfg, cache_rows=rows, device=device, wb_wire_dtype=wires, aux_wire_dtype=wires,
+                         admit_touches=touches).__enter__()
+    ctx.init_state()
+    return ctx
+
+
+def cache_store(sparse="adagrad"):
+    from persia_tpu_torch.embedding.optim import SGD, Adagrad
+
+    opt = Adagrad(lr=0.05) if sparse == "adagrad" else SGD(lr=0.05)
+    return make_store("native", capacity=1 << 25, num_internal_shards=64, optimizer=opt.config, seed=1)
+
+
+def cache_recorder(ctx):
+    """Shadow the tier's ``prepare_batch``: per step, a digest of what the
+    directory decided (the row matrices, the warm, cold and evicted rows,
+    the evicted signs) and the step's counts."""
+    import hashlib
+
+    steps = []
+    tier = ctx.tier
+    inner = tier.prepare_batch
+    C = tier.groups[0].rows
+
+    def wrapped(batch, **kw):
+        before = tier.counts()
+        out = inner(batch, **kw)
+        inputs, _layout, miss, cold, ev, meta = out
+        h = hashlib.sha256()
+        for g in sorted(inputs["stacked_rows"]):
+            h.update(np.ascontiguousarray(inputs["stacked_rows"][g]).tobytes())
+        for d in (miss, cold):
+            for g in sorted(d):
+                h.update(np.asarray(d[g][0]).tobytes())
+        for g in sorted(ev):
+            h.update(ev[g].tobytes())
+            h.update(meta[g][0].tobytes())
+        after = tier.counts()
+        steps.append(dict(
+            digest=h.hexdigest(), touched=bool(miss or cold or ev),
+            warm=sum(int((np.asarray(r) < C + 1).sum()) for r, _ in miss.values()),
+            cold=sum(int((np.asarray(r) < C + 1).sum()) for r, _ in cold.values()),
+            **{k: after[k] - before[k] for k in after}))
+        return out
+
+    tier.prepare_batch = wrapped
+    return steps
+
+
+def run_cache_regime(dev, regime, rows, sd):
+    """One regime on the card, counted, then on the CPU: returns (launches,
+    record, the kernels' inputs for phase 5)."""
+    import torch
+
+    from persia_tpu_torch import ops
+
+    fixed = CACHE_FILL_STEPS if regime == "fill" else None
+    print(f"== phase 4k ({regime}): the cache tier at bench width ({rows} rows, B={BATCH}, "
+          f"{'%d steps' % fixed if fixed else 'until the last %d steps all evict' % CACHE_SAT_TAIL}, "
+          f"CachedTrainCtx.train_step)", flush=True)
+    make = zipf_batch_maker(SEED + 60, labels=True)
+    store = cache_store()
+    ctx = cache_ctx(dev, rows, store, sd)
+    rec = cache_recorder(ctx)
+    stages = {k: [] for k in ("prepare_batch", "staging", "aux", "main_step", "write_back")}
+    undo = [timed_calls(ctx.tier, "prepare_batch", stages["prepare_batch"], []),
+            timed_calls(ctx, "_stage", stages["staging"], []), timed_calls(ctx, "_apply_feed", stages["aux"], []),
+            timed_calls(ctx, "_step", stages["main_step"], []),
+            timed_calls(ctx, "_write_back_only", stages["write_back"], [])]
+    last = {}
+    feed = ctx._apply_feed
+
+    def keep_feed(miss, cold, ev):  # the last step's aux pieces, for phase 5
+        last["aux"] = (miss, cold, ev)
+        return feed(miss, cold, ev)
+
+    ctx._apply_feed = keep_feed
+    step_fn = ctx._step
+
+    def keep_step(state, inputs, layout):
+        last["rows"] = inputs["stacked_rows"]
+        return step_fn(state, inputs, layout)
+
+    ctx._step = keep_step
+    batches, headers, step_ms = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    per_step = {k: [] for k in stages}  # each stage's ms in each timed step
+    while True:
+        batches.append(make())
+        marks = {k: len(v) for k, v in stages.items()}
+        t = time.perf_counter()
+        ctx.train_step(batches[-1], fetch_metrics=False)
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        for k, v in stages.items():
+            per_step[k].append(sum(v[marks[k]:]))
+        headers.append(ctx._pending[3])
+        n = len(batches)
+        if fixed is not None and n == fixed:
+            break
+        if fixed is None and n >= CACHE_SAT_TAIL and all(s["evictions"] > 0 for s in rec[-CACHE_SAT_TAIL:]):
+            break
+        if n >= CACHE_SAT_MAX:
+            raise SystemExit(f"cache path ({regime}): no steady eviction after {n} steps")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    timed_steps = len(batches)
+    # the card's busy time a step and its largest kernels (torch.profiler)
+    prof = [make() for _ in range(CACHE_PROFILED)]
+
+    def profiled(b):
+        ctx.train_step(b, fetch_metrics=False)
+        headers.append(ctx._pending[3])
+
+    busy, top_kernels, _ = device_busy_ms(profiled, prof)
+    batches += prof
+    # eval changes nothing of the directory
+    d = ctx.tier.dirs["cache_d16"]
+    n0, snap0 = len(d), d.snapshot()
+    preds = ctx.eval_batch(zipf_batch_maker(SEED + 61)())
+    snap1 = d.snapshot()
+    if len(d) != n0 or not (np.array_equal(snap0[0], snap1[0]) and np.array_equal(snap0[1], snap1[1])):
+        raise SystemExit(f"cache path ({regime}): eval_batch changed the directory")
+    if preds.shape != (BATCH, 1) or not np.isfinite(preds).all():
+        raise SystemExit(f"cache path ({regime}): eval predictions {preds.shape}, finite {np.isfinite(preds).all()}")
+    # the flush's inputs and the live pool, for phase 5, before the flush
+    # zeroes it
+    inputs = {"table": ctx.state.tables["cache_d16"].clone(),
+              "state": {k: v.clone() for k, v in ctx.state.emb_state["cache_d16"].items()},
+              "aux": last["aux"], "rows": last["rows"]["cache_d16"], "consts": ctx._state_consts,
+              "flush_rows": snap0[1]}
+    ctx.flush()
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+    peak = torch.cuda.max_memory_allocated(dev)
+    for u in undo:
+        u()
+    steps = len(batches)
+    touched = sum(s["touched"] for s in rec)
+    expected = {fn.__name__: 0 for fn in ops.KERNEL_WRAPPERS}
+    expected.update(cached_gather=steps + 1, cache_aux=touched, gather_entry_rows=1, sparse_update=steps,
+                    dot_interaction=steps + 1, dot_interaction_bwd=steps)
+    print(f"  launches={launches} over {steps} steps, an eval batch and a flush", flush=True)
+    if launches != expected:
+        raise SystemExit(f"cache path ({regime}): launches {launches}, expected {expected}")
+    losses = [float(h[0]) for h in headers]
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"cache path ({regime}): losses {losses}")
+
+    # the same batches on the CPU port (the same host code; bf16 rounds at
+    # other points there)
+    t1 = time.perf_counter()
+    cpu_store = cache_store()
+    cpu = cache_ctx("cpu", rows, cpu_store, sd)
+    crec = cache_recorder(cpu)
+    cpu_losses = [cpu.train_step(b)["loss"] for b in batches]
+    cpu.flush()
+    cpu_s = time.perf_counter() - t1
+    same = [a["digest"] == b["digest"] for a, b in zip(rec, crec)]
+    if len(rec) != len(crec) or not all(same):
+        raise SystemExit(f"cache path ({regime}): the directory's decisions differ from the CPU's at steps "
+                         f"{[i for i, s in enumerate(same) if not s]}")
+    loss_err = max(abs(a - b) for a, b in zip(losses, cpu_losses))
+    signs = batch_keys(batches)
+    warm_card, vals_card = store.probe_entries(signs, EMB_DIM)
+    warm_cpu, vals_cpu = cpu_store.probe_entries(signs, EMB_DIM)
+    if not np.array_equal(warm_card, warm_cpu) or store.size() != cpu_store.size():
+        raise SystemExit(f"cache path ({regime}): the servers hold other signs ({store.size()} vs "
+                         f"{cpu_store.size()})")
+    row_err = float(np.abs(vals_card[warm_card] - vals_cpu[warm_cpu]).max())
+    print(f"  directory decisions (row matrices, warm / cold / evicted rows, evicted signs) = the CPU's at every "
+          f"one of {steps} steps; losses max_abs_err={loss_err:.3e} tolerance=2e-2; server entries after flush, "
+          f"{int(warm_card.sum())} of the batches' {len(signs)} signs: max_abs_err={row_err:.3e} tolerance=1e-2 "
+          f"(CPU run {cpu_s:.1f} s) {'ok' if loss_err <= 2e-2 and row_err <= 1e-2 else 'FAIL'}", flush=True)
+    if loss_err > 2e-2 or row_err > 1e-2:
+        raise SystemExit(f"cache path ({regime}): card and CPU disagree")
+    timed = rec[:timed_steps]
+    record = {
+        "cache_rows": rows, "batch": BATCH, "steps": steps, "timed_steps": timed_steps,
+        "samples_per_s": timed_steps * BATCH / wall, "wall_s": wall,
+        "step_ms_p50": float(np.percentile(step_ms, 50)), "step_ms_max": max(step_ms), "step_ms_all": step_ms,
+        "stage_ms_p50": {k: float(np.percentile(v, 50)) for k, v in per_step.items()},
+        "stage_ms_max": {k: max(v) for k, v in per_step.items()},
+        "card_busy_ms_per_step": busy, "card_top_kernels_ms": top_kernels,
+        # the steps that evicted (the saturated regime's tail) apart
+        "stage_ms_p50_evicting": {k: float(np.percentile([v[i] for i, st in enumerate(timed) if st["evictions"]], 50))
+                                  for k, v in per_step.items() if any(st["evictions"] for st in timed)},
+        "hit_rate": sum(s["hits"] for s in timed) / max(1, sum(s["hits"] + s["misses"] for s in timed)),
+        "misses_per_step": [s["misses"] for s in rec], "warm_per_step": [s["warm"] for s in rec],
+        "cold_per_step": [s["cold"] for s in rec], "evictions_per_step": [s["evictions"] for s in rec],
+        "resident_rows": n0, "launches": launches, "launches_expected": expected,
+        "peak_device_bytes": peak, "losses": losses, "loss_max_abs_err_vs_cpu": loss_err,
+        "ps_entry_max_abs_err_vs_cpu": row_err, "store_rows": store.size(),
+    }
+    print(f"  samples/s {record['samples_per_s']:.0f}, step p50 {record['step_ms_p50']:.2f} ms, longest "
+          f"{record['step_ms_max']:.2f} ms (host, asynchronous), stage p50 ms "
+          f"{ {k: round(v, 3) for k, v in record['stage_ms_p50'].items()} } (steps that evicted: "
+          f"{ {k: round(v, 3) for k, v in record['stage_ms_p50_evicting'].items()} }), card busy "
+          f"{record['card_busy_ms_per_step']} ms a step (largest: {top_kernels}), hit rate {record['hit_rate']:.4f}, misses a step "
+          f"{record['misses_per_step'][-3:]}, evictions a step {record['evictions_per_step'][-3:]}, "
+          f"peak device bytes {peak}", flush=True)
+    del ctx, cpu
+    return launches, record, inputs
+
+
+def cache_vs_hybrid(dev, sd):
+    """SGD, no eviction, the touch gate off and f32 wires: the cache tier's
+    rows after flush against the hybrid ``TrainCtx``'s on the same stream,
+    both on the card."""
+    import torch
+
+    from persia_tpu_torch.ctx import TrainCtx
+    from persia_tpu_torch.embedding.optim import SGD
+    from persia_tpu_torch.embedding.worker import EmbeddingWorker
+    from persia_tpu_torch.models import DLRM
+
+    make = zipf_batch_maker(SEED + 62, labels=True)
+    batches = [make() for _ in range(CACHE_SGD_STEPS)]
+    cstore, hstore = cache_store("sgd"), cache_store("sgd")
+    cached = cache_ctx(dev, CACHE_FILL_ROWS, cstore, sd, sparse="sgd", wires="float32", touches=1)
+    model = DLRM(N_DENSE, N_SLOTS, EMB_DIM, BOTTOM, TOP, device="cpu")
+    model.load_state_dict(sd)
+    hybrid = TrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3), SGD(lr=0.05),
+                      EmbeddingWorker(bench_cfg(), [hstore], device_pooling=True), bench_cfg(), device=dev).__enter__()
+    losses = [(cached.train_step(b)["loss"], hybrid.train_step(b)["loss"]) for b in batches]
+    evictions = cached.tier.evictions
+    cached.flush()
+    signs = batch_keys(batches)
+    wc, vc = cstore.probe_entries(signs, EMB_DIM)
+    wh, vh = hstore.probe_entries(signs, EMB_DIM)
+    if evictions or not (wc.all() and wh.all()):
+        raise SystemExit(f"cache vs hybrid: {evictions} evictions, {int(wc.sum())} / {int(wh.sum())} of "
+                         f"{len(signs)} signs on the servers")
+    err = float(np.abs(vc - vh).max())
+    loss_err = max(abs(a - b) for a, b in losses)
+    print(f"== phase 4k (vs hybrid): SGD(0.05), {CACHE_SGD_STEPS} steps, no eviction: cache tier's rows after flush "
+          f"vs the hybrid TrainCtx's ({len(signs)} signs): max_abs_err={err:.3e} tolerance=1e-2; losses "
+          f"max_abs_err={loss_err:.3e} {'ok' if err <= 1e-2 else 'FAIL'}", flush=True)
+    if err > 1e-2:
+        raise SystemExit("cache vs hybrid: the rows disagree")
+    return {"steps": CACHE_SGD_STEPS, "signs": len(signs), "row_max_abs_err": err, "loss_max_abs_err": loss_err}
+
+
+def path_cache(dev):
+    """Phase 4k: both regimes, then the SGD twin of the hybrid tier."""
+    import gc
+
+    import torch
+
+    from persia_tpu_torch.models import DLRM
+    from persia_tpu_torch.weights import seeded_flax_params_like, state_dict_from_flax
+
+    model = DLRM(N_DENSE, N_SLOTS, EMB_DIM, BOTTOM, TOP, device="cpu")
+    sd = state_dict_from_flax(model, seeded_flax_params_like(model, SEED))
+    launches, records, inputs = {}, {}, None
+    for regime, rows in (("fill", CACHE_FILL_ROWS), ("saturated", CACHE_SAT_ROWS)):
+        launches[f"cache_{regime}"], records[regime], inp = run_cache_regime(dev, regime, rows, sd)
+        if regime == "saturated":
+            inputs = inp
+        del inp
+        gc.collect()
+        torch.cuda.empty_cache()
+    records["vs_hybrid"] = cache_vs_hybrid(dev, sd)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, records, inputs
+
+
+def time_cache_kernels(dev, launches, errs, inputs):
+    """Phase 5's rows of K12 (``cache_aux``, and its read alone
+    ``gather_entry_rows``) and K13 (``cached_gather``) at the saturated
+    regime's own inputs (its last step's aux pieces and rows, its pool, its
+    flush's rows): graph-replayed warm, and cold (whole copies of the
+    inputs, pool included, rotated through more than the L2), beside the
+    plain version and the library calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.ops.cache_aux import cache_aux_reference, gather_entry_rows_reference
+    from persia_tpu_torch.ops.cached_gather import cached_gather_reference
+
+    table, state, consts = inputs["table"], inputs["state"], inputs["consts"]
+    miss, cold, ev = inputs["aux"]
+    C, dim = table.shape[0] - 1, table.shape[1]
+    acc = state["acc"]
+    E = dim + acc.shape[1]
+    ev_rows = ev["cache_d16"]
+    m_rows, m_ent = miss["cache_d16"]
+    c_rows, c_emb = cold["cache_d16"]
+    n_ev, n_w, n_c = (int((r < lim).sum()) for r, lim in ((ev_rows, C), (m_rows, C + 1), (c_rows, C + 1)))
+    esz = m_ent.element_size()
+    rows = []
+
+    def row(name, **kw):
+        return dict(name=name, route="cuda", cuda_route="cuda", source=CACHE_SOURCE[name],
+                    replaces=CACHE_REPLACES[name], launches=launches["cache_saturated"][name],
+                    launches_by_path={p: launches[p][name] for p in ("cache_fill", "cache_saturated")},
+                    max_abs_err=errs[name], **kw)
+
+    def timed(r, kernel, plain, library):
+        lib0 = timings(library)
+        k0, k1 = timings(kernel), timings(kernel)
+        lib1 = timings(library)
+        p = timings(plain)
+        r.update(ms=min(k0["graph"], k1["graph"]), ms_runs=[k0["graph"], k1["graph"]],
+                 eager_ms=min(k0["eager"], k1["eager"]), plain_ms=p["graph"], plain_eager_ms=p["eager"],
+                 library_ms=min(lib0["graph"], lib1["graph"]), library_eager_ms=min(lib0["eager"], lib1["eager"]))
+        return r
+
+    def cold(r, kernel, make_copy, nbytes, library, make_lib_copy, lib_bytes):
+        k0, k1 = cold_ms(kernel, make_copy, nbytes), cold_ms(kernel, make_copy, nbytes)
+        lib = cold_ms(library, make_lib_copy, lib_bytes)
+        r.update(cold_ms=min(k0["ms"], k1["ms"]), cold_ms_runs=[k0["ms"], k1["ms"]], cold_copies=k0["copies"],
+                 library_cold_ms=lib["ms"])
+        r["cold_share"] = r["bound_ms"] / r["cold_ms"]
+        return r
+
+    # K12: the step's pieces on a copy of the pool (it writes in place).
+    # Bytes: the rows read; (a) reads n_ev entries and writes the bf16
+    # payload; (b) reads n_w entries and writes them; (c) reads n_c seeds and
+    # writes n_c entries
+    pool = (table.clone(), {k: v.clone() for k, v in state.items()})
+    nbytes = (4 * (ev_rows.numel() + m_rows.numel() + c_rows.numel()) + n_ev * E * (4 + 2)
+              + n_w * E * (esz + 4) + n_c * (dim * esz + E * 4))
+    bms, by = bound(nbytes, 0, "float32")
+    ev_live, m_live, c_live = ev_rows[:n_ev].long(), m_rows[:n_w].long(), c_rows[:n_c].long()
+
+    def aux_library(t, s):
+        payload = torch.cat([t.index_select(0, ev_live), s["acc"].index_select(0, ev_live)], 1).to(torch.bfloat16)
+        t.index_copy_(0, m_live, m_ent[:n_w, :dim].float())
+        s["acc"].index_copy_(0, m_live, m_ent[:n_w, dim:].float())
+        t.index_copy_(0, c_live, c_emb[:n_c].float())
+        s["acc"].index_fill_(0, c_live, consts[0][1])
+        return payload
+
+    r = timed(row("cache_aux", shape=[C + 1, dim, n_ev, n_w, n_c], dtype="float32 pool, bf16 wires",
+                  bound_ms=bms, bound_by=by,
+                  library_note="index_select + cat + index_copy_ (+ index_fill_ for the cold state), live rows"),
+              kernel=lambda: ops.cache_aux(*pool, ev_rows, m_rows, m_ent, c_rows, c_emb, consts, True),
+              plain=lambda: cache_aux_reference(*pool, ev_rows, m_rows, m_ent, c_rows, c_emb, consts, True),
+              library=lambda: aux_library(*pool))
+    pool_bytes = (table.numel() + acc.numel()) * 4
+    rows.append(cold(r, lambda t, s: ops.cache_aux(t, s, ev_rows, m_rows, m_ent, c_rows, c_emb, consts, True),
+                     lambda: (table.clone(), {k: v.clone() for k, v in state.items()}), pool_bytes,
+                     aux_library, lambda: (table.clone(), {k: v.clone() for k, v in state.items()}), pool_bytes))
+
+    # (a) alone: the flush's read of every resident row
+    fr = inputs["flush_rows"]
+    fpad = np.zeros(1 << max(3, int(len(fr) - 1).bit_length()), np.int32)
+    fpad[:len(fr)] = fr
+    frows = torch.from_numpy(fpad).to(dev)
+    nbytes = 4 * frows.numel() + 2 * frows.numel() * E * 4
+    bms, by = bound(nbytes, 0, "float32")
+    library = lambda t, a: torch.cat([t.index_select(0, frows), a.index_select(0, frows)], 1)  # noqa: E731
+    r = timed(row("gather_entry_rows", shape=[C + 1, E, frows.numel()], dtype="float32", bound_ms=bms, bound_by=by,
+                  library_note="index_select + cat"),
+              kernel=lambda: ops.gather_entry_rows(table, state, frows),
+              plain=lambda: gather_entry_rows_reference(table, state, frows),
+              library=lambda: library(table, acc))
+    rows.append(cold(r, lambda t, s: ops.gather_entry_rows(t, s, frows),
+                     lambda: (table.clone(), {k: v.clone() for k, v in state.items()}), pool_bytes,
+                     library, lambda: (table.clone(), acc.clone()), pool_bytes))
+
+    # K13: the step's (26, 4096, 1) rows, with their keys, as the step calls it
+    srows = inputs["rows"]
+    S, B, L = srows.shape
+    live = int((srows != C).sum())
+    nbytes = 4 * srows.numel() + live * dim * 4 + S * B * dim * 4 + 4 * srows.numel()
+    bms, by = bound(nbytes, live * dim, "float32")
+    flat = srows.view(S * B, L)
+    r = timed(row("cached_gather", shape=[S, B, L, C + 1, dim], dtype="float32", bound_ms=bms, bound_by=by,
+                  library_note="F.embedding_bag(mode='sum', padding_idx=C) (no scale: per_sample_weights None)"),
+              kernel=lambda: ops.cached_gather(table, srows, True, keys=True),
+              plain=lambda: cached_gather_reference(table, srows, True, keys=True),
+              library=lambda: F.embedding_bag(flat, table, mode="sum", padding_idx=C))
+    rows.append(cold(r, lambda t, rr: ops.cached_gather(t, rr, True, keys=True),
+                     lambda: (table.clone(), srows.clone()), pool_bytes // 2,
+                     lambda t, rr: F.embedding_bag(rr.view(S * B, L), t, mode="sum", padding_idx=C),
+                     lambda: (table.clone(), srows.clone()), pool_bytes // 2))
+    for r in rows:
+        print(f"  {r['name']}: {r['ms']:.4f} ms (cold {r['cold_ms']:.4f}), plain {r['plain_ms']:.4f}, library "
+              f"{r['library_ms']:.4f} (cold {r['library_cold_ms']:.4f}), bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), launches {r['launches_by_path']}", flush=True)
+    return rows
+
+
 def time_flash_backward(dev, card):
     """The flash-attention backward, a dense recompute (the gradient of
     ``reference_attention`` at the saved q, k, v; it launches no kernel of
@@ -4157,7 +4731,7 @@ def main() -> int:
 
     build = phase_build()
     errs = {"flash_attention": phase_flash_attention(dev), **phase_kernels(dev), **phase_fused_kernels(dev),
-            **phase_din_kernels(dev), **phase_bn_kernels(dev)}
+            **phase_din_kernels(dev), **phase_bn_kernels(dev), **phase_cache_kernels(dev)}
     fa_routes = path_flash_attention(dev)
     serving_launches, serving, feats_shape = path_serving(dev)
     training_launches, training, train_batch = path_training(dev)
@@ -4167,11 +4741,13 @@ def main() -> int:
     din_launches, din, din_batch = path_din(dev)
     avazu_launches, avazu = path_avazu(dev)
     dnn_launches, dnn = path_dnn(dev)
+    cache_launches, cache, cache_inputs = path_cache(dev)
     launches = {"flash_attention": fa_routes, "serving": serving_launches,
                 "training": training_launches, "pipelined": pipelined_launches,
                 "durable": durable_launches, "fused": fused_launches, "fused_capture": fused_capture_launches,
-                **din_launches, **dnn_launches}
+                **din_launches, **dnn_launches, **cache_launches}
     rows, floor = phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused_inputs, din_batch, build)
+    rows += time_cache_kernels(dev, launches, errs, cache_inputs)
     time_flash_backward(dev, card)
     print(json.dumps({"serving": serving, "card": card}), flush=True)
     print(json.dumps({"training": training, "card": card}), flush=True)
@@ -4182,6 +4758,7 @@ def main() -> int:
     print(json.dumps({"din": din, "card": card}), flush=True)
     print(json.dumps({"avazu": avazu, "avazu_launches": avazu_launches, "card": card}), flush=True)
     print(json.dumps({"dnn": dnn, "dnn_launches": dnn_launches, "card": card}), flush=True)
+    print(json.dumps({"cache": cache, "cache_launches": cache_launches, "card": card}), flush=True)
 
     # one entry per kernel (each flash-attention route by its non-causal
     # row); times graph-replayed, eager beside them
@@ -4190,7 +4767,7 @@ def main() -> int:
             "library_eager_ms", "cold_ms", "library_cold_ms", "sort_ms", "zipf_ms", "zipf_cold_ms",
             "zipf_bound_ms", "zipf_sort_ms", "longest_segment", "zipf_longest_segment", "one_row_ms",
             "composite_ms", "registers", "over_launch_floor", "no_keys_ms", "no_keys_cold_ms", "routing_cost_ms",
-            "c32_ms", "eval_256_ms")
+            "c32_ms", "eval_256_ms", "launches_by_path")
     kernels = [{k: r.get(k) for k in keys} for r in rows if not r.get("causal")]
     print(json.dumps({"kernels": kernels, "launch_floor_ms": floor, "card": card}), flush=True)
     print(card, flush=True)

@@ -19,6 +19,9 @@ The port covers the serving path and synchronous hybrid training:
               models.DLRM; host<->device bf16 wire in persia_tpu_torch.wire
   kernels     persia_tpu_torch.ops (dot_interaction and its backward, the
               grouped gather-pool forward and backward, flash_attention)
+  cache tier  persia_tpu_torch.embedding.hbm_cache.CachedTrainCtx (the
+              write-back cache of embedding rows on the card over the
+              parameter servers; its synchronous path)
   job state   persia_tpu_torch.jobstate (manifests, journal ids, resume),
               persia_tpu_torch.checkpoint (per-shard checkpoint files),
               persia_tpu_torch.serialization (flax's msgpack bytes);

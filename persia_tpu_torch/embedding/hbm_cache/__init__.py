@@ -1,0 +1,38 @@
+"""The write-back cache tier (counterpart of
+``persia_tpu/embedding/hbm_cache``): the parameter servers keep the
+unbounded vocabulary, the card keeps the working set as a fixed pool of
+rows and trains it in place.
+
+- a hit never crosses between host and card: the step receives int32 cache
+  rows, gathers and pools them on the card (K13) and applies the sparse
+  optimizer there (K5);
+- a miss checks its whole entry ``[emb | optimizer state]`` out of the
+  servers (or, for a sign they lack, births its row on the host with their
+  seeded init) and the aux program (K12) writes it into the pool;
+- an eviction (LRU, the native directory ``native/cache.cpp``) reads the
+  victim's entry back out (K12's payload) and writes it to the servers
+  after the next step is dispatched.
+
+Entry point: ``CachedTrainCtx`` (its synchronous ``train_step``, ``eval_batch``,
+``flush``, ``publish`` and checkpoints); the stream is not part of this
+slice.
+"""
+
+from persia_tpu_torch.embedding.hbm_cache.ctx import CachedTrainCtx  # noqa: F401
+from persia_tpu_torch.embedding.hbm_cache.directory import (  # noqa: F401
+    CacheDirectory,
+    _BufRing,
+    build_native,
+    group_salt,
+    native_init_rows,
+    native_uniform_init,
+)
+from persia_tpu_torch.embedding.hbm_cache.groups import (  # noqa: F401
+    CachedTrainState,
+    CacheGroup,
+    CacheLayout,
+    init_cached_tables,
+    make_cache_groups,
+)
+from persia_tpu_torch.embedding.hbm_cache.step import build_cached_eval_step, build_cached_train_step  # noqa: F401
+from persia_tpu_torch.embedding.hbm_cache.tier import CachedEmbeddingTier  # noqa: F401

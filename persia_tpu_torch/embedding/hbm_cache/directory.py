@@ -1,0 +1,275 @@
+"""The cache directory and the host's staging buffers (counterpart of
+``persia_tpu/embedding/hbm_cache/directory.py``).
+
+``CacheDirectory`` binds the port's native directory
+(``persia_tpu_torch/native/cache.cpp``, built with ``g++`` at first use into
+``build/torch_native/``): an LRU map sign → cache row of a fixed capacity,
+unsharded. ``native_init_rows`` births a cold row on the host bit for bit as
+the parameter server would (the same seeded init), so a sign's first row
+does not depend on which tier saw it first.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import threading
+from typing import Optional, Tuple
+
+import numpy as np
+
+from persia_tpu_torch.embedding._native_build import NATIVE_SRC, build_so, cxx_flags
+from persia_tpu_torch.embedding.hbm_cache.common import _bucket
+from persia_tpu_torch.embedding.native_store import INIT_KIND_CODES
+
+_LIB: Optional[ctypes.CDLL] = None
+_LOAD_LOCK = threading.Lock()
+
+_i64p = ctypes.POINTER(ctypes.c_int64)
+_u64p = ctypes.POINTER(ctypes.c_uint64)
+_i32p = ctypes.POINTER(ctypes.c_int32)
+_f32p = ctypes.POINTER(ctypes.c_float)
+
+
+def build_native():
+    """Compile the directory unless built (see ``_native_build.build_so``)."""
+    return build_so([NATIVE_SRC / "cache.cpp"], "libpersia_torch_cache.so", cxx_flags())
+
+
+def _load_lib() -> ctypes.CDLL:
+    global _LIB
+    with _LOAD_LOCK:
+        if _LIB is not None:
+            return _LIB
+        lib = ctypes.CDLL(str(build_native()))
+        i64, p = ctypes.c_int64, ctypes.c_void_p
+        lib.cache_create.restype = p
+        lib.cache_create.argtypes = [i64]
+        lib.cache_destroy.restype = None
+        lib.cache_destroy.argtypes = [p]
+        lib.cache_len.restype = i64
+        lib.cache_len.argtypes = [p]
+        lib.cache_capacity.restype = i64
+        lib.cache_capacity.argtypes = [p]
+        lib.cache_admit.restype = i64
+        lib.cache_admit.argtypes = [p, _u64p, i64, _i64p, _i64p, _u64p, _i64p, _i64p]
+        lib.cache_admit_positions.restype = i64
+        lib.cache_admit_positions.argtypes = [p, _u64p, i64, _i32p, _u64p, _i64p, _u64p, _i64p, _i64p, _i64p]
+        lib.cache_probe.restype = None
+        lib.cache_probe.argtypes = [p, _u64p, i64, _i64p]
+        lib.cache_drain.restype = i64
+        lib.cache_drain.argtypes = [p, _u64p, _i64p]
+        lib.cache_snapshot.restype = i64
+        lib.cache_snapshot.argtypes = [p, _u64p, _i64p]
+        lib.cache_set_admit_touches.restype = None
+        lib.cache_set_admit_touches.argtypes = [p, i64]
+        lib.cache_set_probe_mode.restype = None
+        lib.cache_set_probe_mode.argtypes = [p, i64]
+        lib.cache_probe_mode.restype = i64
+        lib.cache_probe_mode.argtypes = [p]
+        lib.cache_uniform_init.restype = None
+        lib.cache_uniform_init.argtypes = [_u64p, i64, i64, ctypes.c_uint64, ctypes.c_double, ctypes.c_double,
+                                           _f32p]
+        lib.cache_init_rows.restype = None
+        lib.cache_init_rows.argtypes = [_u64p, i64, i64, ctypes.c_uint64, ctypes.c_int, ctypes.c_double,
+                                        ctypes.c_double, _f32p]
+        _LIB = lib
+        return lib
+
+
+def _out_rows(out: Optional[np.ndarray], m: int, dim: int) -> np.ndarray:
+    if out is None:
+        return np.empty((m, dim), dtype=np.float32)
+    if out.dtype != np.float32 or not out.flags.c_contiguous or out.shape != (m, dim):
+        raise ValueError(f"out must be a contiguous ({m}, {dim}) float32 array")
+    return out
+
+
+def native_uniform_init(signs: np.ndarray, seed: int, dim: int, lo: float, hi: float,
+                        out: Optional[np.ndarray] = None) -> np.ndarray:
+    """Seeded uniform rows (M, dim) f32, bit for bit
+    ``hashing.uniform_init_for_signs``; ``out`` is filled in place when
+    given."""
+    lib = _load_lib()
+    signs = np.ascontiguousarray(signs, dtype=np.uint64)
+    out = _out_rows(out, len(signs), dim)
+    lib.cache_uniform_init(signs.ctypes.data_as(_u64p), len(signs), dim, ctypes.c_uint64(seed), lo, hi,
+                           out.ctypes.data_as(_f32p))
+    return out
+
+
+def native_init_rows(signs: np.ndarray, seed: int, dim: int, method,
+                     out: Optional[np.ndarray] = None) -> np.ndarray:
+    """Seeded rows (M, dim) f32 for any ``config.InitializationMethod``,
+    bit for bit ``hashing.init_for_signs`` and the parameter server's
+    cores: a row born in the cache is the row the server would birth."""
+    lib = _load_lib()
+    signs = np.ascontiguousarray(signs, dtype=np.uint64)
+    out = _out_rows(out, len(signs), dim)
+    lib.cache_init_rows(signs.ctypes.data_as(_u64p), len(signs), dim, ctypes.c_uint64(seed),
+                        INIT_KIND_CODES[method.kind], method.p0, method.p1, out.ctypes.data_as(_f32p))
+    return out
+
+
+_MALLOPT_DONE = False
+
+
+def _retain_allocator_pages() -> None:
+    """Let glibc serve the MB-sized per-step staging buffers from retained
+    heap pages instead of fresh mmaps (page faults and unmaps every step),
+    so every step can own new buffers (``_BufRing``) at the cost of a
+    free-list pop. Once a process, when the first tier is built; opt out
+    with ``PERSIA_NO_MALLOPT=1``; a no-op where ``mallopt`` is missing."""
+    global _MALLOPT_DONE
+    if _MALLOPT_DONE or os.environ.get("PERSIA_NO_MALLOPT") == "1":
+        return
+    _MALLOPT_DONE = True
+    try:
+        libc = ctypes.CDLL(None)
+        libc.mallopt.restype = ctypes.c_int
+        libc.mallopt.argtypes = [ctypes.c_int, ctypes.c_int]
+        libc.mallopt(-3, 64 * 1024 * 1024)  # M_MMAP_THRESHOLD
+    except (OSError, AttributeError):  # not glibc
+        pass
+
+
+class _BufRing:
+    """Per-step host staging buffers. Every call returns a new array: the
+    buffers escape into asynchronous copies to the card, and a reused one
+    rewritten while a copy still reads it would corrupt training. The
+    ``key`` argument names the buffer's use."""
+
+    def get(self, key, shape, dtype) -> np.ndarray:
+        return np.empty(shape, dtype)
+
+    def full(self, key, shape, dtype, fill) -> np.ndarray:
+        arr = np.empty(shape, dtype)
+        arr.fill(fill)
+        return arr
+
+
+class CacheDirectory:
+    """LRU map sign → cache row (native, O(1) a sign).
+
+    ``admit_touches``: a sign that is not resident is admitted only on its
+    Nth batch that touches it; the earlier touches map to the pad row
+    ``capacity`` (a zero forward, its gradient dropped: the reference's
+    non-admitted sign). 1 admits on the first touch."""
+
+    def __init__(self, capacity: int, admit_touches: int = 1, probe: Optional[int] = None):
+        if capacity < 1:
+            raise ValueError("capacity must be positive")
+        self._lib = _load_lib()
+        self._h = self._lib.cache_create(capacity)
+        self.capacity = capacity
+        self.admit_touches = int(admit_touches)
+        if self.admit_touches > 1:
+            self._lib.cache_set_admit_touches(self._h, self.admit_touches)
+        if probe is not None:
+            self.set_probe_mode(probe)
+        self._scratch_n = 0
+        self._rows_ring = _BufRing()
+
+    def __del__(self):
+        if getattr(self, "_h", None) is not None:
+            self._lib.cache_destroy(self._h)
+            self._h = None
+
+    def __len__(self) -> int:
+        return int(self._lib.cache_len(self._h))
+
+    @property
+    def probe_mode(self) -> int:
+        """1: the 8-at-a-time tag probe; 0: the scalar walk (same results)."""
+        return int(self._lib.cache_probe_mode(self._h))
+
+    def set_probe_mode(self, mode: int) -> None:
+        self._lib.cache_set_probe_mode(self._h, 1 if int(mode) else 0)
+
+    def _ensure_scratch(self, n: int) -> None:
+        if n <= self._scratch_n:
+            return
+        self._scratch_n = n
+        self._s_miss_signs = np.empty(n, dtype=np.uint64)
+        self._s_miss_rows = np.empty(n, dtype=np.int64)
+        self._s_ev_signs = np.empty(n, dtype=np.uint64)
+        self._s_ev_rows = np.empty(n, dtype=np.int64)
+        self._s_miss_idx = np.empty(n, dtype=np.int64)
+
+    def _overflow(self):
+        return RuntimeError(f"batch distinct-sign count exceeds cache capacity {self.capacity} — "
+                            "raise cache rows or shrink the batch")
+
+    def admit(self, signs: np.ndarray):
+        """Admit distinct ``signs``: ``(rows (n,) int64, miss_idx (M,),
+        evict_signs (K,), evict_rows (K,))``. Residents are touched first,
+        so no sign of the batch is evicted for another. Raises when the
+        batch holds more signs than the capacity."""
+        signs = np.ascontiguousarray(signs, dtype=np.uint64)
+        n = len(signs)
+        self._ensure_scratch(n)
+        rows = self._rows_ring.get("rows64", (_bucket(max(n, 1)),), np.int64)[:n]
+        n_evict = ctypes.c_int64(0)
+        n_miss = self._lib.cache_admit(
+            self._h, signs.ctypes.data_as(_u64p), n, rows.ctypes.data_as(_i64p),
+            self._s_miss_idx.ctypes.data_as(_i64p), self._s_ev_signs.ctypes.data_as(_u64p),
+            self._s_ev_rows.ctypes.data_as(_i64p), ctypes.byref(n_evict),
+        )
+        if n_miss < 0:
+            raise self._overflow()
+        k = n_evict.value
+        return rows, self._s_miss_idx[:n_miss].copy(), self._s_ev_signs[:k].copy(), self._s_ev_rows[:k].copy()
+
+    def admit_positions(self, signs: np.ndarray):
+        """Admit a position-level stream (duplicates allowed; deduplicated
+        natively): ``(rows (n,) int32 a position, miss_signs (M,) in
+        first-seen order, miss_rows (M,), evict_signs (K,), evict_rows (K,),
+        n_unique)``."""
+        signs = np.ascontiguousarray(signs, dtype=np.uint64)
+        n = signs.size
+        self._ensure_scratch(n)
+        rows = self._rows_ring.get("rows", (_bucket(max(n, 1)),), np.int32)[:n]
+        n_unique, n_evict = ctypes.c_int64(0), ctypes.c_int64(0)
+        n_miss = self._lib.cache_admit_positions(
+            self._h, signs.ctypes.data_as(_u64p), n, rows.ctypes.data_as(_i32p),
+            self._s_miss_signs.ctypes.data_as(_u64p), self._s_miss_rows.ctypes.data_as(_i64p),
+            self._s_ev_signs.ctypes.data_as(_u64p), self._s_ev_rows.ctypes.data_as(_i64p),
+            ctypes.byref(n_unique), ctypes.byref(n_evict),
+        )
+        if n_miss < 0:
+            raise self._overflow()
+        k = n_evict.value
+        return (rows, self._s_miss_signs[:n_miss].copy(), self._s_miss_rows[:n_miss].copy(),
+                self._s_ev_signs[:k].copy(), self._s_ev_rows[:k].copy(), n_unique.value)
+
+    def probe(self, signs: np.ndarray) -> np.ndarray:
+        """Each sign's row, -1 where it is not resident; no admission and no
+        LRU touch (eval's lookup)."""
+        signs = np.ascontiguousarray(signs, dtype=np.uint64)
+        rows = np.empty(len(signs), dtype=np.int64)
+        self._lib.cache_probe(self._h, signs.ctypes.data_as(_u64p), len(signs), rows.ctypes.data_as(_i64p))
+        return rows
+
+    def _listing(self, fn) -> Tuple[np.ndarray, np.ndarray]:
+        signs = np.empty(self.capacity, dtype=np.uint64)
+        rows = np.empty(self.capacity, dtype=np.int64)
+        k = fn(self._h, signs.ctypes.data_as(_u64p), rows.ctypes.data_as(_i64p))
+        return signs[:k].copy(), rows[:k].copy()
+
+    def drain(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Empty the directory: ``(signs, rows)`` of every resident, most
+        recently used first."""
+        return self._listing(self._lib.cache_drain)
+
+    def snapshot(self) -> Tuple[np.ndarray, np.ndarray]:
+        """``drain``'s listing without emptying or touching anything."""
+        return self._listing(self._lib.cache_snapshot)
+
+
+def group_salt(name: str) -> int:
+    """A cache group's 64-bit namespace salt (nonzero; by name): the
+    reference keys its pending write-backs by ``sign ^ salt`` so that two
+    groups' equal raw signs cannot meet."""
+    h = hashlib.blake2b(name.encode(), digest_size=8).digest()
+    return int.from_bytes(h, "little") or 1

@@ -1,0 +1,126 @@
+"""Cache groups, the device state of the cache tier, and its device ops
+(counterpart of ``persia_tpu/embedding/hbm_cache/groups.py``).
+
+The device ops are the kernels K12 and K13 behind their wrappers, each of
+which takes its plain version for a CPU tensor: ``_apply_aux`` and
+``_gather_entry_rows`` are ``ops.cache_aux`` (plain version
+``cache_aux_reference``), the gather with ``_model_emb_from_gathered``'s
+mask, sum and scale is ``ops.cached_gather`` (``cached_gather_reference``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+
+from persia_tpu_torch.config import EmbeddingConfig
+from persia_tpu_torch.embedding.optim import OPTIMIZER_ADAGRAD, OPTIMIZER_ADAM, OptimizerConfig
+from persia_tpu_torch.ops.cache_aux import cache_aux, entry_state_cols, gather_entry_rows
+from persia_tpu_torch.ops.sparse_update import init_sparse_state
+
+_apply_aux = cache_aux
+_gather_entry_rows = gather_entry_rows
+_entry_to_state_cols = entry_state_cols
+
+
+@dataclass
+class CachedTrainState:
+    """The cache tier's training state, updated in place by a step:
+    ``model`` and its ``optimizer`` (a ``torch.optim.Adam``), each group's
+    table (C+1, dim) (row C the zero pad) and its optimizer state
+    (C+1, ·), the sparse Adam's batch powers (a device f32[2]) and the
+    step count (a device int32)."""
+
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    tables: Dict[str, torch.Tensor]
+    emb_state: Dict[str, Dict[str, torch.Tensor]]
+    emb_batch_state: torch.Tensor
+    step: torch.Tensor
+
+
+@dataclass(frozen=True)
+class CacheGroup:
+    """One row pool on the card shared by every slot of one embedding dim."""
+
+    name: str
+    dim: int
+    rows: int  # capacity C (the table has C+1 rows)
+    state_dim: int
+    pooled_slots: Tuple[str, ...]  # stacked: one gather and one update for all of them
+    raw_slots: Tuple[str, ...]  # sequence slots, (B, L) rows each
+
+    @property
+    def slots(self) -> Tuple[str, ...]:
+        return self.pooled_slots + self.raw_slots
+
+
+@dataclass(frozen=True)
+class CacheLayout:
+    """Which slots a batch carries: ``stacked`` is ((group, (slot, ...)),
+    ...) in stack order."""
+
+    stacked: Tuple[Tuple[str, Tuple[str, ...]], ...]
+
+
+def make_cache_groups(cfg: EmbeddingConfig, rows_per_group: Dict[int, int], sparse_cfg: OptimizerConfig,
+                      ) -> List[CacheGroup]:
+    """One group a dim, in ascending dim, its slots sorted (a group dedups
+    its signs across slots, so slots that share a sign share a row). A
+    hash-stack slot, many table keys an id, cannot be cached: it raises
+    (the reference routes it to a parameter-server tier, which the port's
+    cache tier does not have yet)."""
+    by_dim: Dict[int, Tuple[List[str], List[str]]] = {}
+    for name, slot in cfg.slots_config.items():
+        if slot.hash_stack_config.enabled:
+            raise ValueError(f"slot {name!r} is hash-stacked: the cache tier cannot hold it")
+        pooled, raw = by_dim.setdefault(slot.dim, ([], []))
+        (pooled if slot.embedding_summation else raw).append(name)
+    return [
+        CacheGroup(name=f"cache_d{dim}", dim=dim, rows=rows_per_group[dim], state_dim=sparse_cfg.state_dim(dim),
+                   pooled_slots=tuple(sorted(by_dim[dim][0])), raw_slots=tuple(sorted(by_dim[dim][1])))
+        for dim in sorted(by_dim)
+    ]
+
+
+def init_cached_tables(groups: Sequence[CacheGroup], sparse_cfg: OptimizerConfig, device=None,
+                       dtype=torch.float32):
+    """Zeroed pools of C+1 rows and their fresh optimizer state: rows arrive
+    by the aux program's writes; only the pad row C's zeros matter, and no
+    update touches it."""
+    tables, emb_state = {}, {}
+    for g in groups:
+        tables[g.name] = torch.zeros((g.rows + 1, g.dim), dtype=dtype, device=device)
+        emb_state[g.name] = init_sparse_state(sparse_cfg, g.rows + 1, g.dim, device=device)
+    return tables, emb_state
+
+
+def _state_init_consts(cfg: OptimizerConfig) -> Tuple[Tuple[str, float], ...]:
+    """(key, value) of a fresh entry's state: the parameter server's
+    ``init_state``."""
+    if cfg.kind == OPTIMIZER_ADAGRAD:
+        return (("acc", float(cfg.initialization)),)
+    if cfg.kind == OPTIMIZER_ADAM:
+        return (("m", 0.0), ("v", 0.0))
+    return ()
+
+
+def _slot_group_of(groups: Sequence[CacheGroup], slot: str) -> str:
+    for g in groups:
+        if slot in g.slots:
+            return g.name
+    raise KeyError(slot)
+
+
+def _model_emb_from_gathered(layout: CacheLayout, pooled: Dict[str, torch.Tensor], raw: Dict[str, Tuple]) -> List:
+    """The model's per-slot inputs in sorted slot order: each stacked
+    group's pooled (S, B, dim) split by slot, and each raw slot's (rows,
+    mask)."""
+    slot_emb: Dict[str, object] = {}
+    for gname, names in layout.stacked:
+        for i, name in enumerate(names):
+            slot_emb[name] = pooled[gname][i]
+    slot_emb.update(raw)
+    return [slot_emb[n] for n in sorted(slot_emb)]

@@ -1,0 +1,417 @@
+"""CachedEmbeddingTier: the cache tier's host side (counterpart of
+``persia_tpu/embedding/hbm_cache/tier.py``): the directories, the
+parameter-server traffic (probe, checkout, write-back) and each batch's
+staging arrays.
+
+Per batch and group: the group's distinct signs are admitted (hits keep
+their row; a miss takes a free row or evicts the least recently used
+sign), the misses split into warm (the server holds the sign: its whole
+entry ships, ``miss_aux``) and cold (a new sign: its row is born on the
+host with the server's seeded init, ``cold_aux``, and reaches the server
+only at its eviction), and the evicted rows are listed for the write-back
+(``evict_aux`` / ``evict_meta``). Every staging array's length is
+``_bucket``-padded: row pads are C+1 (dropped by the device's writes) or C
+(the zero row) for the payload's read.
+
+The reference's parameter-server tier for hash-stack or excluded slots,
+its access sketch, its sharded feeder and its degraded-lookup lineage are
+not part of this slice.
+"""
+
+from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from persia_tpu_torch.config import EmbeddingConfig
+from persia_tpu_torch.data import PersiaBatch
+from persia_tpu_torch.embedding import native_worker
+from persia_tpu_torch.embedding.hashing import add_index_prefix
+from persia_tpu_torch.embedding.hbm_cache.common import _bucket
+from persia_tpu_torch.embedding.hbm_cache.directory import (
+    CacheDirectory,
+    _BufRing,
+    _retain_allocator_pages,
+    native_init_rows,
+)
+from persia_tpu_torch.embedding.hbm_cache.groups import (
+    CacheGroup,
+    CacheLayout,
+    _gather_entry_rows,
+    make_cache_groups,
+)
+from persia_tpu_torch.embedding.optim import OptimizerConfig
+from persia_tpu_torch.embedding.worker import ProcessedSlot, ShardedLookup, preprocess_batch
+from persia_tpu_torch.utils import round_up_pow2
+from persia_tpu_torch.wire import BF16Host, tensor_to_host_f32
+
+AUX_WIRE_DTYPES = ("float32", "bfloat16")
+
+
+class CachedEmbeddingTier:
+    """The directories, parameter-server traffic and staging of the cache
+    tier over ``worker`` (an ``EmbeddingWorker``: its router reaches the
+    replicas by sign).
+
+    ``rows``: the cache capacity C of every group, or {dim: C}.
+    ``init_seed``: the replicas' seed (by default replica 0's ``.seed``),
+    which cold rows born here must share. ``aux_wire_dtype``: the dtype the
+    warm entries and cold rows cross to the card in (bf16 rounds to
+    nearest even, as ``ml_dtypes`` does)."""
+
+    _PAR_CHUNK = 8192  # signs a store call takes before the call is split across threads
+
+    def __init__(self, worker, sparse_cfg: OptimizerConfig, rows, embedding_config: Optional[EmbeddingConfig] = None,
+                 init_seed: Optional[int] = None, admit_touches: int = 1, aux_wire_dtype: str = "float32"):
+        if aux_wire_dtype not in AUX_WIRE_DTYPES:
+            raise ValueError(f"aux_wire_dtype must be one of {AUX_WIRE_DTYPES}, got {aux_wire_dtype!r}")
+        self.worker = worker
+        self.cfg = embedding_config or worker.embedding_config
+        self.sparse_cfg = sparse_cfg
+        self.aux_bf16 = aux_wire_dtype == "bfloat16"
+        if init_seed is None:
+            init_seed = getattr(self.router.replicas[0], "seed", None)
+            if init_seed is None:
+                raise ValueError("init_seed not given and the replicas expose no .seed")
+        self.init_seed = int(init_seed)
+        dims = {slot.dim for slot in self.cfg.slots_config.values()}
+        rows_per_group = rows if isinstance(rows, dict) else {d: rows for d in dims}
+        self.groups: List[CacheGroup] = make_cache_groups(self.cfg, rows_per_group, sparse_cfg)
+        self.dirs = {g.name: CacheDirectory(g.rows, admit_touches=admit_touches) for g in self.groups}
+        _retain_allocator_pages()
+        self._ring = _BufRing()
+        self._slot_group = {s: g for g in self.groups for s in g.slots}
+        self._fast_eligible = {name: slot.embedding_summation and not slot.sqrt_scaling
+                               for name, slot in self.cfg.slots_config.items()}
+        self._fast_prefix = {name: slot.index_prefix for name, slot in self.cfg.slots_config.items()}
+        self._pool: Optional[ThreadPoolExecutor] = None
+        # the batch's distinct signs resident, checked out of the server, and
+        # written back on eviction (the reference's metrics counters)
+        self.hits = self.misses = self.evictions = 0
+
+    def counts(self) -> Dict[str, int]:
+        """Hits, misses and evictions since the tier was built."""
+        return {"hits": self.hits, "misses": self.misses, "evictions": self.evictions}
+
+    @property
+    def router(self) -> ShardedLookup:
+        return self.worker.lookup_router
+
+    @property
+    def init_method(self):
+        """Read live from replica 0: cold rows born here stay the rows the
+        replicas would birth."""
+        return self.router.replicas[0].hyperparams.resolved_init_method()
+
+    # ---------------------------------------------------- server traffic
+
+    def _chunked(self, n: int, fn: Callable[[int, int], None]) -> None:
+        """``fn(start, end)`` over chunks of ``_PAR_CHUNK``, on a thread pool
+        past one chunk (a native store's calls release the GIL)."""
+        if n <= self._PAR_CHUNK:
+            fn(0, n)
+            return
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(max_workers=8, thread_name_prefix="cache-chunk")
+        bounds = list(range(0, n, self._PAR_CHUNK)) + [n]
+        list(self._pool.map(lambda se: fn(*se), zip(bounds[:-1], bounds[1:])))
+
+    def _probe(self, signs: np.ndarray, dim: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(warm (n,) bool, entries (n, dim + state_dim)) without admitting
+        anything; the chunks fill disjoint slices of one buffer."""
+        n = len(signs)
+        entry_len = dim + self.sparse_cfg.state_dim(dim)
+        nb = _bucket(max(n, 1))
+        vals = self._ring.get("probe_vals", (nb, entry_len), np.float32)[:n]
+        warm8 = self._ring.get("probe_warm", (nb,), np.uint8)[:n]
+        self._chunked(n, lambda s, e: self.router.probe_entries(signs[s:e], dim, vals_out=vals[s:e],
+                                                                 warm_out=warm8[s:e]))
+        return warm8.view(np.bool_), vals
+
+    def _set_embedding(self, signs: np.ndarray, values: np.ndarray, dim: int) -> None:
+        self._chunked(len(signs), lambda s, e: self.router.set_embedding(signs[s:e], values[s:e], dim=dim,
+                                                                          commit_incremental=True))
+
+    # ----------------------------------------------------------- helpers
+
+    def _group_slots(self, pb: List[ProcessedSlot]) -> Dict[str, List[ProcessedSlot]]:
+        out: Dict[str, List[ProcessedSlot]] = {}
+        for slot in pb:
+            out.setdefault(self._slot_group[slot.name].name, []).append(slot)
+        for slots in out.values():
+            slots.sort(key=lambda s: s.name)
+        return out
+
+    @staticmethod
+    def _dedup_group_signs(slots: List[ProcessedSlot]):
+        """The group's slots' distinct signs concatenated and deduplicated
+        across slots (the directory takes distinct signs; with prefix bit 0
+        two slots can share one): (distinct, inverse)."""
+        all_signs = np.concatenate([s.distinct for s in slots]) if slots else np.empty(0, np.uint64)
+        native = native_worker.dedup(all_signs)
+        uniq, inv = native if native is not None else np.unique(all_signs, return_inverse=True)
+        return uniq, inv.astype(np.int64).reshape(-1)
+
+    @staticmethod
+    def _stack_layout(slots: List[ProcessedSlot]) -> int:
+        """The common L of the group's pooled slots: the most ids a sample
+        of any of them holds, a power of two (0 without pooled slots)."""
+        pooled = [s for s in slots if s.config.embedding_summation]
+        if not pooled:
+            return 0
+        max_c = max((int(s.counts.max()) if len(s.counts) else 1) for s in pooled)
+        return round_up_pow2(max(max_c, 1), floor=1)
+
+    @staticmethod
+    def _slot_rows(slot: ProcessedSlot, slot_rows: np.ndarray, L: int, pad_row: int) -> np.ndarray:
+        idx = _position_index(slot, L)
+        lut = np.append(slot_rows, np.int64(pad_row))
+        return lut[idx].astype(np.int32)
+
+    # -------------------------------------------------------- train path
+
+    def _admit_aux(self, g: CacheGroup, miss_signs, rows_miss, ev_signs, ev_rows, n_unique, hazard_gate,
+                   miss_aux, cold_aux, evict_aux, evict_meta) -> None:
+        """After the admit, for both paths: the counters, the eviction
+        rows, the hazard gate, and the warm/cold split of the misses."""
+        C = g.rows
+        self.hits += n_unique - len(miss_signs)
+        self.misses += len(miss_signs)
+        self.evictions += len(ev_signs)
+        k = len(ev_rows)
+        if k:
+            e_rows = self._ring.full(("e_rows", g.name), (_bucket(k),), np.int32, C)
+            e_rows[:k] = ev_rows
+            evict_aux[g.name] = e_rows
+            evict_meta[g.name] = (ev_signs, k)
+        m = len(miss_signs)
+        if not m:
+            return
+        if hazard_gate is not None:
+            hazard_gate(g.name, miss_signs)  # lands a pending write-back these misses read
+        warm, vals = self._probe(miss_signs, g.dim)
+        widx = np.nonzero(warm[:m])[0]
+        cidx = np.nonzero(~warm[:m])[0]
+        # pad rows are C+1, which the device's writes drop; the pad
+        # entries' values are left as they are on purpose
+        if len(widx):
+            wp = _bucket(len(widx))
+            w_rows = self._ring.full(("w_rows", g.name), (wp,), np.int32, C + 1)
+            w_rows[:len(widx)] = rows_miss[widx]
+            w_f32 = self._ring.get(("w_entries", g.name), (wp, g.dim + g.state_dim), np.float32)
+            w_f32[:len(widx)] = vals[widx]
+            miss_aux[g.name] = (w_rows, BF16Host.from_f32(w_f32) if self.aux_bf16 else w_f32)
+        if len(cidx):
+            cp = _bucket(len(cidx))
+            c_rows = self._ring.full(("c_rows", g.name), (cp,), np.int32, C + 1)
+            c_rows[:len(cidx)] = rows_miss[cidx]
+            c_f32 = self._ring.get(("c_emb", g.name), (cp, g.dim), np.float32)
+            native_init_rows(miss_signs[cidx], self.init_seed, g.dim, self.init_method, out=c_f32[:len(cidx)])
+            cold_aux[g.name] = (c_rows, BF16Host.from_f32(c_f32) if self.aux_bf16 else c_f32)
+
+    def _single_id_groups(self, batch: PersiaBatch):
+        """[(group, slot names, (S, B) prefixed signs), ...] when every slot
+        is pooled, unscaled, and every feature holds exactly one id a
+        sample; else None (the general path)."""
+        feats = {f.name: f for f in batch.id_type_features}
+        for name in feats:
+            if name not in self._slot_group:
+                raise KeyError(f"unknown slot {name!r} (not in embedding config)")
+            if not self._fast_eligible[name]:
+                return None
+        out = []
+        prefix_bit = self.cfg.feature_index_prefix_bit
+        for g in self.groups:
+            names = [n for n in g.pooled_slots if n in feats]
+            if not names:
+                continue
+            flats = []
+            for name in names:
+                flat, counts = feats[name].flat_counts()
+                if len(flat) != len(counts) or not (counts == 1).all():
+                    return None
+                flats.append(np.ascontiguousarray(flat, dtype=np.uint64))
+            mat = self._ring.get(("sid_mat", g.name), (len(names), len(flats[0])), np.uint64)
+            prefixes = np.array([self._fast_prefix[n] for n in names], dtype=np.uint64)
+            if not native_worker.build_sid_matrix(flats, prefixes, prefix_bit, mat):
+                for i, (name, flat) in enumerate(zip(names, flats)):
+                    mat[i] = add_index_prefix(flat, self._fast_prefix[name], prefix_bit)
+            out.append((g, tuple(names), mat))
+        return out
+
+    @staticmethod
+    def _host_inputs(batch: PersiaBatch, stacked_rows, raw_rows, stacked_scale=None) -> Dict:
+        inputs = {
+            "dense": [np.asarray(f.data, dtype=np.float32) for f in batch.non_id_type_features],
+            "labels": [np.asarray(l.data, dtype=np.float32) for l in batch.labels],
+            "stacked_rows": stacked_rows,
+            "raw_rows": raw_rows,
+        }
+        if stacked_scale is not None:
+            inputs["stacked_scale"] = stacked_scale
+        return inputs
+
+    def _slot_matrices(self, g: CacheGroup, slots, rows, stacked_rows, stacked_scale, raw_rows, layout_stacked):
+        """Per-slot row matrices from the group's rows (slot-concatenated
+        distinct order): pooled slots stacked into (S, B, L); returns
+        whether any slot scales."""
+        C = g.rows
+        L = self._stack_layout(slots)
+        off = 0
+        mats, scales, names = [], [], []
+        any_scale = False
+        for slot in slots:
+            d = slot.num_distinct
+            srows = rows[off:off + d]
+            off += d
+            if slot.config.embedding_summation:
+                names.append(slot.name)
+                mats.append(self._slot_rows(slot, srows, L, C))
+                if slot.config.sqrt_scaling:
+                    any_scale = True
+                    scales.append((1.0 / np.sqrt(np.maximum(slot.counts, 1))).astype(np.float32))
+                else:
+                    scales.append(np.ones(slot.batch_size, dtype=np.float32))
+            else:
+                raw_rows[slot.name] = self._slot_rows(slot, srows, slot.config.sample_fixed_size, C)
+        if mats:
+            stacked_rows[g.name] = np.stack(mats)
+            stacked_scale[g.name] = np.stack(scales)
+            layout_stacked.append((g.name, tuple(names)))
+        return any_scale
+
+    def prepare_batch(self, batch: PersiaBatch, hazard_gate: Optional[Callable[[str, np.ndarray], None]] = None):
+        """Admit the batch's signs, check the warm misses out of the server
+        and build the step's host arrays: ``(inputs, layout, miss_aux,
+        cold_aux, evict_aux, evict_meta)``. ``miss_aux`` {group: (rows,
+        entries)}, ``cold_aux`` {group: (rows, seeds)}, ``evict_aux``
+        {group: rows}, ``evict_meta`` {group: (evicted signs, count)}.
+
+        ``hazard_gate(group, miss_signs)`` runs before a group's server
+        probe: the synchronous ctx lands its deferred write-back there when
+        one of these misses is a sign that write-back carries."""
+        fast = self._single_id_groups(batch)
+        if fast is not None:
+            return self._prepare_batch_single_id(batch, fast, hazard_gate)
+        slots_by_group = self._group_slots(preprocess_batch(batch.id_type_features, self.cfg))
+        stacked_rows, stacked_scale, raw_rows = {}, {}, {}
+        layout_stacked: List = []
+        miss_aux, cold_aux, evict_aux, evict_meta = {}, {}, {}, {}
+        any_scale = False
+        for g in self.groups:
+            slots = slots_by_group.get(g.name, [])
+            if not slots:
+                continue
+            uniq, inv = self._dedup_group_signs(slots)
+            rows_u, miss_idx, ev_signs, ev_rows = self.dirs[g.name].admit(uniq)
+            self._admit_aux(g, uniq[miss_idx], rows_u[miss_idx], ev_signs, ev_rows, len(uniq), hazard_gate,
+                            miss_aux, cold_aux, evict_aux, evict_meta)
+            any_scale |= self._slot_matrices(g, slots, rows_u[inv], stacked_rows, stacked_scale, raw_rows,
+                                             layout_stacked)
+        inputs = self._host_inputs(batch, stacked_rows, raw_rows, stacked_scale if any_scale else None)
+        return inputs, CacheLayout(stacked=tuple(layout_stacked)), miss_aux, cold_aux, evict_aux, evict_meta
+
+    def _prepare_batch_single_id(self, batch: PersiaBatch, fast, hazard_gate):
+        """One native admit a group over its (S, B) sign matrix
+        (``admit_positions``: dedup, admit and each position's row); the
+        row matrix is its output reshaped."""
+        stacked_rows: Dict[str, np.ndarray] = {}
+        layout_stacked: List = []
+        miss_aux, cold_aux, evict_aux, evict_meta = {}, {}, {}, {}
+        for g, names, mat in fast:
+            S, B = mat.shape
+            rows, miss_signs, miss_rows, ev_signs, ev_rows, n_unique = self.dirs[g.name].admit_positions(
+                mat.reshape(-1))
+            self._admit_aux(g, miss_signs, miss_rows, ev_signs, ev_rows, n_unique, hazard_gate,
+                            miss_aux, cold_aux, evict_aux, evict_meta)
+            stacked_rows[g.name] = rows.reshape(S, B, 1)
+            layout_stacked.append((g.name, names))
+        inputs = self._host_inputs(batch, stacked_rows, {})
+        return inputs, CacheLayout(stacked=tuple(layout_stacked)), miss_aux, cold_aux, evict_aux, evict_meta
+
+    # --------------------------------------------------------- eval path
+
+    def prepare_eval_batch(self, batch: PersiaBatch):
+        """Eval's host arrays, changing nothing of the cache: a resident
+        sign reads its row (a read-only probe); a miss reads the server's
+        infer lookup (zeros for a sign it lacks, nothing admitted) from the
+        group's ``miss_tables`` at row C+1+j. ``(inputs, layout)``."""
+        slots_by_group = self._group_slots(preprocess_batch(batch.id_type_features, self.cfg))
+        stacked_rows, stacked_scale, raw_rows, miss_tables = {}, {}, {}, {}
+        layout_stacked: List = []
+        any_scale = False
+        for g in self.groups:
+            slots = slots_by_group.get(g.name, [])
+            if not slots:
+                continue
+            C = g.rows
+            uniq, inv = self._dedup_group_signs(slots)
+            rows_u = self.dirs[g.name].probe(uniq)
+            miss_mask = rows_u < 0
+            miss_signs = uniq[miss_mask]
+            m = len(miss_signs)
+            mt = np.zeros((round_up_pow2(max(m, 1)), g.dim), dtype=np.float32)
+            if m:
+                mt[:m] = self.router.lookup(miss_signs, g.dim, train=False)
+                rows_u = rows_u.copy()
+                rows_u[miss_mask] = C + 1 + np.arange(m)
+            miss_tables[g.name] = mt
+            any_scale |= self._slot_matrices(g, slots, rows_u[inv], stacked_rows, stacked_scale, raw_rows,
+                                             layout_stacked)
+        inputs = self._host_inputs(batch, stacked_rows, raw_rows, stacked_scale if any_scale else None)
+        inputs["miss_tables"] = miss_tables
+        return inputs, CacheLayout(stacked=tuple(layout_stacked))
+
+    # -------------------------------------------------------- write-back
+
+    def write_back(self, evict_meta, evict_payload) -> None:
+        """Write the evicted rows' whole entries ``[emb | state]`` to the
+        server: ``evict_payload`` {group: host tensor (f32 or bf16)}."""
+        for gname, (ev_signs, k) in evict_meta.items():
+            if not k:
+                continue
+            g = next(gr for gr in self.groups if gr.name == gname)
+            self._set_embedding(ev_signs[:k], tensor_to_host_f32(evict_payload[gname][:k]), g.dim)
+
+    def _write_rows(self, g: CacheGroup, signs, rows, tables, emb_state) -> None:
+        """Flush and publish: the rows' entries read on the device (K12's
+        payload read, f32), one copy to the host, written to the server."""
+        table = tables[g.name]
+        rpad = np.zeros(round_up_pow2(len(rows)), dtype=np.int32)  # pads re-read row 0, sliced off
+        rpad[:len(rows)] = rows
+        payload = _gather_entry_rows(table, emb_state[g.name], torch.from_numpy(rpad).to(table.device))
+        self._set_embedding(signs, tensor_to_host_f32(payload[:len(rows)]), g.dim)
+
+    def flush(self, tables, emb_state) -> None:
+        """Drain every group's directory and write its rows to the server."""
+        for g in self.groups:
+            signs, rows = self.dirs[g.name].drain()
+            if len(signs):
+                self._write_rows(g, signs, rows, tables, emb_state)
+
+    def publish(self, tables, emb_state) -> int:
+        """Write every resident row to the server, evicting nothing;
+        returns the rows written."""
+        total = 0
+        for g in self.groups:
+            signs, rows = self.dirs[g.name].snapshot()
+            if len(signs):
+                self._write_rows(g, signs, rows, tables, emb_state)
+                total += len(signs)
+        return total
+
+
+def _position_index(slot: ProcessedSlot, L: int) -> np.ndarray:
+    """(B, L) positions into the slot's distinct signs, padded with D."""
+    idx = native_worker.raw_index(slot.counts, slot.inverse, L, slot.num_distinct)
+    if idx is None:
+        idx = np.full((slot.batch_size, L), slot.num_distinct, dtype=np.int32)
+        pos = 0
+        for b, c in enumerate(slot.counts.tolist()):
+            take = min(c, L)
+            idx[b, :take] = slot.inverse[pos:pos + take]
+            pos += c
+    return idx

@@ -76,6 +76,12 @@ def _load_lib() -> ctypes.CDLL:
         lib.ps_set_embedding.argtypes = [p, u64p, i64, u32, u32, f32p]
         lib.ps_get_entry.restype = i32
         lib.ps_get_entry.argtypes = [p, u64, f32p, i32]
+        lib.ps_get_entry_dim.restype = i32
+        lib.ps_get_entry_dim.argtypes = [p, u64]
+        lib.ps_checkout.restype = i64
+        lib.ps_checkout.argtypes = [p, u64p, i64, u32, f32p]
+        lib.ps_probe_entries.restype = i64
+        lib.ps_probe_entries.argtypes = [p, u64p, i64, u32, f32p, ctypes.POINTER(ctypes.c_uint8)]
         lib.ps_size.restype = i64
         lib.ps_size.argtypes = [p]
         lib.ps_clear.restype = None
@@ -274,6 +280,53 @@ class NativeEmbeddingStore:
             if n2 < 0:
                 return None
         raise RuntimeError(f"entry for sign {sign} kept changing concurrently")
+
+    def get_entry_dim(self, sign: int) -> Optional[int]:
+        """The embedding width of the sign's entry (no LRU touch), or None."""
+        d = self._lib.ps_get_entry_dim(self._h, sign)
+        return None if d < 0 else int(d)
+
+    # ---------------------------------------------- the cache tier's entries
+
+    def _entry_len(self, dim: int) -> int:
+        if self.optimizer is None:  # see EmbeddingStore.checkout_entries
+            raise RuntimeError("no optimizer registered")
+        return dim + self.optimizer.state_dim(dim)
+
+    def checkout_entries(self, signs: np.ndarray, dim: int) -> np.ndarray:
+        """Whole entries ``[emb | optimizer state]``, misses admitted: the
+        numpy store's ``checkout_entries``."""
+        entry_len = self._entry_len(dim)
+        signs = np.ascontiguousarray(signs, dtype=np.uint64)
+        out = np.empty((len(signs), entry_len), dtype=np.float32)
+        got = self._lib.ps_checkout(self._h, _ptr(signs, ctypes.c_uint64), len(signs), dim,
+                                    _ptr(out, ctypes.c_float))
+        if got != entry_len:
+            raise RuntimeError(f"ps_checkout entry width {got} != {entry_len}")
+        return out
+
+    supports_probe_out = True
+
+    def probe_entries(self, signs: np.ndarray, dim: int, vals_out: Optional[np.ndarray] = None,
+                      warm_out: Optional[np.ndarray] = None):
+        """The numpy store's ``probe_entries`` (warm, vals), except that a
+        cold row of ``vals`` is left as it was (callers read warm rows
+        only). ``vals_out`` ((n, entry width) f32) and ``warm_out`` ((n,)
+        of a 1-byte dtype) are filled in place when given."""
+        entry_len = self._entry_len(dim)
+        signs = np.ascontiguousarray(signs, dtype=np.uint64)
+        n = len(signs)
+        vals = np.empty((n, entry_len), dtype=np.float32) if vals_out is None else vals_out
+        warm = np.empty(n, dtype=np.uint8) if warm_out is None else warm_out
+        if vals.dtype != np.float32 or not vals.flags.c_contiguous or vals.shape[0] < n or vals.shape[1:] != (entry_len,):
+            raise ValueError(f"vals_out must be contiguous f32 of at least ({n}, {entry_len})")
+        if warm.itemsize != 1 or not warm.flags.c_contiguous or warm.shape[0] < n:
+            raise ValueError(f"warm_out must be contiguous 1-byte of at least {n}")
+        got = self._lib.ps_probe_entries(self._h, _ptr(signs, ctypes.c_uint64), n, dim,
+                                         _ptr(vals, ctypes.c_float), _ptr(warm, ctypes.c_uint8))
+        if got != entry_len:
+            raise RuntimeError(f"ps_probe_entries entry width {got} != {entry_len}")
+        return warm[:n].view(np.bool_), vals
 
     def clear(self) -> None:
         """Drop every entry and Adam's batch powers (not the journal)."""

@@ -5,7 +5,8 @@
 Drop-in accelerators for the numpy routines of
 ``persia_tpu_torch.embedding.worker``: id dedup (``np.unique``), sum
 pooling and per-sign gradient accumulation (``np.add.at``), the index
-matrix of raw and device-pooled slots, and shard partitioning. The library
+matrix of raw and device-pooled slots, shard partitioning, and the cache
+tier's single-id sign matrix. The library
 is built with ``g++`` at the first call that needs it. Where it cannot be
 built, ``_load_lib`` returns None, every function here returns None, and
 the worker runs its numpy routines. A ``ctypes`` call releases the GIL,
@@ -62,6 +63,8 @@ def _load_lib() -> Optional[ctypes.CDLL]:
         lib.wk_raw_index.argtypes = [_i64p, _i64p, i64, i64, i32, _i32p]
         lib.wk_shard_partition.restype = None
         lib.wk_shard_partition.argtypes = [_u64p, i64, u32, _i64p, _i64p]
+        lib.wk_build_sid_matrix.restype = None
+        lib.wk_build_sid_matrix.argtypes = [ctypes.POINTER(ctypes.c_void_p), _u64p, i64, i64, i32, _u64p]
         _LIB = lib
         return _LIB
 
@@ -169,3 +172,26 @@ def shard_partition(
     counts = np.empty(num_shards, dtype=np.int64)
     lib.wk_shard_partition(_ptr(signs, _u64p), n, num_shards, _ptr(pos, _i64p), _ptr(counts, _i64p))
     return pos, counts
+
+
+def build_sid_matrix(id_arrays, prefixes: np.ndarray, prefix_bit: int, out: np.ndarray) -> bool:
+    """Fill ``out`` (S, B) uint64 with each slot's prefixed signs in one
+    call (the cache tier's single-id path): ``id_arrays`` are S contiguous
+    (B,) uint64 arrays, ``prefixes`` (S,). False if the native core is
+    unavailable (the caller prefixes in numpy)."""
+    lib = _load_lib()
+    if lib is None:
+        return False
+    S, B = out.shape
+    # the native call trusts raw pointers: reject what numpy would
+    if len(id_arrays) != S:
+        raise ValueError(f"expected {S} id arrays, got {len(id_arrays)}")
+    for a in id_arrays:
+        if a.dtype != np.uint64 or a.size < B or not a.flags.c_contiguous:
+            raise ValueError("id arrays must be contiguous uint64 of at least B ids")
+    if out.dtype != np.uint64 or not out.flags.c_contiguous:
+        raise ValueError("out must be a contiguous uint64 (S, B) array")
+    ptrs = (ctypes.c_void_p * S)(*[a.ctypes.data for a in id_arrays])
+    prefixes = np.ascontiguousarray(prefixes, dtype=np.uint64)
+    lib.wk_build_sid_matrix(ptrs, _ptr(prefixes, _u64p), S, B, prefix_bit, _ptr(out, _u64p))
+    return True

@@ -255,6 +255,75 @@ class EmbeddingStore:
             self.update_gradients(ks, grads[off:off + size].reshape(len(ks), d), int(opt_groups[g]))
             off += size
 
+    # ---------------------------------------------- the cache tier's entries
+
+    def _check_optimizer(self) -> None:
+        # a store that lost its optimizer must not hand the cache tier
+        # entries without their state (the width would be wrong)
+        if self.optimizer is None:
+            raise RuntimeError("no optimizer registered")
+
+    def checkout_entries(self, signs: np.ndarray, dim: int) -> np.ndarray:
+        """``(n, dim + state_dim)`` whole entries ``[emb | optimizer
+        state]``, LRU-touched. A miss is admitted whatever the admit gate
+        (the cache tier owns admission) with ``lookup``'s seeded init; an
+        entry of another width re-inits."""
+        self._check_optimizer()
+        signs = np.asarray(signs, dtype=np.uint64)
+        entry_len = dim + self._state_dim(dim)
+        out = np.empty((len(signs), entry_len), dtype=np.float32)
+        with self._lock:
+            for i, (s, k) in enumerate(zip(signs.tolist(), self._shard_indices(signs))):
+                shard = self._shards[k]
+                entry = shard.get_refresh(s)
+                if entry is not None and entry[0] == dim and len(entry[1]) == entry_len:
+                    out[i] = entry[1]
+                    continue
+                vec = np.empty(entry_len, dtype=np.float32)
+                vec[:dim] = init_for_signs(np.array([s], dtype=np.uint64), self.seed, dim,
+                                           self.hyperparams.resolved_init_method())[0]
+                vec[dim:] = self.optimizer.init_state(dim)
+                shard.insert(s, dim, vec)
+                out[i] = vec
+        return out
+
+    def probe_entries(self, signs: np.ndarray, dim: int) -> Tuple[np.ndarray, np.ndarray]:
+        """The cache tier's warm/cold split: ``(warm (n,) bool, vals (n, dim
+        + state_dim))``. A sign present at this width is warm: its whole
+        entry, LRU-touched; any other is cold (zeros) and is not admitted,
+        the cache owning it until its write-back."""
+        self._check_optimizer()
+        signs = np.asarray(signs, dtype=np.uint64)
+        entry_len = dim + self._state_dim(dim)
+        warm = np.zeros(len(signs), dtype=bool)
+        vals = np.zeros((len(signs), entry_len), dtype=np.float32)
+        with self._lock:
+            for i, (s, k) in enumerate(zip(signs.tolist(), self._shard_indices(signs))):
+                entry = self._shards[k].get_refresh(s)
+                if entry is not None and entry[0] == dim and len(entry[1]) == entry_len:
+                    warm[i] = True
+                    vals[i] = entry[1]
+        return warm, vals
+
+    def set_embedding(self, signs: np.ndarray, values: np.ndarray, dim: Optional[int] = None) -> None:
+        """Insert or overwrite whole entries ``[emb | state]`` (``values`` is
+        (n, entry width)), each the most recently used; ``dim`` is the
+        embedding width (default: all)."""
+        signs = np.asarray(signs, dtype=np.uint64)
+        values = np.asarray(values, dtype=np.float32)
+        dim = values.shape[1] if dim is None else dim
+        with self._lock:
+            for i, (s, k) in enumerate(zip(signs.tolist(), self._shard_indices(signs))):
+                self._shards[k].insert(s, dim, values[i].copy())
+
+    def get_entry_dim(self, sign: int) -> Optional[int]:
+        """The embedding width of the sign's entry (no LRU touch), or None."""
+        sign = int(sign)
+        with self._lock:
+            k = self._shard_indices(np.array([sign], dtype=np.uint64))[0]
+            e = self._shards[k].entries.get(sign)
+            return None if e is None else e[0]
+
     def get_embedding_entry(self, sign: int) -> Optional[np.ndarray]:
         """The sign's whole entry ``[emb | optimizer state]`` (no LRU touch),
         or None."""

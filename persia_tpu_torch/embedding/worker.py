@@ -235,6 +235,80 @@ class ShardedLookup:
             ])
             self._update_replica(r, all_keys[pos], sub_ofs, dims, flat, opt_groups, journal_id)
 
+    # the cache tier's calls: one dim, each sign to its replica as in
+    # lookup_groups
+
+    def lookup(self, keys: np.ndarray, dim: int, train: bool) -> np.ndarray:
+        """``(len(keys), dim)`` rows, each key from its replica."""
+        keys = np.asarray(keys, dtype=np.uint64)
+        n = len(self.replicas)
+        if n == 1:
+            return self.replicas[0].lookup(keys, dim, train)
+        out = np.zeros((len(keys), dim), dtype=np.float32)
+        for r, pos in _partition_positions(keys, n):
+            out[pos] = self.replicas[r].lookup(keys[pos], dim, train)
+        return out
+
+    def checkout_entries(self, signs: np.ndarray, dim: int) -> np.ndarray:
+        """Whole entries ``[emb | optimizer state]`` (n, dim + state_dim),
+        misses admitted (the replicas' ``checkout_entries``)."""
+        signs = np.asarray(signs, dtype=np.uint64)
+        n = len(self.replicas)
+        if n == 1:
+            return self.replicas[0].checkout_entries(signs, dim)
+        out = None
+        for r, pos in _partition_positions(signs, n):
+            vals = self.replicas[r].checkout_entries(signs[pos], dim)
+            if out is None:
+                out = np.empty((len(signs), vals.shape[1]), np.float32)
+            out[pos] = vals
+        return np.empty((0, dim), np.float32) if out is None else out
+
+    def probe_entries(self, signs: np.ndarray, dim: int, vals_out: Optional[np.ndarray] = None,
+                      warm_out: Optional[np.ndarray] = None):
+        """The warm/cold split, admitting nothing: ``(warm (n,) bool, vals
+        (n, dim + state_dim))``, the cold rows' values unspecified.
+        ``vals_out`` / ``warm_out`` (a 1-byte dtype), when given, are
+        filled in place (at least n rows) and returned."""
+        signs = np.asarray(signs, dtype=np.uint64)
+        n_signs = len(signs)
+        n = len(self.replicas)
+        if n == 1 and getattr(self.replicas[0], "supports_probe_out", False):
+            return self.replicas[0].probe_entries(signs, dim, vals_out=vals_out, warm_out=warm_out)
+        parts = ([(0, np.arange(n_signs))] if n == 1 else _partition_positions(signs, n))
+        warm = np.zeros(n_signs, dtype=bool)
+        vals = vals_out
+        for r, pos in parts:
+            w, v = self.replicas[r].probe_entries(signs[pos], dim)
+            if vals is None:
+                vals = np.zeros((n_signs, v.shape[1]), np.float32)
+            warm[pos] = w
+            vals[pos] = v
+        if vals is None:
+            vals = np.zeros((0, dim), np.float32)
+        if warm_out is not None:
+            warm_out[:n_signs] = warm
+            return warm_out[:n_signs].view(np.bool_), vals
+        return warm, vals
+
+    def set_embedding(self, signs: np.ndarray, values: np.ndarray, dim: Optional[int] = None,
+                      commit_incremental: bool = False) -> None:
+        """Insert or overwrite whole entries ``[emb | state]``, each on its
+        replica. ``commit_incremental`` marks them as training updates for
+        an incremental-update manager, as the reference's does (the cache
+        tier's write-backs pass True); the port has no such manager yet,
+        so the flag reaches nothing, as in a reference store with none
+        attached."""
+        del commit_incremental
+        signs = np.asarray(signs, dtype=np.uint64)
+        values = np.asarray(values, dtype=np.float32)
+        n = len(self.replicas)
+        if n == 1:
+            self.replicas[0].set_embedding(signs, values, dim)
+            return
+        for r, pos in _partition_positions(signs, n):
+            self.replicas[r].set_embedding(signs[pos], values[pos], dim)
+
     def advance_batch_state(self, group: int) -> None:
         """Advance ``group``'s Adam beta powers on every replica, counted in
         ``batch_advances``."""

@@ -1,0 +1,648 @@
+// persia_tpu_torch's native HBM-cache directory: the port's own copy of
+// the reference's directory (native/cache.cpp), trimmed to what the cache
+// tier's synchronous path calls. Built with g++ at first use by
+// persia_tpu_torch/embedding/hbm_cache/directory.py.
+//
+// Host-side bookkeeping for the write-back cache of embedding rows on the
+// card: a fixed-capacity LRU map from embedding sign -> cache row. The card
+// holds the rows ([emb | optimizer state]); this directory decides, per
+// batch, which signs hit, which miss (and which row each miss takes), and
+// which resident signs are evicted to make room (their rows are read back
+// from the card and written to the parameter server: the write-back).
+//
+//   - the Cache: row index == slab slot, an intrusive doubly-linked LRU, an
+//     open-addressing hash with backward-shift deletion, a 1-byte tag per
+//     slot for the 8-at-a-time probe (cache_set_probe_mode: 0 scalar, 1 the
+//     tag walk; the same results either way), and touch-gated admission;
+//   - cache_admit (deduplicated signs) and cache_admit_positions (a raw
+//     position-level stream, deduplicated here), cache_probe (read-only),
+//     cache_snapshot and cache_drain (LRU order, most recent first);
+//   - the seeded cold-row init, bit for bit the parameter server's
+//     (cache_uniform_init, cache_init_rows).
+//
+// The pending-write-back map, the access sketch and the sharded directory
+// of the reference are not part of this copy.
+//
+// C ABI only (ctypes-friendly); no Python headers needed.
+
+#include <algorithm>
+#include <cmath>
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+#include <vector>
+
+namespace {
+
+inline uint64_t splitmix64(uint64_t x) {
+  x += 0x9E3779B97F4A7C15ULL;
+  x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ULL;
+  x = (x ^ (x >> 27)) * 0x94D049BB133111EBULL;
+  return x ^ (x >> 31);
+}
+
+// SWAR helpers for the 8-at-a-time tag probe: broadcast one byte across a
+// u64 lane group, and mark (with 0x80 in that byte) every zero byte of v.
+// The haszero trick only borrows INTO a byte when that byte is zero, so the
+// markers are exact for our operands (tags are never 0x01..0x7F: a live tag
+// always has its 0x80 occupancy bit set, an empty tag is 0x00).
+inline uint64_t swar_bcast8(uint8_t b) {
+  return (uint64_t)b * 0x0101010101010101ULL;
+}
+inline uint64_t swar_zero_bytes(uint64_t v) {
+  return (v - 0x0101010101010101ULL) & ~v & 0x8080808080808080ULL;
+}
+
+// PERSIA_FEED_PROBE=scalar forces the legacy one-slot-at-a-time probe
+// (golden reference); anything else (default) selects the SIMD tag-array
+// walk. Read once per process — per-handle overrides ride the
+// cache_set_probe_mode exports.
+inline int default_probe_mode() {
+  static const int mode = [] {
+    const char* e = std::getenv("PERSIA_FEED_PROBE");
+    return (e != nullptr && std::strcmp(e, "scalar") == 0) ? 0 : 1;
+  }();
+  return mode;
+}
+
+struct Cache {
+  int64_t capacity = 0;
+  int64_t count = 0;
+  // per-row metadata (row index == slab slot); prev/next interleaved in one
+  // 16-byte node so an LRU unlink touches one cache line, not two
+  std::vector<uint64_t> row_sign;
+  struct Link { int64_t prev, next; };
+  std::vector<Link> lru;
+  int64_t lru_head = -1, lru_tail = -1;
+  std::vector<int64_t> free_rows;
+  // open addressing sign -> row, sign and row interleaved in one 16-byte
+  // bucket so a probe costs ONE cache-line fetch (this directory is
+  // memory-latency-bound: the table spans tens of MB at production
+  // capacities and every probe is a random access)
+  struct Slot { uint64_t sign; int64_t row; };  // row -1 = empty
+  std::vector<Slot> table;
+  uint64_t mask = 0;
+  // SIMD probe layout: a 1-byte tag per table slot, kept in a
+  // separate dense array so one cache-line fetch covers 64 probe positions
+  // instead of 4. tag = 0x80 | top-7-bits of splitmix64(sign) (the home
+  // slot uses the LOW bits, so tag and placement are independent); 0x00 =
+  // empty. The probe loads 8 tags as one u64 and resolves match/empty
+  // lanes with SWAR compares; only tag-matching lanes touch the 16-byte
+  // payload table. Tags are maintained on EVERY mutation regardless of
+  // probe_mode, so the mode can flip at any time and both probes always
+  // see a coherent layout. The 8 bytes past the end mirror tags[0..8) so
+  // a group load starting near the top wraps without a branch.
+  std::vector<uint8_t> tags;
+  // 0 = scalar probe (golden reference), 1 = SIMD tag walk. Same results bit-for-bit by
+  // construction: linear probing's result depends only on slot contents,
+  // never on how many slots a step inspects at once.
+  int probe_mode = default_probe_mode();
+  // touch-gated admission (the reference's admit_probability analogue,
+  // persia-embedding-config HyperParameters): a sign is only ADMITTED on
+  // its admit_touches'th distinct-batch touch; earlier touches map to the
+  // pad row (forward contributes zero, gradient dropped — exactly the
+  // reference's non-admitted-sign semantics). Counters live in a compact
+  // counting-Bloom byte table (hash-indexed, no sign storage): collisions
+  // can only admit EARLY, never block admission. Slashes steady-state
+  // eviction write-backs under zipf traffic (one-hit wonders never enter).
+  int64_t admit_touches = 1;  // 1 = admit on first touch (exact parity)
+  std::vector<uint8_t> touch_counts;
+  uint64_t touch_mask = 0;
+
+  explicit Cache(int64_t cap) : capacity(cap) {
+    row_sign.assign(cap, 0);
+    lru.assign(cap, Link{-1, -1});
+    free_rows.reserve(cap);
+    for (int64_t r = cap - 1; r >= 0; --r) free_rows.push_back(r);
+    uint64_t tsize = 16;
+    while (tsize < (uint64_t)cap * 2) tsize <<= 1;
+    table.assign(tsize, Slot{0, -1});
+    tags.assign(tsize + 8, 0);  // +8: wraparound mirror of tags[0..8)
+    mask = tsize - 1;
+  }
+
+  void ensure_touch_table() {
+    if (touch_counts.empty()) {
+      uint64_t tsize = 16;
+      while (tsize < (uint64_t)capacity * 4) tsize <<= 1;
+      touch_counts.assign(tsize, 0);
+      touch_mask = tsize - 1;
+    }
+  }
+
+  inline uint64_t touch_idx(uint64_t sign) const {
+    return splitmix64(sign ^ 0x5851F42D4C957F2DULL) & touch_mask;
+  }
+
+  // true -> admit now; false -> bypass this batch (counter bumped)
+  inline bool touch_admits(uint64_t sign) {
+    if (admit_touches <= 1) return true;
+    uint8_t& c = touch_counts[touch_idx(sign)];
+    if (c + 1 >= admit_touches) { c = 0; return true; }
+    ++c;
+    return false;
+  }
+
+  inline uint64_t home(uint64_t sign) const { return splitmix64(sign) & mask; }
+
+  static inline uint8_t tag_of_hash(uint64_t h) {
+    return (uint8_t)(0x80u | (uint32_t)(h >> 57));
+  }
+
+  // every tag write goes through here so the wrap mirror stays coherent
+  inline void tag_set(uint64_t i, uint8_t v) {
+    tags[i] = v;
+    if (i < 8) tags[mask + 1 + i] = v;
+  }
+
+  int64_t find_pos_scalar(uint64_t sign) const {
+    uint64_t i = home(sign);
+    while (table[i].row >= 0) {
+      if (table[i].sign == sign) return (int64_t)i;
+      i = (i + 1) & mask;
+    }
+    return -1;
+  }
+
+  // SIMD tag walk with a precomputed sign hash: scan 8 tags per u64 load,
+  // resolve candidate lanes in probe order, stop at the first empty lane.
+  // Returns exactly what find_pos_scalar returns: linear probing's answer
+  // ("the slot holding `sign` before the first empty slot from home") is a
+  // property of the table contents alone, so inspecting 8 slots at a time
+  // cannot change it — the lane mask discards candidates past the first
+  // empty lane, and a tag hit (7-bit, ~1/128 false-positive rate) is
+  // confirmed against the payload sign before it counts.
+  int64_t find_pos_simd_h(uint64_t sign, uint64_t h) const {
+    // home fast path: at the table's <=50% load factor most chains are one
+    // slot long, and the home payload line is already prefetched by the
+    // probe-wave stage — answer chain-length-1 probes with the SAME single
+    // load the scalar walk pays, without touching the tag array's line
+    const uint64_t home_p = h & mask;
+    const Slot& s0 = table[home_p];
+    if (s0.row < 0) return -1;
+    if (s0.sign == sign) return (int64_t)home_p;
+    const uint64_t target = swar_bcast8(tag_of_hash(h));
+    uint64_t i = (home_p + 1) & mask;
+    for (uint64_t probed = 0; probed <= mask; probed += 8) {
+      uint64_t g;
+      std::memcpy(&g, &tags[i], 8);  // mirror bytes make the top wrap safe
+      uint64_t match = swar_zero_bytes(g ^ target);
+      const uint64_t empty = swar_zero_bytes(g);
+      if (empty) {
+        // lanes at or past the first empty slot are beyond the probe
+        // chain's end — a match there belongs to some other home's chain
+        const int first_empty_lane = __builtin_ctzll(empty) >> 3;
+        match &= ((uint64_t)1 << (8 * first_empty_lane)) - 1;
+      }
+      while (match) {
+        const uint64_t p = (i + (uint64_t)(__builtin_ctzll(match) >> 3)) & mask;
+        if (table[p].sign == sign) return (int64_t)p;
+        match &= match - 1;  // clear this lane's 0x80 marker
+      }
+      if (empty) return -1;
+      i = (i + 8) & mask;
+    }
+    return -1;
+  }
+
+  int64_t find_pos(uint64_t sign) const {
+    return probe_mode ? find_pos_simd_h(sign, splitmix64(sign))
+                      : find_pos_scalar(sign);
+  }
+
+  void lru_unlink(int64_t r) {
+    const Link l = lru[r];
+    if (l.prev >= 0) lru[l.prev].next = l.next; else lru_head = l.next;
+    if (l.next >= 0) lru[l.next].prev = l.prev; else lru_tail = l.prev;
+    lru[r] = Link{-1, -1};
+  }
+
+  void lru_push_front(int64_t r) {
+    lru[r] = Link{-1, lru_head};
+    if (lru_head >= 0) lru[lru_head].prev = r;
+    lru_head = r;
+    if (lru_tail < 0) lru_tail = r;
+  }
+
+  void touch(int64_t r) {
+    if (lru_head == r) return;
+    lru_unlink(r);
+    lru_push_front(r);
+  }
+
+  void erase_table_pos(uint64_t i) {
+    uint64_t j = i;
+    for (;;) {
+      table[i].row = -1;
+      tag_set(i, 0);
+      uint64_t k;
+      for (;;) {
+        j = (j + 1) & mask;
+        if (table[j].row < 0) return;
+        k = home(table[j].sign);
+        bool home_in_range = (i <= j) ? (i < k && k <= j) : (i < k || k <= j);
+        if (!home_in_range) break;
+      }
+      table[i] = table[j];
+      tag_set(i, tags[j]);
+      i = j;
+    }
+  }
+
+  // evict the LRU row; returns (row) and writes its sign to *sign_out
+  int64_t evict_lru(uint64_t* sign_out) {
+    const int64_t r = lru_tail;
+    *sign_out = row_sign[r];
+    const int64_t pos = find_pos(row_sign[r]);
+    if (pos >= 0) erase_table_pos((uint64_t)pos);
+    lru_unlink(r);
+    --count;
+    return r;
+  }
+
+  int64_t insert(uint64_t sign) {  // caller guarantees a free row exists
+    const int64_t r = free_rows.back();
+    free_rows.pop_back();
+    row_sign[r] = sign;
+    const uint64_t h = splitmix64(sign);
+    uint64_t i = h & mask;
+    while (table[i].row >= 0) i = (i + 1) & mask;
+    table[i] = Slot{sign, r};
+    tag_set(i, tag_of_hash(h));
+    lru_push_front(r);
+    ++count;
+    return r;
+  }
+
+  // full reset (the drain paths): empty table + tags + LRU + free list
+  void reset_directory() {
+    std::fill(table.begin(), table.end(), Slot{0, -1});
+    std::fill(tags.begin(), tags.end(), 0);
+    std::fill(lru.begin(), lru.end(), Link{-1, -1});
+    lru_head = lru_tail = -1;
+    count = 0;
+    free_rows.clear();
+    for (int64_t r = capacity - 1; r >= 0; --r) free_rows.push_back(r);
+  }
+
+  // batch-local scratch for cache_admit_positions (reused across calls):
+  // 16-byte bucket = sign + (epoch<<32 | int32 val), so a probe costs one
+  // cache-line fetch and there is NO per-call table clear (the clear cost
+  // a multi-MB memset every batch) — a bucket is live only when its u32
+  // epoch stamp matches the current call (wrap needs 2^32 calls)
+  struct ScratchSlot { uint64_t sign; uint64_t packed; };
+  std::vector<ScratchSlot> scratch;
+  uint64_t scratch_mask = 0;
+  uint64_t scratch_epoch = 0;
+
+  void scratch_reserve(int64_t n) {
+    uint64_t want = 16;
+    while (want < (uint64_t)n * 2) want <<= 1;
+    if (want > scratch.size()) {
+      scratch.assign(want, ScratchSlot{0, 0});
+      scratch_mask = want - 1;
+      scratch_epoch = 0;
+    }
+    ++scratch_epoch;
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+void* cache_create(int64_t capacity) { return new Cache(capacity); }
+
+void cache_destroy(void* h) { delete static_cast<Cache*>(h); }
+
+int64_t cache_len(void* h) { return static_cast<Cache*>(h)->count; }
+
+int64_t cache_capacity(void* h) { return static_cast<Cache*>(h)->capacity; }
+
+// Admit a batch of DEDUPLICATED signs. Two passes:
+//   pass 1: every resident sign is LRU-touched (so no member of THIS batch
+//           can be chosen as an eviction victim in pass 2 — a victim evicted
+//           and re-missed in the same batch would check stale data out of
+//           the PS while its fresh row is still riding the step's
+//           write-back output);
+//   pass 2: each miss evicts the LRU row if full, takes a row, and is
+//           recorded in miss_idx_out; evictions are reported in
+//           evict_*_out (evicted row == the reused row).
+// All output arrays sized n by the caller. Returns n_miss (or -1 if
+// n > capacity, which would force a batch member to evict another);
+// *n_evict_out is the eviction count (n_evict <= n_miss). Signs must be
+// distinct within one call (duplicates would double-admit).
+int64_t cache_admit(void* h, const uint64_t* signs, int64_t n,
+                    int64_t* rows_out, int64_t* miss_idx_out,
+                    uint64_t* evict_signs_out, int64_t* evict_rows_out,
+                    int64_t* n_evict_out) {
+  Cache& c = *static_cast<Cache*>(h);
+  *n_evict_out = 0;
+  if (n > c.capacity) return -1;
+  int64_t n_miss = 0, n_evict = 0;
+  const int64_t PF = 16;  // software prefetch distance (latency-bound probes)
+  for (int64_t i = 0; i < n; ++i) {
+    if (i + PF < n) {
+      const uint64_t hp = c.home(signs[i + PF]);
+      __builtin_prefetch(&c.tags[hp]);
+      __builtin_prefetch(&c.table[hp]);
+    }
+    const int64_t pos = c.find_pos(signs[i]);
+    if (pos >= 0) {
+      const int64_t r = c.table[pos].row;
+      c.touch(r);
+      rows_out[i] = r;
+    } else if (!c.touch_admits(signs[i])) {
+      rows_out[i] = c.capacity;  // bypass: pad row — zero fwd, grad dropped
+    } else {
+      rows_out[i] = -1;
+      miss_idx_out[n_miss++] = i;
+    }
+  }
+  for (int64_t m = 0; m < n_miss; ++m) {
+    const int64_t i = miss_idx_out[m];
+    if (c.count >= c.capacity) {
+      uint64_t ev_sign;
+      const int64_t ev_row = c.evict_lru(&ev_sign);
+      evict_signs_out[n_evict] = ev_sign;
+      evict_rows_out[n_evict] = ev_row;
+      ++n_evict;
+      c.free_rows.push_back(ev_row);
+    }
+    rows_out[i] = c.insert(signs[i]);
+  }
+  *n_evict_out = n_evict;
+  return n_miss;
+}
+
+// Positions-level admit: like cache_admit but over a RAW (duplicated) sign
+// stream — e.g. the concatenated (slot, batch) single-id matrix — with the
+// dedup done here. One call replaces the per-slot dedup + cross-slot dedup +
+// admit + per-position row LUT the Python tier used to run (the 1-core
+// feeder's dominant prepare cost). Outputs:
+//   rows_out[i]        (n,)  int32 cache row of position i
+//   miss_signs_out     (<=n) first-seen-order distinct missing signs
+//   miss_rows_out      (<=n) the row each miss was assigned
+//   evict_*_out        (<=n) write-back victims
+//   n_unique_out       distinct signs in the batch
+//   n_evict_out        eviction count
+// Returns n_miss, or -1 if the batch's distinct count exceeds capacity
+// (outputs are then undefined; no rows were admitted or evicted, though
+// resident signs seen before the overflow was detected keep their LRU
+// touch — harmless, the caller raises).
+int64_t cache_admit_positions(void* h, const uint64_t* signs, int64_t n,
+                              int32_t* rows_out,
+                              uint64_t* miss_signs_out, int64_t* miss_rows_out,
+                              uint64_t* evict_signs_out, int64_t* evict_rows_out,
+                              int64_t* n_unique_out, int64_t* n_evict_out) {
+  Cache& c = *static_cast<Cache*>(h);
+  *n_evict_out = 0;
+  c.scratch_reserve(n);
+  // pass 1: dedup + touch residents; misses get ordinal placeholders.
+  // A scratch bucket's val holds: row (>=0, resident seen this batch — or
+  // the pad row c.capacity for a touch-gated bypass) or -(miss_ordinal+2)
+  // for a pending miss; a bucket is live only when its epoch stamp
+  // matches this call.
+  const uint64_t ep = c.scratch_epoch & 0xffffffffULL;
+  int64_t n_unique = 0, n_miss = 0;
+  const int64_t PF = 16;  // software prefetch distance: the scratch and
+  // main tables span tens of MB, so every probe is a DRAM-latency random
+  // access — prefetching the home buckets of signs[i+16] overlaps ~16
+  // outstanding misses and is the main single-core speedup here
+  for (int64_t i = 0; i < n; ++i) {
+    if (i + PF < n) {
+      const uint64_t hp = splitmix64(signs[i + PF]);
+      __builtin_prefetch(&c.scratch[c.scratch_mask & hp]);
+      __builtin_prefetch(&c.tags[hp & c.mask]);
+      __builtin_prefetch(&c.table[hp & c.mask]);
+    }
+    const uint64_t s = signs[i];
+    uint64_t j = c.scratch_mask & splitmix64(s);
+    int64_t v;
+    for (;;) {
+      const Cache::ScratchSlot& sl = c.scratch[j];
+      if ((sl.packed >> 32) != ep) { v = -1; break; }  // empty this batch
+      if (sl.sign == s) { v = (int32_t)(uint32_t)sl.packed; break; }
+      j = (j + 1) & c.scratch_mask;
+    }
+    if (v == -1) {  // first time this batch
+      ++n_unique;
+      const int64_t pos = c.find_pos(s);
+      if (pos >= 0) {
+        const int64_t r = c.table[pos].row;
+        c.touch(r);
+        v = r;
+      } else if (!c.touch_admits(s)) {
+        v = c.capacity;  // bypass: pad row — zero fwd, grad dropped
+      } else {
+        miss_signs_out[n_miss] = s;
+        v = -(n_miss + 2);
+        ++n_miss;
+      }
+      c.scratch[j] = Cache::ScratchSlot{s, (ep << 32) | (uint32_t)(int32_t)v};
+    }
+    rows_out[i] = (int32_t)v;  // miss placeholders fixed in pass 3
+  }
+  if (n_unique > c.capacity) {
+    // nothing admitted yet (only LRU touches happened) — safe to bail
+    return -1;
+  }
+  // pass 2: assign rows to misses (evicting LRU residents not in this batch)
+  int64_t n_evict = 0;
+  for (int64_t m = 0; m < n_miss; ++m) {
+    if (c.count >= c.capacity) {
+      uint64_t ev_sign;
+      const int64_t ev_row = c.evict_lru(&ev_sign);
+      evict_signs_out[n_evict] = ev_sign;
+      evict_rows_out[n_evict] = ev_row;
+      ++n_evict;
+      c.free_rows.push_back(ev_row);
+    }
+    miss_rows_out[m] = c.insert(miss_signs_out[m]);
+  }
+  // pass 3: resolve miss placeholders to their assigned rows
+  for (int64_t i = 0; i < n; ++i) {
+    const int32_t v = rows_out[i];
+    if (v < 0) rows_out[i] = (int32_t)miss_rows_out[-(int64_t)v - 2];
+  }
+  *n_unique_out = n_unique;
+  *n_evict_out = n_evict;
+  return n_miss;
+}
+
+// Read-only probe (no admit, no LRU touch): rows_out[i] = row or -1.
+void cache_probe(void* h, const uint64_t* signs, int64_t n, int64_t* rows_out) {
+  Cache& c = *static_cast<Cache*>(h);
+  for (int64_t i = 0; i < n; ++i) {
+    if (i + 16 < n) {
+      const uint64_t hp = c.home(signs[i + 16]);
+      __builtin_prefetch(&c.tags[hp]);
+      __builtin_prefetch(&c.table[hp]);
+    }
+    const int64_t pos = c.find_pos(signs[i]);
+    rows_out[i] = pos >= 0 ? c.table[pos].row : -1;
+  }
+}
+
+// Touch-gated admission knob (the reference's admit_probability analogue):
+// a non-resident sign is admitted only on its t'th distinct-batch touch;
+// earlier touches map to the pad row (zero forward, dropped gradient —
+// the reference's non-admitted-sign semantics). t=1 restores exact
+// admit-on-first-touch behavior.
+void cache_set_admit_touches(void* h, int64_t t) {
+  Cache& c = *static_cast<Cache*>(h);
+  // counters are uint8: clamp to 255 so a huge threshold degrades to
+  // "admit on the 255th touch" instead of wrapping and never admitting
+  c.admit_touches = t < 1 ? 1 : (t > 255 ? 255 : t);
+  if (c.admit_touches > 1) c.ensure_touch_table();
+}
+
+// Probe implementation switch: 0 = scalar (golden reference), nonzero =
+// SIMD tag walk. Tags are maintained under both modes, so switching is
+// always safe and results are bit-identical either way
+// (tests/test_torch_hbm_cache.py runs both).
+void cache_set_probe_mode(void* h, int64_t mode) {
+  static_cast<Cache*>(h)->probe_mode = mode ? 1 : 0;
+}
+
+int64_t cache_probe_mode(void* h) {
+  return static_cast<Cache*>(h)->probe_mode;
+}
+
+// Non-destructive listing of every resident (sign, row) pair in LRU order
+// (MRU first): the serving-freshness publish path reads resident rows
+// without disturbing the directory.
+int64_t cache_snapshot(void* h, uint64_t* signs_out, int64_t* rows_out) {
+  Cache& c = *static_cast<Cache*>(h);
+  int64_t k = 0;
+  for (int64_t r = c.lru_head; r >= 0; r = c.lru[r].next) {
+    signs_out[k] = c.row_sign[r];
+    rows_out[k] = r;
+    ++k;
+  }
+  return k;
+}
+
+// Drain every resident entry (for flush-all at checkpoint/eval boundaries):
+// writes all (sign, row) pairs in LRU order (MRU first) and empties the
+// directory. Returns the number drained.
+int64_t cache_drain(void* h, uint64_t* signs_out, int64_t* rows_out) {
+  Cache& c = *static_cast<Cache*>(h);
+  int64_t k = 0;
+  for (int64_t r = c.lru_head; r >= 0; r = c.lru[r].next) {
+    signs_out[k] = c.row_sign[r];
+    rows_out[k] = r;
+    ++k;
+  }
+  c.reset_directory();
+  return k;
+}
+
+// Seeded per-sign uniform embedding init, bit-identical to the Python
+// golden model (persia_tpu_torch/embedding/hashing.py uniform_init_for_signs:
+// counter-mode splitmix64, top-53-bit mantissa, f64 affine then f32 cast).
+// The cached tier inits every cold miss per step; doing it here keeps the
+// single-core feeder off numpy's temporaries.
+void cache_uniform_init(const uint64_t* signs, int64_t m, int64_t dim,
+                        uint64_t seed, double lo, double hi, float* out) {
+  const double kScale = 1.0 / 9007199254740992.0;  // 2^-53
+  const double span = hi - lo;
+  for (int64_t i = 0; i < m; ++i) {
+    const uint64_t base = splitmix64(signs[i] ^ seed);
+    float* row = out + i * dim;
+    for (int64_t j = 0; j < dim; ++j) {
+      const uint64_t s = splitmix64(base + (uint64_t)j);
+      row[j] = (float)(lo + (double)(s >> 11) * kScale * span);
+    }
+  }
+}
+
+// Non-uniform seeded init for cached-tier cold misses. The algorithms are a
+// verbatim mirror of persia_tpu_torch/native/ps.cpp Store::{normal,poisson,
+// gamma}_from (each .cpp is a standalone translation unit, one source per
+// .so, so the samplers are duplicated; tests/test_torch_hbm_cache.py holds
+// these rows bit for bit to the reference's and to the port's numpy init).
+namespace initk {
+
+constexpr double kToUnit = 1.0 / 9007199254740992.0;  // 2^-53
+constexpr double kTwoPi = 6.283185307179586;
+
+struct SubStream {
+  uint64_t b;
+  uint64_t j = 0;
+  SubStream(uint64_t base, uint64_t i) : b(splitmix64(base + i)) {}
+  double next() { return (double)(splitmix64(b + 1 + j++) >> 11) * kToUnit; }
+};
+
+inline double normal_from(SubStream& st, double mean, double std_) {
+  double u1 = st.next();
+  if (u1 < kToUnit) u1 = kToUnit;
+  double u2 = st.next();
+  return mean + std_ * (std::sqrt(-2.0 * std::log(u1)) * std::cos(kTwoPi * u2));
+}
+
+inline double poisson_from(SubStream& st, double lam) {
+  if (lam <= 0.0) return 0.0;
+  double big_l = std::exp(-lam);
+  int k = 0;
+  double p = 1.0;
+  while (k < 4096) {
+    ++k;
+    p *= st.next();
+    if (!(p > big_l)) break;
+  }
+  return (double)(k - 1);
+}
+
+inline double gamma_from(SubStream& st, double shape, double scale) {
+  if (shape <= 0.0) return 0.0;
+  double boost = 1.0, k = shape;
+  if (k < 1.0) {
+    double u = st.next();
+    if (u < kToUnit) u = kToUnit;
+    boost = std::pow(u, 1.0 / k);
+    k += 1.0;
+  }
+  double d = k - 1.0 / 3.0;
+  double c = 1.0 / (3.0 * std::sqrt(d));
+  for (int it = 0; it < 1024; ++it) {
+    double x = normal_from(st, 0.0, 1.0);
+    double v = 1.0 + c * x;
+    if (v <= 0.0) continue;
+    v = v * v * v;
+    double u = st.next();
+    if (u < 1.0 - 0.0331 * x * x * x * x) return boost * d * v * scale;
+    double lu = std::log(u < kToUnit ? kToUnit : u);
+    if (lu < 0.5 * x * x + d * (1.0 - v + std::log(v)))
+      return boost * d * v * scale;
+  }
+  return boost * d * scale;
+}
+
+}  // namespace initk
+
+// kind codes: 0=uniform 1=gamma 2=poisson 3=normal 4=inverse_sqrt
+// (config.py INIT_KIND_CODES)
+void cache_init_rows(const uint64_t* signs, int64_t m, int64_t dim,
+                     uint64_t seed, int kind, double p0, double p1,
+                     float* out) {
+  if (kind == 0) return cache_uniform_init(signs, m, dim, seed, p0, p1, out);
+  if (kind == 4) {
+    double b = 1.0 / std::sqrt((double)dim);
+    return cache_uniform_init(signs, m, dim, seed, -b, b, out);
+  }
+  for (int64_t i = 0; i < m; ++i) {
+    const uint64_t base = splitmix64(signs[i] ^ seed);
+    float* row = out + i * dim;
+    for (int64_t j = 0; j < dim; ++j) {
+      initk::SubStream st(base, (uint64_t)j);
+      double v = 0.0;
+      if (kind == 3) v = initk::normal_from(st, p0, p1);
+      else if (kind == 2) v = initk::poisson_from(st, p0);
+      else if (kind == 1) v = initk::gamma_from(st, p0, p1);
+      row[j] = (float)v;
+    }
+  }
+}
+
+}  // extern "C"

@@ -29,8 +29,11 @@
 // and everything integer (entries present, eviction, misses) exactly.
 // Parity: tests/test_torch_native_store.py.
 //
-// Range export and delete, the non-finite scrub, checkout and probe are
-// not part of this copy.
+//   - the cache tier's entry reads: a full-entry checkout (admitting
+//     misses), a warm/cold probe (admitting nothing) and an entry's dim.
+//
+// Range export and delete and the non-finite scrub are not part of this
+// copy.
 //
 // C ABI only (ctypes-friendly); no Python headers needed.
 
@@ -719,6 +722,75 @@ void ps_lookup(void* h, const uint64_t* signs, int64_t n, uint32_t dim, int trai
   ps_lookup_batched(h, signs, key_ofs, &dim, out_ofs, 1, train, out);
 }
 
+// Batched full-entry checkout for the HBM cache tier
+// (persia_tpu_torch/embedding/hbm_cache): like a train lookup, but copies the
+// whole [emb | optimizer state] row so the device-side sparse optimizer
+// continues from the PS's accumulated state. Misses are admitted
+// unconditionally (the cache tier owns admission; write-back re-inserts on
+// eviction either way) with the same seeded init as ps_lookup. Entries with
+// a mismatched dim are re-initialized, matching lookup. `out` is
+// (n, dim + state_dim) row-major. Returns the entry length.
+int64_t ps_checkout(void* h, const uint64_t* signs, int64_t n, uint32_t dim,
+                    float* out) {
+  Store* s = (Store*)h;
+  const uint32_t entry_len = dim + s->opt.state_dim(dim);
+  walk_rows_by_shard(
+      s, signs, n,
+      [&](Shard& sh, int64_t, int32_t e) {
+        if (e >= 0 && sh.entries[e].dim == dim && sh.entries[e].len == entry_len) {
+          prefetch_row(sh.entries[e].data, entry_len);
+          return RowAction::kDefer;
+        }
+        return RowAction::kMutate;
+      },
+      [&](Shard& sh, int64_t i, int32_t e) {
+        sh.touch(e);
+        std::memcpy(out + (size_t)i * entry_len, sh.entries[e].data,
+                    sizeof(float) * entry_len);
+      },
+      [&](Shard& sh, int64_t i) {
+        const uint64_t sign = signs[i];
+        size_t pos = sh.find_pos(sign);
+        int32_t e = (pos == SIZE_MAX) ? -1 : sh.table_slot[pos];
+        if (e >= 0) sh.remove_entry(e);  // dim mismatch → re-init
+        int32_t ne = sh.insert(sign, dim, entry_len);
+        float* data = sh.entries[ne].data;
+        s->init_embedding(sign, dim, data);
+        s->init_state(dim, data + dim);
+        std::memcpy(out + (size_t)i * entry_len, data, sizeof(float) * entry_len);
+      });
+  return entry_len;
+}
+
+// Warm/cold split for the HBM cache tier: rows whose sign exists
+// (dim-matched) copy their full [emb | state] entry into `out` with an LRU
+// touch and set warm_out[i]=1; cold signs are NOT admitted (the cache owns
+// them until its eviction write-back re-inserts) and leave out untouched.
+// Returns the entry length.
+int64_t ps_probe_entries(void* h, const uint64_t* signs, int64_t n, uint32_t dim,
+                         float* out, uint8_t* warm_out) {
+  Store* s = (Store*)h;
+  const uint32_t entry_len = dim + s->opt.state_dim(dim);
+  walk_rows_by_shard(
+      s, signs, n,
+      [&](Shard& sh, int64_t i, int32_t e) {
+        if (e >= 0 && sh.entries[e].dim == dim && sh.entries[e].len == entry_len) {
+          prefetch_row(sh.entries[e].data, entry_len);
+          return RowAction::kDefer;
+        }
+        warm_out[i] = 0;
+        return RowAction::kDone;
+      },
+      [&](Shard& sh, int64_t i, int32_t e) {
+        sh.touch(e);
+        std::memcpy(out + (size_t)i * entry_len, sh.entries[e].data,
+                    sizeof(float) * entry_len);
+        warm_out[i] = 1;
+      },
+      [](Shard&, int64_t) {});  // probe never mutates
+  return entry_len;
+}
+
 void ps_advance_batch_state(void* h, int group) { ((Store*)h)->advance_batch_state(group); }
 
 // Multi-slot batched gradient update: ONE call per gradient batch. Group g
@@ -809,6 +881,16 @@ int32_t ps_get_entry(void* h, uint64_t sign, float* out, int32_t cap) {
   int32_t ncopy = (int32_t)en.len < cap ? (int32_t)en.len : cap;
   if (out && ncopy > 0) std::memcpy(out, en.data, sizeof(float) * ncopy);
   return (int32_t)en.len;
+}
+
+// returns the entry's embedding dim, or -1 if absent
+int32_t ps_get_entry_dim(void* h, uint64_t sign) {
+  Store* s = (Store*)h;
+  Shard& sh = s->shard_of(sign);
+  std::lock_guard<std::mutex> g(sh.mu);
+  size_t pos = sh.find_pos(sign);
+  if (pos == SIZE_MAX) return -1;
+  return (int32_t)sh.entries[sh.table_slot[pos]].dim;
 }
 
 int64_t ps_size(void* h) {

@@ -7,7 +7,9 @@
 //   - sum-pooling of host-pooled slots;
 //   - per-sign gradient accumulation on the update path;
 //   - the (B, L) index matrix of raw and device-pooled slots;
-//   - splitmix64 shard routing across parameter-server replicas.
+//   - splitmix64 shard routing across parameter-server replicas;
+//   - the cache tier's prefixed (slot, sample) sign matrix of single-id
+//     slots.
 //
 // Numeric contract with the numpy routines of
 // persia_tpu_torch/embedding/worker.py: dedup returns distinct signs in
@@ -128,6 +130,26 @@ void wk_raw_index(const int64_t* counts, const int64_t* inverse, int64_t B,
 // the member positions (into `pos_out`, grouped by shard with stable input
 // order) and per-shard counts (`count_out`, size num_shards). Saves the
 // num_shards boolean-mask passes the numpy router does.
+// The cache tier's single-id (S, B) sign matrix: out[s*B + b] =
+// (ids[s][b] & mask) | prefix[s], one call for all S slots (the per-slot
+// numpy prefix-OR and copy). prefix_bit == 0 (or a zero prefix) copies.
+void wk_build_sid_matrix(const uint64_t* const* ids, const uint64_t* prefixes,
+                         int64_t S, int64_t B, int32_t prefix_bit,
+                         uint64_t* out) {
+  const uint64_t mask =
+      prefix_bit > 0 ? ((~0ULL) >> prefix_bit) : ~0ULL;
+  for (int64_t s = 0; s < S; ++s) {
+    const uint64_t* src = ids[s];
+    uint64_t* dst = out + s * B;
+    const uint64_t p = prefixes[s];
+    if (p == 0 || prefix_bit == 0) {
+      std::memcpy(dst, src, sizeof(uint64_t) * B);
+    } else {
+      for (int64_t b = 0; b < B; ++b) dst[b] = (src[b] & mask) | p;
+    }
+  }
+}
+
 void wk_shard_partition(const uint64_t* signs, int64_t n, uint32_t num_shards,
                         int64_t* pos_out, int64_t* count_out) {
   std::vector<int64_t> shard(n);

@@ -13,7 +13,10 @@ differentiated leaves. The raw-slot path's
 ``raw_gather`` (K6, backward K7) and DIN's ``attention_pool`` (K8,
 backward K9) are differentiable too, as is DNN's ``batch_norm`` (K10
 ``batch_norm_fwd``, counted also by mode in ``launches_by_route``; backward
-K11 ``batch_norm_bwd``)."""
+K11 ``batch_norm_bwd``). The cache tier's ``cache_aux`` (K12, with
+``gather_entry_rows`` its payload read alone) and ``cached_gather`` (K13,
+whose ``PooledRows`` backward hands the step per-position gradients)
+update nothing through autograd either."""
 
 from persia_tpu_torch.ops.attention_pool import (  # noqa: F401
     attention_pool,
@@ -21,6 +24,8 @@ from persia_tpu_torch.ops.attention_pool import (  # noqa: F401
     attention_pool_fwd,
 )
 from persia_tpu_torch.ops.batch_norm import batch_norm, batch_norm_bwd, batch_norm_fwd  # noqa: F401
+from persia_tpu_torch.ops.cache_aux import cache_aux, gather_entry_rows  # noqa: F401
+from persia_tpu_torch.ops.cached_gather import cached_gather  # noqa: F401
 from persia_tpu_torch.ops.dot_interaction import dot_interaction, dot_interaction_bwd  # noqa: F401
 from persia_tpu_torch.ops.embedding_pool import (  # noqa: F401
     PoolSlot,
@@ -37,6 +42,7 @@ KERNEL_WRAPPERS = (
     dot_interaction, dot_interaction_bwd, gather_pool_fwd, gather_pool_bwd,
     flash_attention, tf32_split_planes, fused_gather, update_keys, sparse_update,
     raw_gather_fwd, raw_gather_bwd, attention_pool_fwd, attention_pool_bwd, batch_norm_fwd, batch_norm_bwd,
+    cache_aux, gather_entry_rows, cached_gather,
 )
 
 

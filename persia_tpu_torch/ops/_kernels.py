@@ -159,6 +159,12 @@ def library() -> ctypes.CDLL:
             lib.persia_batch_norm_fwd.argtypes = [vp] * 7 + [i32] * 4 + [f32] * 3 + [i32] * 5 + [vp]
             lib.persia_batch_norm_bwd.restype = i32
             lib.persia_batch_norm_bwd.argtypes = [vp] * 7 + [i32] * 9 + [vp]
+            ll = ctypes.c_longlong
+            lib.persia_cache_aux.restype = i32
+            lib.persia_cache_aux.argtypes = [vp, ll, i32, vp, i32, vp, i32, vp, i32, vp, i32, vp, i32, vp, i32,
+                                             vp, i32, vp, i32, f32, f32, vp]
+            lib.persia_cached_gather.restype = i32
+            lib.persia_cached_gather.argtypes = [vp, ll, i32, vp, ll, vp, ll, i32, vp, i32, vp, vp, vp, vp]
             _lib = lib
         return _lib
 

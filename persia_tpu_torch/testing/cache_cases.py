@@ -1,0 +1,90 @@
+"""Seeded inputs of the cache tier's kernels, K12 (``ops.cache_aux``) and
+K13 (``ops.cached_gather``), shared by the card tests and ``chip_smoke.py``:
+one step's aux pieces on a group's pool, padded as the tier pads them, and
+cache rows with pads (and eval's misses)."""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from persia_tpu_torch.embedding.hbm_cache.common import _bucket
+from persia_tpu_torch.embedding.optim import SGD, Adagrad, Adam
+from persia_tpu_torch.ops.sparse_update import init_sparse_state
+
+OPTIMIZERS = {"sgd": SGD(lr=0.1), "adagrad": Adagrad(lr=0.05), "adagrad_vw": Adagrad(lr=0.05, vectorwise_shared=True),
+              "adam": Adam(lr=0.01)}
+
+
+def _padded(rows: np.ndarray, fill: int) -> np.ndarray:
+    out = np.full(_bucket(max(len(rows), 1)), fill, np.int32)
+    out[:len(rows)] = rows
+    return out
+
+
+def aux_case(kind: str, C: int, dim: int, n_ev: int, n_warm: int, n_cold: int, reuse: bool, bf16: bool,
+             device, seed: int) -> Dict:
+    """A pool (C+1, dim) with random rows and state (row C zero) and one
+    step's pieces: ``n_ev`` evicted rows (padded with C), ``n_warm`` warm
+    entries and ``n_cold`` cold seeds (rows padded with C+1, bf16 where
+    ``bf16``); with ``reuse`` every miss takes a row evicted this step
+    (n_warm + n_cold <= n_ev), else rows nobody evicts. Empty pieces have
+    0 rows. Returns the keyword arguments of ``cache_aux`` but
+    ``wb_bf16``."""
+    cfg = OPTIMIZERS[kind].config
+    g = torch.Generator().manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    table = torch.randn((C + 1, dim), generator=g)
+    table[C] = 0
+    state = init_sparse_state(cfg, C + 1, dim)
+    for s in state.values():
+        s.copy_(torch.rand(s.shape, generator=g))
+    width = dim + sum(s.shape[1] for s in state.values())
+    perm = rng.permutation(C)
+    ev = perm[:n_ev]
+    if reuse:
+        if n_warm + n_cold > n_ev:
+            raise ValueError("reuse needs n_warm + n_cold <= n_ev")
+        miss = rng.permutation(ev)[:n_warm + n_cold]
+    else:
+        miss = perm[n_ev:n_ev + n_warm + n_cold]
+    dt = torch.bfloat16 if bf16 else torch.float32
+
+    def rows(r, fill):
+        return torch.from_numpy(_padded(r, fill) if len(r) else np.empty(0, np.int32))
+
+    m_rows, c_rows = rows(miss[:n_warm], C + 1), rows(miss[n_warm:], C + 1)
+    consts = {"sgd": (), "adagrad": (("acc", cfg.initialization),), "adagrad_vw": (("acc", cfg.initialization),),
+              "adam": (("m", 0.0), ("v", 0.0))}[kind]
+    out = dict(
+        table=table, state=state, ev_rows=rows(ev, C), m_rows=m_rows,
+        m_entries=torch.randn((m_rows.shape[0], width), generator=g).to(dt), c_rows=c_rows,
+        c_emb=torch.randn((c_rows.shape[0], dim), generator=g).to(dt), state_consts=consts,
+    )
+    return {k: (v.to(device) if torch.is_tensor(v) else
+                {kk: vv.to(device) for kk, vv in v.items()} if isinstance(v, dict) else v) for k, v in out.items()}
+
+
+def gather_case(S: int, B: int, L: int, C: int, dim: int, device, seed: int, pad_share: float = 0.25,
+                scale: bool = False, miss: int = 0, zipf: bool = False) -> Dict:
+    """A pool (C+1, dim) (row C zero) and rows (S, B, L) int32 in [0, C]
+    (zipf(1.2)-skewed where ``zipf``), ``pad_share`` of them C; with
+    ``miss`` > 0 a miss table (miss, dim) and rows up to C + miss; with
+    ``scale`` a (S, B) f32 scale."""
+    g = torch.Generator().manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    table = torch.randn((C + 1, dim), generator=g)
+    table[C] = 0
+    if zipf:
+        r = ((rng.zipf(1.2, (S, B, L)) - 1) % C).astype(np.int64)
+    else:
+        r = rng.integers(0, C + 1 + miss, (S, B, L))
+    r[rng.random((S, B, L)) < pad_share] = C
+    out = {"table": table, "rows": torch.from_numpy(r.astype(np.int32))}
+    if scale:
+        out["scale"] = (1.0 / torch.sqrt(torch.randint(1, 5, (S, B), generator=g).float()))
+    if miss:
+        out["miss_table"] = torch.randn((miss, dim), generator=g)
+    return {k: v.to(device) for k, v in out.items()}

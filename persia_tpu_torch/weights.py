@@ -171,6 +171,25 @@ def adam_state_from_optax(
     return out
 
 
+def cached_dense_from_flax(state, params: Mapping, mu: Mapping, nu: Mapping, count) -> None:
+    """Carry the reference's ``CachedTrainState`` dense leaves into the
+    port's (``persia_tpu_torch.embedding.hbm_cache.CachedTrainState``), in
+    place: ``params`` into the model, ``optax.adam``'s ``mu``, ``nu`` and
+    ``count`` into its ``torch.optim.Adam``. The tables need no carrying:
+    both tiers start them from zeros and fill them from the servers' rows,
+    seeded by sign."""
+    model = state.model
+    model.load_state_dict(state_dict_from_flax(model, params))
+    opt_state = state.optimizer.state
+    for p, st in adam_state_from_optax(model, mu, nu, count).items():
+        live = opt_state[p]
+        for k, v in st.items():
+            if k in live:
+                live[k].copy_(v)
+            else:
+                live[k] = v.to(p.device)
+
+
 def _adam_of(state):
     opt = state.optimizer
     if not isinstance(opt, torch.optim.Adam) or any(g.get("amsgrad") for g in opt.param_groups):

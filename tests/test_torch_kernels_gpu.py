@@ -1495,3 +1495,153 @@ def test_dnn_backward_on_card_reaches_the_embeddings(cuda, compute_dtype):
         for k in ("mean", "var"):
             np.testing.assert_allclose(stats["cuda"][name][k], stats["cpu"][name][k], rtol=1e-2 if compute_dtype ==
                                        torch.bfloat16 else 1e-5, atol=1e-5)
+
+
+# ------------------------------------------- the cache tier: K12 and K13
+
+
+def _cache_aux_both(case, wb_bf16):
+    """K12 on the card and its plain version on the CPU, from one case's
+    copies: (payload, table, state) of each."""
+    from persia_tpu_torch.ops.cache_aux import cache_aux, cache_aux_reference
+
+    cpu = {k: (v.cpu().clone() if torch.is_tensor(v) else
+               {kk: vv.cpu().clone() for kk, vv in v.items()} if isinstance(v, dict) else v) for k, v in case.items()}
+    before = cache_aux.launches
+    pay = cache_aux(**case, wb_bf16=wb_bf16)
+    assert cache_aux.launches == before + 1
+    ref = cache_aux_reference(**cpu, wb_bf16=wb_bf16)
+    return (pay, case["table"], case["state"]), (ref, cpu["table"], cpu["state"])
+
+
+@pytest.mark.parametrize("reuse", [False, True])
+@pytest.mark.parametrize("wires", [(False, False), (True, True), (True, False)])
+@pytest.mark.parametrize("kind", ["sgd", "adagrad", "adagrad_vw", "adam"])
+def test_cache_aux_kernel_matches_plain_bitwise(cuda, kind, wires, reuse):
+    """K12 bit for bit its plain version: the payload (f32, or bf16 ties to
+    even), the table and every state column after; with ``reuse`` every
+    miss takes a row evicted this step, so the payload must be read
+    before the writes."""
+    from persia_tpu_torch.testing.cache_cases import aux_case
+
+    aux_bf16, wb_bf16 = wires
+    case = aux_case(kind, 4096, 16, 1500, 900 if reuse else 700, 600 if reuse else 500, reuse, aux_bf16, cuda,
+                    seed=len(kind))
+    (pay, table, state), (rpay, rtable, rstate) = _cache_aux_both(case, wb_bf16)
+    assert torch.equal(_bits(pay), _bits(rpay))
+    assert torch.equal(table.cpu(), rtable)
+    for k in state:
+        assert torch.equal(state[k].cpu(), rstate[k]), k
+
+
+def test_cache_aux_kernel_all_pads_and_empty_pieces(cuda):
+    """Pieces whose rows are all pads (C for the payload: the zero row;
+    C+1 for the writes: dropped) and pieces with no rows."""
+    from persia_tpu_torch.ops.cache_aux import gather_entry_rows, gather_entry_rows_reference
+    from persia_tpu_torch.testing.cache_cases import aux_case
+
+    case = aux_case("adagrad", 256, 16, 5, 3, 2, False, False, cuda, seed=3)
+    C = 256
+    case["ev_rows"].fill_(C)
+    case["m_rows"].fill_(C + 1)
+    case["c_rows"].fill_(C + 1)
+    (pay, table, state), (rpay, rtable, rstate) = _cache_aux_both(case, False)
+    assert torch.equal(pay.cpu(), rpay) and torch.equal(table.cpu(), rtable)
+    assert torch.equal(state["acc"].cpu(), rstate["acc"])
+    empty = aux_case("adam", 64, 16, 0, 0, 0, False, True, cuda, seed=4)
+    (pay, table, _), (rpay, rtable, _) = _cache_aux_both(empty, True)
+    assert pay.shape == (0, 48) and torch.equal(table.cpu(), rtable)
+    rows = torch.tensor([3, 0, 64, 9], dtype=torch.int32, device=cuda)
+    got = gather_entry_rows(empty["table"], empty["state"], rows)
+    assert torch.equal(got.cpu(), gather_entry_rows_reference(empty["table"].cpu(),
+                                                              {k: v.cpu() for k, v in empty["state"].items()},
+                                                              rows.cpu()))
+
+
+def _sum_tolerance(case, L):
+    """An f32 sum of L terms in another order: (L - 1) * 2^-23 * sum |x|,
+    times the scale."""
+    from persia_tpu_torch.ops.cached_gather import cached_gather_reference
+
+    absum = cached_gather_reference(case["table"].abs().cpu(), case["rows"].cpu(), True,
+                                    case["scale"].abs().cpu() if "scale" in case else None,
+                                    miss_table=case["miss_table"].abs().cpu() if "miss_table" in case else None)
+    return (L - 1) * 2.0 ** -23 * absum
+
+
+@pytest.mark.parametrize("L,scale,miss,zipf", [(1, False, 0, True), (1, True, 0, False), (1, False, 37, False),
+                                               (3, False, 0, False), (8, True, 0, True), (5, True, 29, False)])
+def test_cached_gather_kernel_matches_plain(cuda, L, scale, miss, zipf):
+    """K13 pooled against its plain version on the CPU: bit for bit at L=1,
+    within the f32 sum-order bound beyond; the keys and, for a raw slot,
+    rows and mask bit for bit; eval rows > C from the miss table."""
+    from persia_tpu_torch.ops.cached_gather import cached_gather, cached_gather_reference
+    from persia_tpu_torch.testing.cache_cases import gather_case
+
+    case = gather_case(26, 512, L, 3000, 16, cuda, seed=L, scale=scale, miss=miss, zipf=zipf)
+    sc, mt = case.get("scale"), case.get("miss_table")
+    keys = miss == 0
+    got = cached_gather(case["table"], case["rows"], True, sc, keys=keys, miss_table=mt)
+    ref = cached_gather_reference(case["table"].cpu(), case["rows"].cpu(), True,
+                                  sc.cpu() if sc is not None else None, keys=keys,
+                                  miss_table=mt.cpu() if mt is not None else None)
+    pooled, rpooled = (got[0], ref[0]) if keys else (got, ref)
+    if L == 1:
+        assert torch.equal(pooled.cpu(), rpooled)
+    else:
+        assert bool(((pooled.cpu() - rpooled).abs() <= _sum_tolerance(case, L)).all())
+    if keys:
+        assert torch.equal(got[1].cpu(), ref[1])
+    raw = cached_gather(case["table"], case["rows"][0].contiguous(), False, keys=keys, miss_table=mt)
+    rraw = cached_gather_reference(case["table"].cpu(), case["rows"][0].cpu(), False, keys=keys,
+                                   miss_table=mt.cpu() if mt is not None else None)
+    for a, b in zip(raw, rraw):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_cached_ctx_on_card_matches_cpu(cuda):
+    """The cache tier on the card against the same ctx on the CPU over 6
+    steps with evictions and bf16 wires: the directories' lists bit for
+    bit (the same host code), losses within 1e-4 (f32 compute), the
+    server's entries after flush within 1e-3; K12 and K13 launched."""
+    from persia_tpu_torch.config import EmbeddingConfig, SlotConfig
+    from persia_tpu_torch.data import IDTypeFeatureWithSingleID, Label, NonIDTypeFeature, PersiaBatch
+    from persia_tpu_torch.embedding.hbm_cache import CachedTrainCtx
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.embedding.store import EmbeddingStore
+    from persia_tpu_torch.embedding.worker import EmbeddingWorker
+    from persia_tpu_torch.models import DLRM
+    from persia_tpu_torch.ops import cache_aux, cached_gather
+
+    cfg = EmbeddingConfig(slots_config={f"c{i}": SlotConfig(dim=16) for i in range(4)}, feature_index_prefix_bit=8)
+
+    def make(device):
+        store = EmbeddingStore(capacity=1 << 16, num_internal_shards=4, optimizer=Adagrad(lr=0.05).config, seed=1)
+        torch.manual_seed(0)
+        model = DLRM(13, 4, 16, (32, 16), (64,), compute_dtype=torch.float32, device="cpu")
+        ctx = CachedTrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3), Adagrad(lr=0.05),
+                             EmbeddingWorker(cfg, [store]), cfg, cache_rows=640, device=device,
+                             wb_wire_dtype="bfloat16", aux_wire_dtype="bfloat16", admit_touches=2).__enter__()
+        return ctx, store
+
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(6):
+        feats = [IDTypeFeatureWithSingleID(f"c{i}", (rng.zipf(1.2, 256) % 5000).astype(np.uint64)) for i in range(4)]
+        batches.append(PersiaBatch(feats, non_id_type_features=[NonIDTypeFeature(rng.normal(size=(256, 13))
+                                                                                 .astype(np.float32))],
+                                   labels=[Label(rng.integers(0, 2, (256, 1)).astype(np.float32))],
+                                   requires_grad=True))
+    (card, cstore), (cpu, pstore) = make(cuda), make("cpu")
+    k12, k13 = cache_aux.launches, cached_gather.launches
+    for b in batches:
+        a, c = card.train_step(b), cpu.train_step(b)
+        assert abs(a["loss"] - c["loss"]) <= 1e-4
+    assert cache_aux.launches > k12 and cached_gather.launches == k13 + 6
+    assert card.tier.counts() == cpu.tier.counts() and card.tier.evictions > 0
+    card.flush()
+    cpu.flush()
+    assert cstore.size() == pstore.size()
+    for shard in pstore._shards:
+        for sign, (_, vec) in shard.entries.items():
+            np.testing.assert_allclose(cstore.get_embedding_entry(sign), vec, rtol=0, atol=1e-3)

@@ -36,12 +36,16 @@ NATIVE_MODULES = ("data_loader.py", "embedding/_native_build.py", "embedding/nat
 # the DIN / Avazu slice: its models, its two ops and the synthetic data
 SLICE_MODULES = ("models/din.py", "models/deepfm.py", "models/dcn.py", "models/layers.py", "ops/raw_gather.py",
                  "ops/attention_pool.py", "testing/__init__.py", "testing/datasets.py", "testing/envelopes.py")
+# the cache tier: its package and its two ops
+CACHE_MODULES = tuple(f"embedding/hbm_cache/{m}.py" for m in ("__init__", "common", "directory", "groups", "step",
+                                                               "tier", "ctx")) + ("ops/cache_aux.py",
+                                                                                  "ops/cached_gather.py")
 
 
 def test_port_sources_import_no_jax_and_no_reference():
     files = _port_files()
     assert len(files) > 10 and all(f.exists() for f in files)
-    assert all(PORT / m in files for m in NATIVE_MODULES + SLICE_MODULES)
+    assert all(PORT / m in files for m in NATIVE_MODULES + SLICE_MODULES + CACHE_MODULES)
     bad = [
         f"{f.relative_to(ROOT)}:{line} imports {root}"
         for f in files
@@ -147,8 +151,19 @@ def test_native_cores_are_the_ports_own_copies():
     reference's ``native/``) into a directory git ignores."""
     from persia_tpu_torch.embedding import _native_build
 
+    from persia_tpu_torch.embedding.hbm_cache import directory
+
     assert _native_build.NATIVE_SRC == PORT / "native"
-    assert {p.name for p in _native_build.NATIVE_SRC.glob("*.cpp")} == {"ps.cpp", "worker.cpp"}
+    assert {p.name for p in _native_build.NATIVE_SRC.glob("*.cpp")} == {"cache.cpp", "ps.cpp", "worker.cpp"}
+    # the cache directory: the port's trimmed copy, without the stream's
+    # pending map, the access sketch and the sharded directory
+    src = (PORT / "native" / "cache.cpp").read_text()
+    assert "void* cache_create(" in src and "cache_admit_positions(" in src and "cache_init_rows(" in src
+    for absent in ("pending_map_create", "cache_feed_batch", "cache_create_sharded", "AccessSketch"):
+        assert absent not in src, absent
+    assert src != (ROOT / "native" / "cache.cpp").read_text()
+    so = directory.build_native()
+    assert so.parent == _native_build.BUILD_DIR and so.name == "libpersia_torch_cache.so"
     rel = _native_build.BUILD_DIR.relative_to(ROOT).as_posix()
     assert rel + "/" in (ROOT / ".gitignore").read_text().split()
 
@@ -169,3 +184,23 @@ def test_fused_tier_raises_without_a_card():
     with pytest.raises(RuntimeError):
         init_fused_state(model, opt, torch.Generator(), specs, Adagrad().config)
     assert FusedTrainCtx(model, opt, Adagrad(), specs, device="cpu").device == torch.device("cpu")
+
+
+def test_cache_tier_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    from persia_tpu_torch.config import EmbeddingConfig, SlotConfig
+    from persia_tpu_torch.embedding.hbm_cache import CachedTrainCtx
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.embedding.store import EmbeddingStore
+    from persia_tpu_torch.embedding.worker import EmbeddingWorker
+    from persia_tpu_torch.models import DLRM
+
+    cfg = EmbeddingConfig(slots_config={"a": SlotConfig(dim=16)})
+    worker = EmbeddingWorker(cfg, [EmbeddingStore()])
+    model = DLRM(13, 1, device="cpu")
+    opt = torch.optim.Adam(model.parameters())
+    with pytest.raises(RuntimeError):
+        CachedTrainCtx(model, opt, Adagrad(), worker, cfg, cache_rows=64)
+    ctx = CachedTrainCtx(model, opt, Adagrad(), worker, cfg, cache_rows=64, device="cpu")
+    assert ctx.device == torch.device("cpu") and ctx.init_state().tables["cache_d16"].shape == (65, 16)
