@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``persia_tpu_torch``) on one card.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
-    python3 chip_smoke.py --ab ROOT OUT.npz     # K2, K4, K7-K9 of the tree ROOT
+    python3 chip_smoke.py --ab ROOT OUT.npz [k12]   # K2, K4, K7-K9, K12 of the tree ROOT
     python3 chip_smoke.py --ab-compare A.npz B.npz ...
 
 (``--ab``: see ``ab_run``; it compares two trees' kernels, parent and
@@ -17,7 +17,9 @@ result line:
    routing kernel on the dim-16 f32 path without spills; K6-K9's kernels
    (raw gather and its scatter-add, attention pool) and K2's two passes
    reported, K9 by template, K8 and K9 at the DIN path's template (2
-   positions a lane) without spills;
+   positions a lane) without spills; K12 and its read alone with their
+   registers and 16-byte global loads and stores (LDG.128 / STG.128),
+   which their 16-byte templates must hold;
 2. flash_attention on the card vs its plain version (dense f32 softmax):
    the bf16 route (wgmma) and the f32 route (split TF32 on wgmma, its
    pre-pass held bit for bit to ``tf32_split_planes_reference``) at every
@@ -70,13 +72,17 @@ result line:
    (``batch_norm_*_schedule``: the plain versions with the kernels' sum
    order) on the CPU and bit for bit twice; eval mode moves nothing;
    (3e) the cache tier's kernels against their plain versions on the CPU:
-   K12 ``cache_aux`` bit for bit (payload, pool and state) for SGD,
-   Adagrad (and vectorwise), Adam, f32 and bf16 aux and write-back wires,
-   misses on rows nobody evicts and every miss on a row evicted that step,
-   every row a pad, no rows; its read alone ``gather_entry_rows`` (2^18
-   rows); K13 ``cached_gather`` at the bench's (26, 4096, 1) rows on
-   2^21- and 2^18-row pools (zipf rows, pads, scales, eval misses) bit for
-   bit, at L = 4 and 8 within the f32 sum-order bound (L - 1) * 2^-23 *
+   K12 ``cache_aux`` (one kernel a call) bit for bit (payload, pool and
+   state) for SGD, Adagrad (and vectorwise), Adam, f32 and bf16 aux and
+   write-back wires, misses on rows nobody evicts, every miss on a row
+   evicted that step and half of them (the other evictions unclaimed),
+   every row a pad, no rows, only writes; with the ring (a start that
+   fits, one the clamp moves, a negative one), the ring bit for bit too;
+   one call's device trace holds exactly one kernel; its read alone
+   ``gather_entry_rows`` (2^18 rows, each optimizer's widths); K13
+   ``cached_gather`` at the bench's (26, 4096, 1) rows on 2^21- and
+   2^18-row pools (zipf rows, pads, scales, eval misses) bit for bit, at
+   L = 4 and 8 within the f32 sum-order bound (L - 1) * 2^-23 *
    sum |x| * |scale|, its keys, raw rows and mask bit for bit;
 4. the paths, each with the launch counts set to 0 just before and read
    just after: (a) the flash-attention entry point at (B=4, L=1024, H=8,
@@ -232,11 +238,12 @@ result line:
    first batch norm (B=4096, C=128, bf16; C=32 and the B=256 eval mode
    beside), warm and cold, beside ``F.batch_norm`` and aten's
    ``native_batch_norm_backward``; K12, its read alone and K13 at the
-   saturated regime's own inputs (its last step's aux pieces, its pool,
-   its flush's rows, its (26, 4096, 1) rows), warm and cold (whole copies
-   of the inputs, pool included, rotated), beside their plain versions
-   and library calls (``index_select`` + ``cat`` + ``index_copy_``;
-   ``F.embedding_bag`` with ``padding_idx``);
+   saturated regime's own inputs (its last step's aux pieces and their
+   pairing, its pool, its flush's rows, its (26, 4096, 1) rows), warm and
+   cold (whole copies of the inputs, pool included, rotated), beside their
+   plain versions and library calls (``index_select`` + ``cat`` +
+   ``index_copy_``; ``F.embedding_bag`` with ``padding_idx``), K12 and
+   its read over the one-launch floor;
    and (5b) the flash-attention backward, a dense recompute, beside SDPA's
    backward.
 
@@ -535,11 +542,15 @@ KERNEL_NAMES = ("fa_fwd_wgmma_kernel", "fa_fwd_tf32x3_kernel", "tf32_split_kerne
                 "fused_gather_kernel", "update_keys_kernel", "sparse_update_segments_kernel",
                 "sparse_update_long_kernel", "sparse_update_short_kernel",
                 "raw_gather_fwd_kernel", "raw_gather_bwd_kernel", "attention_pool_fwd_kernel",
-                "attention_pool_bwd_kernel", "batch_norm_fwd_kernel", "batch_norm_bwd_kernel")
+                "attention_pool_bwd_kernel", "batch_norm_fwd_kernel", "batch_norm_bwd_kernel",
+                "cache_aux_kernel", "entry_rows_kernel")
 # the DIN path's kernels (K6-K9) and K2's two passes
 DIN_KERNEL_NAMES = ("raw_gather_fwd_kernel", "raw_gather_bwd_kernel", "attention_pool_fwd_kernel",
                     "attention_pool_bwd_kernel")
 K2_KERNEL_NAMES = ("segment_sum_chunks_kernel", "segment_sum_rows_kernel")
+# K12 and its read alone at their 16-byte templates (the bench's widths:
+# bf16 wires, and the flush's f32 read)
+K12_WIDE = ("cache_aux_kernel<8>", "entry_rows_kernel<4>")
 # K5's kernels, and the routing's: on the dim-16 f32 path none may spill
 K5_KERNELS = ("sparse_update_segments_kernel", "sparse_update_long_kernel", "sparse_update_short_kernel")
 K5_DIM16 = ("sparse_update_segments_kernel", "sparse_update_long_kernel<f32,4>",
@@ -633,6 +644,13 @@ def phase_build():
         fa = summary.get(kernel, {}).get("sass", {})
         if not (fa.get("HGMMA") and fa.get("UTMALDG")):
             raise SystemExit(f"{kernel}'s SASS lacks HGMMA or UTMALDG: {fa}")
+    k12 = {k: {"registers": v.get("registers"), "spill_bytes": v.get("spill_bytes"),
+               **{op: v.get("sass", {}).get(op, 0) for op in ("LDG.128", "STG.128")}}
+           for k, v in summary.items() if k.startswith(("cache_aux_kernel<", "entry_rows_kernel<"))}
+    print(f"  K12 and its read alone by template: {json.dumps(k12)}", flush=True)
+    wide = {k: k12.get(k, {}) for k in K12_WIDE}
+    if not all(v.get("LDG.128") and v.get("STG.128") for v in wide.values()):
+        raise SystemExit(f"K12 or its read lacks 16-byte loads or stores at its 16-byte template: {wide}")
     spills = {k: v["spill_bytes"] for k, v in summary.items()
               if k.startswith("fa_fwd_tf32x3_kernel") and v.get("spill_bytes")}
     if spills:
@@ -3331,55 +3349,95 @@ def bits_equal(a, b) -> bool:
 def phase_cache_kernels(dev):
     """Phase 3e: K12 and K13 against their plain versions (on the CPU)."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     from persia_tpu_torch import ops
-    from persia_tpu_torch.ops.cache_aux import cache_aux_reference, gather_entry_rows_reference
+    from persia_tpu_torch.ops.cache_aux import (
+        cache_aux_reference, cache_aux_ring_reference, gather_entry_rows_reference,
+    )
     from persia_tpu_torch.ops.cached_gather import cached_gather_reference
-    from persia_tpu_torch.testing.cache_cases import aux_case, gather_case
+    from persia_tpu_torch.testing.cache_cases import all_pads, aux_case, gather_case
 
     print("== phase 3e: cache-tier kernels (K12 cache_aux, K13 cached_gather) vs their plain versions", flush=True)
     errs = {}
 
-    def aux_check(label, case, wb_bf16):
+    def aux_check(label, case, wb_bf16, ring_pos=None):
         cpu = to_cpu(case)
-        pay = ops.cache_aux(**case, wb_bf16=wb_bf16)
-        ref = cache_aux_reference(**cpu, wb_bf16=wb_bf16)
+        ring = rring = None
+        if ring_pos is not None:  # a seeded ring of the payload's rows + 1000
+            width = case["table"].shape[1] + sum(v.shape[1] for v in case["state"].values())
+            rring = torch.randn((case["ev_rows"].shape[0] + 1000, width),
+                                generator=torch.Generator().manual_seed(SEED + 32)).to(
+                torch.bfloat16 if wb_bf16 else torch.float32)
+            ring = rring.to(dev)
+        pay = ops.cache_aux(**case, wb_bf16=wb_bf16, ring=ring, ring_pos=ring_pos or 0)
+        if ring is None:
+            ref = cache_aux_reference(**cpu, wb_bf16=wb_bf16)
+        else:
+            ref = cache_aux_ring_reference(ring=rring, ring_pos=ring_pos, **cpu, wb_bf16=wb_bf16)
         ok = (bits_equal(pay, ref) and bits_equal(case["table"], cpu["table"])
-              and all(bits_equal(case["state"][k], cpu["state"][k]) for k in cpu["state"]))
+              and all(bits_equal(case["state"][k], cpu["state"][k]) for k in cpu["state"])
+              and (ring is None or bits_equal(ring, rring)))
         err = max([float((pay.float().cpu() - ref.float()).abs().max()) if pay.numel() else 0.0,
                    float((case["table"].cpu() - cpu["table"]).abs().max())])
+        claimed = int((case["m_slot"] >= 0).sum()) + int((case["c_slot"] >= 0).sum())
         print(f"  cache_aux {label}: payload {tuple(pay.shape)} {str(pay.dtype)[6:]}, warm {case['m_rows'].numel()}, "
-              f"cold {case['c_rows'].numel()} (padded): max_abs_err={err:.3e} tolerance=0 (bitwise) "
+              f"cold {case['c_rows'].numel()} (padded), {claimed} writes on evicted rows"
+              f"{'' if ring is None else f', ring from {ring_pos}'}: max_abs_err={err:.3e} tolerance=0 (bitwise) "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise SystemExit(f"cache_aux {label} disagrees with its plain version")
         errs["cache_aux"] = max(errs.get("cache_aux", 0.0), err)
 
     # the saturated regime's pool (2^18 rows, dim 16) and a step's pieces
-    # at its scale: ~8k evictions, as many misses, each reusing an evicted
-    # row or not
+    # at its scale: ~8k evictions, as many misses, none, half or each on an
+    # evicted row
+    reuses = {0: "misses apart", 0.5: "half the misses on evicted rows", 1: "every miss on an evicted row"}
     for kind in ("sgd", "adagrad", "adagrad_vw", "adam"):
         for aux_bf16, wb_bf16 in ((False, False), (True, True), (True, False)):
-            for reuse in (False, True):
+            for reuse, what in reuses.items():
                 case = aux_case(kind, CACHE_SAT_ROWS, EMB_DIM, 7700, 4600, 3100, reuse, aux_bf16, dev,
-                                seed=SEED + len(kind) + 2 * aux_bf16 + reuse)
+                                seed=SEED + len(kind) + 2 * aux_bf16 + int(4 * reuse))
                 aux_check(f"{kind} aux_wire={'bf16' if aux_bf16 else 'f32'} wb_wire={'bf16' if wb_bf16 else 'f32'} "
-                          f"{'every miss on an evicted row' if reuse else 'misses apart'}", case, wb_bf16)
-    case = aux_case("adagrad", CACHE_SAT_ROWS, EMB_DIM, 300, 200, 100, False, True, dev, seed=SEED + 30)
-    case["ev_rows"].fill_(CACHE_SAT_ROWS)
-    case["m_rows"].fill_(CACHE_SAT_ROWS + 1)
-    case["c_rows"].fill_(CACHE_SAT_ROWS + 1)
-    aux_check("every row a pad", case, True)
+                          f"{what}", case, wb_bf16)
+    # the ring: a start that fits, one the clamp moves, a negative one
+    for kind, wires in (("adagrad", True), ("adam", False), ("adagrad_vw", True)):
+        for ring_pos in (500, 10 ** 6, -700):
+            case = aux_case(kind, CACHE_SAT_ROWS, EMB_DIM, 7700, 500, 7200, 0.5, wires, dev, seed=SEED + ring_pos % 89)
+            aux_check(f"{kind} wires={'bf16' if wires else 'f32'} half the misses on evicted rows", case, wires,
+                      ring_pos=ring_pos)
+    aux_check("every row a pad", all_pads(aux_case("adagrad", CACHE_SAT_ROWS, EMB_DIM, 300, 200, 100, False, True, dev,
+                                                   seed=SEED + 30), CACHE_SAT_ROWS), True)
     aux_check("no rows", aux_case("adam", CACHE_SAT_ROWS, EMB_DIM, 0, 0, 0, False, False, dev, seed=1), False)
+    aux_check("only writes", aux_case("adagrad", CACHE_SAT_ROWS, EMB_DIM, 0, 300, 200, False, True, dev, seed=2), True)
+    # one call is one kernel on the card, ring and all (torch.profiler)
+    case = aux_case("adagrad", CACHE_SAT_ROWS, EMB_DIM, 7820, 500, 7320, 1, True, dev, seed=SEED + 33)
+    ring = torch.empty((2 * case["ev_rows"].shape[0], 2 * EMB_DIM), dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace can lose its device records: trace again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ops.cache_aux(**case, wb_bf16=True, ring=ring, ring_pos=3)
+            torch.cuda.synchronize()
+        traced = [e.name for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+        if traced:
+            break
+    print(f"  cache_aux: one call (7,820 evictions, every miss on an evicted row, bf16, with the ring) ran "
+          f"{len(traced)} kernel(s) on the card: {traced}", flush=True)
+    if len(traced) != 1 or "cache_aux_kernel" not in traced[0]:
+        raise SystemExit(f"one cache_aux call ran {traced}, not one cache_aux_kernel")
     # (a) alone in f32: the flush's read of every resident row
-    case = aux_case("adagrad", CACHE_SAT_ROWS, EMB_DIM, 1, 0, 0, False, False, dev, seed=SEED + 31)
     rows = torch.randperm(CACHE_SAT_ROWS + 1, generator=torch.Generator().manual_seed(2))[:CACHE_SAT_ROWS].int()
-    got = ops.gather_entry_rows(case["table"], case["state"], rows.to(dev))
-    ref = gather_entry_rows_reference(case["table"].cpu(), {k: v.cpu() for k, v in case["state"].items()}, rows)
-    ok = bits_equal(got, ref)
-    print(f"  gather_entry_rows ({rows.numel()} rows): tolerance=0 (bitwise) {'ok' if ok else 'FAIL'}", flush=True)
-    if not ok:
-        raise SystemExit("gather_entry_rows disagrees with its plain version")
+    for kind in ("adagrad", "adagrad_vw", "adam", "sgd"):
+        case = aux_case(kind, CACHE_SAT_ROWS, EMB_DIM, 1, 0, 0, False, False, dev, seed=SEED + 31)
+        got = ops.gather_entry_rows(case["table"], case["state"], rows.to(dev))
+        ref = gather_entry_rows_reference(case["table"].cpu(), {k: v.cpu() for k, v in case["state"].items()}, rows)
+        ok = bits_equal(got, ref)
+        print(f"  gather_entry_rows {kind} ({rows.numel()} rows, {tuple(got.shape)}): tolerance=0 (bitwise) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"gather_entry_rows ({kind}) disagrees with its plain version")
     errs["gather_entry_rows"] = 0.0
 
     # K13: the bench's shape (26 slots x 4096, L=1) on a 2^21 pool with zipf
@@ -3458,7 +3516,7 @@ def cache_store(sparse="adagrad"):
 def cache_recorder(ctx):
     """Shadow the tier's ``prepare_batch``: per step, a digest of what the
     directory decided (the row matrices, the warm, cold and evicted rows,
-    the evicted signs) and the step's counts."""
+    the evicted signs, K12's pairing) and the step's counts."""
     import hashlib
 
     steps = []
@@ -3476,14 +3534,16 @@ def cache_recorder(ctx):
         for d in (miss, cold):
             for g in sorted(d):
                 h.update(np.asarray(d[g][0]).tobytes())
+                h.update(d[g][2].tobytes())
         for g in sorted(ev):
-            h.update(ev[g].tobytes())
+            h.update(ev[g][0].tobytes())
+            h.update(ev[g][1].tobytes())
             h.update(meta[g][0].tobytes())
         after = tier.counts()
         steps.append(dict(
             digest=h.hexdigest(), touched=bool(miss or cold or ev),
-            warm=sum(int((np.asarray(r) < C + 1).sum()) for r, _ in miss.values()),
-            cold=sum(int((np.asarray(r) < C + 1).sum()) for r, _ in cold.values()),
+            warm=sum(int((np.asarray(r) < C + 1).sum()) for r, *_ in miss.values()),
+            cold=sum(int((np.asarray(r) < C + 1).sum()) for r, *_ in cold.values()),
             **{k: after[k] - before[k] for k in after}))
         return out
 
@@ -3712,13 +3772,15 @@ def path_cache(dev):
     return launches, records, inputs
 
 
-def time_cache_kernels(dev, launches, errs, inputs):
+def time_cache_kernels(dev, launches, errs, inputs, floor, build):
     """Phase 5's rows of K12 (``cache_aux``, and its read alone
     ``gather_entry_rows``) and K13 (``cached_gather``) at the saturated
-    regime's own inputs (its last step's aux pieces and rows, its pool, its
-    flush's rows): graph-replayed warm, and cold (whole copies of the
-    inputs, pool included, rotated through more than the L2), beside the
-    plain version and the library calls."""
+    regime's own inputs (its last step's aux pieces, their pairing and
+    rows, its pool, its flush's rows): graph-replayed warm, and cold (whole
+    copies of the inputs, pool included, rotated through more than the
+    L2), beside the plain version and the library calls; K12 also with the
+    ring, and K12 and the read over the one-launch floor ``floor`` (this
+    run's two readings); K12's and the read's registers from ``build``."""
     import torch
     import torch.nn.functional as F
 
@@ -3731,9 +3793,10 @@ def time_cache_kernels(dev, launches, errs, inputs):
     C, dim = table.shape[0] - 1, table.shape[1]
     acc = state["acc"]
     E = dim + acc.shape[1]
-    ev_rows = ev["cache_d16"]
-    m_rows, m_ent = miss["cache_d16"]
-    c_rows, c_emb = cold["cache_d16"]
+    ev_rows, ev_free = ev["cache_d16"]
+    m_rows, m_ent, m_slot = miss["cache_d16"]
+    c_rows, c_emb, c_slot = cold["cache_d16"]
+    pairing = dict(m_slot=m_slot, c_slot=c_slot, ev_free=ev_free)
     n_ev, n_w, n_c = (int((r < lim).sum()) for r, lim in ((ev_rows, C), (m_rows, C + 1), (c_rows, C + 1)))
     esz = m_ent.element_size()
     rows = []
@@ -3763,12 +3826,12 @@ def time_cache_kernels(dev, launches, errs, inputs):
         return r
 
     # K12: the step's pieces on a copy of the pool (it writes in place).
-    # Bytes: the rows read; (a) reads n_ev entries and writes the bf16
-    # payload; (b) reads n_w entries and writes them; (c) reads n_c seeds and
-    # writes n_c entries
+    # Bytes: the rows and the pairing read; (a) reads n_ev entries and
+    # writes the bf16 payload; (b) reads n_w entries and writes them; (c)
+    # reads n_c seeds and writes n_c entries
     pool = (table.clone(), {k: v.clone() for k, v in state.items()})
-    nbytes = (4 * (ev_rows.numel() + m_rows.numel() + c_rows.numel()) + n_ev * E * (4 + 2)
-              + n_w * E * (esz + 4) + n_c * (dim * esz + E * 4))
+    nbytes = (4 * (ev_rows.numel() + m_rows.numel() + c_rows.numel() + m_slot.numel() + c_slot.numel()
+                   + ev_free.numel()) + n_ev * E * (4 + 2) + n_w * E * (esz + 4) + n_c * (dim * esz + E * 4))
     bms, by = bound(nbytes, 0, "float32")
     ev_live, m_live, c_live = ev_rows[:n_ev].long(), m_rows[:n_w].long(), c_rows[:n_c].long()
 
@@ -3781,15 +3844,27 @@ def time_cache_kernels(dev, launches, errs, inputs):
         return payload
 
     r = timed(row("cache_aux", shape=[C + 1, dim, n_ev, n_w, n_c], dtype="float32 pool, bf16 wires",
-                  bound_ms=bms, bound_by=by,
+                  bound_ms=bms, bound_by=by, registers=build.get("cache_aux_kernel<8>", {}).get("registers"),
                   library_note="index_select + cat + index_copy_ (+ index_fill_ for the cold state), live rows"),
-              kernel=lambda: ops.cache_aux(*pool, ev_rows, m_rows, m_ent, c_rows, c_emb, consts, True),
-              plain=lambda: cache_aux_reference(*pool, ev_rows, m_rows, m_ent, c_rows, c_emb, consts, True),
+              kernel=lambda: ops.cache_aux(*pool, ev_rows, m_rows, m_ent, c_rows, c_emb, consts, True, **pairing),
+              plain=lambda: cache_aux_reference(*pool, ev_rows, m_rows, m_ent, c_rows, c_emb, consts, True,
+                                                **pairing),
               library=lambda: aux_library(*pool))
     pool_bytes = (table.numel() + acc.numel()) * 4
-    rows.append(cold(r, lambda t, s: ops.cache_aux(t, s, ev_rows, m_rows, m_ent, c_rows, c_emb, consts, True),
+    rows.append(cold(r, lambda t, s: ops.cache_aux(t, s, ev_rows, m_rows, m_ent, c_rows, c_emb, consts, True,
+                                                   **pairing),
                      lambda: (table.clone(), {k: v.clone() for k, v in state.items()}), pool_bytes,
                      aux_library, lambda: (table.clone(), {k: v.clone() for k, v in state.items()}), pool_bytes))
+    # the same call storing the payload a second time into a ring (the
+    # stream's hazard restores read it; 2b-1), four payloads long
+    ring = torch.empty((4 * ev_rows.numel(), E), dtype=torch.bfloat16, device=dev)
+    r["ring_ms"] = min(graph_ms(lambda: ops.cache_aux(*pool, ev_rows, m_rows, m_ent, c_rows, c_emb, consts, True,
+                                                      ring=ring, ring_pos=ev_rows.numel(), **pairing))
+                       for _ in range(2))
+    r["over_launch_floor"] = r["ms"] / min(floor)
+    print(f"  cache_aux warm {r['ms_runs']} ms = {r['over_launch_floor']:.3f}x the launch floor {min(floor):.5f} ms "
+          f"(floor {floor}); cold {r['cold_ms_runs']}; with the ring {r['ring_ms']:.5f}; bound {r['bound_ms']:.5f} "
+          f"({r['cold_share']:.1%} cold); registers {r.get('registers')}", flush=True)
 
     # (a) alone: the flush's read of every resident row
     fr = inputs["flush_rows"]
@@ -3800,6 +3875,7 @@ def time_cache_kernels(dev, launches, errs, inputs):
     bms, by = bound(nbytes, 0, "float32")
     library = lambda t, a: torch.cat([t.index_select(0, frows), a.index_select(0, frows)], 1)  # noqa: E731
     r = timed(row("gather_entry_rows", shape=[C + 1, E, frows.numel()], dtype="float32", bound_ms=bms, bound_by=by,
+                  registers=build.get("entry_rows_kernel<4>", {}).get("registers"),
                   library_note="index_select + cat"),
               kernel=lambda: ops.gather_entry_rows(table, state, frows),
               plain=lambda: gather_entry_rows_reference(table, state, frows),
@@ -3807,6 +3883,10 @@ def time_cache_kernels(dev, launches, errs, inputs):
     rows.append(cold(r, lambda t, s: ops.gather_entry_rows(t, s, frows),
                      lambda: (table.clone(), {k: v.clone() for k, v in state.items()}), pool_bytes,
                      library, lambda: (table.clone(), acc.clone()), pool_bytes))
+    r["over_launch_floor"] = r["ms"] / min(floor)
+    print(f"  gather_entry_rows warm {r['ms_runs']} ms, cold {r['cold_ms_runs']} ms, bound {r['bound_ms']:.5f} "
+          f"({r['cold_share']:.1%} cold; warm {r['bound_ms'] / r['ms']:.1%}); {r['over_launch_floor']:.2f}x the launch "
+          f"floor", flush=True)
 
     # K13: the step's (26, 4096, 1) rows, with their keys, as the step calls it
     srows = inputs["rows"]
@@ -4572,7 +4652,79 @@ def k4_ab(dev, ops, times, as_bits) -> dict:
     return bits
 
 
-def ab_run(root: str, out_path: str) -> int:
+def k12_ab_case(dev):
+    """``--ab``'s K12 inputs, made here (not by the tree's own helpers): a
+    saturated step's pieces on the 2^18-row dim-16 Adagrad pool, as the
+    tier builds them: 7,820 misses, each evicting (the directory hands the
+    k-th evicted row to the k-th miss), ~500 of them warm and the rest cold
+    (bf16 wires, rows padded to buckets of 4,096 with C+1, evictions with
+    C), and their pairing."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 70)
+    C, dim, k = CACHE_SAT_ROWS, EMB_DIM, 7820
+    g = torch.Generator().manual_seed(SEED + 70)
+    table = torch.randn((C + 1, dim), generator=g)
+    table[C] = 0
+    acc = torch.rand((C + 1, dim), generator=g)
+    ev = rng.permutation(C)[:k].astype(np.int32)
+    warm = np.sort(rng.permutation(k)[:500])
+    cold_ = np.setdiff1d(np.arange(k), warm)
+
+    def padded(a, n, fill):
+        out = np.full(n, fill, np.int32)
+        out[:len(a)] = a
+        return torch.from_numpy(out).to(dev)
+
+    case = dict(table=table.to(dev), state={"acc": acc.to(dev)}, ev_rows=padded(ev, 8192, C),
+                m_rows=padded(ev[warm], 512, C + 1), m_entries=torch.randn((512, 2 * dim), generator=g).to(
+                    dev, torch.bfloat16),
+                c_rows=padded(ev[cold_], 8192, C + 1), c_emb=torch.randn((8192, dim), generator=g).to(
+                    dev, torch.bfloat16), state_consts=(("acc", 0.01),))
+    pairing = dict(m_slot=padded(warm, 512, -1), c_slot=padded(cold_, 8192, -1),
+                   ev_free=padded(np.arange(k, 8192), 512, -1))
+    flush_rows = torch.from_numpy(rng.permutation(C).astype(np.int32)).to(dev)
+    return case, pairing, flush_rows
+
+
+def k12_ab(dev, ops, times, as_bits) -> dict:
+    """``--ab``'s K12 and its read: the tree's ``cache_aux`` on
+    ``k12_ab_case`` (with the pairing where the tree's K12 takes it), its
+    payload, table and state as bits, and ``gather_entry_rows`` of every
+    row; into ``times`` both warm and cold and the one-launch floor."""
+    import inspect
+
+    import torch
+
+    case, pairing, frows = k12_ab_case(dev)
+    kw = pairing if "m_slot" in inspect.signature(ops.cache_aux).parameters else {}
+    args = [case[k] for k in ("ev_rows", "m_rows", "m_entries", "c_rows", "c_emb", "state_consts")]
+
+    def fresh():
+        return case["table"].clone(), {"acc": case["state"]["acc"].clone()}
+
+    t, st = fresh()
+    pay = ops.cache_aux(t, st, *args, True, **kw)
+    bits = {"k12_payload": as_bits(pay), "k12_table": as_bits(t), "k12_acc": as_bits(st["acc"]),
+            "k12_flush_read": as_bits(ops.gather_entry_rows(case["table"], case["state"], frows))}
+    pool_bytes = 2 * case["table"].numel() * 4
+    runs = []
+    for _ in range(2):
+        t, st = fresh()
+        runs.append({"warm_ms": graph_ms(lambda: ops.cache_aux(t, st, *args, True, **kw)),
+                     "cold_ms": cold_ms(lambda t_, s_: ops.cache_aux(t_, s_, *args, True, **kw), fresh,
+                                        pool_bytes)["ms"]})
+    times["cache_aux"] = {k: [r[k] for r in runs] for k in ("warm_ms", "cold_ms")}
+    times["gather_entry_rows"] = {
+        "warm_ms": [graph_ms(lambda: ops.gather_entry_rows(case["table"], case["state"], frows)) for _ in range(2)],
+        "cold_ms": [cold_ms(lambda t_, s_: ops.gather_entry_rows(t_, s_, frows), fresh, pool_bytes)["ms"]
+                    for _ in range(2)]}
+    one = torch.zeros(1, device=dev)
+    times.setdefault("launch_floor", {"warm_ms": [graph_ms(lambda: one.add_(1.0)) for _ in range(2)]})
+    return bits
+
+
+def ab_run(root: str, out_path: str, only: str = "") -> int:
     """``--ab ROOT OUT.npz``: K2, K4, K7, K8 and K9 of the package in the
     checkout ROOT (another commit's tree, unpacked), on this script's
     seeded inputs: phase 3c's for K7 (both dtypes, the Taobao histories
@@ -4584,9 +4736,9 @@ def ab_run(root: str, out_path: str) -> int:
     graph-replayed times, warm and cold (K7 beside ``index_add_`` over the
     live positions, at f32; K8 and K9 at bf16; K4 at the fused step's batch
     with and without keys, the standalone ``update_keys`` and the
-    one-launch floor), are printed as one JSON
-    line. Run it over two trees in turns (A, B, B, A) in one call, then
-    ``--ab-compare``."""
+    one-launch floor; K12 and its read at ``k12_ab_case``), are printed as
+    one JSON line. ``only`` = "k12": K12 and its read alone. Run it over
+    two trees in turns (A, B, B, A) in one call, then ``--ab-compare``."""
     sys.path.insert(0, str(pathlib.Path(root).resolve()))
     import torch
 
@@ -4607,6 +4759,11 @@ def ab_run(root: str, out_path: str) -> int:
     as_bits = lambda t: t.contiguous().view(torch.uint8).cpu().numpy()  # noqa: E731
     nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
     bits, times = {"root": np.array(str(pathlib.Path(root).resolve()))}, {}
+    bits.update(k12_ab(dev, ops, times, as_bits))
+    if only == "k12":
+        np.savez(out_path, **bits)
+        print(json.dumps({"ab": {"root": root, "package": pkg, "times": times}, "card": card_line()}), flush=True)
+        return 0
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype)[6:]
         logits, mask, hist, d_out = att_inputs(dev, dtype, SEED + 3)
@@ -4678,8 +4835,8 @@ def ab_run(root: str, out_path: str) -> int:
 
 
 def ab_compare(paths) -> int:
-    """``--ab-compare A.npz B.npz ...``: K2's, K4's, K8's and K9's bits
-    equal in every file that holds them (K4's keys and its rows with keys
+    """``--ab-compare A.npz B.npz ...``: K2's, K4's, K8's, K9's and K12's
+    (and its read's) bits equal in every file that holds them (K4's keys and its rows with keys
     only where the tree's K4 writes keys), K7's in the files of one tree;
     in each file K4's keys equal to the plain routing and its rows with
     keys to its rows without; prints which differ."""
@@ -4720,7 +4877,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     if sys.argv[1:2] == ["--ab"]:
-        return ab_run(sys.argv[2], sys.argv[3])
+        return ab_run(sys.argv[2], sys.argv[3], *sys.argv[4:5])
     import persia_tpu_torch  # noqa: F401  (fails where the package is absent)
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain versions in full f32
@@ -4747,7 +4904,7 @@ def main() -> int:
                 "durable": durable_launches, "fused": fused_launches, "fused_capture": fused_capture_launches,
                 **din_launches, **dnn_launches, **cache_launches}
     rows, floor = phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused_inputs, din_batch, build)
-    rows += time_cache_kernels(dev, launches, errs, cache_inputs)
+    rows += time_cache_kernels(dev, launches, errs, cache_inputs, floor, build)
     time_flash_backward(dev, card)
     print(json.dumps({"serving": serving, "card": card}), flush=True)
     print(json.dumps({"training": training, "card": card}), flush=True)
@@ -4767,7 +4924,7 @@ def main() -> int:
             "library_eager_ms", "cold_ms", "library_cold_ms", "sort_ms", "zipf_ms", "zipf_cold_ms",
             "zipf_bound_ms", "zipf_sort_ms", "longest_segment", "zipf_longest_segment", "one_row_ms",
             "composite_ms", "registers", "over_launch_floor", "no_keys_ms", "no_keys_cold_ms", "routing_cost_ms",
-            "c32_ms", "eval_256_ms", "launches_by_path")
+            "c32_ms", "eval_256_ms", "ring_ms", "launches_by_path")
     kernels = [{k: r.get(k) for k in keys} for r in rows if not r.get("causal")]
     print(json.dumps({"kernels": kernels, "launch_floor_ms": floor, "card": card}), flush=True)
     print(card, flush=True)

@@ -1,12 +1,16 @@
 // The cache tier's aux program (K12): one cache group's eviction payload,
-// warm entries and cold seeds, a step.
+// warm entries and cold seeds, a step; and its payload read alone, the
+// flush's and publish's read (entry_rows_kernel).
 //
 // Input: the group's table T (R = C+1 rows, dim) f32 and its optimizer
 // state columns, at most two (s0: Adagrad acc (R, w0) or Adam m (R, dim);
 // s1: Adam v (R, dim)), which an entry [emb | s0 | s1] (E = dim + w0 + w1
 // floats) lays out in that order.
 //  (a) payload[k, :] = entry of row clamp(ev_rows[k], 0, R - 1), f32 or
-//      rounded to bf16 (to nearest, ties to even);
+//      rounded to bf16 (to nearest, ties to even), read before any write;
+//      with a ring, stored a second time at ring[start + k, :], start =
+//      ring_pos (+ ring_rows where negative) clamped into
+//      [0, ring_rows - n_ev], as lax.dynamic_update_slice places it;
 //  (b) for each warm k with 0 <= m_rows[k] < R: the entry of m_rows[k] =
 //      m_entries[k, :] (f32 or bf16, widened);
 //  (c) for each cold k with 0 <= c_rows[k] < R: T[c_rows[k], :] =
@@ -14,18 +18,35 @@
 // Rows outside [0, R) are dropped by (b) and (c): the host pads with R.
 // The rows of (b) and (c) are distinct, so no float is written twice.
 //
-// Replaces: persia_tpu/embedding/hbm_cache/groups.py:260-293 (_apply_aux)
-// and :240-248 (_gather_entry_rows, (a) alone in f32), XLA gathers and
-// scatters; no Pallas kernel.
+// Replaces: persia_tpu/embedding/hbm_cache/groups.py:260-293 (_apply_aux),
+// :296-314 (_apply_aux_ring: the ring) and :240-248 (_gather_entry_rows,
+// (a) alone in f32), XLA gathers and scatters; no Pallas kernel.
 //
-// Bound on the H100: bytes (the row indices; (a) reads K_ev entries and
-// writes the payload, (b) reads K_w entries and writes them, (c) reads K_c
-// seeds and writes K_c entries; no arithmetic).
+// Bound on the H100: bytes (the row indices and the pairing; (a) reads
+// n_ev entries and writes the payload (and the ring), (b) reads K_w entries
+// and writes them, (c) reads K_c seeds and writes K_c entries; no
+// arithmetic). At a saturated step the bytes take ~0.9 us, under the
+// one-launch floor (~1.1-1.4 us): the design spends one launch and nothing
+// more.
 //
-// Design: two kernels in stream order, one thread a float. (a) must read
-// every evicted row before (b) and (c) write: a row evicted this step is
-// usually the row one of this step's misses takes. Stream order gives that
-// without a grid-wide barrier; (b) and (c) share one launch.
+// Design: one kernel, one launch a call. (a) must read an evicted row
+// before (b) or (c) rewrites it, and a miss usually takes the row an
+// eviction frees. The host knows which: the directory hands the k rows a
+// call evicts to its last k misses, in order, so the tier pairs each write
+// with the payload slot of the row it overwrites (m_slot, c_slot; -1 for
+// none) and lists the slots no write claims (ev_free, -1 pads). One item
+// space: warm writes, then cold writes, then the unclaimed slots, each
+// entry cut into vectors of `vec` columns (8 where a bf16 wire or payload
+// is involved, 4 otherwise: 16-byte loads and stores of the f32 pool; 1 for
+// widths that are no multiple of it, e.g. Adagrad's vector-wise acc). A
+// thread owns one vector of one entry: a write with a slot loads the row's
+// old vector, stores it to the payload (and the ring), then stores the new
+// one; no other thread touches that row, so no barrier orders them. An
+// unclaimed slot is only read; a write without a slot only writes.
+//
+// entry_rows_kernel: the same row-major walk, a thread a float4 of one
+// row's [table | state] (64-byte runs of each array at dim 16), the
+// output written coalesced.
 
 #include <cstdint>
 
@@ -35,75 +56,207 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ float column(const float* __restrict__ table, const float* __restrict__ s0,
-                                        const float* __restrict__ s1, long long r, int dim, int w0, int w1, int e) {
-  if (e < dim) return table[r * dim + e];
-  e -= dim;
-  if (e < w0) return s0[r * w0 + e];
-  return s1[r * w1 + (e - w0)];
+struct Pool {
+  float* table;
+  float* s0;
+  float* s1;
+  long long rows;
+  int dim, w0, w1;
+};
+
+// the first float of an entry's column `col` of row r (a vector never
+// straddles two arrays: vec divides dim, w0 and w1)
+__device__ __forceinline__ float* entry_at(const Pool& p, long long r, int col) {
+  if (col < p.dim) return p.table + r * p.dim + col;
+  col -= p.dim;
+  if (col < p.w0) return p.s0 + r * p.w0 + col;
+  return p.s1 + r * p.w1 + (col - p.w0);
 }
 
-__device__ __forceinline__ void set_column(float* __restrict__ table, float* __restrict__ s0, float* __restrict__ s1,
-                                           long long r, int dim, int w0, int w1, int e, float v) {
-  if (e < dim) {
-    table[r * dim + e] = v;
-    return;
-  }
-  e -= dim;
-  if (e < w0) {
-    s0[r * w0 + e] = v;
-    return;
-  }
-  s1[r * w1 + (e - w0)] = v;
-}
-
-__device__ __forceinline__ float load(const void* p, int bf16, long long i) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]) : static_cast<const float*>(p)[i];
-}
-
-__global__ void __launch_bounds__(kThreads)
-    cache_payload_kernel(const float* __restrict__ table, const float* __restrict__ s0, const float* __restrict__ s1,
-                         long long rows, int dim, int w0, int w1, const int32_t* __restrict__ ev, int n,
-                         void* __restrict__ out, int out_bf16) {
-  const int E = dim + w0 + w1;
-  const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t >= static_cast<long long>(n) * E) return;
-  const int k = static_cast<int>(t / E);
-  const int e = static_cast<int>(t - static_cast<long long>(k) * E);
-  long long r = ev[k];
-  r = r < 0 ? 0 : (r >= rows ? rows - 1 : r);
-  const float v = column(table, s0, s1, r, dim, w0, w1, e);
-  if (out_bf16) {
-    static_cast<__nv_bfloat16*>(out)[t] = __float2bfloat16_rn(v);
+template <int V>
+__device__ __forceinline__ void load_f32(const float* p, float (&x)[V]) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < V / 4; ++i) {
+      const float4 q = reinterpret_cast<const float4*>(p)[i];
+      x[4 * i] = q.x;
+      x[4 * i + 1] = q.y;
+      x[4 * i + 2] = q.z;
+      x[4 * i + 3] = q.w;
+    }
   } else {
-    static_cast<float*>(out)[t] = v;
+#pragma unroll
+    for (int i = 0; i < V; ++i) x[i] = p[i];
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    cache_scatter_kernel(float* __restrict__ table, float* __restrict__ s0, float* __restrict__ s1, long long rows,
-                         int dim, int w0, int w1, const int32_t* __restrict__ m_rows, int n_m,
-                         const void* __restrict__ m_entries, int m_bf16, const int32_t* __restrict__ c_rows, int n_c,
-                         const void* __restrict__ c_emb, int c_bf16, float c0, float c1) {
-  const int E = dim + w0 + w1;
-  const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  const long long warm = static_cast<long long>(n_m) * E;
-  if (t < warm) {
-    const int k = static_cast<int>(t / E);
-    const int e = static_cast<int>(t - static_cast<long long>(k) * E);
-    const long long r = m_rows[k];
-    if (r < 0 || r >= rows) return;
-    set_column(table, s0, s1, r, dim, w0, w1, e, load(m_entries, m_bf16, t));
+template <int V>
+__device__ __forceinline__ void store_f32(float* p, const float (&x)[V]) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < V / 4; ++i) {
+      reinterpret_cast<float4*>(p)[i] = make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[i] = x[i];
+  }
+}
+
+// V floats from a wire at element `off`: f32, or bf16 widened (16 bytes at
+// V = 8, 8 at V = 4)
+template <int V>
+__device__ __forceinline__ void load_wire(const void* base, bool bf16, long long off, float (&x)[V]) {
+  if (!bf16) {
+    load_f32<V>(static_cast<const float*>(base) + off, x);
     return;
   }
-  const long long u = t - warm;
-  if (u >= static_cast<long long>(n_c) * E) return;
-  const int k = static_cast<int>(u / E);
-  const int e = static_cast<int>(u - static_cast<long long>(k) * E);
-  const long long r = c_rows[k];
-  if (r < 0 || r >= rows) return;
-  const float v = e < dim ? load(c_emb, c_bf16, static_cast<long long>(k) * dim + e) : (e < dim + w0 ? c0 : c1);
-  set_column(table, s0, s1, r, dim, w0, w1, e, v);
+  const __nv_bfloat16* p = static_cast<const __nv_bfloat16*>(base) + off;
+  if constexpr (V == 8) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  } else if constexpr (V == 4) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    const uint32_t w[2] = {q.x, q.y};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) x[i] = __bfloat162float(p[i]);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // each to nearest, ties to even
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// V floats to a wire at element `off`: f32, or rounded to bf16
+template <int V>
+__device__ __forceinline__ void store_wire(void* base, bool bf16, long long off, const float (&x)[V]) {
+  if (!bf16) {
+    store_f32<V>(static_cast<float*>(base) + off, x);
+    return;
+  }
+  __nv_bfloat16* p = static_cast<__nv_bfloat16*>(base) + off;
+  if constexpr (V == 8) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]),
+                                              pack_bf16(x[4], x[5]), pack_bf16(x[6], x[7]));
+  } else if constexpr (V == 4) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[i] = __float2bfloat16_rn(x[i]);
+  }
+}
+
+// the arguments of one K12 call
+struct CacheAuxArgs {
+  Pool pool;
+  int units;  // vectors an entry: E / vec
+  const int32_t* ev_rows;
+  int n_ev;
+  void* payload;
+  bool payload_bf16;
+  void* ring;  // null: no ring
+  long long ring_start;
+  const int32_t* m_rows;
+  const int32_t* m_slot;
+  int n_m;
+  const void* m_entries;
+  bool m_bf16;
+  const int32_t* c_rows;
+  const int32_t* c_slot;
+  int n_c;
+  const void* c_emb;
+  bool c_bf16;
+  float c0, c1;
+  const int32_t* ev_free;
+  int n_free;
+};
+
+template <int V>
+__global__ void __launch_bounds__(kThreads) cache_aux_kernel(const CacheAuxArgs a) {
+  const int t = blockIdx.x * kThreads + threadIdx.x;  // the entry point keeps items * units < 2^31
+  const int item = t / a.units;
+  if (item >= a.n_m + a.n_c + a.n_free) return;
+  const int col = (t - item * a.units) * V;
+  const int E = a.pool.dim + a.pool.w0 + a.pool.w1;
+  float fresh[V];
+  long long r;
+  int slot;
+  bool write = true;
+  if (item < a.n_m) {  // (b): a warm entry
+    const int k = item;
+    r = a.m_rows[k];
+    slot = a.m_slot[k];
+    load_wire<V>(a.m_entries, a.m_bf16, static_cast<long long>(k) * E + col, fresh);
+  } else if (item < a.n_m + a.n_c) {  // (c): a cold seed
+    const int k = item - a.n_m;
+    r = a.c_rows[k];
+    slot = a.c_slot[k];
+    if (col < a.pool.dim) {
+      load_wire<V>(a.c_emb, a.c_bf16, static_cast<long long>(k) * a.pool.dim + col, fresh);
+    } else {
+      const float c = col < a.pool.dim + a.pool.w0 ? a.c0 : a.c1;
+#pragma unroll
+      for (int i = 0; i < V; ++i) fresh[i] = c;
+    }
+  } else {  // (a) alone: an eviction slot no write claims
+    slot = a.ev_free[item - a.n_m - a.n_c];
+    if (slot < 0) return;
+    r = a.ev_rows[slot];
+    r = r < 0 ? 0 : (r >= a.pool.rows ? a.pool.rows - 1 : r);
+    write = false;
+  }
+  if (r < 0 || r >= a.pool.rows) return;  // a dropped write (a pad)
+  float* dst = entry_at(a.pool, r, col);
+  if (slot >= 0) {  // the row's old contents first, in this thread
+    float old[V];
+    load_f32<V>(dst, old);
+    const long long off = static_cast<long long>(slot) * E + col;
+    store_wire<V>(a.payload, a.payload_bf16, off, old);
+    if (a.ring != nullptr) store_wire<V>(a.ring, a.payload_bf16, a.ring_start * E + off, old);
+  }
+  if (write) store_f32<V>(dst, fresh);
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+    entry_rows_kernel(const Pool p, int units, const int32_t* __restrict__ rows, int n, float* __restrict__ out) {
+  const int t = blockIdx.x * kThreads + threadIdx.x;  // the entry point keeps n * units < 2^31
+  const int k = t / units;
+  if (k >= n) return;
+  const int col = (t - k * units) * V;
+  long long r = rows[k];
+  r = r < 0 ? 0 : (r >= p.rows ? p.rows - 1 : r);
+  float x[V];
+  load_f32<V>(entry_at(p, r, col), x);
+  store_f32<V>(out + static_cast<long long>(k) * (p.dim + p.w0 + p.w1) + col, x);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// the pool's shape and its vector width checked: vec in {1, 4, 8} divides
+// every width, and at vec > 1 every array starts on 16 bytes
+bool pool_ok(const Pool& p, int vec) {
+  if (p.table == nullptr || p.rows < 1 || p.dim < 1 || p.w0 < 0 || p.w1 < 0 || (p.w0 > 0 && p.s0 == nullptr) ||
+      (p.w1 > 0 && (p.s1 == nullptr || p.w0 == 0))) {
+    return false;
+  }
+  if (vec != 1 && vec != 4 && vec != 8) return false;
+  if (p.dim % vec || p.w0 % vec || p.w1 % vec) return false;
+  return vec == 1 || (aligned16(p.table) && (p.w0 == 0 || aligned16(p.s0)) && (p.w1 == 0 || aligned16(p.s1)));
 }
 
 unsigned grid_of(long long items) { return static_cast<unsigned>((items + kThreads - 1) / kThreads); }
@@ -111,40 +264,91 @@ unsigned grid_of(long long items) { return static_cast<unsigned>((items + kThrea
 }  // namespace
 
 // payload: (n_ev, E) f32 or bf16 (payload_dtype); m_entries (n_m, E) and
-// c_emb (n_c, dim) f32 or bf16. A piece with no rows may pass null.
-extern "C" int persia_cache_aux(float* table, long long rows, int dim, float* s0, int w0, float* s1, int w1,
+// c_emb (n_c, dim) f32 or bf16; m_slot (n_m,) and c_slot (n_c,) the payload
+// slot each write reads first, or -1; ev_free (n_free,) the slots no write
+// claims, -1 pads; ring (ring_rows, E) in the payload's dtype, or null. A
+// piece with no rows may pass null. vec: columns a thread (1, 4 or 8).
+// One launch, none when every piece is empty.
+extern "C" int persia_cache_aux(float* table, long long rows, int dim, float* s0, int w0, float* s1, int w1, int vec,
                                 const int32_t* ev_rows, int n_ev, void* payload, int payload_dtype,
-                                const int32_t* m_rows, int n_m, const void* m_entries, int m_dtype,
-                                const int32_t* c_rows, int n_c, const void* c_emb, int c_dtype, float c0, float c1,
-                                void* stream) {
-  if (table == nullptr || rows < 1 || dim < 1 || w0 < 0 || w1 < 0 || (w0 > 0 && s0 == nullptr) ||
-      (w1 > 0 && (s1 == nullptr || w0 == 0)) || n_ev < 0 || n_m < 0 || n_c < 0) {
-    return cudaErrorInvalidValue;
-  }
+                                const int32_t* m_rows, const int32_t* m_slot, int n_m, const void* m_entries,
+                                int m_dtype, const int32_t* c_rows, const int32_t* c_slot, int n_c, const void* c_emb,
+                                int c_dtype, float c0, float c1, const int32_t* ev_free, int n_free, void* ring,
+                                long long ring_rows, long long ring_pos, void* stream) {
+  const Pool pool{table, s0, s1, rows, dim, w0, w1};
+  if (!pool_ok(pool, vec) || n_ev < 0 || n_m < 0 || n_c < 0 || n_free < 0) return cudaErrorInvalidValue;
   const auto dtype_ok = [](int d) { return d == persia::kFloat32 || d == persia::kBFloat16; };
-  if ((n_ev > 0 && (ev_rows == nullptr || payload == nullptr || !dtype_ok(payload_dtype))) ||
-      (n_m > 0 && (m_rows == nullptr || m_entries == nullptr || !dtype_ok(m_dtype))) ||
-      (n_c > 0 && (c_rows == nullptr || c_emb == nullptr || !dtype_ok(c_dtype)))) {
+  const auto vec_ok = [vec](const void* p) { return vec == 1 || aligned16(p); };
+  if ((n_ev > 0 && (ev_rows == nullptr || payload == nullptr || !dtype_ok(payload_dtype) || !vec_ok(payload))) ||
+      (n_m > 0 && (m_rows == nullptr || m_slot == nullptr || m_entries == nullptr || !dtype_ok(m_dtype) ||
+                   !vec_ok(m_entries))) ||
+      (n_c > 0 && (c_rows == nullptr || c_slot == nullptr || c_emb == nullptr || !dtype_ok(c_dtype) ||
+                   !vec_ok(c_emb))) ||
+      (n_free > 0 && (ev_free == nullptr || n_ev == 0)) ||
+      (ring != nullptr && (ring_rows < n_ev || !vec_ok(ring)))) {
     return cudaErrorInvalidValue;
   }
-  const long long E = static_cast<long long>(dim) + w0 + w1;
-  const long long payload_items = n_ev * E;
-  const long long scatter_items = (static_cast<long long>(n_m) + n_c) * E;
-  if ((payload_items + kThreads - 1) / kThreads > 0x7fffffffLL ||
-      (scatter_items + kThreads - 1) / kThreads > 0x7fffffffLL) {
-    return cudaErrorInvalidValue;
-  }
+  const int units = (dim + w0 + w1) / vec;
+  const long long items = (static_cast<long long>(n_m) + n_c + n_free) * units;
+  if (items + kThreads > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (items == 0) return cudaSuccess;
+  CacheAuxArgs a{};
+  a.pool = pool;
+  a.units = units;
+  a.ev_rows = ev_rows;
+  a.n_ev = n_ev;
+  a.payload = payload;
+  a.payload_bf16 = payload_dtype == persia::kBFloat16;
+  a.ring = ring;
+  // as lax.dynamic_update_slice places it: a negative start counts from the
+  // end, then the start is clamped so that the payload lands whole
+  long long start = ring_pos < 0 ? ring_pos + ring_rows : ring_pos;
+  start = start < 0 ? 0 : (start > ring_rows - n_ev ? ring_rows - n_ev : start);
+  a.ring_start = start;
+  a.m_rows = m_rows;
+  a.m_slot = m_slot;
+  a.n_m = n_m;
+  a.m_entries = m_entries;
+  a.m_bf16 = m_dtype == persia::kBFloat16;
+  a.c_rows = c_rows;
+  a.c_slot = c_slot;
+  a.n_c = n_c;
+  a.c_emb = c_emb;
+  a.c_bf16 = c_dtype == persia::kBFloat16;
+  a.c0 = c0;
+  a.c1 = c1;
+  a.ev_free = ev_free;
+  a.n_free = n_free;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (payload_items > 0) {
-    cache_payload_kernel<<<grid_of(payload_items), kThreads, 0, st>>>(
-        table, s0, s1, rows, dim, w0, w1, ev_rows, n_ev, payload, payload_dtype == persia::kBFloat16);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+  if (vec == 8) {
+    cache_aux_kernel<8><<<grid_of(items), kThreads, 0, st>>>(a);
+  } else if (vec == 4) {
+    cache_aux_kernel<4><<<grid_of(items), kThreads, 0, st>>>(a);
+  } else {
+    cache_aux_kernel<1><<<grid_of(items), kThreads, 0, st>>>(a);
   }
-  if (scatter_items > 0) {
-    cache_scatter_kernel<<<grid_of(scatter_items), kThreads, 0, st>>>(
-        table, s0, s1, rows, dim, w0, w1, m_rows, n_m, m_entries, m_dtype == persia::kBFloat16, c_rows, n_c, c_emb,
-        c_dtype == persia::kBFloat16, c0, c1);
+  return cudaGetLastError();
+}
+
+// out: (n, E) f32, the entries of rows (each clamped into [0, rows)); vec
+// 4 or 1. One launch, none for n = 0.
+extern "C" int persia_entry_rows(const float* table, long long rows, int dim, const float* s0, int w0,
+                                 const float* s1, int w1, int vec, const int32_t* row_ids, int n, float* out,
+                                 void* stream) {
+  const Pool pool{const_cast<float*>(table), const_cast<float*>(s0), const_cast<float*>(s1), rows, dim, w0, w1};
+  if (!pool_ok(pool, vec) || vec == 8 || n < 0 || (n > 0 && (row_ids == nullptr || out == nullptr)) ||
+      (vec > 1 && !aligned16(out))) {
+    return cudaErrorInvalidValue;
+  }
+  const int units = (dim + w0 + w1) / vec;
+  const long long items = static_cast<long long>(n) * units;
+  if (items + kThreads > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (items == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec == 4) {
+    entry_rows_kernel<4><<<grid_of(items), kThreads, 0, st>>>(pool, units, row_ids, n, out);
+  } else {
+    entry_rows_kernel<1><<<grid_of(items), kThreads, 0, st>>>(pool, units, row_ids, n, out);
   }
   return cudaGetLastError();
 }

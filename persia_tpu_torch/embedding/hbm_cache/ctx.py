@@ -184,16 +184,18 @@ class CachedTrainCtx:
         return em
 
     def _apply_feed(self, miss_aux, cold_aux, evict_aux) -> Dict[str, torch.Tensor]:
-        """K12 once a touched group: the eviction payloads (read first),
-        then the warm entries and cold seeds written. Returns the payloads."""
+        """K12 once a touched group: the eviction payloads (each evicted row
+        read before its write, by the tier's pairing), the warm entries and
+        cold seeds written. Returns the payloads."""
         payloads = {}
         for gname in sorted(set(miss_aux) | set(cold_aux) | set(evict_aux)):
             em = self._group_empties(gname)
-            m_rows, m_entries = miss_aux.get(gname, (em["rows"], em["entries"]))
-            c_rows, c_emb = cold_aux.get(gname, (em["rows"], em["emb"]))
-            payload = _apply_aux(self.state.tables[gname], self.state.emb_state[gname],
-                                 evict_aux.get(gname, em["rows"]), m_rows, m_entries, c_rows, c_emb,
-                                 self._state_consts, self._wb_bf16)
+            m_rows, m_entries, m_slot = miss_aux.get(gname, (em["rows"], em["entries"], em["rows"]))
+            c_rows, c_emb, c_slot = cold_aux.get(gname, (em["rows"], em["emb"], em["rows"]))
+            ev_rows, ev_free = evict_aux.get(gname, (em["rows"], em["rows"]))
+            payload = _apply_aux(self.state.tables[gname], self.state.emb_state[gname], ev_rows, m_rows, m_entries,
+                                 c_rows, c_emb, self._state_consts, self._wb_bf16, m_slot=m_slot, c_slot=c_slot,
+                                 ev_free=ev_free)
             if gname in evict_aux:
                 payloads[gname] = payload
         return payloads

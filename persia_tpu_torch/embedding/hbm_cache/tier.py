@@ -176,18 +176,27 @@ class CachedEmbeddingTier:
     def _admit_aux(self, g: CacheGroup, miss_signs, rows_miss, ev_signs, ev_rows, n_unique, hazard_gate,
                    miss_aux, cold_aux, evict_aux, evict_meta) -> None:
         """After the admit, for both paths: the counters, the eviction
-        rows, the hazard gate, and the warm/cold split of the misses."""
+        rows, the hazard gate, the warm/cold split of the misses, and the
+        pairing K12 reads each evicted row by: the directory hands the k
+        rows a call evicts to its last k misses, in order, so miss i takes
+        the row of payload slot i - (m - k) where that is >= 0. Each warm
+        and cold write carries that slot (-1: none, and for pads), and the
+        slots no write claims (the pads) are listed apart."""
         C = g.rows
         self.hits += n_unique - len(miss_signs)
         self.misses += len(miss_signs)
         self.evictions += len(ev_signs)
-        k = len(ev_rows)
+        k, m = len(ev_rows), len(miss_signs)
         if k:
-            e_rows = self._ring.full(("e_rows", g.name), (_bucket(k),), np.int32, C)
+            if k > m or not np.array_equal(rows_miss[m - k:], ev_rows):
+                raise RuntimeError(f"group {g.name}: the evicted rows are not the rows of the last {k} misses")
+            kp = _bucket(k)
+            e_rows = self._ring.full(("e_rows", g.name), (kp,), np.int32, C)
             e_rows[:k] = ev_rows
-            evict_aux[g.name] = e_rows
+            e_free = self._ring.full(("e_free", g.name), (_bucket(kp - k) if kp > k else 0,), np.int32, -1)
+            e_free[:kp - k] = np.arange(k, kp, dtype=np.int32)
+            evict_aux[g.name] = (e_rows, e_free)
             evict_meta[g.name] = (ev_signs, k)
-        m = len(miss_signs)
         if not m:
             return
         if hazard_gate is not None:
@@ -203,14 +212,25 @@ class CachedEmbeddingTier:
             w_rows[:len(widx)] = rows_miss[widx]
             w_f32 = self._ring.get(("w_entries", g.name), (wp, g.dim + g.state_dim), np.float32)
             w_f32[:len(widx)] = vals[widx]
-            miss_aux[g.name] = (w_rows, BF16Host.from_f32(w_f32) if self.aux_bf16 else w_f32)
+            miss_aux[g.name] = (w_rows, BF16Host.from_f32(w_f32) if self.aux_bf16 else w_f32,
+                                self._slots(("w_slot", g.name), wp, widx, m - k))
         if len(cidx):
             cp = _bucket(len(cidx))
             c_rows = self._ring.full(("c_rows", g.name), (cp,), np.int32, C + 1)
             c_rows[:len(cidx)] = rows_miss[cidx]
             c_f32 = self._ring.get(("c_emb", g.name), (cp, g.dim), np.float32)
             native_init_rows(miss_signs[cidx], self.init_seed, g.dim, self.init_method, out=c_f32[:len(cidx)])
-            cold_aux[g.name] = (c_rows, BF16Host.from_f32(c_f32) if self.aux_bf16 else c_f32)
+            cold_aux[g.name] = (c_rows, BF16Host.from_f32(c_f32) if self.aux_bf16 else c_f32,
+                                self._slots(("c_slot", g.name), cp, cidx, m - k))
+
+    def _slots(self, key, padded: int, idx: np.ndarray, first: int) -> np.ndarray:
+        """The payload slot each of the misses ``idx`` overwrites (miss i
+        takes slot i - first where that is >= 0), -1 elsewhere and for the
+        pads."""
+        out = self._ring.full(key, (padded,), np.int32, -1)
+        s = idx - first
+        out[:len(idx)] = np.where(s >= 0, s, -1)
+        return out
 
     def _single_id_groups(self, batch: PersiaBatch):
         """[(group, slot names, (S, B) prefixed signs), ...] when every slot
@@ -287,8 +307,9 @@ class CachedEmbeddingTier:
         """Admit the batch's signs, check the warm misses out of the server
         and build the step's host arrays: ``(inputs, layout, miss_aux,
         cold_aux, evict_aux, evict_meta)``. ``miss_aux`` {group: (rows,
-        entries)}, ``cold_aux`` {group: (rows, seeds)}, ``evict_aux``
-        {group: rows}, ``evict_meta`` {group: (evicted signs, count)}.
+        entries, slots)}, ``cold_aux`` {group: (rows, seeds, slots)},
+        ``evict_aux`` {group: (rows, unclaimed slots)} (the pairing:
+        ``_admit_aux``), ``evict_meta`` {group: (evicted signs, count)}.
 
         ``hazard_gate(group, miss_signs)`` runs before a group's server
         probe: the synchronous ctx lands its deferred write-back there when

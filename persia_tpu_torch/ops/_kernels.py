@@ -161,8 +161,11 @@ def library() -> ctypes.CDLL:
             lib.persia_batch_norm_bwd.argtypes = [vp] * 7 + [i32] * 9 + [vp]
             ll = ctypes.c_longlong
             lib.persia_cache_aux.restype = i32
-            lib.persia_cache_aux.argtypes = [vp, ll, i32, vp, i32, vp, i32, vp, i32, vp, i32, vp, i32, vp, i32,
-                                             vp, i32, vp, i32, f32, f32, vp]
+            lib.persia_cache_aux.argtypes = [vp, ll, i32, vp, i32, vp, i32, i32, vp, i32, vp, i32,
+                                             vp, vp, i32, vp, i32, vp, vp, i32, vp, i32, f32, f32,
+                                             vp, i32, vp, ll, ll, vp]
+            lib.persia_entry_rows.restype = i32
+            lib.persia_entry_rows.argtypes = [vp, ll, i32, vp, i32, vp, i32, i32, vp, i32, vp, vp]
             lib.persia_cached_gather.restype = i32
             lib.persia_cached_gather.argtypes = [vp, ll, i32, vp, ll, vp, ll, i32, vp, i32, vp, vp, vp, vp]
             _lib = lib

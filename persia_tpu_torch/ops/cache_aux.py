@@ -20,23 +20,35 @@ none), in this order, what the reference's ``_apply_aux``
 Rows past the table (the host pads with C+1) are dropped by (b) and (c); a
 row of (a) is clamped into [0, C] as XLA's gather clamps (the host pads it
 with C, the zero row). No miss is ever given the pad row C. The rows of (b) and (c) are distinct (the
-directory hands out each row once), so no row is written twice.
+directory hands out each row once), so no row is written twice. With a
+``ring`` (``_apply_aux_ring``, ``groups.py:296-314``) the payload is also
+stored at ``ring[start:start + K_ev]``, ``start`` = ``ring_pos`` placed as
+``lax.dynamic_update_slice`` places it (``ring_start``).
 ``gather_entry_rows`` is (a) alone in f32, the flush's and publish's read
 (``_gather_entry_rows``, ``groups.py:240-248``).
 
-A CPU table takes the plain version. A CUDA table launches (a) and then (b)
-with (c) as two kernels in stream order, one thread a float: the order is
-what keeps the payload ahead of the writes. A call counts one launch in
-``cache_aux.launches`` (``gather_entry_rows.launches``), whatever it runs.
+**The pairing.** The kernel reads each evicted row in the thread that
+rewrites it, so it needs to know which write overwrites which payload
+slot: ``m_slot`` (K_w,) and ``c_slot`` (K_c,) int32 hold, for each write,
+the slot of ``ev_rows`` whose old contents it must read first, or -1;
+``ev_free`` int32 lists the slots no write claims (-1 pads). The plain
+version computes what it computed without them and, on CPU tensors,
+checks them (``check_pairing``): a wrong pairing would make the kernel
+read a row after its write.
+
+A CPU table takes the plain version. A CUDA table launches one kernel a
+call that has any rows (and none for a call without), which adds one to
+``cache_aux.launches`` (``gather_entry_rows.launches``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from persia_tpu_torch.ops import _kernels
+from persia_tpu_torch.ops.plans import cache_entry_vec
 
 STATE_KEYS = ("acc", "m", "v")  # the column order of an entry's state tail
 _DTYPES = {torch.float32: _kernels.DTYPE_F32, torch.bfloat16: _kernels.DTYPE_BF16}
@@ -89,9 +101,44 @@ def _scatter_reference(table, state, rows, entries) -> None:
         _write_rows(state[key], rows, cols)
 
 
+def check_pairing(num_rows: int, ev_rows, m_rows, m_slot, c_rows, c_slot, ev_free) -> None:
+    """Raise ``ValueError`` unless the pairing lets the kernel read every
+    payload slot before its row is written: each slot of ``ev_rows`` is
+    claimed by exactly one write (``m_slot`` / ``c_slot``, -1 for none)
+    or listed once in ``ev_free`` (-1 pads); a claimed slot's row is its
+    writer's row, inside the table; and no write lands on the row of an
+    unclaimed slot (clamped as the payload's read clamps it)."""
+    n_ev = ev_rows.shape[0]
+    for rows, slot, what in ((m_rows, m_slot, "m_slot"), (c_rows, c_slot, "c_slot")):
+        if slot.shape != rows.shape:
+            raise ValueError(f"{what} {tuple(slot.shape)} does not match its rows {tuple(rows.shape)}")
+    slots = torch.cat([m_slot, c_slot, ev_free]).long()
+    if bool(((slots < -1) | (slots >= n_ev)).any()):
+        raise ValueError(f"a pairing slot lies outside [-1, {n_ev})")
+    listed = slots[slots >= 0]
+    if listed.numel() != n_ev or torch.bincount(listed, minlength=n_ev).ne(1).any():
+        raise ValueError("a payload slot is claimed twice, or neither claimed nor listed as unclaimed")
+    writes_r = torch.cat([m_rows, c_rows]).long()
+    writes_s = torch.cat([m_slot, c_slot]).long()
+    claimed = writes_s >= 0
+    if claimed.any():
+        r, s = writes_r[claimed], writes_s[claimed]
+        if bool(((r < 0) | (r >= num_rows)).any()) or not torch.equal(ev_rows.long()[s], r):
+            raise ValueError("a write claims a payload slot whose row is not the row it writes")
+    free = ev_free.long()[ev_free >= 0]
+    live = writes_r[(writes_r >= 0) & (writes_r < num_rows)]
+    if free.numel() and live.numel() and bool(torch.isin(_clamped(ev_rows.long()[free], num_rows), live).any()):
+        raise ValueError("a write lands on the row of a payload slot no write claims")
+
+
 def cache_aux_reference(table, state, ev_rows, m_rows, m_entries, c_rows, c_emb,
-                        state_consts: Sequence[Tuple[str, float]], wb_bf16: bool = False) -> torch.Tensor:
-    """Plain version of ``cache_aux``: index, ``cat`` and ``index_put_``."""
+                        state_consts: Sequence[Tuple[str, float]], wb_bf16: bool = False, *,
+                        m_slot: torch.Tensor, c_slot: torch.Tensor, ev_free: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``cache_aux`` (without a ring): index, ``cat`` and
+    ``index_put_``. The pairing changes nothing it computes; on CPU
+    tensors it is checked (``check_pairing``)."""
+    if table.device.type == "cpu":
+        check_pairing(table.shape[0], ev_rows, m_rows, m_slot, c_rows, c_slot, ev_free)
     payload = gather_entry_rows_reference(table, state, ev_rows)
     if wb_bf16:
         payload = payload.to(torch.bfloat16)
@@ -100,6 +147,27 @@ def cache_aux_reference(table, state, ev_rows, m_rows, m_entries, c_rows, c_emb,
     for key, val in state_consts:
         s = state[key]
         _write_rows(s, c_rows, torch.full((c_rows.shape[0], s.shape[1]), val, dtype=s.dtype, device=s.device))
+    return payload
+
+
+def ring_start(ring_rows: int, ring_pos: int, n_ev: int) -> int:
+    """Where the payload lands in the ring, as ``lax.dynamic_update_slice``
+    places it: a negative ``ring_pos`` counts from the end (+ ring_rows),
+    then it is clamped into [0, ring_rows - n_ev]."""
+    pos = int(ring_pos) + (ring_rows if ring_pos < 0 else 0)
+    return min(max(pos, 0), ring_rows - n_ev)
+
+
+def cache_aux_ring_reference(table, state, ring: torch.Tensor, ring_pos: int, ev_rows, m_rows, m_entries, c_rows,
+                             c_emb, state_consts: Sequence[Tuple[str, float]], wb_bf16: bool = False, *,
+                             m_slot: torch.Tensor, c_slot: torch.Tensor, ev_free: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``cache_aux`` with a ring (``_apply_aux_ring``):
+    ``cache_aux_reference``, then the payload also stored into ``ring`` in
+    place at ``ring_start(...)``. Returns the payload."""
+    payload = cache_aux_reference(table, state, ev_rows, m_rows, m_entries, c_rows, c_emb, state_consts, wb_bf16,
+                                  m_slot=m_slot, c_slot=c_slot, ev_free=ev_free)
+    start = ring_start(ring.shape[0], ring_pos, payload.shape[0])
+    ring[start:start + payload.shape[0]] = payload.to(ring.dtype)
     return payload
 
 
@@ -116,51 +184,75 @@ def _check(table, state, rows_and_data) -> list:
             raise ValueError(f"state must be contiguous ({table.shape[0]}, w) float32 on {dev}")
     for rows, data, width in rows_and_data:
         if rows.dtype != torch.int32 or rows.device != dev or rows.dim() != 1 or not rows.is_contiguous():
-            raise ValueError("rows must be contiguous (K,) int32 on the table's device")
+            raise ValueError("rows and slots must be contiguous (K,) int32 on the table's device")
         if data is not None and (data.dtype not in _DTYPES or data.device != dev or not data.is_contiguous()
                                  or data.shape != (rows.shape[0], width)):
             raise ValueError(f"data must be contiguous ({rows.shape[0]}, {width}) float32 or bfloat16")
     return states
 
 
-def _launch(table, states, ev_rows, payload, m_rows, m_entries, c_rows, c_emb, consts) -> None:
+def _aligned(*tensors) -> bool:
+    return all(t.numel() == 0 or t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _pool_args(table, states):
     widths = [s.shape[1] for s in states] + [0, 0]
     ptrs = [s.data_ptr() for s in states] + [0, 0]
-    lib = _kernels.library()
-    with torch.cuda.device(table.device):
-        rc = lib.persia_cache_aux(
-            table.data_ptr(), table.shape[0], table.shape[1], ptrs[0], widths[0], ptrs[1], widths[1],
-            ev_rows.data_ptr(), ev_rows.shape[0], payload.data_ptr() if payload is not None else None,
-            _DTYPES[payload.dtype] if payload is not None else 0,
-            m_rows.data_ptr(), m_rows.shape[0], m_entries.data_ptr(), _DTYPES[m_entries.dtype],
-            c_rows.data_ptr(), c_rows.shape[0], c_emb.data_ptr(), _DTYPES[c_emb.dtype],
-            consts[0], consts[1], _kernels.stream_handle(table),
-        )
-    _kernels.check(rc, "cache_aux")
+    return [table.data_ptr(), table.shape[0], table.shape[1], ptrs[0], widths[0], ptrs[1], widths[1]]
 
 
 def cache_aux(table: torch.Tensor, state: Dict[str, torch.Tensor], ev_rows: torch.Tensor,
               m_rows: torch.Tensor, m_entries: torch.Tensor, c_rows: torch.Tensor, c_emb: torch.Tensor,
-              state_consts: Sequence[Tuple[str, float]], wb_bf16: bool = False) -> torch.Tensor:
+              state_consts: Sequence[Tuple[str, float]], wb_bf16: bool = False, *, m_slot: torch.Tensor,
+              c_slot: torch.Tensor, ev_free: torch.Tensor, ring: Optional[torch.Tensor] = None,
+              ring_pos: int = 0) -> torch.Tensor:
     """(a)-(c) of the module's docstring, ``table`` and ``state`` written in
-    place; returns the payload (K_ev, dim + state_dim), bf16 with
-    ``wb_bf16`` else f32. Any piece may have 0 rows."""
+    place, with the pairing ``m_slot``, ``c_slot``, ``ev_free``; returns
+    the payload (K_ev, dim + state_dim), bf16 with ``wb_bf16`` else f32.
+    With ``ring`` ((ring_rows, dim + state_dim), the payload's dtype,
+    ring_rows >= K_ev) the payload is also stored there, from
+    ``ring_start(ring_rows, ring_pos, K_ev)``. Any piece may have 0 rows."""
     dim = table.shape[1]
-    states = _check(table, state, [(ev_rows, None, 0), (m_rows, m_entries, dim + sum(s.shape[1] for s in _states(state))),
-                                   (c_rows, c_emb, dim)])
+    width = dim + sum(s.shape[1] for s in _states(state))
+    states = _check(table, state, [(ev_rows, None, 0), (m_rows, m_entries, width), (c_rows, c_emb, dim),
+                                   (m_slot, None, 0), (c_slot, None, 0), (ev_free, None, 0)])
+    if m_slot.shape != m_rows.shape or c_slot.shape != c_rows.shape:
+        raise ValueError("m_slot and c_slot must match m_rows and c_rows")
     consts = dict(state_consts)
     if set(consts) != set(k for k in STATE_KEYS if k in state):
         raise ValueError(f"state_consts {sorted(consts)} do not match the state {sorted(state)}")
+    pay_dtype = torch.bfloat16 if wb_bf16 else torch.float32
+    if ring is not None and (ring.dtype != pay_dtype or ring.device != table.device or not ring.is_contiguous()
+                             or ring.dim() != 2 or ring.shape[1] != width or ring.shape[0] < ev_rows.shape[0]):
+        raise ValueError(f"ring must be contiguous (>= {ev_rows.shape[0]}, {width}) {pay_dtype} on the table's "
+                         f"device")
+    pairing = dict(m_slot=m_slot, c_slot=c_slot, ev_free=ev_free)
     if table.device.type == "cpu":
-        return cache_aux_reference(table, state, ev_rows, m_rows, m_entries, c_rows, c_emb, state_consts, wb_bf16)
+        if ring is not None:
+            return cache_aux_ring_reference(table, state, ring, ring_pos, ev_rows, m_rows, m_entries, c_rows, c_emb,
+                                            state_consts, wb_bf16, **pairing)
+        return cache_aux_reference(table, state, ev_rows, m_rows, m_entries, c_rows, c_emb, state_consts, wb_bf16,
+                                   **pairing)
     if table.device.type != "cuda":
         raise ValueError(f"unsupported device {table.device}")
-    width = dim + sum(s.shape[1] for s in states)
-    payload = torch.empty((ev_rows.shape[0], width), dtype=torch.bfloat16 if wb_bf16 else torch.float32,
-                          device=table.device)
+    payload = torch.empty((ev_rows.shape[0], width), dtype=pay_dtype, device=table.device)
+    wide = wb_bf16 or m_entries.dtype == torch.bfloat16 or c_emb.dtype == torch.bfloat16
+    vec = cache_entry_vec([dim] + [s.shape[1] for s in states], wide,
+                          _aligned(table, *states, payload, m_entries, c_emb, *([ring] if ring is not None else [])))
     c = [consts[k] for k in STATE_KEYS if k in state] + [0.0, 0.0]
-    _launch(table, states, ev_rows, payload, m_rows, m_entries, c_rows, c_emb, c)
-    cache_aux.launches += 1
+    lib = _kernels.library()
+    with torch.cuda.device(table.device):
+        rc = lib.persia_cache_aux(
+            *_pool_args(table, states), vec, ev_rows.data_ptr(), ev_rows.shape[0], payload.data_ptr(),
+            _DTYPES[pay_dtype], m_rows.data_ptr(), m_slot.data_ptr(), m_rows.shape[0], m_entries.data_ptr(),
+            _DTYPES[m_entries.dtype], c_rows.data_ptr(), c_slot.data_ptr(), c_rows.shape[0], c_emb.data_ptr(),
+            _DTYPES[c_emb.dtype], c[0], c[1], ev_free.data_ptr(), ev_free.shape[0],
+            ring.data_ptr() if ring is not None else None, ring.shape[0] if ring is not None else 0, int(ring_pos),
+            _kernels.stream_handle(table),
+        )
+    _kernels.check(rc, "cache_aux")
+    if m_rows.shape[0] + c_rows.shape[0] + ev_free.shape[0]:
+        cache_aux.launches += 1
     return payload
 
 
@@ -174,10 +266,14 @@ def gather_entry_rows(table: torch.Tensor, state: Dict[str, torch.Tensor], rows:
         raise ValueError(f"unsupported device {table.device}")
     width = table.shape[1] + sum(s.shape[1] for s in states)
     payload = torch.empty((rows.shape[0], width), dtype=torch.float32, device=table.device)
-    empty_rows = rows[:0]
-    empty_data = payload[:0, :0]
-    _launch(table, states, rows, payload, empty_rows, empty_data, empty_rows, empty_data, [0.0, 0.0])
-    gather_entry_rows.launches += 1
+    vec = cache_entry_vec([table.shape[1]] + [s.shape[1] for s in states], False, _aligned(table, *states, payload))
+    lib = _kernels.library()
+    with torch.cuda.device(table.device):
+        rc = lib.persia_entry_rows(*_pool_args(table, states), vec, rows.data_ptr(), rows.shape[0],
+                                   payload.data_ptr(), _kernels.stream_handle(table))
+    _kernels.check(rc, "gather_entry_rows")
+    if rows.shape[0]:
+        gather_entry_rows.launches += 1
     return payload
 
 

@@ -776,3 +776,23 @@ def _bn_block_sums(v: np.ndarray, plan: BatchNormPlan) -> np.ndarray:
     for s in warps:
         out = out + s
     return out
+
+
+# the cache tier's aux program, K12, and its payload read alone
+# (csrc/cache_aux.cu): a thread a vector of vec columns of one entry
+# [table | state], the entries in row-major order, 256 threads a block
+
+
+def cache_entry_vec(widths, wide: bool, aligned: bool = True) -> int:
+    """Columns a thread of K12 (or of its read alone, ``wide`` False) takes
+    of an entry whose arrays have ``widths`` (the table's dim, then each
+    state's): 8 where ``wide`` (a bf16 wire or payload: 16 bytes of bf16),
+    else 4 (a float4), where every width is a multiple of it and every
+    array starts on 16 bytes (``aligned``); else 1, scalar columns."""
+    widths = [int(w) for w in widths]
+    if not widths or widths[0] < 1 or min(widths) < 0:
+        raise ValueError(f"an entry needs a table dim >= 1 and state widths >= 0, got {widths}")
+    for vec in ((8, 4) if wide else (4,)):
+        if aligned and all(w % vec == 0 for w in widths):
+            return vec
+    return 1

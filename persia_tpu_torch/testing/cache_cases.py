@@ -24,15 +24,17 @@ def _padded(rows: np.ndarray, fill: int) -> np.ndarray:
     return out
 
 
-def aux_case(kind: str, C: int, dim: int, n_ev: int, n_warm: int, n_cold: int, reuse: bool, bf16: bool,
+def aux_case(kind: str, C: int, dim: int, n_ev: int, n_warm: int, n_cold: int, reuse, bf16: bool,
              device, seed: int) -> Dict:
     """A pool (C+1, dim) with random rows and state (row C zero) and one
     step's pieces: ``n_ev`` evicted rows (padded with C), ``n_warm`` warm
     entries and ``n_cold`` cold seeds (rows padded with C+1, bf16 where
-    ``bf16``); with ``reuse`` every miss takes a row evicted this step
-    (n_warm + n_cold <= n_ev), else rows nobody evicts. Empty pieces have
-    0 rows. Returns the keyword arguments of ``cache_aux`` but
-    ``wb_bf16``."""
+    ``bf16``). ``reuse`` (a share, True for 1): that share of the misses,
+    at random, take rows evicted this step, at random slots (their count
+    <= n_ev); the other misses take rows nobody evicts, and the slots no
+    miss takes stay unclaimed. Empty pieces have 0 rows. Returns the
+    keyword arguments of ``cache_aux`` but ``wb_bf16``, the pairing
+    (``m_slot``, ``c_slot``, ``ev_free``) included."""
     cfg = OPTIMIZERS[kind].config
     g = torch.Generator().manual_seed(seed)
     rng = np.random.default_rng(seed)
@@ -42,14 +44,20 @@ def aux_case(kind: str, C: int, dim: int, n_ev: int, n_warm: int, n_cold: int, r
     for s in state.values():
         s.copy_(torch.rand(s.shape, generator=g))
     width = dim + sum(s.shape[1] for s in state.values())
+    n_miss = n_warm + n_cold
+    n_reuse = int(round(float(reuse) * n_miss))
+    if n_reuse > n_ev:
+        raise ValueError("reuse needs its share of n_warm + n_cold <= n_ev")
     perm = rng.permutation(C)
     ev = perm[:n_ev]
-    if reuse:
-        if n_warm + n_cold > n_ev:
-            raise ValueError("reuse needs n_warm + n_cold <= n_ev")
-        miss = rng.permutation(ev)[:n_warm + n_cold]
-    else:
-        miss = perm[n_ev:n_ev + n_warm + n_cold]
+    who = rng.permutation(n_miss)[:n_reuse]  # the misses on evicted rows
+    taken = rng.permutation(n_ev)[:n_reuse]  # the slots they overwrite
+    miss = np.empty(n_miss, np.int64)
+    slots = np.full(n_miss, -1, np.int32)
+    miss[who], slots[who] = ev[taken], taken
+    apart = np.setdiff1d(np.arange(n_miss), who)
+    miss[apart] = perm[n_ev:n_ev + len(apart)]
+    free = np.setdiff1d(np.arange(_bucket(n_ev) if n_ev else 0), taken).astype(np.int32)
     dt = torch.bfloat16 if bf16 else torch.float32
 
     def rows(r, fill):
@@ -62,9 +70,24 @@ def aux_case(kind: str, C: int, dim: int, n_ev: int, n_warm: int, n_cold: int, r
         table=table, state=state, ev_rows=rows(ev, C), m_rows=m_rows,
         m_entries=torch.randn((m_rows.shape[0], width), generator=g).to(dt), c_rows=c_rows,
         c_emb=torch.randn((c_rows.shape[0], dim), generator=g).to(dt), state_consts=consts,
+        m_slot=rows(slots[:n_warm], -1), c_slot=rows(slots[n_warm:], -1), ev_free=rows(free, -1),
     )
     return {k: (v.to(device) if torch.is_tensor(v) else
                 {kk: vv.to(device) for kk, vv in v.items()} if isinstance(v, dict) else v) for k, v in out.items()}
+
+
+def all_pads(case: Dict, C: int) -> Dict:
+    """``case`` (an ``aux_case``) with every row a pad: evictions C (the
+    zero row), writes C+1 (dropped); no write claims a slot, so every slot
+    is listed unclaimed."""
+    case["ev_rows"].fill_(C)
+    case["m_rows"].fill_(C + 1)
+    case["c_rows"].fill_(C + 1)
+    case["m_slot"].fill_(-1)
+    case["c_slot"].fill_(-1)
+    n_ev = case["ev_rows"].shape[0]
+    case["ev_free"] = torch.arange(n_ev, dtype=torch.int32, device=case["ev_rows"].device)
+    return case
 
 
 def gather_case(S: int, B: int, L: int, C: int, dim: int, device, seed: int, pad_share: float = 0.25,

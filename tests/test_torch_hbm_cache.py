@@ -8,7 +8,11 @@ numpy-seeded inputs.
   init of every method: bit for bit;
 - K12's plain version against ``_apply_aux`` and ``_gather_entry_rows``
   (f32 and bf16 wires, SGD / Adagrad / Adam, every miss reusing an evicted
-  row): bit for bit;
+  row, some of them): bit for bit; with the ring against
+  ``_apply_aux_ring`` (positions that fit, that the clamp moves, negative
+  ones): bit for bit; it refuses a pairing under which the kernel could
+  read a row after its write; the tier's pairing holds at every step of a
+  saturated directory (both admit paths);
 - K13's plain version against the gather + ``_model_emb_from_gathered``
   and ``_gather_ext``: bit for bit at L=1, within 1e-6 at L <= 8;
 - ``CachedTrainCtx`` held to the reference's over 6 steps: every step's
@@ -48,7 +52,13 @@ from persia_tpu_torch.embedding.native_store import NativeEmbeddingStore
 from persia_tpu_torch.embedding.store import EmbeddingStore
 from persia_tpu_torch.embedding.worker import EmbeddingWorker
 from persia_tpu_torch.models import DLRM
-from persia_tpu_torch.ops.cache_aux import cache_aux_reference, gather_entry_rows_reference
+from persia_tpu_torch.ops.cache_aux import (
+    cache_aux_reference,
+    cache_aux_ring_reference,
+    check_pairing,
+    gather_entry_rows_reference,
+    ring_start,
+)
 from persia_tpu_torch.ops.cached_gather import cached_gather_reference, per_position_grads
 from persia_tpu_torch.weights import cached_dense_from_flax, seeded_flax_params_like
 from persia_tpu_torch.wire import bf16_bits_to_f32
@@ -150,7 +160,10 @@ def _aux_inputs(kind, C, reuse, seed):
     state = {k: rng.random((C + 1, w)).astype(np.float32) for k, w in widths}
     perm = rng.permutation(C)
     ev = perm[:10]
-    if reuse:
+    if reuse == "partial":  # misses on ev[0, 3, 5, 7, 8]; ev[1, 2, 4, 6, 9] unclaimed
+        m_rows = np.array([ev[0], ev[3], perm[10], perm[11], ev[5], perm[12]])
+        c_rows = np.array([perm[13], ev[7], ev[8], perm[14]])
+    elif reuse:
         m_rows, c_rows = ev[:6], ev[6:]
     else:
         m_rows, c_rows = perm[10:16], perm[16:20]
@@ -161,21 +174,39 @@ def _aux_inputs(kind, C, reuse, seed):
         out[:len(rows)] = rows
         return out
 
-    return cfg, dict(
+    x = dict(
         table=table, state=state,
         ev_rows=pad(ev, 16, C), m_rows=pad(m_rows, 8, C + 1), c_rows=pad(c_rows, 8, C + 1),
         m_entries=rng.normal(size=(8, E)).astype(np.float32), c_emb=rng.normal(size=(8, dim)).astype(np.float32),
     )
+    x.update(_pairing(x["ev_rows"][:len(ev)], len(x["ev_rows"]), x["m_rows"], x["c_rows"]))
+    return cfg, x
 
 
-@pytest.mark.parametrize("reuse", [False, True])
+def _pairing(ev, n_ev, m_rows, c_rows):
+    """K12's pairing of writes that land on evicted rows: each write's slot
+    in ``ev`` (the live evictions) or -1, and the slots no write claims
+    (of ``n_ev``, pads included)."""
+    where = {int(r): i for i, r in enumerate(ev)}
+    m_slot, c_slot = ([where.get(int(r), -1) for r in rows] for rows in (m_rows, c_rows))
+    claimed = {s for s in m_slot + c_slot if s >= 0}
+    return dict(m_slot=np.array(m_slot, np.int32), c_slot=np.array(c_slot, np.int32),
+                ev_free=np.array([s for s in range(n_ev) if s not in claimed], np.int32))
+
+
+def _torch_pairing(x):
+    return {k: torch.from_numpy(x[k]) for k in ("m_slot", "c_slot", "ev_free")}
+
+
+@pytest.mark.parametrize("reuse", [False, True, "partial"])
 @pytest.mark.parametrize("wire", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kind", ["sgd", "adagrad", "adagrad_vw", "adam"])
 def test_cache_aux_plain_matches_reference(kind, wire, reuse):
     """K12's plain version: the payload (read before the writes), the
     table and every state column after, bit for bit ``_apply_aux``; with
-    ``reuse`` every miss is admitted into a row evicted this step."""
-    cfg, x = _aux_inputs(kind, 64, reuse, seed=len(kind) + 7 * reuse)
+    ``reuse`` every miss is admitted into a row evicted this step, with
+    "partial" some are and some evictions no write claims."""
+    cfg, x = _aux_inputs(kind, 64, reuse, seed=len(kind) + 7 * (reuse is True) + 3 * (reuse == "partial"))
     bf16 = wire == "bfloat16"
     m_ent, c_emb = x["m_entries"], x["c_emb"]
     if bf16:  # the aux wire: the same bits on both sides
@@ -193,7 +224,7 @@ def test_cache_aux_plain_matches_reference(kind, wire, reuse):
     tconsts = thbm.groups._state_init_consts(cfg)
     assert tconsts == consts
     pay = cache_aux_reference(table, state, torch.from_numpy(x["ev_rows"]), torch.from_numpy(x["m_rows"]), t(m_ent),
-                              torch.from_numpy(x["c_rows"]), t(c_emb), tconsts, bf16)
+                              torch.from_numpy(x["c_rows"]), t(c_emb), tconsts, bf16, **_torch_pairing(x))
     if bf16:
         assert pay.dtype == torch.bfloat16
         np.testing.assert_array_equal(pay.view(torch.int16).numpy(), np.asarray(jpay).view(np.int16))
@@ -224,13 +255,92 @@ def test_cache_aux_wrapper_takes_the_plain_version_on_cpu():
     state = {k: torch.from_numpy(v.copy()) for k, v in x["state"].items()}
     consts = thbm.groups._state_init_consts(cfg)
     empty = torch.empty(0, dtype=torch.int32)
+    unclaimed = dict(m_slot=empty, c_slot=empty, ev_free=torch.arange(16, dtype=torch.int32))
     pay = thbm.groups._apply_aux(table, state, torch.from_numpy(x["ev_rows"]), empty,
-                                 torch.empty((0, 2 * DIM)), empty, torch.empty((0, DIM)), consts)
+                                 torch.empty((0, 2 * DIM)), empty, torch.empty((0, DIM)), consts, **unclaimed)
     assert pay.shape == (16, 2 * DIM)
     np.testing.assert_array_equal(table.numpy(), x["table"])
     with pytest.raises(ValueError):
         thbm.groups._apply_aux(table, state, torch.from_numpy(x["ev_rows"]).long(), empty,
-                               torch.empty((0, 2 * DIM)), empty, torch.empty((0, DIM)), consts)
+                               torch.empty((0, 2 * DIM)), empty, torch.empty((0, DIM)), consts, **unclaimed)
+
+
+@pytest.mark.parametrize("fault", ["wrong_row", "claimed_twice", "claimed_and_free", "unlisted", "write_on_free",
+                                   "slot_past_the_payload", "dropped_row_claims"])
+def test_cache_aux_plain_raises_on_a_broken_pairing(fault):
+    """The plain version on CPU tensors refuses a pairing under which the
+    kernel could read a row after its write (or leave a slot unread)."""
+    cfg, x = _aux_inputs("adagrad", 64, "partial", seed=9)
+    p = _torch_pairing(x)
+    m_slot, c_slot, ev_free = (p[k].clone() for k in ("m_slot", "c_slot", "ev_free"))
+    m_rows = torch.from_numpy(x["m_rows"].copy())
+    claimed = int((m_slot >= 0).nonzero()[0])
+    if fault == "wrong_row":  # two claims swapped: each slot's row is the other write's
+        other = int((c_slot >= 0).nonzero()[0])
+        m_slot[claimed], c_slot[other] = c_slot[other].clone(), m_slot[claimed].clone()
+    elif fault == "claimed_twice":
+        c_slot[int((c_slot >= 0).nonzero()[0])] = m_slot[claimed]
+    elif fault == "claimed_and_free":
+        ev_free = torch.cat([ev_free, m_slot[claimed:claimed + 1]])
+    elif fault == "unlisted":
+        ev_free = ev_free[1:]
+    elif fault == "write_on_free":  # a write lands on an unclaimed eviction's row
+        m_rows[int((m_slot < 0).nonzero()[0])] = int(x["ev_rows"][int(ev_free[0])])
+    elif fault == "slot_past_the_payload":
+        ev_free = torch.cat([ev_free, torch.tensor([16], dtype=torch.int32)])
+    else:  # a pad write (dropped) that claims a slot
+        m_rows[claimed] = 64 + 1
+    table = torch.from_numpy(x["table"].copy())
+    state = {k: torch.from_numpy(v.copy()) for k, v in x["state"].items()}
+    consts = thbm.groups._state_init_consts(cfg)
+    with pytest.raises(ValueError):
+        cache_aux_reference(table, state, torch.from_numpy(x["ev_rows"]), m_rows, torch.from_numpy(x["m_entries"]),
+                            torch.from_numpy(x["c_rows"]), torch.from_numpy(x["c_emb"]), consts,
+                            m_slot=m_slot, c_slot=c_slot, ev_free=ev_free)
+    np.testing.assert_array_equal(table.numpy(), x["table"])  # nothing written
+
+
+@pytest.mark.parametrize("wb_bf16", [False, True])
+@pytest.mark.parametrize("ring_pos", [3, 40, -5, -60])
+def test_cache_aux_ring_plain_matches_reference(ring_pos, wb_bf16):
+    """The ring's plain version bit for bit ``_apply_aux_ring``: the ring
+    (48 rows; the 16-row payload lands at 3, clamped from 40 to 32; a
+    negative position counts from the end: -5 to 43, clamped to 32, -60
+    to -12, clamped to 0), the payload, the table and the state; the
+    wrapper on CPU tensors is it."""
+    cfg, x = _aux_inputs("adam", 64, "partial", seed=abs(ring_pos) + 10)
+    consts = jgroups._state_init_consts(_opt("adam")(joptim).config)
+    E = 3 * DIM
+    ring0 = np.random.default_rng(1).normal(size=(48, E)).astype(np.float32)
+    if wb_bf16:
+        ring0 = ring0.astype(ml_dtypes.bfloat16)
+    jt, js, jring, jpay = jgroups._apply_aux_ring(
+        jnp.asarray(x["table"]), {k: jnp.asarray(v) for k, v in x["state"].items()}, jnp.asarray(ring0),
+        jnp.int32(ring_pos), jnp.asarray(x["ev_rows"]), jnp.asarray(x["m_rows"]), jnp.asarray(x["m_entries"]),
+        jnp.asarray(x["c_rows"]), jnp.asarray(x["c_emb"]), consts, wb_bf16)
+    args = [torch.from_numpy(x[k]) for k in ("ev_rows", "m_rows", "m_entries", "c_rows", "c_emb")]
+
+    def bits(a):
+        a = np.asarray(a)
+        return a.view(np.int16) if a.dtype == ml_dtypes.bfloat16 else a
+
+    for fn in (lambda t, s, r: cache_aux_ring_reference(t, s, r, ring_pos, *args, consts, wb_bf16,
+                                                         **_torch_pairing(x)),
+               lambda t, s, r: thbm.groups._apply_aux(t, s, *args, consts, wb_bf16, ring=r, ring_pos=ring_pos,
+                                                      **_torch_pairing(x))):
+        table = torch.from_numpy(x["table"].copy())
+        state = {k: torch.from_numpy(v.copy()) for k, v in x["state"].items()}
+        ring = torch.from_numpy(bits(ring0).copy())
+        if wb_bf16:
+            ring = ring.view(torch.bfloat16)
+        pay = fn(table, state, ring)
+        as_np = (lambda t: t.view(torch.int16).numpy()) if wb_bf16 else (lambda t: t.numpy())
+        np.testing.assert_array_equal(as_np(ring), bits(jring))
+        np.testing.assert_array_equal(as_np(pay), bits(jpay))
+        np.testing.assert_array_equal(table.numpy(), np.asarray(jt))
+        for k in state:
+            np.testing.assert_array_equal(state[k].numpy(), np.asarray(js[k]), err_msg=k)
+    assert ring_start(48, ring_pos, 16) == {3: 3, 40: 32, -5: 32, -60: 0}[ring_pos]
 
 
 # ------------------------------------------------------- K13: gather-pool
@@ -398,7 +508,7 @@ def _compare_lists(jsteps, tsteps, C, entry_tol):
                     np.testing.assert_array_equal(got, want)
         assert set(tev) == set(jev)
         for k in jev:
-            np.testing.assert_array_equal(tev[k], jev[k])
+            np.testing.assert_array_equal(tev[k][0], jev[k])
             js, jk, _ring_pos = jmeta[k]
             ts, tk = tmeta[k]
             assert tk == jk
@@ -490,6 +600,43 @@ def test_cached_ctx_matches_reference(case):
         np.testing.assert_allclose(got, ref, err_msg=str(sign), **entry_tol)
     if opt == "adam":
         assert tctx.worker.lookup_router.batch_advances == {g: 6 for g in range(3)}
+
+
+@pytest.mark.parametrize("variable", [False, True])
+def test_tier_pairing_holds_on_a_saturated_directory(variable):
+    """The directory hands the k rows a call evicts to its last k misses, in
+    order: at every step of a saturated cache (both admit paths), each
+    eviction slot is claimed by exactly one warm or cold write, the
+    unclaimed list is the pads, a claimed slot's row is its writer's row,
+    and ``check_pairing`` passes."""
+    cfg = _cfg(tcfg, variable)
+    store = EmbeddingStore(capacity=1 << 14, num_internal_shards=2, seed=3, optimizer=toptim.Adagrad(lr=0.1).config)
+    model = DLRM(DENSE, 5 if variable else 3, DIM, BOTTOM, TOP, compute_dtype=torch.float32, device="cpu")
+    ctx = thbm.CachedTrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3), toptim.Adagrad(lr=0.1),
+                              EmbeddingWorker(cfg, [store]), cfg, cache_rows=128 if variable else 64,
+                              device="cpu").__enter__()
+    rec = _Recorder(ctx.tier)
+    for s in range(8):
+        ctx.train_step(_tbatch(_batch(s, variable)))
+    C = ctx.tier.groups[0].rows
+    evicting = 0
+    for _inputs, _layout, miss, cold, ev, meta in rec.steps:
+        for g in set(miss) | set(cold) | set(ev):
+            writes = [w for w in (miss.get(g), cold.get(g)) if w is not None]
+            e_rows, e_free = ev.get(g, (np.empty(0, np.int32), np.empty(0, np.int32)))
+            k = meta[g][1] if g in meta else 0
+            claims = np.concatenate([slot[slot >= 0] for _, _, slot in writes])
+            np.testing.assert_array_equal(np.sort(claims), np.arange(k))
+            np.testing.assert_array_equal(e_free[e_free >= 0], np.arange(k, len(e_rows)))
+            for rows, _, slot in writes:
+                assert slot.shape == rows.shape
+                np.testing.assert_array_equal(e_rows[slot[slot >= 0]], rows[slot >= 0])
+            t = [torch.from_numpy(np.ascontiguousarray(a)) for a in (e_rows, e_free)]
+            m = [torch.from_numpy(a) for a in (miss[g][0], miss[g][2])] if g in miss else [t[1][:0]] * 2
+            c = [torch.from_numpy(a) for a in (cold[g][0], cold[g][2])] if g in cold else [t[1][:0]] * 2
+            check_pairing(C + 1, t[0], m[0], m[1], c[0], c[1], t[1])
+            evicting += k > 0
+    assert evicting >= 3, "the cache must saturate"
 
 
 def test_cached_ctx_eval_changes_nothing():

@@ -299,3 +299,29 @@ def test_attention_pool_plan_refuses_rows_past_the_registers():
         plans.attention_pool_plan(4, longest + 1, 16, 2)
     with pytest.raises(ValueError):
         plans.attention_pool_plan(4, 10, 16, 1)
+
+
+@pytest.mark.parametrize("widths,wide,aligned,vec", [
+    ((16, 16), True, True, 8),  # the bench: dim 16, Adagrad's acc, bf16 wires: 16 bytes of bf16
+    ((16, 16), False, True, 4),  # f32 throughout: a float4
+    ((16,), True, True, 8),  # SGD
+    ((16, 16, 16), True, True, 8),  # Adam
+    ((16, 1), True, True, 1),  # Adagrad's vector-wise acc: scalar columns
+    ((16, 1), False, True, 1),
+    ((12, 12), True, True, 4),  # a multiple of 4 but not of 8
+    ((8, 4), True, True, 4),
+    ((16, 16), True, False, 1),  # an array off 16 bytes
+    ((6,), False, True, 1),
+])
+def test_cache_entry_vec(widths, wide, aligned, vec):
+    """K12's and its read's vector: the widest of 8 (where bf16 is
+    involved) and 4 that divides every array's width, on 16-byte arrays;
+    else scalar columns."""
+    assert plans.cache_entry_vec(widths, wide, aligned) == vec
+    assert all(w % vec == 0 for w in widths)
+
+
+def test_cache_entry_vec_refuses_an_entry_without_a_table():
+    for widths in ((), (0, 16), (16, -1)):
+        with pytest.raises(ValueError):
+            plans.cache_entry_vec(widths, True)

@@ -1500,62 +1500,150 @@ def test_dnn_backward_on_card_reaches_the_embeddings(cuda, compute_dtype):
 # ------------------------------------------- the cache tier: K12 and K13
 
 
-def _cache_aux_both(case, wb_bf16):
+def _cache_aux_both(case, wb_bf16, ring_pos=None):
     """K12 on the card and its plain version on the CPU, from one case's
-    copies: (payload, table, state) of each."""
-    from persia_tpu_torch.ops.cache_aux import cache_aux, cache_aux_reference
+    copies: (payload, table, state, ring) of each; with ``ring_pos`` a
+    seeded ring of the payload's rows + 24 takes the payload too."""
+    from persia_tpu_torch.ops.cache_aux import cache_aux, cache_aux_reference, cache_aux_ring_reference
 
     cpu = {k: (v.cpu().clone() if torch.is_tensor(v) else
                {kk: vv.cpu().clone() for kk, vv in v.items()} if isinstance(v, dict) else v) for k, v in case.items()}
+    ring = rring = None
+    if ring_pos is not None:
+        width = case["table"].shape[1] + sum(s.shape[1] for s in case["state"].values())
+        rring = torch.randn((case["ev_rows"].shape[0] + 24, width), generator=torch.Generator().manual_seed(5)).to(
+            torch.bfloat16 if wb_bf16 else torch.float32)
+        ring = rring.to(case["table"].device)
     before = cache_aux.launches
-    pay = cache_aux(**case, wb_bf16=wb_bf16)
-    assert cache_aux.launches == before + 1
-    ref = cache_aux_reference(**cpu, wb_bf16=wb_bf16)
-    return (pay, case["table"], case["state"]), (ref, cpu["table"], cpu["state"])
+    pay = cache_aux(**case, wb_bf16=wb_bf16, ring=ring, ring_pos=ring_pos or 0)
+    rows = case["m_rows"].numel() + case["c_rows"].numel() + case["ev_free"].numel()
+    assert cache_aux.launches == before + (rows > 0)
+    if ring is None:
+        ref = cache_aux_reference(**cpu, wb_bf16=wb_bf16)
+    else:
+        ref = cache_aux_ring_reference(ring=rring, ring_pos=ring_pos, **cpu, wb_bf16=wb_bf16)
+    return (pay, case["table"], case["state"], ring), (ref, cpu["table"], cpu["state"], rring)
 
 
-@pytest.mark.parametrize("reuse", [False, True])
-@pytest.mark.parametrize("wires", [(False, False), (True, True), (True, False)])
-@pytest.mark.parametrize("kind", ["sgd", "adagrad", "adagrad_vw", "adam"])
-def test_cache_aux_kernel_matches_plain_bitwise(cuda, kind, wires, reuse):
-    """K12 bit for bit its plain version: the payload (f32, or bf16 ties to
-    even), the table and every state column after; with ``reuse`` every
-    miss takes a row evicted this step, so the payload must be read
-    before the writes."""
-    from persia_tpu_torch.testing.cache_cases import aux_case
-
-    aux_bf16, wb_bf16 = wires
-    case = aux_case(kind, 4096, 16, 1500, 900 if reuse else 700, 600 if reuse else 500, reuse, aux_bf16, cuda,
-                    seed=len(kind))
-    (pay, table, state), (rpay, rtable, rstate) = _cache_aux_both(case, wb_bf16)
+def _assert_aux_bits(got, want):
+    (pay, table, state, ring), (rpay, rtable, rstate, rring) = got, want
     assert torch.equal(_bits(pay), _bits(rpay))
     assert torch.equal(table.cpu(), rtable)
     for k in state:
         assert torch.equal(state[k].cpu(), rstate[k]), k
+    if ring is not None:
+        assert torch.equal(_bits(ring), _bits(rring))
+
+
+@pytest.mark.parametrize("reuse", [False, True, "partial"])
+@pytest.mark.parametrize("wires", [(False, False), (True, True), (True, False)])
+@pytest.mark.parametrize("kind", ["sgd", "adagrad", "adagrad_vw", "adam"])
+def test_cache_aux_kernel_matches_plain_bitwise(cuda, kind, wires, reuse):
+    """K12 (one kernel) bit for bit its plain version: the payload (f32, or
+    bf16 ties to even), the table and every state column after; with
+    ``reuse`` every miss takes a row evicted this step, so each such row
+    must be read before its write (in the thread that writes it); with
+    "partial" half the misses do and some evictions no write claims."""
+    from persia_tpu_torch.testing.cache_cases import aux_case
+
+    aux_bf16, wb_bf16 = wires
+    share = 0.5 if reuse == "partial" else reuse
+    case = aux_case(kind, 4096, 16, 1500, 900 if reuse else 700, 600 if reuse else 500, share, aux_bf16, cuda,
+                    seed=len(kind) + 3 * (reuse == "partial"))
+    _assert_aux_bits(*_cache_aux_both(case, wb_bf16))
+
+
+@pytest.mark.parametrize("ring_pos", [0, 7, 10_000, -3])
+@pytest.mark.parametrize("wires", [(False, False), (True, True)])
+@pytest.mark.parametrize("kind", ["adagrad", "adagrad_vw", "adam"])
+def test_cache_aux_kernel_ring_matches_plain(cuda, kind, wires, ring_pos):
+    """K12 with the ring: the payload stored a second time from
+    ``ring_start`` (a position that fits, one the clamp moves, a negative
+    one counted from the end), bit for bit the plain ring version, the rest
+    of the ring untouched."""
+    from persia_tpu_torch.testing.cache_cases import aux_case
+
+    aux_bf16, wb_bf16 = wires
+    case = aux_case(kind, 4096, 16, 1500, 700, 600, 0.5, aux_bf16, cuda, seed=ring_pos % 97)
+    _assert_aux_bits(*_cache_aux_both(case, wb_bf16, ring_pos=ring_pos))
 
 
 def test_cache_aux_kernel_all_pads_and_empty_pieces(cuda):
     """Pieces whose rows are all pads (C for the payload: the zero row;
-    C+1 for the writes: dropped) and pieces with no rows."""
+    C+1 for the writes: dropped) and pieces with no rows: no launch."""
+    from persia_tpu_torch.testing.cache_cases import all_pads, aux_case
+
+    case = all_pads(aux_case("adagrad", 256, 16, 5, 3, 2, False, False, cuda, seed=3), 256)
+    _assert_aux_bits(*_cache_aux_both(case, False))
+    _assert_aux_bits(*_cache_aux_both(all_pads(aux_case("adam", 256, 16, 5, 3, 2, False, True, cuda, seed=4), 256),
+                                      True, ring_pos=2))
+    empty = aux_case("adam", 64, 16, 0, 0, 0, False, True, cuda, seed=4)
+    got, want = _cache_aux_both(empty, True)
+    assert got[0].shape == (0, 48)
+    _assert_aux_bits(got, want)
+    only_writes = aux_case("adagrad", 256, 16, 0, 3, 2, False, True, cuda, seed=5)
+    _assert_aux_bits(*_cache_aux_both(only_writes, True))
+
+
+_ONE_K12_CALL = """
+import json
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from persia_tpu_torch.ops.cache_aux import cache_aux
+from persia_tpu_torch.testing.cache_cases import aux_case
+
+case = aux_case("adagrad", 1 << 18, 16, 7820, 500, 7320, 1, True, "cuda", seed=6)
+ring = torch.empty((2 * case["ev_rows"].shape[0], 32), dtype=torch.bfloat16, device="cuda")
+cache_aux(**case, wb_bf16=True, ring=ring, ring_pos=5)  # the library's load and first launch, untraced
+torch.cuda.synchronize()
+before = cache_aux.launches
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    cache_aux(**case, wb_bf16=True, ring=ring, ring_pos=5)
+    torch.cuda.synchronize()
+print(json.dumps({"launches": cache_aux.launches - before,
+                  "device": [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                             and not getattr(e, "is_user_annotation", False)]}))
+"""
+
+
+def test_cache_aux_call_is_one_kernel(cuda):
+    """One K12 call at a saturated step's pieces runs exactly one kernel on
+    the card (torch.profiler's device trace): the payload, the ring and the
+    writes in one launch. In a process of its own: after other profiles in
+    one process a trace can come back without its device records."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([root, os.environ.get("PYTHONPATH", "")]))
+    run = subprocess.run([sys.executable, "-c", _ONE_K12_CALL], cwd=root, env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert run.returncode == 0, run.stderr[-2000:]
+    traced = json.loads(run.stdout.strip().splitlines()[-1])
+    assert traced["launches"] == 1
+    assert len(traced["device"]) == 1 and "cache_aux_kernel" in traced["device"][0], traced
+
+
+@pytest.mark.parametrize("kind", ["sgd", "adagrad", "adagrad_vw", "adam"])
+def test_gather_entry_rows_kernel_matches_plain(cuda, kind):
+    """The flush's read (16-byte where the widths allow) bit for bit its
+    plain version, rows out of range clamped; one launch a call, none for
+    no rows."""
     from persia_tpu_torch.ops.cache_aux import gather_entry_rows, gather_entry_rows_reference
     from persia_tpu_torch.testing.cache_cases import aux_case
 
-    case = aux_case("adagrad", 256, 16, 5, 3, 2, False, False, cuda, seed=3)
-    C = 256
-    case["ev_rows"].fill_(C)
-    case["m_rows"].fill_(C + 1)
-    case["c_rows"].fill_(C + 1)
-    (pay, table, state), (rpay, rtable, rstate) = _cache_aux_both(case, False)
-    assert torch.equal(pay.cpu(), rpay) and torch.equal(table.cpu(), rtable)
-    assert torch.equal(state["acc"].cpu(), rstate["acc"])
-    empty = aux_case("adam", 64, 16, 0, 0, 0, False, True, cuda, seed=4)
-    (pay, table, _), (rpay, rtable, _) = _cache_aux_both(empty, True)
-    assert pay.shape == (0, 48) and torch.equal(table.cpu(), rtable)
-    rows = torch.tensor([3, 0, 64, 9], dtype=torch.int32, device=cuda)
-    got = gather_entry_rows(empty["table"], empty["state"], rows)
-    assert torch.equal(got.cpu(), gather_entry_rows_reference(empty["table"].cpu(),
-                                                              {k: v.cpu() for k, v in empty["state"].items()},
-                                                              rows.cpu()))
+    case = aux_case(kind, 4096, 16, 1, 0, 0, False, False, cuda, seed=7)
+    rows = torch.randperm(4097, generator=torch.Generator().manual_seed(2))[:3000].int()
+    rows[:3] = torch.tensor([-4, 4096, 1 << 20], dtype=torch.int32)
+    before = gather_entry_rows.launches
+    got = gather_entry_rows(case["table"], case["state"], rows.to(cuda))
+    none = gather_entry_rows(case["table"], case["state"], rows[:0].to(cuda))
+    assert gather_entry_rows.launches == before + 1 and none.shape[0] == 0
+    ref = gather_entry_rows_reference(case["table"].cpu(), {k: v.cpu() for k, v in case["state"].items()}, rows)
+    assert torch.equal(got.cpu(), ref)
 
 
 def _sum_tolerance(case, L):
