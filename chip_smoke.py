@@ -83,7 +83,11 @@ result line:
    ``cached_gather`` at the bench's (26, 4096, 1) rows on 2^21- and
    2^18-row pools (zipf rows, pads, scales, eval misses) bit for bit, at
    L = 4 and 8 within the f32 sum-order bound (L - 1) * 2^-23 *
-   sum |x| * |scale|, its keys, raw rows and mask bit for bit;
+   sum |x| * |scale|, its keys, raw rows and mask bit for bit; K14
+   ``restore_rows`` (one launch a call with rows, none without) bit for
+   bit (pool and state) for SGD, Adagrad (and vectorwise) and Adam from
+   f32 and bf16 rings, every row a pad, no rows, and restoring rows that
+   a K12 call just wrote from the ring span that call just filled;
 4. the paths, each with the launch counts set to 0 just before and read
    just after: (a) the flash-attention entry point at (B=4, L=1024, H=8,
    D=64) in bf16 and in f32, causal and not, and its backward (a dense
@@ -211,7 +215,20 @@ result line:
    server's entries of the batches' signs after ``flush`` within 1e-2;
    and, with SGD, no eviction, the gate off and f32 wires, the cache
    tier's rows after ``flush`` within 1e-2 of the hybrid ``TrainCtx``'s
-   on the same 4 batches;
+   on the same 4 batches; then, in each regime, the stream
+   (``CachedTrainCtx.train_stream`` at ``bench.py``'s knobs: ``dispatch_k=8``,
+   ``pipeline_depth=1``, ``fetch_final=False``, ``prefetch=3``,
+   ``wb_flush_steps=8``) over the same batches from the same start, counted
+   (K13, K5 and the dot interaction once a step, K12 once a step that
+   touched the pool, K14 once a step that restored; the saturated stream
+   must restore): the directory's decisions (row matrices, cold rows, the
+   warm and restored rows together, evicted rows and signs) those of the
+   synchronous steps at every step, the last loss finite, the server's
+   entries after ``flush`` within 1e-5 relative of the synchronous run's;
+   samples/s beside the synchronous path's, each lane's busy seconds,
+   steps a pack, restores a step, K12/K13/K14 launches a step, card busy
+   ms a step (the last 3 batches as a stream under the profiler) and peak
+   device bytes;
 5. timings of each kernel beside its plain version, the library call that
    computes the same function, and the card's bound, each by CUDA-graph
    replay (host enqueue cost out of the number; eager times beside them):
@@ -243,7 +260,9 @@ result line:
    cold (whole copies of the inputs, pool included, rotated), beside their
    plain versions and library calls (``index_select`` + ``cat`` +
    ``index_copy_``; ``F.embedding_bag`` with ``padding_idx``), K12 and
-   its read over the one-launch floor;
+   its read over the one-launch floor; K14 at the saturated stream's last
+   restoring step (its ring, its restores, its pool), beside its plain
+   version and ``index_select`` + ``index_copy_`` on the split columns;
    and (5b) the flash-attention backward, a dense recompute, beside SDPA's
    backward.
 
@@ -543,7 +562,7 @@ KERNEL_NAMES = ("fa_fwd_wgmma_kernel", "fa_fwd_tf32x3_kernel", "tf32_split_kerne
                 "sparse_update_long_kernel", "sparse_update_short_kernel",
                 "raw_gather_fwd_kernel", "raw_gather_bwd_kernel", "attention_pool_fwd_kernel",
                 "attention_pool_bwd_kernel", "batch_norm_fwd_kernel", "batch_norm_bwd_kernel",
-                "cache_aux_kernel", "entry_rows_kernel")
+                "cache_aux_kernel", "entry_rows_kernel", "restore_rows_kernel")
 # the DIN path's kernels (K6-K9) and K2's two passes
 DIN_KERNEL_NAMES = ("raw_gather_fwd_kernel", "raw_gather_bwd_kernel", "attention_pool_fwd_kernel",
                     "attention_pool_bwd_kernel")
@@ -3315,17 +3334,22 @@ def path_dnn(dev):
 
 CACHE_SOURCE = {"cache_aux": "persia_tpu_torch/csrc/cache_aux.cu",
                 "gather_entry_rows": "persia_tpu_torch/csrc/cache_aux.cu",
-                "cached_gather": "persia_tpu_torch/csrc/cached_gather.cu"}
+                "cached_gather": "persia_tpu_torch/csrc/cached_gather.cu",
+                "restore_rows": "persia_tpu_torch/csrc/restore_rows.cu"}
 CACHE_REPLACES = {"cache_aux": "persia_tpu/embedding/hbm_cache/groups.py:260",
                   "gather_entry_rows": "persia_tpu/embedding/hbm_cache/groups.py:240",
-                  "cached_gather": "persia_tpu/embedding/hbm_cache/step.py:154"}
+                  "cached_gather": "persia_tpu/embedding/hbm_cache/step.py:154",
+                  "restore_rows": "persia_tpu/embedding/hbm_cache/groups.py:250"}
 # the two regimes: the fill (2^21 rows, CACHE_FILL_STEPS steps) and the
 # saturated cache (2^18 rows, run until the last CACHE_SAT_TAIL steps all
 # evict; at most CACHE_SAT_MAX steps); CACHE_PROFILED steps of each under
 # the profiler; the SGD twin of the hybrid tier: its steps
 CACHE_FILL_ROWS, CACHE_SAT_ROWS = 1 << 21, 1 << 18
 CACHE_FILL_STEPS, CACHE_SAT_TAIL, CACHE_SAT_MAX, CACHE_PROFILED, CACHE_SGD_STEPS = 16, 16, 120, 3, 4
-CACHE_KERNELS = ("cache_aux", "gather_entry_rows", "cached_gather")
+CACHE_KERNELS = ("cache_aux", "gather_entry_rows", "cached_gather", "restore_rows")
+# the stream at bench.py's knobs (bench.py:466-522 and train_stream's
+# defaults), and the batches its card-busy share is profiled over
+STREAM_KNOBS = dict(dispatch_k=8, pipeline_depth=1, fetch_final=False, prefetch=3, wb_flush_steps=8)
 
 
 def to_cpu(case):
@@ -3357,9 +3381,11 @@ def phase_cache_kernels(dev):
         cache_aux_reference, cache_aux_ring_reference, gather_entry_rows_reference,
     )
     from persia_tpu_torch.ops.cached_gather import cached_gather_reference
-    from persia_tpu_torch.testing.cache_cases import all_pads, aux_case, gather_case
+    from persia_tpu_torch.ops.restore_rows import restore_rows_reference
+    from persia_tpu_torch.testing.cache_cases import all_pads, aux_case, gather_case, restore_case
 
-    print("== phase 3e: cache-tier kernels (K12 cache_aux, K13 cached_gather) vs their plain versions", flush=True)
+    print("== phase 3e: cache-tier kernels (K12 cache_aux, K13 cached_gather, K14 restore_rows) vs their plain "
+          "versions", flush=True)
     errs = {}
 
     def aux_check(label, case, wb_bf16, ring_pos=None):
@@ -3440,6 +3466,54 @@ def phase_cache_kernels(dev):
             raise SystemExit(f"gather_entry_rows ({kind}) disagrees with its plain version")
     errs["gather_entry_rows"] = 0.0
 
+    # K14: restores at a saturated stream step's scale (~700 rows from a
+    # 2^19-row ring into the 2^18-row pool), every optimizer, both rings;
+    # every row a pad; no rows
+    errs["restore_rows"] = 0.0
+
+    def restore_check(label, case, cpu=None):
+        cpu = cpu or to_cpu(case)
+        before = ops.restore_rows.launches
+        ops.restore_rows(**case)
+        restore_rows_reference(**cpu)
+        n = case["dst_rows"].numel()
+        ok = (ops.restore_rows.launches == before + (n > 0) and bits_equal(case["table"], cpu["table"])
+              and all(bits_equal(case["state"][k], cpu["state"][k]) for k in cpu["state"]))
+        err = float((case["table"].cpu() - cpu["table"]).abs().max())
+        live = int((case["dst_rows"] < case["table"].shape[0]).sum())
+        print(f"  restore_rows {label}: {live} live of {n} rows, ring {tuple(case['ring'].shape)} "
+              f"{str(case['ring'].dtype)[6:]}: max_abs_err={err:.3e} tolerance=0 (bitwise), "
+              f"{ops.restore_rows.launches - before} launch(es) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"restore_rows {label} disagrees with its plain version")
+        errs["restore_rows"] = max(errs["restore_rows"], err)
+
+    for kind in ("sgd", "adagrad", "adagrad_vw", "adam"):
+        for bf16 in (False, True):
+            restore_check(f"{kind} ring={'bf16' if bf16 else 'f32'}",
+                          restore_case(kind, CACHE_SAT_ROWS, EMB_DIM, 1 << 19, 700, bf16, dev,
+                                       seed=SEED + 50 + len(kind) + bf16))
+    case = restore_case("adagrad", CACHE_SAT_ROWS, EMB_DIM, 4096, 100, True, dev, seed=SEED + 51)
+    case["dst_rows"].fill_(CACHE_SAT_ROWS + 1)
+    restore_check("every row a pad", case)
+    restore_check("no rows", restore_case("adam", CACHE_SAT_ROWS, EMB_DIM, 4096, 0, False, dev, seed=SEED + 52))
+    # after a K12 call that wrote the ring span and the table rows the
+    # restores read from and write to, on the same stream
+    aux = aux_case("adagrad", CACHE_SAT_ROWS, EMB_DIM, 7700, 500, 7200, 0.5, True, dev, seed=SEED + 53)
+    acpu = to_cpu(aux)
+    ring = torch.zeros((1 << 14, 2 * EMB_DIM), dtype=torch.bfloat16, device=dev)
+    rring = ring.cpu().clone()
+    ops.cache_aux(**aux, wb_bf16=True, ring=ring, ring_pos=40)
+    cache_aux_ring_reference(ring=rring, ring_pos=40, **acpu, wb_bf16=True)
+    n = 300
+    src = torch.full((512,), 0, dtype=torch.int32)
+    dst = torch.full((512,), CACHE_SAT_ROWS + 1, dtype=torch.int32)
+    src[:n] = 40 + torch.randperm(7700, generator=torch.Generator().manual_seed(4))[:n].int()
+    dst[:n] = aux["m_rows"][:n].cpu()
+    restore_check("from the ring span and onto the rows a K12 call just wrote",
+                  dict(table=aux["table"], state=aux["state"], ring=ring, src_idx=src.to(dev), dst_rows=dst.to(dev)),
+                  cpu=dict(table=acpu["table"], state=acpu["state"], ring=rring, src_idx=src, dst_rows=dst))
+
     # K13: the bench's shape (26 slots x 4096, L=1) on a 2^21 pool with zipf
     # rows, the saturated pool with scales, eval misses; L > 1 with and
     # without scales (an f32 sum in another order: within (L - 1) * 2^-23 *
@@ -3515,8 +3589,12 @@ def cache_store(sparse="adagrad"):
 
 def cache_recorder(ctx):
     """Shadow the tier's ``prepare_batch``: per step, a digest of what the
-    directory decided (the row matrices, the warm, cold and evicted rows,
-    the evicted signs, K12's pairing) and the step's counts."""
+    directory decided and the tier staged (the row matrices, the warm,
+    cold and evicted rows, the evicted signs, K12's pairing, the restores),
+    a digest of the directory's decisions alone (the row matrices, the cold
+    rows, the warm and restored rows together: a re-miss is restored from
+    the ring or read from the server depending on when its write-back
+    lands; the evicted rows and signs), and the step's counts."""
     import hashlib
 
     steps = []
@@ -3524,26 +3602,44 @@ def cache_recorder(ctx):
     inner = tier.prepare_batch
     C = tier.groups[0].rows
 
+    def live(r):
+        r = np.asarray(r)
+        return r[r < C + 1]
+
     def wrapped(batch, **kw):
         before = tier.counts()
         out = inner(batch, **kw)
-        inputs, _layout, miss, cold, ev, meta = out
-        h = hashlib.sha256()
+        inputs, _layout, miss, cold, restore, ev, meta = out
+        h, d = hashlib.sha256(), hashlib.sha256()
         for g in sorted(inputs["stacked_rows"]):
-            h.update(np.ascontiguousarray(inputs["stacked_rows"][g]).tobytes())
-        for d in (miss, cold):
-            for g in sorted(d):
-                h.update(np.asarray(d[g][0]).tobytes())
-                h.update(d[g][2].tobytes())
+            rows = np.ascontiguousarray(inputs["stacked_rows"][g]).tobytes()
+            h.update(rows)
+            d.update(rows)
+        for dd in (miss, cold):
+            for g in sorted(dd):
+                h.update(np.asarray(dd[g][0]).tobytes())
+                h.update(dd[g][2].tobytes())
+        for g in sorted(restore):
+            h.update(restore[g][0].tobytes())
+            h.update(restore[g][1].tobytes())
         for g in sorted(ev):
             h.update(ev[g][0].tobytes())
             h.update(ev[g][1].tobytes())
             h.update(meta[g][0].tobytes())
+            d.update(ev[g][0].tobytes())
+            d.update(meta[g][0].tobytes())
+        for g in sorted(set(miss) | set(cold) | set(restore)):
+            d.update(g.encode())
+            d.update(live(cold[g][0]).tobytes() if g in cold else b"")
+            back = [live(miss[g][0])] if g in miss else []
+            back += [live(restore[g][1])] if g in restore else []
+            d.update(np.sort(np.concatenate(back)).astype(np.int64).tobytes() if back else b"")
         after = tier.counts()
         steps.append(dict(
-            digest=h.hexdigest(), touched=bool(miss or cold or ev),
+            digest=h.hexdigest(), decisions=d.hexdigest(), touched=bool(miss or cold or ev),
             warm=sum(int((np.asarray(r) < C + 1).sum()) for r, *_ in miss.values()),
             cold=sum(int((np.asarray(r) < C + 1).sum()) for r, *_ in cold.values()),
+            restored=sum(int((np.asarray(dst) < C + 1).sum()) for _src, dst in restore.values()),
             **{k: after[k] - before[k] for k in after}))
         return out
 
@@ -3574,9 +3670,9 @@ def run_cache_regime(dev, regime, rows, sd):
     last = {}
     feed = ctx._apply_feed
 
-    def keep_feed(miss, cold, ev):  # the last step's aux pieces, for phase 5
+    def keep_feed(miss, cold, ev, meta=None):  # the last step's aux pieces, for phase 5
         last["aux"] = (miss, cold, ev)
-        return feed(miss, cold, ev)
+        return feed(miss, cold, ev, meta)
 
     ctx._apply_feed = keep_feed
     step_fn = ctx._step
@@ -3592,8 +3688,11 @@ def run_cache_regime(dev, regime, rows, sd):
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     per_step = {k: [] for k in stages}  # each stage's ms in each timed step
+    make_s = 0.0  # the synthetic batches' making, inside the loop but no part of a step
     while True:
+        t = time.perf_counter()
         batches.append(make())
+        make_s += time.perf_counter() - t
         marks = {k: len(v) for k, v in stages.items()}
         t = time.perf_counter()
         ctx.train_step(batches[-1], fetch_metrics=False)
@@ -3674,6 +3773,9 @@ def run_cache_regime(dev, regime, rows, sd):
         raise SystemExit(f"cache path ({regime}): the servers hold other signs ({store.size()} vs "
                          f"{cpu_store.size()})")
     row_err = float(np.abs(vals_card[warm_card] - vals_cpu[warm_cpu]).max())
+    sync = {"batches": batches, "timed_steps": timed_steps, "decisions": [st["decisions"] for st in rec],
+            "signs": signs, "warm": warm_card, "vals": vals_card,
+            "samples_per_s": timed_steps * BATCH / (wall - make_s)}
     print(f"  directory decisions (row matrices, warm / cold / evicted rows, evicted signs) = the CPU's at every "
           f"one of {steps} steps; losses max_abs_err={loss_err:.3e} tolerance=2e-2; server entries after flush, "
           f"{int(warm_card.sum())} of the batches' {len(signs)} signs: max_abs_err={row_err:.3e} tolerance=1e-2 "
@@ -3683,7 +3785,9 @@ def run_cache_regime(dev, regime, rows, sd):
     timed = rec[:timed_steps]
     record = {
         "cache_rows": rows, "batch": BATCH, "steps": steps, "timed_steps": timed_steps,
-        "samples_per_s": timed_steps * BATCH / wall, "wall_s": wall,
+        "samples_per_s": timed_steps * BATCH / (wall - make_s), "wall_s": wall - make_s,
+        # as PRs 15-16 measured it: the wall with the batches' making in it
+        "samples_per_s_with_batch_making": timed_steps * BATCH / wall, "batch_making_s": make_s,
         "step_ms_p50": float(np.percentile(step_ms, 50)), "step_ms_max": max(step_ms), "step_ms_all": step_ms,
         "stage_ms_p50": {k: float(np.percentile(v, 50)) for k, v in per_step.items()},
         "stage_ms_max": {k: max(v) for k, v in per_step.items()},
@@ -3698,7 +3802,8 @@ def run_cache_regime(dev, regime, rows, sd):
         "peak_device_bytes": peak, "losses": losses, "loss_max_abs_err_vs_cpu": loss_err,
         "ps_entry_max_abs_err_vs_cpu": row_err, "store_rows": store.size(),
     }
-    print(f"  samples/s {record['samples_per_s']:.0f}, step p50 {record['step_ms_p50']:.2f} ms, longest "
+    print(f"  samples/s {record['samples_per_s']:.0f} (with the batches' making in the wall, as PRs 15-16 timed "
+          f"it: {record['samples_per_s_with_batch_making']:.0f}), step p50 {record['step_ms_p50']:.2f} ms, longest "
           f"{record['step_ms_max']:.2f} ms (host, asynchronous), stage p50 ms "
           f"{ {k: round(v, 3) for k, v in record['stage_ms_p50'].items()} } (steps that evicted: "
           f"{ {k: round(v, 3) for k, v in record['stage_ms_p50_evicting'].items()} }), card busy "
@@ -3706,6 +3811,103 @@ def run_cache_regime(dev, regime, rows, sd):
           f"{record['misses_per_step'][-3:]}, evictions a step {record['evictions_per_step'][-3:]}, "
           f"peak device bytes {peak}", flush=True)
     del ctx, cpu
+    return launches, record, inputs, sync
+
+
+def run_cache_stream(dev, regime, rows, sd, sync):
+    """The stream at bench.py's knobs in one regime, on the card, from the
+    synchronous run's start over its batches (``sync``): the timed batches
+    as one stream, counted; the rest as a second one under the profiler;
+    checked against the synchronous run. Returns (launches, record, K14's
+    inputs for phase 5 or None)."""
+    import torch
+
+    from persia_tpu_torch import ops
+
+    batches, timed_steps = sync["batches"], sync["timed_steps"]
+    print(f"== phase 4k ({regime}, stream): CachedTrainCtx.train_stream({STREAM_KNOBS}) over the synchronous "
+          f"run's {len(batches)} batches from its start", flush=True)
+    store = cache_store()
+    ctx = cache_ctx(dev, rows, store, sd)
+    rec = cache_recorder(ctx)
+    last = {}
+    dispatch = ctx._dispatch
+
+    def keep_restore(inputs, layout, miss, cold, restore, ev, meta=None):  # for phase 5
+        if restore:
+            last["restore"] = restore
+        return dispatch(inputs, layout, miss, cold, restore, ev, meta)
+
+    ctx._dispatch = keep_restore
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    if ctx.train_stream(batches[:timed_steps], **STREAM_KNOBS) is not None:
+        raise SystemExit(f"cache stream ({regime}): fetch_final=False returned metrics")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    timed_stats = ctx.stream_stats()
+    _, busy = device_busy_union_ms(lambda: ctx.train_stream(batches[timed_steps:], **STREAM_KNOBS))
+    prof_stats = ctx.stream_stats()
+    launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+    peak = torch.cuda.max_memory_allocated(dev)
+    metrics = ctx.last_metrics()
+    if metrics is None or not np.isfinite(metrics["loss"]) or metrics["preds"].shape != (BATCH, 1):
+        raise SystemExit(f"cache stream ({regime}): the last step's metrics {metrics}")
+    steps = len(batches)
+    restore_steps = timed_stats["restore_steps"] + prof_stats["restore_steps"]
+    expected = {fn.__name__: 0 for fn in ops.KERNEL_WRAPPERS}
+    expected.update(cached_gather=steps, cache_aux=sum(st["touched"] for st in rec), restore_rows=restore_steps,
+                    sparse_update=steps, dot_interaction=steps, dot_interaction_bwd=steps)
+    print(f"  launches={launches} over {steps} steps", flush=True)
+    if launches != expected:
+        raise SystemExit(f"cache stream ({regime}): launches {launches}, expected {expected}")
+    if regime == "saturated" and not launches["restore_rows"]:
+        raise SystemExit("cache stream (saturated): no step restored from the ring: K14 never ran")
+    same = [a == b for a, b in zip(sync["decisions"], (st["decisions"] for st in rec))]
+    if len(rec) != steps or not all(same):
+        raise SystemExit(f"cache stream ({regime}): the directory's decisions differ from the synchronous steps' "
+                         f"at steps {[i for i, ok in enumerate(same) if not ok]}")
+    inputs = None
+    if "restore" in last:
+        src, dst = last["restore"]["cache_d16"]
+        inputs = {"table": ctx.state.tables["cache_d16"].clone(),
+                  "state": {k: v.clone() for k, v in ctx.state.emb_state["cache_d16"].items()},
+                  "ring": ctx._ev_ring("cache_d16").clone(), "src": src.clone(), "dst": dst.clone()}
+    ctx.flush()
+    warm, vals = store.probe_entries(sync["signs"], EMB_DIM)
+    if not np.array_equal(warm, sync["warm"]):
+        raise SystemExit(f"cache stream ({regime}): the servers hold other signs than after the synchronous run")
+    rel = float((np.abs(vals[warm] - sync["vals"][warm]) / np.maximum(np.abs(sync["vals"][warm]), 1e-30)).max())
+    ok = bool(np.allclose(vals[warm], sync["vals"][warm], rtol=1e-5, atol=1e-7))
+    print(f"  directory decisions = the synchronous steps' at every one of {steps} steps; server entries after "
+          f"flush, {int(warm.sum())} signs: max relative err {rel:.3e} vs the synchronous run (tolerance rtol 1e-5, "
+          f"atol 1e-7) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit(f"cache stream ({regime}): the server's entries differ from the synchronous run's")
+    lanes = {k: timed_stats["lane_s"][k] for k in timed_stats["lane_s"]}
+    record = {
+        "knobs": STREAM_KNOBS, "cache_rows": rows, "batch": BATCH, "steps": steps, "timed_steps": timed_steps,
+        "samples_per_s": timed_steps * BATCH / wall, "sync_samples_per_s": sync["samples_per_s"], "wall_s": wall,
+        "lane_s": lanes, "packs": timed_stats["packs"], "packed_steps": timed_stats["packed_steps"],
+        "single_steps": timed_stats["single_steps"],
+        "steps_per_pack": timed_stats["packed_steps"] / max(1, timed_stats["packs"]),
+        "restore_steps": restore_steps, "restores_per_step": [st["restored"] for st in rec],
+        "restored_rows_per_step": (timed_stats["restored_rows"] + prof_stats["restored_rows"]) / steps,
+        "ring_waits": timed_stats["ring_waits"], "flushes": timed_stats["flushes"],
+        "launches_per_step": {k: launches[k] / steps for k in ("cache_aux", "cached_gather", "restore_rows")},
+        "launches": launches, "launches_expected": expected,
+        "card_busy_ms_per_step": busy / len(batches[timed_steps:]) if busy is not None else None,
+        "peak_device_bytes": peak, "ps_entry_max_rel_err_vs_sync": rel, "last_loss": float(metrics["loss"]),
+    }
+    print(f"  stream samples/s {record['samples_per_s']:.0f} (synchronous {record['sync_samples_per_s']:.0f}), "
+          f"lanes busy s {{{', '.join(f'{k}: {v:.3f}' for k, v in lanes.items())}}} of {wall:.3f} s wall, "
+          f"{record['packs']} packs ({record['steps_per_pack']:.2f} steps a pack, {record['single_steps']} single), "
+          f"restores a step {record['restored_rows_per_step']:.1f} ({restore_steps} restoring steps), ring waits "
+          f"{record['ring_waits']}, launches a step {record['launches_per_step']}, card busy "
+          f"{record['card_busy_ms_per_step']} ms a step, peak device bytes {peak}", flush=True)
+    del ctx
     return launches, record, inputs
 
 
@@ -3748,7 +3950,8 @@ def cache_vs_hybrid(dev, sd):
 
 
 def path_cache(dev):
-    """Phase 4k: both regimes, then the SGD twin of the hybrid tier."""
+    """Phase 4k: both regimes, each synchronous and then as the stream; then
+    the SGD twin of the hybrid tier."""
     import gc
 
     import torch
@@ -3760,10 +3963,14 @@ def path_cache(dev):
     sd = state_dict_from_flax(model, seeded_flax_params_like(model, SEED))
     launches, records, inputs = {}, {}, None
     for regime, rows in (("fill", CACHE_FILL_ROWS), ("saturated", CACHE_SAT_ROWS)):
-        launches[f"cache_{regime}"], records[regime], inp = run_cache_regime(dev, regime, rows, sd)
+        launches[f"cache_{regime}"], records[regime], inp, sync = run_cache_regime(dev, regime, rows, sd)
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches[f"cache_stream_{regime}"], records[f"stream_{regime}"], restore = run_cache_stream(
+            dev, regime, rows, sd, sync)
         if regime == "saturated":
-            inputs = inp
-        del inp
+            inputs = dict(inp, restore=restore)
+        del inp, sync, restore
         gc.collect()
         torch.cuda.empty_cache()
     records["vs_hybrid"] = cache_vs_hybrid(dev, sd)
@@ -3774,8 +3981,9 @@ def path_cache(dev):
 
 def time_cache_kernels(dev, launches, errs, inputs, floor, build):
     """Phase 5's rows of K12 (``cache_aux``, and its read alone
-    ``gather_entry_rows``) and K13 (``cached_gather``) at the saturated
-    regime's own inputs (its last step's aux pieces, their pairing and
+    ``gather_entry_rows``), K13 (``cached_gather``) and K14
+    (``restore_rows``: the saturated stream's last restoring step) at the
+    saturated regime's own inputs (its last step's aux pieces, their pairing and
     rows, its pool, its flush's rows): graph-replayed warm, and cold (whole
     copies of the inputs, pool included, rotated through more than the
     L2), beside the plain version and the library calls; K12 also with the
@@ -3787,6 +3995,7 @@ def time_cache_kernels(dev, launches, errs, inputs, floor, build):
     from persia_tpu_torch import ops
     from persia_tpu_torch.ops.cache_aux import cache_aux_reference, gather_entry_rows_reference
     from persia_tpu_torch.ops.cached_gather import cached_gather_reference
+    from persia_tpu_torch.ops.restore_rows import restore_rows_reference
 
     table, state, consts = inputs["table"], inputs["state"], inputs["consts"]
     miss, cold, ev = inputs["aux"]
@@ -3802,9 +4011,11 @@ def time_cache_kernels(dev, launches, errs, inputs, floor, build):
     rows = []
 
     def row(name, **kw):
+        main_path = "cache_stream_saturated" if name == "restore_rows" else "cache_saturated"
         return dict(name=name, route="cuda", cuda_route="cuda", source=CACHE_SOURCE[name],
-                    replaces=CACHE_REPLACES[name], launches=launches["cache_saturated"][name],
-                    launches_by_path={p: launches[p][name] for p in ("cache_fill", "cache_saturated")},
+                    replaces=CACHE_REPLACES[name], launches=launches[main_path][name],
+                    launches_by_path={p: launches[p][name] for p in ("cache_fill", "cache_saturated",
+                                                                     "cache_stream_fill", "cache_stream_saturated")},
                     max_abs_err=errs[name], **kw)
 
     def timed(r, kernel, plain, library):
@@ -3904,6 +4115,39 @@ def time_cache_kernels(dev, launches, errs, inputs, floor, build):
                      lambda: (table.clone(), srows.clone()), pool_bytes // 2,
                      lambda t, rr: F.embedding_bag(rr.view(S * B, L), t, mode="sum", padding_idx=C),
                      lambda: (table.clone(), srows.clone()), pool_bytes // 2))
+    # K14: the saturated stream's last restoring step, on a copy of its
+    # pool. Bytes: the two index arrays; the live restores' entries read
+    # from the ring and written to the table and the state
+    rs = inputs["restore"]
+    rtable, rstate, ring, src, dst = rs["table"], rs["state"], rs["ring"], rs["src"], rs["dst"]
+    live = dst < C + 1
+    n_live = int(live.sum())
+    src_live, dst_live = src[live].long(), dst[live].long()
+    nbytes = 4 * (src.numel() + dst.numel()) + n_live * E * (ring.element_size() + 4)
+    bms, by = bound(nbytes, 0, "float32")
+    rpool = (rtable.clone(), {k: v.clone() for k, v in rstate.items()})
+
+    def restore_library(t, st):
+        e = ring.index_select(0, src_live).float()
+        t.index_copy_(0, dst_live, e[:, :dim])
+        st["acc"].index_copy_(0, dst_live, e[:, dim:])
+
+    r = timed(row("restore_rows", shape=[C + 1, E, ring.shape[0], dst.numel(), n_live],
+                  dtype=f"float32 pool, {str(ring.dtype)[6:]} ring", bound_ms=bms, bound_by=by,
+                  registers=build.get("restore_rows_kernel<8>", {}).get("registers"),
+                  library_note="index_select + index_copy_ on the split columns, live rows"),
+              kernel=lambda: ops.restore_rows(*rpool, ring, src, dst),
+              plain=lambda: restore_rows_reference(*rpool, ring, src, dst),
+              library=lambda: restore_library(*rpool))
+    rpool_bytes = (rtable.numel() + rstate["acc"].numel()) * 4
+    rows.append(cold(r, lambda t, st: ops.restore_rows(t, st, ring, src, dst),
+                     lambda: (rtable.clone(), {k: v.clone() for k, v in rstate.items()}), rpool_bytes,
+                     restore_library, lambda: (rtable.clone(), {k: v.clone() for k, v in rstate.items()}),
+                     rpool_bytes))
+    r["over_launch_floor"] = r["ms"] / min(floor)
+    print(f"  restore_rows ({n_live} live restores of {dst.numel()}): warm {r['ms_runs']} ms, cold "
+          f"{r['cold_ms_runs']} ms, bound {r['bound_ms']:.5f} ({r['cold_share']:.1%} cold); "
+          f"{r['over_launch_floor']:.2f}x the launch floor", flush=True)
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (cold {r['cold_ms']:.4f}), plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f} (cold {r['library_cold_ms']:.4f}), bound {r['bound_ms']:.4f} ms "

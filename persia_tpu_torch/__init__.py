@@ -21,7 +21,7 @@ The port covers the serving path and synchronous hybrid training:
               grouped gather-pool forward and backward, flash_attention)
   cache tier  persia_tpu_torch.embedding.hbm_cache.CachedTrainCtx (the
               write-back cache of embedding rows on the card over the
-              parameter servers; its synchronous path)
+              parameter servers; train_step and train_stream)
   job state   persia_tpu_torch.jobstate (manifests, journal ids, resume),
               persia_tpu_torch.checkpoint (per-shard checkpoint files),
               persia_tpu_torch.serialization (flax's msgpack bytes);

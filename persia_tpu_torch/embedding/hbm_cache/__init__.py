@@ -11,16 +11,18 @@ rows and trains it in place.
   seeded init) and the aux program (K12) writes it into the pool;
 - an eviction (LRU, the native directory ``native/cache.cpp``) reads the
   victim's entry back out (K12's payload) and writes it to the servers
-  after the next step is dispatched.
+  after the next step is dispatched;
+- a miss on a sign whose write-back is still in flight (the stream) is
+  restored on the card from the group's eviction ring (K14).
 
-Entry point: ``CachedTrainCtx`` (its synchronous ``train_step``, ``eval_batch``,
-``flush``, ``publish`` and checkpoints); the stream is not part of this
-slice.
+Entry point: ``CachedTrainCtx`` (``train_step``, ``train_stream``,
+``eval_batch``, ``flush``, ``publish`` and checkpoints).
 """
 
 from persia_tpu_torch.embedding.hbm_cache.ctx import CachedTrainCtx  # noqa: F401
 from persia_tpu_torch.embedding.hbm_cache.directory import (  # noqa: F401
     CacheDirectory,
+    PendingSignMap,
     _BufRing,
     build_native,
     group_salt,

@@ -13,9 +13,15 @@ write-back first (``_sync_hazard_gate``), so the server's probe reads the
 trained row. With sparse Adam, the server's batch powers move once a step
 for every feature group the cache holds, as the card's do.
 
-Not in this slice (their arguments raise): the pipelined stream
-(``train_stream``), a device mesh, a parameter-server tier for some slots,
-a dynamic loss scale, the health probe and the sharded feeder.
+``train_stream`` (``stream.run_train_stream``) runs the same steps as a
+pipeline of lanes: the admit, staging and write-back overlap the card's
+work, and a miss on a sign whose write-back is still in flight is restored
+on the card from the group's eviction ring (K14, ``_dispatch``), which K12
+fills (``_apply_feed`` with the step's ring position).
+
+Not in this slice (their arguments raise): a device mesh, a
+parameter-server tier for some slots, a dynamic loss scale, the health
+probe and the sharded feeder.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from persia_tpu_torch.device import resolve_device
 from persia_tpu_torch.embedding.hbm_cache.groups import (
     CachedTrainState,
     _apply_aux,
+    _restore_rows,
     _state_init_consts,
     init_cached_tables,
 )
@@ -78,7 +85,8 @@ class CachedTrainCtx:
     rows}). ``wb_wire_dtype`` / ``aux_wire_dtype``: the dtype of the
     evicted rows' way to the host / of the checked-out rows' way to the
     card. ``admit_touches``: a sign enters the cache on its Nth touching
-    batch."""
+    batch. ``wb_ring_rows``: the most rows of a group's eviction ring
+    (``ring_rows``), which the stream's in-flight evictions fill."""
 
     def __init__(
         self,
@@ -102,6 +110,7 @@ class CachedTrainCtx:
         health_clip_norm: Optional[float] = None,
         feed_threads: Optional[int] = None,
         feed_shards: Optional[int] = None,
+        wb_ring_rows: int = 1 << 20,
     ):
         unsupported = {
             "mesh": mesh is not None, "ps_slots": bool(ps_slots), "ps_wire_dtype": ps_wire_dtype != "float32",
@@ -139,6 +148,12 @@ class CachedTrainCtx:
         self._pending_signs: Set[int] = set()
         self._last_metrics: Optional[Dict] = None
         self._empties: Dict[str, Dict[str, torch.Tensor]] = {}
+        # each group's eviction ring on the card (the stream's restores read it)
+        self.wb_ring_rows = int(wb_ring_rows)
+        self._ev_rings: Dict[str, torch.Tensor] = {}
+        # the stream's last header, unread (fetch_final=False), and its stats
+        self._last_header_dev = None
+        self._stream_stats: Optional[Dict] = None
 
     def __enter__(self):
         self.worker.register_optimizer(self.sparse_cfg)
@@ -164,17 +179,22 @@ class CachedTrainCtx:
         if self._pending_signs and not self._pending_signs.isdisjoint(miss_signs.tolist()):
             self._land_pending()  # the server's probe then reads the trained rows
 
-    def _stage(self, inputs, miss_aux, cold_aux, evict_aux):
-        """Every host array of a step to the card, in one copy."""
-        tree = (inputs, miss_aux, cold_aux, evict_aux)
+    def _stage(self, inputs, miss_aux, cold_aux, evict_aux, restore_aux=None):
+        """Every host array of a step to the card, in one copy on the
+        current stream: (inputs, miss_aux, cold_aux, evict_aux,
+        restore_aux)."""
+        tree = (inputs, miss_aux, cold_aux, evict_aux, restore_aux or {})
         flat = _to_device(_flatten(tree, []), self.device, non_blocking=True)
         return _unflatten(tree, iter(flat))
+
+    def _group(self, gname: str):
+        return next(gr for gr in self.tier.groups if gr.name == gname)
 
     def _group_empties(self, gname: str) -> Dict[str, torch.Tensor]:
         """0-row stand-ins for a group's absent aux pieces."""
         em = self._empties.get(gname)
         if em is None:
-            g = next(gr for gr in self.tier.groups if gr.name == gname)
+            g = self._group(gname)
             dt = torch.bfloat16 if self.tier.aux_bf16 else torch.float32
             em = self._empties[gname] = {
                 "rows": torch.empty(0, dtype=torch.int32, device=self.device),
@@ -183,19 +203,40 @@ class CachedTrainCtx:
             }
         return em
 
-    def _apply_feed(self, miss_aux, cold_aux, evict_aux) -> Dict[str, torch.Tensor]:
+    def ring_rows(self, gname: str) -> int:
+        """A group's eviction ring height: twice its cache rows, at least
+        4096, at most ``wb_ring_rows`` (a step evicts at most the cache's
+        rows)."""
+        return min(self.wb_ring_rows, max(4096, 2 * self._group(gname).rows))
+
+    def _ev_ring(self, gname: str) -> torch.Tensor:
+        """The group's eviction ring (ring_rows, dim + state_dim), in the
+        write-back wire's dtype; made at first use."""
+        ring = self._ev_rings.get(gname)
+        if ring is None:
+            g = self._group(gname)
+            ring = self._ev_rings[gname] = torch.zeros(
+                (self.ring_rows(gname), g.dim + g.state_dim),
+                dtype=torch.bfloat16 if self._wb_bf16 else torch.float32, device=self.device)
+        return ring
+
+    def _apply_feed(self, miss_aux, cold_aux, evict_aux, evict_meta=None) -> Dict[str, torch.Tensor]:
         """K12 once a touched group: the eviction payloads (each evicted row
         read before its write, by the tier's pairing), the warm entries and
-        cold seeds written. Returns the payloads."""
+        cold seeds written; a group whose evictions have a ring position
+        (``evict_meta``, the stream's) also stores its payload in its ring
+        there. Returns the payloads."""
         payloads = {}
         for gname in sorted(set(miss_aux) | set(cold_aux) | set(evict_aux)):
             em = self._group_empties(gname)
             m_rows, m_entries, m_slot = miss_aux.get(gname, (em["rows"], em["entries"], em["rows"]))
             c_rows, c_emb, c_slot = cold_aux.get(gname, (em["rows"], em["emb"], em["rows"]))
             ev_rows, ev_free = evict_aux.get(gname, (em["rows"], em["rows"]))
+            ring_pos = evict_meta[gname][2] if evict_meta and gname in evict_meta else -1
             payload = _apply_aux(self.state.tables[gname], self.state.emb_state[gname], ev_rows, m_rows, m_entries,
                                  c_rows, c_emb, self._state_consts, self._wb_bf16, m_slot=m_slot, c_slot=c_slot,
-                                 ev_free=ev_free)
+                                 ev_free=ev_free, ring=self._ev_ring(gname) if ring_pos >= 0 else None,
+                                 ring_pos=max(ring_pos, 0))
             if gname in evict_aux:
                 payloads[gname] = payload
         return payloads
@@ -213,32 +254,67 @@ class CachedTrainCtx:
         ev.record()
         return host, ev
 
-    def _dispatch(self, inputs, layout, miss_aux, cold_aux, evict_aux):
-        """K12 for every touched group, then the step: (header, host
-        payloads, their event)."""
-        host, ev = self._fetch_payloads(self._apply_feed(miss_aux, cold_aux, evict_aux))
-        header = self._step(self.state, inputs, layout)
-        return header, host, ev
+    def _dispatch(self, inputs, layout, miss_aux, cold_aux, restore_aux, evict_aux, evict_meta=None):
+        """A step's card work in order, from staged tensors: K12 for every
+        touched group, then each group's restores from its eviction ring
+        (K14, one call a group), then the step. Returns (header, device
+        payloads)."""
+        payloads = self._apply_feed(miss_aux, cold_aux, evict_aux, evict_meta)
+        for gname in sorted(restore_aux):
+            src_idx, dst_rows = restore_aux[gname]
+            _restore_rows(self.state.tables[gname], self.state.emb_state[gname], self._ev_ring(gname), src_idx,
+                          dst_rows)
+        return self._step(self.state, inputs, layout), payloads
+
+    def _dispatch_packed(self, items):
+        """K staged steps without restores, back to back: ``items`` [(inputs,
+        layout, miss_aux, cold_aux, evict_aux, evict_meta), ...]. Each
+        step's K12 reads the tables the step before it left, as a single
+        step's does, so a pack changes no bit. Returns (headers, payloads)
+        a step."""
+        headers, payloads = [], []
+        for inputs, layout, miss_aux, cold_aux, evict_aux, evict_meta in items:
+            payloads.append(self._apply_feed(miss_aux, cold_aux, evict_aux, evict_meta))
+            headers.append(self._step(self.state, inputs, layout))
+        return headers, payloads
 
     def train_step(self, batch: PersiaBatch, fetch_metrics: bool = True) -> Optional[Dict]:
         """One step; returns {"loss", "preds"} (the step's, read back from
         the card) or, with ``fetch_metrics=False``, None (``drain`` /
         ``last_metrics`` read them later)."""
-        inputs, layout, miss_aux, cold_aux, evict_aux, evict_meta = self.tier.prepare_batch(
+        inputs, layout, miss_aux, cold_aux, _restore, evict_aux, evict_meta = self.tier.prepare_batch(
             batch, hazard_gate=self._sync_hazard_gate)
         if self.state is None:
             self.init_state()
-        inputs, miss_aux, cold_aux, evict_aux = self._stage(inputs, miss_aux, cold_aux, evict_aux)
-        header, host, ev = self._dispatch(inputs, layout, miss_aux, cold_aux, evict_aux)
+        inputs, miss_aux, cold_aux, evict_aux = self._stage(inputs, miss_aux, cold_aux, evict_aux)[:4]
+        # no restores here (the gate landed the write-back instead): K12, the
+        # payloads' copy to the host behind it, then the step
+        host, ev = self._fetch_payloads(self._apply_feed(miss_aux, cold_aux, evict_aux, evict_meta))
+        header = self._step(self.state, inputs, layout)
         prev = self._pending
         self._pending = (evict_meta, host, ev, header, tuple(inputs["labels"][0].shape))
-        self._pending_signs = {int(s) for ev_signs, k in evict_meta.values() for s in ev_signs[:k]}
+        self._pending_signs = {int(s) for ev_signs, k, _ring_pos in evict_meta.values() for s in ev_signs[:k]}
         if prev is not None:
             self._write_back_only(prev)
         if self.sparse_cfg.kind == OPTIMIZER_ADAM:
             for grp in self._cached_groups:
                 self.tier.router.advance_batch_state(grp)
         return self._fetch_metrics() if fetch_metrics else None
+
+    def train_stream(self, batches, **kwargs) -> Optional[Dict]:
+        """Train over an iterable of batches as a pipeline of lanes; see
+        ``stream.run_train_stream`` for the options. Returns the last
+        step's metrics, or None with ``fetch_final=False``
+        (``last_metrics`` reads them later)."""
+        from persia_tpu_torch.embedding.hbm_cache.stream import run_train_stream
+
+        return run_train_stream(self, batches, **kwargs)
+
+    def stream_stats(self) -> Optional[Dict]:
+        """The last ``train_stream``'s accounting: ``dispatch_k``, packs,
+        packed and single steps, restores, each lane's busy seconds and the
+        wall time."""
+        return self._stream_stats
 
     def _write_back_only(self, pending) -> None:
         evict_meta, host, ev, _header, _shape = pending
@@ -266,15 +342,24 @@ class CachedTrainCtx:
             return self._last_metrics or {}
         header, shape = self._pending[3], self._pending[4]
         self._last_metrics = self._parse_header(header.cpu().numpy(), shape)
+        self._last_header_dev = None  # fresher than a stream's unread header
         return self._last_metrics
 
     def drain(self) -> Optional[Dict]:
         """Land the deferred write-back; the last step's metrics."""
         self._land_pending()
-        return self._last_metrics
+        return self.last_metrics()
 
     def last_metrics(self) -> Optional[Dict]:
-        return self._fetch_metrics() if self._pending is not None else self._last_metrics
+        """The last step's metrics, read from the card if they were not yet
+        (a deferred step, or a stream's ``fetch_final=False`` header)."""
+        if self._pending is not None:
+            return self._fetch_metrics()
+        if self._last_header_dev is not None:
+            header, shape = self._last_header_dev
+            self._last_metrics = self._parse_header(header.cpu().numpy(), shape)
+            self._last_header_dev = None
+        return self._last_metrics
 
     def eval_batch(self, batch: PersiaBatch) -> np.ndarray:
         """Predictions (B, 1), changing neither the cache nor the server
@@ -284,7 +369,7 @@ class CachedTrainCtx:
         if self.state is None:
             raise RuntimeError("eval before any train_step/init_state")
         inputs, layout = self.tier.prepare_eval_batch(batch)
-        (inputs,) = self._stage(inputs, {}, {}, {})[:1]
+        inputs = self._stage(inputs, {}, {}, {})[0]
         return self._eval(self.state, inputs, layout).float().cpu().numpy()
 
     # ----------------------------------------------------- durable state

@@ -4,9 +4,11 @@
 ``CacheDirectory`` binds the port's native directory
 (``persia_tpu_torch/native/cache.cpp``, built with ``g++`` at first use into
 ``build/torch_native/``): an LRU map sign → cache row of a fixed capacity,
-unsharded. ``native_init_rows`` births a cold row on the host bit for bit as
-the parameter server would (the same seeded init), so a sign's first row
-does not depend on which tier saw it first.
+unsharded. ``PendingSignMap`` binds the stream's map of in-flight
+write-backs, which ``CacheDirectory.feed_batch`` probes inside the admit.
+``native_init_rows`` births a cold row on the host bit for bit as the
+parameter server would (the same seeded init), so a sign's first row does
+not depend on which tier saw it first.
 """
 
 from __future__ import annotations
@@ -74,6 +76,24 @@ def _load_lib() -> ctypes.CDLL:
         lib.cache_init_rows.restype = None
         lib.cache_init_rows.argtypes = [_u64p, i64, i64, ctypes.c_uint64, ctypes.c_int, ctypes.c_double,
                                         ctypes.c_double, _f32p]
+        u32 = ctypes.c_uint32
+        lib.pending_map_create.restype = p
+        lib.pending_map_create.argtypes = []
+        lib.pending_map_destroy.restype = None
+        lib.pending_map_destroy.argtypes = [p]
+        lib.pending_map_size.restype = i64
+        lib.pending_map_size.argtypes = [p]
+        lib.pending_map_insert.restype = None
+        lib.pending_map_insert.argtypes = [p, _u64p, _i64p, i64, u32]
+        lib.pending_map_insert_range.restype = None
+        lib.pending_map_insert_range.argtypes = [p, _u64p, i64, i64, u32]
+        lib.pending_map_query.restype = i64
+        lib.pending_map_query.argtypes = [p, _u64p, i64, ctypes.POINTER(u32), _i64p]
+        lib.pending_map_remove.restype = None
+        lib.pending_map_remove.argtypes = [p, _u64p, i64, u32]
+        lib.cache_feed_batch.restype = i64
+        lib.cache_feed_batch.argtypes = [p, p, _u64p, i64, _i32p, _u64p, _i64p, _u64p, _i64p, _i64p, _i64p,
+                                         _i64p, _i64p, _i64p, ctypes.c_uint64]
         _LIB = lib
         return lib
 
@@ -196,6 +216,8 @@ class CacheDirectory:
         self._s_ev_signs = np.empty(n, dtype=np.uint64)
         self._s_ev_rows = np.empty(n, dtype=np.int64)
         self._s_miss_idx = np.empty(n, dtype=np.int64)
+        self._s_rst_src = np.empty(n, dtype=np.int64)
+        self._s_rst_pos = np.empty(n, dtype=np.int64)
 
     def _overflow(self):
         return RuntimeError(f"batch distinct-sign count exceeds cache capacity {self.capacity} — "
@@ -243,6 +265,34 @@ class CacheDirectory:
         return (rows, self._s_miss_signs[:n_miss].copy(), self._s_miss_rows[:n_miss].copy(),
                 self._s_ev_signs[:k].copy(), self._s_ev_rows[:k].copy(), n_unique.value)
 
+    def feed_batch(self, signs: np.ndarray, pending_map: Optional["PendingSignMap"], salt: int = 0):
+        """``admit_positions`` and, in the same native call, the pending
+        map's probe of the misses (``cache_feed_batch``; key = sign ^
+        ``salt``): its 6-tuple, then ``(restore_src (R,), restore_pos
+        (R,))``, the ring row and miss ordinal of every miss whose freshest
+        entry is still in flight. The probe runs before the caller
+        reserves its ring span, so the caller queries these hits again
+        after reserving it."""
+        signs = np.ascontiguousarray(signs, dtype=np.uint64)
+        n = signs.size
+        self._ensure_scratch(n)
+        rows = self._rows_ring.get("rows", (_bucket(max(n, 1)),), np.int32)[:n]
+        n_unique, n_evict, n_restore = ctypes.c_int64(0), ctypes.c_int64(0), ctypes.c_int64(0)
+        n_miss = self._lib.cache_feed_batch(
+            self._h, pending_map._h if pending_map is not None else None, signs.ctypes.data_as(_u64p), n,
+            rows.ctypes.data_as(_i32p), self._s_miss_signs.ctypes.data_as(_u64p),
+            self._s_miss_rows.ctypes.data_as(_i64p), self._s_ev_signs.ctypes.data_as(_u64p),
+            self._s_ev_rows.ctypes.data_as(_i64p), ctypes.byref(n_unique), ctypes.byref(n_evict),
+            self._s_rst_src.ctypes.data_as(_i64p), self._s_rst_pos.ctypes.data_as(_i64p), ctypes.byref(n_restore),
+            ctypes.c_uint64(salt & (2 ** 64 - 1)),
+        )
+        if n_miss < 0:
+            raise self._overflow()
+        k, r = n_evict.value, n_restore.value
+        return (rows, self._s_miss_signs[:n_miss].copy(), self._s_miss_rows[:n_miss].copy(),
+                self._s_ev_signs[:k].copy(), self._s_ev_rows[:k].copy(), n_unique.value,
+                self._s_rst_src[:r].copy(), self._s_rst_pos[:r].copy())
+
     def probe(self, signs: np.ndarray) -> np.ndarray:
         """Each sign's row, -1 where it is not resident; no admission and no
         LRU touch (eval's lookup)."""
@@ -273,3 +323,63 @@ def group_salt(name: str) -> int:
     groups' equal raw signs cannot meet."""
     h = hashlib.blake2b(name.encode(), digest_size=8).digest()
     return int.from_bytes(h, "little") or 1
+
+
+class PendingSignMap:
+    """The stream's map sign → (token, ring row) of every eviction whose
+    write-back is in flight (``pending_map_*`` of the native directory):
+    the feeder's hazard gate queries it, the write-back thread removes a
+    step's entries once they land. One map serves every group: each
+    method XORs the group's ``salt`` (``group_salt``) into the signs, as
+    ``CacheDirectory.feed_batch``'s native probe does. Thread-safe (a
+    native mutex)."""
+
+    def __init__(self):
+        self._lib = _load_lib()
+        self._h = self._lib.pending_map_create()
+        if not self._h:
+            raise MemoryError("pending_map_create failed")
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.pending_map_destroy(self._h)
+            self._h = None
+
+    def __len__(self) -> int:
+        return int(self._lib.pending_map_size(self._h))
+
+    @staticmethod
+    def _salted(signs: np.ndarray, salt: int) -> np.ndarray:
+        signs = np.ascontiguousarray(signs, dtype=np.uint64)
+        return signs ^ np.uint64(salt) if salt else signs
+
+    def insert(self, signs: np.ndarray, srcs: np.ndarray, token: int, salt: int = 0) -> None:
+        signs = self._salted(signs, salt)
+        srcs = np.ascontiguousarray(srcs, dtype=np.int64)
+        if len(signs) != len(srcs):
+            raise ValueError(f"{len(signs)} signs but {len(srcs)} sources")
+        self._lib.pending_map_insert(self._h, signs.ctypes.data_as(_u64p), srcs.ctypes.data_as(_i64p), len(signs),
+                                     token & 0xFFFFFFFF)
+
+    def insert_range(self, signs: np.ndarray, base_src: int, token: int, salt: int = 0) -> None:
+        """``signs[i] -> (base_src + i, token)``: a step's ring span."""
+        signs = self._salted(signs, salt)
+        self._lib.pending_map_insert_range(self._h, signs.ctypes.data_as(_u64p), len(signs), int(base_src),
+                                           token & 0xFFFFFFFF)
+
+    def query(self, signs: np.ndarray, salt: int = 0):
+        """``(hits, tokens (n,) uint32, srcs (n,) int64)``, src -1 where a
+        sign is not pending."""
+        signs = self._salted(signs, salt)
+        n = len(signs)
+        tokens = np.empty(n, dtype=np.uint32)
+        srcs = np.empty(n, dtype=np.int64)
+        hits = self._lib.pending_map_query(self._h, signs.ctypes.data_as(_u64p), n,
+                                           tokens.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+                                           srcs.ctypes.data_as(_i64p))
+        return int(hits), tokens, srcs
+
+    def remove(self, signs: np.ndarray, token: int, salt: int = 0) -> None:
+        """Remove the signs whose current entry carries ``token``."""
+        signs = self._salted(signs, salt)
+        self._lib.pending_map_remove(self._h, signs.ctypes.data_as(_u64p), len(signs), token & 0xFFFFFFFF)

@@ -1,0 +1,514 @@
+"""The cache tier's stream (counterpart of
+``persia_tpu/embedding/hbm_cache/stream.py``): ``CachedTrainCtx.train_stream``
+runs ``run_train_stream``.
+
+Four lanes, each a thread:
+
+- the **feeder** admits a batch (``tier.prepare_batch``: the directory, the
+  hazard gate, the servers' probe, the host arrays) and records the step's
+  evictions in the pending map (sign → ring row) before the next admit;
+- the **stager** copies a step's host arrays to the card on its own CUDA
+  stream and records an event that the dispatch waits on;
+- the **dispatch** (the caller's thread, on its current stream) runs each
+  step's card work in order (``ctx._dispatch``: K12 with the step's ring
+  span, K14's restores, the step), or up to ``dispatch_k`` restore-free
+  steps of one shape signature back to back as a pack
+  (``ctx._dispatch_packed``), and hands each step's eviction payloads to
+  the write-back with an event recorded after the step;
+- the **write-back** waits on that event on its own CUDA stream, copies
+  ``wb_flush_steps`` steps' payloads to pinned memory, writes them to the
+  servers (``set_embedding``), then removes their pending-map entries and
+  frees their ring spans.
+
+**The eviction ring.** A step's evicted entries also land in its group's
+ring on the card, at a span the feeder reserves (``ring_alloc``) before
+its hazard gate runs. A later miss on a sign whose write-back has not
+landed is restored from the ring on the card (K14) instead of read from
+the server. Spans are freed in step order once their write-back lands; a
+feeder that finds no room asks the write-back to flush early and waits.
+
+**Ordering.** Every card write of the pool runs on the dispatch's stream
+in step order, so a restore reads ring rows that earlier steps wrote, and
+a span is rewritten only after every step that could restore from it has
+dispatched. Lanes order their copies against it with recorded events only.
+Each copy takes a fresh pinned host buffer; PyTorch's pinned-memory
+allocator hands a freed one out again only after the copy that used it has
+completed.
+
+**Every wait is bounded.** Each queue ``get``/``put`` and each condition
+wait takes at most ``WAIT_S``, then looks at ``stop``; an exception in any
+lane is stored, sets ``stop`` and wakes every waiter, and ``train_stream``
+raises the first one stored. After ``stop`` each lane is joined for at
+most ``JOIN_S`` altogether; one still alive raises a ``RuntimeError`` that
+names it (chained to the first stored exception).
+
+The reference's deeper pipelining (``pipeline_depth > 1``), fences
+(``snapshot_every``, ``job_state``, ``fence_callback``), the health
+sentinel, quarantined steps, a resumed step count and the parameter-server
+tier's gradient lane are not part of this slice: asking for one raises.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from contextlib import contextmanager
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from persia_tpu_torch.embedding.hbm_cache.directory import PendingSignMap
+from persia_tpu_torch.embedding.optim import OPTIMIZER_ADAM
+
+WAIT_S = 0.25  # the longest a lane blocks before it looks at ``stop``
+PACK_IDLE_S = 0.05  # a partial pack dispatches when no step arrives for this long
+JOIN_S = 10.0  # the longest the lanes get to end after ``stop``
+_END = object()  # the end of the batches, passed down the lanes
+
+
+class _Stopped(Exception):
+    """A lane saw ``stop`` while it waited."""
+
+
+@contextmanager
+def _lane_stream(device: torch.device):
+    """A lane's own CUDA stream on ``device`` (None on the CPU)."""
+    if device.type != "cuda":
+        yield None
+        return
+    with torch.cuda.device(device):
+        stream = torch.cuda.Stream(device=device)
+        with torch.cuda.stream(stream):
+            yield stream
+
+
+def _staged_tensors(tree, out: List[torch.Tensor]) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        for v in tree.values():
+            _staged_tensors(v, out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _staged_tensors(v, out)
+    elif torch.is_tensor(tree):
+        out.append(tree)
+    return out
+
+
+def _unsupported(**options) -> None:
+    on = sorted(k for k, v in options.items() if v)
+    if on:
+        raise NotImplementedError(f"the port's cache-tier stream has no {', '.join(on)} yet")
+
+
+def run_train_stream(
+    ctx,
+    batches,
+    prefetch: int = 3,
+    on_metrics: Optional[Callable[[Dict], None]] = None,
+    wb_flush_steps: int = 8,
+    fetch_final: bool = True,
+    psgrad_batch: int = 8,
+    dispatch_k: int = 4,
+    pipeline_depth: int = 1,
+    snapshot_every: Optional[int] = None,
+    job_state=None,
+    start_step: int = 0,
+    sentinel=None,
+    skip_steps=None,
+    fence_callback: Optional[Callable[[int], None]] = None,
+) -> Optional[Dict]:
+    """Train ``ctx`` (a ``CachedTrainCtx``) over an iterable of batches
+    through the lanes of the module's docstring. Returns the last step's
+    metrics; with ``fetch_final=False`` None, the last header kept on the
+    card unread (``ctx.last_metrics()`` reads it). ``on_metrics(metrics)``
+    gets every step's metrics (a read of each step's header; it sets
+    ``dispatch_k`` to 1).
+
+    ``prefetch``: the admitted and the staged steps each queue holds.
+    ``wb_flush_steps``: the steps' payloads a write-back flush takes.
+    ``dispatch_k``: the most steps a pack holds. ``psgrad_batch`` only sizes
+    the write-back queue as the reference's does: the parameter-server
+    tier whose gradients it batches cannot be built (``ps_slots`` raise).
+    The rest raise unless left at their defaults."""
+    _unsupported(pipeline_depth=pipeline_depth > 1, snapshot_every=snapshot_every is not None,
+                 job_state=job_state is not None, start_step=start_step != 0, sentinel=sentinel is not None,
+                 skip_steps=bool(skip_steps), fence_callback=fence_callback is not None)
+    if prefetch < 1:
+        raise ValueError(f"prefetch must be >= 1, got {prefetch}")
+    if pipeline_depth < 1:
+        raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
+    ctx._land_pending()  # a deferred synchronous step lands first
+    if ctx.state is None:
+        ctx.init_state()
+    tier, device = ctx.tier, ctx.device
+    K = max(1, int(dispatch_k)) if on_metrics is None else 1
+    flush_steps = max(1, int(wb_flush_steps))
+    stop = threading.Event()
+    cv = threading.Condition()  # guards the ring accounting and errors
+    errors: List[BaseException] = []
+    prep_q: "queue.Queue" = queue.Queue(maxsize=prefetch)
+    staged_q: "queue.Queue" = queue.Queue(maxsize=prefetch)
+    wb_q: "queue.Queue" = queue.Queue(maxsize=flush_steps + prefetch + max(1, int(psgrad_batch)))
+    flush_now = threading.Event()  # the feeder found the ring full
+    sign_map = PendingSignMap()
+    salts = dict(tier.group_salt)
+    heads: Dict[str, int] = {}  # ring rows handed out, unwrapped
+    tails: Dict[str, int] = {}  # ring rows freed, unwrapped
+    spans: Dict[str, List[int]] = {}  # each live span's rows (with its skip), in step order
+    lane_s = {"feeder": 0.0, "stager": 0.0, "dispatch": 0.0, "write_back": 0.0}
+    stats = {"dispatch_k": K, "packs": 0, "packed_steps": 0, "single_steps": 0, "restore_steps": 0,
+             "restored_rows": 0, "ring_waits": 0, "flushes": 0, "lane_s": lane_s}
+    t_start = time.perf_counter()
+
+    def fail(e: BaseException) -> None:
+        with cv:
+            errors.append(e)
+            stop.set()
+            cv.notify_all()
+        flush_now.set()
+
+    def put(q: "queue.Queue", item) -> None:
+        while True:
+            if stop.is_set():
+                raise _Stopped
+            try:
+                q.put(item, timeout=WAIT_S)
+                return
+            except queue.Full:
+                continue
+
+    def get(q: "queue.Queue", timeout: float = WAIT_S):
+        while True:
+            if stop.is_set():
+                raise _Stopped
+            try:
+                return q.get(timeout=timeout)
+            except queue.Empty:
+                if timeout < WAIT_S:
+                    raise
+
+    def wait_event(ev: torch.cuda.Event) -> None:
+        """Poll a recorded event until it has completed (a host wait that
+        still looks at ``stop``)."""
+        while not ev.query():
+            if stop.is_set():
+                raise _Stopped
+            time.sleep(1e-4)
+
+    # ------------------------------------------------- the feeder's lane
+
+    def ring_alloc(gname: str, kp: int) -> int:
+        """Reserve ``kp`` rows of the group's ring for a step's evictions;
+        a span never wraps (it skips to row 0 instead). Waits, asking the
+        write-back to flush early, while the live spans leave no room."""
+        W = ctx.ring_rows(gname)
+        if kp > W:
+            raise RuntimeError(f"one step evicts {kp} (padded) rows, more than the {W}-row eviction ring of group "
+                               f"{gname!r}: raise wb_ring_rows")
+        with cv:
+            while not stop.is_set():
+                head, tail = heads.get(gname, 0), tails.get(gname, 0)
+                skip = W - head % W if head % W + kp > W else 0
+                if head + skip + kp - tail <= W:
+                    heads[gname] = head + skip + kp
+                    spans.setdefault(gname, []).append(skip + kp)
+                    return (head + skip) % W
+                if tail == head and head % W:
+                    # the ring is empty, only the skip does not fit: both
+                    # ends move to the next turn of the ring
+                    heads[gname] = tails[gname] = -(-head // W) * W
+                    continue
+                flush_now.set()
+                stats["ring_waits"] += 1
+                cv.wait(timeout=WAIT_S)
+        raise _Stopped
+
+    def gate(gname: str, miss_signs: np.ndarray):
+        """The misses whose write-back is in flight: one restore from the
+        group's ring, or None."""
+        _hits, _tokens, srcs = sign_map.query(miss_signs, salt=salts[gname])
+        pos = np.nonzero(srcs >= 0)[0]
+        return [(None, srcs[pos], pos)] if len(pos) else None
+
+    def feeder() -> None:
+        try:
+            seq = 0
+            for batch in batches:
+                if stop.is_set():
+                    return
+                t0 = time.perf_counter()
+                item = tier.prepare_batch(batch, hazard_gate=gate, ring_alloc=ring_alloc, pending_map=sign_map)
+                # the evicted signs are in flight from here: a later admit
+                # restores them from their ring rows
+                for gname, (ev_signs, k, ring_pos) in item[6].items():
+                    sign_map.insert_range(ev_signs[:k], ring_pos, seq, salt=salts[gname])
+                restore = item[4]
+                if restore:
+                    stats["restore_steps"] += 1
+                    stats["restored_rows"] += sum(int((dst <= ctx._group(g).rows).sum())
+                                                  for g, (_src, dst) in restore.items())
+                lane_s["feeder"] += time.perf_counter() - t0
+                put(prep_q, (seq, item))
+                seq += 1
+            put(prep_q, _END)
+        except _Stopped:
+            pass
+        except BaseException as e:  # noqa: BLE001 — the caller raises it
+            fail(e)
+
+    # -------------------------------------------------- the stager's lane
+
+    def stager() -> None:
+        try:
+            with _lane_stream(device) as stream:
+                while True:
+                    got = get(prep_q)
+                    if got is _END:
+                        put(staged_q, _END)
+                        return
+                    seq, (inputs, layout, miss, cold, restore, ev_aux, ev_meta) = got
+                    t0 = time.perf_counter()
+                    inputs, miss, cold, ev_aux, restore = ctx._stage(inputs, miss, cold, ev_aux, restore)
+                    ready = None
+                    if stream is not None:
+                        ready = torch.cuda.Event()
+                        ready.record(stream)
+                    lane_s["stager"] += time.perf_counter() - t0
+                    put(staged_q, (seq, inputs, layout, miss, cold, restore, ev_aux, ev_meta, ready))
+        except _Stopped:
+            pass
+        except BaseException as e:  # noqa: BLE001
+            fail(e)
+
+    # ----------------------------------------------- the write-back's lane
+
+    def release(acc: List) -> None:
+        """The landed steps' pending entries out (those of their own step
+        only: a later eviction of the same sign stays) and their spans
+        freed, in step order."""
+        with cv:
+            for seq, ev_meta, _payloads, _ev in acc:
+                for gname, (ev_signs, k, _ring_pos) in ev_meta.items():
+                    sign_map.remove(ev_signs[:k], seq, salt=salts[gname])
+                    live = spans.get(gname)
+                    if live:
+                        tails[gname] = tails.get(gname, 0) + live.pop(0)
+            cv.notify_all()
+        acc.clear()
+
+    def flush(acc: List, stream) -> None:
+        if not acc:
+            return
+        t0 = time.perf_counter()
+        hosts = []
+        for _seq, ev_meta, payloads, ev in acc:
+            if stream is None:
+                hosts.append(payloads)
+                continue
+            stream.wait_event(ev)  # the payloads are written
+            host = {}
+            for gname in ev_meta:
+                p = payloads[gname]
+                p.record_stream(stream)
+                host[gname] = torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+                host[gname].copy_(p, non_blocking=True)
+            hosts.append(host)
+        if stream is not None:
+            done = torch.cuda.Event()
+            done.record(stream)
+            wait_event(done)
+        for (_seq, ev_meta, _payloads, _ev), host in zip(acc, hosts):
+            tier.write_back(ev_meta, host)
+        release(acc)
+        stats["flushes"] += 1
+        lane_s["write_back"] += time.perf_counter() - t0
+
+    def writeback() -> None:
+        acc: List = []
+        try:
+            with _lane_stream(device) as stream:
+                while True:
+                    if stop.is_set():
+                        raise _Stopped
+                    try:
+                        item = wb_q.get(timeout=WAIT_S)
+                    except queue.Empty:
+                        # the feeder waits on a full ring: no step can come
+                        # until the spans in hand are freed
+                        if flush_now.is_set() and acc:
+                            flush_now.clear()
+                            flush(acc, stream)
+                        continue
+                    if item is _END:
+                        flush(acc, stream)
+                        return
+                    acc.append(item)
+                    if len(acc) >= flush_steps or flush_now.is_set():
+                        flush_now.clear()
+                        flush(acc, stream)
+        except _Stopped:
+            release(acc)
+        except BaseException as e:  # noqa: BLE001
+            fail(e)
+            release(acc)  # a feeder waiting on the ring must not wait on spans no flush will free
+
+    # ----------------------------------------------- the caller's dispatch
+
+    header = None
+    label_shape = None
+    pack: List = []
+    pack_sig: List = [None]
+    main = torch.cuda.current_stream(device) if device.type == "cuda" else None
+
+    def wait_staged(item) -> None:
+        ready = item[8]
+        if ready is not None:
+            main.wait_event(ready)
+            for t in _staged_tensors(item[1:8], []):
+                t.record_stream(main)  # in use on this stream, not the stager's
+
+    def post_step(seq, inputs, ev_meta, payloads) -> None:
+        nonlocal label_shape
+        label_shape = tuple(inputs["labels"][0].shape)
+        if ev_meta:
+            ev = None
+            if main is not None:
+                ev = torch.cuda.Event()
+                ev.record(main)
+            put(wb_q, (seq, ev_meta, payloads, ev))
+        if ctx.sparse_cfg.kind == OPTIMIZER_ADAM:
+            # the servers' powers move once a step for every cached group
+            for grp in ctx._cached_groups:
+                tier.router.advance_batch_state(grp)
+
+    def dispatch_one(item) -> None:
+        nonlocal header
+        seq, inputs, layout, miss, cold, restore, ev_aux, ev_meta, _ready = item
+        wait_staged(item)
+        header, payloads = ctx._dispatch(inputs, layout, miss, cold, restore, ev_aux, ev_meta)
+        stats["single_steps"] += 1
+        post_step(seq, inputs, ev_meta, payloads)
+        if on_metrics is not None:
+            ctx._last_metrics = ctx._parse_header(header.cpu().numpy(), label_shape)
+            on_metrics(ctx._last_metrics)
+
+    def flush_pack_single() -> None:
+        """A partial pack (a signature change, a restoring step, an idle
+        queue or the end) dispatches step by step, in order."""
+        while pack:
+            dispatch_one(pack.pop(0))
+
+    def dispatch_pack() -> None:
+        nonlocal header
+        for it in pack:
+            wait_staged(it)
+        headers, payloads = ctx._dispatch_packed([(it[1], it[2], it[3], it[4], it[6], it[7]) for it in pack])
+        header = headers[-1]  # one header a pack
+        stats["packs"] += 1
+        stats["packed_steps"] += len(pack)
+        for it, p in zip(pack, payloads):
+            post_step(it[0], it[1], it[7], p)
+        pack.clear()
+
+    def signature(item):
+        """A step's shape signature: a pack's steps share one."""
+        _seq, inputs, layout, miss, cold, _restore, ev_aux, ev_meta, _ready = item
+
+        def shapes(d):
+            return tuple(sorted((k, tuple(tuple(x.shape) for x in v) if isinstance(v, tuple) else tuple(v.shape))
+                                for k, v in d.items()))
+
+        return (layout, shapes(inputs["stacked_rows"]), shapes(inputs["raw_rows"]), "stacked_scale" in inputs,
+                tuple(tuple(x.shape) for x in inputs["labels"]), shapes(miss), shapes(cold), shapes(ev_aux),
+                tuple(sorted((g, m[2] >= 0) for g, m in ev_meta.items())))
+
+    threads = [threading.Thread(target=feeder, name="cache-feeder", daemon=True),
+               threading.Thread(target=stager, name="cache-stager", daemon=True),
+               threading.Thread(target=writeback, name="cache-writeback", daemon=True)]
+    for t in threads:
+        t.start()
+    try:
+        with _dispatch_stream(device, main):
+            while True:
+                if pack:
+                    try:
+                        item = get(staged_q, timeout=PACK_IDLE_S)
+                    except queue.Empty:
+                        # never hold a partial pack while the queue idles: the
+                        # feeder may be waiting on spans these steps free
+                        t0 = time.perf_counter()
+                        flush_pack_single()
+                        lane_s["dispatch"] += time.perf_counter() - t0
+                        continue
+                else:
+                    item = get(staged_q)
+                t0 = time.perf_counter()
+                if item is _END:
+                    flush_pack_single()
+                    lane_s["dispatch"] += time.perf_counter() - t0
+                    break
+                if K > 1 and not item[5]:  # restore-free: packable
+                    sig = signature(item)
+                    if pack and sig != pack_sig[0]:
+                        flush_pack_single()
+                    if not pack:
+                        pack_sig[0] = sig
+                    pack.append(item)
+                    if len(pack) == K:
+                        dispatch_pack()
+                else:
+                    flush_pack_single()  # a restore never overtakes the steps before it
+                    dispatch_one(item)
+                lane_s["dispatch"] += time.perf_counter() - t0
+            put(wb_q, _END)
+            while threads[2].is_alive():
+                threads[2].join(timeout=WAIT_S)
+                if stop.is_set():
+                    break
+    except _Stopped:
+        pass
+    except BaseException as e:  # noqa: BLE001
+        fail(e)
+    finally:
+        stop.set()
+        flush_now.set()
+        with cv:
+            cv.notify_all()
+        deadline = time.perf_counter() + JOIN_S
+        for t in threads:
+            t.join(timeout=max(0.0, deadline - time.perf_counter()))
+        stats["wall_s"] = time.perf_counter() - t_start
+        stats["resident_rows"] = {g.name: len(tier.dirs[g.name]) for g in tier.groups}
+        ctx._stream_stats = stats
+    alive = [t.name for t in threads if t.is_alive()]
+    if alive:
+        raise RuntimeError(f"the stream's lanes {alive} were still running {JOIN_S:g} s after it stopped"
+                           ) from (errors[0] if errors else None)
+    if errors:
+        raise errors[0]
+    if header is None:
+        return ctx._last_metrics
+    if on_metrics is not None or fetch_final:
+        if on_metrics is None:
+            ctx._last_metrics = ctx._parse_header(header.cpu().numpy(), label_shape)
+        ctx._last_header_dev = None
+        return ctx._last_metrics
+    if main is not None:  # the last step done, nothing read back
+        done = torch.cuda.Event()
+        done.record(main)
+        while not done.query():
+            time.sleep(1e-4)
+    ctx._last_header_dev = (header, label_shape)
+    return None
+
+
+@contextmanager
+def _dispatch_stream(device: torch.device, main):
+    """The dispatch's device and stream: the caller's current stream."""
+    if main is None:
+        yield
+        return
+    with torch.cuda.device(device), torch.cuda.stream(main):
+        yield

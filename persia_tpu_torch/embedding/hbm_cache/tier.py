@@ -35,6 +35,7 @@ from persia_tpu_torch.embedding.hbm_cache.directory import (
     CacheDirectory,
     _BufRing,
     _retain_allocator_pages,
+    group_salt,
     native_init_rows,
 )
 from persia_tpu_torch.embedding.hbm_cache.groups import (
@@ -81,6 +82,8 @@ class CachedEmbeddingTier:
         rows_per_group = rows if isinstance(rows, dict) else {d: rows for d in dims}
         self.groups: List[CacheGroup] = make_cache_groups(self.cfg, rows_per_group, sparse_cfg)
         self.dirs = {g.name: CacheDirectory(g.rows, admit_touches=admit_touches) for g in self.groups}
+        # each group's namespace in the stream's one pending map (sign ^ salt)
+        self.group_salt = {g.name: group_salt(g.name) for g in self.groups}
         _retain_allocator_pages()
         self._ring = _BufRing()
         self._slot_group = {s: g for g in self.groups for s in g.slots}
@@ -174,36 +177,61 @@ class CachedEmbeddingTier:
     # -------------------------------------------------------- train path
 
     def _admit_aux(self, g: CacheGroup, miss_signs, rows_miss, ev_signs, ev_rows, n_unique, hazard_gate,
-                   miss_aux, cold_aux, evict_aux, evict_meta) -> None:
+                   miss_aux, cold_aux, restore_aux, evict_aux, evict_meta, ring_alloc=None) -> None:
         """After the admit, for both paths: the counters, the eviction
-        rows, the hazard gate, the warm/cold split of the misses, and the
-        pairing K12 reads each evicted row by: the directory hands the k
-        rows a call evicts to its last k misses, in order, so miss i takes
-        the row of payload slot i - (m - k) where that is >= 0. Each warm
-        and cold write carries that slot (-1: none, and for pads), and the
-        slots no write claims (the pads) are listed apart."""
+        rows and their ring span, the hazard gate, the warm/cold split of
+        the misses, and the pairing K12 reads each evicted row by: the
+        directory hands the k rows a call evicts to its last k misses, in
+        order, so miss i takes the row of payload slot i - (m - k) where
+        that is >= 0. Each warm and cold write carries that slot (-1: none,
+        and for pads), and the slots no write claims (a restored miss's,
+        and the pads) are listed apart.
+
+        ``ring_alloc(group, padded k)`` (the stream's) reserves the step's
+        span of the group's eviction ring before the gate runs, so no row
+        the gate hands back lies in this step's span. ``hazard_gate(group,
+        miss_signs)`` runs before the server probe; it returns None or
+        ``[(None, src_idx, positions), ...]``: the misses at ``positions``
+        are restored from rows ``src_idx`` of the group's ring (K14), one
+        call a group, their restores concatenated into ``restore_aux``."""
         C = g.rows
         self.hits += n_unique - len(miss_signs)
         self.misses += len(miss_signs)
         self.evictions += len(ev_signs)
         k, m = len(ev_rows), len(miss_signs)
+        kp = _bucket(k) if k else 0
         if k:
             if k > m or not np.array_equal(rows_miss[m - k:], ev_rows):
                 raise RuntimeError(f"group {g.name}: the evicted rows are not the rows of the last {k} misses")
-            kp = _bucket(k)
+            ring_pos = ring_alloc(g.name, kp) if ring_alloc is not None else -1
+            evict_meta[g.name] = (ev_signs, k, ring_pos)
+        resolved = hazard_gate(g.name, miss_signs) if hazard_gate is not None and m else None
+        handled = np.zeros(m, dtype=bool)
+        restored = np.empty(0, dtype=np.int64)
+        if resolved:
+            src = np.concatenate([np.asarray(s, dtype=np.int64) for _p, s, _pos in resolved])
+            restored = np.concatenate([np.asarray(pos, dtype=np.int64) for _p, _s, pos in resolved])
+            handled[restored] = True
+            n, n_pad = len(restored), round_up_pow2(len(restored))
+            r_src = self._ring.full(("r_src", g.name), (n_pad,), np.int32, 0)  # a pad reads ring row 0
+            r_dst = self._ring.full(("r_dst", g.name), (n_pad,), np.int32, C + 1)  # and is dropped
+            r_src[:n] = src
+            r_dst[:n] = rows_miss[restored]
+            restore_aux[g.name] = (r_src, r_dst)
+        if k:
             e_rows = self._ring.full(("e_rows", g.name), (kp,), np.int32, C)
             e_rows[:k] = ev_rows
-            e_free = self._ring.full(("e_free", g.name), (_bucket(kp - k) if kp > k else 0,), np.int32, -1)
-            e_free[:kp - k] = np.arange(k, kp, dtype=np.int32)
+            taken = restored - (m - k)  # a restored miss's slot: read by K12, written by K14
+            unclaimed = np.concatenate([taken[taken >= 0], np.arange(k, kp)])
+            e_free = self._ring.full(("e_free", g.name), (_bucket(len(unclaimed)) if len(unclaimed) else 0,),
+                                     np.int32, -1)
+            e_free[:len(unclaimed)] = unclaimed
             evict_aux[g.name] = (e_rows, e_free)
-            evict_meta[g.name] = (ev_signs, k)
         if not m:
             return
-        if hazard_gate is not None:
-            hazard_gate(g.name, miss_signs)  # lands a pending write-back these misses read
         warm, vals = self._probe(miss_signs, g.dim)
-        widx = np.nonzero(warm[:m])[0]
-        cidx = np.nonzero(~warm[:m])[0]
+        widx = np.nonzero(warm[:m] & ~handled)[0]
+        cidx = np.nonzero(~warm[:m] & ~handled)[0]
         # pad rows are C+1, which the device's writes drop; the pad
         # entries' values are left as they are on purpose
         if len(widx):
@@ -303,24 +331,32 @@ class CachedEmbeddingTier:
             layout_stacked.append((g.name, tuple(names)))
         return any_scale
 
-    def prepare_batch(self, batch: PersiaBatch, hazard_gate: Optional[Callable[[str, np.ndarray], None]] = None):
+    def prepare_batch(self, batch: PersiaBatch, hazard_gate: Optional[Callable] = None,
+                      ring_alloc: Optional[Callable[[str, int], int]] = None, pending_map=None):
         """Admit the batch's signs, check the warm misses out of the server
         and build the step's host arrays: ``(inputs, layout, miss_aux,
-        cold_aux, evict_aux, evict_meta)``. ``miss_aux`` {group: (rows,
-        entries, slots)}, ``cold_aux`` {group: (rows, seeds, slots)},
+        cold_aux, restore_aux, evict_aux, evict_meta)``. ``miss_aux``
+        {group: (rows, entries, slots)}, ``cold_aux`` {group: (rows, seeds,
+        slots)}, ``restore_aux`` {group: (ring rows, table rows)} (K14's),
         ``evict_aux`` {group: (rows, unclaimed slots)} (the pairing:
-        ``_admit_aux``), ``evict_meta`` {group: (evicted signs, count)}.
+        ``_admit_aux``), ``evict_meta`` {group: (evicted signs, count, ring
+        position or -1)}.
 
         ``hazard_gate(group, miss_signs)`` runs before a group's server
         probe: the synchronous ctx lands its deferred write-back there when
-        one of these misses is a sign that write-back carries."""
+        one of these misses is a sign that write-back carries; the stream's
+        returns restores from the eviction ring. ``ring_alloc`` is the
+        stream's (``_admit_aux``). ``pending_map`` (the stream's
+        ``PendingSignMap``): the single-id path probes it inside the admit
+        (``CacheDirectory.feed_batch``) and queries its hits again after
+        the ring span is reserved, in place of ``hazard_gate``."""
         fast = self._single_id_groups(batch)
         if fast is not None:
-            return self._prepare_batch_single_id(batch, fast, hazard_gate)
+            return self._prepare_batch_single_id(batch, fast, hazard_gate, ring_alloc, pending_map)
         slots_by_group = self._group_slots(preprocess_batch(batch.id_type_features, self.cfg))
         stacked_rows, stacked_scale, raw_rows = {}, {}, {}
         layout_stacked: List = []
-        miss_aux, cold_aux, evict_aux, evict_meta = {}, {}, {}, {}
+        miss_aux, cold_aux, restore_aux, evict_aux, evict_meta = {}, {}, {}, {}, {}
         any_scale = False
         for g in self.groups:
             slots = slots_by_group.get(g.name, [])
@@ -329,29 +365,39 @@ class CachedEmbeddingTier:
             uniq, inv = self._dedup_group_signs(slots)
             rows_u, miss_idx, ev_signs, ev_rows = self.dirs[g.name].admit(uniq)
             self._admit_aux(g, uniq[miss_idx], rows_u[miss_idx], ev_signs, ev_rows, len(uniq), hazard_gate,
-                            miss_aux, cold_aux, evict_aux, evict_meta)
+                            miss_aux, cold_aux, restore_aux, evict_aux, evict_meta, ring_alloc)
             any_scale |= self._slot_matrices(g, slots, rows_u[inv], stacked_rows, stacked_scale, raw_rows,
                                              layout_stacked)
         inputs = self._host_inputs(batch, stacked_rows, raw_rows, stacked_scale if any_scale else None)
-        return inputs, CacheLayout(stacked=tuple(layout_stacked)), miss_aux, cold_aux, evict_aux, evict_meta
+        return (inputs, CacheLayout(stacked=tuple(layout_stacked)), miss_aux, cold_aux, restore_aux, evict_aux,
+                evict_meta)
 
-    def _prepare_batch_single_id(self, batch: PersiaBatch, fast, hazard_gate):
+    def _prepare_batch_single_id(self, batch: PersiaBatch, fast, hazard_gate, ring_alloc, pending_map):
         """One native admit a group over its (S, B) sign matrix
-        (``admit_positions``: dedup, admit and each position's row); the
-        row matrix is its output reshaped."""
+        (``admit_positions``, or with a ``pending_map`` ``feed_batch``:
+        dedup, admit, each position's row and the pending map's probe);
+        the row matrix is its output reshaped."""
         stacked_rows: Dict[str, np.ndarray] = {}
         layout_stacked: List = []
-        miss_aux, cold_aux, evict_aux, evict_meta = {}, {}, {}, {}
+        miss_aux, cold_aux, restore_aux, evict_aux, evict_meta = {}, {}, {}, {}, {}
         for g, names, mat in fast:
             S, B = mat.shape
-            rows, miss_signs, miss_rows, ev_signs, ev_rows, n_unique = self.dirs[g.name].admit_positions(
-                mat.reshape(-1))
-            self._admit_aux(g, miss_signs, miss_rows, ev_signs, ev_rows, n_unique, hazard_gate,
-                            miss_aux, cold_aux, evict_aux, evict_meta)
+            d = self.dirs[g.name]
+            gate = hazard_gate
+            if pending_map is not None:
+                salt = self.group_salt[g.name]
+                rows, miss_signs, miss_rows, ev_signs, ev_rows, n_unique, _rst_src, rst_pos = d.feed_batch(
+                    mat.reshape(-1), pending_map, salt=salt)
+                gate = _make_reval_gate(pending_map, rst_pos, salt)
+            else:
+                rows, miss_signs, miss_rows, ev_signs, ev_rows, n_unique = d.admit_positions(mat.reshape(-1))
+            self._admit_aux(g, miss_signs, miss_rows, ev_signs, ev_rows, n_unique, gate,
+                            miss_aux, cold_aux, restore_aux, evict_aux, evict_meta, ring_alloc)
             stacked_rows[g.name] = rows.reshape(S, B, 1)
             layout_stacked.append((g.name, names))
         inputs = self._host_inputs(batch, stacked_rows, {})
-        return inputs, CacheLayout(stacked=tuple(layout_stacked)), miss_aux, cold_aux, evict_aux, evict_meta
+        return (inputs, CacheLayout(stacked=tuple(layout_stacked)), miss_aux, cold_aux, restore_aux, evict_aux,
+                evict_meta)
 
     # --------------------------------------------------------- eval path
 
@@ -391,7 +437,7 @@ class CachedEmbeddingTier:
     def write_back(self, evict_meta, evict_payload) -> None:
         """Write the evicted rows' whole entries ``[emb | state]`` to the
         server: ``evict_payload`` {group: host tensor (f32 or bf16)}."""
-        for gname, (ev_signs, k) in evict_meta.items():
+        for gname, (ev_signs, k, _ring_pos) in evict_meta.items():
             if not k:
                 continue
             g = next(gr for gr in self.groups if gr.name == gname)
@@ -423,6 +469,28 @@ class CachedEmbeddingTier:
                 self._write_rows(g, signs, rows, tables, emb_state)
                 total += len(signs)
         return total
+
+
+def _make_reval_gate(pending_map, rst_pos: np.ndarray, salt: int):
+    """The hazard gate of the single-id path under a pending map:
+    ``feed_batch`` found the candidates before this step's ring span was
+    reserved, and a write-back that landed in between may have freed a
+    span they point into. ``_admit_aux`` calls the gate after the
+    reservation, so querying the candidates again here closes that window:
+    entries still live point into spans the allocator cannot have handed
+    out; a dead entry's write-back has landed, and its miss reads the
+    server like any other."""
+    if not len(rst_pos):
+        return None
+
+    def gate(gname: str, miss_signs: np.ndarray):
+        _hits, _tokens, srcs = pending_map.query(miss_signs[rst_pos], salt=salt)
+        live = srcs >= 0
+        if not live.any():
+            return None
+        return [(None, srcs[live], rst_pos[live])]
+
+    return gate
 
 
 def _position_index(slot: ProcessedSlot, L: int) -> np.ndarray:

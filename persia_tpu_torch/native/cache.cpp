@@ -20,8 +20,13 @@
 //   - the seeded cold-row init, bit for bit the parameter server's
 //     (cache_uniform_init, cache_init_rows).
 //
-// The pending-write-back map, the access sketch and the sharded directory
-// of the reference are not part of this copy.
+//   - the stream's pending-write-back map (pending_map_*: sign ->
+//     (token, ring row) of every eviction whose write-back is in flight)
+//     and the fused feeder call (cache_feed_batch: cache_admit_positions
+//     and the map's probe of the misses in one call).
+//
+// The access sketch and the sharded directory of the reference are not
+// part of this copy.
 //
 // C ABI only (ctypes-friendly); no Python headers needed.
 
@@ -30,6 +35,8 @@
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <mutex>
+#include <new>
 #include <vector>
 
 namespace {
@@ -643,6 +650,215 @@ void cache_init_rows(const uint64_t* signs, int64_t m, int64_t dim,
       row[j] = (float)v;
     }
   }
+}
+
+}  // extern "C"
+
+// ------------------------------------------------------------ pending map
+//
+// sign -> (token, src) open-addressing map for the stream's write-back
+// hazard gate: which in-flight eviction (token = the step's seq) holds a
+// sign's freshest row, and at which row of the group's device ring (src).
+// Insert overwrites (a later step wins); remove is token-conditional, so a
+// landing write-back cannot delete a newer step's entry for the same sign.
+// An internal mutex makes it thread-safe: the feeder probes it inside
+// cache_feed_batch while the write-back thread removes landed entries. The
+// map is one for all groups; callers namespace a group's keys by XOR-ing
+// its salt into the signs (cache_feed_batch's `salt`).
+
+namespace {
+
+struct PendingMap {
+  struct Slot {
+    uint64_t sign;
+    int64_t src;
+    uint32_t token;
+    uint8_t state;  // 0 empty, 1 used, 2 tombstone
+  };
+  std::mutex mu;
+  std::vector<Slot> t;
+  uint64_t mask = 0;
+  int64_t count = 0;     // used slots
+  int64_t occupied = 0;  // used + tombstones (the probe chains' load)
+
+  void init(uint64_t cap) {
+    uint64_t c = 64;
+    while (c < cap) c <<= 1;
+    t.assign(c, Slot{0, 0, 0, 0});
+    mask = c - 1;
+    count = occupied = 0;
+  }
+
+  void grow_if_needed(int64_t incoming) {
+    if ((occupied + incoming) * 10 < (int64_t)t.size() * 7) return;
+    std::vector<Slot> old;
+    old.swap(t);
+    uint64_t c = old.size();
+    while ((count + incoming) * 10 >= (int64_t)c * 7) c <<= 1;
+    t.assign(c, Slot{0, 0, 0, 0});
+    mask = c - 1;
+    count = occupied = 0;
+    for (const Slot& s : old)
+      if (s.state == 1) put(s.sign, s.src, s.token);
+  }
+
+  void put(uint64_t sign, int64_t src, uint32_t token) {
+    uint64_t j = splitmix64(sign) & mask;
+    int64_t first_tomb = -1;
+    for (;;) {
+      Slot& sl = t[j];
+      if (sl.state == 0) {
+        if (first_tomb >= 0) {
+          t[first_tomb] = Slot{sign, src, token, 1};
+        } else {
+          sl = Slot{sign, src, token, 1};
+          ++occupied;
+        }
+        ++count;
+        return;
+      }
+      if (sl.state == 2) {
+        if (first_tomb < 0) first_tomb = (int64_t)j;
+      } else if (sl.sign == sign) {
+        sl.src = src;
+        sl.token = token;  // overwrite: a later step wins
+        return;
+      }
+      j = (j + 1) & mask;
+    }
+  }
+
+  // the caller holds mu; true on a live hit
+  inline bool find(uint64_t s, int64_t* src, uint32_t* token) const {
+    uint64_t j = splitmix64(s) & mask;
+    for (;;) {
+      const Slot& sl = t[j];
+      if (sl.state == 0) return false;
+      if (sl.state == 1 && sl.sign == s) {
+        *src = sl.src;
+        *token = sl.token;
+        return true;
+      }
+      j = (j + 1) & mask;
+    }
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+void* pending_map_create() {
+  auto* m = new (std::nothrow) PendingMap();
+  if (m) m->init(1 << 12);
+  return m;
+}
+
+void pending_map_destroy(void* h) { delete static_cast<PendingMap*>(h); }
+
+int64_t pending_map_size(void* h) {
+  PendingMap& m = *static_cast<PendingMap*>(h);
+  std::lock_guard<std::mutex> lk(m.mu);
+  return m.count;
+}
+
+void pending_map_insert(void* h, const uint64_t* signs, const int64_t* srcs, int64_t n, uint32_t token) {
+  PendingMap& m = *static_cast<PendingMap*>(h);
+  std::lock_guard<std::mutex> lk(m.mu);
+  m.grow_if_needed(n);
+  for (int64_t i = 0; i < n; ++i) m.put(signs[i], srcs[i], token);
+}
+
+// signs[i] -> (base_src + i, token): a step's evictions take one
+// contiguous span of the ring
+void pending_map_insert_range(void* h, const uint64_t* signs, int64_t n, int64_t base_src, uint32_t token) {
+  PendingMap& m = *static_cast<PendingMap*>(h);
+  std::lock_guard<std::mutex> lk(m.mu);
+  m.grow_if_needed(n);
+  for (int64_t i = 0; i < n; ++i) m.put(signs[i], base_src + i, token);
+}
+
+// tokens_out / srcs_out a sign (src -1: not pending); returns the hits
+int64_t pending_map_query(void* h, const uint64_t* signs, int64_t n, uint32_t* tokens_out, int64_t* srcs_out) {
+  PendingMap& m = *static_cast<PendingMap*>(h);
+  std::lock_guard<std::mutex> lk(m.mu);
+  int64_t hits = 0;
+  const int64_t PF = 16;
+  for (int64_t i = 0; i < n; ++i) {
+    if (i + PF < n) __builtin_prefetch(&m.t[splitmix64(signs[i + PF]) & m.mask]);
+    srcs_out[i] = -1;
+    tokens_out[i] = 0;
+    int64_t src;
+    uint32_t token;
+    if (m.find(signs[i], &src, &token)) {
+      srcs_out[i] = src;
+      tokens_out[i] = token;
+      ++hits;
+    }
+  }
+  return hits;
+}
+
+// remove the signs whose current entry carries `token` (a later re-evict
+// of the same sign under a newer token survives its older landing)
+void pending_map_remove(void* h, const uint64_t* signs, int64_t n, uint32_t token) {
+  PendingMap& m = *static_cast<PendingMap*>(h);
+  std::lock_guard<std::mutex> lk(m.mu);
+  for (int64_t i = 0; i < n; ++i) {
+    const uint64_t s = signs[i];
+    uint64_t j = splitmix64(s) & m.mask;
+    for (;;) {
+      PendingMap::Slot& sl = m.t[j];
+      if (sl.state == 0) break;
+      if (sl.state == 1 && sl.sign == s) {
+        if (sl.token == token) {
+          sl.state = 2;  // a tombstone (occupied stays; growth compacts)
+          --m.count;
+        }
+        break;
+      }
+      j = (j + 1) & m.mask;
+    }
+  }
+}
+
+// ------------------------------------------------------------ fused feeder
+//
+// The feeder's admit in one call: cache_admit_positions, then the pending
+// map's probe of the misses (key = sign ^ salt), under the map's mutex.
+// Extra outputs, sized by the caller as the misses are:
+//   restore_src_out[j]  the ring row holding the j-th hit's freshest entry
+//   restore_pos_out[j]  its ordinal among miss_signs_out / miss_rows_out
+//   *n_restore_out      the hits
+// Returns n_miss, or -1 on a capacity overflow (as cache_admit_positions;
+// no probe then). The probe runs before the caller reserves this step's
+// ring span, so the caller queries the hits again after reserving it: a
+// write-back landing in between may have freed a span the hits point into.
+int64_t cache_feed_batch(void* h, void* pending_h, const uint64_t* signs, int64_t n, int32_t* rows_out,
+                         uint64_t* miss_signs_out, int64_t* miss_rows_out, uint64_t* evict_signs_out,
+                         int64_t* evict_rows_out, int64_t* n_unique_out, int64_t* n_evict_out,
+                         int64_t* restore_src_out, int64_t* restore_pos_out, int64_t* n_restore_out, uint64_t salt) {
+  *n_restore_out = 0;
+  const int64_t n_miss = cache_admit_positions(h, signs, n, rows_out, miss_signs_out, miss_rows_out, evict_signs_out,
+                                               evict_rows_out, n_unique_out, n_evict_out);
+  if (n_miss < 0 || pending_h == nullptr) return n_miss;
+  PendingMap& m = *static_cast<PendingMap*>(pending_h);
+  std::lock_guard<std::mutex> lk(m.mu);
+  if (m.count == 0) return n_miss;
+  int64_t n_restore = 0;
+  const int64_t PF = 16;
+  for (int64_t j = 0; j < n_miss; ++j) {
+    if (j + PF < n_miss) __builtin_prefetch(&m.t[splitmix64(miss_signs_out[j + PF] ^ salt) & m.mask]);
+    int64_t src;
+    uint32_t token;
+    if (m.find(miss_signs_out[j] ^ salt, &src, &token)) {
+      restore_src_out[n_restore] = src;
+      restore_pos_out[n_restore] = j;
+      ++n_restore;
+    }
+  }
+  *n_restore_out = n_restore;
+  return n_miss;
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
-"""Seeded inputs of the cache tier's kernels, K12 (``ops.cache_aux``) and
-K13 (``ops.cached_gather``), shared by the card tests and ``chip_smoke.py``:
-one step's aux pieces on a group's pool, padded as the tier pads them, and
-cache rows with pads (and eval's misses)."""
+"""Seeded inputs of the cache tier's kernels, K12 (``ops.cache_aux``), K13
+(``ops.cached_gather``) and K14 (``ops.restore_rows``), shared by the tests
+and ``chip_smoke.py``: one step's aux pieces on a group's pool, padded as
+the tier pads them; cache rows with pads (and eval's misses); a step's
+restores from an eviction ring."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 from persia_tpu_torch.embedding.hbm_cache.common import _bucket
 from persia_tpu_torch.embedding.optim import SGD, Adagrad, Adam
 from persia_tpu_torch.ops.sparse_update import init_sparse_state
+from persia_tpu_torch.utils import round_up_pow2
 
 OPTIMIZERS = {"sgd": SGD(lr=0.1), "adagrad": Adagrad(lr=0.05), "adagrad_vw": Adagrad(lr=0.05, vectorwise_shared=True),
               "adam": Adam(lr=0.01)}
@@ -111,3 +113,28 @@ def gather_case(S: int, B: int, L: int, C: int, dim: int, device, seed: int, pad
     if miss:
         out["miss_table"] = torch.randn((miss, dim), generator=g)
     return {k: v.to(device) for k, v in out.items()}
+
+
+def restore_case(kind: str, C: int, dim: int, ring_rows: int, n: int, bf16: bool, device, seed: int) -> Dict:
+    """A pool (C+1, dim) with random rows and state (row C zero), a random
+    eviction ring (ring_rows, dim + state_dim), bf16 where ``bf16``, and
+    ``n`` restores: distinct rows of the pool from random ring rows, padded
+    as the tier pads them (sources 0, rows C+1) to a power of two. Returns
+    the keyword arguments of ``restore_rows``."""
+    g = torch.Generator().manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    table = torch.randn((C + 1, dim), generator=g)
+    table[C] = 0
+    state = init_sparse_state(OPTIMIZERS[kind].config, C + 1, dim)
+    for s in state.values():
+        s.copy_(torch.rand(s.shape, generator=g))
+    width = dim + sum(s.shape[1] for s in state.values())
+    ring = torch.randn((ring_rows, width), generator=g).to(torch.bfloat16 if bf16 else torch.float32)
+    size = round_up_pow2(n) if n else 0
+    src = np.zeros(size, np.int32)
+    dst = np.full(size, C + 1, np.int32)
+    src[:n] = rng.integers(0, ring_rows, n)
+    dst[:n] = rng.permutation(C)[:n]
+    out = dict(table=table, state=state, ring=ring, src_idx=torch.from_numpy(src), dst_rows=torch.from_numpy(dst))
+    return {k: (v.to(device) if torch.is_tensor(v) else {kk: vv.to(device) for kk, vv in v.items()})
+            for k, v in out.items()}

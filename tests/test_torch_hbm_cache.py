@@ -488,8 +488,9 @@ def _host(a):
 def _compare_lists(jsteps, tsteps, C, entry_tol):
     assert len(jsteps) == len(tsteps)
     for j, t in zip(jsteps, tsteps):
-        jin, jlayout, jmiss, jcold, _restore, jev, jmeta = j
-        tin, tlayout, tmiss, tcold, tev, tmeta = t
+        jin, jlayout, jmiss, jcold, jrestore, jev, jmeta = j
+        tin, tlayout, tmiss, tcold, trestore, tev, tmeta = t
+        assert jrestore == {} and trestore == {}  # the synchronous path restores nothing
         assert tlayout.stacked == jlayout.stacked
         for key in ("stacked_rows", "raw_rows", "stacked_scale"):
             assert set(tin.get(key, {})) == set(jin.get(key, {}))
@@ -509,9 +510,9 @@ def _compare_lists(jsteps, tsteps, C, entry_tol):
         assert set(tev) == set(jev)
         for k in jev:
             np.testing.assert_array_equal(tev[k][0], jev[k])
-            js, jk, _ring_pos = jmeta[k]
-            ts, tk = tmeta[k]
-            assert tk == jk
+            js, jk, jpos = jmeta[k]
+            ts, tk, tpos = tmeta[k]
+            assert tk == jk and tpos == jpos == -1
             np.testing.assert_array_equal(ts, js)
 
 
@@ -620,7 +621,7 @@ def test_tier_pairing_holds_on_a_saturated_directory(variable):
         ctx.train_step(_tbatch(_batch(s, variable)))
     C = ctx.tier.groups[0].rows
     evicting = 0
-    for _inputs, _layout, miss, cold, ev, meta in rec.steps:
+    for _inputs, _layout, miss, cold, _restore, ev, meta in rec.steps:
         for g in set(miss) | set(cold) | set(ev):
             writes = [w for w in (miss.get(g), cold.get(g)) if w is not None]
             e_rows, e_free = ev.get(g, (np.empty(0, np.int32), np.empty(0, np.int32)))

@@ -1733,3 +1733,125 @@ def test_cached_ctx_on_card_matches_cpu(cuda):
     for shard in pstore._shards:
         for sign, (_, vec) in shard.entries.items():
             np.testing.assert_allclose(cstore.get_embedding_entry(sign), vec, rtol=0, atol=1e-3)
+
+
+# ------------------------------------------- the cache tier: K14 and the stream
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("kind", ["sgd", "adagrad", "adagrad_vw", "adam"])
+def test_restore_rows_kernel_matches_plain(cuda, kind, bf16):
+    """K14 bit for bit its plain version (the table and every state column,
+    pads dropped); one launch a call with rows, none for a call without."""
+    from persia_tpu_torch.ops.restore_rows import restore_rows, restore_rows_reference
+    from persia_tpu_torch.testing.cache_cases import restore_case
+
+    case = restore_case(kind, 4096, 16, 3000, 900, bf16, cuda, seed=len(kind) + bf16)
+    cpu = {k: (v.cpu().clone() if torch.is_tensor(v) else {kk: vv.cpu().clone() for kk, vv in v.items()})
+           for k, v in case.items()}
+    before = restore_rows.launches
+    restore_rows(**case)
+    restore_rows_reference(**cpu)
+    assert restore_rows.launches == before + 1
+    assert torch.equal(case["table"].cpu(), cpu["table"])
+    for k in cpu["state"]:
+        assert torch.equal(case["state"][k].cpu(), cpu["state"][k]), k
+    empty = restore_case(kind, 64, 16, 8, 0, bf16, cuda, seed=1)
+    restore_rows(**empty)
+    assert restore_rows.launches == before + 1
+
+
+def test_restore_rows_after_k12_on_one_stream(cuda):
+    """K14 restoring, from the ring span a K12 call just filled, onto rows
+    that call just wrote, queued behind it on the same stream: bit for bit
+    the plain versions in that order."""
+    from persia_tpu_torch.ops.cache_aux import cache_aux, cache_aux_ring_reference
+    from persia_tpu_torch.ops.restore_rows import restore_rows, restore_rows_reference
+    from persia_tpu_torch.testing.cache_cases import aux_case
+
+    case = aux_case("adam", 4096, 16, 1500, 700, 600, 0.5, True, cuda, seed=9)
+    cpu = {k: (v.cpu().clone() if torch.is_tensor(v) else
+               {kk: vv.cpu().clone() for kk, vv in v.items()} if isinstance(v, dict) else v) for k, v in case.items()}
+    ring = torch.zeros((4096, 48), dtype=torch.bfloat16, device=cuda)
+    rring = ring.cpu().clone()
+    cache_aux(**case, wb_bf16=True, ring=ring, ring_pos=100)
+    cache_aux_ring_reference(ring=rring, ring_pos=100, **cpu, wb_bf16=True)
+    src = torch.zeros(512, dtype=torch.int32)
+    dst = torch.full((512,), 4097, dtype=torch.int32)
+    src[:400] = 100 + torch.randperm(1500, generator=torch.Generator().manual_seed(1))[:400].int()
+    dst[:400] = cpu["m_rows"][:400]
+    restore_rows(case["table"], case["state"], ring, src.to(cuda), dst.to(cuda))
+    restore_rows_reference(cpu["table"], cpu["state"], rring, src, dst)
+    assert torch.equal(case["table"].cpu(), cpu["table"])
+    for k in cpu["state"]:
+        assert torch.equal(case["state"][k].cpu(), cpu["state"][k]), k
+
+
+def test_cached_stream_on_card_matches_cpu(cuda):
+    """The stream on the card (saturated: evictions and restores every few
+    steps, bf16 wires, the bench's knobs) against the same stream on the
+    CPU: the directories' decisions bit for bit (the same host code), the
+    last loss within 1e-4, the servers' entries after flush within 1e-3;
+    K12, K13 and K14 launched on the card."""
+    from persia_tpu_torch.config import EmbeddingConfig, SlotConfig
+    from persia_tpu_torch.data import IDTypeFeatureWithSingleID, Label, NonIDTypeFeature, PersiaBatch
+    from persia_tpu_torch.embedding.hbm_cache import CachedTrainCtx
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.embedding.store import EmbeddingStore
+    from persia_tpu_torch.embedding.worker import EmbeddingWorker
+    from persia_tpu_torch.models import DLRM
+    from persia_tpu_torch.ops import cache_aux, cached_gather, restore_rows
+    from persia_tpu_torch.testing.watchdog import run_with_watchdog
+
+    cfg = EmbeddingConfig(slots_config={f"c{i}": SlotConfig(dim=16) for i in range(4)}, feature_index_prefix_bit=8)
+
+    def make(device):
+        store = EmbeddingStore(capacity=1 << 16, num_internal_shards=4, optimizer=Adagrad(lr=0.05).config, seed=1)
+        torch.manual_seed(0)
+        model = DLRM(13, 4, 16, (32, 16), (64,), compute_dtype=torch.float32, device="cpu")
+        ctx = CachedTrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3), Adagrad(lr=0.05),
+                             EmbeddingWorker(cfg, [store]), cfg, cache_rows=640, device=device,
+                             wb_wire_dtype="bfloat16", aux_wire_dtype="bfloat16").__enter__()
+        steps = []
+        inner = ctx.tier.prepare_batch
+
+        def wrapped(batch, **kw):
+            out = inner(batch, **kw)
+            inputs, _l, miss, cold, restore, ev, meta = out
+            back = [np.asarray(miss[g][0]) for g in miss] + [np.asarray(restore[g][1]) for g in restore]
+            live = np.sort(np.concatenate(back)) if back else np.empty(0)
+            steps.append((inputs["stacked_rows"]["cache_d16"].copy(), live[live < 641],
+                          {g: (np.asarray(m[0][:m[1]]).copy(), m[2]) for g, m in meta.items()}))
+            return out
+
+        ctx.tier.prepare_batch = wrapped
+        return ctx, store, steps
+
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(12):
+        feats = [IDTypeFeatureWithSingleID(f"c{i}", (rng.zipf(1.2, 256) % 3000).astype(np.uint64)) for i in range(4)]
+        batches.append(PersiaBatch(feats, non_id_type_features=[NonIDTypeFeature(rng.normal(size=(256, 13))
+                                                                                 .astype(np.float32))],
+                                   labels=[Label(rng.integers(0, 2, (256, 1)).astype(np.float32))],
+                                   requires_grad=True))
+    (card, cstore, csteps), (cpu, pstore, psteps) = make(cuda), make("cpu")
+    k12, k13, k14 = cache_aux.launches, cached_gather.launches, restore_rows.launches
+    knobs = dict(dispatch_k=8, pipeline_depth=1, fetch_final=False, prefetch=3, wb_flush_steps=8)
+    run_with_watchdog(lambda: card.train_stream(batches, **knobs), timeout=60.0)
+    run_with_watchdog(lambda: cpu.train_stream(batches, **knobs), timeout=60.0)
+    assert abs(card.last_metrics()["loss"] - cpu.last_metrics()["loss"]) <= 1e-4
+    assert card.stream_stats()["restore_steps"] > 0, card.stream_stats()
+    assert cache_aux.launches > k12 and cached_gather.launches == k13 + 12
+    assert restore_rows.launches == k14 + card.stream_stats()["restore_steps"]
+    for (a_rows, a_back, a_meta), (b_rows, b_back, b_meta) in zip(csteps, psteps):
+        assert np.array_equal(a_rows, b_rows) and np.array_equal(a_back, b_back)
+        assert a_meta.keys() == b_meta.keys()
+        for g in a_meta:
+            assert np.array_equal(a_meta[g][0], b_meta[g][0]) and a_meta[g][1] == b_meta[g][1]
+    card.flush()
+    cpu.flush()
+    assert cstore.size() == pstore.size()
+    for shard in pstore._shards:
+        for sign, (_, vec) in shard.entries.items():
+            np.testing.assert_allclose(cstore.get_embedding_entry(sign), vec, rtol=0, atol=1e-3)
