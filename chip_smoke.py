@@ -4,9 +4,10 @@
     python3 chip_smoke.py        # from the repository root, one CUDA card
     python3 chip_smoke.py --ab ROOT OUT.npz [k12]   # K2, K4, K7-K9, K12 of the tree ROOT
     python3 chip_smoke.py --ab-compare A.npz B.npz ...
+    python3 chip_smoke.py --stream-ab PAIRS   # in-order vs pipelined stream, in turns
 
 (``--ab``: see ``ab_run``; it compares two trees' kernels, parent and
-change, in one call.)
+change, in one call. ``--stream-ab``: see ``stream_ab``.)
 
 Phases, in order; any failure ends the run with a nonzero exit and no
 result line:
@@ -83,11 +84,13 @@ result line:
    ``cached_gather`` at the bench's (26, 4096, 1) rows on 2^21- and
    2^18-row pools (zipf rows, pads, scales, eval misses) bit for bit, at
    L = 4 and 8 within the f32 sum-order bound (L - 1) * 2^-23 *
-   sum |x| * |scale|, its keys, raw rows and mask bit for bit; K14
-   ``restore_rows`` (one launch a call with rows, none without) bit for
-   bit (pool and state) for SGD, Adagrad (and vectorwise) and Adam from
-   f32 and bf16 rings, every row a pad, no rows, and restoring rows that
-   a K12 call just wrote from the ring span that call just filled;
+   sum |x| * |scale|, its keys, raw rows and mask bit for bit; K12 with
+   the stream's in-flight restores in its launch (the payload, the ring,
+   the pool and state bit for bit) for SGD, Adagrad (and vectorwise) and
+   Adam from f32 and bf16 rings, restores mixed with warm, cold and
+   evicted rows (half the misses, restored ones too, on rows evicted that
+   step), every restore a pad, no restores, and two K12 calls, the second
+   restoring from the ring span the first filled onto rows it wrote;
 4. the paths, each with the launch counts set to 0 just before and read
    just after: (a) the flash-attention entry point at (B=4, L=1024, H=8,
    D=64) in bf16 and in f32, causal and not, and its backward (a dense
@@ -220,15 +223,23 @@ result line:
    ``pipeline_depth=1``, ``fetch_final=False``, ``prefetch=3``,
    ``wb_flush_steps=8``) over the same batches from the same start, counted
    (K13, K5 and the dot interaction once a step, K12 once a step that
-   touched the pool, K14 once a step that restored; the saturated stream
-   must restore): the directory's decisions (row matrices, cold rows, the
+   touched the pool, restores included; the saturated stream must
+   restore): the directory's decisions (row matrices, cold rows, the
    warm and restored rows together, evicted rows and signs) those of the
    synchronous steps at every step, the last loss finite, the server's
    entries after ``flush`` within 1e-5 relative of the synchronous run's;
    samples/s beside the synchronous path's, each lane's busy seconds,
-   steps a pack, restores a step, K12/K13/K14 launches a step, card busy
-   ms a step (the last 3 batches as a stream under the profiler) and peak
-   device bytes;
+   steps a pack, restores a step, K12/K13 launches a step, card busy
+   ms a step (the rest of the batches as a stream under the profiler) and
+   peak device bytes; then the stage-pipelined stream (``bench.py``'s
+   cached-pipelined knobs: ``pipeline_depth=4``, ``dispatch_k=8``,
+   ``fetch_final=False``) from a fresh ctx over the same batches, split
+   alike, counted: its decisions those of the in-order stream at every
+   step, its servers' entries after ``flush`` bit for bit the in-order
+   stream's (else within 1e-5 relative, the differing share printed);
+   samples/s and ``speedup_vs_inorder``, hoisted feeds, stalls, barrier
+   (restoring) steps, ``stage_overlap_frac``, each lane's busy seconds,
+   card busy ms a step, K12/K13 launches a step;
 5. timings of each kernel beside its plain version, the library call that
    computes the same function, and the card's bound, each by CUDA-graph
    replay (host enqueue cost out of the number; eager times beside them):
@@ -260,9 +271,12 @@ result line:
    cold (whole copies of the inputs, pool included, rotated), beside their
    plain versions and library calls (``index_select`` + ``cat`` +
    ``index_copy_``; ``F.embedding_bag`` with ``padding_idx``), K12 and
-   its read over the one-launch floor; K14 at the saturated stream's last
-   restoring step (its ring, its restores, its pool), beside its plain
-   version and ``index_select`` + ``index_copy_`` on the split columns;
+   its read over the one-launch floor; K12 at the saturated stream's last
+   restoring step (its pieces, its ring, its restores, its pool) with its
+   restores, without them, and unfolded as two launches (K12 without the
+   restores, then a K12 call of the restores alone: a launch of their own,
+   as before the fold), beside the bound (with the restores' bytes) and
+   the one-launch floor;
    and (5b) the flash-attention backward, a dense recompute, beside SDPA's
    backward.
 
@@ -562,7 +576,7 @@ KERNEL_NAMES = ("fa_fwd_wgmma_kernel", "fa_fwd_tf32x3_kernel", "tf32_split_kerne
                 "sparse_update_long_kernel", "sparse_update_short_kernel",
                 "raw_gather_fwd_kernel", "raw_gather_bwd_kernel", "attention_pool_fwd_kernel",
                 "attention_pool_bwd_kernel", "batch_norm_fwd_kernel", "batch_norm_bwd_kernel",
-                "cache_aux_kernel", "entry_rows_kernel", "restore_rows_kernel")
+                "cache_aux_kernel", "entry_rows_kernel")
 # the DIN path's kernels (K6-K9) and K2's two passes
 DIN_KERNEL_NAMES = ("raw_gather_fwd_kernel", "raw_gather_bwd_kernel", "attention_pool_fwd_kernel",
                     "attention_pool_bwd_kernel")
@@ -3334,30 +3348,37 @@ def path_dnn(dev):
 
 CACHE_SOURCE = {"cache_aux": "persia_tpu_torch/csrc/cache_aux.cu",
                 "gather_entry_rows": "persia_tpu_torch/csrc/cache_aux.cu",
-                "cached_gather": "persia_tpu_torch/csrc/cached_gather.cu",
-                "restore_rows": "persia_tpu_torch/csrc/restore_rows.cu"}
+                "cached_gather": "persia_tpu_torch/csrc/cached_gather.cu"}
 CACHE_REPLACES = {"cache_aux": "persia_tpu/embedding/hbm_cache/groups.py:260",
                   "gather_entry_rows": "persia_tpu/embedding/hbm_cache/groups.py:240",
-                  "cached_gather": "persia_tpu/embedding/hbm_cache/step.py:154",
-                  "restore_rows": "persia_tpu/embedding/hbm_cache/groups.py:250"}
+                  "cached_gather": "persia_tpu/embedding/hbm_cache/step.py:154"}
+# K12 also carries the stream's in-flight restores (the reference's
+# _restore_rows) in its one launch
+K12_ALSO_REPLACES = "persia_tpu/embedding/hbm_cache/groups.py:250"
 # the two regimes: the fill (2^21 rows, CACHE_FILL_STEPS steps) and the
 # saturated cache (2^18 rows, run until the last CACHE_SAT_TAIL steps all
 # evict; at most CACHE_SAT_MAX steps); CACHE_PROFILED steps of each under
 # the profiler; the SGD twin of the hybrid tier: its steps
 CACHE_FILL_ROWS, CACHE_SAT_ROWS = 1 << 21, 1 << 18
 CACHE_FILL_STEPS, CACHE_SAT_TAIL, CACHE_SAT_MAX, CACHE_PROFILED, CACHE_SGD_STEPS = 16, 16, 120, 3, 4
-CACHE_KERNELS = ("cache_aux", "gather_entry_rows", "cached_gather", "restore_rows")
+CACHE_KERNELS = ("cache_aux", "gather_entry_rows", "cached_gather")
 # the stream at bench.py's knobs (bench.py:466-522 and train_stream's
-# defaults), and the batches its card-busy share is profiled over
+# defaults), and the stage-pipelined stream at bench_cached_pipelined's
+# (bench.py:525-574: depth 4 from BENCH_PIPE_AB_DEPTH, dispatch_k 8)
 STREAM_KNOBS = dict(dispatch_k=8, pipeline_depth=1, fetch_final=False, prefetch=3, wb_flush_steps=8)
+PIPELINED_KNOBS = dict(STREAM_KNOBS, pipeline_depth=4)
+CACHE_PATHS = ("cache_fill", "cache_saturated", "cache_stream_fill", "cache_stream_saturated",
+               "cache_pipelined_fill", "cache_pipelined_saturated")
 
 
 def to_cpu(case):
-    """A kernel case's copy on the CPU (tensors, and dicts of them)."""
+    """A kernel case's copy on the CPU (tensors, and dicts and tuples of
+    them)."""
     import torch
 
     return {k: (v.cpu().clone() if torch.is_tensor(v) else
-                {kk: vv.cpu().clone() for kk, vv in v.items()} if isinstance(v, dict) else v)
+                {kk: vv.cpu().clone() for kk, vv in v.items()} if isinstance(v, dict) else
+                tuple(t.cpu().clone() for t in v) if isinstance(v, tuple) and v and torch.is_tensor(v[0]) else v)
             for k, v in case.items()}
 
 
@@ -3371,7 +3392,8 @@ def bits_equal(a, b) -> bool:
 
 
 def phase_cache_kernels(dev):
-    """Phase 3e: K12 and K13 against their plain versions (on the CPU)."""
+    """Phase 3e: K12 (with and without restores) and K13 against their
+    plain versions (on the CPU)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3381,11 +3403,10 @@ def phase_cache_kernels(dev):
         cache_aux_reference, cache_aux_ring_reference, gather_entry_rows_reference,
     )
     from persia_tpu_torch.ops.cached_gather import cached_gather_reference
-    from persia_tpu_torch.ops.restore_rows import restore_rows_reference
-    from persia_tpu_torch.testing.cache_cases import all_pads, aux_case, gather_case, restore_case
+    from persia_tpu_torch.testing.cache_cases import all_pads, aux_case, gather_case
 
-    print("== phase 3e: cache-tier kernels (K12 cache_aux, K13 cached_gather, K14 restore_rows) vs their plain "
-          "versions", flush=True)
+    print("== phase 3e: cache-tier kernels (K12 cache_aux, its restores included, and K13 cached_gather) vs their "
+          "plain versions", flush=True)
     errs = {}
 
     def aux_check(label, case, wb_bf16, ring_pos=None):
@@ -3466,53 +3487,86 @@ def phase_cache_kernels(dev):
             raise SystemExit(f"gather_entry_rows ({kind}) disagrees with its plain version")
     errs["gather_entry_rows"] = 0.0
 
-    # K14: restores at a saturated stream step's scale (~700 rows from a
-    # 2^19-row ring into the 2^18-row pool), every optimizer, both rings;
-    # every row a pad; no rows
-    errs["restore_rows"] = 0.0
-
-    def restore_check(label, case, cpu=None):
-        cpu = cpu or to_cpu(case)
-        before = ops.restore_rows.launches
-        ops.restore_rows(**case)
-        restore_rows_reference(**cpu)
-        n = case["dst_rows"].numel()
-        ok = (ops.restore_rows.launches == before + (n > 0) and bits_equal(case["table"], cpu["table"])
+    # K12 with the stream's restores in its one launch, at a saturated
+    # stream step's scale (700 restores from a 2^19-row ring into the
+    # 2^18-row pool beside 7,700 evictions and 7,000 warm and cold misses,
+    # half of all misses on rows evicted that step), every optimizer, both
+    # rings (the aux wire alternating), the payload stored into the ring;
+    # every restore a pad; no restores; a second call restoring from the
+    # span the first filled, onto rows the first wrote
+    def restores_check(label, case, wb_bf16, store=True):
+        cpu = to_cpu(case)
+        ring_pos = case.pop("ring_pos")
+        cpu.pop("ring_pos")
+        rring = cpu.pop("ring")
+        before = ops.cache_aux.launches
+        pay = ops.cache_aux(**case, wb_bf16=wb_bf16, ring_pos=ring_pos if store else None)
+        if store:
+            ref = cache_aux_ring_reference(ring=rring, ring_pos=ring_pos, **cpu, wb_bf16=wb_bf16)
+        else:
+            ref = cache_aux_reference(**cpu, ring=rring, wb_bf16=wb_bf16)
+        ok = (ops.cache_aux.launches == before + 1 and bits_equal(pay, ref) and bits_equal(case["ring"], rring)
+              and bits_equal(case["table"], cpu["table"])
               and all(bits_equal(case["state"][k], cpu["state"][k]) for k in cpu["state"]))
-        err = float((case["table"].cpu() - cpu["table"]).abs().max())
-        live = int((case["dst_rows"] < case["table"].shape[0]).sum())
-        print(f"  restore_rows {label}: {live} live of {n} rows, ring {tuple(case['ring'].shape)} "
-              f"{str(case['ring'].dtype)[6:]}: max_abs_err={err:.3e} tolerance=0 (bitwise), "
-              f"{ops.restore_rows.launches - before} launch(es) {'ok' if ok else 'FAIL'}", flush=True)
+        err = max([float((pay.float().cpu() - ref.float()).abs().max()) if pay.numel() else 0.0,
+                   float((case["table"].cpu() - cpu["table"]).abs().max())])
+        r_dst, r_slot = case["restores"][1], case["restores"][2]
+        live = int((r_dst < case["table"].shape[0]).sum())
+        print(f"  cache_aux with restores, {label}: {live} live restores of {r_dst.numel()} "
+              f"({int((r_slot >= 0).sum())} on rows evicted this step), ring {tuple(case['ring'].shape)} "
+              f"{str(case['ring'].dtype)[6:]}{' from ' + str(ring_pos) if store else ' (read only)'}, warm "
+              f"{case['m_rows'].numel()}, cold {case['c_rows'].numel()}, evicted {case['ev_rows'].numel()} (padded), "
+              f"aux wire {str(case['m_entries'].dtype)[6:]}: max_abs_err={err:.3e} tolerance=0 (bitwise), "
+              f"{ops.cache_aux.launches - before} launch {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
-            raise SystemExit(f"restore_rows {label} disagrees with its plain version")
-        errs["restore_rows"] = max(errs["restore_rows"], err)
+            raise SystemExit(f"cache_aux with restores ({label}) disagrees with its plain version")
+        errs["cache_aux"] = max(errs["cache_aux"], err)
 
-    for kind in ("sgd", "adagrad", "adagrad_vw", "adam"):
+    for i, kind in enumerate(("sgd", "adagrad", "adagrad_vw", "adam")):
         for bf16 in (False, True):
-            restore_check(f"{kind} ring={'bf16' if bf16 else 'f32'}",
-                          restore_case(kind, CACHE_SAT_ROWS, EMB_DIM, 1 << 19, 700, bf16, dev,
-                                       seed=SEED + 50 + len(kind) + bf16))
-    case = restore_case("adagrad", CACHE_SAT_ROWS, EMB_DIM, 4096, 100, True, dev, seed=SEED + 51)
-    case["dst_rows"].fill_(CACHE_SAT_ROWS + 1)
-    restore_check("every row a pad", case)
-    restore_check("no rows", restore_case("adam", CACHE_SAT_ROWS, EMB_DIM, 4096, 0, False, dev, seed=SEED + 52))
-    # after a K12 call that wrote the ring span and the table rows the
-    # restores read from and write to, on the same stream
-    aux = aux_case("adagrad", CACHE_SAT_ROWS, EMB_DIM, 7700, 500, 7200, 0.5, True, dev, seed=SEED + 53)
-    acpu = to_cpu(aux)
+            restores_check(f"{kind} ring={'bf16' if bf16 else 'f32'}",
+                           aux_case(kind, CACHE_SAT_ROWS, EMB_DIM, 7700, 3800, 3200, 0.5, (i + bf16) % 2 == 1, dev,
+                                    seed=SEED + 50 + len(kind) + bf16, n_restore=700, ring_rows=1 << 19,
+                                    wb_bf16=bf16, ring_pos=(1 << 18) + 100 * i), bf16)
+    restores_check("every restore a pad", all_pads(
+        aux_case("adagrad", CACHE_SAT_ROWS, EMB_DIM, 300, 200, 100, 0.5, True, dev, seed=SEED + 51, n_restore=100,
+                 ring_rows=4096, wb_bf16=True, ring_pos=40), CACHE_SAT_ROWS), True)
+    restores_check("no restores (0 rows)", aux_case("adam", CACHE_SAT_ROWS, EMB_DIM, 7700, 3800, 3200, 0.5, False, dev,
+                                                    seed=SEED + 52, ring_rows=1 << 14, wb_bf16=False), False)
+    # two calls: the first fills the ring's span from 40; the second evicts
+    # elsewhere (its span from 9,000) and restores 300 rows from the first
+    # span, 100 of them onto rows the first call wrote, 150 onto rows it
+    # evicts itself
+    first = aux_case("adagrad", CACHE_SAT_ROWS, EMB_DIM, 7700, 500, 7200, 0.5, True, dev, seed=SEED + 53)
+    acpu = to_cpu(first)
     ring = torch.zeros((1 << 14, 2 * EMB_DIM), dtype=torch.bfloat16, device=dev)
     rring = ring.cpu().clone()
-    ops.cache_aux(**aux, wb_bf16=True, ring=ring, ring_pos=40)
+    ops.cache_aux(**first, wb_bf16=True, ring=ring, ring_pos=40)
     cache_aux_ring_reference(ring=rring, ring_pos=40, **acpu, wb_bf16=True)
-    n = 300
-    src = torch.full((512,), 0, dtype=torch.int32)
-    dst = torch.full((512,), CACHE_SAT_ROWS + 1, dtype=torch.int32)
-    src[:n] = 40 + torch.randperm(7700, generator=torch.Generator().manual_seed(4))[:n].int()
-    dst[:n] = aux["m_rows"][:n].cpu()
-    restore_check("from the ring span and onto the rows a K12 call just wrote",
-                  dict(table=aux["table"], state=aux["state"], ring=ring, src_idx=src.to(dev), dst_rows=dst.to(dev)),
-                  cpu=dict(table=acpu["table"], state=acpu["state"], ring=rring, src_idx=src, dst_rows=dst))
+    second = aux_case("adagrad", CACHE_SAT_ROWS, EMB_DIM, 400, 0, 0, 0.5, True, dev, seed=SEED + 54, n_restore=300,
+                      ring_rows=1 << 14, wb_bf16=True, ring_pos=9000)
+    src = torch.zeros(512, dtype=torch.int32)
+    src[:300] = 40 + torch.randperm(7700, generator=torch.Generator().manual_seed(4))[:300].int()
+    dst, slot = second["restores"][1].cpu().clone(), second["restores"][2].cpu().clone()
+    taken = set(second["ev_rows"].cpu().tolist()) | set(dst.tolist())
+    written = [r for r in acpu["m_rows"][:500].tolist() if r not in taken][:100]
+    on_written = (slot[:300] < 0).nonzero().flatten()[:len(written)]
+    dst[on_written] = torch.tensor(written, dtype=torch.int32)
+    second.update(table=first["table"], state=first["state"], ring=ring,
+                  restores=(src.to(dev), dst.to(dev), slot.to(dev)))
+    cpu2 = to_cpu(second)
+    cpu2.update(table=acpu["table"], state=acpu["state"])
+    before = ops.cache_aux.launches
+    ops.cache_aux(**{k: v for k, v in second.items() if k != "ring_pos"}, wb_bf16=True, ring_pos=9000)
+    cache_aux_ring_reference(ring=rring, ring_pos=9000, **{k: v for k, v in cpu2.items() if k not in
+                                                           ("ring", "ring_pos")}, wb_bf16=True)
+    ok = (ops.cache_aux.launches == before + 1 and bits_equal(first["table"], acpu["table"]) and bits_equal(ring, rring)
+          and all(bits_equal(first["state"][k], acpu["state"][k]) for k in acpu["state"]))
+    print(f"  cache_aux with restores, two calls: 300 restores from the span the first call filled ({len(written)} "
+          f"onto rows it wrote, {int((slot >= 0).sum())} onto rows the second evicts): tolerance=0 (bitwise) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit("cache_aux restoring from an earlier call's ring span disagrees with its plain versions")
 
     # K13: the bench's shape (26 slots x 4096, L=1) on a 2^21 pool with zipf
     # rows, the saturated pool with scales, eval misses; L > 1 with and
@@ -3620,8 +3674,8 @@ def cache_recorder(ctx):
                 h.update(np.asarray(dd[g][0]).tobytes())
                 h.update(dd[g][2].tobytes())
         for g in sorted(restore):
-            h.update(restore[g][0].tobytes())
-            h.update(restore[g][1].tobytes())
+            for a in restore[g]:  # ring rows, table rows, payload slots
+                h.update(a.tobytes())
         for g in sorted(ev):
             h.update(ev[g][0].tobytes())
             h.update(ev[g][1].tobytes())
@@ -3636,10 +3690,10 @@ def cache_recorder(ctx):
             d.update(np.sort(np.concatenate(back)).astype(np.int64).tobytes() if back else b"")
         after = tier.counts()
         steps.append(dict(
-            digest=h.hexdigest(), decisions=d.hexdigest(), touched=bool(miss or cold or ev),
+            digest=h.hexdigest(), decisions=d.hexdigest(), touched=bool(miss or cold or ev or restore),
             warm=sum(int((np.asarray(r) < C + 1).sum()) for r, *_ in miss.values()),
             cold=sum(int((np.asarray(r) < C + 1).sum()) for r, *_ in cold.values()),
-            restored=sum(int((np.asarray(dst) < C + 1).sum()) for _src, dst in restore.values()),
+            restored=sum(int((np.asarray(dst) < C + 1).sum()) for _src, dst, _slot in restore.values()),
             **{k: after[k] - before[k] for k in after}))
         return out
 
@@ -3814,19 +3868,24 @@ def run_cache_regime(dev, regime, rows, sd):
     return launches, record, inputs, sync
 
 
-def run_cache_stream(dev, regime, rows, sd, sync):
-    """The stream at bench.py's knobs in one regime, on the card, from the
-    synchronous run's start over its batches (``sync``): the timed batches
-    as one stream, counted; the rest as a second one under the profiler;
-    checked against the synchronous run. Returns (launches, record, K14's
-    inputs for phase 5 or None)."""
+def run_cache_stream(dev, regime, rows, sd, sync, knobs=STREAM_KNOBS, inorder=None):
+    """The stream at ``knobs`` in one regime, on the card, from a fresh ctx
+    at the synchronous run's start over its batches (``sync``): the timed
+    batches as one stream, counted; the rest as a second one under the
+    profiler; its decisions checked against the synchronous run's, its
+    servers' entries against the synchronous run's (1e-5 relative) or,
+    for the pipelined leg (``inorder``: the in-order leg's result), bit for
+    bit against the in-order stream's (else within 1e-5 relative).
+    Returns (launches, record, the last restoring step's K12 pieces for
+    phase 5 or None, (warm, vals) of the servers after flush)."""
     import torch
 
     from persia_tpu_torch import ops
 
     batches, timed_steps = sync["batches"], sync["timed_steps"]
-    print(f"== phase 4k ({regime}, stream): CachedTrainCtx.train_stream({STREAM_KNOBS}) over the synchronous "
-          f"run's {len(batches)} batches from its start", flush=True)
+    leg = "pipelined" if knobs["pipeline_depth"] > 1 else "stream"
+    print(f"== phase 4k ({regime}, {leg}): CachedTrainCtx.train_stream({knobs}) over the synchronous "
+          f"run's {len(batches)} batches from its start, a fresh ctx", flush=True)
     store = cache_store()
     ctx = cache_ctx(dev, rows, store, sd)
     rec = cache_recorder(ctx)
@@ -3835,7 +3894,7 @@ def run_cache_stream(dev, regime, rows, sd, sync):
 
     def keep_restore(inputs, layout, miss, cold, restore, ev, meta=None):  # for phase 5
         if restore:
-            last["restore"] = restore
+            last["step"] = (miss, cold, restore, ev, meta)
         return dispatch(inputs, layout, miss, cold, restore, ev, meta)
 
     ctx._dispatch = keep_restore
@@ -3843,52 +3902,57 @@ def run_cache_stream(dev, regime, rows, sd, sync):
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    if ctx.train_stream(batches[:timed_steps], **STREAM_KNOBS) is not None:
-        raise SystemExit(f"cache stream ({regime}): fetch_final=False returned metrics")
+    if ctx.train_stream(batches[:timed_steps], **knobs) is not None:
+        raise SystemExit(f"cache {leg} ({regime}): fetch_final=False returned metrics")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     timed_stats = ctx.stream_stats()
-    _, busy = device_busy_union_ms(lambda: ctx.train_stream(batches[timed_steps:], **STREAM_KNOBS))
+    _, busy = device_busy_union_ms(lambda: ctx.train_stream(batches[timed_steps:], **knobs))
     prof_stats = ctx.stream_stats()
     launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
     peak = torch.cuda.max_memory_allocated(dev)
     metrics = ctx.last_metrics()
     if metrics is None or not np.isfinite(metrics["loss"]) or metrics["preds"].shape != (BATCH, 1):
-        raise SystemExit(f"cache stream ({regime}): the last step's metrics {metrics}")
+        raise SystemExit(f"cache {leg} ({regime}): the last step's metrics {metrics}")
     steps = len(batches)
     restore_steps = timed_stats["restore_steps"] + prof_stats["restore_steps"]
     expected = {fn.__name__: 0 for fn in ops.KERNEL_WRAPPERS}
-    expected.update(cached_gather=steps, cache_aux=sum(st["touched"] for st in rec), restore_rows=restore_steps,
-                    sparse_update=steps, dot_interaction=steps, dot_interaction_bwd=steps)
-    print(f"  launches={launches} over {steps} steps", flush=True)
+    expected.update(cached_gather=steps, cache_aux=sum(st["touched"] for st in rec), sparse_update=steps,
+                    dot_interaction=steps, dot_interaction_bwd=steps)
+    print(f"  launches={launches} over {steps} steps (K12 once a step that touched the pool, the {restore_steps} "
+          f"restoring steps' restores inside it)", flush=True)
     if launches != expected:
-        raise SystemExit(f"cache stream ({regime}): launches {launches}, expected {expected}")
-    if regime == "saturated" and not launches["restore_rows"]:
-        raise SystemExit("cache stream (saturated): no step restored from the ring: K14 never ran")
+        raise SystemExit(f"cache {leg} ({regime}): launches {launches}, expected {expected}")
+    if regime == "saturated" and not restore_steps:
+        raise SystemExit(f"cache {leg} (saturated): no step restored from the ring")
     same = [a == b for a, b in zip(sync["decisions"], (st["decisions"] for st in rec))]
     if len(rec) != steps or not all(same):
-        raise SystemExit(f"cache stream ({regime}): the directory's decisions differ from the synchronous steps' "
+        raise SystemExit(f"cache {leg} ({regime}): the directory's decisions differ from the synchronous steps' "
                          f"at steps {[i for i, ok in enumerate(same) if not ok]}")
     inputs = None
-    if "restore" in last:
-        src, dst = last["restore"]["cache_d16"]
-        inputs = {"table": ctx.state.tables["cache_d16"].clone(),
-                  "state": {k: v.clone() for k, v in ctx.state.emb_state["cache_d16"].items()},
-                  "ring": ctx._ev_ring("cache_d16").clone(), "src": src.clone(), "dst": dst.clone()}
+    if "step" in last:
+        miss, cold, restore, ev, meta = last["step"]
+        g = "cache_d16"
+        empty = torch.empty(0, dtype=torch.int32, device=dev)
+        inputs = {"table": ctx.state.tables[g].clone(),
+                  "state": {k: v.clone() for k, v in ctx.state.emb_state[g].items()},
+                  "ring": ctx._ev_ring(g).clone(), "ring_pos": meta[g][2] if g in meta else None,
+                  "miss": miss.get(g), "cold": cold.get(g), "ev": ev.get(g, (empty, empty)),
+                  "restores": restore[g], "consts": ctx._state_consts}
     ctx.flush()
     warm, vals = store.probe_entries(sync["signs"], EMB_DIM)
     if not np.array_equal(warm, sync["warm"]):
-        raise SystemExit(f"cache stream ({regime}): the servers hold other signs than after the synchronous run")
+        raise SystemExit(f"cache {leg} ({regime}): the servers hold other signs than after the synchronous run")
     rel = float((np.abs(vals[warm] - sync["vals"][warm]) / np.maximum(np.abs(sync["vals"][warm]), 1e-30)).max())
     ok = bool(np.allclose(vals[warm], sync["vals"][warm], rtol=1e-5, atol=1e-7))
     print(f"  directory decisions = the synchronous steps' at every one of {steps} steps; server entries after "
           f"flush, {int(warm.sum())} signs: max relative err {rel:.3e} vs the synchronous run (tolerance rtol 1e-5, "
           f"atol 1e-7) {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
-        raise SystemExit(f"cache stream ({regime}): the server's entries differ from the synchronous run's")
+        raise SystemExit(f"cache {leg} ({regime}): the server's entries differ from the synchronous run's")
     lanes = {k: timed_stats["lane_s"][k] for k in timed_stats["lane_s"]}
     record = {
-        "knobs": STREAM_KNOBS, "cache_rows": rows, "batch": BATCH, "steps": steps, "timed_steps": timed_steps,
+        "knobs": knobs, "cache_rows": rows, "batch": BATCH, "steps": steps, "timed_steps": timed_steps,
         "samples_per_s": timed_steps * BATCH / wall, "sync_samples_per_s": sync["samples_per_s"], "wall_s": wall,
         "lane_s": lanes, "packs": timed_stats["packs"], "packed_steps": timed_stats["packed_steps"],
         "single_steps": timed_stats["single_steps"],
@@ -3896,19 +3960,47 @@ def run_cache_stream(dev, regime, rows, sd, sync):
         "restore_steps": restore_steps, "restores_per_step": [st["restored"] for st in rec],
         "restored_rows_per_step": (timed_stats["restored_rows"] + prof_stats["restored_rows"]) / steps,
         "ring_waits": timed_stats["ring_waits"], "flushes": timed_stats["flushes"],
-        "launches_per_step": {k: launches[k] / steps for k in ("cache_aux", "cached_gather", "restore_rows")},
+        "pipelined_feeds": timed_stats["pipelined_feeds"] + prof_stats["pipelined_feeds"],
+        "pipeline_stalls": timed_stats["pipeline_stalls"] + prof_stats["pipeline_stalls"],
+        "feed_leads": [a + b for a, b in zip(timed_stats["feed_leads"], prof_stats["feed_leads"])],
+        "barrier_steps": restore_steps if knobs["pipeline_depth"] > 1 else 0,
+        "stage_overlap_frac": timed_stats["stage_overlap_frac"], "stage_wall_s": timed_stats["stage_wall_s"],
+        "launches_per_step": {k: launches[k] / steps for k in ("cache_aux", "cached_gather")},
         "launches": launches, "launches_expected": expected,
         "card_busy_ms_per_step": busy / len(batches[timed_steps:]) if busy is not None else None,
         "peak_device_bytes": peak, "ps_entry_max_rel_err_vs_sync": rel, "last_loss": float(metrics["loss"]),
     }
-    print(f"  stream samples/s {record['samples_per_s']:.0f} (synchronous {record['sync_samples_per_s']:.0f}), "
-          f"lanes busy s {{{', '.join(f'{k}: {v:.3f}' for k, v in lanes.items())}}} of {wall:.3f} s wall, "
+    if inorder is not None:
+        warm0, vals0 = inorder["entries"]
+        # the probe leaves a sign the servers lack unwritten: compare the held ones
+        same_bits = np.array_equal(warm, warm0) and np.array_equal(vals[warm].view(np.uint32),
+                                                                    vals0[warm].view(np.uint32))
+        rel0 = float((np.abs(vals[warm] - vals0[warm]) / np.maximum(np.abs(vals0[warm]), 1e-30)).max())
+        differ = float((vals[warm] != vals0[warm]).any(axis=1).mean()) if warm.any() else 0.0
+        ok = same_bits or bool(np.allclose(vals[warm], vals0[warm], rtol=1e-5, atol=1e-7))
+        record.update(speedup_vs_inorder=record["samples_per_s"] / inorder["record"]["samples_per_s"],
+                      entries_bitwise_vs_inorder=bool(same_bits), ps_entry_max_rel_err_vs_inorder=rel0,
+                      entries_differing_share_vs_inorder=differ,
+                      last_loss_vs_inorder=record["last_loss"] - inorder["record"]["last_loss"])
+        print(f"  decisions = the in-order stream's (both = the synchronous steps'); server entries after flush vs "
+              f"the in-order stream's: {'bit for bit' if same_bits else f'{differ:.2%} of entries differ'}, max "
+              f"relative err {rel0:.3e} (tolerance: bitwise, else rtol 1e-5) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"cache pipelined ({regime}): the servers' entries differ from the in-order stream's")
+    vs = (f", in order {inorder['record']['samples_per_s']:.0f}: {record['speedup_vs_inorder']:.3f}x"
+          if inorder else "")
+    print(f"  {leg} samples/s {record['samples_per_s']:.0f} (synchronous {record['sync_samples_per_s']:.0f}{vs}"
+          f"), lanes busy s {{{', '.join(f'{k}: {v:.3f}' for k, v in lanes.items())}}} of {wall:.3f} s wall, "
+          f"stages busy s {record['stage_wall_s']}, stage_overlap_frac {record['stage_overlap_frac']}, "
           f"{record['packs']} packs ({record['steps_per_pack']:.2f} steps a pack, {record['single_steps']} single), "
-          f"restores a step {record['restored_rows_per_step']:.1f} ({restore_steps} restoring steps), ring waits "
-          f"{record['ring_waits']}, launches a step {record['launches_per_step']}, card busy "
-          f"{record['card_busy_ms_per_step']} ms a step, peak device bytes {peak}", flush=True)
+          f"hoisted feeds {record['pipelined_feeds']} (by how many earlier dense stages they ran ahead of, 0 up: "
+          f"{record['feed_leads']}), stalls {record['pipeline_stalls']}, barrier steps "
+          f"{record['barrier_steps']}, restores a step {record['restored_rows_per_step']:.1f} ({restore_steps} "
+          f"restoring steps), ring waits {record['ring_waits']}, K12/K13 launches a step "
+          f"{record['launches_per_step']}, card busy {record['card_busy_ms_per_step']} ms a step, peak device bytes "
+          f"{peak}", flush=True)
     del ctx
-    return launches, record, inputs
+    return launches, record, inputs, (warm, vals)
 
 
 def cache_vs_hybrid(dev, sd):
@@ -3950,8 +4042,9 @@ def cache_vs_hybrid(dev, sd):
 
 
 def path_cache(dev):
-    """Phase 4k: both regimes, each synchronous and then as the stream; then
-    the SGD twin of the hybrid tier."""
+    """Phase 4k: both regimes, each synchronous, then as the in-order
+    stream, then as the stage-pipelined stream; then the SGD twin of the
+    hybrid tier."""
     import gc
 
     import torch
@@ -3966,11 +4059,16 @@ def path_cache(dev):
         launches[f"cache_{regime}"], records[regime], inp, sync = run_cache_regime(dev, regime, rows, sd)
         gc.collect()
         torch.cuda.empty_cache()
-        launches[f"cache_stream_{regime}"], records[f"stream_{regime}"], restore = run_cache_stream(
+        launches[f"cache_stream_{regime}"], records[f"stream_{regime}"], restore, entries = run_cache_stream(
             dev, regime, rows, sd, sync)
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches[f"cache_pipelined_{regime}"], records[f"pipelined_{regime}"], _, _ = run_cache_stream(
+            dev, regime, rows, sd, sync, PIPELINED_KNOBS, inorder={"record": records[f"stream_{regime}"],
+                                                                   "entries": entries})
         if regime == "saturated":
-            inputs = dict(inp, restore=restore)
-        del inp, sync, restore
+            inputs = dict(inp, stream_step=restore)
+        del inp, sync, restore, entries
         gc.collect()
         torch.cuda.empty_cache()
     records["vs_hybrid"] = cache_vs_hybrid(dev, sd)
@@ -3981,21 +4079,21 @@ def path_cache(dev):
 
 def time_cache_kernels(dev, launches, errs, inputs, floor, build):
     """Phase 5's rows of K12 (``cache_aux``, and its read alone
-    ``gather_entry_rows``), K13 (``cached_gather``) and K14
-    (``restore_rows``: the saturated stream's last restoring step) at the
-    saturated regime's own inputs (its last step's aux pieces, their pairing and
-    rows, its pool, its flush's rows): graph-replayed warm, and cold (whole
-    copies of the inputs, pool included, rotated through more than the
-    L2), beside the plain version and the library calls; K12 also with the
-    ring, and K12 and the read over the one-launch floor ``floor`` (this
-    run's two readings); K12's and the read's registers from ``build``."""
+    ``gather_entry_rows``) and K13 (``cached_gather``) at the saturated
+    regime's own inputs (its last step's aux pieces, their pairing and rows,
+    its pool, its flush's rows): graph-replayed warm, and cold (whole copies
+    of the inputs, pool included, rotated through more than the L2), beside
+    the plain version and the library calls; K12 also with the ring, and
+    at the saturated stream's last restoring step in three forms (with its
+    restores, without them, and unfolded into two launches), and K12 and
+    the read over the one-launch floor ``floor`` (this run's two readings);
+    K12's and the read's registers from ``build``."""
     import torch
     import torch.nn.functional as F
 
     from persia_tpu_torch import ops
     from persia_tpu_torch.ops.cache_aux import cache_aux_reference, gather_entry_rows_reference
     from persia_tpu_torch.ops.cached_gather import cached_gather_reference
-    from persia_tpu_torch.ops.restore_rows import restore_rows_reference
 
     table, state, consts = inputs["table"], inputs["state"], inputs["consts"]
     miss, cold, ev = inputs["aux"]
@@ -4011,12 +4109,9 @@ def time_cache_kernels(dev, launches, errs, inputs, floor, build):
     rows = []
 
     def row(name, **kw):
-        main_path = "cache_stream_saturated" if name == "restore_rows" else "cache_saturated"
         return dict(name=name, route="cuda", cuda_route="cuda", source=CACHE_SOURCE[name],
-                    replaces=CACHE_REPLACES[name], launches=launches[main_path][name],
-                    launches_by_path={p: launches[p][name] for p in ("cache_fill", "cache_saturated",
-                                                                     "cache_stream_fill", "cache_stream_saturated")},
-                    max_abs_err=errs[name], **kw)
+                    replaces=CACHE_REPLACES[name], launches=launches["cache_saturated"][name],
+                    launches_by_path={p: launches[p][name] for p in CACHE_PATHS}, max_abs_err=errs[name], **kw)
 
     def timed(r, kernel, plain, library):
         lib0 = timings(library)
@@ -4076,6 +4171,8 @@ def time_cache_kernels(dev, launches, errs, inputs, floor, build):
     print(f"  cache_aux warm {r['ms_runs']} ms = {r['over_launch_floor']:.3f}x the launch floor {min(floor):.5f} ms "
           f"(floor {floor}); cold {r['cold_ms_runs']}; with the ring {r['ring_ms']:.5f}; bound {r['bound_ms']:.5f} "
           f"({r['cold_share']:.1%} cold); registers {r.get('registers')}", flush=True)
+    r.update(also_replaces=K12_ALSO_REPLACES, note="carries the stream's in-flight restores (_restore_rows)",
+             **k12_stream_step(dev, inputs["stream_step"], floor))
 
     # (a) alone: the flush's read of every resident row
     fr = inputs["flush_rows"]
@@ -4115,44 +4212,79 @@ def time_cache_kernels(dev, launches, errs, inputs, floor, build):
                      lambda: (table.clone(), srows.clone()), pool_bytes // 2,
                      lambda t, rr: F.embedding_bag(rr.view(S * B, L), t, mode="sum", padding_idx=C),
                      lambda: (table.clone(), srows.clone()), pool_bytes // 2))
-    # K14: the saturated stream's last restoring step, on a copy of its
-    # pool. Bytes: the two index arrays; the live restores' entries read
-    # from the ring and written to the table and the state
-    rs = inputs["restore"]
-    rtable, rstate, ring, src, dst = rs["table"], rs["state"], rs["ring"], rs["src"], rs["dst"]
-    live = dst < C + 1
-    n_live = int(live.sum())
-    src_live, dst_live = src[live].long(), dst[live].long()
-    nbytes = 4 * (src.numel() + dst.numel()) + n_live * E * (ring.element_size() + 4)
-    bms, by = bound(nbytes, 0, "float32")
-    rpool = (rtable.clone(), {k: v.clone() for k, v in rstate.items()})
-
-    def restore_library(t, st):
-        e = ring.index_select(0, src_live).float()
-        t.index_copy_(0, dst_live, e[:, :dim])
-        st["acc"].index_copy_(0, dst_live, e[:, dim:])
-
-    r = timed(row("restore_rows", shape=[C + 1, E, ring.shape[0], dst.numel(), n_live],
-                  dtype=f"float32 pool, {str(ring.dtype)[6:]} ring", bound_ms=bms, bound_by=by,
-                  registers=build.get("restore_rows_kernel<8>", {}).get("registers"),
-                  library_note="index_select + index_copy_ on the split columns, live rows"),
-              kernel=lambda: ops.restore_rows(*rpool, ring, src, dst),
-              plain=lambda: restore_rows_reference(*rpool, ring, src, dst),
-              library=lambda: restore_library(*rpool))
-    rpool_bytes = (rtable.numel() + rstate["acc"].numel()) * 4
-    rows.append(cold(r, lambda t, st: ops.restore_rows(t, st, ring, src, dst),
-                     lambda: (rtable.clone(), {k: v.clone() for k, v in rstate.items()}), rpool_bytes,
-                     restore_library, lambda: (rtable.clone(), {k: v.clone() for k, v in rstate.items()}),
-                     rpool_bytes))
-    r["over_launch_floor"] = r["ms"] / min(floor)
-    print(f"  restore_rows ({n_live} live restores of {dst.numel()}): warm {r['ms_runs']} ms, cold "
-          f"{r['cold_ms_runs']} ms, bound {r['bound_ms']:.5f} ({r['cold_share']:.1%} cold); "
-          f"{r['over_launch_floor']:.2f}x the launch floor", flush=True)
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (cold {r['cold_ms']:.4f}), plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f} (cold {r['library_cold_ms']:.4f}), bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), launches {r['launches_by_path']}", flush=True)
     return rows
+
+
+def k12_stream_step(dev, step, floor) -> dict:
+    """K12 at the saturated stream's last restoring step (its pieces, its
+    ring position, its restores; on copies of the pool and the ring, which
+    it writes in place), graph-replayed, each form twice: with its
+    restores (one launch); without them (their payload slots listed
+    unclaimed, as before the fold); and unfolded (that call, then a K12
+    call of the restores alone: two launches). The bound: K12's bytes (the
+    indices, the payload read in f32 and written twice, to the payload and
+    the ring, in the wire's dtype; the warm and cold writes) plus the
+    restores' (their three index arrays; each live restore's ring entry
+    read and its pool entry written)."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.embedding.hbm_cache.common import _bucket
+
+    table, state, ring, consts = step["table"], step["state"], step["ring"], step["consts"]
+    C, dim = table.shape[0] - 1, table.shape[1]
+    E = dim + sum(v.shape[1] for v in state.values())
+    empty = torch.empty(0, dtype=torch.int32, device=dev)
+    ev_rows, ev_free = step["ev"]
+    m_rows, m_ent, m_slot = step["miss"] or (empty, torch.empty((0, E), dtype=torch.bfloat16, device=dev), empty)
+    c_rows, c_emb, c_slot = step["cold"] or (empty, torch.empty((0, dim), dtype=torch.bfloat16, device=dev), empty)
+    r_src, r_dst, r_slot = step["restores"]
+    ring_pos = step["ring_pos"]
+    pool = (table.clone(), {k: v.clone() for k, v in state.items()})
+    ring = ring.clone()
+    pieces = (ev_rows, m_rows, m_ent, c_rows, c_emb, consts, True)
+    # without the restores: their slots join the unclaimed list
+    freed = torch.cat([ev_free[ev_free >= 0], r_slot[r_slot >= 0]]).sort().values
+    free_wo = torch.full((_bucket(freed.numel()) if freed.numel() else 0,), -1, dtype=torch.int32, device=dev)
+    free_wo[:freed.numel()] = freed
+
+    def with_restores():
+        ops.cache_aux(*pool, *pieces, m_slot=m_slot, c_slot=c_slot, ev_free=ev_free, ring=ring, ring_pos=ring_pos,
+                      restores=(r_src, r_dst, r_slot))
+
+    def without():
+        ops.cache_aux(*pool, *pieces, m_slot=m_slot, c_slot=c_slot, ev_free=free_wo, ring=ring, ring_pos=ring_pos)
+
+    no_slot = torch.full_like(r_slot, -1)
+
+    def unfolded():
+        without()
+        ops.cache_aux(*pool, empty, empty, m_ent[:0], empty, c_emb[:0], consts, True, m_slot=empty, c_slot=empty,
+                      ev_free=empty, ring=ring, ring_pos=None, restores=(r_src, r_dst, no_slot))
+
+    n_ev = int((ev_rows < C).sum())
+    n_w, n_c = int((m_rows < C + 1).sum()), int((c_rows < C + 1).sum())
+    n_r = int((r_dst < C + 1).sum())
+    esz, rsz = m_ent.element_size(), ring.element_size()
+    k12_bytes = (4 * (ev_rows.numel() + m_rows.numel() + c_rows.numel() + m_slot.numel() + c_slot.numel()
+                      + ev_free.numel()) + n_ev * E * (4 + 2 * rsz) + n_w * E * (esz + 4) + n_c * (dim * esz + E * 4))
+    restore_bytes = 4 * 3 * r_dst.numel() + n_r * E * (rsz + 4)
+    bms, _by = bound(k12_bytes + restore_bytes, 0, "float32")
+    out = {"restores_ms": min(graph_ms(with_restores) for _ in range(2)),
+           "no_restores_ms": min(graph_ms(without) for _ in range(2)),
+           "unfolded_pair_ms": min(graph_ms(unfolded) for _ in range(2)),
+           "restores_bound_ms": bms, "restores_bytes": restore_bytes, "restores_k12_bytes": k12_bytes,
+           "restores_shape": [C + 1, E, ring.shape[0], n_ev, n_w, n_c, n_r, r_dst.numel()]}
+    print(f"  cache_aux at the saturated stream's last restoring step ({n_r} live restores of {r_dst.numel()}, "
+          f"{int((r_slot >= 0).sum())} on rows evicted that step; {n_ev} evictions, {n_w} warm, {n_c} cold, ring "
+          f"from {ring_pos}): with its restores {out['restores_ms']:.5f} ms, without them {out['no_restores_ms']:.5f}, "
+          f"unfolded into two launches {out['unfolded_pair_ms']:.5f}; bound {bms:.6f} ms ({k12_bytes} + "
+          f"{restore_bytes} restore bytes); one-launch floor {min(floor):.5f} (floor {floor})", flush=True)
+    return out
 
 
 def time_flash_backward(dev, card):
@@ -4963,8 +5095,60 @@ def k12_ab(dev, ops, times, as_bits) -> dict:
         "warm_ms": [graph_ms(lambda: ops.gather_entry_rows(case["table"], case["state"], frows)) for _ in range(2)],
         "cold_ms": [cold_ms(lambda t_, s_: ops.gather_entry_rows(t_, s_, frows), fresh, pool_bytes)["ms"]
                     for _ in range(2)]}
+    bits.update(k12_restores_ab(dev, ops, times, as_bits, case, pairing))
     one = torch.zeros(1, device=dev)
     times.setdefault("launch_floor", {"warm_ms": [graph_ms(lambda: one.add_(1.0)) for _ in range(2)]})
+    return bits
+
+
+def k12_restores_ab(dev, ops, times, as_bits, case, pairing) -> dict:
+    """``--ab``'s restoring step: ``k12_ab_case`` with 64 of its cold misses
+    restored instead, 48 live (their payload slots claimed by the restores)
+    from a 2^19-row bf16 ring outside the step's span (4,096 to 12,288). A tree
+    whose K12 takes the restores runs it once; a tree with a restore kernel
+    of its own runs K12 (the restored misses' slots unclaimed) and then that
+    kernel. The payload, table, state and ring as bits (equal across trees
+    when the fold changes nothing), the warm time of either form in
+    ``times["cache_aux_restores"]``."""
+    import inspect
+
+    import torch
+
+    C, E = CACHE_SAT_ROWS, 2 * EMB_DIM
+    g = torch.Generator().manual_seed(SEED + 71)
+    ring0 = torch.randn((1 << 19, E), generator=g).to(dev, torch.bfloat16)
+    c_rows, c_slot = case["c_rows"].clone(), pairing["c_slot"].clone()
+    live = torch.arange(48, device=dev) * 97 % int((c_slot >= 0).sum())  # 48 cold misses become restores
+    r_dst = torch.full((64,), C + 1, dtype=torch.int32, device=dev)
+    r_slot = torch.full((64,), -1, dtype=torch.int32, device=dev)
+    r_src = torch.zeros(64, dtype=torch.int32, device=dev)
+    r_dst[:48], r_slot[:48] = c_rows[live], c_slot[live]
+    r_src[:48] = (16384 + torch.randperm(1 << 18, generator=g)[:48]).int().to(dev)  # past the span [4096, 12288)
+    c_rows[live], c_slot[live] = C + 1, -1
+    args = [case["ev_rows"], case["m_rows"], case["m_entries"], c_rows, case["c_emb"], case["state_consts"], True]
+    folded = "restores" in inspect.signature(ops.cache_aux).parameters
+    free_wo = torch.cat([pairing["ev_free"][pairing["ev_free"] >= 0], r_slot[:48].sort().values])
+    free_wo = torch.cat([free_wo, torch.full((512 - free_wo.numel() % 512,), -1, dtype=torch.int32, device=dev)])
+
+    def fresh():
+        return case["table"].clone(), {"acc": case["state"]["acc"].clone()}, ring0.clone()
+
+    def step(t, st, ring):
+        if folded:
+            return ops.cache_aux(t, st, *args, m_slot=pairing["m_slot"], c_slot=c_slot, ev_free=pairing["ev_free"],
+                                 ring=ring, ring_pos=4096, restores=(r_src, r_dst, r_slot))
+        pay = ops.cache_aux(t, st, *args, m_slot=pairing["m_slot"], c_slot=c_slot, ev_free=free_wo, ring=ring,
+                            ring_pos=4096)
+        ops.restore_rows(t, st, ring, r_src, r_dst)
+        return pay
+
+    t, st, ring = fresh()
+    pay = step(t, st, ring)
+    bits = {"k12r_payload": as_bits(pay), "k12r_table": as_bits(t), "k12r_acc": as_bits(st["acc"]),
+            "k12r_ring": as_bits(ring)}
+    t, st, ring = fresh()
+    times["cache_aux_restores"] = {"form": "one launch" if folded else "K12, then the restore kernel",
+                                   "warm_ms": [graph_ms(lambda: step(t, st, ring)) for _ in range(2)]}
     return bits
 
 
@@ -5078,6 +5262,67 @@ def ab_run(root: str, out_path: str, only: str = "") -> int:
     return 0
 
 
+def stream_ab(pairs: int) -> int:
+    """``--stream-ab PAIRS``: the saturated regime's batches (phase 4k's:
+    the same seed, its 59 steps, the first 56 timed) through the in-order
+    stream (``STREAM_KNOBS``) and the stage-pipelined one
+    (``PIPELINED_KNOBS``), each leg from a fresh store and ctx, after one
+    untimed leg of each (the process's first legs run slower), then PAIRS
+    pairs in turns (in order first in even pairs, pipelined first in odd
+    ones). Prints one line a leg (samples/s, lanes, feed leads, stalls)
+    and then one JSON line: every leg's samples/s, the medians and
+    quartiles, and the pipelined / in-order ratio of each pair."""
+    import torch
+
+    from persia_tpu_torch.models import DLRM
+    from persia_tpu_torch.weights import seeded_flax_params_like, state_dict_from_flax
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    model = DLRM(N_DENSE, N_SLOTS, EMB_DIM, BOTTOM, TOP, device="cpu")
+    sd = state_dict_from_flax(model, seeded_flax_params_like(model, SEED))
+    make = zipf_batch_maker(SEED + 60, labels=True)
+    batches = [make() for _ in range(59)]
+    timed = 56
+
+    def leg(knobs) -> dict:
+        ctx = cache_ctx(dev, CACHE_SAT_ROWS, cache_store(), sd)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctx.train_stream(batches[:timed], **knobs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = ctx.stream_stats()  # the timed steps'
+        ctx.train_stream(batches[timed:], **knobs)
+        out = {"samples_per_s": timed * BATCH / wall, "lane_s": st["lane_s"], "feed_leads": st["feed_leads"],
+               "pipeline_stalls": st["pipeline_stalls"], "restore_steps": st["restore_steps"]}
+        if not np.isfinite(ctx.last_metrics()["loss"]):
+            raise SystemExit("stream A/B: a non-finite loss")
+        del ctx
+        torch.cuda.empty_cache()
+        return out
+
+    for knobs in (STREAM_KNOBS, PIPELINED_KNOBS):  # the warm-up legs
+        leg(knobs)
+    runs = {"in_order": [], "pipelined": []}
+    for i in range(pairs):
+        order = ("in_order", "pipelined") if i % 2 == 0 else ("pipelined", "in_order")
+        for name in order:
+            r = leg(STREAM_KNOBS if name == "in_order" else PIPELINED_KNOBS)
+            runs[name].append(r)
+            print(f"  pair {i} {name}: {r['samples_per_s']:.0f} samples/s, lanes "
+                  f"{ {k: round(v, 3) for k, v in r['lane_s'].items()} }, feed leads {r['feed_leads']}, stalls "
+                  f"{r['pipeline_stalls']}, restoring steps {r['restore_steps']}", flush=True)
+    sps = {k: [r["samples_per_s"] for r in v] for k, v in runs.items()}
+    summary = {k: {"median": float(np.median(v)), "quartiles": [float(np.percentile(v, 25)),
+                                                               float(np.percentile(v, 75))]} for k, v in sps.items()}
+    ratios = [p / q for p, q in zip(sps["pipelined"], sps["in_order"])]
+    print(json.dumps({"stream_ab": {"samples_per_s": sps, "summary": summary, "pipelined_over_in_order": ratios,
+                                    "pipelined_wins": sum(r > 1 for r in ratios), "pairs": pairs},
+                      "card": card}), flush=True)
+    return 0
+
+
 def ab_compare(paths) -> int:
     """``--ab-compare A.npz B.npz ...``: K2's, K4's, K8's, K9's and K12's
     (and its read's) bits equal in every file that holds them (K4's keys and its rows with keys
@@ -5122,6 +5367,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--ab"]:
         return ab_run(sys.argv[2], sys.argv[3], *sys.argv[4:5])
+    if sys.argv[1:2] == ["--stream-ab"]:
+        return stream_ab(int(sys.argv[2]))
     import persia_tpu_torch  # noqa: F401  (fails where the package is absent)
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain versions in full f32
@@ -5168,7 +5415,8 @@ def main() -> int:
             "library_eager_ms", "cold_ms", "library_cold_ms", "sort_ms", "zipf_ms", "zipf_cold_ms",
             "zipf_bound_ms", "zipf_sort_ms", "longest_segment", "zipf_longest_segment", "one_row_ms",
             "composite_ms", "registers", "over_launch_floor", "no_keys_ms", "no_keys_cold_ms", "routing_cost_ms",
-            "c32_ms", "eval_256_ms", "ring_ms", "launches_by_path")
+            "c32_ms", "eval_256_ms", "ring_ms", "also_replaces", "note", "restores_ms", "no_restores_ms",
+            "unfolded_pair_ms", "restores_bound_ms", "launches_by_path")
     kernels = [{k: r.get(k) for k in keys} for r in rows if not r.get("causal")]
     print(json.dumps({"kernels": kernels, "launch_floor_ms": floor, "card": card}), flush=True)
     print(card, flush=True)

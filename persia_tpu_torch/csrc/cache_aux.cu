@@ -1,6 +1,6 @@
 // The cache tier's aux program (K12): one cache group's eviction payload,
-// warm entries and cold seeds, a step; and its payload read alone, the
-// flush's and publish's read (entry_rows_kernel).
+// warm entries, cold seeds and in-flight restores, a step; and its payload
+// read alone, the flush's and publish's read (entry_rows_kernel).
 //
 // Input: the group's table T (R = C+1 rows, dim) f32 and its optimizer
 // state columns, at most two (s0: Adagrad acc (R, w0) or Adam m (R, dim);
@@ -8,41 +8,51 @@
 // floats) lays out in that order.
 //  (a) payload[k, :] = entry of row clamp(ev_rows[k], 0, R - 1), f32 or
 //      rounded to bf16 (to nearest, ties to even), read before any write;
-//      with a ring, stored a second time at ring[start + k, :], start =
+//      with ring_store, stored a second time at ring[start + k, :], start =
 //      ring_pos (+ ring_rows where negative) clamped into
 //      [0, ring_rows - n_ev], as lax.dynamic_update_slice places it;
 //  (b) for each warm k with 0 <= m_rows[k] < R: the entry of m_rows[k] =
 //      m_entries[k, :] (f32 or bf16, widened);
 //  (c) for each cold k with 0 <= c_rows[k] < R: T[c_rows[k], :] =
-//      c_emb[k, :] (f32 or bf16, widened), s0 and s1 of the row = c0, c1.
-// Rows outside [0, R) are dropped by (b) and (c): the host pads with R.
-// The rows of (b) and (c) are distinct, so no float is written twice.
+//      c_emb[k, :] (f32 or bf16, widened), s0 and s1 of the row = c0, c1;
+//  (d) for each restore k with 0 <= r_dst[k] < R: the entry of r_dst[k] =
+//      ring[clamp(r_src[k], 0, ring_rows - 1), :] (the ring is in the
+//      payload's dtype, the write-back wire's; widened).
+// Rows outside [0, R) are dropped by (b)-(d): the host pads with R (and a
+// restore's source with 0). The rows of (b)-(d) are distinct, so no float
+// is written twice. Contract: no live restore reads a ring row of this
+// call's own span [start, start + n_ev) (the stream reserves a step's
+// span before its gate looks for restores, so its restores read earlier
+// steps' spans); the plain version checks it on CPU tensors.
 //
 // Replaces: persia_tpu/embedding/hbm_cache/groups.py:260-293 (_apply_aux),
-// :296-314 (_apply_aux_ring: the ring) and :240-248 (_gather_entry_rows,
+// :296-314 (_apply_aux_ring: the ring), :250-256 (_restore_rows, through
+// _scatter_entry_block :225-236: (d)) and :240-248 (_gather_entry_rows,
 // (a) alone in f32), XLA gathers and scatters; no Pallas kernel.
 //
 // Bound on the H100: bytes (the row indices and the pairing; (a) reads
 // n_ev entries and writes the payload (and the ring), (b) reads K_w entries
-// and writes them, (c) reads K_c seeds and writes K_c entries; no
-// arithmetic). At a saturated step the bytes take ~0.9 us, under the
-// one-launch floor (~1.1-1.4 us): the design spends one launch and nothing
-// more.
+// and writes them, (c) reads K_c seeds and writes K_c entries, (d) reads
+// K_r ring entries and writes them; no arithmetic). At a saturated step the
+// bytes take ~0.9 us, under the one-launch floor (~1.1-1.4 us): the design
+// spends one launch and nothing more.
 //
 // Design: one kernel, one launch a call. (a) must read an evicted row
-// before (b) or (c) rewrites it, and a miss usually takes the row an
+// before (b), (c) or (d) rewrites it, and a miss usually takes the row an
 // eviction frees. The host knows which: the directory hands the k rows a
 // call evicts to its last k misses, in order, so the tier pairs each write
-// with the payload slot of the row it overwrites (m_slot, c_slot; -1 for
-// none) and lists the slots no write claims (ev_free, -1 pads). One item
-// space: warm writes, then cold writes, then the unclaimed slots, each
-// entry cut into vectors of `vec` columns (8 where a bf16 wire or payload
-// is involved, 4 otherwise: 16-byte loads and stores of the f32 pool; 1 for
-// widths that are no multiple of it, e.g. Adagrad's vector-wise acc). A
-// thread owns one vector of one entry: a write with a slot loads the row's
-// old vector, stores it to the payload (and the ring), then stores the new
-// one; no other thread touches that row, so no barrier orders them. An
-// unclaimed slot is only read; a write without a slot only writes.
+// with the payload slot of the row it overwrites (m_slot, c_slot, r_slot;
+// -1 for none) and lists the slots no write claims (ev_free, -1 pads). One
+// item space: warm writes, then cold writes, then restores, then the
+// unclaimed slots, each entry cut into vectors of `vec` columns (8 where a
+// bf16 wire or payload is involved, 4 otherwise: 16-byte loads and stores
+// of the f32 pool; 1 for widths that are no multiple of it, e.g. Adagrad's
+// vector-wise acc). A thread owns one vector of one entry: a write with a
+// slot loads the row's old vector, stores it to the payload (and the
+// ring), then stores the new one; no other thread touches that row, so no
+// barrier orders them. An unclaimed slot is only read; a write without a
+// slot only writes. A restore's source is a ring row outside the call's
+// span, which no thread of the call stores.
 //
 // entry_rows_kernel: the same row-major walk, a thread a float4 of one
 // row's [table | state] (64-byte runs of each array at dim 16), the
@@ -68,6 +78,8 @@ struct CacheAuxArgs {
   void* payload;
   bool payload_bf16;
   void* ring;  // null: no ring
+  long long ring_rows;
+  bool ring_store;  // (a) also into the ring
   long long ring_start;
   const int32_t* m_rows;
   const int32_t* m_slot;
@@ -80,6 +92,10 @@ struct CacheAuxArgs {
   const void* c_emb;
   bool c_bf16;
   float c0, c1;
+  const int32_t* r_src;
+  const int32_t* r_dst;
+  const int32_t* r_slot;
+  int n_r;
   const int32_t* ev_free;
   int n_free;
 };
@@ -88,7 +104,8 @@ template <int V>
 __global__ void __launch_bounds__(kThreads) cache_aux_kernel(const CacheAuxArgs a) {
   const int t = blockIdx.x * kThreads + threadIdx.x;  // the entry point keeps items * units < 2^31
   const int item = t / a.units;
-  if (item >= a.n_m + a.n_c + a.n_free) return;
+  const int n_writes = a.n_m + a.n_c + a.n_r;
+  if (item >= n_writes + a.n_free) return;
   const int col = (t - item * a.units) * V;
   const int E = a.pool.dim + a.pool.w0 + a.pool.w1;
   float fresh[V];
@@ -111,8 +128,16 @@ __global__ void __launch_bounds__(kThreads) cache_aux_kernel(const CacheAuxArgs 
 #pragma unroll
       for (int i = 0; i < V; ++i) fresh[i] = c;
     }
+  } else if (item < n_writes) {  // (d): a restore from the ring
+    const int k = item - a.n_m - a.n_c;
+    r = a.r_dst[k];
+    if (r < 0 || r >= a.pool.rows) return;  // a pad: its source is not read
+    slot = a.r_slot[k];
+    long long s = a.r_src[k];
+    s = s < 0 ? 0 : (s >= a.ring_rows ? a.ring_rows - 1 : s);
+    load_wire<V>(a.ring, a.payload_bf16, s * E + col, fresh);
   } else {  // (a) alone: an eviction slot no write claims
-    slot = a.ev_free[item - a.n_m - a.n_c];
+    slot = a.ev_free[item - n_writes];
     if (slot < 0) return;
     r = a.ev_rows[slot];
     r = r < 0 ? 0 : (r >= a.pool.rows ? a.pool.rows - 1 : r);
@@ -125,7 +150,7 @@ __global__ void __launch_bounds__(kThreads) cache_aux_kernel(const CacheAuxArgs 
     load_f32<V>(dst, old);
     const long long off = static_cast<long long>(slot) * E + col;
     store_wire<V>(a.payload, a.payload_bf16, off, old);
-    if (a.ring != nullptr) store_wire<V>(a.ring, a.payload_bf16, a.ring_start * E + off, old);
+    if (a.ring_store) store_wire<V>(a.ring, a.payload_bf16, a.ring_start * E + off, old);
   }
   if (write) store_f32<V>(dst, fresh);
 }
@@ -149,19 +174,22 @@ unsigned grid_of(long long items) { return static_cast<unsigned>((items + kThrea
 }  // namespace
 
 // payload: (n_ev, E) f32 or bf16 (payload_dtype); m_entries (n_m, E) and
-// c_emb (n_c, dim) f32 or bf16; m_slot (n_m,) and c_slot (n_c,) the payload
-// slot each write reads first, or -1; ev_free (n_free,) the slots no write
-// claims, -1 pads; ring (ring_rows, E) in the payload's dtype, or null. A
-// piece with no rows may pass null. vec: columns a thread (1, 4 or 8).
-// One launch, none when every piece is empty.
+// c_emb (n_c, dim) f32 or bf16; m_slot (n_m,), c_slot (n_c,) and r_slot
+// (n_r,) the payload slot each write reads first, or -1; r_src and r_dst
+// (n_r,) the restores' ring rows and table rows; ev_free (n_free,) the
+// slots no write claims, -1 pads; ring (ring_rows, E) in the payload's
+// dtype, or null: read by the restores, and with ring_store written by
+// (a). A piece with no rows may pass null. vec: columns a thread (1, 4 or
+// 8). One launch, none when every piece is empty.
 extern "C" int persia_cache_aux(float* table, long long rows, int dim, float* s0, int w0, float* s1, int w1, int vec,
                                 const int32_t* ev_rows, int n_ev, void* payload, int payload_dtype,
                                 const int32_t* m_rows, const int32_t* m_slot, int n_m, const void* m_entries,
                                 int m_dtype, const int32_t* c_rows, const int32_t* c_slot, int n_c, const void* c_emb,
-                                int c_dtype, float c0, float c1, const int32_t* ev_free, int n_free, void* ring,
-                                long long ring_rows, long long ring_pos, void* stream) {
+                                int c_dtype, float c0, float c1, const int32_t* r_src, const int32_t* r_dst,
+                                const int32_t* r_slot, int n_r, const int32_t* ev_free, int n_free, void* ring,
+                                long long ring_rows, int ring_store, long long ring_pos, void* stream) {
   const Pool pool{table, s0, s1, rows, dim, w0, w1};
-  if (!pool_ok(pool, vec) || n_ev < 0 || n_m < 0 || n_c < 0 || n_free < 0) return cudaErrorInvalidValue;
+  if (!pool_ok(pool, vec) || n_ev < 0 || n_m < 0 || n_c < 0 || n_r < 0 || n_free < 0) return cudaErrorInvalidValue;
   const auto dtype_ok = [](int d) { return d == persia::kFloat32 || d == persia::kBFloat16; };
   const auto vec_ok = [vec](const void* p) { return vec == 1 || aligned16(p); };
   if ((n_ev > 0 && (ev_rows == nullptr || payload == nullptr || !dtype_ok(payload_dtype) || !vec_ok(payload))) ||
@@ -169,12 +197,14 @@ extern "C" int persia_cache_aux(float* table, long long rows, int dim, float* s0
                    !vec_ok(m_entries))) ||
       (n_c > 0 && (c_rows == nullptr || c_slot == nullptr || c_emb == nullptr || !dtype_ok(c_dtype) ||
                    !vec_ok(c_emb))) ||
+      (n_r > 0 && (r_src == nullptr || r_dst == nullptr || r_slot == nullptr || ring == nullptr || ring_rows < 1 ||
+                   !dtype_ok(payload_dtype))) ||
       (n_free > 0 && (ev_free == nullptr || n_ev == 0)) ||
-      (ring != nullptr && (ring_rows < n_ev || !vec_ok(ring)))) {
+      (ring_store && (ring == nullptr || ring_rows < n_ev)) || (ring != nullptr && !vec_ok(ring))) {
     return cudaErrorInvalidValue;
   }
   const int units = (dim + w0 + w1) / vec;
-  const long long items = (static_cast<long long>(n_m) + n_c + n_free) * units;
+  const long long items = (static_cast<long long>(n_m) + n_c + n_r + n_free) * units;
   if (items + kThreads > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (items == 0) return cudaSuccess;
   CacheAuxArgs a{};
@@ -185,6 +215,8 @@ extern "C" int persia_cache_aux(float* table, long long rows, int dim, float* s0
   a.payload = payload;
   a.payload_bf16 = payload_dtype == persia::kBFloat16;
   a.ring = ring;
+  a.ring_rows = ring_rows;
+  a.ring_store = ring_store != 0;
   // as lax.dynamic_update_slice places it: a negative start counts from the
   // end, then the start is clamped so that the payload lands whole
   long long start = ring_pos < 0 ? ring_pos + ring_rows : ring_pos;
@@ -202,6 +234,10 @@ extern "C" int persia_cache_aux(float* table, long long rows, int dim, float* s0
   a.c_bf16 = c_dtype == persia::kBFloat16;
   a.c0 = c0;
   a.c1 = c1;
+  a.r_src = r_src;
+  a.r_dst = r_dst;
+  a.r_slot = r_slot;
+  a.n_r = n_r;
   a.ev_free = ev_free;
   a.n_free = n_free;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -1,8 +1,7 @@
-// Shared by the cache tier's kernels (K12 cache_aux.cu, K14
-// restore_rows.cu): a group's pool (its table and at most two optimizer
-// state arrays, whose columns an entry [emb | s0 | s1] lays out in that
-// order), vector loads and stores of f32 and of a bf16 wire, and the
-// pool's checks.
+// The cache tier's entry helpers (K12, cache_aux.cu): a group's pool (its
+// table and at most two optimizer state arrays, whose columns an entry
+// [emb | s0 | s1] lays out in that order), vector loads and stores of f32
+// and of a bf16 wire, and the pool's checks.
 #pragma once
 
 #include <cstdint>

@@ -13,7 +13,9 @@ rows and trains it in place.
   victim's entry back out (K12's payload) and writes it to the servers
   after the next step is dispatched;
 - a miss on a sign whose write-back is still in flight (the stream) is
-  restored on the card from the group's eviction ring (K14).
+  restored on the card from the group's eviction ring (K12, in the step's
+  one launch); at ``pipeline_depth > 1`` the stream hoists a step's feed
+  (K12) above earlier steps' dense stages where their rows are disjoint.
 
 Entry point: ``CachedTrainCtx`` (``train_step``, ``train_stream``,
 ``eval_batch``, ``flush``, ``publish`` and checkpoints).

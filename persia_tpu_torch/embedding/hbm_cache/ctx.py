@@ -16,8 +16,12 @@ for every feature group the cache holds, as the card's do.
 ``train_stream`` (``stream.run_train_stream``) runs the same steps as a
 pipeline of lanes: the admit, staging and write-back overlap the card's
 work, and a miss on a sign whose write-back is still in flight is restored
-on the card from the group's eviction ring (K14, ``_dispatch``), which K12
-fills (``_apply_feed`` with the step's ring position).
+on the card from the group's eviction ring, which K12 fills (``_apply_feed``
+with the step's ring position) and reads (the same K12 launch writes a
+step's restores). At ``pipeline_depth > 1`` a step's feed stage
+(``_apply_feed``) runs from the stream's stager up to depth − 1 steps ahead
+of its dense stage (``_dispatch_dense``, ``_dispatch_packed_dense``); every
+feed and dense dispatch then holds ``_state_lock``.
 
 Not in this slice (their arguments raise): a device mesh, a
 parameter-server tier for some slots, a dynamic loss scale, the health
@@ -26,6 +30,7 @@ probe and the sharded feeder.
 
 from __future__ import annotations
 
+import threading
 from types import SimpleNamespace
 from typing import Dict, Optional, Set
 
@@ -39,7 +44,6 @@ from persia_tpu_torch.device import resolve_device
 from persia_tpu_torch.embedding.hbm_cache.groups import (
     CachedTrainState,
     _apply_aux,
-    _restore_rows,
     _state_init_consts,
     init_cached_tables,
 )
@@ -154,6 +158,10 @@ class CachedTrainCtx:
         # the stream's last header, unread (fetch_final=False), and its stats
         self._last_header_dev = None
         self._stream_stats: Optional[Dict] = None
+        # held around every feed and dense dispatch of a stream (a
+        # pipelined stream feeds from its stager thread): the state, the
+        # rings and the empties are filled and updated under it
+        self._state_lock = threading.Lock()
 
     def __enter__(self):
         self.worker.register_optimizer(self.sparse_cfg)
@@ -182,7 +190,7 @@ class CachedTrainCtx:
     def _stage(self, inputs, miss_aux, cold_aux, evict_aux, restore_aux=None):
         """Every host array of a step to the card, in one copy on the
         current stream: (inputs, miss_aux, cold_aux, evict_aux,
-        restore_aux)."""
+        restore_aux), each restore's three arrays included."""
         tree = (inputs, miss_aux, cold_aux, evict_aux, restore_aux or {})
         flat = _to_device(_flatten(tree, []), self.device, non_blocking=True)
         return _unflatten(tree, iter(flat))
@@ -220,23 +228,32 @@ class CachedTrainCtx:
                 dtype=torch.bfloat16 if self._wb_bf16 else torch.float32, device=self.device)
         return ring
 
-    def _apply_feed(self, miss_aux, cold_aux, evict_aux, evict_meta=None) -> Dict[str, torch.Tensor]:
-        """K12 once a touched group: the eviction payloads (each evicted row
-        read before its write, by the tier's pairing), the warm entries and
-        cold seeds written; a group whose evictions have a ring position
+    def _apply_feed(self, miss_aux, cold_aux, evict_aux, evict_meta=None,
+                    restore_aux=None) -> Dict[str, torch.Tensor]:
+        """The feed stage: K12 once a touched group (a group with warm,
+        cold, evicted or restored rows): the eviction payloads (each evicted
+        row read before its write, by the tier's pairing), the warm entries
+        and cold seeds written; a group whose evictions have a ring position
         (``evict_meta``, the stream's) also stores its payload in its ring
-        there. Returns the payloads."""
+        there, and a group with restores (``restore_aux``, the stream's)
+        writes them from its ring in the same launch. Returns the payloads.
+        A stream's caller holds ``_state_lock``."""
         payloads = {}
-        for gname in sorted(set(miss_aux) | set(cold_aux) | set(evict_aux)):
+        restore_aux = restore_aux or {}
+        for gname in sorted(set(miss_aux) | set(cold_aux) | set(evict_aux) | set(restore_aux)):
             em = self._group_empties(gname)
             m_rows, m_entries, m_slot = miss_aux.get(gname, (em["rows"], em["entries"], em["rows"]))
             c_rows, c_emb, c_slot = cold_aux.get(gname, (em["rows"], em["emb"], em["rows"]))
             ev_rows, ev_free = evict_aux.get(gname, (em["rows"], em["rows"]))
             ring_pos = evict_meta[gname][2] if evict_meta and gname in evict_meta else -1
+            restores = restore_aux.get(gname)
+            if restores is not None and gname in evict_aux and ring_pos < 0:
+                raise RuntimeError(f"group {gname}: a step that restores stores its payload into the ring")
+            ring = self._ev_ring(gname) if ring_pos >= 0 or restores is not None else None
             payload = _apply_aux(self.state.tables[gname], self.state.emb_state[gname], ev_rows, m_rows, m_entries,
                                  c_rows, c_emb, self._state_consts, self._wb_bf16, m_slot=m_slot, c_slot=c_slot,
-                                 ev_free=ev_free, ring=self._ev_ring(gname) if ring_pos >= 0 else None,
-                                 ring_pos=max(ring_pos, 0))
+                                 ev_free=ev_free, ring=ring, ring_pos=ring_pos if ring_pos >= 0 else None,
+                                 restores=restores)
             if gname in evict_aux:
                 payloads[gname] = payload
         return payloads
@@ -256,14 +273,9 @@ class CachedTrainCtx:
 
     def _dispatch(self, inputs, layout, miss_aux, cold_aux, restore_aux, evict_aux, evict_meta=None):
         """A step's card work in order, from staged tensors: K12 for every
-        touched group, then each group's restores from its eviction ring
-        (K14, one call a group), then the step. Returns (header, device
-        payloads)."""
-        payloads = self._apply_feed(miss_aux, cold_aux, evict_aux, evict_meta)
-        for gname in sorted(restore_aux):
-            src_idx, dst_rows = restore_aux[gname]
-            _restore_rows(self.state.tables[gname], self.state.emb_state[gname], self._ev_ring(gname), src_idx,
-                          dst_rows)
+        touched group (its restores from the group's eviction ring in the
+        same launch), then the step. Returns (header, device payloads)."""
+        payloads = self._apply_feed(miss_aux, cold_aux, evict_aux, evict_meta, restore_aux)
         return self._step(self.state, inputs, layout), payloads
 
     def _dispatch_packed(self, items):
@@ -277,6 +289,16 @@ class CachedTrainCtx:
             payloads.append(self._apply_feed(miss_aux, cold_aux, evict_aux, evict_meta))
             headers.append(self._step(self.state, inputs, layout))
         return headers, payloads
+
+    def _dispatch_dense(self, inputs, layout):
+        """The dense stage of a step whose feed a pipelined stream already
+        dispatched: the step alone. Returns its header."""
+        return self._step(self.state, inputs, layout)
+
+    def _dispatch_packed_dense(self, items):
+        """K feed-done steps' dense stages back to back (``items`` [(inputs,
+        layout), ...]), no aux. Returns their headers."""
+        return [self._step(self.state, inputs, layout) for inputs, layout in items]
 
     def train_step(self, batch: PersiaBatch, fetch_metrics: bool = True) -> Optional[Dict]:
         """One step; returns {"loss", "preds"} (the step's, read back from

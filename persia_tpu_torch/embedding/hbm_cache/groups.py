@@ -1,12 +1,13 @@
 """Cache groups, the device state of the cache tier, and its device ops
 (counterpart of ``persia_tpu/embedding/hbm_cache/groups.py``).
 
-The device ops are the kernels K12 to K14 behind their wrappers, each of
-which takes its plain version for a CPU tensor: ``_apply_aux`` and
-``_gather_entry_rows`` are ``ops.cache_aux`` (plain version
-``cache_aux_reference``), the gather with ``_model_emb_from_gathered``'s
-mask, sum and scale is ``ops.cached_gather`` (``cached_gather_reference``),
-``_restore_rows`` is ``ops.restore_rows`` (``restore_rows_reference``).
+The device ops are the kernels K12 and K13 behind their wrappers, each
+of which takes its plain version for a CPU tensor: ``_apply_aux``,
+``_gather_entry_rows`` and the stream's restores are ``ops.cache_aux``
+(plain version ``cache_aux_reference``; the restores alone, the
+reference's ``_restore_rows``, are ``restore_rows_reference``, no kernel of
+their own); the gather with ``_model_emb_from_gathered``'s mask, sum and
+scale is ``ops.cached_gather`` (``cached_gather_reference``).
 """
 
 from __future__ import annotations
@@ -18,14 +19,13 @@ import torch
 
 from persia_tpu_torch.config import EmbeddingConfig
 from persia_tpu_torch.embedding.optim import OPTIMIZER_ADAGRAD, OPTIMIZER_ADAM, OptimizerConfig
-from persia_tpu_torch.ops.cache_aux import cache_aux, entry_state_cols, gather_entry_rows
-from persia_tpu_torch.ops.restore_rows import restore_rows
+from persia_tpu_torch.ops.cache_aux import cache_aux, entry_state_cols, gather_entry_rows, restore_rows_reference
 from persia_tpu_torch.ops.sparse_update import init_sparse_state
 
 _apply_aux = cache_aux
 _gather_entry_rows = gather_entry_rows
 _entry_to_state_cols = entry_state_cols
-_restore_rows = restore_rows
+_restore_rows = restore_rows_reference
 
 
 @dataclass

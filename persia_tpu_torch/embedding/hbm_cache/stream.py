@@ -8,11 +8,12 @@ Four lanes, each a thread:
   hazard gate, the servers' probe, the host arrays) and records the step's
   evictions in the pending map (sign → ring row) before the next admit;
 - the **stager** copies a step's host arrays to the card on its own CUDA
-  stream and records an event that the dispatch waits on;
+  stream and records an event that the dispatch waits on; at
+  ``pipeline_depth > 1`` it also dispatches the step's feed stage (below);
 - the **dispatch** (the caller's thread, on its current stream) runs each
   step's card work in order (``ctx._dispatch``: K12 with the step's ring
-  span, K14's restores, the step), or up to ``dispatch_k`` restore-free
-  steps of one shape signature back to back as a pack
+  span and its restores, then the step), or up to ``dispatch_k``
+  restore-free steps of one shape signature back to back as a pack
   (``ctx._dispatch_packed``), and hands each step's eviction payloads to
   the write-back with an event recorded after the step;
 - the **write-back** waits on that event on its own CUDA stream, copies
@@ -23,14 +24,28 @@ Four lanes, each a thread:
 **The eviction ring.** A step's evicted entries also land in its group's
 ring on the card, at a span the feeder reserves (``ring_alloc``) before
 its hazard gate runs. A later miss on a sign whose write-back has not
-landed is restored from the ring on the card (K14) instead of read from
-the server. Spans are freed in step order once their write-back lands; a
+landed is restored from the ring on the card (by the step's K12) instead
+of read from the server. Spans are freed in step order once their write-back lands; a
 feeder that finds no room asks the write-back to flush early and waits.
 
 **Ordering.** Every card write of the pool runs on the dispatch's stream
-in step order, so a restore reads ring rows that earlier steps wrote, and
+in enqueue order, so a restore reads ring rows that earlier steps wrote, and
 a span is rewritten only after every step that could restore from it has
 dispatched. Lanes order their copies against it with recorded events only.
+
+**The stage-pipelined stream** (``pipeline_depth`` > 1, the stage graph of
+``parallel/stage_graph.py``). A step without restores has its feed stage
+(``ctx._apply_feed``, K12) dispatched by the stager, up to depth − 1 steps
+ahead of its own dense stage: its hazard sets come from the host arrays,
+``reserve_feed`` holds it until its rows are disjoint from every in-flight
+dense stage's trained rows (disjoint rows commute bit for bit), and it is
+enqueued on the dispatch's stream behind the staging's event, under
+``ctx._state_lock`` (held around every dense dispatch too), so the card
+runs feeds and dense stages in the order they were enqueued. A restoring
+step enters the window as a barrier and keeps the in-order path; no later
+feed hoists across it. Feed-done steps dispatch their dense stages alone,
+or ``min(dispatch_k, depth)`` of one dense signature as a pack
+(``ctx._dispatch_packed_dense``). ``on_metrics`` forces depth 1.
 Each copy takes a fresh pinned host buffer; PyTorch's pinned-memory
 allocator hands a freed one out again only after the copy that used it has
 completed.
@@ -42,10 +57,10 @@ raises the first one stored. After ``stop`` each lane is joined for at
 most ``JOIN_S`` altogether; one still alive raises a ``RuntimeError`` that
 names it (chained to the first stored exception).
 
-The reference's deeper pipelining (``pipeline_depth > 1``), fences
-(``snapshot_every``, ``job_state``, ``fence_callback``), the health
-sentinel, quarantined steps, a resumed step count and the parameter-server
-tier's gradient lane are not part of this slice: asking for one raises.
+Fences (``snapshot_every``, ``job_state``, ``fence_callback``), the
+health sentinel, quarantined steps, a resumed step count and the
+parameter-server tier's gradient lane are not part of this slice: asking
+for one raises.
 """
 
 from __future__ import annotations
@@ -61,6 +76,7 @@ import torch
 
 from persia_tpu_torch.embedding.hbm_cache.directory import PendingSignMap
 from persia_tpu_torch.embedding.optim import OPTIMIZER_ADAM
+from persia_tpu_torch.parallel.stage_graph import StageGraph, feed_hazard_info
 
 WAIT_S = 0.25  # the longest a lane blocks before it looks at ``stop``
 PACK_IDLE_S = 0.05  # a partial pack dispatches when no step arrives for this long
@@ -124,17 +140,19 @@ def run_train_stream(
     metrics; with ``fetch_final=False`` None, the last header kept on the
     card unread (``ctx.last_metrics()`` reads it). ``on_metrics(metrics)``
     gets every step's metrics (a read of each step's header; it sets
-    ``dispatch_k`` to 1).
+    ``dispatch_k`` and ``pipeline_depth`` to 1).
 
-    ``prefetch``: the admitted and the staged steps each queue holds.
-    ``wb_flush_steps``: the steps' payloads a write-back flush takes.
-    ``dispatch_k``: the most steps a pack holds. ``psgrad_batch`` only sizes
-    the write-back queue as the reference's does: the parameter-server
-    tier whose gradients it batches cannot be built (``ps_slots`` raise).
-    The rest raise unless left at their defaults."""
-    _unsupported(pipeline_depth=pipeline_depth > 1, snapshot_every=snapshot_every is not None,
-                 job_state=job_state is not None, start_step=start_step != 0, sentinel=sentinel is not None,
-                 skip_steps=bool(skip_steps), fence_callback=fence_callback is not None)
+    ``prefetch``: the admitted and the staged steps each queue holds (the
+    staged queue at least ``pipeline_depth``). ``wb_flush_steps``: the
+    steps' payloads a write-back flush takes. ``dispatch_k``: the most
+    steps a pack holds. ``pipeline_depth``: the stage graph's window (the
+    module's docstring); 1 dispatches every feed in order. ``psgrad_batch``
+    only sizes the write-back queue as the reference's does: the
+    parameter-server tier whose gradients it batches cannot be built
+    (``ps_slots`` raise). The rest raise unless left at their defaults."""
+    _unsupported(snapshot_every=snapshot_every is not None, job_state=job_state is not None,
+                 start_step=start_step != 0, sentinel=sentinel is not None, skip_steps=bool(skip_steps),
+                 fence_callback=fence_callback is not None)
     if prefetch < 1:
         raise ValueError(f"prefetch must be >= 1, got {prefetch}")
     if pipeline_depth < 1:
@@ -144,13 +162,19 @@ def run_train_stream(
         ctx.init_state()
     tier, device = ctx.tier, ctx.device
     K = max(1, int(dispatch_k)) if on_metrics is None else 1
+    pipelined = pipeline_depth > 1 and on_metrics is None  # on_metrics reads every header: in order
+    graph = StageGraph(pipeline_depth if pipelined else 1)
+    K_eff = min(K, graph.depth) if pipelined else K  # a full dense pack never outruns the window
+    qcap = max(prefetch, graph.depth)  # or the queue, not the depth, would bound the feeds' lead
+    slot_group = {s: g.name for s, g in tier._slot_group.items()}
+    main = torch.cuda.current_stream(device) if device.type == "cuda" else None
     flush_steps = max(1, int(wb_flush_steps))
     stop = threading.Event()
     cv = threading.Condition()  # guards the ring accounting and errors
     errors: List[BaseException] = []
     prep_q: "queue.Queue" = queue.Queue(maxsize=prefetch)
-    staged_q: "queue.Queue" = queue.Queue(maxsize=prefetch)
-    wb_q: "queue.Queue" = queue.Queue(maxsize=flush_steps + prefetch + max(1, int(psgrad_batch)))
+    staged_q: "queue.Queue" = queue.Queue(maxsize=qcap)
+    wb_q: "queue.Queue" = queue.Queue(maxsize=flush_steps + qcap + max(1, int(psgrad_batch)))
     flush_now = threading.Event()  # the feeder found the ring full
     sign_map = PendingSignMap()
     salts = dict(tier.group_salt)
@@ -158,8 +182,12 @@ def run_train_stream(
     tails: Dict[str, int] = {}  # ring rows freed, unwrapped
     spans: Dict[str, List[int]] = {}  # each live span's rows (with its skip), in step order
     lane_s = {"feeder": 0.0, "stager": 0.0, "dispatch": 0.0, "write_back": 0.0}
-    stats = {"dispatch_k": K, "packs": 0, "packed_steps": 0, "single_steps": 0, "restore_steps": 0,
-             "restored_rows": 0, "ring_waits": 0, "flushes": 0, "lane_s": lane_s}
+    # feed_leads[n]: the stager's feeds enqueued while n earlier steps' dense
+    # stages were still to come (n > 0: the feed ran ahead of them)
+    stats = {"dispatch_k": K, "packs": 0, "packed_steps": 0, "single_steps": 0, "pipelined_feeds": 0,
+             "feed_leads": [0] * graph.depth, "restore_steps": 0, "restored_rows": 0, "ring_waits": 0, "flushes": 0,
+             "lane_s": lane_s}
+    dense_done = [0]  # steps whose dense stage is enqueued (under the state lock)
     t_start = time.perf_counter()
 
     def fail(e: BaseException) -> None:
@@ -248,7 +276,7 @@ def run_train_stream(
                 if restore:
                     stats["restore_steps"] += 1
                     stats["restored_rows"] += sum(int((dst <= ctx._group(g).rows).sum())
-                                                  for g, (_src, dst) in restore.items())
+                                                  for g, (_src, dst, _slot) in restore.items())
                 lane_s["feeder"] += time.perf_counter() - t0
                 put(prep_q, (seq, item))
                 seq += 1
@@ -260,6 +288,24 @@ def run_train_stream(
 
     # -------------------------------------------------- the stager's lane
 
+    def wait_staged(item) -> None:
+        """The dispatch's stream waits for the stager's copies of ``item``,
+        whose tensors are then in use on it (not on the stager's stream)."""
+        ready = item[8]
+        if ready is not None:
+            main.wait_event(ready)
+            for t in _staged_tensors(item[1:8], []):
+                t.record_stream(main)
+
+    def hoist_feed(item):
+        """The feed stage of a staged step, on the dispatch's stream, under
+        the state lock: K12 for every touched group; its payloads."""
+        seq, _inputs, _layout, miss, cold, _restore, ev_aux, ev_meta, _ready = item
+        with ctx._state_lock, _dispatch_stream(device, main):
+            wait_staged(item)
+            stats["feed_leads"][min(seq - dense_done[0], graph.depth - 1)] += 1
+            return ctx._apply_feed(miss, cold, ev_aux, ev_meta)
+
     def stager() -> None:
         try:
             with _lane_stream(device) as stream:
@@ -270,13 +316,29 @@ def run_train_stream(
                         return
                     seq, (inputs, layout, miss, cold, restore, ev_aux, ev_meta) = got
                     t0 = time.perf_counter()
-                    inputs, miss, cold, ev_aux, restore = ctx._stage(inputs, miss, cold, ev_aux, restore)
-                    ready = None
-                    if stream is not None:
-                        ready = torch.cuda.Event()
-                        ready.record(stream)
+                    pipelinable = pipelined and not restore
+                    # the hazard sets from the host arrays, before staging
+                    hazard = feed_hazard_info(inputs, miss, cold, ev_aux, slot_group) if pipelinable else None
+                    with graph.lane("feed"):
+                        inputs, miss, cold, ev_aux, restore = ctx._stage(inputs, miss, cold, ev_aux, restore)
+                        ready = None
+                        if stream is not None:
+                            ready = torch.cuda.Event()
+                            ready.record(stream)
+                    item = (seq, inputs, layout, miss, cold, restore, ev_aux, ev_meta, ready)
                     lane_s["stager"] += time.perf_counter() - t0
-                    put(staged_q, (seq, inputs, layout, miss, cold, restore, ev_aux, ev_meta, ready))
+                    feed_payloads = None
+                    if pipelined:
+                        # a stall waits outside the lanes' busy time
+                        if not graph.reserve_feed(seq, *(hazard or (None, None)), should_abort=stop.is_set,
+                                                  barrier=not pipelinable):
+                            raise _Stopped
+                        if pipelinable:
+                            t0 = time.perf_counter()
+                            with graph.lane("feed"):
+                                feed_payloads = hoist_feed(item)
+                            lane_s["stager"] += time.perf_counter() - t0
+                    put(staged_q, item + (feed_payloads,))
         except _Stopped:
             pass
         except BaseException as e:  # noqa: BLE001
@@ -301,6 +363,10 @@ def run_train_stream(
     def flush(acc: List, stream) -> None:
         if not acc:
             return
+        with graph.lane("psgrad"):
+            flush_inner(acc, stream)
+
+    def flush_inner(acc: List, stream) -> None:
         t0 = time.perf_counter()
         hosts = []
         for _seq, ev_meta, payloads, ev in acc:
@@ -360,14 +426,6 @@ def run_train_stream(
     label_shape = None
     pack: List = []
     pack_sig: List = [None]
-    main = torch.cuda.current_stream(device) if device.type == "cuda" else None
-
-    def wait_staged(item) -> None:
-        ready = item[8]
-        if ready is not None:
-            main.wait_event(ready)
-            for t in _staged_tensors(item[1:8], []):
-                t.record_stream(main)  # in use on this stream, not the stager's
 
     def post_step(seq, inputs, ev_meta, payloads) -> None:
         nonlocal label_shape
@@ -385,9 +443,17 @@ def run_train_stream(
 
     def dispatch_one(item) -> None:
         nonlocal header
-        seq, inputs, layout, miss, cold, restore, ev_aux, ev_meta, _ready = item
-        wait_staged(item)
-        header, payloads = ctx._dispatch(inputs, layout, miss, cold, restore, ev_aux, ev_meta)
+        seq, inputs, layout, miss, cold, restore, ev_aux, ev_meta, _ready, feed_payloads = item
+        with graph.lane("dense"), ctx._state_lock:
+            wait_staged(item)
+            if feed_payloads is not None:  # the feed went ahead from the stager: the dense stage alone
+                header, payloads = ctx._dispatch_dense(inputs, layout), feed_payloads
+                stats["pipelined_feeds"] += 1
+            else:
+                header, payloads = ctx._dispatch(inputs, layout, miss, cold, restore, ev_aux, ev_meta)
+            dense_done[0] = seq + 1
+        if pipelined:
+            graph.note_dense(seq)
         stats["single_steps"] += 1
         post_step(seq, inputs, ev_meta, payloads)
         if on_metrics is not None:
@@ -402,9 +468,19 @@ def run_train_stream(
 
     def dispatch_pack() -> None:
         nonlocal header
-        for it in pack:
-            wait_staged(it)
-        headers, payloads = ctx._dispatch_packed([(it[1], it[2], it[3], it[4], it[6], it[7]) for it in pack])
+        with graph.lane("dense"), ctx._state_lock:
+            for it in pack:
+                wait_staged(it)
+            if pipelined:  # feed-done steps: their dense stages alone
+                headers = ctx._dispatch_packed_dense([(it[1], it[2]) for it in pack])
+                payloads = [it[9] for it in pack]
+                stats["pipelined_feeds"] += len(pack)
+            else:
+                headers, payloads = ctx._dispatch_packed([(it[1], it[2], it[3], it[4], it[6], it[7])
+                                                          for it in pack])
+            dense_done[0] = pack[-1][0] + 1
+        if pipelined:
+            graph.note_dense(pack[-1][0])
         header = headers[-1]  # one header a pack
         stats["packs"] += 1
         stats["packed_steps"] += len(pack)
@@ -412,17 +488,22 @@ def run_train_stream(
             post_step(it[0], it[1], it[7], p)
         pack.clear()
 
+    def shapes(d):
+        return tuple(sorted((k, tuple(tuple(x.shape) for x in v) if isinstance(v, tuple) else tuple(v.shape))
+                            for k, v in d.items()))
+
+    def dense_signature(item):
+        """A step's dense stage's shape signature: the model's inputs alone
+        (a feed-done step's pack holds no aux)."""
+        inputs, layout = item[1], item[2]
+        return (layout, shapes(inputs["stacked_rows"]), shapes(inputs["raw_rows"]), "stacked_scale" in inputs,
+                tuple(tuple(x.shape) for x in inputs["labels"]))
+
     def signature(item):
         """A step's shape signature: a pack's steps share one."""
-        _seq, inputs, layout, miss, cold, _restore, ev_aux, ev_meta, _ready = item
-
-        def shapes(d):
-            return tuple(sorted((k, tuple(tuple(x.shape) for x in v) if isinstance(v, tuple) else tuple(v.shape))
-                                for k, v in d.items()))
-
-        return (layout, shapes(inputs["stacked_rows"]), shapes(inputs["raw_rows"]), "stacked_scale" in inputs,
-                tuple(tuple(x.shape) for x in inputs["labels"]), shapes(miss), shapes(cold), shapes(ev_aux),
-                tuple(sorted((g, m[2] >= 0) for g, m in ev_meta.items())))
+        _seq, _inputs, _layout, miss, cold, _restore, ev_aux, ev_meta, _ready, _feed = item
+        return dense_signature(item) + (shapes(miss), shapes(cold), shapes(ev_aux),
+                                        tuple(sorted((g, m[2] >= 0) for g, m in ev_meta.items())))
 
     threads = [threading.Thread(target=feeder, name="cache-feeder", daemon=True),
                threading.Thread(target=stager, name="cache-stager", daemon=True),
@@ -447,16 +528,21 @@ def run_train_stream(
                 t0 = time.perf_counter()
                 if item is _END:
                     flush_pack_single()
+                    # every feed's dense stage has dispatched: the window is empty
+                    graph.drain_for_fence(stats["single_steps"] + stats["packed_steps"], reason="end")
                     lane_s["dispatch"] += time.perf_counter() - t0
                     break
-                if K > 1 and not item[5]:  # restore-free: packable
-                    sig = signature(item)
+                # feed-done steps pack by their dense signature; in order,
+                # restore-free steps by their whole signature
+                packable = item[9] is not None if pipelined else not item[5]
+                if K_eff > 1 and packable:
+                    sig = dense_signature(item) if pipelined else signature(item)
                     if pack and sig != pack_sig[0]:
                         flush_pack_single()
                     if not pack:
                         pack_sig[0] = sig
                     pack.append(item)
-                    if len(pack) == K:
+                    if len(pack) == K_eff:
                         dispatch_pack()
                 else:
                     flush_pack_single()  # a restore never overtakes the steps before it
@@ -473,6 +559,7 @@ def run_train_stream(
         fail(e)
     finally:
         stop.set()
+        graph.abort()  # a stager parked in reserve_feed wakes
         flush_now.set()
         with cv:
             cv.notify_all()
@@ -481,6 +568,7 @@ def run_train_stream(
             t.join(timeout=max(0.0, deadline - time.perf_counter()))
         stats["wall_s"] = time.perf_counter() - t_start
         stats["resident_rows"] = {g.name: len(tier.dirs[g.name]) for g in tier.groups}
+        stats.update(graph.stats(stats["wall_s"]))
         ctx._stream_stats = stats
     alive = [t.name for t in threads if t.is_alive()]
     if alive:

@@ -183,17 +183,19 @@ class CachedEmbeddingTier:
         the misses, and the pairing K12 reads each evicted row by: the
         directory hands the k rows a call evicts to its last k misses, in
         order, so miss i takes the row of payload slot i - (m - k) where
-        that is >= 0. Each warm and cold write carries that slot (-1: none,
-        and for pads), and the slots no write claims (a restored miss's,
-        and the pads) are listed apart.
+        that is >= 0. Each warm, cold and restore write carries that slot
+        (-1: none, and for pads); each payload slot is claimed exactly
+        once, by one of those writes, or is a pad, which ``e_free``
+        lists.
 
         ``ring_alloc(group, padded k)`` (the stream's) reserves the step's
         span of the group's eviction ring before the gate runs, so no row
-        the gate hands back lies in this step's span. ``hazard_gate(group,
+        the gate hands back lies in this step's span (K12's contract: its
+        restores never read the span it stores). ``hazard_gate(group,
         miss_signs)`` runs before the server probe; it returns None or
         ``[(None, src_idx, positions), ...]``: the misses at ``positions``
-        are restored from rows ``src_idx`` of the group's ring (K14), one
-        call a group, their restores concatenated into ``restore_aux``."""
+        are restored from rows ``src_idx`` of the group's ring by K12, their
+        restores concatenated into ``restore_aux``."""
         C = g.rows
         self.hits += n_unique - len(miss_signs)
         self.misses += len(miss_signs)
@@ -207,7 +209,6 @@ class CachedEmbeddingTier:
             evict_meta[g.name] = (ev_signs, k, ring_pos)
         resolved = hazard_gate(g.name, miss_signs) if hazard_gate is not None and m else None
         handled = np.zeros(m, dtype=bool)
-        restored = np.empty(0, dtype=np.int64)
         if resolved:
             src = np.concatenate([np.asarray(s, dtype=np.int64) for _p, s, _pos in resolved])
             restored = np.concatenate([np.asarray(pos, dtype=np.int64) for _p, _s, pos in resolved])
@@ -217,15 +218,13 @@ class CachedEmbeddingTier:
             r_dst = self._ring.full(("r_dst", g.name), (n_pad,), np.int32, C + 1)  # and is dropped
             r_src[:n] = src
             r_dst[:n] = rows_miss[restored]
-            restore_aux[g.name] = (r_src, r_dst)
+            restore_aux[g.name] = (r_src, r_dst, self._slots(("r_slot", g.name), n_pad, restored, m - k))
         if k:
             e_rows = self._ring.full(("e_rows", g.name), (kp,), np.int32, C)
             e_rows[:k] = ev_rows
-            taken = restored - (m - k)  # a restored miss's slot: read by K12, written by K14
-            unclaimed = np.concatenate([taken[taken >= 0], np.arange(k, kp)])
-            e_free = self._ring.full(("e_free", g.name), (_bucket(len(unclaimed)) if len(unclaimed) else 0,),
-                                     np.int32, -1)
-            e_free[:len(unclaimed)] = unclaimed
+            # every live slot is claimed by its miss's write: the pads alone are unclaimed
+            e_free = self._ring.full(("e_free", g.name), (_bucket(kp - k) if kp > k else 0,), np.int32, -1)
+            e_free[:kp - k] = np.arange(k, kp)
             evict_aux[g.name] = (e_rows, e_free)
         if not m:
             return
@@ -337,7 +336,7 @@ class CachedEmbeddingTier:
         and build the step's host arrays: ``(inputs, layout, miss_aux,
         cold_aux, restore_aux, evict_aux, evict_meta)``. ``miss_aux``
         {group: (rows, entries, slots)}, ``cold_aux`` {group: (rows, seeds,
-        slots)}, ``restore_aux`` {group: (ring rows, table rows)} (K14's),
+        slots)}, ``restore_aux`` {group: (ring rows, table rows, slots)},
         ``evict_aux`` {group: (rows, unclaimed slots)} (the pairing:
         ``_admit_aux``), ``evict_meta`` {group: (evicted signs, count, ring
         position or -1)}.

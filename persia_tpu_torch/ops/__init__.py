@@ -13,11 +13,11 @@ differentiated leaves. The raw-slot path's
 ``raw_gather`` (K6, backward K7) and DIN's ``attention_pool`` (K8,
 backward K9) are differentiable too, as is DNN's ``batch_norm`` (K10
 ``batch_norm_fwd``, counted also by mode in ``launches_by_route``; backward
-K11 ``batch_norm_bwd``). The cache tier's ``cache_aux`` (K12, with
-``gather_entry_rows`` its payload read alone), ``cached_gather`` (K13,
-whose ``PooledRows`` backward hands the step per-position gradients) and
-``restore_rows`` (K14, the stream's restores from the eviction ring)
-update nothing through autograd either."""
+K11 ``batch_norm_bwd``). The cache tier's ``cache_aux`` (K12, which also
+writes the stream's restores from the eviction ring; ``gather_entry_rows``
+its payload read alone) and ``cached_gather`` (K13, whose ``PooledRows``
+backward hands the step per-position gradients) update nothing through
+autograd either."""
 
 from persia_tpu_torch.ops.attention_pool import (  # noqa: F401
     attention_pool,
@@ -37,14 +37,13 @@ from persia_tpu_torch.ops.embedding_pool import (  # noqa: F401
 from persia_tpu_torch.ops.flash_attention import flash_attention, tf32_split_planes  # noqa: F401
 from persia_tpu_torch.ops.fused_gather import fused_gather  # noqa: F401
 from persia_tpu_torch.ops.raw_gather import RawSlot, raw_csr, raw_gather, raw_gather_bwd, raw_gather_fwd  # noqa: F401
-from persia_tpu_torch.ops.restore_rows import restore_rows  # noqa: F401
 from persia_tpu_torch.ops.sparse_update import sparse_update, update_keys  # noqa: F401
 
 KERNEL_WRAPPERS = (
     dot_interaction, dot_interaction_bwd, gather_pool_fwd, gather_pool_bwd,
     flash_attention, tf32_split_planes, fused_gather, update_keys, sparse_update,
     raw_gather_fwd, raw_gather_bwd, attention_pool_fwd, attention_pool_bwd, batch_norm_fwd, batch_norm_bwd,
-    cache_aux, gather_entry_rows, cached_gather, restore_rows,
+    cache_aux, gather_entry_rows, cached_gather,
 )
 
 

@@ -163,11 +163,9 @@ def library() -> ctypes.CDLL:
             lib.persia_cache_aux.restype = i32
             lib.persia_cache_aux.argtypes = [vp, ll, i32, vp, i32, vp, i32, i32, vp, i32, vp, i32,
                                              vp, vp, i32, vp, i32, vp, vp, i32, vp, i32, f32, f32,
-                                             vp, i32, vp, ll, ll, vp]
+                                             vp, vp, vp, i32, vp, i32, vp, ll, i32, ll, vp]
             lib.persia_entry_rows.restype = i32
             lib.persia_entry_rows.argtypes = [vp, ll, i32, vp, i32, vp, i32, i32, vp, i32, vp, vp]
-            lib.persia_restore_rows.restype = i32
-            lib.persia_restore_rows.argtypes = [vp, ll, i32, vp, i32, vp, i32, i32, vp, ll, i32, vp, vp, i32, vp]
             lib.persia_cached_gather.restype = i32
             lib.persia_cached_gather.argtypes = [vp, ll, i32, vp, ll, vp, ll, i32, vp, i32, vp, vp, vp, vp]
             _lib = lib

@@ -1,8 +1,8 @@
-"""Seeded inputs of the cache tier's kernels, K12 (``ops.cache_aux``), K13
-(``ops.cached_gather``) and K14 (``ops.restore_rows``), shared by the tests
-and ``chip_smoke.py``: one step's aux pieces on a group's pool, padded as
-the tier pads them; cache rows with pads (and eval's misses); a step's
-restores from an eviction ring."""
+"""Seeded inputs of the cache tier's kernels, K12 (``ops.cache_aux``) and
+K13 (``ops.cached_gather``), shared by the tests and ``chip_smoke.py``: one
+step's aux pieces on a group's pool, padded as the tier pads them, with or
+without restores from an eviction ring; cache rows with pads (and eval's
+misses); a step's restores alone (the plain ``restore_rows_reference``)."""
 
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import torch
 
 from persia_tpu_torch.embedding.hbm_cache.common import _bucket
 from persia_tpu_torch.embedding.optim import SGD, Adagrad, Adam
+from persia_tpu_torch.ops.cache_aux import ring_start
 from persia_tpu_torch.ops.sparse_update import init_sparse_state
 from persia_tpu_torch.utils import round_up_pow2
 
@@ -27,7 +28,8 @@ def _padded(rows: np.ndarray, fill: int) -> np.ndarray:
 
 
 def aux_case(kind: str, C: int, dim: int, n_ev: int, n_warm: int, n_cold: int, reuse, bf16: bool,
-             device, seed: int) -> Dict:
+             device, seed: int, n_restore: int = 0, ring_rows: int = 0, wb_bf16: bool = False,
+             ring_pos: int = 0) -> Dict:
     """A pool (C+1, dim) with random rows and state (row C zero) and one
     step's pieces: ``n_ev`` evicted rows (padded with C), ``n_warm`` warm
     entries and ``n_cold`` cold seeds (rows padded with C+1, bf16 where
@@ -36,7 +38,15 @@ def aux_case(kind: str, C: int, dim: int, n_ev: int, n_warm: int, n_cold: int, r
     <= n_ev); the other misses take rows nobody evicts, and the slots no
     miss takes stay unclaimed. Empty pieces have 0 rows. Returns the
     keyword arguments of ``cache_aux`` but ``wb_bf16``, the pairing
-    (``m_slot``, ``c_slot``, ``ev_free``) included."""
+    (``m_slot``, ``c_slot``, ``ev_free``) included.
+
+    With ``ring_rows`` > 0 the case also holds a random ring
+    (``ring_rows``, dim + state_dim), bf16 where ``wb_bf16``, its
+    ``ring_pos`` and ``restores`` (r_src, r_dst, r_slot): ``n_restore``
+    misses of a third kind, each restored from a random ring row outside
+    the span the call stores its payload into (``ring_start(ring_rows,
+    ring_pos, K_ev)`` on), padded (sources 0, rows C+1, slots -1); 0
+    rows where ``n_restore`` is 0."""
     cfg = OPTIMIZERS[kind].config
     g = torch.Generator().manual_seed(seed)
     rng = np.random.default_rng(seed)
@@ -46,10 +56,10 @@ def aux_case(kind: str, C: int, dim: int, n_ev: int, n_warm: int, n_cold: int, r
     for s in state.values():
         s.copy_(torch.rand(s.shape, generator=g))
     width = dim + sum(s.shape[1] for s in state.values())
-    n_miss = n_warm + n_cold
+    n_miss = n_warm + n_cold + n_restore
     n_reuse = int(round(float(reuse) * n_miss))
     if n_reuse > n_ev:
-        raise ValueError("reuse needs its share of n_warm + n_cold <= n_ev")
+        raise ValueError("reuse needs its share of the misses <= n_ev")
     perm = rng.permutation(C)
     ev = perm[:n_ev]
     who = rng.permutation(n_miss)[:n_reuse]  # the misses on evicted rows
@@ -65,17 +75,26 @@ def aux_case(kind: str, C: int, dim: int, n_ev: int, n_warm: int, n_cold: int, r
     def rows(r, fill):
         return torch.from_numpy(_padded(r, fill) if len(r) else np.empty(0, np.int32))
 
-    m_rows, c_rows = rows(miss[:n_warm], C + 1), rows(miss[n_warm:], C + 1)
+    m_rows, c_rows = rows(miss[:n_warm], C + 1), rows(miss[n_warm:n_warm + n_cold], C + 1)
     consts = {"sgd": (), "adagrad": (("acc", cfg.initialization),), "adagrad_vw": (("acc", cfg.initialization),),
               "adam": (("m", 0.0), ("v", 0.0))}[kind]
     out = dict(
         table=table, state=state, ev_rows=rows(ev, C), m_rows=m_rows,
         m_entries=torch.randn((m_rows.shape[0], width), generator=g).to(dt), c_rows=c_rows,
         c_emb=torch.randn((c_rows.shape[0], dim), generator=g).to(dt), state_consts=consts,
-        m_slot=rows(slots[:n_warm], -1), c_slot=rows(slots[n_warm:], -1), ev_free=rows(free, -1),
+        m_slot=rows(slots[:n_warm], -1), c_slot=rows(slots[n_warm:n_warm + n_cold], -1), ev_free=rows(free, -1),
     )
+    if ring_rows:
+        k_ev = out["ev_rows"].shape[0]
+        start = ring_start(ring_rows, ring_pos, k_ev)
+        outside = np.setdiff1d(np.arange(ring_rows), np.arange(start, start + k_ev))
+        src = rng.choice(outside, n_restore)
+        out["ring"] = torch.randn((ring_rows, width), generator=g).to(torch.bfloat16 if wb_bf16 else torch.float32)
+        out["ring_pos"] = ring_pos
+        out["restores"] = (rows(src, 0), rows(miss[n_warm + n_cold:], C + 1), rows(slots[n_warm + n_cold:], -1))
     return {k: (v.to(device) if torch.is_tensor(v) else
-                {kk: vv.to(device) for kk, vv in v.items()} if isinstance(v, dict) else v) for k, v in out.items()}
+                {kk: vv.to(device) for kk, vv in v.items()} if isinstance(v, dict) else
+                tuple(t.to(device) for t in v) if k == "restores" else v) for k, v in out.items()}
 
 
 def all_pads(case: Dict, C: int) -> Dict:
@@ -87,6 +106,9 @@ def all_pads(case: Dict, C: int) -> Dict:
     case["c_rows"].fill_(C + 1)
     case["m_slot"].fill_(-1)
     case["c_slot"].fill_(-1)
+    if "restores" in case:
+        case["restores"][1].fill_(C + 1)
+        case["restores"][2].fill_(-1)
     n_ev = case["ev_rows"].shape[0]
     case["ev_free"] = torch.arange(n_ev, dtype=torch.int32, device=case["ev_rows"].device)
     return case
@@ -120,7 +142,7 @@ def restore_case(kind: str, C: int, dim: int, ring_rows: int, n: int, bf16: bool
     eviction ring (ring_rows, dim + state_dim), bf16 where ``bf16``, and
     ``n`` restores: distinct rows of the pool from random ring rows, padded
     as the tier pads them (sources 0, rows C+1) to a power of two. Returns
-    the keyword arguments of ``restore_rows``."""
+    the keyword arguments of ``restore_rows_reference``."""
     g = torch.Generator().manual_seed(seed)
     rng = np.random.default_rng(seed)
     table = torch.randn((C + 1, dim), generator=g)

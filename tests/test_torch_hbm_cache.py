@@ -10,9 +10,13 @@ numpy-seeded inputs.
   (f32 and bf16 wires, SGD / Adagrad / Adam, every miss reusing an evicted
   row, some of them): bit for bit; with the ring against
   ``_apply_aux_ring`` (positions that fit, that the clamp moves, negative
-  ones): bit for bit; it refuses a pairing under which the kernel could
-  read a row after its write; the tier's pairing holds at every step of a
-  saturated directory (both admit paths);
+  ones): bit for bit; with restores (its part (d)) against ``_apply_aux``
+  or ``_apply_aux_ring`` followed by ``_restore_rows`` (every optimizer,
+  f32 and bf16 rings and aux entries, pads): bit for bit; it refuses a
+  pairing under which the kernel could read a row after its write, a
+  repeated write row and a restore from the call's own ring span; the
+  tier's pairing holds at every step of a saturated directory (both admit
+  paths);
 - K13's plain version against the gather + ``_model_emb_from_gathered``
   and ``_gather_ext``: bit for bit at L=1, within 1e-6 at L <= 8;
 - ``CachedTrainCtx`` held to the reference's over 6 steps: every step's
@@ -53,12 +57,14 @@ from persia_tpu_torch.embedding.store import EmbeddingStore
 from persia_tpu_torch.embedding.worker import EmbeddingWorker
 from persia_tpu_torch.models import DLRM
 from persia_tpu_torch.ops.cache_aux import (
+    cache_aux,
     cache_aux_reference,
     cache_aux_ring_reference,
     check_pairing,
     gather_entry_rows_reference,
     ring_start,
 )
+from persia_tpu_torch.testing.cache_cases import aux_case
 from persia_tpu_torch.ops.cached_gather import cached_gather_reference, per_position_grads
 from persia_tpu_torch.weights import cached_dense_from_flax, seeded_flax_params_like
 from persia_tpu_torch.wire import bf16_bits_to_f32
@@ -341,6 +347,129 @@ def test_cache_aux_ring_plain_matches_reference(ring_pos, wb_bf16):
         for k in state:
             np.testing.assert_array_equal(state[k].numpy(), np.asarray(js[k]), err_msg=k)
     assert ring_start(48, ring_pos, 16) == {3: 3, 40: 32, -5: 32, -60: 0}[ring_pos]
+
+
+def _restore_aux_case(kind, aux_bf16, wb_bf16, ring_pos, seed):
+    """A step's pieces with restores (``aux_case``): 40 evictions (padded
+    to 64), 12 warm, 10 cold and 14 restored misses (padded), half of the
+    misses on evicted rows, from a 160-row ring."""
+    return aux_case(kind, 300, DIM, 40, 12, 10, 0.5, aux_bf16, "cpu", seed, n_restore=14, ring_rows=160,
+                    wb_bf16=wb_bf16, ring_pos=ring_pos)
+
+
+def _jnp_bits(t):
+    """A CPU tensor as JAX's array with the same bits (bf16 as ml_dtypes')."""
+    if t.dtype == torch.bfloat16:
+        return jnp.asarray(t.view(torch.int16).numpy().view(ml_dtypes.bfloat16))
+    return jnp.asarray(t.numpy())
+
+
+def _np_bits(a):
+    a = np.asarray(a)
+    return a.view(np.int16) if a.dtype == ml_dtypes.bfloat16 else a
+
+
+def _t_bits(t):
+    return t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+
+@pytest.mark.parametrize("store", [True, False])
+@pytest.mark.parametrize("wb_wire", ["float32", "bfloat16"])
+@pytest.mark.parametrize("aux_wire", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["sgd", "adagrad", "adagrad_vw", "adam"])
+def test_cache_aux_restores_plain_matches_reference(kind, aux_wire, wb_wire, store):
+    """K12 with restores, plain version and the CPU wrapper: bit for bit the
+    reference's ``_apply_aux_ring`` (``store``: the payload also into the
+    ring at 100, placed from 100 by the clamp to 96) or ``_apply_aux``,
+    followed by ``_restore_rows`` from the ring: the payload, the ring, the
+    table and every state column (pads dropped, a restored row claiming its
+    evicted row's slot)."""
+    wb_bf16 = wb_wire == "bfloat16"
+    case = _restore_aux_case(kind, aux_wire == "bfloat16", wb_bf16, 100, seed=len(kind) + 3 * store)
+    r_src, r_dst, r_slot = case["restores"]
+    assert int((r_dst == 301).sum()) and int((r_slot >= 0).sum()) and int((case["m_rows"] == 301).sum())
+    consts = jgroups._state_init_consts(_opt(kind)(joptim).config)
+    assert consts == case["state_consts"]
+    j = [_jnp_bits(case[k]) for k in ("ev_rows", "m_rows", "m_entries", "c_rows", "c_emb")]
+    jt, js, jring = _jnp_bits(case["table"]), {k: _jnp_bits(v) for k, v in case["state"].items()}, \
+        _jnp_bits(case["ring"])
+    if store:
+        jt, js, jring, jpay = jgroups._apply_aux_ring(jt, js, jring, jnp.int32(100), *j, consts, wb_bf16)
+    else:
+        jt, js, jpay = jgroups._apply_aux(jt, js, *j, consts, wb_bf16)
+    jt, js = jgroups._restore_rows(jt, js, jring, jnp.asarray(r_src.numpy().astype(np.int64)),
+                                   jnp.asarray(r_dst.numpy()))
+    kw = {k: v for k, v in case.items() if k not in ("table", "state", "ring", "ring_pos")}
+    for name, fn in (("plain", lambda t, s, r: (cache_aux_ring_reference(t, s, r, 100, **kw, wb_bf16=wb_bf16)
+                                                if store else cache_aux_reference(t, s, **kw, wb_bf16=wb_bf16,
+                                                                                  ring=r))),
+                     ("wrapper", lambda t, s, r: cache_aux(t, s, **kw, wb_bf16=wb_bf16, ring=r,
+                                                           ring_pos=100 if store else None))):
+        table, state, ring = case["table"].clone(), {k: v.clone() for k, v in case["state"].items()}, \
+            case["ring"].clone()
+        before = cache_aux.launches
+        pay = fn(table, state, ring)
+        assert cache_aux.launches == before, name  # CPU tensors: the plain version, no launch
+        np.testing.assert_array_equal(_t_bits(pay), _np_bits(jpay), err_msg=name)
+        np.testing.assert_array_equal(_t_bits(ring), _np_bits(jring), err_msg=name)
+        np.testing.assert_array_equal(table.numpy(), np.asarray(jt), err_msg=name)
+        for k in state:
+            np.testing.assert_array_equal(state[k].numpy(), np.asarray(js[k]), err_msg=f"{name} {k}")
+    assert ring_start(160, 100, 64) == 96
+
+
+@pytest.mark.parametrize("fault", ["slot_claimed_twice", "slot_of_another_row", "restore_on_a_warm_row",
+                                   "restore_on_a_cold_row", "restore_from_the_span", "restore_from_the_span_end",
+                                   "no_ring"])
+def test_cache_aux_plain_refuses_a_broken_restore(fault):
+    """On CPU tensors K12's plain version refuses, before writing anything,
+    a restore under which the kernel could race or differ from the
+    reference's order: a payload slot claimed by a warm write and a
+    restore; a restore claiming a slot whose row is not its own; a restore
+    row that repeats a warm or cold row; a live restore reading the ring
+    span the same call stores (its first and last row); no ring at all.
+    A pad restore (row C+1) may read the span."""
+    case = _restore_aux_case("adagrad", True, True, 30, seed=11)
+    r_src, r_dst, r_slot = (t.clone() for t in case["restores"])
+    m_slot, m_rows, c_rows = case["m_slot"].clone(), case["m_rows"].clone(), case["c_rows"].clone()
+    live = int((r_dst < 301).sum())
+    ring = case["ring"]
+    if fault == "slot_claimed_twice":
+        i, j = int((m_slot >= 0).nonzero()[0]), int((r_slot >= 0).nonzero()[0])
+        r_slot[j] = m_slot[i]
+    elif fault == "slot_of_another_row":
+        j = int((r_slot >= 0).nonzero()[0])
+        free = int(case["ev_free"][0])
+        r_slot[j] = free
+    elif fault == "restore_on_a_warm_row":
+        r_dst[int((r_slot < 0)[:live].nonzero()[0])] = m_rows[0]
+    elif fault == "restore_on_a_cold_row":
+        r_dst[int((r_slot < 0)[:live].nonzero()[0])] = c_rows[0]
+    elif fault == "restore_from_the_span":
+        r_src[0] = 30
+    elif fault == "restore_from_the_span_end":
+        r_src[live - 1] = 30 + 64 - 1
+    else:
+        ring = None
+    pad = r_dst.shape[0] - 1
+    assert r_dst[pad] == 301
+    kw = {k: v for k, v in case.items() if k not in ("table", "state", "ring", "ring_pos", "restores", "m_slot",
+                                                     "m_rows", "c_rows")}
+    table = case["table"].clone()
+    ok_src = r_src.clone()
+    ok_src[pad] = 30  # a pad reading the span is no race: it reads nothing
+    cache_aux_ring_reference(table.clone(), {k: v.clone() for k, v in case["state"].items()}, case["ring"].clone(),
+                             30, m_slot=case["m_slot"], m_rows=case["m_rows"], c_rows=case["c_rows"], **kw,
+                             wb_bf16=True, restores=(torch.where(torch.arange(len(r_src)) == pad, ok_src,
+                                                                 case["restores"][0]), *case["restores"][1:]))
+    with pytest.raises(ValueError):
+        if ring is None:
+            cache_aux_reference(table, case["state"], m_slot=m_slot, m_rows=m_rows, c_rows=c_rows, **kw,
+                                wb_bf16=True, restores=(r_src, r_dst, r_slot))
+        else:
+            cache_aux_ring_reference(table, case["state"], ring.clone(), 30, m_slot=m_slot, m_rows=m_rows,
+                                     c_rows=c_rows, **kw, wb_bf16=True, restores=(r_src, r_dst, r_slot))
+    np.testing.assert_array_equal(table.numpy(), case["table"].numpy())  # nothing written
 
 
 # ------------------------------------------------------- K13: gather-pool

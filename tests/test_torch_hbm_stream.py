@@ -1,12 +1,13 @@
 """The port's cache-tier stream (``persia_tpu_torch/embedding/hbm_cache``'s
-``train_stream``, the CPU path: K12's and K14's plain versions) against the
-port's own synchronous ``train_step`` and against the reference's stream
-(``persia_tpu/embedding/hbm_cache``, JAX on the CPU).
+``train_stream``, the CPU path: K12's plain version, restores included)
+against the port's own synchronous ``train_step`` and against the
+reference's stream (``persia_tpu/embedding/hbm_cache``, JAX on the CPU).
 
 - the pending map and the fused feeder call (``cache_feed_batch``) bit for
   bit the reference's natives, salts included;
-- K14's plain version bit for bit the reference's ``_restore_rows`` (f32
-  and bf16 rings, every optimizer, dropped pads); a repeated row raises;
+- the restores' plain function (``groups._restore_rows``, K12's part (d))
+  bit for bit the reference's ``_restore_rows`` (f32 and bf16 rings, every
+  optimizer, dropped pads); a repeated row raises;
 - the stream's oracles from ``tests/test_hbm_cache.py`` (the stream against
   the synchronous path: flushed entries within 1e-5 relative; Adam's
   server powers; a ring too small for the in-flight window; losses bit for
@@ -15,9 +16,14 @@ port's own synchronous ``train_step`` and against the reference's stream
 - the stream against the reference's stream on the same batches: the
   directory's rows, evictions and ring positions bit for bit, losses and
   flushed entries at ``test_cached_ctx_matches_reference``'s tolerances;
+- the stage-pipelined stream (``pipeline_depth`` 4; the oracles of
+  ``tests/test_stage_graph.py``): bit for bit the in-order stream, with
+  hoisted feeds, with packs and with stalls forced; ``on_metrics`` forces
+  depth 1; restoring steps are barriers no feed hoists across; its
+  decisions and ring positions the reference's pipelined stream's;
 - a lane that raises ends the stream within 15 s, with no lane left
-  running; no wait in the stream's module is unbounded; the options of
-  later slices raise.
+  running; no wait in the stream's or the stage graph's module is
+  unbounded; the options of later slices raise.
 
 Every stream runs under ``run_with_watchdog`` (60 s): a hang fails with
 every thread's stack instead of stalling the run.
@@ -56,7 +62,8 @@ from persia_tpu_torch.embedding.hbm_cache.directory import CacheDirectory, Pendi
 from persia_tpu_torch.embedding.store import EmbeddingStore
 from persia_tpu_torch.embedding.worker import EmbeddingWorker
 from persia_tpu_torch.models import DLRM
-from persia_tpu_torch.ops.restore_rows import restore_rows, restore_rows_reference
+from persia_tpu_torch.ops.cache_aux import check_pairing, restore_rows_reference
+from persia_tpu_torch.parallel import stage_graph as tsg
 from persia_tpu_torch.testing.cache_cases import restore_case
 from persia_tpu_torch.testing.watchdog import run_with_watchdog
 from persia_tpu_torch.weights import cached_dense_from_flax, seeded_flax_params_like
@@ -125,15 +132,16 @@ def test_feed_batch_matches_reference(salt, touches):
     assert len(want[6]) > 0, "the case must hit in-flight evictions"
 
 
-# ------------------------------------------------------- K14, plain version
+# ------------------------------------------------- the restores, plain version
 
 
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("kind", ["sgd", "adagrad", "adagrad_vw", "adam"])
 def test_restore_rows_plain_matches_reference(kind, bf16):
-    """K14's plain version bit for bit ``_restore_rows``: the ring's
-    entries (bf16 widened) into the table and each state column, the pads
-    (rows C+1) dropped, the other rows untouched."""
+    """The restores' plain function (K12's part (d), ``groups._restore_rows``)
+    bit for bit ``_restore_rows``: the ring's entries (bf16 widened) into
+    the table and each state column, the pads (rows C+1) dropped, the other
+    rows untouched."""
     case = restore_case(kind, 500, DIM, 300, 77, bf16, "cpu", seed=len(kind) + bf16)
     C = case["table"].shape[0] - 1
     assert int((case["dst_rows"] == C + 1).sum()) > 0
@@ -143,9 +151,8 @@ def test_restore_rows_plain_matches_reference(kind, bf16):
                                    {k: jnp.asarray(v.numpy()) for k, v in case["state"].items()}, jring,
                                    jnp.asarray(case["src_idx"].numpy().astype(np.int64)),
                                    jnp.asarray(case["dst_rows"].numpy()))
-    before = restore_rows.launches
-    restore_rows(**case)
-    assert restore_rows.launches == before  # the plain version: no launch
+    assert thbm.groups._restore_rows is restore_rows_reference  # no kernel of its own: K12 writes restores
+    thbm.groups._restore_rows(**case)
     np.testing.assert_array_equal(case["table"].numpy(), np.asarray(jt))
     for k, v in case["state"].items():
         np.testing.assert_array_equal(v.numpy(), np.asarray(js[k]), err_msg=k)
@@ -161,7 +168,7 @@ def test_restore_rows_plain_raises_on_a_repeated_row():
         restore_rows_reference(**case)
     empty = restore_case("adam", 50, DIM, 8, 0, True, "cpu", seed=4)
     table = empty["table"].clone()
-    restore_rows(**empty)
+    restore_rows_reference(**empty)
     assert torch.equal(table, empty["table"])
 
 
@@ -385,7 +392,7 @@ def test_stream_packing_never_overlaps_inflight_eviction():
     inner = ctx._dispatch
 
     def spy(inputs, layout, miss_aux, cold_aux, restore_aux, evict_aux, evict_meta=None):
-        seen.append(sum(int((dst <= 100).sum()) for _src, dst in restore_aux.values()))
+        seen.append(sum(int((dst <= 100).sum()) for _src, dst, _slot in restore_aux.values()))
         return inner(inputs, layout, miss_aux, cold_aux, restore_aux, evict_aux, evict_meta)
 
     ctx._dispatch = spy
@@ -589,25 +596,28 @@ def test_a_lane_that_never_ends_is_named():
 
 def test_no_wait_in_the_stream_is_unbounded():
     """Every queue get/put, condition or event wait and thread join in the
-    stream's module passes a timeout."""
-    tree = ast.parse(Path(tstream.__file__).read_text())
-    waits = []
-    for node in ast.walk(tree):
-        if not (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)):
-            continue
-        recv, name = node.func.value, node.func.attr
-        queue_op = name in ("get", "put") and isinstance(recv, ast.Name) and (recv.id == "q" or recv.id.endswith("_q"))
-        other = name in ("wait", "join", "synchronize") and not isinstance(recv, ast.Constant)
-        if queue_op or other:
-            waits.append((name, node.lineno, {k.arg for k in node.keywords}))
-    assert waits, "the check found no wait at all"
-    for name, line, kws in waits:
-        assert name != "synchronize", f"stream.py:{line} synchronizes; lanes order by events"
-        assert "timeout" in kws, f"stream.py:{line}: {name}() without a timeout"
+    stream's module and in the stage graph's passes a timeout."""
+    for module in (tstream, tsg):
+        tree = ast.parse(Path(module.__file__).read_text())
+        where = Path(module.__file__).name
+        waits = []
+        for node in ast.walk(tree):
+            if not (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)):
+                continue
+            recv, name = node.func.value, node.func.attr
+            queue_op = name in ("get", "put") and isinstance(recv, ast.Name) and (recv.id == "q"
+                                                                                  or recv.id.endswith("_q"))
+            other = name in ("wait", "join", "synchronize") and not isinstance(recv, ast.Constant)
+            if queue_op or other:
+                waits.append((name, node.lineno, {k.arg for k in node.keywords}))
+        assert waits, f"the check found no wait at all in {where}"
+        for name, line, kws in waits:
+            assert name != "synchronize", f"{where}:{line} synchronizes; lanes order by events"
+            assert "timeout" in kws, f"{where}:{line}: {name}() without a timeout"
     assert tstream.WAIT_S <= 0.25 and tstream.JOIN_S <= 10.0
 
 
-@pytest.mark.parametrize("option", [dict(pipeline_depth=2), dict(snapshot_every=4), dict(job_state=object()),
+@pytest.mark.parametrize("option", [dict(snapshot_every=4), dict(job_state=object()),
                                     dict(start_step=3), dict(sentinel=object()), dict(skip_steps={1}),
                                     dict(fence_callback=print)])
 def test_unported_stream_options_raise(option):
@@ -615,3 +625,245 @@ def test_unported_stream_options_raise(option):
     with pytest.raises(NotImplementedError, match=next(iter(option))):
         ctx.train_stream(_batches(tdata, 1), **option)
     assert _lane_threads() == []
+
+
+# --------------------------------------------- the stage-pipelined stream
+
+
+def _slowed(ctx, s=0.03):
+    """Each step ``s`` slower (the dense stage): the stager's feeds run
+    ahead into the window."""
+    inner = ctx._step
+
+    def slow_step(*a):
+        time.sleep(s)
+        return inner(*a)
+
+    ctx._step = slow_step
+    return ctx
+
+
+def _pipe_run(depth, k=1, cache_rows=136, slow=False, n=36):
+    """``tests/test_stage_graph.py``'s harness: one stream over the rotating
+    blocks (every step evicts; an evicted sign comes back 16 steps later,
+    past the window, so the feeds hoist): (last loss, server entries after
+    flush, stats)."""
+    cfg, batches = _block_batches(n)
+    ctx, store = _ctx(toptim.Adagrad(lr=0.1), cache_rows, cfg=cfg)
+    if slow:
+        _slowed(ctx)
+    m = _watch(lambda: ctx.train_stream(batches, dispatch_k=k, pipeline_depth=depth, wb_flush_steps=2))
+    st = ctx.stream_stats()
+    ctx.flush()
+    return m["loss"], _entries(store, cfg, (256,)), st
+
+
+def _assert_stream_parity(a, b):
+    (la, ea, _), (lb, eb, _) = a, b
+    assert la == lb, "pipelining changed the loss bits"
+    assert set(ea) == set(eb) and len(ea) > 200
+    for key in ea:
+        np.testing.assert_array_equal(ea[key], eb[key], err_msg=f"sign {key}: pipelining changed the math")
+
+
+@pytest.fixture(scope="module")
+def in_order_blocks():
+    return {rows: _pipe_run(1, cache_rows=rows) for rows in (136, 16)}
+
+
+def test_pipelined_stream_bitwise_parity_hazard_free(in_order_blocks):
+    """Depth 4 against depth 1, bit for bit (the last loss and every server
+    entry), with the slow step keeping the window full so that feeds do
+    hoist."""
+    pipe = _pipe_run(4, slow=True)
+    st = pipe[2]
+    assert st["pipeline_depth"] == 4 and st["pipeline_drains"] == 1
+    assert st["pipelined_feeds"] > 0 and sum(st["feed_leads"]) == st["pipelined_feeds"]
+    assert sum(st["feed_leads"][1:]) > 0, f"no feed ever ran ahead of an earlier dense stage: {st}"
+    assert in_order_blocks[136][2]["pipelined_feeds"] == 0 and in_order_blocks[136][2]["pipeline_depth"] == 1
+    _assert_stream_parity(in_order_blocks[136], pipe)
+
+
+def test_pipelined_stream_kstep_pack_parity(in_order_blocks):
+    """Packs compose with the pipeline: feed-done steps pack their dense
+    stages ``min(dispatch_k, depth)`` at a time, bit for bit the in-order
+    stream."""
+    pipe = _pipe_run(4, k=8, slow=True)
+    st = pipe[2]
+    assert st["packed_steps"] > 0 and st["packs"] * 4 == st["packed_steps"], f"dense packs never formed: {st}"
+    assert st["pipelined_feeds"] == st["packed_steps"] + st["single_steps"] - st["restore_steps"]
+    _assert_stream_parity(in_order_blocks[136], pipe)
+
+
+def test_pipelined_stream_stall_parity_tiny_cache(in_order_blocks):
+    """A 16-row cache (a step touches ~10 rows): most feeds evict rows the
+    step before trains, so the ledger stalls them (stalls > 0), and the
+    result is still bit for bit the in-order stream's (without the stalls
+    the loss bits change)."""
+    pipe = _pipe_run(4, cache_rows=16, slow=True)
+    assert pipe[2]["pipeline_stalls"] > 0, f"the tiny cache never stalled a feed: {pipe[2]}"
+    _assert_stream_parity(in_order_blocks[16], pipe)
+
+
+def test_pipelined_on_metrics_forces_in_order():
+    """``on_metrics`` reads every header: the stream runs at depth 1."""
+    cfg, batches = _block_batches(6)
+    ctx, _ = _ctx(toptim.Adagrad(lr=0.1), 136, cfg=cfg)
+    seen = []
+    _watch(lambda: ctx.train_stream(batches, pipeline_depth=4, on_metrics=seen.append))
+    st = ctx.stream_stats()
+    assert len(seen) == 6 and st["pipeline_depth"] == 1 and st["pipelined_feeds"] == 0
+
+
+def test_pipeline_depth_below_one_raises():
+    ctx, _ = _ctx(toptim.Adagrad(lr=0.1), 100)
+    with pytest.raises(ValueError, match="pipeline_depth"):
+        ctx.train_stream(_batches(tdata, 1), pipeline_depth=0)
+    assert _lane_threads() == []
+
+
+def test_pipelined_restoring_steps_are_barriers():
+    """A 100-row cache restores from the ring in many steps. At depth 4
+    with the slow step: every hoisted feed runs in the stager, a restoring
+    step's feed (its restores in its K12) runs in order with its dense
+    stage, no feed of a later step runs before that, no feed runs more than
+    depth - 1 steps ahead of its dense stage, and the servers end bit for
+    bit as the in-order stream leaves them."""
+    batches = _batches(tdata, 12, seed=21)
+    base, store0 = _ctx(toptim.Adagrad(lr=0.1), 100)
+    _watch(lambda: base.train_stream(batches, dispatch_k=1))
+    base.flush()
+    ctx, store = _ctx(toptim.Adagrad(lr=0.1), 100)
+    _slowed(ctx)
+    rec = _record(ctx.tier)
+    events = []
+    feed, step = ctx._apply_feed, ctx._step
+
+    def spy_feed(*a, **kw):
+        events.append("hoisted" if threading.current_thread().name == "cache-stager" else "in_order")
+        return feed(*a, **kw)
+
+    def spy_step(*a):
+        events.append("dense")
+        return step(*a)
+
+    ctx._apply_feed, ctx._step = spy_feed, spy_step
+    _watch(lambda: ctx.train_stream(batches, dispatch_k=1, pipeline_depth=4))
+    st = ctx.stream_stats()
+    barriers = [bool(r[4]) for r in rec]
+    assert 0 < sum(barriers) < len(batches) and st["restore_steps"] == sum(barriers), st
+    assert st["pipelined_feeds"] == len(batches) - sum(barriers) > 0
+    # each step's events: its feed (hoisted or in order) and its dense stage
+    feed_at, dense_at = {}, {}
+    hoisted = iter(i for i, b in enumerate(barriers) if not b)
+    n_dense = 0
+    for pos, e in enumerate(events):
+        if e == "hoisted":
+            feed_at[next(hoisted)] = pos
+        elif e == "in_order":
+            feed_at[n_dense] = pos
+            assert barriers[n_dense], f"step {n_dense} fed in order but restores nothing"
+        else:
+            dense_at[n_dense] = pos
+            n_dense += 1
+    assert n_dense == len(batches) and len(feed_at) == len(batches)
+    for t in range(len(batches)):
+        assert feed_at[t] < dense_at[t]
+        if t >= 4:
+            assert feed_at[t] > dense_at[t - 4], f"step {t}'s feed ran more than 3 steps ahead"
+        for b in range(t):
+            if barriers[b]:
+                assert feed_at[t] > dense_at[b], f"step {t}'s feed hoisted across the barrier {b}"
+    ctx.flush()
+    want, got = _entries(store0), _entries(store)
+    assert set(got) == set(want) and len(want) > 50
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=str(k))
+
+
+def test_stream_pairing_claims_every_slot():
+    """At every step of a stream that restores: each payload slot is claimed
+    by exactly one warm, cold or restore write, ``e_free`` lists only the
+    pads, and ``check_pairing`` passes with the restores."""
+    ctx, _ = _ctx(toptim.Adagrad(lr=0.1), 100)
+    rec = _record(ctx.tier)
+    _watch(lambda: ctx.train_stream(_batches(tdata, 10, seed=21)))
+    C = ctx.tier.groups[0].rows
+    restoring_on_evicted = 0
+    for _inputs, _layout, miss, cold, restore, ev, meta in rec:
+        for g, (e_rows, e_free) in ev.items():
+            k = meta[g][1]
+            np.testing.assert_array_equal(e_free[e_free >= 0], np.arange(k, len(e_rows)))
+            writes = [w for w in (miss.get(g), cold.get(g)) if w is not None]
+            r_src, r_dst, r_slot = restore.get(g, (np.empty(0, np.int32),) * 3)
+            claims = np.concatenate([w[2][w[2] >= 0] for w in writes] + [r_slot[r_slot >= 0]])
+            np.testing.assert_array_equal(np.sort(claims), np.arange(k))
+            np.testing.assert_array_equal(e_rows[r_slot[r_slot >= 0]], r_dst[r_slot >= 0])
+            restoring_on_evicted += int((r_slot >= 0).sum())
+            t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+            m = [t(miss[g][0]), t(miss[g][2])] if g in miss else [t(e_free[:0])] * 2
+            c = [t(cold[g][0]), t(cold[g][2])] if g in cold else [t(e_free[:0])] * 2
+            check_pairing(C + 1, t(e_rows), m[0], m[1], c[0], c[1], t(e_free), t(r_dst), t(r_slot))
+    assert restoring_on_evicted > 0, "the case must restore misses onto rows evicted in the same step"
+
+
+@pytest.mark.parametrize("lane", ["stager", "dispatch"])
+def test_a_lane_that_raises_ends_the_pipelined_stream(lane):
+    """At depth 4, a hoisted feed (the stager's K12) or a dense stage alone
+    raising on its third call: ``train_stream`` raises it within 15 s, no
+    lane left running (a stager parked in ``reserve_feed`` wakes)."""
+    cfg, batches = _block_batches(30)
+    ctx, _ = _ctx(toptim.Adagrad(lr=0.1), 136, cfg=cfg)
+    name = {"stager": "_apply_feed", "dispatch": "_dispatch_dense"}[lane]
+    inner = getattr(ctx, name)
+    calls = [0]
+
+    def third_raises(*a, **kw):
+        calls[0] += 1
+        if calls[0] == 3:
+            raise _Boom(f"{lane} fails")
+        return inner(*a, **kw)
+
+    setattr(ctx, name, third_raises)
+    _slowed(ctx)
+    t0 = time.perf_counter()
+    with pytest.raises(_Boom, match=f"{lane} fails"):
+        _watch(lambda: ctx.train_stream(batches, dispatch_k=1, pipeline_depth=4, wb_flush_steps=1))
+    assert time.perf_counter() - t0 < 15.0
+    assert _lane_threads() == []
+
+
+def test_pipelined_stream_matches_reference_pipelined_stream():
+    """The port's depth-4 stream and the reference's on the same batches and
+    weights (a 100-row cache; the port's dense stage slowed so that feeds
+    hoist): the directory's decisions and ring positions bit for bit at
+    every step, the last loss within 1e-5 relative and, after flush, every
+    server entry within 1e-5 relative."""
+    jctx, tctx, jstore, tstore = _pair(100)
+    jrec, trec = _record(jctx.tier), _record(tctx.tier)
+    batches = _batches(jdata, 10, seed=23)
+    jm = jctx.train_stream(batches, pipeline_depth=4, dispatch_k=4)
+    _slowed(tctx, 0.02)
+    tm = _watch(lambda: tctx.train_stream([tdata.PersiaBatch.from_bytes(b.to_bytes()) for b in batches],
+                                          pipeline_depth=4, dispatch_k=4))
+    assert jctx.stream_stats()["pipeline_depth"] == tctx.stream_stats()["pipeline_depth"] == 4
+    assert tctx.stream_stats()["pipelined_feeds"] > 0 and tctx.stream_stats()["restore_steps"] > 0
+    C = tctx.tier.groups[0].rows
+    assert len(jrec) == len(trec) == 10
+    for i, (j, t) in enumerate(zip(jrec, trec)):
+        jd, td = _decisions(j, C, port=False), _decisions(t, C, port=True)
+        assert set(jd) == set(td), i
+        for g in jd:
+            if g == "rows":
+                for k in jd[g]:
+                    np.testing.assert_array_equal(td[g][k], jd[g][k])
+                continue
+            for k, v in jd[g].items():
+                np.testing.assert_array_equal(np.asarray(td[g][k]), np.asarray(v), err_msg=f"step {i} {g} {k}")
+    np.testing.assert_allclose(tm["loss"], float(jm["loss"]), **TIGHT)
+    jctx.flush()
+    tctx.flush()
+    assert jstore.size() == tstore.size() > 0
+    for shard in jstore._shards:
+        for sign, (_, vec) in shard.entries.items():
+            np.testing.assert_allclose(tstore.get_embedding_entry(sign), vec, err_msg=str(sign), **TIGHT)

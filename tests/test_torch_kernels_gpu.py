@@ -1738,53 +1738,103 @@ def test_cached_ctx_on_card_matches_cpu(cuda):
 # ------------------------------------------- the cache tier: K14 and the stream
 
 
-@pytest.mark.parametrize("bf16", [False, True])
+def _restores_both(case, wb_bf16, store):
+    """K12 with restores on the card and its plain version on the CPU, from
+    one case's copies (``aux_case`` with ``n_restore``): (payload, table,
+    state, ring) of each; ``store``: the payload also into the ring."""
+    from persia_tpu_torch.ops.cache_aux import cache_aux, cache_aux_reference, cache_aux_ring_reference
+
+    cpu = {k: (v.cpu().clone() if torch.is_tensor(v) else
+               {kk: vv.cpu().clone() for kk, vv in v.items()} if isinstance(v, dict) else
+               tuple(t.cpu().clone() for t in v) if k == "restores" else v) for k, v in case.items()}
+    ring_pos = case.pop("ring_pos")
+    cpu.pop("ring_pos")
+    before = cache_aux.launches
+    pay = cache_aux(**case, wb_bf16=wb_bf16, ring_pos=ring_pos if store else None)
+    assert cache_aux.launches == before + 1
+    rring = cpu.pop("ring")
+    if store:
+        ref = cache_aux_ring_reference(ring=rring, ring_pos=ring_pos, **cpu, wb_bf16=wb_bf16)
+    else:
+        ref = cache_aux_reference(**cpu, ring=rring, wb_bf16=wb_bf16)
+    return (pay, case["table"], case["state"], case["ring"]), (ref, cpu["table"], cpu["state"], rring)
+
+
+@pytest.mark.parametrize("store", [True, False])
+@pytest.mark.parametrize("wires", [(False, False), (True, True), (True, False), (False, True)])
 @pytest.mark.parametrize("kind", ["sgd", "adagrad", "adagrad_vw", "adam"])
-def test_restore_rows_kernel_matches_plain(cuda, kind, bf16):
-    """K14 bit for bit its plain version (the table and every state column,
-    pads dropped); one launch a call with rows, none for a call without."""
-    from persia_tpu_torch.ops.restore_rows import restore_rows, restore_rows_reference
-    from persia_tpu_torch.testing.cache_cases import restore_case
-
-    case = restore_case(kind, 4096, 16, 3000, 900, bf16, cuda, seed=len(kind) + bf16)
-    cpu = {k: (v.cpu().clone() if torch.is_tensor(v) else {kk: vv.cpu().clone() for kk, vv in v.items()})
-           for k, v in case.items()}
-    before = restore_rows.launches
-    restore_rows(**case)
-    restore_rows_reference(**cpu)
-    assert restore_rows.launches == before + 1
-    assert torch.equal(case["table"].cpu(), cpu["table"])
-    for k in cpu["state"]:
-        assert torch.equal(case["state"][k].cpu(), cpu["state"][k]), k
-    empty = restore_case(kind, 64, 16, 8, 0, bf16, cuda, seed=1)
-    restore_rows(**empty)
-    assert restore_rows.launches == before + 1
-
-
-def test_restore_rows_after_k12_on_one_stream(cuda):
-    """K14 restoring, from the ring span a K12 call just filled, onto rows
-    that call just wrote, queued behind it on the same stream: bit for bit
-    the plain versions in that order."""
-    from persia_tpu_torch.ops.cache_aux import cache_aux, cache_aux_ring_reference
-    from persia_tpu_torch.ops.restore_rows import restore_rows, restore_rows_reference
+def test_cache_aux_kernel_restores_match_plain(cuda, kind, wires, store):
+    """K12 with restores (the in-flight restores folded into its one
+    launch) bit for bit its plain version: the payload, the ring, the table
+    and every state column, for every optimizer and each pairing of the
+    aux wire (warm entries) and the write-back wire (the ring the restores
+    read); half the misses, restored ones too, on rows evicted this step;
+    with and without the payload's store into the ring."""
     from persia_tpu_torch.testing.cache_cases import aux_case
 
-    case = aux_case("adam", 4096, 16, 1500, 700, 600, 0.5, True, cuda, seed=9)
+    aux_bf16, wb_bf16 = wires
+    case = aux_case(kind, 4096, 16, 1500, 500, 400, 0.5, aux_bf16, cuda, seed=len(kind) + 5 * store,
+                    n_restore=300, ring_rows=3000, wb_bf16=wb_bf16, ring_pos=700)
+    _assert_aux_bits(*_restores_both(case, wb_bf16, store))
+
+
+def test_cache_aux_kernel_restores_pads_and_alone(cuda):
+    """Restores whose rows are all pads (dropped, their sources unread),
+    restores alone (no eviction, warm or cold row: a group whose every miss
+    was restored) and no restore at all (a 0-row restore list)."""
+    from persia_tpu_torch.testing.cache_cases import aux_case, all_pads
+
+    case = all_pads(aux_case("adagrad", 512, 16, 40, 10, 10, 0.5, True, cuda, seed=3, n_restore=10,
+                             ring_rows=200, wb_bf16=True, ring_pos=4), 512)
+    _assert_aux_bits(*_restores_both(case, True, True))
+    alone = aux_case("adam", 512, 16, 0, 0, 0, 0, False, cuda, seed=4, n_restore=60, ring_rows=200,
+                     wb_bf16=False, ring_pos=0)
+    got, want = _restores_both(alone, False, False)
+    assert got[0].shape == (0, 48)
+    _assert_aux_bits(got, want)
+    none = aux_case("adagrad", 512, 16, 40, 10, 10, 0.5, True, cuda, seed=5, ring_rows=200, wb_bf16=True)
+    assert none["restores"][0].shape == (0,)
+    _assert_aux_bits(*_restores_both(none, True, True))
+
+
+def test_cache_aux_restores_from_an_earlier_calls_span(cuda):
+    """Two K12 calls on one stream: the first stores its payload into the
+    ring's span from 100; the second restores from that span onto rows the
+    first wrote and onto rows it evicts itself (its own span elsewhere):
+    bit for bit the plain versions in that order."""
+    from persia_tpu_torch.ops.cache_aux import cache_aux, cache_aux_ring_reference
+    from persia_tpu_torch.testing.cache_cases import aux_case
+
+    first = aux_case("adam", 4096, 16, 1500, 700, 600, 0.5, True, cuda, seed=9)
     cpu = {k: (v.cpu().clone() if torch.is_tensor(v) else
-               {kk: vv.cpu().clone() for kk, vv in v.items()} if isinstance(v, dict) else v) for k, v in case.items()}
+               {kk: vv.cpu().clone() for kk, vv in v.items()} if isinstance(v, dict) else v) for k, v in first.items()}
     ring = torch.zeros((4096, 48), dtype=torch.bfloat16, device=cuda)
     rring = ring.cpu().clone()
-    cache_aux(**case, wb_bf16=True, ring=ring, ring_pos=100)
+    cache_aux(**first, wb_bf16=True, ring=ring, ring_pos=100)
     cache_aux_ring_reference(ring=rring, ring_pos=100, **cpu, wb_bf16=True)
+    second = aux_case("adam", 4096, 16, 400, 0, 0, 0.5, True, cuda, seed=10, n_restore=300, ring_rows=4096,
+                      wb_bf16=True, ring_pos=2500)
     src = torch.zeros(512, dtype=torch.int32)
-    dst = torch.full((512,), 4097, dtype=torch.int32)
-    src[:400] = 100 + torch.randperm(1500, generator=torch.Generator().manual_seed(1))[:400].int()
-    dst[:400] = cpu["m_rows"][:400]
-    restore_rows(case["table"], case["state"], ring, src.to(cuda), dst.to(cuda))
-    restore_rows_reference(cpu["table"], cpu["state"], rring, src, dst)
-    assert torch.equal(case["table"].cpu(), cpu["table"])
+    src[:300] = 100 + torch.randperm(1500, generator=torch.Generator().manual_seed(1))[:300].int()
+    dst, slot = second["restores"][1].cpu().clone(), second["restores"][2].cpu().clone()
+    assert int((slot >= 0).sum()) == 150  # half the restores land on rows this call evicts
+    # restores onto rows the first call wrote (none this call evicts or restores otherwise)
+    taken = set(second["ev_rows"].cpu().tolist()) | set(dst.tolist())
+    written = [r for r in cpu["m_rows"][:700].tolist() if r not in taken][:100]
+    on_written = (slot[:300] < 0).nonzero().flatten()[:len(written)]
+    dst[on_written] = torch.tensor(written, dtype=torch.int32)
+    kw = dict(ev_rows=second["ev_rows"], m_rows=second["m_rows"], m_entries=second["m_entries"],
+              c_rows=second["c_rows"], c_emb=second["c_emb"], state_consts=second["state_consts"],
+              m_slot=second["m_slot"], c_slot=second["c_slot"], ev_free=second["ev_free"])
+    cache_aux(first["table"], first["state"], **kw, wb_bf16=True, ring=ring, ring_pos=2500,
+              restores=(src.to(cuda), dst.to(cuda), slot.to(cuda)))
+    cache_aux_ring_reference(cpu["table"], cpu["state"], rring, 2500, **{k: (v.cpu() if torch.is_tensor(v) else v)
+                                                                         for k, v in kw.items()},
+                             wb_bf16=True, restores=(src, dst, slot))
+    assert torch.equal(first["table"].cpu(), cpu["table"])
     for k in cpu["state"]:
-        assert torch.equal(case["state"][k].cpu(), cpu["state"][k]), k
+        assert torch.equal(first["state"][k].cpu(), cpu["state"][k]), k
+    assert torch.equal(_bits(ring), _bits(rring))
 
 
 def test_cached_stream_on_card_matches_cpu(cuda):
@@ -1792,7 +1842,7 @@ def test_cached_stream_on_card_matches_cpu(cuda):
     steps, bf16 wires, the bench's knobs) against the same stream on the
     CPU: the directories' decisions bit for bit (the same host code), the
     last loss within 1e-4, the servers' entries after flush within 1e-3;
-    K12, K13 and K14 launched on the card."""
+    K12 (with the restores) and K13 launched on the card."""
     from persia_tpu_torch.config import EmbeddingConfig, SlotConfig
     from persia_tpu_torch.data import IDTypeFeatureWithSingleID, Label, NonIDTypeFeature, PersiaBatch
     from persia_tpu_torch.embedding.hbm_cache import CachedTrainCtx
@@ -1800,7 +1850,7 @@ def test_cached_stream_on_card_matches_cpu(cuda):
     from persia_tpu_torch.embedding.store import EmbeddingStore
     from persia_tpu_torch.embedding.worker import EmbeddingWorker
     from persia_tpu_torch.models import DLRM
-    from persia_tpu_torch.ops import cache_aux, cached_gather, restore_rows
+    from persia_tpu_torch.ops import cache_aux, cached_gather
     from persia_tpu_torch.testing.watchdog import run_with_watchdog
 
     cfg = EmbeddingConfig(slots_config={f"c{i}": SlotConfig(dim=16) for i in range(4)}, feature_index_prefix_bit=8)
@@ -1836,14 +1886,13 @@ def test_cached_stream_on_card_matches_cpu(cuda):
                                    labels=[Label(rng.integers(0, 2, (256, 1)).astype(np.float32))],
                                    requires_grad=True))
     (card, cstore, csteps), (cpu, pstore, psteps) = make(cuda), make("cpu")
-    k12, k13, k14 = cache_aux.launches, cached_gather.launches, restore_rows.launches
+    k12, k13 = cache_aux.launches, cached_gather.launches
     knobs = dict(dispatch_k=8, pipeline_depth=1, fetch_final=False, prefetch=3, wb_flush_steps=8)
     run_with_watchdog(lambda: card.train_stream(batches, **knobs), timeout=60.0)
     run_with_watchdog(lambda: cpu.train_stream(batches, **knobs), timeout=60.0)
     assert abs(card.last_metrics()["loss"] - cpu.last_metrics()["loss"]) <= 1e-4
     assert card.stream_stats()["restore_steps"] > 0, card.stream_stats()
     assert cache_aux.launches > k12 and cached_gather.launches == k13 + 12
-    assert restore_rows.launches == k14 + card.stream_stats()["restore_steps"]
     for (a_rows, a_back, a_meta), (b_rows, b_back, b_meta) in zip(csteps, psteps):
         assert np.array_equal(a_rows, b_rows) and np.array_equal(a_back, b_back)
         assert a_meta.keys() == b_meta.keys()
@@ -1855,3 +1904,63 @@ def test_cached_stream_on_card_matches_cpu(cuda):
     for shard in pstore._shards:
         for sign, (_, vec) in shard.entries.items():
             np.testing.assert_allclose(cstore.get_embedding_entry(sign), vec, rtol=0, atol=1e-3)
+
+
+def test_pipelined_stream_on_card_matches_in_order(cuda):
+    """The stage-pipelined stream on the card (depth 4, packs of 4, bf16
+    wires, a cache small enough to evict and restore) against the in-order
+    stream on the card over the same batches: the directories' decisions
+    and the servers' entries after flush bit for bit, the last loss
+    equal; feeds hoisted (K12 enqueued by the stager on the dispatch's
+    stream) and restoring steps in order."""
+    from persia_tpu_torch.config import EmbeddingConfig, SlotConfig
+    from persia_tpu_torch.data import IDTypeFeatureWithSingleID, Label, NonIDTypeFeature, PersiaBatch
+    from persia_tpu_torch.embedding.hbm_cache import CachedTrainCtx
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.embedding.store import EmbeddingStore
+    from persia_tpu_torch.embedding.worker import EmbeddingWorker
+    from persia_tpu_torch.models import DLRM
+    from persia_tpu_torch.testing.watchdog import run_with_watchdog
+
+    cfg = EmbeddingConfig(slots_config={f"c{i}": SlotConfig(dim=16) for i in range(4)}, feature_index_prefix_bit=8)
+    rng = np.random.default_rng(1)
+    batches = []
+    for _ in range(24):
+        feats = [IDTypeFeatureWithSingleID(f"c{i}", (rng.zipf(1.2, 256) % 3000).astype(np.uint64)) for i in range(4)]
+        batches.append(PersiaBatch(feats, non_id_type_features=[NonIDTypeFeature(rng.normal(size=(256, 13))
+                                                                                 .astype(np.float32))],
+                                   labels=[Label(rng.integers(0, 2, (256, 1)).astype(np.float32))],
+                                   requires_grad=True))
+
+    def run(depth):
+        store = EmbeddingStore(capacity=1 << 16, num_internal_shards=4, optimizer=Adagrad(lr=0.05).config, seed=1)
+        torch.manual_seed(0)
+        model = DLRM(13, 4, 16, (32, 16), (64,), compute_dtype=torch.float32, device="cpu")
+        ctx = CachedTrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3), Adagrad(lr=0.05),
+                             EmbeddingWorker(cfg, [store]), cfg, cache_rows=640, device=cuda,
+                             wb_wire_dtype="bfloat16", aux_wire_dtype="bfloat16").__enter__()
+        rows = []
+        inner = ctx.tier.prepare_batch
+
+        def wrapped(batch, **kw):
+            out = inner(batch, **kw)
+            rows.append(out[0]["stacked_rows"]["cache_d16"].copy())
+            return out
+
+        ctx.tier.prepare_batch = wrapped
+        run_with_watchdog(lambda: ctx.train_stream(batches, dispatch_k=4, pipeline_depth=depth, fetch_final=False),
+                          timeout=60.0)
+        loss = ctx.last_metrics()["loss"]
+        st = ctx.stream_stats()
+        ctx.flush()
+        return loss, rows, store, st
+
+    l1, r1, s1, st1 = run(1)
+    l4, r4, s4, st4 = run(4)
+    assert st4["pipelined_feeds"] > 0 and st4["pipeline_depth"] == 4 and st1["pipelined_feeds"] == 0, st4
+    assert l1 == l4
+    assert all(np.array_equal(a, b) for a, b in zip(r1, r4)) and len(r1) == len(r4) == 24
+    assert s1.size() == s4.size()
+    for shard in s1._shards:
+        for sign, (_, vec) in shard.entries.items():
+            np.testing.assert_array_equal(s4.get_embedding_entry(sign), vec, err_msg=str(sign))
