@@ -3367,8 +3367,18 @@ CACHE_KERNELS = ("cache_aux", "gather_entry_rows", "cached_gather")
 # (bench.py:525-574: depth 4 from BENCH_PIPE_AB_DEPTH, dispatch_k 8)
 STREAM_KNOBS = dict(dispatch_k=8, pipeline_depth=1, fetch_final=False, prefetch=3, wb_flush_steps=8)
 PIPELINED_KNOBS = dict(STREAM_KNOBS, pipeline_depth=4)
+# the fenced legs (saturated regime, over the same timed batches): the
+# in-order stream and the pipelined one at STREAM_KNOBS / PIPELINED_KNOBS
+# with a fence every FENCE_EVERY steps committing a manifest; a run dropped
+# one step past its second fence and a ctx resumed from it. DNN on the cache
+# tier (phase 4j's width): DNN_CACHE_STEPS steps through the stream, one
+# fence (at DNN_CACHE_EVERY), DNN_CACHE_ROWS rows
+FENCE_EVERY = 16
+DNN_CACHE_STEPS, DNN_CACHE_EVERY, DNN_CACHE_ROWS = 8, 4, 1 << 16
 CACHE_PATHS = ("cache_fill", "cache_saturated", "cache_stream_fill", "cache_stream_saturated",
-               "cache_pipelined_fill", "cache_pipelined_saturated")
+               "cache_pipelined_fill", "cache_pipelined_saturated", "cache_fenced_saturated",
+               "cache_killed_saturated", "cache_resumed_saturated", "cache_fenced_pipelined_saturated",
+               "dnn_cache")
 
 
 def to_cpu(case):
@@ -4003,6 +4013,268 @@ def run_cache_stream(dev, regime, rows, sd, sync, knobs=STREAM_KNOBS, inorder=No
     return launches, record, inputs, (warm, vals)
 
 
+def state_digest(ctx) -> str:
+    """sha256 of the state's flax bytes (after a flush: the cold pools)."""
+    import hashlib
+
+    from persia_tpu_torch.weights import cached_state_to_flax_bytes
+
+    return hashlib.sha256(cached_state_to_flax_bytes(ctx.state)).hexdigest()
+
+
+def fenced_leg(dev, name, rows, sd, batches, knobs, root, start_step=0, store=None, resume=False):
+    """One fenced stream leg on the card, counted from a fresh ctx (over
+    ``store``, else a fresh one; ``resume``: resumed from ``root`` first):
+    every fence's manifest read back by the fence callback (its cache.json
+    and bytes). Returns (ctx, store, launches, record, the recorder)."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.jobstate import JobStateManager
+
+    store = store or cache_store()
+    ctx = cache_ctx(dev, rows, store, sd)
+    rec = cache_recorder(ctx)
+    mgr = JobStateManager(str(root))
+    record = {"leg": name, "knobs": dict(knobs), "steps": len(batches)}
+    if resume:
+        t0 = time.perf_counter()
+        m = ctx.resume(mgr)
+        torch.cuda.synchronize()
+        record.update(resume_wall_s=time.perf_counter() - t0, resumed_at=m.step,
+                      time_to_resume_s=ctx.last_resume_info["time_to_resume_s"],
+                      ps_entries_restored=ctx.last_resume_info["ps_entries_restored"])
+        start_step = m.step
+        batches = batches[m.step:]
+        record["steps"] = len(batches)
+    manifests = []
+
+    def read_manifest(step):
+        m = mgr.latest()
+        manifests.append({"step": step, "epoch": m.job_epoch, "cache": m.read_json("cache.json"),
+                          "bytes": sum(int(c["bytes"]) for c in m.components.values()),
+                          "ps_bytes": int(m.meta.get("ps_bytes", 0)),
+                          "dense_bytes": int(m.components["dense.state"]["bytes"])})
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    if ctx.train_stream(batches, start_step=start_step, job_state=mgr, fence_callback=read_manifest, **knobs):
+        raise SystemExit(f"cache fenced ({name}): fetch_final=False returned metrics")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+    st = ctx.stream_stats()
+    steps = len(batches)
+    expected = {fn.__name__: 0 for fn in ops.KERNEL_WRAPPERS}
+    expected.update(cached_gather=steps, cache_aux=sum(r["touched"] for r in rec), sparse_update=steps,
+                    dot_interaction=steps, dot_interaction_bwd=steps, gather_entry_rows=st["fences"])
+    if launches != expected:
+        raise SystemExit(f"cache fenced ({name}): launches {launches}, expected {expected}")
+    bad = [m for m in manifests if m["cache"]["pending_ledger_entries"] != 0
+           or any(r["head"] != r["tail"] for r in m["cache"]["ring"].values())]
+    if len(manifests) != st["fences"] or bad:
+        raise SystemExit(f"cache fenced ({name}): {st['fences']} fences, manifests {manifests}")
+    record.update(wall_s=wall, samples_per_s=steps * BATCH / wall, fences=st["fences"], fence_ms=st["fence_ms"],
+                  manifests=manifests, global_step=ctx._global_step, launches=launches,
+                  restore_steps=st["restore_steps"], pipelined_feeds=st["pipelined_feeds"],
+                  pipeline_drains=st["pipeline_drains"], lane_s=st["lane_s"])
+    parts = ("drain", "wb_drain", "flush", "ps_capture", "dense_bytes", "commit")
+    print(f"  {name}: {steps} steps from global step {start_step}, {st['fences']} fences, samples/s "
+          f"{record['samples_per_s']:.0f}, launches {launches}", flush=True)
+    for f, m in zip(st["fence_ms"], manifests):
+        print(f"    fence at step {m['step']} (epoch {m['epoch']}): stall {f['total']:.1f} ms = "
+              + ", ".join(f"{k} {f[k]:.1f}" for k in parts)
+              + f"; manifest {m['bytes']} bytes (PS {m['ps_bytes']}, dense {m['dense_bytes']}), resident rows "
+              f"{m['cache']['resident_rows']}, pending ledger {m['cache']['pending_ledger_entries']}", flush=True)
+    return ctx, store, launches, record, rec
+
+
+def run_cache_fenced(dev, rows, sd, sync, inorder_record):
+    """Phase 4k's fenced legs in the saturated regime over the synchronous
+    run's timed batches: the in-order stream fenced every FENCE_EVERY steps
+    (beside the unfenced in-order leg's samples/s), the same batches on the
+    card's CPU as synchronous steps with a flush at each fence (the
+    decisions), a run dropped one step past its second fence and a ctx
+    resumed from its manifest (bit for bit the uninterrupted fenced run),
+    and the pipelined stream with the same fences (bit for bit too).
+    Returns ({path: launches}, record)."""
+    import gc
+
+    import torch
+
+    batches = sync["batches"][:sync["timed_steps"]]
+    n = len(batches)
+    kill = 2 * FENCE_EVERY + 1
+    if n <= kill:
+        raise SystemExit(f"cache fenced: {n} batches leave no room for a second fence and a step past it")
+    knobs = dict(STREAM_KNOBS, snapshot_every=FENCE_EVERY)
+    pipe_knobs = dict(PIPELINED_KNOBS, snapshot_every=FENCE_EVERY)
+    print(f"== phase 4k (saturated, fenced): train_stream({knobs}) into a job directory, over the synchronous run's "
+          f"{n} timed batches, fresh ctxs; a run dropped after step {kill}, resumed; the pipelined stream fenced",
+          flush=True)
+    shutil.rmtree(STATE_DIR, ignore_errors=True)
+    launches, out = {}, {}
+    try:
+        ctx, store, launches["cache_fenced_saturated"], out["fenced"], rec = fenced_leg(
+            dev, "in order, fenced", rows, sd, batches, knobs, STATE_DIR / "fenced")
+        ctx.flush()
+        want = state_digest(ctx)
+        warm, vals = store.probe_entries(sync["signs"], EMB_DIM)
+        decisions = [r["decisions"] for r in rec]
+        del ctx, store
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["fenced"]["unfenced_samples_per_s"] = inorder_record["samples_per_s"]
+        out["fenced"]["vs_unfenced"] = out["fenced"]["samples_per_s"] / inorder_record["samples_per_s"]
+
+        # the decisions: the same batches on the CPU port, synchronous steps
+        # with a flush at every fence (what a fence does to the directory)
+        t0 = time.perf_counter()
+        cpu = cache_ctx("cpu", rows, cache_store(), sd)
+        crec = cache_recorder(cpu)
+        for i, b in enumerate(batches):
+            if i and i % FENCE_EVERY == 0:
+                cpu.flush()
+            cpu.train_step(b, fetch_metrics=False)
+        cpu.drain()
+        cpu_decisions = [r["decisions"] for r in crec]
+        del cpu
+        same = [a == b for a, b in zip(decisions, cpu_decisions)]
+        if len(decisions) != len(cpu_decisions) or not all(same):
+            raise SystemExit(f"cache fenced: the directory's decisions differ from the CPU port's at steps "
+                             f"{[i for i, ok in enumerate(same) if not ok]}")
+        print(f"  directory decisions = the CPU port's (synchronous steps, a flush at each fence) at every one of "
+              f"{n} steps (CPU run {time.perf_counter() - t0:.1f} s)", flush=True)
+
+        _ctx1, killed_store, launches["cache_killed_saturated"], out["killed"], _ = fenced_leg(
+            dev, f"dropped after step {kill}", rows, sd, batches[:kill], knobs, STATE_DIR / "killed")
+        del _ctx1  # the trainer dies; its servers survive
+        gc.collect()
+        ctx, _, launches["cache_resumed_saturated"], out["resumed"], rrec = fenced_leg(
+            dev, "resumed", rows, sd, batches, knobs, STATE_DIR / "killed", store=killed_store, resume=True)
+        out["resumed"]["steps_replayed"] = kill - out["resumed"]["resumed_at"]
+        ctx.flush()
+        got = state_digest(ctx)
+        rwarm, rvals = killed_store.probe_entries(sync["signs"], EMB_DIM)
+        rdec = [r["decisions"] for r in rrec]
+        # the probe leaves a sign the servers lack unwritten: compare the held ones
+        resumed_ok = (got == want and np.array_equal(rwarm, warm)
+                      and np.array_equal(rvals[warm].view(np.uint32), vals[warm].view(np.uint32))
+                      and rdec == decisions[out["resumed"]["resumed_at"]:])
+        print(f"  resumed from step {out['resumed']['resumed_at']} (time_to_resume_s "
+              f"{out['resumed']['time_to_resume_s']}, resume() {out['resumed']['resume_wall_s']:.3f} s, "
+              f"{out['resumed']['ps_entries_restored']} entries restored, {out['resumed']['steps_replayed']} steps "
+              f"replayed): state bytes sha256 {got[:16]} vs uninterrupted {want[:16]}, servers' entries of "
+              f"{int(warm.sum())} signs {'bit for bit' if resumed_ok else 'DIFFER'}", flush=True)
+        if not resumed_ok:
+            raise SystemExit("cache fenced: the resumed run is not bit for bit the uninterrupted fenced run")
+        del ctx, killed_store
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        ctx, store, launches["cache_fenced_pipelined_saturated"], out["pipelined"], prec = fenced_leg(
+            dev, "pipelined, fenced", rows, sd, batches, pipe_knobs, STATE_DIR / "pipelined")
+        ctx.flush()
+        pwarm, pvals = store.probe_entries(sync["signs"], EMB_DIM)
+        pipe_ok = (state_digest(ctx) == want and np.array_equal(pwarm, warm)
+                   and np.array_equal(pvals[warm].view(np.uint32), vals[warm].view(np.uint32))
+                   and [r["decisions"] for r in prec] == decisions)
+        out["pipelined"]["vs_fenced_inorder"] = out["pipelined"]["samples_per_s"] / out["fenced"]["samples_per_s"]
+        print(f"  pipelined fenced leg vs the in-order fenced leg: state bytes, servers' entries and decisions "
+              f"{'bit for bit' if pipe_ok else 'DIFFER'}; {out['pipelined']['pipelined_feeds']} feeds hoisted, "
+              f"{out['pipelined']['pipeline_drains']} drains", flush=True)
+        if not pipe_ok:
+            raise SystemExit("cache fenced: the pipelined fenced leg is not bit for bit the in-order fenced leg")
+        del ctx, store
+        f = out["fenced"]
+        print(f"  fenced in-order samples/s {f['samples_per_s']:.0f} vs unfenced {f['unfenced_samples_per_s']:.0f} "
+              f"({f['vs_unfenced']:.3f}x); resumed leg {out['resumed']['samples_per_s']:.0f}; pipelined fenced "
+              f"{out['pipelined']['samples_per_s']:.0f}", flush=True)
+    finally:
+        shutil.rmtree(STATE_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def cache_dnn(dev):
+    """DNN on the cache tier at phase 4j's width (the serving bench's DNN
+    and its 8 zipf slots over 100,000 ids, B=4096, bf16 compute, Adam(3e-3),
+    Adagrad(0.1)) with the cache tier's bench knobs (bf16 wires, the touch
+    gate): DNN_CACHE_STEPS steps through the stream, a fence at
+    DNN_CACHE_EVERY into a job directory; every step's loss on the card and
+    on the CPU port within 2e-2; K10/K11 counted."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.embedding.hbm_cache import CachedTrainCtx
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.embedding.worker import EmbeddingWorker
+    from persia_tpu_torch.models import DNN
+    from persia_tpu_torch.weights import seeded_flax_params_like, state_dict_from_flax
+
+    model0 = DNN(DNN_DENSE, [DNN_DIM] * DNN_SLOTS, *DNN_MLP, device="cpu")
+    sd = state_dict_from_flax(model0, seeded_flax_params_like(model0, SEED))
+    make = dnn_batch_maker(SEED + 70, BATCH)
+    batches = [make() for _ in range(DNN_CACHE_STEPS)]
+    print(f"== phase 4k (DNN): DNN{DNN_MLP} on the cache tier ({DNN_CACHE_ROWS} rows, B={BATCH}, {DNN_SLOTS} slots "
+          f"of dim {DNN_DIM}), train_stream over {DNN_CACHE_STEPS} steps with a fence at {DNN_CACHE_EVERY}, "
+          f"card and CPU", flush=True)
+
+    def run(device):
+        cfg = dnn_cfg()
+        store = make_store("native", capacity=1 << 22, num_internal_shards=4, optimizer=Adagrad(lr=0.1).config,
+                           seed=7)
+        model = DNN(DNN_DENSE, [DNN_DIM] * DNN_SLOTS, *DNN_MLP, device="cpu")
+        model.load_state_dict(sd)
+        ctx = CachedTrainCtx(model, torch.optim.Adam(model.parameters(), lr=3e-3), Adagrad(lr=0.1),
+                             EmbeddingWorker(cfg, [store]), cfg, cache_rows=DNN_CACHE_ROWS, device=device,
+                             wb_wire_dtype="bfloat16", aux_wire_dtype="bfloat16", admit_touches=2).__enter__()
+        rec = cache_recorder(ctx)
+        losses = []
+        if device != "cpu":
+            torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        ctx.train_stream(batches, snapshot_every=DNN_CACHE_EVERY, job_state=str(STATE_DIR / f"dnn_{device}"),
+                         on_metrics=lambda m: losses.append(float(m["loss"])))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+        st = ctx.stream_stats()
+        return ctx, launches, losses, rec, st, wall
+
+    shutil.rmtree(STATE_DIR, ignore_errors=True)
+    try:
+        card, launches, losses, rec, st, wall = run(dev)
+        steps, touched = DNN_CACHE_STEPS, sum(r["touched"] for r in rec)
+        expected = bn_launches_expected(ops, batch_norm_fwd=2 * steps, batch_norm_bwd=2 * steps,
+                                        cached_gather=steps, cache_aux=touched, sparse_update=steps,
+                                        gather_entry_rows=st["fences"])
+        check_launches("DNN cache path", launches, expected)
+        stats_moved = float(card.model.norms[0].mean.abs().max())
+        del card
+        _cpu, _, cpu_losses, cpu_rec, _, cpu_wall = run("cpu")
+        del _cpu
+    finally:
+        shutil.rmtree(STATE_DIR, ignore_errors=True)
+    err = max(abs(a - b) for a, b in zip(losses, cpu_losses))
+    ok = (len(losses) == len(cpu_losses) == DNN_CACHE_STEPS and np.isfinite(losses).all() and err <= 2e-2
+          and st["fences"] == 1 and [r["decisions"] for r in rec] == [r["decisions"] for r in cpu_rec]
+          and stats_moved > 0)
+    print(f"  launches={launches}; {st['fences']} fence ({st['fence_ms'][0]['total']:.1f} ms); losses "
+          f"{[round(x, 4) for x in losses]}: max_abs_err vs the CPU port {err:.3e} tolerance=2e-2; decisions = the "
+          f"CPU's; running mean moved (max |mean| {stats_moved:.3e}); {DNN_CACHE_STEPS * BATCH / wall:.0f} samples/s "
+          f"with every header read (CPU {cpu_wall:.1f} s) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit("DNN on the cache tier: card and CPU disagree")
+    return launches, {"steps": DNN_CACHE_STEPS, "losses": losses, "loss_max_abs_err_vs_cpu": err,
+                      "fence_ms": st["fence_ms"], "samples_per_s_per_step_reads": DNN_CACHE_STEPS * BATCH / wall,
+                      "launches": launches}
+
+
 def cache_vs_hybrid(dev, sd):
     """SGD, no eviction, the touch gate off and f32 wires: the cache tier's
     rows after flush against the hybrid ``TrainCtx``'s on the same stream,
@@ -4043,8 +4315,9 @@ def cache_vs_hybrid(dev, sd):
 
 def path_cache(dev):
     """Phase 4k: both regimes, each synchronous, then as the in-order
-    stream, then as the stage-pipelined stream; then the SGD twin of the
-    hybrid tier."""
+    stream, then as the stage-pipelined stream, and in the saturated regime
+    the fenced legs; then the SGD twin of the hybrid tier and DNN on the
+    cache tier."""
     import gc
 
     import torch
@@ -4068,10 +4341,15 @@ def path_cache(dev):
                                                                    "entries": entries})
         if regime == "saturated":
             inputs = dict(inp, stream_step=restore)
+            fenced_launches, records["fenced"] = run_cache_fenced(dev, rows, sd, sync, records["stream_saturated"])
+            launches.update(fenced_launches)
         del inp, sync, restore, entries
         gc.collect()
         torch.cuda.empty_cache()
     records["vs_hybrid"] = cache_vs_hybrid(dev, sd)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["dnn_cache"], records["dnn"] = cache_dnn(dev)
     gc.collect()
     torch.cuda.empty_cache()
     return launches, records, inputs
@@ -4880,7 +5158,7 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused, din
     # is the unbiased one: a time comparison only)
     from persia_tpu_torch.ops.batch_norm import batch_norm_bwd_reference, batch_norm_fwd_reference
 
-    bn_paths = ("dnn_adult", "dnn_training", "dnn_serving", "dnn_resume")
+    bn_paths = ("dnn_adult", "dnn_training", "dnn_serving", "dnn_resume", "dnn_cache")
     bn_launches = {p: {k: launches[p][k] for k in BN_KERNELS} for p in bn_paths}
     bx, bdy, bscale, bbias, bmean, bvar = bn_inputs(dev, BATCH, 128, torch.bfloat16, SEED + 11)
     brm, brv, lrm, lrv = bmean.clone(), bvar.clone(), bmean.clone(), bvar.clone()

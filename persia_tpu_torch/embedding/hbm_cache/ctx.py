@@ -23,20 +23,38 @@ step's restores). At ``pipeline_depth > 1`` a step's feed stage
 of its dense stage (``_dispatch_dense``, ``_dispatch_packed_dense``); every
 feed and dense dispatch then holds ``_state_lock``.
 
+**Durable state** (``persia_tpu_torch.jobstate``). ``_global_step`` counts
+the steps trained (a stream sets it after each step). ``snapshot_job``
+(the synchronous path) and the stream's fences (``train_stream(
+snapshot_every=, job_state=)``) go through ``_fence_capture``: every
+resident row is flushed to the servers and the pools restart cold, then
+one manifest epoch holds the servers' shards, the ``CachedTrainState`` as
+flax's bytes (``weights.cached_state_to_flax_bytes``: the reference's
+bytes for the same arrays), the occupancy (``cache.json``), the loader's
+cursor, the RNG streams and, where the touch gate is on, each directory's
+touch counters (``cache/<group>.touch``, which the reference's manifest
+lacks: a flush keeps them, so a resumed directory admits as the
+uninterrupted one). ``resume`` rewinds the servers (or, with
+``restore_ps=False``, keeps them: no gradient of the pure cache tier is
+journaled), overlays the bytes now or, before ``init_state``, when it runs,
+and brings back the Adam batch advances, the epoch and the step count.
+
 Not in this slice (their arguments raise): a device mesh, a
 parameter-server tier for some slots, a dynamic loss scale, the health
-probe and the sharded feeder.
+probe and its scrub at a fence, tiering and the sharded feeder.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from types import SimpleNamespace
 from typing import Dict, Optional, Set
 
 import numpy as np
 import torch
 
+from persia_tpu_torch import jobstate
 from persia_tpu_torch.config import EmbeddingConfig
 from persia_tpu_torch.ctx import _to_device
 from persia_tpu_torch.data import PersiaBatch
@@ -52,6 +70,7 @@ from persia_tpu_torch.embedding.hbm_cache.tier import CachedEmbeddingTier
 from persia_tpu_torch.embedding.optim import OPTIMIZER_ADAM
 from persia_tpu_torch.parallel.fused_step import prepare_dense_optimizer
 from persia_tpu_torch.parallel.train_step import default_loss_fn, unpack_step_header
+from persia_tpu_torch.weights import cached_state_from_flax_bytes, cached_state_to_flax_bytes
 
 WB_WIRE_DTYPES = ("float32", "bfloat16")
 
@@ -162,6 +181,14 @@ class CachedTrainCtx:
         # pipelined stream feeds from its stager thread): the state, the
         # rings and the empties are filled and updated under it
         self._state_lock = threading.Lock()
+        # job state: the epoch of the last manifest, the steps trained, the
+        # dense bytes a resume left for ``init_state`` to overlay, and the
+        # last capture's ms by part
+        self._job_epoch: Optional[int] = None
+        self._global_step = 0
+        self._resume_state_bytes: Optional[bytes] = None
+        self.last_resume_info: Optional[Dict] = None
+        self.last_capture_ms: Optional[Dict[str, float]] = None
 
     def __enter__(self):
         self.worker.register_optimizer(self.sparse_cfg)
@@ -172,13 +199,17 @@ class CachedTrainCtx:
         return False
 
     def init_state(self) -> CachedTrainState:
-        """Zeroed pools on the card and the model as it is."""
+        """Zeroed pools on the card and the model as it is; a deferred
+        resume's bytes (the state at a fence: cold pools) overlaid."""
         tables, emb_state = init_cached_tables(self.tier.groups, self.sparse_cfg, device=self.device)
         self.state = CachedTrainState(
             model=self.model, optimizer=self.dense_optimizer, tables=tables, emb_state=emb_state,
             emb_batch_state=torch.ones(2, dtype=torch.float32, device=self.device),
             step=torch.zeros((), dtype=torch.int32, device=self.device),
         )
+        if self._resume_state_bytes is not None:
+            cached_state_from_flax_bytes(self.state, self._resume_state_bytes)
+            self._resume_state_bytes = None
         return self.state
 
     # -------------------------------------------------------------- steps
@@ -321,6 +352,7 @@ class CachedTrainCtx:
         if self.sparse_cfg.kind == OPTIMIZER_ADAM:
             for grp in self._cached_groups:
                 self.tier.router.advance_batch_state(grp)
+        self._global_step += 1
         return self._fetch_metrics() if fetch_metrics else None
 
     def train_stream(self, batches, **kwargs) -> Optional[Dict]:
@@ -334,8 +366,9 @@ class CachedTrainCtx:
 
     def stream_stats(self) -> Optional[Dict]:
         """The last ``train_stream``'s accounting: ``dispatch_k``, packs,
-        packed and single steps, restores, each lane's busy seconds and the
-        wall time."""
+        packed and single steps, restores, fences (``fence_ms``: each
+        fence's stall by part), each lane's busy seconds and the wall
+        time."""
         return self._stream_stats
 
     def _write_back_only(self, pending) -> None:
@@ -408,6 +441,9 @@ class CachedTrainCtx:
         """Write every cached row back to the server; the cache restarts
         cold (its pools reset in place)."""
         self._land_pending()
+        self._flush_tier()
+
+    def _flush_tier(self) -> None:
         if self.state is None:
             return
         self.tier.flush(self.state.tables, self.state.emb_state)
@@ -425,3 +461,89 @@ class CachedTrainCtx:
         """``flush``, then load a server checkpoint of either package."""
         self.flush()
         self.worker.load(src)
+
+    # ------------------------------------------------------------ job state
+
+    @staticmethod
+    def _touch_blob(gname: str) -> str:
+        return f"cache/{gname}.touch"
+
+    def _fence_capture(self, job_mgr, step: int, occupancy: Dict) -> jobstate.Manifest:
+        """Commit one job-state epoch at a drained fence (a stream's, or
+        ``snapshot_job``'s): every resident row flushed to the servers and
+        the pools reset in place, then the servers' shards, the state's
+        flax bytes (cold pools), ``cache.json`` (``occupancy``, taken before
+        the flush), ``loader.json``, the RNG streams and the touch gate's
+        counters, as one manifest. Its ms by part: ``last_capture_ms``."""
+        ms: Dict[str, float] = {}
+        t0 = time.perf_counter()
+        self._flush_tier()
+        t1 = time.perf_counter()
+        state_bytes = cached_state_to_flax_bytes(self.state) if self.state is not None else None
+        t2 = time.perf_counter()
+        router = self.tier.router
+        blobs = {self._touch_blob(g): d.touch_counts().tobytes() for g, d in self.tier.dirs.items()
+                 if d.admit_touches > 1}
+        manifest = jobstate.snapshot_job(
+            job_mgr, step, state_bytes=state_bytes, replicas=router.replicas,
+            batch_advances=dict(router.batch_advances), blobs=blobs,
+            components={"cache.json": occupancy, "loader.json": {"consumed_batches": step}},
+            meta={"kind": "cached_ctx"}, timings=ms)
+        self.last_capture_ms = {"flush": (t1 - t0) * 1e3, "ps_capture": ms["ps_capture"],
+                                "dense_bytes": (t2 - t1) * 1e3 + ms["dense_write"], "commit": ms["commit"]}
+        self._job_epoch = manifest.job_epoch
+        self._global_step = step
+        return manifest
+
+    def snapshot_job(self, job_state, extra_occupancy: Optional[Dict] = None) -> jobstate.Manifest:
+        """A step-fenced snapshot on the synchronous path: the deferred
+        write-back lands, then ``_fence_capture`` at ``_global_step``
+        (a stream fences itself: ``train_stream(snapshot_every=,
+        job_state=)``). ``job_state`` is a ``JobStateManager`` or its root
+        directory."""
+        self._land_pending()
+        occupancy = {"resident_rows": {g.name: len(self.tier.dirs[g.name]) for g in self.tier.groups},
+                     "pending_ledger_entries": 0}
+        occupancy.update(extra_occupancy or {})
+        return self._fence_capture(jobstate.coerce_manager(job_state), self._global_step, occupancy)
+
+    def resume(self, job_state, restore_ps: bool = True, generators=None) -> Optional[jobstate.Manifest]:
+        """Rebuild the fence state of the newest good manifest: the servers
+        rewound to it (``restore_ps``; with False they keep what the crashed
+        run wrote: nothing of the cache tier is journaled, so the replayed
+        steps train on those rows), the state's bytes overlaid now or, before
+        ``init_state``, when it runs, the touch counters, the Adam batch
+        advances, the epoch and the step count; ``generators`` as in
+        ``jobstate.resume_job``. A cache this ctx still holds is dropped
+        unwritten (the manifest's pools are cold). Returns the manifest
+        (continue with ``train_stream(batches[manifest.step:],
+        start_step=manifest.step, ...)``), or None on a cold start, which
+        arms epoch 0. ``last_resume_info`` holds the recovery numbers.
+        Tiering's placements and the health scrub are not part of the port's
+        cache tier."""
+        router = self.tier.router
+        manifest, info = jobstate.resume_job(jobstate.coerce_manager(job_state), replicas=router.replicas,
+                                             rewind_ps=restore_ps, optimizer=self.sparse_cfg, generators=generators)
+        self.last_resume_info = info
+        if manifest is None:
+            self._job_epoch = 0
+            self._global_step = 0
+            return None
+        self._pending, self._pending_signs = None, set()
+        for gname, d in self.tier.dirs.items():
+            d.drain()
+            name = self._touch_blob(gname)
+            if manifest.has(name):
+                d.set_touch_counts(np.frombuffer(manifest.read_blob(name), dtype=np.uint8))
+            elif d.admit_touches > 1:
+                d.set_touch_counts(np.zeros_like(d.touch_counts()))
+        if manifest.has("dense.state"):
+            raw = manifest.read_blob("dense.state")
+            if self.state is not None:
+                cached_state_from_flax_bytes(self.state, raw)
+            else:
+                self._resume_state_bytes = raw
+        router.batch_advances = dict(info["batch_advances"])
+        self._job_epoch = manifest.job_epoch
+        self._global_step = manifest.step
+        return manifest

@@ -32,6 +32,7 @@ _i64p = ctypes.POINTER(ctypes.c_int64)
 _u64p = ctypes.POINTER(ctypes.c_uint64)
 _i32p = ctypes.POINTER(ctypes.c_int32)
 _f32p = ctypes.POINTER(ctypes.c_float)
+_u8p = ctypes.POINTER(ctypes.c_uint8)
 
 
 def build_native():
@@ -66,6 +67,10 @@ def _load_lib() -> ctypes.CDLL:
         lib.cache_snapshot.argtypes = [p, _u64p, _i64p]
         lib.cache_set_admit_touches.restype = None
         lib.cache_set_admit_touches.argtypes = [p, i64]
+        lib.cache_touch_counts.restype = i64
+        lib.cache_touch_counts.argtypes = [p, _u8p, i64]
+        lib.cache_set_touch_counts.restype = i64
+        lib.cache_set_touch_counts.argtypes = [p, _u8p, i64]
         lib.cache_set_probe_mode.restype = None
         lib.cache_set_probe_mode.argtypes = [p, i64]
         lib.cache_probe_mode.restype = i64
@@ -315,6 +320,23 @@ class CacheDirectory:
     def snapshot(self) -> Tuple[np.ndarray, np.ndarray]:
         """``drain``'s listing without emptying or touching anything."""
         return self._listing(self._lib.cache_snapshot)
+
+    def touch_counts(self) -> np.ndarray:
+        """The touch gate's counters (uint8; empty with ``admit_touches``
+        1), which ``drain`` keeps: a snapshot saves them with the flushed
+        cache."""
+        n = int(self._lib.cache_touch_counts(self._h, None, 0))
+        out = np.empty(n, dtype=np.uint8)
+        self._lib.cache_touch_counts(self._h, out.ctypes.data_as(_u8p), n)
+        return out
+
+    def set_touch_counts(self, counts: np.ndarray) -> None:
+        """Load counters ``touch_counts`` returned (of a directory of the
+        same capacity and ``admit_touches``)."""
+        counts = np.ascontiguousarray(counts, dtype=np.uint8)
+        if self._lib.cache_set_touch_counts(self._h, counts.ctypes.data_as(_u8p), len(counts)) != 0:
+            raise ValueError(f"{len(counts)} touch counters for a directory that keeps "
+                             f"{int(self._lib.cache_touch_counts(self._h, None, 0))}")
 
 
 def group_salt(name: str) -> int:

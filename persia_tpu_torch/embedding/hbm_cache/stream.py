@@ -57,14 +57,32 @@ raises the first one stored. After ``stop`` each lane is joined for at
 most ``JOIN_S`` altogether; one still alive raises a ``RuntimeError`` that
 names it (chained to the first stored exception).
 
-Fences (``snapshot_every``, ``job_state``, ``fence_callback``), the
-health sentinel, quarantined steps, a resumed step count and the
-parameter-server tier's gradient lane are not part of this slice: asking
-for one raises.
+**Fences** (``snapshot_every`` with ``job_state`` or ``fence_callback``).
+Before the step of every ``snapshot_every``-th global step (``start_step +
+seq``, seq > 0) the feeder parks and sends a fence marker down the admitted
+and the staged queues, behind every earlier step (the stager passes it on
+without a feed). At the marker the dispatch, every earlier step dispatched,
+flushes a partial pack, finds the stage graph's window empty
+(``drain_for_fence``), sends a drain marker to the write-back and waits
+until every earlier eviction has landed (the write-back answers it even
+when its flush fails), checks that every group's ring is free (``heads ==
+tails``) and the pending map empty, raising a ``RuntimeError`` that names
+the groups otherwise, captures under ``ctx._state_lock``
+(``ctx._fence_capture``: the cache flushed, one manifest committed), counts
+the fence, runs ``fence_callback(global step)`` and unparks the feeder. A
+callback's ``Exception`` is counted (``fence_callback_errors``) and logged,
+and the stream goes on; a ``BaseException`` ends it as a lane's failure
+does. The ring's positions carry on across a fence: its rows are stale but
+no span is live. ``start_step`` offsets the cadence and ``ctx._global_step``
+(``start_step + seq + 1`` after each step) for a resumed stream.
+
+The health sentinel, quarantined steps and the parameter-server tier's
+gradient lane are not part of this slice: asking for one raises.
 """
 
 from __future__ import annotations
 
+import logging
 import queue
 import threading
 import time
@@ -74,6 +92,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from persia_tpu_torch import jobstate
 from persia_tpu_torch.embedding.hbm_cache.directory import PendingSignMap
 from persia_tpu_torch.embedding.optim import OPTIMIZER_ADAM
 from persia_tpu_torch.parallel.stage_graph import StageGraph, feed_hazard_info
@@ -83,9 +102,19 @@ PACK_IDLE_S = 0.05  # a partial pack dispatches when no step arrives for this lo
 JOIN_S = 10.0  # the longest the lanes get to end after ``stop``
 _END = object()  # the end of the batches, passed down the lanes
 
+logger = logging.getLogger("persia_tpu_torch.hbm_cache.stream")
+
 
 class _Stopped(Exception):
     """A lane saw ``stop`` while it waited."""
+
+
+class _Fence:
+    """The marker of a fence at global step ``step``, down the admitted and
+    the staged queues."""
+
+    def __init__(self, step: int):
+        self.step = step
 
 
 @contextmanager
@@ -149,10 +178,13 @@ def run_train_stream(
     module's docstring); 1 dispatches every feed in order. ``psgrad_batch``
     only sizes the write-back queue as the reference's does: the
     parameter-server tier whose gradients it batches cannot be built
-    (``ps_slots`` raise). The rest raise unless left at their defaults."""
-    _unsupported(snapshot_every=snapshot_every is not None, job_state=job_state is not None,
-                 start_step=start_step != 0, sentinel=sentinel is not None, skip_steps=bool(skip_steps),
-                 fence_callback=fence_callback is not None)
+    (``ps_slots`` raise). ``snapshot_every``: the fences' cadence in global
+    steps, run where ``job_state`` (a ``JobStateManager`` or its root: a
+    manifest committed at each fence) or ``fence_callback`` is set (the
+    module's docstring). ``start_step``: the global step of the first
+    batch (a resumed stream's ``manifest.step``). ``sentinel`` and
+    ``skip_steps`` raise unless left at their defaults."""
+    _unsupported(sentinel=sentinel is not None, skip_steps=bool(skip_steps))
     if prefetch < 1:
         raise ValueError(f"prefetch must be >= 1, got {prefetch}")
     if pipeline_depth < 1:
@@ -160,6 +192,11 @@ def run_train_stream(
     ctx._land_pending()  # a deferred synchronous step lands first
     if ctx.state is None:
         ctx.init_state()
+    job_mgr = jobstate.coerce_manager(job_state) if job_state is not None else None
+    if job_mgr is not None and ctx._job_epoch is None:
+        ctx._job_epoch = 0
+    fencing = bool(snapshot_every) and (job_mgr is not None or fence_callback is not None)
+    fence_done = threading.Event()  # unparks the feeder after a fence
     tier, device = ctx.tier, ctx.device
     K = max(1, int(dispatch_k)) if on_metrics is None else 1
     pipelined = pipeline_depth > 1 and on_metrics is None  # on_metrics reads every header: in order
@@ -186,7 +223,7 @@ def run_train_stream(
     # stages were still to come (n > 0: the feed ran ahead of them)
     stats = {"dispatch_k": K, "packs": 0, "packed_steps": 0, "single_steps": 0, "pipelined_feeds": 0,
              "feed_leads": [0] * graph.depth, "restore_steps": 0, "restored_rows": 0, "ring_waits": 0, "flushes": 0,
-             "lane_s": lane_s}
+             "fences": 0, "fence_callback_errors": 0, "fence_ms": [], "lane_s": lane_s}
     dense_done = [0]  # steps whose dense stage is enqueued (under the state lock)
     t_start = time.perf_counter()
 
@@ -266,6 +303,14 @@ def run_train_stream(
             for batch in batches:
                 if stop.is_set():
                     return
+                if fencing and seq > 0 and (start_step + seq) % snapshot_every == 0:
+                    # park before this step's admit: the capture sees the
+                    # directory and the servers as step seq - 1 left them
+                    fence_done.clear()
+                    put(prep_q, _Fence(start_step + seq))
+                    while not fence_done.wait(timeout=WAIT_S):
+                        if stop.is_set():
+                            raise _Stopped
                 t0 = time.perf_counter()
                 item = tier.prepare_batch(batch, hazard_gate=gate, ring_alloc=ring_alloc, pending_map=sign_map)
                 # the evicted signs are in flight from here: a later admit
@@ -314,6 +359,9 @@ def run_train_stream(
                     if got is _END:
                         put(staged_q, _END)
                         return
+                    if isinstance(got, _Fence):  # in order, no feed
+                        put(staged_q, got)
+                        continue
                     seq, (inputs, layout, miss, cold, restore, ev_aux, ev_meta) = got
                     t0 = time.perf_counter()
                     pipelinable = pipelined and not restore
@@ -410,6 +458,12 @@ def run_train_stream(
                     if item is _END:
                         flush(acc, stream)
                         return
+                    if isinstance(item, threading.Event):  # a fence's drain marker
+                        try:
+                            flush(acc, stream)
+                        finally:  # answered even when the flush fails: the fence must not wait on it
+                            item.set()
+                        continue
                     acc.append(item)
                     if len(acc) >= flush_steps or flush_now.is_set():
                         flush_now.clear()
@@ -430,6 +484,7 @@ def run_train_stream(
     def post_step(seq, inputs, ev_meta, payloads) -> None:
         nonlocal label_shape
         label_shape = tuple(inputs["labels"][0].shape)
+        ctx._global_step = start_step + seq + 1
         if ev_meta:
             ev = None
             if main is not None:
@@ -488,6 +543,50 @@ def run_train_stream(
             post_step(it[0], it[1], it[7], p)
         pack.clear()
 
+    def run_fence(gstep: int) -> None:
+        """The fence at global step ``gstep``: every earlier step has
+        dispatched (the marker rode the queues behind it); the window, the
+        write-back, the ring and the pending map drained, the capture, the
+        callback; the feeder unparked. Its ms by part go to ``fence_ms``."""
+        t0 = time.perf_counter()
+        flush_pack_single()
+        graph.drain_for_fence(gstep)
+        t1 = time.perf_counter()
+        drained = threading.Event()  # set by the write-back once every earlier eviction has landed
+        put(wb_q, drained)
+        while not drained.wait(timeout=WAIT_S):
+            if stop.is_set():
+                raise _Stopped
+        t2 = time.perf_counter()
+        with cv:
+            rings = {g: {"head": heads.get(g, 0), "tail": tails.get(g, 0), "rows": ctx.ring_rows(g)}
+                     for g in sorted(set(heads) | set(tails))}
+            undrained = {g: (r["head"], r["tail"]) for g, r in rings.items() if r["head"] != r["tail"]}
+            pending = len(sign_map)
+            occupancy = {"resident_rows": {g.name: len(tier.dirs[g.name]) for g in tier.groups}, "ring": rings,
+                         "pending_ledger_entries": pending}
+        if stop.is_set():
+            raise _Stopped  # the write-back failed: its error ends the stream
+        if undrained or pending:
+            raise RuntimeError(f"fence at step {gstep}: after the write-back drain the eviction rings of groups "
+                               f"{sorted(undrained)} still hold spans (head, tail) {undrained} and the pending map "
+                               f"{pending} entries")
+        ms = {"drain": (t1 - t0) * 1e3, "wb_drain": (t2 - t1) * 1e3}
+        if job_mgr is not None:
+            with ctx._state_lock:
+                ctx._fence_capture(job_mgr, gstep, occupancy)
+            ms.update(ctx.last_capture_ms)
+        ms["total"] = (time.perf_counter() - t0) * 1e3
+        stats["fences"] += 1
+        stats["fence_ms"].append(ms)
+        if fence_callback is not None:
+            try:
+                fence_callback(gstep)
+            except Exception as e:  # noqa: BLE001 — the fence itself held: the stream goes on
+                stats["fence_callback_errors"] += 1
+                logger.warning("fence callback failed at step %d (the stream goes on): %r", gstep, e)
+        fence_done.set()
+
     def shapes(d):
         return tuple(sorted((k, tuple(tuple(x.shape) for x in v) if isinstance(v, tuple) else tuple(v.shape))
                             for k, v in d.items()))
@@ -526,6 +625,10 @@ def run_train_stream(
                 else:
                     item = get(staged_q)
                 t0 = time.perf_counter()
+                if isinstance(item, _Fence):
+                    run_fence(item.step)
+                    lane_s["dispatch"] += time.perf_counter() - t0
+                    continue
                 if item is _END:
                     flush_pack_single()
                     # every feed's dense stage has dispatched: the window is empty

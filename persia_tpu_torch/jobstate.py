@@ -328,24 +328,37 @@ def snapshot_job(
     components: Optional[Dict[str, object]] = None,
     meta: Optional[Dict] = None,
     generators: Optional[Dict[str, np.random.Generator]] = None,
+    blobs: Optional[Dict[str, bytes]] = None,
+    timings: Optional[Dict[str, float]] = None,
 ) -> Manifest:
     """One step-fenced snapshot under a new epoch: PS shards, the dense
-    state, JSON components and the RNG streams, committed at once. The
-    caller holds the fence: nothing in flight (the loader flushed)."""
+    state, JSON components, raw ``blobs`` and the RNG streams, committed at
+    once. The caller holds the fence: nothing in flight (the loader
+    flushed). ``timings``, where given, receives the ms of the PS capture
+    (``ps_capture``), of the dense state's write (``dense_write``) and of
+    the rest up to the commit (``commit``)."""
+    t0 = time.perf_counter()
     writer = mgr.begin_epoch()
     m: Dict = {"step": int(step)}
     if replicas is not None:
         m.update(capture_ps(writer, replicas))
         if batch_advances:
             m["ps_batch_advances"] = {str(k): int(v) for k, v in batch_advances.items()}
+    t1 = time.perf_counter()
     if state_bytes is not None:
         writer.add_blob("dense.state", state_bytes)
+    t2 = time.perf_counter()
+    for name, data in (blobs or {}).items():
+        writer.add_blob(name, data)
     for name, obj in (components or {}).items():
         writer.add_json(name, obj)
     writer.add_json("rng.json", capture_rng_streams(generators))
     m.update(meta or {})
     manifest = writer.commit(m)
     mgr.prune(_KEEP_EPOCHS)
+    if timings is not None:
+        timings.update(ps_capture=(t1 - t0) * 1e3, dense_write=(t2 - t1) * 1e3,
+                       commit=(time.perf_counter() - t2) * 1e3)
     return manifest
 
 

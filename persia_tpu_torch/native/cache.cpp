@@ -504,6 +504,25 @@ void cache_set_admit_touches(void* h, int64_t t) {
   if (c.admit_touches > 1) c.ensure_touch_table();
 }
 
+// The touch gate's counters (empty with admit_touches 1): a snapshot fence
+// saves them beside the flushed cache, so a resumed directory admits as the
+// uninterrupted one would. cache_touch_counts copies them into out when
+// n is their count and returns the count; cache_set_touch_counts loads n
+// of them (n must be their count) and returns 0, or -1 on a wrong n.
+int64_t cache_touch_counts(void* h, uint8_t* out, int64_t n) {
+  Cache& c = *static_cast<Cache*>(h);
+  const int64_t size = (int64_t)c.touch_counts.size();
+  if (out != nullptr && n == size) std::copy(c.touch_counts.begin(), c.touch_counts.end(), out);
+  return size;
+}
+
+int64_t cache_set_touch_counts(void* h, const uint8_t* in, int64_t n) {
+  Cache& c = *static_cast<Cache*>(h);
+  if (n != (int64_t)c.touch_counts.size()) return -1;
+  std::copy(in, in + n, c.touch_counts.begin());
+  return 0;
+}
+
 // Probe implementation switch: 0 = scalar (golden reference), nonzero =
 // SIMD tag walk. Tags are maintained under both modes, so switching is
 // always safe and results are bit-identical either way

@@ -1,7 +1,7 @@
 """Carry dense weights, and Adam's moments, across from the reference's
-flax/optax layout; the hybrid tier's dense ``TrainState`` as the bytes
-``flax.serialization.to_bytes`` writes for the reference's; and the fused
-tier's whole state, both ways.
+flax/optax layout; the hybrid tier's dense ``TrainState`` and the cache
+tier's ``CachedTrainState`` as the bytes ``flax.serialization.to_bytes``
+writes for the reference's; and the fused tier's whole state, both ways.
 
 flax names a model's parameters by module path: a ``Dense`` layer is
 ``{"kernel": (in, out), "bias": (out,)}`` under its name (``Dense_0 …
@@ -171,15 +171,18 @@ def adam_state_from_optax(
     return out
 
 
-def cached_dense_from_flax(state, params: Mapping, mu: Mapping, nu: Mapping, count) -> None:
+def cached_dense_from_flax(state, params: Mapping, mu: Mapping, nu: Mapping, count,
+                           batch_stats: Optional[Mapping] = None) -> None:
     """Carry the reference's ``CachedTrainState`` dense leaves into the
     port's (``persia_tpu_torch.embedding.hbm_cache.CachedTrainState``), in
-    place: ``params`` into the model, ``optax.adam``'s ``mu``, ``nu`` and
-    ``count`` into its ``torch.optim.Adam``. The tables need no carrying:
-    both tiers start them from zeros and fill them from the servers' rows,
-    seeded by sign."""
+    place: ``params`` (and ``batch_stats``, where given) into the model,
+    ``optax.adam``'s ``mu``, ``nu`` and ``count`` into its
+    ``torch.optim.Adam``. The tables need no carrying: both tiers start
+    them from zeros and fill them from the servers' rows, seeded by sign.
+    ``cached_state_to_flax_bytes`` / ``cached_state_from_flax_bytes`` carry
+    the whole state."""
     model = state.model
-    model.load_state_dict(state_dict_from_flax(model, params))
+    model.load_state_dict(state_dict_from_flax(model, params, batch_stats))
     opt_state = state.optimizer.state
     for p, st in adam_state_from_optax(model, mu, nu, count).items():
         live = opt_state[p]
@@ -202,16 +205,12 @@ def _scalar_state_dtype() -> torch.dtype:
     return torch.float64 if torch.get_default_dtype() == torch.float64 else torch.float32
 
 
-def train_state_to_flax_bytes(state) -> bytes:
-    """The port's hybrid ``TrainState`` (any of the port's models,
-    ``torch.optim.Adam``) as the bytes ``flax.serialization.to_bytes`` writes for the reference's
-    ``TrainState`` carrying the same arrays: ``params`` (kernels (in,
-    out)), ``batch_stats`` (``{}`` for a model without batch norms),
-    ``opt_state`` as ``optax.adam``'s chain
-    (``count``, ``mu``, ``nu``; then the learning-rate scale's empty state),
-    ``step`` and ``loss_scale`` (``None``, or ``scale`` and
-    ``good_steps``). Before Adam's first step its moments are zeros and its
-    count 0."""
+def _dense_tree(state) -> Dict:
+    """A state's dense leaves as flax's trees: ``params`` (kernels (in,
+    out)), ``batch_stats`` (``{}`` for a model without batch norms) and
+    ``opt_state``, ``optax.adam``'s chain (``count``, ``mu``, ``nu``; then
+    the learning-rate scale's empty state). Before Adam's first step its
+    moments are zeros and its count 0."""
     model, opt = state.model, _adam_of(state)
     first = next(iter(model.parameters()))
     count = int(float(opt.state[first]["step"])) if opt.state.get(first) else 0
@@ -219,14 +218,25 @@ def train_state_to_flax_bytes(state) -> bytes:
     def moment(key):
         return lambda p: opt.state[p][key] if opt.state.get(p) else torch.zeros_like(p)
 
-    ls = state.loss_scale
-    tree = {
+    return {
         "params": state_dict_to_flax(model),
         "batch_stats": batch_stats_to_flax(model),
         "opt_state": {"0": {"count": np.asarray(count, np.int32),
                             "mu": state_dict_to_flax(model, moment("exp_avg")),
                             "nu": state_dict_to_flax(model, moment("exp_avg_sq"))},
                       "1": {}},
+    }
+
+
+def train_state_to_flax_bytes(state) -> bytes:
+    """The port's hybrid ``TrainState`` (any of the port's models,
+    ``torch.optim.Adam``) as the bytes ``flax.serialization.to_bytes`` writes for the reference's
+    ``TrainState`` carrying the same arrays: ``params``, ``batch_stats`` and
+    ``opt_state`` (``_dense_tree``), ``step`` and ``loss_scale`` (``None``,
+    or ``scale`` and ``good_steps``)."""
+    ls = state.loss_scale
+    tree = {
+        **_dense_tree(state),
         "step": np.asarray(state.step, np.int32),
         "loss_scale": None if ls is None else {"scale": np.asarray(ls.scale, np.float32),
                                                "good_steps": np.asarray(ls.good_steps, np.int32)},
@@ -234,19 +244,14 @@ def train_state_to_flax_bytes(state) -> bytes:
     return msgpack_serialize(tree)
 
 
-def train_state_from_flax_bytes(state, raw: bytes):
-    """Load the bytes of a reference ``TrainState`` (or of
-    ``train_state_to_flax_bytes``) into ``state`` in place: the model's
-    parameters and batch statistics, Adam's moments and ``step`` tensors
-    (those that exist are overwritten, so a captured or cached step stays
-    valid; missing ones are made as Adam makes them), the step and the
-    loss scale. Returns ``state``."""
-    tree = msgpack_restore(raw)
+def _load_dense_tree(state, tree: Mapping) -> None:
+    """Load ``_dense_tree``'s leaves of ``tree`` into ``state`` in place:
+    the model's parameters and batch statistics, Adam's moments and
+    ``step`` tensors (those that exist are overwritten, so a captured or
+    cached step stays valid; missing ones are made as Adam makes them)."""
     model, opt = state.model, _adam_of(state)
     adam = tree["opt_state"]["0"]
     leaves = _check_paths(model, tree["params"], "the bytes")
-    if (tree["loss_scale"] is None) != (state.loss_scale is None):
-        raise ValueError("the bytes and the state disagree on a dynamic loss scale")
     groups = {id(p): g for g in opt.param_groups for p in g["params"]}
     count = float(np.asarray(adam["count"]))
     batch_stats_from_flax(model, tree["batch_stats"])
@@ -269,10 +274,68 @@ def train_state_from_flax_bytes(state, raw: bytes):
             st["step"].fill_(count)
             st["exp_avg"].copy_(host[1])
             st["exp_avg_sq"].copy_(host[2])
+
+
+def train_state_from_flax_bytes(state, raw: bytes):
+    """Load the bytes of a reference ``TrainState`` (or of
+    ``train_state_to_flax_bytes``) into ``state`` in place: the dense leaves
+    (``_load_dense_tree``), the step and the loss scale. Returns
+    ``state``."""
+    tree = msgpack_restore(raw)
+    if (tree["loss_scale"] is None) != (state.loss_scale is None):
+        raise ValueError("the bytes and the state disagree on a dynamic loss scale")
+    _load_dense_tree(state, tree)
     state.step = int(np.asarray(tree["step"]))
     if state.loss_scale is not None:
         state.loss_scale.scale = float(np.asarray(tree["loss_scale"]["scale"], np.float32))
         state.loss_scale.good_steps = int(np.asarray(tree["loss_scale"]["good_steps"]))
+    return state
+
+
+def cached_state_to_flax_bytes(state) -> bytes:
+    """The port's ``CachedTrainState`` (``embedding.hbm_cache``) as the
+    bytes ``flax.serialization.to_bytes`` writes for the reference's
+    ``CachedTrainState`` carrying the same arrays, in its field order:
+    ``params``, ``batch_stats`` and ``opt_state`` (``_dense_tree``), each
+    group's table and optimizer state by group name (the state's order),
+    ``emb_batch_state``, ``step`` and ``loss_scale`` (``None``: the cache
+    tier's loss scale is static)."""
+    tree = {
+        **_dense_tree(state),
+        "tables": {g: _host_array(t) for g, t in state.tables.items()},
+        "emb_state": {g: {k: _host_array(v) for k, v in st.items()} for g, st in state.emb_state.items()},
+        "emb_batch_state": _host_array(state.emb_batch_state),
+        "step": _host_array(state.step),
+        "loss_scale": None,
+    }
+    return msgpack_serialize(tree)
+
+
+def cached_state_from_flax_bytes(state, raw: bytes):
+    """Load the bytes of a reference ``CachedTrainState`` (or of
+    ``cached_state_to_flax_bytes``) into the port's ``state`` in place: the
+    dense leaves (``_load_dense_tree``), every group's pool and optimizer
+    state, ``emb_batch_state`` and ``step``; the groups, their keys, shapes
+    and dtypes must be the state's. Returns ``state``."""
+    tree = msgpack_restore(raw)
+    if tree["loss_scale"] is not None:
+        raise ValueError("the bytes carry a dynamic loss scale; the port's cache tier has a static one")
+    live = {"tables": state.tables, "emb_state": state.emb_state}
+    for key, have in live.items():
+        if sorted(tree[key]) != sorted(have) or sorted(_flat_paths(tree[key])) != sorted(_flat_paths(have)):
+            raise ValueError(f"the bytes' {key} hold {sorted(_flat_paths(tree[key]))}, the state's "
+                             f"{sorted(_flat_paths(have))}")
+    pairs = [(state.emb_batch_state, tree["emb_batch_state"]), (state.step, tree["step"])]
+    pairs += [(t, tree["tables"][g]) for g, t in state.tables.items()]
+    pairs += [(v, tree["emb_state"][g][k]) for g, st in state.emb_state.items() for k, v in st.items()]
+    host = [_host_tensor(a) for _, a in pairs]
+    for (t, _), h in zip(pairs, host):
+        if h.shape != t.shape or h.dtype != t.dtype:
+            raise ValueError(f"{h.dtype} {tuple(h.shape)} in the bytes for a {t.dtype} {tuple(t.shape)} tensor")
+    _load_dense_tree(state, tree)
+    with torch.no_grad():
+        for (t, _), h in zip(pairs, host):
+            t.copy_(h)
     return state
 
 
