@@ -20,7 +20,9 @@ result line:
    reported, K9 by template, K8 and K9 at the DIN path's template (2
    positions a lane) without spills; K12 and its read alone with their
    registers and 16-byte global loads and stores (LDG.128 / STG.128),
-   which their 16-byte templates must hold;
+   which their 16-byte templates must hold; K15's two templates (f32 and
+   bf16 gradients) with their registers, the bf16 one (the ps-stream
+   path's) reported and neither spilling;
 2. flash_attention on the card vs its plain version (dense f32 softmax):
    the bf16 route (wgmma) and the f32 route (split TF32 on wgmma, its
    pre-pass held bit for bit to ``tf32_split_planes_reference``) at every
@@ -91,6 +93,13 @@ result line:
    evicted rows (half the misses, restored ones too, on rows evicted that
    step), every restore a pad, no restores, and two K12 calls, the second
    restoring from the ring span the first filled onto rows it wrote;
+   (3f) the mixed tier's int8 gradient wire, K15 ``quantize_int8_ef``, bit
+   for bit (codes, scales and the residual it rewrites in place, three
+   steps with the residual carried) against its plain version on the card
+   and on the CPU, at the ps-stream path's shape (26 segments of 1,536 x
+   16) and at segment lengths that are not multiples of its block, empty
+   segments and host-pooled (B, D) beside device-pooled (P, D) ones, bf16
+   and f32 gradients;
 4. the paths, each with the launch counts set to 0 just before and read
    just after: (a) the flash-attention entry point at (B=4, L=1024, H=8,
    D=64) in bf16 and in f32, causal and not, and its backward (a dense
@@ -239,7 +248,27 @@ result line:
    stream's (else within 1e-5 relative, the differing share printed);
    samples/s and ``speedup_vs_inorder``, hoisted feeds, stalls, barrier
    (restoring) steps, ``stage_overlap_frac``, each lane's busy seconds,
-   card busy ms a step, K12/K13 launches a step;
+   card busy ms a step, K12/K13 launches a step; then the mixed tier
+   (``CachedTrainCtx(ps_slots=, ps_wire_dtype=)``) at ``bench.py``'s
+   ps-stream configuration (``bench.py:285-344`` with ``ps_all``: all 26
+   slots on the PS through a device-pooling worker, the int8 wire,
+   ``cache_rows=8`` unused), each leg counted: (ps-stream) 4 warm-up and
+   30 timed batches through ``train_stream(prefetch=4, psgrad_batch=16,
+   fetch_final=False)`` as ``bench_ps_stream`` runs them (K15, K1, K2, K0
+   and K3 once a step, no cache kernel): samples/s, each lane's busy
+   seconds, the PS-gradient flushes, the gradient bytes a sample on the
+   d2h wire; staleness 0 and every ref released at the end, every step
+   applied once, the batches' signs in the store with moved
+   accumulators; (ps-sync) 8 synchronous steps on the card and in the CPU
+   port (losses within 2e-2, the PS entries within 1e-2) and with the f32
+   wire on the card (the int8 wire's entries within 0.15 of their norm,
+   ``tests/test_hbm_cache.py:1613``'s gate); (mixed) cat_0-cat_12 cached
+   at 2^18 rows (bf16 wires, the touch gate), cat_13-cat_25 on the PS
+   (int8), 16 synchronous steps on the card and the CPU (the cached half's
+   decisions equal at every step, losses within 2e-2, entries after flush
+   within 1e-2), then the same batches as the stream at the bench's knobs
+   (its decisions the synchronous steps', its last loss within 2e-2 of
+   theirs);
 5. timings of each kernel beside its plain version, the library call that
    computes the same function, and the card's bound, each by CUDA-graph
    replay (host enqueue cost out of the number; eager times beside them):
@@ -277,6 +306,10 @@ result line:
    restores, then a K12 call of the restores alone: a launch of their own,
    as before the fold), beside the bound (with the restores' bytes) and
    the one-launch floor;
+   K15 at the ps-stream leg's own last warm-up step (its gradients,
+   residual and 26 segments), warm and cold, beside its plain version,
+   the 17 composed PyTorch calls that compute it (their bits compared
+   with the kernel's) and the bound, over the one-launch floor;
    and (5b) the flash-attention backward, a dense recompute, beside SDPA's
    backward.
 
@@ -576,7 +609,7 @@ KERNEL_NAMES = ("fa_fwd_wgmma_kernel", "fa_fwd_tf32x3_kernel", "tf32_split_kerne
                 "sparse_update_long_kernel", "sparse_update_short_kernel",
                 "raw_gather_fwd_kernel", "raw_gather_bwd_kernel", "attention_pool_fwd_kernel",
                 "attention_pool_bwd_kernel", "batch_norm_fwd_kernel", "batch_norm_bwd_kernel",
-                "cache_aux_kernel", "entry_rows_kernel")
+                "cache_aux_kernel", "entry_rows_kernel", "quantize_int8_ef_kernel")
 # the DIN path's kernels (K6-K9) and K2's two passes
 DIN_KERNEL_NAMES = ("raw_gather_fwd_kernel", "raw_gather_bwd_kernel", "attention_pool_fwd_kernel",
                     "attention_pool_bwd_kernel")
@@ -713,6 +746,11 @@ def phase_build():
         print(f"  K10 and K11 by template (registers, spill bytes): {bn}", flush=True)
         if not {"batch_norm_fwd_kernel<bf16,8>", "batch_norm_bwd_kernel<bf16,8>"} <= set(bn):
             raise SystemExit(f"the build reported nothing for K10 or K11 at the DNN path's template: {bn}")
+        k15 = {k: (v.get("registers"), v.get("spill_bytes")) for k, v in summary.items()
+               if k.startswith("quantize_int8_ef_kernel<")}
+        print(f"  K15 by input dtype (registers, spill bytes): {k15}", flush=True)
+        if "quantize_int8_ef_kernel<bf16>" not in k15 or any(v[1] for v in k15.values()):
+            raise SystemExit(f"K15 spills or was not reported at the ps-stream path's template: {k15}")
         k5 = {k: summary.get(k, {}).get("spill_bytes") for k in K5_DIM16}
         print(f"  K5 and the routing on the dim-16 path, spill bytes: {k5}", flush=True)
         if any(v is None or v for v in k5.values()):
@@ -4355,6 +4393,478 @@ def path_cache(dev):
     return launches, records, inputs
 
 
+# ---------------------------------------------------------------------------
+# The mixed tier (persia_tpu_torch/embedding/hbm_cache with ps_slots) at
+# bench.py's ps-stream configuration (bench.py:285-344 with ps_all, and
+# bench_ps_stream, bench.py:576-611): phase 3f, its legs of phase 4k and
+# K15's row of phase 5
+
+K15_SOURCE = "persia_tpu_torch/csrc/quantize_int8.cu"
+K15_REPLACES = "persia_tpu/parallel/grad_sync.py:244"
+K15_ALSO_REPLACES = "persia_tpu/embedding/hbm_cache/step.py:361"
+PS_ALL = tuple(f"cat_{i}" for i in range(N_SLOTS))
+# bench_ps_stream: 4 warm-up batches, then BENCH_PS_STREAM_STEPS (30) timed,
+# both through train_stream(prefetch=4, psgrad_batch=16, fetch_final=False)
+PS_STREAM_WARMUP, PS_STREAM_STEPS = 4, 30
+PS_STREAM_KNOBS = dict(prefetch=4, psgrad_batch=16, fetch_final=False)
+# the synchronous all-PS steps held to the CPU port and to the f32 wire; the
+# mixed leg: cat_0-cat_12 cached at the saturated regime's rows,
+# cat_13-cat_25 on the PS (int8), synchronous and as the stream
+PS_SYNC_STEPS, MIXED_STEPS = 8, 16
+MIXED_PS = tuple(f"cat_{i}" for i in range(13, N_SLOTS))
+# K15's edge cases (segment lengths): not multiples of the block (512),
+# empty segments, host-pooled (B, D) beside device-pooled (P, D)
+K15_CASES = ([1, 511, 512, 513, 1000, 3], [0, 7, 0, 16 * BATCH + 5], [BATCH * EMB_DIM, 1536 * EMB_DIM, 33])
+
+
+def k15_inputs(dev, lengths, dtype, seed):
+    """Seeded gradients (``dtype``) and an f32 residual over segments of
+    ``lengths``, each segment at its own magnitude; with the offsets."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    mags = torch.cat([torch.full((n,), 10.0 ** (i % 5 - 4)) for i, n in enumerate(lengths)])
+    g = (torch.randn(int(mags.numel()), generator=gen) * mags).to(dtype)
+    res = torch.randn(int(mags.numel()), generator=gen) * mags * 1e-2
+    return g.to(dev), res.to(dev), [0] + np.cumsum(lengths).tolist()
+
+
+def phase_quant_kernels(dev):
+    """Phase 3f: K15 (``quantize_int8_ef``) against its plain version on
+    the card and on the CPU, bit for bit (codes, scales, the residual it
+    rewrites in place), three steps with the residual carried: at the
+    ps-stream path's shape (26 device-pooled slots of P=1536 rows x 16,
+    bf16 gradients) and at ``K15_CASES``, bf16 and f32."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.ops.quantize_int8 import quantize_int8_ef_reference
+
+    print("== phase 3f: the mixed tier's int8 gradient wire (K15 quantize_int8_ef) vs its plain version", flush=True)
+    for lengths in ([1536 * EMB_DIM] * N_SLOTS,) + K15_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            g, res, offsets = k15_inputs(dev, lengths, dtype, SEED + 80 + len(lengths))
+            plain_card, plain_cpu = res.clone(), res.cpu()
+            diffs = []  # (step, output, which plain version) that differ
+            for step in range(3):
+                q, s, new = ops.quantize_int8_ef(g, res, offsets)
+                q1, s1, plain_card = quantize_int8_ef_reference(g, plain_card, offsets)
+                q2, s2, plain_cpu = quantize_int8_ef_reference(g.cpu(), plain_cpu, offsets)
+                torch.cuda.synchronize()
+                if new.data_ptr() != res.data_ptr():
+                    diffs.append((step, "residual not in place", ""))
+                for name, a, b, c in (("codes", q, q1, q2), ("scales", s, s1, s2),
+                                      ("residual", new.view(torch.int32), plain_card.view(torch.int32),
+                                       plain_cpu.view(torch.int32))):
+                    for where, ref in (("card", b), ("cpu", c)):
+                        if not bits_equal(a, ref):
+                            diffs.append((step, name, where, int((a.cpu() != ref.cpu()).sum())))
+                g = (g.float() * -0.5 + 1e-4).to(dtype)
+            ok = not diffs
+            print(f"  quantize_int8_ef {len(lengths)} segments of {lengths[:4]}{'...' if len(lengths) > 4 else ''} "
+                  f"{str(dtype).split('.')[-1]}: codes, scales and residual bitwise vs the plain version on the "
+                  f"card and on the CPU, 3 steps {'ok' if ok else f'FAIL (step, output, where, elements): {diffs}'}",
+                  flush=True)
+            if not ok:
+                raise SystemExit("quantize_int8_ef disagrees with its plain version")
+    torch.cuda.empty_cache()
+    return {"quantize_int8_ef": 0.0}
+
+
+def ps_ctx(device, store, sd, ps_slots=PS_ALL, wire="int8", rows=8):
+    """``_cached_tier_ctx(ps_all=True)``'s ctx (bench.py:285-344): DLRM at
+    bench width from ``sd``, Adam(1e-3), Adagrad(0.05), a device-pooling
+    worker over ``store``, ``ps_slots`` on the PS with the ``wire``
+    gradient wire and ``rows`` cache rows (8: unused); with cached slots
+    beside them the cached configuration's bf16 wires and touch gate."""
+    import torch
+
+    from persia_tpu_torch.embedding.hbm_cache import CachedTrainCtx
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.embedding.worker import EmbeddingWorker
+    from persia_tpu_torch.models import DLRM
+
+    cfg = bench_cfg()
+    model = DLRM(N_DENSE, N_SLOTS, EMB_DIM, BOTTOM, TOP, device="cpu")
+    model.load_state_dict(sd)
+    cached = dict(wb_wire_dtype="bfloat16", aux_wire_dtype="bfloat16", admit_touches=2) if len(ps_slots) < N_SLOTS \
+        else {}
+    ctx = CachedTrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3), Adagrad(lr=0.05),
+                         EmbeddingWorker(cfg, [store], device_pooling=True), cfg, cache_rows=rows, device=device,
+                         ps_slots=ps_slots, ps_wire_dtype=wire, **cached).__enter__()
+    ctx.init_state()
+    return ctx
+
+
+PS_PARTS = ("lookup", "staging", "apply")  # the PS tier's host parts, timed a call
+
+
+def time_ps_parts(ctx):
+    """Shadow the PS tier's host parts with ``timed_calls``: the worker's
+    lookup (``forward_batch_id``), the entries' staging
+    (``stage_embeddings``, the CSR included) and the gradients' apply
+    (``update_gradient_batched``); returns ({part: ms a call}, {part:
+    thread CPU ms a call}, the function that takes the wrappers away)."""
+    from persia_tpu_torch.embedding.hbm_cache import ctx as ctx_mod
+
+    wall, cpu = {p: [] for p in PS_PARTS}, {p: [] for p in PS_PARTS}
+    undo = [timed_calls(ctx.worker, "forward_batch_id", wall["lookup"], cpu["lookup"]),
+            timed_calls(ctx_mod, "stage_embeddings", wall["staging"], cpu["staging"]),
+            timed_calls(ctx.worker, "update_gradient_batched", wall["apply"], cpu["apply"])]
+    return wall, cpu, lambda: [u() for u in undo]
+
+
+def parts_p50(wall, cpu):
+    return {p: {"ms_p50": float(np.percentile(wall[p], 50)), "cpu_ms_p50": float(np.percentile(cpu[p], 50)),
+                "calls": len(wall[p])} for p in PS_PARTS if wall[p]}
+
+
+def refs_released(ctx, what):
+    if ctx.worker.staleness or ctx.worker.post_forward_buffer:
+        raise SystemExit(f"{what}: staleness {ctx.worker.staleness}, {len(ctx.worker.post_forward_buffer)} refs "
+                         "left in the post-forward buffer")
+
+
+def launches_now():
+    from persia_tpu_torch import ops
+
+    return {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+
+
+def expect_launches(what, launches, **counts):
+    from persia_tpu_torch import ops
+
+    expected = {fn.__name__: 0 for fn in ops.KERNEL_WRAPPERS}
+    expected.update(counts)
+    print(f"  launches={ {k: v for k, v in launches.items() if v} }", flush=True)
+    if launches != expected:
+        raise SystemExit(f"{what}: launches {launches}, expected {expected}")
+    return expected
+
+
+def run_ps_stream(dev, sd):
+    """The ps-stream regime as bench_ps_stream runs it: 4 warm-up batches,
+    then 30 timed, counted; staleness 0, every ref released, every step
+    applied once (the write-back's count), trained entries in the store.
+    Returns (launches, record, K15's inputs at the last warm-up step)."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.embedding.hbm_cache import native_init_rows
+    from persia_tpu_torch.embedding.hbm_cache import step as step_mod
+
+    print(f"== phase 4k (ps-stream): all {N_SLOTS} slots on the PS, the int8 wire, "
+          f"CachedTrainCtx.train_stream({PS_STREAM_KNOBS}) over {PS_STREAM_WARMUP} warm-up and {PS_STREAM_STEPS} "
+          f"timed batches (bench_ps_stream)", flush=True)
+    make = zipf_batch_maker(SEED + 70, labels=True)
+    batches = [make() for _ in range(PS_STREAM_WARMUP + PS_STREAM_STEPS)]
+    store = cache_store()
+    ctx = ps_ctx(dev, store, sd)
+    if ctx.tier.groups or ctx.tier.dirs:
+        raise SystemExit("ps-stream: the all-PS ctx has cache groups")
+    kept = {}
+    inner = step_mod.quantize_int8_ef
+
+    def keep(g, res, offsets):  # the last warm-up step's inputs, for phase 5
+        kept.update(g=g.clone(), res=res.clone(), offsets=list(offsets))
+        return inner(g, res, offsets)
+
+    step_mod.quantize_int8_ef = keep
+    try:
+        t0 = time.perf_counter()
+        ctx.train_stream(batches[:PS_STREAM_WARMUP], **PS_STREAM_KNOBS)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    finally:
+        step_mod.quantize_int8_ef = inner
+    warm = ctx.stream_stats()
+    part_wall, part_cpu, undo = time_ps_parts(ctx)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    if ctx.train_stream(batches[PS_STREAM_WARMUP:], **PS_STREAM_KNOBS) is not None:
+        raise SystemExit("ps-stream: fetch_final=False returned metrics")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    undo()
+    parts = parts_p50(part_wall, part_cpu)
+    st = ctx.stream_stats()
+    launches = launches_now()
+    n = PS_STREAM_STEPS
+    expected = expect_launches("ps-stream", launches, quantize_int8_ef=n, gather_pool_fwd=n, gather_pool_bwd=n,
+                               dot_interaction=n, dot_interaction_bwd=n)
+    metrics = ctx.last_metrics()
+    if metrics is None or not np.isfinite(metrics["loss"]):
+        raise SystemExit(f"ps-stream: the last metrics {metrics}")
+    refs_released(ctx, "ps-stream")
+    applied = (warm["psgrad_steps"], st["psgrad_steps"])
+    if applied != (PS_STREAM_WARMUP, n) or st["psgrad_flushes"] != -(-n // PS_STREAM_KNOBS["psgrad_batch"]):
+        raise SystemExit(f"ps-stream: steps applied {applied} in {st['psgrad_flushes']} flushes")
+    record = {
+        "batch": BATCH, "warmup_steps": PS_STREAM_WARMUP, "steps": n, "knobs": PS_STREAM_KNOBS,
+        "samples_per_s": n * BATCH / wall, "wall_s": wall, "warmup_s": warm_s, "lane_s": st["lane_s"],
+        "psgrad_flushes": st["psgrad_flushes"], "psgrad_bytes": st["psgrad_bytes"],
+        "grad_bytes_per_sample": st["psgrad_bytes"] / (n * BATCH), "k15_launches_per_step": launches[
+            "quantize_int8_ef"] / n, "launches": launches, "launches_expected": expected,
+        "last_loss": float(metrics["loss"]), "tiers": st["tiers"], "store_rows": store.size(),
+        "k15_segments": len(kept["offsets"]) - 1, "k15_elements": int(kept["g"].numel()), "ps_parts": parts,
+    }
+    print(f"  ps-stream samples/s {record['samples_per_s']:.1f} ({n} steps in {wall:.3f} s), lanes busy s "
+          f"{ {k: round(v, 3) for k, v in st['lane_s'].items()} }, psgrad flushes {st['psgrad_flushes']}, gradient "
+          f"bytes a sample on the d2h wire {record['grad_bytes_per_sample']:.1f}, K15 launches "
+          f"{launches['quantize_int8_ef']} ({record['k15_launches_per_step']:.0f} a step; "
+          f"{record['k15_segments']} segments, {record['k15_elements']} elements); the PS tier's host parts a "
+          f"call, p50 ms (thread CPU ms): { {k: (round(v['ms_p50'], 2), round(v['cpu_ms_p50'], 2)) for k, v in parts.items()} }",
+          flush=True)
+    # trained entries: rows moved off the seed the servers birthed them with
+    # (a gradient under a slot's scale / 254 ships as code 0 and moves none;
+    # so do the Adagrad accumulators of most signs, g^2 under 0.01's ulp)
+    signs = batch_keys(batches)
+    warm_signs, vals = store.probe_entries(signs, EMB_DIM)
+    seeded = native_init_rows(signs, ctx.tier.init_seed, EMB_DIM, ctx.tier.init_method)
+    moved = int((vals[:, :EMB_DIM] != seeded).any(axis=1).sum())
+    record.update(signs=len(signs), rows_moved=moved)
+    print(f"  every ref released (staleness 0), every step applied once ({PS_STREAM_WARMUP} + {n}, "
+          f"{st['psgrad_flushes']} flushes); the store holds {int(warm_signs.sum())} of the batches' {len(signs)} "
+          f"signs, {moved} ({moved / len(signs):.2%}) of them trained off their seeded rows (at least 100) "
+          f"{'ok' if warm_signs.all() and moved >= 100 else 'FAIL'}", flush=True)
+    if not warm_signs.all() or moved < 100:
+        raise SystemExit("ps-stream: the store lacks trained entries")
+    del ctx
+    return launches, record, kept
+
+
+def run_ps_sync(dev, sd):
+    """The ps-stream configuration synchronous for ``PS_SYNC_STEPS`` steps,
+    counted, on the card and in the CPU port (losses 2e-2, the PS entries
+    1e-2: the hybrid tier's card limits); the same steps with the f32 wire
+    on the card, the int8 wire's entries drifting from them by under 0.15
+    of their norm (tests/test_hbm_cache.py:1613's gate)."""
+    import torch
+
+    from persia_tpu_torch import ops
+
+    print(f"== phase 4k (ps-sync): the ps-stream configuration, {PS_SYNC_STEPS} CachedTrainCtx.train_steps on the "
+          f"card and on the CPU; the f32 wire beside the int8 one", flush=True)
+    make = zipf_batch_maker(SEED + 71, labels=True)
+    batches = [make() for _ in range(PS_SYNC_STEPS)]
+    signs = batch_keys(batches)
+    out = {}
+    for label, device, wire in (("card", dev, "int8"), ("cpu", "cpu", "int8"), ("card_f32", dev, "float32")):
+        store = cache_store()
+        ctx = ps_ctx(device, store, sd, wire=wire)
+        if label == "card":
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            part_wall, part_cpu, undo = time_ps_parts(ctx)
+        t0 = time.perf_counter()
+        losses = [ctx.train_step(b)["loss"] for b in batches]
+        wall = time.perf_counter() - t0
+        if label == "card":
+            undo()
+            parts = parts_p50(part_wall, part_cpu)
+            launches = launches_now()
+            expect_launches("ps-sync", launches, quantize_int8_ef=PS_SYNC_STEPS, gather_pool_fwd=PS_SYNC_STEPS,
+                            gather_pool_bwd=PS_SYNC_STEPS, dot_interaction=PS_SYNC_STEPS,
+                            dot_interaction_bwd=PS_SYNC_STEPS)
+        refs_released(ctx, f"ps-sync ({label})")
+        warm, vals = store.probe_entries(signs, EMB_DIM)
+        out[label] = (losses, warm, vals, wall)
+        del ctx, store
+    (l8, w8, v8, wall8), (lc, wc, vc, _), (l32, w32, v32, _) = out["card"], out["cpu"], out["card_f32"]
+    if not (np.array_equal(w8, wc) and np.array_equal(w8, w32) and w8.all()):
+        raise SystemExit("ps-sync: the stores hold other signs")
+    loss_err = max(abs(a - b) for a, b in zip(l8, lc))
+    row_err = float(np.abs(v8 - vc).max())
+    drift = float(np.linalg.norm(v8 - v32) / np.linalg.norm(v32))
+    ok = loss_err <= 2e-2 and row_err <= 1e-2 and 0 < drift < 0.15 and all(np.isfinite(l8))
+    print(f"  card vs CPU: losses max_abs_err={loss_err:.3e} tolerance=2e-2, PS entries ({len(signs)} signs) "
+          f"max_abs_err={row_err:.3e} tolerance=1e-2; int8 vs f32 wire on the card: relative drift {drift:.3e} "
+          f"(gate 0.15, above 0); card samples/s {PS_SYNC_STEPS * BATCH / wall8:.1f}, the PS tier's host parts a "
+          f"call, p50 ms (thread CPU ms): { {k: (round(v['ms_p50'], 2), round(v['cpu_ms_p50'], 2)) for k, v in parts.items()} } "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit("ps-sync: card and CPU disagree, or the int8 wire drifted from the f32 one")
+    return launches, {"steps": PS_SYNC_STEPS, "losses": l8, "loss_max_abs_err_vs_cpu": loss_err,
+                      "ps_entry_max_abs_err_vs_cpu": row_err, "int8_vs_f32_drift": drift,
+                      "samples_per_s": PS_SYNC_STEPS * BATCH / wall8, "losses_f32": l32, "ps_parts": parts}
+
+
+def run_mixed(dev, sd):
+    """cat_0-cat_12 cached (2^18 rows, bf16 wires, the touch gate),
+    cat_13-cat_25 on the PS (int8): ``MIXED_STEPS`` synchronous steps on the
+    card (counted) and the CPU port (the cached half's decisions equal at
+    every step, losses 2e-2, every entry after flush 1e-2), then the same
+    batches as the stream at the bench's knobs from a fresh ctx (counted;
+    its decisions the synchronous steps', its last loss within 2e-2 of
+    theirs: the PS half trains under bounded staleness there)."""
+    import torch
+
+    from persia_tpu_torch import ops
+
+    print(f"== phase 4k (mixed): {N_SLOTS - len(MIXED_PS)} slots cached ({CACHE_SAT_ROWS} rows), {len(MIXED_PS)} on "
+          f"the PS (int8), {MIXED_STEPS} synchronous steps on the card and the CPU, then the stream", flush=True)
+    make = zipf_batch_maker(SEED + 72, labels=True)
+    batches = [make() for _ in range(MIXED_STEPS)]
+    signs = batch_keys(batches)
+    runs, launches, records = {}, {}, {}
+    for label, device in (("card", dev), ("cpu", "cpu"), ("stream", dev)):
+        store = cache_store()
+        ctx = ps_ctx(device, store, sd, MIXED_PS, "int8", rows=CACHE_SAT_ROWS)
+        rec = cache_recorder(ctx)
+        if device != "cpu":
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        if label == "stream":
+            ctx.train_stream(batches, **STREAM_KNOBS)
+            losses = [ctx.last_metrics()["loss"]]
+            st = ctx.stream_stats()
+        else:
+            losses = [ctx.train_step(b)["loss"] for b in batches]
+        wall = time.perf_counter() - t0
+        if device != "cpu":
+            touched = sum(s["touched"] for s in rec)
+            ctx.flush()
+            launches[f"mixed_{'sync' if label == 'card' else 'stream'}"] = launches_now()
+            expect_launches(f"mixed ({label})", launches_now(), quantize_int8_ef=MIXED_STEPS,
+                            gather_pool_fwd=MIXED_STEPS, gather_pool_bwd=MIXED_STEPS, cached_gather=MIXED_STEPS,
+                            cache_aux=touched, sparse_update=MIXED_STEPS, gather_entry_rows=1,
+                            dot_interaction=MIXED_STEPS, dot_interaction_bwd=MIXED_STEPS)
+        else:
+            ctx.flush()
+        refs_released(ctx, f"mixed ({label})")
+        warm, vals = store.probe_entries(signs, EMB_DIM)
+        runs[label] = dict(losses=losses, rec=rec, warm=warm, vals=vals, wall=wall,
+                           stats=st if label == "stream" else None, evictions=ctx.tier.evictions)
+        del ctx, store
+    card, cpu, stream = runs["card"], runs["cpu"], runs["stream"]
+    same = [a["digest"] == b["digest"] for a, b in zip(card["rec"], cpu["rec"])]
+    same_stream = [a["decisions"] == b["decisions"] for a, b in zip(card["rec"], stream["rec"])]
+    if not (all(same) and len(same) == MIXED_STEPS and all(same_stream) and len(same_stream) == MIXED_STEPS):
+        raise SystemExit(f"mixed: the cached half's decisions differ (card vs CPU at "
+                         f"{[i for i, s in enumerate(same) if not s]}, stream vs sync at "
+                         f"{[i for i, s in enumerate(same_stream) if not s]})")
+    warm = card["warm"]  # the touch gate keeps some cached-slot signs out of the store
+    if not np.array_equal(warm, cpu["warm"]):
+        raise SystemExit("mixed: the stores hold other signs")
+    loss_err = max(abs(a - b) for a, b in zip(card["losses"], cpu["losses"]))
+    row_err = float(np.abs(card["vals"][warm] - cpu["vals"][warm]).max())
+    stream_gap = abs(stream["losses"][0] - card["losses"][-1])
+    ok = loss_err <= 2e-2 and row_err <= 1e-2 and stream_gap <= 2e-2 and np.isfinite(stream["losses"][0])
+    st = stream["stats"]
+    print(f"  cached half's decisions = the CPU's at every one of {MIXED_STEPS} steps, the stream's = the "
+          f"synchronous steps'; losses max_abs_err={loss_err:.3e} tolerance=2e-2; entries after flush "
+          f"({int(warm.sum())} of the batches' {len(signs)} signs) max_abs_err={row_err:.3e} tolerance=1e-2; the stream's last loss "
+          f"{stream['losses'][0]:.5f} vs the synchronous {card['losses'][-1]:.5f} (gap {stream_gap:.3e}, tolerance "
+          f"2e-2) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit("mixed: card and CPU disagree, or the stream drifted")
+    records = {"steps": MIXED_STEPS, "cache_rows": CACHE_SAT_ROWS, "ps_slots": list(MIXED_PS),
+               "losses": card["losses"], "loss_max_abs_err_vs_cpu": loss_err, "entry_max_abs_err_vs_cpu": row_err,
+               "stream_last_loss_gap": stream_gap, "sync_samples_per_s": MIXED_STEPS * BATCH / card["wall"],
+               "stream_samples_per_s": MIXED_STEPS * BATCH / stream["wall"], "evictions": card["evictions"],
+               "stream_lane_s": st["lane_s"], "stream_psgrad_flushes": st["psgrad_flushes"],
+               "stream_restore_steps": st["restore_steps"], "stream_tiers": st["tiers"]}
+    print(f"  mixed samples/s: synchronous {records['sync_samples_per_s']:.1f}, stream "
+          f"{records['stream_samples_per_s']:.1f} (lanes busy s { {k: round(v, 3) for k, v in st['lane_s'].items()} }"
+          f", psgrad flushes {st['psgrad_flushes']}, restoring steps {st['restore_steps']}); evictions "
+          f"{card['evictions']}", flush=True)
+    return launches, records
+
+
+def path_mixed(dev):
+    """Phase 4k's mixed-tier legs: ps-stream, ps-sync, mixed. Returns
+    (launches by leg, records, K15's inputs for phase 5)."""
+    import gc
+
+    import torch
+
+    from persia_tpu_torch.models import DLRM
+    from persia_tpu_torch.weights import seeded_flax_params_like, state_dict_from_flax
+
+    model = DLRM(N_DENSE, N_SLOTS, EMB_DIM, BOTTOM, TOP, device="cpu")
+    sd = state_dict_from_flax(model, seeded_flax_params_like(model, SEED))
+    launches, records = {}, {}
+    launches["ps_stream"], records["ps_stream"], k15 = run_ps_stream(dev, sd)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["ps_sync"], records["ps_sync"] = run_ps_sync(dev, sd)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixed_launches, records["mixed"] = run_mixed(dev, sd)
+    launches.update(mixed_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, records, k15
+
+
+K15_COMPOSED_CALLS = 17  # the PyTorch calls of k15_composed, one kernel each
+
+
+def k15_composed(g, res, seg_ids, segments):
+    """The fewest PyTorch calls this script found for K15's function (a
+    yardstick, timed here and used nowhere in the port; ``K15_COMPOSED_CALLS``
+    of them): a scatter-reduce for the segments' absmax, the rest
+    elementwise."""
+    import torch
+
+    v = g.float() + res
+    amax = torch.zeros(segments, dtype=torch.float32, device=g.device).scatter_reduce_(0, seg_ids, v.abs(), "amax")
+    scale = amax.clamp_min(1e-30)
+    step = scale / torch.full_like(scale, 127.0)  # tensor by tensor: a true division on the card too
+    t = torch.round(v / scale[seg_ids] * 127.0).clamp_(-127, 127)
+    return t.to(torch.int8), scale, v - t * step[seg_ids]
+
+
+def time_k15(dev, launches, errs, k15, floor):
+    """Phase 5's row of K15 at the ps-stream path's own inputs (its last
+    warm-up step's gradients, residual and segments): graph-replayed warm
+    and cold (whole copies rotated through more than the L2), beside the
+    plain version, the composed PyTorch calls and the bound; over the
+    one-launch floor."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.ops.quantize_int8 import quantize_int8_ef_reference
+
+    g, res0, offsets = k15["g"], k15["res"], k15["offsets"]
+    n, segments = g.numel(), len(offsets) - 1
+    res = res0.clone()
+    lengths = torch.tensor(np.diff(offsets), device=dev)
+    seg_ids = torch.repeat_interleave(torch.arange(segments, device=dev), lengths)
+    q0, s0, r0 = ops.quantize_int8_ef(g, res0.clone(), offsets)
+    q1, s1, r1 = k15_composed(g, res0, seg_ids, segments)
+    composed_same = bits_equal(q0, q1) and bits_equal(s0, s1) and bits_equal(r0.view(torch.int32),
+                                                                             r1.view(torch.int32))
+    nbytes = n * (g.element_size() + 4 + 1 + 4) + segments * 4 + 4 * (segments + 1)
+    bms, by = bound(nbytes, 6 * n, "float32")
+    kernel = lambda: ops.quantize_int8_ef(g, res, offsets)  # noqa: E731 (rewrites ``res`` in place)
+    composed = lambda: k15_composed(g, res, seg_ids, segments)  # noqa: E731
+    c0, k0, k1, c1 = timings(composed), timings(kernel), timings(kernel), timings(composed)
+    plain = timings(lambda: quantize_int8_ef_reference(g, res, offsets))
+    cold = [cold_ms(lambda gg, rr: ops.quantize_int8_ef(gg, rr, offsets), lambda: (g.clone(), res.clone()),
+                    n * (g.element_size() + 4))["ms"] for _ in range(2)]
+    r = dict(name="quantize_int8_ef", route="cuda", cuda_route="cuda", source=K15_SOURCE, replaces=K15_REPLACES,
+             also_replaces=K15_ALSO_REPLACES, launches=launches["ps_stream"]["quantize_int8_ef"],
+             launches_by_path={p: launches[p]["quantize_int8_ef"] for p in ("ps_stream", "ps_sync", "mixed_sync",
+                                                                            "mixed_stream")},
+             max_abs_err=errs["quantize_int8_ef"], shape=[segments, n // segments, str(g.dtype).split(".")[-1]],
+             ms=min(k0["graph"], k1["graph"]), ms_runs=[k0["graph"], k1["graph"]],
+             eager_ms=min(k0["eager"], k1["eager"]), plain_ms=plain["graph"], plain_eager_ms=plain["eager"],
+             bound_ms=bms, bound_by=by, library_ms=None, composite_ms=min(c0["graph"], c1["graph"]),
+             composite_kernels=K15_COMPOSED_CALLS, composite_bitwise=composed_same, cold_ms=min(cold),
+             cold_ms_runs=cold, note=f"no single PyTorch call computes it; {K15_COMPOSED_CALLS} composed calls: "
+                                     "composite_ms")
+    r["over_launch_floor"] = r["ms"] / min(floor)
+    r["cold_share"] = bms / r["cold_ms"]
+    print(f"  quantize_int8_ef ({segments} segments of {n // segments}, {g.dtype}): warm {r['ms_runs']} ms, cold "
+          f"{cold} ms, bound {bms:.5f} ({by}; {r['cold_share']:.1%} cold, {bms / r['ms']:.1%} warm), "
+          f"{r['over_launch_floor']:.2f}x the launch floor; plain {plain['graph']:.4f} ms; composed "
+          f"({K15_COMPOSED_CALLS} calls, bitwise the kernel's: {composed_same}) {r['composite_ms']:.5f} ms; launches "
+          f"{r['launches_by_path']}", flush=True)
+    return [r]
+
+
 def time_cache_kernels(dev, launches, errs, inputs, floor, build):
     """Phase 5's rows of K12 (``cache_aux``, and its read alone
     ``gather_entry_rows``) and K13 (``cached_gather``) at the saturated
@@ -5657,7 +6167,7 @@ def main() -> int:
 
     build = phase_build()
     errs = {"flash_attention": phase_flash_attention(dev), **phase_kernels(dev), **phase_fused_kernels(dev),
-            **phase_din_kernels(dev), **phase_bn_kernels(dev), **phase_cache_kernels(dev)}
+            **phase_din_kernels(dev), **phase_bn_kernels(dev), **phase_cache_kernels(dev), **phase_quant_kernels(dev)}
     fa_routes = path_flash_attention(dev)
     serving_launches, serving, feats_shape = path_serving(dev)
     training_launches, training, train_batch = path_training(dev)
@@ -5668,12 +6178,14 @@ def main() -> int:
     avazu_launches, avazu = path_avazu(dev)
     dnn_launches, dnn = path_dnn(dev)
     cache_launches, cache, cache_inputs = path_cache(dev)
+    mixed_launches, mixed, k15 = path_mixed(dev)
     launches = {"flash_attention": fa_routes, "serving": serving_launches,
                 "training": training_launches, "pipelined": pipelined_launches,
                 "durable": durable_launches, "fused": fused_launches, "fused_capture": fused_capture_launches,
-                **din_launches, **dnn_launches, **cache_launches}
+                **din_launches, **dnn_launches, **cache_launches, **mixed_launches}
     rows, floor = phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused_inputs, din_batch, build)
     rows += time_cache_kernels(dev, launches, errs, cache_inputs, floor, build)
+    rows += time_k15(dev, launches, errs, k15, floor)
     time_flash_backward(dev, card)
     print(json.dumps({"serving": serving, "card": card}), flush=True)
     print(json.dumps({"training": training, "card": card}), flush=True)
@@ -5685,6 +6197,7 @@ def main() -> int:
     print(json.dumps({"avazu": avazu, "avazu_launches": avazu_launches, "card": card}), flush=True)
     print(json.dumps({"dnn": dnn, "dnn_launches": dnn_launches, "card": card}), flush=True)
     print(json.dumps({"cache": cache, "cache_launches": cache_launches, "card": card}), flush=True)
+    print(json.dumps({"mixed": mixed, "mixed_launches": mixed_launches, "card": card}), flush=True)
 
     # one entry per kernel (each flash-attention route by its non-causal
     # row); times graph-replayed, eager beside them
@@ -5694,7 +6207,7 @@ def main() -> int:
             "zipf_bound_ms", "zipf_sort_ms", "longest_segment", "zipf_longest_segment", "one_row_ms",
             "composite_ms", "registers", "over_launch_floor", "no_keys_ms", "no_keys_cold_ms", "routing_cost_ms",
             "c32_ms", "eval_256_ms", "ring_ms", "also_replaces", "note", "restores_ms", "no_restores_ms",
-            "unfolded_pair_ms", "restores_bound_ms", "launches_by_path")
+            "unfolded_pair_ms", "restores_bound_ms", "launches_by_path", "composite_kernels", "composite_bitwise")
     kernels = [{k: r.get(k) for k in keys} for r in rows if not r.get("causal")]
     print(json.dumps({"kernels": kernels, "launch_floor_ms": floor, "card": card}), flush=True)
     print(card, flush=True)

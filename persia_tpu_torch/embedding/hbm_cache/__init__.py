@@ -15,7 +15,10 @@ rows and trains it in place.
 - a miss on a sign whose write-back is still in flight (the stream) is
   restored on the card from the group's eviction ring (K12, in the step's
   one launch); at ``pipeline_depth > 1`` the stream hoists a step's feed
-  (K12) above earlier steps' dense stages where their rows are disjoint.
+  (K12) above earlier steps' dense stages where their rows are disjoint;
+- slots the cache does not hold (``ps_slots``, hash-stacked slots) are
+  looked up through the worker and return their gradients to the servers,
+  in f32, bf16 or int8 with error feedback (K15), the mixed tier.
 
 Entry point: ``CachedTrainCtx`` (``train_step``, ``train_stream``,
 ``eval_batch``, ``flush``, ``publish`` and checkpoints).

@@ -39,9 +39,23 @@ uninterrupted one). ``resume`` rewinds the servers (or, with
 journaled), overlays the bytes now or, before ``init_state``, when it runs,
 and brings back the Adam batch advances, the epoch and the step count.
 
-Not in this slice (their arguments raise): a device mesh, a
-parameter-server tier for some slots, a dynamic loss scale, the health
-probe and its scrub at a fence, tiering and the sharded feeder.
+**The mixed tier** (``ps_slots``, and every hash-stacked slot): slots the
+cache does not hold are looked up through the worker (``_ps_forward``: a
+staleness ref, the entries staged beside the step's inputs, in bf16 for
+the bf16 and int8 wires) and trained from the step's gradients
+(``_apply_ps_grads``, which releases the ref whatever happens). The
+gradients cross to the host in ``ps_wire_dtype``: f32, bf16, or int8 with
+a scale a slot and an error-feedback residual that stays on the card
+(K15; ``_ps_residual``, one a flat length: a new bucketed shape starts
+from zeros). The synchronous step applies them before it returns; the
+stream's write-back lane batches ``psgrad_batch`` steps of them. With a
+job state an apply carries the step's journal id, and a resume refuses a
+manifest written under another PS slot set (moving slots between the
+tiers is not part of the port).
+
+Not in this slice (their arguments raise): a device mesh, a dynamic loss
+scale, the health probe and its scrub at a fence, tiering and the sharded
+feeder.
 """
 
 from __future__ import annotations
@@ -56,21 +70,24 @@ import torch
 
 from persia_tpu_torch import jobstate
 from persia_tpu_torch.config import EmbeddingConfig
-from persia_tpu_torch.ctx import _to_device
+from persia_tpu_torch.ctx import _to_device, stage_embeddings
 from persia_tpu_torch.data import PersiaBatch
 from persia_tpu_torch.device import resolve_device
 from persia_tpu_torch.embedding.hbm_cache.groups import (
     CachedTrainState,
+    CacheLayout,
     _apply_aux,
     _state_init_consts,
     init_cached_tables,
 )
-from persia_tpu_torch.embedding.hbm_cache.step import build_cached_eval_step, build_cached_train_step
+from persia_tpu_torch.embedding.hbm_cache.step import PS_GRAD_WIRES, build_cached_eval_step, build_cached_train_step
 from persia_tpu_torch.embedding.hbm_cache.tier import CachedEmbeddingTier
 from persia_tpu_torch.embedding.optim import OPTIMIZER_ADAM
 from persia_tpu_torch.parallel.fused_step import prepare_dense_optimizer
-from persia_tpu_torch.parallel.train_step import default_loss_fn, unpack_step_header
+from persia_tpu_torch.parallel.grad_sync import dequantize_int8_np
+from persia_tpu_torch.parallel.train_step import default_loss_fn, unpack_step_grads, unpack_step_header
 from persia_tpu_torch.weights import cached_state_from_flax_bytes, cached_state_to_flax_bytes
+from persia_tpu_torch.wire import tensor_to_host_f32
 
 WB_WIRE_DTYPES = ("float32", "bfloat16")
 
@@ -109,7 +126,10 @@ class CachedTrainCtx:
     evicted rows' way to the host / of the checked-out rows' way to the
     card. ``admit_touches``: a sign enters the cache on its Nth touching
     batch. ``wb_ring_rows``: the most rows of a group's eviction ring
-    (``ring_rows``), which the stream's in-flight evictions fill."""
+    (``ring_rows``), which the stream's in-flight evictions fill.
+    ``ps_slots``: slots served by the parameter-server tier besides the
+    hash-stacked ones; ``ps_wire_dtype`` (float32, bfloat16 or int8) the
+    dtype of their gradients' way to the host."""
 
     def __init__(
         self,
@@ -136,8 +156,7 @@ class CachedTrainCtx:
         wb_ring_rows: int = 1 << 20,
     ):
         unsupported = {
-            "mesh": mesh is not None, "ps_slots": bool(ps_slots), "ps_wire_dtype": ps_wire_dtype != "float32",
-            "dynamic_loss_scale": dynamic_loss_scale, "health_probe": bool(health_probe),
+            "mesh": mesh is not None, "dynamic_loss_scale": dynamic_loss_scale, "health_probe": bool(health_probe),
             "health_clip_norm": health_clip_norm is not None,
             "feed_threads": feed_threads not in (None, 1), "feed_shards": feed_shards is not None,
         }
@@ -146,6 +165,8 @@ class CachedTrainCtx:
                 f"the port's cache tier has no {', '.join(k for k, v in unsupported.items() if v)} yet")
         if wb_wire_dtype not in WB_WIRE_DTYPES:
             raise ValueError(f"wb_wire_dtype must be one of {WB_WIRE_DTYPES}, got {wb_wire_dtype!r}")
+        if ps_wire_dtype not in PS_GRAD_WIRES:
+            raise ValueError(f"ps_wire_dtype must be one of {PS_GRAD_WIRES}, got {ps_wire_dtype!r}")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.dense_optimizer = dense_optimizer
@@ -155,14 +176,20 @@ class CachedTrainCtx:
         self._wb_bf16 = wb_wire_dtype == "bfloat16"
         prepare_dense_optimizer(dense_optimizer, self.device)
         self.tier = CachedEmbeddingTier(worker, self.sparse_cfg, cache_rows, embedding_config, init_seed=init_seed,
-                                        admit_touches=admit_touches, aux_wire_dtype=aux_wire_dtype)
+                                        admit_touches=admit_touches, aux_wire_dtype=aux_wire_dtype,
+                                        ps_slots=ps_slots)
         # the feature groups of the cached slots: their server-side Adam
         # powers move with the card's, once a step
         self._cached_groups = tuple(sorted({embedding_config.group_of(s) for g in self.tier.groups
                                             for s in g.slots}))
         self._state_consts = _state_init_consts(self.sparse_cfg)
         self._step = build_cached_train_step(model, dense_optimizer, self.sparse_cfg, self.tier.groups,
-                                             loss_fn=loss_fn or default_loss_fn)
+                                             loss_fn=loss_fn or default_loss_fn, ps_grad_wire=ps_wire_dtype)
+        # the PS slots' entries cross to the card in bf16 for the bf16 and
+        # int8 gradient wires; the int8 wire's residual a flat length
+        self._ps_int8 = ps_wire_dtype == "int8"
+        self._ps_stage_dtype = "bfloat16" if ps_wire_dtype in ("bfloat16", "int8") else None
+        self._ps_residual: Dict[int, torch.Tensor] = {}
         self._eval = build_cached_eval_step(model, self.tier.groups)
         self.state: Optional[CachedTrainState] = None
         # the deferred write-back of the last dispatched step: (evict_meta,
@@ -302,54 +329,147 @@ class CachedTrainCtx:
         ev.record()
         return host, ev
 
+    def _run_step(self, inputs, layout):
+        """The step on staged inputs, the int8 wire's residual threaded
+        through it: (header, ps_gpacked: None, a flat tensor or (q,
+        scales))."""
+        if self._ps_int8 and inputs.get("ps_emb"):
+            total = sum((e["pooled"] if "pooled" in e else e["distinct"]).numel() for e in inputs["ps_emb"])
+            res = self._ps_residual.get(total)
+            if res is None:  # a new shape: its positions name other signs
+                res = torch.zeros(total, dtype=torch.float32, device=self.device)
+            inputs = dict(inputs, ps_gres=res)
+        header, ps = self._step(self.state, inputs, layout)
+        if self._ps_int8 and ps is not None:
+            q, scales, new_res = ps
+            self._ps_residual[new_res.numel()] = new_res
+            ps = (q, scales)
+        return header, ps
+
     def _dispatch(self, inputs, layout, miss_aux, cold_aux, restore_aux, evict_aux, evict_meta=None):
         """A step's card work in order, from staged tensors: K12 for every
         touched group (its restores from the group's eviction ring in the
-        same launch), then the step. Returns (header, device payloads)."""
+        same launch), then the step. Returns (header, device payloads,
+        ps_gpacked)."""
         payloads = self._apply_feed(miss_aux, cold_aux, evict_aux, evict_meta, restore_aux)
-        return self._step(self.state, inputs, layout), payloads
+        header, ps = self._run_step(inputs, layout)
+        return header, payloads, ps
 
     def _dispatch_packed(self, items):
-        """K staged steps without restores, back to back: ``items`` [(inputs,
-        layout, miss_aux, cold_aux, evict_aux, evict_meta), ...]. Each
-        step's K12 reads the tables the step before it left, as a single
-        step's does, so a pack changes no bit. Returns (headers, payloads)
-        a step."""
+        """K staged steps without restores or PS slots, back to back:
+        ``items`` [(inputs, layout, miss_aux, cold_aux, evict_aux,
+        evict_meta), ...]. Each step's K12 reads the tables the step before
+        it left, as a single step's does, so a pack changes no bit. Returns
+        (headers, payloads) a step."""
         headers, payloads = [], []
         for inputs, layout, miss_aux, cold_aux, evict_aux, evict_meta in items:
             payloads.append(self._apply_feed(miss_aux, cold_aux, evict_aux, evict_meta))
-            headers.append(self._step(self.state, inputs, layout))
+            headers.append(self._step(self.state, inputs, layout)[0])
         return headers, payloads
 
     def _dispatch_dense(self, inputs, layout):
         """The dense stage of a step whose feed a pipelined stream already
-        dispatched: the step alone. Returns its header."""
-        return self._step(self.state, inputs, layout)
+        dispatched (never one with PS slots): the step alone. Returns its
+        header."""
+        return self._step(self.state, inputs, layout)[0]
 
     def _dispatch_packed_dense(self, items):
         """K feed-done steps' dense stages back to back (``items`` [(inputs,
         layout), ...]), no aux. Returns their headers."""
-        return [self._step(self.state, inputs, layout) for inputs, layout in items]
+        return [self._step(self.state, inputs, layout)[0] for inputs, layout in items]
+
+    # ------------------------------------------------ the PS-tier slots
+
+    def _ps_forward(self, batch: PersiaBatch):
+        """Look the batch's PS-tier slots up through the worker: (ref, the
+        worker's embedding batches, their true distinct counts, their
+        staged entries), or None when the batch carries none. The ref's
+        staleness slot is released by ``_apply_ps_grads``; a failure before
+        that aborts it."""
+        feats = [f for f in batch.id_type_features if f.name in self.tier.ps_slots]
+        if not feats:
+            return None
+        ref = self.worker.put_forward_ids(PersiaBatch(feats, requires_grad=False))
+        try:
+            embs = self.worker.forward_batch_id(ref, train=True)
+            entries, counts = stage_embeddings(embs, dtype=self._ps_stage_dtype, csr=self.device.type == "cuda")
+        except BaseException:
+            self.worker.abort_gradient(ref)
+            raise
+        return ref, embs, counts, entries
+
+    @staticmethod
+    def _with_ps(inputs, layout, ps_item):
+        """A prepared step's inputs and layout with its PS entries."""
+        if ps_item is None:
+            return inputs, layout
+        _ref, embs, _counts, entries = ps_item
+        return dict(inputs, ps_emb=entries), CacheLayout(stacked=layout.stacked, ps=tuple(eb.name for eb in embs))
+
+    @staticmethod
+    def _ps_host(ps_gpacked):
+        """The host copy of a step's ``ps_gpacked`` (a blocking read): f32
+        flat, or (q int8, scales f32)."""
+        if isinstance(ps_gpacked, tuple):
+            return tuple(t.cpu().numpy() for t in ps_gpacked)
+        return tensor_to_host_f32(ps_gpacked)
+
+    def _apply_ps_grads(self, ps_item, host, journal_step: Optional[int] = None) -> None:
+        """Return a step's PS-tier gradients to the worker from their host
+        copy (``_ps_host``'s form; the int8 codes dequantized a slot by its
+        scale), padding rows sliced off; under a job state with the step's
+        journal id. The ref is released by the update, or aborted on
+        failure."""
+        ref, embs, counts, entries = ps_item
+        try:
+            if isinstance(host, tuple):
+                q, scales = host
+                grads = [dequantize_int8_np(g, s) for g, s in zip(unpack_step_grads(q, {"emb": entries}), scales)]
+            else:
+                grads = unpack_step_grads(np.asarray(host, dtype=np.float32), {"emb": entries})
+            slot_grads = {eb.name: (g if d is None else g[:d]) for eb, g, d in zip(embs, grads, counts)}
+            jid = None
+            if journal_step is not None and self._job_epoch is not None:
+                jid = jobstate.make_journal_id(self._job_epoch, journal_step)
+            self.worker.update_gradient_batched(ref, slot_grads, journal_id=jid)
+        except BaseException:
+            self.worker.abort_gradient(ref)
+            raise
 
     def train_step(self, batch: PersiaBatch, fetch_metrics: bool = True) -> Optional[Dict]:
         """One step; returns {"loss", "preds"} (the step's, read back from
         the card) or, with ``fetch_metrics=False``, None (``drain`` /
-        ``last_metrics`` read them later)."""
+        ``last_metrics`` read them later). The PS-tier slots' gradients are
+        applied before it returns."""
         inputs, layout, miss_aux, cold_aux, _restore, evict_aux, evict_meta = self.tier.prepare_batch(
             batch, hazard_gate=self._sync_hazard_gate)
-        if self.state is None:
-            self.init_state()
-        inputs, miss_aux, cold_aux, evict_aux = self._stage(inputs, miss_aux, cold_aux, evict_aux)[:4]
-        # no restores here (the gate landed the write-back instead): K12, the
-        # payloads' copy to the host behind it, then the step
-        host, ev = self._fetch_payloads(self._apply_feed(miss_aux, cold_aux, evict_aux, evict_meta))
-        header = self._step(self.state, inputs, layout)
+        ps_item = self._ps_forward(batch)
+        try:
+            inputs, layout = self._with_ps(inputs, layout, ps_item)
+            if self.state is None:
+                self.init_state()
+            inputs, miss_aux, cold_aux, evict_aux = self._stage(inputs, miss_aux, cold_aux, evict_aux)[:4]
+            # no restores here (the gate landed the write-back instead): K12, the
+            # payloads' copy to the host behind it, then the step
+            host, ev = self._fetch_payloads(self._apply_feed(miss_aux, cold_aux, evict_aux, evict_meta))
+            header, ps = self._run_step(inputs, layout)
+            ps_host = self._ps_host(ps) if ps_item is not None else None
+        except BaseException:
+            if ps_item is not None:
+                self.worker.abort_gradient(ps_item[0])
+            raise
+        if ps_item is not None:
+            # no sign of a PS-tier slot is ever in the cache (the tier's
+            # checks), so these updates need no order against the write-back
+            self._apply_ps_grads(ps_item, ps_host, journal_step=self._global_step)
         prev = self._pending
         self._pending = (evict_meta, host, ev, header, tuple(inputs["labels"][0].shape))
         self._pending_signs = {int(s) for ev_signs, k, _ring_pos in evict_meta.values() for s in ev_signs[:k]}
         if prev is not None:
             self._write_back_only(prev)
         if self.sparse_cfg.kind == OPTIMIZER_ADAM:
+            # the cached groups' powers move here; the PS-tier groups' in
+            # the worker's gradient batch (no feature group spans both)
             for grp in self._cached_groups:
                 self.tier.router.advance_batch_state(grp)
         self._global_step += 1
@@ -419,11 +539,16 @@ class CachedTrainCtx:
     def eval_batch(self, batch: PersiaBatch) -> np.ndarray:
         """Predictions (B, 1), changing neither the cache nor the server
         (the deferred write-back lands first: eval's misses read the
-        server)."""
+        server, as its PS-tier slots do)."""
         self._land_pending()
         if self.state is None:
             raise RuntimeError("eval before any train_step/init_state")
         inputs, layout = self.tier.prepare_eval_batch(batch)
+        feats = [f for f in batch.id_type_features if f.name in self.tier.ps_slots]
+        if feats:  # the servers' infer lookup, f32 entries (as the reference stages them)
+            embs = self.worker.forward_directly(PersiaBatch(feats, requires_grad=False), train=False)
+            inputs["ps_emb"] = stage_embeddings(embs)[0]
+            layout = CacheLayout(stacked=layout.stacked, ps=tuple(eb.name for eb in embs))
         inputs = self._stage(inputs, {}, {}, {})[0]
         return self._eval(self.state, inputs, layout).float().cpu().numpy()
 
@@ -476,6 +601,7 @@ class CachedTrainCtx:
         the flush), ``loader.json``, the RNG streams and the touch gate's
         counters, as one manifest. Its ms by part: ``last_capture_ms``."""
         ms: Dict[str, float] = {}
+        occupancy = dict(occupancy, ps_slots=list(self.tier.ps_slots))  # a resume checks the set
         t0 = time.perf_counter()
         self._flush_tier()
         t1 = time.perf_counter()
@@ -515,15 +641,25 @@ class CachedTrainCtx:
         ``init_state``, when it runs, the touch counters, the Adam batch
         advances, the epoch and the step count; ``generators`` as in
         ``jobstate.resume_job``. A cache this ctx still holds is dropped
-        unwritten (the manifest's pools are cold). Returns the manifest
+        unwritten (the manifest's pools are cold). A manifest whose
+        ``cache.json`` names other PS-tier slots raises, before anything
+        moves. Returns the manifest
         (continue with ``train_stream(batches[manifest.step:],
         start_step=manifest.step, ...)``), or None on a cold start, which
         arms epoch 0. ``last_resume_info`` holds the recovery numbers.
         Tiering's placements and the health scrub are not part of the port's
         cache tier."""
         router = self.tier.router
-        manifest, info = jobstate.resume_job(jobstate.coerce_manager(job_state), replicas=router.replicas,
-                                             rewind_ps=restore_ps, optimizer=self.sparse_cfg, generators=generators)
+        mgr = jobstate.coerce_manager(job_state)
+        newest = mgr.latest()
+        if newest is not None and newest.has("cache.json"):
+            saved = newest.read_json("cache.json").get("ps_slots")
+            if saved is not None and sorted(saved) != sorted(self.tier.ps_slots):
+                raise ValueError(f"the manifest at step {newest.step} was written with PS-tier slots {sorted(saved)}, "
+                                 f"this ctx has {sorted(self.tier.ps_slots)}: moving slots between the tiers is "
+                                 "not part of the port")
+        manifest, info = jobstate.resume_job(mgr, replicas=router.replicas, rewind_ps=restore_ps,
+                                             optimizer=self.sparse_cfg, generators=generators)
         self.last_resume_info = info
         if manifest is None:
             self._job_epoch = 0

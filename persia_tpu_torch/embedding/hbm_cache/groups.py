@@ -63,29 +63,39 @@ class CacheGroup:
 @dataclass(frozen=True)
 class CacheLayout:
     """Which slots a batch carries: ``stacked`` is ((group, (slot, ...)),
-    ...) in stack order."""
+    ...) in stack order; ``ps`` the slots the parameter-server tier serves
+    (hash-stacked or excluded), in the order of their ``batch["ps_emb"]``
+    entries."""
 
     stacked: Tuple[Tuple[str, Tuple[str, ...]], ...]
+    ps: Tuple[str, ...] = ()
 
 
 def make_cache_groups(cfg: EmbeddingConfig, rows_per_group: Dict[int, int], sparse_cfg: OptimizerConfig,
-                      ) -> List[CacheGroup]:
+                      exclude: Sequence[str] = ()) -> Tuple[List[CacheGroup], Tuple[str, ...]]:
     """One group a dim, in ascending dim, its slots sorted (a group dedups
-    its signs across slots, so slots that share a sign share a row). A
-    hash-stack slot, many table keys an id, cannot be cached: it raises
-    (the reference routes it to a parameter-server tier, which the port's
-    cache tier does not have yet)."""
+    its signs across slots, so slots that share a sign share a row).
+    Returns ``(groups, ps_slots)``: a hash-stack slot (many table keys an
+    id, which cannot be cached) and every ``exclude``d one ride the
+    parameter-server tier (sorted); an ``exclude``d name the config lacks
+    raises ``KeyError``."""
+    unknown = set(exclude) - set(cfg.slots_config)
+    if unknown:
+        raise KeyError(f"exclude names not in embedding config: {sorted(unknown)}")
     by_dim: Dict[int, Tuple[List[str], List[str]]] = {}
+    ps_slots: List[str] = []
     for name, slot in cfg.slots_config.items():
-        if slot.hash_stack_config.enabled:
-            raise ValueError(f"slot {name!r} is hash-stacked: the cache tier cannot hold it")
+        if slot.hash_stack_config.enabled or name in exclude:
+            ps_slots.append(name)
+            continue
         pooled, raw = by_dim.setdefault(slot.dim, ([], []))
         (pooled if slot.embedding_summation else raw).append(name)
-    return [
+    groups = [
         CacheGroup(name=f"cache_d{dim}", dim=dim, rows=rows_per_group[dim], state_dim=sparse_cfg.state_dim(dim),
                    pooled_slots=tuple(sorted(by_dim[dim][0])), raw_slots=tuple(sorted(by_dim[dim][1])))
         for dim in sorted(by_dim)
     ]
+    return groups, tuple(sorted(ps_slots))
 
 
 def init_cached_tables(groups: Sequence[CacheGroup], sparse_cfg: OptimizerConfig, device=None,
@@ -117,13 +127,16 @@ def _slot_group_of(groups: Sequence[CacheGroup], slot: str) -> str:
     raise KeyError(slot)
 
 
-def _model_emb_from_gathered(layout: CacheLayout, pooled: Dict[str, torch.Tensor], raw: Dict[str, Tuple]) -> List:
-    """The model's per-slot inputs in sorted slot order: each stacked
-    group's pooled (S, B, dim) split by slot, and each raw slot's (rows,
-    mask)."""
+def _model_emb_from_gathered(layout: CacheLayout, pooled: Dict[str, torch.Tensor], raw: Dict[str, Tuple],
+                             ps_inputs: Sequence = ()) -> List:
+    """The model's per-slot inputs in sorted slot order (string order:
+    ``cat_10`` before ``cat_2``): each stacked group's pooled (S, B, dim)
+    split by slot, each raw slot's (rows, mask), and the parameter-server
+    slots' inputs (``ps_inputs``, in ``layout.ps`` order)."""
     slot_emb: Dict[str, object] = {}
     for gname, names in layout.stacked:
         for i, name in enumerate(names):
             slot_emb[name] = pooled[gname][i]
     slot_emb.update(raw)
+    slot_emb.update(zip(layout.ps, ps_inputs))
     return [slot_emb[n] for n in sorted(slot_emb)]

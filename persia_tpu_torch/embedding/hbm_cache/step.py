@@ -4,24 +4,28 @@
 A train step, on the card, in place on the state:
 
     cache rows → gather-pool and update keys (K13, one launch a group's
-        stacked slots and one a raw slot) → model forward and backward →
-        Adam on the dense tower → per group, the per-position gradients
-        and ``torch.sort`` + K5 over the routed keys (one sparse update)
+        stacked slots and one a raw slot) → the parameter-server slots'
+        inputs (``batch["ps_emb"]``: device-pooled slots pooled by K1, raw
+        ones gathered by K6) → model forward and backward → Adam on the
+        dense tower → per group, the per-position gradients and
+        ``torch.sort`` + K5 over the routed keys (one sparse update) →
+        the PS slots' gradients packed for the host (int8 wire: K15)
 
 The pooled rows are the step's differentiated leaves for the stacked
 slots (``ops.cached_gather.PooledRows``: its backward hands back the
-per-position gradients), the raw rows for a raw slot. The keys route the
-pad row C to K5's sentinel, so the update needs no mask and never touches
-the pad row, weight decay included. The aux program (K12) runs before
-the step, apart (``CachedTrainCtx._apply_feed``).
+per-position gradients), the raw rows for a raw slot, the entries' float
+rows for a PS slot. The keys route the pad row C to K5's sentinel, so the
+update needs no mask and never touches the pad row, weight decay
+included. The aux program (K12) runs before the step, apart
+(``CachedTrainCtx._apply_feed``).
 
-This slice has a static loss scale, no sentinel probe and no
-parameter-server tier inside the step: asking for one raises.
+This slice has a static loss scale and no sentinel probe (asking for
+either raises), so the PS wire carries no ``[scale | finite]`` tail.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -34,14 +38,34 @@ from persia_tpu_torch.embedding.hbm_cache.groups import (
 )
 from persia_tpu_torch.embedding.optim import OptimizerConfig
 from persia_tpu_torch.ops.cached_gather import PooledRows, cached_gather
+from persia_tpu_torch.ops.quantize_int8 import quantize_int8_ef
 from persia_tpu_torch.ops.sparse_update import sparse_update
-from persia_tpu_torch.parallel.train_step import default_loss_fn
+from persia_tpu_torch.parallel.train_step import _embedding_model_inputs, _split_emb, default_loss_fn
+
+PS_GRAD_WIRES = ("float32", "bfloat16", "int8")
 
 
 def _unsupported(**options) -> None:
     on = sorted(k for k, v in options.items() if v)
     if on:
         raise NotImplementedError(f"the cache tier's synchronous step has no {', '.join(on)} yet")
+
+
+def _pack_ps_grads(grads: List[torch.Tensor], int8: bool, residual: Optional[torch.Tensor]):
+    """The PS slots' gradients for the host, slot after slot: flat in
+    their own dtype (the entries' wire dtype: f32, or bf16 for the bf16
+    wire), or with ``int8`` quantized a slot a segment against
+    ``residual`` (zeros where None): ``(q int8, scales f32 (slots,), new
+    residual)``."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    if not int8:
+        return flat
+    offsets = [0]
+    for g in grads:
+        offsets.append(offsets[-1] + g.numel())
+    if residual is None:
+        residual = torch.zeros(flat.shape, dtype=torch.float32, device=flat.device)
+    return quantize_int8_ef(flat, residual, offsets)
 
 
 def build_cached_train_step(
@@ -52,21 +76,30 @@ def build_cached_train_step(
     loss_fn: Callable = default_loss_fn,
     dynamic_loss_scale: bool = False,
     sentinel_probe: bool = False,
-    ps_grad_wire=None,
+    ps_grad_wire: str = "float32",
 ):
-    """``step(state, batch, layout) -> header``: header is the device f32
-    ``[loss, sigmoid(logits)...]``, the reference's layout.
+    """``step(state, batch, layout) -> (header, ps_gpacked)``: header is the
+    device f32 ``[loss, sigmoid(logits)...]``, the reference's layout;
+    ``ps_gpacked`` the PS slots' gradients for the host (None without PS
+    slots): with ``ps_grad_wire`` "float32" / "bfloat16" one flat
+    tensor in the entries' dtype (their wire dtype), with "int8" ``(q
+    int8, scales f32 a slot, new residual f32)`` (K15; the residual read
+    from ``batch["ps_gres"]``, zeros where absent).
 
     batch = {"dense": [(B, F) f32], "labels": [(B, 1) f32],
     "stacked_rows": {group: (S, B, L) int32, pad C}, "stacked_scale":
     {group: (S, B) f32} (absent where no slot scales), "raw_rows": {slot:
-    (B, L) int32}}, tensors on the state's device."""
-    _unsupported(dynamic_loss_scale=dynamic_loss_scale, sentinel_probe=sentinel_probe,
-                 ps_grad_wire=ps_grad_wire is not None)
+    (B, L) int32}, "ps_emb": [the PS slots' entries, as
+    ``persia_tpu_torch.ctx.stage_embeddings`` makes them], "ps_gres": (n,)
+    f32}, tensors on the state's device."""
+    _unsupported(dynamic_loss_scale=dynamic_loss_scale, sentinel_probe=sentinel_probe)
+    if ps_grad_wire not in PS_GRAD_WIRES:
+        raise ValueError(f"ps_grad_wire must be one of {PS_GRAD_WIRES}, got {ps_grad_wire!r}")
+    int8 = ps_grad_wire == "int8"
     anchors: Dict[torch.device, torch.Tensor] = {}
     betas: Dict[torch.device, torch.Tensor] = {}
 
-    def step(state: CachedTrainState, batch: Dict, layout: CacheLayout) -> torch.Tensor:
+    def step(state: CachedTrainState, batch: Dict, layout: CacheLayout) -> Tuple[torch.Tensor, object]:
         dev = state.emb_batch_state.device
         if dev not in anchors:
             anchors[dev] = torch.zeros((), device=dev, requires_grad=True)
@@ -86,8 +119,11 @@ def build_cached_train_step(
             leaf = got.detach().requires_grad_(True)
             raw_leaves[name] = (leaf, keys)
             raw[name] = (leaf, mask)
+        ps_diff, ps_static = _split_emb(batch.get("ps_emb", []))
+        ps_leaves = [d.detach().requires_grad_(True) for d in ps_diff]
         model.train()
-        logits = model(batch["dense"], _model_emb_from_gathered(layout, pooled, raw))
+        logits = model(batch["dense"], _model_emb_from_gathered(layout, pooled, raw,
+                                                                _embedding_model_inputs(ps_leaves, ps_static)))
         loss = loss_fn(logits, batch["labels"][0])
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -112,7 +148,11 @@ def build_cached_train_step(
                           torch.cat(keys) if len(keys) > 1 else keys[0],
                           torch.cat(grads) if len(grads) > 1 else grads[0], state.emb_batch_state)
         state.step.add_(1)
-        return torch.cat([loss.detach().reshape(1).float(), torch.sigmoid(logits.detach()).reshape(-1).float()])
+        header = torch.cat([loss.detach().reshape(1).float(), torch.sigmoid(logits.detach()).reshape(-1).float()])
+        if not ps_leaves:
+            return header, None
+        ps_grads = [l.grad if l.grad is not None else torch.zeros_like(l) for l in ps_leaves]
+        return header, _pack_ps_grads(ps_grads, int8, batch.get("ps_gres"))
 
     return step
 
@@ -120,7 +160,8 @@ def build_cached_train_step(
 def build_cached_eval_step(model: torch.nn.Module, groups: Sequence[CacheGroup]):
     """``eval_step(state, batch, layout) -> preds``: the eval batch adds
     ``miss_tables`` {group: (M, dim) f32}; a row > C reads its miss table
-    (K13's eval mode), and nothing of the cache is written."""
+    (K13's eval mode), and nothing of the cache is written. PS slots read
+    their ``ps_emb`` entries (the servers' infer lookup)."""
 
     @torch.no_grad()
     def eval_step(state: CachedTrainState, batch: Dict, layout: CacheLayout) -> torch.Tensor:
@@ -132,7 +173,9 @@ def build_cached_eval_step(model: torch.nn.Module, groups: Sequence[CacheGroup])
         for name, rows in batch["raw_rows"].items():
             gname = _slot_group_of(groups, name)
             raw[name] = cached_gather(state.tables[gname], rows, pool=False, miss_table=batch["miss_tables"][gname])
+        ps_diff, ps_static = _split_emb(batch.get("ps_emb", []))
         model.eval()
-        return torch.sigmoid(model(batch["dense"], _model_emb_from_gathered(layout, pooled, raw)))
+        return torch.sigmoid(model(batch["dense"], _model_emb_from_gathered(
+            layout, pooled, raw, _embedding_model_inputs(ps_diff, ps_static))))
 
     return eval_step

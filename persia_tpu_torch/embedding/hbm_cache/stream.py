@@ -21,6 +21,23 @@ Four lanes, each a thread:
   servers (``set_embedding``), then removes their pending-map entries and
   frees their ring spans.
 
+**The parameter-server tier's lane** (``ps_slots``, hash-stacked slots).
+The feeder also looks a batch's PS-tier slots up through the worker
+(``ctx._ps_forward``, a staleness ref) and stages their entries with the
+step. The dispatch queues the step's packed PS gradients (``("psgrad",
+...)``, with an event recorded after the step) on the write-back queue,
+before its evictions; such a step never joins a pack and a pipelined
+stream never hoists its feed. The write-back gathers ``psgrad_batch`` of
+them, copies them all to pinned memory on its stream, waits once, and
+applies them to the worker in step order (``ctx._apply_ps_grads``, with
+the global step's journal id under a job state); on a failure the refs
+not yet applied are aborted. A PS-tier forward may so read entries whose
+earlier gradients are still on their way: the staleness is bounded by
+``prefetch + psgrad_batch`` steps, the reference's. No sign of a PS-tier
+slot is ever cached (the tier's checks), so the two kinds of write-back
+need no order between them. Every ref the stream took is aborted when it
+ends (a no-op for an applied one), so a failure leaks none.
+
 **The eviction ring.** A step's evicted entries also land in its group's
 ring on the card, at a span the feeder reserves (``ring_alloc``) before
 its hazard gate runs. A later miss on a sign whose write-back has not
@@ -76,8 +93,8 @@ does. The ring's positions carry on across a fence: its rows are stale but
 no span is live. ``start_step`` offsets the cadence and ``ctx._global_step``
 (``start_step + seq + 1`` after each step) for a resumed stream.
 
-The health sentinel, quarantined steps and the parameter-server tier's
-gradient lane are not part of this slice: asking for one raises.
+The health sentinel and quarantined steps are not part of this slice:
+asking for either raises.
 """
 
 from __future__ import annotations
@@ -175,10 +192,9 @@ def run_train_stream(
     staged queue at least ``pipeline_depth``). ``wb_flush_steps``: the
     steps' payloads a write-back flush takes. ``dispatch_k``: the most
     steps a pack holds. ``pipeline_depth``: the stage graph's window (the
-    module's docstring); 1 dispatches every feed in order. ``psgrad_batch``
-    only sizes the write-back queue as the reference's does: the
-    parameter-server tier whose gradients it batches cannot be built
-    (``ps_slots`` raise). ``snapshot_every``: the fences' cadence in global
+    module's docstring); 1 dispatches every feed in order.
+    ``psgrad_batch``: the steps of PS-tier gradients the write-back fetches
+    and applies together. ``snapshot_every``: the fences' cadence in global
     steps, run where ``job_state`` (a ``JobStateManager`` or its root: a
     manifest committed at each fence) or ``fence_callback`` is set (the
     module's docstring). ``start_step``: the global step of the first
@@ -206,12 +222,13 @@ def run_train_stream(
     slot_group = {s: g.name for s, g in tier._slot_group.items()}
     main = torch.cuda.current_stream(device) if device.type == "cuda" else None
     flush_steps = max(1, int(wb_flush_steps))
+    ps_batch = max(1, int(psgrad_batch))
     stop = threading.Event()
     cv = threading.Condition()  # guards the ring accounting and errors
     errors: List[BaseException] = []
     prep_q: "queue.Queue" = queue.Queue(maxsize=prefetch)
     staged_q: "queue.Queue" = queue.Queue(maxsize=qcap)
-    wb_q: "queue.Queue" = queue.Queue(maxsize=flush_steps + qcap + max(1, int(psgrad_batch)))
+    wb_q: "queue.Queue" = queue.Queue(maxsize=flush_steps + qcap + ps_batch)
     flush_now = threading.Event()  # the feeder found the ring full
     sign_map = PendingSignMap()
     salts = dict(tier.group_salt)
@@ -219,10 +236,12 @@ def run_train_stream(
     tails: Dict[str, int] = {}  # ring rows freed, unwrapped
     spans: Dict[str, List[int]] = {}  # each live span's rows (with its skip), in step order
     lane_s = {"feeder": 0.0, "stager": 0.0, "dispatch": 0.0, "write_back": 0.0}
+    ps_refs: List[int] = []  # every PS-tier ref the stream took, aborted at its end (a no-op once applied)
     # feed_leads[n]: the stager's feeds enqueued while n earlier steps' dense
     # stages were still to come (n > 0: the feed ran ahead of them)
     stats = {"dispatch_k": K, "packs": 0, "packed_steps": 0, "single_steps": 0, "pipelined_feeds": 0,
              "feed_leads": [0] * graph.depth, "restore_steps": 0, "restored_rows": 0, "ring_waits": 0, "flushes": 0,
+             "psgrad_flushes": 0, "psgrad_steps": 0, "psgrad_bytes": 0,
              "fences": 0, "fence_callback_errors": 0, "fence_ms": [], "lane_s": lane_s}
     dense_done = [0]  # steps whose dense stage is enqueued (under the state lock)
     t_start = time.perf_counter()
@@ -313,6 +332,10 @@ def run_train_stream(
                             raise _Stopped
                 t0 = time.perf_counter()
                 item = tier.prepare_batch(batch, hazard_gate=gate, ring_alloc=ring_alloc, pending_map=sign_map)
+                ps_item = ctx._ps_forward(batch)
+                if ps_item is not None:
+                    ps_refs.append(ps_item[0])
+                    item = ctx._with_ps(item[0], item[1], ps_item) + item[2:]
                 # the evicted signs are in flight from here: a later admit
                 # restores them from their ring rows
                 for gname, (ev_signs, k, ring_pos) in item[6].items():
@@ -323,7 +346,7 @@ def run_train_stream(
                     stats["restored_rows"] += sum(int((dst <= ctx._group(g).rows).sum())
                                                   for g, (_src, dst, _slot) in restore.items())
                 lane_s["feeder"] += time.perf_counter() - t0
-                put(prep_q, (seq, item))
+                put(prep_q, (seq, item, ps_item))
                 seq += 1
             put(prep_q, _END)
         except _Stopped:
@@ -362,9 +385,10 @@ def run_train_stream(
                     if isinstance(got, _Fence):  # in order, no feed
                         put(staged_q, got)
                         continue
-                    seq, (inputs, layout, miss, cold, restore, ev_aux, ev_meta) = got
+                    seq, (inputs, layout, miss, cold, restore, ev_aux, ev_meta), ps_item = got
                     t0 = time.perf_counter()
-                    pipelinable = pipelined and not restore
+                    # a restoring step, or one with PS-tier slots, keeps the in-order path
+                    pipelinable = pipelined and not restore and ps_item is None
                     # the hazard sets from the host arrays, before staging
                     hazard = feed_hazard_info(inputs, miss, cold, ev_aux, slot_group) if pipelinable else None
                     with graph.lane("feed"):
@@ -386,7 +410,7 @@ def run_train_stream(
                             with graph.lane("feed"):
                                 feed_payloads = hoist_feed(item)
                             lane_s["stager"] += time.perf_counter() - t0
-                    put(staged_q, item + (feed_payloads,))
+                    put(staged_q, item + (feed_payloads, ps_item))
         except _Stopped:
             pass
         except BaseException as e:  # noqa: BLE001
@@ -439,8 +463,49 @@ def run_train_stream(
         stats["flushes"] += 1
         lane_s["write_back"] += time.perf_counter() - t0
 
+    def flush_ps(ps_acc: List, stream) -> None:
+        """The PS-tier gradients of the steps in hand: every copy to pinned
+        memory issued on the write-back's stream, one wait, then the applies
+        in step order. A failed apply aborts the refs after it."""
+        if not ps_acc:
+            return
+        with graph.lane("psgrad"):
+            t0 = time.perf_counter()
+            hosts = []
+            for _tag, _ps_item, gp, _gstep, ev in ps_acc:
+                parts = gp if isinstance(gp, tuple) else (gp,)
+                if stream is not None:
+                    stream.wait_event(ev)  # the step wrote them
+                    copies = []
+                    for t in parts:
+                        t.record_stream(stream)
+                        copies.append(torch.empty(t.shape, dtype=t.dtype, pin_memory=True))
+                        copies[-1].copy_(t, non_blocking=True)
+                    parts = tuple(copies)
+                stats["psgrad_bytes"] += sum(t.numel() * t.element_size() for t in parts)
+                hosts.append(parts if isinstance(gp, tuple) else parts[0])
+            if stream is not None:
+                done = torch.cuda.Event()
+                done.record(stream)
+                wait_event(done)
+            applied = 0
+            try:
+                for (_tag, ps_item, _gp, gstep, _ev), host in zip(ps_acc, hosts):
+                    ctx._apply_ps_grads(ps_item, ctx._ps_host(host), journal_step=gstep)
+                    applied += 1
+            except BaseException:
+                for it in ps_acc[applied + 1:]:
+                    ctx.worker.abort_gradient(it[1][0])
+                raise
+            finally:
+                stats["psgrad_flushes"] += 1
+                stats["psgrad_steps"] += applied
+                ps_acc.clear()
+            lane_s["write_back"] += time.perf_counter() - t0
+
     def writeback() -> None:
         acc: List = []
+        ps_acc: List = []
         try:
             with _lane_stream(device) as stream:
                 while True:
@@ -457,12 +522,19 @@ def run_train_stream(
                         continue
                     if item is _END:
                         flush(acc, stream)
+                        flush_ps(ps_acc, stream)
                         return
                     if isinstance(item, threading.Event):  # a fence's drain marker
                         try:
                             flush(acc, stream)
+                            flush_ps(ps_acc, stream)
                         finally:  # answered even when the flush fails: the fence must not wait on it
                             item.set()
+                        continue
+                    if item[0] == "psgrad":
+                        ps_acc.append(item)
+                        if len(ps_acc) >= ps_batch:
+                            flush_ps(ps_acc, stream)
                         continue
                     acc.append(item)
                     if len(acc) >= flush_steps or flush_now.is_set():
@@ -481,16 +553,21 @@ def run_train_stream(
     pack: List = []
     pack_sig: List = [None]
 
+    def step_event() -> Optional[torch.cuda.Event]:
+        """An event recorded on the dispatch's stream after the step's work
+        (None on the CPU)."""
+        if main is None:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(main)
+        return ev
+
     def post_step(seq, inputs, ev_meta, payloads) -> None:
         nonlocal label_shape
         label_shape = tuple(inputs["labels"][0].shape)
         ctx._global_step = start_step + seq + 1
         if ev_meta:
-            ev = None
-            if main is not None:
-                ev = torch.cuda.Event()
-                ev.record(main)
-            put(wb_q, (seq, ev_meta, payloads, ev))
+            put(wb_q, (seq, ev_meta, payloads, step_event()))
         if ctx.sparse_cfg.kind == OPTIMIZER_ADAM:
             # the servers' powers move once a step for every cached group
             for grp in ctx._cached_groups:
@@ -498,18 +575,20 @@ def run_train_stream(
 
     def dispatch_one(item) -> None:
         nonlocal header
-        seq, inputs, layout, miss, cold, restore, ev_aux, ev_meta, _ready, feed_payloads = item
+        seq, inputs, layout, miss, cold, restore, ev_aux, ev_meta, _ready, feed_payloads, ps_item = item
         with graph.lane("dense"), ctx._state_lock:
             wait_staged(item)
             if feed_payloads is not None:  # the feed went ahead from the stager: the dense stage alone
-                header, payloads = ctx._dispatch_dense(inputs, layout), feed_payloads
+                header, payloads, ps = ctx._dispatch_dense(inputs, layout), feed_payloads, None
                 stats["pipelined_feeds"] += 1
             else:
-                header, payloads = ctx._dispatch(inputs, layout, miss, cold, restore, ev_aux, ev_meta)
+                header, payloads, ps = ctx._dispatch(inputs, layout, miss, cold, restore, ev_aux, ev_meta)
             dense_done[0] = seq + 1
         if pipelined:
             graph.note_dense(seq)
         stats["single_steps"] += 1
+        if ps_item is not None:  # ahead of the step's evictions, as the reference queues them
+            put(wb_q, ("psgrad", ps_item, ps, start_step + seq, step_event()))
         post_step(seq, inputs, ev_meta, payloads)
         if on_metrics is not None:
             ctx._last_metrics = ctx._parse_header(header.cpu().numpy(), label_shape)
@@ -600,7 +679,7 @@ def run_train_stream(
 
     def signature(item):
         """A step's shape signature: a pack's steps share one."""
-        _seq, _inputs, _layout, miss, cold, _restore, ev_aux, ev_meta, _ready, _feed = item
+        _seq, _inputs, _layout, miss, cold, _restore, ev_aux, ev_meta, _ready, _feed, _ps = item
         return dense_signature(item) + (shapes(miss), shapes(cold), shapes(ev_aux),
                                         tuple(sorted((g, m[2] >= 0) for g, m in ev_meta.items())))
 
@@ -637,7 +716,7 @@ def run_train_stream(
                     break
                 # feed-done steps pack by their dense signature; in order,
                 # restore-free steps by their whole signature
-                packable = item[9] is not None if pipelined else not item[5]
+                packable = item[9] is not None if pipelined else not item[5] and item[10] is None
                 if K_eff > 1 and packable:
                     sig = dense_signature(item) if pipelined else signature(item)
                     if pack and sig != pack_sig[0]:
@@ -669,8 +748,13 @@ def run_train_stream(
         deadline = time.perf_counter() + JOIN_S
         for t in threads:
             t.join(timeout=max(0.0, deadline - time.perf_counter()))
+        for ref in ps_refs:  # a no-op for every applied ref
+            ctx.worker.abort_gradient(ref)
         stats["wall_s"] = time.perf_counter() - t_start
         stats["resident_rows"] = {g.name: len(tier.dirs[g.name]) for g in tier.groups}
+        stats["tiers"] = {"cached_slots": sorted(s for g in tier.groups for s in g.slots),
+                          "ps_slots": sorted(tier.ps_slots), "resident_rows": stats["resident_rows"],
+                          "capacity_rows": {g.name: g.rows for g in tier.groups}}
         stats.update(graph.stats(stats["wall_s"]))
         ctx._stream_stats = stats
     alive = [t.name for t in threads if t.is_alive()]

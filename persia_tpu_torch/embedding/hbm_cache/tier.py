@@ -13,15 +13,19 @@ only at its eviction), and the evicted rows are listed for the write-back
 ``_bucket``-padded: row pads are C+1 (dropped by the device's writes) or C
 (the zero row) for the payload's read.
 
-The reference's parameter-server tier for hash-stack or excluded slots,
-its access sketch, its sharded feeder and its degraded-lookup lineage are
-not part of this slice.
+Slots the cache does not hold (``ps_slots``: the hash-stacked ones and
+those excluded) ride the parameter-server tier through the worker
+(``CachedTrainCtx._ps_forward``); the tier leaves them out of its batches.
+A feature group may not span both tiers, and with cache groups beside
+them the sign prefix bit must be on, so the two tiers never write one
+server entry. The reference's access sketch, its sharded feeder and its
+degraded-lookup lineage are not part of the port.
 """
 
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -61,12 +65,15 @@ class CachedEmbeddingTier:
     ``init_seed``: the replicas' seed (by default replica 0's ``.seed``),
     which cold rows born here must share. ``aux_wire_dtype``: the dtype the
     warm entries and cold rows cross to the card in (bf16 rounds to
-    nearest even, as ``ml_dtypes`` does)."""
+    nearest even, as ``ml_dtypes`` does). ``ps_slots``: the slots left to
+    the parameter-server tier besides the hash-stacked ones (none of them
+    in a cache group; ``self.ps_slots`` holds both, sorted)."""
 
     _PAR_CHUNK = 8192  # signs a store call takes before the call is split across threads
 
     def __init__(self, worker, sparse_cfg: OptimizerConfig, rows, embedding_config: Optional[EmbeddingConfig] = None,
-                 init_seed: Optional[int] = None, admit_touches: int = 1, aux_wire_dtype: str = "float32"):
+                 init_seed: Optional[int] = None, admit_touches: int = 1, aux_wire_dtype: str = "float32",
+                 ps_slots: Sequence[str] = ()):
         if aux_wire_dtype not in AUX_WIRE_DTYPES:
             raise ValueError(f"aux_wire_dtype must be one of {AUX_WIRE_DTYPES}, got {aux_wire_dtype!r}")
         self.worker = worker
@@ -78,9 +85,11 @@ class CachedEmbeddingTier:
             if init_seed is None:
                 raise ValueError("init_seed not given and the replicas expose no .seed")
         self.init_seed = int(init_seed)
-        dims = {slot.dim for slot in self.cfg.slots_config.values()}
+        dims = {slot.dim for name, slot in self.cfg.slots_config.items()
+                if not slot.hash_stack_config.enabled and name not in ps_slots}
         rows_per_group = rows if isinstance(rows, dict) else {d: rows for d in dims}
-        self.groups: List[CacheGroup] = make_cache_groups(self.cfg, rows_per_group, sparse_cfg)
+        self.groups, self.ps_slots = make_cache_groups(self.cfg, rows_per_group, sparse_cfg, exclude=ps_slots)
+        self._check_tiers()
         self.dirs = {g.name: CacheDirectory(g.rows, admit_touches=admit_touches) for g in self.groups}
         # each group's namespace in the stream's one pending map (sign ^ salt)
         self.group_salt = {g.name: group_salt(g.name) for g in self.groups}
@@ -94,6 +103,29 @@ class CachedEmbeddingTier:
         # the batch's distinct signs resident, checked out of the server, and
         # written back on eviction (the reference's metrics counters)
         self.hits = self.misses = self.evictions = 0
+
+    def _check_tiers(self) -> None:
+        """A feature group is one key space: a cached and a PS-tier slot in
+        one would be two writers of the same server entries. With
+        ``feature_index_prefix_bit == 0`` every slot hashes into one raw
+        space, so a PS-tier sign could equal a cached sign of another group:
+        cache groups beside PS-tier slots need the prefix bit."""
+        cached = {s for g in self.groups for s in g.slots}
+        ps = set(self.ps_slots)
+        for fg_name, members in self.cfg.feature_groups.items():
+            ms = set(members)
+            if ms & cached and ms & ps:
+                raise ValueError(f"feature group {fg_name!r} mixes cached slots {sorted(ms & cached)} with PS-tier "
+                                 f"slots {sorted(ms & ps)}: one key space cannot span both tiers")
+        if self.groups and self.ps_slots and self.cfg.feature_index_prefix_bit == 0:
+            raise ValueError(
+                f"mixed-tier config (cached groups + PS-tier slots {sorted(self.ps_slots)}) requires "
+                "feature_index_prefix_bit > 0 so per-group sign prefixes partition the PS key space; with prefix "
+                "bit 0 a cached-tier sign can collide with a PS-tier sign and the two tiers would race on one PS "
+                "entry")
+
+    def _cached_features(self, batch: PersiaBatch) -> List:
+        return [f for f in batch.id_type_features if f.name not in self.ps_slots]
 
     def counts(self) -> Dict[str, int]:
         """Hits, misses and evictions since the tier was built."""
@@ -262,8 +294,8 @@ class CachedEmbeddingTier:
     def _single_id_groups(self, batch: PersiaBatch):
         """[(group, slot names, (S, B) prefixed signs), ...] when every slot
         is pooled, unscaled, and every feature holds exactly one id a
-        sample; else None (the general path)."""
-        feats = {f.name: f for f in batch.id_type_features}
+        sample; else None (the general path). PS-tier slots are left out."""
+        feats = {f.name: f for f in self._cached_features(batch)}
         for name in feats:
             if name not in self._slot_group:
                 raise KeyError(f"unknown slot {name!r} (not in embedding config)")
@@ -339,7 +371,8 @@ class CachedEmbeddingTier:
         slots)}, ``restore_aux`` {group: (ring rows, table rows, slots)},
         ``evict_aux`` {group: (rows, unclaimed slots)} (the pairing:
         ``_admit_aux``), ``evict_meta`` {group: (evicted signs, count, ring
-        position or -1)}.
+        position or -1)}. PS-tier slots are left out (the ctx forwards
+        them through the worker).
 
         ``hazard_gate(group, miss_signs)`` runs before a group's server
         probe: the synchronous ctx lands its deferred write-back there when
@@ -352,7 +385,7 @@ class CachedEmbeddingTier:
         fast = self._single_id_groups(batch)
         if fast is not None:
             return self._prepare_batch_single_id(batch, fast, hazard_gate, ring_alloc, pending_map)
-        slots_by_group = self._group_slots(preprocess_batch(batch.id_type_features, self.cfg))
+        slots_by_group = self._group_slots(preprocess_batch(self._cached_features(batch), self.cfg))
         stacked_rows, stacked_scale, raw_rows = {}, {}, {}
         layout_stacked: List = []
         miss_aux, cold_aux, restore_aux, evict_aux, evict_meta = {}, {}, {}, {}, {}
@@ -404,8 +437,9 @@ class CachedEmbeddingTier:
         """Eval's host arrays, changing nothing of the cache: a resident
         sign reads its row (a read-only probe); a miss reads the server's
         infer lookup (zeros for a sign it lacks, nothing admitted) from the
-        group's ``miss_tables`` at row C+1+j. ``(inputs, layout)``."""
-        slots_by_group = self._group_slots(preprocess_batch(batch.id_type_features, self.cfg))
+        group's ``miss_tables`` at row C+1+j. ``(inputs, layout)``, PS-tier
+        slots left out."""
+        slots_by_group = self._group_slots(preprocess_batch(self._cached_features(batch), self.cfg))
         stacked_rows, stacked_scale, raw_rows, miss_tables = {}, {}, {}, {}
         layout_stacked: List = []
         any_scale = False

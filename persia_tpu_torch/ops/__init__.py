@@ -17,7 +17,8 @@ K11 ``batch_norm_bwd``). The cache tier's ``cache_aux`` (K12, which also
 writes the stream's restores from the eviction ring; ``gather_entry_rows``
 its payload read alone) and ``cached_gather`` (K13, whose ``PooledRows``
 backward hands the step per-position gradients) update nothing through
-autograd either."""
+autograd either, nor does ``quantize_int8_ef`` (K15), the int8 error-feedback
+wire of the cache tier's parameter-server gradients."""
 
 from persia_tpu_torch.ops.attention_pool import (  # noqa: F401
     attention_pool,
@@ -36,6 +37,7 @@ from persia_tpu_torch.ops.embedding_pool import (  # noqa: F401
 )
 from persia_tpu_torch.ops.flash_attention import flash_attention, tf32_split_planes  # noqa: F401
 from persia_tpu_torch.ops.fused_gather import fused_gather  # noqa: F401
+from persia_tpu_torch.ops.quantize_int8 import quantize_int8_ef  # noqa: F401
 from persia_tpu_torch.ops.raw_gather import RawSlot, raw_csr, raw_gather, raw_gather_bwd, raw_gather_fwd  # noqa: F401
 from persia_tpu_torch.ops.sparse_update import sparse_update, update_keys  # noqa: F401
 
@@ -43,7 +45,7 @@ KERNEL_WRAPPERS = (
     dot_interaction, dot_interaction_bwd, gather_pool_fwd, gather_pool_bwd,
     flash_attention, tf32_split_planes, fused_gather, update_keys, sparse_update,
     raw_gather_fwd, raw_gather_bwd, attention_pool_fwd, attention_pool_bwd, batch_norm_fwd, batch_norm_bwd,
-    cache_aux, gather_entry_rows, cached_gather,
+    cache_aux, gather_entry_rows, cached_gather, quantize_int8_ef,
 )
 
 

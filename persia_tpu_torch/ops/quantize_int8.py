@@ -1,0 +1,96 @@
+"""The int8 gradient wire of the cache tier's parameter-server slots: the
+CUDA kernel K15 (``csrc/quantize_int8.cu``) and its plain PyTorch version.
+
+Absmax int8 quantization with error feedback, a scale a segment (one PS
+slot's gradient: (B, dim) host-pooled, (P, dim) device-pooled or raw),
+over the step's gradients flattened into one (n,) tensor, f32 or bf16:
+
+    v = g + residual;  scale = max(max |v|, 1e-30)
+    q = clip(round(v / scale * 127), -127, 127) as int8
+    new residual = v - q * (scale / 127)
+
+each division and product rounded on its own, ``round`` half to even. It
+is ``persia_tpu/parallel/grad_sync.py``'s ``quantize_int8_ef`` applied a
+segment at a time, as ``persia_tpu/embedding/hbm_cache/step.py:361-400``
+applies it. ``offsets`` (S+1 ascending ints from 0 to n) bound the
+segments. Returns ``(q (n,) int8, scales (S,) f32, new residual (n,)
+f32)``: the plain version makes a new residual, the kernel writes it over
+``residual`` in place and returns that tensor.
+
+A CPU tensor takes the plain version; a CUDA tensor one launch a call
+(``quantize_int8_ef.launches``), at most ``MAX_SEGMENTS`` segments.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import torch
+
+from persia_tpu_torch.ops import _kernels
+
+MAX_SEGMENTS = 512  # kMaxQuantSegments in csrc/quantize_int8.cu
+
+
+def quantize_int8_ef_reference(g: torch.Tensor, residual: torch.Tensor, offsets: Sequence[int]
+                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version: the reference's function a segment at a time. Every
+    division is tensor by tensor: PyTorch's CUDA division by a Python
+    scalar multiplies by its reciprocal, which is not the same rounding."""
+    v = g.float() + residual
+    q = torch.empty(v.shape, dtype=torch.int8, device=v.device)
+    new = torch.empty_like(v)
+    scales = torch.empty(len(offsets) - 1, dtype=torch.float32, device=v.device)
+    c127 = torch.full((), 127.0, dtype=torch.float32, device=v.device)
+    for s, (a, b) in enumerate(zip(offsets[:-1], offsets[1:])):
+        seg = v[a:b]
+        m = seg.abs().amax() if b > a else torch.zeros((), dtype=torch.float32, device=v.device)
+        scale = torch.clamp_min(m, 1e-30)
+        t = torch.clamp(torch.round(seg / scale * 127.0), -127, 127)
+        q[a:b] = t.to(torch.int8)
+        new[a:b] = seg - t * (scale / c127)
+        scales[s] = scale
+    return q, scales, new
+
+
+def _check(g, residual, offsets) -> None:
+    if g.dim() != 1 or not g.is_contiguous() or g.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("g must be a contiguous (n,) float32 or bfloat16 tensor")
+    if residual.dtype != torch.float32 or residual.shape != g.shape or residual.device != g.device \
+            or not residual.is_contiguous():
+        raise ValueError(f"residual must be a contiguous {tuple(g.shape)} float32 tensor on {g.device}")
+    offs = list(offsets)
+    if len(offs) < 1 or offs[0] != 0 or offs[-1] != g.numel() or any(b < a for a, b in zip(offs, offs[1:])):
+        raise ValueError(f"offsets must ascend from 0 to {g.numel()}, got {offs}")
+    if g.numel() >= 2 ** 31:
+        raise ValueError("the gradients must have fewer than 2^31 elements")
+
+
+def quantize_int8_ef(g: torch.Tensor, residual: torch.Tensor, offsets: Sequence[int]
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(q, scales, new residual)``; see the module's docstring."""
+    _check(g, residual, offsets)
+    if g.device.type == "cpu":
+        return quantize_int8_ef_reference(g, residual, offsets)
+    if g.device.type != "cuda":
+        raise ValueError(f"unsupported device {g.device}")
+    segments = len(offsets) - 1
+    if segments > MAX_SEGMENTS:
+        raise ValueError(f"{segments} segments, more than the kernel's {MAX_SEGMENTS}")
+    q = torch.empty(g.shape, dtype=torch.int8, device=g.device)
+    scales = torch.empty(segments, dtype=torch.float32, device=g.device)
+    if not segments:
+        return q, scales, residual
+    offs = (ctypes.c_int * (segments + 1))(*offsets)
+    dtype = _kernels.DTYPE_F32 if g.dtype == torch.float32 else _kernels.DTYPE_BF16
+    lib = _kernels.library()
+    with torch.cuda.device(g.device):
+        rc = lib.persia_quantize_int8_ef(g.data_ptr(), dtype, residual.data_ptr(), offs, segments, q.data_ptr(),
+                                         scales.data_ptr(), residual.data_ptr(), _kernels.stream_handle(g))
+    _kernels.check(rc, "quantize_int8_ef")
+    quantize_int8_ef.launches += 1
+    return q, scales, residual
+
+
+quantize_int8_ef.launches = 0

@@ -910,7 +910,7 @@ def test_unsupported_options_raise():
     cfg = _cfg(tcfg, False)
     store = EmbeddingStore(optimizer=toptim.Adagrad(lr=0.1).config)
     model = DLRM(DENSE, 3, DIM, BOTTOM, TOP, compute_dtype=torch.float32, device="cpu")
-    for kw in (dict(mesh=object()), dict(ps_slots=["cat_0"]), dict(dynamic_loss_scale=True),
+    for kw in (dict(mesh=object()), dict(dynamic_loss_scale=True),
                dict(feed_threads=4), dict(health_probe=True)):
         with pytest.raises(NotImplementedError):
             thbm.CachedTrainCtx(model, torch.optim.Adam(model.parameters()), toptim.Adagrad(lr=0.1),

@@ -1964,3 +1964,109 @@ def test_pipelined_stream_on_card_matches_in_order(cuda):
     for shard in s1._shards:
         for sign, (_, vec) in shard.entries.items():
             np.testing.assert_array_equal(s4.get_embedding_entry(sign), vec, err_msg=str(sign))
+
+
+# ------------------------------------------- the mixed tier: K15 and its path
+
+
+def _quant_case(lengths, dtype, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    n = sum(lengths)
+    scales = torch.tensor([10.0 ** (i % 5 - 3) for i, ln in enumerate(lengths) for _ in range(ln)])
+    grads = (torch.randn(n, generator=g) * scales).to(dtype)
+    res = torch.randn(n, generator=g) * scales * 1e-2
+    offsets = [0]
+    for ln in lengths:
+        offsets.append(offsets[-1] + ln)
+    return grads.to(dev), res.to(dev), offsets
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths", [[1, 511, 512, 513, 1000, 3], [24576] * 26, [0, 7, 0, 4096 * 16 + 5],
+                                     [16 * 4096, 1536 * 16, 33]])
+def test_quantize_int8_kernel_matches_plain_bitwise(cuda, lengths, dtype):
+    """K15 against its plain version on the card, segment lengths that are
+    not multiples of the block (512), empty ones, the ps-stream path's 26
+    segments of 24,576, host-pooled (B, D) beside device-pooled (P, D):
+    codes, scales and the residual bit for bit, over three steps with the
+    residual carried in place; one launch a call."""
+    from persia_tpu_torch.ops.quantize_int8 import quantize_int8_ef, quantize_int8_ef_reference
+
+    g, res, offsets = _quant_case(lengths, dtype, 7, cuda)
+    plain_res = res.clone()
+    for step in range(3):
+        before = quantize_int8_ef.launches
+        q, s, new = quantize_int8_ef(g, res, offsets)
+        assert quantize_int8_ef.launches == before + 1 and new.data_ptr() == res.data_ptr()
+        q2, s2, plain_res = quantize_int8_ef_reference(g, plain_res, offsets)
+        torch.cuda.synchronize()
+        assert torch.equal(q, q2) and torch.equal(s, s2)
+        assert torch.equal(new.view(torch.int32), plain_res.view(torch.int32))
+        g = (g.float() * -0.5 + 1e-3).to(dtype)
+
+
+def test_quantize_int8_kernel_zeros_and_refusals(cuda):
+    """All-zero segments give code 0, scale 1e-30 and an unchanged
+    residual; offsets that do not end at n raise before a launch."""
+    from persia_tpu_torch.ops.quantize_int8 import quantize_int8_ef
+
+    g = torch.zeros(1000, device=cuda)
+    res = torch.zeros(1000, device=cuda)
+    q, s, new = quantize_int8_ef(g, res, [0, 300, 1000])
+    torch.cuda.synchronize()
+    assert not q.any() and torch.equal(s.cpu(), torch.full((2,), 1e-30)) and not new.any()
+    with pytest.raises(ValueError):
+        quantize_int8_ef(g, res, [0, 300, 999])
+
+
+def test_all_ps_int8_ctx_on_card_matches_cpu(cuda):
+    """Every slot on the PS, the int8 wire, device pooling: the card's
+    ``train_step`` (K1/K2 on the PS slots' rows, K15 once a step) against
+    the same ctx on the CPU over 4 steps: losses within 1e-4 (f32
+    compute), the servers' entries within 1e-3 (a code flip moves one
+    entry's gradient by scale / 127); no cache kernel launched; then a
+    stream of 4 steps: every ref released, K15 once a step."""
+    from persia_tpu_torch.config import EmbeddingConfig, SlotConfig
+    from persia_tpu_torch.data import IDTypeFeatureWithSingleID, Label, NonIDTypeFeature, PersiaBatch
+    from persia_tpu_torch.embedding.hbm_cache import CachedTrainCtx
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.embedding.store import EmbeddingStore
+    from persia_tpu_torch.embedding.worker import EmbeddingWorker
+    from persia_tpu_torch.models import DLRM
+    from persia_tpu_torch.ops import cache_aux, cached_gather, quantize_int8_ef, sparse_update
+    from persia_tpu_torch.testing.watchdog import run_with_watchdog
+
+    names = [f"c{i}" for i in range(4)]
+    cfg = EmbeddingConfig(slots_config={n: SlotConfig(dim=16) for n in names}, feature_index_prefix_bit=8)
+
+    def make(device):
+        store = EmbeddingStore(capacity=1 << 16, num_internal_shards=4, optimizer=Adagrad(lr=0.05).config, seed=1)
+        torch.manual_seed(0)
+        model = DLRM(13, 4, 16, (32, 16), (64,), compute_dtype=torch.float32, device="cpu")
+        ctx = CachedTrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3), Adagrad(lr=0.05),
+                             EmbeddingWorker(cfg, [store], device_pooling=True), cfg, cache_rows=8, device=device,
+                             ps_slots=names, ps_wire_dtype="int8").__enter__()
+        return ctx, store
+
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(8):
+        feats = [IDTypeFeatureWithSingleID(n, (rng.zipf(1.2, 256) % 5000).astype(np.uint64)) for n in names]
+        batches.append(PersiaBatch(feats, non_id_type_features=[NonIDTypeFeature(rng.normal(size=(256, 13))
+                                                                                 .astype(np.float32))],
+                                   labels=[Label(rng.integers(0, 2, (256, 1)).astype(np.float32))],
+                                   requires_grad=True))
+    (card, cstore), (cpu, pstore) = make(cuda), make("cpu")
+    counts = [f.launches for f in (cache_aux, cached_gather, sparse_update, quantize_int8_ef)]
+    for b in batches[:4]:
+        a, c = card.train_step(b), cpu.train_step(b)
+        assert abs(a["loss"] - c["loss"]) <= 1e-4
+    assert [f.launches for f in (cache_aux, cached_gather, sparse_update)] == counts[:3]
+    assert quantize_int8_ef.launches == counts[3] + 4
+    assert cstore.size() == pstore.size()
+    for shard in pstore._shards:
+        for sign, (_, vec) in shard.entries.items():
+            np.testing.assert_allclose(cstore.get_embedding_entry(sign), vec, rtol=0, atol=1e-3)
+    m = run_with_watchdog(lambda: card.train_stream(batches[4:], prefetch=4, psgrad_batch=2), timeout=60.0)
+    assert np.isfinite(m["loss"]) and card.worker.staleness == 0 and card.stream_stats()["psgrad_steps"] == 4
+    assert quantize_int8_ef.launches == counts[3] + 8
