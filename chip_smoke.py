@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``persia_tpu_torch``) on one card.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
-    python3 chip_smoke.py --ab ROOT OUT.npz [k12]   # K2, K4, K7-K9, K12 of the tree ROOT
+    python3 chip_smoke.py --ab ROOT OUT.npz [k12|k15]   # K2, K4, K7-K9, K12, K15 of the tree ROOT
     python3 chip_smoke.py --ab-compare A.npz B.npz ...
     python3 chip_smoke.py --stream-ab PAIRS   # in-order vs pipelined stream, in turns
 
@@ -20,9 +20,11 @@ result line:
    reported, K9 by template, K8 and K9 at the DIN path's template (2
    positions a lane) without spills; K12 and its read alone with their
    registers and 16-byte global loads and stores (LDG.128 / STG.128),
-   which their 16-byte templates must hold; K15's two templates (f32 and
-   bf16 gradients) with their registers, the bf16 one (the ps-stream
-   path's) reported and neither spilling;
+   which their 16-byte templates must hold; K15's four templates (f32 and
+   bf16 gradients, 8-element units or scalar) with their registers and
+   16-byte loads and stores, the bf16 8-element one (the ps-stream
+   path's) reported with 16-byte loads (LDG.128), 8-byte code stores
+   (STG.64) and 16-byte residual stores (STG.128), none spilling;
 2. flash_attention on the card vs its plain version (dense f32 softmax):
    the bf16 route (wgmma) and the f32 route (split TF32 on wgmma, its
    pre-pass held bit for bit to ``tf32_split_planes_reference``) at every
@@ -97,9 +99,15 @@ result line:
    for bit (codes, scales and the residual it rewrites in place, three
    steps with the residual carried) against its plain version on the card
    and on the CPU, at the ps-stream path's shape (26 segments of 1,536 x
-   16) and at segment lengths that are not multiples of its block, empty
-   segments and host-pooled (B, D) beside device-pooled (P, D) ones, bf16
-   and f32 gradients;
+   16) and at ``K15_CASES``: segment lengths that are not multiples of
+   512 or of the 8-element unit, empty segments, host-pooled (B, D)
+   beside device-pooled (P, D) ones, starts off 8 elements before a
+   vector body, one segment past a cluster's registers, 512 segments, the
+   mixed leg's 13 segments; a NaN inside one segment (against the card's
+   plain version bit for bit, against the CPU's with NaN payloads set
+   aside: x86 keeps an operand's, the card returns its canonical NaN) and
+   the edges of its division (tiny and huge scales, subnormal gradients,
+   rounding midpoints, signed zeros, an infinity), bf16 and f32 gradients;
 4. the paths, each with the launch counts set to 0 just before and read
    just after: (a) the flash-attention entry point at (B=4, L=1024, H=8,
    D=64) in bf16 and in f32, causal and not, and its backward (a dense
@@ -309,7 +317,8 @@ result line:
    K15 at the ps-stream leg's own last warm-up step (its gradients,
    residual and 26 segments), warm and cold, beside its plain version,
    the 17 composed PyTorch calls that compute it (their bits compared
-   with the kernel's) and the bound, over the one-launch floor;
+   with the kernel's) and the bound, over the one-launch floor, with its
+   plan (blocks a cluster, blocks, threads, elements a thread);
    and (5b) the flash-attention backward, a dense recompute, beside SDPA's
    backward.
 
@@ -617,6 +626,8 @@ K2_KERNEL_NAMES = ("segment_sum_chunks_kernel", "segment_sum_rows_kernel")
 # K12 and its read alone at their 16-byte templates (the bench's widths:
 # bf16 wires, and the flush's f32 read)
 K12_WIDE = ("cache_aux_kernel<8>", "entry_rows_kernel<4>")
+# K15 at the ps-stream path's template: bf16 gradients, 8-element units
+K15_WIDE = "quantize_int8_ef_kernel<bf16,8>"
 # K5's kernels, and the routing's: on the dim-16 f32 path none may spill
 K5_KERNELS = ("sparse_update_segments_kernel", "sparse_update_long_kernel", "sparse_update_short_kernel")
 K5_DIM16 = ("sparse_update_segments_kernel", "sparse_update_long_kernel<f32,4>",
@@ -746,11 +757,16 @@ def phase_build():
         print(f"  K10 and K11 by template (registers, spill bytes): {bn}", flush=True)
         if not {"batch_norm_fwd_kernel<bf16,8>", "batch_norm_bwd_kernel<bf16,8>"} <= set(bn):
             raise SystemExit(f"the build reported nothing for K10 or K11 at the DNN path's template: {bn}")
-        k15 = {k: (v.get("registers"), v.get("spill_bytes")) for k, v in summary.items()
-               if k.startswith("quantize_int8_ef_kernel<")}
-        print(f"  K15 by input dtype (registers, spill bytes): {k15}", flush=True)
-        if "quantize_int8_ef_kernel<bf16>" not in k15 or any(v[1] for v in k15.values()):
-            raise SystemExit(f"K15 spills or was not reported at the ps-stream path's template: {k15}")
+        k15 = {k: {"registers": v.get("registers"), "spill_bytes": v.get("spill_bytes"),
+                   **{op: v.get("sass", {}).get(op, 0) for op in ("LDG.128", "STG.64", "STG.128")}}
+               for k, v in summary.items() if k.startswith("quantize_int8_ef_kernel<")}
+        print(f"  K15 by input dtype and unit (registers, spill bytes, 16- and 8-byte accesses): "
+              f"{json.dumps(k15)}", flush=True)
+        wide = k15.get(K15_WIDE, {})
+        if not all(wide.get(op) for op in ("LDG.128", "STG.64", "STG.128")) or any(
+                v["spill_bytes"] is None or v["spill_bytes"] for v in k15.values()):
+            raise SystemExit(f"K15 spills, or was not reported or lacks its 16-byte loads, 8-byte code stores "
+                             f"and 16-byte residual stores at the ps-stream path's template {K15_WIDE}: {k15}")
         k5 = {k: summary.get(k, {}).get("spill_bytes") for k in K5_DIM16}
         print(f"  K5 and the routing on the dim-16 path, spill bytes: {k5}", flush=True)
         if any(v is None or v for v in k5.values()):
@@ -4412,9 +4428,16 @@ PS_STREAM_KNOBS = dict(prefetch=4, psgrad_batch=16, fetch_final=False)
 # cat_13-cat_25 on the PS (int8), synchronous and as the stream
 PS_SYNC_STEPS, MIXED_STEPS = 8, 16
 MIXED_PS = tuple(f"cat_{i}" for i in range(13, N_SLOTS))
-# K15's edge cases (segment lengths): not multiples of the block (512),
-# empty segments, host-pooled (B, D) beside device-pooled (P, D)
-K15_CASES = ([1, 511, 512, 513, 1000, 3], [0, 7, 0, 16 * BATCH + 5], [BATCH * EMB_DIM, 1536 * EMB_DIM, 33])
+# K15's edge cases (segment lengths): not multiples of 512 or of the
+# 8-element unit, empty segments, host-pooled (B, D) beside device-pooled
+# (P, D), starts off 8 elements before a vector body, one segment past a
+# cluster's registers (8 blocks x 512 threads x 32 elements), 512
+# segments, the mixed leg's 13 device-pooled slots
+K15_CASES = ([1, 511, 512, 513, 1000, 3], [0, 7, 0, 16 * BATCH + 5], [BATCH * EMB_DIM, 1536 * EMB_DIM, 33],
+             [5, 2043, 4099, 771, 8], [300_003], [(i * 37) % 251 for i in range(512)],
+             [1536 * EMB_DIM] * len(MIXED_PS))
+# and a NaN inside the second of four segments (element K15_NAN_AT)
+K15_NAN_CASE, K15_NAN_AT = [1536 * EMB_DIM, 1536 * EMB_DIM, 1000, 1536 * EMB_DIM], 1536 * EMB_DIM + 777
 
 
 def k15_inputs(dev, lengths, dtype, seed):
@@ -4429,42 +4452,95 @@ def k15_inputs(dev, lengths, dtype, seed):
     return g.to(dev), res.to(dev), [0] + np.cumsum(lengths).tolist()
 
 
+def k15_extreme_inputs(dev, dtype):
+    """K15's inputs at the edges of its division: maxima under 1e-30 (the
+    scale clamps), scales under 2^-90 and from 2^126 up (IEEE division),
+    just inside both (Markstein's), subnormal gradients, v at the codes'
+    rounding midpoints under a scale of 1.37, signed zeros (a residual of
+    -0.0 under -0.0 and +0.0 gradients), an infinity; with the offsets."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 85)
+    mid = (np.arange(-127, 127) + 0.5) / 127
+    segs = [rng.standard_normal(4099) * 1e-31, rng.standard_normal(4101) * 1e-29,
+            np.where(rng.random(4096) < 0.25, 1e-40, rng.standard_normal(4096) * 1e-26),
+            rng.standard_normal(4103) * 1e37, rng.standard_normal(4096) * 4e37,
+            np.concatenate([[1.37], mid * 1.37, -mid]), np.array([0.0, -0.0, -0.0, 0.0, 1e-3, -0.0, 2e-3, -5e-4] * 64),
+            np.array([1.0, np.inf, -2.0, 0.5] * 9)]
+    lengths = [len(x) for x in segs]
+    res = np.zeros(sum(lengths), np.float32)
+    res[sum(lengths[:6]):sum(lengths[:7])] = -0.0
+    g = torch.from_numpy(np.concatenate(segs).astype(np.float32)).to(dtype)
+    return g.to(dev), torch.from_numpy(res).to(dev), [0] + np.cumsum(lengths).tolist()
+
+
+def k15_bits(t):
+    """An f32 tensor's bits as int32, every NaN made the card's canonical
+    one (0x7fffffff): the card's and the CPU's NaN payloads differ; other
+    tensors as they are."""
+    import torch
+
+    return t.view(torch.int32).masked_fill(t.isnan(), 0x7FFFFFFF) if t.dtype == torch.float32 else t
+
+
 def phase_quant_kernels(dev):
     """Phase 3f: K15 (``quantize_int8_ef``) against its plain version on
     the card and on the CPU, bit for bit (codes, scales, the residual it
     rewrites in place), three steps with the residual carried: at the
     ps-stream path's shape (26 device-pooled slots of P=1536 rows x 16,
-    bf16 gradients) and at ``K15_CASES``, bf16 and f32."""
+    bf16 gradients), at ``K15_CASES``, at ``K15_NAN_CASE`` (a NaN in one
+    segment: NaN payloads set aside against the CPU, whose x86 arithmetic
+    keeps an operand's where the card returns 0x7fffffff; the scale's bits
+    must be that) and at ``k15_extreme_inputs`` (the edges of the
+    division; NaN payloads set aside against the CPU), bf16 and f32; each
+    case's plan printed."""
     import torch
 
     from persia_tpu_torch import ops
+    from persia_tpu_torch.ops import plans
     from persia_tpu_torch.ops.quantize_int8 import quantize_int8_ef_reference
 
     print("== phase 3f: the mixed tier's int8 gradient wire (K15 quantize_int8_ef) vs its plain version", flush=True)
-    for lengths in ([1536 * EMB_DIM] * N_SLOTS,) + K15_CASES:
+    cases = [("", lengths) for lengths in ([1536 * EMB_DIM] * N_SLOTS,) + K15_CASES]
+    for kind, lengths in cases + [("nan", K15_NAN_CASE), ("extremes", None)]:
+        nan, extremes = kind == "nan", kind == "extremes"
         for dtype in (torch.bfloat16, torch.float32):
-            g, res, offsets = k15_inputs(dev, lengths, dtype, SEED + 80 + len(lengths))
+            if extremes:
+                g, res, offsets = k15_extreme_inputs(dev, dtype)
+                lengths = np.diff(offsets).tolist()
+            else:
+                g, res, offsets = k15_inputs(dev, lengths, dtype, SEED + 80 + len(lengths))
+            if nan:
+                g[K15_NAN_AT] = float("nan")
+            plan = plans.quantize_int8_plan(len(lengths), max(lengths), g.element_size())
             plain_card, plain_cpu = res.clone(), res.cpu()
             diffs = []  # (step, output, which plain version) that differ
             for step in range(3):
+                before = ops.quantize_int8_ef.launches
                 q, s, new = ops.quantize_int8_ef(g, res, offsets)
                 q1, s1, plain_card = quantize_int8_ef_reference(g, plain_card, offsets)
                 q2, s2, plain_cpu = quantize_int8_ef_reference(g.cpu(), plain_cpu, offsets)
                 torch.cuda.synchronize()
-                if new.data_ptr() != res.data_ptr():
-                    diffs.append((step, "residual not in place", ""))
+                if new.data_ptr() != res.data_ptr() or ops.quantize_int8_ef.launches != before + 1:
+                    diffs.append((step, "residual not in place or not one launch", ""))
+                if nan and s.view(torch.int32)[1].item() != 0x7FFFFFFF:
+                    diffs.append((step, "the NaN segment's scale", hex(s.view(torch.int32)[1].item())))
                 for name, a, b, c in (("codes", q, q1, q2), ("scales", s, s1, s2),
-                                      ("residual", new.view(torch.int32), plain_card.view(torch.int32),
-                                       plain_cpu.view(torch.int32))):
+                                      ("residual", new, plain_card, plain_cpu)):
                     for where, ref in (("card", b), ("cpu", c)):
-                        if not bits_equal(a, ref):
-                            diffs.append((step, name, where, int((a.cpu() != ref.cpu()).sum())))
-                g = (g.float() * -0.5 + 1e-4).to(dtype)
+                        x, y = (k15_bits(a.cpu()), k15_bits(ref.cpu())) if (nan or extremes) and where == "cpu" \
+                            else (a, ref)
+                        x, y = (t.view(torch.int32) if t.dtype == torch.float32 else t for t in (x, y))
+                        if not bits_equal(x, y):
+                            diffs.append((step, name, where, int((x.cpu() != y.cpu()).sum())))
+                g = (g.float() * -0.5 + (0.0 if extremes else 1e-4)).to(dtype)
             ok = not diffs
-            print(f"  quantize_int8_ef {len(lengths)} segments of {lengths[:4]}{'...' if len(lengths) > 4 else ''} "
-                  f"{str(dtype).split('.')[-1]}: codes, scales and residual bitwise vs the plain version on the "
-                  f"card and on the CPU, 3 steps {'ok' if ok else f'FAIL (step, output, where, elements): {diffs}'}",
-                  flush=True)
+            print(f"  quantize_int8_ef {len(lengths)} segments of {lengths[:4]}{'...' if len(lengths) > 4 else ''}"
+                  f"{' with a NaN' if nan else ''}{' at the edges of the division' if extremes else ''} "
+                  f"{str(dtype).split('.')[-1]} (cluster {plan.cluster}, "
+                  f"{plan.threads} threads, {plan.elems_a_thread} elements a thread): codes, scales and residual "
+                  f"bitwise vs the plain version on the card and on the CPU, 3 steps "
+                  f"{'ok' if ok else f'FAIL (step, output, where, elements): {diffs}'}", flush=True)
             if not ok:
                 raise SystemExit("quantize_int8_ef disagrees with its plain version")
     torch.cuda.empty_cache()
@@ -4821,14 +4897,18 @@ def time_k15(dev, launches, errs, k15, floor):
     warm-up step's gradients, residual and segments): graph-replayed warm
     and cold (whole copies rotated through more than the L2), beside the
     plain version, the composed PyTorch calls and the bound; over the
-    one-launch floor."""
+    one-launch floor, and its plan (``plans.quantize_int8_plan``). Another
+    tree's K15 on the same shape, for the time and the bits side by side:
+    ``--ab ROOT OUT.npz k15`` (``k15_ab``)."""
     import torch
 
     from persia_tpu_torch import ops
+    from persia_tpu_torch.ops import plans
     from persia_tpu_torch.ops.quantize_int8 import quantize_int8_ef_reference
 
     g, res0, offsets = k15["g"], k15["res"], k15["offsets"]
     n, segments = g.numel(), len(offsets) - 1
+    plan = plans.quantize_int8_plan(segments, int(np.diff(offsets).max()), g.element_size())
     res = res0.clone()
     lengths = torch.tensor(np.diff(offsets), device=dev)
     seg_ids = torch.repeat_interleave(torch.arange(segments, device=dev), lengths)
@@ -4856,10 +4936,15 @@ def time_k15(dev, launches, errs, k15, floor):
              cold_ms_runs=cold, note=f"no single PyTorch call computes it; {K15_COMPOSED_CALLS} composed calls: "
                                      "composite_ms")
     r["over_launch_floor"] = r["ms"] / min(floor)
+    r["ms_over_floor"] = r["ms"] - min(floor)
+    r["cold_ms_over_floor"] = r["cold_ms"] - min(floor)
     r["cold_share"] = bms / r["cold_ms"]
-    print(f"  quantize_int8_ef ({segments} segments of {n // segments}, {g.dtype}): warm {r['ms_runs']} ms, cold "
-          f"{cold} ms, bound {bms:.5f} ({by}; {r['cold_share']:.1%} cold, {bms / r['ms']:.1%} warm), "
-          f"{r['over_launch_floor']:.2f}x the launch floor; plain {plain['graph']:.4f} ms; composed "
+    r["plan"] = {"cluster": plan.cluster, "blocks": plan.blocks, "threads": plan.threads,
+                 "elems_a_thread": plan.elems_a_thread, "vec": plan.vec}
+    print(f"  quantize_int8_ef ({segments} segments of {n // segments}, {g.dtype}; plan {r['plan']}): warm "
+          f"{r['ms_runs']} ms, cold {cold} ms, bound {bms:.5f} ({by}; {r['cold_share']:.1%} cold, "
+          f"{bms / r['ms']:.1%} warm), {r['over_launch_floor']:.2f}x the launch floor ({r['ms_over_floor']:.5f} ms "
+          f"over it warm, {r['cold_ms_over_floor']:.5f} cold); plain {plain['graph']:.4f} ms; composed "
           f"({K15_COMPOSED_CALLS} calls, bitwise the kernel's: {composed_same}) {r['composite_ms']:.5f} ms; launches "
           f"{r['launches_by_path']}", flush=True)
     return [r]
@@ -5940,6 +6025,35 @@ def k12_restores_ab(dev, ops, times, as_bits, case, pairing) -> dict:
     return bits
 
 
+def k15_ab(dev, ops, times, as_bits) -> dict:
+    """``--ab``'s K15: the tree's ``quantize_int8_ef`` three steps with the
+    residual carried in place, at the ps-stream shape and at every
+    ``K15_CASES`` case, bf16 and f32 (phase 3f's seeded inputs): each
+    step's codes and scales and the last residual as bits; into ``times``
+    its warm and cold time at the ps-stream shape (bf16) and the
+    one-launch floor."""
+    import torch
+
+    bits = {}
+    for i, lengths in enumerate(([1536 * EMB_DIM] * N_SLOTS,) + K15_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            g, res, offsets = k15_inputs(dev, lengths, dtype, SEED + 80 + len(lengths))
+            case = f"k15_{i}_{len(lengths)}x{max(lengths)}_{str(dtype)[6:]}"
+            for step in range(3):
+                q, s, res = ops.quantize_int8_ef(g, res, offsets)
+                bits.update({f"{case}_codes{step}": as_bits(q), f"{case}_scales{step}": as_bits(s)})
+                g = (g.float() * -0.5 + 1e-4).to(dtype)
+            bits[f"{case}_residual"] = as_bits(res)
+    g, res, offsets = k15_inputs(dev, [1536 * EMB_DIM] * N_SLOTS, torch.bfloat16, SEED + 80 + N_SLOTS)
+    times["quantize_int8_ef"] = {
+        "warm_ms": [graph_ms(lambda: ops.quantize_int8_ef(g, res, offsets)) for _ in range(2)],
+        "cold_ms": [cold_ms(lambda gg, rr: ops.quantize_int8_ef(gg, rr, offsets), lambda: (g.clone(), res.clone()),
+                            g.numel() * (g.element_size() + 4))["ms"] for _ in range(2)]}
+    one = torch.zeros(1, device=dev)
+    times.setdefault("launch_floor", {"warm_ms": [graph_ms(lambda: one.add_(1.0)) for _ in range(2)]})
+    return bits
+
+
 def ab_run(root: str, out_path: str, only: str = "") -> int:
     """``--ab ROOT OUT.npz``: K2, K4, K7, K8 and K9 of the package in the
     checkout ROOT (another commit's tree, unpacked), on this script's
@@ -5952,9 +6066,10 @@ def ab_run(root: str, out_path: str, only: str = "") -> int:
     graph-replayed times, warm and cold (K7 beside ``index_add_`` over the
     live positions, at f32; K8 and K9 at bf16; K4 at the fused step's batch
     with and without keys, the standalone ``update_keys`` and the
-    one-launch floor; K12 and its read at ``k12_ab_case``), are printed as
-    one JSON line. ``only`` = "k12": K12 and its read alone. Run it over
-    two trees in turns (A, B, B, A) in one call, then ``--ab-compare``."""
+    one-launch floor; K12 and its read at ``k12_ab_case``; K15 at the
+    ps-stream shape, ``k15_ab``), are printed as one JSON line. ``only`` =
+    "k12" or "k15": that kernel alone (K12 with its read). Run it over two
+    trees in turns (A, B, B, A) in one call, then ``--ab-compare``."""
     sys.path.insert(0, str(pathlib.Path(root).resolve()))
     import torch
 
@@ -5970,13 +6085,16 @@ def ab_run(root: str, out_path: str, only: str = "") -> int:
         summary = build_summary(_kernels.build_log, _kernels.library_path())
         print(json.dumps({"ab_build": {k: v for k, v in summary.items()
                                        if k.split("<")[0] in DIN_KERNEL_NAMES + K2_KERNEL_NAMES
-                                       or k.startswith(("segment_sum", "fused_gather_kernel"))}, "package": pkg}),
-              flush=True)
+                                       or k.startswith(("segment_sum", "fused_gather_kernel", "quantize_int8_ef"))},
+                          "package": pkg}), flush=True)
     as_bits = lambda t: t.contiguous().view(torch.uint8).cpu().numpy()  # noqa: E731
     nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
     bits, times = {"root": np.array(str(pathlib.Path(root).resolve()))}, {}
-    bits.update(k12_ab(dev, ops, times, as_bits))
-    if only == "k12":
+    if only != "k12":
+        bits.update(k15_ab(dev, ops, times, as_bits))
+    if only != "k15":
+        bits.update(k12_ab(dev, ops, times, as_bits))
+    if only in ("k12", "k15"):
         np.savez(out_path, **bits)
         print(json.dumps({"ab": {"root": root, "package": pkg, "times": times}, "card": card_line()}), flush=True)
         return 0
@@ -6112,8 +6230,8 @@ def stream_ab(pairs: int) -> int:
 
 
 def ab_compare(paths) -> int:
-    """``--ab-compare A.npz B.npz ...``: K2's, K4's, K8's, K9's and K12's
-    (and its read's) bits equal in every file that holds them (K4's keys and its rows with keys
+    """``--ab-compare A.npz B.npz ...``: K2's, K4's, K8's, K9's, K12's
+    (and its read's) and K15's bits equal in every file that holds them (K4's keys and its rows with keys
     only where the tree's K4 writes keys), K7's in the files of one tree;
     in each file K4's keys equal to the plain routing and its rows with
     keys to its rows without; prints which differ."""
@@ -6207,7 +6325,8 @@ def main() -> int:
             "zipf_bound_ms", "zipf_sort_ms", "longest_segment", "zipf_longest_segment", "one_row_ms",
             "composite_ms", "registers", "over_launch_floor", "no_keys_ms", "no_keys_cold_ms", "routing_cost_ms",
             "c32_ms", "eval_256_ms", "ring_ms", "also_replaces", "note", "restores_ms", "no_restores_ms",
-            "unfolded_pair_ms", "restores_bound_ms", "launches_by_path", "composite_kernels", "composite_bitwise")
+            "unfolded_pair_ms", "restores_bound_ms", "launches_by_path", "composite_kernels", "composite_bitwise",
+            "plan", "ms_over_floor", "cold_ms_over_floor")
     kernels = [{k: r.get(k) for k in keys} for r in rows if not r.get("causal")]
     print(json.dumps({"kernels": kernels, "launch_floor_ms": floor, "card": card}), flush=True)
     print(card, flush=True)

@@ -56,6 +56,7 @@
 #include <cstdint>
 #include <initializer_list>
 
+#include "cluster.cuh"
 #include "vec.cuh"
 
 namespace cg = cooperative_groups;
@@ -395,25 +396,6 @@ int check_plan(int dtype, int rows, int cols, int vec, int groups, int threads, 
   }
   if (slices < 1 || slices > kMaxBnSlices || slices > rows) return cudaErrorInvalidValue;
   return cudaSuccess;
-}
-
-// grid x slices blocks, a cluster of slices along y (no cluster where a
-// column group has one block)
-template <typename... Params, typename... Args>
-int launch_clusters(void (*kernel)(Params...), int grid, int slices, int threads, cudaStream_t st, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid, slices, 1);
-  cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = slices;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = slices > 1 ? 1 : 0;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...));
 }
 
 }  // namespace

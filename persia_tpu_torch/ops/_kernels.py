@@ -169,7 +169,8 @@ def library() -> ctypes.CDLL:
             lib.persia_cached_gather.restype = i32
             lib.persia_cached_gather.argtypes = [vp, ll, i32, vp, ll, vp, ll, i32, vp, i32, vp, vp, vp, vp]
             lib.persia_quantize_int8_ef.restype = i32
-            lib.persia_quantize_int8_ef.argtypes = [vp, i32, vp, ctypes.POINTER(i32), i32, vp, vp, vp, vp]
+            lib.persia_quantize_int8_ef.argtypes = [vp, i32, vp, ctypes.POINTER(i32), i32, vp, vp, vp,
+                                                    i32, i32, i32, i32, vp]
             _lib = lib
         return _lib
 

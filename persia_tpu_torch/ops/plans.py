@@ -796,3 +796,108 @@ def cache_entry_vec(widths, wide: bool, aligned: bool = True) -> int:
         if aligned and all(w % vec == 0 for w in widths):
             return vec
     return 1
+
+
+# the mixed tier's int8 error-feedback quantize, K15 (csrc/quantize_int8.cu):
+# a cluster of blocks a segment, each block a span of the segment's whole
+# units (vec elements: 8 where the tensors start on 16 bytes, else 1), each
+# thread up to `units` of them in registers (t, t + T, ...), the span's
+# rest through a loop; a segment start off the unit takes a scalar head,
+# its end a scalar tail, in block 0 (threads 0-7 and QUANT_EDGE_THREAD on)
+QUANT_MAX_SEGMENTS = 512  # kMaxQuantSegments
+QUANT_MAX_THREADS = 512  # kMaxQuantThreads
+QUANT_MAX_CLUSTER = 8  # kMaxQuantCluster: the portable cluster size
+QUANT_MAX_UNITS = {8: 4, 1: 8}  # kMaxUnitsWide, kMaxUnitsScalar: units a thread holds in registers
+QUANT_EDGE_THREAD = 8  # kEdgeThread
+QUANT_ELEMS = 16  # elements a thread the plan aims for
+QUANT_TARGET_BLOCKS = 264  # two blocks an SM of the H100's 132
+QUANT_BLOCK_ELEMS = 512  # the fewest elements of a segment worth a block of their own
+
+
+@dataclass(frozen=True)
+class QuantInt8Plan:
+    segments: int
+    longest: int  # the longest segment's elements
+    vec: int  # elements a unit: 8 (16-byte loads of g and r) or 1 (scalar)
+    cluster: int  # blocks a segment
+    threads: int  # a block's
+    units: int  # units a thread holds in registers
+
+    @property
+    def blocks(self) -> int:
+        return self.segments * self.cluster
+
+    @property
+    def elems_a_thread(self) -> int:
+        return self.units * self.vec
+
+    @property
+    def held(self) -> int:
+        """Elements a cluster holds in registers: a longer segment's rest
+        is read twice."""
+        return self.cluster * self.threads * self.elems_a_thread
+
+
+@functools.lru_cache(maxsize=256)
+def quantize_int8_plan(segments: int, longest: int, elem_bytes: int, aligned: bool = True) -> QuantInt8Plan:
+    """Geometry of ``quantize_int8_ef`` over ``segments`` segments, the
+    longest of ``longest`` elements of ``elem_bytes`` bytes (bf16 or f32).
+    ``aligned``: g, the residual and the codes start on 16 bytes, so that a
+    unit is 8 elements (g's 16-byte vectors, r's float4s, an 8-byte store
+    of codes); a segment whose start or end is off 8 elements takes its
+    few edge elements scalar, so ``aligned`` does not depend on the
+    offsets. The cluster is the fewest blocks, up to 8, that bring the grid
+    to ``QUANT_TARGET_BLOCKS``, with no block under ``QUANT_BLOCK_ELEMS``
+    elements of the longest segment; the threads are the fewest multiple of
+    32 (up to ``QUANT_MAX_THREADS``) that give each thread
+    ``QUANT_ELEMS`` elements of a block's span, and then each thread holds
+    as many units as the span needs, up to ``QUANT_MAX_UNITS``."""
+    if elem_bytes not in (2, 4):
+        raise ValueError("quantize_int8_ef takes bf16 or f32 gradients")
+    if not 1 <= segments <= QUANT_MAX_SEGMENTS or longest < 0:
+        raise ValueError(f"{segments} segments (1 to {QUANT_MAX_SEGMENTS}), the longest of {longest}")
+    vec = 8 if aligned else 1
+    seg_units = -(-longest // vec)
+    cluster = max(1, min(QUANT_MAX_CLUSTER, -(-QUANT_TARGET_BLOCKS // segments), longest // QUANT_BLOCK_ELEMS))
+    span = -(-seg_units // cluster)
+    per_thread = max(1, QUANT_ELEMS // vec)
+    threads = min(QUANT_MAX_THREADS, max(32, -(-span // per_thread) + 31) // 32 * 32)
+    units = max(1, min(QUANT_MAX_UNITS[vec], -(-span // threads)))
+    return QuantInt8Plan(segments=segments, longest=longest, vec=vec, cluster=cluster, threads=threads,
+                         units=units)
+
+
+def quantize_int8_cover(offsets, plan: QuantInt8Plan):
+    """``(writes, reads)``: how many times K15 under ``plan`` writes and
+    reads each of the elements that ``offsets`` (S+1 ascending) split into
+    segments, by the kernel's own index arithmetic: each block's threads,
+    the units they hold, the span's rest through the loop (read twice) and
+    block 0's head and tail threads."""
+    offsets = [int(o) for o in offsets]
+    writes = np.zeros(offsets[-1], dtype=np.int32)
+    reads = np.zeros(offsets[-1], dtype=np.int32)
+    vec, threads = plan.vec, plan.threads
+    lane_unit = (np.arange(threads)[:, None] + np.arange(plan.units)[None, :] * threads).ravel()
+    for begin, end in zip(offsets[:-1], offsets[1:]):
+        head = min(end - begin, (vec - begin % vec) % vec)
+        body = begin + head
+        seg_units = (end - body) // vec
+        body_end = body + seg_units * vec
+        span = -(-seg_units // plan.cluster)
+        for rank in range(plan.cluster):
+            u0 = min(seg_units, rank * span)
+            u1 = min(seg_units, u0 + span)
+            held = min(u1 - u0, threads * plan.units)
+            units = lane_unit[lane_unit < held]
+            rest = np.arange(held, u1 - u0)
+            for us, n_reads in ((units, 1), (rest, 2)):
+                idx = (body + (u0 + us)[:, None] * vec + np.arange(vec)[None, :]).ravel()
+                np.add.at(writes, idx, 1)
+                np.add.at(reads, idx, n_reads)
+            if rank == 0:
+                tid = np.arange(threads)
+                edge = np.concatenate([begin + tid[tid < head], body_end + tid[(tid >= QUANT_EDGE_THREAD) & (
+                    tid - QUANT_EDGE_THREAD < end - body_end)] - QUANT_EDGE_THREAD])
+                np.add.at(writes, edge, 1)
+                np.add.at(reads, edge, 1)
+    return writes, reads

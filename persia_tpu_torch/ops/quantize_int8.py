@@ -18,7 +18,8 @@ f32)``: the plain version makes a new residual, the kernel writes it over
 ``residual`` in place and returns that tensor.
 
 A CPU tensor takes the plain version; a CUDA tensor one launch a call
-(``quantize_int8_ef.launches``), at most ``MAX_SEGMENTS`` segments.
+(``quantize_int8_ef.launches``), at most ``MAX_SEGMENTS`` segments, in the
+geometry of ``plans.quantize_int8_plan`` (a cluster of blocks a segment).
 """
 
 from __future__ import annotations
@@ -28,9 +29,9 @@ from typing import Sequence, Tuple
 
 import torch
 
-from persia_tpu_torch.ops import _kernels
+from persia_tpu_torch.ops import _kernels, plans
 
-MAX_SEGMENTS = 512  # kMaxQuantSegments in csrc/quantize_int8.cu
+MAX_SEGMENTS = plans.QUANT_MAX_SEGMENTS  # kMaxQuantSegments in csrc/quantize_int8.cu
 
 
 def quantize_int8_ef_reference(g: torch.Tensor, residual: torch.Tensor, offsets: Sequence[int]
@@ -82,12 +83,16 @@ def quantize_int8_ef(g: torch.Tensor, residual: torch.Tensor, offsets: Sequence[
     scales = torch.empty(segments, dtype=torch.float32, device=g.device)
     if not segments:
         return q, scales, residual
+    longest = max(b - a for a, b in zip(offsets[:-1], offsets[1:]))
+    aligned = all(t.data_ptr() % 16 == 0 for t in (g, residual, q))
+    plan = plans.quantize_int8_plan(segments, longest, g.element_size(), aligned)
     offs = (ctypes.c_int * (segments + 1))(*offsets)
     dtype = _kernels.DTYPE_F32 if g.dtype == torch.float32 else _kernels.DTYPE_BF16
     lib = _kernels.library()
     with torch.cuda.device(g.device):
         rc = lib.persia_quantize_int8_ef(g.data_ptr(), dtype, residual.data_ptr(), offs, segments, q.data_ptr(),
-                                         scales.data_ptr(), residual.data_ptr(), _kernels.stream_handle(g))
+                                         scales.data_ptr(), residual.data_ptr(), plan.vec, plan.threads, plan.units,
+                                         plan.cluster, _kernels.stream_handle(g))
     _kernels.check(rc, "quantize_int8_ef")
     quantize_int8_ef.launches += 1
     return q, scales, residual

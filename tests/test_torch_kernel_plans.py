@@ -325,3 +325,103 @@ def test_cache_entry_vec_refuses_an_entry_without_a_table():
     for widths in ((), (0, 16), (16, -1)):
         with pytest.raises(ValueError):
             plans.cache_entry_vec(widths, True)
+
+
+# K15 (csrc/quantize_int8.cu): the ps-stream step's 26 device-pooled slots
+# of P = 1,536 rows x 16, the mixed leg's 13, chip_smoke's edge cases
+# (K15_CASES: host-pooled (4096, 16) beside device-pooled), misaligned
+# starts before a vector body, one segment past a cluster's registers, 512
+# segments
+QUANT_CASES = {
+    "ps_stream": [1536 * 16] * 26,
+    "mixed": [1536 * 16] * 13,
+    "edges": [1, 511, 512, 513, 1000, 3],
+    "empty": [0, 7, 0, 16 * 4096 + 5],
+    "host_pooled": [4096 * 16, 1536 * 16, 33],
+    "misaligned": [5, 2043, 4099, 771, 8],
+    "long": [300_003],
+    "segments_512": [(i * 37) % 251 for i in range(512)],
+}
+
+
+def _quant_offsets(lengths):
+    return [0] + list(itertools.accumulate(lengths))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("case", sorted(QUANT_CASES))
+def test_quantize_int8_plan_covers_every_element_once(case, elem, aligned):
+    """Each element is written exactly once, by the kernel's own index
+    arithmetic (quantize_int8_cover): the held units, the loop past them,
+    block 0's head and tail; it is read once unless its block's span
+    outruns the registers."""
+    lengths = QUANT_CASES[case]
+    p = plans.quantize_int8_plan(len(lengths), max(lengths), elem, aligned)
+    assert p.vec == (8 if aligned else 1)
+    assert 1 <= p.cluster <= plans.QUANT_MAX_CLUSTER and 1 <= p.units <= plans.QUANT_MAX_UNITS[p.vec]
+    assert 32 <= p.threads <= plans.QUANT_MAX_THREADS and p.threads % 32 == 0
+    writes, reads = plans.quantize_int8_cover(_quant_offsets(lengths), p)
+    assert writes.shape == (sum(lengths),) and (writes == 1).all()
+    if max(lengths) <= p.held:
+        assert (reads == 1).all()
+    assert set(reads.tolist()) <= {1, 2}
+
+
+def test_quantize_int8_plan_at_the_ps_stream_shape():
+    """26 segments of 24,576 bf16: clusters of 8 blocks of 192 threads,
+    16 elements a thread, 208 blocks; every element held in registers, so
+    the whole input (g 2 B and r 4 B an element, 3.8 MB) is in flight at
+    once; the mixed leg's 13 segments take the same clusters."""
+    p = plans.quantize_int8_plan(26, 24576, 2)
+    assert (p.vec, p.cluster, p.threads, p.units, p.elems_a_thread, p.blocks) == (8, 8, 192, 2, 16, 208)
+    assert p.held == 24576
+    assert 26 * 24576 * (2 + 4) == 3_833_856
+    assert plans.quantize_int8_plan(13, 24576, 2) == plans.QuantInt8Plan(13, 24576, 8, 8, 192, 2)
+    assert plans.quantize_int8_plan(26, 24576, 4).blocks == 208
+
+
+def test_quantize_int8_plan_past_the_registers():
+    """A segment longer than a cluster's registers hold (8 blocks x 512
+    threads x 32 elements) holds what fits and reads the rest twice; a
+    512-segment call is one block of a warp a segment."""
+    p = plans.quantize_int8_plan(1, 300_003, 2)
+    assert (p.cluster, p.threads, p.units) == (8, 512, 4) and p.held == 131_072 < 300_003
+    _, reads = plans.quantize_int8_cover([0, 300_003], p)
+    assert (reads == 2).sum() == 300_003 - 131_072 - 3
+    many = QUANT_CASES["segments_512"]
+    q = plans.quantize_int8_plan(512, max(many), 2)
+    assert (q.cluster, q.threads, q.blocks) == (1, 32, 512) and q.held >= max(many)
+
+
+def test_quantize_int8_plan_misaligned_starts_take_scalar_edges():
+    """Starts off 8 elements: a head of up to 7 scalar elements before the
+    vector body, a tail of up to 7 after it, in block 0's threads 0-6 and
+    8-14; a segment shorter than its head is all head."""
+    p = plans.quantize_int8_plan(3, 20, 2)
+    offsets = [0, 3, 6, 26]  # starts 3 and 6 are off the unit; 6 + 2 = 8 starts the body
+    writes, reads = plans.quantize_int8_cover(offsets, p)
+    assert (writes == 1).all() and (reads == 1).all()
+    assert plans.QUANT_EDGE_THREAD + 7 <= 32 <= p.threads
+
+
+def test_quantize_int8_plan_constants_match_the_kernel():
+    import re
+    from pathlib import Path
+
+    src = (Path(plans.__file__).resolve().parent.parent / "csrc" / "quantize_int8.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kMaxQuantSegments") == plans.QUANT_MAX_SEGMENTS
+    assert const("kMaxQuantThreads") == plans.QUANT_MAX_THREADS
+    assert const("kMaxQuantCluster") == plans.QUANT_MAX_CLUSTER
+    assert const("kEdgeThread") == plans.QUANT_EDGE_THREAD
+    assert (const("kMaxUnitsWide"), const("kMaxUnitsScalar")) == (plans.QUANT_MAX_UNITS[8], plans.QUANT_MAX_UNITS[1])
+
+
+@pytest.mark.parametrize("args", [(0, 10, 2), (513, 10, 2), (4, 10, 1), (4, 10, 8), (4, -1, 2)])
+def test_quantize_int8_plan_refuses_what_it_has_no_kernel_for(args):
+    with pytest.raises(ValueError):
+        plans.quantize_int8_plan(*args)

@@ -1983,13 +1983,16 @@ def _quant_case(lengths, dtype, seed, dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("lengths", [[1, 511, 512, 513, 1000, 3], [24576] * 26, [0, 7, 0, 4096 * 16 + 5],
-                                     [16 * 4096, 1536 * 16, 33]])
+                                     [16 * 4096, 1536 * 16, 33], [5, 2043, 4099, 771, 8], [300_003],
+                                     [(i * 37) % 251 for i in range(512)], [24576] * 13])
 def test_quantize_int8_kernel_matches_plain_bitwise(cuda, lengths, dtype):
     """K15 against its plain version on the card, segment lengths that are
-    not multiples of the block (512), empty ones, the ps-stream path's 26
-    segments of 24,576, host-pooled (B, D) beside device-pooled (P, D):
-    codes, scales and the residual bit for bit, over three steps with the
-    residual carried in place; one launch a call."""
+    not multiples of 512 or of the 8-element unit, empty ones, the
+    ps-stream path's 26 segments of 24,576 and the mixed leg's 13,
+    host-pooled (B, D) beside device-pooled (P, D), starts off 8 elements
+    before a vector body, one segment past a cluster's registers (300,003)
+    and 512 segments: codes, scales and the residual bit for bit, over
+    three steps with the residual carried in place; one launch a call."""
     from persia_tpu_torch.ops.quantize_int8 import quantize_int8_ef, quantize_int8_ef_reference
 
     g, res, offsets = _quant_case(lengths, dtype, 7, cuda)
@@ -2003,6 +2006,109 @@ def test_quantize_int8_kernel_matches_plain_bitwise(cuda, lengths, dtype):
         assert torch.equal(q, q2) and torch.equal(s, s2)
         assert torch.equal(new.view(torch.int32), plain_res.view(torch.int32))
         g = (g.float() * -0.5 + 1e-3).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_int8_kernel_nan_segment(cuda, dtype):
+    """A NaN inside one segment: its scale is the card's canonical NaN
+    (0x7fffffff: the card's arithmetic returns it whatever NaN went in),
+    its codes 0 and its residual NaN, as the plain version gives them on
+    the card; the other segments are untouched by it. Bit for bit over
+    three steps, in place, one launch a call."""
+    from persia_tpu_torch.ops.quantize_int8 import quantize_int8_ef, quantize_int8_ef_reference
+
+    lengths = [24576, 24576, 1000, 24576]
+    g, res, offsets = _quant_case(lengths, dtype, 11, cuda)
+    g[24576 + 777] = float("nan")
+    clean_g, clean_res = g.clone(), res.clone()
+    clean_g[24576:2 * 24576] = 0
+    plain_res = res.clone()
+    for step in range(3):
+        before = quantize_int8_ef.launches
+        q, s, new = quantize_int8_ef(g, res, offsets)
+        assert quantize_int8_ef.launches == before + 1 and new.data_ptr() == res.data_ptr()
+        q2, s2, plain_res = quantize_int8_ef_reference(g, plain_res, offsets)
+        qc, sc, clean_res = quantize_int8_ef_reference(clean_g, clean_res, offsets)
+        torch.cuda.synchronize()
+        assert torch.equal(q, q2) and torch.equal(s.view(torch.int32), s2.view(torch.int32))
+        assert torch.equal(new.view(torch.int32), plain_res.view(torch.int32))
+        assert s.view(torch.int32)[1].item() == 0x7FFFFFFF
+        assert not q[24576:2 * 24576].any() and new[24576:2 * 24576].isnan().all()
+        for a, b in ((0, 24576), (2 * 24576, sum(lengths))):
+            assert torch.equal(q[a:b], qc[a:b]) and torch.equal(new[a:b].view(torch.int32),
+                                                                  clean_res[a:b].view(torch.int32))
+        assert torch.equal(s[[0, 2, 3]], sc[[0, 2, 3]])
+        g = (g.float() * -0.5 + 1e-3).to(dtype)
+        clean_g = (clean_g.float() * -0.5 + 1e-3).to(dtype)
+        clean_g[24576:2 * 24576] = 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths", [[5, 2043, 4099, 771, 8], [300_003]])
+def test_quantize_int8_kernel_off_16_bytes(cuda, lengths, dtype):
+    """Gradients and a residual that start off 16 bytes (views into larger
+    tensors) take K15's scalar units: bit for bit the plain version over
+    three steps, in place, one launch a call."""
+    from persia_tpu_torch.ops import plans
+    from persia_tpu_torch.ops.quantize_int8 import quantize_int8_ef, quantize_int8_ef_reference
+
+    g0, res0, offsets = _quant_case(lengths, dtype, 13, cuda)
+    n = g0.numel()
+    g_big = torch.zeros(n + 3, dtype=dtype, device=cuda)
+    r_big = torch.zeros(n + 1, dtype=torch.float32, device=cuda)
+    g, res = g_big[3:], r_big[1:]
+    g.copy_(g0)
+    res.copy_(res0)
+    assert g.data_ptr() % 16 and res.data_ptr() % 16
+    assert plans.quantize_int8_plan(len(lengths), max(lengths), g.element_size(), False).vec == 1
+    plain_res = res0.clone()
+    for step in range(3):
+        before = quantize_int8_ef.launches
+        q, s, new = quantize_int8_ef(g, res, offsets)
+        assert quantize_int8_ef.launches == before + 1 and new.data_ptr() == res.data_ptr()
+        q2, s2, plain_res = quantize_int8_ef_reference(g, plain_res, offsets)
+        torch.cuda.synchronize()
+        assert torch.equal(q, q2) and torch.equal(s, s2)
+        assert torch.equal(new.view(torch.int32), plain_res.view(torch.int32))
+        g.copy_((g.float() * -0.5 + 1e-3).to(dtype))
+
+
+def _quant_extremes(dtype, dev):
+    """Segments at the edges of K15's division: maxima under 1e-30 (the
+    scale clamps), scales under 2^-90 and from 2^126 up (IEEE division),
+    just inside both (Markstein's), subnormal gradients, v at the codes'
+    rounding midpoints, signed zeros, an infinity."""
+    rng = np.random.default_rng(5)
+    segs = [rng.standard_normal(4099) * 1e-31, rng.standard_normal(4101) * 1e-29,
+            np.where(rng.random(4096) < 0.25, 1e-40, rng.standard_normal(4096) * 1e-26),
+            rng.standard_normal(4103) * 1e37, rng.standard_normal(4096) * 4e37,
+            np.concatenate([[1.37], (np.arange(-127, 127) + 0.5) / 127 * 1.37, -(np.arange(-127, 127) + 0.5) / 127]),
+            np.array([0.0, -0.0, -0.0, 0.0, 1e-3, -0.0, 2e-3, -5e-4] * 64), np.array([1.0, np.inf, -2.0, 0.5] * 9)]
+    g = torch.from_numpy(np.concatenate(segs).astype(np.float32)).to(dtype)
+    res = torch.zeros(g.shape, dtype=torch.float32)
+    zeros = torch.from_numpy(np.concatenate([np.zeros(sum(len(x) for x in segs[:6])), np.array([-0.0] * 512),
+                                             np.zeros(len(segs[7]))]).astype(np.float32))
+    res = torch.where(zeros.signbit(), zeros, res)
+    offsets = [0] + np.cumsum([len(x) for x in segs]).tolist()
+    return g.to(dev), res.to(dev), offsets
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_int8_kernel_extreme_scales_bitwise(cuda, dtype):
+    """K15 at the edges of its division (``_quant_extremes``) against its
+    plain version on the card: codes, scales and the residual bit for bit
+    over three steps, in place."""
+    from persia_tpu_torch.ops.quantize_int8 import quantize_int8_ef, quantize_int8_ef_reference
+
+    g, res, offsets = _quant_extremes(dtype, cuda)
+    plain_res = res.clone()
+    for step in range(3):
+        q, s, new = quantize_int8_ef(g, res, offsets)
+        q2, s2, plain_res = quantize_int8_ef_reference(g, plain_res, offsets)
+        torch.cuda.synchronize()
+        assert torch.equal(q, q2) and torch.equal(s.view(torch.int32), s2.view(torch.int32)), step
+        assert torch.equal(new.view(torch.int32), plain_res.view(torch.int32)), step
+        g = (g.float() * -0.5).to(dtype)
 
 
 def test_quantize_int8_kernel_zeros_and_refusals(cuda):
