@@ -51,7 +51,14 @@ result line:
    segments (762, 318, 180 positions and the long threshold - 1, at it and
    + 1) and on segments ending on a staged tile's edge; the bench's 26
    stacked tables with Adagrad(0.05); a bf16 table), each case's longest
-   segment printed;
+   segment printed; and past 2^31 elements, the Criteo-1TB stack
+   (183,873,726 x 16 f32 and its Adagrad state, 23.5 GB, on the card):
+   K4 with its keys on a Criteo-1TB batch with ids at every slot's last
+   rows (the stack's last 12 slots lie past row 2^27, element 2^31), pads
+   and ids past the slot, bit for bit its plain version on the card, and
+   K5 on those keys bit for bit its plain version on the CPU over the
+   touched rows (remapped in order), the table's and state's integer
+   checksums moved by the touched rows alone;
    (3c) the DIN path's kernels at its shape (B=1024, L=50, dim 16, two raw
    slots of 26,000 and 9,000 distinct rows), both dtypes: K6
    ``raw_gather_fwd`` bit for bit; K7 ``raw_gather_bwd`` within twice the
@@ -185,7 +192,16 @@ result line:
    Avazu at ``examples/avazu/train.py``'s width (21 fields of dim 16, deep
    (256, 128), B=4096): 8 ``TrainCtx.train_step``s each, the first 3
    losses held to the CPU port (2e-2), no kernel of the port launched
-   (host pooling); (j) DNN with its batch statistics: (a) the adult-income
+   (host pooling); then the router's fan-out across its replicas
+   against the same calls run inline and with every part handed to the
+   pool (subclasses here), in turns (fan, inline, pool_all, pool_all,
+   inline, fan, twice), the same 16 batches a turn on 4g's and
+   4i's ctxs (two native replicas) after a warm-up pass over them:
+   synchronous ``train_step``s of DIN and DeepFM, and DIN through
+   ``DataLoader(num_workers=4, staleness=4)``; each turn's lookup and
+   update p50, the router's ms a step (every call's time, its tails
+   included) and samples/s;
+   (j) DNN with its batch statistics: (a) the adult-income
    example's exact configuration (``persia_tpu_torch.testing.adult_income``,
    from the reference's initial weights) for its 4 epochs on the card and
    on the CPU, each epoch's loss and AUC printed, the final AUC of both
@@ -276,7 +292,40 @@ result line:
    decisions equal at every step, losses within 2e-2, entries after flush
    within 1e-2), then the same batches as the stream at the bench's knobs
    (its decisions the synchronous steps', its last loss within 2e-2 of
-   theirs);
+   theirs); (l) the Criteo DLRM example through the port
+   (``persia_tpu_torch.testing.criteo_dlrm``: DLRM bottom (64, 32, 16),
+   top (256, 128), Adam(1e-3), Adagrad(0.05), B=4096, the example's 64
+   train and 8 held-out batches cut to 12 and 4) at Kaggle and at 1TB
+   cardinalities on each tier: hybrid (two numpy replicas of 2^20 rows;
+   the first 3 steps through the reproducible loader held to the CPU
+   port's, losses 2e-2 and every PS row 1e-2, then the counted run through
+   ``DataLoader(num_workers=4, staleness=4)``: K0 and K3 once a step),
+   cached (2^18 cache rows; at 1TB the 6 hash-stacked slots on the PS
+   tier; the example's stream over every batch, counted: K0, K3, K13 and
+   K5 once a step, K12; its first 3 losses held to the CPU port's stream
+   at 2e-2; ``publish()``) and fused (every table whole on the card: 33.8M
+   rows and 4.3 GB at Kaggle, 183.9M rows and 23.5 GB at 1TB, built by
+   ``FusedTrainCtx``; the example's loop, the CUDA-graph step, beside an
+   eager twin of the state, the counted run (K4 with keys, K5, K0 and K3
+   once a step), bit for bit; the first 3 losses and the rows they touched
+   held to a CPU twin that holds only those rows, copied from the card's
+   state and remapped in order, at 2e-2, 1e-2 and the deltas at
+   ``FUSED_DELTA_RTOL``; peak device bytes); each leg's held-out AUC (not
+   gated) and samples/s; (m) the 100T harness
+   (``persia_tpu_torch.testing.synthetic_100t``: 128 numpy replicas of 2^16
+   rows, 8 slots of 4 uniform u64 ids, B=1024, DLRM bottom (32, 16), top
+   (64, 32)): 3 reproducible steps held to the CPU port (losses 2e-2,
+   every replica's entries 1e-2), then 8 steps through the example's
+   loader, counted (K0 and K3 once a step), and the example's record
+   (samples/s, ids/s through the router, rows resident, bytes a row, the
+   100T extrapolation); (n) the quality gate
+   (``persia_tpu_torch.testing.quality``, ``bench.py:680-900``'s tiers on
+   one 200-step stream of ``CriteoSynthetic`` at [1M] x 26, 4 batches
+   held out): cached (the bench's cached configuration), ps-stream (every
+   slot on the PS, int8, device pooling) and fused (26 stacked 1M x 16
+   tables), each counted (cached: K12, K13, K5; ps-stream: K15, K1, K2;
+   fused: K4 and K5 in the graph's capture; K0 and K3), its AUC and
+   samples/s; the phase fails when the AUCs spread by 0.02 or more;
 5. timings of each kernel beside its plain version, the library call that
    computes the same function, and the card's bound, each by CUDA-graph
    replay (host enqueue cost out of the number; eager times beside them):
@@ -319,14 +368,22 @@ result line:
    the 17 composed PyTorch calls that compute it (their bits compared
    with the kernel's) and the bound, over the one-launch floor, with its
    plan (blocks a cluster, blocks, threads, elements a thread);
+   K4 (with keys) and K5 again at the Criteo-1TB stack (random, 23.5
+   GB), warm and cold, on the Criteo-1TB stream's ids and on ids uniform
+   over each slot (``at_1tb`` in their rows);
    and (5b) the flash-attention backward, a dense recompute, beside SDPA's
    backward.
 
-The last line is ``{"ok": true, "device": {...}}``.
+Phases 4l-4n run after phase 5's timings (a profiler session after them
+once recorded no device work; whether one does is printed), then phase
+5's 1TB rows. Each phase's seconds are printed as it ends (``phase_seconds``); the
+kernels line's ``launches_by_path`` holds each kernel's launches in the
+counted runs of phases 4l-4n. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import re
@@ -3677,25 +3734,14 @@ def phase_cache_kernels(dev):
 
 
 def cache_ctx(device, rows, store, sd, sparse="adagrad", wires="bfloat16", touches=2):
-    """``_cached_tier_ctx``'s ctx (bench.py:285-344): DLRM at bench width
+    """``_cached_tier_ctx``'s ctx (bench.py:285-344) through the builder the
+    quality gate shares (``testing.quality.tier_ctx``): DLRM at bench width
     from ``sd``, Adam(1e-3), Adagrad(0.05) (or SGD(0.05)), the bf16 wires
     and the touch gate, over ``store``."""
-    import torch
+    from persia_tpu_torch.testing.quality import bench_model, tier_ctx
 
-    from persia_tpu_torch.embedding.hbm_cache import CachedTrainCtx
-    from persia_tpu_torch.embedding.optim import SGD, Adagrad
-    from persia_tpu_torch.embedding.worker import EmbeddingWorker
-    from persia_tpu_torch.models import DLRM
-
-    cfg = bench_cfg()
-    model = DLRM(N_DENSE, N_SLOTS, EMB_DIM, BOTTOM, TOP, device="cpu")
-    model.load_state_dict(sd)
-    opt = Adagrad(lr=0.05) if sparse == "adagrad" else SGD(lr=0.05)
-    ctx = CachedTrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3), opt, EmbeddingWorker(cfg, [store]),
-                         cfg, cache_rows=rows, device=device, wb_wire_dtype=wires, aux_wire_dtype=wires,
-                         admit_touches=touches).__enter__()
-    ctx.init_state()
-    return ctx
+    return tier_ctx(device, store, cache_rows=rows, wires=wires, admit_touches=touches, sparse=sparse,
+                    model=bench_model(state_dict=sd))
 
 
 def cache_store(sparse="adagrad"):
@@ -4548,28 +4594,16 @@ def phase_quant_kernels(dev):
 
 
 def ps_ctx(device, store, sd, ps_slots=PS_ALL, wire="int8", rows=8):
-    """``_cached_tier_ctx(ps_all=True)``'s ctx (bench.py:285-344): DLRM at
-    bench width from ``sd``, Adam(1e-3), Adagrad(0.05), a device-pooling
-    worker over ``store``, ``ps_slots`` on the PS with the ``wire``
-    gradient wire and ``rows`` cache rows (8: unused); with cached slots
-    beside them the cached configuration's bf16 wires and touch gate."""
-    import torch
+    """``_cached_tier_ctx(ps_all=True)``'s ctx (bench.py:285-344) through
+    ``testing.quality.tier_ctx``: DLRM at bench width from ``sd``,
+    Adam(1e-3), Adagrad(0.05), a device-pooling worker over ``store``,
+    ``ps_slots`` on the PS with the ``wire`` gradient wire and ``rows``
+    cache rows (8: unused); with cached slots beside them the cached
+    configuration's bf16 wires and touch gate."""
+    from persia_tpu_torch.testing.quality import bench_model, tier_ctx
 
-    from persia_tpu_torch.embedding.hbm_cache import CachedTrainCtx
-    from persia_tpu_torch.embedding.optim import Adagrad
-    from persia_tpu_torch.embedding.worker import EmbeddingWorker
-    from persia_tpu_torch.models import DLRM
-
-    cfg = bench_cfg()
-    model = DLRM(N_DENSE, N_SLOTS, EMB_DIM, BOTTOM, TOP, device="cpu")
-    model.load_state_dict(sd)
-    cached = dict(wb_wire_dtype="bfloat16", aux_wire_dtype="bfloat16", admit_touches=2) if len(ps_slots) < N_SLOTS \
-        else {}
-    ctx = CachedTrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3), Adagrad(lr=0.05),
-                         EmbeddingWorker(cfg, [store], device_pooling=True), cfg, cache_rows=rows, device=device,
-                         ps_slots=ps_slots, ps_wire_dtype=wire, **cached).__enter__()
-    ctx.init_state()
-    return ctx
+    return tier_ctx(device, store, ps_slots=ps_slots, ps_wire=wire, cache_rows=rows,
+                    model=bench_model(state_dict=sd))
 
 
 PS_PARTS = ("lookup", "staging", "apply")  # the PS tier's host parts, timed a call
@@ -5736,6 +5770,9 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused, din
     # K9 is one kernel a call: the device's events over 20 calls by name
     k9 = rows[-1]
     _, top, runs = device_busy_ms(lambda _: ops.attention_pool_bwd(d_out, mask, hist, w), [None] * 20)
+    if not top:
+        raise SystemExit("attention_pool_bwd's trace holds no device record (a profiler session now records "
+                         f"device work: {profiler_records_device_work(dev)})")
     k9["trace_20_calls"] = {"attention_pool_bwd_kernel": runs["attention_pool_bwd_kernel"],
                             "device_events_ms_a_call": top}
     print(f"  attention_pool_bwd: warm {k9['ms']:.5f} ms, cold {k9['cold_ms']:.5f} ms, bound {k9['bound_ms']:.5f} "
@@ -6265,6 +6302,662 @@ def ab_compare(paths) -> int:
     return 0 if ok else 1
 
 
+# ---------------------------------------------------------------------------
+# The Criteo DLRM example (persia_tpu_torch.testing.criteo_dlrm), the 100T
+# harness (testing.synthetic_100t) and the quality gate (testing.quality):
+# phases 3b's 1TB case, 4l, 4m, 4n, the fan-out's timing and phase 5's 1TB
+# rows
+
+TB_ROWS = 183_873_726  # the Criteo-1TB stacked table's rows (sum of CRITEO_1TB_VOCABS)
+# phase 4l: train batches a leg (the example's 64 cut to 12), held-out
+# batches (8 cut to 4), the first steps held to the CPU port
+CRITEO_STEPS, CRITEO_EVAL, CRITEO_CPU_STEPS = 12, 4, 3
+# phase 4m: the harness's timed steps (32 cut to 8) after 3 reproducible
+# steps held to the CPU port; B=1024
+H100T_STEPS, H100T_REPRO, H100T_BATCH = 8, 3, 1024
+QUALITY_STEPS = 200  # phase 4n: bench.py's default budget
+FANOUT_STEPS = 16  # steps a turn of the fan-out's timing, the same batches each turn
+
+
+def criteo_tb_ids(rng, batch_seed, vocabs, top=True):
+    """One Criteo-1TB batch's ids per slot, as the example's stream draws
+    them (``CriteoSynthetic``, B=4096, batch ``batch_seed``), in the stack's
+    slot order; with ``top`` the first positions of every slot at its last
+    rows (past row 2^27 for the stack's last 12 slots), pads and ids past
+    the slot."""
+    from persia_tpu_torch.testing import CriteoSynthetic
+
+    b = next(CriteoSynthetic(num_samples=BATCH, vocab_sizes=vocabs, seed=batch_seed).batches(BATCH))
+    by_name = {f.name: np.asarray(f.data).reshape(-1).astype(np.int64) for f in b.id_type_features}
+    out = []
+    for name, v in zip(sorted(by_name), (vocabs[int(n[4:])] for n in sorted(by_name))):
+        ids = by_name[name].copy()
+        if top:
+            ids[:8] = [v - 1, v - 1, v - 2, v - 3, -1, v, v + 7, 0]
+            ids[8:8 + 40] = v - 1  # a long segment on the slot's last row
+            ids[rng.random(ids.size) < 0.02] = -1
+        out.append(ids.astype(np.int32))
+    return out
+
+
+def phase_fused_1tb_kernels(dev):
+    """Phase 3b's case past 2^31 elements: the Criteo-1TB stack (183,873,726
+    x 16 f32 and its Adagrad state, 23.5 GB) on the card; K4 with its keys
+    and K5 on a Criteo-1TB batch with ids at the top rows of every slot,
+    bit for bit their plain versions (K4's on the card; K5's on the CPU over
+    the touched rows, compacted in order); no other row moves (an exact
+    integer checksum of the whole table and state)."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.ops.fused_gather import fused_gather_reference
+    from persia_tpu_torch.ops.sparse_update import PAD_SENTINEL, sparse_update_reference, update_keys_reference
+    from persia_tpu_torch.parallel.fused_step import FusedSlotSpec, group_stacked_specs
+    from persia_tpu_torch.testing import CRITEO_1TB_VOCABS
+
+    specs = {f"cat_{i}": FusedSlotSpec(vocab=v, dim=EMB_DIM) for i, v in enumerate(CRITEO_1TB_VOCABS)}
+    (grp,) = group_stacked_specs(specs, sorted(specs))
+    vocabs = [specs[n].vocab for n in grp.slots]
+    print(f"== phase 3b (1TB): the Criteo-1TB stack, {grp.vocab:,} x {EMB_DIM} f32 "
+          f"({grp.vocab * EMB_DIM:,} elements) and its Adagrad state on the card", flush=True)
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    rng = np.random.default_rng(SEED + 40)
+    t0 = time.perf_counter()
+    tbl = torch.empty((grp.vocab, EMB_DIM), device=dev).normal_(generator=g).mul_(0.05)
+    acc = torch.empty((grp.vocab, EMB_DIM), device=dev).uniform_(0.01, 1.0, generator=g)
+    torch.cuda.synchronize()
+    ids = [torch.from_numpy(i).to(dev) for i in criteo_tb_ids(rng, 5, CRITEO_1TB_VOCABS)]
+    rows, keys = ops.fused_gather(tbl, ids, list(grp.offsets), vocabs, True, keys=True)
+    ref = fused_gather_reference(tbl, ids, list(grp.offsets), vocabs, True)
+    ref_keys = update_keys_reference(ids, list(grp.offsets), vocabs)
+    live = keys[keys != PAD_SENTINEL].long()
+    top = int(live.max())
+    ok4 = same_bits(rows, ref) and same_bits(keys, ref_keys) and top == grp.vocab - 1
+    print(f"  fused_gather with keys, 26 slots of B={BATCH} (Criteo-1TB ids, each slot's last rows, pads, ids "
+          f"past the slot): {rows.shape[0]} rows, top key {top:,} (element offset {top * EMB_DIM:,}), "
+          f"{int((live * EMB_DIM >= 2 ** 31).sum())} positions past 2^31 elements; rows and keys bitwise vs the "
+          f"plain version on the card {'ok' if ok4 else 'FAIL'}", flush=True)
+    if not ok4:
+        raise SystemExit("fused_gather at the 1TB table disagrees with its plain version")
+    del rows, ref
+    # K5 on those keys; its plain version on the CPU over the touched rows
+    # (remapped in order: the same sort, the same segments, the same sums)
+    cfg = Adagrad(lr=0.05).config
+    grads = torch.randn((keys.numel(), EMB_DIM), device=dev, generator=g) * 0.1
+    touched = torch.unique(live)
+    before = (tbl[touched].cpu(), acc[touched].cpu())
+
+    def checksum():
+        return [int(t.view(torch.int32).sum(dtype=torch.int64)) for t in (tbl, acc)]
+
+    sums = checksum()
+    bs = torch.ones(2, device=dev)
+    ops.sparse_update(cfg, tbl, {"acc": acc}, keys, grads, bs)
+    torch.cuda.synchronize()
+    compact = torch.where(keys == PAD_SENTINEL, torch.full_like(keys, PAD_SENTINEL),
+                          torch.searchsorted(touched, keys.long()).to(torch.int32)).cpu()
+    ctbl, cacc = before[0].clone(), before[1].clone()
+    sparse_update_reference(cfg, ctbl, {"acc": cacc}, compact, grads.cpu(), bs.cpu())
+    after = (tbl[touched].cpu(), acc[touched].cpu())
+    moved = [int(a.view(torch.int32).sum(dtype=torch.int64) - b.view(torch.int32).sum(dtype=torch.int64))
+             for a, b in zip(after, before)]
+    sums2 = checksum()
+    ok5 = same_bits(after[0], ctbl) and same_bits(after[1], cacc) and \
+        [s2 - s for s, s2 in zip(sums, sums2)] == moved and not same_bits(after[0], before[0])
+    print(f"  sparse_update Adagrad(0.05) on those keys: {touched.numel()} rows touched (top row {top:,}), "
+          f"longest segment {longest_segment(torch.sort(keys)[0])}; rows and accumulators bitwise vs the plain "
+          f"version on the CPU over the touched rows {'ok' if ok5 else 'FAIL'}; the table's and state's integer "
+          f"checksums moved exactly by the touched rows' {'ok' if ok5 else 'FAIL'} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    if not ok5:
+        raise SystemExit("sparse_update at the 1TB table disagrees with its plain version, or moved another row")
+    del tbl, acc, grads
+    torch.cuda.empty_cache()
+
+
+def clone_fused_state(state):
+    """A second ``FusedTrainState`` on the same card, every tensor copied
+    (the model deep-copied, a new Adam over it with the state copied)."""
+    import copy
+
+    import torch
+
+    from persia_tpu_torch.parallel.fused_step import FusedTrainState, prepare_dense_optimizer
+
+    model = copy.deepcopy(state.model)
+    opt = torch.optim.Adam(model.parameters(), lr=state.optimizer.param_groups[0]["lr"])
+    prepare_dense_optimizer(opt, state.step.device)
+    for p_src, p_dst in zip(state.model.parameters(), model.parameters()):
+        for k, v in state.optimizer.state[p_src].items():
+            if torch.is_tensor(v):
+                opt.state[p_dst][k].copy_(v)
+    return FusedTrainState(model=model, optimizer=opt, tables={k: v.clone() for k, v in state.tables.items()},
+                           emb_state={k: {n: t.clone() for n, t in s.items()} for k, s in state.emb_state.items()},
+                           emb_batch_state=state.emb_batch_state.clone(), step=state.step.clone())
+
+
+def compact_fused_twin(ctx, host_batches):
+    """The CPU twin of a fused ctx over ``host_batches`` (fused host
+    batches, ids in each slot's vocab): each slot's table holds only the
+    rows the batches name, copied from the ctx's state, and the ids are
+    remapped in order; the model is drawn as the example draws the ctx's.
+    Returns (state, step, remapped batches, {slot: (touched ids, card
+    rows)})."""
+    import torch
+
+    from persia_tpu_torch.parallel.fused_step import (
+        FusedSlotSpec, build_fused_train_step, group_stacked_specs, init_fused_state,
+    )
+    from persia_tpu_torch.testing.criteo_dlrm import build_model
+
+    names = sorted(ctx.specs)
+    touched = {n: np.unique(np.concatenate([h["ids"][n][h["ids"][n] >= 0] for h in host_batches])) for n in names}
+    specs = {n: FusedSlotSpec(vocab=max(1, len(touched[n])), dim=ctx.specs[n].dim) for n in names}
+    model = build_model(len(names))
+    state = init_fused_state(model, torch.optim.Adam(model.parameters(), lr=1e-3), torch.Generator().manual_seed(0),
+                             specs, ctx.sparse_cfg, stack=True, device="cpu")
+    (cgrp,) = group_stacked_specs(specs, names)
+    (card_grp,) = group_stacked_specs(ctx.specs, names)
+    rows = {}
+    for n, coff, off in zip(cgrp.slots, cgrp.offsets, card_grp.offsets):
+        idx = torch.from_numpy(touched[n].astype(np.int64) + off).to(ctx.device)
+        rows[n] = idx
+        state.tables[cgrp.name][coff:coff + len(idx)] = ctx.state.tables[card_grp.name][idx].cpu()
+        for k, t in state.emb_state[cgrp.name].items():
+            t[coff:coff + len(idx)] = ctx.state.emb_state[card_grp.name][k][idx].cpu()
+    remapped = [{"dense": h["dense"], "labels": h["labels"],
+                 "ids": {n: np.where(h["ids"][n] >= 0, np.searchsorted(touched[n], h["ids"][n]), -1).astype(np.int32)
+                         for n in names}} for h in host_batches]
+    return state, build_fused_train_step(ctx.sparse_cfg, specs, stack=True), remapped, (cgrp, card_grp, rows)
+
+
+def compact_rows(state, grp, rows_of, card):
+    """The touched rows of every slot in stack order: from the card's
+    stacked table (``card``) or from the compact twin's."""
+    import torch
+
+    if card:
+        return torch.cat([state.tables[grp.name][rows_of[n]].cpu() for n in grp.slots])
+    return torch.cat([state.tables[grp.name][off:off + len(rows_of[n])]
+                      for n, off in zip(grp.slots, grp.offsets)])
+
+
+def expect_path_launches(what, launches, exact, at_least=()):
+    """The counted run's launches: ``exact`` {kernel: count}, and each of
+    ``at_least`` launched at least once; any other count is printed."""
+    print(f"  launches={ {k: v for k, v in launches.items() if v} }", flush=True)
+    bad = {k: (launches[k], v) for k, v in exact.items() if launches[k] != v}
+    bad.update({k: (launches[k], ">= 1") for k in at_least if launches[k] < 1})
+    if bad:
+        raise SystemExit(f"{what}: launches (got, expected) {bad}")
+
+
+def criteo_fused_leg(dev, scale, train_b, test_b):
+    """The example's fused tier at ``scale``, every table whole on the card:
+    the ctx's loop (the CUDA-graph step; the first step, its capture,
+    untimed), an eager twin of the state (the counted run) bit for bit the
+    graph steps, the compact CPU twin's first steps, the held-out AUC."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.parallel.fused_ctx import batch_to_fused
+    from persia_tpu_torch.parallel.fused_step import build_fused_train_step, fused_batch_to_device
+    from persia_tpu_torch.testing import criteo_dlrm as cd
+    from persia_tpu_torch.testing import roc_auc
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    vocabs = cd.vocabs_of(scale)
+    t0 = time.perf_counter()
+    ctx = cd.build_ctx(vocabs, tier="fused", device=dev)
+    ctx._ensure_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    (tname, table), = ctx.state.tables.items()
+    state_bytes = sum(t.numel() * t.element_size() for t in [table, *ctx.state.emb_state[tname].values()])
+    print(f"  fused[{scale}]: stacked table {tuple(table.shape)} ({table.numel():,} elements) and its state: "
+          f"{state_bytes / 1e9:.2f} GB on the card, built in {init_s:.2f} s", flush=True)
+    twin = clone_fused_state(ctx.state)
+    host = [batch_to_fused(b, ctx.specs, True) for b in train_b]
+    cpu_state, cpu_step, cpu_batches, (cgrp, card_grp, rows_of) = compact_fused_twin(
+        ctx, host[:CRITEO_CPU_STEPS])
+    init_rows = compact_rows(ctx.state, card_grp, rows_of, card=True)
+    losses, step_s = [], []
+    for i, b in enumerate(train_b):
+        t = time.perf_counter()
+        losses.append(ctx.train_step(b)["loss"])  # the example's loop; the first step captures the graph
+        step_s.append(time.perf_counter() - t)
+        if i + 1 == CRITEO_CPU_STEPS:
+            card_rows = compact_rows(ctx.state, card_grp, rows_of, card=True)
+    eager = build_fused_train_step(ctx.sparse_cfg, ctx.specs, stack=True, jit=False)
+    ops.reset_launch_counts()
+    e_losses = []
+    for h in host:
+        twin, (loss, _) = eager(twin, fused_batch_to_device(h, dev))
+        e_losses.append(loss)
+    torch.cuda.synchronize()
+    launches = launches_now()
+    n = len(train_b)
+    expect_path_launches(f"criteo fused[{scale}] (eager twin)", launches,
+                         dict(fused_gather=n, sparse_update=n, dot_interaction=n, dot_interaction_bwd=n))
+    same = same_bits(torch.tensor(losses, dtype=torch.float32), torch.stack(e_losses).cpu()) and all(
+        same_bits(a, c) for a, c in zip(fused_state_tensors(ctx.state), fused_state_tensors(twin)))
+    del twin
+    torch.cuda.empty_cache()
+    cpu_losses = [float(cpu_step(cpu_state, fused_batch_to_device(h, "cpu"))[1][0]) for h in cpu_batches]
+    loss_err = max(abs(a - c) for a, c in zip(losses, cpu_losses))
+    cpu_rows = compact_rows(cpu_state, cgrp, rows_of, card=False)
+    row_err = float((card_rows - cpu_rows).abs().max())
+    delta_err = float((card_rows - cpu_rows).norm() / (cpu_rows - init_rows).norm())
+    ok = same and loss_err <= 2e-2 and row_err <= 1e-2 and delta_err <= FUSED_DELTA_RTOL and np.isfinite(losses).all()
+    print(f"  fused[{scale}]: graph steps vs eager twin, {n} steps: losses, tables, states and parameters bitwise "
+          f"{'ok' if same else 'FAIL'}; first {CRITEO_CPU_STEPS} losses card {losses[:CRITEO_CPU_STEPS]} cpu "
+          f"(compact twin, {cpu_rows.shape[0]} rows) {cpu_losses}: max_abs_err={loss_err:.3e} tolerance=2e-2; rows "
+          f"max_abs_err={row_err:.3e} tolerance=1e-2; |delta card - cpu| / |delta cpu| = {delta_err:.3e} "
+          f"tolerance={FUSED_DELTA_RTOL:g} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit(f"criteo fused[{scale}]: the graph and eager steps, or card and CPU, disagree")
+    preds, labels = cd.predict(ctx, test_b)
+    steady = sum(step_s[1:])
+    out = {"tier": "fused", "scale": scale, "steps": n, "losses_first": losses[:CRITEO_CPU_STEPS],
+           "loss_mean": float(np.mean(losses)), "test_auc": float(roc_auc(labels, preds)),
+           "samples_per_s": (n - 1) * BATCH / steady, "first_step_s": step_s[0],
+           "step_ms_p50": float(np.percentile(step_s[1:], 50) * 1e3),
+           "table_rows": int(table.shape[0]), "table_elements": int(table.numel()), "state_bytes": state_bytes,
+           "init_s": init_s, "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "loss_max_abs_err_vs_cpu": loss_err, "row_max_abs_err_vs_cpu": row_err, "rows_compared": cpu_rows.shape[0],
+           "row_delta_rel_err_vs_cpu": delta_err, "graph_equals_eager_steps": n, "launches": launches}
+    print(f"  fused[{scale}]: {out['samples_per_s']:.1f} samples/s (graph steps after the capture), step p50 "
+          f"{out['step_ms_p50']:.2f} ms, test_auc {out['test_auc']:.6f} (not gated), peak device bytes "
+          f"{out['peak_device_bytes']:,}", flush=True)
+    del ctx, cpu_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def store_entries(stores):
+    """{sign: entry} over numpy stores."""
+    return {int(s): np.array(v) for st in stores for sh in st._shards for s, (_, v) in sh.entries.items()}
+
+
+def entries_close(card_stores, cpu_stores):
+    a, b = store_entries(card_stores), store_entries(cpu_stores)
+    if a.keys() != b.keys() or not a:
+        return float("inf"), len(a)
+    return max(float(np.abs(a[k] - b[k]).max()) for k in a), len(a)
+
+
+def criteo_store_leg(dev, scale, tier, train_b, test_b):
+    """The example's hybrid or cached tier at ``scale`` over its numpy
+    stores: the first steps on the card and in the CPU port (hybrid: the
+    reproducible loader; cached: the example's stream) held together, then
+    the counted run as the example runs it (hybrid: the rest through
+    ``DataLoader(num_workers=4, staleness=4)``; cached: every batch through
+    ``train_stream(on_metrics=...)`` from a fresh ctx), ``publish()`` and the
+    held-out AUC."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.testing import criteo_dlrm as cd
+    from persia_tpu_torch.testing import roc_auc
+
+    vocabs = cd.vocabs_of(scale)
+    above = cd.HASHSTACK_ABOVE_1TB if scale == "1tb" else None
+    k = CRITEO_CPU_STEPS
+    card = cd.build_ctx(vocabs, tier=tier, hashstack_above=above, device=dev).__enter__()
+    cpu = cd.build_ctx(vocabs, tier=tier, hashstack_above=above, device="cpu").__enter__()
+    ps = tuple(card.tier.ps_slots) if tier == "cached" else ()
+    cpu_losses, _ = cd.train(cpu, tier, train_b[:k], deterministic=True)
+    if tier == "hybrid":
+        first, _ = cd.train(card, tier, train_b[:k], deterministic=True)
+        row_err, n_rows = entries_close(card.worker.lookup_router.replicas, cpu.worker.lookup_router.replicas)
+        ops.reset_launch_counts()
+        rest, secs = cd.train(card, tier, train_b[k:])  # the example's loader: 4 threads, staleness 4
+        launches = launches_now()
+        losses, n = first + rest, len(train_b) - k
+        expect_path_launches(f"criteo {tier}[{scale}]", launches, dict(dot_interaction=n, dot_interaction_bwd=n))
+    else:
+        ops.reset_launch_counts()
+        losses, secs = cd.train(card, tier, train_b)  # the example's stream, one step a dispatch
+        launches = launches_now()
+        n = len(train_b)
+        expect_path_launches(f"criteo {tier}[{scale}]", launches,
+                             dict(dot_interaction=n, dot_interaction_bwd=n, cached_gather=n, sparse_update=n),
+                             at_least=("cache_aux",))
+        row_err, n_rows = None, 0
+    err = max(abs(a - c) for a, c in zip(losses, cpu_losses))
+    published = card.publish() if tier == "cached" else None
+    preds, labels = cd.predict(card, test_b)
+    ok = err <= 2e-2 and np.isfinite(losses).all() and (row_err is None or row_err <= 1e-2)
+    out = {"tier": tier, "scale": scale, "steps": len(train_b), "ps_slots": list(ps),
+           "losses_first": losses[:k], "cpu_losses": cpu_losses, "loss_max_abs_err_vs_cpu": err,
+           "ps_rows_compared": n_rows, "ps_row_max_abs_err_vs_cpu": row_err, "loss_mean": float(np.mean(losses)),
+           "test_auc": float(roc_auc(labels, preds)), "samples_per_s": n * BATCH / secs, "timed_steps": n,
+           "published_rows": published, "launches": launches}
+    print(f"  {tier}[{scale}]{f' (PS slots {list(ps)})' if ps else ''}: first {k} losses card {losses[:k]} cpu "
+          f"{cpu_losses} max_abs_err={err:.3e} tolerance=2e-2"
+          f"{f'; {n_rows} PS rows max_abs_err={row_err:.3e} tolerance=1e-2' if row_err is not None else ''} "
+          f"{'ok' if ok else 'FAIL'}; {out['samples_per_s']:.1f} samples/s over {n} steps; test_auc "
+          f"{out['test_auc']:.6f} (not gated){f'; published {published} rows' if published is not None else ''}",
+          flush=True)
+    if not ok:
+        raise SystemExit(f"criteo {tier}[{scale}]: card and CPU disagree, or a loss is not finite")
+    card.__exit__(None, None, None)
+    cpu.__exit__(None, None, None)
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def path_criteo(dev):
+    """Phase 4l: the Criteo DLRM example through the port at B=4096, each
+    tier at Kaggle and 1TB scale."""
+    from persia_tpu_torch.testing import criteo_dlrm as cd
+
+    print(f"== phase 4l: the Criteo DLRM example (persia_tpu_torch.testing.criteo_dlrm), B={BATCH}, "
+          f"{CRITEO_STEPS} train and {CRITEO_EVAL} held-out batches a leg", flush=True)
+    launches, out = {}, {}
+    for scale in ("kaggle", "1tb"):
+        train, test = cd.datasets(scale, CRITEO_STEPS, CRITEO_EVAL, BATCH)
+        train_b, test_b = list(train.batches(BATCH)), list(test.batches(BATCH, requires_grad=False))
+        for tier in cd.TIERS:
+            t = time.perf_counter()
+            if tier == "fused":
+                la, o = criteo_fused_leg(dev, scale, train_b, test_b)
+            else:
+                la, o = criteo_store_leg(dev, scale, tier, train_b, test_b)
+            o["seconds"] = time.perf_counter() - t
+            o["profiler_records_device_work_after"] = profiler_records_device_work(dev)
+            # the fused legs' graph steps go through no wrapper: their
+            # counts are the eager twin's over the same batches
+            key = f"criteo_{tier}_{scale}" + (f" (eager twin of its {CRITEO_STEPS} graph steps)"
+                                                if tier == "fused" else "")
+            launches[key], out[f"{tier}_{scale}"] = la, o
+            print(f"  criteo-dlrm[{scale}] tier={tier} steps={o['steps']} loss={o['loss_mean']:.4f} "
+                  f"test_auc={o['test_auc']:.6f} throughput={o['samples_per_s']:,.0f} samples/sec "
+                  f"({o['seconds']:.1f} s; a profiler session after it records device work: "
+                  f"{o['profiler_records_device_work_after']})", flush=True)
+    return launches, out
+
+
+def path_100t(dev):
+    """Phase 4m: the 100T harness at 128 numpy replicas, B=1024: 3
+    reproducible steps on the card and in the CPU port held together
+    (losses, every replica's entries), then the counted run through the
+    example's loader; the example's record."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.testing import synthetic_100t as sh
+
+    print(f"== phase 4m: the 100T harness (persia_tpu_torch.testing.synthetic_100t), 128 replicas, "
+          f"B={H100T_BATCH}, {H100T_REPRO} reproducible + {H100T_STEPS} steps", flush=True)
+    batches = list(sh.dataset(H100T_REPRO + H100T_STEPS, H100T_BATCH).batches(H100T_BATCH))
+    card, stores = sh.build_ctx(device=dev)
+    cpu, cpu_stores = sh.build_ctx(device="cpu")
+    with card, cpu:
+        cpu_losses, _ = sh.train(cpu, batches[:H100T_REPRO], deterministic=True)
+        first, _ = sh.train(card, batches[:H100T_REPRO], deterministic=True)
+        err = max(abs(a - c) for a, c in zip(first, cpu_losses))
+        row_err, n_rows = entries_close(stores, cpu_stores)
+        ops.reset_launch_counts()
+        losses, secs = sh.train(card, batches[H100T_REPRO:])
+        launches = launches_now()
+        pool = card.worker.lookup_router._fan_pool._max_workers
+    expect_path_launches("100t harness", launches, dict(dot_interaction=H100T_STEPS, dot_interaction_bwd=H100T_STEPS))
+    rec = sh.record(stores, first + losses, secs, H100T_STEPS, batch_size=H100T_BATCH)
+    ok = err <= 2e-2 and row_err <= 1e-2 and np.isfinite(losses).all() and len(stores) == 128
+    th, cap = rec["throughput"], rec["capacity"]
+    print(f"  {len(stores)} replicas (fan-out pool of {pool} threads): first {H100T_REPRO} losses card {first} cpu "
+          f"{cpu_losses} max_abs_err={err:.3e} tolerance=2e-2; {n_rows} entries max_abs_err={row_err:.3e} "
+          f"tolerance=1e-2 {'ok' if ok else 'FAIL'}", flush=True)
+    print(f"  synthetic-100t ps_replicas={len(stores)} steps={H100T_STEPS} loss={np.mean(losses):.4f} "
+          f"throughput={th['samples_per_sec']:,.0f} samples/sec ({th['ids_per_sec_through_router']:,.0f} ids/sec); "
+          f"{cap['rows_resident']:,} rows resident; {cap['bytes_per_row']} B/row -> "
+          f"{cap['tb_needed_for_100t']:,.1f} TB for 100T params, {cap['hosts_at_512gb']:,} hosts at 512 GB",
+          flush=True)
+    if not ok:
+        raise SystemExit("100t harness: card and CPU disagree, or a loss is not finite")
+    torch.cuda.empty_cache()
+    rec.update(loss_max_abs_err_vs_cpu=err, rows_compared=n_rows, row_max_abs_err_vs_cpu=row_err, pool_threads=pool,
+               profiler_records_device_work_after=profiler_records_device_work(dev))
+    print(f"  a profiler session after it records device work: {rec['profiler_records_device_work_after']}",
+          flush=True)
+    return {"h100t": launches}, rec
+
+
+def path_quality(dev):
+    """Phase 4n: the quality gate (``testing.quality``) at its 200 steps:
+    the cached, ps-stream and fused tiers on the identical stream, each
+    counted; fails when their held-out AUCs spread by 0.02 or more."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.testing import quality as q
+
+    print(f"== phase 4n: the quality gate (persia_tpu_torch.testing.quality), {QUALITY_STEPS} steps of B={q.BATCH} "
+          f"+ {q.EVAL_BATCHES} held out, tiers {q.TIERS}", flush=True)
+    t = time.perf_counter()
+    train_b, eval_b = q.quality_data(QUALITY_STEPS)
+    data_s = time.perf_counter() - t
+    out, launches = {"data_s": data_s}, {}
+    for tier in q.TIERS:
+        t = time.perf_counter()
+        store = None if tier == "fused" else make_store(
+            "native", capacity=q.STORE_ROWS, num_internal_shards=q.STORE_SHARDS, optimizer=Adagrad(lr=0.05).config,
+            seed=1)
+        ops.reset_launch_counts()
+        res = q.run_tier(tier, train_b, eval_b, dev, store)
+        la = launches_now()
+        del store
+        # the fused tier's capture (its warm-up and the capture) goes
+        # through the wrappers; its replays do not
+        expect_path_launches(f"quality {tier}", la, {}, at_least={
+            "cached": ("cache_aux", "cached_gather", "sparse_update"),
+            "ps-stream": ("quantize_int8_ef", "gather_pool_fwd", "gather_pool_bwd"),
+            "fused": ("fused_gather", "sparse_update")}[tier] + ("dot_interaction", "dot_interaction_bwd"))
+        torch.cuda.empty_cache()
+        res["seconds"] = time.perf_counter() - t
+        res["profiler_records_device_work_after"] = profiler_records_device_work(dev)
+        key = f"quality_{tier}" + (" (the graph's warm-up and capture; its replays uncounted)"
+                                   if tier == "fused" else "")
+        out[tier], launches[key] = res, la
+        print(f"  {tier}: auc {res['auc']:.10f}, {res['samples_per_sec']:.1f} samples/s over {res['timed_steps']} "
+              f"timed steps ({res['seconds']:.1f} s; a profiler session after it records device work: "
+              f"{res['profiler_records_device_work_after']})", flush=True)
+    out["auc_spread"] = q.spread(out)
+    out["steps"] = QUALITY_STEPS
+    ok = out["auc_spread"] < q.SPREAD_LIMIT
+    print(f"  AUC spread {out['auc_spread']:.6f}, limit {q.SPREAD_LIMIT} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit(f"quality gate: tier AUC spread {out['auc_spread']} is not under {q.SPREAD_LIMIT}")
+    return launches, out
+
+
+def fanout_timing(dev):
+    """The router's fan-out across its replicas against the same calls run
+    inline, one replica after another, and with every part handed to the
+    pool (subclasses here), in turns (fan, inline, pool_all, pool_all,
+    inline, fan, twice), over the same ``FANOUT_STEPS`` batches
+    each turn on phases 4g's and 4i's ctxs (two native replicas), after a
+    warm-up pass over them: synchronous ``train_step``s of DIN and DeepFM
+    (one caller) and DIN through ``DataLoader(num_workers=4,
+    staleness=4)`` (the loader's lookup threads and gradient lanes call at
+    once); each turn's lookup and update p50, the ms a step spent in the
+    router's calls (``lookup_groups``, ``update_groups`` and
+    ``advance_batch_state``, their tails included: a p50 hides a slow
+    hand-off) and its samples/s."""
+    import torch
+
+    from persia_tpu_torch.data_loader import DataLoader
+    from persia_tpu_torch.embedding.worker import FANOUT_WAIT_S, ShardedLookup
+    from persia_tpu_torch.testing import AvazuSynthetic, TaobaoSynthetic
+
+    class Inline(ShardedLookup):
+        def _concurrent(self, thunks):
+            return [t() for t in thunks]
+
+    class PoolAll(ShardedLookup):
+        """Every part handed to a pool thread and waited for: none on the
+        caller, none taken back, every call fanned out whichever thread
+        makes it."""
+
+        def _concurrent(self, thunks):
+            if len(thunks) <= 1 or self._fan_pool is None:
+                return [t() for t in thunks]
+            futures = [self._fan_pool.submit(t) for t in thunks]
+            return [f.result(timeout=FANOUT_WAIT_S) for f in futures]
+
+    modes = {"fan": ShardedLookup, "inline": Inline, "pool_all": PoolAll}
+    order = ("fan", "inline", "pool_all", "pool_all", "inline", "fan") * 2
+    print(f"== phase 4i (fan-out): the router's fan-out, the same calls inline and every part on the pool, "
+          f"in turns {order}, {FANOUT_STEPS} steps a turn, two native replicas", flush=True)
+
+    def turn(ctx, mode, batches, loader):
+        router = ctx.worker.lookup_router
+        router.__class__ = modes[mode]
+        look, upd, adv, sink = [], [], [], []
+        undo = [timed_calls(router, "lookup_groups", look, sink), timed_calls(router, "update_groups", upd, sink),
+                timed_calls(router, "advance_batch_state", adv, sink)]
+        t = time.perf_counter()
+        if loader:
+            dl = DataLoader(batches, ctx, num_workers=4, staleness=4)
+            for tb in dl:
+                ctx.train_step_prepared(tb, dl, fetch_metrics=False)
+            dl.flush()
+            dl.shutdown()
+        else:
+            for b in batches:
+                ctx.train_step(b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        for u in undo:
+            u()
+        router.__class__ = ShardedLookup
+        return {"mode": mode, "lookup_ms_p50": float(np.percentile(look, 50)),
+                "update_ms_p50": float(np.percentile(upd, 50)),
+                "router_ms_a_step": (sum(look) + sum(upd) + sum(adv)) / len(batches),
+                "samples_per_s": len(batches) * len(batches[0].labels[0].data) / wall}
+
+    out = {}
+    legs = (("din_4g", lambda: din_ctx(dev, "native")[0],
+             TaobaoSynthetic(num_samples=FANOUT_STEPS * DIN_BATCH, seed=7).batches(DIN_BATCH), (False, True)),
+            ("deepfm_4i", lambda: avazu_ctx("deepfm", dev, "native")[0],
+             AvazuSynthetic(num_samples=FANOUT_STEPS * AVAZU_BATCH, seed=7).batches(AVAZU_BATCH), (False,)))
+    for name, make, stream, loaders in legs:
+        batches = list(stream)
+        ctx = make()
+        for b in batches:  # warm-up: every sign admitted, every path built
+            ctx.train_step(b)
+        for loader in loaders:
+            turns = [turn(ctx, mode, batches, loader) for mode in order]
+            key = f"{name}_{'loader' if loader else 'sync'}"
+            med = {m: float(np.median([t["samples_per_s"] for t in turns if t["mode"] == m])) for m in modes}
+            router_med = {m: float(np.median([t["router_ms_a_step"] for t in turns if t["mode"] == m]))
+                          for m in modes}
+            out[key] = {"turns": turns, "samples_per_s_median": med, "router_ms_a_step_median": router_med}
+            print(f"  {key}: " + "; ".join(
+                f"{t['mode']} lookup {t['lookup_ms_p50']:.3f} update {t['update_ms_p50']:.3f} ms p50, "
+                f"router {t['router_ms_a_step']:.3f} ms a step, "
+                f"{t['samples_per_s']:.1f} samples/s" for t in turns) + f"; median samples/s {med}, "
+                f"router ms a step {router_med}", flush=True)
+        ctx.__exit__(None, None, None)
+    return out
+
+
+def profiler_records_device_work(dev) -> bool:
+    """Whether a torch.profiler session now records the card's work (20
+    one-element adds), as a diagnostic."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.zeros(1, device=dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            x.add_(1.0)
+        torch.cuda.synchronize()
+    return any(getattr(e, "device_time_total", 0) > 0 for e in prof.key_averages())
+
+
+def time_fused_1tb(dev, rows):
+    """Phase 5's K4 (with keys) and K5 at the Criteo-1TB stack (183.9M x 16
+    f32 and its Adagrad state, 23.5 GB, random): warm (one batch) and cold
+    (fresh batches rotated), on the Criteo-1TB stream's ids and on ids
+    uniform over each slot; added to the K4 and K5 rows (``at_1tb``) beside
+    their 26M-row numbers."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.ops.sparse_update import PAD_SENTINEL, sparse_update_sorted, update_keys_reference
+    from persia_tpu_torch.parallel.fused_step import FusedSlotSpec, group_stacked_specs
+    from persia_tpu_torch.testing import CRITEO_1TB_VOCABS
+
+    specs = {f"cat_{i}": FusedSlotSpec(vocab=v, dim=EMB_DIM) for i, v in enumerate(CRITEO_1TB_VOCABS)}
+    (grp,) = group_stacked_specs(specs, sorted(specs))
+    offs, vocabs = list(grp.offsets), [specs[n].vocab for n in grp.slots]
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    tbl = torch.empty((grp.vocab, EMB_DIM), device=dev).normal_(generator=g).mul_(0.05)
+    acc = torch.empty((grp.vocab, EMB_DIM), device=dev).uniform_(0.01, 1.0, generator=g)
+    cfg = Adagrad(lr=0.05).config
+    rng = np.random.default_rng(SEED + 41)
+    seeds = iter(range(100, 10_000))
+
+    def batch_ids(kind):
+        if kind == "criteo":
+            ids = criteo_tb_ids(rng, next(seeds), CRITEO_1TB_VOCABS, top=False)
+        else:
+            ids = [rng.integers(0, v, BATCH).astype(np.int32) for v in vocabs]
+        return [torch.from_numpy(i).to(dev) for i in ids]
+
+    n_pos = BATCH * len(vocabs)
+    bs = torch.ones(2, device=dev)
+    out = {}
+    for kind in ("criteo", "uniform"):
+        ids = batch_ids(kind)
+        k4_bytes = n_pos * 4 + 2 * n_pos * EMB_DIM * 4 + n_pos * 4
+        k4_bms, _ = bound(k4_bytes, 0, "float32")
+        warm = [graph_ms(lambda: ops.fused_gather(tbl, ids, offs, vocabs, True, keys=True)) for _ in range(2)]
+        cold = [cold_ms(lambda i: ops.fused_gather(tbl, i, offs, vocabs, True, keys=True),
+                        lambda: (batch_ids(kind),), n_pos * 4 + n_pos * EMB_DIM * 4)["ms"] for _ in range(2)]
+
+        def k5_in(ids_):
+            flat = update_keys_reference(ids_, offs, vocabs)
+            sids, perm = torch.sort(flat, stable=True)
+            grads = torch.randn((flat.numel(), EMB_DIM), device=dev, generator=g) * 1e-3
+            return sids, perm, grads
+
+        sids, perm, grads = k5_in(ids)
+        touched = int(torch.unique(sids[sids != PAD_SENTINEL]).numel())
+        k5_bytes = n_pos * 4 + n_pos * 8 + n_pos * EMB_DIM * 4 + touched * EMB_DIM * 4 * 4
+        k5_bms, k5_by = bound(k5_bytes + 8, n_pos * EMB_DIM + touched * EMB_DIM * 8, "float32")
+        k5_warm = [graph_ms(lambda: sparse_update_sorted(cfg, tbl, {"acc": acc}, sids, perm, grads, bs))
+                   for _ in range(2)]
+        k5_cold = [cold_ms(lambda si, pe, gr: sparse_update_sorted(cfg, tbl, {"acc": acc}, si, pe, gr, bs),
+                           lambda: k5_in(batch_ids(kind)), k5_bytes)["ms"] for _ in range(2)]
+        out[kind] = {"k4_ms": min(warm), "k4_ms_runs": warm, "k4_cold_ms": min(cold), "k4_cold_ms_runs": cold,
+                     "k4_bound_ms": k4_bms, "k5_ms": min(k5_warm), "k5_ms_runs": k5_warm, "k5_cold_ms": min(k5_cold),
+                     "k5_cold_ms_runs": k5_cold, "k5_bound_ms": k5_bms, "k5_bound_by": k5_by,
+                     "touched_rows": touched, "longest_segment": longest_segment(sids)}
+        print(f"  at the 1TB stack ({grp.vocab:,} rows), {kind} ids: fused_gather with keys warm {warm} cold {cold} "
+              f"ms (bound {k4_bms:.5f}); sparse_update warm {k5_warm} cold {k5_cold} ms (bound {k5_bms:.5f}, "
+              f"{touched} rows touched, longest segment {out[kind]['longest_segment']})", flush=True)
+    for r in rows:
+        if r["name"] == "fused_gather":
+            r["at_1tb"] = {"table_rows": grp.vocab, **{k: {kk[3:]: vv for kk, vv in v.items() if kk.startswith("k4_")}
+                                                       for k, v in out.items()}}
+        elif r["name"] == "sparse_update":
+            r["at_1tb"] = {"table_rows": grp.vocab, **{k: {**{kk[3:]: vv for kk, vv in v.items() if kk.startswith("k5_")},
+                                                           "touched_rows": v["touched_rows"],
+                                                           "longest_segment": v["longest_segment"]}
+                                                       for k, v in out.items()}}
+    del tbl, acc
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6283,28 +6976,64 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    build = phase_build()
-    errs = {"flash_attention": phase_flash_attention(dev), **phase_kernels(dev), **phase_fused_kernels(dev),
-            **phase_din_kernels(dev), **phase_bn_kernels(dev), **phase_cache_kernels(dev), **phase_quant_kernels(dev)}
-    fa_routes = path_flash_attention(dev)
-    serving_launches, serving, feats_shape = path_serving(dev)
-    training_launches, training, train_batch = path_training(dev)
-    pipelined_launches, pipelined = path_pipelined(dev)
-    fused_launches, fused_capture_launches, fused, fused_inputs = path_fused(dev)
-    durable_launches, durable = path_durable(dev)
-    din_launches, din, din_batch = path_din(dev)
-    avazu_launches, avazu = path_avazu(dev)
-    dnn_launches, dnn = path_dnn(dev)
-    cache_launches, cache, cache_inputs = path_cache(dev)
-    mixed_launches, mixed, k15 = path_mixed(dev)
+    seconds = {}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[name] = time.perf_counter() - t
+            print(f"-- {name}: {seconds[name]:.1f} s", flush=True)
+
+    build = phase("1", phase_build)
+    errs = {"flash_attention": phase("2", phase_flash_attention, dev), **phase("3", phase_kernels, dev),
+            **phase("3b", phase_fused_kernels, dev)}
+    phase("3b (1TB)", phase_fused_1tb_kernels, dev)
+    errs.update({**phase("3c", phase_din_kernels, dev), **phase("3d", phase_bn_kernels, dev),
+                 **phase("3e", phase_cache_kernels, dev), **phase("3f", phase_quant_kernels, dev)})
+    fa_routes = phase("4a", path_flash_attention, dev)
+    serving_launches, serving, feats_shape = phase("4b", path_serving, dev)
+    training_launches, training, train_batch = phase("4c", path_training, dev)
+    pipelined_launches, pipelined = phase("4d", path_pipelined, dev)
+    fused_launches, fused_capture_launches, fused, fused_inputs = phase("4e", path_fused, dev)
+    durable_launches, durable = phase("4f", path_durable, dev)
+    din_launches, din, din_batch = phase("4g-4h", path_din, dev)
+    avazu_launches, avazu = phase("4i", path_avazu, dev)
+    fanout = phase("4i (fan-out)", fanout_timing, dev)
+    dnn_launches, dnn = phase("4j", path_dnn, dev)
+    cache_launches, cache, cache_inputs = phase("4k (cache)", path_cache, dev)
+    mixed_launches, mixed, k15 = phase("4k (mixed)", path_mixed, dev)
     launches = {"flash_attention": fa_routes, "serving": serving_launches,
                 "training": training_launches, "pipelined": pipelined_launches,
                 "durable": durable_launches, "fused": fused_launches, "fused_capture": fused_capture_launches,
                 **din_launches, **dnn_launches, **cache_launches, **mixed_launches}
+    profiler_before = profiler_records_device_work(dev)
+    print(f"  a profiler session before phase 5 records device work: {profiler_before}", flush=True)
+    t5 = time.perf_counter()
     rows, floor = phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused_inputs, din_batch, build)
     rows += time_cache_kernels(dev, launches, errs, cache_inputs, floor, build)
     rows += time_k15(dev, launches, errs, k15, floor)
     time_flash_backward(dev, card)
+    seconds["5"] = time.perf_counter() - t5
+    print(f"-- 5: {seconds['5']:.1f} s", flush=True)
+    del fused_inputs, cache_inputs, k15, train_batch, din_batch
+    # phases 4l-4n after phase 5's traces: in a run with them before it,
+    # phase 5's traces held no device events; whether a profiler session
+    # records device work before phase 5 and after 4l-4n is printed, not held
+    criteo_launches, criteo = phase("4l", path_criteo, dev)
+    h100t_launches, h100t = phase("4m", path_100t, dev)
+    quality_launches, quality = phase("4n", path_quality, dev)
+    phase("5 (1TB)", time_fused_1tb, dev, rows)
+    profiler_after = profiler_records_device_work(dev)
+    print(f"  a profiler session after phases 4l-4n records device work: {profiler_after}", flush=True)
+    new_paths = {**criteo_launches, **h100t_launches, **quality_launches}
+    launches.update(new_paths)
+    # the launches the new paths' counted runs made of each kernel
+    for r in rows:
+        by_path = {p: la[r["name"]] for p, la in new_paths.items() if la.get(r["name"])}
+        if by_path:
+            r["launches_by_path"] = {**(r.get("launches_by_path") or {}), **by_path}
     print(json.dumps({"serving": serving, "card": card}), flush=True)
     print(json.dumps({"training": training, "card": card}), flush=True)
     print(json.dumps({"pipelined": pipelined, "card": card}), flush=True)
@@ -6316,6 +7045,12 @@ def main() -> int:
     print(json.dumps({"dnn": dnn, "dnn_launches": dnn_launches, "card": card}), flush=True)
     print(json.dumps({"cache": cache, "cache_launches": cache_launches, "card": card}), flush=True)
     print(json.dumps({"mixed": mixed, "mixed_launches": mixed_launches, "card": card}), flush=True)
+    print(json.dumps({"fanout": fanout, "card": card}), flush=True)
+    print(json.dumps({"criteo": criteo, "card": card}), flush=True)
+    print(json.dumps({"synthetic_100t": h100t, "card": card}), flush=True)
+    print(json.dumps({"quality": quality, "card": card}), flush=True)
+    print(json.dumps({"phase_seconds": seconds, "profiler_records_device_work": {
+        "before_phase_5": profiler_before, "after_4l_4n": profiler_after}, "card": card}), flush=True)
 
     # one entry per kernel (each flash-attention route by its non-causal
     # row); times graph-replayed, eager beside them
@@ -6326,7 +7061,7 @@ def main() -> int:
             "composite_ms", "registers", "over_launch_floor", "no_keys_ms", "no_keys_cold_ms", "routing_cost_ms",
             "c32_ms", "eval_256_ms", "ring_ms", "also_replaces", "note", "restores_ms", "no_restores_ms",
             "unfolded_pair_ms", "restores_bound_ms", "launches_by_path", "composite_kernels", "composite_bitwise",
-            "plan", "ms_over_floor", "cold_ms_over_floor")
+            "plan", "ms_over_floor", "cold_ms_over_floor", "at_1tb")
     kernels = [{k: r.get(k) for k in keys} for r in rows if not r.get("causal")]
     print(json.dumps({"kernels": kernels, "launch_floor_ms": floor, "card": card}), flush=True)
     print(card, flush=True)

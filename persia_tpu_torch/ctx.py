@@ -294,6 +294,7 @@ class TrainCtx(EmbeddingCtx):
         return self
 
     def __exit__(self, *exc):
+        self.worker.close()
         return False
 
     def init_state(self) -> TrainState:

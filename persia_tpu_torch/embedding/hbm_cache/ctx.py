@@ -222,7 +222,10 @@ class CachedTrainCtx:
         return self
 
     def __exit__(self, *exc):
-        self.drain()
+        try:
+            self.drain()
+        finally:
+            self.worker.close()
         return False
 
     def init_state(self) -> CachedTrainState:

@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import threading
 import time
+from collections import deque
+from concurrent.futures import wait
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -163,10 +165,34 @@ def _partition_positions(signs: np.ndarray, n: int) -> List[Tuple[int, np.ndarra
     return [(r, pos[ends[r] - counts[r]:ends[r]]) for r in range(n) if counts[r]]
 
 
+FANOUT_WAIT_S = 300.0  # the longest a router call waits on its replicas' tasks
+FANOUT_SOLE_CALLS = 8  # a call fans out when its thread made the router's last this many calls
+
+
 class ShardedLookup:
     """Routes table keys across parameter-server replicas by
     ``sign_to_shard`` and reassembles the replies. ``replicas`` are
-    store-like objects exposing ``lookup_batched``."""
+    store-like objects exposing ``lookup_batched``.
+
+    With more than one replica a call fans its per-replica parts out
+    through a thread pool created here, sized ``min(32, 8 * replicas)``
+    (the reference router's ``_concurrent``). The calling thread runs the
+    first part itself, then, in order, every other part that no pool
+    thread has started by the time it gets there, so a call never waits
+    on a hand-off: a small call (``advance_batch_state``) or a busy host
+    costs a submit and a cancel, not a thread's wake-up. Only a call from
+    the thread that made each of the router's last ``FANOUT_SOLE_CALLS``
+    calls fans out: a router whose calls come from several threads (a
+    loader's lookup and gradient lanes, the cache stream's) already has
+    its callers running at once, and a part handed to the pool there
+    takes a core from them, so such a call runs inline, as does a call
+    with one part. Each replica owns disjoint keys, so the
+    results are bit for bit the serial loop's; they are assembled, and the
+    journal and batch-state counts taken, on the calling thread. No call
+    waits on a part that has not started, so a pool task that called the
+    router could not deadlock it; a started part is waited for at most
+    ``FANOUT_WAIT_S``. ``close`` shuts the pool down for good: later calls
+    run their parts inline."""
 
     def __init__(self, replicas: Sequence):
         if not replicas:
@@ -174,6 +200,57 @@ class ShardedLookup:
         self.replicas = list(replicas)
         self.batch_advances: Dict[int, int] = {}
         self.journal_skips = 0  # journaled replica applies skipped as already applied
+        self._count_lock = threading.Lock()
+        # the threads of the router's last calls, under _count_lock
+        self._callers = deque(maxlen=FANOUT_SOLE_CALLS)
+        self._fan_pool = None
+        if len(self.replicas) > 1:
+            # eager: the router's callers run concurrently, a lazy start would race
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._fan_pool = ThreadPoolExecutor(max_workers=min(32, 8 * len(self.replicas)),
+                                                thread_name_prefix="ps-fanout")
+
+    def close(self) -> None:
+        """Shut the fan-out pool down, waiting for its running tasks."""
+        pool, self._fan_pool = self._fan_pool, None
+        if pool is not None:
+            pool.shutdown(wait=True)
+
+    def _concurrent(self, thunks: Sequence) -> List:
+        """Run the per-replica ``thunks``, the first on this thread and the
+        others on the pool unless this thread, going through them in
+        order, gets to one first; their results in order. Inline when
+        another thread made one of the router's last calls."""
+        pool = self._fan_pool
+        if len(thunks) <= 1 or pool is None:
+            return [t() for t in thunks]
+        me = threading.get_ident()
+        with self._count_lock:
+            sole = len(self._callers) == FANOUT_SOLE_CALLS and self._callers.count(me) == FANOUT_SOLE_CALLS
+            self._callers.append(me)
+        if not sole:
+            return [t() for t in thunks]
+        futures = [pool.submit(t) for t in thunks[1:]]
+        out, started = [None] * len(thunks), []
+        try:
+            out[0] = thunks[0]()
+            for i, f in enumerate(futures, 1):
+                if f.cancel():  # no pool thread has it: run it here
+                    out[i] = thunks[i]()
+                else:
+                    started.append((i, f))
+        except BaseException:
+            for f in futures:
+                f.cancel()
+            raise
+        deadline = time.monotonic() + FANOUT_WAIT_S
+        for i, f in started:
+            done, _ = wait([f], timeout=max(0.0, deadline - time.monotonic()))
+            if not done:
+                raise TimeoutError(f"a PS replica call still running after {FANOUT_WAIT_S:.0f} s")
+            out[i] = f.result()
+        return out
 
     def lookup_groups(self, groups: Sequence, train: bool) -> List[np.ndarray]:
         """Multi-slot lookup, one call per replica: ``groups`` is ``[(keys,
@@ -189,32 +266,44 @@ class ShardedLookup:
             flat = self.replicas[0].lookup_batched(all_keys, key_ofs, dims, train)
             return _split_flat_rows(flat, key_ofs, dims)
         outs = [np.zeros((len(k), int(d)), dtype=np.float32) for k, d in groups]
-        for r, pos in _partition_positions(all_keys, n):
-            sub_ofs = np.searchsorted(pos, key_ofs).astype(np.int64)
-            flat = self.replicas[r].lookup_batched(all_keys[pos], sub_ofs, dims, train)
+        parts = [(r, pos, np.searchsorted(pos, key_ofs).astype(np.int64))
+                 for r, pos in _partition_positions(all_keys, n)]
+        flats = self._concurrent([
+            (lambda r=r, pos=pos, sub_ofs=sub_ofs: self.replicas[r].lookup_batched(all_keys[pos], sub_ofs, dims,
+                                                                                      train))
+            for r, pos, sub_ofs in parts
+        ])
+        for (_, pos, sub_ofs), flat in zip(parts, flats):
             for g, rows in enumerate(_split_flat_rows(flat, sub_ofs, dims)):
                 b, e = sub_ofs[g], sub_ofs[g + 1]
                 if b < e:
                     outs[g][pos[b:e] - key_ofs[g]] = rows
         return outs
 
-    def _update_replica(self, r: int, keys, key_ofs, dims, flat, opt_groups, journal_id) -> None:
+    def _update_replica(self, r: int, keys, key_ofs, dims, flat, opt_groups, journal_id) -> bool:
         """One replica's share of a gradient batch; with ``journal_id`` (a
         ``jobstate.make_journal_id`` base) through its apply-journal, under
         the id ``journal_shard_id(journal_id, r)`` and the crc of (keys,
-        gradients), counting a skipped duplicate in ``journal_skips``."""
+        gradients). False when the journal skipped it as already applied."""
         rep = self.replicas[r]
         if journal_id is None:
             rep.update_batched(keys, key_ofs, dims, flat, opt_groups)
-        elif not rep.update_batched_journaled(journal_shard_id(journal_id, r), payload_crc(keys, flat),
-                                              keys, key_ofs, dims, flat, opt_groups):
-            self.journal_skips += 1
+            return True
+        return bool(rep.update_batched_journaled(journal_shard_id(journal_id, r), payload_crc(keys, flat),
+                                                 keys, key_ofs, dims, flat, opt_groups))
+
+    def _count_skips(self, applied: Sequence[bool]) -> None:
+        skips = sum(1 for a in applied if not a)
+        if skips:
+            with self._count_lock:
+                self.journal_skips += skips
 
     def update_groups(self, groups: Sequence, journal_id: Optional[int] = None) -> None:
         """Multi-slot gradient fan-out, one call per replica:
         ``groups`` is ``[(keys, grads (n, dim) f32, opt_group), ...]``. The
         caller advances Adam's batch state once per batch per group first.
-        ``journal_id`` routes each replica's apply through its journal."""
+        ``journal_id`` routes each replica's apply through its journal,
+        counting a skipped duplicate in ``journal_skips``."""
         if not groups:
             return
         dims = np.fromiter((g.shape[1] for _, g, _ in groups), dtype=np.uint32, count=len(groups))
@@ -225,15 +314,19 @@ class ShardedLookup:
         n = len(self.replicas)
         if n == 1:
             flat = np.concatenate([np.asarray(g, dtype=np.float32).reshape(-1) for _, g, _ in groups])
-            self._update_replica(0, all_keys, key_ofs, dims, flat, opt_groups, journal_id)
+            self._count_skips([self._update_replica(0, all_keys, key_ofs, dims, flat, opt_groups, journal_id)])
             return
-        for r, pos in _partition_positions(all_keys, n):
+
+        def one(r, pos):
             sub_ofs = np.searchsorted(pos, key_ofs).astype(np.int64)
             flat = np.concatenate([
                 np.asarray(groups[g][1], dtype=np.float32)[pos[sub_ofs[g]:sub_ofs[g + 1]] - key_ofs[g]].reshape(-1)
                 for g in range(len(groups))
             ])
-            self._update_replica(r, all_keys[pos], sub_ofs, dims, flat, opt_groups, journal_id)
+            return self._update_replica(r, all_keys[pos], sub_ofs, dims, flat, opt_groups, journal_id)
+
+        self._count_skips(self._concurrent([(lambda r=r, pos=pos: one(r, pos))
+                                            for r, pos in _partition_positions(all_keys, n)]))
 
     # the cache tier's calls: one dim, each sign to its replica as in
     # lookup_groups
@@ -245,8 +338,11 @@ class ShardedLookup:
         if n == 1:
             return self.replicas[0].lookup(keys, dim, train)
         out = np.zeros((len(keys), dim), dtype=np.float32)
-        for r, pos in _partition_positions(keys, n):
-            out[pos] = self.replicas[r].lookup(keys[pos], dim, train)
+        parts = _partition_positions(keys, n)
+        vals = self._concurrent([(lambda r=r, pos=pos: self.replicas[r].lookup(keys[pos], dim, train))
+                                 for r, pos in parts])
+        for (_, pos), v in zip(parts, vals):
+            out[pos] = v
         return out
 
     def checkout_entries(self, signs: np.ndarray, dim: int) -> np.ndarray:
@@ -256,13 +352,15 @@ class ShardedLookup:
         n = len(self.replicas)
         if n == 1:
             return self.replicas[0].checkout_entries(signs, dim)
-        out = None
-        for r, pos in _partition_positions(signs, n):
-            vals = self.replicas[r].checkout_entries(signs[pos], dim)
-            if out is None:
-                out = np.empty((len(signs), vals.shape[1]), np.float32)
-            out[pos] = vals
-        return np.empty((0, dim), np.float32) if out is None else out
+        parts = _partition_positions(signs, n)
+        vals = self._concurrent([(lambda r=r, pos=pos: self.replicas[r].checkout_entries(signs[pos], dim))
+                                 for r, pos in parts])
+        if not parts:
+            return np.empty((0, dim), np.float32)
+        out = np.empty((len(signs), vals[0].shape[1]), np.float32)
+        for (_, pos), v in zip(parts, vals):
+            out[pos] = v
+        return out
 
     def probe_entries(self, signs: np.ndarray, dim: int, vals_out: Optional[np.ndarray] = None,
                       warm_out: Optional[np.ndarray] = None):
@@ -276,10 +374,11 @@ class ShardedLookup:
         if n == 1 and getattr(self.replicas[0], "supports_probe_out", False):
             return self.replicas[0].probe_entries(signs, dim, vals_out=vals_out, warm_out=warm_out)
         parts = ([(0, np.arange(n_signs))] if n == 1 else _partition_positions(signs, n))
+        got = self._concurrent([(lambda r=r, pos=pos: self.replicas[r].probe_entries(signs[pos], dim))
+                                for r, pos in parts])
         warm = np.zeros(n_signs, dtype=bool)
         vals = vals_out
-        for r, pos in parts:
-            w, v = self.replicas[r].probe_entries(signs[pos], dim)
+        for (_, pos), (w, v) in zip(parts, got):
             if vals is None:
                 vals = np.zeros((n_signs, v.shape[1]), np.float32)
             warm[pos] = w
@@ -306,15 +405,15 @@ class ShardedLookup:
         if n == 1:
             self.replicas[0].set_embedding(signs, values, dim)
             return
-        for r, pos in _partition_positions(signs, n):
-            self.replicas[r].set_embedding(signs[pos], values[pos], dim)
+        self._concurrent([(lambda r=r, pos=pos: self.replicas[r].set_embedding(signs[pos], values[pos], dim))
+                          for r, pos in _partition_positions(signs, n)])
 
     def advance_batch_state(self, group: int) -> None:
         """Advance ``group``'s Adam beta powers on every replica, counted in
         ``batch_advances``."""
-        self.batch_advances[group] = self.batch_advances.get(group, 0) + 1
-        for r in self.replicas:
-            r.advance_batch_state(group)
+        with self._count_lock:
+            self.batch_advances[group] = self.batch_advances.get(group, 0) + 1
+        self._concurrent([(lambda rep=rep: rep.advance_batch_state(group)) for rep in self.replicas])
 
 
 def _sum_hashstack_rounds(slot: ProcessedSlot, rows: np.ndarray) -> np.ndarray:
@@ -458,6 +557,11 @@ class EmbeddingWorker:
         # one gradient batch at a time: Adam's batch-state advance is atomic
         # with its batch's updates
         self._grad_lock = threading.Lock()
+
+    def close(self) -> None:
+        """Shut the router's fan-out pool down for good (the ctx's
+        ``__exit__`` calls this; later calls run inline)."""
+        self.lookup_router.close()
 
     def register_optimizer(self, optimizer) -> None:
         """Register the sparse optimizer on every replica."""

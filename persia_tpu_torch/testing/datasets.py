@@ -1,6 +1,7 @@
 """Streaming synthetic datasets shaped like the BASELINE.json configs the
-port trains (counterpart of ``persia_tpu/testing/datasets.py``, trimmed to
-Avazu for DeepFM / DCN-v2 and Taobao for DIN).
+port trains (counterpart of ``persia_tpu/testing/datasets.py``): Criteo
+Kaggle / 1TB for DLRM, Avazu for DeepFM / DCN-v2, Taobao for DIN and the
+uniform 2^63 key space of the 100T capacity harness.
 
 Each batch is generated on demand from ``(seed, batch_index)`` with a
 hidden, seeded ground-truth model, so AUC is learnable and exactly
@@ -62,6 +63,71 @@ class _StreamingBase:
 
     def _make(self, rng, n, batch_id):  # pragma: no cover - abstract
         raise NotImplementedError
+
+
+# Approximate public cardinalities of the 26 Criteo Kaggle categorical
+# fields (exact values vary by preprocessing; the *shape* — a few huge
+# slots, many small ones — is what matters for the benchmark).
+CRITEO_KAGGLE_VOCABS: Sequence[int] = (
+    1461, 584, 10_131_227, 2_202_608, 306, 24, 12_518, 634, 4, 93_146,
+    5_684, 8_351_593, 3_195, 28, 14_993, 5_461_306, 11, 5_653, 2_174, 5,
+    7_046_547, 19, 16, 286_181, 106, 142_572,
+)
+
+# Criteo-1TB (Terabyte) cardinalities are ~10-40x larger on the big slots;
+# approximate shape used by public DLRM configs.
+CRITEO_1TB_VOCABS: Sequence[int] = (
+    45_833_188, 36_746, 17_245, 7_413, 20_243, 4, 7_114, 1_441, 63,
+    29_275_261, 1_572_176, 345_138, 11, 2_209, 11_267, 128, 5, 975, 15,
+    48_937_457, 17_246_239, 40_094_537, 452_104, 12_606, 105, 36,
+)
+
+CRITEO_NUM_DENSE = 13
+
+
+class CriteoSynthetic(_StreamingBase):
+    """Criteo-shaped click log: 13 integer-ish dense features (lognormal,
+    log1p-normalized as in standard Criteo preprocessing) + 26 single-id
+    categorical slots. Positive rate ~25% like the real dataset."""
+
+    def __init__(
+        self,
+        num_samples: int = 65_536,
+        vocab_sizes: Sequence[int] = CRITEO_KAGGLE_VOCABS,
+        noise: float = 1.0,
+        seed: int = 42,
+        task_seed: int = 7,
+    ):
+        self.num_samples = num_samples
+        self.vocab_sizes = list(vocab_sizes)
+        self.slot_names = [f"cat_{i}" for i in range(len(vocab_sizes))]
+        self.noise = noise
+        self.seed = seed
+        self.task_seed = task_seed
+        task_rng = np.random.default_rng(task_seed)
+        self._w_dense = task_rng.normal(size=CRITEO_NUM_DENSE) * 0.6
+        self._bias = -1.4  # pushes base rate toward Criteo's ~25% positives
+
+    def _make(self, rng, n, batch_id):
+        raw = rng.lognormal(mean=1.0, sigma=1.5, size=(n, CRITEO_NUM_DENSE))
+        dense = np.log1p(raw).astype(np.float32)
+        logit = (dense - dense.mean()) @ self._w_dense + self._bias
+
+        id_feats = []
+        for k, (name, v) in enumerate(zip(self.slot_names, self.vocab_sizes)):
+            # Zipf-ish skew: real Criteo ids are heavily head-concentrated
+            u = rng.random(n)
+            ids = np.minimum((u ** 3 * v).astype(np.uint64), np.uint64(v - 1))
+            logit = logit + 1.5 * hash_to_unit(ids, self.task_seed * 131 + k)
+            id_feats.append(IDTypeFeatureWithSingleID(name, ids))
+
+        p = 1.0 / (1.0 + np.exp(-logit / max(self.noise, 1e-6)))
+        labels = (rng.random(n) < p).astype(np.float32).reshape(-1, 1)
+        return dict(
+            id_type_features=id_feats,
+            non_id_type_features=[NonIDTypeFeature(dense)],
+            labels=[Label(labels)],
+        )
 
 
 # Avazu: 21 categorical fields (site/app/device/banner/C14-C21...) + hour.
@@ -193,5 +259,41 @@ class TaobaoSynthetic(_StreamingBase):
                 IDTypeFeature("hist_cate", hist_cates),
             ],
             non_id_type_features=[NonIDTypeFeature(recency)],
+            labels=[Label(labels)],
+        )
+
+
+class Synthetic100T(_StreamingBase):
+    """Uniform-random u64 signs over a 2^63 key space — the access pattern
+    of a 100-trillion-parameter regime: effectively infinite vocabulary,
+    LRU working set, every batch mostly cold ids. Labels come from a hash
+    rule; this feeds the capacity/throughput harness
+    (``persia_tpu_torch.testing.synthetic_100t``)."""
+
+    def __init__(
+        self,
+        num_samples: int = 1 << 20,
+        num_slots: int = 8,
+        ids_per_sample: int = 4,
+        seed: int = 42,
+    ):
+        self.num_samples = num_samples
+        self.num_slots = num_slots
+        self.ids_per_sample = ids_per_sample
+        self.seed = seed
+
+    def _make(self, rng, n, batch_id):
+        id_feats = []
+        logit = np.zeros(n)
+        for k in range(self.num_slots):
+            flat = rng.integers(0, 1 << 63, size=n * self.ids_per_sample, dtype=np.uint64)
+            per = np.split(flat, n)
+            logit += hash_to_unit(flat, k).reshape(n, -1).mean(axis=1)
+            id_feats.append(IDTypeFeature(f"slot_{k}", per))
+        dense = rng.normal(size=(n, 4)).astype(np.float32)
+        labels = (logit > 0).astype(np.float32).reshape(-1, 1)
+        return dict(
+            id_type_features=id_feats,
+            non_id_type_features=[NonIDTypeFeature(dense)],
             labels=[Label(labels)],
         )

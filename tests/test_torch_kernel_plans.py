@@ -425,3 +425,92 @@ def test_quantize_int8_plan_constants_match_the_kernel():
 def test_quantize_int8_plan_refuses_what_it_has_no_kernel_for(args):
     with pytest.raises(ValueError):
         plans.quantize_int8_plan(*args)
+
+
+# the Criteo-1TB fused table: 26 stacked slots of 183,873,726 rows x 16 f32
+# (2,941,979,616 elements), where the rows past 2^27 have element offsets
+# past 2^31 - 1; K4's and K5's plans, argument records, routing and plain
+# versions at its sizes (meta tensors stand in for the 11.8 GB table)
+CRITEO_1TB_VOCABS = (
+    45_833_188, 36_746, 17_245, 7_413, 20_243, 4, 7_114, 1_441, 63,
+    29_275_261, 1_572_176, 345_138, 11, 2_209, 11_267, 128, 5, 975, 15,
+    48_937_457, 17_246_239, 40_094_537, 452_104, 12_606, 105, 36,
+)
+TB_ROWS, TB_DIM, TB_BATCH = 183_873_726, 16, 4096
+
+
+def _tb_group():
+    from persia_tpu_torch.parallel.fused_step import FusedSlotSpec, group_stacked_specs
+
+    specs = {f"cat_{i}": FusedSlotSpec(vocab=v, dim=TB_DIM) for i, v in enumerate(CRITEO_1TB_VOCABS)}
+    (group,) = group_stacked_specs(specs, sorted(specs))
+    return group
+
+
+def test_1tb_stack_is_one_group_past_2_31_elements():
+    g = _tb_group()
+    assert g.vocab == sum(CRITEO_1TB_VOCABS) == TB_ROWS < 2 ** 31 - 1
+    assert g.vocab * TB_DIM == 2_941_979_616 > 2 ** 31
+    ends = [o + v for o, v in zip(g.offsets, (CRITEO_1TB_VOCABS[int(n[4:])] for n in g.slots))]
+    assert ends[-1] == TB_ROWS and list(g.offsets) == [0] + ends[:-1]
+    # in the stack's (sorted) slot order, the slots with rows whose element
+    # offset (row * 16) leaves int32: cat_21 from its row 20,214,929 on, and
+    # the 11 after it whole
+    past = [n for n, e in zip(g.slots, ends) if (e - 1) * TB_DIM > 2 ** 31 - 1]
+    whole = [n for n, o in zip(g.slots, g.offsets) if o * TB_DIM > 2 ** 31 - 1]
+    assert past[0] == "cat_21" and past[1:] == whole and len(whole) == 11 and whole[-1] == "cat_9"
+
+
+def test_sparse_update_plan_at_the_1tb_step():
+    """K5's plan depends on the positions and the dim, not the table's rows."""
+    n = TB_BATCH * len(CRITEO_1TB_VOCABS)
+    p = plans.sparse_update_plan(n, TB_DIM)
+    assert (p.vec, p.units, p.tile_rows) == (4, 4, plans.K5_TILE_ROWS_MAX)
+    assert p.scratch_ints == 4 + 2 * n + 2 * (n // plans.K5_LONG_MIN) < 2 ** 31 - 1
+
+
+def test_k5_segments_at_the_top_rows_of_the_1tb_table():
+    import numpy as np
+
+    top = np.array([TB_ROWS - 3] * 40 + [TB_ROWS - 2] + [TB_ROWS - 1] * 2 + [2 ** 31 - 1] * 5, np.int32)
+    short, long_ = plans.k5_segments(top, TB_ROWS)
+    assert long_ == [(0, 40)] and short == [(40, 1), (41, 2)]
+    assert plans.k5_segments(top, TB_ROWS - 1)[0] == [(40, 1)]
+
+
+def test_k4_and_k5_accept_the_1tb_table():
+    """The wrappers' checks and parameter records take the whole table, its
+    update keys included (every row < INT32_MAX); the routing and the plain
+    gather rows at its last slots are exact in int64."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from persia_tpu_torch.embedding.optim import Adagrad
+
+    k4 = importlib.import_module("persia_tpu_torch.ops.fused_gather")
+    k5 = importlib.import_module("persia_tpu_torch.ops.sparse_update")
+
+    g = _tb_group()
+    vocabs = [CRITEO_1TB_VOCABS[int(n[4:])] for n in g.slots]
+    meta = torch.empty((TB_ROWS, TB_DIM), device="meta")
+    ids = [torch.empty(TB_BATCH, dtype=torch.int32, device="meta") for _ in g.slots]
+    assert k4._check(meta, ids, list(g.offsets), vocabs, keys=True) == TB_BATCH * len(g.slots)
+    params = np.zeros(1, k4._PARAMS)
+    params["offset"][0, :len(g.slots)] = g.offsets
+    params["vocab"][0, :len(g.slots)] = vocabs
+    assert (params["offset"][0, :len(g.slots)] + params["vocab"][0, :len(g.slots)]).max() == TB_ROWS
+    n = TB_BATCH * len(g.slots)
+    cfg = Adagrad(lr=0.05).config
+    k5._check(cfg, meta, {"acc": torch.empty((TB_ROWS, TB_DIM), device="meta")},
+              torch.empty(n, dtype=torch.int32, device="meta"), torch.empty(n, dtype=torch.int64, device="meta"),
+              torch.empty((n, TB_DIM), device="meta"), torch.empty(2, device="meta"))
+    # the last slot's top ids: keys and plain gather rows past 2^27
+    last = [torch.tensor([v - 1, v - 2, 0, -1, v], dtype=torch.int32) for v in vocabs]
+    keys = k4.update_keys_reference(last, list(g.offsets), vocabs)
+    want = np.concatenate([[o + v - 1, o + v - 2, o, 2 ** 31 - 1, 2 ** 31 - 1] for o, v in zip(g.offsets, vocabs)])
+    np.testing.assert_array_equal(keys.numpy(), want)
+    rows = torch.cat([k4.gather_rows(i, o, v, True) for i, o, v in zip(last, g.offsets, vocabs)])
+    assert rows.dtype == torch.int64 and int(rows.max()) == TB_ROWS - 1
+    assert int(rows.max()) * TB_DIM > 2 ** 31
