@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``persia_tpu_torch``) on one card.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
-    python3 chip_smoke.py --ab ROOT OUT.npz [k12|k15]   # K2, K4, K7-K9, K12, K15 of the tree ROOT
+    python3 chip_smoke.py --ab ROOT OUT.npz [k12|k15]   # K2, K4, K7-K9, K12, K13, K15 of the tree ROOT
     python3 chip_smoke.py --ab-compare A.npz B.npz ...
     python3 chip_smoke.py --stream-ab PAIRS   # in-order vs pipelined stream, in turns
 
@@ -374,9 +374,27 @@ result line:
    and (5b) the flash-attention backward, a dense recompute, beside SDPA's
    backward.
 
-Phases 4l-4n run after phase 5's timings (a profiler session after them
-once recorded no device work; whether one does is printed), then phase
-5's 1TB rows. Each phase's seconds are printed as it ends (``phase_seconds``); the
+Phase 3g holds K12, its read and K13 on a bf16 pool and K15 under the
+loss scale's gate to their plain versions, bit for bit (K13 at L > 1
+within the f32 sum-order bound). Phase 4o trains DeepFM and DCN-v2
+(``testing/avazu.py --tier fused``: 21 tables, 9,449,205 rows, B=4096)
+and DNN (phase 4j's width, its slots as fused tables) on the fused tier:
+the CUDA-graph steps bit for bit an eager twin (counted: K4 and K5, DNN's
+K10 and K11), the first losses and touched rows within
+``FUSED_MODEL_TOL`` of a compact CPU twin, one device trace a model, a
+checkpoint round trip bit for bit. Phase 4p runs the cache tier with bf16
+pools and the dynamic loss scale at phase 4k saturated's rows, batches
+and steps, in two turns of four legs (both options, each alone, neither),
+the last counted and held to the CPU port (``PREC_TOL``) and to the
+stream bit for bit; the ps-stream (int8) under the scale; and a forced
+overflow on the mixed configuration that must move nothing and halve the
+scale. Phase 5's rows of the new variants follow 4p: K12, its read and
+K13 on a bf16 pool at the f32 rows' inputs, K15 gated at 4p's, warm and
+cold, in turns with the f32 (ungated) call.
+
+Phases 4o-4p and 4l-4n run after phase 5's timings (a profiler session
+after them once recorded no device work; whether one does is printed),
+then phase 5's 1TB rows. Each phase's seconds are printed as it ends (``phase_seconds``); the
 kernels line's ``launches_by_path`` holds each kernel's launches in the
 counted runs of phases 4l-4n. The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -602,9 +620,9 @@ def zipf_ids(rng, n, vocab, offset, a=1.2):
     return (raw + np.uint64(offset)) % np.uint64(vocab)
 
 
-def zipf_batch_maker(seed, labels=False):
-    """The bench's batches: zipf ids per slot, normal dense features and,
-    for training, 0/1 labels."""
+def zipf_batch_maker(seed, labels=False, dense_scale=1.0):
+    """The bench's batches: zipf ids per slot, normal dense features (times
+    ``dense_scale``) and, for training, 0/1 labels."""
     from persia_tpu_torch.data import IDTypeFeatureWithSingleID, Label, NonIDTypeFeature, PersiaBatch
 
     rng = np.random.default_rng(seed)
@@ -615,7 +633,7 @@ def zipf_batch_maker(seed, labels=False):
             IDTypeFeatureWithSingleID(f"cat_{i}", zipf_ids(rng, BATCH, VOCAB, offsets[i]))
             for i in range(N_SLOTS)
         ]
-        dense = rng.normal(size=(BATCH, N_DENSE)).astype(np.float32)
+        dense = (dense_scale * rng.normal(size=(BATCH, N_DENSE))).astype(np.float32)
         if not labels:
             return PersiaBatch(ids, non_id_type_features=[NonIDTypeFeature(dense)], requires_grad=False)
         y = [Label(rng.integers(0, 2, (BATCH, 1)).astype(np.float32))]
@@ -680,9 +698,9 @@ KERNEL_NAMES = ("fa_fwd_wgmma_kernel", "fa_fwd_tf32x3_kernel", "tf32_split_kerne
 DIN_KERNEL_NAMES = ("raw_gather_fwd_kernel", "raw_gather_bwd_kernel", "attention_pool_fwd_kernel",
                     "attention_pool_bwd_kernel")
 K2_KERNEL_NAMES = ("segment_sum_chunks_kernel", "segment_sum_rows_kernel")
-# K12 and its read alone at their 16-byte templates (the bench's widths:
-# bf16 wires, and the flush's f32 read)
-K12_WIDE = ("cache_aux_kernel<8>", "entry_rows_kernel<4>")
+# K12 and its read alone at their 16-byte templates on an f32 pool (the
+# bench's widths: bf16 wires, and the flush's f32 read)
+K12_WIDE = ("cache_aux_kernel<8,false>", "entry_rows_kernel<4,false>")
 # K15 at the ps-stream path's template: bf16 gradients, 8-element units
 K15_WIDE = "quantize_int8_ef_kernel<bf16,8>"
 # K5's kernels, and the routing's: on the dim-16 f32 path none may spill
@@ -2167,8 +2185,9 @@ def check_launches(path, launches, expected):
 
 
 def fused_state_tensors(state):
-    """Every tensor a fused step updates."""
-    out = [p for p in state.model.parameters()]
+    """Every tensor a fused step updates (a batch norm's running
+    statistics included)."""
+    out = [p for p in state.model.parameters()] + list(state.model.buffers())
     for st in state.optimizer.state.values():
         out.extend(v for v in st.values() if hasattr(v, "data_ptr"))
     out.extend(state.tables.values())
@@ -5057,7 +5076,7 @@ def time_cache_kernels(dev, launches, errs, inputs, floor, build):
         return payload
 
     r = timed(row("cache_aux", shape=[C + 1, dim, n_ev, n_w, n_c], dtype="float32 pool, bf16 wires",
-                  bound_ms=bms, bound_by=by, registers=build.get("cache_aux_kernel<8>", {}).get("registers"),
+                  bound_ms=bms, bound_by=by, registers=build.get("cache_aux_kernel<8,false>", {}).get("registers"),
                   library_note="index_select + cat + index_copy_ (+ index_fill_ for the cold state), live rows"),
               kernel=lambda: ops.cache_aux(*pool, ev_rows, m_rows, m_ent, c_rows, c_emb, consts, True, **pairing),
               plain=lambda: cache_aux_reference(*pool, ev_rows, m_rows, m_ent, c_rows, c_emb, consts, True,
@@ -5090,7 +5109,7 @@ def time_cache_kernels(dev, launches, errs, inputs, floor, build):
     bms, by = bound(nbytes, 0, "float32")
     library = lambda t, a: torch.cat([t.index_select(0, frows), a.index_select(0, frows)], 1)  # noqa: E731
     r = timed(row("gather_entry_rows", shape=[C + 1, E, frows.numel()], dtype="float32", bound_ms=bms, bound_by=by,
-                  registers=build.get("entry_rows_kernel<4>", {}).get("registers"),
+                  registers=build.get("entry_rows_kernel<4,false>", {}).get("registers"),
                   library_note="index_select + cat"),
               kernel=lambda: ops.gather_entry_rows(table, state, frows),
               plain=lambda: gather_entry_rows_reference(table, state, frows),
@@ -5970,19 +5989,24 @@ def k12_ab_case(dev):
     pairing = dict(m_slot=padded(warm, 512, -1), c_slot=padded(cold_, 8192, -1),
                    ev_free=padded(np.arange(k, 8192), 512, -1))
     flush_rows = torch.from_numpy(rng.permutation(C).astype(np.int32)).to(dev)
-    return case, pairing, flush_rows
+    # K13's: a step's (26, 4096, 1) rows, one position in 16 the pad row C
+    srows = rng.integers(0, C, (N_SLOTS, BATCH, 1)).astype(np.int32)
+    srows[rng.random(srows.shape) < 1 / 16] = C
+    return case, pairing, flush_rows, torch.from_numpy(srows).to(dev)
 
 
 def k12_ab(dev, ops, times, as_bits) -> dict:
-    """``--ab``'s K12 and its read: the tree's ``cache_aux`` on
-    ``k12_ab_case`` (with the pairing where the tree's K12 takes it), its
-    payload, table and state as bits, and ``gather_entry_rows`` of every
-    row; into ``times`` both warm and cold and the one-launch floor."""
+    """``--ab``'s K12, its read and K13 on the f32 pool: the tree's
+    ``cache_aux`` on ``k12_ab_case`` (with the pairing where the tree's K12
+    takes it), its payload, table and state as bits, ``gather_entry_rows``
+    of every row, and ``cached_gather`` (pooled, with keys) of the case's
+    step rows; into ``times`` each warm and cold and the one-launch
+    floor."""
     import inspect
 
     import torch
 
-    case, pairing, frows = k12_ab_case(dev)
+    case, pairing, frows, srows = k12_ab_case(dev)
     kw = pairing if "m_slot" in inspect.signature(ops.cache_aux).parameters else {}
     args = [case[k] for k in ("ev_rows", "m_rows", "m_entries", "c_rows", "c_emb", "state_consts")]
 
@@ -6005,6 +6029,12 @@ def k12_ab(dev, ops, times, as_bits) -> dict:
         "warm_ms": [graph_ms(lambda: ops.gather_entry_rows(case["table"], case["state"], frows)) for _ in range(2)],
         "cold_ms": [cold_ms(lambda t_, s_: ops.gather_entry_rows(t_, s_, frows), fresh, pool_bytes)["ms"]
                     for _ in range(2)]}
+    pooled, keys = ops.cached_gather(case["table"], srows, True, keys=True)
+    bits.update(k13_pooled=as_bits(pooled), k13_keys=as_bits(keys))
+    times["cached_gather"] = {
+        "warm_ms": [graph_ms(lambda: ops.cached_gather(case["table"], srows, True, keys=True)) for _ in range(2)],
+        "cold_ms": [cold_ms(lambda t_, r_: ops.cached_gather(t_, r_, True, keys=True),
+                            lambda: (case["table"].clone(), srows.clone()), pool_bytes // 2)["ms"] for _ in range(2)]}
     bits.update(k12_restores_ab(dev, ops, times, as_bits, case, pairing))
     one = torch.zeros(1, device=dev)
     times.setdefault("launch_floor", {"warm_ms": [graph_ms(lambda: one.add_(1.0)) for _ in range(2)]})
@@ -6105,7 +6135,7 @@ def ab_run(root: str, out_path: str, only: str = "") -> int:
     with and without keys, the standalone ``update_keys`` and the
     one-launch floor; K12 and its read at ``k12_ab_case``; K15 at the
     ps-stream shape, ``k15_ab``), are printed as one JSON line. ``only`` =
-    "k12" or "k15": that kernel alone (K12 with its read). Run it over two
+    "k12" or "k15": that kernel alone (K12 with its read and K13). Run it over two
     trees in turns (A, B, B, A) in one call, then ``--ab-compare``."""
     sys.path.insert(0, str(pathlib.Path(root).resolve()))
     import torch
@@ -6437,12 +6467,13 @@ def clone_fused_state(state):
                            emb_batch_state=state.emb_batch_state.clone(), step=state.step.clone())
 
 
-def compact_fused_twin(ctx, host_batches):
+def compact_fused_twin(ctx, host_batches, model_fn=None, lr=1e-3):
     """The CPU twin of a fused ctx over ``host_batches`` (fused host
     batches, ids in each slot's vocab): each slot's table holds only the
     rows the batches name, copied from the ctx's state, and the ids are
-    remapped in order; the model is drawn as the example draws the ctx's.
-    Returns (state, step, remapped batches, {slot: (touched ids, card
+    remapped in order; the model is drawn as the example draws the ctx's
+    (``model_fn``: the Criteo example's DLRM unless given), its Adam at
+    ``lr``. Returns (state, step, remapped batches, {slot: (touched ids, card
     rows)})."""
     import torch
 
@@ -6454,8 +6485,8 @@ def compact_fused_twin(ctx, host_batches):
     names = sorted(ctx.specs)
     touched = {n: np.unique(np.concatenate([h["ids"][n][h["ids"][n] >= 0] for h in host_batches])) for n in names}
     specs = {n: FusedSlotSpec(vocab=max(1, len(touched[n])), dim=ctx.specs[n].dim) for n in names}
-    model = build_model(len(names))
-    state = init_fused_state(model, torch.optim.Adam(model.parameters(), lr=1e-3), torch.Generator().manual_seed(0),
+    model = model_fn() if model_fn is not None else build_model(len(names))
+    state = init_fused_state(model, torch.optim.Adam(model.parameters(), lr=lr), torch.Generator().manual_seed(0),
                              specs, ctx.sparse_cfg, stack=True, device="cpu")
     (cgrp,) = group_stacked_specs(specs, names)
     (card_grp,) = group_stacked_specs(ctx.specs, names)
@@ -6958,6 +6989,785 @@ def time_fused_1tb(dev, rows):
     return out
 
 
+# ---------------------------------------------------------------------------
+# DeepFM, DCN-v2 and DNN on the fused tier (phase 4o); the cache tier's bf16
+# pools and dynamic loss scale (phases 3g and 4p) and their kernels' rows
+# of phase 5
+
+PREC_NAMES = {"cache_aux": "cache_aux[bf16 pool]", "gather_entry_rows": "gather_entry_rows[bf16 pool]",
+              "cached_gather": "cached_gather[bf16 pool]", "quantize_int8_ef": "quantize_int8_ef[loss scale]"}
+FUSED_MODEL_STEPS, FUSED_MODEL_CPU_STEPS = 6, 3
+# 4o's card-vs-CPU bounds (first losses, touched rows), two to four times
+# what three H100 runs read, the same each run: DeepFM 3.6e-7 / 6.8e-6,
+# DCN-v2 2.4e-7 / 3.2e-6, DNN 1.4e-4 / 3.8e-3 (bf16 compute through two
+# batch norms)
+FUSED_MODEL_TOL = {"deepfm": (1e-6, 2e-5), "dcnv2": (1e-6, 1e-5), "dnn": (5e-4, 1e-2)}
+# phase 4p: the cached configuration (bench.py:285-344: bf16 wires, the
+# touch gate) at phase 4k saturated's 2^18 rows, batches and 56 timed
+# steps (the last 16 all evicting), with bf16 pools and the dynamic loss
+# scale, each alone and neither (PREC_LEGS: (bf16 pools, loss scale), one
+# turn in this order and one reversed; the last leg, both, is counted);
+# the ps-stream (int8) and the forced overflow on the mixed configuration
+PREC_STEPS, PREC_PS_STEPS, PREC_OVERFLOW_STEPS = 56, 12, 3
+PREC_LEGS = ((True, True), (True, False), (False, True), (False, False))
+PREC_LEG_NAMES = {(True, True): "bf16_pools_loss_scale", (True, False): "bf16_pools",
+                  (False, True): "f32_pools_loss_scale", (False, False): "f32_pools"}
+# 4p's card-vs-CPU bounds (losses, entries after flush), two to three
+# times what an H100 run read: 2.1e-4 and 3.7e-4 over the 59 steps
+PREC_TOL = (5e-4, 1e-3)
+PREC_LS_INIT = float(2 ** 15)
+HUGE_SCALE = float(np.float32(3.0e38))  # tests/test_loss_scale.py's: any gradient > ~1 overflows
+OVERFLOW_DENSE_SCALE = 1e4  # the overflow leg's dense features: gradients past 1 at the bench model
+
+
+def phase_precision_kernels(dev):
+    """Phase 3g: K12, its read and K13 on a bf16 pool, and K15 under the
+    loss scale's gate (``inv`` and ``finite`` read on the card), against
+    their plain versions, bit for bit (K13 at L > 1 within the f32
+    sum-order bound)."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.ops.cache_aux import (
+        cache_aux_reference, cache_aux_ring_reference, gather_entry_rows_reference,
+    )
+    from persia_tpu_torch.ops.cached_gather import cached_gather_reference
+    from persia_tpu_torch.ops.quantize_int8 import quantize_int8_ef_reference
+    from persia_tpu_torch.testing.cache_cases import aux_case, gather_case
+
+    print("== phase 3g: K12, its read and K13 on a bf16 pool, K15 under the loss scale, vs their plain versions",
+          flush=True)
+    bf = torch.bfloat16
+    errs = dict.fromkeys(PREC_NAMES.values(), 0.0)
+
+    def aux_check(label, case, wb_bf16, ring_pos=None):
+        cpu = to_cpu(case)
+        store = ring_pos is not None
+        rring = cpu.pop("ring", None)
+        cpu.pop("ring_pos", None)
+        kw = {k: v for k, v in case.items() if k != "ring_pos"}
+        pay = ops.cache_aux(**kw, wb_bf16=wb_bf16, ring_pos=ring_pos)
+        if store:
+            ref = cache_aux_ring_reference(ring=rring, ring_pos=ring_pos, **cpu, wb_bf16=wb_bf16)
+        else:
+            ref = cache_aux_reference(**cpu, ring=rring, wb_bf16=wb_bf16)
+        ok = (bits_equal(pay, ref) and bits_equal(case["table"], cpu["table"])
+              and all(bits_equal(case["state"][k], cpu["state"][k]) for k in cpu["state"])
+              and (rring is None or bits_equal(case["ring"], rring)))
+        print(f"  cache_aux (bf16 pool) {label}: payload {tuple(pay.shape)} {str(pay.dtype)[6:]}: tolerance=0 "
+              f"(bitwise) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"cache_aux on a bf16 pool ({label}) disagrees with its plain version")
+
+    for kind in ("sgd", "adagrad", "adagrad_vw", "adam"):
+        for aux_bf16, wb_bf16 in ((True, True), (False, False)):
+            case = aux_case(kind, CACHE_SAT_ROWS, EMB_DIM, 7700, 4600, 3100, 0.5, aux_bf16, dev,
+                            seed=SEED + 90 + len(kind) + aux_bf16, table_dtype=bf)
+            aux_check(f"{kind} wires={'bf16' if wb_bf16 else 'f32'}", case, wb_bf16)
+        case = aux_case(kind, CACHE_SAT_ROWS, EMB_DIM, 7700, 3800, 3200, 0.5, True, dev, seed=SEED + 95 + len(kind),
+                        n_restore=700, ring_rows=1 << 19, wb_bf16=True, ring_pos=(1 << 18) + 100, table_dtype=bf)
+        aux_check(f"{kind} with 700 restores from a bf16 ring, the payload stored", case, True, ring_pos=(1 << 18) + 100)
+    rows = torch.randperm(CACHE_SAT_ROWS + 1, generator=torch.Generator().manual_seed(3))[:CACHE_SAT_ROWS].int()
+    for kind in ("adagrad", "adam", "sgd"):
+        case = aux_case(kind, CACHE_SAT_ROWS, EMB_DIM, 1, 0, 0, False, False, dev, seed=SEED + 97, table_dtype=bf)
+        got = ops.gather_entry_rows(case["table"], case["state"], rows.to(dev))
+        ref = gather_entry_rows_reference(case["table"].cpu(), {k: v.cpu() for k, v in case["state"].items()}, rows)
+        back = bits_equal(got[:, :EMB_DIM].to(bf), case["table"][rows.to(dev).long()])
+        ok = bits_equal(got, ref) and back
+        print(f"  gather_entry_rows (bf16 pool) {kind} ({rows.numel()} rows): tolerance=0 (bitwise); the rows "
+              f"widened round back to their bits: {back} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"gather_entry_rows on a bf16 pool ({kind}) disagrees with its plain version")
+    for S, L, C, scale, miss, zipf in ((N_SLOTS, 1, CACHE_SAT_ROWS, False, 0, True),
+                                       (N_SLOTS, 1, CACHE_SAT_ROWS, True, 0, True),
+                                       (N_SLOTS, 1, CACHE_SAT_ROWS, False, 4000, False),
+                                       (4, 8, CACHE_SAT_ROWS, True, 1000, False)):
+        case = gather_case(S, BATCH, L, C, EMB_DIM, dev, seed=SEED + 98 + L + miss, scale=scale, miss=miss,
+                           zipf=zipf, table_dtype=bf)
+        cpu = to_cpu(case)
+        keys = miss == 0
+        sc, mt = case.get("scale"), case.get("miss_table")
+        got = ops.cached_gather(case["table"], case["rows"], True, sc, keys=keys, miss_table=mt)
+        ref = cached_gather_reference(cpu["table"], cpu["rows"], True, cpu.get("scale"), keys=keys,
+                                      miss_table=cpu.get("miss_table"))
+        pooled, rpooled = (got[0], ref[0]) if keys else (got, ref)
+        err = float((pooled.cpu() - rpooled).abs().max())
+        if L == 1:
+            ok, tol = bits_equal(pooled, rpooled), "0 (bitwise)"
+        else:
+            bound_ = cached_gather_reference(cpu["table"].float().abs(), cpu["rows"], True, cpu["scale"].abs(),
+                                             miss_table=cpu["miss_table"].abs())
+            ok, tol = bool(((pooled.cpu() - rpooled).abs() <= (L - 1) * 2.0 ** -23 * bound_).all()), \
+                "(L - 1) * 2^-23 * sum|x| * |scale|"
+        if keys:
+            ok = ok and bits_equal(got[1], ref[1])
+        raw = ops.cached_gather(case["table"], case["rows"][0].contiguous(), False, keys=keys, miss_table=mt)
+        rraw = cached_gather_reference(cpu["table"], cpu["rows"][0], False, keys=keys, miss_table=cpu.get("miss_table"))
+        ok = ok and all(bits_equal(a, b) for a, b in zip(raw, rraw))
+        print(f"  cached_gather (bf16 pool) S={S} B={BATCH} L={L} scale={scale} eval misses={miss}: "
+              f"max_abs_err={err:.3e} tolerance={tol}; keys, raw rows and mask bitwise {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise SystemExit("cached_gather on a bf16 pool disagrees with its plain version")
+        errs[PREC_NAMES["cached_gather"]] = max(errs[PREC_NAMES["cached_gather"]], err)
+    # K15 under the gate: the ps-stream shape and the edge cases, finite
+    # (a scale of 2^10) and on an overflow (an inf, inv 0), three steps
+    for lengths in ([1536 * EMB_DIM] * N_SLOTS,) + K15_CASES[:3]:
+        for dtype in (bf, torch.float32):
+            for finite in (True, False):
+                g, res, offsets = k15_inputs(dev, lengths, dtype, SEED + 99 + len(lengths))
+                g = (g.float() * 1024.0).to(dtype)
+                if not finite:
+                    g[offsets[-1] // 3] = float("inf")
+                inv = torch.tensor(1.0 / 1024.0 if finite else 0.0, device=dev)
+                fin = torch.tensor(1.0 if finite else 0.0, device=dev)
+                plain = res.clone()
+                diffs = []
+                for step in range(3):
+                    kept = res.clone()
+                    before = ops.quantize_int8_ef.launches
+                    q, s, new = ops.quantize_int8_ef(g, res, offsets, inv, fin)
+                    q1, s1, plain = quantize_int8_ef_reference(g, plain, offsets, inv, fin)
+                    torch.cuda.synchronize()
+                    if ops.quantize_int8_ef.launches != before + 1 or float(s[-1]) != float(finite):
+                        diffs.append((step, "launch or tail"))
+                    for name, a, b in (("codes", q, q1), ("scales", s, s1), ("residual", new, plain)):
+                        if not bits_equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                                          b.view(torch.int32) if b.dtype == torch.float32 else b):
+                            diffs.append((step, name))
+                    if not finite and (q.any() or s.any() or not bits_equal(new, kept)):
+                        diffs.append((step, "an overflow moved something"))
+                    g = (g.float() * -0.5 + 1e-3).to(dtype)
+                print(f"  quantize_int8_ef (loss scale) {len(lengths)} segments of {lengths[:3]}... "
+                      f"{str(dtype).split('.')[-1]} {'finite, inv 2^-10' if finite else 'overflow, inv 0'}: codes, "
+                      f"scales (tail {float(finite)}) and residual bitwise vs the plain version, 3 steps "
+                      f"{'ok' if not diffs else f'FAIL {diffs}'}", flush=True)
+                if diffs:
+                    raise SystemExit("quantize_int8_ef under the loss scale disagrees with its plain version")
+    torch.cuda.empty_cache()
+    return errs
+
+
+def dnn_fused_model():
+    """DNN at phase 4j's width (``benchmarks/serving_bench.py:37-68``:
+    8 slots of dim 16, DNN(32, 128, (128, 64)), bf16 compute) on the CPU,
+    its weights drawn from SEED."""
+    import torch
+
+    from persia_tpu_torch.models import DNN
+
+    return DNN(DNN_DENSE, [DNN_DIM] * DNN_SLOTS, *DNN_MLP, device="cpu", generator=torch.Generator().manual_seed(SEED))
+
+
+def fused_model_ctx(name, dev):
+    """DeepFM and DCN-v2: ``testing/avazu.py``'s ``build_ctx(tier="fused")``
+    (21 tables at ``AVAZU_VOCABS``' sizes, no cap); DNN: its slots as
+    fused tables of DNN_VOCAB rows, Adam(3e-3), Adagrad(0.1), folded ids.
+    Returns (ctx, the CPU model builder, the dense lr)."""
+    import torch
+
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.parallel.fused_ctx import FusedTrainCtx
+    from persia_tpu_torch.parallel.fused_step import FusedSlotSpec
+    from persia_tpu_torch.testing import avazu as ta
+
+    if name != "dnn":
+        return (ta.build_ctx(name, AVAZU_FIELDS, tier="fused", device=dev),
+                lambda: ta.build_model(name, AVAZU_FIELDS), 1e-3)
+    model = dnn_fused_model()
+    specs = {f"cat_{i}": FusedSlotSpec(vocab=DNN_VOCAB, dim=DNN_DIM) for i in range(DNN_SLOTS)}
+    return (FusedTrainCtx(model, torch.optim.Adam(model.parameters(), lr=3e-3), Adagrad(lr=0.1), specs, fold_ids=True,
+                          seed=SEED, device=dev), dnn_fused_model, 3e-3)
+
+
+def fused_model_leg(dev, name, root):
+    """One model on the fused tier at full width: the ctx's loop (the
+    CUDA-graph step, its first call the capture), an eager twin of the
+    state (the counted run) bit for bit the graph steps (DNN's batch
+    statistics included), the compact CPU twin's first steps, the card's
+    busy time a graph step (whether the trace held device events is
+    printed), a checkpoint round trip bit for bit."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.parallel.fused_ctx import batch_to_fused
+    from persia_tpu_torch.parallel.fused_step import build_fused_train_step, fused_batch_to_device
+    from persia_tpu_torch.testing import AvazuSynthetic
+    from persia_tpu_torch.weights import fused_state_to_flax
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ctx, model_fn, lr = fused_model_ctx(name, dev)
+    ctx._ensure_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    (tname, table), = ctx.state.tables.items()
+    state_bytes = sum(t.numel() * t.element_size() for t in [table, *ctx.state.emb_state[tname].values()])
+    n = FUSED_MODEL_STEPS
+    if name == "dnn":
+        make = dnn_batch_maker(SEED + 70, BATCH)
+        train_b = [make() for _ in range(n + 2)]
+    else:
+        train_b = list(AvazuSynthetic(num_samples=(n + 2) * AVAZU_BATCH, seed=42).batches(AVAZU_BATCH))
+    prof_b, train_b = train_b[n:], train_b[:n]
+    B = train_b[0].batch_size
+    print(f"  fused {name}: {len(ctx.specs)} tables, stacked {tuple(table.shape)} and its state: "
+          f"{state_bytes / 1e9:.3f} GB on the card, built in {init_s:.2f} s; B={B}", flush=True)
+    twin = clone_fused_state(ctx.state)
+    host = [batch_to_fused(b, ctx.specs, True) for b in train_b]
+    cpu_state, cpu_step, cpu_batches, (cgrp, card_grp, rows_of) = compact_fused_twin(
+        ctx, host[:FUSED_MODEL_CPU_STEPS], model_fn, lr)
+    init_rows = compact_rows(ctx.state, card_grp, rows_of, card=True)
+    losses, step_s = [], []
+    for i, b in enumerate(train_b):
+        t = time.perf_counter()
+        losses.append(ctx.train_step(b)["loss"])  # the first step captures the graph
+        step_s.append(time.perf_counter() - t)
+        if i + 1 == FUSED_MODEL_CPU_STEPS:
+            card_rows = compact_rows(ctx.state, card_grp, rows_of, card=True)
+    eager = build_fused_train_step(ctx.sparse_cfg, ctx.specs, stack=True, jit=False)
+    ops.reset_launch_counts()
+    e_losses = []
+    for h in host:
+        twin, (loss, _) = eager(twin, fused_batch_to_device(h, dev))
+        e_losses.append(loss)
+    torch.cuda.synchronize()
+    launches = launches_now()
+    bn = 2 * n if name == "dnn" else 0
+    expect_path_launches(f"fused {name} (eager twin)", launches,
+                         dict(fused_gather=n, sparse_update=n, batch_norm_fwd=bn, batch_norm_bwd=bn))
+    same = same_bits(torch.tensor(losses, dtype=torch.float32), torch.stack(e_losses).cpu()) and all(
+        same_bits(a, c) for a, c in zip(fused_state_tensors(ctx.state), fused_state_tensors(twin)))
+    del twin
+    torch.cuda.empty_cache()
+    cpu_losses = [float(cpu_step(cpu_state, fused_batch_to_device(h, "cpu"))[1][0]) for h in cpu_batches]
+    loss_err = max(abs(a - c) for a, c in zip(losses, cpu_losses))
+    cpu_rows = compact_rows(cpu_state, cgrp, rows_of, card=False)
+    row_err = float((card_rows - cpu_rows).abs().max())
+    loss_tol, row_tol = FUSED_MODEL_TOL[name]
+    ok = same and loss_err <= loss_tol and row_err <= row_tol and np.isfinite(losses).all()
+    print(f"  fused {name}: graph steps vs eager twin, {n} steps: losses, tables, states, parameters and batch "
+          f"statistics bitwise {'ok' if same else 'FAIL'}; first {FUSED_MODEL_CPU_STEPS} losses card "
+          f"{losses[:FUSED_MODEL_CPU_STEPS]} cpu (compact twin, {cpu_rows.shape[0]} rows) {cpu_losses}: "
+          f"max_abs_err={loss_err:.3e} tolerance={loss_tol:g}; touched rows max_abs_err={row_err:.3e} tolerance={row_tol:g} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit(f"fused {name}: the graph and eager steps, or card and CPU, disagree")
+    # the card's busy time a graph step and the port's kernels a replay
+    prof_host = [fused_batch_to_device(batch_to_fused(b, ctx.specs, True), dev) for b in prof_b]
+    busy, top, runs = device_busy_ms(lambda b: ctx._step(ctx.state, b), prof_host)
+    replays = runs["replays"]
+    whole = len(replays) == len(prof_host) and bool(replays[0]["events"]) and all(r == replays[0] for r in replays)
+    per_step = {k: runs[k] / len(prof_host) for k in KERNEL_NAMES if runs.get(k)}
+    print(f"  fused {name}: a trace of {len(prof_host)} graph steps held device events: {busy is not None}, "
+          f"every replay whole: {whole}; card busy {busy} ms a step, the port's kernels a step (device trace) "
+          f"{per_step}, largest {top}", flush=True)
+    # a checkpoint round trip: dump, one more step, load, the state's bits
+    path = str(root / f"fused_{name}")
+    t = time.perf_counter()
+    ctx.dump_checkpoint(path)
+    saved = fused_state_to_flax(ctx.state)[1]
+    ctx.train_step(prof_b[0])
+    ctx.load_checkpoint(path)
+    back = fused_state_to_flax(ctx.state)[1]
+    ckpt_ok = len(saved) == len(back) and all(
+        a.dtype == b.dtype and np.array_equal(np.ascontiguousarray(a).view(np.uint8),
+                                              np.ascontiguousarray(b).view(np.uint8)) for a, b in zip(saved, back))
+    ckpt_s = time.perf_counter() - t
+    shutil.rmtree(path, ignore_errors=True)
+    print(f"  fused {name}: checkpoint round trip ({len(saved)} leaves) bitwise {'ok' if ckpt_ok else 'FAIL'} "
+          f"({ckpt_s:.1f} s)", flush=True)
+    if not ckpt_ok:
+        raise SystemExit(f"fused {name}: the checkpoint did not load back bit for bit")
+    steady = sum(step_s[1:])
+    out = {"model": name, "batch": B, "steps": n, "tables": len(ctx.specs), "table_rows": int(table.shape[0]),
+           "state_bytes": state_bytes, "init_s": init_s, "losses": losses, "samples_per_s": (n - 1) * B / steady,
+           "first_step_s": step_s[0], "step_ms_p50": float(np.percentile(step_s[1:], 50) * 1e3),
+           "card_busy_ms_per_step": busy, "trace_held_device_events": busy is not None,
+           "trace_replays_whole": whole, "card_top_kernels_ms": top, "kernels_per_graph_step": per_step,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(), "loss_max_abs_err_vs_cpu": loss_err,
+           "row_max_abs_err_vs_cpu": row_err, "graph_equals_eager_steps": n, "checkpoint_round_trip_s": ckpt_s,
+           "launches_per_eager_step": {k: v / n for k, v in launches.items() if v}}
+    print(f"  fused {name}: {out['samples_per_s']:.1f} samples/s (graph steps after the capture, each with its loss "
+          f"read), step p50 {out['step_ms_p50']:.2f} ms, peak device bytes {out['peak_device_bytes']:,}", flush=True)
+    del ctx, cpu_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def path_fused_models(dev):
+    """Phase 4o: DeepFM and DCN-v2 through ``testing/avazu.py --tier fused``
+    at full width (B=4096, 21 tables, 9,449,205 rows), DNN at phase 4j's
+    width with its slots as fused tables."""
+    print(f"== phase 4o: DeepFM and DCN-v2 (the Avazu example's --tier fused, B={AVAZU_BATCH}) and DNN (B={BATCH}) "
+          f"on the fused tier, {FUSED_MODEL_STEPS} steps each", flush=True)
+    root = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_state"
+    root.mkdir(parents=True, exist_ok=True)
+    launches, out = {}, {}
+    for name in ("deepfm", "dcnv2", "dnn"):
+        t = time.perf_counter()
+        la, o = fused_model_leg(dev, name, root)
+        o["seconds"] = time.perf_counter() - t
+        launches[f"fused_{name} (eager twin of its {FUSED_MODEL_STEPS} graph steps)"], out[name] = la, o
+    return launches, out
+
+
+def prec_ctx(device, store, sd, rows=CACHE_SAT_ROWS, ps_slots=(), wire="int8", touches=2, bf16=True, scaled=True,
+             **kw):
+    """The cached configuration through ``testing.quality.tier_ctx`` (DLRM at
+    bench width from ``sd``, bf16 wires, the touch gate) with, where
+    ``bf16``, bf16 pools and, where ``scaled``, the dynamic loss scale from
+    2^15."""
+    import torch
+
+    from persia_tpu_torch.testing.quality import bench_model, tier_ctx
+
+    opts = dict(table_dtype=torch.bfloat16) if bf16 else {}
+    if scaled:
+        opts.update(dynamic_loss_scale=True, loss_scale_init=PREC_LS_INIT)
+    return tier_ctx(device, store, ps_slots=ps_slots, ps_wire=wire, cache_rows=rows, admit_touches=touches,
+                    model=bench_model(state_dict=sd), **opts, **kw)
+
+
+def prec_sync(dev, device, batches, sd, bf16=True, scaled=True, counted=False):
+    """The synchronous steps on ``device`` from a fresh store and ctx:
+    (ctx, store, recorder, headers, samples/s); ``counted``: the launch
+    counts set to 0 before the first step."""
+    import torch
+
+    from persia_tpu_torch import ops
+
+    store = cache_store()
+    ctx = prec_ctx(device, store, sd, bf16=bf16, scaled=scaled)
+    rec = cache_recorder(ctx)
+    if device != "cpu":
+        torch.cuda.synchronize()
+        if counted:
+            ops.reset_launch_counts()
+    headers = []
+    t0 = time.perf_counter()
+    for b in batches:
+        ctx.train_step(b, fetch_metrics=False)
+        headers.append(ctx._pending[3])
+    if device != "cpu":
+        torch.cuda.synchronize()
+    sps = len(batches) * BATCH / (time.perf_counter() - t0)
+    return ctx, store, rec, headers, sps
+
+
+def run_prec_cache(dev, sd):
+    """Phase 4p (cache): the cached configuration at the saturated 2^18
+    rows over phase 4k saturated's batches, ``PREC_STEPS`` timed
+    synchronous steps a leg from a fresh ctx, in two turns over the four
+    legs of ``PREC_LEGS`` (bf16 pools and the loss scale, each alone,
+    neither), the second turn reversed; the last leg (both options) is the
+    counted one: traced over ``CACHE_PROFILED`` more steps (as is the
+    second turn's f32 leg), flushed, then the same batches on the CPU port
+    (the directory's decisions, scales and flags equal at every step,
+    losses and every entry after flush within ``PREC_TOL``) and the stream
+    at the bench's knobs from a fresh ctx (each step's loss, scale and
+    flag, the state's bytes and every server entry bit for bit the
+    synchronous steps')."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.weights import cached_state_to_flax_bytes
+
+    print(f"== phase 4p (cache): bf16 pools and the dynamic loss scale (from 2^15) at the cached configuration, "
+          f"{CACHE_SAT_ROWS} rows, B={BATCH}, phase 4k saturated's {PREC_STEPS} + {CACHE_PROFILED} batches; legs "
+          f"(bf16 pools, loss scale) {PREC_LEGS} then reversed", flush=True)
+    make = zipf_batch_maker(SEED + 60, labels=True)  # phase 4k saturated's batches
+    batches = [make() for _ in range(PREC_STEPS + CACHE_PROFILED)]
+    prof, batches = batches[PREC_STEPS:], batches[:PREC_STEPS]
+    order = list(PREC_LEGS) + list(reversed(PREC_LEGS))
+    legs = {PREC_LEG_NAMES[k]: [] for k in PREC_LEGS}
+    traces = {}
+    for i, (bf16, scaled) in enumerate(order):
+        name, last = PREC_LEG_NAMES[(bf16, scaled)], i == len(order) - 1
+        ctx, store, rec, headers, sps = prec_sync(dev, dev, batches, sd, bf16, scaled, counted=last)
+        legs[name].append(sps)
+        print(f"  leg {i} {name}: {sps:.0f} samples/s", flush=True)
+        if last or (i >= len(PREC_LEGS) and not (bf16 or scaled)):
+            def profiled(b, ctx=ctx, headers=headers):
+                ctx.train_step(b, fetch_metrics=False)
+                headers.append(ctx._pending[3])
+
+            busy, top, _ = device_busy_ms(profiled, prof)
+            traces[name] = {"card_busy_ms_per_step": busy, "trace_held_device_events": busy is not None,
+                            "card_top_kernels_ms": top}
+            print(f"  {name}: a trace of {len(prof)} steps held device events: {busy is not None}; card busy {busy} "
+                  f"ms a step, largest {top}", flush=True)
+        if not last:
+            del ctx, store
+            torch.cuda.empty_cache()
+    mean = {k: float(np.mean(v)) for k, v in legs.items()}
+    ratios = {k: v / mean["f32_pools"] for k, v in mean.items()}
+    print(f"  samples/s by leg {legs}; the mean of each over f32_pools "
+          f"{ {k: round(v, 3) for k, v in ratios.items()} }", flush=True)
+    headers = [h.cpu() for h in headers]
+    steps = [(float(h[0]), float(h[1]), bool(h[2] > 0.5)) for h in headers]
+    evictions = sum(s["evictions"] for s in rec)
+    batches = batches + prof  # the traced steps trained too: the twins below take the same batches
+    ctx.flush()
+    torch.cuda.synchronize()
+    launches = launches_now()
+    n, touched = len(batches), sum(s["touched"] for s in rec)
+    expect_launches("cache (bf16 pools, loss scale)", launches, cached_gather=n, cache_aux=touched, sparse_update=n,
+                    dot_interaction=n, dot_interaction_bwd=n, gather_entry_rows=1)
+    state_bytes = cached_state_to_flax_bytes(ctx.state)
+    pool_dtype = ctx.state.tables["cache_d16"].dtype
+    signs = batch_keys(batches)
+    warm, vals = store.probe_entries(signs, EMB_DIM)
+    warm = warm.astype(bool)  # a cold row's values are left unwritten
+    tail = sum(s["evictions"] > 0 for s in rec[PREC_STEPS - CACHE_SAT_TAIL:PREC_STEPS])
+    print(f"  bf16 pools + loss scale (the counted leg): {evictions} evictions, {tail} of the last {CACHE_SAT_TAIL} "
+          f"timed steps evicting; "
+          f"(loss, scale, finite) of the first steps {steps[:3]}; pool dtype {pool_dtype}", flush=True)
+    cpu, cpu_store, crec, cpu_headers, _ = prec_sync(dev, "cpu", batches, sd)
+    cpu.flush()
+    same = [a["decisions"] == b["decisions"] for a, b in zip(rec, crec)]
+    loss_err = max(abs(float(a[0]) - float(b[0])) for a, b in zip(headers, cpu_headers))
+    flags_same = all(float(a[1]) == float(b[1]) and float(a[2]) == float(b[2]) for a, b in zip(headers, cpu_headers))
+    cwarm, cvals = cpu_store.probe_entries(signs, EMB_DIM)
+    cwarm = cwarm.astype(bool)
+    row_err = float(np.abs(vals[warm] - cvals[cwarm]).max()) if np.array_equal(warm, cwarm) else float("inf")
+    loss_tol, row_tol = PREC_TOL
+    ok = (all(same) and len(rec) == len(crec) and flags_same and loss_err <= loss_tol and row_err <= row_tol
+          and tail == CACHE_SAT_TAIL)
+    print(f"  vs the CPU port: decisions equal at every one of {len(rec)} steps {all(same)}; scales and flags equal "
+          f"{flags_same}; losses max_abs_err={loss_err:.3e} tolerance={loss_tol:g}; entries after flush ({int(warm.sum())} "
+          f"of the batches' {len(signs)} signs) max_abs_err={row_err:.3e} tolerance={row_tol:g} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise SystemExit("cache (bf16 pools, loss scale): card and CPU disagree, or the last timed steps did not all "
+                         "evict")
+    del cpu, cpu_store
+    s_store = cache_store()
+    sctx = prec_ctx(dev, s_store, sd)
+    srec = cache_recorder(sctx)
+    seen = []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sctx.train_stream(batches, **dict(STREAM_KNOBS, fetch_final=True), on_metrics=seen.append)
+    torch.cuda.synchronize()
+    stream_sps = len(batches) * BATCH / (time.perf_counter() - t0)
+    stream_launches = launches_now()
+    sctx.flush()
+    swarm, svals = s_store.probe_entries(signs, EMB_DIM)
+    swarm = swarm.astype(bool)
+    stream_steps = [(m["loss"], m["loss_scale"], m["grads_finite"]) for m in seen]
+    bits = (cached_state_to_flax_bytes(sctx.state) == state_bytes and np.array_equal(swarm, warm)
+            and np.array_equal(svals[swarm].view(np.uint32), vals[warm].view(np.uint32)))
+    dec = all(a["decisions"] == b["decisions"] for a, b in zip(rec, srec))
+    ok = bits and dec and stream_steps == steps and len(seen) == len(batches)
+    print(f"  the stream ({STREAM_KNOBS}): {stream_sps:.0f} samples/s; decisions the synchronous steps' {dec}; each "
+          f"step's (loss, scale, finite) and the state's bytes and every entry after flush bitwise the synchronous "
+          f"steps' {'ok' if ok else 'FAIL'}; restored rows {sctx.stream_stats()['restored_rows']}", flush=True)
+    if not ok:
+        raise SystemExit("cache (bf16 pools, loss scale): the stream's bits are not the synchronous steps'")
+    record = {"cache_rows": CACHE_SAT_ROWS, "batch": BATCH, "steps": PREC_STEPS, "profiled_steps": CACHE_PROFILED,
+              "legs": [PREC_LEG_NAMES[k] for k in order], "samples_per_s": legs, "samples_per_s_mean": mean,
+              "over_f32_pools": ratios, "stream_samples_per_s": stream_sps, "evictions": evictions,
+              "evicting_of_last_timed_steps": [tail, CACHE_SAT_TAIL], "traces": traces, "steps_loss_scale_finite": steps,
+              "loss_max_abs_err_vs_cpu": loss_err, "entry_max_abs_err_vs_cpu": row_err, "launches": launches,
+              "stream_launches": stream_launches, "stream_restored_rows": sctx.stream_stats()["restored_rows"]}
+    del ctx, sctx
+    return {"cache_bf16_ls": launches, "cache_bf16_ls_stream": stream_launches}, record
+
+
+def run_prec_ps(dev, sd):
+    """Phase 4p (ps-stream): every slot on the PS tier, int8 wire, under the
+    loss scale: ``PREC_PS_STEPS`` steps through the stream (counted: K15
+    once a step), every ref released, finite losses; K15's inputs at its
+    last step for phase 5."""
+    import torch
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.embedding.hbm_cache import step as step_mod
+
+    print(f"== phase 4p (ps-stream): all {N_SLOTS} slots on the PS (int8) under the loss scale, "
+          f"{PREC_PS_STEPS} steps", flush=True)
+    make = zipf_batch_maker(SEED + 91, labels=True)
+    batches = [make() for _ in range(PREC_PS_STEPS)]
+    store = cache_store()
+    ctx = prec_ctx(dev, store, sd, rows=8, ps_slots=PS_ALL, wire="int8")
+    k15 = {}
+    inner = step_mod.quantize_int8_ef
+    seen = []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+
+    def keep(g, res, offsets, inv=None, finite=None):
+        k15.update(g=g.clone(), res=res.clone(), offsets=list(offsets), inv=inv.clone(), finite=finite.clone())
+        return inner(g, res, offsets, inv, finite)
+
+    step_mod.quantize_int8_ef = keep
+    try:
+        t0 = time.perf_counter()
+        ctx.train_stream(batches, **dict(PS_STREAM_KNOBS, fetch_final=True), on_metrics=seen.append)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        step_mod.quantize_int8_ef = inner
+    launches = launches_now()
+    refs_released(ctx, "ps-stream under the loss scale")
+    expect_launches("ps-stream under the loss scale", launches, quantize_int8_ef=PREC_PS_STEPS,
+                    gather_pool_fwd=PREC_PS_STEPS, gather_pool_bwd=PREC_PS_STEPS, dot_interaction=PREC_PS_STEPS,
+                    dot_interaction_bwd=PREC_PS_STEPS)
+    losses = [m["loss"] for m in seen]
+    flags = [m["grads_finite"] for m in seen]
+    ok = len(seen) == PREC_PS_STEPS and np.isfinite(losses).all() and flags[-1]
+    print(f"  {PREC_PS_STEPS * BATCH / wall:.0f} samples/s; losses {np.round(losses, 5).tolist()}; scales "
+          f"{sorted({m['loss_scale'] for m in seen})}; finite steps {sum(flags)} of {len(flags)} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise SystemExit("ps-stream under the loss scale: a step is missing, a loss is not finite or the last "
+                         "step overflowed")
+    record = {"steps": PREC_PS_STEPS, "samples_per_s": PREC_PS_STEPS * BATCH / wall, "losses": losses,
+              "launches": launches}
+    del ctx
+    return {"ps_stream_ls": launches}, record, k15
+
+
+def run_prec_overflow(dev, sd):
+    """Phase 4p (overflow): the mixed configuration (cat_0-cat_12 cached in
+    bf16 pools, cat_13-cat_25 on the PS, int8), the loss scale at 2^15
+    (its ceiling 3e38), every sign admitted at its first touch, dense
+    features x1e4 (``tests/test_loss_scale.py`` scales them x100 for
+    DNN; the bench's DLRM needs more for its gradients to pass 1):
+    ``PREC_OVERFLOW_STEPS`` finite steps (K15's residual non-zero), then
+    the scale set to 3e38 and the last batch again, every sign resident:
+    nothing admitted or evicted, no pool row or its state, dense parameter
+    or Adam moment, PS-tier row or K15 residual moves, the scale halves."""
+    import torch
+
+    print("== phase 4p (overflow): a forced overflow on the mixed configuration with nothing to admit", flush=True)
+    make = zipf_batch_maker(SEED + 92, labels=True, dense_scale=OVERFLOW_DENSE_SCALE)
+    batches = [make() for _ in range(PREC_OVERFLOW_STEPS)]
+    store = cache_store()
+    ctx = prec_ctx(dev, store, sd, rows=CACHE_SAT_ROWS, ps_slots=MIXED_PS, wire="int8", touches=1,
+                   loss_scale_max=HUGE_SCALE)
+    for b in batches:
+        if not ctx.train_step(b)["grads_finite"]:
+            raise SystemExit("overflow leg: a warm-up step overflowed")
+
+    def snapshot():
+        dense = [p.detach().clone() for p in ctx.model.parameters()]
+        for st in ctx.dense_optimizer.state.values():
+            dense.extend(v.clone() for v in st.values() if torch.is_tensor(v))
+        pools = [t.clone() for t in ctx.state.tables.values()]
+        pools += [v.clone() for st in ctx.state.emb_state.values() for v in st.values()]
+        res = [v.clone() for v in ctx._ps_residual.values()]
+        return dense, pools, res
+
+    ctx.drain()
+    ps_signs = batch_keys([batches[-1]])
+    ps_warm, ps_vals = store.probe_entries(ps_signs, EMB_DIM)
+    ps_warm = ps_warm.astype(bool)  # a cold row's values are left unwritten
+    before = snapshot()
+    counts = ctx.tier.counts()
+    ctx.state.loss_scale.scale.fill_(HUGE_SCALE)
+    m = ctx.train_step(batches[-1])
+    ctx.drain()
+    after = snapshot()
+    moved = ctx.tier.counts()
+    admitted = {k: moved[k] - counts[k] for k in ("misses", "evictions")}
+    warm2, vals2 = store.probe_entries(ps_signs, EMB_DIM)
+    warm2 = warm2.astype(bool)
+    same = {what: all(bits_equal(a, b) for a, b in zip(x, y))
+            for what, x, y in zip(("dense", "pools", "residual"), before, after)}
+    same["ps_rows"] = (np.array_equal(ps_warm, warm2) and bool(ps_warm.any())
+                       and np.array_equal(ps_vals[ps_warm].view(np.uint32), vals2[warm2].view(np.uint32)))
+    halved = float(ctx.state.loss_scale.scale) == float(np.float32(HUGE_SCALE) * np.float32(0.5))
+    nonzero_res = all(bool(v.abs().sum() > 0) for v in before[2]) and bool(before[2])
+    ok = (not m["grads_finite"] and m["loss_scale"] == HUGE_SCALE and all(same.values()) and halved and nonzero_res
+          and not any(admitted.values()))
+    print(f"  the overflow step: grads_finite {m['grads_finite']}, scale used {m['loss_scale']:.4g}, then "
+          f"{float(ctx.state.loss_scale.scale):.4g} (halved: {halved}); misses and evictions {admitted}; unchanged "
+          f"bit for bit: {same} (K15's residual non-zero before: {nonzero_res}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit("the forced overflow moved state, admitted rows or did not back the scale off")
+    refs_released(ctx, "overflow leg")
+    record = {"unchanged": same, "scale_halved": halved, "admitted": admitted, "residual_nonzero": nonzero_res}
+    del ctx
+    return record
+
+
+def path_precision(dev):
+    """Phase 4p: the cache tier's bf16 pools and dynamic loss scale."""
+    from persia_tpu_torch.testing.quality import bench_model
+    from persia_tpu_torch.weights import seeded_flax_params_like, state_dict_from_flax
+
+    model = bench_model()
+    sd = state_dict_from_flax(model, seeded_flax_params_like(model, SEED))
+    launches, record = run_prec_cache(dev, sd)
+    ps_launches, ps_record, k15 = run_prec_ps(dev, sd)
+    record["ps_stream"] = ps_record
+    record["overflow"] = run_prec_overflow(dev, sd)
+    launches.update(ps_launches)
+    return launches, record, k15
+
+
+def time_precision_kernels(dev, launches, errs, inputs, k15, floor):
+    """Phase 5's rows of the new variants. K12, its read and K13 on a bf16
+    pool at the f32 rows' own inputs (``time_cache_kernels``': phase 4k
+    saturated's last step's pieces, pairing and rows, its pool with the
+    table rounded to bf16, its flush's rows), graph-replayed warm and cold
+    (copies of the pool rotated through more than the L2), in turns with
+    the f32 pool's call at the same inputs (f32, bf16, bf16, f32); K15
+    under the loss scale at phase 4p's ps-stream's last step, warm and
+    cold, in turns with the ungated call. Each beside its plain version, a
+    library call and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.ops.cache_aux import cache_aux_reference, gather_entry_rows_reference
+    from persia_tpu_torch.ops.cached_gather import cached_gather_reference
+    from persia_tpu_torch.ops.quantize_int8 import quantize_int8_ef_reference
+
+    f32, state, consts = inputs["table"], inputs["state"], inputs["consts"]
+    table = f32.to(torch.bfloat16)
+    miss, cold, ev = inputs["aux"]
+    C, dim = table.shape[0] - 1, table.shape[1]
+    acc = state["acc"]
+    E = dim + acc.shape[1]
+    ev_rows, ev_free = ev["cache_d16"]
+    m_rows, m_ent, m_slot = miss["cache_d16"]
+    c_rows, c_emb, c_slot = cold["cache_d16"]
+    pairing = dict(m_slot=m_slot, c_slot=c_slot, ev_free=ev_free)
+    aux_args = (ev_rows, m_rows, m_ent, c_rows, c_emb, consts, True)
+    n_ev, n_w, n_c = (int((r < lim).sum()) for r, lim in ((ev_rows, C), (m_rows, C + 1), (c_rows, C + 1)))
+    esz = m_ent.element_size()
+    rows = []
+
+    def row(base, path, **kw):
+        name = PREC_NAMES[base]
+        return dict(name=name, route="cuda", cuda_route="cuda",
+                    source=K15_SOURCE if base == "quantize_int8_ef" else CACHE_SOURCE[base],
+                    replaces=K15_REPLACES if base == "quantize_int8_ef" else CACHE_REPLACES[base],
+                    launches=launches[path][base], launches_by_path={p: launches[p][base] for p in launches
+                                                                      if launches[p].get(base)},
+                    max_abs_err=errs[name], **kw)
+
+    def timed(r, kernel, beside, make_copy, make_beside, nbytes, beside_bytes, plain, library, lib_copy, lib_bytes):
+        """warm and cold of ``kernel`` and of the f32 (ungated) call
+        ``beside`` in turns: beside, kernel, kernel, beside."""
+        def both(fn, copy, n):
+            return graph_ms(fn[0]), cold_ms(fn[1], copy, n)["ms"]
+
+        b0 = both(beside, make_beside, beside_bytes)
+        k0, k1 = both(kernel, make_copy, nbytes), both(kernel, make_copy, nbytes)
+        b1 = both(beside, make_beside, beside_bytes)
+        p = timings(plain)
+        lib = timings(library[0]) if library is not None else {"graph": None, "eager": None}
+        r.update(ms=min(k0[0], k1[0]), ms_runs=[k0[0], k1[0]], cold_ms=min(k0[1], k1[1]), cold_ms_runs=[k0[1], k1[1]],
+                 plain_ms=p["graph"], plain_eager_ms=p["eager"], library_ms=lib["graph"],
+                 library_eager_ms=lib["eager"],
+                 library_cold_ms=cold_ms(library[1], lib_copy, lib_bytes)["ms"] if library is not None else None,
+                 beside_ms_runs=[b0[0], b1[0]], beside_cold_ms_runs=[b0[1], b1[1]])
+        r["over_launch_floor"] = r["ms"] / min(floor)
+        r["cold_share"] = r["bound_ms"] / r["cold_ms"]
+        return r
+
+    def pool_of(t):
+        return lambda: (t.clone(), {k: v.clone() for k, v in state.items()})
+
+    bf_bytes = table.numel() * 2 + acc.numel() * 4
+    f32_bytes = (f32.numel() + acc.numel()) * 4
+    # K12: the table's columns 2 bytes a value read and written
+    pool, f32_pool = pool_of(table)(), pool_of(f32)()
+    tb = table.element_size()
+    nbytes = (4 * (ev_rows.numel() + m_rows.numel() + c_rows.numel() + m_slot.numel() + c_slot.numel()
+                   + ev_free.numel()) + n_ev * (dim * tb + (E - dim) * 4 + E * 2)
+              + n_w * (E * esz + dim * tb + (E - dim) * 4) + n_c * (dim * esz + dim * tb + (E - dim) * 4))
+    bms, by = bound(nbytes, 0, "float32")
+    ev_live, m_live, c_live = ev_rows[:n_ev].long(), m_rows[:n_w].long(), c_rows[:n_c].long()
+
+    def aux_library(t, s):
+        payload = torch.cat([t.index_select(0, ev_live).float(), s["acc"].index_select(0, ev_live)], 1).to(
+            torch.bfloat16)
+        t.index_copy_(0, m_live, m_ent[:n_w, :dim].to(t.dtype))
+        s["acc"].index_copy_(0, m_live, m_ent[:n_w, dim:].float())
+        t.index_copy_(0, c_live, c_emb[:n_c].to(t.dtype))
+        s["acc"].index_fill_(0, c_live, consts[0][1])
+        return payload
+
+    aux = lambda t, s: ops.cache_aux(t, s, *aux_args, **pairing)  # noqa: E731
+    rows.append(timed(row("cache_aux", "cache_bf16_ls", shape=[C + 1, dim, n_ev, n_w, n_c],
+                          dtype="bf16 pool, bf16 wires", bound_ms=bms, bound_by=by,
+                          library_note="index_select + cat + index_copy_ (+ index_fill_), live rows"),
+                      kernel=(lambda: aux(*pool), aux), beside=(lambda: aux(*f32_pool), aux),
+                      make_copy=pool_of(table), make_beside=pool_of(f32), nbytes=bf_bytes, beside_bytes=f32_bytes,
+                      plain=lambda: cache_aux_reference(*pool, *aux_args, **pairing),
+                      library=(lambda: aux_library(*pool), aux_library), lib_copy=pool_of(table), lib_bytes=bf_bytes))
+    # its read alone: the flush's rows
+    fr = inputs["flush_rows"]
+    fpad = np.zeros(1 << max(3, int(len(fr) - 1).bit_length()), np.int32)
+    fpad[:len(fr)] = fr
+    frows = torch.from_numpy(fpad).to(dev)
+    nbytes = 4 * frows.numel() + frows.numel() * (dim * tb + (E - dim) * 4) + frows.numel() * E * 4
+    bms, by = bound(nbytes, 0, "float32")
+    read = lambda t, s: ops.gather_entry_rows(t, s, frows)  # noqa: E731
+    read_lib = lambda t, s: torch.cat([t.index_select(0, frows).float(), s["acc"].index_select(0, frows)], 1)  # noqa
+    rows.append(timed(row("gather_entry_rows", "cache_bf16_ls", shape=[C + 1, E, frows.numel()],
+                          dtype="bf16 pool", bound_ms=bms, bound_by=by, library_note="index_select + cat"),
+                      kernel=(lambda: read(table, state), read), beside=(lambda: read(f32, state), read),
+                      make_copy=pool_of(table), make_beside=pool_of(f32), nbytes=bf_bytes, beside_bytes=f32_bytes,
+                      plain=lambda: gather_entry_rows_reference(table, state, frows),
+                      library=(lambda: read_lib(table, state), read_lib), lib_copy=pool_of(table),
+                      lib_bytes=bf_bytes))
+    # K13: the step's (26, 4096, 1) rows, with their keys
+    srows = inputs["rows"]
+    S, B, L = srows.shape
+    live = int((srows != C).sum())
+    nbytes = 4 * srows.numel() + live * dim * tb + S * B * dim * 4 + 4 * srows.numel()
+    bms, by = bound(nbytes, live * dim, "float32")
+    gather = lambda t, rr: ops.cached_gather(t, rr, True, keys=True)  # noqa: E731
+    bag = lambda t, rr: F.embedding_bag(rr.view(S * B, L), t, mode="sum", padding_idx=C)  # noqa: E731
+    rows.append(timed(row("cached_gather", "cache_bf16_ls", shape=[S, B, L, C + 1, dim], dtype="bf16 pool",
+                          bound_ms=bms, bound_by=by,
+                          library_note="F.embedding_bag(mode='sum', padding_idx=C) on the bf16 table (its "
+                                       "output bf16)"),
+                      kernel=(lambda: gather(table, srows), gather), beside=(lambda: gather(f32, srows), gather),
+                      make_copy=lambda: (table.clone(), srows.clone()),
+                      make_beside=lambda: (f32.clone(), srows.clone()), nbytes=table.numel() * 2,
+                      beside_bytes=f32.numel() * 4, plain=lambda: cached_gather_reference(table, srows, True, keys=True),
+                      library=(lambda: bag(table, srows), bag), lib_copy=lambda: (table.clone(), srows.clone()),
+                      lib_bytes=table.numel() * 2))
+    # K15 under the gate at the ps-stream's last step
+    g, res0, offsets, inv, fin = k15["g"], k15["res"], k15["offsets"], k15["inv"], k15["finite"]
+    n, segments = g.numel(), len(offsets) - 1
+    res = res0.clone()
+    nbytes = n * (g.element_size() + 4 + 1 + 4) + 8 + 4 * (segments + 2)
+    bms, by = bound(nbytes, 7 * n, "float32")
+    gated = lambda gg, rr: ops.quantize_int8_ef(gg, rr, offsets, inv, fin)  # noqa: E731
+    ungated = lambda gg, rr: ops.quantize_int8_ef(gg, rr, offsets)  # noqa: E731
+    k15_copy = lambda: (g.clone(), res.clone())  # noqa: E731
+    rows.append(timed(row("quantize_int8_ef", "ps_stream_ls", shape=[segments, n // segments, str(g.dtype)[6:]],
+                          dtype="gradients unscaled by inv, gated by finite", bound_ms=bms, bound_by=by,
+                          library_note="no single PyTorch call computes it"),
+                      kernel=(lambda: gated(g, res), gated), beside=(lambda: ungated(g, res), ungated),
+                      make_copy=k15_copy, make_beside=k15_copy, nbytes=n * (g.element_size() + 4),
+                      beside_bytes=n * (g.element_size() + 4),
+                      plain=lambda: quantize_int8_ef_reference(g, res, offsets, inv, fin), library=None, lib_copy=None,
+                      lib_bytes=0))
+    for r in rows:
+        beside = "the f32 pool's" if r["name"] != PREC_NAMES["quantize_int8_ef"] else "the ungated"
+        r["f32_pool_same_inputs_ms" if "pool" in beside else "ungated_same_inputs_ms"] = min(r["beside_ms_runs"])
+        r["f32_pool_same_inputs_cold_ms" if "pool" in beside else "ungated_same_inputs_cold_ms"] = min(
+            r["beside_cold_ms_runs"])
+        print(f"  {r['name']}: warm {r['ms_runs']} ms, cold {r['cold_ms_runs']}; {beside} call at the same inputs in "
+              f"turns: warm {r['beside_ms_runs']}, cold {r['beside_cold_ms_runs']}; plain {r['plain_ms']:.4f}, library "
+              f"{r['library_ms']} (cold {r['library_cold_ms']}), bound {r['bound_ms']:.5f} ms ({r['bound_by']}; "
+              f"{r['cold_share']:.1%} cold, {r['bound_ms'] / r['ms']:.1%} warm), {r['over_launch_floor']:.2f}x the "
+              f"launch floor; launches {r['launches_by_path']}", flush=True)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -6991,7 +7801,8 @@ def main() -> int:
             **phase("3b", phase_fused_kernels, dev)}
     phase("3b (1TB)", phase_fused_1tb_kernels, dev)
     errs.update({**phase("3c", phase_din_kernels, dev), **phase("3d", phase_bn_kernels, dev),
-                 **phase("3e", phase_cache_kernels, dev), **phase("3f", phase_quant_kernels, dev)})
+                 **phase("3e", phase_cache_kernels, dev), **phase("3f", phase_quant_kernels, dev),
+                 **phase("3g", phase_precision_kernels, dev)})
     fa_routes = phase("4a", path_flash_attention, dev)
     serving_launches, serving, feats_shape = phase("4b", path_serving, dev)
     training_launches, training, train_batch = phase("4c", path_training, dev)
@@ -7017,17 +7828,26 @@ def main() -> int:
     time_flash_backward(dev, card)
     seconds["5"] = time.perf_counter() - t5
     print(f"-- 5: {seconds['5']:.1f} s", flush=True)
-    del fused_inputs, cache_inputs, k15, train_batch, din_batch
-    # phases 4l-4n after phase 5's traces: in a run with them before it,
-    # phase 5's traces held no device events; whether a profiler session
-    # records device work before phase 5 and after 4l-4n is printed, not held
+    del fused_inputs, k15, train_batch, din_batch
+    # phases 4o-4p and 4l-4n after phase 5's traces: in a run with either
+    # before it, phase 5's traces held no device events; whether a profiler
+    # session records device work before phase 5, after 4o-4p and after
+    # 4l-4n is printed, not held; 4o-4p's own traces say whether they held
+    # device events. The new variants' rows of phase 5 are timed after 4p,
+    # K12, its read and K13 at the f32 rows' inputs, K15 at 4p's
+    fused_models_launches, fused_models = phase("4o", path_fused_models, dev)
+    prec_launches, prec, prec_k15 = phase("4p", path_precision, dev)
+    rows += phase("5 (precision)", time_precision_kernels, dev, prec_launches, errs, cache_inputs, prec_k15, floor)
+    del cache_inputs, prec_k15
+    profiler_mid = profiler_records_device_work(dev)
+    print(f"  a profiler session after phases 4o-4p records device work: {profiler_mid}", flush=True)
     criteo_launches, criteo = phase("4l", path_criteo, dev)
     h100t_launches, h100t = phase("4m", path_100t, dev)
     quality_launches, quality = phase("4n", path_quality, dev)
     phase("5 (1TB)", time_fused_1tb, dev, rows)
     profiler_after = profiler_records_device_work(dev)
     print(f"  a profiler session after phases 4l-4n records device work: {profiler_after}", flush=True)
-    new_paths = {**criteo_launches, **h100t_launches, **quality_launches}
+    new_paths = {**fused_models_launches, **prec_launches, **criteo_launches, **h100t_launches, **quality_launches}
     launches.update(new_paths)
     # the launches the new paths' counted runs made of each kernel
     for r in rows:
@@ -7045,12 +7865,16 @@ def main() -> int:
     print(json.dumps({"dnn": dnn, "dnn_launches": dnn_launches, "card": card}), flush=True)
     print(json.dumps({"cache": cache, "cache_launches": cache_launches, "card": card}), flush=True)
     print(json.dumps({"mixed": mixed, "mixed_launches": mixed_launches, "card": card}), flush=True)
+    print(json.dumps({"fused_models": fused_models, "fused_models_launches": fused_models_launches, "card": card}),
+          flush=True)
+    print(json.dumps({"precision": prec, "precision_launches": prec_launches, "card": card}), flush=True)
     print(json.dumps({"fanout": fanout, "card": card}), flush=True)
     print(json.dumps({"criteo": criteo, "card": card}), flush=True)
     print(json.dumps({"synthetic_100t": h100t, "card": card}), flush=True)
     print(json.dumps({"quality": quality, "card": card}), flush=True)
     print(json.dumps({"phase_seconds": seconds, "profiler_records_device_work": {
-        "before_phase_5": profiler_before, "after_4l_4n": profiler_after}, "card": card}), flush=True)
+        "before_phase_5": profiler_before, "after_4o_4p": profiler_mid, "after_4l_4n": profiler_after},
+        "card": card}), flush=True)
 
     # one entry per kernel (each flash-attention route by its non-causal
     # row); times graph-replayed, eager beside them
@@ -7061,7 +7885,8 @@ def main() -> int:
             "composite_ms", "registers", "over_launch_floor", "no_keys_ms", "no_keys_cold_ms", "routing_cost_ms",
             "c32_ms", "eval_256_ms", "ring_ms", "also_replaces", "note", "restores_ms", "no_restores_ms",
             "unfolded_pair_ms", "restores_bound_ms", "launches_by_path", "composite_kernels", "composite_bitwise",
-            "plan", "ms_over_floor", "cold_ms_over_floor", "at_1tb")
+            "plan", "ms_over_floor", "cold_ms_over_floor", "at_1tb", "f32_pool_same_inputs_ms",
+            "f32_pool_same_inputs_cold_ms", "ungated_same_inputs_ms", "ungated_same_inputs_cold_ms")
     kernels = [{k: r.get(k) for k in keys} for r in rows if not r.get("causal")]
     print(json.dumps({"kernels": kernels, "launch_floor_ms": floor, "card": card}), flush=True)
     print(card, flush=True)

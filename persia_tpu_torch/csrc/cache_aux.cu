@@ -2,12 +2,16 @@
 // warm entries, cold seeds and in-flight restores, a step; and its payload
 // read alone, the flush's and publish's read (entry_rows_kernel).
 //
-// Input: the group's table T (R = C+1 rows, dim) f32 and its optimizer
-// state columns, at most two (s0: Adagrad acc (R, w0) or Adam m (R, dim);
-// s1: Adam v (R, dim)), which an entry [emb | s0 | s1] (E = dim + w0 + w1
-// floats) lays out in that order.
+// Input: the group's table T (R = C+1 rows, dim) f32 or bf16 (the pool's
+// dtype) and its f32 optimizer state columns, at most two (s0: Adagrad
+// acc (R, w0) or Adam m (R, dim); s1: Adam v (R, dim)), which an entry
+// [emb | s0 | s1] (E = dim + w0 + w1 floats) lays out in that order. A
+// bf16 table's row is widened to f32 where it is read and every value
+// written to it rounded to bf16 (to nearest, ties to even), as the
+// reference's .astype(table.dtype) rounds.
 //  (a) payload[k, :] = entry of row clamp(ev_rows[k], 0, R - 1), f32 or
-//      rounded to bf16 (to nearest, ties to even), read before any write;
+//      rounded to bf16 (to nearest, ties to even), read before any write
+//      (a bf16 table's row widened and rounded back: its bits unchanged);
 //      with ring_store, stored a second time at ring[start + k, :], start =
 //      ring_pos (+ ring_rows where negative) clamped into
 //      [0, ring_rows - n_ev], as lax.dynamic_update_slice places it;
@@ -26,6 +30,8 @@
 // steps' spans); the plain version checks it on CPU tensors.
 //
 // Replaces: persia_tpu/embedding/hbm_cache/groups.py:260-293 (_apply_aux),
+// with the table's dtype from :126-138 (init_cached_tables) and the casts of
+// :225-236 (_scatter_entry_block) and :287 (the cold seeds),
 // :296-314 (_apply_aux_ring: the ring), :250-256 (_restore_rows, through
 // _scatter_entry_block :225-236: (d)) and :240-248 (_gather_entry_rows,
 // (a) alone in f32), XLA gathers and scatters; no Pallas kernel.
@@ -100,7 +106,9 @@ struct CacheAuxArgs {
   int n_free;
 };
 
-template <int V>
+// TB: the table is bf16 (a template argument, so the f32 pool's code has
+// no branch on it)
+template <int V, bool TB>
 __global__ void __launch_bounds__(kThreads) cache_aux_kernel(const CacheAuxArgs a) {
   const int t = blockIdx.x * kThreads + threadIdx.x;  // the entry point keeps items * units < 2^31
   const int item = t / a.units;
@@ -144,18 +152,29 @@ __global__ void __launch_bounds__(kThreads) cache_aux_kernel(const CacheAuxArgs 
     write = false;
   }
   if (r < 0 || r >= a.pool.rows) return;  // a dropped write (a pad)
-  float* dst = entry_at(a.pool, r, col);
+  // an f32 pool: one address for the read and the write, taken before
+  // either
+  float* const dst = TB ? nullptr : entry_at(a.pool, r, col);
   if (slot >= 0) {  // the row's old contents first, in this thread
     float old[V];
-    load_f32<V>(dst, old);
+    if constexpr (TB) {
+      load_entry<V, true>(a.pool, r, col, old);
+    } else {
+      load_f32<V>(dst, old);
+    }
     const long long off = static_cast<long long>(slot) * E + col;
     store_wire<V>(a.payload, a.payload_bf16, off, old);
     if (a.ring_store) store_wire<V>(a.ring, a.payload_bf16, a.ring_start * E + off, old);
   }
-  if (write) store_f32<V>(dst, fresh);
+  if (!write) return;
+  if constexpr (TB) {
+    store_entry<V, true>(a.pool, r, col, fresh);
+  } else {
+    store_f32<V>(dst, fresh);
+  }
 }
 
-template <int V>
+template <int V, bool TB>
 __global__ void __launch_bounds__(kThreads)
     entry_rows_kernel(const Pool p, int units, const int32_t* __restrict__ rows, int n, float* __restrict__ out) {
   const int t = blockIdx.x * kThreads + threadIdx.x;  // the entry point keeps n * units < 2^31
@@ -165,11 +184,32 @@ __global__ void __launch_bounds__(kThreads)
   long long r = rows[k];
   r = r < 0 ? 0 : (r >= p.rows ? p.rows - 1 : r);
   float x[V];
-  load_f32<V>(entry_at(p, r, col), x);
+  load_entry<V, TB>(p, r, col, x);
   store_f32<V>(out + static_cast<long long>(k) * (p.dim + p.w0 + p.w1) + col, x);
 }
 
 unsigned grid_of(long long items) { return static_cast<unsigned>((items + kThreads - 1) / kThreads); }
+
+template <bool TB>
+void launch_aux(int vec, long long items, const CacheAuxArgs& a, cudaStream_t st) {
+  if (vec == 8) {
+    cache_aux_kernel<8, TB><<<grid_of(items), kThreads, 0, st>>>(a);
+  } else if (vec == 4) {
+    cache_aux_kernel<4, TB><<<grid_of(items), kThreads, 0, st>>>(a);
+  } else {
+    cache_aux_kernel<1, TB><<<grid_of(items), kThreads, 0, st>>>(a);
+  }
+}
+
+template <bool TB>
+void launch_entry_rows(int vec, long long items, const Pool& p, int units, const int32_t* rows, int n, float* out,
+                       cudaStream_t st) {
+  if (vec == 4) {
+    entry_rows_kernel<4, TB><<<grid_of(items), kThreads, 0, st>>>(p, units, rows, n, out);
+  } else {
+    entry_rows_kernel<1, TB><<<grid_of(items), kThreads, 0, st>>>(p, units, rows, n, out);
+  }
+}
 
 }  // namespace
 
@@ -181,7 +221,8 @@ unsigned grid_of(long long items) { return static_cast<unsigned>((items + kThrea
 // dtype, or null: read by the restores, and with ring_store written by
 // (a). A piece with no rows may pass null. vec: columns a thread (1, 4 or
 // 8). One launch, none when every piece is empty.
-extern "C" int persia_cache_aux(float* table, long long rows, int dim, float* s0, int w0, float* s1, int w1, int vec,
+extern "C" int persia_cache_aux(void* table, int table_dtype, long long rows, int dim, float* s0, int w0, float* s1,
+                                int w1, int vec,
                                 const int32_t* ev_rows, int n_ev, void* payload, int payload_dtype,
                                 const int32_t* m_rows, const int32_t* m_slot, int n_m, const void* m_entries,
                                 int m_dtype, const int32_t* c_rows, const int32_t* c_slot, int n_c, const void* c_emb,
@@ -189,7 +230,10 @@ extern "C" int persia_cache_aux(float* table, long long rows, int dim, float* s0
                                 const int32_t* r_slot, int n_r, const int32_t* ev_free, int n_free, void* ring,
                                 long long ring_rows, int ring_store, long long ring_pos, void* stream) {
   const Pool pool{table, s0, s1, rows, dim, w0, w1};
-  if (!pool_ok(pool, vec) || n_ev < 0 || n_m < 0 || n_c < 0 || n_r < 0 || n_free < 0) return cudaErrorInvalidValue;
+  if ((table_dtype != persia::kFloat32 && table_dtype != persia::kBFloat16) || !pool_ok(pool, vec) || n_ev < 0 ||
+      n_m < 0 || n_c < 0 || n_r < 0 || n_free < 0) {
+    return cudaErrorInvalidValue;
+  }
   const auto dtype_ok = [](int d) { return d == persia::kFloat32 || d == persia::kBFloat16; };
   const auto vec_ok = [vec](const void* p) { return vec == 1 || aligned16(p); };
   if ((n_ev > 0 && (ev_rows == nullptr || payload == nullptr || !dtype_ok(payload_dtype) || !vec_ok(payload))) ||
@@ -241,23 +285,22 @@ extern "C" int persia_cache_aux(float* table, long long rows, int dim, float* s0
   a.ev_free = ev_free;
   a.n_free = n_free;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec == 8) {
-    cache_aux_kernel<8><<<grid_of(items), kThreads, 0, st>>>(a);
-  } else if (vec == 4) {
-    cache_aux_kernel<4><<<grid_of(items), kThreads, 0, st>>>(a);
+  if (table_dtype == persia::kBFloat16) {
+    launch_aux<true>(vec, items, a, st);
   } else {
-    cache_aux_kernel<1><<<grid_of(items), kThreads, 0, st>>>(a);
+    launch_aux<false>(vec, items, a, st);
   }
   return cudaGetLastError();
 }
 
-// out: (n, E) f32, the entries of rows (each clamped into [0, rows)); vec
-// 4 or 1. One launch, none for n = 0.
-extern "C" int persia_entry_rows(const float* table, long long rows, int dim, const float* s0, int w0,
+// out: (n, E) f32, the entries of rows (each clamped into [0, rows)), a
+// bf16 table's columns widened; vec 4 or 1. One launch, none for n = 0.
+extern "C" int persia_entry_rows(const void* table, int table_dtype, long long rows, int dim, const float* s0, int w0,
                                  const float* s1, int w1, int vec, const int32_t* row_ids, int n, float* out,
                                  void* stream) {
-  const Pool pool{const_cast<float*>(table), const_cast<float*>(s0), const_cast<float*>(s1), rows, dim, w0, w1};
-  if (!pool_ok(pool, vec) || vec == 8 || n < 0 || (n > 0 && (row_ids == nullptr || out == nullptr)) ||
+  const Pool pool{const_cast<void*>(table), const_cast<float*>(s0), const_cast<float*>(s1), rows, dim, w0, w1};
+  if ((table_dtype != persia::kFloat32 && table_dtype != persia::kBFloat16) || !pool_ok(pool, vec) || vec == 8 ||
+      n < 0 || (n > 0 && (row_ids == nullptr || out == nullptr)) ||
       (vec > 1 && !aligned16(out))) {
     return cudaErrorInvalidValue;
   }
@@ -266,10 +309,10 @@ extern "C" int persia_entry_rows(const float* table, long long rows, int dim, co
   if (items + kThreads > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (items == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec == 4) {
-    entry_rows_kernel<4><<<grid_of(items), kThreads, 0, st>>>(pool, units, row_ids, n, out);
+  if (table_dtype == persia::kBFloat16) {
+    launch_entry_rows<true>(vec, items, pool, units, row_ids, n, out, st);
   } else {
-    entry_rows_kernel<1><<<grid_of(items), kThreads, 0, st>>>(pool, units, row_ids, n, out);
+    launch_entry_rows<false>(vec, items, pool, units, row_ids, n, out, st);
   }
   return cudaGetLastError();
 }

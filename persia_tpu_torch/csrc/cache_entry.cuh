@@ -1,7 +1,8 @@
-// The cache tier's entry helpers (K12, cache_aux.cu): a group's pool (its
-// table and at most two optimizer state arrays, whose columns an entry
-// [emb | s0 | s1] lays out in that order), vector loads and stores of f32
-// and of a bf16 wire, and the pool's checks.
+// The cache tier's entry helpers (K12, cache_aux.cu; K13, cached_gather.cu):
+// a group's pool (its table, f32 or bf16, and at most two f32 optimizer
+// state arrays, whose columns an entry [emb | s0 | s1] lays out in that
+// order), vector loads and stores of f32 and of a bf16 wire or table, and
+// the pool's checks.
 #pragma once
 
 #include <cstdint>
@@ -12,20 +13,25 @@
 namespace persia_cache {
 
 struct Pool {
-  float* table;
+  void* table;  // f32, or bf16 (the kernels' TB template argument)
   float* s0;
   float* s1;
   long long rows;
   int dim, w0, w1;
 };
 
-// the first float of an entry's column `col` of row r (a vector never
+// the first float of a state column `col` (>= dim) of row r (a vector never
 // straddles two arrays: vec divides dim, w0 and w1)
-__device__ __forceinline__ float* entry_at(const Pool& p, long long r, int col) {
-  if (col < p.dim) return p.table + r * p.dim + col;
+__device__ __forceinline__ float* state_at(const Pool& p, long long r, int col) {
   col -= p.dim;
   if (col < p.w0) return p.s0 + r * p.w0 + col;
   return p.s1 + r * p.w1 + (col - p.w0);
+}
+
+// the first float of an entry's column `col` of row r in an f32 pool
+__device__ __forceinline__ float* entry_at(const Pool& p, long long r, int col) {
+  if (col < p.dim) return static_cast<float*>(p.table) + r * p.dim + col;
+  return state_at(p, r, col);
 }
 
 template <int V>
@@ -112,6 +118,32 @@ __device__ __forceinline__ void store_wire(void* base, bool bf16, long long off,
   } else {
 #pragma unroll
     for (int i = 0; i < V; ++i) p[i] = __float2bfloat16_rn(x[i]);
+  }
+}
+
+// V floats of an entry's columns [col, col + V) of row r, a bf16 table's
+// (TB) widened
+template <int V, bool TB>
+__device__ __forceinline__ void load_entry(const Pool& p, long long r, int col, float (&x)[V]) {
+  if constexpr (!TB) {
+    load_f32<V>(entry_at(p, r, col), x);
+  } else if (col < p.dim) {
+    load_wire<V>(p.table, TB, r * p.dim + col, x);
+  } else {
+    load_f32<V>(state_at(p, r, col), x);
+  }
+}
+
+// V floats to an entry's columns [col, col + V) of row r, rounded to a
+// bf16 table's (TB) dtype (to nearest, ties to even)
+template <int V, bool TB>
+__device__ __forceinline__ void store_entry(const Pool& p, long long r, int col, const float (&x)[V]) {
+  if constexpr (!TB) {
+    store_f32<V>(entry_at(p, r, col), x);
+  } else if (col < p.dim) {
+    store_wire<V>(p.table, TB, r * p.dim + col, x);
+  } else {
+    store_f32<V>(state_at(p, r, col), x);
   }
 }
 

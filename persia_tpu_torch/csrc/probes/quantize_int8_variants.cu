@@ -135,7 +135,7 @@ __global__ void __launch_bounds__(kMaxQuantThreads)
 #pragma unroll
   for (int j = 0; j < kUnits; ++j) {
     if (j < units && tid + j * threads < held) {
-      raw[j].sum(v[j]);
+      raw[j].sum(v[j], 1.0f);
 #pragma unroll
       for (int k = 0; k < VEC; ++k) m = abs_max(m, fabsf(v[j][k]));
     }
@@ -281,7 +281,7 @@ __global__ void __launch_bounds__(kMaxQuantThreads)
 #pragma unroll
     for (int j = 0; j < U; ++j) {
       if (tid + j * threads < held[p]) {
-        raw[p][j].sum(v[j]);
+        raw[p][j].sum(v[j], 1.0f);
 #pragma unroll
         for (int k = 0; k < VEC; ++k) m = abs_max(m, fabsf(v[j][k]));
       }
@@ -402,8 +402,8 @@ int main() {
   };
   for (const Geometry& geo : sweep) {
     auto launch = [&](int c) {
-      return persia_quantize_int8_ef(buf.g[c], persia::kBFloat16, buf.r[c], offsets, kSegs, buf.q[c], buf.scales,
-                                     buf.r[c], 8, geo.threads, geo.units, geo.cluster, st);
+      return persia_quantize_int8_ef(buf.g[c], persia::kBFloat16, buf.r[c], offsets, kSegs, nullptr, nullptr,
+                                     buf.q[c], buf.scales, buf.r[c], 8, geo.threads, geo.units, geo.cluster, st);
     };
     report("kernel", geo, graph_ms(launch, false, st), graph_ms(launch, true, st));
   }

@@ -4,8 +4,10 @@
 //
 // Input: the step's PS gradients g, flat (n,) f32 or bf16, the segments'
 // offsets (S+1 ascending int32, off[0] = 0, off[S] = n; a segment may be
-// empty) and the carried residual r (n,) f32. For each segment s:
-//   v        = g + r                                (f32)
+// empty), the carried residual r (n,) f32 and, under the dynamic loss
+// scale, two f32 scalars in device memory: inv (1 / the loss scale on a
+// finite step, 0 on an overflow) and finite (1 or 0). For each segment s:
+//   v        = g * inv + r                          (f32; inv = 1 without)
 //   scale[s] = max(max |v|, 1e-30)                  (NaN if some v is NaN)
 //   q        = clip(rint(v / scale * 127), -127, 127) as int8
 //   r'       = v - q * (scale / 127)                (the new residual)
@@ -13,15 +15,21 @@
 // __fsub_rn): nvcc's default -fmad=true would contract r' into an FMA and
 // part from the plain version in the last bit. The quotient v / scale is
 // the correctly rounded one wherever it decides the code (see divide()).
-// rintf rounds half to even, as torch.round and jnp.round do. A NaN
+// g * inv is exact (inv is a power of two) and rounded on its own. rintf
+// rounds half to even, as torch.round and jnp.round do. A NaN
 // passes the clip, as torch.clamp lets it, and its code is 0, as
 // PyTorch's cast makes it. A maximum is exact in any order, so the scale
 // does not depend on how the segment is split. r' is written over r in
-// place: each element is read and rewritten by one thread.
+// place: each element is read and rewritten by one thread. With `finite`,
+// scales[S] = finite (the tail the host reads); on an overflow step
+// (finite 0) every code is 0, every scale 0 and the residual is left as it
+// was (the host drops the step's gradients).
 //
 // Replaces: persia_tpu/parallel/grad_sync.py:244-260 (quantize_int8_ef) as
-// persia_tpu/embedding/hbm_cache/step.py:361-400 calls it, a slot at a
-// time: XLA ops, no Pallas kernel.
+// persia_tpu/embedding/hbm_cache/step.py:361-415 calls it, a slot at a
+// time, with the unscale f * inv and the finite gate (the codes and the
+// residual selected, the finite flag appended to the scales): XLA ops, no
+// Pallas kernel.
 //
 // Bound on the H100: bytes. g and r are read once and q and r' written
 // once, 11 bytes an element at bf16; a few operations an element. At the
@@ -111,7 +119,7 @@ struct Unit {
     r[0] = reinterpret_cast<const float4*>(rp)[0];  // r is rewritten in place: no read-only path
     r[1] = reinterpret_cast<const float4*>(rp)[1];
   }
-  __device__ __forceinline__ void sum(float (&v)[VEC]) const {
+  __device__ __forceinline__ void sum(float (&v)[VEC], float iv) const {
     float gv[8], rv[8];
     if constexpr (kG == 1) {
       widen(g[0], gv);  // 8 bf16
@@ -129,7 +137,7 @@ struct Unit {
       rv[k + 4] = r1[k];
     }
 #pragma unroll
-    for (int k = 0; k < 8; ++k) v[k] = __fadd_rn(gv[k], rv[k]);
+    for (int k = 0; k < 8; ++k) v[k] = __fadd_rn(__fmul_rn(gv[k], iv), rv[k]);
   }
 };
 
@@ -142,7 +150,9 @@ struct Unit<T, 1> {
     g = *gp;
     r = *rp;
   }
-  __device__ __forceinline__ void sum(float (&v)[1]) const { v[0] = __fadd_rn(persia::to_f32(g), r); }
+  __device__ __forceinline__ void sum(float (&v)[1], float iv) const {
+    v[0] = __fadd_rn(__fmul_rn(persia::to_f32(g), iv), r);
+  }
 };
 
 struct Scale {
@@ -211,6 +221,16 @@ __device__ __forceinline__ void store_unit(const float (&v)[VEC], const Scale& s
   }
 }
 
+// a unit's codes all 0 (an overflow step), the residual not written
+template <int VEC>
+__device__ __forceinline__ void zero_unit(int8_t* qp) {
+  if constexpr (VEC == 8) {
+    *reinterpret_cast<uint2*>(qp) = make_uint2(0u, 0u);
+  } else {
+    *qp = 0;
+  }
+}
+
 // store_unit under the scale's own division
 template <int VEC>
 __device__ __forceinline__ void store_unit_any(const float (&v)[VEC], const Scale& sc, int8_t* qp, float* rp) {
@@ -271,6 +291,7 @@ __device__ __forceinline__ float cluster_abs_max(float m, unsigned* slots, int r
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kMaxQuantThreads)
     quantize_int8_ef_kernel(const T* __restrict__ g, const float* r, QuantSegments segs, int units,
+                            const float* __restrict__ inv, const float* __restrict__ finite,
                             int8_t* __restrict__ q, float* __restrict__ scales, float* r_out) {
   constexpr int kUnits = VEC == 8 ? kMaxUnitsWide : kMaxUnitsScalar;
   __shared__ float warp_max[kMaxQuantWarps];
@@ -281,6 +302,9 @@ __global__ void __launch_bounds__(kMaxQuantThreads)
     if (tid < kMaxQuantCluster) slots[tid] = kEmptySlot;
     cluster_arrive();
   }
+  // the loss scale's unscale and gate (none: 1 and finite)
+  const float iv = inv != nullptr ? __ldg(inv) : 1.0f;
+  const bool ok = finite == nullptr || __ldg(finite) > 0.5f;
   const int begin = segs.off[s], end = segs.off[s + 1];
   const int head = min(end - begin, (VEC - begin % VEC) % VEC);  // scalar elements before the first unit
   const int body = begin + head;
@@ -316,6 +340,22 @@ __global__ void __launch_bounds__(kMaxQuantThreads)
     edge_r = r[edge];
   }
 
+  if (!ok) {  // an overflow step: zero codes, zero scales, the residual kept
+    if (blocks > 1) cluster_wait();  // the arrive above is matched
+#pragma unroll
+    for (int j = 0; j < kUnits; ++j) {
+      const int u = tid + j * threads;
+      if (j < units && u < held) zero_unit<VEC>(q + body + (u0 + u) * VEC);
+    }
+    if (edge >= 0) q[edge] = 0;
+    for (int u = held + tid; u < u1 - u0; u += threads) zero_unit<VEC>(q + body + (u0 + u) * VEC);
+    if (rank == 0 && tid == 0) {
+      scales[s] = 0.0f;
+      if (s == 0) scales[gridDim.x] = 0.0f;
+    }
+    return;
+  }
+
   // the maximum: the span's rest past the registers (read here once for
   // it), the held units, the edge element
   float m = 0.0f;
@@ -324,7 +364,7 @@ __global__ void __launch_bounds__(kMaxQuantThreads)
     Unit<T, VEC> x;
     x.load(g + i, r + i);
     float v[VEC];
-    x.sum(v);
+    x.sum(v, iv);
 #pragma unroll
     for (int k = 0; k < VEC; ++k) m = abs_max(m, fabsf(v[k]));
   }
@@ -332,12 +372,12 @@ __global__ void __launch_bounds__(kMaxQuantThreads)
 #pragma unroll
   for (int j = 0; j < kUnits; ++j) {
     if (j < units && tid + j * threads < held) {
-      raw[j].sum(v[j]);
+      raw[j].sum(v[j], iv);
 #pragma unroll
       for (int k = 0; k < VEC; ++k) m = abs_max(m, fabsf(v[j][k]));
     }
   }
-  const float ev = __fadd_rn(persia::to_f32(edge_g), edge_r);
+  const float ev = __fadd_rn(__fmul_rn(persia::to_f32(edge_g), iv), edge_r);
   if (edge >= 0) m = abs_max(m, fabsf(ev));
 
   // the block's maximum (warp shuffles, then the warps in shared memory),
@@ -349,7 +389,10 @@ __global__ void __launch_bounds__(kMaxQuantThreads)
   for (int w = 1; w < (threads >> 5); ++w) m = abs_max(m, warp_max[w]);
   if (blocks > 1) m = cluster_abs_max(m, slots, rank, blocks);
   const Scale sc = make_scale(m);
-  if (rank == 0 && tid == 0) scales[s] = sc.scale;
+  if (rank == 0 && tid == 0) {
+    scales[s] = sc.scale;
+    if (finite != nullptr && s == 0) scales[gridDim.x] = 1.0f;  // the finite tail
+  }
 
   // the codes and the residual: the held units from registers, the edge
   // element, then the span's rest read a second time
@@ -367,7 +410,7 @@ __global__ void __launch_bounds__(kMaxQuantThreads)
     Unit<T, VEC> x;
     x.load(g + i, r + i);
     float w[VEC];
-    x.sum(w);
+    x.sum(w, iv);
     store_unit_any<VEC>(w, sc, q + i, r_out + i);
   }
 }
@@ -391,12 +434,13 @@ int check_plan(int vec, int threads, int units, int cluster, const void* g, cons
 }  // namespace
 
 // g (n,) f32 or bf16 (dtype: persia::DType); offsets: host (segments + 1,)
-// int32, ascending from 0 to n; r, r_out (n,) f32 (r_out may be r); q (n,)
-// int8; scales (segments,) f32; vec, threads, units, cluster: the plan.
-// Returns a CUDA error code.
+// int32, ascending from 0 to n; r, r_out (n,) f32 (r_out may be r); inv
+// and finite: both null, or device f32 scalars (the loss scale's); q (n,)
+// int8; scales (segments,) f32, (segments + 1,) with finite; vec,
+// threads, units, cluster: the plan. Returns a CUDA error code.
 extern "C" int persia_quantize_int8_ef(const void* g, int dtype, const float* r, const int* offsets, int segments,
-                                       int8_t* q, float* scales, float* r_out, int vec, int threads, int units,
-                                       int cluster, void* stream) {
+                                       const float* inv, const float* finite, int8_t* q, float* scales,
+                                       float* r_out, int vec, int threads, int units, int cluster, void* stream) {
   if (segments < 0 || segments > kMaxQuantSegments || offsets == nullptr || offsets[0] != 0 ||
       (dtype != persia::kFloat32 && dtype != persia::kBFloat16)) {
     return cudaErrorInvalidValue;
@@ -410,13 +454,13 @@ extern "C" int persia_quantize_int8_ef(const void* g, int dtype, const float* r,
   if (offsets[segments] > 0 && (g == nullptr || r == nullptr || q == nullptr || r_out == nullptr)) {
     return cudaErrorInvalidValue;
   }
-  if (scales == nullptr) return cudaErrorInvalidValue;
+  if (scales == nullptr || (inv == nullptr) != (finite == nullptr)) return cudaErrorInvalidValue;
   int rc = check_plan(vec, threads, units, cluster, g, r, q, r_out);
   if (rc != cudaSuccess) return rc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PERSIA_QUANT(T, V)                                                                                    \
   rc = launch_clusters(quantize_int8_ef_kernel<T, V>, segments, cluster, threads, st, static_cast<const T*>(g), \
-                       r, segs, units, q, scales, r_out)
+                       r, segs, units, inv, finite, q, scales, r_out)
   if (dtype == persia::kFloat32) {
     if (vec == 8) PERSIA_QUANT(float, 8); else PERSIA_QUANT(float, 1);
   } else {

@@ -53,9 +53,18 @@ job state an apply carries the step's journal id, and a resume refuses a
 manifest written under another PS slot set (moving slots between the
 tiers is not part of the port).
 
-Not in this slice (their arguments raise): a device mesh, a dynamic loss
-scale, the health probe and its scrub at a fence, tiering and the sharded
-feeder.
+**Precision** (the reference's ``table_dtype`` and
+``dynamic_loss_scale``). ``table_dtype=torch.bfloat16`` keeps the pools in
+bf16 (K12, K13 and the flush read widen a row to f32 where they read it
+and round what they write; K5 updates the bf16 rows). The dynamic loss
+scale lives on the card (``CachedTrainState.loss_scale``); a step's
+metrics add ``loss_scale`` (the scale it used) and ``grads_finite``, and
+an overflow step's PS-tier gradients are dropped on every wire
+(``_apply_ps_grads`` reads the buffer's tail, after the step, on the
+host), so nothing waits on the flag before the next step is enqueued.
+
+Not in this port (their arguments raise): a device mesh, the health probe
+and its scrub at a fence, tiering and the sharded feeder.
 """
 
 from __future__ import annotations
@@ -80,12 +89,22 @@ from persia_tpu_torch.embedding.hbm_cache.groups import (
     _state_init_consts,
     init_cached_tables,
 )
-from persia_tpu_torch.embedding.hbm_cache.step import PS_GRAD_WIRES, build_cached_eval_step, build_cached_train_step
+from persia_tpu_torch.embedding.hbm_cache.step import (
+    PS_GRAD_WIRES,
+    build_cached_eval_step,
+    build_cached_train_step,
+    init_loss_scale,
+)
 from persia_tpu_torch.embedding.hbm_cache.tier import CachedEmbeddingTier
 from persia_tpu_torch.embedding.optim import OPTIMIZER_ADAM
 from persia_tpu_torch.parallel.fused_step import prepare_dense_optimizer
 from persia_tpu_torch.parallel.grad_sync import dequantize_int8_np
-from persia_tpu_torch.parallel.train_step import default_loss_fn, unpack_step_grads, unpack_step_header
+from persia_tpu_torch.parallel.train_step import (
+    default_loss_fn,
+    unpack_step_grads,
+    unpack_step_header,
+    unpack_step_header_dynamic,
+)
 from persia_tpu_torch.weights import cached_state_from_flax_bytes, cached_state_to_flax_bytes
 from persia_tpu_torch.wire import tensor_to_host_f32
 
@@ -129,7 +148,10 @@ class CachedTrainCtx:
     (``ring_rows``), which the stream's in-flight evictions fill.
     ``ps_slots``: slots served by the parameter-server tier besides the
     hash-stacked ones; ``ps_wire_dtype`` (float32, bfloat16 or int8) the
-    dtype of their gradients' way to the host."""
+    dtype of their gradients' way to the host. ``table_dtype``: the pools'
+    dtype (``torch.float32`` or ``torch.bfloat16``). ``dynamic_loss_scale``
+    with ``loss_scale_init``, ``loss_scale_growth_interval`` and
+    ``loss_scale_max``: the card's loss scale (the module's docstring)."""
 
     def __init__(
         self,
@@ -140,6 +162,7 @@ class CachedTrainCtx:
         embedding_config: EmbeddingConfig,
         cache_rows=1 << 20,
         loss_fn=None,
+        table_dtype=torch.float32,
         init_seed: Optional[int] = None,
         wb_wire_dtype: str = "float32",
         admit_touches: int = 1,
@@ -149,6 +172,9 @@ class CachedTrainCtx:
         ps_slots=(),
         ps_wire_dtype: str = "float32",
         dynamic_loss_scale: bool = False,
+        loss_scale_init: float = float(2 ** 15),
+        loss_scale_growth_interval: int = 2000,
+        loss_scale_max: float = float(2 ** 24),
         health_probe: Optional[bool] = None,
         health_clip_norm: Optional[float] = None,
         feed_threads: Optional[int] = None,
@@ -156,7 +182,7 @@ class CachedTrainCtx:
         wb_ring_rows: int = 1 << 20,
     ):
         unsupported = {
-            "mesh": mesh is not None, "dynamic_loss_scale": dynamic_loss_scale, "health_probe": bool(health_probe),
+            "mesh": mesh is not None, "health_probe": bool(health_probe),
             "health_clip_norm": health_clip_norm is not None,
             "feed_threads": feed_threads not in (None, 1), "feed_shards": feed_shards is not None,
         }
@@ -167,6 +193,11 @@ class CachedTrainCtx:
             raise ValueError(f"wb_wire_dtype must be one of {WB_WIRE_DTYPES}, got {wb_wire_dtype!r}")
         if ps_wire_dtype not in PS_GRAD_WIRES:
             raise ValueError(f"ps_wire_dtype must be one of {PS_GRAD_WIRES}, got {ps_wire_dtype!r}")
+        if table_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"table_dtype must be torch.float32 or torch.bfloat16, got {table_dtype!r}")
+        self.table_dtype = table_dtype
+        self.dynamic_loss_scale = bool(dynamic_loss_scale)
+        self._loss_scale_init = float(loss_scale_init)
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.dense_optimizer = dense_optimizer
@@ -184,7 +215,9 @@ class CachedTrainCtx:
                                             for s in g.slots}))
         self._state_consts = _state_init_consts(self.sparse_cfg)
         self._step = build_cached_train_step(model, dense_optimizer, self.sparse_cfg, self.tier.groups,
-                                             loss_fn=loss_fn or default_loss_fn, ps_grad_wire=ps_wire_dtype)
+                                             loss_fn=loss_fn or default_loss_fn, ps_grad_wire=ps_wire_dtype,
+                                             dynamic_loss_scale=self.dynamic_loss_scale,
+                                             growth_interval=loss_scale_growth_interval, max_scale=loss_scale_max)
         # the PS slots' entries cross to the card in bf16 for the bf16 and
         # int8 gradient wires; the int8 wire's residual a flat length
         self._ps_int8 = ps_wire_dtype == "int8"
@@ -229,13 +262,16 @@ class CachedTrainCtx:
         return False
 
     def init_state(self) -> CachedTrainState:
-        """Zeroed pools on the card and the model as it is; a deferred
-        resume's bytes (the state at a fence: cold pools) overlaid."""
-        tables, emb_state = init_cached_tables(self.tier.groups, self.sparse_cfg, device=self.device)
+        """Zeroed pools on the card in ``table_dtype`` and the model as it
+        is, the loss scale at ``loss_scale_init``; a deferred resume's bytes
+        (the state at a fence: cold pools) overlaid."""
+        tables, emb_state = init_cached_tables(self.tier.groups, self.sparse_cfg, device=self.device,
+                                               dtype=self.table_dtype)
         self.state = CachedTrainState(
             model=self.model, optimizer=self.dense_optimizer, tables=tables, emb_state=emb_state,
             emb_batch_state=torch.ones(2, dtype=torch.float32, device=self.device),
             step=torch.zeros((), dtype=torch.int32, device=self.device),
+            loss_scale=init_loss_scale(self._loss_scale_init, self.device) if self.dynamic_loss_scale else None,
         )
         if self._resume_state_bytes is not None:
             cached_state_from_flax_bytes(self.state, self._resume_state_bytes)
@@ -421,20 +457,37 @@ class CachedTrainCtx:
         """Return a step's PS-tier gradients to the worker from their host
         copy (``_ps_host``'s form; the int8 codes dequantized a slot by its
         scale), padding rows sliced off; under a job state with the step's
-        journal id. The ref is released by the update, or aborted on
+        journal id. Under the dynamic loss scale the buffer's tail decides:
+        an overflow step's gradients are dropped (the ref aborted), a finite
+        one's f32 or bf16 gradients are divided by the scale the tail
+        carries (the worker's ``scale_factor``; int8 ones were unscaled on
+        the card). The ref is released by the update, or aborted on
         failure."""
         ref, embs, counts, entries = ps_item
         try:
+            scale_factor = 1.0
             if isinstance(host, tuple):
                 q, scales = host
+                if self.dynamic_loss_scale:
+                    if not scales[-1] > 0.5:  # an overflow step: skipped
+                        self.worker.abort_gradient(ref)
+                        return
+                    scales = scales[:-1]
                 grads = [dequantize_int8_np(g, s) for g, s in zip(unpack_step_grads(q, {"emb": entries}), scales)]
             else:
-                grads = unpack_step_grads(np.asarray(host, dtype=np.float32), {"emb": entries})
+                gp = np.asarray(host, dtype=np.float32)
+                if self.dynamic_loss_scale:
+                    if not gp[-1] > 0.5:  # an overflow step: skipped
+                        self.worker.abort_gradient(ref)
+                        return
+                    scale_factor = float(gp[-2])
+                    gp = gp[:-2]
+                grads = unpack_step_grads(gp, {"emb": entries})
             slot_grads = {eb.name: (g if d is None else g[:d]) for eb, g, d in zip(embs, grads, counts)}
             jid = None
             if journal_step is not None and self._job_epoch is not None:
                 jid = jobstate.make_journal_id(self._job_epoch, journal_step)
-            self.worker.update_gradient_batched(ref, slot_grads, journal_id=jid)
+            self.worker.update_gradient_batched(ref, slot_grads, scale_factor=scale_factor, journal_id=jid)
         except BaseException:
             self.worker.abort_gradient(ref)
             raise
@@ -508,11 +561,16 @@ class CachedTrainCtx:
             self._pending = None
             self._pending_signs = set()
 
-    @staticmethod
-    def _parse_header(h: np.ndarray, label_shape) -> Dict:
-        """The step header's host view: {"loss", "preds"} (the layout's one
-        decoder is ``parallel.train_step.unpack_step_header``)."""
-        loss, preds = unpack_step_header(h, {"labels": [SimpleNamespace(shape=label_shape)]})
+    def _parse_header(self, h: np.ndarray, label_shape) -> Dict:
+        """The step header's host view: {"loss", "preds"}, and under the
+        dynamic loss scale "loss_scale" (the scale the step used) and
+        "grads_finite" (the layout's decoders are
+        ``parallel.train_step.unpack_step_header[_dynamic]``)."""
+        shaped = {"labels": [SimpleNamespace(shape=label_shape)]}
+        if self.dynamic_loss_scale:
+            loss, preds, scale, finite = unpack_step_header_dynamic(h, shaped)
+            return {"loss": loss, "preds": preds, "loss_scale": scale, "grads_finite": finite}
+        loss, preds = unpack_step_header(h, shaped)
         return {"loss": loss, "preds": preds}
 
     def _fetch_metrics(self) -> Dict:

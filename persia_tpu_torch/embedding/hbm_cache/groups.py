@@ -13,7 +13,7 @@ scale is ``ops.cached_gather`` (``cached_gather_reference``).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -32,9 +32,10 @@ _restore_rows = restore_rows_reference
 class CachedTrainState:
     """The cache tier's training state, updated in place by a step:
     ``model`` and its ``optimizer`` (a ``torch.optim.Adam``), each group's
-    table (C+1, dim) (row C the zero pad) and its optimizer state
-    (C+1, ·), the sparse Adam's batch powers (a device f32[2]) and the
-    step count (a device int32)."""
+    table (C+1, dim) f32 or bf16 (row C the zero pad) and its f32
+    optimizer state (C+1, ·), the sparse Adam's batch powers (a device
+    f32[2]), the step count (a device int32) and, under the dynamic loss
+    scale, its ``LossScaleState`` of device tensors (else None)."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
@@ -42,6 +43,7 @@ class CachedTrainState:
     emb_state: Dict[str, Dict[str, torch.Tensor]]
     emb_batch_state: torch.Tensor
     step: torch.Tensor
+    loss_scale: Optional[object] = None
 
 
 @dataclass(frozen=True)
@@ -100,9 +102,10 @@ def make_cache_groups(cfg: EmbeddingConfig, rows_per_group: Dict[int, int], spar
 
 def init_cached_tables(groups: Sequence[CacheGroup], sparse_cfg: OptimizerConfig, device=None,
                        dtype=torch.float32):
-    """Zeroed pools of C+1 rows and their fresh optimizer state: rows arrive
-    by the aux program's writes; only the pad row C's zeros matter, and no
-    update touches it."""
+    """Zeroed pools of C+1 rows in ``dtype`` (f32, or bf16: the reference's
+    ``table_dtype``) and their fresh f32 optimizer state: rows arrive by
+    the aux program's writes (rounded to the pool's dtype); only the pad
+    row C's zeros matter, and no update touches it."""
     tables, emb_state = {}, {}
     for g in groups:
         tables[g.name] = torch.zeros((g.rows + 1, g.dim), dtype=dtype, device=device)

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from persia_tpu_torch.embedding.hbm_cache.groups import (
@@ -40,9 +41,10 @@ from persia_tpu_torch.embedding.optim import OptimizerConfig
 from persia_tpu_torch.ops.cached_gather import PooledRows, cached_gather
 from persia_tpu_torch.ops.quantize_int8 import quantize_int8_ef
 from persia_tpu_torch.ops.sparse_update import sparse_update
-from persia_tpu_torch.parallel.train_step import _embedding_model_inputs, _split_emb, default_loss_fn
+from persia_tpu_torch.parallel.train_step import LossScaleState, _embedding_model_inputs, _split_emb, default_loss_fn
 
 PS_GRAD_WIRES = ("float32", "bfloat16", "int8")
+_SENTINEL = int(np.iinfo(np.int32).max)  # K5's update key that names no row
 
 
 def _unsupported(**options) -> None:
@@ -51,21 +53,54 @@ def _unsupported(**options) -> None:
         raise NotImplementedError(f"the cache tier's synchronous step has no {', '.join(on)} yet")
 
 
-def _pack_ps_grads(grads: List[torch.Tensor], int8: bool, residual: Optional[torch.Tensor]):
+def _pack_ps_grads(grads: List[torch.Tensor], int8: bool, residual: Optional[torch.Tensor], gate=None):
     """The PS slots' gradients for the host, slot after slot: flat in
     their own dtype (the entries' wire dtype: f32, or bf16 for the bf16
     wire), or with ``int8`` quantized a slot a segment against
     ``residual`` (zeros where None): ``(q int8, scales f32 (slots,), new
-    residual)``."""
+    residual)``. ``gate`` (the loss scale's ``(scale, inv, finite f32)``):
+    the flat buffer ends in ``[scale | finite]``; the int8 wire unscales by
+    ``inv`` and its scales end in ``finite``."""
     flat = torch.cat([g.reshape(-1) for g in grads])
     if not int8:
-        return flat
+        if gate is None:
+            return flat
+        return torch.cat([flat, torch.stack([gate[0], gate[2]]).to(flat.dtype)])
     offsets = [0]
     for g in grads:
         offsets.append(offsets[-1] + g.numel())
     if residual is None:
         residual = torch.zeros(flat.shape, dtype=torch.float32, device=flat.device)
-    return quantize_int8_ef(flat, residual, offsets)
+    if gate is None:
+        return quantize_int8_ef(flat, residual, offsets)
+    return quantize_int8_ef(flat, residual, offsets, gate[1], gate[2])
+
+
+def init_loss_scale(init: float, device) -> LossScaleState:
+    """The cache tier's loss scale on ``device``: an f32 scale (``init``
+    rounded to f32) and an int32 count of finite steps."""
+    return LossScaleState(scale=torch.tensor(float(np.float32(init)), dtype=torch.float32, device=device),
+                          good_steps=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _gate(grads: Sequence[torch.Tensor], scale: torch.Tensor):
+    """(finite bool, inv f32): one flag over every gradient; ``1 / scale``
+    where finite, else 0."""
+    finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+    return finite, torch.where(finite, torch.reciprocal(scale), torch.zeros_like(scale))
+
+
+def _unscaled(g: torch.Tensor, finite: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """``g * inv`` where finite, else 0 (selected first: inf × 0 is NaN)."""
+    return torch.where(finite, g, torch.zeros_like(g)) * inv.to(g.dtype)
+
+
+def _dense_state(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
+    """The parameters and every state tensor of ``optimizer``."""
+    out = [p for group in optimizer.param_groups for p in group["params"]]
+    for st in optimizer.state.values():
+        out.extend(v for v in st.values() if torch.is_tensor(v))
+    return out
 
 
 def build_cached_train_step(
@@ -77,6 +112,10 @@ def build_cached_train_step(
     dynamic_loss_scale: bool = False,
     sentinel_probe: bool = False,
     ps_grad_wire: str = "float32",
+    growth_interval: int = 2000,
+    growth_factor: float = 2.0,
+    backoff_factor: float = 0.5,
+    max_scale: float = float(2 ** 24),
 ):
     """``step(state, batch, layout) -> (header, ps_gpacked)``: header is the
     device f32 ``[loss, sigmoid(logits)...]``, the reference's layout;
@@ -91,8 +130,12 @@ def build_cached_train_step(
     {group: (S, B) f32} (absent where no slot scales), "raw_rows": {slot:
     (B, L) int32}, "ps_emb": [the PS slots' entries, as
     ``persia_tpu_torch.ctx.stage_embeddings`` makes them], "ps_gres": (n,)
-    f32}, tensors on the state's device."""
-    _unsupported(dynamic_loss_scale=dynamic_loss_scale, sentinel_probe=sentinel_probe)
+    f32}, tensors on the state's device.
+
+    ``dynamic_loss_scale``: the state carries a ``LossScaleState`` of
+    device tensors (``init_loss_scale``); see the module's docstring. The
+    header is then ``[loss | scale used | finite | preds]``."""
+    _unsupported(sentinel_probe=sentinel_probe)
     if ps_grad_wire not in PS_GRAD_WIRES:
         raise ValueError(f"ps_grad_wire must be one of {PS_GRAD_WIRES}, got {ps_grad_wire!r}")
     int8 = ps_grad_wire == "int8"
@@ -126,10 +169,12 @@ def build_cached_train_step(
                                                                 _embedding_model_inputs(ps_leaves, ps_static)))
         loss = loss_fn(logits, batch["labels"][0])
         state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        state.optimizer.step()
+        ls = state.loss_scale if dynamic_loss_scale else None
+        (loss if ls is None else loss * ls.scale).backward()
 
-        state.emb_batch_state.mul_(betas[dev])
+        # each group's update keys and per-position gradients (a bf16
+        # pool's rounded to bf16, as the reference's cotangents are)
+        updates = {}
         for g in groups:
             keys, grads = [], []
             if g.name in sinks:
@@ -139,20 +184,50 @@ def build_cached_train_step(
             for name in g.raw_slots:
                 if name in raw_leaves:
                     leaf, k = raw_leaves[name]
+                    rg = (leaf.grad if leaf.grad is not None else torch.zeros_like(leaf)).reshape(-1, g.dim)
                     keys.append(k)
-                    grads.append((leaf.grad if leaf.grad is not None else torch.zeros_like(leaf))
-                                 .reshape(-1, g.dim))
-            if not keys:
-                continue
-            sparse_update(sparse_cfg, state.tables[g.name], state.emb_state[g.name],
-                          torch.cat(keys) if len(keys) > 1 else keys[0],
-                          torch.cat(grads) if len(grads) > 1 else grads[0], state.emb_batch_state)
+                    grads.append(rg.to(torch.bfloat16).float() if state.tables[g.name].dtype == torch.bfloat16
+                                 else rg)
+            if keys:
+                updates[g.name] = (torch.cat(keys) if len(keys) > 1 else keys[0],
+                                   torch.cat(grads) if len(grads) > 1 else grads[0])
+        ps_grads = [l.grad if l.grad is not None else torch.zeros_like(l) for l in ps_leaves]
+
+        gate = None
+        if ls is not None:
+            params = [p for p in model.parameters() if p.grad is not None]
+            finite, inv = _gate([p.grad for p in params] + [u[1] for u in updates.values()] + ps_grads, ls.scale)
+            for p in params:
+                p.grad.copy_(_unscaled(p.grad, finite, inv))
+            updates = {n: (torch.where(finite, k, torch.full_like(k, _SENTINEL)), _unscaled(gr, finite, inv))
+                       for n, (k, gr) in updates.items()}
+            with torch.no_grad():
+                before = [t.clone() for t in _dense_state(state.optimizer)]
+            state.optimizer.step()
+            with torch.no_grad():  # an overflow leaves the dense state as it was
+                for t, old in zip(_dense_state(state.optimizer), before):
+                    t.copy_(torch.where(finite, t, old))
+            gate = (ls.scale.clone(), inv, finite.float())
+        else:
+            state.optimizer.step()
+
+        state.emb_batch_state.mul_(betas[dev])
+        for gname, (keys, grads) in updates.items():
+            sparse_update(sparse_cfg, state.tables[gname], state.emb_state[gname], keys, grads, state.emb_batch_state)
         state.step.add_(1)
-        header = torch.cat([loss.detach().reshape(1).float(), torch.sigmoid(logits.detach()).reshape(-1).float()])
+        head = [loss.detach().reshape(1).float()]
+        if ls is not None:
+            head += [gate[0].reshape(1), gate[2].reshape(1)]
+            good = torch.where(finite, ls.good_steps + 1, torch.zeros_like(ls.good_steps))
+            grown = good >= growth_interval
+            scale = torch.where(finite, torch.where(grown, ls.scale * growth_factor, ls.scale),
+                                ls.scale * backoff_factor)
+            ls.scale.copy_(torch.clamp(scale, 1.0, float(np.float32(max_scale))))
+            ls.good_steps.copy_(torch.where(grown, torch.zeros_like(good), good))
+        header = torch.cat(head + [torch.sigmoid(logits.detach()).reshape(-1).float()])
         if not ps_leaves:
             return header, None
-        ps_grads = [l.grad if l.grad is not None else torch.zeros_like(l) for l in ps_leaves]
-        return header, _pack_ps_grads(ps_grads, int8, batch.get("ps_gres"))
+        return header, _pack_ps_grads(ps_grads, int8, batch.get("ps_gres"), gate)
 
     return step
 

@@ -161,15 +161,15 @@ def library() -> ctypes.CDLL:
             lib.persia_batch_norm_bwd.argtypes = [vp] * 7 + [i32] * 9 + [vp]
             ll = ctypes.c_longlong
             lib.persia_cache_aux.restype = i32
-            lib.persia_cache_aux.argtypes = [vp, ll, i32, vp, i32, vp, i32, i32, vp, i32, vp, i32,
+            lib.persia_cache_aux.argtypes = [vp, i32, ll, i32, vp, i32, vp, i32, i32, vp, i32, vp, i32,
                                              vp, vp, i32, vp, i32, vp, vp, i32, vp, i32, f32, f32,
                                              vp, vp, vp, i32, vp, i32, vp, ll, i32, ll, vp]
             lib.persia_entry_rows.restype = i32
-            lib.persia_entry_rows.argtypes = [vp, ll, i32, vp, i32, vp, i32, i32, vp, i32, vp, vp]
+            lib.persia_entry_rows.argtypes = [vp, i32, ll, i32, vp, i32, vp, i32, i32, vp, i32, vp, vp]
             lib.persia_cached_gather.restype = i32
-            lib.persia_cached_gather.argtypes = [vp, ll, i32, vp, ll, vp, ll, i32, vp, i32, vp, vp, vp, vp]
+            lib.persia_cached_gather.argtypes = [vp, i32, ll, i32, vp, ll, vp, ll, i32, vp, i32, vp, vp, vp, vp]
             lib.persia_quantize_int8_ef.restype = i32
-            lib.persia_quantize_int8_ef.argtypes = [vp, i32, vp, ctypes.POINTER(i32), i32, vp, vp, vp,
+            lib.persia_quantize_int8_ef.argtypes = [vp, i32, vp, ctypes.POINTER(i32), i32, vp, vp, vp, vp, vp,
                                                     i32, i32, i32, i32, vp]
             _lib = lib
         return _lib

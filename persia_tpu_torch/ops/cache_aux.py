@@ -1,10 +1,15 @@
 """The cache tier's aux program: the CUDA kernel K12
 (``csrc/cache_aux.cu``) and its plain PyTorch version.
 
-For one cache group's table (C+1, dim) f32 and its optimizer state columns
+For one cache group's table (C+1, dim) f32 or bf16 (the pool's dtype,
+``init_cached_tables``' ``dtype``) and its f32 optimizer state columns
 (Adagrad ``acc`` (C+1, dim or 1); Adam ``m`` and ``v`` (C+1, dim); SGD
 none), in this order, what the reference's ``_apply_aux``
-(``persia_tpu/embedding/hbm_cache/groups.py:260-293``) computes:
+(``persia_tpu/embedding/hbm_cache/groups.py:260-293``) computes. A bf16
+table's row is widened to f32 where it is read (the reference's
+``concatenate`` of a bf16 row and the f32 state promotes it) and every
+value written to it is rounded to bf16, to nearest, ties to even (its
+``astype(table.dtype)``, ``groups.py:225-236,287``):
 
 (a) the eviction payload ``[table | state][ev_rows]`` (K_ev, dim +
     state_dim), read before anything is written (a row evicted this step is
@@ -32,6 +37,8 @@ the payload is also stored at ``ring[start:start + K_ev]``, ``start`` =
 (``ring_start``); ``ring_pos=None`` stores nothing, and the ring is only
 read by the restores. ``gather_entry_rows`` is (a) alone in f32, the
 flush's and publish's read (``_gather_entry_rows``, ``groups.py:240-248``).
+A bf16 table's payload row, widened and then (with ``wb_bf16``) rounded
+back, keeps its bits.
 
 **The pairing.** The kernel reads each evicted row in the thread that
 rewrites it, so it needs to know which write overwrites which payload
@@ -78,9 +85,10 @@ def _clamped(rows: torch.Tensor, n: int) -> torch.Tensor:
 
 def gather_entry_rows_reference(table: torch.Tensor, state: Dict[str, torch.Tensor],
                                 rows: torch.Tensor) -> torch.Tensor:
-    """Plain version: ``cat([table[rows], *state[rows]], 1)`` in f32."""
+    """Plain version: ``cat([table[rows], *state[rows]], 1)`` in f32 (a
+    bf16 table's rows widened)."""
     r = _clamped(rows, table.shape[0])
-    return torch.cat([table[r]] + [s[r] for s in _states(state)], dim=1).float()
+    return torch.cat([table[r].float()] + [s[r] for s in _states(state)], dim=1)
 
 
 def _write_rows(dst: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor) -> None:
@@ -246,8 +254,8 @@ def cache_aux_ring_reference(table, state, ring: torch.Tensor, ring_pos: int, ev
 
 def _check(table, state, rows_and_data) -> list:
     dev = table.device
-    if table.dtype != torch.float32 or table.dim() != 2 or not table.is_contiguous():
-        raise ValueError("cache_aux needs a contiguous (C+1, dim) float32 table")
+    if table.dtype not in _DTYPES or table.dim() != 2 or not table.is_contiguous():
+        raise ValueError("cache_aux needs a contiguous (C+1, dim) float32 or bfloat16 table")
     states = _states(state)
     if set(state) - set(STATE_KEYS) or len(states) > 2:
         raise ValueError(f"state keys {sorted(state)} are not an optimizer's ({STATE_KEYS})")
@@ -271,7 +279,8 @@ def _aligned(*tensors) -> bool:
 def _pool_args(table, states):
     widths = [s.shape[1] for s in states] + [0, 0]
     ptrs = [s.data_ptr() for s in states] + [0, 0]
-    return [table.data_ptr(), table.shape[0], table.shape[1], ptrs[0], widths[0], ptrs[1], widths[1]]
+    return [table.data_ptr(), _DTYPES[table.dtype], table.shape[0], table.shape[1], ptrs[0], widths[0], ptrs[1],
+            widths[1]]
 
 
 def cache_aux(table: torch.Tensor, state: Dict[str, torch.Tensor], ev_rows: torch.Tensor,
@@ -319,7 +328,7 @@ def cache_aux(table: torch.Tensor, state: Dict[str, torch.Tensor], ev_rows: torc
     if table.device.type != "cuda":
         raise ValueError(f"unsupported device {table.device}")
     payload = torch.empty((ev_rows.shape[0], width), dtype=pay_dtype, device=table.device)
-    wide = wb_bf16 or m_entries.dtype == torch.bfloat16 or c_emb.dtype == torch.bfloat16
+    wide = wb_bf16 or torch.bfloat16 in (m_entries.dtype, c_emb.dtype, table.dtype)
     vec = cache_entry_vec([dim] + [s.shape[1] for s in states], wide,
                           _aligned(table, *states, payload, m_entries, c_emb, *([ring] if ring is not None else [])))
     c = [consts[k] for k in STATE_KEYS if k in state] + [0.0, 0.0]

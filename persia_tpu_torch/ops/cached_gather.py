@@ -1,9 +1,10 @@
 """The cache tier's gather-pool: the CUDA kernel K13
 (``csrc/cached_gather.cu``) and its plain PyTorch version.
 
-For one cache group's table (C+1, dim) f32, whose row C is the zero pad,
-and int32 cache rows: each position's row (``table[rows]``, clamped into
-the table as XLA's gather clamps), its mask ``rows != C``, and:
+For one cache group's table (C+1, dim) f32 or bf16 (the pool's dtype),
+whose row C is the zero pad, and int32 cache rows: each position's row
+(``table[rows]``, clamped into the table as XLA's gather clamps, a bf16
+row widened to f32), its mask ``rows != C``, and:
 
 - ``pool=True``, rows (S, B, L): the masked sum over L in order, times the
   optional ``scale`` (S, B): (S, B, dim) f32, what the reference's
@@ -12,18 +13,28 @@ the table as XLA's gather clamps), its mask ``rows != C``, and:
 - ``pool=False``, rows (B, L): the rows (B, L, dim) unmasked and the mask
   (B, L) bool, a raw slot's model input;
 - ``miss_table`` (M, dim) f32 (eval): a row > C reads
-  ``miss_table[row - (C+1)]`` (``_gather_ext``, ``step.py:435-440``);
+  ``miss_table[row - (C+1)]`` rounded to the table's dtype
+  (``_gather_ext``, ``step.py:435-440``);
 - ``keys=True`` (training): also each position's update key, flat int32,
   the row where row < C and K5's ``INT32_MAX`` sentinel for the pad, so the
   step passes ``sparse_update`` routed keys and no mask.
 
+Every output is f32: a bf16 pool is pooled in f32, where the reference
+sums and scales the bf16 rows in bf16 (a departure of the pooled value
+within the bf16 rounding of the sum and of the scale; the tests pin it).
+
 ``PooledRows`` makes the pooled output of a training step differentiable:
 its backward writes the per-position gradients (S·B·L, dim) f32, ``g``
 times the scale expanded over L, for ``sparse_update`` (a masked position's
-gradient goes to the sentinel's row, which nothing updates).
+gradient goes to the sentinel's row, which nothing updates). For a bf16
+pool the gradient is rounded where the reference's is: ``g`` to bf16,
+times the scale rounded to bf16, the product rounded to bf16 (the
+reference differentiates with respect to the bf16 gathered rows, so its
+cotangents are bf16).
 
 A CPU table takes the plain version; a CUDA table one launch a call
-(``cached_gather.launches``).
+(``cached_gather.launches``), a thread 4 columns of the table's row where
+dim and the pointers allow.
 """
 
 from __future__ import annotations
@@ -36,15 +47,16 @@ import torch
 from persia_tpu_torch.ops import _kernels
 
 _INT32_MAX = int(np.iinfo(np.int32).max)
+_DTYPES = {torch.float32: _kernels.DTYPE_F32, torch.bfloat16: _kernels.DTYPE_BF16}
 
 
 def _values(table: torch.Tensor, rows: torch.Tensor, miss_table: Optional[torch.Tensor]) -> torch.Tensor:
     C = table.shape[0] - 1
     r = rows.long()
-    from_cache = table[r.clamp(0, C)]
+    from_cache = table[r.clamp(0, C)].float()
     if miss_table is None:
         return from_cache
-    from_miss = miss_table[(r - (C + 1)).clamp(0, miss_table.shape[0] - 1)]
+    from_miss = miss_table[(r - (C + 1)).clamp(0, miss_table.shape[0] - 1)].to(table.dtype).float()
     return torch.where((r > C)[..., None], from_miss, from_cache)
 
 
@@ -56,7 +68,7 @@ def update_keys_of(rows: torch.Tensor, C: int) -> torch.Tensor:
 
 
 def cached_gather_reference(table, rows, pool=True, scale=None, keys=False, miss_table=None):
-    """Plain version: index, mask, sum over L, scale."""
+    """Plain version: index (widened to f32), mask, sum over L, scale."""
     C = table.shape[0] - 1
     got = _values(table, rows, miss_table)
     mask = rows != C
@@ -72,8 +84,8 @@ def cached_gather_reference(table, rows, pool=True, scale=None, keys=False, miss
 
 def _check(table, rows, pool, scale, miss_table) -> None:
     dev = table.device
-    if table.dtype != torch.float32 or table.dim() != 2 or not table.is_contiguous() or table.shape[0] < 1:
-        raise ValueError("cached_gather needs a contiguous (C+1, dim) float32 table")
+    if table.dtype not in _DTYPES or table.dim() != 2 or not table.is_contiguous() or table.shape[0] < 1:
+        raise ValueError("cached_gather needs a contiguous (C+1, dim) float32 or bfloat16 table")
     if table.shape[0] - 1 > _INT32_MAX:
         raise ValueError("the cache's rows must fit int32")
     if rows.dtype != torch.int32 or rows.device != dev or not rows.is_contiguous() or rows.dim() != (3 if pool else 2):
@@ -112,7 +124,7 @@ def cached_gather(table: torch.Tensor, rows: torch.Tensor, pool: bool = True, sc
     lib = _kernels.library()
     with torch.cuda.device(dev):
         rc = lib.persia_cached_gather(
-            table.data_ptr(), table.shape[0], dim,
+            table.data_ptr(), _DTYPES[table.dtype], table.shape[0], dim,
             miss_table.data_ptr() if miss_table is not None else None,
             miss_table.shape[0] if miss_table is not None else 0,
             rows.data_ptr(), samples, L, scale.data_ptr() if scale is not None else None, int(pool),
@@ -128,11 +140,18 @@ def cached_gather(table: torch.Tensor, rows: torch.Tensor, pool: bool = True, sc
 cached_gather.launches = 0
 
 
-def per_position_grads(g: torch.Tensor, L: int, scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+def per_position_grads(g: torch.Tensor, L: int, scale: Optional[torch.Tensor] = None,
+                       bf16: bool = False) -> torch.Tensor:
     """The pooled rows' backward: (S, B, dim) ``g`` times the scale,
-    repeated over the L positions, as (S·B·L, dim) f32 (a view at L=1)."""
+    repeated over the L positions, as (S·B·L, dim) f32 (a view at L=1).
+    ``bf16`` (a bf16 pool): ``g``, the scale and their product each
+    rounded to bf16, as the reference's bf16 cotangents are."""
+    if bf16:
+        g = g.to(torch.bfloat16)
+        if scale is not None:
+            g = g * scale[..., None].to(torch.bfloat16)
     g = g.float()
-    if scale is not None:
+    if scale is not None and not bf16:
         g = g * scale[..., None]
     return g[:, :, None, :].expand(g.shape[0], g.shape[1], L, g.shape[2]).reshape(-1, g.shape[2])
 
@@ -153,10 +172,11 @@ class PooledRows(torch.autograd.Function):
         ctx.L = rows.shape[-1]
         ctx.save_for_backward(scale if scale is not None else torch.empty(0))
         ctx.has_scale = scale is not None
+        ctx.bf16 = table.dtype == torch.bfloat16
         return pooled
 
     @staticmethod
     def backward(ctx, g):
         (scale,) = ctx.saved_tensors
-        ctx.sink["grads"] = per_position_grads(g, ctx.L, scale if ctx.has_scale else None)
+        ctx.sink["grads"] = per_position_grads(g, ctx.L, scale if ctx.has_scale else None, ctx.bf16)
         return None, None, None, None, None

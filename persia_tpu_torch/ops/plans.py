@@ -786,7 +786,8 @@ def _bn_block_sums(v: np.ndarray, plan: BatchNormPlan) -> np.ndarray:
 def cache_entry_vec(widths, wide: bool, aligned: bool = True) -> int:
     """Columns a thread of K12 (or of its read alone, ``wide`` False) takes
     of an entry whose arrays have ``widths`` (the table's dim, then each
-    state's): 8 where ``wide`` (a bf16 wire or payload: 16 bytes of bf16),
+    state's): 8 where ``wide`` (a bf16 wire, payload or pool: 16 bytes of
+    bf16),
     else 4 (a float4), where every width is a multiple of it and every
     array starts on 16 bytes (``aligned``); else 1, scalar columns."""
     widths = [int(w) for w in widths]

@@ -11,11 +11,20 @@ over the step's gradients flattened into one (n,) tensor, f32 or bf16:
 
 each division and product rounded on its own, ``round`` half to even. It
 is ``persia_tpu/parallel/grad_sync.py``'s ``quantize_int8_ef`` applied a
-segment at a time, as ``persia_tpu/embedding/hbm_cache/step.py:361-400``
+segment at a time, as ``persia_tpu/embedding/hbm_cache/step.py:361-415``
 applies it. ``offsets`` (S+1 ascending ints from 0 to n) bound the
 segments. Returns ``(q (n,) int8, scales (S,) f32, new residual (n,)
 f32)``: the plain version makes a new residual, the kernel writes it over
 ``residual`` in place and returns that tensor.
+
+Under the dynamic loss scale the step passes ``inv`` and ``finite``, f32
+scalars on the device (nothing is read on the host): ``inv`` is 1 / the
+loss scale on a finite step and 0 on an overflow, ``finite`` 1 or 0. The
+gradients are then unscaled on the device, ``v = g * inv + residual``
+(``g * inv`` exact: the scale is a power of two), and the scales carry
+``finite`` as their tail, (S+1,). On an overflow step the codes and the
+scales are 0 and the residual is left as it was; the host drops that
+step's gradients, so only a finite step's scales are ever applied.
 
 A CPU tensor takes the plain version; a CUDA tensor one launch a call
 (``quantize_int8_ef.launches``), at most ``MAX_SEGMENTS`` segments, in the
@@ -25,7 +34,7 @@ geometry of ``plans.quantize_int8_plan`` (a cluster of blocks a segment).
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -34,12 +43,16 @@ from persia_tpu_torch.ops import _kernels, plans
 MAX_SEGMENTS = plans.QUANT_MAX_SEGMENTS  # kMaxQuantSegments in csrc/quantize_int8.cu
 
 
-def quantize_int8_ef_reference(g: torch.Tensor, residual: torch.Tensor, offsets: Sequence[int]
+def quantize_int8_ef_reference(g: torch.Tensor, residual: torch.Tensor, offsets: Sequence[int],
+                               inv: Optional[torch.Tensor] = None, finite: Optional[torch.Tensor] = None,
                                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version: the reference's function a segment at a time. Every
-    division is tensor by tensor: PyTorch's CUDA division by a Python
-    scalar multiplies by its reciprocal, which is not the same rounding."""
-    v = g.float() + residual
+    """Plain version: the reference's function a segment at a time, after
+    the unscale ``g * inv`` where given; with ``finite`` the codes, the
+    residual and the scales selected by it (no host read) and ``finite``
+    appended to the scales. Every division is tensor by tensor: PyTorch's
+    CUDA division by a Python scalar multiplies by its reciprocal, which is
+    not the same rounding."""
+    v = (g.float() if inv is None else g.float() * inv) + residual
     q = torch.empty(v.shape, dtype=torch.int8, device=v.device)
     new = torch.empty_like(v)
     scales = torch.empty(len(offsets) - 1, dtype=torch.float32, device=v.device)
@@ -52,10 +65,21 @@ def quantize_int8_ef_reference(g: torch.Tensor, residual: torch.Tensor, offsets:
         q[a:b] = t.to(torch.int8)
         new[a:b] = seg - t * (scale / c127)
         scales[s] = scale
+    if finite is None:
+        return q, scales, new
+    ok = finite > 0.5
+    q = torch.where(ok, q, torch.zeros_like(q))
+    new = torch.where(ok, new, residual)
+    scales = torch.cat([torch.where(ok, scales, torch.zeros_like(scales)), finite.reshape(1).float()])
     return q, scales, new
 
 
-def _check(g, residual, offsets) -> None:
+def _check(g, residual, offsets, inv=None, finite=None) -> None:
+    if (inv is None) != (finite is None):
+        raise ValueError("pass inv and finite together, or neither")
+    for t in (inv, finite):
+        if t is not None and (t.dtype != torch.float32 or t.numel() != 1 or t.device != g.device):
+            raise ValueError(f"inv and finite must be one-element float32 tensors on {g.device}")
     if g.dim() != 1 or not g.is_contiguous() or g.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("g must be a contiguous (n,) float32 or bfloat16 tensor")
     if residual.dtype != torch.float32 or residual.shape != g.shape or residual.device != g.device \
@@ -68,20 +92,23 @@ def _check(g, residual, offsets) -> None:
         raise ValueError("the gradients must have fewer than 2^31 elements")
 
 
-def quantize_int8_ef(g: torch.Tensor, residual: torch.Tensor, offsets: Sequence[int]
+def quantize_int8_ef(g: torch.Tensor, residual: torch.Tensor, offsets: Sequence[int],
+                     inv: Optional[torch.Tensor] = None, finite: Optional[torch.Tensor] = None,
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(q, scales, new residual)``; see the module's docstring."""
-    _check(g, residual, offsets)
+    _check(g, residual, offsets, inv, finite)
     if g.device.type == "cpu":
-        return quantize_int8_ef_reference(g, residual, offsets)
+        return quantize_int8_ef_reference(g, residual, offsets, inv, finite)
     if g.device.type != "cuda":
         raise ValueError(f"unsupported device {g.device}")
     segments = len(offsets) - 1
     if segments > MAX_SEGMENTS:
         raise ValueError(f"{segments} segments, more than the kernel's {MAX_SEGMENTS}")
     q = torch.empty(g.shape, dtype=torch.int8, device=g.device)
-    scales = torch.empty(segments, dtype=torch.float32, device=g.device)
+    scales = torch.empty(segments + (finite is not None), dtype=torch.float32, device=g.device)
     if not segments:
+        if finite is not None:
+            scales.copy_(finite.reshape(1))
         return q, scales, residual
     longest = max(b - a for a, b in zip(offsets[:-1], offsets[1:]))
     aligned = all(t.data_ptr() % 16 == 0 for t in (g, residual, q))
@@ -90,7 +117,9 @@ def quantize_int8_ef(g: torch.Tensor, residual: torch.Tensor, offsets: Sequence[
     dtype = _kernels.DTYPE_F32 if g.dtype == torch.float32 else _kernels.DTYPE_BF16
     lib = _kernels.library()
     with torch.cuda.device(g.device):
-        rc = lib.persia_quantize_int8_ef(g.data_ptr(), dtype, residual.data_ptr(), offs, segments, q.data_ptr(),
+        rc = lib.persia_quantize_int8_ef(g.data_ptr(), dtype, residual.data_ptr(), offs, segments,
+                                         inv.data_ptr() if inv is not None else None,
+                                         finite.data_ptr() if finite is not None else None, q.data_ptr(),
                                          scales.data_ptr(), residual.data_ptr(), plan.vec, plan.threads, plan.units,
                                          plan.cluster, _kernels.stream_handle(g))
     _kernels.check(rc, "quantize_int8_ef")

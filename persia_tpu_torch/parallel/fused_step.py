@@ -2,12 +2,16 @@
 ``persia_tpu/parallel/fused_step.py``): every embedding table resident in
 the card's memory, and the whole hybrid step run on the card.
 
-    ids → gather and update-id routing (K4, one launch a table) → DLRM
-        forward and backward → Adam on the dense tower → sort of the
-        update ids → sparse optimizer update of the touched rows (K5)
+    ids → gather and update-id routing (K4, one launch a table) → the
+        model's forward and backward (any of the port's models: DLRM,
+        DeepFM, DCN-v2, DNN, whose batch norms run K10 and K11 and move
+        their running statistics in place in train mode) → Adam on the
+        dense tower → sort of the update ids → sparse optimizer update of
+        the touched rows (K5)
 
 Per step only the raw batch (int32 ids, dense features, labels) goes in;
-no embedding or gradient crosses to the host.
+no embedding or gradient crosses to the host. The eval step runs the
+model in eval mode (batch norms on their running statistics).
 
 The state is updated in place (the counterpart of the reference's donated
 buffers): ``FusedTrainState`` holds the model, its ``torch.optim.Adam``,
@@ -23,8 +27,9 @@ CUDA graph of the whole step (gather and routing, forward, backward, Adam,
 sort, K5), captured at the first call for the batch's shapes. The batch
 is copied into the graph's static input buffers; the capture's warm-up
 runs on the caller's state and then restores it bit for bit (the dense
-state whole, the tables' and their optimizer state's touched rows only,
-so a capture needs no second copy of the tables). Adam is built
+state whole, batch statistics included, the tables' and their optimizer
+state's touched rows only, so a capture needs no second copy of the
+tables). Adam is built
 ``capturable`` on a card in both the eager and the graph step, so the two
 give the same bits. On the CPU both are eager.
 
@@ -518,7 +523,8 @@ def build_fused_multi_step(
 
 def build_fused_eval_step(specs, slot_order=None, stack: bool = False):
     """``eval_step(state, batch) -> preds``: sigmoid of the model's logits,
-    under ``torch.inference_mode``."""
+    under ``torch.inference_mode``, the model in eval mode (a batch norm
+    reads its running statistics and moves nothing)."""
     slot_order = list(slot_order or sorted(specs))
     plan = _plan(specs, slot_order, stack)
 
@@ -526,6 +532,7 @@ def build_fused_eval_step(specs, slot_order=None, stack: bool = False):
     def eval_step(state: FusedTrainState, batch: Dict) -> torch.Tensor:
         ids = batch["ids"]
         gathered = _gather(state.tables, ids, plan)
+        state.model.eval()
         return torch.sigmoid(state.model(batch["dense"], _model_inputs(specs, slot_order, gathered, ids)))
 
     return eval_step

@@ -1,9 +1,11 @@
 """Gradient wires (counterpart of ``persia_tpu/parallel/grad_sync.py``),
 as far as the cache tier's parameter-server slots need them: the int8
 error-feedback quantization of their gradients (``quantize_int8_ef``, the
-kernel K15 beside its plain version, a scale a slot) and its host inverse.
-The dense collectives of the reference's module are not part of the port
-yet."""
+kernel K15 beside its plain version, a scale a slot; under the dynamic
+loss scale it also unscales them by ``inv`` and gates the codes and the
+residual on ``finite``, both read from the card's memory, and appends the
+finite flag to the scales) and its host inverse. The dense collectives of
+the reference's module are not part of the port yet."""
 
 from __future__ import annotations
 

@@ -100,11 +100,13 @@ def default_loss_fn(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 @dataclass
 class LossScaleState:
-    """Dynamic loss scale, held on the host in f32 steps: the step syncs on
-    its finite check anyway."""
+    """Dynamic loss scale. The hybrid tier holds it on the host, floats in
+    f32 steps (its step syncs on the finite check anyway); the cache tier
+    on the card, an f32 scalar tensor and an int32 one, which no step reads
+    on the host."""
 
-    scale: float
-    good_steps: int = 0
+    scale: "float | torch.Tensor"
+    good_steps: "int | torch.Tensor" = 0
 
 
 @dataclass

@@ -29,7 +29,7 @@ def _padded(rows: np.ndarray, fill: int) -> np.ndarray:
 
 def aux_case(kind: str, C: int, dim: int, n_ev: int, n_warm: int, n_cold: int, reuse, bf16: bool,
              device, seed: int, n_restore: int = 0, ring_rows: int = 0, wb_bf16: bool = False,
-             ring_pos: int = 0) -> Dict:
+             ring_pos: int = 0, table_dtype=torch.float32) -> Dict:
     """A pool (C+1, dim) with random rows and state (row C zero) and one
     step's pieces: ``n_ev`` evicted rows (padded with C), ``n_warm`` warm
     entries and ``n_cold`` cold seeds (rows padded with C+1, bf16 where
@@ -46,7 +46,8 @@ def aux_case(kind: str, C: int, dim: int, n_ev: int, n_warm: int, n_cold: int, r
     misses of a third kind, each restored from a random ring row outside
     the span the call stores its payload into (``ring_start(ring_rows,
     ring_pos, K_ev)`` on), padded (sources 0, rows C+1, slots -1); 0
-    rows where ``n_restore`` is 0."""
+    rows where ``n_restore`` is 0. ``table_dtype``: the pool's dtype (a
+    bf16 pool is the same draws rounded; the other pieces do not change)."""
     cfg = OPTIMIZERS[kind].config
     g = torch.Generator().manual_seed(seed)
     rng = np.random.default_rng(seed)
@@ -79,7 +80,7 @@ def aux_case(kind: str, C: int, dim: int, n_ev: int, n_warm: int, n_cold: int, r
     consts = {"sgd": (), "adagrad": (("acc", cfg.initialization),), "adagrad_vw": (("acc", cfg.initialization),),
               "adam": (("m", 0.0), ("v", 0.0))}[kind]
     out = dict(
-        table=table, state=state, ev_rows=rows(ev, C), m_rows=m_rows,
+        table=table.to(table_dtype), state=state, ev_rows=rows(ev, C), m_rows=m_rows,
         m_entries=torch.randn((m_rows.shape[0], width), generator=g).to(dt), c_rows=c_rows,
         c_emb=torch.randn((c_rows.shape[0], dim), generator=g).to(dt), state_consts=consts,
         m_slot=rows(slots[:n_warm], -1), c_slot=rows(slots[n_warm:n_warm + n_cold], -1), ev_free=rows(free, -1),
@@ -115,11 +116,12 @@ def all_pads(case: Dict, C: int) -> Dict:
 
 
 def gather_case(S: int, B: int, L: int, C: int, dim: int, device, seed: int, pad_share: float = 0.25,
-                scale: bool = False, miss: int = 0, zipf: bool = False) -> Dict:
-    """A pool (C+1, dim) (row C zero) and rows (S, B, L) int32 in [0, C]
-    (zipf(1.2)-skewed where ``zipf``), ``pad_share`` of them C; with
-    ``miss`` > 0 a miss table (miss, dim) and rows up to C + miss; with
-    ``scale`` a (S, B) f32 scale."""
+                scale: bool = False, miss: int = 0, zipf: bool = False, table_dtype=torch.float32) -> Dict:
+    """A pool (C+1, dim) (row C zero) in ``table_dtype`` (a bf16 pool is the
+    same draws rounded) and rows (S, B, L) int32 in [0, C] (zipf(1.2)-skewed
+    where ``zipf``), ``pad_share`` of them C; with ``miss`` > 0 an f32 miss
+    table (miss, dim) and rows up to C + miss; with ``scale`` a (S, B) f32
+    scale."""
     g = torch.Generator().manual_seed(seed)
     rng = np.random.default_rng(seed)
     table = torch.randn((C + 1, dim), generator=g)
@@ -129,7 +131,7 @@ def gather_case(S: int, B: int, L: int, C: int, dim: int, device, seed: int, pad
     else:
         r = rng.integers(0, C + 1 + miss, (S, B, L))
     r[rng.random((S, B, L)) < pad_share] = C
-    out = {"table": table, "rows": torch.from_numpy(r.astype(np.int32))}
+    out = {"table": table.to(table_dtype), "rows": torch.from_numpy(r.astype(np.int32))}
     if scale:
         out["scale"] = (1.0 / torch.sqrt(torch.randint(1, 5, (S, B), generator=g).float()))
     if miss:

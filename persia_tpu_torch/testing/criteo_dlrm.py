@@ -190,8 +190,7 @@ def main(argv=None) -> int:
     ap.add_argument("--wire", choices=("float32", "bfloat16"), default="float32",
                     help="cached tier: checkout/eviction wire dtype")
     ap.add_argument("--dynamic-loss-scale", action="store_true",
-                    help="overflow skip + scale backoff/growth (hybrid tier only: the port's cached tier "
-                    "raises NotImplementedError for it)")
+                    help="overflow skip + scale backoff/growth (hybrid and cached tiers)")
     ap.add_argument("--fused-vocab-cap", type=int, default=None,
                     help="fused tier: cap each table at N rows (ids fold by modulo)")
     ap.add_argument("--ckpt-dir", default=None)

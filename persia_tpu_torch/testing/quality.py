@@ -83,14 +83,15 @@ def _sparse_opt(sparse: str):
 
 def tier_ctx(device=None, store=None, ps_slots: Sequence[str] = (), ps_wire: str = "int8",
              cache_rows: int = CACHE_ROWS, wires: str = "bfloat16", admit_touches: int = 2,
-             sparse: str = "adagrad", model=None):
+             sparse: str = "adagrad", model=None, **options):
     """``bench.py``'s cached/ps-tier ctx (``_cached_tier_ctx``), entered and
     its state initialised: ``model`` (``bench_model()`` unless given),
     Adam(1e-3), Adagrad(0.05) (or SGD), a device-pooling worker over
     ``store`` (``bench_store()`` unless given), ``ps_slots`` on the PS tier
     with the ``ps_wire`` gradient wire; while any slot is cached, the
     ``wires`` write-back and aux wires and the touch gate. All slots on the
-    PS leave ``cache_rows`` unused (the bench passes 8)."""
+    PS leave ``cache_rows`` unused (the bench passes 8). ``options`` go to
+    ``CachedTrainCtx`` as they are (``table_dtype``, the loss scale's)."""
     from persia_tpu_torch.embedding.hbm_cache import CachedTrainCtx
     from persia_tpu_torch.embedding.worker import EmbeddingWorker
 
@@ -101,7 +102,8 @@ def tier_ctx(device=None, store=None, ps_slots: Sequence[str] = (), ps_wire: str
         if len(set(ps_slots)) < N_SLOTS else {}
     ctx = CachedTrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3), _sparse_opt(sparse),
                          EmbeddingWorker(cfg, [store], device_pooling=True), cfg, cache_rows=cache_rows,
-                         device=device, ps_slots=tuple(ps_slots), ps_wire_dtype=ps_wire, **cached).__enter__()
+                         device=device, ps_slots=tuple(ps_slots), ps_wire_dtype=ps_wire, **cached,
+                         **options).__enter__()
     ctx.init_state()
     return ctx
 

@@ -297,16 +297,19 @@ def cached_state_to_flax_bytes(state) -> bytes:
     bytes ``flax.serialization.to_bytes`` writes for the reference's
     ``CachedTrainState`` carrying the same arrays, in its field order:
     ``params``, ``batch_stats`` and ``opt_state`` (``_dense_tree``), each
-    group's table and optimizer state by group name (the state's order),
-    ``emb_batch_state``, ``step`` and ``loss_scale`` (``None``: the cache
-    tier's loss scale is static)."""
+    group's table (f32, or bf16 for bf16 pools) and optimizer state by
+    group name (the state's order), ``emb_batch_state``, ``step`` and
+    ``loss_scale`` (``None`` for a static scale, else ``scale`` f32 and
+    ``good_steps`` int32)."""
+    ls = state.loss_scale
     tree = {
         **_dense_tree(state),
         "tables": {g: _host_array(t) for g, t in state.tables.items()},
         "emb_state": {g: {k: _host_array(v) for k, v in st.items()} for g, st in state.emb_state.items()},
         "emb_batch_state": _host_array(state.emb_batch_state),
         "step": _host_array(state.step),
-        "loss_scale": None,
+        "loss_scale": None if ls is None else {"scale": _host_array(ls.scale).astype(np.float32).reshape(()),
+                                               "good_steps": _host_array(ls.good_steps).astype(np.int32).reshape(())},
     }
     return msgpack_serialize(tree)
 
@@ -315,17 +318,22 @@ def cached_state_from_flax_bytes(state, raw: bytes):
     """Load the bytes of a reference ``CachedTrainState`` (or of
     ``cached_state_to_flax_bytes``) into the port's ``state`` in place: the
     dense leaves (``_load_dense_tree``), every group's pool and optimizer
-    state, ``emb_batch_state`` and ``step``; the groups, their keys, shapes
-    and dtypes must be the state's. Returns ``state``."""
+    state, ``emb_batch_state``, ``step`` and the loss scale; the groups,
+    their keys, shapes and dtypes (a bf16 pool's too) must be the state's,
+    and both or neither must carry a dynamic loss scale. Returns
+    ``state``."""
     tree = msgpack_restore(raw)
-    if tree["loss_scale"] is not None:
-        raise ValueError("the bytes carry a dynamic loss scale; the port's cache tier has a static one")
+    if (tree["loss_scale"] is None) != (state.loss_scale is None):
+        raise ValueError("the bytes and the state disagree on a dynamic loss scale")
     live = {"tables": state.tables, "emb_state": state.emb_state}
     for key, have in live.items():
         if sorted(tree[key]) != sorted(have) or sorted(_flat_paths(tree[key])) != sorted(_flat_paths(have)):
             raise ValueError(f"the bytes' {key} hold {sorted(_flat_paths(tree[key]))}, the state's "
                              f"{sorted(_flat_paths(have))}")
     pairs = [(state.emb_batch_state, tree["emb_batch_state"]), (state.step, tree["step"])]
+    if state.loss_scale is not None:
+        pairs += [(state.loss_scale.scale, tree["loss_scale"]["scale"]),
+                  (state.loss_scale.good_steps, tree["loss_scale"]["good_steps"])]
     pairs += [(t, tree["tables"][g]) for g, t in state.tables.items()]
     pairs += [(v, tree["emb_state"][g][k]) for g, st in state.emb_state.items() for k, v in st.items()]
     host = [_host_tensor(a) for _, a in pairs]
@@ -385,9 +393,10 @@ def seeded_batch_stats_like(model: torch.nn.Module, seed: int) -> Dict:
 
 # ---------------------------------------------------------------------------
 # The fused tier's whole state (``persia_tpu/parallel/fused_ctx.py``'s
-# checkpoint): every leaf of the reference's ``FusedTrainState`` for a DLRM
-# trained with ``optax.adam``, keyed by its ``jax.tree_util.keystr`` path,
-# in the reference's leaf order (dict keys sorted).
+# checkpoint): every leaf of the reference's ``FusedTrainState`` for any of
+# the port's models trained with ``optax.adam``, keyed by its
+# ``jax.tree_util.keystr`` path, in the reference's leaf order (dict keys
+# sorted at every level).
 
 _PATH_KEYS = re.compile(r"\['([^']*)'\]")
 
@@ -409,21 +418,30 @@ def _host_tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
+def _keystr(path: Path) -> str:
+    return "".join(f"['{k}']" for k in path)
+
+
 def _fused_leaves(state) -> List[Tuple[str, Callable[[], np.ndarray]]]:
-    """(path, array getter) of every leaf, in the reference's order."""
-    layers = state.model.layers
-    names = sorted(f"Dense_{i}" for i in range(len(layers)))
+    """(path, array getter) of every leaf, in the reference's order:
+    ``params`` (kernels (in, out)), ``batch_stats`` (none for a model
+    without batch norms), Adam's ``count``, ``mu`` and ``nu``, the tables,
+    their optimizer state, the batch powers and the step."""
+    params = sorted(flax_leaves(state.model), key=lambda leaf: leaf[0])
+    stats = sorted(stats_leaves(state.model), key=lambda leaf: leaf[0])
     opt = state.optimizer.state
     out: List[Tuple[str, Callable[[], np.ndarray]]] = []
 
     def dense(prefix, get):
-        for name in names:
-            layer = layers[int(name.rsplit("_", 1)[1])]
-            out.append((f"{prefix}['{name}']['bias']", lambda l=layer: _host_array(get(l.bias))))
-            out.append((f"{prefix}['{name}']['kernel']", lambda l=layer: _host_array(get(l.weight).T)))
+        for path, p, transposed in params:
+            out.append((prefix + _keystr(path),
+                        lambda p=p, tr=transposed: np.ascontiguousarray(_host_array(get(p)).T) if tr
+                        else _host_array(get(p))))
 
     dense(".params", lambda p: p)
-    first = layers[0].weight
+    for path, t in stats:
+        out.append((".batch_stats" + _keystr(path), lambda t=t: _host_array(t)))
+    first = params[0][1]
     out.append((".opt_state[0].count",
                 lambda: np.asarray(int(float(opt[first]["step"])) if opt.get(first) else 0, np.int32)))
     dense(".opt_state[0].mu", lambda p: opt[p]["exp_avg"])
@@ -453,7 +471,8 @@ def fused_state_to_flax(state) -> Tuple[List[str], List[np.ndarray]]:
 def fused_state_from_flax(manifest: Sequence[str], arrays: Sequence[np.ndarray], model: torch.nn.Module,
                           optimizer: torch.optim.Optimizer, device=None, into=None):
     """The port's ``FusedTrainState`` from the reference's leaves (numpy
-    arrays in ``manifest``'s order): ``model``'s parameters and
+    arrays in ``manifest``'s order): ``model``'s parameters, its batch
+    statistics (the manifest must hold exactly the model's) and
     ``optimizer``'s (an Adam over them) state are loaded in place, the
     tables and their state made on ``device`` (``cuda`` unless given).
     With ``into``, a state of the same layout, its tables, their state, the
@@ -466,6 +485,7 @@ def fused_state_from_flax(manifest: Sequence[str], arrays: Sequence[np.ndarray],
         raise ValueError(f"{len(manifest)} paths for {len(arrays)} arrays")
     dev = resolve_device(device)
     params: Dict = {}
+    stats: Dict = {}
     moments: Dict[str, Dict] = {"mu": {}, "nu": {}}
     tables, emb_state = {}, {}
     count = batch_state = step = None
@@ -475,14 +495,21 @@ def fused_state_from_flax(manifest: Sequence[str], arrays: Sequence[np.ndarray],
             return _host_tensor(a).to(dev)
         return live.copy_(_host_tensor(a).view(live.shape))
 
+    def nest(tree, keys, a):
+        for k in keys[:-1]:
+            tree = tree.setdefault(k, {})
+        tree[keys[-1]] = a
+
     for path, a in zip(manifest, arrays):
         keys = _PATH_KEYS.findall(path)
         if path.startswith(".params["):
-            params.setdefault(keys[0], {})[keys[1]] = a
+            nest(params, keys, a)
+        elif path.startswith(".batch_stats["):
+            nest(stats, keys, a)
         elif path == ".opt_state[0].count":
             count = a
         elif path.startswith((".opt_state[0].mu[", ".opt_state[0].nu[")):
-            moments[path[14:16]].setdefault(keys[0], {})[keys[1]] = a
+            nest(moments[path[14:16]], keys, a)
         elif path.startswith(".tables["):
             tables[keys[0]] = put(a, into and into.tables[keys[0]])
         elif path.startswith(".emb_state["):
@@ -495,7 +522,7 @@ def fused_state_from_flax(manifest: Sequence[str], arrays: Sequence[np.ndarray],
             raise ValueError(f"unknown fused-state leaf {path!r}")
     if count is None or batch_state is None or step is None:
         raise ValueError("the fused state lacks the Adam count, the batch powers or the step")
-    model.load_state_dict(state_dict_from_flax(model, params))
+    model.load_state_dict(state_dict_from_flax(model, params, stats))
     model.to(dev)
     prepare_dense_optimizer(optimizer, dev)
     for p, st in adam_state_from_optax(model, moments["mu"], moments["nu"], count).items():

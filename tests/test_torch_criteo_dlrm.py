@@ -247,8 +247,10 @@ def test_example_cli_runs_every_tier(capsys, tmp_path):
         line = capsys.readouterr().out.strip().splitlines()[-1 if "--ckpt-dir" not in argv else -2]
         assert line.startswith("criteo-dlrm[") and " test_auc=" in line and line.endswith(" samples/sec"), line
     assert any((tmp_path / "ckpt").iterdir())
-    with pytest.raises(NotImplementedError, match="dynamic_loss_scale"):
-        cd.main(["--device", "cpu", "--tier", "cached", "--dynamic-loss-scale", "--steps", "1"])
+    # the cached tier runs the example's dynamic loss scale (it raised before the port had one)
+    assert _watch(lambda: cd.main(["--device", "cpu", "--tier", "cached", "--dynamic-loss-scale", "--steps", "2",
+                                   "--eval-steps", "1", "--batch-size", "64"]), "--dynamic-loss-scale") == 0
+    assert capsys.readouterr().out.strip().splitlines()[-1].startswith("criteo-dlrm[kaggle] steps=2 loss=")
 
 
 # ---------------------------------------------------------- the 100T harness

@@ -2176,3 +2176,171 @@ def test_all_ps_int8_ctx_on_card_matches_cpu(cuda):
     m = run_with_watchdog(lambda: card.train_stream(batches[4:], prefetch=4, psgrad_batch=2), timeout=60.0)
     assert np.isfinite(m["loss"]) and card.worker.staleness == 0 and card.stream_stats()["psgrad_steps"] == 4
     assert quantize_int8_ef.launches == counts[3] + 8
+
+
+# ------------------------- bf16 pools (K12, its read, K13) and K15's loss-scale gate
+
+
+@pytest.mark.parametrize("wires", [(False, False), (True, True), (False, True)])
+@pytest.mark.parametrize("kind", ["sgd", "adagrad", "adagrad_vw", "adam"])
+def test_cache_aux_kernel_bf16_pool_matches_plain_bitwise(cuda, kind, wires):
+    """K12 on a bf16 pool bit for bit its plain version: each evicted row
+    widened into the payload (f32, or back to bf16: its own bits), the warm
+    entries and cold seeds rounded to bf16 (to nearest, ties to even), the
+    f32 state as on an f32 pool; half the misses on rows evicted this
+    step."""
+    from persia_tpu_torch.testing.cache_cases import aux_case
+
+    aux_bf16, wb_bf16 = wires
+    case = aux_case(kind, 4096, 16, 1500, 900, 600, 0.5, aux_bf16, cuda, seed=11 + len(kind),
+                    table_dtype=torch.bfloat16)
+    got, want = _cache_aux_both(case, wb_bf16)
+    assert got[1].dtype == torch.bfloat16
+    _assert_aux_bits(got, want)
+
+
+@pytest.mark.parametrize("store", [True, False])
+@pytest.mark.parametrize("wires", [(False, False), (True, True), (False, True)])
+@pytest.mark.parametrize("kind", ["adagrad", "adam"])
+def test_cache_aux_kernel_bf16_pool_restores_match_plain(cuda, kind, wires, store):
+    """K12 with ring restores on a bf16 pool: the restored entries rounded
+    to bf16, the payload (and the ring) bit for bit the plain version."""
+    from persia_tpu_torch.testing.cache_cases import aux_case
+
+    aux_bf16, wb_bf16 = wires
+    case = aux_case(kind, 4096, 16, 1500, 500, 400, 0.5, aux_bf16, cuda, seed=3 + len(kind) + 5 * store,
+                    n_restore=300, ring_rows=3000, wb_bf16=wb_bf16, ring_pos=700, table_dtype=torch.bfloat16)
+    _assert_aux_bits(*_restores_both(case, wb_bf16, store))
+
+
+@pytest.mark.parametrize("kind", ["sgd", "adagrad", "adagrad_vw", "adam"])
+def test_gather_entry_rows_kernel_bf16_pool_matches_plain(cuda, kind):
+    """The flush's read of a bf16 pool: the rows widened beside the f32
+    state, bit for bit its plain version; a bf16 row round-trips to its
+    bits."""
+    from persia_tpu_torch.ops.cache_aux import gather_entry_rows, gather_entry_rows_reference
+    from persia_tpu_torch.testing.cache_cases import aux_case
+
+    case = aux_case(kind, 4096, 16, 1, 0, 0, False, False, cuda, seed=9, table_dtype=torch.bfloat16)
+    rows = torch.randperm(4097, generator=torch.Generator().manual_seed(3))[:3000].int()
+    rows[:3] = torch.tensor([-4, 4096, 1 << 20], dtype=torch.int32)
+    got = gather_entry_rows(case["table"], case["state"], rows.to(cuda))
+    ref = gather_entry_rows_reference(case["table"].cpu(), {k: v.cpu() for k, v in case["state"].items()}, rows)
+    assert got.dtype == torch.float32 and torch.equal(got.cpu(), ref)
+    live = rows[3:].long()
+    assert torch.equal(got[3:, :16].cpu().to(torch.bfloat16), case["table"].cpu()[live])
+
+
+@pytest.mark.parametrize("L,scale,miss,zipf", [(1, False, 0, True), (1, True, 0, False), (1, False, 37, False),
+                                               (3, False, 0, False), (8, True, 0, True), (5, True, 29, False)])
+def test_cached_gather_kernel_bf16_pool_matches_plain(cuda, L, scale, miss, zipf):
+    """K13 on a bf16 pool (4 columns a thread) against its plain version on
+    the CPU, pooled in f32: bit for bit at L=1, within the f32 sum-order
+    bound beyond; eval's miss rows rounded to bf16; keys, raw rows and mask
+    bit for bit."""
+    from persia_tpu_torch.ops.cached_gather import cached_gather, cached_gather_reference
+    from persia_tpu_torch.testing.cache_cases import gather_case
+
+    case = gather_case(26, 512, L, 3000, 16, cuda, seed=40 + L, scale=scale, miss=miss, zipf=zipf,
+                       table_dtype=torch.bfloat16)
+    sc, mt = case.get("scale"), case.get("miss_table")
+    keys = miss == 0
+    got = cached_gather(case["table"], case["rows"], True, sc, keys=keys, miss_table=mt)
+    ref = cached_gather_reference(case["table"].cpu(), case["rows"].cpu(), True,
+                                  sc.cpu() if sc is not None else None, keys=keys,
+                                  miss_table=mt.cpu() if mt is not None else None)
+    pooled, rpooled = (got[0], ref[0]) if keys else (got, ref)
+    assert pooled.dtype == torch.float32
+    if L == 1:
+        assert torch.equal(pooled.cpu(), rpooled)
+    else:
+        wide = dict(case, table=case["table"].float())
+        assert bool(((pooled.cpu() - rpooled).abs() <= _sum_tolerance(wide, L)).all())
+    if keys:
+        assert torch.equal(got[1].cpu(), ref[1])
+    raw = cached_gather(case["table"], case["rows"][0].contiguous(), False, keys=keys, miss_table=mt)
+    rraw = cached_gather_reference(case["table"].cpu(), case["rows"][0].cpu(), False, keys=keys,
+                                   miss_table=mt.cpu() if mt is not None else None)
+    for a, b in zip(raw, rraw):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("finite", [True, False], ids=["finite", "overflow"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths", [[24576] * 26, [1, 511, 512, 513, 1000, 3], [0, 7, 0, 4096 * 16 + 5],
+                                     [300_003]])
+def test_quantize_int8_kernel_loss_scale_gate_matches_plain(cuda, lengths, dtype, finite):
+    """K15 reading ``inv`` and ``finite`` from the card's memory, against
+    its plain version on the card over three steps with the residual
+    carried: on a finite step codes, scales (their tail 1) and the residual
+    bit for bit; on an overflow (an inf in the gradients, inv 0) zero
+    codes, zero scales with the tail 0, the residual left as it was; one
+    launch a call; without the gate the call is the old one."""
+    from persia_tpu_torch.ops.quantize_int8 import quantize_int8_ef, quantize_int8_ef_reference
+
+    g, res, offsets = _quant_case(lengths, dtype, 17, cuda)
+    g = (g.float() * 1024.0).to(dtype)
+    if not finite:
+        g[offsets[-1] // 2] = float("inf")
+    inv = torch.tensor(1.0 / 1024.0 if finite else 0.0, device=cuda)
+    fin = torch.tensor(1.0 if finite else 0.0, device=cuda)
+    plain_res = res.clone()
+    for step in range(3):
+        kept = res.clone()
+        before = quantize_int8_ef.launches
+        q, s, new = quantize_int8_ef(g, res, offsets, inv, fin)
+        assert quantize_int8_ef.launches == before + 1 and new.data_ptr() == res.data_ptr()
+        q2, s2, plain_res = quantize_int8_ef_reference(g, plain_res, offsets, inv, fin)
+        torch.cuda.synchronize()
+        assert s.shape == (len(offsets),) and float(s[-1]) == float(finite)
+        assert torch.equal(q, q2) and torch.equal(s, s2)
+        assert torch.equal(new.view(torch.int32), plain_res.view(torch.int32))
+        if not finite:
+            assert not q.any() and not s.any() and torch.equal(new, kept)
+        g = (g.float() * -0.5 + 1e-3).to(dtype)
+    g2, r2, _ = _quant_case(lengths, dtype, 18, cuda)
+    a = quantize_int8_ef(g2, r2.clone(), offsets)
+    b = quantize_int8_ef(g2, r2.clone(), offsets, torch.tensor(1.0, device=cuda), torch.tensor(1.0, device=cuda))
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1][:-1]) and torch.equal(a[2], b[2])
+
+
+# ------------------------------------- DeepFM, DCN-v2 and DNN on the fused tier
+
+
+@pytest.mark.parametrize("name", ["deepfm", "dcnv2", "dnn"])
+def test_fused_graph_step_equals_eager_step_any_model(cuda, name):
+    """The fused tier's CUDA-graph step against its eager step for DeepFM,
+    DCN-v2 and DNN (bf16 compute, 5 single-id slots of dim 16), 4 steps:
+    losses and every state leaf bit for bit, DNN's batch statistics
+    included (K10 and K11 and their running-statistic writes captured in
+    the graph); the eval step after it moves no statistic."""
+    from persia_tpu_torch.embedding.optim import Adagrad
+    from persia_tpu_torch.models import DNN, DCNv2, DeepFM
+    from persia_tpu_torch.ops import batch_norm_bwd, batch_norm_fwd
+    from persia_tpu_torch.parallel.fused_step import (
+        FusedSlotSpec, build_fused_eval_step, build_fused_train_step, init_fused_state,
+    )
+
+    specs = {f"s{i}": FusedSlotSpec(vocab=1000, dim=16) for i in range(4)}
+    specs["bag"] = FusedSlotSpec(vocab=500, dim=16, sqrt_scaling=True)
+    batches = _fused_batches(cuda, 4)
+    results = []
+    for jit in (False, True):
+        gen = torch.Generator().manual_seed(3)
+        model = {"deepfm": lambda: DeepFM(13, 5, 16, (64, 32), device=cuda, generator=gen),
+                 "dcnv2": lambda: DCNv2(13, 5, 16, 2, None, (64, 32), device=cuda, generator=gen),
+                 "dnn": lambda: DNN(13, [16] * 5, 16, 64, (64, 32), device=cuda, generator=gen)}[name]()
+        state = init_fused_state(model, torch.optim.Adam(model.parameters(), lr=1e-3),
+                                 torch.Generator().manual_seed(1), specs, Adagrad(lr=0.05).config, stack=True,
+                                 device=cuda)
+        step = build_fused_train_step(Adagrad(lr=0.05).config, specs, stack=True, jit=jit)
+        bn = (batch_norm_fwd.launches, batch_norm_bwd.launches)
+        losses = [step(state, b)[1][0] for b in batches]
+        if name == "dnn" and not jit:
+            assert (batch_norm_fwd.launches - bn[0], batch_norm_bwd.launches - bn[1]) == (8, 8)
+        results.append((torch.stack(losses).cpu(), _state_bits(state)))
+        before = _state_bits(state)
+        build_fused_eval_step(specs, stack=True)(state, batches[0])
+        assert all(np.array_equal(a, b) for a, b in zip(before, _state_bits(state)))
+    assert torch.equal(results[0][0], results[1][0])
+    assert all(np.array_equal(a, b) for a, b in zip(results[0][1], results[1][1]))
