@@ -392,6 +392,23 @@ scale. Phase 5's rows of the new variants follow 4p: K12, its read and
 K13 on a bf16 pool at the f32 rows' inputs, K15 gated at 4p's, warm and
 cold, in turns with the f32 (ungated) call.
 
+Phase 3h holds the dense sync's kernels bit for bit to their plain
+versions at the bench tower's ring shapes (K16 ``block_quantize_int8``
+with and without the error feedback, K17 ``block_dequantize_int8`` as a
+hop's accumulate and as the all-gather's rows, K15's scales-only and
+shared-scale modes over the tower's leaves). After "5 (1TB)": phase 4q
+runs the cache tier's sharded feeder (``feed_threads=4, feed_shards=8``)
+at 4k saturated's 2^18 rows and batches beside the unsharded walk in
+turns, synchronous and as the stream (samples/s, ``prepare_batch`` ms,
+each shard's busy and stall ns, the host's usable cores), its decisions
+held to the CPU port's sharded run and the stream's to the synchronous
+steps'; phase 4r runs ``TrainCtx(mesh=, dense_sync=mode)`` for the six
+modes at bench width (B=4096) at world size 1 over NCCL, counted (K16
+and K17 once a ring step, K15's two modes once a bytegrad step) and held
+to the CPU port, then two gloo ranks on the one card for the rings and
+``f32-sharded`` (every rank's parameters the same bits, held to two CPU
+ranks); "5 (dense sync)" times K16, K17 and K15's two modes.
+
 Phases 4o-4p and 4l-4n run after phase 5's timings (a profiler session
 after them once recorded no device work; whether one does is printed),
 then phase 5's 1TB rows. Each phase's seconds are printed as it ends (``phase_seconds``); the
@@ -410,6 +427,7 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -685,6 +703,20 @@ def device_busy_ms(step, batches):
     return sum(per.values()), top, runs
 
 
+def kernel_trace(fn, calls=20, tries=3):
+    """``device_busy_ms`` over ``calls`` calls of ``fn`` (a call that may
+    run again and again, as a timing loop runs it): a session whose trace
+    holds no device record is taken again, ``tries`` sessions at most
+    (torch.profiler on the card has now and then dropped a whole session's
+    device events, while the next session held them); returns (top, runs,
+    the sessions taken)."""
+    for n in range(1, tries + 1):
+        _, top, runs = device_busy_ms(lambda _: fn(), [None] * calls)
+        if top:
+            break
+    return top, runs, n
+
+
 KERNEL_NAMES = ("fa_fwd_wgmma_kernel", "fa_fwd_tf32x3_kernel", "tf32_split_kernel",
                 "dot_interaction_mma_kernel", "dot_interaction_kernel",
                 "dot_interaction_bwd_mma_kernel", "dot_interaction_bwd_kernel",
@@ -693,7 +725,10 @@ KERNEL_NAMES = ("fa_fwd_wgmma_kernel", "fa_fwd_tf32x3_kernel", "tf32_split_kerne
                 "sparse_update_long_kernel", "sparse_update_short_kernel",
                 "raw_gather_fwd_kernel", "raw_gather_bwd_kernel", "attention_pool_fwd_kernel",
                 "attention_pool_bwd_kernel", "batch_norm_fwd_kernel", "batch_norm_bwd_kernel",
-                "cache_aux_kernel", "entry_rows_kernel", "quantize_int8_ef_kernel")
+                "cache_aux_kernel", "entry_rows_kernel", "quantize_int8_ef_kernel",
+                "block_int8_quantize_kernel", "block_int8_dequantize_kernel")
+# the dense ring's kernels (K16, K17)
+SYNC_KERNEL_NAMES = ("block_int8_quantize_kernel", "block_int8_dequantize_kernel")
 # the DIN path's kernels (K6-K9) and K2's two passes
 DIN_KERNEL_NAMES = ("raw_gather_fwd_kernel", "raw_gather_bwd_kernel", "attention_pool_fwd_kernel",
                     "attention_pool_bwd_kernel")
@@ -842,6 +877,11 @@ def phase_build():
                 v["spill_bytes"] is None or v["spill_bytes"] for v in k15.values()):
             raise SystemExit(f"K15 spills, or was not reported or lacks its 16-byte loads, 8-byte code stores "
                              f"and 16-byte residual stores at the ps-stream path's template {K15_WIDE}: {k15}")
+        k16 = {k: (v.get("registers"), v.get("spill_bytes")) for k, v in summary.items()
+               if k.split("<")[0] in SYNC_KERNEL_NAMES}
+        print(f"  K16 and K17 (the dense ring's block int8; registers, spill bytes): {k16}", flush=True)
+        if {k.split("<")[0] for k in k16} != set(SYNC_KERNEL_NAMES) or any(v[1] for v in k16.values()):
+            raise SystemExit(f"K16 or K17 spills or was not reported: {k16}")
         k5 = {k: summary.get(k, {}).get("spill_bytes") for k in K5_DIM16}
         print(f"  K5 and the routing on the dim-16 path, spill bytes: {k5}", flush=True)
         if any(v is None or v for v in k5.values()):
@@ -3752,15 +3792,16 @@ def phase_cache_kernels(dev):
     return errs
 
 
-def cache_ctx(device, rows, store, sd, sparse="adagrad", wires="bfloat16", touches=2):
+def cache_ctx(device, rows, store, sd, sparse="adagrad", wires="bfloat16", touches=2, **options):
     """``_cached_tier_ctx``'s ctx (bench.py:285-344) through the builder the
     quality gate shares (``testing.quality.tier_ctx``): DLRM at bench width
     from ``sd``, Adam(1e-3), Adagrad(0.05) (or SGD(0.05)), the bf16 wires
-    and the touch gate, over ``store``."""
+    and the touch gate, over ``store``; ``options`` to ``CachedTrainCtx``
+    (the sharded feeder's)."""
     from persia_tpu_torch.testing.quality import bench_model, tier_ctx
 
     return tier_ctx(device, store, cache_rows=rows, wires=wires, admit_touches=touches, sparse=sparse,
-                    model=bench_model(state_dict=sd))
+                    model=bench_model(state_dict=sd), **options)
 
 
 def cache_store(sparse="adagrad"):
@@ -5262,7 +5303,7 @@ def time_flash_backward(dev, card):
 
 def sdpa_kernels(fn) -> list:
     """Names of the CUDA kernels one call of ``fn`` runs, by torch.profiler."""
-    _, top, _ = device_busy_ms(lambda _: fn(), [None] * 3)
+    top, _, _ = kernel_trace(fn, calls=3)
     return list(top)
 
 
@@ -5485,7 +5526,7 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused, din
     ))
     # the backward's two passes apart (torch.profiler), and its time where
     # every position of each slot hits one row (the bench shape otherwise)
-    _, top, _ = device_busy_ms(lambda _: ops.gather_pool_bwd(gpool, prow, pslots), [None] * 20)
+    top, _, _ = kernel_trace(lambda: ops.gather_pool_bwd(gpool, prow, pslots))
     rows[-1]["pass_ms"] = {re.search(r"segment_sum_\w+", k).group(0): v for k, v in top.items()
                            if "segment_sum" in k}
     one_rows, one_slots = pool_inputs(dev, prow[0].dtype, bsz, [(p_rows - 1, 1, False)] * len(prow),
@@ -5585,7 +5626,7 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused, din
                         lambda: k5_inputs(fresh_ids(kind))[1:4], k5_bytes) for _ in range(2)]
         sort_ms = graph_ms(lambda: torch.sort(flat, stable=True))
         # each of K5's steps apart (torch.profiler over 20 warm calls)
-        _, top, _ = device_busy_ms(lambda _: sparse_update_sorted(cfg, tbl, acc, sids, perm, grads, bs), [None] * 20)
+        top, _, _ = kernel_trace(lambda: sparse_update_sorted(cfg, tbl, acc, sids, perm, grads, bs))
         stages = {re.search(r"sparse_update_\w+_kernel|Memset", k).group(0): v for k, v in top.items()
                   if "sparse_update" in k or "Memset" in k}
         longest = longest_segment(sids)
@@ -5723,7 +5764,7 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused, din
                                      distinct=[r.shape[0] - 1 for r in rrows])
     k7 = rows[-1]
     k7["one_row_ms"] = min(graph_ms(lambda: ops.raw_gather_bwd(rgrad, one_rows, one_slots)) for _ in range(2))
-    _, top, runs = device_busy_ms(lambda _: ops.raw_gather_bwd(rgrad, rrows, rslots), [None] * 20)
+    top, runs, k7["trace_sessions"] = kernel_trace(lambda: ops.raw_gather_bwd(rgrad, rrows, rslots))
     k7["trace_20_calls"] = {"raw_gather_bwd_kernel": runs["raw_gather_bwd_kernel"],
                             "segment_sum": runs["segment_sum_chunks_kernel"] + runs["segment_sum_rows_kernel"],
                             "device_events_ms_a_call": top}
@@ -5732,7 +5773,8 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused, din
           f"warm {k7['ms']:.5f} ms, cold {k7['cold_ms']:.5f} ms; index_add_ {k7['library_ms']:.5f} warm, "
           f"{k7['library_cold_ms']:.5f} cold (index_add_ / K7: {k7['index_add_over_kernel']['warm']:.3f} warm, "
           f"{k7['index_add_over_kernel']['cold']:.3f} cold); one row of {bsz * hist_len} positions a slot "
-          f"{k7['one_row_ms']:.5f} ms; 20 calls in the trace: {k7['trace_20_calls']}", flush=True)
+          f"{k7['one_row_ms']:.5f} ms; 20 calls in the trace: {k7['trace_20_calls']} ({k7['trace_sessions']} "
+          "profiler sessions)", flush=True)
 
     # K8, K9: the step's masks and history rows in bf16; a masked position's
     # row is not needed (bound: the valid positions' rows)
@@ -5788,15 +5830,15 @@ def phase_timing(dev, card, launches, errs, feats_shape, train_batch, fused, din
     ))
     # K9 is one kernel a call: the device's events over 20 calls by name
     k9 = rows[-1]
-    _, top, runs = device_busy_ms(lambda _: ops.attention_pool_bwd(d_out, mask, hist, w), [None] * 20)
+    top, runs, k9["trace_sessions"] = kernel_trace(lambda: ops.attention_pool_bwd(d_out, mask, hist, w))
     if not top:
-        raise SystemExit("attention_pool_bwd's trace holds no device record (a profiler session now records "
-                         f"device work: {profiler_records_device_work(dev)})")
+        raise SystemExit(f"attention_pool_bwd's trace held no device record in {k9['trace_sessions']} sessions "
+                         f"(a profiler session now records device work: {profiler_records_device_work(dev)})")
     k9["trace_20_calls"] = {"attention_pool_bwd_kernel": runs["attention_pool_bwd_kernel"],
                             "device_events_ms_a_call": top}
     print(f"  attention_pool_bwd: warm {k9['ms']:.5f} ms, cold {k9['cold_ms']:.5f} ms, bound {k9['bound_ms']:.5f} "
           f"({k9['bound_ms'] / k9['cold_ms']:.1%} cold); registers {k9['registers']} at <{ATT_DIN_TEMPLATE}>; "
-          f"20 calls in the trace: {k9['trace_20_calls']}", flush=True)
+          f"20 calls in the trace: {k9['trace_20_calls']} ({k9['trace_sessions']} profiler sessions)", flush=True)
     if not runs["attention_pool_bwd_kernel"] or any("attention_pool_bwd_kernel" not in n for n in top):
         raise SystemExit(f"attention_pool_bwd ran other device work than its kernel: {top}")
     # K10 and K11 at the DNN training path's first batch norm (serving-bench
@@ -6341,7 +6383,7 @@ def ab_compare(paths) -> int:
 TB_ROWS = 183_873_726  # the Criteo-1TB stacked table's rows (sum of CRITEO_1TB_VOCABS)
 # phase 4l: train batches a leg (the example's 64 cut to 12), held-out
 # batches (8 cut to 4), the first steps held to the CPU port
-CRITEO_STEPS, CRITEO_EVAL, CRITEO_CPU_STEPS = 12, 4, 3
+CRITEO_STEPS, CRITEO_EVAL, CRITEO_CPU_STEPS = 8, 4, 3
 # phase 4m: the harness's timed steps (32 cut to 8) after 3 reproducible
 # steps held to the CPU port; B=1024
 H100T_STEPS, H100T_REPRO, H100T_BATCH = 8, 3, 1024
@@ -7768,6 +7810,490 @@ def time_precision_kernels(dev, launches, errs, inputs, k15, floor):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The cache tier's sharded feeder (phase 4q) and the hybrid tier's dense sync
+# modes (phases 3h, 4r and the rows of "5 (dense sync)")
+
+FEED_THREADS, FEED_SHARDS, FEED_STEPS = 4, 8, 56
+SYNC_SOURCE = "persia_tpu_torch/csrc/block_int8.cu"
+SYNC_REPLACES = {"block_quantize_int8": "persia_tpu/parallel/grad_sync.py:312",
+                 "block_dequantize_int8": "persia_tpu/parallel/grad_sync.py:327",
+                 "segment_absmax": "persia_tpu/parallel/grad_sync.py:288",
+                 "quantize_int8_ef_shared": "persia_tpu/parallel/grad_sync.py:279"}
+SYNC_KERNELS = tuple(SYNC_REPLACES)
+SYNC_BLOCK, SYNC_STEPS = 256, 3
+# phase 4r's DLRM: bench width (13 dense, 26 slots of dim 16, bottom 256-64-16,
+# top 512-256, B=4096) in f32, over the synthetic click data of 26
+# vocabularies of 100,000; Adam(1e-3); the servers two native stores (the
+# numpy golden model takes ~75 s a step at this width)
+SYNC_SPEC = dict(dense=N_DENSE, vocabs=(100_000,) * N_SLOTS, dim=EMB_DIM, bottom=BOTTOM, top=TOP, bsz=BATCH,
+                 lr=1e-3, params_seed=SEED, compute="float32", store="native", entries=False)
+TWO_RANK_MODES = ("block-int8-ring", "f32-sharded", "block-int8-ring-sharded")
+TWO_RANK_DEVICE = "cuda:0"  # both ranks on the one card
+# card vs CPU: losses 1e-3 relative; parameters 6e-3 (Adam's steps are
+# +-lr whatever a gradient's size, so an int8 code or a bf16 rounding a
+# last bit moves flips a near-zero gradient and moves its parameter by
+# 2 lr a step, 3 steps)
+SYNC_LOSS_RTOL, SYNC_PARAM_ATOL = 1e-3, 6e-3
+
+
+def sync_leaf_sizes():
+    """The bench DLRM tower's leaves' sizes in the flat vector's order."""
+    import torch
+
+    from persia_tpu_torch.models import DLRM
+    from persia_tpu_torch.parallel import grad_sync
+
+    model = DLRM(N_DENSE, N_SLOTS, EMB_DIM, BOTTOM, TOP, compute_dtype=torch.float32, device="cpu")
+    return [p.numel() for _path, p, _tr in grad_sync.dense_leaves(model)]
+
+
+def sync_inputs(dev):
+    """The kernels' inputs at the dense ring's shapes on the bench tower:
+    the whole padded vector (n = 1), one rank's chunk at n = 4 (a ring
+    hop's), the n = 4 all-gather's rows, and the tower's leaves (K15 at a
+    shared scale)."""
+    import torch
+
+    from persia_tpu_torch.parallel import grad_sync
+
+    sizes = sync_leaf_sizes()
+    p = sum(sizes)
+    _chunk1, ppad1 = grad_sync._flat_chunk(p, 1, SYNC_BLOCK)
+    chunk4, _ = grad_sync._flat_chunk(p, 4, SYNC_BLOCK)
+    gen = torch.Generator().manual_seed(SEED + 95)
+
+    def vec(n, scale=1.0):
+        return (torch.randn(n, generator=gen) * scale).to(dev)
+
+    g1 = torch.zeros(ppad1, device=dev)
+    g1[:p] = vec(p, 1e-2)
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+    return {"p": p, "sizes": sizes, "offsets": offsets, "ppad1": ppad1, "chunk4": chunk4,
+            "g1": g1, "ef1": vec(ppad1, 1e-5), "g4": vec(chunk4, 4e-2), "ef4": vec(chunk4, 1e-5),
+            "base4": vec(chunk4, 4e-2), "rows4": vec(4 * chunk4, 4e-2), "flat": vec(p, 1e-2),
+            "res": vec(p, 1e-5)}
+
+
+def phase_sync_kernels(dev):
+    """Phase 3h: the dense sync's kernels against their plain versions on
+    the card, bit for bit, at the bench tower's ring shapes: K16
+    (``block_quantize_int8``) on the whole padded vector with and without
+    the error feedback and on a rank's chunk at n = 4; K17
+    (``block_dequantize_int8``) as a hop's accumulate into the chunk (with
+    the feedback, in place) and as the all-gather's 4 rows rolled into
+    chunk order and the one row at n = 1; K15's scales-only mode
+    (``segment_absmax``) and its codes at a shared scale
+    (``quantize_int8_ef_shared``) over the tower's leaves, the residual in
+    place."""
+    import torch
+
+    from persia_tpu_torch.ops.block_int8 import (
+        block_dequantize_int8,
+        block_dequantize_int8_reference,
+        block_quantize_int8,
+        block_quantize_int8_reference,
+    )
+    from persia_tpu_torch.ops.quantize_int8 import (
+        quantize_int8_ef_reference,
+        quantize_int8_ef_shared,
+        segment_absmax,
+        segment_absmax_reference,
+    )
+
+    print("== phase 3h: the dense sync's kernels (K16, K17, K15 at a shared scale) vs their plain versions",
+          flush=True)
+    x = sync_inputs(dev)
+    bad = []
+    for name, v, ef in (("whole vector, feedback", x["g1"], x["ef1"]), ("whole vector", x["g1"], None),
+                        ("n=4 chunk, feedback", x["g4"], x["ef4"]), ("n=4 chunk", x["g4"], None)):
+        q, sc, err = block_quantize_int8(v, SYNC_BLOCK, ef=ef)
+        q2, sc2, err2 = block_quantize_int8_reference(v, SYNC_BLOCK, ef)
+        same = bits_equal(q, q2) and bits_equal(sc, sc2) and bits_equal(err.view(torch.int32), err2.view(torch.int32))
+        print(f"  block_quantize_int8 {name} ({v.numel()} elements): codes, scales, errors bitwise "
+              f"{'ok' if same else 'FAIL'}", flush=True)
+        if not same:
+            bad.append(f"block_quantize_int8 {name}")
+    q4, s4, _ = block_quantize_int8(x["rows4"], SYNC_BLOCK)
+    q1, s1, _ = block_quantize_int8(x["g1"], SYNC_BLOCK)
+    for name, q, sc, n, roll, base, ef in (("hop accumulate, feedback", q4[:x["chunk4"]], s4[:x["chunk4"] // SYNC_BLOCK],
+                                            1, 0, x["base4"], x["ef4"]),
+                                           ("all-gather, 4 rows", q4, s4, 4, 1, None, None),
+                                           ("n=1 row", q1, s1, 1, 0, None, None)):
+        want = block_dequantize_int8_reference(q, sc, SYNC_BLOCK, n, roll, base, ef)
+        got = block_dequantize_int8(q, sc, SYNC_BLOCK, n=n, roll=roll, base=None if base is None else base.clone(),
+                                    ef=ef)
+        same = bits_equal(got.view(torch.int32), want.view(torch.int32))
+        print(f"  block_dequantize_int8 {name} ({q.numel()} elements): bitwise {'ok' if same else 'FAIL'}", flush=True)
+        if not same:
+            bad.append(f"block_dequantize_int8 {name}")
+    offs = x["offsets"]
+    scale = segment_absmax(x["flat"], x["res"], offs)
+    same_s = bits_equal(scale, segment_absmax_reference(x["flat"], x["res"], offs))
+    plain = x["res"].clone()
+    q, sc, new = quantize_int8_ef_shared(x["flat"], x["res"].clone(), offs, scale)
+    q2, sc2, new2 = quantize_int8_ef_reference(x["flat"], plain, offs, scale=scale)
+    same_q = bits_equal(q, q2) and bits_equal(sc, sc2) and bits_equal(new.view(torch.int32), new2.view(torch.int32))
+    print(f"  segment_absmax over the tower's {len(offs) - 1} leaves ({x['p']} elements): bitwise "
+          f"{'ok' if same_s else 'FAIL'}; quantize_int8_ef_shared at those scales: codes, scales, residual bitwise "
+          f"{'ok' if same_q else 'FAIL'}", flush=True)
+    if not same_s:
+        bad.append("segment_absmax")
+    if not same_q:
+        bad.append("quantize_int8_ef_shared")
+    if bad:
+        raise SystemExit(f"the dense sync's kernels disagree with their plain versions: {bad}")
+    return {k: 0.0 for k in SYNC_KERNELS}
+
+
+def feeder_leg(device, sd, batches, sharded, stream=False):
+    """One leg of phase 4q: phase 4k saturated's ctx (2^18 rows) over a
+    fresh store, sharded (``feed_threads``, ``feed_shards``) or not, the
+    batches synchronous or as the stream; returns (record, the recorder's
+    steps, launches of the leg)."""
+    import torch
+
+    from persia_tpu_torch import ops
+
+    feed = dict(feed_threads=FEED_THREADS, feed_shards=FEED_SHARDS) if sharded else dict(feed_threads=1,
+                                                                                         feed_shards=0)
+    store = cache_store()
+    ctx = cache_ctx(device, CACHE_SAT_ROWS, store, sd, **feed)
+    rec = cache_recorder(ctx)
+    prep, prep_cpu = [], []
+    undo = timed_calls(ctx.tier, "prepare_batch", prep, prep_cpu)
+    d = ctx.tier.dirs["cache_d16"]
+    busy, stall = [], []
+    if device != "cpu":
+        torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    if stream:
+        ctx.train_stream(batches, **STREAM_KNOBS)
+        if device != "cpu":
+            torch.cuda.synchronize()
+    else:
+        for b in batches:
+            ctx.train_step(b, fetch_metrics=False)
+            if sharded:
+                busy.append(d.shard_busy_ns().tolist())
+                stall.append(d.shard_stall_ns().tolist())
+        ctx._land_pending()
+        if device != "cpu":
+            torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sizes = d.shard_sizes().tolist()
+    ctx.flush()
+    launches = launches_now()
+    undo()
+    st = ctx.stream_stats() if stream else None
+    record = {"sharded": sharded, "stream": stream, "samples_per_s": len(batches) * BATCH / wall, "wall_s": wall,
+              "prepare_batch_ms_p50": float(np.percentile(prep, 50)), "prepare_batch_ms_mean": float(np.mean(prep)),
+              "prepare_batch_cpu_ms_p50": float(np.percentile(prep_cpu, 50)),
+              "evictions": ctx.tier.evictions, "shards": d.shards, "feed_threads": d.feed_threads}
+    if busy:
+        b, s_ = np.asarray(busy), np.asarray(stall)
+        record.update(shard_busy_ns_p50=np.percentile(b, 50, axis=0).tolist(),
+                      shard_stall_ns_p50=np.percentile(s_, 50, axis=0).tolist(),
+                      shard_busy_ns_max=b.max(axis=0).tolist(), shard_sizes=sizes)
+    if st is not None:
+        record["lane_s"] = st.get("lane_s")
+        record["feeder"] = st.get("feeder")
+    del ctx
+    return record, rec, launches
+
+
+def path_sharded_feeder(dev):
+    """Phase 4q: the cache tier's sharded feeder at phase 4k saturated's
+    configuration (2^18 rows, its batches: ``FEED_STEPS`` of B=4096 over 26
+    slots), ``feed_threads=4, feed_shards=8`` beside the unsharded leg:
+    synchronous in turns (unsharded, sharded, unsharded, sharded), then
+    the stream (unsharded, sharded): samples/s, ``prepare_batch`` ms, each
+    shard's walk and queue ns (busy, stall). The last sharded synchronous
+    leg is counted; its directory decisions must equal the CPU port's
+    sharded run bit for bit at every step (the evictions start past step
+    32), and the sharded stream's those of the sharded synchronous
+    steps."""
+    import os
+
+    import torch
+
+    from persia_tpu_torch.models import DLRM
+    from persia_tpu_torch.weights import seeded_flax_params_like, state_dict_from_flax
+
+    cores = len(os.sched_getaffinity(0))
+    print(f"== phase 4q: the cache tier's sharded feeder (feed_threads={FEED_THREADS}, feed_shards={FEED_SHARDS}) "
+          f"beside the unsharded walk, {CACHE_SAT_ROWS} rows, {FEED_STEPS} steps of B={BATCH}; the host's usable "
+          f"cores: {cores}", flush=True)
+    model = DLRM(N_DENSE, N_SLOTS, EMB_DIM, BOTTOM, TOP, device="cpu")
+    sd = state_dict_from_flax(model, seeded_flax_params_like(model, SEED))
+    make = zipf_batch_maker(SEED + 60, labels=True)
+    batches = [make() for _ in range(FEED_STEPS)]
+    legs = {}
+    for stream, turns in ((False, 2), (True, 1)):
+        for turn in range(turns):
+            for sharded in (False, True):
+                t_leg = time.perf_counter()
+                rec, steps, launches = feeder_leg(dev, sd, batches, sharded, stream)
+                rec["leg_s"] = time.perf_counter() - t_leg
+                key = f"{'stream' if stream else 'sync'}_{'sharded' if sharded else 'unsharded'}"
+                legs.setdefault(key, []).append((rec, steps, launches))
+                print(f"  {key} (turn {turn}, {rec['leg_s']:.1f} s): samples/s {rec['samples_per_s']:.0f}, prepare_batch p50 "
+                      f"{rec['prepare_batch_ms_p50']:.2f} ms (thread CPU {rec['prepare_batch_cpu_ms_p50']:.2f}), "
+                      f"evictions {rec['evictions']}"
+                      + (f", shard busy p50 ns {rec['shard_busy_ns_p50']}, stall p50 ns {rec['shard_stall_ns_p50']}"
+                         if "shard_busy_ns_p50" in rec else ""), flush=True)
+                gc.collect()
+                torch.cuda.empty_cache()
+    rec, steps, launches = legs["sync_sharded"][-1]
+    touched = sum(st["touched"] for st in steps)
+    expect_launches("sharded feeder (counted leg)", launches, cached_gather=FEED_STEPS, cache_aux=touched,
+                    gather_entry_rows=1, sparse_update=FEED_STEPS, dot_interaction=FEED_STEPS,
+                    dot_interaction_bwd=FEED_STEPS)
+    t = time.perf_counter()
+    _cpu, cpu_steps, _ = feeder_leg("cpu", sd, batches, True)
+    cpu_s = time.perf_counter() - t
+    same = [a["digest"] == b["digest"] for a, b in zip(steps, cpu_steps)]
+    evicting = sum(st["evictions"] > 0 for st in steps)
+    stream_same = [a["decisions"] == b["decisions"] for a, b in zip(steps, legs["stream_sharded"][-1][1])]
+    unsharded_same = [a["decisions"] == b["decisions"] for a, b in zip(steps, legs["sync_unsharded"][-1][1])]
+    print(f"  the sharded directory's decisions = the CPU port's sharded run at {sum(same)} of {len(same)} steps "
+          f"({evicting} of them evicting; CPU {cpu_s:.1f} s); the sharded stream's = the sharded synchronous steps' at {sum(stream_same)} of "
+          f"{len(stream_same)}; the unsharded walk's at {sum(unsharded_same)} of {len(unsharded_same)} (the shard "
+          f"count decides row assignment)", flush=True)
+    if len(same) != FEED_STEPS or not all(same) or not all(stream_same) or len(stream_same) != FEED_STEPS:
+        raise SystemExit("sharded feeder: the card's decisions differ from the CPU port's or the stream's")
+    if rec["evictions"] == 0 or not evicting:
+        raise SystemExit("sharded feeder: the saturated regime evicted nothing")
+    record = {"cores": cores, "steps": FEED_STEPS, "rows": CACHE_SAT_ROWS, "feed_threads": FEED_THREADS,
+              "feed_shards": FEED_SHARDS, "legs": {k: [r for r, _s, _l in v] for k, v in legs.items()},
+              "decisions_equal_cpu": all(same), "stream_decisions_equal_sync": all(stream_same),
+              "steps_equal_unsharded": sum(unsharded_same)}
+    for k, v in legs.items():
+        sps = [r["samples_per_s"] for r, _s, _l in v]
+        prep = [r["prepare_batch_ms_p50"] for r, _s, _l in v]
+        print(f"  {k}: samples/s by turn {[round(x) for x in sps]}, prepare_batch p50 ms {[round(x, 3) for x in prep]}",
+              flush=True)
+    return {"sharded_feeder": launches}, record
+
+
+def path_dense_sync(dev):
+    """Phase 4r: ``TrainCtx(mesh=data_parallel_mesh(), dense_sync=mode)``
+    for each of the six modes at bench width (``SYNC_SPEC``, B=4096),
+    ``SYNC_STEPS`` steps each, at world size 1 over NCCL (a process group
+    of this process alone; counted: K16 and K17 once a step in the ring,
+    K15's two modes once a step in bytegrad), held to the CPU port
+    (``SYNC_LOSS_RTOL``, ``SYNC_PARAM_ATOL``); then a two-rank leg on this
+    one card over gloo (NCCL refuses two ranks on one device; gloo's
+    payloads through pinned host memory, K16 and K17 on the card) for
+    ``TWO_RANK_MODES``, every rank's parameters the same bits, held to the
+    same two ranks on the CPU; ``dense_wire_bytes_per_step`` of each."""
+    import torch
+    import torch.distributed as dist
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.distributed import initialize_process_group
+    from persia_tpu_torch.parallel import grad_sync
+    from persia_tpu_torch.parallel.mesh import data_parallel_mesh
+    from persia_tpu_torch.testing import dense_sync as tds
+
+    modes = grad_sync.DENSE_SYNC_MODES
+    print(f"== phase 4r: the hybrid tier's dense sync modes {list(modes)} at bench width (B={BATCH}, "
+          f"{SYNC_STEPS} steps), world size 1 over NCCL", flush=True)
+    initialize_process_group(backend="nccl", init_method=f"tcp://localhost:{tds.free_port()}", world_size=1, rank=0)
+    try:
+        mesh = data_parallel_mesh()
+        if (mesh.size, mesh.backend) != (1, "nccl"):
+            raise SystemExit(f"dense sync: a mesh of {mesh.size} ranks over {mesh.backend}")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        card = {m: tds.run_case(mesh, dict(mode=m, steps=SYNC_STEPS, seed=SEED + 90), SYNC_SPEC, dev) for m in modes}
+        torch.cuda.synchronize()
+        launches = launches_now()
+    finally:
+        dist.destroy_process_group()
+    expect_path_launches("dense sync (world size 1)", launches,
+                         exact={"block_quantize_int8": SYNC_STEPS, "block_dequantize_int8": SYNC_STEPS,
+                                "segment_absmax": SYNC_STEPS, "quantize_int8_ef_shared": SYNC_STEPS},
+                         at_least=("dot_interaction", "dot_interaction_bwd"))
+    t = time.perf_counter()
+    cpu = {m: tds.run_case(data_parallel_mesh(), dict(mode=m, steps=SYNC_STEPS, seed=SEED + 90), SYNC_SPEC,
+                           torch.device("cpu")) for m in modes}
+    cpu_s = time.perf_counter() - t
+    record = {"spec": {k: list(v) if isinstance(v, tuple) else v for k, v in SYNC_SPEC.items() if k != "vocabs"},
+              "params": int(grad_sync.dense_param_count(tds.model_and_params(SYNC_SPEC)[0])), "modes": {}}
+    p = record["params"]
+    bad = []
+    for m in modes:
+        a, b = card[m], cpu[m]
+        loss_err = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], b["losses"]))
+        param_err = float(np.abs(a["params"] - b["params"]).max())
+        per_step = a["launches"]
+        record["modes"][m] = {"losses": a["losses"], "cpu_losses": b["losses"], "loss_rel_err_vs_cpu": loss_err,
+                              "param_max_abs_err_vs_cpu": param_err, "launches_per_step": per_step,
+                              "sync_mode": a["sync_mode"], "wire_bytes_per_step": a["wire_bytes"],
+                              "wire_bytes_modelled": {n: grad_sync.dense_sync_wire_bytes(m, p, n) for n in (2, 4, 8)},
+                              "opt_state_bytes": a["opt_state_bytes"]}
+        print(f"  {m}: losses {[round(x, 6) for x in a['losses']]} (CPU {[round(x, 6) for x in b['losses']]}, "
+              f"rel err {loss_err:.2e}), params max abs err vs CPU {param_err:.2e}; a step's launches "
+              f"{per_step[-1]}; wire bytes a step {a['wire_bytes']} (modelled at n=2/4/8: "
+              f"{record['modes'][m]['wire_bytes_modelled']})", flush=True)
+        if loss_err > SYNC_LOSS_RTOL or param_err > SYNC_PARAM_ATOL or not np.isfinite(a["losses"]).all():
+            bad.append(m)
+    print(f"  (CPU port {cpu_s:.1f} s)", flush=True)
+    if bad:
+        raise SystemExit(f"dense sync: card and CPU disagree in {bad}")
+    # the two-rank leg on the one card, over gloo
+    print(f"  two ranks on the one card over gloo: {list(TWO_RANK_MODES)}", flush=True)
+    cases = [dict(mode=m, steps=SYNC_STEPS, seed=SEED + 90) for m in TWO_RANK_MODES]
+    # the CPU's two ranks run beside the card's (each leg's own processes)
+    t = time.perf_counter()
+    two_cpu_s = [0.0]
+
+    def cpu_leg():
+        try:
+            return tds.run_ranks(2, cases, spec=SYNC_SPEC, device="cpu", backend="gloo", timeout=420)
+        finally:
+            two_cpu_s[0] = time.perf_counter() - t
+
+    with ThreadPoolExecutor(1) as pool:
+        cpu_future = pool.submit(cpu_leg)
+        two = tds.run_ranks(2, cases, spec=SYNC_SPEC, device=TWO_RANK_DEVICE, backend="gloo", timeout=420)
+        two_s = time.perf_counter() - t
+        two_cpu = cpu_future.result()
+    two_cpu_s = two_cpu_s[0]
+    record["two_rank"] = {"seconds": two_s, "cpu_seconds": two_cpu_s, "modes": {}}
+    two_launches = dict.fromkeys(SYNC_KERNELS, 0)
+    for i, m in enumerate(TWO_RANK_MODES):
+        r0, r1, c0 = two[0][i], two[1][i], two_cpu[0][i]
+        same = np.array_equal(r0["params"], r1["params"]) and np.array_equal(two_cpu[1][i]["params"], c0["params"])
+        loss_err = max(abs(x - y) / abs(y) for x, y in zip(r0["losses"], c0["losses"]))
+        param_err = float(np.abs(r0["params"] - c0["params"]).max())
+        ring = m.startswith("block-int8-ring")
+        want = {"block_quantize_int8": (1 if m.endswith("sharded") else 2) * ring,
+                "block_dequantize_int8": (1 if m.endswith("sharded") else 2) * ring}
+        got = {k: r0["launches"][-1][k] for k in want}
+        for r in (r0, r1):
+            for k in SYNC_KERNELS:
+                two_launches[k] += sum(st[k] for st in r["launches"])
+        ef_max = float(np.abs(r0["ef"]).max()) if r0["ef"] is not None else None
+        record["two_rank"]["modes"][m] = {"losses": r0["losses"], "cpu_losses": c0["losses"],
+                                          "params_same_on_both_ranks": same, "loss_rel_err_vs_cpu": loss_err,
+                                          "param_max_abs_err_vs_cpu": param_err, "launches_per_step": got,
+                                          "wire_bytes_per_step": r0["wire_bytes"], "ef_max_abs": ef_max,
+                                          "opt_state_bytes": r0["opt_state_bytes"]}
+        print(f"  {m} at 2 ranks: losses {[round(x, 6) for x in r0['losses']]} (CPU rel err {loss_err:.2e}), "
+              f"params max abs err vs CPU {param_err:.2e}, both ranks' parameters the same bits: {same}; a rank's "
+              f"launches a step {got} (expected {want}); wire bytes a step {r0['wire_bytes']}; |ef| max {ef_max}; "
+              f"optimizer state a rank {r0['opt_state_bytes']} B", flush=True)
+        if not same or got != want or loss_err > SYNC_LOSS_RTOL or param_err > SYNC_PARAM_ATOL \
+                or r0["wire_bytes"] != grad_sync.dense_sync_wire_bytes(m, p, 2):
+            raise SystemExit(f"dense sync at two ranks on the card: {m} failed")
+    print(f"  two ranks: card {two_s:.1f} s, CPU {two_cpu_s:.1f} s, side by side (process start included)",
+          flush=True)
+    inputs = sync_inputs(dev)
+    return {"dense_sync": launches, "dense_sync_two_ranks": two_launches}, record, inputs
+
+
+def time_sync_kernels(dev, launches, errs, inputs, floor):
+    """Phase 5's rows of K16, K17 and K15 at a shared scale at the bench
+    tower's ring shapes (``sync_inputs``): graph-replayed warm and cold,
+    beside the plain version (composed PyTorch calls), the bound; K16 on
+    the whole padded vector with the feedback (a ring at n = 1), K17 as a
+    hop's accumulate at n = 4's chunk, K15's scales and codes over the
+    tower's leaves."""
+    import torch
+
+    from persia_tpu_torch.ops.block_int8 import (
+        block_dequantize_int8,
+        block_dequantize_int8_reference,
+        block_quantize_int8,
+        block_quantize_int8_reference,
+    )
+    from persia_tpu_torch.ops.quantize_int8 import (
+        quantize_int8_ef_reference,
+        quantize_int8_ef_shared,
+        segment_absmax,
+    )
+
+    x = inputs
+    n1, n4, p = x["ppad1"], x["chunk4"], x["p"]
+    offs = x["offsets"]
+    segs = len(offs) - 1
+    lengths = torch.tensor(np.diff(offs), device=dev)
+    seg_ids = torch.repeat_interleave(torch.arange(segs, device=dev), lengths)
+    scale = segment_absmax(x["flat"], x["res"], offs)
+    err1 = torch.empty_like(x["g1"])
+    q4, s4, _ = block_quantize_int8(x["g4"], SYNC_BLOCK)
+    acc = x["base4"].clone()
+    res = x["res"].clone()
+
+    def absmax_composed():
+        v = x["flat"] + x["res"]
+        return torch.zeros(segs, device=dev).scatter_reduce_(0, seg_ids, v.abs(), "amax").clamp_min(1e-30)
+
+    def shared_composed():
+        v = x["flat"] + res
+        step = scale / torch.full_like(scale, 127.0)
+        t_ = torch.round(v / scale[seg_ids] * 127.0).clamp_(-127, 127)
+        return t_.to(torch.int8), v - t_ * step[seg_ids]
+
+    cases = {
+        "block_quantize_int8": dict(
+            kernel=lambda: block_quantize_int8(x["g1"], SYNC_BLOCK, ef=x["ef1"], err=err1),
+            plain=lambda: block_quantize_int8_reference(x["g1"], SYNC_BLOCK, x["ef1"]),
+            cold=(lambda v, e, r: block_quantize_int8(v, SYNC_BLOCK, ef=e, err=r),
+                  lambda: (x["g1"].clone(), x["ef1"].clone(), torch.empty_like(x["g1"])), n1 * 12),
+            bytes=n1 * 13 + n1 // SYNC_BLOCK * 4, ops=6 * n1, shape=[n1, SYNC_BLOCK, "n=1 whole vector, feedback"]),
+        "block_dequantize_int8": dict(
+            kernel=lambda: block_dequantize_int8(q4, s4, SYNC_BLOCK, base=acc, ef=x["ef4"], out=acc),
+            plain=lambda: block_dequantize_int8_reference(q4, s4, SYNC_BLOCK, 1, 0, acc, x["ef4"]),
+            cold=(lambda q, sc, b, e: block_dequantize_int8(q, sc, SYNC_BLOCK, base=b, ef=e, out=b),
+                  lambda: (q4.clone(), s4.clone(), x["base4"].clone(), x["ef4"].clone()), n4 * 9),
+            bytes=n4 * 13 + n4 // SYNC_BLOCK * 4, ops=4 * n4, shape=[n4, SYNC_BLOCK, "n=4 hop accumulate, feedback"]),
+        "segment_absmax": dict(
+            kernel=lambda: segment_absmax(x["flat"], x["res"], offs), plain=absmax_composed,
+            cold=(lambda g, r: segment_absmax(g, r, offs), lambda: (x["flat"].clone(), x["res"].clone()), p * 8),
+            bytes=p * 8 + segs * 4, ops=3 * p, shape=[segs, p, "the tower's leaves"]),
+        "quantize_int8_ef_shared": dict(
+            kernel=lambda: quantize_int8_ef_shared(x["flat"], res, offs, scale), plain=shared_composed,
+            cold=(lambda g, r: quantize_int8_ef_shared(g, r, offs, scale), lambda: (x["flat"].clone(), x["res"].clone()),
+                  p * 8),
+            bytes=p * 13 + segs * 8, ops=6 * p, shape=[segs, p, "the tower's leaves"]),
+    }
+    rows = []
+    for name, c in cases.items():
+        bms, by = bound(c["bytes"], c["ops"], "float32")
+        k0, p0, k1 = timings(c["kernel"]), timings(c["plain"]), timings(c["kernel"])
+        cold = [cold_ms(c["cold"][0], c["cold"][1], c["cold"][2])["ms"] for _ in range(2)]
+        if name == "quantize_int8_ef_shared":
+            reference = timings(lambda: quantize_int8_ef_reference(x["flat"], x["res"], offs, scale=scale))["graph"]
+        else:
+            reference = None
+        by_path = {path: la[name] for path, la in launches.items() if la.get(name)}
+        r = dict(name=name if name != "quantize_int8_ef_shared" else "quantize_int8_ef[shared scale]",
+                 route="cuda", cuda_route="cuda",
+                 source=SYNC_SOURCE if name.startswith("block") else K15_SOURCE, replaces=SYNC_REPLACES[name],
+                 launches=launches["dense_sync"][name], launches_by_path=by_path, max_abs_err=errs[name],
+                 shape=c["shape"], ms=min(k0["graph"], k1["graph"]), ms_runs=[k0["graph"], k1["graph"]],
+                 eager_ms=min(k0["eager"], k1["eager"]), plain_ms=p0["graph"], plain_eager_ms=p0["eager"],
+                 bound_ms=bms, bound_by=by, library_ms=None, composite_ms=p0["graph"], cold_ms=min(cold),
+                 cold_ms_runs=cold, note="no single PyTorch call computes it; the plain version's composed calls: "
+                                         "composite_ms")
+        if reference is not None:
+            r["plain_ms"] = reference  # the loop a segment the tests hold it to; composite_ms is vectorised
+        r["over_launch_floor"] = r["ms"] / min(floor)
+        r["ms_over_floor"] = r["ms"] - min(floor)
+        r["cold_ms_over_floor"] = r["cold_ms"] - min(floor)
+        r["cold_share"] = bms / r["cold_ms"]
+        print(f"  {r['name']} ({c['shape']}): warm {r['ms_runs']} ms, cold {cold} ms, bound {bms:.5f} ({by}; "
+              f"{r['cold_share']:.1%} cold, {bms / r['ms']:.1%} warm), {r['over_launch_floor']:.2f}x the launch "
+              f"floor; plain {r['plain_ms']:.4f} ms, composed {r['composite_ms']:.4f} ms; launches {by_path}",
+              flush=True)
+        rows.append(r)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -7802,7 +8328,7 @@ def main() -> int:
     phase("3b (1TB)", phase_fused_1tb_kernels, dev)
     errs.update({**phase("3c", phase_din_kernels, dev), **phase("3d", phase_bn_kernels, dev),
                  **phase("3e", phase_cache_kernels, dev), **phase("3f", phase_quant_kernels, dev),
-                 **phase("3g", phase_precision_kernels, dev)})
+                 **phase("3g", phase_precision_kernels, dev), **phase("3h", phase_sync_kernels, dev)})
     fa_routes = phase("4a", path_flash_attention, dev)
     serving_launches, serving, feats_shape = phase("4b", path_serving, dev)
     training_launches, training, train_batch = phase("4c", path_training, dev)
@@ -7847,7 +8373,12 @@ def main() -> int:
     phase("5 (1TB)", time_fused_1tb, dev, rows)
     profiler_after = profiler_records_device_work(dev)
     print(f"  a profiler session after phases 4l-4n records device work: {profiler_after}", flush=True)
-    new_paths = {**fused_models_launches, **prec_launches, **criteo_launches, **h100t_launches, **quality_launches}
+    feeder_launches, feeder = phase("4q", path_sharded_feeder, dev)
+    sync_launches, dense_sync, sync_inputs_ = phase("4r", path_dense_sync, dev)
+    rows += phase("5 (dense sync)", time_sync_kernels, dev, sync_launches, errs, sync_inputs_, floor)
+    del sync_inputs_
+    new_paths = {**fused_models_launches, **prec_launches, **criteo_launches, **h100t_launches, **quality_launches,
+                 **feeder_launches, **sync_launches}
     launches.update(new_paths)
     # the launches the new paths' counted runs made of each kernel
     for r in rows:
@@ -7872,6 +8403,8 @@ def main() -> int:
     print(json.dumps({"criteo": criteo, "card": card}), flush=True)
     print(json.dumps({"synthetic_100t": h100t, "card": card}), flush=True)
     print(json.dumps({"quality": quality, "card": card}), flush=True)
+    print(json.dumps({"sharded_feeder": feeder, "card": card}), flush=True)
+    print(json.dumps({"dense_sync": dense_sync, "card": card}), flush=True)
     print(json.dumps({"phase_seconds": seconds, "profiler_records_device_work": {
         "before_phase_5": profiler_before, "after_4o_4p": profiler_mid, "after_4l_4n": profiler_after},
         "card": card}), flush=True)

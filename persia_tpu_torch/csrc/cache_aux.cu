@@ -45,8 +45,9 @@
 //
 // Design: one kernel, one launch a call. (a) must read an evicted row
 // before (b), (c) or (d) rewrites it, and a miss usually takes the row an
-// eviction frees. The host knows which: the directory hands the k rows a
-// call evicts to its last k misses, in order, so the tier pairs each write
+// eviction frees. The host knows which: each of the k rows a call evicts
+// is taken by one of its misses (the unsharded directory's last k, in
+// order; a sharded one's last of each shard), so the tier pairs each write
 // with the payload slot of the row it overwrites (m_slot, c_slot, r_slot;
 // -1 for none) and lists the slots no write claims (ev_free, -1 pads). One
 // item space: warm writes, then cold writes, then restores, then the

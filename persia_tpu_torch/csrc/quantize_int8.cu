@@ -25,6 +25,15 @@
 // (finite 0) every code is 0, every scale 0 and the residual is left as it
 // was (the host drops the step's gradients).
 //
+// At a shared scale (the dense bytegrad all-reduce): the same kernel in two
+// more modes. With q null it writes the scales alone (the segments'
+// max(max |v|, 1e-30), which the caller all-reduces with MAX); with
+// scale_in (S f32 in device memory, one a segment) it takes scale =
+// max(scale_in[s], 1e-30) instead of the segment's own maximum, skipping
+// the maximum and the cluster's exchange, and writes codes, scales and
+// residual as above (persia_tpu/parallel/grad_sync.py:279-297,
+// quantize_int8_ef(g, r, scale=pmax(...)) a leaf at a time).
+//
 // Replaces: persia_tpu/parallel/grad_sync.py:244-260 (quantize_int8_ef) as
 // persia_tpu/embedding/hbm_cache/step.py:361-415 calls it, a slot at a
 // time, with the unscale f * inv and the finite gate (the codes and the
@@ -292,7 +301,8 @@ template <typename T, int VEC>
 __global__ void __launch_bounds__(kMaxQuantThreads)
     quantize_int8_ef_kernel(const T* __restrict__ g, const float* r, QuantSegments segs, int units,
                             const float* __restrict__ inv, const float* __restrict__ finite,
-                            int8_t* __restrict__ q, float* __restrict__ scales, float* r_out) {
+                            const float* __restrict__ scale_in, int8_t* __restrict__ q, float* __restrict__ scales,
+                            float* r_out) {
   constexpr int kUnits = VEC == 8 ? kMaxUnitsWide : kMaxUnitsScalar;
   __shared__ float warp_max[kMaxQuantWarps];
   __shared__ unsigned slots[kMaxQuantCluster];
@@ -357,9 +367,10 @@ __global__ void __launch_bounds__(kMaxQuantThreads)
   }
 
   // the maximum: the span's rest past the registers (read here once for
-  // it), the held units, the edge element
+  // it), the held units, the edge element; none at a shared scale
+  const bool shared = scale_in != nullptr;
   float m = 0.0f;
-  for (int u = held + tid; u < u1 - u0; u += threads) {
+  for (int u = held + tid; !shared && u < u1 - u0; u += threads) {
     const int i = body + (u0 + u) * VEC;
     Unit<T, VEC> x;
     x.load(g + i, r + i);
@@ -381,18 +392,25 @@ __global__ void __launch_bounds__(kMaxQuantThreads)
   if (edge >= 0) m = abs_max(m, fabsf(ev));
 
   // the block's maximum (warp shuffles, then the warps in shared memory),
-  // then the cluster's, pushed through distributed shared memory
-  for (int d = 16; d > 0; d >>= 1) m = abs_max(m, __shfl_xor_sync(kFull, m, d));
-  if ((tid & 31) == 0) warp_max[tid >> 5] = m;
-  __syncthreads();
-  m = warp_max[0];
-  for (int w = 1; w < (threads >> 5); ++w) m = abs_max(m, warp_max[w]);
-  if (blocks > 1) m = cluster_abs_max(m, slots, rank, blocks);
+  // then the cluster's, pushed through distributed shared memory; or the
+  // caller's scale
+  if (shared) {
+    if (blocks > 1) cluster_wait();  // the arrive above is matched
+    m = __ldg(scale_in + s);
+  } else {
+    for (int d = 16; d > 0; d >>= 1) m = abs_max(m, __shfl_xor_sync(kFull, m, d));
+    if ((tid & 31) == 0) warp_max[tid >> 5] = m;
+    __syncthreads();
+    m = warp_max[0];
+    for (int w = 1; w < (threads >> 5); ++w) m = abs_max(m, warp_max[w]);
+    if (blocks > 1) m = cluster_abs_max(m, slots, rank, blocks);
+  }
   const Scale sc = make_scale(m);
   if (rank == 0 && tid == 0) {
     scales[s] = sc.scale;
     if (finite != nullptr && s == 0) scales[gridDim.x] = 1.0f;  // the finite tail
   }
+  if (q == nullptr) return;  // the scales alone
 
   // the codes and the residual: the held units from registers, the edge
   // element, then the span's rest read a second time
@@ -438,9 +456,9 @@ int check_plan(int vec, int threads, int units, int cluster, const void* g, cons
 // and finite: both null, or device f32 scalars (the loss scale's); q (n,)
 // int8; scales (segments,) f32, (segments + 1,) with finite; vec,
 // threads, units, cluster: the plan. Returns a CUDA error code.
-extern "C" int persia_quantize_int8_ef(const void* g, int dtype, const float* r, const int* offsets, int segments,
-                                       const float* inv, const float* finite, int8_t* q, float* scales,
-                                       float* r_out, int vec, int threads, int units, int cluster, void* stream) {
+static int launch_quantize(const void* g, int dtype, const float* r, const int* offsets, int segments,
+                           const float* inv, const float* finite, const float* scale_in, int8_t* q, float* scales,
+                           float* r_out, int vec, int threads, int units, int cluster, void* stream) {
   if (segments < 0 || segments > kMaxQuantSegments || offsets == nullptr || offsets[0] != 0 ||
       (dtype != persia::kFloat32 && dtype != persia::kBFloat16)) {
     return cudaErrorInvalidValue;
@@ -451,16 +469,20 @@ extern "C" int persia_quantize_int8_ef(const void* g, int dtype, const float* r,
     segs.off[s] = offsets[s];
   }
   if (segments == 0) return cudaSuccess;
-  if (offsets[segments] > 0 && (g == nullptr || r == nullptr || q == nullptr || r_out == nullptr)) {
+  // q null (the scales alone) asks for no residual and no shared scale
+  const bool scales_only = q == nullptr;
+  if (offsets[segments] > 0 && (g == nullptr || r == nullptr || (!scales_only && r_out == nullptr))) {
     return cudaErrorInvalidValue;
   }
   if (scales == nullptr || (inv == nullptr) != (finite == nullptr)) return cudaErrorInvalidValue;
-  int rc = check_plan(vec, threads, units, cluster, g, r, q, r_out);
+  if (scales_only && (scale_in != nullptr || r_out != nullptr)) return cudaErrorInvalidValue;
+  int rc = check_plan(vec, threads, units, cluster, g, r, scales_only ? reinterpret_cast<const int8_t*>(r) : q,
+                      scales_only ? r : r_out);
   if (rc != cudaSuccess) return rc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PERSIA_QUANT(T, V)                                                                                    \
   rc = launch_clusters(quantize_int8_ef_kernel<T, V>, segments, cluster, threads, st, static_cast<const T*>(g), \
-                       r, segs, units, inv, finite, q, scales, r_out)
+                       r, segs, units, inv, finite, scale_in, q, scales, r_out)
   if (dtype == persia::kFloat32) {
     if (vec == 8) PERSIA_QUANT(float, 8); else PERSIA_QUANT(float, 1);
   } else {
@@ -468,4 +490,24 @@ extern "C" int persia_quantize_int8_ef(const void* g, int dtype, const float* r,
   }
 #undef PERSIA_QUANT
   return rc != cudaSuccess ? rc : static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int persia_quantize_int8_ef(const void* g, int dtype, const float* r, const int* offsets, int segments,
+                                       const float* inv, const float* finite, int8_t* q, float* scales,
+                                       float* r_out, int vec, int threads, int units, int cluster, void* stream) {
+  if (q == nullptr) return cudaErrorInvalidValue;
+  return launch_quantize(g, dtype, r, offsets, segments, inv, finite, nullptr, q, scales, r_out, vec, threads, units,
+                         cluster, stream);
+}
+
+// At a shared scale: q null writes the scales alone (scale_in and r_out
+// null); else scale_in (segments,) f32 on the device gives each segment's
+// scale. No loss-scale gate (inv and finite null).
+extern "C" int persia_quantize_int8_ef_shared(const void* g, int dtype, const float* r, const int* offsets,
+                                              int segments, const float* scale_in, int8_t* q, float* scales,
+                                              float* r_out, int vec, int threads, int units, int cluster,
+                                              void* stream) {
+  if (q != nullptr && scale_in == nullptr) return cudaErrorInvalidValue;
+  return launch_quantize(g, dtype, r, offsets, segments, nullptr, nullptr, scale_in, q, scales, r_out, vec, threads,
+                         units, cluster, stream);
 }

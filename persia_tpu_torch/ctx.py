@@ -6,6 +6,15 @@ update on the device → gradient return to the parameter servers) and the
 pipelined one, on batches a ``persia_tpu_torch.data_loader.DataLoader``
 looked up and staged; ``InferCtx`` runs the lookup-direct forward.
 
+Data parallelism: ``TrainCtx(mesh=data_parallel_mesh(), dense_sync=mode)``
+trains the dense half synchronously over the mesh's ranks (one process a
+device, ``parallel.mesh``), every rank calling ``train_step`` with the same
+global batch. Rank 0 holds the worker: it looks the batch up, hands every
+rank the staged embeddings (each rank takes its rows), and applies the
+global batch's embedding gradients, which the step gathers, once. The
+dense gradients meet through ``mode`` (``parallel.grad_sync``); at one
+rank nothing moves.
+
 Durable state: ``EmbeddingCtx.dump_checkpoint`` / ``load_checkpoint`` write
 and read a checkpoint directory (the dense state in flax's bytes, the
 tables as per-shard files), and ``TrainCtx.snapshot_job`` / ``resume``
@@ -33,6 +42,7 @@ from persia_tpu_torch.embedding.worker import (
 )
 from persia_tpu_torch.ops.embedding_pool import pool_csr
 from persia_tpu_torch.ops.raw_gather import raw_csr
+from persia_tpu_torch.parallel.mesh import DataMesh
 from persia_tpu_torch.parallel.train_step import (
     TrainState,
     build_eval_step,
@@ -168,7 +178,7 @@ class EmbeddingCtx:
 
     def __init__(
         self, worker: EmbeddingWorker, embedding_config: EmbeddingConfig, device=None,
-        wire_dtype: Optional[str] = None,
+        wire_dtype: Optional[str] = None, mesh: Optional[DataMesh] = None,
     ):
         if wire_dtype not in WIRE_DTYPES:
             raise ValueError(f"wire_dtype must be one of {WIRE_DTYPES}, got {wire_dtype!r}")
@@ -176,6 +186,12 @@ class EmbeddingCtx:
         self.embedding_config = embedding_config
         self.device = resolve_device(device)
         self.wire_dtype = None if wire_dtype == "float32" else wire_dtype
+        self.mesh = mesh
+
+    @property
+    def _lead(self) -> bool:
+        """This rank holds the worker (rank 0, or no mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
 
     def prepare_features(
         self, batch: PersiaBatch, emb_batches: Sequence[FeatureEmbeddingBatch], csr: bool = False,
@@ -220,20 +236,26 @@ class EmbeddingCtx:
 
     def dump_checkpoint(self, dst: str) -> None:
         """The dense state (``dense.ckpt``, flax's bytes) and the embedding
-        tables (``EmbeddingWorker.dump``) into the directory ``dst``."""
+        tables (``EmbeddingWorker.dump``) into the directory ``dst``. Over
+        a mesh every rank calls it (the dense bytes gather the ranks'
+        rows) and rank 0 writes."""
         state = self._dense_state()
-        if state is not None:
-            dump_dense(train_state_to_flax_bytes(state), dst)
-        self.worker.dump(dst)
+        raw = train_state_to_flax_bytes(state) if state is not None else None
+        if self._lead:
+            if raw is not None:
+                dump_dense(raw, dst)
+            self.worker.dump(dst)
 
     def load_checkpoint(self, src: str) -> None:
         """Load a checkpoint directory of either package: the dense state,
-        where both it and the ctx have one, in place, and the tables."""
+        where both it and the ctx have one, in place, and the tables (on
+        rank 0; every rank reads the dense state)."""
         state = self._dense_state()
         raw = load_dense(src, missing_ok=True) if state is not None else None
         if raw is not None:
             train_state_from_flax_bytes(state, raw)
-        self.worker.load(src)
+        if self._lead:
+            self.worker.load(src)
 
 
 class TrainCtx(EmbeddingCtx):
@@ -244,6 +266,17 @@ class TrainCtx(EmbeddingCtx):
     ``embedding_optimizer`` a sparse one of ``persia_tpu_torch.embedding.optim``,
     registered on every parameter-server replica by ``__enter__``. The model
     moves to the ctx's device.
+
+    ``mesh`` (``parallel.mesh.data_parallel_mesh()``) and ``dense_sync`` (a
+    mode of ``grad_sync.DENSE_SYNC_MODES``; ``dense_sync_block_size`` the
+    ring's block): the dense half trains data-parallel over the mesh's
+    ranks (the module's docstring), every rank holding the same
+    parameters; ``worker`` is rank 0's (None elsewhere). ``dense_sync``
+    needs a mesh and excludes the dynamic loss scale; a mesh of more than
+    one rank without it syncs as "f32" and is labelled "implicit-psum"
+    (``sync_mode``). The bytegrad residual lives on the ctx and is lost on
+    a resume, as the reference's; the ring's error feedback and the
+    sharded moments are durable state.
     """
 
     def __init__(
@@ -251,7 +284,7 @@ class TrainCtx(EmbeddingCtx):
         model: torch.nn.Module,
         dense_optimizer: torch.optim.Optimizer,
         embedding_optimizer,
-        worker: EmbeddingWorker,
+        worker: Optional[EmbeddingWorker],
         embedding_config: EmbeddingConfig,
         device=None,
         grad_scale: float = 1.0,
@@ -261,8 +294,13 @@ class TrainCtx(EmbeddingCtx):
         loss_scale_init: float = float(2 ** 15),
         loss_scale_growth_interval: int = 2000,
         loss_scale_max: float = float(2 ** 24),
+        mesh: Optional[DataMesh] = None,
+        dense_sync: Optional[str] = None,
+        dense_sync_block_size: int = 256,
     ):
-        super().__init__(worker, embedding_config, device=device, wire_dtype=wire_dtype)
+        super().__init__(worker, embedding_config, device=device, wire_dtype=wire_dtype, mesh=mesh)
+        if worker is None and self._lead:
+            raise ValueError("rank 0 (or a ctx without a mesh) needs the worker")
         self.model = model.to(self.device)
         self.dense_optimizer = dense_optimizer
         self.embedding_optimizer = embedding_optimizer
@@ -277,6 +315,25 @@ class TrainCtx(EmbeddingCtx):
             max_scale=loss_scale_max,
             **kwargs,
         )
+        # the dense sync: an explicit mode, or "f32" under the label
+        # "implicit-psum" on a mesh of more than one rank
+        self.dense_sync = dense_sync
+        self.dense_sync_block_size = int(dense_sync_block_size)
+        self._sync_algorithm, self._sync_sharded = None, False
+        self._dense_wire_bytes_per_step = 0
+        if dense_sync is not None:
+            if mesh is None:
+                raise ValueError("dense_sync requires a device mesh")
+            if dynamic_loss_scale:
+                raise ValueError("dense_sync and dynamic_loss_scale are mutually exclusive: the explicit-collective "
+                                 "step has no loss-scale path")
+        mode = dense_sync if dense_sync is not None else ("f32" if mesh is not None and mesh.size > 1 else None)
+        if mode is not None:
+            from persia_tpu_torch.parallel.grad_sync import build_sync_train_step, sync_mode_algorithm
+
+            self._sync_algorithm, self._sync_sharded = sync_mode_algorithm(mode, self.dense_sync_block_size)
+            self._train_step = build_sync_train_step(self.model, dense_optimizer, mesh, self._sync_algorithm,
+                                                     sharded_update=self._sync_sharded, **kwargs)
         self._eval_step = build_eval_step(self.model)
         self.state: Optional[TrainState] = None
         # pipelined steps: the gradients' device→host stream (a card only),
@@ -290,15 +347,49 @@ class TrainCtx(EmbeddingCtx):
         self.last_resume_info: Optional[Dict] = None
 
     def __enter__(self):
-        self.worker.register_optimizer(self.embedding_optimizer.config)
+        if self.worker is not None:
+            self.worker.register_optimizer(self.embedding_optimizer.config)
         return self
 
     def __exit__(self, *exc):
-        self.worker.close()
+        if self.worker is not None:
+            self.worker.close()
         return False
+
+    @property
+    def sync_mode(self) -> str:
+        """The dense sync's label: the ``dense_sync`` mode, else
+        "implicit-psum" on a mesh of more than one rank, else "local"."""
+        if self.dense_sync is not None:
+            return self.dense_sync
+        if self.mesh is not None and self.mesh.size > 1:
+            return "implicit-psum"
+        return "local"
+
+    def dense_wire_bytes_per_step(self) -> int:
+        """The modelled dense collective bytes a rank sends a step
+        (``grad_sync.dense_sync_wire_bytes``; 0 before ``init_state``)."""
+        return self._dense_wire_bytes_per_step
 
     def init_state(self) -> TrainState:
         self.state = init_train_state(self.model, self.dense_optimizer, self._loss_scale_init)
+        if self._sync_algorithm is not None:
+            from persia_tpu_torch.parallel.grad_sync import (
+                ByteGradAllReduce,
+                init_residual,
+                init_sync_opt_state,
+            )
+
+            sync = init_sync_opt_state(self.model, self.dense_optimizer, self.mesh, self._sync_algorithm,
+                                       self._sync_sharded, device=self.device)
+            if isinstance(self._sync_algorithm, ByteGradAllReduce):
+                sync.residual = init_residual(self.model, self.device)
+            self.state.sync = sync
+        from persia_tpu_torch.parallel.grad_sync import dense_param_count, dense_sync_wire_bytes
+
+        n = self.mesh.size if self.mesh is not None else 1
+        self._dense_wire_bytes_per_step = dense_sync_wire_bytes(self.sync_mode, dense_param_count(self.model), n,
+                                                                block_size=self.dense_sync_block_size)
         return self.state
 
     def _dense_state(self) -> TrainState:
@@ -314,14 +405,18 @@ class TrainCtx(EmbeddingCtx):
         PS shards, the dense state (flax's bytes), the loader cursor and the
         RNG streams (numpy's global one and the named ``generators``)
         committed as one manifest epoch. ``job_state`` is a
-        ``JobStateManager`` or its root directory."""
+        ``JobStateManager`` or its root directory. Over a mesh every rank
+        calls it; rank 0 commits (and returns) the manifest."""
         mgr = jobstate.coerce_manager(job_state)
         if loader is not None:
             loader.flush()  # the fence: no gradient in flight past here
+        state_bytes = train_state_to_flax_bytes(self.state) if self.state is not None else None  # every rank's rows
+        if not self._lead:
+            return None  # rank 0 commits the manifest
         router = self.worker.lookup_router
         manifest = jobstate.snapshot_job(
             mgr, self._global_step,
-            state_bytes=train_state_to_flax_bytes(self.state) if self.state is not None else None,
+            state_bytes=state_bytes,
             replicas=self._ps_replicas(),
             batch_advances=dict(router.batch_advances),
             components={"loader.json": {"consumed_batches": self._global_step,
@@ -343,23 +438,31 @@ class TrainCtx(EmbeddingCtx):
         keeps what the crashed run applied and the journal skips the
         replayed batches it holds (exactly once). The dense state loads in
         place; the router's cumulative Adam batch advances continue from
-        the fence's."""
+        the fence's. Over a mesh every rank calls it: rank 0 rewinds the
+        servers and hands the dense bytes on (the manifest is rank 0's
+        return; None elsewhere)."""
         mgr = jobstate.coerce_manager(job_state)
-        router = self.worker.lookup_router
-        manifest, info = jobstate.resume_job(
-            mgr, replicas=self._ps_replicas(), rewind_ps=restore_ps,
-            optimizer=self.embedding_optimizer.config, generators=generators,
-        )
+        manifest, info, raw = None, None, None
+        if self._lead:
+            manifest, info = jobstate.resume_job(
+                mgr, replicas=self._ps_replicas(), rewind_ps=restore_ps,
+                optimizer=self.embedding_optimizer.config, generators=generators,
+            )
+            if manifest is not None and manifest.has("dense.state"):
+                raw = manifest.read_blob("dense.state")
+        pos = (manifest.job_epoch, manifest.step) if manifest is not None else None
+        if self.mesh is not None:  # every rank loads the dense state
+            pos, raw = self.mesh.broadcast_object((pos, raw))
         self.last_resume_info = info
-        if manifest is None:
+        if pos is None:
             self._job_epoch = 0
             self._global_step = 0
             return None
-        if manifest.has("dense.state"):
-            train_state_from_flax_bytes(self._dense_state(), manifest.read_blob("dense.state"))
-        router.batch_advances = dict(info["batch_advances"])
-        self._job_epoch = manifest.job_epoch
-        self._global_step = manifest.step
+        if raw is not None:
+            train_state_from_flax_bytes(self._dense_state(), raw)
+        if self._lead:
+            self.worker.lookup_router.batch_advances = dict(info["batch_advances"])
+        self._job_epoch, self._global_step = pos
         return manifest
 
     def _journal_id(self) -> Optional[int]:
@@ -392,25 +495,82 @@ class TrainCtx(EmbeddingCtx):
     def train_step(self, batch: PersiaBatch) -> Dict:
         """One synchronous hybrid step: lookup → device step → gradient
         return. Returns host metrics {loss, preds} (with the dynamic loss
-        scale also {loss_scale, grads_finite})."""
-        ref = self.worker.put_forward_ids(batch)
-        emb_batches = self.worker.forward_batch_id(ref, train=True)
+        scale also {loss_scale, grads_finite}). Over a mesh of more than one
+        rank every rank calls it with the same global batch; the metrics
+        are the global batch's on every rank."""
+        ref = emb_batches = None
+        if self._lead:
+            ref = self.worker.put_forward_ids(batch)
+            emb_batches = self.worker.forward_batch_id(ref, train=True)
         try:
-            device_batch, counts = self.prepare_features(batch, emb_batches, csr=True)
+            if self.mesh is not None and self.mesh.size > 1:
+                device_batch, counts, layout = self._prepare_rank_share(batch, emb_batches)
+            else:
+                device_batch, counts = self.prepare_features(batch, emb_batches, csr=True)
+                layout = device_batch
             header, gpacked = self.run_step(device_batch)
-            metrics, emb_grads = self.fetch_step_output(header, gpacked, device_batch)
-            slot_grads = self.emb_grads_to_slot_grads(emb_batches, emb_grads, counts)
+            metrics, emb_grads = self.fetch_step_output(header, gpacked, layout)
+            if self._lead:
+                slot_grads = self.emb_grads_to_slot_grads(emb_batches, emb_grads, counts)
         except Exception:
             # release the staleness slot and the stashed layout
-            self.worker.abort_gradient(ref)
+            if self._lead:
+                self.worker.abort_gradient(ref)
             raise
-        # embedding gradients ship scaled; the worker divides by the dynamic
-        # loss scale composed with the static grad_scale
-        scale = metrics.get("loss_scale", 1.0) * self.grad_scale
-        self.worker.update_gradient_batched(ref, slot_grads, scale_factor=scale,
-                                            journal_id=self._journal_id())
+        if self._lead:
+            # embedding gradients ship scaled; the worker divides by the
+            # dynamic loss scale composed with the static grad_scale
+            scale = metrics.get("loss_scale", 1.0) * self.grad_scale
+            self.worker.update_gradient_batched(ref, slot_grads, scale_factor=scale,
+                                                journal_id=self._journal_id())
         self._global_step += 1
         return metrics
+
+    def _prepare_rank_share(self, batch: PersiaBatch, emb_batches):
+        """This rank's share of the global batch on the device: rank 0
+        stages the looked-up embeddings and hands them to every rank; each
+        takes its rows ``mesh.rows(B)`` of the dense features, the labels
+        and the per-sample embedding inputs (the distinct rows whole) and
+        builds the backward kernels' CSRs over its rows. Returns (device
+        batch, true distinct counts, the global batch's layout: the shapes
+        the step's outputs unpack by)."""
+        staged = stage_embeddings(emb_batches, dtype=self.wire_dtype) if self._lead else None
+        entries, counts = self.mesh.broadcast_object(staged)
+        dense = [f.data.astype(np.float32) for f in batch.non_id_type_features]
+        labels = [l.data.astype(np.float32) for l in batch.labels]
+        a, b = self.mesh.rows(labels[0].shape[0])
+
+        def rows(x):
+            return BF16Host(x.bits[a:b]) if isinstance(x, BF16Host) else np.ascontiguousarray(x[a:b])
+
+        local = []
+        for e in entries:
+            if "pooled" in e:
+                local.append({"pooled": rows(e["pooled"])})
+            elif "pool_index" in e:
+                le = {"distinct": e["distinct"], "pool_index": rows(e["pool_index"])}
+                if "pool_counts" in e:
+                    le["pool_counts"] = rows(e["pool_counts"])
+                le["pool_order"], le["pool_offsets"] = pool_csr(le["pool_index"], e["distinct"].shape[0])
+                local.append(le)
+            else:
+                le = {"distinct": e["distinct"], "index": rows(e["index"]), "mask": rows(e["mask"])}
+                le["order"], le["offsets"], le["long_chunks"] = raw_csr(le["index"], e["distinct"].shape[0])
+                local.append(le)
+        keys = [list(e) for e in local]
+        flat = _to_device([rows(d) for d in dense] + [rows(l) for l in labels]
+                          + [e[k] for e, ks in zip(local, keys) for k in ks], self.device)
+        it = iter(flat)
+        device_batch = {
+            "dense": [next(it) for _ in dense],
+            "labels": [next(it) for _ in labels],
+            "emb": [{k: next(it) for k in ks} for ks in keys],
+        }
+        meta = lambda shape: torch.empty(shape, device="meta")  # noqa: E731
+        layout = {"labels": [meta(l.shape) for l in labels],
+                  "emb": [{"pooled": meta(e["pooled"].shape)} if "pooled" in e else {"distinct": meta(e["distinct"].shape)}
+                          for e in entries]}
+        return device_batch, counts, layout
 
     def _grads_to_host_async(self, gpacked: torch.Tensor) -> Callable[[], np.ndarray]:
         """Start the packed gradients' copy to the host; returns a function
@@ -446,6 +606,8 @@ class TrainCtx(EmbeddingCtx):
         ``fetch_metrics=False`` (static loss scale only: the dynamic scale
         is read every step) skips the per-step header copy and returns
         None; ``last_prepared_metrics`` reads the last one after the loop."""
+        if self.mesh is not None and self.mesh.size > 1:
+            raise NotImplementedError("the pipelined step over a mesh of more than one rank is not part of the port")
         device_batch = training_batch.device_batch
         defer = not fetch_metrics and not self.dynamic_loss_scale
         if not defer:

@@ -151,7 +151,11 @@ class CachedTrainCtx:
     dtype of their gradients' way to the host. ``table_dtype``: the pools'
     dtype (``torch.float32`` or ``torch.bfloat16``). ``dynamic_loss_scale``
     with ``loss_scale_init``, ``loss_scale_growth_interval`` and
-    ``loss_scale_max``: the card's loss scale (the module's docstring)."""
+    ``loss_scale_max``: the card's loss scale (the module's docstring).
+    ``feed_threads`` / ``feed_shards``: the sharded feeder
+    (``CachedEmbeddingTier``); a resumed job keeps its shard count, which
+    decides row assignment, while the thread count never changes an
+    output (``set_feed_threads``)."""
 
     def __init__(
         self,
@@ -184,7 +188,6 @@ class CachedTrainCtx:
         unsupported = {
             "mesh": mesh is not None, "health_probe": bool(health_probe),
             "health_clip_norm": health_clip_norm is not None,
-            "feed_threads": feed_threads not in (None, 1), "feed_shards": feed_shards is not None,
         }
         if any(unsupported.values()):
             raise NotImplementedError(
@@ -208,7 +211,7 @@ class CachedTrainCtx:
         prepare_dense_optimizer(dense_optimizer, self.device)
         self.tier = CachedEmbeddingTier(worker, self.sparse_cfg, cache_rows, embedding_config, init_seed=init_seed,
                                         admit_touches=admit_touches, aux_wire_dtype=aux_wire_dtype,
-                                        ps_slots=ps_slots)
+                                        ps_slots=ps_slots, feed_threads=feed_threads, feed_shards=feed_shards)
         # the feature groups of the cached slots: their server-side Adam
         # powers move with the card's, once a step
         self._cached_groups = tuple(sorted({embedding_config.group_of(s) for g in self.tier.groups
@@ -540,11 +543,18 @@ class CachedTrainCtx:
 
         return run_train_stream(self, batches, **kwargs)
 
+    def set_feed_threads(self, threads: int) -> None:
+        """Resize the sharded feeder's walker pools (nothing on an
+        unsharded tier); no output depends on the thread count."""
+        self.tier.set_feed_threads(threads)
+
     def stream_stats(self) -> Optional[Dict]:
         """The last ``train_stream``'s accounting: ``dispatch_k``, packs,
         packed and single steps, restores, fences (``fence_ms``: each
         fence's stall by part), each lane's busy seconds and the wall
-        time."""
+        time; on a sharded tier ``feeder`` (``feed_threads``,
+        ``feed_shards`` and ``shards``: each group's
+        ``tier.feeder_shard_stats()``)."""
         return self._stream_stats
 
     def _write_back_only(self, pending) -> None:
@@ -662,7 +672,8 @@ class CachedTrainCtx:
         the flush), ``loader.json``, the RNG streams and the touch gate's
         counters, as one manifest. Its ms by part: ``last_capture_ms``."""
         ms: Dict[str, float] = {}
-        occupancy = dict(occupancy, ps_slots=list(self.tier.ps_slots))  # a resume checks the set
+        # a resume checks the PS-tier set and the shard count
+        occupancy = dict(occupancy, ps_slots=list(self.tier.ps_slots), feed_shards=self.tier.feed_shards)
         t0 = time.perf_counter()
         self._flush_tier()
         t1 = time.perf_counter()
@@ -703,8 +714,8 @@ class CachedTrainCtx:
         advances, the epoch and the step count; ``generators`` as in
         ``jobstate.resume_job``. A cache this ctx still holds is dropped
         unwritten (the manifest's pools are cold). A manifest whose
-        ``cache.json`` names other PS-tier slots raises, before anything
-        moves. Returns the manifest
+        ``cache.json`` names other PS-tier slots, or another
+        ``feed_shards``, raises, before anything moves. Returns the manifest
         (continue with ``train_stream(batches[manifest.step:],
         start_step=manifest.step, ...)``), or None on a cold start, which
         arms epoch 0. ``last_resume_info`` holds the recovery numbers.
@@ -714,11 +725,17 @@ class CachedTrainCtx:
         mgr = jobstate.coerce_manager(job_state)
         newest = mgr.latest()
         if newest is not None and newest.has("cache.json"):
-            saved = newest.read_json("cache.json").get("ps_slots")
+            occ = newest.read_json("cache.json")
+            saved = occ.get("ps_slots")
             if saved is not None and sorted(saved) != sorted(self.tier.ps_slots):
                 raise ValueError(f"the manifest at step {newest.step} was written with PS-tier slots {sorted(saved)}, "
                                  f"this ctx has {sorted(self.tier.ps_slots)}: moving slots between the tiers is "
                                  "not part of the port")
+            if "feed_shards" in occ and occ["feed_shards"] != self.tier.feed_shards:
+                raise ValueError(f"the manifest at step {newest.step} was written with feed_shards "
+                                 f"{occ['feed_shards']}, this ctx has {self.tier.feed_shards}: the shard count "
+                                 "decides row assignment, so a resumed job keeps it (resharding is not part of "
+                                 "the port)")
         manifest, info = jobstate.resume_job(mgr, replicas=router.replicas, rewind_ps=restore_ps,
                                              optimizer=self.sparse_cfg, generators=generators)
         self.last_resume_info = info

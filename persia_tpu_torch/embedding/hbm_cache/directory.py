@@ -4,7 +4,9 @@
 ``CacheDirectory`` binds the port's native directory
 (``persia_tpu_torch/native/cache.cpp``, built with ``g++`` at first use into
 ``build/torch_native/``): an LRU map sign → cache row of a fixed capacity,
-unsharded. ``PendingSignMap`` binds the stream's map of in-flight
+unsharded, or in ``shards`` partitions walked by a pool of
+``feed_threads`` native threads (``shard_route`` is the partition).
+``PendingSignMap`` binds the stream's map of in-flight
 write-backs, which ``CacheDirectory.feed_batch`` probes inside the admit.
 ``native_init_rows`` births a cold row on the host bit for bit as the
 parameter server would (the same seeded init), so a sign's first row does
@@ -22,6 +24,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from persia_tpu_torch.embedding._native_build import NATIVE_SRC, build_so, cxx_flags
+from persia_tpu_torch.embedding.hashing import splitmix64
 from persia_tpu_torch.embedding.hbm_cache.common import _bucket
 from persia_tpu_torch.embedding.native_store import INIT_KIND_CODES
 
@@ -36,8 +39,9 @@ _u8p = ctypes.POINTER(ctypes.c_uint8)
 
 
 def build_native():
-    """Compile the directory unless built (see ``_native_build.build_so``)."""
-    return build_so([NATIVE_SRC / "cache.cpp"], "libpersia_torch_cache.so", cxx_flags())
+    """Compile the directory unless built (see ``_native_build.build_so``);
+    ``-pthread``: the sharded feeder walks its shards on native threads."""
+    return build_so([NATIVE_SRC / "cache.cpp"], "libpersia_torch_cache.so", cxx_flags() + ["-pthread"])
 
 
 def _load_lib() -> ctypes.CDLL:
@@ -99,6 +103,24 @@ def _load_lib() -> ctypes.CDLL:
         lib.cache_feed_batch.restype = i64
         lib.cache_feed_batch.argtypes = [p, p, _u64p, i64, _i32p, _u64p, _i64p, _u64p, _i64p, _i64p, _i64p,
                                          _i64p, _i64p, _i64p, ctypes.c_uint64]
+        # the sharded directory
+        lib.cache_create_sharded.restype = p
+        lib.cache_create_sharded.argtypes = [i64, i64, ctypes.c_uint64, i64]
+        for name, res, args in (
+            ("destroy", None, [p]), ("len", i64, [p]), ("capacity", i64, [p]), ("n_shards", i64, [p]),
+            ("threads", i64, [p]), ("set_threads", None, [p, i64]), ("set_admit_touches", None, [p, i64]),
+            ("touch_counts", i64, [p, _u8p, i64]), ("set_touch_counts", i64, [p, _u8p, i64]),
+            ("shard_sizes", None, [p, _i64p]), ("shard_busy_ns", None, [p, _i64p]),
+            ("shard_stall_ns", None, [p, _i64p]), ("set_probe_mode", None, [p, i64]),
+            ("probe_mode", i64, [p]), ("set_affinity", None, [p, i64]), ("affinity", i64, [p]),
+            ("probe", None, [p, _u64p, i64, _i64p]),
+            ("admit", i64, [p, _u64p, i64, _i64p, _i64p, _u64p, _i64p, _i64p]),
+            ("snapshot", i64, [p, _u64p, _i64p]), ("drain", i64, [p, _u64p, _i64p]),
+        ):
+            fn = getattr(lib, f"cache_sharded_{name}")
+            fn.restype, fn.argtypes = res, args
+        lib.cache_feed_batch_sharded.restype = i64
+        lib.cache_feed_batch_sharded.argtypes = lib.cache_feed_batch.argtypes
         _LIB = lib
         return lib
 
@@ -174,43 +196,138 @@ class _BufRing:
         return arr
 
 
+#: ``PERSIA_FEED_AFFINITY``'s names of the walker pool's pinning: ``none``
+#: leaves the walkers unpinned, ``compact`` puts worker i on cpu ``i %
+#: ncpu``, ``spread`` stripes the workers across the cpus.
+AFFINITY_MODES = {"none": 0, "compact": 1, "spread": 2}
+
+
+def feed_affinity_from_env() -> int:
+    """``PERSIA_FEED_AFFINITY`` as a pinning mode (0, none, by default and
+    for an unknown name: the placement is best effort)."""
+    return AFFINITY_MODES.get(os.environ.get("PERSIA_FEED_AFFINITY", "none").strip().lower(), 0)
+
+
+def shard_route(signs, part_salt: int, n_shards: int) -> np.ndarray:
+    """Each sign's shard, bit for bit the native directory's partition: the
+    high 64 bits of ``splitmix64(sign ^ part_salt) * n_shards`` (int64)."""
+    h = splitmix64(np.asarray(signs, dtype=np.uint64) ^ np.uint64(int(part_salt) & (2 ** 64 - 1)))
+    lo, hi = h & np.uint64(0xFFFFFFFF), h >> np.uint64(32)
+    n = np.uint64(n_shards)
+    # (hi * 2^32 + lo) * n >> 64, with n < 2^32: two 64-bit products
+    return ((hi * n + ((lo * n) >> np.uint64(32))) >> np.uint64(32)).astype(np.int64)
+
+
 class CacheDirectory:
     """LRU map sign → cache row (native, O(1) a sign).
 
     ``admit_touches``: a sign that is not resident is admitted only on its
     Nth batch that touches it; the earlier touches map to the pad row
     ``capacity`` (a zero forward, its gradient dropped: the reference's
-    non-admitted sign). 1 admits on the first touch."""
+    non-admitted sign). 1 admits on the first touch.
 
-    def __init__(self, capacity: int, admit_touches: int = 1, probe: Optional[int] = None):
+    ``shards``: when set, the directory is that many partitions (each its
+    own mutex, LRU chain and range of rows; clamped to [1, min(64,
+    capacity)]) keyed by ``shard_route(sign, part_salt)``; ``feed_batch``
+    then walks them on a pool of ``feed_threads`` native threads and merges
+    them in shard order, so its outputs are the same bits at any thread
+    count. They differ from the unsharded directory's for ``shards > 1``
+    (the LRU order is a shard's), so a job keeps its shard count;
+    ``shards=1`` is the unsharded walk bit for bit. ``part_salt`` is the
+    group's salt (``group_salt``). ``affinity`` pins the pool's threads
+    (``AFFINITY_MODES``; ``PERSIA_FEED_AFFINITY`` by default). ``probe``:
+    the probe (1 the tag walk, 0 scalar; the same results)."""
+
+    def __init__(self, capacity: int, admit_touches: int = 1, probe: Optional[int] = None,
+                 shards: Optional[int] = None, feed_threads: int = 1, part_salt: int = 0,
+                 affinity: Optional[int] = None):
         if capacity < 1:
             raise ValueError("capacity must be positive")
         self._lib = _load_lib()
-        self._h = self._lib.cache_create(capacity)
+        self.part_salt = int(part_salt) & (2 ** 64 - 1)
+        self._sharded = shards is not None
+        if self._sharded:
+            self._h = self._lib.cache_create_sharded(capacity, max(1, int(shards)), self.part_salt,
+                                                     max(1, int(feed_threads)))
+            self.shards: Optional[int] = int(self._lib.cache_sharded_n_shards(self._h))
+        else:
+            self._h = self._lib.cache_create(capacity)
+            self.shards = None
+        if not self._h:
+            raise MemoryError("the native directory could not be made")
         self.capacity = capacity
         self.admit_touches = int(admit_touches)
         if self.admit_touches > 1:
-            self._lib.cache_set_admit_touches(self._h, self.admit_touches)
+            self._fn("set_admit_touches")(self._h, self.admit_touches)
         if probe is not None:
             self.set_probe_mode(probe)
+        aff = feed_affinity_from_env() if affinity is None else int(affinity)
+        if self._sharded and aff:
+            self._lib.cache_sharded_set_affinity(self._h, aff)
         self._scratch_n = 0
         self._rows_ring = _BufRing()
 
+    def _fn(self, name: str):
+        """The native call ``name`` of this directory's kind."""
+        return getattr(self._lib, f"cache_sharded_{name}" if self._sharded else f"cache_{name}")
+
     def __del__(self):
-        if getattr(self, "_h", None) is not None:
-            self._lib.cache_destroy(self._h)
+        if getattr(self, "_h", None):
+            self._fn("destroy")(self._h)
             self._h = None
 
     def __len__(self) -> int:
-        return int(self._lib.cache_len(self._h))
+        return int(self._fn("len")(self._h))
 
     @property
     def probe_mode(self) -> int:
         """1: the 8-at-a-time tag probe; 0: the scalar walk (same results)."""
-        return int(self._lib.cache_probe_mode(self._h))
+        return int(self._fn("probe_mode")(self._h))
 
     def set_probe_mode(self, mode: int) -> None:
-        self._lib.cache_set_probe_mode(self._h, 1 if int(mode) else 0)
+        self._fn("set_probe_mode")(self._h, 1 if int(mode) else 0)
+
+    @property
+    def feed_threads(self) -> int:
+        """The walker pool's threads (the caller's included; 1 unsharded)."""
+        return int(self._lib.cache_sharded_threads(self._h)) if self._sharded else 1
+
+    def set_feed_threads(self, threads: int) -> None:
+        """Resize the walker pool (sharded only; clamped to [1, shards]).
+        No output depends on it: safe between feeds."""
+        if self._sharded:
+            self._lib.cache_sharded_set_threads(self._h, max(1, int(threads)))
+
+    @property
+    def feed_affinity(self) -> int:
+        """The walker pool's pinning (``AFFINITY_MODES``; 0 unsharded)."""
+        return int(self._lib.cache_sharded_affinity(self._h)) if self._sharded else 0
+
+    def set_feed_affinity(self, mode: int) -> None:
+        """Re-pin the walker pool (sharded only; best effort, Linux only)."""
+        if self._sharded:
+            self._lib.cache_sharded_set_affinity(self._h, int(mode))
+
+    def _per_shard(self, name: str, unsharded) -> np.ndarray:
+        if not self._sharded:
+            return np.asarray(unsharded, dtype=np.int64)
+        out = np.empty(self.shards, dtype=np.int64)
+        getattr(self._lib, f"cache_sharded_{name}")(self._h, out.ctypes.data_as(_i64p))
+        return out
+
+    def shard_sizes(self) -> np.ndarray:
+        """Residents a shard ((shards,) int64; one entry unsharded)."""
+        return self._per_shard("shard_sizes", [len(self)])
+
+    def shard_busy_ns(self) -> np.ndarray:
+        """Each shard's walk ns of the last feed (zeros unsharded)."""
+        return self._per_shard("shard_busy_ns", [0])
+
+    def shard_stall_ns(self) -> np.ndarray:
+        """Each shard's wait in the pool's queue in the last feed, ns,
+        summed over its two walks: busy says how long a shard walked, stall
+        how long it waited for a thread (zeros unsharded)."""
+        return self._per_shard("shard_stall_ns", [0])
 
     def _ensure_scratch(self, n: int) -> None:
         if n <= self._scratch_n:
@@ -238,7 +355,7 @@ class CacheDirectory:
         self._ensure_scratch(n)
         rows = self._rows_ring.get("rows64", (_bucket(max(n, 1)),), np.int64)[:n]
         n_evict = ctypes.c_int64(0)
-        n_miss = self._lib.cache_admit(
+        n_miss = self._fn("admit")(
             self._h, signs.ctypes.data_as(_u64p), n, rows.ctypes.data_as(_i64p),
             self._s_miss_idx.ctypes.data_as(_i64p), self._s_ev_signs.ctypes.data_as(_u64p),
             self._s_ev_rows.ctypes.data_as(_i64p), ctypes.byref(n_evict),
@@ -253,6 +370,8 @@ class CacheDirectory:
         natively): ``(rows (n,) int32 a position, miss_signs (M,) in
         first-seen order, miss_rows (M,), evict_signs (K,), evict_rows (K,),
         n_unique)``."""
+        if self._sharded:
+            return self.feed_batch(signs, None)[:6]
         signs = np.ascontiguousarray(signs, dtype=np.uint64)
         n = signs.size
         self._ensure_scratch(n)
@@ -272,8 +391,9 @@ class CacheDirectory:
 
     def feed_batch(self, signs: np.ndarray, pending_map: Optional["PendingSignMap"], salt: int = 0):
         """``admit_positions`` and, in the same native call, the pending
-        map's probe of the misses (``cache_feed_batch``; key = sign ^
-        ``salt``): its 6-tuple, then ``(restore_src (R,), restore_pos
+        map's probe of the misses (``cache_feed_batch``, or
+        ``cache_feed_batch_sharded`` walking the shards on the pool; key =
+        sign ^ ``salt``): its 6-tuple, then ``(restore_src (R,), restore_pos
         (R,))``, the ring row and miss ordinal of every miss whose freshest
         entry is still in flight. The probe runs before the caller
         reserves its ring span, so the caller queries these hits again
@@ -283,7 +403,8 @@ class CacheDirectory:
         self._ensure_scratch(n)
         rows = self._rows_ring.get("rows", (_bucket(max(n, 1)),), np.int32)[:n]
         n_unique, n_evict, n_restore = ctypes.c_int64(0), ctypes.c_int64(0), ctypes.c_int64(0)
-        n_miss = self._lib.cache_feed_batch(
+        feed = self._lib.cache_feed_batch_sharded if self._sharded else self._lib.cache_feed_batch
+        n_miss = feed(
             self._h, pending_map._h if pending_map is not None else None, signs.ctypes.data_as(_u64p), n,
             rows.ctypes.data_as(_i32p), self._s_miss_signs.ctypes.data_as(_u64p),
             self._s_miss_rows.ctypes.data_as(_i64p), self._s_ev_signs.ctypes.data_as(_u64p),
@@ -303,7 +424,7 @@ class CacheDirectory:
         LRU touch (eval's lookup)."""
         signs = np.ascontiguousarray(signs, dtype=np.uint64)
         rows = np.empty(len(signs), dtype=np.int64)
-        self._lib.cache_probe(self._h, signs.ctypes.data_as(_u64p), len(signs), rows.ctypes.data_as(_i64p))
+        self._fn("probe")(self._h, signs.ctypes.data_as(_u64p), len(signs), rows.ctypes.data_as(_i64p))
         return rows
 
     def _listing(self, fn) -> Tuple[np.ndarray, np.ndarray]:
@@ -315,28 +436,28 @@ class CacheDirectory:
     def drain(self) -> Tuple[np.ndarray, np.ndarray]:
         """Empty the directory: ``(signs, rows)`` of every resident, most
         recently used first."""
-        return self._listing(self._lib.cache_drain)
+        return self._listing(self._fn("drain"))
 
     def snapshot(self) -> Tuple[np.ndarray, np.ndarray]:
         """``drain``'s listing without emptying or touching anything."""
-        return self._listing(self._lib.cache_snapshot)
+        return self._listing(self._fn("snapshot"))
 
     def touch_counts(self) -> np.ndarray:
         """The touch gate's counters (uint8; empty with ``admit_touches``
         1), which ``drain`` keeps: a snapshot saves them with the flushed
         cache."""
-        n = int(self._lib.cache_touch_counts(self._h, None, 0))
+        n = int(self._fn("touch_counts")(self._h, None, 0))
         out = np.empty(n, dtype=np.uint8)
-        self._lib.cache_touch_counts(self._h, out.ctypes.data_as(_u8p), n)
+        self._fn("touch_counts")(self._h, out.ctypes.data_as(_u8p), n)
         return out
 
     def set_touch_counts(self, counts: np.ndarray) -> None:
         """Load counters ``touch_counts`` returned (of a directory of the
         same capacity and ``admit_touches``)."""
         counts = np.ascontiguousarray(counts, dtype=np.uint8)
-        if self._lib.cache_set_touch_counts(self._h, counts.ctypes.data_as(_u8p), len(counts)) != 0:
+        if self._fn("set_touch_counts")(self._h, counts.ctypes.data_as(_u8p), len(counts)) != 0:
             raise ValueError(f"{len(counts)} touch counters for a directory that keeps "
-                             f"{int(self._lib.cache_touch_counts(self._h, None, 0))}")
+                             f"{int(self._fn('touch_counts')(self._h, None, 0))}")
 
 
 def group_salt(name: str) -> int:

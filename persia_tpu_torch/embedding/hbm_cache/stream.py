@@ -644,6 +644,8 @@ def run_train_stream(
             pending = len(sign_map)
             occupancy = {"resident_rows": {g.name: len(tier.dirs[g.name]) for g in tier.groups}, "ring": rings,
                          "pending_ledger_entries": pending}
+            if tier.feed_shards is not None:  # a skewed shard: the salt fights the key distribution
+                occupancy["feeder_shards"] = tier.feeder_shard_stats()
         if stop.is_set():
             raise _Stopped  # the write-back failed: its error ends the stream
         if undrained or pending:
@@ -755,6 +757,9 @@ def run_train_stream(
         stats["tiers"] = {"cached_slots": sorted(s for g in tier.groups for s in g.slots),
                           "ps_slots": sorted(tier.ps_slots), "resident_rows": stats["resident_rows"],
                           "capacity_rows": {g.name: g.rows for g in tier.groups}}
+        if tier.feed_shards is not None:
+            stats["feeder"] = {"feed_threads": tier.feed_threads, "feed_shards": tier.feed_shards,
+                               "shards": tier.feeder_shard_stats()}
         stats.update(graph.stats(stats["wall_s"]))
         ctx._stream_stats = stats
     alive = [t.name for t in threads if t.is_alive()]

@@ -18,12 +18,15 @@ those excluded) ride the parameter-server tier through the worker
 (``CachedTrainCtx._ps_forward``); the tier leaves them out of its batches.
 A feature group may not span both tiers, and with cache groups beside
 them the sign prefix bit must be on, so the two tiers never write one
-server entry. The reference's access sketch, its sharded feeder and its
-degraded-lookup lineage are not part of the port.
+server entry. The sharded feeder (``feed_threads``, ``feed_shards``)
+partitions each group's directory (``CacheDirectory(shards=)``) by the
+group's salt. The reference's access sketch and its degraded-lookup
+lineage are not part of the port.
 """
 
 from __future__ import annotations
 
+import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -56,6 +59,25 @@ from persia_tpu_torch.wire import BF16Host, tensor_to_host_f32
 AUX_WIRE_DTYPES = ("float32", "bfloat16")
 
 
+def _eviction_slots(gname: str, rows_miss: np.ndarray, ev_rows: np.ndarray) -> np.ndarray:
+    """(m,) int32: the payload slot j of the miss whose row is ``ev_rows[j]``
+    (a miss takes the row it evicted), -1 for the misses that took a free
+    row. Raises when an evicted row is no miss's."""
+    k, m = len(ev_rows), len(rows_miss)
+    slot = np.full(m, -1, dtype=np.int32)
+    if not k:
+        return slot
+    if k <= m and np.array_equal(rows_miss[m - k:], ev_rows):  # the unsharded directory's order
+        slot[m - k:] = np.arange(k, dtype=np.int32)
+        return slot
+    order = np.argsort(rows_miss, kind="stable")
+    pos = np.minimum(np.searchsorted(rows_miss[order], ev_rows), max(m - 1, 0))
+    if k > m or not np.array_equal(rows_miss[order][pos], ev_rows):
+        raise RuntimeError(f"group {gname}: an evicted row is not the row of one of the call's misses")
+    slot[order[pos]] = np.arange(k, dtype=np.int32)
+    return slot
+
+
 class CachedEmbeddingTier:
     """The directories, parameter-server traffic and staging of the cache
     tier over ``worker`` (an ``EmbeddingWorker``: its router reaches the
@@ -73,7 +95,8 @@ class CachedEmbeddingTier:
 
     def __init__(self, worker, sparse_cfg: OptimizerConfig, rows, embedding_config: Optional[EmbeddingConfig] = None,
                  init_seed: Optional[int] = None, admit_touches: int = 1, aux_wire_dtype: str = "float32",
-                 ps_slots: Sequence[str] = ()):
+                 ps_slots: Sequence[str] = (), feed_threads: Optional[int] = None,
+                 feed_shards: Optional[int] = None):
         if aux_wire_dtype not in AUX_WIRE_DTYPES:
             raise ValueError(f"aux_wire_dtype must be one of {AUX_WIRE_DTYPES}, got {aux_wire_dtype!r}")
         self.worker = worker
@@ -90,9 +113,26 @@ class CachedEmbeddingTier:
         rows_per_group = rows if isinstance(rows, dict) else {d: rows for d in dims}
         self.groups, self.ps_slots = make_cache_groups(self.cfg, rows_per_group, sparse_cfg, exclude=ps_slots)
         self._check_tiers()
-        self.dirs = {g.name: CacheDirectory(g.rows, admit_touches=admit_touches) for g in self.groups}
-        # each group's namespace in the stream's one pending map (sign ^ salt)
+        # each group's namespace in the stream's one pending map (sign ^
+        # salt), which is also its directory's partition key
         self.group_salt = {g.name: group_salt(g.name) for g in self.groups}
+        if feed_threads is None:
+            feed_threads = int(os.environ.get("PERSIA_FEED_THREADS", "1") or 1)
+        self.feed_threads = max(1, int(feed_threads))
+        if feed_shards is None:
+            env = os.environ.get("PERSIA_FEED_SHARDS", "")
+            if env:
+                feed_shards = int(env)
+            elif self.feed_threads > 1:
+                feed_shards = 8
+        if feed_shards is not None and int(feed_shards) < 1:
+            feed_shards = None  # 0 forces the unsharded walk
+        self.feed_shards = None if feed_shards is None else int(feed_shards)
+        self.dirs = {g.name: CacheDirectory(g.rows, admit_touches=admit_touches, shards=self.feed_shards,
+                                            feed_threads=self.feed_threads, part_salt=self.group_salt[g.name])
+                     for g in self.groups}
+        if self.feed_shards is not None and self.dirs:
+            self.feed_shards = next(iter(self.dirs.values())).shards  # as the native side clamped it
         _retain_allocator_pages()
         self._ring = _BufRing()
         self._slot_group = {s: g for g in self.groups for s in g.slots}
@@ -103,6 +143,21 @@ class CachedEmbeddingTier:
         # the batch's distinct signs resident, checked out of the server, and
         # written back on eviction (the reference's metrics counters)
         self.hits = self.misses = self.evictions = 0
+
+    def set_feed_threads(self, threads: int) -> None:
+        """Resize every directory's walker pool; no output depends on it."""
+        self.feed_threads = max(1, int(threads))
+        for d in self.dirs.values():
+            d.set_feed_threads(self.feed_threads)
+
+    def feeder_shard_stats(self) -> Dict[str, Dict[str, List[int]]]:
+        """Each group's residents a shard and each shard's walk and queue
+        ns of the last feed (``sizes``, ``busy_ns``, ``stall_ns``); empty
+        unsharded."""
+        if self.feed_shards is None:
+            return {}
+        return {name: {"sizes": d.shard_sizes().tolist(), "busy_ns": d.shard_busy_ns().tolist(),
+                       "stall_ns": d.shard_stall_ns().tolist()} for name, d in self.dirs.items()}
 
     def _check_tiers(self) -> None:
         """A feature group is one key space: a cached and a PS-tier slot in
@@ -212,13 +267,14 @@ class CachedEmbeddingTier:
                    miss_aux, cold_aux, restore_aux, evict_aux, evict_meta, ring_alloc=None) -> None:
         """After the admit, for both paths: the counters, the eviction
         rows and their ring span, the hazard gate, the warm/cold split of
-        the misses, and the pairing K12 reads each evicted row by: the
-        directory hands the k rows a call evicts to its last k misses, in
-        order, so miss i takes the row of payload slot i - (m - k) where
-        that is >= 0. Each warm, cold and restore write carries that slot
-        (-1: none, and for pads); each payload slot is claimed exactly
-        once, by one of those writes, or is a pad, which ``e_free``
-        lists.
+        the misses, and the pairing K12 reads each evicted row by: each of
+        the k rows a call evicts is taken by one of its misses (the
+        unsharded directory hands them to its last k misses, in order; a
+        sharded one to each shard's last misses), so the miss whose row is
+        ``ev_rows[j]`` takes payload slot j (``_eviction_slots``). Each
+        warm, cold and restore write carries its miss's slot (-1: none, and
+        for pads); each payload slot is claimed exactly once, by one of
+        those writes, or is a pad, which ``e_free`` lists.
 
         ``ring_alloc(group, padded k)`` (the stream's) reserves the step's
         span of the group's eviction ring before the gate runs, so no row
@@ -234,9 +290,8 @@ class CachedEmbeddingTier:
         self.evictions += len(ev_signs)
         k, m = len(ev_rows), len(miss_signs)
         kp = _bucket(k) if k else 0
+        slot_of = _eviction_slots(g.name, rows_miss, ev_rows)
         if k:
-            if k > m or not np.array_equal(rows_miss[m - k:], ev_rows):
-                raise RuntimeError(f"group {g.name}: the evicted rows are not the rows of the last {k} misses")
             ring_pos = ring_alloc(g.name, kp) if ring_alloc is not None else -1
             evict_meta[g.name] = (ev_signs, k, ring_pos)
         resolved = hazard_gate(g.name, miss_signs) if hazard_gate is not None and m else None
@@ -250,7 +305,7 @@ class CachedEmbeddingTier:
             r_dst = self._ring.full(("r_dst", g.name), (n_pad,), np.int32, C + 1)  # and is dropped
             r_src[:n] = src
             r_dst[:n] = rows_miss[restored]
-            restore_aux[g.name] = (r_src, r_dst, self._slots(("r_slot", g.name), n_pad, restored, m - k))
+            restore_aux[g.name] = (r_src, r_dst, self._slots(("r_slot", g.name), n_pad, restored, slot_of))
         if k:
             e_rows = self._ring.full(("e_rows", g.name), (kp,), np.int32, C)
             e_rows[:k] = ev_rows
@@ -272,7 +327,7 @@ class CachedEmbeddingTier:
             w_f32 = self._ring.get(("w_entries", g.name), (wp, g.dim + g.state_dim), np.float32)
             w_f32[:len(widx)] = vals[widx]
             miss_aux[g.name] = (w_rows, BF16Host.from_f32(w_f32) if self.aux_bf16 else w_f32,
-                                self._slots(("w_slot", g.name), wp, widx, m - k))
+                                self._slots(("w_slot", g.name), wp, widx, slot_of))
         if len(cidx):
             cp = _bucket(len(cidx))
             c_rows = self._ring.full(("c_rows", g.name), (cp,), np.int32, C + 1)
@@ -280,15 +335,13 @@ class CachedEmbeddingTier:
             c_f32 = self._ring.get(("c_emb", g.name), (cp, g.dim), np.float32)
             native_init_rows(miss_signs[cidx], self.init_seed, g.dim, self.init_method, out=c_f32[:len(cidx)])
             cold_aux[g.name] = (c_rows, BF16Host.from_f32(c_f32) if self.aux_bf16 else c_f32,
-                                self._slots(("c_slot", g.name), cp, cidx, m - k))
+                                self._slots(("c_slot", g.name), cp, cidx, slot_of))
 
-    def _slots(self, key, padded: int, idx: np.ndarray, first: int) -> np.ndarray:
-        """The payload slot each of the misses ``idx`` overwrites (miss i
-        takes slot i - first where that is >= 0), -1 elsewhere and for the
-        pads."""
+    def _slots(self, key, padded: int, idx: np.ndarray, slot_of: np.ndarray) -> np.ndarray:
+        """The payload slot each of the misses ``idx`` overwrites
+        (``slot_of``), -1 for the pads."""
         out = self._ring.full(key, (padded,), np.int32, -1)
-        s = idx - first
-        out[:len(idx)] = np.where(s >= 0, s, -1)
+        out[:len(idx)] = slot_of[idx]
         return out
 
     def _single_id_groups(self, batch: PersiaBatch):

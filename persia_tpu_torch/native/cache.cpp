@@ -23,21 +23,36 @@
 //   - the stream's pending-write-back map (pending_map_*: sign ->
 //     (token, ring row) of every eviction whose write-back is in flight)
 //     and the fused feeder call (cache_feed_batch: cache_admit_positions
-//     and the map's probe of the misses in one call).
+//     and the map's probe of the misses in one call);
+//   - the sharded directory (cache_create_sharded, cache_sharded_*,
+//     cache_feed_batch_sharded): S shards, each its own mutex, LRU chain
+//     and row range, walked by a pool of native threads.
 //
-// The access sketch and the sharded directory of the reference are not
-// part of this copy.
+// The reference's access sketch (and so the sketch observe it fuses into
+// the sharded walk) is not part of this copy.
 //
 // C ABI only (ctypes-friendly); no Python headers needed.
 
 #include <algorithm>
+#include <atomic>
+#include <chrono>
 #include <cmath>
+#include <condition_variable>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <functional>
+#include <memory>
 #include <mutex>
 #include <new>
+#include <thread>
 #include <vector>
+
+#if defined(__linux__)
+#include <pthread.h>
+#include <sched.h>
+#include <unistd.h>
+#endif
 
 namespace {
 
@@ -876,6 +891,633 @@ int64_t cache_feed_batch(void* h, void* pending_h, const uint64_t* signs, int64_
       ++n_restore;
     }
   }
+  *n_restore_out = n_restore;
+  return n_miss;
+}
+
+}  // extern "C"
+
+// ------------------------------------------------------------ sharded feeder
+//
+// The directory partitioned into S shards by the group's salted sign hash
+// (shard_route of sign ^ part_salt: the pending map's salt doubles as the
+// partition key), each with its own mutex, LRU chain and range of the
+// card's rows. cache_feed_batch_sharded buckets the position stream by
+// shard (a stable counting sort), walks each shard's positions on a pool
+// of native threads (the calling thread walks too) and merges the outputs
+// in ascending shard order on the calling thread.
+//
+// Determinism: a sign's shard is a function of (sign, part_salt, S) alone;
+// each shard walks its positions in input order against its own state; the
+// merge is in shard order. The row LUT, misses, evictions and restores are
+// therefore the same bits at any thread count (threads change which OS
+// thread walks a shard, never the walk), and at S == 1 they are
+// cache_feed_batch's.
+//
+// Locking: a walker holds its own shard's mutex for the admit passes,
+// releases it, then takes the pending map's for the miss probe; no thread
+// holds two shard mutexes. Probes, lengths and snapshots may run beside a
+// feed (they take one shard mutex at a time); feeds and drains on one
+// handle are the caller's to serialise, as with the unsharded directory.
+
+namespace {
+
+constexpr int64_t SHARD_MAX = 64;
+
+inline int64_t shard_route(uint64_t sign, uint64_t part_salt, int64_t n_shards) {
+  // multiply-high range reduction of the salted hash: no modulo bias, and a
+  // function of (sign, salt, S) only
+  return (int64_t)((unsigned __int128)splitmix64(sign ^ part_salt) * (unsigned __int128)(uint64_t)n_shards >> 64);
+}
+
+struct FeedShard {
+  Cache dir;      // the shard's directory; its rows are offset by row_base
+  std::mutex mu;  // guards dir: a feed's walk against probe/drain/snapshot/len
+  int64_t row_base = 0;
+  // the last feed's outputs, merged by the caller in shard order
+  std::vector<uint64_t> miss_signs;
+  std::vector<int64_t> miss_rows;
+  std::vector<uint64_t> ev_signs;
+  std::vector<int64_t> ev_rows;
+  std::vector<int64_t> rst_src;
+  std::vector<int64_t> rst_pos;  // the shard's own miss ordinals
+  int64_t n_unique = 0;
+  bool overflow = false;
+  // the last feed's walk time over both phases and its wait in the pool's
+  // queue (dispatch to walk start, summed over both phases): busy says how
+  // long the shard walked, stall how long it waited for a thread
+  std::atomic<int64_t> busy_ns{0};
+  std::atomic<int64_t> stall_ns{0};
+
+  explicit FeedShard(int64_t cap) : dir(cap) {}
+};
+
+struct ShardedCache {
+  int64_t total_capacity = 0;
+  int64_t n_shards = 1;
+  uint64_t part_salt = 0;
+  std::vector<std::unique_ptr<FeedShard>> shards;
+
+  // the calling thread's bucketing buffers (one feed at a time a handle)
+  std::vector<uint8_t> sid;
+  std::vector<int64_t> start;  // CSR offsets, n_shards + 1
+  std::vector<int64_t> fill;
+  std::vector<int64_t> pos;    // position indices grouped by shard
+
+  // the pool: n_threads - 1 workers and the calling thread. Every dispatch
+  // is exactly n_shards items, and the caller waits for all of them before
+  // it replaces `job`, so a late worker's fetch_add past the end claims
+  // nothing of a later dispatch.
+  std::mutex pool_mu;
+  std::condition_variable cv_work, cv_done;
+  uint64_t gen = 0;
+  std::function<void(int64_t)> job;
+  std::atomic<int64_t> next_item{0};
+  int64_t items_done = 0;
+  bool stopping = false;
+  int64_t n_threads = 1;
+  // the workers' pinning (0 none, 1 compact: worker i on cpu i % ncpu,
+  // 2 spread: workers striped across the cpus); guarded by pool_mu, a
+  // change respawns the workers so that it applies from their start. The
+  // calling thread is never pinned.
+  int64_t affinity_mode = 0;
+  std::vector<std::thread> workers;
+
+  ShardedCache(int64_t cap, int64_t n, uint64_t salt, int64_t threads)
+      : total_capacity(cap), n_shards(n), part_salt(salt) {
+    const int64_t base = cap / n, rem = cap % n;
+    int64_t row_base = 0;
+    for (int64_t s = 0; s < n; ++s) {
+      const int64_t c = base + (s < rem ? 1 : 0);
+      shards.emplace_back(new FeedShard(c));
+      shards.back()->row_base = row_base;
+      row_base += c;
+    }
+    set_threads(threads);
+  }
+
+  ~ShardedCache() { set_threads(1); }
+
+  void stop_workers() {
+    {
+      std::lock_guard<std::mutex> lk(pool_mu);
+      stopping = true;
+    }
+    cv_work.notify_all();
+    for (auto& w : workers) w.join();
+    workers.clear();
+    std::lock_guard<std::mutex> lk(pool_mu);
+    stopping = false;
+  }
+
+  void start_workers(int64_t t) {
+    for (int64_t i = 0; i < t - 1; ++i) workers.emplace_back([this, i] { worker_loop(i); });
+  }
+
+  void set_threads(int64_t t) {
+    if (t < 1) t = 1;
+    if (t > n_shards) t = n_shards;  // more threads than shards would idle
+    {
+      std::lock_guard<std::mutex> lk(pool_mu);
+      if (t == n_threads && (t == 1 || !workers.empty())) return;
+    }
+    stop_workers();
+    {
+      std::lock_guard<std::mutex> lk(pool_mu);
+      n_threads = t;
+    }
+    start_workers(t);
+  }
+
+  void set_affinity(int64_t mode) {
+    if (mode < 0 || mode > 2) mode = 0;
+    int64_t t;
+    {
+      std::lock_guard<std::mutex> lk(pool_mu);
+      if (mode == affinity_mode) return;
+      affinity_mode = mode;
+      t = n_threads;
+      if (workers.empty()) return;  // applies when workers next start
+    }
+    stop_workers();
+    start_workers(t);
+  }
+
+  // pin pool worker widx at its start (best effort; Linux only)
+  void apply_affinity(int64_t widx) {
+#if defined(__linux__)
+    int64_t mode, t;
+    {
+      std::lock_guard<std::mutex> lk(pool_mu);
+      mode = affinity_mode;
+      t = n_threads;
+    }
+    if (mode == 0) return;
+    const long ncpu_l = sysconf(_SC_NPROCESSORS_ONLN);
+    if (ncpu_l <= 0) return;
+    const int64_t ncpu = (int64_t)ncpu_l;
+    const int64_t n_workers = t > 1 ? t - 1 : 1;
+    const int64_t cpu = mode == 1 ? widx % ncpu : (widx * ncpu / n_workers) % ncpu;
+    cpu_set_t set;
+    CPU_ZERO(&set);
+    CPU_SET((int)cpu, &set);
+    pthread_setaffinity_np(pthread_self(), sizeof(set), &set);
+#else
+    (void)widx;
+#endif
+  }
+
+  void drain_items() {
+    int64_t done = 0;
+    for (;;) {
+      const int64_t s = next_item.fetch_add(1);
+      if (s >= n_shards) break;
+      job(s);
+      ++done;
+    }
+    if (done > 0) {
+      std::lock_guard<std::mutex> lk(pool_mu);
+      items_done += done;
+      if (items_done >= n_shards) cv_done.notify_all();
+    }
+  }
+
+  void worker_loop(int64_t widx) {
+    apply_affinity(widx);
+    uint64_t seen = 0;
+    for (;;) {
+      {
+        std::unique_lock<std::mutex> lk(pool_mu);
+        cv_work.wait(lk, [&] { return stopping || gen != seen; });
+        if (stopping) return;
+        seen = gen;
+      }
+      drain_items();
+    }
+  }
+
+  // fn(s) for every shard, the caller taking part; returns once all are done
+  void run_shards(const std::function<void(int64_t)>& fn) {
+    if (n_threads <= 1) {
+      for (int64_t s = 0; s < n_shards; ++s) fn(s);
+      return;
+    }
+    {
+      std::lock_guard<std::mutex> lk(pool_mu);
+      job = fn;
+      items_done = 0;
+      next_item.store(0);
+      ++gen;
+    }
+    cv_work.notify_all();
+    drain_items();
+    std::unique_lock<std::mutex> lk(pool_mu);
+    cv_done.wait(lk, [&] { return items_done >= n_shards; });
+  }
+};
+
+// phase A of one shard (the caller holds sh.mu): deduplicate and touch the
+// residents over the shard's positions; misses get ordinal placeholders.
+// LUT values are global: row_base + row, the global pad row
+// (total_capacity) for a touch-gated bypass, or -(local miss ordinal + 2).
+// Nothing is admitted yet, so an overflow of any shard can still bail
+// with only LRU touches applied (cache_admit_positions' contract).
+void shard_pass1(FeedShard& sh, const uint64_t* signs, int32_t* rows_out, const int64_t* pos, int64_t p0,
+                 int64_t p1, int64_t total_capacity) {
+  Cache& c = sh.dir;
+  c.scratch_reserve(p1 - p0);
+  sh.miss_signs.clear();
+  sh.n_unique = 0;
+  sh.overflow = false;
+  const uint64_t ep = c.scratch_epoch & 0xffffffffULL;
+  const int64_t PF = 16;  // the unsharded walk's prefetch distance
+  for (int64_t t = p0; t < p1; ++t) {
+    if (t + PF < p1) {
+      const uint64_t hp = splitmix64(signs[pos[t + PF]]);
+      __builtin_prefetch(&c.scratch[c.scratch_mask & hp]);
+      __builtin_prefetch(&c.tags[hp & c.mask]);
+      __builtin_prefetch(&c.table[hp & c.mask]);
+    }
+    const int64_t i = pos[t];
+    const uint64_t s = signs[i];
+    uint64_t j = c.scratch_mask & splitmix64(s);
+    int64_t v;
+    for (;;) {
+      const Cache::ScratchSlot& sl = c.scratch[j];
+      if ((sl.packed >> 32) != ep) { v = -1; break; }
+      if (sl.sign == s) { v = (int32_t)(uint32_t)sl.packed; break; }
+      j = (j + 1) & c.scratch_mask;
+    }
+    if (v == -1) {  // first time this batch
+      ++sh.n_unique;
+      const int64_t lpos = c.find_pos(s);
+      if (lpos >= 0) {
+        const int64_t r = c.table[lpos].row;
+        c.touch(r);
+        v = sh.row_base + r;
+      } else if (!c.touch_admits(s)) {
+        v = total_capacity;  // the global pad row: a zero forward, its gradient dropped
+      } else {
+        v = -((int64_t)sh.miss_signs.size() + 2);
+        sh.miss_signs.push_back(s);
+      }
+      c.scratch[j] = Cache::ScratchSlot{s, (ep << 32) | (uint32_t)(int32_t)v};
+    }
+    rows_out[i] = (int32_t)v;
+  }
+  sh.overflow = sh.n_unique > c.capacity;
+}
+
+// phase B of one shard (the caller holds sh.mu): rows for the misses
+// (evicting the shard's least recently used residents not in this batch),
+// then the placeholders resolved. Rows are global.
+void shard_pass2(FeedShard& sh, int32_t* rows_out, const int64_t* pos, int64_t p0, int64_t p1) {
+  Cache& c = sh.dir;
+  const int64_t n_miss = (int64_t)sh.miss_signs.size();
+  sh.miss_rows.clear();
+  sh.ev_signs.clear();
+  sh.ev_rows.clear();
+  for (int64_t m = 0; m < n_miss; ++m) {
+    if (c.count >= c.capacity) {
+      uint64_t ev_sign;
+      const int64_t ev_row = c.evict_lru(&ev_sign);
+      sh.ev_signs.push_back(ev_sign);
+      sh.ev_rows.push_back(sh.row_base + ev_row);
+      c.free_rows.push_back(ev_row);
+    }
+    sh.miss_rows.push_back(sh.row_base + c.insert(sh.miss_signs[m]));
+  }
+  for (int64_t t = p0; t < p1; ++t) {
+    const int64_t i = pos[t];
+    const int32_t v = rows_out[i];
+    if (v < 0) rows_out[i] = (int32_t)sh.miss_rows[-(int64_t)v - 2];
+  }
+}
+
+// the pending map's probe of one shard's misses (cache_feed_batch's
+// contract: the caller queries the hits again after reserving its ring
+// span). The caller must not hold sh.mu.
+void shard_ledger_probe(FeedShard& sh, PendingMap* m, uint64_t salt) {
+  sh.rst_src.clear();
+  sh.rst_pos.clear();
+  if (m == nullptr) return;
+  std::lock_guard<std::mutex> lk(m->mu);
+  if (m->count == 0) return;
+  const int64_t n_miss = (int64_t)sh.miss_signs.size();
+  const int64_t PF = 16;
+  for (int64_t j = 0; j < n_miss; ++j) {
+    if (j + PF < n_miss) __builtin_prefetch(&m->t[splitmix64(sh.miss_signs[j + PF] ^ salt) & m->mask]);
+    int64_t src;
+    uint32_t token;
+    if (m->find(sh.miss_signs[j] ^ salt, &src, &token)) {
+      sh.rst_src.push_back(src);
+      sh.rst_pos.push_back(j);
+    }
+  }
+}
+
+inline int64_t ns_since(std::chrono::steady_clock::time_point t0) {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(std::chrono::steady_clock::now() - t0).count();
+}
+
+}  // namespace
+
+extern "C" {
+
+// the capacity split evenly across the shards (the first capacity % S get
+// one row more); n_shards clamped to [1, min(64, capacity)], threads to
+// [1, n_shards]
+void* cache_create_sharded(int64_t capacity, int64_t n_shards, uint64_t part_salt, int64_t threads) {
+  if (capacity < 1) return nullptr;
+  if (n_shards < 1) n_shards = 1;
+  if (n_shards > SHARD_MAX) n_shards = SHARD_MAX;
+  if (n_shards > capacity) n_shards = capacity;
+  return new (std::nothrow) ShardedCache(capacity, n_shards, part_salt, threads);
+}
+
+void cache_sharded_destroy(void* h) { delete static_cast<ShardedCache*>(h); }
+
+int64_t cache_sharded_len(void* h) {
+  ShardedCache& sc = *static_cast<ShardedCache*>(h);
+  int64_t total = 0;
+  for (auto& sh : sc.shards) {
+    std::lock_guard<std::mutex> lk(sh->mu);
+    total += sh->dir.count;
+  }
+  return total;
+}
+
+int64_t cache_sharded_capacity(void* h) { return static_cast<ShardedCache*>(h)->total_capacity; }
+
+int64_t cache_sharded_n_shards(void* h) { return static_cast<ShardedCache*>(h)->n_shards; }
+
+int64_t cache_sharded_threads(void* h) {
+  ShardedCache& sc = *static_cast<ShardedCache*>(h);
+  std::lock_guard<std::mutex> lk(sc.pool_mu);
+  return sc.n_threads;
+}
+
+void cache_sharded_set_threads(void* h, int64_t t) { static_cast<ShardedCache*>(h)->set_threads(t); }
+
+void cache_sharded_set_admit_touches(void* h, int64_t t) {
+  ShardedCache& sc = *static_cast<ShardedCache*>(h);
+  for (auto& sh : sc.shards) {
+    std::lock_guard<std::mutex> lk(sh->mu);
+    Cache& c = sh->dir;
+    c.admit_touches = t < 1 ? 1 : (t > 255 ? 255 : t);
+    if (c.admit_touches > 1) c.ensure_touch_table();
+  }
+}
+
+// the touch gate's counters of every shard, concatenated in shard order
+// (cache_touch_counts' contract over the concatenation)
+int64_t cache_sharded_touch_counts(void* h, uint8_t* out, int64_t n) {
+  ShardedCache& sc = *static_cast<ShardedCache*>(h);
+  int64_t size = 0;
+  for (auto& sh : sc.shards) size += (int64_t)sh->dir.touch_counts.size();
+  if (out == nullptr || n != size) return size;
+  int64_t k = 0;
+  for (auto& sh : sc.shards) {
+    std::lock_guard<std::mutex> lk(sh->mu);
+    std::copy(sh->dir.touch_counts.begin(), sh->dir.touch_counts.end(), out + k);
+    k += (int64_t)sh->dir.touch_counts.size();
+  }
+  return size;
+}
+
+int64_t cache_sharded_set_touch_counts(void* h, const uint8_t* in, int64_t n) {
+  ShardedCache& sc = *static_cast<ShardedCache*>(h);
+  int64_t size = 0;
+  for (auto& sh : sc.shards) size += (int64_t)sh->dir.touch_counts.size();
+  if (n != size) return -1;
+  int64_t k = 0;
+  for (auto& sh : sc.shards) {
+    std::lock_guard<std::mutex> lk(sh->mu);
+    const int64_t m = (int64_t)sh->dir.touch_counts.size();
+    std::copy(in + k, in + k + m, sh->dir.touch_counts.begin());
+    k += m;
+  }
+  return 0;
+}
+
+// each shard's resident count (out sized n_shards)
+void cache_sharded_shard_sizes(void* h, int64_t* out) {
+  ShardedCache& sc = *static_cast<ShardedCache*>(h);
+  for (int64_t s = 0; s < sc.n_shards; ++s) {
+    std::lock_guard<std::mutex> lk(sc.shards[s]->mu);
+    out[s] = sc.shards[s]->dir.count;
+  }
+}
+
+// each shard's walk ns of the last feed (out sized n_shards)
+void cache_sharded_shard_busy_ns(void* h, int64_t* out) {
+  ShardedCache& sc = *static_cast<ShardedCache*>(h);
+  for (int64_t s = 0; s < sc.n_shards; ++s) out[s] = sc.shards[s]->busy_ns.load(std::memory_order_relaxed);
+}
+
+// each shard's pool-queue ns of the last feed (out sized n_shards)
+void cache_sharded_shard_stall_ns(void* h, int64_t* out) {
+  ShardedCache& sc = *static_cast<ShardedCache*>(h);
+  for (int64_t s = 0; s < sc.n_shards; ++s) out[s] = sc.shards[s]->stall_ns.load(std::memory_order_relaxed);
+}
+
+// every shard's probe (1 the tag walk, 0 scalar; the same results), set
+// under each shard's mutex
+void cache_sharded_set_probe_mode(void* h, int64_t mode) {
+  ShardedCache& sc = *static_cast<ShardedCache*>(h);
+  for (auto& sh : sc.shards) {
+    std::lock_guard<std::mutex> lk(sh->mu);
+    sh->dir.probe_mode = mode ? 1 : 0;
+  }
+}
+
+int64_t cache_sharded_probe_mode(void* h) {
+  ShardedCache& sc = *static_cast<ShardedCache*>(h);
+  std::lock_guard<std::mutex> lk(sc.shards[0]->mu);
+  return sc.shards[0]->dir.probe_mode;
+}
+
+void cache_sharded_set_affinity(void* h, int64_t mode) { static_cast<ShardedCache*>(h)->set_affinity(mode); }
+
+int64_t cache_sharded_affinity(void* h) {
+  ShardedCache& sc = *static_cast<ShardedCache*>(h);
+  std::lock_guard<std::mutex> lk(sc.pool_mu);
+  return sc.affinity_mode;
+}
+
+// read-only probe (no admit, no LRU touch): rows_out[i] = global row or -1;
+// one pass a shard, one mutex at a time
+void cache_sharded_probe(void* h, const uint64_t* signs, int64_t n, int64_t* rows_out) {
+  ShardedCache& sc = *static_cast<ShardedCache*>(h);
+  const int64_t S = sc.n_shards;
+  for (int64_t s = 0; s < S; ++s) {
+    FeedShard& sh = *sc.shards[s];
+    std::lock_guard<std::mutex> lk(sh.mu);
+    for (int64_t i = 0; i < n; ++i) {
+      if (S != 1 && shard_route(signs[i], sc.part_salt, S) != s) continue;
+      const int64_t p = sh.dir.find_pos(signs[i]);
+      rows_out[i] = p >= 0 ? sh.row_base + sh.dir.table[p].row : -1;
+    }
+  }
+}
+
+// cache_admit over distinct signs with global rows; miss_idx_out lists the
+// missing inputs in shard order (input order within a shard). Returns -1,
+// before changing anything, when a shard's routed count exceeds its
+// capacity.
+int64_t cache_sharded_admit(void* h, const uint64_t* signs, int64_t n, int64_t* rows_out, int64_t* miss_idx_out,
+                            uint64_t* evict_signs_out, int64_t* evict_rows_out, int64_t* n_evict_out) {
+  ShardedCache& sc = *static_cast<ShardedCache*>(h);
+  *n_evict_out = 0;
+  const int64_t S = sc.n_shards;
+  std::vector<int64_t> routed(S, 0);
+  std::vector<uint8_t> sid(n);
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t s = S == 1 ? 0 : shard_route(signs[i], sc.part_salt, S);
+    sid[i] = (uint8_t)s;
+    ++routed[s];
+  }
+  for (int64_t s = 0; s < S; ++s)
+    if (routed[s] > sc.shards[s]->dir.capacity) return -1;
+  int64_t n_miss = 0, n_evict = 0;
+  std::vector<int64_t> local_miss;
+  for (int64_t s = 0; s < S; ++s) {
+    FeedShard& sh = *sc.shards[s];
+    std::lock_guard<std::mutex> lk(sh.mu);
+    Cache& c = sh.dir;
+    local_miss.clear();
+    for (int64_t i = 0; i < n; ++i) {
+      if (sid[i] != (uint8_t)s) continue;
+      const int64_t p = c.find_pos(signs[i]);
+      if (p >= 0) {
+        const int64_t r = c.table[p].row;
+        c.touch(r);
+        rows_out[i] = sh.row_base + r;
+      } else if (!c.touch_admits(signs[i])) {
+        rows_out[i] = sc.total_capacity;
+      } else {
+        local_miss.push_back(i);
+      }
+    }
+    for (const int64_t i : local_miss) {
+      if (c.count >= c.capacity) {
+        uint64_t ev_sign;
+        const int64_t ev_row = c.evict_lru(&ev_sign);
+        evict_signs_out[n_evict] = ev_sign;
+        evict_rows_out[n_evict] = sh.row_base + ev_row;
+        ++n_evict;
+        c.free_rows.push_back(ev_row);
+      }
+      rows_out[i] = sh.row_base + c.insert(signs[i]);
+      miss_idx_out[n_miss++] = i;
+    }
+  }
+  *n_evict_out = n_evict;
+  return n_miss;
+}
+
+// every resident (sign, global row), in shard order, most recent first
+// within a shard; drain also empties every shard
+static int64_t sharded_listing(void* h, uint64_t* signs_out, int64_t* rows_out, bool reset) {
+  ShardedCache& sc = *static_cast<ShardedCache*>(h);
+  int64_t k = 0;
+  for (auto& shp : sc.shards) {
+    FeedShard& sh = *shp;
+    std::lock_guard<std::mutex> lk(sh.mu);
+    Cache& c = sh.dir;
+    for (int64_t r = c.lru_head; r >= 0; r = c.lru[r].next) {
+      signs_out[k] = c.row_sign[r];
+      rows_out[k] = sh.row_base + r;
+      ++k;
+    }
+    if (reset) c.reset_directory();
+  }
+  return k;
+}
+
+int64_t cache_sharded_snapshot(void* h, uint64_t* signs_out, int64_t* rows_out) {
+  return sharded_listing(h, signs_out, rows_out, false);
+}
+
+int64_t cache_sharded_drain(void* h, uint64_t* signs_out, int64_t* rows_out) {
+  return sharded_listing(h, signs_out, rows_out, true);
+}
+
+// The sharded feeder call: cache_feed_batch's outputs and contract (global
+// rows; -1 on any shard's overflow with nothing admitted). Phase A (the
+// deduplicating walks) completes in every shard before phase B (the
+// admits, then the pending map's probe) starts in any, so an overflow
+// bails before a shard admits.
+int64_t cache_feed_batch_sharded(void* h, void* pending_h, const uint64_t* signs, int64_t n, int32_t* rows_out,
+                                 uint64_t* miss_signs_out, int64_t* miss_rows_out, uint64_t* evict_signs_out,
+                                 int64_t* evict_rows_out, int64_t* n_unique_out, int64_t* n_evict_out,
+                                 int64_t* restore_src_out, int64_t* restore_pos_out, int64_t* n_restore_out,
+                                 uint64_t salt) {
+  ShardedCache& sc = *static_cast<ShardedCache*>(h);
+  *n_unique_out = *n_evict_out = *n_restore_out = 0;
+  const int64_t S = sc.n_shards;
+  // a stable counting sort: each shard's positions keep input order
+  sc.sid.resize((size_t)n);
+  sc.start.assign((size_t)S + 1, 0);
+  sc.fill.assign((size_t)S, 0);
+  sc.pos.resize((size_t)n);
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t s = S == 1 ? 0 : shard_route(signs[i], sc.part_salt, S);
+    sc.sid[i] = (uint8_t)s;
+    ++sc.start[s + 1];
+  }
+  for (int64_t s = 0; s < S; ++s) sc.start[s + 1] += sc.start[s];
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t s = sc.sid[i];
+    sc.pos[sc.start[s] + sc.fill[s]++] = i;
+  }
+  const auto t_dispatch_a = std::chrono::steady_clock::now();
+  sc.run_shards([&](int64_t s) {
+    FeedShard& sh = *sc.shards[s];
+    const auto t0 = std::chrono::steady_clock::now();
+    sh.stall_ns.store(std::chrono::duration_cast<std::chrono::nanoseconds>(t0 - t_dispatch_a).count(),
+                      std::memory_order_relaxed);
+    {
+      std::lock_guard<std::mutex> lk(sh.mu);
+      shard_pass1(sh, signs, rows_out, sc.pos.data(), sc.start[s], sc.start[s + 1], sc.total_capacity);
+    }
+    sh.busy_ns.store(ns_since(t0), std::memory_order_relaxed);
+  });
+  for (int64_t s = 0; s < S; ++s)
+    if (sc.shards[s]->overflow) return -1;
+  const auto t_dispatch_b = std::chrono::steady_clock::now();
+  sc.run_shards([&](int64_t s) {
+    FeedShard& sh = *sc.shards[s];
+    const auto t0 = std::chrono::steady_clock::now();
+    sh.stall_ns.fetch_add(std::chrono::duration_cast<std::chrono::nanoseconds>(t0 - t_dispatch_b).count(),
+                          std::memory_order_relaxed);
+    {
+      std::lock_guard<std::mutex> lk(sh.mu);
+      shard_pass2(sh, rows_out, sc.pos.data(), sc.start[s], sc.start[s + 1]);
+    }
+    shard_ledger_probe(sh, static_cast<PendingMap*>(pending_h), salt);
+    sh.busy_ns.fetch_add(ns_since(t0), std::memory_order_relaxed);
+  });
+  // the merge, in shard order
+  int64_t n_miss = 0, n_unique = 0, n_evict = 0, n_restore = 0;
+  for (int64_t s = 0; s < S; ++s) {
+    FeedShard& sh = *sc.shards[s];
+    const int64_t miss_base = n_miss;
+    std::copy(sh.miss_signs.begin(), sh.miss_signs.end(), miss_signs_out + n_miss);
+    std::copy(sh.miss_rows.begin(), sh.miss_rows.end(), miss_rows_out + n_miss);
+    n_miss += (int64_t)sh.miss_signs.size();
+    std::copy(sh.ev_signs.begin(), sh.ev_signs.end(), evict_signs_out + n_evict);
+    std::copy(sh.ev_rows.begin(), sh.ev_rows.end(), evict_rows_out + n_evict);
+    n_evict += (int64_t)sh.ev_signs.size();
+    for (size_t j = 0; j < sh.rst_pos.size(); ++j) {
+      restore_src_out[n_restore] = sh.rst_src[j];
+      restore_pos_out[n_restore] = miss_base + sh.rst_pos[j];
+      ++n_restore;
+    }
+    n_unique += sh.n_unique;
+  }
+  *n_unique_out = n_unique;
+  *n_evict_out = n_evict;
   *n_restore_out = n_restore;
   return n_miss;
 }

@@ -18,7 +18,10 @@ writes the stream's restores from the eviction ring; ``gather_entry_rows``
 its payload read alone) and ``cached_gather`` (K13, whose ``PooledRows``
 backward hands the step per-position gradients) update nothing through
 autograd either, nor does ``quantize_int8_ef`` (K15), the int8 error-feedback
-wire of the cache tier's parameter-server gradients."""
+wire of the cache tier's parameter-server gradients, with its shared-scale
+modes ``segment_absmax`` and ``quantize_int8_ef_shared`` (the dense
+bytegrad all-reduce), nor the dense ring's ``block_quantize_int8`` (K16)
+and ``block_dequantize_int8`` (K17)."""
 
 from persia_tpu_torch.ops.attention_pool import (  # noqa: F401
     attention_pool,
@@ -26,6 +29,7 @@ from persia_tpu_torch.ops.attention_pool import (  # noqa: F401
     attention_pool_fwd,
 )
 from persia_tpu_torch.ops.batch_norm import batch_norm, batch_norm_bwd, batch_norm_fwd  # noqa: F401
+from persia_tpu_torch.ops.block_int8 import block_dequantize_int8, block_quantize_int8  # noqa: F401
 from persia_tpu_torch.ops.cache_aux import cache_aux, gather_entry_rows  # noqa: F401
 from persia_tpu_torch.ops.cached_gather import cached_gather  # noqa: F401
 from persia_tpu_torch.ops.dot_interaction import dot_interaction, dot_interaction_bwd  # noqa: F401
@@ -37,7 +41,11 @@ from persia_tpu_torch.ops.embedding_pool import (  # noqa: F401
 )
 from persia_tpu_torch.ops.flash_attention import flash_attention, tf32_split_planes  # noqa: F401
 from persia_tpu_torch.ops.fused_gather import fused_gather  # noqa: F401
-from persia_tpu_torch.ops.quantize_int8 import quantize_int8_ef  # noqa: F401
+from persia_tpu_torch.ops.quantize_int8 import (  # noqa: F401
+    quantize_int8_ef,
+    quantize_int8_ef_shared,
+    segment_absmax,
+)
 from persia_tpu_torch.ops.raw_gather import RawSlot, raw_csr, raw_gather, raw_gather_bwd, raw_gather_fwd  # noqa: F401
 from persia_tpu_torch.ops.sparse_update import sparse_update, update_keys  # noqa: F401
 
@@ -45,7 +53,8 @@ KERNEL_WRAPPERS = (
     dot_interaction, dot_interaction_bwd, gather_pool_fwd, gather_pool_bwd,
     flash_attention, tf32_split_planes, fused_gather, update_keys, sparse_update,
     raw_gather_fwd, raw_gather_bwd, attention_pool_fwd, attention_pool_bwd, batch_norm_fwd, batch_norm_bwd,
-    cache_aux, gather_entry_rows, cached_gather, quantize_int8_ef,
+    cache_aux, gather_entry_rows, cached_gather, quantize_int8_ef, segment_absmax, quantize_int8_ef_shared,
+    block_quantize_int8, block_dequantize_int8,
 )
 
 

@@ -902,3 +902,27 @@ def quantize_int8_cover(offsets, plan: QuantInt8Plan):
                 np.add.at(writes, edge, 1)
                 np.add.at(reads, edge, 1)
     return writes, reads
+
+
+# the dense ring's block int8 wire (csrc/block_int8.cu): K16 a thread block
+# a quantization block, each thread up to BLOCK_INT8_MAX_PER of its
+# elements in registers; K17 a thread an element, grid-stride
+BLOCK_INT8_MAX_THREADS = 256  # kMaxBlockThreads
+BLOCK_INT8_MAX_PER = 8  # kMaxPer
+BLOCK_DEQUANT_THREADS = 256
+BLOCK_DEQUANT_MAX_GRID = 132 * 16  # 16 blocks an SM of the H100's 132
+
+
+def block_int8_threads(block_size: int) -> int:
+    """K16's threads a block: the fewest multiple of 32 that holds
+    ``block_size`` elements at ``BLOCK_INT8_MAX_PER`` a thread, at least one
+    a thread up to ``BLOCK_INT8_MAX_THREADS``."""
+    if not 1 <= block_size <= BLOCK_INT8_MAX_THREADS * BLOCK_INT8_MAX_PER:
+        raise ValueError(f"block_size must be 1 to {BLOCK_INT8_MAX_THREADS * BLOCK_INT8_MAX_PER}, got {block_size}")
+    return min(BLOCK_INT8_MAX_THREADS, (block_size + 31) // 32 * 32)
+
+
+def block_dequant_grid(elements: int) -> int:
+    """K17's blocks for ``elements`` outputs: one thread an element, up to
+    ``BLOCK_DEQUANT_MAX_GRID`` blocks (the rest by the grid-stride loop)."""
+    return max(1, min(BLOCK_DEQUANT_MAX_GRID, -(-elements // BLOCK_DEQUANT_THREADS)))

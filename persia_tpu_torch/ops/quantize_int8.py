@@ -26,9 +26,20 @@ gradients are then unscaled on the device, ``v = g * inv + residual``
 scales are 0 and the residual is left as it was; the host drops that
 step's gradients, so only a finite step's scales are ever applied.
 
+At a shared scale (the dense bytegrad all-reduce, ``persia_tpu/parallel/
+grad_sync.py``'s ``bytegrad_allreduce``): ``segment_absmax(g, residual,
+offsets)`` gives each segment's ``max(max |g + residual|, 1e-30)`` (the
+kernel writing its scales alone), which the caller all-reduces with MAX;
+``quantize_int8_ef_shared(g, residual, offsets, scale)`` then codes each
+segment at ``max(scale[s], 1e-30)`` (``scale`` an (S,) f32 tensor on the
+device) instead of its own maximum: the same codes and residual as above
+at that scale.
+
 A CPU tensor takes the plain version; a CUDA tensor one launch a call
-(``quantize_int8_ef.launches``), at most ``MAX_SEGMENTS`` segments, in the
-geometry of ``plans.quantize_int8_plan`` (a cluster of blocks a segment).
+(``quantize_int8_ef.launches``, ``segment_absmax.launches``,
+``quantize_int8_ef_shared.launches``), at most ``MAX_SEGMENTS`` segments,
+in the geometry of ``plans.quantize_int8_plan`` (a cluster of blocks a
+segment).
 """
 
 from __future__ import annotations
@@ -45,9 +56,10 @@ MAX_SEGMENTS = plans.QUANT_MAX_SEGMENTS  # kMaxQuantSegments in csrc/quantize_in
 
 def quantize_int8_ef_reference(g: torch.Tensor, residual: torch.Tensor, offsets: Sequence[int],
                                inv: Optional[torch.Tensor] = None, finite: Optional[torch.Tensor] = None,
+                               scale: Optional[torch.Tensor] = None,
                                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version: the reference's function a segment at a time, after
-    the unscale ``g * inv`` where given; with ``finite`` the codes, the
+    """Plain version: the reference's function a segment at a time (at
+    ``scale[s]`` where given), after the unscale ``g * inv`` where given; with ``finite`` the codes, the
     residual and the scales selected by it (no host read) and ``finite``
     appended to the scales. Every division is tensor by tensor: PyTorch's
     CUDA division by a Python scalar multiplies by its reciprocal, which is
@@ -59,12 +71,15 @@ def quantize_int8_ef_reference(g: torch.Tensor, residual: torch.Tensor, offsets:
     c127 = torch.full((), 127.0, dtype=torch.float32, device=v.device)
     for s, (a, b) in enumerate(zip(offsets[:-1], offsets[1:])):
         seg = v[a:b]
-        m = seg.abs().amax() if b > a else torch.zeros((), dtype=torch.float32, device=v.device)
-        scale = torch.clamp_min(m, 1e-30)
-        t = torch.clamp(torch.round(seg / scale * 127.0), -127, 127)
+        if scale is not None:
+            m = scale[s]
+        else:
+            m = seg.abs().amax() if b > a else torch.zeros((), dtype=torch.float32, device=v.device)
+        sc = torch.clamp_min(m, 1e-30)
+        t = torch.clamp(torch.round(seg / sc * 127.0), -127, 127)
         q[a:b] = t.to(torch.int8)
-        new[a:b] = seg - t * (scale / c127)
-        scales[s] = scale
+        new[a:b] = seg - t * (sc / c127)
+        scales[s] = sc
     if finite is None:
         return q, scales, new
     ok = finite > 0.5
@@ -128,3 +143,70 @@ def quantize_int8_ef(g: torch.Tensor, residual: torch.Tensor, offsets: Sequence[
 
 
 quantize_int8_ef.launches = 0
+
+
+def segment_absmax_reference(g: torch.Tensor, residual: torch.Tensor, offsets: Sequence[int]) -> torch.Tensor:
+    """Plain version: (S,) ``max(max |g + residual|, 1e-30)`` a segment."""
+    v = g.float() + residual
+    out = torch.empty(len(offsets) - 1, dtype=torch.float32, device=v.device)
+    for s, (a, b) in enumerate(zip(offsets[:-1], offsets[1:])):
+        m = v[a:b].abs().amax() if b > a else torch.zeros((), dtype=torch.float32, device=v.device)
+        out[s] = torch.clamp_min(m, 1e-30)
+    return out
+
+
+def _launch_shared(g, residual, offsets, scale_in, q, scales, r_out) -> None:
+    segments = len(offsets) - 1
+    if segments > MAX_SEGMENTS:
+        raise ValueError(f"{segments} segments, more than the kernel's {MAX_SEGMENTS}")
+    longest = max(b - a for a, b in zip(offsets[:-1], offsets[1:]))
+    aligned = all(t.data_ptr() % 16 == 0 for t in (g, residual) + ((q,) if q is not None else ()))
+    plan = plans.quantize_int8_plan(segments, longest, g.element_size(), aligned)
+    offs = (ctypes.c_int * (segments + 1))(*offsets)
+    dtype = _kernels.DTYPE_F32 if g.dtype == torch.float32 else _kernels.DTYPE_BF16
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    with torch.cuda.device(g.device):
+        rc = _kernels.library().persia_quantize_int8_ef_shared(
+            g.data_ptr(), dtype, residual.data_ptr(), offs, segments, ptr(scale_in), ptr(q), scales.data_ptr(),
+            ptr(r_out), plan.vec, plan.threads, plan.units, plan.cluster, _kernels.stream_handle(g))
+    _kernels.check(rc, "quantize_int8_ef (shared scale)")
+
+
+def segment_absmax(g: torch.Tensor, residual: torch.Tensor, offsets: Sequence[int]) -> torch.Tensor:
+    """(S,) f32: each segment's ``max(max |g + residual|, 1e-30)`` (K15
+    writing its scales alone on a CUDA tensor)."""
+    _check(g, residual, offsets)
+    if g.device.type == "cpu":
+        return segment_absmax_reference(g, residual, offsets)
+    if g.device.type != "cuda":
+        raise ValueError(f"unsupported device {g.device}")
+    scales = torch.empty(len(offsets) - 1, dtype=torch.float32, device=g.device)
+    if scales.numel():
+        _launch_shared(g, residual, offsets, None, None, scales, None)
+        segment_absmax.launches += 1
+    return scales
+
+
+def quantize_int8_ef_shared(g: torch.Tensor, residual: torch.Tensor, offsets: Sequence[int], scale: torch.Tensor,
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(q, scales, new residual)`` at the caller's (S,) ``scale`` (K15's
+    codes and residual at a shared scale; the residual written in place on
+    a CUDA tensor)."""
+    _check(g, residual, offsets)
+    if scale.dtype != torch.float32 or scale.shape != (len(offsets) - 1,) or scale.device != g.device \
+            or not scale.is_contiguous():
+        raise ValueError(f"scale must be a contiguous ({len(offsets) - 1},) float32 tensor on {g.device}")
+    if g.device.type == "cpu":
+        return quantize_int8_ef_reference(g, residual, offsets, scale=scale)
+    if g.device.type != "cuda":
+        raise ValueError(f"unsupported device {g.device}")
+    q = torch.empty(g.shape, dtype=torch.int8, device=g.device)
+    scales = torch.empty(len(offsets) - 1, dtype=torch.float32, device=g.device)
+    if scales.numel():
+        _launch_shared(g, residual, offsets, scale, q, scales, residual)
+        quantize_int8_ef_shared.launches += 1
+    return q, scales, residual
+
+
+segment_absmax.launches = 0
+quantize_int8_ef_shared.launches = 0

@@ -114,12 +114,16 @@ class TrainState:
     """The dense side's training state: the module holds the parameters
     and any batch statistics (its batch norms' buffers, flax's
     ``batch_stats``), ``optimizer`` (a ``torch.optim.Adam`` over them) its
-    moments; ``step`` counts the steps taken, skipped ones included."""
+    moments; ``step`` counts the steps taken, skipped ones included;
+    ``sync`` the dense sync's state where one runs."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
     loss_scale: Optional[LossScaleState] = None
+    # the dense sync's state (parallel.grad_sync.SyncState) under TrainCtx's
+    # dense_sync: the ring's error feedback, the sharded update's Adam
+    sync: Optional[object] = None
 
 
 def init_train_state(

@@ -210,7 +210,10 @@ def _dense_tree(state) -> Dict:
     out)), ``batch_stats`` (``{}`` for a model without batch norms) and
     ``opt_state``, ``optax.adam``'s chain (``count``, ``mu``, ``nu``; then
     the learning-rate scale's empty state). Before Adam's first step its
-    moments are zeros and its count 0."""
+    moments are zeros and its count 0. Under a ring or sharded dense sync
+    (``state.sync``) ``opt_state`` is the reference's ``{"opt", "ef"}``
+    wrapper (``SyncState.opt_state_tree``; a collective at more than one
+    rank)."""
     model, opt = state.model, _adam_of(state)
     first = next(iter(model.parameters()))
     count = int(float(opt.state[first]["step"])) if opt.state.get(first) else 0
@@ -218,13 +221,17 @@ def _dense_tree(state) -> Dict:
     def moment(key):
         return lambda p: opt.state[p][key] if opt.state.get(p) else torch.zeros_like(p)
 
+    opt_state = {"0": {"count": np.asarray(count, np.int32),
+                       "mu": state_dict_to_flax(model, moment("exp_avg")),
+                       "nu": state_dict_to_flax(model, moment("exp_avg_sq"))},
+                 "1": {}}
+    sync = getattr(state, "sync", None)
+    if sync is not None and sync.wrapped:  # the dense sync's {"opt", "ef"} wrapper
+        opt_state = sync.opt_state_tree(opt_state)
     return {
         "params": state_dict_to_flax(model),
         "batch_stats": batch_stats_to_flax(model),
-        "opt_state": {"0": {"count": np.asarray(count, np.int32),
-                            "mu": state_dict_to_flax(model, moment("exp_avg")),
-                            "nu": state_dict_to_flax(model, moment("exp_avg_sq"))},
-                      "1": {}},
+        "opt_state": opt_state,
     }
 
 
@@ -248,21 +255,30 @@ def _load_dense_tree(state, tree: Mapping) -> None:
     """Load ``_dense_tree``'s leaves of ``tree`` into ``state`` in place:
     the model's parameters and batch statistics, Adam's moments and
     ``step`` tensors (those that exist are overwritten, so a captured or
-    cached step stays valid; missing ones are made as Adam makes them)."""
+    cached step stays valid; missing ones are made as Adam makes them).
+    Under a ring or sharded dense sync, this rank's rows of the wrapper go
+    to ``state.sync`` (``SyncState.load_opt_state_tree``)."""
     model, opt = state.model, _adam_of(state)
-    adam = tree["opt_state"]["0"]
+    opt_tree = tree["opt_state"]
+    sync = getattr(state, "sync", None)
+    if sync is not None and sync.wrapped:
+        opt_tree = sync.load_opt_state_tree(opt_tree)  # this rank's rows of the wrapper
+    adam = opt_tree["0"]
+    sharded = sync is not None and sync.sharded  # the moments are the shard's: the model's Adam keeps none
     leaves = _check_paths(model, tree["params"], "the bytes")
     groups = {id(p): g for g in opt.param_groups for p in g["params"]}
     count = float(np.asarray(adam["count"]))
     batch_stats_from_flax(model, tree["batch_stats"])
     with torch.no_grad():
         for path, p, transposed in leaves:
-            host = [_at(t, path) for t in (tree["params"], adam["mu"], adam["nu"])]
+            host = [_at(t, path) for t in ((tree["params"],) if sharded else (tree["params"], adam["mu"], adam["nu"]))]
             host = [_host_tensor(a.T if transposed else a).to(p.device) for a in host]
             if host[0].shape != p.shape or host[0].dtype != p.dtype:
                 raise ValueError(f"{'/'.join(path)}: {host[0].dtype} {tuple(host[0].shape)} in the bytes, "
                                  f"{p.dtype} {tuple(p.shape)} in the model")
             p.copy_(host[0])
+            if sharded:
+                continue
             st = opt.state[p]
             if not st:
                 g = groups[id(p)]

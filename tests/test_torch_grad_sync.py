@@ -1,0 +1,324 @@
+"""The port's dense-sync primitives (``persia_tpu_torch/parallel/
+grad_sync.py``, ``mesh.py``, ``distributed.py``, the plain versions of the
+kernels K16, K17 and K15 at a shared scale in ``ops``) against the
+reference's ``persia_tpu/parallel/grad_sync.py`` on the CPU:
+
+- ``block_quantize_int8``'s codes and scales bit for bit the reference's on
+  the same f32 input (blocks of several sizes, an all-zero block, large and
+  tiny magnitudes), with and without the ring's error feedback; its error
+  and ``block_dequantize_int8`` within 2 ulps of the reference's ``v -
+  deq`` / dequantized values (XLA's CPU code multiplies by a rounded
+  1/127 where the port divides by 127); the dequantize's accumulate and
+  roll as the ring composes them;
+- K15 at a shared scale (``segment_absmax``, ``quantize_int8_ef_shared``):
+  the scales ``max(max |g + r|, 1e-30)`` bit for bit, the codes bit for
+  bit the reference's ``quantize_int8_ef(g, r, scale=...)`` a leaf at a
+  time, the residual within 4 ulps of |v| (as the int8 wire's test holds
+  it);
+- the flat vector in the reference's ``ravel_pytree`` order bit for bit;
+  ``_flat_chunk``, ``dense_param_count``, ``dense_sync_wire_bytes`` and
+  ``sync_mode_algorithm`` equal to the reference's;
+- the ring at n ranks against the reference's ring under ``shard_map`` on
+  n CPU devices (the port's ranks spawned over gloo): every rank's sum the
+  same bits, within 2 ulps of the reference's largest magnitude, the
+  ``ef`` rows within 1e-6;
+- the mesh and the process-group setup at one process; ``TrainCtx``'s
+  refusals and ``sync_mode`` labels.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.flatten_util import ravel_pytree
+from jax.sharding import PartitionSpec as P
+
+from persia_tpu.parallel import data_parallel_mesh as jax_mesh
+from persia_tpu.parallel import grad_sync as jgs
+from persia_tpu.parallel.mesh import shard_map_compat
+from persia_tpu_torch import distributed as tdist
+from persia_tpu_torch.ctx import TrainCtx
+from persia_tpu_torch.embedding import optim as toptim
+from persia_tpu_torch.embedding.store import EmbeddingStore
+from persia_tpu_torch.embedding.worker import EmbeddingWorker
+from persia_tpu_torch.ops.block_int8 import (
+    block_dequantize_int8,
+    block_dequantize_int8_reference,
+    block_quantize_int8,
+    block_quantize_int8_reference,
+)
+from persia_tpu_torch.ops.quantize_int8 import (
+    quantize_int8_ef_reference,
+    quantize_int8_ef_shared,
+    segment_absmax,
+)
+from persia_tpu_torch.parallel import grad_sync as tgs
+from persia_tpu_torch.parallel.mesh import data_parallel_mesh
+from persia_tpu_torch.testing import dense_sync as tds
+
+ULP = 2.0 ** -23
+
+
+def _vector(seed, blocks, bs, zero_block=True):
+    rng = np.random.default_rng(seed)
+    mags = 10.0 ** rng.integers(-20, 6, blocks)
+    v = (rng.normal(size=blocks * bs) * np.repeat(mags, bs)).astype(np.float32)
+    if zero_block:
+        v[:bs] = 0.0
+    return v
+
+
+@pytest.mark.parametrize("feedback", [False, True])
+@pytest.mark.parametrize("bs", [1, 16, 100, 256, 2048])
+def test_block_quantize_matches_reference(bs, feedback):
+    """Codes and scales bit for bit, the error within 2 ulps of |x|."""
+    blocks = max(2, 2048 // bs)
+    v = _vector(bs, blocks, bs)
+    ef = (_vector(bs + 1, blocks, bs, zero_block=False) * np.float32(1e-3)).astype(np.float32)
+    x = v + ef if feedback else v
+    jq, js, jdeq = jgs.block_quantize_int8(jnp.asarray(x), bs)
+    q, s, err = block_quantize_int8(torch.from_numpy(v), bs, ef=torch.from_numpy(ef) if feedback else None)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    want = x - np.asarray(jdeq)
+    np.testing.assert_array_less(np.abs(err.numpy() - want), 2 * ULP * np.abs(x) + 1e-45)
+    if not feedback:  # the all-zero block
+        assert (s.numpy()[0] == np.float32(1e-30)) and (q.numpy()[:bs] == 0).all()
+    # the error is what the codes lost: |err| <= half a step of the block
+    step = np.repeat(s.numpy(), bs) / 127.0
+    assert (np.abs(err.numpy()) <= step / 2 * (1 + 1e-5) + 1e-45).all()
+
+
+def test_block_quantize_writes_the_callers_error_row():
+    v = torch.from_numpy(_vector(3, 4, 64))
+    err = torch.full((256,), 7.0)
+    q, s, e = block_quantize_int8(v, 64, err=err)
+    assert e is err
+    torch.testing.assert_close(err, block_quantize_int8_reference(v, 64)[2], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="multiple"):
+        block_quantize_int8(v[:100], 64)
+    with pytest.raises(ValueError, match="ef"):
+        block_quantize_int8(v, 64, ef=torch.zeros(3))
+
+
+@pytest.mark.parametrize("n,roll", [(1, 0), (2, 1), (4, 1), (4, 3)])
+def test_block_dequantize_matches_reference(n, roll):
+    """``q * (scale / 127)`` within an ulp of the reference's (XLA's
+    rounded 1/127), rows rolled into chunk order as its all-gather's, and
+    the hop's ``(base + ef) + deq``."""
+    bs, chunk = 32, 128
+    v = _vector(n * 10 + roll, n * chunk // bs, bs)
+    q, s, _ = block_quantize_int8(torch.from_numpy(v), bs)
+    want_rows = np.asarray(jgs.block_dequantize_int8(jnp.asarray(q.numpy()), jnp.asarray(s.numpy()), bs))
+    want = np.roll(want_rows.reshape(n, chunk), roll, axis=0).reshape(-1)
+    got = block_dequantize_int8(q, s, bs, n=n, roll=roll)
+    np.testing.assert_array_less(np.abs(got.numpy() - want), ULP * np.abs(want) + 1e-45)
+    assert torch.equal(got, block_dequantize_int8_reference(q, s, bs, n, roll))
+    base = torch.from_numpy(_vector(5, n * chunk // bs, bs, zero_block=False))
+    ef = base * 1e-3
+    acc = base.clone()
+    out = block_dequantize_int8(q, s, bs, n=n, roll=roll, base=acc, ef=ef, out=acc)
+    assert out is acc
+    torch.testing.assert_close(acc, (base + ef) + got, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="roll"):
+        block_dequantize_int8(q, s, bs, n=n, roll=n)
+
+
+def test_shared_scale_quantize_matches_reference():
+    """Each leaf's scale ``max(max |g + r|, 1e-30)``; the codes at a shared
+    scale (here 1.5x a leaf's own, and one leaf all zeros) bit for bit the
+    reference's ``quantize_int8_ef(g, r, scale=...)``; the residual within 4
+    ulps of |v|."""
+    offsets = [0, 1, 33, 33, 500, 2000, 2001]
+    rng = np.random.default_rng(0)
+    g = (rng.normal(size=offsets[-1]) * 10.0 ** rng.integers(-3, 3, offsets[-1])).astype(np.float32)
+    g[1:33] = 0
+    r = (rng.normal(size=offsets[-1]) * 1e-4).astype(np.float32)
+    r[1:33] = 0
+    scale = segment_absmax(torch.from_numpy(g), torch.from_numpy(r), offsets)
+    for s, (a, b) in enumerate(zip(offsets[:-1], offsets[1:])):
+        want = max(np.abs(g[a:b] + r[a:b]).max(), np.float32(1e-30)) if b > a else np.float32(1e-30)
+        assert scale[s].item() == want
+    shared = scale * 1.5
+    q, scales, res = quantize_int8_ef_shared(torch.from_numpy(g), torch.from_numpy(r.copy()), offsets, shared)
+    for s, (a, b) in enumerate(zip(offsets[:-1], offsets[1:])):
+        if b == a:
+            continue
+        jq, js, _, jr = jgs.quantize_int8_ef(jnp.asarray(g[a:b]), jnp.asarray(r[a:b]),
+                                            scale=jnp.maximum(jnp.float32(shared[s].item()), 1e-30))
+        np.testing.assert_array_equal(q[a:b].numpy(), np.asarray(jq))
+        assert scales[s].item() == float(js)
+        v = g[a:b] + r[a:b]
+        np.testing.assert_array_less(np.abs(res[a:b].numpy() - np.asarray(jr)), 4 * ULP * np.abs(v) + 1e-45)
+    ref_q, ref_s, ref_r = quantize_int8_ef_reference(torch.from_numpy(g), torch.from_numpy(r.copy()), offsets,
+                                                     scale=shared)
+    assert torch.equal(q, ref_q) and torch.equal(scales, ref_s) and torch.equal(res, ref_r)
+    with pytest.raises(ValueError, match="scale"):
+        quantize_int8_ef_shared(torch.from_numpy(g), torch.from_numpy(r), offsets, shared[:2])
+
+
+def test_flat_vector_and_geometry_match_reference():
+    """The flat parameters in ``ravel_pytree``'s order bit for bit; the
+    ring's geometry, the parameter count, the wire model and the mode
+    table the reference's."""
+    model, params = tds.model_and_params(dict(tds.SPEC, top=(32, 16), bottom=(16, 8)))
+    want = np.asarray(ravel_pytree(jax.tree.map(jnp.asarray, params))[0])
+    got = tgs.ravel(tgs.dense_leaves(model), lambda p: p.detach()).numpy()
+    np.testing.assert_array_equal(got, want)
+    leaves = tgs.dense_leaves(model)
+    back = torch.zeros_like(torch.from_numpy(got)) + torch.from_numpy(got) * 2
+    tgs.unravel_into(back, leaves, lambda p: p.data)
+    np.testing.assert_array_equal(tgs.ravel(leaves, lambda p: p.detach()).numpy(), want * 2)
+    p_count = tgs.dense_param_count(model)
+    assert p_count == jgs.dense_param_count(jax.tree.map(jnp.asarray, params)) == want.size
+    for n in (1, 2, 3, 4, 8):
+        for bs in (1, 16, 256):
+            assert tgs._flat_chunk(p_count, n, bs) == jgs._flat_chunk(p_count, n, bs)
+        for mode in tgs.DENSE_SYNC_MODES + ("implicit-psum", "local"):
+            for bs in (64, 256):
+                assert tgs.dense_sync_wire_bytes(mode, p_count, n, bs) == jgs.dense_sync_wire_bytes(mode, p_count, n,
+                                                                                                     bs)
+    assert tgs.DENSE_SYNC_MODES == jgs.DENSE_SYNC_MODES
+    for mode in tgs.DENSE_SYNC_MODES:
+        (a, sa), (b, sb) = tgs.sync_mode_algorithm(mode, 64), jgs.sync_mode_algorithm(mode, 64)
+        assert type(a).__name__ == type(b).__name__ and sa == sb and vars(a) == vars(b)
+    with pytest.raises(ValueError, match="unknown dense sync mode"):
+        tgs.sync_mode_algorithm("int4")
+    with pytest.raises(ValueError, match="block_size"):
+        tgs.BlockInt8Ring(block_size=0)
+
+
+# --------------------------------------------------- the ring across ranks
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_ring_allreduce_matches_reference(n):
+    """``_block_ring_allreduce_flat`` on n gloo ranks against the reference
+    under ``shard_map`` on n CPU devices, from the same per-rank vectors and
+    residuals: every rank's sum the same bits, within 2 ulps of the
+    reference's largest magnitude; each rank's new ``ef`` within 1e-6 of
+    the reference's row (the sum's rounding order differs, the codes do
+    not)."""
+    bs, p = 16, 200
+    chunk, p_pad = jgs._flat_chunk(p, n, bs)
+    rng = np.random.default_rng(n)
+    per_dev = np.zeros((n, p_pad), np.float32)
+    per_dev[:, :p] = rng.normal(size=(n, p)).astype(np.float32)
+    ef = (rng.normal(size=(n, p_pad)) * 1e-3).astype(np.float32)
+    algo = jgs.BlockInt8Ring(block_size=bs)
+
+    def f(x, e):
+        s, new_ef = jgs._block_ring_allreduce_flat(x[0][:p], e[0], algo, n)
+        return s, new_ef[None]
+
+    mesh = jax_mesh(n)
+    want_sum, want_ef = jax.jit(shard_map_compat(f, mesh=mesh, in_specs=(P("data"), P("data")),
+                                                 out_specs=(P(), P("data")), check_vma=False))(
+        jnp.asarray(per_dev), jnp.asarray(ef))
+    want_sum, want_ef = np.asarray(want_sum), np.asarray(want_ef)
+    got = tds.run_function(n, tds.ring_allreduce_rank, bs, per_dev, ef, timeout=120)
+    for r, (s, e) in enumerate(got):
+        np.testing.assert_array_equal(s, got[0][0])
+        np.testing.assert_allclose(s, want_sum, rtol=0, atol=2 * ULP * np.abs(want_sum).max())
+        np.testing.assert_allclose(e, want_ef[r], rtol=0, atol=1e-6)
+
+
+# ------------------------------------------------ the mesh and the setup
+
+
+def test_single_process_mesh_and_setup(monkeypatch):
+    """No process group: a mesh of one rank whose collectives move nothing;
+    ``initialize_process_group`` runs as a single process without a world
+    and raises for a world without an address; ``DistributedOption``
+    refuses ep and sp above 1."""
+    for k in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    assert tdist.initialize_process_group() is False and tdist.process_counts() == (0, 1)
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(ValueError, match="MASTER_ADDR"):
+        tdist.initialize_process_group()
+    mesh = data_parallel_mesh()
+    assert (mesh.size, mesh.rank, mesh.group, mesh.backend) == (1, 0, None, "local")
+    assert mesh.rows(32) == (0, 32)
+    t = torch.arange(4.0)
+    assert mesh.all_reduce(t) is t and mesh.all_gather(t).shape == (1, 4)
+    with pytest.raises(ValueError, match="process group"):
+        data_parallel_mesh(2)
+    assert tdist.DistributedOption(dp=4).total() == 4
+    for kw in (dict(ep=2), dict(sp=2)):
+        with pytest.raises(NotImplementedError):
+            tdist.DistributedOption(**kw)
+
+
+def _ctx(**kw):
+    model, _ = tds.model_and_params(tds.SPEC)
+    cfg = tds.embedding_config(tds.SPEC)
+    worker = EmbeddingWorker(cfg, [EmbeddingStore(capacity=1 << 12, optimizer=toptim.Adagrad(lr=0.1).config)])
+    return TrainCtx(model, torch.optim.Adam(model.parameters(), lr=1e-3), toptim.Adagrad(lr=0.1), worker, cfg,
+                    device="cpu", **kw)
+
+
+def test_train_ctx_refusals_and_labels():
+    """``dense_sync`` without a mesh, with the dynamic loss scale, or of an
+    unknown mode raises, as the reference's; ``sync_mode`` is "local"
+    without a mesh or at one rank, else the mode; the wire bytes are 0 at
+    one rank; the sharded update over another optimizer raises."""
+    with pytest.raises(ValueError, match="mesh"):
+        _ctx(dense_sync="f32")
+    with pytest.raises(ValueError, match="mutually"):
+        _ctx(mesh=data_parallel_mesh(), dense_sync="f32", dynamic_loss_scale=True)
+    with pytest.raises(ValueError, match="unknown dense sync mode"):
+        _ctx(mesh=data_parallel_mesh(), dense_sync="fp4")
+    assert _ctx().sync_mode == _ctx(mesh=data_parallel_mesh()).sync_mode == "local"
+    ctx = _ctx(mesh=data_parallel_mesh(), dense_sync="block-int8-ring")
+    ctx.init_state()
+    assert ctx.sync_mode == "block-int8-ring" and ctx.dense_wire_bytes_per_step() == 0
+    assert ctx.state.sync.ef.shape == (ctx.state.sync.p_pad,) and ctx.state.sync.p_pad % 256 == 0
+    model, _ = tds.model_and_params(tds.SPEC)
+    with pytest.raises(ValueError, match="Adam"):
+        tgs.init_sync_opt_state(model, torch.optim.SGD(model.parameters(), lr=0.1), data_parallel_mesh(),
+                                tgs.GradientAllReduce(), sharded_update=True)
+    with pytest.raises(ValueError, match="sharded_update"):
+        tgs.build_sync_train_step(model, torch.optim.Adam(model.parameters()), data_parallel_mesh(),
+                                  tgs.ByteGradAllReduce(), sharded_update=True)
+    with pytest.raises(ValueError, match="worker"):
+        TrainCtx(model, torch.optim.Adam(model.parameters()), toptim.Adagrad(lr=0.1), None,
+                 tds.embedding_config(tds.SPEC), device="cpu")
+
+
+def test_sharded_state_round_trips_through_flax_bytes():
+    """At one rank the sharded ring's state (Adam over the flat chunk, the
+    ``ef`` row) writes the reference's wrapper ((1, chunk) moments, (1,
+    Ppad) ``ef``, the count) and loads back into a fresh ctx bit for bit."""
+    from persia_tpu_torch.serialization import msgpack_restore
+    from persia_tpu_torch.weights import train_state_from_flax_bytes, train_state_to_flax_bytes
+
+    a = _ctx(mesh=data_parallel_mesh(), dense_sync="block-int8-ring-sharded").__enter__()
+    a.init_state()
+    for b in tds.batches(tds.SPEC, 2, 9):
+        a.train_step(b)
+    raw = train_state_to_flax_bytes(a.state)
+    tree = msgpack_restore(raw)["opt_state"]
+    st = a.state.sync
+    assert np.asarray(tree["opt"]["0"]["mu"]).shape == (1, st.chunk) and np.asarray(tree["ef"]).shape == (1, st.p_pad)
+    assert int(np.asarray(tree["opt"]["0"]["count"])) == 2 and np.abs(np.asarray(tree["opt"]["0"]["nu"])).max() > 0
+    b = _ctx(mesh=data_parallel_mesh(), dense_sync="block-int8-ring-sharded").__enter__()
+    b.init_state()
+    train_state_from_flax_bytes(b.state, raw)
+    assert train_state_to_flax_bytes(b.state) == raw
+
+
+def test_sharded_update_is_adam_elementwise():
+    """The sharded update's Adam over a chunk of the flat parameters is the
+    ctx's Adam elementwise: at one rank ``f32-sharded`` and ``f32`` train
+    the same bits."""
+    batches = tds.batches(tds.SPEC, 3, 9)
+    outs = []
+    for mode in ("f32", "f32-sharded"):
+        ctx = _ctx(mesh=data_parallel_mesh(), dense_sync=mode).__enter__()
+        ctx.init_state()
+        losses = [ctx.train_step(b)["loss"] for b in batches]
+        outs.append((losses, tgs.ravel(tgs.dense_leaves(ctx.model), lambda p: p.detach()).numpy()))
+    assert outs[0][0] == outs[1][0]
+    np.testing.assert_array_equal(outs[0][1], outs[1][1])

@@ -910,11 +910,15 @@ def test_unsupported_options_raise():
     cfg = _cfg(tcfg, False)
     store = EmbeddingStore(optimizer=toptim.Adagrad(lr=0.1).config)
     model = DLRM(DENSE, 3, DIM, BOTTOM, TOP, compute_dtype=torch.float32, device="cpu")
-    for kw in (dict(mesh=object()), dict(health_clip_norm=1.0), dict(feed_shards=2),
-               dict(feed_threads=4), dict(health_probe=True)):
+    for kw in (dict(mesh=object()), dict(health_clip_norm=1.0), dict(health_probe=True)):
         with pytest.raises(NotImplementedError):
             thbm.CachedTrainCtx(model, torch.optim.Adam(model.parameters()), toptim.Adagrad(lr=0.1),
                                 EmbeddingWorker(cfg, [store]), cfg, device="cpu", **kw)
+    # the sharded feeder is ported (tests/test_torch_hbm_sharded_feeder.py)
+    for kw, shards in ((dict(feed_shards=2), 2), (dict(feed_threads=4), 8)):
+        ctx = thbm.CachedTrainCtx(model, torch.optim.Adam(model.parameters()), toptim.Adagrad(lr=0.1),
+                                  EmbeddingWorker(cfg, [store]), cfg, device="cpu", **kw)
+        assert ctx.tier.feed_shards == shards
     with pytest.raises(NotImplementedError):
         thbm.build_cached_train_step(model, None, toptim.Adagrad(lr=0.1).config, [], sentinel_probe=True)
     with pytest.raises(ValueError, match="table_dtype"):

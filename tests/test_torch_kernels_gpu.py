@@ -2344,3 +2344,110 @@ def test_fused_graph_step_equals_eager_step_any_model(cuda, name):
         assert all(np.array_equal(a, b) for a, b in zip(before, _state_bits(state)))
     assert torch.equal(results[0][0], results[1][0])
     assert all(np.array_equal(a, b) for a, b in zip(results[0][1], results[1][1]))
+
+
+# ------------------------------- the dense sync's kernels (K16, K17, K15 shared)
+
+
+def _blocks_vector(n, bs, seed, dev):
+    rng = np.random.default_rng(seed)
+    mags = 10.0 ** rng.integers(-20, 6, n // bs)
+    v = (rng.normal(size=n) * np.repeat(mags, bs)).astype(np.float32)
+    v[:bs] = 0.0  # an all-zero block
+    return torch.from_numpy(v).to(dev)
+
+
+@pytest.mark.parametrize("feedback", [False, True])
+@pytest.mark.parametrize("n,bs", [(341248, 256), (1000, 100), (4096, 2048), (96, 1), (256, 256)])
+def test_block_quantize_kernel_matches_plain_bitwise(cuda, n, bs, feedback):
+    """K16: codes, scales and errors bit for bit the plain version, one
+    launch a call, the error written into the caller's row."""
+    from persia_tpu_torch.ops.block_int8 import block_quantize_int8, block_quantize_int8_reference
+
+    v = _blocks_vector(n, bs, n + bs, cuda)
+    ef = _blocks_vector(n, bs, n + bs + 1, cuda) * 1e-3 if feedback else None
+    err = torch.empty_like(v)
+    before = block_quantize_int8.launches
+    q, s, e = block_quantize_int8(v, bs, ef=ef, err=err)
+    assert block_quantize_int8.launches == before + 1 and e.data_ptr() == err.data_ptr()
+    q2, s2, e2 = block_quantize_int8_reference(v, bs, ef)
+    assert torch.equal(q, q2) and torch.equal(s, s2) and torch.equal(e, e2)
+
+
+@pytest.mark.parametrize("n_rows,roll,with_base,with_ef", [
+    (1, 0, False, False), (1, 0, True, False), (1, 0, True, True), (4, 1, False, False), (2, 1, False, False)])
+def test_block_dequantize_kernel_matches_plain_bitwise(cuda, n_rows, roll, with_base, with_ef):
+    """K17: the hop's accumulate (in place) and the all-gather's rolled rows
+    bit for bit the plain version, one launch a call."""
+    from persia_tpu_torch.ops.block_int8 import (
+        block_dequantize_int8,
+        block_dequantize_int8_reference,
+        block_quantize_int8,
+    )
+
+    bs, chunk = 256, 85504
+    v = _blocks_vector(n_rows * chunk, bs, 7 + n_rows, cuda)
+    q, s, _ = block_quantize_int8(v, bs)
+    base = _blocks_vector(n_rows * chunk, bs, 9, cuda) if with_base else None
+    ef = base * 1e-3 if with_ef else None
+    want = block_dequantize_int8_reference(q, s, bs, n_rows, roll, base, ef)
+    before = block_dequantize_int8.launches
+    got = block_dequantize_int8(q, s, bs, n=n_rows, roll=roll, base=base, ef=ef, out=base)
+    assert block_dequantize_int8.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_int8_shared_scale_kernel_matches_plain_bitwise(cuda, dtype):
+    """K15's scales-only mode and its codes at a shared scale: the scales,
+    codes and residual bit for bit the plain versions, one launch each, the
+    residual in place; the DLRM tower's leaf sizes (1 to 187,904)."""
+    from persia_tpu_torch.ops.quantize_int8 import (
+        quantize_int8_ef_reference,
+        quantize_int8_ef_shared,
+        segment_absmax,
+        segment_absmax_reference,
+    )
+
+    sizes = [1, 16, 256, 3, 4096, 187904, 131072, 256, 512, 1, 64]
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+    g = _randn(offsets[-1], 11, cuda, dtype)
+    res = _randn(offsets[-1], 12, cuda) * 1e-3
+    before = segment_absmax.launches
+    scale = segment_absmax(g, res, offsets)
+    assert segment_absmax.launches == before + 1
+    assert torch.equal(scale, segment_absmax_reference(g, res, offsets))
+    shared = scale * 1.25
+    plain = res.clone()
+    before = quantize_int8_ef_shared.launches
+    q, s, new = quantize_int8_ef_shared(g, res, offsets, shared)
+    assert quantize_int8_ef_shared.launches == before + 1 and new.data_ptr() == res.data_ptr()
+    q2, s2, r2 = quantize_int8_ef_reference(g, plain, offsets, scale=shared)
+    assert torch.equal(q, q2) and torch.equal(s, s2) and torch.equal(new, r2)
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "bytegrad", "block-int8-ring", "f32-sharded",
+                                  "block-int8-ring-sharded"])
+def test_dense_sync_ctx_on_card_matches_cpu(cuda, mode):
+    """``TrainCtx(mesh=data_parallel_mesh(), dense_sync=mode)`` at one rank
+    on the card against the same on the CPU (plain versions), 3 steps:
+    losses within 1e-5 relative, parameters within 1e-5; the ring launches
+    K16 and K17 once a step each, bytegrad K15's two modes once each."""
+    from persia_tpu_torch.ops import block_int8, quantize_int8
+    from persia_tpu_torch.parallel.mesh import data_parallel_mesh
+    from persia_tpu_torch.testing import dense_sync as tds
+
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        counts = (block_int8.block_quantize_int8.launches, block_int8.block_dequantize_int8.launches,
+                  quantize_int8.segment_absmax.launches, quantize_int8.quantize_int8_ef_shared.launches)
+        res = tds.run_case(data_parallel_mesh(), dict(mode=mode, steps=3, seed=9), tds.SPEC, dev)
+        after = (block_int8.block_quantize_int8.launches, block_int8.block_dequantize_int8.launches,
+                 quantize_int8.segment_absmax.launches, quantize_int8.quantize_int8_ef_shared.launches)
+        if dev.type == "cuda":
+            ring = mode == "block-int8-ring"
+            want = (3 * ring, 3 * ring, 3 * (mode == "bytegrad"), 3 * (mode == "bytegrad"))
+            assert tuple(a - b for a, b in zip(after, counts)) == want
+        outs.append(res)
+    np.testing.assert_allclose(outs[0]["losses"], outs[1]["losses"], rtol=1e-5)
+    np.testing.assert_allclose(outs[0]["params"], outs[1]["params"], rtol=0, atol=1e-5)

@@ -156,13 +156,13 @@ def test_native_cores_are_the_ports_own_copies():
     assert _native_build.NATIVE_SRC == PORT / "native"
     assert {p.name for p in _native_build.NATIVE_SRC.glob("*.cpp")} == {"cache.cpp", "ps.cpp", "worker.cpp"}
     # the cache directory: the port's trimmed copy, with the stream's
-    # pending map and fused feeder, without the access sketch and the
-    # sharded directory
+    # pending map and fused feeder and the sharded directory, without the
+    # access sketch
     src = (PORT / "native" / "cache.cpp").read_text()
     for present in ("void* cache_create(", "cache_admit_positions(", "cache_init_rows(", "void* pending_map_create(",
-                    "int64_t cache_feed_batch("):
+                    "int64_t cache_feed_batch(", "int64_t cache_feed_batch_sharded(", "void* cache_create_sharded("):
         assert present in src, present
-    for absent in ("cache_feed_batch_sharded", "cache_create_sharded", "AccessSketch"):
+    for absent in ("AccessSketch", "sketch_observe"):
         assert absent not in src, absent
     assert src != (ROOT / "native" / "cache.cpp").read_text()
     so = directory.build_native()
