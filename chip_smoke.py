@@ -395,8 +395,9 @@ cold, in turns with the f32 (ungated) call.
 Phase 3h holds the dense sync's kernels bit for bit to their plain
 versions at the bench tower's ring shapes (K16 ``block_quantize_int8``
 with and without the error feedback, K17 ``block_dequantize_int8`` as a
-hop's accumulate and as the all-gather's rows, K15's scales-only and
-shared-scale modes over the tower's leaves). After "5 (1TB)": phase 4q
+hop's accumulate and as the all-gather's rows, the fused hop
+``block_requantize_int8``, each also at ``SYNC_ODD_BLOCKS`` on its other
+plan, K15's scales-only and shared-scale modes over the tower's leaves). After "5 (1TB)": phase 4q
 runs the cache tier's sharded feeder (``feed_threads=4, feed_shards=8``)
 at 4k saturated's 2^18 rows and batches beside the unsharded walk in
 turns, synchronous and as the stream (samples/s, ``prepare_batch`` ms,
@@ -407,7 +408,12 @@ modes at bench width (B=4096) at world size 1 over NCCL, counted (K16
 and K17 once a ring step, K15's two modes once a bytegrad step) and held
 to the CPU port, then two gloo ranks on the one card for the rings and
 ``f32-sharded`` (every rank's parameters the same bits, held to two CPU
-ranks); "5 (dense sync)" times K16, K17 and K15's two modes.
+ranks; a rank's ring step 1 K16, 1 fused hop, 1 K17), then the ring alone
+at ``RING_RANKS`` gloo ranks on the card over the tower's padded vector,
+bit for bit the same ranks on the CPU (5 launches a rank); "5 (dense
+sync)" times K16 (also at a hop's chunk), K17, the fused hop (beside K17
+then K16) and K15's two modes. ``--ab ROOT OUT.npz k16`` runs another
+tree's K16 and K17 (and fused hop) at those shapes.
 
 Phases 4o-4p and 4l-4n run after phase 5's timings (a profiler session
 after them once recorded no device work; whether one does is printed),
@@ -726,9 +732,17 @@ KERNEL_NAMES = ("fa_fwd_wgmma_kernel", "fa_fwd_tf32x3_kernel", "tf32_split_kerne
                 "raw_gather_fwd_kernel", "raw_gather_bwd_kernel", "attention_pool_fwd_kernel",
                 "attention_pool_bwd_kernel", "batch_norm_fwd_kernel", "batch_norm_bwd_kernel",
                 "cache_aux_kernel", "entry_rows_kernel", "quantize_int8_ef_kernel",
-                "block_int8_quantize_kernel", "block_int8_dequantize_kernel")
-# the dense ring's kernels (K16, K17)
-SYNC_KERNEL_NAMES = ("block_int8_quantize_kernel", "block_int8_dequantize_kernel")
+                "block_int8_quantize_warp_kernel", "block_int8_quantize_kernel", "block_int8_dequantize_vec_kernel",
+                "block_int8_dequantize_kernel")
+# the dense ring's kernels (K16 and the fused hop on the warp and the block
+# plan, K17 on the vector and the scalar plan)
+SYNC_KERNEL_NAMES = ("block_int8_quantize_warp_kernel", "block_int8_quantize_kernel",
+                     "block_int8_dequantize_vec_kernel", "block_int8_dequantize_kernel")
+# their templates on the ring's path at 256-element blocks: K16 and the
+# fused hop (V = 2: two float4 and an 8-byte code store a lane), K17's
+# vector plan
+SYNC_WIDE = ("block_int8_quantize_warp_kernel<2,false>", "block_int8_quantize_warp_kernel<2,true>",
+             "block_int8_dequantize_vec_kernel")
 # the DIN path's kernels (K6-K9) and K2's two passes
 DIN_KERNEL_NAMES = ("raw_gather_fwd_kernel", "raw_gather_bwd_kernel", "attention_pool_fwd_kernel",
                     "attention_pool_bwd_kernel")
@@ -879,9 +893,18 @@ def phase_build():
                              f"and 16-byte residual stores at the ps-stream path's template {K15_WIDE}: {k15}")
         k16 = {k: (v.get("registers"), v.get("spill_bytes")) for k, v in summary.items()
                if k.split("<")[0] in SYNC_KERNEL_NAMES}
-        print(f"  K16 and K17 (the dense ring's block int8; registers, spill bytes): {k16}", flush=True)
+        print(f"  K16, the fused hop and K17 (the dense ring's block int8; registers, spill bytes): {k16}",
+              flush=True)
         if {k.split("<")[0] for k in k16} != set(SYNC_KERNEL_NAMES) or any(v[1] for v in k16.values()):
-            raise SystemExit(f"K16 or K17 spills or was not reported: {k16}")
+            raise SystemExit(f"K16, the fused hop or K17 spills or was not reported: {k16}")
+        wide = {k: {op: summary.get(k, {}).get("sass", {}).get(op, 0)
+                    for op in ("LDG.128", "STG.64", "STG.128", "SHFL")} for k in SYNC_WIDE}
+        print(f"  K16, the fused hop and K17 on the ring's path, 16- and 8-byte accesses and shuffles: "
+              f"{json.dumps(wide)}", flush=True)
+        if not all(v["LDG.128"] and v["STG.128"] for v in wide.values()) or not all(
+                wide[k]["STG.64"] and wide[k]["SHFL"] for k in SYNC_WIDE[:2]):
+            raise SystemExit(f"K16, the fused hop or K17 lacks its 16-byte loads and stores, 8-byte code stores or "
+                             f"shuffles on the ring's path: {wide}")
         k5 = {k: summary.get(k, {}).get("spill_bytes") for k in K5_DIM16}
         print(f"  K5 and the routing on the dim-16 path, spill bytes: {k5}", flush=True)
         if any(v is None or v for v in k5.values()):
@@ -6163,6 +6186,53 @@ def k15_ab(dev, ops, times, as_bits) -> dict:
     return bits
 
 
+def k16_ab(dev, times, as_bits) -> dict:
+    """``--ab``'s K16 and K17 (and the fused hop where the tree has it) at
+    phase 5's dense sync shapes (``sync_inputs``): K16 on the whole vector
+    and at n = 4's chunk, each with the feedback; K17 as a hop's
+    accumulate with the feedback and as the all-gather's 4 rows; the hop
+    unfolded (K17 then K16) and, where the tree has it, folded
+    (``block_requantize_int8``, which must give the unfolded hop's bits).
+    The outputs' bits (the unfolded hop's under ``k16ab_hop_*``); into
+    ``times`` each one's warm and cold time and the one-launch floor."""
+    import torch
+
+    from persia_tpu_torch.ops import block_int8 as b8
+
+    x = sync_inputs(dev)
+    bs, n1, n4 = SYNC_BLOCK, x["ppad1"], x["chunk4"]
+    q4, s4, _ = b8.block_quantize_int8(x["g4"], bs)
+    rows_q, rows_s, _ = b8.block_quantize_int8(x["rows4"], bs)
+    hop = lambda: (q4.clone(), s4.clone(), x["base4"].clone(), x["ef4"].clone())  # noqa: E731
+    cases = {
+        "k16_whole": (lambda v, e: b8.block_quantize_int8(v, bs, ef=e), lambda: (x["g1"].clone(), x["ef1"].clone()),
+                      n1 * 8),
+        "k16_chunk": (lambda v, e: b8.block_quantize_int8(v, bs, ef=e), lambda: (x["g4"].clone(), x["ef4"].clone()),
+                      n4 * 8),
+        "k17_hop": (lambda q, sc, b, e: (b8.block_dequantize_int8(q, sc, bs, base=b, ef=e, out=b),), hop, n4 * 9),
+        "k17_rows": (lambda q, sc: (b8.block_dequantize_int8(q, sc, bs, n=4, roll=1),),
+                     lambda: (rows_q.clone(), rows_s.clone()), 4 * n4),
+        "hop": (lambda q, sc, b, e: b8.block_quantize_int8(
+            b8.block_dequantize_int8(q, sc, bs, base=b, ef=e, out=b), bs), hop, n4 * 9),
+    }
+    if hasattr(b8, "block_requantize_int8"):
+        cases["hop_fused"] = (lambda q, sc, b, e: b8.block_requantize_int8(q, sc, b, e, bs), hop, n4 * 9)
+    bits = {}
+    for name, (fn, make, nbytes) in cases.items():
+        for i, t in enumerate(fn(*make())):
+            bits[f"k16ab_{name}_{i}"] = as_bits(t)
+        fixed = make()
+        times[name] = {"warm_ms": [graph_ms(lambda: fn(*fixed)) for _ in range(2)],
+                       "cold_ms": [cold_ms(fn, make, nbytes)["ms"] for _ in range(2)]}
+    if "hop_fused" in cases:
+        fused = {k: bits.pop(k) for k in [k for k in bits if k.startswith("k16ab_hop_fused_")]}
+        if not all(np.array_equal(v, bits[k.replace("hop_fused", "hop")]) for k, v in fused.items()):
+            raise SystemExit("the fused hop's bits differ from K17 then K16's")
+    one = torch.zeros(1, device=dev)
+    times.setdefault("launch_floor", {"warm_ms": [graph_ms(lambda: one.add_(1.0)) for _ in range(2)]})
+    return bits
+
+
 def ab_run(root: str, out_path: str, only: str = "") -> int:
     """``--ab ROOT OUT.npz``: K2, K4, K7, K8 and K9 of the package in the
     checkout ROOT (another commit's tree, unpacked), on this script's
@@ -6177,7 +6247,8 @@ def ab_run(root: str, out_path: str, only: str = "") -> int:
     with and without keys, the standalone ``update_keys`` and the
     one-launch floor; K12 and its read at ``k12_ab_case``; K15 at the
     ps-stream shape, ``k15_ab``), are printed as one JSON line. ``only`` =
-    "k12" or "k15": that kernel alone (K12 with its read and K13). Run it over two
+    "k12", "k15" or "k16": that kernel alone (K12 with its read and K13;
+    K16 with K17 and the fused hop, ``k16_ab``). Run it over two
     trees in turns (A, B, B, A) in one call, then ``--ab-compare``."""
     sys.path.insert(0, str(pathlib.Path(root).resolve()))
     import torch
@@ -6199,11 +6270,14 @@ def ab_run(root: str, out_path: str, only: str = "") -> int:
     as_bits = lambda t: t.contiguous().view(torch.uint8).cpu().numpy()  # noqa: E731
     nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
     bits, times = {"root": np.array(str(pathlib.Path(root).resolve()))}, {}
-    if only != "k12":
-        bits.update(k15_ab(dev, ops, times, as_bits))
-    if only != "k15":
-        bits.update(k12_ab(dev, ops, times, as_bits))
-    if only in ("k12", "k15"):
+    if only == "k16":
+        bits.update(k16_ab(dev, times, as_bits))
+    else:
+        if only != "k12":
+            bits.update(k15_ab(dev, ops, times, as_bits))
+        if only != "k15":
+            bits.update(k12_ab(dev, ops, times, as_bits))
+    if only in ("k12", "k15", "k16"):
         np.savez(out_path, **bits)
         print(json.dumps({"ab": {"root": root, "package": pkg, "times": times}, "card": card_line()}), flush=True)
         return 0
@@ -7818,10 +7892,14 @@ FEED_THREADS, FEED_SHARDS, FEED_STEPS = 4, 8, 56
 SYNC_SOURCE = "persia_tpu_torch/csrc/block_int8.cu"
 SYNC_REPLACES = {"block_quantize_int8": "persia_tpu/parallel/grad_sync.py:312",
                  "block_dequantize_int8": "persia_tpu/parallel/grad_sync.py:327",
+                 "block_requantize_int8": "persia_tpu/parallel/grad_sync.py:381",
                  "segment_absmax": "persia_tpu/parallel/grad_sync.py:288",
                  "quantize_int8_ef_shared": "persia_tpu/parallel/grad_sync.py:279"}
 SYNC_KERNELS = tuple(SYNC_REPLACES)
 SYNC_BLOCK, SYNC_STEPS = 256, 3
+# phase 3h's other block sizes: K16's and the fused hop's block plan, K17's
+# vector (48) and scalar (100) plans
+SYNC_ODD_BLOCKS = (48, 100)
 # phase 4r's DLRM: bench width (13 dense, 26 slots of dim 16, bottom 256-64-16,
 # top 512-256, B=4096) in f32, over the synthetic click data of 26
 # vocabularies of 100,000; Adam(1e-3); the servers two native stores (the
@@ -7830,6 +7908,10 @@ SYNC_SPEC = dict(dense=N_DENSE, vocabs=(100_000,) * N_SLOTS, dim=EMB_DIM, bottom
                  lr=1e-3, params_seed=SEED, compute="float32", store="native", entries=False)
 TWO_RANK_MODES = ("block-int8-ring", "f32-sharded", "block-int8-ring-sharded")
 TWO_RANK_DEVICE = "cuda:0"  # both ranks on the one card
+# phase 4r's ring-only leg: the ring all-reduce of the bench tower's padded
+# flat gradient on RING_RANKS gloo ranks on the one card, held to the same
+# ranks on the CPU; a rank launches 1 K16, RING_RANKS - 1 fused hops, 1 K17
+RING_RANKS = 4
 # card vs CPU: losses 1e-3 relative; parameters 6e-3 (Adam's steps are
 # +-lr whatever a gradient's size, so an int8 code or a bf16 rounding a
 # last bit moves flips a near-zero gradient and moves its parameter by
@@ -7878,21 +7960,27 @@ def sync_inputs(dev):
 def phase_sync_kernels(dev):
     """Phase 3h: the dense sync's kernels against their plain versions on
     the card, bit for bit, at the bench tower's ring shapes: K16
-    (``block_quantize_int8``) on the whole padded vector with and without
-    the error feedback and on a rank's chunk at n = 4; K17
-    (``block_dequantize_int8``) as a hop's accumulate into the chunk (with
-    the feedback, in place) and as the all-gather's 4 rows rolled into
-    chunk order and the one row at n = 1; K15's scales-only mode
-    (``segment_absmax``) and its codes at a shared scale
-    (``quantize_int8_ef_shared``) over the tower's leaves, the residual in
-    place."""
+    (``block_quantize_int8``, the warp plan) on the whole padded vector and
+    on a rank's chunk at n = 4, each with and without the error feedback;
+    K17 (``block_dequantize_int8``, the vector plan) as a hop's accumulate
+    into the chunk (with and without the feedback, in place), as the
+    all-gather's 4 rows rolled into chunk order and as the one row at n =
+    1; the fused hop (``block_requantize_int8``) at the chunk and on the
+    whole vector, with and without the feedback and the sum written back;
+    each of the three at ``SYNC_ODD_BLOCKS`` (the block and scalar plans);
+    K15's scales-only mode (``segment_absmax``) and its codes at a shared
+    scale (``quantize_int8_ef_shared``) over the tower's leaves, the
+    residual in place."""
     import torch
 
+    from persia_tpu_torch.ops import plans
     from persia_tpu_torch.ops.block_int8 import (
         block_dequantize_int8,
         block_dequantize_int8_reference,
         block_quantize_int8,
         block_quantize_int8_reference,
+        block_requantize_int8,
+        block_requantize_int8_reference,
     )
     from persia_tpu_torch.ops.quantize_int8 import (
         quantize_int8_ef_reference,
@@ -7901,32 +7989,68 @@ def phase_sync_kernels(dev):
         segment_absmax_reference,
     )
 
-    print("== phase 3h: the dense sync's kernels (K16, K17, K15 at a shared scale) vs their plain versions",
-          flush=True)
+    print("== phase 3h: the dense sync's kernels (K16, K17, the fused hop, K15 at a shared scale) vs their plain "
+          "versions", flush=True)
     x = sync_inputs(dev)
     bad = []
-    for name, v, ef in (("whole vector, feedback", x["g1"], x["ef1"]), ("whole vector", x["g1"], None),
-                        ("n=4 chunk, feedback", x["g4"], x["ef4"]), ("n=4 chunk", x["g4"], None)):
-        q, sc, err = block_quantize_int8(v, SYNC_BLOCK, ef=ef)
-        q2, sc2, err2 = block_quantize_int8_reference(v, SYNC_BLOCK, ef)
-        same = bits_equal(q, q2) and bits_equal(sc, sc2) and bits_equal(err.view(torch.int32), err2.view(torch.int32))
-        print(f"  block_quantize_int8 {name} ({v.numel()} elements): codes, scales, errors bitwise "
-              f"{'ok' if same else 'FAIL'}", flush=True)
+    f32_bits = lambda t: t.view(torch.int32)  # noqa: E731
+
+    def check(name, same):
+        print(f"  {name}: bitwise {'ok' if same else 'FAIL'}", flush=True)
         if not same:
-            bad.append(f"block_quantize_int8 {name}")
+            bad.append(name)
+
+    def quantize_cases(bs, cases):
+        for name, v, ef in cases:
+            q, sc, err = block_quantize_int8(v, bs, ef=ef)
+            q2, sc2, err2 = block_quantize_int8_reference(v, bs, ef)
+            check(f"block_quantize_int8 {name} ({v.numel()} elements, bs {bs}, plan "
+                  f"{plans.block_int8_plan(bs, v.numel() // bs)})",
+                  bits_equal(q, q2) and bits_equal(sc, sc2) and bits_equal(f32_bits(err), f32_bits(err2)))
+
+    def dequantize_cases(bs, cases):
+        for name, q, sc, n, roll, base, ef in cases:
+            want = block_dequantize_int8_reference(q, sc, bs, n, roll, base, ef)
+            acc = None if base is None else base.clone()
+            got = block_dequantize_int8(q, sc, bs, n=n, roll=roll, base=acc, ef=ef, out=acc)
+            check(f"block_dequantize_int8 {name} ({q.numel()} elements, bs {bs}, plan "
+                  f"{plans.block_dequant_plan(bs, q.numel())})", bits_equal(f32_bits(got), f32_bits(want)))
+
+    def requantize_cases(bs, cases):
+        for name, q_in, sc_in, base, ef, write_acc in cases:
+            q2, sc2, err2, x2 = block_requantize_int8_reference(q_in, sc_in, base, ef, bs)
+            acc = base.clone()
+            q, sc, err = block_requantize_int8(q_in, sc_in, acc, ef, bs, write_acc=write_acc)
+            same = bits_equal(q, q2) and bits_equal(sc, sc2) and bits_equal(f32_bits(err), f32_bits(err2))
+            written = ", sum written" if write_acc else ""
+            check(f"block_requantize_int8 {name} ({q_in.numel()} elements, bs {bs}{written})",
+                  same and bits_equal(f32_bits(acc), f32_bits(x2 if write_acc else base)))
+
+    chunk = x["chunk4"]
+    quantize_cases(SYNC_BLOCK, (("whole vector, feedback", x["g1"], x["ef1"]), ("whole vector", x["g1"], None),
+                                ("n=4 chunk, feedback", x["g4"], x["ef4"]), ("n=4 chunk", x["g4"], None)))
     q4, s4, _ = block_quantize_int8(x["rows4"], SYNC_BLOCK)
     q1, s1, _ = block_quantize_int8(x["g1"], SYNC_BLOCK)
-    for name, q, sc, n, roll, base, ef in (("hop accumulate, feedback", q4[:x["chunk4"]], s4[:x["chunk4"] // SYNC_BLOCK],
-                                            1, 0, x["base4"], x["ef4"]),
-                                           ("all-gather, 4 rows", q4, s4, 4, 1, None, None),
-                                           ("n=1 row", q1, s1, 1, 0, None, None)):
-        want = block_dequantize_int8_reference(q, sc, SYNC_BLOCK, n, roll, base, ef)
-        got = block_dequantize_int8(q, sc, SYNC_BLOCK, n=n, roll=roll, base=None if base is None else base.clone(),
-                                    ef=ef)
-        same = bits_equal(got.view(torch.int32), want.view(torch.int32))
-        print(f"  block_dequantize_int8 {name} ({q.numel()} elements): bitwise {'ok' if same else 'FAIL'}", flush=True)
-        if not same:
-            bad.append(f"block_dequantize_int8 {name}")
+    hop_q, hop_s = q4[:chunk], s4[:chunk // SYNC_BLOCK]
+    dequantize_cases(SYNC_BLOCK, (("hop accumulate, feedback", hop_q, hop_s, 1, 0, x["base4"], x["ef4"]),
+                                  ("hop accumulate", hop_q, hop_s, 1, 0, x["base4"], None),
+                                  ("all-gather, 4 rows", q4, s4, 4, 1, None, None),
+                                  ("n=1 row", q1, s1, 1, 0, None, None)))
+    requantize_cases(SYNC_BLOCK, (("n=4 hop, feedback", hop_q, hop_s, x["base4"], x["ef4"], False),
+                                  ("n=4 hop", hop_q, hop_s, x["base4"], None, False),
+                                  ("n=4 hop, feedback", hop_q, hop_s, x["base4"], x["ef4"], True),
+                                  ("whole vector, feedback", q1, s1, x["g1"], x["ef1"], False)))
+    gen = torch.Generator().manual_seed(SEED + 96)
+    for bs in SYNC_ODD_BLOCKS:  # the block plan (K16, the fused hop); K17's scalar plan at 100
+        n_el = 4 * 96 * bs
+        v, ef, base = ((torch.randn(n_el, generator=gen) * scale).to(dev) for scale in (4e-2, 1e-5, 4e-2))
+        quantize_cases(bs, (("odd block, feedback", v, ef), ("odd block", v, None)))
+        q, sc, _ = block_quantize_int8(v, bs)
+        part = n_el // 4
+        dequantize_cases(bs, (("odd block, all-gather 4 rows", q, sc, 4, 1, None, None),
+                              ("odd block, hop accumulate, feedback", q[:part], sc[:part // bs], 1, 0, base[:part],
+                               ef[:part])))
+        requantize_cases(bs, (("odd block, feedback", q, sc, base, ef, True), ("odd block", q, sc, base, None, False)))
     offs = x["offsets"]
     scale = segment_absmax(x["flat"], x["res"], offs)
     same_s = bits_equal(scale, segment_absmax_reference(x["flat"], x["res"], offs))
@@ -8085,9 +8209,11 @@ def path_dense_sync(dev):
     K15's two modes once a step in bytegrad), held to the CPU port
     (``SYNC_LOSS_RTOL``, ``SYNC_PARAM_ATOL``); then a two-rank leg on this
     one card over gloo (NCCL refuses two ranks on one device; gloo's
-    payloads through pinned host memory, K16 and K17 on the card) for
+    payloads through pinned host memory, the kernels on the card) for
     ``TWO_RANK_MODES``, every rank's parameters the same bits, held to the
-    same two ranks on the CPU; ``dense_wire_bytes_per_step`` of each."""
+    same two ranks on the CPU, a rank's ring step 1 K16, 1 fused hop and 1
+    K17 (the sharded ring's 1 K16 and 1 K17); ``dense_wire_bytes_per_step``
+    of each; then ``ring_ranks_leg``."""
     import torch
     import torch.distributed as dist
 
@@ -8114,7 +8240,8 @@ def path_dense_sync(dev):
         dist.destroy_process_group()
     expect_path_launches("dense sync (world size 1)", launches,
                          exact={"block_quantize_int8": SYNC_STEPS, "block_dequantize_int8": SYNC_STEPS,
-                                "segment_absmax": SYNC_STEPS, "quantize_int8_ef_shared": SYNC_STEPS},
+                                "block_requantize_int8": 0, "segment_absmax": SYNC_STEPS,
+                                "quantize_int8_ef_shared": SYNC_STEPS},
                          at_least=("dot_interaction", "dot_interaction_bwd"))
     t = time.perf_counter()
     cpu = {m: tds.run_case(data_parallel_mesh(), dict(mode=m, steps=SYNC_STEPS, seed=SEED + 90), SYNC_SPEC,
@@ -8169,9 +8296,9 @@ def path_dense_sync(dev):
         same = np.array_equal(r0["params"], r1["params"]) and np.array_equal(two_cpu[1][i]["params"], c0["params"])
         loss_err = max(abs(x - y) / abs(y) for x, y in zip(r0["losses"], c0["losses"]))
         param_err = float(np.abs(r0["params"] - c0["params"]).max())
-        ring = m.startswith("block-int8-ring")
-        want = {"block_quantize_int8": (1 if m.endswith("sharded") else 2) * ring,
-                "block_dequantize_int8": (1 if m.endswith("sharded") else 2) * ring}
+        ring = int(m.startswith("block-int8-ring"))
+        want = {"block_quantize_int8": ring, "block_requantize_int8": ring * (not m.endswith("sharded")),
+                "block_dequantize_int8": ring}
         got = {k: r0["launches"][-1][k] for k in want}
         for r in (r0, r1):
             for k in SYNC_KERNELS:
@@ -8191,17 +8318,65 @@ def path_dense_sync(dev):
             raise SystemExit(f"dense sync at two ranks on the card: {m} failed")
     print(f"  two ranks: card {two_s:.1f} s, CPU {two_cpu_s:.1f} s, side by side (process start included)",
           flush=True)
+    ring_launches, record["ring_ranks"] = ring_ranks_leg(dev)
     inputs = sync_inputs(dev)
-    return {"dense_sync": launches, "dense_sync_two_ranks": two_launches}, record, inputs
+    return ({"dense_sync": launches, "dense_sync_two_ranks": two_launches, "dense_sync_ring4": ring_launches}, record,
+            inputs)
+
+
+def ring_ranks_leg(dev):
+    """Phase 4r's ring-only leg: ``testing.dense_sync.ring_allreduce_rank``
+    over the bench tower's padded flat gradient (P = 341,073, ``SYNC_BLOCK``)
+    on ``RING_RANKS`` gloo ranks on the one card, beside the same ring on as
+    many CPU ranks of the port: each rank's sum and new ``ef`` the same bits,
+    every rank's sum the same, and a rank's launches 1 K16, ``RING_RANKS``
+    - 1 fused hops and 1 K17. Returns (the launches of all ranks, record)."""
+    from persia_tpu_torch.parallel import grad_sync
+    from persia_tpu_torch.testing import dense_sync as tds
+
+    n = RING_RANKS
+    p = sum(sync_leaf_sizes())
+    _chunk, p_pad = grad_sync._flat_chunk(p, n, SYNC_BLOCK)
+    rng = np.random.default_rng(SEED + 97)
+    per_rank = np.zeros((n, p_pad), np.float32)
+    per_rank[:, :p] = (rng.normal(size=(n, p)) * 1e-2).astype(np.float32)
+    ef = (rng.normal(size=(n, p_pad)) * 1e-5).astype(np.float32)
+    print(f"  the ring alone at {n} ranks on the one card over gloo ({p_pad} elements a rank), beside {n} CPU ranks",
+          flush=True)
+    t = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        cpu_future = pool.submit(tds.run_function, n, tds.ring_allreduce_rank, SYNC_BLOCK, per_rank, ef, "cpu",
+                                 timeout=300)
+        card = tds.run_function(n, tds.ring_allreduce_launches, SYNC_BLOCK, per_rank, ef, TWO_RANK_DEVICE,
+                                device=TWO_RANK_DEVICE, timeout=300)
+        cpu = cpu_future.result()
+    seconds = time.perf_counter() - t
+    same = [all(np.array_equal(a.view(np.int32), b.view(np.int32)) for a, b in zip(c[:2], w))
+            for c, w in zip(card, cpu)]
+    agree = all(np.array_equal(c[0], card[0][0]) for c in card)
+    per_rank_launches = [c[2] for c in card]
+    want = {"block_quantize_int8": 1, "block_requantize_int8": n - 1, "block_dequantize_int8": 1,
+            "segment_absmax": 0, "quantize_int8_ef_shared": 0}
+    print(f"  each rank's sum and ef the CPU ranks' bits: {same}; every rank's sum the same: {agree}; launches a "
+          f"rank {per_rank_launches} (expected {want}); {seconds:.1f} s (card and CPU side by side, process start "
+          f"included)", flush=True)
+    if not all(same) or not agree or any(la != want for la in per_rank_launches):
+        raise SystemExit(f"the ring at {n} ranks on the card: failed")
+    totals = {k: sum(la[k] for la in per_rank_launches) for k in want}
+    return totals, {"ranks": n, "elements_a_rank": int(p_pad), "bits_equal_cpu": same, "sums_agree": agree,
+                    "launches_a_rank": per_rank_launches, "seconds": seconds}
 
 
 def time_sync_kernels(dev, launches, errs, inputs, floor):
-    """Phase 5's rows of K16, K17 and K15 at a shared scale at the bench
-    tower's ring shapes (``sync_inputs``): graph-replayed warm and cold,
-    beside the plain version (composed PyTorch calls), the bound; K16 on
-    the whole padded vector with the feedback (a ring at n = 1), K17 as a
-    hop's accumulate at n = 4's chunk, K15's scales and codes over the
-    tower's leaves."""
+    """Phase 5's rows of K16, K17, the fused hop and K15 at a shared scale
+    at the bench tower's ring shapes (``sync_inputs``): graph-replayed warm
+    and cold, beside the plain version (composed PyTorch calls), the bound;
+    K16 on the whole padded vector with the feedback (a ring at n = 1) and
+    at n = 4's chunk with it (a ring's hop 0, ``hop_chunk_*``), K17 as a
+    hop's accumulate at that chunk, the fused hop there (accumulate with
+    the feedback, quantize) beside K17 then K16 on the same inputs
+    (``unfolded_pair_*``), K15's scales and codes over the tower's leaves.
+    ``launches``: each kernel's launches in phase 4r's counted runs."""
     import torch
 
     from persia_tpu_torch.ops.block_int8 import (
@@ -8209,6 +8384,8 @@ def time_sync_kernels(dev, launches, errs, inputs, floor):
         block_dequantize_int8_reference,
         block_quantize_int8,
         block_quantize_int8_reference,
+        block_requantize_int8,
+        block_requantize_int8_reference,
     )
     from persia_tpu_torch.ops.quantize_int8 import (
         quantize_int8_ef_reference,
@@ -8218,14 +8395,15 @@ def time_sync_kernels(dev, launches, errs, inputs, floor):
 
     x = inputs
     n1, n4, p = x["ppad1"], x["chunk4"], x["p"]
+    blocks4 = n4 // SYNC_BLOCK
     offs = x["offsets"]
     segs = len(offs) - 1
     lengths = torch.tensor(np.diff(offs), device=dev)
     seg_ids = torch.repeat_interleave(torch.arange(segs, device=dev), lengths)
     scale = segment_absmax(x["flat"], x["res"], offs)
-    err1 = torch.empty_like(x["g1"])
+    err1, err4 = torch.empty_like(x["g1"]), torch.empty_like(x["g4"])
     q4, s4, _ = block_quantize_int8(x["g4"], SYNC_BLOCK)
-    acc = x["base4"].clone()
+    acc, pair_acc = x["base4"].clone(), x["base4"].clone()
     res = x["res"].clone()
 
     def absmax_composed():
@@ -8238,19 +8416,37 @@ def time_sync_kernels(dev, launches, errs, inputs, floor):
         t_ = torch.round(v / scale[seg_ids] * 127.0).clamp_(-127, 127)
         return t_.to(torch.int8), v - t_ * step[seg_ids]
 
+    def unfolded_pair(q, sc, b, e, r):
+        block_dequantize_int8(q, sc, SYNC_BLOCK, base=b, ef=e, out=b)
+        return block_quantize_int8(b, SYNC_BLOCK, err=r)
+
+    def hop_copy():
+        return q4.clone(), s4.clone(), x["base4"].clone(), x["ef4"].clone(), torch.empty_like(x["g4"])
+
     cases = {
         "block_quantize_int8": dict(
             kernel=lambda: block_quantize_int8(x["g1"], SYNC_BLOCK, ef=x["ef1"], err=err1),
             plain=lambda: block_quantize_int8_reference(x["g1"], SYNC_BLOCK, x["ef1"]),
             cold=(lambda v, e, r: block_quantize_int8(v, SYNC_BLOCK, ef=e, err=r),
                   lambda: (x["g1"].clone(), x["ef1"].clone(), torch.empty_like(x["g1"])), n1 * 12),
-            bytes=n1 * 13 + n1 // SYNC_BLOCK * 4, ops=6 * n1, shape=[n1, SYNC_BLOCK, "n=1 whole vector, feedback"]),
+            bytes=n1 * 13 + n1 // SYNC_BLOCK * 4, ops=6 * n1, shape=[n1, SYNC_BLOCK, "n=1 whole vector, feedback"],
+            extras={"hop_chunk": (lambda: block_quantize_int8(x["g4"], SYNC_BLOCK, ef=x["ef4"], err=err4),
+                                  (lambda v, e, r: block_quantize_int8(v, SYNC_BLOCK, ef=e, err=r),
+                                   lambda: (x["g4"].clone(), x["ef4"].clone(), torch.empty_like(x["g4"])), n4 * 12),
+                                  n4 * 13 + blocks4 * 4, 6 * n4)}),
         "block_dequantize_int8": dict(
             kernel=lambda: block_dequantize_int8(q4, s4, SYNC_BLOCK, base=acc, ef=x["ef4"], out=acc),
             plain=lambda: block_dequantize_int8_reference(q4, s4, SYNC_BLOCK, 1, 0, acc, x["ef4"]),
             cold=(lambda q, sc, b, e: block_dequantize_int8(q, sc, SYNC_BLOCK, base=b, ef=e, out=b),
                   lambda: (q4.clone(), s4.clone(), x["base4"].clone(), x["ef4"].clone()), n4 * 9),
-            bytes=n4 * 13 + n4 // SYNC_BLOCK * 4, ops=4 * n4, shape=[n4, SYNC_BLOCK, "n=4 hop accumulate, feedback"]),
+            bytes=n4 * 13 + blocks4 * 4, ops=4 * n4, shape=[n4, SYNC_BLOCK, "n=4 hop accumulate, feedback"]),
+        "block_requantize_int8": dict(
+            kernel=lambda: block_requantize_int8(q4, s4, x["base4"], x["ef4"], SYNC_BLOCK, err=err4),
+            plain=lambda: block_requantize_int8_reference(q4, s4, x["base4"], x["ef4"], SYNC_BLOCK),
+            cold=(lambda q, sc, b, e, r: block_requantize_int8(q, sc, b, e, SYNC_BLOCK, err=r), hop_copy, n4 * 13),
+            bytes=n4 * 14 + blocks4 * 8, ops=10 * n4, shape=[n4, SYNC_BLOCK, "n=4 hop: accumulate, feedback, quantize"],
+            extras={"unfolded_pair": (lambda: unfolded_pair(q4, s4, pair_acc, x["ef4"], err4),
+                                      (unfolded_pair, hop_copy, n4 * 13), n4 * 22 + blocks4 * 8, 10 * n4)}),
         "segment_absmax": dict(
             kernel=lambda: segment_absmax(x["flat"], x["res"], offs), plain=absmax_composed,
             cold=(lambda g, r: segment_absmax(g, r, offs), lambda: (x["flat"].clone(), x["res"].clone()), p * 8),
@@ -8274,12 +8470,14 @@ def time_sync_kernels(dev, launches, errs, inputs, floor):
         r = dict(name=name if name != "quantize_int8_ef_shared" else "quantize_int8_ef[shared scale]",
                  route="cuda", cuda_route="cuda",
                  source=SYNC_SOURCE if name.startswith("block") else K15_SOURCE, replaces=SYNC_REPLACES[name],
-                 launches=launches["dense_sync"][name], launches_by_path=by_path, max_abs_err=errs[name],
+                 launches=sum(by_path.values()), launches_by_path=by_path, max_abs_err=errs[name],
                  shape=c["shape"], ms=min(k0["graph"], k1["graph"]), ms_runs=[k0["graph"], k1["graph"]],
                  eager_ms=min(k0["eager"], k1["eager"]), plain_ms=p0["graph"], plain_eager_ms=p0["eager"],
                  bound_ms=bms, bound_by=by, library_ms=None, composite_ms=p0["graph"], cold_ms=min(cold),
                  cold_ms_runs=cold, note="no single PyTorch call computes it; the plain version's composed calls: "
                                          "composite_ms")
+        if name == "block_requantize_int8":
+            r["also_replaces"] = ["persia_tpu/parallel/grad_sync.py:373", "persia_tpu/parallel/grad_sync.py:395"]
         if reference is not None:
             r["plain_ms"] = reference  # the loop a segment the tests hold it to; composite_ms is vectorised
         r["over_launch_floor"] = r["ms"] / min(floor)
@@ -8290,6 +8488,14 @@ def time_sync_kernels(dev, launches, errs, inputs, floor):
               f"{r['cold_share']:.1%} cold, {bms / r['ms']:.1%} warm), {r['over_launch_floor']:.2f}x the launch "
               f"floor; plain {r['plain_ms']:.4f} ms, composed {r['composite_ms']:.4f} ms; launches {by_path}",
               flush=True)
+        for extra, (fn, (cold_fn, make, nbytes), ebytes, eops) in c.get("extras", {}).items():
+            warm = [graph_ms(fn) for _ in range(2)]
+            ecold = [cold_ms(cold_fn, make, nbytes)["ms"] for _ in range(2)]
+            ebound, eby = bound(ebytes, eops, "float32")
+            r.update({f"{extra}_ms": min(warm), f"{extra}_cold_ms": min(ecold), f"{extra}_bound_ms": ebound})
+            print(f"  {r['name']}, {extra.replace('_', ' ')} (n=4 chunk, {n4} elements): warm {warm} ms, cold {ecold} "
+                  f"ms, bound {ebound:.5f} ({eby}; {ebound / min(ecold):.1%} cold), {min(warm) / min(floor):.2f}x "
+                  f"the launch floor", flush=True)
         rows.append(r)
     return rows
 
@@ -8417,7 +8623,9 @@ def main() -> int:
             "zipf_bound_ms", "zipf_sort_ms", "longest_segment", "zipf_longest_segment", "one_row_ms",
             "composite_ms", "registers", "over_launch_floor", "no_keys_ms", "no_keys_cold_ms", "routing_cost_ms",
             "c32_ms", "eval_256_ms", "ring_ms", "also_replaces", "note", "restores_ms", "no_restores_ms",
-            "unfolded_pair_ms", "restores_bound_ms", "launches_by_path", "composite_kernels", "composite_bitwise",
+            "unfolded_pair_ms", "unfolded_pair_cold_ms", "unfolded_pair_bound_ms", "hop_chunk_ms",
+            "hop_chunk_cold_ms", "hop_chunk_bound_ms", "restores_bound_ms", "launches_by_path", "composite_kernels",
+            "composite_bitwise",
             "plan", "ms_over_floor", "cold_ms_over_floor", "at_1tb", "f32_pool_same_inputs_ms",
             "f32_pool_same_inputs_cold_ms", "ungated_same_inputs_ms", "ungated_same_inputs_cold_ms")
     kernels = [{k: r.get(k) for k in keys} for r in rows if not r.get("causal")]

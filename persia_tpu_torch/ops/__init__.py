@@ -20,8 +20,9 @@ backward hands the step per-position gradients) update nothing through
 autograd either, nor does ``quantize_int8_ef`` (K15), the int8 error-feedback
 wire of the cache tier's parameter-server gradients, with its shared-scale
 modes ``segment_absmax`` and ``quantize_int8_ef_shared`` (the dense
-bytegrad all-reduce), nor the dense ring's ``block_quantize_int8`` (K16)
-and ``block_dequantize_int8`` (K17)."""
+bytegrad all-reduce), nor the dense ring's ``block_quantize_int8`` (K16),
+``block_dequantize_int8`` (K17) and their fold at a ring hop,
+``block_requantize_int8``."""
 
 from persia_tpu_torch.ops.attention_pool import (  # noqa: F401
     attention_pool,
@@ -29,7 +30,11 @@ from persia_tpu_torch.ops.attention_pool import (  # noqa: F401
     attention_pool_fwd,
 )
 from persia_tpu_torch.ops.batch_norm import batch_norm, batch_norm_bwd, batch_norm_fwd  # noqa: F401
-from persia_tpu_torch.ops.block_int8 import block_dequantize_int8, block_quantize_int8  # noqa: F401
+from persia_tpu_torch.ops.block_int8 import (  # noqa: F401
+    block_dequantize_int8,
+    block_quantize_int8,
+    block_requantize_int8,
+)
 from persia_tpu_torch.ops.cache_aux import cache_aux, gather_entry_rows  # noqa: F401
 from persia_tpu_torch.ops.cached_gather import cached_gather  # noqa: F401
 from persia_tpu_torch.ops.dot_interaction import dot_interaction, dot_interaction_bwd  # noqa: F401
@@ -54,7 +59,7 @@ KERNEL_WRAPPERS = (
     flash_attention, tf32_split_planes, fused_gather, update_keys, sparse_update,
     raw_gather_fwd, raw_gather_bwd, attention_pool_fwd, attention_pool_bwd, batch_norm_fwd, batch_norm_bwd,
     cache_aux, gather_entry_rows, cached_gather, quantize_int8_ef, segment_absmax, quantize_int8_ef_shared,
-    block_quantize_int8, block_dequantize_int8,
+    block_quantize_int8, block_dequantize_int8, block_requantize_int8,
 )
 
 

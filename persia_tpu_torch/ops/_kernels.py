@@ -175,9 +175,11 @@ def library() -> ctypes.CDLL:
             lib.persia_quantize_int8_ef_shared.argtypes = [vp, i32, vp, ctypes.POINTER(i32), i32, vp, vp, vp, vp,
                                                            i32, i32, i32, i32, vp]
             lib.persia_block_int8_quantize.restype = i32
-            lib.persia_block_int8_quantize.argtypes = [vp, vp, i32, i32, vp, vp, vp, i32, vp]
+            lib.persia_block_int8_quantize.argtypes = [vp, vp, i32, i32, vp, vp, vp, i32, i32, i32, vp]
+            lib.persia_block_requantize_int8.restype = i32
+            lib.persia_block_requantize_int8.argtypes = [vp, vp, vp, vp, i32, i32, vp, vp, vp, vp, i32, i32, i32, vp]
             lib.persia_block_int8_dequantize.restype = i32
-            lib.persia_block_int8_dequantize.argtypes = [vp, vp, i32, ll, i32, i32, vp, vp, vp, i32, i32, vp]
+            lib.persia_block_int8_dequantize.argtypes = [vp, vp, i32, ll, i32, i32, vp, vp, vp, i32, i32, i32, vp]
             _lib = lib
         return _lib
 

@@ -904,25 +904,73 @@ def quantize_int8_cover(offsets, plan: QuantInt8Plan):
     return writes, reads
 
 
-# the dense ring's block int8 wire (csrc/block_int8.cu): K16 a thread block
-# a quantization block, each thread up to BLOCK_INT8_MAX_PER of its
-# elements in registers; K17 a thread an element, grid-stride
+# the dense ring's block int8 wire (csrc/block_int8.cu). K16 and the fused
+# hop: the warp plan where the block size is 128 V (V up to
+# BLOCK_INT8_WARP_MAX_VEC: a warp a quantization block, 4 V elements a
+# lane), else the block plan (a thread block a quantization block, each
+# thread up to BLOCK_INT8_MAX_PER of its elements). K17: the vector plan
+# where the block size is a multiple of BLOCK_DEQUANT_VEC (a thread 16
+# codes), else the scalar plan (a thread an element, grid-stride).
+H100_SMS = 132
 BLOCK_INT8_MAX_THREADS = 256  # kMaxBlockThreads
 BLOCK_INT8_MAX_PER = 8  # kMaxPer
+BLOCK_INT8_WARP_MAX_VEC = 4  # kWarpMaxVec: float4s a lane, block size up to 512
+BLOCK_INT8_WARP_MAX_WARPS = 16  # kWarpMaxThreads / 32
+BLOCK_DEQUANT_VEC = 16  # kDequantVec
+BLOCK_DEQUANT_VEC_MAX_WARPS = 8  # kDequantVecMaxThreads / 32
+BLOCK_DEQUANT_VEC_MAX_GRID = H100_SMS * 4  # 4 CTAs of 256 threads an SM: one wave
 BLOCK_DEQUANT_THREADS = 256
-BLOCK_DEQUANT_MAX_GRID = 132 * 16  # 16 blocks an SM of the H100's 132
+BLOCK_DEQUANT_MAX_GRID = H100_SMS * 16  # 16 blocks an SM of the H100's 132
+INT32_ELEMENTS = 1 << 31  # K17's vector plan indexes in 32 bits
 
 
-def block_int8_threads(block_size: int) -> int:
-    """K16's threads a block: the fewest multiple of 32 that holds
-    ``block_size`` elements at ``BLOCK_INT8_MAX_PER`` a thread, at least one
-    a thread up to ``BLOCK_INT8_MAX_THREADS``."""
+@dataclass(frozen=True)
+class BlockInt8Plan:
+    vec: int  # K16: V of the warp plan, 0 the block plan; K17: 1 the vector plan, 0 the scalar
+    grid: int
+    threads: int
+
+
+def _one_cta_an_sm(units: int, per_warp: int, max_warps: int) -> int:
+    """Warps a CTA: the fewest (at most ``max_warps``) that keep ``units``
+    of work, ``per_warp`` a warp, within one CTA an SM."""
+    return min(max_warps, max(1, -(-units // (per_warp * H100_SMS))))
+
+
+def block_int8_plan(block_size: int, blocks: int) -> BlockInt8Plan:
+    """K16's (and the fused hop's) geometry for ``blocks`` quantization
+    blocks of ``block_size``: the warp plan where ``block_size`` is 128 V,
+    V <= ``BLOCK_INT8_WARP_MAX_VEC`` (a warp a block, the fewest warps a CTA
+    that keep the grid within one CTA an SM); else the block plan (a thread
+    block a block, the fewest multiple of 32 threads that holds it at
+    ``BLOCK_INT8_MAX_PER`` a thread, at least one a thread up to
+    ``BLOCK_INT8_MAX_THREADS``). By the block size alone."""
     if not 1 <= block_size <= BLOCK_INT8_MAX_THREADS * BLOCK_INT8_MAX_PER:
         raise ValueError(f"block_size must be 1 to {BLOCK_INT8_MAX_THREADS * BLOCK_INT8_MAX_PER}, got {block_size}")
-    return min(BLOCK_INT8_MAX_THREADS, (block_size + 31) // 32 * 32)
+    if blocks < 0:
+        raise ValueError(f"blocks must be >= 0, got {blocks}")
+    if block_size % 128 == 0 and block_size // 128 <= BLOCK_INT8_WARP_MAX_VEC:
+        warps = _one_cta_an_sm(blocks, 1, BLOCK_INT8_WARP_MAX_WARPS)
+        return BlockInt8Plan(vec=block_size // 128, grid=-(-blocks // warps), threads=32 * warps)
+    return BlockInt8Plan(vec=0, grid=blocks, threads=min(BLOCK_INT8_MAX_THREADS, (block_size + 31) // 32 * 32))
 
 
-def block_dequant_grid(elements: int) -> int:
-    """K17's blocks for ``elements`` outputs: one thread an element, up to
-    ``BLOCK_DEQUANT_MAX_GRID`` blocks (the rest by the grid-stride loop)."""
-    return max(1, min(BLOCK_DEQUANT_MAX_GRID, -(-elements // BLOCK_DEQUANT_THREADS)))
+def block_dequant_plan(block_size: int, elements: int) -> BlockInt8Plan:
+    """K17's geometry for ``elements`` outputs: the vector plan where
+    ``block_size`` is a multiple of ``BLOCK_DEQUANT_VEC`` (a thread 16
+    codes, the fewest warps a CTA that keep the grid within one CTA an SM,
+    at most ``BLOCK_DEQUANT_VEC_MAX_GRID`` CTAs and the rest by the
+    grid-stride loop; ``elements`` below 2^31); else the scalar plan (a
+    thread an element, up to ``BLOCK_DEQUANT_MAX_GRID`` blocks of
+    ``BLOCK_DEQUANT_THREADS``)."""
+    if block_size < 1 or elements < 0:
+        raise ValueError(f"block_size must be >= 1 and elements >= 0, got {block_size}, {elements}")
+    if block_size % BLOCK_DEQUANT_VEC == 0:
+        if elements >= INT32_ELEMENTS:
+            raise ValueError(f"K17 indexes its {elements} elements in 32 bits: n * chunk must be below 2^31")
+        units = elements // BLOCK_DEQUANT_VEC
+        warps = _one_cta_an_sm(units, 32, BLOCK_DEQUANT_VEC_MAX_WARPS)
+        grid = max(1, min(BLOCK_DEQUANT_VEC_MAX_GRID, -(-units // (32 * warps))))
+        return BlockInt8Plan(vec=1, grid=grid, threads=32 * warps)
+    grid = max(1, min(BLOCK_DEQUANT_MAX_GRID, -(-elements // BLOCK_DEQUANT_THREADS)))
+    return BlockInt8Plan(vec=0, grid=grid, threads=BLOCK_DEQUANT_THREADS)

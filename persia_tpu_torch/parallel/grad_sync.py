@@ -18,7 +18,14 @@ through one of the reference's algorithms, over ``torch.distributed``:
   int8 (``block_quantize_int8``, K16; ``block_dequantize_int8``, K17):
   n - 1 hops of reduce-scatter, then an all-gather of each rank's owned
   chunk, every rank (the owner too) using the dequantized values; the
-  rounding errors are the ring's error feedback ``ef``.
+  rounding errors are the ring's error feedback ``ef``. A hop's accumulate
+  and the next quantize of the same chunk are one pass
+  (``block_requantize_int8``), as are the last hop's and the all-gather's.
+  A rank's launches a step: at n = 1, 1 K16 and 1 K17; at n >= 2, 1 K16,
+  n - 1 fused and 1 K17 (n + 1; 2n unfolded). The sharded ring's
+  reduce-scatter ends on a plain K17 (the owned chunk's sum is read): at
+  n >= 2, 1 K16, n - 2 fused and 1 K17 (n; 2(n - 1) unfolded); none at
+  n = 1.
 
 ``sharded_update`` (``f32-sharded``, ``block-int8-ring-sharded``) shards
 the dense optimizer and the weight update ZeRO-style: the gradients are
@@ -54,12 +61,12 @@ host inverse ``dequantize_int8_np``.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from persia_tpu_torch.ops.block_int8 import block_dequantize_int8, block_quantize_int8
+from persia_tpu_torch.ops.block_int8 import block_dequantize_int8, block_quantize_int8, block_requantize_int8
 from persia_tpu_torch.ops.quantize_int8 import (  # noqa: F401
     quantize_int8_ef,
     quantize_int8_ef_reference,
@@ -242,36 +249,46 @@ def init_residual(model: torch.nn.Module, device=None) -> torch.Tensor:
 
 
 def ring_reduce_scatter_block_int8(acc: torch.Tensor, mesh: DataMesh, block_size: int,
-                                   ef: Optional[torch.Tensor], err: torch.Tensor) -> Tuple[torch.Tensor, int]:
+                                   ef: Optional[torch.Tensor], err: torch.Tensor, quantize_own: bool = False
+                                   ) -> Tuple[Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]], int]:
     """The quantized ring's reduce-scatter over ``acc`` ((n * chunk,) f32,
-    the padded gradients; accumulated in place): hop s quantizes chunk (me
-    - s) % n (K16; at hop 0 with ``ef`` added), sends it to ring-right and
-    adds the dequantized chunk (me - s - 1) % n from ring-left into ``acc``
-    (K17; that chunk is the gradients' own, so ``ef`` is added first).
-    Each sent chunk's error lands in its row of ``err`` (n, chunk). Returns
-    ``(the owned chunk's sum, its index (me + 1) % n)``."""
+    the padded gradients): chunk me is quantized with ``ef`` added (K16)
+    and sent to ring-right; hop s receives chunk (me - s - 1) % n from
+    ring-left and adds it to that chunk of ``acc``, ``ef`` first (the
+    chunk is the gradients' own), and quantizes the sum for hop s + 1 in
+    the same pass (``block_requantize_int8``): the chunk hop s accumulates
+    is the one hop s + 1 sends. The last hop accumulates the owned chunk
+    (me + 1) % n into ``acc`` (K17); with ``quantize_own`` it is the fused
+    pass too, and its codes are the all-gather's (at n = 1: K16 of the
+    chunk with ``ef``). Each quantized chunk's error lands in its row of
+    ``err`` (n, chunk). Returns ``(the owned chunk's sum, or with
+    quantize_own its (codes, scales), its index)``."""
     n, me = mesh.size, mesh.rank
     A = acc.view(n, -1)
     F = ef.view(n, -1) if ef is not None else None
+    own = (me + 1) % n
+    if n == 1 and not quantize_own:
+        return A[own], own
+    q, sc, _ = block_quantize_int8(A[me], block_size, ef=F[me] if F is not None else None, err=err[me])
     for s in range(n - 1):
-        si = (me - s) % n
-        q, sc, _ = block_quantize_int8(A[si], block_size, ef=F[si] if (s == 0 and F is not None) else None,
-                                       err=err[si])
         q_in, sc_in = mesh.ring_exchange([q, sc])
         ri = (me - s - 1) % n
-        block_dequantize_int8(q_in, sc_in, block_size, base=A[ri], ef=F[ri] if F is not None else None, out=A[ri])
-    own = (me + 1) % n
-    return A[own], own
+        f = F[ri] if F is not None else None
+        if s < n - 2 or quantize_own:
+            q, sc, _ = block_requantize_int8(q_in, sc_in, A[ri], f, block_size, err=err[ri])
+        else:
+            block_dequantize_int8(q_in, sc_in, block_size, base=A[ri], ef=f, out=A[ri])
+    return ((q, sc) if quantize_own else A[own]), own
 
 
-def ring_allgather_block_int8(own_sum: torch.Tensor, mesh: DataMesh, block_size: int,
-                              err_own: torch.Tensor, ef_own: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The ring's all-gather: the owned chunk-sum quantized once more (K16,
-    its error into ``err_own``; ``ef_own`` added first at one rank, where
-    no hop added it), every rank's codes and scales gathered, and every
-    rank, the owner too, taking the dequantized rows in chunk order (K17,
-    row j to chunk (j + 1) % n). Returns the (n * chunk,) sum."""
-    q, sc, _ = block_quantize_int8(own_sum, block_size, ef=ef_own, err=err_own)
+def ring_allgather_block_int8(codes: Tuple[torch.Tensor, torch.Tensor], mesh: DataMesh, block_size: int
+                              ) -> torch.Tensor:
+    """The ring's all-gather: every rank's quantized owned chunk-sum
+    (``codes``, ``ring_reduce_scatter_block_int8(..., quantize_own=True)``'s)
+    gathered, and every rank, the owner too, taking the dequantized rows in
+    chunk order (K17, row j to chunk (j + 1) % n). Returns the (n * chunk,)
+    sum."""
+    q, sc = codes
     n = mesh.size
     rows_q, rows_s = mesh.all_gather(q), mesh.all_gather(sc)
     return block_dequantize_int8(rows_q.reshape(-1), rows_s.reshape(-1), block_size, n=n, roll=1 % n)
@@ -287,9 +304,8 @@ def _block_ring_allreduce_flat(flat_g: torch.Tensor, ef: torch.Tensor, algorithm
     acc[:flat_g.numel()] = flat_g
     efv = ef if algorithm.error_feedback else None
     err = torch.zeros(n, chunk, dtype=torch.float32, device=flat_g.device)
-    own_sum, own = ring_reduce_scatter_block_int8(acc, mesh, bs, efv, err)
-    ef_own = efv.view(n, -1)[own] if (efv is not None and n == 1) else None
-    flat_sum = ring_allgather_block_int8(own_sum, mesh, bs, err[own], ef_own)
+    codes, _own = ring_reduce_scatter_block_int8(acc, mesh, bs, efv, err, quantize_own=True)
+    flat_sum = ring_allgather_block_int8(codes, mesh, bs)
     return flat_sum, err.reshape(-1) if algorithm.error_feedback else torch.zeros_like(acc)
 
 

@@ -4,7 +4,7 @@ starts ``world`` processes, one a rank, over a ``torch.distributed``
 process group (gloo on the CPU; gloo or NCCL on a card), runs the same
 list of cases in each and returns each rank's results; ``run_function``
 runs any importable ``fn(mesh, *args)`` so (``ring_allreduce_rank``: the
-ring alone).
+ring alone; ``ring_allreduce_launches``: with its launches).
 
 A case is a dict: ``mode`` (a ``DENSE_SYNC_MODES`` mode), ``steps``,
 ``seed`` (the batches'), optionally ``snapshot`` ((job directory, k):
@@ -106,6 +106,7 @@ def _launch_counts() -> Dict[str, int]:
 
     return {"block_quantize_int8": block_int8.block_quantize_int8.launches,
             "block_dequantize_int8": block_int8.block_dequantize_int8.launches,
+            "block_requantize_int8": block_int8.block_requantize_int8.launches,
             "segment_absmax": quantize_int8.segment_absmax.launches,
             "quantize_int8_ef_shared": quantize_int8.quantize_int8_ef_shared.launches}
 
@@ -166,19 +167,28 @@ def run_case(mesh, case: Dict, spec: Dict, device) -> Dict:
     return out
 
 
-def ring_allreduce_rank(mesh, block_size: int, per_rank: np.ndarray, ef: np.ndarray):
+def ring_allreduce_rank(mesh, block_size: int, per_rank: np.ndarray, ef: np.ndarray, device: str = "cpu"):
     """``grad_sync._block_ring_allreduce_flat`` of this rank's row of
-    ``per_rank`` with its row of ``ef`` (CPU tensors): (sum, new ef) as
-    numpy."""
+    ``per_rank`` with its row of ``ef`` (tensors on ``device``): (sum, new
+    ef) as numpy."""
     import torch
 
     from persia_tpu_torch.parallel import grad_sync
 
-    v = torch.from_numpy(per_rank[mesh.rank].copy())
-    e = torch.from_numpy(ef[mesh.rank].copy())
+    v = torch.from_numpy(per_rank[mesh.rank].copy()).to(device)
+    e = torch.from_numpy(ef[mesh.rank].copy()).to(device)
     flat_sum, new_ef = grad_sync._block_ring_allreduce_flat(v, e, grad_sync.BlockInt8Ring(block_size=block_size),
                                                             mesh)
-    return flat_sum.numpy(), new_ef.numpy()
+    return flat_sum.cpu().numpy(), new_ef.cpu().numpy()
+
+
+def ring_allreduce_launches(mesh, block_size: int, per_rank: np.ndarray, ef: np.ndarray, device: str = "cpu"):
+    """``ring_allreduce_rank`` and the dense sync kernels' launches it made
+    on this rank (on a card): (sum, new ef, launches)."""
+    before = _launch_counts()
+    flat_sum, new_ef = ring_allreduce_rank(mesh, block_size, per_rank, ef, device)
+    after = _launch_counts()
+    return flat_sum, new_ef, {k: after[k] - before[k] for k in after}
 
 
 def _rank_main(rank: int, world: int, port: int, job, out_path: str, device: str, backend: str) -> None:
@@ -255,5 +265,5 @@ def run_ranks(world: int, cases: List[Dict], spec: Optional[Dict] = None, device
                         backend=backend, timeout=timeout)
 
 
-__all__ = ["SPEC", "batches", "embedding_config", "entries", "free_port", "model_and_params", "ring_allreduce_rank",
-           "run_case", "run_function", "run_ranks"]
+__all__ = ["SPEC", "batches", "embedding_config", "entries", "free_port", "model_and_params", "ring_allreduce_launches",
+           "ring_allreduce_rank", "run_case", "run_function", "run_ranks"]

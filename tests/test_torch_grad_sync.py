@@ -10,6 +10,12 @@ reference's ``persia_tpu/parallel/grad_sync.py`` on the CPU:
   deq`` / dequantized values (XLA's CPU code multiplies by a rounded
   1/127 where the port divides by 127); the dequantize's accumulate and
   roll as the ring composes them;
+- the ring hop's fold (``block_requantize_int8``) bit for bit
+  ``block_dequantize_int8``'s plain version then ``block_quantize_int8``'s,
+  the sum written back only with ``write_acc``; the folded ring (and the
+  sharded ring's reduce-scatter) bit for bit the unfolded one of K16 and
+  K17 alone, on n ranks of threads in one process, with the launches a
+  rank ``grad_sync``'s docstring gives;
 - K15 at a shared scale (``segment_absmax``, ``quantize_int8_ef_shared``):
   the scales ``max(max |g + r|, 1e-30)`` bit for bit, the codes bit for
   bit the reference's ``quantize_int8_ef(g, r, scale=...)`` a leaf at a
@@ -25,6 +31,9 @@ reference's ``persia_tpu/parallel/grad_sync.py`` on the CPU:
 - the mesh and the process-group setup at one process; ``TrainCtx``'s
   refusals and ``sync_mode`` labels.
 """
+
+import queue
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +56,7 @@ from persia_tpu_torch.ops.block_int8 import (
     block_dequantize_int8_reference,
     block_quantize_int8,
     block_quantize_int8_reference,
+    block_requantize_int8,
 )
 from persia_tpu_torch.ops.quantize_int8 import (
     quantize_int8_ef_reference,
@@ -123,6 +133,155 @@ def test_block_dequantize_matches_reference(n, roll):
     torch.testing.assert_close(acc, (base + ef) + got, rtol=0, atol=0)
     with pytest.raises(ValueError, match="roll"):
         block_dequantize_int8(q, s, bs, n=n, roll=n)
+
+
+def _bits_equal(a, b):
+    return a.dtype == b.dtype and torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.parametrize("feedback", [False, True])
+@pytest.mark.parametrize("bs", [16, 256])
+def test_block_requantize_is_dequantize_then_quantize(bs, feedback):
+    """The fused hop: codes, scales and errors bit for bit K17's plain
+    version (``(base + ef) + deq``) then K16's (no feedback); ``base`` left
+    as it was without ``write_acc``."""
+    blocks = 4096 // bs
+    q_in, sc_in, _ = block_quantize_int8(torch.from_numpy(_vector(bs + 2, blocks, bs)), bs)
+    base = torch.from_numpy(_vector(bs + 3, blocks, bs, zero_block=False))
+    ef = base * 1e-3 if feedback else None
+    before = base.clone()
+    q, s, err = block_requantize_int8(q_in, sc_in, base, ef, bs)
+    x = block_dequantize_int8_reference(q_in, sc_in, bs, base=before, ef=ef)
+    q2, s2, e2 = block_quantize_int8_reference(x, bs)
+    assert _bits_equal(q, q2) and _bits_equal(s, s2) and _bits_equal(err, e2)
+    assert _bits_equal(base, before)
+
+
+def test_block_requantize_writes_the_sum_and_the_callers_error_row():
+    """With ``write_acc`` the sum lands in ``base``, the error in the
+    caller's row; shapes it cannot take raise."""
+    bs = 64
+    q_in, sc_in, _ = block_quantize_int8(torch.from_numpy(_vector(5, 8, bs)), bs)
+    base = torch.from_numpy(_vector(6, 8, bs, zero_block=False))
+    ef = base * 1e-3
+    x = block_dequantize_int8_reference(q_in, sc_in, bs, base=base, ef=ef)
+    err = torch.full((8 * bs,), 7.0)
+    q, s, e = block_requantize_int8(q_in, sc_in, base, ef, bs, err=err, write_acc=True)
+    assert e is err and _bits_equal(base, x) and _bits_equal(err, block_quantize_int8_reference(x, bs)[2])
+    with pytest.raises(ValueError, match="q_in"):
+        block_requantize_int8(q_in[:bs], sc_in, base, None, bs)
+    with pytest.raises(ValueError, match="sc_in"):
+        block_requantize_int8(q_in, sc_in[:2], base, None, bs)
+    with pytest.raises(ValueError, match="multiple"):
+        block_requantize_int8(q_in[:100], sc_in, base[:100], None, bs)
+
+
+class _ThreadMesh:
+    """n ranks as threads of one process: the ring's exchange through a
+    queue a rank (one sender each, so in order), the all-gather through a
+    slot a rank between two barriers (no rank writes the next gather's
+    slot before every rank has read this one's); every wait bounded."""
+
+    WAIT = 30.0
+
+    def __init__(self, n):
+        self.size = n
+        self.inbox = [queue.Queue() for _ in range(n)]
+        self.slots = [None] * n
+        self.barrier = threading.Barrier(n, timeout=self.WAIT)
+
+    def rank_view(self, rank):
+        mesh = self
+
+        class _Rank:
+            size, backend = mesh.size, "threads"
+
+            def ring_exchange(self, tensors):
+                mesh.inbox[(rank + 1) % mesh.size].put([t.clone() for t in tensors])
+                return mesh.inbox[rank].get(timeout=mesh.WAIT)
+
+            def all_gather(self, t):
+                mesh.slots[rank] = t.clone()
+                mesh.barrier.wait()
+                rows = torch.stack(mesh.slots)
+                mesh.barrier.wait()
+                return rows
+
+        view = _Rank()
+        view.rank = rank
+        return view
+
+
+def _unfolded_ring(acc, mesh, bs, ef, err, sharded):
+    """The ring of K16 and K17 alone, a launch each a hop: hop s quantizes
+    chunk (me - s) % n (``ef`` at hop 0), sends it and accumulates chunk
+    (me - s - 1) % n; the all-gather quantizes the owned chunk again."""
+    n, me = mesh.size, mesh.rank
+    A, F = acc.view(n, -1), ef.view(n, -1)
+    for s in range(n - 1):
+        si = (me - s) % n
+        q, sc, err[si] = block_quantize_int8_reference(A[si], bs, F[si] if s == 0 else None)
+        q_in, sc_in = mesh.ring_exchange([q, sc])
+        ri = (me - s - 1) % n
+        A[ri] = block_dequantize_int8_reference(q_in, sc_in, bs, base=A[ri], ef=F[ri])
+    own = (me + 1) % n
+    if sharded:
+        return A[own]
+    q, sc, err[own] = block_quantize_int8_reference(A[own], bs, F[own] if n == 1 else None)
+    return block_dequantize_int8_reference(mesh.all_gather(q).reshape(-1), mesh.all_gather(sc).reshape(-1), bs,
+                                           n, 1 % n)
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+def test_folded_ring_is_the_unfolded_ring_bit_for_bit(monkeypatch, n, sharded):
+    """The ring with each hop's accumulate folded into the next quantize
+    (and the last hop's into the all-gather's) against the ring of K16 and
+    K17 alone, on n ranks of threads: every rank's sum (the sharded ring:
+    its owned chunk's) and error rows the same bits; a rank's launches
+    those ``grad_sync``'s docstring gives (n + 1 at n >= 2, 2 at n = 1; the
+    sharded ring n, none at n = 1)."""
+    bs, p = 16, 200
+    chunk, p_pad = tgs._flat_chunk(p, n, bs)
+    rng = np.random.default_rng(40 + n)
+    grads = rng.normal(size=(n, p_pad)).astype(np.float32)
+    grads[:, p:] = 0
+    efs = (rng.normal(size=(n, p_pad)) * 1e-3).astype(np.float32)
+    calls = {"block_quantize_int8": 0, "block_requantize_int8": 0, "block_dequantize_int8": 0}
+    lock = threading.Lock()
+    for name in calls:
+        def counted(*a, _fn=getattr(tgs, name), _name=name, **kw):
+            with lock:
+                calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(tgs, name, counted)
+    folded_mesh, unfolded_mesh = _ThreadMesh(n), _ThreadMesh(n)
+    out = [None] * n
+
+    def rank_main(r):
+        acc, ef = torch.from_numpy(grads[r].copy()), torch.from_numpy(efs[r].copy())
+        err = torch.zeros(n, chunk)
+        if sharded:
+            got, _own = tgs.ring_reduce_scatter_block_int8(acc.clone(), folded_mesh.rank_view(r), bs, ef, err)
+        else:
+            got, _new_ef = tgs._block_ring_allreduce_flat(acc.clone(), ef, tgs.BlockInt8Ring(block_size=bs),
+                                                          folded_mesh.rank_view(r))
+        want_err = torch.zeros(n, chunk)
+        want = _unfolded_ring(acc.clone(), unfolded_mesh.rank_view(r), bs, ef, want_err, sharded)
+        out[r] = (got, err if sharded else _new_ef.view(n, chunk), want, want_err)
+
+    threads = [threading.Thread(target=rank_main, args=(r,), daemon=True) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert not any(t.is_alive() for t in threads) and all(o is not None for o in out)
+    for got, err, want, want_err in out:
+        assert _bits_equal(got, want) and _bits_equal(err, want_err)
+    want_calls = ({"block_quantize_int8": int(n > 1), "block_requantize_int8": max(0, n - 2),
+                   "block_dequantize_int8": int(n > 1)} if sharded else
+                  {"block_quantize_int8": 1, "block_requantize_int8": n - 1, "block_dequantize_int8": 1})
+    assert {k: v // n for k, v in calls.items()} == want_calls and all(v % n == 0 for v in calls.values())
 
 
 def test_shared_scale_quantize_matches_reference():

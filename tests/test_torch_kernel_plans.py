@@ -514,3 +514,68 @@ def test_k4_and_k5_accept_the_1tb_table():
     rows = torch.cat([k4.gather_rows(i, o, v, True) for i, o, v in zip(last, g.offsets, vocabs)])
     assert rows.dtype == torch.int64 and int(rows.max()) == TB_ROWS - 1
     assert int(rows.max()) * TB_DIM > 2 ** 31
+
+
+# the dense ring's block int8 wire (csrc/block_int8.cu)
+@pytest.mark.parametrize("bs,vec,threads", [(1, 0, 32), (16, 0, 32), (100, 0, 128), (128, 1, None), (256, 2, None),
+                                            (384, 3, None), (512, 4, None), (640, 0, 256), (2048, 0, 256)])
+def test_block_int8_plan_chooses_by_block_size(bs, vec, threads):
+    """K16 and the fused hop: the warp plan where the block size is 128 V
+    (V up to 4), the block plan (a thread block a quantization block, up to
+    8 elements a thread) otherwise."""
+    p = plans.block_int8_plan(bs, 334)
+    assert p.vec == vec
+    if vec == 0:
+        assert (p.grid, p.threads) == (334, threads) and bs <= p.threads * plans.BLOCK_INT8_MAX_PER
+    else:
+        assert p.grid * p.threads // 32 >= 334 and p.threads % 32 == 0
+
+
+@pytest.mark.parametrize("blocks,warps,grid", [(1333, 11, 122), (334, 3, 112), (132, 1, 132), (1, 1, 1), (0, 1, 0),
+                                               (100_000, 16, 6250)])
+def test_block_int8_warp_plan_fills_the_sms_in_one_wave(blocks, warps, grid):
+    """A warp a block, the fewest warps a CTA that keep the grid within one
+    CTA an SM: the bench tower's vector (1,333 blocks of 256) and a hop's
+    chunk at n = 4 (334) each in one wave over the 132 SMs."""
+    p = plans.block_int8_plan(256, blocks)
+    assert (p.threads, p.grid) == (32 * warps, grid)
+    assert p.grid * warps >= blocks and (p.grid - 1) * warps < max(blocks, 1)
+    assert p.grid <= plans.H100_SMS or warps == plans.BLOCK_INT8_WARP_MAX_WARPS
+
+
+@pytest.mark.parametrize("bs,elements,vec,threads,grid", [
+    (256, 85_504, 1, 64, 84), (256, 4 * 85_312, 1, 192, 112), (16, 4096, 1, 32, 8), (48, 96, 1, 32, 1),
+    (100, 1000, 0, 256, 4), (8, 1 << 30, 0, 256, plans.BLOCK_DEQUANT_MAX_GRID),
+    (256, (1 << 31) - 256, 1, 256, plans.BLOCK_DEQUANT_VEC_MAX_GRID)])
+def test_block_dequant_plan_vector_or_scalar(bs, elements, vec, threads, grid):
+    """K17: a thread 16 codes where the block size is a multiple of 16 (the
+    grid one CTA an SM up to 8 warps a CTA, then at most 4 CTAs an SM and
+    the grid-stride loop), a thread an element otherwise."""
+    p = plans.block_dequant_plan(bs, elements)
+    assert (p.vec, p.threads, p.grid) == (vec, threads, grid)
+
+
+def test_block_dequant_vector_plan_refuses_2_31_elements():
+    """The vector plan indexes in 32 bits: n * chunk must stay below 2^31."""
+    with pytest.raises(ValueError, match="2\\^31"):
+        plans.block_dequant_plan(256, 1 << 31)
+    assert plans.block_dequant_plan(100, 3 << 30).vec == 0  # the scalar plan indexes in 64 bits
+    with pytest.raises(ValueError, match="block_size"):
+        plans.block_int8_plan(4096, 1)
+
+
+def test_block_int8_plan_constants_match_the_kernel():
+    import re
+    from pathlib import Path
+
+    src = (Path(plans.__file__).resolve().parent.parent / "csrc" / "block_int8.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kMaxBlockThreads") == plans.BLOCK_INT8_MAX_THREADS
+    assert const("kMaxPer") == plans.BLOCK_INT8_MAX_PER
+    assert const("kWarpMaxVec") == plans.BLOCK_INT8_WARP_MAX_VEC
+    assert const("kWarpMaxThreads") == 32 * plans.BLOCK_INT8_WARP_MAX_WARPS
+    assert const("kDequantVec") == plans.BLOCK_DEQUANT_VEC
+    assert const("kDequantVecMaxThreads") == 32 * plans.BLOCK_DEQUANT_VEC_MAX_WARPS

@@ -2397,6 +2397,88 @@ def test_block_dequantize_kernel_matches_plain_bitwise(cuda, n_rows, roll, with_
     assert torch.equal(got, want)
 
 
+def _f32_bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("feedback", [False, True])
+@pytest.mark.parametrize("bs", [16, 48, 100, 128, 384, 512, 640])
+def test_block_int8_both_plans_match_plain_bitwise(cuda, bs, feedback):
+    """K16 on the warp plan (128, 384, 512) and the block plan (16, 48,
+    100, 640); K17 on the vector plan (block sizes a multiple of 16) and
+    the scalar plan (100): bit for bit their plain versions, K17 as the
+    all-gather's 4 rolled rows and as a hop's accumulate in place."""
+    from persia_tpu_torch.ops import plans
+    from persia_tpu_torch.ops.block_int8 import (
+        block_dequantize_int8,
+        block_dequantize_int8_reference,
+        block_quantize_int8,
+        block_quantize_int8_reference,
+    )
+
+    chunk = 24 * bs
+    v = _blocks_vector(4 * chunk, bs, bs + 17, cuda)
+    ef = _blocks_vector(4 * chunk, bs, bs + 18, cuda) * 1e-3 if feedback else None
+    assert (plans.block_int8_plan(bs, 1).vec > 0) == (bs in (128, 384, 512))
+    assert (plans.block_dequant_plan(bs, chunk).vec > 0) == (bs % 16 == 0)
+    q, s, e = block_quantize_int8(v, bs, ef=ef)
+    q2, s2, e2 = block_quantize_int8_reference(v, bs, ef)
+    assert torch.equal(q, q2) and torch.equal(s, s2) and torch.equal(_f32_bits(e), _f32_bits(e2))
+    rows = block_dequantize_int8(q, s, bs, n=4, roll=1)
+    assert torch.equal(_f32_bits(rows), _f32_bits(block_dequantize_int8_reference(q, s, bs, 4, 1)))
+    base = _blocks_vector(chunk, bs, bs + 19, cuda)
+    hop_ef = base * 1e-3 if feedback else None
+    want = block_dequantize_int8_reference(q[:chunk], s[:chunk // bs], bs, 1, 0, base, hop_ef)
+    got = block_dequantize_int8(q[:chunk], s[:chunk // bs], bs, base=base, ef=hop_ef, out=base)
+    assert got is base and torch.equal(_f32_bits(got), _f32_bits(want))
+
+
+@pytest.mark.parametrize("write_acc", [False, True])
+@pytest.mark.parametrize("feedback", [False, True])
+@pytest.mark.parametrize("n,bs", [(85504, 256), (341248, 256), (4096, 128), (4608, 384), (4096, 512), (1000, 100),
+                                  (1536, 16)])
+def test_block_requantize_kernel_matches_plain_bitwise(cuda, n, bs, feedback, write_acc):
+    """The fused hop on both plans: codes, scales and errors (and with
+    ``write_acc`` the sum in ``base``) bit for bit K17's plain version then
+    K16's; one launch of its own a call, none of K16's or K17's."""
+    from persia_tpu_torch.ops.block_int8 import (
+        block_dequantize_int8,
+        block_quantize_int8,
+        block_requantize_int8,
+        block_requantize_int8_reference,
+    )
+
+    q_in, sc_in, _ = block_quantize_int8(_blocks_vector(n, bs, n + 3, cuda), bs)
+    base = _blocks_vector(n, bs, n + 4, cuda)
+    ef = _blocks_vector(n, bs, n + 5, cuda) * 1e-3 if feedback else None
+    before = base.clone()
+    q2, s2, e2, x = block_requantize_int8_reference(q_in, sc_in, before, ef, bs)
+    counts = lambda: (block_quantize_int8.launches, block_dequantize_int8.launches,  # noqa: E731
+                      block_requantize_int8.launches)
+    c0 = counts()
+    q, s, e = block_requantize_int8(q_in, sc_in, base, ef, bs, write_acc=write_acc)
+    assert tuple(b - a for a, b in zip(c0, counts())) == (0, 0, 1)
+    assert torch.equal(q, q2) and torch.equal(s, s2) and torch.equal(_f32_bits(e), _f32_bits(e2))
+    assert torch.equal(_f32_bits(base), _f32_bits(x if write_acc else before))
+
+
+def test_block_int8_vector_plans_refuse_misaligned_tensors(cuda):
+    """The warp and vector plans' 16-byte accesses: a tensor that starts
+    off a 16-byte boundary raises; the block and scalar plans take it."""
+    from persia_tpu_torch.ops.block_int8 import block_dequantize_int8, block_quantize_int8, block_requantize_int8
+
+    buf = torch.randn(4 * 256 + 4, device=cuda)
+    off = buf[1:1 + 4 * 256]
+    with pytest.raises(ValueError, match="boundary"):
+        block_quantize_int8(off, 256)
+    q, s, _ = block_quantize_int8(buf[:4 * 256].contiguous(), 256)
+    with pytest.raises(ValueError, match="boundary"):
+        block_requantize_int8(q, s, off, None, 256)
+    with pytest.raises(ValueError, match="boundary"):
+        block_dequantize_int8(q, s, 256, base=off, out=off)
+    block_quantize_int8(buf[1:1 + 4 * 100], 100)  # the block plan
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quantize_int8_shared_scale_kernel_matches_plain_bitwise(cuda, dtype):
     """K15's scales-only mode and its codes at a shared scale: the scales,
