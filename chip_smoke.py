@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``persia_tpu_torch``) on one card.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
-    python3 chip_smoke.py --ab ROOT OUT.npz [k12|k15]   # K2, K4, K7-K9, K12, K13, K15 of the tree ROOT
+    python3 chip_smoke.py --ab ROOT OUT.npz [k12|k15|k15s|k16]   # K2, K4, K7-K9, K12, K13, K15 of the tree ROOT
     python3 chip_smoke.py --ab-compare A.npz B.npz ...
     python3 chip_smoke.py --stream-ab PAIRS   # in-order vs pipelined stream, in turns
 
@@ -397,7 +397,10 @@ versions at the bench tower's ring shapes (K16 ``block_quantize_int8``
 with and without the error feedback, K17 ``block_dequantize_int8`` as a
 hop's accumulate and as the all-gather's rows, the fused hop
 ``block_requantize_int8``, each also at ``SYNC_ODD_BLOCKS`` on its other
-plan, K15's scales-only and shared-scale modes over the tower's leaves). After "5 (1TB)": phase 4q
+plan, K15's two dense-sync modes, flat passes over the vector:
+``segment_absmax`` and the shared-scale quantize with int8 and int32
+codes over the tower's leaves and at ``FLAT_CASES``, f32 and bf16, on and
+off 16 bytes). After "5 (1TB)": phase 4q
 runs the cache tier's sharded feeder (``feed_threads=4, feed_shards=8``)
 at 4k saturated's 2^18 rows and batches beside the unsharded walk in
 turns, synchronous and as the stream (samples/s, ``prepare_batch`` ms,
@@ -412,8 +415,10 @@ ranks; a rank's ring step 1 K16, 1 fused hop, 1 K17), then the ring alone
 at ``RING_RANKS`` gloo ranks on the card over the tower's padded vector,
 bit for bit the same ranks on the CPU (5 launches a rank); "5 (dense
 sync)" times K16 (also at a hop's chunk), K17, the fused hop (beside K17
-then K16) and K15's two modes. ``--ab ROOT OUT.npz k16`` runs another
-tree's K16 and K17 (and fused hop) at those shapes.
+then K16) and K15's two modes (the quantize with int32 codes, int8
+beside). Phase 4r also times ``bytegrad_allreduce`` on the card a step.
+``--ab ROOT OUT.npz k16`` runs another tree's K16 and K17 (and fused hop)
+at those shapes; ``--ab ROOT OUT.npz k15s`` its two K15 modes.
 
 Phases 4o-4p and 4l-4n run after phase 5's timings (a profiler session
 after them once recorded no device work; whether one does is printed),
@@ -731,7 +736,8 @@ KERNEL_NAMES = ("fa_fwd_wgmma_kernel", "fa_fwd_tf32x3_kernel", "tf32_split_kerne
                 "sparse_update_long_kernel", "sparse_update_short_kernel",
                 "raw_gather_fwd_kernel", "raw_gather_bwd_kernel", "attention_pool_fwd_kernel",
                 "attention_pool_bwd_kernel", "batch_norm_fwd_kernel", "batch_norm_bwd_kernel",
-                "cache_aux_kernel", "entry_rows_kernel", "quantize_int8_ef_kernel",
+                "cache_aux_kernel", "entry_rows_kernel", "quantize_int8_ef_kernel", "segment_absmax_kernel",
+                "quantize_int8_shared_kernel",
                 "block_int8_quantize_warp_kernel", "block_int8_quantize_kernel", "block_int8_dequantize_vec_kernel",
                 "block_int8_dequantize_kernel")
 # the dense ring's kernels (K16 and the fused hop on the warp and the block
@@ -752,6 +758,11 @@ K2_KERNEL_NAMES = ("segment_sum_chunks_kernel", "segment_sum_rows_kernel")
 K12_WIDE = ("cache_aux_kernel<8,false>", "entry_rows_kernel<4,false>")
 # K15 at the ps-stream path's template: bf16 gradients, 8-element units
 K15_WIDE = "quantize_int8_ef_kernel<bf16,8>"
+# K15's dense-sync modes, flat, at the bytegrad path's templates (f32
+# gradients, 8-element units; the codes as int32)
+FLAT_KERNEL_NAMES = ("segment_absmax_kernel", "quantize_int8_shared_kernel")
+FLAT_WIDE = {"segment_absmax_kernel<f32,8>": ("LDG.128",),
+             "quantize_int8_shared_kernel<f32,8>": ("LDG.128", "STG.128")}
 # K5's kernels, and the routing's: on the dim-16 f32 path none may spill
 K5_KERNELS = ("sparse_update_segments_kernel", "sparse_update_long_kernel", "sparse_update_short_kernel")
 K5_DIM16 = ("sparse_update_segments_kernel", "sparse_update_long_kernel<f32,4>",
@@ -891,6 +902,15 @@ def phase_build():
                 v["spill_bytes"] is None or v["spill_bytes"] for v in k15.values()):
             raise SystemExit(f"K15 spills, or was not reported or lacks its 16-byte loads, 8-byte code stores "
                              f"and 16-byte residual stores at the ps-stream path's template {K15_WIDE}: {k15}")
+        flat = {k: {"registers": v.get("registers"), "spill_bytes": v.get("spill_bytes"),
+                    **{op: v.get("sass", {}).get(op, 0) for op in ("LDG.128", "STG.64", "STG.128")}}
+                for k, v in summary.items() if k.split("<")[0] in FLAT_KERNEL_NAMES}
+        print(f"  K15's dense-sync modes, flat (registers, spill bytes, 16- and 8-byte accesses): {json.dumps(flat)}",
+              flush=True)
+        if any(v["spill_bytes"] is None or v["spill_bytes"] for v in flat.values()) or not all(
+                flat.get(k, {}).get(op) for k, ops in FLAT_WIDE.items() for op in ops):
+            raise SystemExit(f"K15's flat dense-sync modes spill, or were not reported or lack their 16-byte loads "
+                             f"and stores on the bytegrad path's templates {list(FLAT_WIDE)}: {flat}")
         k16 = {k: (v.get("registers"), v.get("spill_bytes")) for k, v in summary.items()
                if k.split("<")[0] in SYNC_KERNEL_NAMES}
         print(f"  K16, the fused hop and K17 (the dense ring's block int8; registers, spill bytes): {k16}",
@@ -6233,6 +6253,43 @@ def k16_ab(dev, times, as_bits) -> dict:
     return bits
 
 
+def k15s_ab(dev, times, as_bits) -> dict:
+    """``--ab``'s K15 dense-sync modes at phase 5's shapes (``sync_inputs``:
+    the tower's leaves, f32): ``segment_absmax``; and the shared-scale
+    quantize at those scales with the codes as int32, which a tree whose
+    quantize returns int32 codes writes in the pass and an older tree makes
+    by its int8 quantize and a cast, as its bytegrad did. The outputs'
+    bits; into ``times`` each one's warm and cold time and the one-launch
+    floor."""
+    import torch
+
+    from persia_tpu_torch.ops import quantize_int8 as qi
+
+    x = sync_inputs(dev)
+    offs = x["offsets"]
+    scale = qi.segment_absmax(x["flat"], x["res"], offs)
+    def int32_codes(g, r):
+        q, sc, new = qi.quantize_int8_ef_shared(g, r, offs, scale)
+        return (q if q.dtype == torch.int32 else q.to(torch.int32)), sc, new
+
+    make = lambda: (x["flat"].clone(), x["res"].clone())  # noqa: E731
+    in_pass = qi.quantize_int8_ef_shared(*make(), offs, scale)[0].dtype == torch.int32
+    form = "int32 codes in the pass" if in_pass else "int8 codes, then the cast"
+    cases = {"segment_absmax": (lambda g, r: (qi.segment_absmax(g, r, offs),), x["p"] * 8),
+             "shared_int32": (int32_codes, x["p"] * 8)}
+    bits = {"k15s_scale_in": as_bits(scale)}
+    for name, (fn, nbytes) in cases.items():
+        for i, t in enumerate(fn(*make())):
+            bits[f"k15s_{name}_{i}"] = as_bits(t)
+        fixed = make()
+        times[name] = {"warm_ms": [graph_ms(lambda: fn(*fixed)) for _ in range(2)],
+                       "cold_ms": [cold_ms(fn, make, nbytes)["ms"] for _ in range(2)]}
+    times["shared_int32"]["form"] = form
+    one = torch.zeros(1, device=dev)
+    times.setdefault("launch_floor", {"warm_ms": [graph_ms(lambda: one.add_(1.0)) for _ in range(2)]})
+    return bits
+
+
 def ab_run(root: str, out_path: str, only: str = "") -> int:
     """``--ab ROOT OUT.npz``: K2, K4, K7, K8 and K9 of the package in the
     checkout ROOT (another commit's tree, unpacked), on this script's
@@ -6247,9 +6304,10 @@ def ab_run(root: str, out_path: str, only: str = "") -> int:
     with and without keys, the standalone ``update_keys`` and the
     one-launch floor; K12 and its read at ``k12_ab_case``; K15 at the
     ps-stream shape, ``k15_ab``), are printed as one JSON line. ``only`` =
-    "k12", "k15" or "k16": that kernel alone (K12 with its read and K13;
-    K16 with K17 and the fused hop, ``k16_ab``). Run it over two
-    trees in turns (A, B, B, A) in one call, then ``--ab-compare``."""
+    "k12", "k15", "k15s" or "k16": that kernel alone (K12 with its read and
+    K13; K15's dense-sync modes, ``k15s_ab``; K16 with K17 and the fused
+    hop, ``k16_ab``). Run it over two trees in turns (A, B, B, A) in one
+    call, then ``--ab-compare``."""
     sys.path.insert(0, str(pathlib.Path(root).resolve()))
     import torch
 
@@ -6272,12 +6330,14 @@ def ab_run(root: str, out_path: str, only: str = "") -> int:
     bits, times = {"root": np.array(str(pathlib.Path(root).resolve()))}, {}
     if only == "k16":
         bits.update(k16_ab(dev, times, as_bits))
+    elif only == "k15s":
+        bits.update(k15s_ab(dev, times, as_bits))
     else:
         if only != "k12":
             bits.update(k15_ab(dev, ops, times, as_bits))
         if only != "k15":
             bits.update(k12_ab(dev, ops, times, as_bits))
-    if only in ("k12", "k15", "k16"):
+    if only in ("k12", "k15", "k15s", "k16"):
         np.savez(out_path, **bits)
         print(json.dumps({"ab": {"root": root, "package": pkg, "times": times}, "card": card_line()}), flush=True)
         return 0
@@ -7893,8 +7953,8 @@ SYNC_SOURCE = "persia_tpu_torch/csrc/block_int8.cu"
 SYNC_REPLACES = {"block_quantize_int8": "persia_tpu/parallel/grad_sync.py:312",
                  "block_dequantize_int8": "persia_tpu/parallel/grad_sync.py:327",
                  "block_requantize_int8": "persia_tpu/parallel/grad_sync.py:381",
-                 "segment_absmax": "persia_tpu/parallel/grad_sync.py:288",
-                 "quantize_int8_ef_shared": "persia_tpu/parallel/grad_sync.py:279"}
+                 "segment_absmax": "persia_tpu/parallel/grad_sync.py:291",
+                 "quantize_int8_ef_shared": "persia_tpu/parallel/grad_sync.py:294"}
 SYNC_KERNELS = tuple(SYNC_REPLACES)
 SYNC_BLOCK, SYNC_STEPS = 256, 3
 # phase 3h's other block sizes: K16's and the fused hop's block plan, K17's
@@ -7968,9 +8028,9 @@ def phase_sync_kernels(dev):
     1; the fused hop (``block_requantize_int8``) at the chunk and on the
     whole vector, with and without the feedback and the sum written back;
     each of the three at ``SYNC_ODD_BLOCKS`` (the block and scalar plans);
-    K15's scales-only mode (``segment_absmax``) and its codes at a shared
-    scale (``quantize_int8_ef_shared``) over the tower's leaves, the
-    residual in place."""
+    K15's scales (``segment_absmax``) and its codes at a shared scale
+    (``quantize_int8_ef_shared``) over the tower's leaves, the residual in
+    place; then ``flat_mode_cases``."""
     import torch
 
     from persia_tpu_torch.ops import plans
@@ -8057,7 +8117,8 @@ def phase_sync_kernels(dev):
     plain = x["res"].clone()
     q, sc, new = quantize_int8_ef_shared(x["flat"], x["res"].clone(), offs, scale)
     q2, sc2, new2 = quantize_int8_ef_reference(x["flat"], plain, offs, scale=scale)
-    same_q = bits_equal(q, q2) and bits_equal(sc, sc2) and bits_equal(new.view(torch.int32), new2.view(torch.int32))
+    same_q = (q.dtype == torch.int32 and bits_equal(q, q2.to(torch.int32)) and bits_equal(sc, sc2)
+              and bits_equal(new.view(torch.int32), new2.view(torch.int32)))
     print(f"  segment_absmax over the tower's {len(offs) - 1} leaves ({x['p']} elements): bitwise "
           f"{'ok' if same_s else 'FAIL'}; quantize_int8_ef_shared at those scales: codes, scales, residual bitwise "
           f"{'ok' if same_q else 'FAIL'}", flush=True)
@@ -8065,9 +8126,144 @@ def phase_sync_kernels(dev):
         bad.append("segment_absmax")
     if not same_q:
         bad.append("quantize_int8_ef_shared")
+    bad += flat_mode_cases(dev)
+    bad += absmax_graph_cases(dev)
     if bad:
         raise SystemExit(f"the dense sync's kernels disagree with their plain versions: {bad}")
     return {k: 0.0 for k in SYNC_KERNELS}
+
+
+# phase 3h's cases of K15's flat dense-sync modes (segment_absmax and the
+# shared-scale quantize): the tower's leaves in the flat vector's order and
+# by layer; 512 segments; empty and 1-element segments; boundaries inside a
+# unit (13 of them in one unit, with empty segments); boundaries on a CTA's
+# span boundary (the tower's plan spans 2,584 elements at both unit sizes);
+# a leaf of zeros (the floor), a NaN, +-inf
+FLAT_CASES = {
+    "tower": None,  # sync_leaf_sizes(): each bias before its kernel
+    "tower_by_layer": [3328, 256, 16384, 64, 1024, 16, 187904, 512, 131072, 256, 256, 1],
+    "segments_512": [(i * 37) % 251 for i in range(512)],
+    "empty_and_ones": [0, 1, 0, 1, 1, 5000, 0, 1, 3],
+    "inside_units": [3, 5, 13, 2, 9, 4100, 1, 1, 6],
+    "many_in_a_unit": [3] + [0] * 10 + [1] * 3 + [5000],  # 13 boundaries in one unit
+    "span_boundary": None,  # 2584, 7752, 1, 2583 and the tower's rest
+    "specials": [4096, 1000, 1000, 513],
+}
+
+
+def flat_case(dev, case, dtype, off16=False, seed=SEED + 98):
+    """(g, residual, offsets) of ``FLAT_CASES[case]``: normal g of mixed
+    magnitudes, a residual ~1e-4; "specials": leaf 0 all zeros (g and
+    residual), a NaN in leaf 1, +inf and -inf in leaf 2. ``off16``: g and
+    the residual start one element past a 16-byte boundary (the scalar
+    plan)."""
+    import torch
+
+    lengths = FLAT_CASES[case]
+    if case == "tower":
+        lengths = sync_leaf_sizes()
+    elif case == "span_boundary":
+        lengths = [2584, 7752, 1, 2583, sum(sync_leaf_sizes()) - 12920]
+    offsets = np.concatenate([[0], np.cumsum(lengths)]).astype(int).tolist()
+    n = offsets[-1]
+    rng = np.random.default_rng(seed)
+    g = (rng.normal(size=n) * 10.0 ** rng.integers(-3, 2, n)).astype(np.float32)
+    r = (rng.normal(size=n) * 1e-4).astype(np.float32)
+    if case == "specials":
+        g[:4096] = 0
+        r[:4096] = 0
+        g[4096 + 17] = np.nan
+        g[5096 + 3], g[5096 + 900] = np.inf, -np.inf
+    lead = int(off16)
+    gbuf = torch.zeros(n + lead, dtype=dtype, device=dev)
+    rbuf = torch.zeros(n + lead, dtype=torch.float32, device=dev)
+    gbuf[lead:] = torch.from_numpy(g).to(dev, dtype)
+    rbuf[lead:] = torch.from_numpy(r).to(dev)
+    return gbuf[lead:], rbuf[lead:], offsets
+
+
+def flat_mode_cases(dev) -> list:
+    """Phase 3h's flat cases: at each of ``FLAT_CASES``, f32 and bf16 g, on
+    16 bytes and off them, ``segment_absmax`` and the shared-scale quantize
+    (at 1.25x the scales) against their plain versions, bit for bit (the
+    int32 codes the plain version's int8 codes widened); one launch a
+    call. Returns the cases that differ."""
+    import torch
+
+    from persia_tpu_torch.ops import plans
+    from persia_tpu_torch.ops.quantize_int8 import (
+        quantize_int8_ef_reference,
+        quantize_int8_ef_shared,
+        segment_absmax,
+        segment_absmax_reference,
+    )
+
+    f32_bits = lambda t: t.view(torch.int32)  # noqa: E731
+    bad = []
+    for case in FLAT_CASES:
+        results = []
+        for dtype in (torch.float32, torch.bfloat16):
+            for off16 in (False, True):
+                g, res, offs = flat_case(dev, case, dtype, off16)
+                plan = plans.flat_quant_plan(g.numel(), not off16)
+                n0 = (segment_absmax.launches, quantize_int8_ef_shared.launches)
+                scale = segment_absmax(g, res, offs)
+                ok = bits_equal(f32_bits(scale), f32_bits(segment_absmax_reference(g, res, offs)))
+                shared = scale * 1.25
+                q2, s2, r2 = quantize_int8_ef_reference(g, res.clone(), offs, scale=shared)
+                q, sc, new = quantize_int8_ef_shared(g, res.clone(), offs, shared)
+                ok &= (q.dtype == torch.int32 and bits_equal(q, q2.to(torch.int32))
+                       and bits_equal(f32_bits(sc), f32_bits(s2)) and bits_equal(f32_bits(new), f32_bits(r2)))
+                ok &= (segment_absmax.launches - n0[0], quantize_int8_ef_shared.launches - n0[1]) == (1, 1)
+                if case == "specials":
+                    ok &= (scale[0].item() == np.float32(1e-30) and np.isnan(scale[1].item())
+                           and scale[2].item() == np.inf)
+                if case == "span_boundary":
+                    ok &= plan.span * plan.vec == 2584
+                results.append((f"{str(dtype)[6:]}{' off 16 B' if off16 else ''} (vec {plan.vec}, grid "
+                                f"{plan.grid})", ok))
+        print(f"  flat segment_absmax and shared-scale quantize (int32 codes), {case} "
+              f"({len(offs) - 1} segments, {offs[-1]} elements): "
+              + "; ".join(f"{k} {'ok' if v else 'FAIL'}" for k, v in results), flush=True)
+        bad += [f"flat {case} {k}" for k, v in results if not v]
+    return bad
+
+
+def absmax_graph_cases(dev, replays=20) -> list:
+    """Phase 3h's check of ``segment_absmax``'s scratch under CUDA graphs:
+    two graphs, each one call of other inputs captured on
+    ``torch.cuda.graph``'s shared capture stream, replayed at once on two
+    streams (the second graph first), ``replays`` times; every replay's
+    scales bit for bit the plain version's (each capture makes its own
+    scratch and zeroes it in its graph). Returns the cases that differ."""
+    import torch
+
+    from persia_tpu_torch.ops.quantize_int8 import segment_absmax, segment_absmax_reference
+
+    inputs = [flat_case(dev, "tower", torch.float32, seed=SEED + 98 + i) for i in range(2)]
+    wants = [segment_absmax_reference(g, r, offs).view(torch.int32) for g, r, offs in inputs]
+    torch.cuda.synchronize()
+    graphs, outs = [], []
+    for g, r, offs in inputs:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs.append(segment_absmax(g, r, offs))
+        graphs.append(graph)
+    streams = [torch.cuda.Stream() for _ in graphs]
+    agree = 0
+    for _ in range(replays):
+        for out in outs:
+            out.zero_()
+        torch.cuda.synchronize()
+        for graph, stream in zip(graphs[::-1], streams[::-1]):
+            with torch.cuda.stream(stream):
+                graph.replay()
+        torch.cuda.synchronize()
+        agree += all(bits_equal(out.view(torch.int32), want) for out, want in zip(outs, wants))
+    print(f"  segment_absmax in two CUDA graphs replayed at once on two streams: {agree} of {replays} replays "
+          f"bitwise {'ok' if agree == replays else 'FAIL'}", flush=True)
+    del graphs
+    return [] if agree == replays else ["segment_absmax in concurrent graphs"]
 
 
 def feeder_leg(device, sd, batches, sharded, stream=False):
@@ -8213,7 +8409,9 @@ def path_dense_sync(dev):
     ``TWO_RANK_MODES``, every rank's parameters the same bits, held to the
     same two ranks on the CPU, a rank's ring step 1 K16, 1 fused hop and 1
     K17 (the sharded ring's 1 K16 and 1 K17); ``dense_wire_bytes_per_step``
-    of each; then ``ring_ranks_leg``."""
+    of each; then ``ring_ranks_leg``. The world-size-1 run also times
+    each ``bytegrad_allreduce`` on the card (CUDA events around the call)
+    and checks that its codes come as int32 (no cast before the sum)."""
     import torch
     import torch.distributed as dist
 
@@ -8232,12 +8430,38 @@ def path_dense_sync(dev):
         if (mesh.size, mesh.backend) != (1, "nccl"):
             raise SystemExit(f"dense sync: a mesh of {mesh.size} ranks over {mesh.backend}")
         torch.cuda.synchronize()
+        bytegrad_events, wire_dtypes = [], []
+        bytegrad, shared = grad_sync.bytegrad_allreduce, grad_sync.quantize_int8_ef_shared
+
+        def timed_bytegrad(*args, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = bytegrad(*args, **kw)
+            end.record()
+            bytegrad_events.append((start, end))
+            return out
+
+        def wire_codes(*args, **kw):
+            out = shared(*args, **kw)
+            wire_dtypes.append(out[0].dtype)
+            return out
+
         ops.reset_launch_counts()
-        card = {m: tds.run_case(mesh, dict(mode=m, steps=SYNC_STEPS, seed=SEED + 90), SYNC_SPEC, dev) for m in modes}
+        grad_sync.bytegrad_allreduce, grad_sync.quantize_int8_ef_shared = timed_bytegrad, wire_codes
+        try:
+            card = {m: tds.run_case(mesh, dict(mode=m, steps=SYNC_STEPS, seed=SEED + 90), SYNC_SPEC, dev)
+                    for m in modes}
+        finally:
+            grad_sync.bytegrad_allreduce, grad_sync.quantize_int8_ef_shared = bytegrad, shared
         torch.cuda.synchronize()
         launches = launches_now()
     finally:
         dist.destroy_process_group()
+    bytegrad_ms = [start.elapsed_time(end) for start, end in bytegrad_events]
+    print(f"  bytegrad_allreduce on the card a step (CUDA events around the call, world size 1): {bytegrad_ms} ms; "
+          f"the codes on the wire {[str(d) for d in wire_dtypes]}", flush=True)
+    if len(bytegrad_ms) != SYNC_STEPS or wire_dtypes != [torch.int32] * SYNC_STEPS:
+        raise SystemExit(f"dense sync: bytegrad ran {len(bytegrad_ms)} times, its codes {wire_dtypes} (int32 wanted)")
     expect_path_launches("dense sync (world size 1)", launches,
                          exact={"block_quantize_int8": SYNC_STEPS, "block_dequantize_int8": SYNC_STEPS,
                                 "block_requantize_int8": 0, "segment_absmax": SYNC_STEPS,
@@ -8248,7 +8472,8 @@ def path_dense_sync(dev):
                            torch.device("cpu")) for m in modes}
     cpu_s = time.perf_counter() - t
     record = {"spec": {k: list(v) if isinstance(v, tuple) else v for k, v in SYNC_SPEC.items() if k != "vocabs"},
-              "params": int(grad_sync.dense_param_count(tds.model_and_params(SYNC_SPEC)[0])), "modes": {}}
+              "params": int(grad_sync.dense_param_count(tds.model_and_params(SYNC_SPEC)[0])), "modes": {},
+              "bytegrad_card_ms_a_step": bytegrad_ms}
     p = record["params"]
     bad = []
     for m in modes:
@@ -8375,8 +8600,11 @@ def time_sync_kernels(dev, launches, errs, inputs, floor):
     at n = 4's chunk with it (a ring's hop 0, ``hop_chunk_*``), K17 as a
     hop's accumulate at that chunk, the fused hop there (accumulate with
     the feedback, quantize) beside K17 then K16 on the same inputs
-    (``unfolded_pair_*``), K15's scales and codes over the tower's leaves.
-    ``launches``: each kernel's launches in phase 4r's counted runs."""
+    (``unfolded_pair_*``), K15's flat scales and codes over the tower's
+    leaves: ``segment_absmax`` beside ``torch._foreach_norm(ord=inf)`` over
+    the 12 pre-summed leaves (``foreach_norm_inf_*``, a yardstick of the
+    reduction alone, not the same function), the shared-scale quantize
+    (int32 codes, bytegrad's). ``launches``: each kernel's launches in phase 4r's counted runs."""
     import torch
 
     from persia_tpu_torch.ops.block_int8 import (
@@ -8414,7 +8642,12 @@ def time_sync_kernels(dev, launches, errs, inputs, floor):
         v = x["flat"] + res
         step = scale / torch.full_like(scale, 127.0)
         t_ = torch.round(v / scale[seg_ids] * 127.0).clamp_(-127, 127)
-        return t_.to(torch.int8), v - t_ * step[seg_ids]
+        return t_.to(torch.int32), v - t_ * step[seg_ids]
+
+    pre_summed = list(torch.split(x["flat"] + x["res"], [int(b - a) for a, b in zip(offs[:-1], offs[1:])]))
+
+    def foreach_norm_inf():
+        return torch._foreach_norm(pre_summed, ord=float("inf"))
 
     def unfolded_pair(q, sc, b, e, r):
         block_dequantize_int8(q, sc, SYNC_BLOCK, base=b, ef=e, out=b)
@@ -8433,7 +8666,7 @@ def time_sync_kernels(dev, launches, errs, inputs, floor):
             extras={"hop_chunk": (lambda: block_quantize_int8(x["g4"], SYNC_BLOCK, ef=x["ef4"], err=err4),
                                   (lambda v, e, r: block_quantize_int8(v, SYNC_BLOCK, ef=e, err=r),
                                    lambda: (x["g4"].clone(), x["ef4"].clone(), torch.empty_like(x["g4"])), n4 * 12),
-                                  n4 * 13 + blocks4 * 4, 6 * n4)}),
+                                  n4 * 13 + blocks4 * 4, 6 * n4, f"n=4 chunk, {n4} elements")}),
         "block_dequantize_int8": dict(
             kernel=lambda: block_dequantize_int8(q4, s4, SYNC_BLOCK, base=acc, ef=x["ef4"], out=acc),
             plain=lambda: block_dequantize_int8_reference(q4, s4, SYNC_BLOCK, 1, 0, acc, x["ef4"]),
@@ -8446,16 +8679,23 @@ def time_sync_kernels(dev, launches, errs, inputs, floor):
             cold=(lambda q, sc, b, e, r: block_requantize_int8(q, sc, b, e, SYNC_BLOCK, err=r), hop_copy, n4 * 13),
             bytes=n4 * 14 + blocks4 * 8, ops=10 * n4, shape=[n4, SYNC_BLOCK, "n=4 hop: accumulate, feedback, quantize"],
             extras={"unfolded_pair": (lambda: unfolded_pair(q4, s4, pair_acc, x["ef4"], err4),
-                                      (unfolded_pair, hop_copy, n4 * 13), n4 * 22 + blocks4 * 8, 10 * n4)}),
+                                      (unfolded_pair, hop_copy, n4 * 13), n4 * 22 + blocks4 * 8, 10 * n4,
+                                      f"n=4 chunk, {n4} elements")}),
         "segment_absmax": dict(
             kernel=lambda: segment_absmax(x["flat"], x["res"], offs), plain=absmax_composed,
             cold=(lambda g, r: segment_absmax(g, r, offs), lambda: (x["flat"].clone(), x["res"].clone()), p * 8),
-            bytes=p * 8 + segs * 4, ops=3 * p, shape=[segs, p, "the tower's leaves"]),
+            bytes=p * 8 + segs * 4, ops=3 * p, shape=[segs, p, "the tower's leaves"],
+            extras={"foreach_norm_inf": (foreach_norm_inf, (
+                lambda *leaves: torch._foreach_norm(list(leaves), ord=float("inf")),
+                lambda: tuple(t.clone() for t in pre_summed), p * 4), p * 4 + segs * 4, p,
+                "torch._foreach_norm(ord=inf) over the 12 pre-summed leaves: the reduction alone, not the same "
+                "function")}),
         "quantize_int8_ef_shared": dict(
-            kernel=lambda: quantize_int8_ef_shared(x["flat"], res, offs, scale), plain=shared_composed,
-            cold=(lambda g, r: quantize_int8_ef_shared(g, r, offs, scale), lambda: (x["flat"].clone(), x["res"].clone()),
-                  p * 8),
-            bytes=p * 13 + segs * 8, ops=6 * p, shape=[segs, p, "the tower's leaves"]),
+            kernel=lambda: quantize_int8_ef_shared(x["flat"], res, offs, scale),
+            plain=shared_composed,
+            cold=(lambda g, r: quantize_int8_ef_shared(g, r, offs, scale),
+                  lambda: (x["flat"].clone(), x["res"].clone()), p * 8),
+            bytes=p * 16 + segs * 8, ops=6 * p, shape=[segs, p, "the tower's leaves, int32 codes"]),
     }
     rows = []
     for name, c in cases.items():
@@ -8463,7 +8703,8 @@ def time_sync_kernels(dev, launches, errs, inputs, floor):
         k0, p0, k1 = timings(c["kernel"]), timings(c["plain"]), timings(c["kernel"])
         cold = [cold_ms(c["cold"][0], c["cold"][1], c["cold"][2])["ms"] for _ in range(2)]
         if name == "quantize_int8_ef_shared":
-            reference = timings(lambda: quantize_int8_ef_reference(x["flat"], x["res"], offs, scale=scale))["graph"]
+            reference = timings(lambda: quantize_int8_ef_reference(x["flat"], x["res"], offs, scale=scale)[0].to(
+                torch.int32))["graph"]
         else:
             reference = None
         by_path = {path: la[name] for path, la in launches.items() if la.get(name)}
@@ -8478,6 +8719,8 @@ def time_sync_kernels(dev, launches, errs, inputs, floor):
                                          "composite_ms")
         if name == "block_requantize_int8":
             r["also_replaces"] = ["persia_tpu/parallel/grad_sync.py:373", "persia_tpu/parallel/grad_sync.py:395"]
+        if name == "quantize_int8_ef_shared":
+            r["also_replaces"] = ["persia_tpu/parallel/grad_sync.py:295"]  # the codes' cast to int32
         if reference is not None:
             r["plain_ms"] = reference  # the loop a segment the tests hold it to; composite_ms is vectorised
         r["over_launch_floor"] = r["ms"] / min(floor)
@@ -8488,12 +8731,12 @@ def time_sync_kernels(dev, launches, errs, inputs, floor):
               f"{r['cold_share']:.1%} cold, {bms / r['ms']:.1%} warm), {r['over_launch_floor']:.2f}x the launch "
               f"floor; plain {r['plain_ms']:.4f} ms, composed {r['composite_ms']:.4f} ms; launches {by_path}",
               flush=True)
-        for extra, (fn, (cold_fn, make, nbytes), ebytes, eops) in c.get("extras", {}).items():
+        for extra, (fn, (cold_fn, make, nbytes), ebytes, eops, label) in c.get("extras", {}).items():
             warm = [graph_ms(fn) for _ in range(2)]
             ecold = [cold_ms(cold_fn, make, nbytes)["ms"] for _ in range(2)]
             ebound, eby = bound(ebytes, eops, "float32")
             r.update({f"{extra}_ms": min(warm), f"{extra}_cold_ms": min(ecold), f"{extra}_bound_ms": ebound})
-            print(f"  {r['name']}, {extra.replace('_', ' ')} (n=4 chunk, {n4} elements): warm {warm} ms, cold {ecold} "
+            print(f"  {r['name']}, {extra.replace('_', ' ')} ({label}): warm {warm} ms, cold {ecold} "
                   f"ms, bound {ebound:.5f} ({eby}; {ebound / min(ecold):.1%} cold), {min(warm) / min(floor):.2f}x "
                   f"the launch floor", flush=True)
         rows.append(r)

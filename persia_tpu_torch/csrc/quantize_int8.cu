@@ -1,6 +1,7 @@
 // The cache tier's int8 parameter-server gradient wire (K15): absmax int8
 // quantization with error feedback, one scale a segment (a PS slot's
-// gradient).
+// gradient). Its two dense-sync modes (the segments' scales alone, and the
+// codes at a shared scale) are flat passes of their own, further down.
 //
 // Input: the step's PS gradients g, flat (n,) f32 or bf16, the segments'
 // offsets (S+1 ascending int32, off[0] = 0, off[S] = n; a segment may be
@@ -24,15 +25,6 @@
 // scales[S] = finite (the tail the host reads); on an overflow step
 // (finite 0) every code is 0, every scale 0 and the residual is left as it
 // was (the host drops the step's gradients).
-//
-// At a shared scale (the dense bytegrad all-reduce): the same kernel in two
-// more modes. With q null it writes the scales alone (the segments'
-// max(max |v|, 1e-30), which the caller all-reduces with MAX); with
-// scale_in (S f32 in device memory, one a segment) it takes scale =
-// max(scale_in[s], 1e-30) instead of the segment's own maximum, skipping
-// the maximum and the cluster's exchange, and writes codes, scales and
-// residual as above (persia_tpu/parallel/grad_sync.py:279-297,
-// quantize_int8_ef(g, r, scale=pmax(...)) a leaf at a time).
 //
 // Replaces: persia_tpu/parallel/grad_sync.py:244-260 (quantize_int8_ef) as
 // persia_tpu/embedding/hbm_cache/step.py:361-415 calls it, a slot at a
@@ -76,6 +68,7 @@
 
 #include <cooperative_groups.h>
 
+#include <climits>
 #include <cstdint>
 
 #include "cluster.cuh"
@@ -169,9 +162,12 @@ struct Scale {
   bool fast;
 };
 
+// max(m, 1e-30), NaN kept
+__device__ __forceinline__ float scale_floor(float m) { return (m > 1e-30f || m != m) ? m : 1e-30f; }
+
 __device__ __forceinline__ Scale make_scale(float m) {
   Scale sc;
-  sc.scale = (m > 1e-30f || m != m) ? m : 1e-30f;
+  sc.scale = scale_floor(m);
   sc.step = __fdiv_rn(sc.scale, 127.0f);
   sc.inv = __frcp_rn(sc.scale);
   sc.fast = sc.scale >= 0x1p-90f && sc.scale < 0x1p126f;  // false for NaN and inf
@@ -207,27 +203,45 @@ __device__ __forceinline__ float quantize(float v, const Scale& sc, int8_t& code
   return __fsub_rn(v, __fmul_rn(t, sc.step));
 }
 
-// a unit's codes and new residual: one 8-byte store and two float4, or one
-// element of each
-template <int VEC, bool FAST>
-__device__ __forceinline__ void store_unit(const float (&v)[VEC], const Scale& sc, int8_t* qp, float* rp) {
+// a unit's codes: one 8-byte store of 8 int8 (K15), two 16-byte stores of
+// 8 int32 (the dense sync's, which its sum takes as they are), or one
+// element
+__device__ __forceinline__ void store_codes(int8_t* qp, const int8_t (&c)[8]) {
+  uint2 packed;
+  packed.x = (static_cast<uint8_t>(c[0])) | (static_cast<uint8_t>(c[1]) << 8) |
+             (static_cast<uint8_t>(c[2]) << 16) | (static_cast<unsigned>(static_cast<uint8_t>(c[3])) << 24);
+  packed.y = (static_cast<uint8_t>(c[4])) | (static_cast<uint8_t>(c[5]) << 8) |
+             (static_cast<uint8_t>(c[6]) << 16) | (static_cast<unsigned>(static_cast<uint8_t>(c[7])) << 24);
+  *reinterpret_cast<uint2*>(qp) = packed;
+}
+__device__ __forceinline__ void store_codes(int32_t* qp, const int8_t (&c)[8]) {
+  reinterpret_cast<int4*>(qp)[0] = make_int4(c[0], c[1], c[2], c[3]);
+  reinterpret_cast<int4*>(qp)[1] = make_int4(c[4], c[5], c[6], c[7]);
+}
+template <typename Q>
+__device__ __forceinline__ void store_codes(Q* qp, const int8_t (&c)[1]) {
+  *qp = c[0];
+}
+
+// a unit's codes and new residual (two float4, or one element)
+template <int VEC, typename Q>
+__device__ __forceinline__ void store_coded(const int8_t (&c)[VEC], const float (&out)[VEC], Q* qp, float* rp) {
+  store_codes(qp, c);
   if constexpr (VEC == 8) {
-    int8_t c[8];
-    float out[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) out[k] = quantize<FAST>(v[k], sc, c[k]);
-    uint2 packed;
-    packed.x = (static_cast<uint8_t>(c[0])) | (static_cast<uint8_t>(c[1]) << 8) |
-               (static_cast<uint8_t>(c[2]) << 16) | (static_cast<unsigned>(static_cast<uint8_t>(c[3])) << 24);
-    packed.y = (static_cast<uint8_t>(c[4])) | (static_cast<uint8_t>(c[5]) << 8) |
-               (static_cast<uint8_t>(c[6]) << 16) | (static_cast<unsigned>(static_cast<uint8_t>(c[7])) << 24);
-    *reinterpret_cast<uint2*>(qp) = packed;
     store_as(rp, out);
   } else {
-    int8_t c;
-    *rp = quantize<FAST>(v[0], sc, c);
-    *qp = c;
+    *rp = out[0];
   }
+}
+
+// a unit's codes and new residual at one scale
+template <int VEC, bool FAST, typename Q>
+__device__ __forceinline__ void store_unit(const float (&v)[VEC], const Scale& sc, Q* qp, float* rp) {
+  int8_t c[VEC];
+  float out[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) out[k] = quantize<FAST>(v[k], sc, c[k]);
+  store_coded<VEC>(c, out, qp, rp);
 }
 
 // a unit's codes all 0 (an overflow step), the residual not written
@@ -241,8 +255,8 @@ __device__ __forceinline__ void zero_unit(int8_t* qp) {
 }
 
 // store_unit under the scale's own division
-template <int VEC>
-__device__ __forceinline__ void store_unit_any(const float (&v)[VEC], const Scale& sc, int8_t* qp, float* rp) {
+template <int VEC, typename Q>
+__device__ __forceinline__ void store_unit_any(const float (&v)[VEC], const Scale& sc, Q* qp, float* rp) {
   if (sc.fast) {
     store_unit<VEC, true>(v, sc, qp, rp);
   } else {
@@ -252,9 +266,9 @@ __device__ __forceinline__ void store_unit_any(const float (&v)[VEC], const Scal
 
 // the held units' codes and residual, from registers: unit tid + j * T of
 // the span that starts at element `base`, for j < units while under held
-template <int VEC, int UNITS, bool FAST>
+template <int VEC, int UNITS, bool FAST, typename Q>
 __device__ __forceinline__ void store_held(const float (&v)[UNITS][VEC], const Scale& sc, int units, int held,
-                                           int base, int8_t* q, float* r_out) {
+                                           int base, Q* q, float* r_out) {
 #pragma unroll
   for (int j = 0; j < UNITS; ++j) {
     const int u = threadIdx.x + j * blockDim.x;
@@ -301,8 +315,7 @@ template <typename T, int VEC>
 __global__ void __launch_bounds__(kMaxQuantThreads)
     quantize_int8_ef_kernel(const T* __restrict__ g, const float* r, QuantSegments segs, int units,
                             const float* __restrict__ inv, const float* __restrict__ finite,
-                            const float* __restrict__ scale_in, int8_t* __restrict__ q, float* __restrict__ scales,
-                            float* r_out) {
+                            int8_t* __restrict__ q, float* __restrict__ scales, float* r_out) {
   constexpr int kUnits = VEC == 8 ? kMaxUnitsWide : kMaxUnitsScalar;
   __shared__ float warp_max[kMaxQuantWarps];
   __shared__ unsigned slots[kMaxQuantCluster];
@@ -367,10 +380,9 @@ __global__ void __launch_bounds__(kMaxQuantThreads)
   }
 
   // the maximum: the span's rest past the registers (read here once for
-  // it), the held units, the edge element; none at a shared scale
-  const bool shared = scale_in != nullptr;
+  // it), the held units, the edge element
   float m = 0.0f;
-  for (int u = held + tid; !shared && u < u1 - u0; u += threads) {
+  for (int u = held + tid; u < u1 - u0; u += threads) {
     const int i = body + (u0 + u) * VEC;
     Unit<T, VEC> x;
     x.load(g + i, r + i);
@@ -392,25 +404,18 @@ __global__ void __launch_bounds__(kMaxQuantThreads)
   if (edge >= 0) m = abs_max(m, fabsf(ev));
 
   // the block's maximum (warp shuffles, then the warps in shared memory),
-  // then the cluster's, pushed through distributed shared memory; or the
-  // caller's scale
-  if (shared) {
-    if (blocks > 1) cluster_wait();  // the arrive above is matched
-    m = __ldg(scale_in + s);
-  } else {
-    for (int d = 16; d > 0; d >>= 1) m = abs_max(m, __shfl_xor_sync(kFull, m, d));
-    if ((tid & 31) == 0) warp_max[tid >> 5] = m;
-    __syncthreads();
-    m = warp_max[0];
-    for (int w = 1; w < (threads >> 5); ++w) m = abs_max(m, warp_max[w]);
-    if (blocks > 1) m = cluster_abs_max(m, slots, rank, blocks);
-  }
+  // then the cluster's, pushed through distributed shared memory
+  for (int d = 16; d > 0; d >>= 1) m = abs_max(m, __shfl_xor_sync(kFull, m, d));
+  if ((tid & 31) == 0) warp_max[tid >> 5] = m;
+  __syncthreads();
+  m = warp_max[0];
+  for (int w = 1; w < (threads >> 5); ++w) m = abs_max(m, warp_max[w]);
+  if (blocks > 1) m = cluster_abs_max(m, slots, rank, blocks);
   const Scale sc = make_scale(m);
   if (rank == 0 && tid == 0) {
     scales[s] = sc.scale;
     if (finite != nullptr && s == 0) scales[gridDim.x] = 1.0f;  // the finite tail
   }
-  if (q == nullptr) return;  // the scales alone
 
   // the codes and the residual: the held units from registers, the edge
   // element, then the span's rest read a second time
@@ -449,6 +454,413 @@ int check_plan(int vec, int threads, int units, int cluster, const void* g, cons
   return cudaSuccess;
 }
 
+// The offsets into the kernel's by-value parameter: (segments + 1,)
+// ascending from 0, at most kMaxQuantSegments segments, gradients f32 or
+// bf16.
+int copy_segments(const int* offsets, int segments, int dtype, QuantSegments& segs) {
+  if (segments < 0 || segments > kMaxQuantSegments || offsets == nullptr || offsets[0] != 0 ||
+      (dtype != persia::kFloat32 && dtype != persia::kBFloat16)) {
+    return cudaErrorInvalidValue;
+  }
+  for (int s = 0; s <= segments; ++s) {
+    if (s > 0 && offsets[s] < offsets[s - 1]) return cudaErrorInvalidValue;
+    segs.off[s] = offsets[s];
+  }
+  return cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
+// K15's two dense-sync modes (the bytegrad all-reduce), as flat passes over
+// every SM.
+//
+// segment_absmax writes each segment's max(max |g + r|, 1e-30) (NaN if some
+// v is NaN), which the caller all-reduces with MAX; quantize_int8_shared
+// codes each segment at max(scale_in[s], 1e-30) instead of its own maximum
+// and writes the codes (as int32, which the sum on the wire takes), the
+// scales and the residual over r, each element as K15 codes it (the same
+// make_scale, divide and quantize; persia_tpu/parallel/grad_sync.py:279-297,
+// quantize_int8_ef(g, r, scale=pmax(...)) a leaf at a time). No loss-scale
+// gate.
+//
+// Replaces: persia_tpu/parallel/grad_sync.py:290-291 (the leaf's absmax
+// before its pmax) and :294-295 (quantize_int8_ef at the shared scale, and
+// the cast of the codes to int32): XLA ops, no Pallas kernel.
+//
+// Bound on the H100: bytes. segment_absmax reads g and r once (8 bytes an
+// element at f32); the quantize reads them and writes the codes and r' (13
+// bytes an element with the int32 codes). At the bench DLRM
+// tower's 341,073 f32 that is 2.7 MB (0.00081 ms) and 5.5 MB (0.00163 ms).
+//
+// Design. Both split the flat vector, not its segments, into equal spans
+// of whole 8-element units that line up with the tensor's start (plans.
+// flat_quant_plan): the tower's leaves run from 1 to 187,904 elements, and
+// the cluster a segment K15 gives its own path put 93.5 % of the bytes on
+// 16 of the 132 SMs. Here a CTA takes a span, the grid fills one wave of
+// the SMs (132 CTAs at the tower), and each thread issues all of its loads
+// at the top (units t, t + T, ... of the span; a 16-byte load of g a unit
+// at bf16, two at f32; two float4 of r). The n % 8 elements past the last
+// whole unit go to the last CTA's first threads, one each; a tensor off 16
+// bytes takes units of one element. Segments are found by warp ballots
+// over the offsets that the lanes load at the top (WarpSegments), with no
+// chain of dependent loads: a CTA whose span lies in one segment (126 of
+// the tower's 132) finds it once; a CTA across segments finds, for each
+// warp's slot of 32 units, the segments of its first and last element,
+// and only a slot across a boundary looks further, a lane its own unit;
+// a unit across a boundary is spread over 8 lanes, an element each.
+//
+// segment_absmax combines the CTAs' maxima exactly in the same launch: the
+// bits of a non-negative float order as an unsigned int does, and |NaN|
+// sorts above +inf, so an atomicMax on the bits of |v| into a scratch word
+// a segment is the exact maximum, with NaN winning as amax has it. A CTA in
+// one segment reduces with __reduce_max_sync and one barrier and makes one
+// atomic; a CTA across segments gathers its segments' maxima in shared
+// memory first, one atomic a warp's slot. The last CTA to take a ticket
+// (after __threadfence) applies the 1e-30 floor, writes the scales, and
+// sets the scratch and the ticket back to zero for the next launch, so no
+// memset runs before it. The wrapper keeps one scratch a (device, stream)
+// and, in a CUDA graph, one a (device, stream, capture), zeroed by a fill
+// node of that graph: no two launches that may overlap share one.
+// The ticket's chain (the maximum's atomic, the fence, the ticket, the last
+// CTA's reads) is most of what the kernel takes past a plain read of its
+// inputs; a cooperative launch's grid barrier would take the same round
+// trips and was not measured.
+//
+// The quantize is elementwise given scale_in: lane l loads scale_in[l] at
+// the top, a CTA in one segment takes its scale by shuffle (no load waits
+// on the lookup) and writes each element's code and residual from
+// registers, with no maximum, no cluster and no barrier; a CTA across
+// segments makes their scales once in shared memory behind one barrier.
+constexpr int kFlatMaxThreads = 512;  // plans.FLAT_QUANT_MAX_THREADS
+constexpr int kFlatMaxWarps = kFlatMaxThreads / 32;
+constexpr int kTicket = kMaxQuantSegments;  // the scratch's last word
+
+// the segment of element e in [lo, hi): the s with off[s] <= e < off[s + 1],
+// given off[lo] <= e < off[hi] (empty segments are passed over); a lane's
+// own search, for the few units at a boundary
+__device__ __forceinline__ int find_segment(const int* off, int lo, int hi, int e) {
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (off[mid] <= e) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// Segments found by a warp without dependent loads: lane l holds boundary
+// off[l + 1] (past the first 32, a chunk of 32 is read at a time), and the
+// segment of an element e that every lane asks about is the count of
+// boundaries off[1..S] at or below it, one ballot a chunk. (Binary searches
+// read the offsets in chains of dependent loads, which both kernels would
+// wait on.)
+struct WarpSegments {
+  const int* off;
+  int segments, mine;
+
+  __device__ __forceinline__ WarpSegments(const int* off_, int segments_) : off(off_), segments(segments_) {
+    const int lane = threadIdx.x & 31;
+    mine = lane < segments ? off[lane + 1] : INT_MAX;
+  }
+  // the segment of element e < n, the same e in every lane of the warp
+  __device__ __forceinline__ int of(int e) const {
+    int s = __popc(__ballot_sync(kFull, mine <= e));
+    for (int c = 33; c <= segments; c += 32) {
+      const int k = c + static_cast<int>(threadIdx.x & 31);
+      s += __popc(__ballot_sync(kFull, k <= segments && off[k] <= e));
+    }
+    return s;
+  }
+};
+
+// scale_in[s] for a segment s that every lane of the warp asks about: lane
+// l loaded scale_in[l] at the kernel's top (own), so the first 32 segments'
+// scales come by shuffle, with no load after the lookup
+__device__ __forceinline__ float warp_scale(int s, float own, const float* __restrict__ scale_in) {
+  const float x = __shfl_sync(kFull, own, s & 31);
+  return s < 32 ? x : __ldg(scale_in + s);
+}
+
+// The span of CTA b, before any load: whole units [u0, u0 + held) and, in
+// the last CTA, the tail elements [whole * VEC, n) (thread t < tail takes
+// one); its elements are [e0, e1).
+template <int VEC>
+struct FlatSpan {
+  int u0, held, tail, e0, e1;
+
+  __device__ __forceinline__ FlatSpan(int n, int span) {
+    const int whole = n / VEC, b = blockIdx.x;
+    u0 = b * span;
+    held = max(0, min(whole, u0 + span) - u0);
+    const bool last = b == static_cast<int>(gridDim.x) - 1;
+    tail = last ? n - whole * VEC : 0;
+    e0 = u0 * VEC;
+    e1 = last ? n : (u0 + held) * VEC;
+  }
+  __device__ __forceinline__ int tail_element() const { return e1 - tail + static_cast<int>(threadIdx.x); }
+};
+
+// A warp's units of slot j of a span (units first + lane, lane < valid) and
+// the segments of their first and last element; valid <= 0 (or j < 0): none
+template <int VEC>
+struct WarpSlot {
+  int first, valid, s_lo, s_hi;
+
+  __device__ __forceinline__ WarpSlot(const FlatSpan<VEC>& sp, const WarpSegments& ws, int j) {
+    const int warp = threadIdx.x >> 5;
+    first = warp * 32 + j * static_cast<int>(blockDim.x);
+    valid = j < 0 ? 0 : min(32, sp.held - first);
+    s_lo = s_hi = 0;
+    if (valid > 0) {
+      s_lo = ws.of((sp.u0 + first) * VEC);
+      s_hi = ws.of((sp.u0 + first + valid) * VEC - 1);
+    }
+  }
+};
+
+// Element k of the unit that lane src holds (v), in lane k < VEC: a unit at
+// a boundary is spread over the warp's first VEC lanes, which each take
+// their element through the scalar path, in parallel (one lane walking all
+// VEC elements would hold its CTA, as at the tower's 1-element leaf)
+template <int VEC>
+__device__ __forceinline__ float spread_element(const float (&v)[VEC], int src) {
+  float x = 0.0f;
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    const float vk = __shfl_sync(kFull, v[k], src);
+    if ((threadIdx.x & 31) == k) x = vk;
+  }
+  return x;
+}
+
+// the bits of |v| (non-negative: they order as the numbers do, NaN on top)
+__device__ __forceinline__ unsigned abs_bits(float v) { return __float_as_uint(fabsf(v)); }
+
+// Scratch: (kMaxQuantSegments + 1,) words, zero between launches: each
+// segment's maximum |v| as bits, then the ticket. CTA b's maxima go into it
+// by atomicMax; the last CTA writes the scales and zeroes it.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kFlatMaxThreads, 1)
+    segment_absmax_kernel(const T* __restrict__ g, const float* __restrict__ r, const __grid_constant__ QuantSegments segs,
+                          int segments, int n, int span, int units, unsigned* __restrict__ scratch,
+                          float* __restrict__ scales) {
+  constexpr int kUnits = VEC == 8 ? kMaxUnitsWide : kMaxUnitsScalar;
+  __shared__ unsigned warp_max[kFlatMaxWarps];
+  __shared__ unsigned seg_max[kMaxQuantSegments];  // a CTA across segments: |v| bits + 1, 0 untouched
+  const int tid = threadIdx.x, threads = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int* off = segs.off;
+  const FlatSpan<VEC> sp(n, span);
+
+  // every load first: the lane's boundary, the held units, the tail element
+  const WarpSegments ws(off, segments);
+  Unit<T, VEC> raw[kUnits];
+#pragma unroll
+  for (int j = 0; j < kUnits; ++j) {
+    const int u = tid + j * threads;
+    if (j < units && u < sp.held) raw[j].load(g + (sp.u0 + u) * VEC, r + (sp.u0 + u) * VEC);
+  }
+  const bool has_tail = tid < sp.tail;
+  float tv = 0.0f;
+  if (has_tail) tv = __fadd_rn(persia::to_f32(g[sp.tail_element()]), r[sp.tail_element()]);
+
+  const int s_first = sp.e1 > sp.e0 ? ws.of(sp.e0) : 0;
+  const int s_last = sp.e1 > sp.e0 ? ws.of(sp.e1 - 1) : 0;
+  if (s_first == s_last) {  // the span in one segment (or empty): one maximum
+    unsigned m = has_tail ? abs_bits(tv) : 0u;
+#pragma unroll
+    for (int j = 0; j < kUnits; ++j) {
+      if (j < units && tid + j * threads < sp.held) {
+        float v[VEC];
+        raw[j].sum(v, 1.0f);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) m = max(m, abs_bits(v[k]));
+      }
+    }
+    m = __reduce_max_sync(kFull, m);
+    if (lane == 0) warp_max[warp] = m;
+    __syncthreads();
+    if (warp != 0) return;
+    m = lane < (threads >> 5) ? warp_max[lane] : 0u;
+    m = __reduce_max_sync(kFull, m);
+    if (lane == 0 && sp.e1 > sp.e0) atomicMax(scratch + s_first, m);
+  } else {  // across segments: a warp's slot in one segment makes one shared atomic, a unit at a boundary its own
+    const int count = s_last - s_first + 1;
+    for (int i = tid; i < count; i += threads) seg_max[i] = 0u;
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kUnits; ++j) {
+      const WarpSlot<VEC> ww(sp, ws, j < units ? j : -1);
+      const int e = (sp.u0 + ww.first + lane) * VEC;
+      unsigned m = 0u;
+      float v[VEC];
+      if (lane < ww.valid) {
+        raw[j].sum(v, 1.0f);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) m = max(m, abs_bits(v[k]));
+      }
+      if (ww.valid > 0 && ww.s_lo == ww.s_hi) {
+        m = __reduce_max_sync(kFull, m);
+        if (lane == 0) atomicMax(seg_max + (ww.s_lo - s_first), m + 1u);
+      } else if (ww.valid > 0) {
+        bool at_boundary = false;
+        if (lane < ww.valid) {
+          const int s = find_segment(off, ww.s_lo, ww.s_hi + 1, e);
+          at_boundary = off[s + 1] < e + VEC;
+          if (!at_boundary) atomicMax(seg_max + (s - s_first), m + 1u);
+        }
+        if constexpr (VEC > 1) {  // each unit at a boundary spread over lanes 0 to VEC - 1
+          for (unsigned b = __ballot_sync(kFull, at_boundary); b != 0u; b &= b - 1u) {
+            const int src = __ffs(b) - 1;
+            const float x = spread_element<VEC>(v, src);
+            const int ek = __shfl_sync(kFull, e, src) + lane;
+            if (lane < VEC) atomicMax(seg_max + (find_segment(off, ww.s_lo, ww.s_hi + 1, ek) - s_first), abs_bits(x) + 1u);
+          }
+        }
+      }
+    }
+    if (warp == 0 && sp.tail > 0) {  // the tail, in warp 0's first lanes
+      const int s_lo = ws.of(sp.e1 - sp.tail), s_hi = ws.of(sp.e1 - 1);
+      if (has_tail) {
+        const int s = s_lo == s_hi ? s_lo : find_segment(off, s_lo, s_hi + 1, sp.tail_element());
+        atomicMax(seg_max + (s - s_first), abs_bits(tv) + 1u);
+      }
+    }
+    __syncthreads();
+    if (warp != 0) return;
+    for (int i = lane; i < count; i += 32) {
+      const unsigned m = seg_max[i];
+      if (m != 0u) atomicMax(scratch + s_first + i, m - 1u);
+    }
+  }
+
+  // warp 0: the ticket; the last CTA's warp 0 writes the scales and zeroes
+  // the scratch
+  __threadfence();
+  __syncwarp();
+  unsigned ticket = 0u;
+  if (lane == 0) ticket = atomicAdd(scratch + kTicket, 1u);
+  ticket = __shfl_sync(kFull, ticket, 0);
+  if (ticket != gridDim.x - 1) return;
+  __threadfence();
+  for (int s = lane; s < segments; s += 32) {
+    scales[s] = scale_floor(__uint_as_float(atomicExch(scratch + s, 0u)));
+  }
+  if (lane == 0) atomicExch(scratch + kTicket, 0u);
+}
+
+// Codes (int32) and the residual at scale_in's scales; CTA 0 also writes
+// the (S,) scales.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kFlatMaxThreads, 1)
+    quantize_int8_shared_kernel(const T* __restrict__ g, const float* r, const __grid_constant__ QuantSegments segs,
+                                int segments, int n, int span, int units, const float* __restrict__ scale_in,
+                                int32_t* __restrict__ q, float* __restrict__ scales, float* r_out) {
+  constexpr int kUnits = VEC == 8 ? kMaxUnitsWide : kMaxUnitsScalar;
+  __shared__ Scale seg_scale[kMaxQuantSegments];  // a CTA across segments: its segments' scales
+  const int tid = threadIdx.x, threads = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int* off = segs.off;
+  const FlatSpan<VEC> sp(n, span);
+
+  // every load first: the lane's boundary and scale, the held units, the
+  // tail element
+  const WarpSegments ws(off, segments);
+  const float own = lane < segments ? __ldg(scale_in + lane) : 0.0f;
+  Unit<T, VEC> raw[kUnits];
+#pragma unroll
+  for (int j = 0; j < kUnits; ++j) {
+    const int u = tid + j * threads;
+    if (j < units && u < sp.held) raw[j].load(g + (sp.u0 + u) * VEC, r + (sp.u0 + u) * VEC);
+  }
+  const bool has_tail = tid < sp.tail;
+  float tv[1] = {0.0f};
+  if (has_tail) tv[0] = __fadd_rn(persia::to_f32(g[sp.tail_element()]), r[sp.tail_element()]);
+
+  if (blockIdx.x == 0) {  // s < 32 only in warp 0, lane s: its own
+    for (int s = tid; s < segments; s += threads) scales[s] = scale_floor(s < 32 ? own : __ldg(scale_in + s));
+  }
+  if (sp.e1 <= sp.e0) return;
+  const int s_first = ws.of(sp.e0), s_last = ws.of(sp.e1 - 1);
+  const int base = sp.u0 * VEC;
+  if (s_first == s_last) {  // the span in one segment: one scale
+    const Scale sc = make_scale(warp_scale(s_first, own, scale_in));
+    float v[kUnits][VEC];
+#pragma unroll
+    for (int j = 0; j < kUnits; ++j) {
+      if (j < units && tid + j * threads < sp.held) raw[j].sum(v[j], 1.0f);
+    }
+    if (sc.fast) {
+      store_held<VEC, kUnits, true>(v, sc, units, sp.held, base, q, r_out);
+    } else {
+      store_held<VEC, kUnits, false>(v, sc, units, sp.held, base, q, r_out);
+    }
+    if (has_tail) store_unit_any<1>(tv, sc, q + sp.tail_element(), r_out + sp.tail_element());
+    return;
+  }
+  // across segments (a CTA-uniform branch): the scales of the CTA's
+  // segments made once, in shared memory, so that no lane waits on a load
+  // after its lookup; a warp's slot in one segment takes one, a unit at a
+  // boundary each element's own
+  const int count = s_last - s_first + 1;
+  if (warp == 0) {
+    for (int i = lane; i - lane < count; i += 32) {
+      const float x = warp_scale(min(s_first + i, segments - 1), own, scale_in);
+      if (i < count) seg_scale[i] = make_scale(x);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kUnits; ++j) {
+    const WarpSlot<VEC> ww(sp, ws, j < units ? j : -1);
+    const int e = (sp.u0 + ww.first + lane) * VEC;
+    float v[VEC];
+    bool at_boundary = false;
+    if (lane < ww.valid) {
+      raw[j].sum(v, 1.0f);
+      const int s = ww.s_lo == ww.s_hi ? ww.s_lo : find_segment(off, ww.s_lo, ww.s_hi + 1, e);
+      at_boundary = off[s + 1] < e + VEC;
+      if (!at_boundary) store_unit_any<VEC>(v, seg_scale[s - s_first], q + e, r_out + e);
+    }
+    if constexpr (VEC > 1) {  // each unit at a boundary spread over lanes 0 to VEC - 1
+      for (unsigned b = __ballot_sync(kFull, at_boundary); b != 0u; b &= b - 1u) {
+        const int src = __ffs(b) - 1;
+        float x[1] = {spread_element<VEC>(v, src)};
+        const int ek = __shfl_sync(kFull, e, src) + lane;
+        if (lane < VEC) {
+          store_unit_any<1>(x, seg_scale[find_segment(off, ww.s_lo, ww.s_hi + 1, ek) - s_first], q + ek, r_out + ek);
+        }
+      }
+    }
+  }
+  if (warp == 0 && sp.tail > 0) {  // the tail, in warp 0's first lanes
+    const int s_lo = ws.of(sp.e1 - sp.tail), s_hi = ws.of(sp.e1 - 1);
+    if (has_tail) {
+      const int e = sp.tail_element();
+      const int s = s_lo == s_hi ? s_lo : find_segment(off, s_lo, s_hi + 1, e);
+      store_unit_any<1>(tv, seg_scale[s - s_first], q + e, r_out + e);
+    }
+  }
+}
+
+// the flat plan's numbers against what the kernels were compiled for and
+// the tensors: vec 8 (g, r, r' and the int32 codes on 16 bytes) or 1; threads a multiple of 32 up to kFlatMaxThreads; units
+// 1 to kMaxUnitsWide (kMaxUnitsScalar); each CTA's span within its
+// threads' units; grid the spans that cover the whole units (1 at least)
+int check_flat_plan(int n, int vec, int threads, int units, int span, int grid, const void* g, const float* r,
+                    const void* q, const float* r_out) {
+  if (vec != 1 && vec != 8) return cudaErrorInvalidValue;
+  if (vec == 8 && !(on_boundary(g, 16) && on_boundary(r, 16) && (r_out == nullptr || on_boundary(r_out, 16)) &&
+                    (q == nullptr || on_boundary(q, 16)))) {
+    return cudaErrorInvalidValue;
+  }
+  if (threads < 32 || threads > kFlatMaxThreads || threads % 32 != 0) return cudaErrorInvalidValue;
+  if (units < 1 || units > (vec == 8 ? kMaxUnitsWide : kMaxUnitsScalar)) return cudaErrorInvalidValue;
+  if (span < 1 || span > threads * units) return cudaErrorInvalidValue;
+  const int whole = n / vec;
+  if (grid != (whole > 0 ? (whole - 1) / span + 1 : 1)) return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // g (n,) f32 or bf16 (dtype: persia::DType); offsets: host (segments + 1,)
@@ -456,33 +868,20 @@ int check_plan(int vec, int threads, int units, int cluster, const void* g, cons
 // and finite: both null, or device f32 scalars (the loss scale's); q (n,)
 // int8; scales (segments,) f32, (segments + 1,) with finite; vec,
 // threads, units, cluster: the plan. Returns a CUDA error code.
-static int launch_quantize(const void* g, int dtype, const float* r, const int* offsets, int segments,
-                           const float* inv, const float* finite, const float* scale_in, int8_t* q, float* scales,
-                           float* r_out, int vec, int threads, int units, int cluster, void* stream) {
-  if (segments < 0 || segments > kMaxQuantSegments || offsets == nullptr || offsets[0] != 0 ||
-      (dtype != persia::kFloat32 && dtype != persia::kBFloat16)) {
-    return cudaErrorInvalidValue;
-  }
+extern "C" int persia_quantize_int8_ef(const void* g, int dtype, const float* r, const int* offsets, int segments,
+                                       const float* inv, const float* finite, int8_t* q, float* scales,
+                                       float* r_out, int vec, int threads, int units, int cluster, void* stream) {
   QuantSegments segs;
-  for (int s = 0; s <= segments; ++s) {
-    if (s > 0 && offsets[s] < offsets[s - 1]) return cudaErrorInvalidValue;
-    segs.off[s] = offsets[s];
-  }
-  if (segments == 0) return cudaSuccess;
-  // q null (the scales alone) asks for no residual and no shared scale
-  const bool scales_only = q == nullptr;
-  if (offsets[segments] > 0 && (g == nullptr || r == nullptr || (!scales_only && r_out == nullptr))) {
-    return cudaErrorInvalidValue;
-  }
-  if (scales == nullptr || (inv == nullptr) != (finite == nullptr)) return cudaErrorInvalidValue;
-  if (scales_only && (scale_in != nullptr || r_out != nullptr)) return cudaErrorInvalidValue;
-  int rc = check_plan(vec, threads, units, cluster, g, r, scales_only ? reinterpret_cast<const int8_t*>(r) : q,
-                      scales_only ? r : r_out);
+  int rc = copy_segments(offsets, segments, dtype, segs);
+  if (rc != cudaSuccess || segments == 0) return rc;
+  if (offsets[segments] > 0 && (g == nullptr || r == nullptr || r_out == nullptr)) return cudaErrorInvalidValue;
+  if (q == nullptr || scales == nullptr || (inv == nullptr) != (finite == nullptr)) return cudaErrorInvalidValue;
+  rc = check_plan(vec, threads, units, cluster, g, r, q, r_out);
   if (rc != cudaSuccess) return rc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PERSIA_QUANT(T, V)                                                                                    \
   rc = launch_clusters(quantize_int8_ef_kernel<T, V>, segments, cluster, threads, st, static_cast<const T*>(g), \
-                       r, segs, units, inv, finite, scale_in, q, scales, r_out)
+                       r, segs, units, inv, finite, q, scales, r_out)
   if (dtype == persia::kFloat32) {
     if (vec == 8) PERSIA_QUANT(float, 8); else PERSIA_QUANT(float, 1);
   } else {
@@ -492,22 +891,72 @@ static int launch_quantize(const void* g, int dtype, const float* r, const int* 
   return rc != cudaSuccess ? rc : static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int persia_quantize_int8_ef(const void* g, int dtype, const float* r, const int* offsets, int segments,
-                                       const float* inv, const float* finite, int8_t* q, float* scales,
-                                       float* r_out, int vec, int threads, int units, int cluster, void* stream) {
-  if (q == nullptr) return cudaErrorInvalidValue;
-  return launch_quantize(g, dtype, r, offsets, segments, inv, finite, nullptr, q, scales, r_out, vec, threads, units,
-                         cluster, stream);
+// K15's scales alone, flat: g (n,) f32 or bf16, r (n,) f32, offsets as
+// above; scratch (kMaxQuantSegments + 1,) u32 on the device, all zero (it
+// is left so), one a stream; scales (segments,) f32; vec, threads, units,
+// span, grid: plans.flat_quant_plan.
+extern "C" int persia_segment_absmax(const void* g, int dtype, const float* r, const int* offsets, int segments,
+                                     unsigned* scratch, float* scales, int vec, int threads, int units, int span,
+                                     int grid, void* stream) {
+  QuantSegments segs;
+  int rc = copy_segments(offsets, segments, dtype, segs);
+  if (rc != cudaSuccess || segments == 0) return rc;
+  const int n = offsets[segments];
+  if ((n > 0 && (g == nullptr || r == nullptr)) || scratch == nullptr || scales == nullptr) {
+    return cudaErrorInvalidValue;
+  }
+  rc = check_flat_plan(n, vec, threads, units, span, grid, g, r, nullptr, nullptr);
+  if (rc != cudaSuccess) return rc;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PERSIA_ABSMAX(T, V) \
+  segment_absmax_kernel<T, V><<<grid, threads, 0, st>>>(static_cast<const T*>(g), r, segs, segments, n, span, \
+                                                         units, scratch, scales)
+  if (dtype == persia::kFloat32) {
+    if (vec == 8) PERSIA_ABSMAX(float, 8); else PERSIA_ABSMAX(float, 1);
+  } else {
+    if (vec == 8) PERSIA_ABSMAX(__nv_bfloat16, 8); else PERSIA_ABSMAX(__nv_bfloat16, 1);
+  }
+#undef PERSIA_ABSMAX
+  return static_cast<int>(cudaGetLastError());
 }
 
-// At a shared scale: q null writes the scales alone (scale_in and r_out
-// null); else scale_in (segments,) f32 on the device gives each segment's
-// scale. No loss-scale gate (inv and finite null).
-extern "C" int persia_quantize_int8_ef_shared(const void* g, int dtype, const float* r, const int* offsets,
-                                              int segments, const float* scale_in, int8_t* q, float* scales,
-                                              float* r_out, int vec, int threads, int units, int cluster,
-                                              void* stream) {
-  if (q != nullptr && scale_in == nullptr) return cudaErrorInvalidValue;
-  return launch_quantize(g, dtype, r, offsets, segments, nullptr, nullptr, scale_in, q, scales, r_out, vec, threads,
-                         units, cluster, stream);
+// Whether `stream` is capturing a CUDA graph (*capturing 1 or 0) and the
+// capture's id (*id, 0 when it is not): segment_absmax's wrapper keys its
+// scratch by them.
+extern "C" int persia_stream_capture(void* stream, int* capturing, unsigned long long* id) {
+  cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+  unsigned long long cid = 0;
+  const cudaError_t rc = cudaStreamGetCaptureInfo(static_cast<cudaStream_t>(stream), &status, &cid);
+  *capturing = rc == cudaSuccess && status == cudaStreamCaptureStatusActive;
+  *id = *capturing ? cid : 0ull;
+  return static_cast<int>(rc);
+}
+
+// K15 at a shared scale, flat: scale_in (segments,) f32 on the device; q
+// (n,) int32; scales (segments,) f32; r_out may be r; the plan as above.
+extern "C" int persia_quantize_int8_shared(const void* g, int dtype, const float* r, const int* offsets,
+                                           int segments, const float* scale_in, int32_t* q, float* scales,
+                                           float* r_out, int vec, int threads, int units, int span, int grid,
+                                           void* stream) {
+  QuantSegments segs;
+  int rc = copy_segments(offsets, segments, dtype, segs);
+  if (rc != cudaSuccess || segments == 0) return rc;
+  const int n = offsets[segments];
+  if ((n > 0 && (g == nullptr || r == nullptr || q == nullptr || r_out == nullptr)) || scale_in == nullptr ||
+      scales == nullptr) {
+    return cudaErrorInvalidValue;
+  }
+  rc = check_flat_plan(n, vec, threads, units, span, grid, g, r, q, r_out);
+  if (rc != cudaSuccess) return rc;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PERSIA_SHARED(T, V)                                                                                   \
+  quantize_int8_shared_kernel<T, V><<<grid, threads, 0, st>>>(static_cast<const T*>(g), r, segs, segments, n, \
+                                                               span, units, scale_in, q, scales, r_out)
+  if (dtype == persia::kFloat32) {
+    if (vec == 8) PERSIA_SHARED(float, 8); else PERSIA_SHARED(float, 1);
+  } else {
+    if (vec == 8) PERSIA_SHARED(__nv_bfloat16, 8); else PERSIA_SHARED(__nv_bfloat16, 1);
+  }
+#undef PERSIA_SHARED
+  return static_cast<int>(cudaGetLastError());
 }

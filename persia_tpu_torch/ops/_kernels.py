@@ -171,9 +171,13 @@ def library() -> ctypes.CDLL:
             lib.persia_quantize_int8_ef.restype = i32
             lib.persia_quantize_int8_ef.argtypes = [vp, i32, vp, ctypes.POINTER(i32), i32, vp, vp, vp, vp, vp,
                                                     i32, i32, i32, i32, vp]
-            lib.persia_quantize_int8_ef_shared.restype = i32
-            lib.persia_quantize_int8_ef_shared.argtypes = [vp, i32, vp, ctypes.POINTER(i32), i32, vp, vp, vp, vp,
-                                                           i32, i32, i32, i32, vp]
+            lib.persia_segment_absmax.restype = i32
+            lib.persia_segment_absmax.argtypes = [vp, i32, vp, ctypes.POINTER(i32), i32, vp, vp, *[i32] * 5, vp]
+            lib.persia_quantize_int8_shared.restype = i32
+            lib.persia_quantize_int8_shared.argtypes = [vp, i32, vp, ctypes.POINTER(i32), i32, vp, vp, vp, vp,
+                                                        *[i32] * 5, vp]
+            lib.persia_stream_capture.restype = i32
+            lib.persia_stream_capture.argtypes = [vp, ctypes.POINTER(i32), ctypes.POINTER(ctypes.c_ulonglong)]
             lib.persia_block_int8_quantize.restype = i32
             lib.persia_block_int8_quantize.argtypes = [vp, vp, i32, i32, vp, vp, vp, i32, i32, i32, vp]
             lib.persia_block_requantize_int8.restype = i32
@@ -193,3 +197,11 @@ def check(rc: int, what: str) -> None:
 def stream_handle(tensor: torch.Tensor) -> int:
     """The raw handle of PyTorch's current stream on the tensor's device."""
     return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+def capture_id(stream: int) -> Optional[int]:
+    """The id of the CUDA graph capture that ``stream`` (a raw handle) is
+    in, None when it is in none."""
+    capturing, cid = ctypes.c_int(0), ctypes.c_ulonglong(0)
+    check(library().persia_stream_capture(stream, ctypes.byref(capturing), ctypes.byref(cid)), "stream_capture")
+    return cid.value if capturing.value else None

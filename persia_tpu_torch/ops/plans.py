@@ -904,6 +904,106 @@ def quantize_int8_cover(offsets, plan: QuantInt8Plan):
     return writes, reads
 
 
+# K15's two dense-sync modes, flat (csrc/quantize_int8.cu:
+# segment_absmax_kernel, quantize_int8_shared_kernel): the flat vector, not
+# its segments, in equal spans of whole units (vec elements from the
+# tensor's start: 8 where every tensor starts on 16 bytes, else 1), a CTA a
+# span, thread t holding units t, t + T, ... of it in registers; the n % vec
+# elements past the last whole unit go to the last CTA's threads 0 to
+# tail - 1, one each
+FLAT_QUANT_MAX_THREADS = 512  # kFlatMaxThreads
+FLAT_QUANT_MIN_ELEMS = 512  # the fewest elements a CTA's span takes
+FLAT_QUANT_ELEMS = 16  # elements a thread the plan aims for
+
+
+@dataclass(frozen=True)
+class FlatQuantPlan:
+    n: int
+    vec: int  # elements a unit: 8 (16-byte loads of g and r) or 1 (scalar)
+    span: int  # whole units a CTA
+    threads: int  # a CTA's
+    units: int  # units a thread holds in registers
+    grid: int
+
+    @property
+    def whole(self) -> int:
+        return self.n // self.vec
+
+    @property
+    def tail(self) -> int:
+        """Elements past the last whole unit, in the last CTA."""
+        return self.n - self.whole * self.vec
+
+    def span_of(self, cta: int):
+        """(first unit, units, first element, end element) of ``cta``'s span,
+        as the kernels' ``FlatSpan`` computes it."""
+        u0 = cta * self.span
+        held = max(0, min(self.whole, u0 + self.span) - u0)
+        e1 = self.n if cta == self.grid - 1 else (u0 + held) * self.vec
+        return u0, held, u0 * self.vec, e1
+
+
+@functools.lru_cache(maxsize=256)
+def flat_quant_plan(n: int, aligned: bool = True) -> FlatQuantPlan:
+    """Geometry of ``segment_absmax`` and ``quantize_int8_ef_shared`` over
+    ``n`` elements, by the shape and the alignment alone (the segments
+    only say where a scale changes). ``aligned``: g, the residual and the
+    codes start on 16 bytes, so that a unit is 8 elements. A CTA's span is
+    the whole units over ``H100_SMS`` (one wave), at least
+    ``FLAT_QUANT_MIN_ELEMS`` elements and at most what its threads hold;
+    the threads are the fewest multiple of 32 (up to
+    ``FLAT_QUANT_MAX_THREADS``) that give each thread ``FLAT_QUANT_ELEMS``
+    elements of it, each thread then holding as many units as the span
+    needs (up to ``QUANT_MAX_UNITS``); past 132 spans of that most the grid
+    takes more waves."""
+    if not 0 <= n < INT32_ELEMENTS:
+        raise ValueError(f"the flat passes index n = {n} elements in 32 bits")
+    vec = 8 if aligned else 1
+    whole = n // vec
+    umax = QUANT_MAX_UNITS[vec]
+    span = min(max(1, -(-whole // H100_SMS), FLAT_QUANT_MIN_ELEMS // vec), FLAT_QUANT_MAX_THREADS * umax)
+    per = max(1, min(umax, FLAT_QUANT_ELEMS // vec))
+    threads = min(FLAT_QUANT_MAX_THREADS, max(32, -(-span // per) + 31) // 32 * 32)
+    units = -(-span // threads)
+    grid = max(1, -(-whole // span))
+    return FlatQuantPlan(n=n, vec=vec, span=span, threads=threads, units=units, grid=grid)
+
+
+def _segment_of(offsets: np.ndarray, e: np.ndarray) -> np.ndarray:
+    """Each element's segment: the s with offsets[s] <= e < offsets[s + 1]."""
+    return np.searchsorted(offsets, e, side="right") - 1
+
+
+def flat_quant_cover(offsets, plan: FlatQuantPlan):
+    """``(hits, touched)`` of the flat passes under ``plan`` over the
+    elements that ``offsets`` (S+1 ascending) split into segments, by the
+    kernels' own index arithmetic: ``hits`` how many times each element is
+    read (both kernels) and written (the quantize), each CTA's threads
+    holding units t, t + T, ... of its span, the last CTA's first threads
+    the tail; ``touched[b]`` the segments CTA b's maxima go into
+    (``segment_absmax``): its one segment where its first and last element
+    share one, else the segment of each element it reads."""
+    offsets = np.asarray([int(o) for o in offsets], dtype=np.int64)
+    n, vec, threads = plan.n, plan.vec, plan.threads
+    if int(offsets[-1]) != n:
+        raise ValueError(f"offsets end at {int(offsets[-1])}, the plan covers {n}")
+    hits = np.zeros(n, dtype=np.int32)
+    touched = []
+    lane_unit = (np.arange(threads)[:, None] + np.arange(plan.units)[None, :] * threads).ravel()
+    for b in range(plan.grid):
+        u0, held, e0, e1 = plan.span_of(b)
+        units = u0 + lane_unit[lane_unit < held]
+        tail = plan.tail if b == plan.grid - 1 else 0  # threads 0 to tail - 1, one element each
+        idx = np.concatenate([(units[:, None] * vec + np.arange(vec)[None, :]).ravel(), e1 - tail + np.arange(tail)])
+        np.add.at(hits, idx, 1)
+        if e1 <= e0:
+            touched.append(set())
+            continue
+        first, last = _segment_of(offsets, np.array([e0, e1 - 1]))
+        touched.append({int(first)} if first == last else set(_segment_of(offsets, idx).tolist()))
+    return hits, touched
+
+
 # the dense ring's block int8 wire (csrc/block_int8.cu). K16 and the fused
 # hop: the warp plan where the block size is 128 V (V up to
 # BLOCK_INT8_WARP_MAX_VEC: a warp a quantization block, 4 V elements a

@@ -28,24 +28,30 @@ step's gradients, so only a finite step's scales are ever applied.
 
 At a shared scale (the dense bytegrad all-reduce, ``persia_tpu/parallel/
 grad_sync.py``'s ``bytegrad_allreduce``): ``segment_absmax(g, residual,
-offsets)`` gives each segment's ``max(max |g + residual|, 1e-30)`` (the
-kernel writing its scales alone), which the caller all-reduces with MAX;
-``quantize_int8_ef_shared(g, residual, offsets, scale)`` then codes each
-segment at ``max(scale[s], 1e-30)`` (``scale`` an (S,) f32 tensor on the
-device) instead of its own maximum: the same codes and residual as above
-at that scale.
+offsets)`` gives each segment's ``max(max |g + residual|, 1e-30)``, which
+the caller all-reduces with MAX; ``quantize_int8_ef_shared(g, residual,
+offsets, scale)`` then codes each segment at ``max(scale[s], 1e-30)``
+(``scale`` an (S,) f32 tensor on the device) instead of its own maximum:
+the same codes and residual as above at that scale, the codes as int32,
+which the sum on the wire takes.
 
 A CPU tensor takes the plain version; a CUDA tensor one launch a call
 (``quantize_int8_ef.launches``, ``segment_absmax.launches``,
-``quantize_int8_ef_shared.launches``), at most ``MAX_SEGMENTS`` segments,
-in the geometry of ``plans.quantize_int8_plan`` (a cluster of blocks a
-segment).
+``quantize_int8_ef_shared.launches``), at most ``MAX_SEGMENTS`` segments.
+K15 runs in the geometry of ``plans.quantize_int8_plan`` (a cluster of
+blocks a segment); its two dense-sync modes are flat passes over the
+whole vector (``plans.flat_quant_plan``, a span of it a CTA, one wave of
+the SMs), ``segment_absmax`` combining the CTAs' maxima by atomics in a
+scratch of ``MAX_SEGMENTS + 1`` words that the kernel leaves zeroed: the
+wrapper keeps one for each (device, stream), and in a CUDA graph one for
+each (device, stream, capture) (see ``_absmax_scratch``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+import threading
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -155,26 +161,49 @@ def segment_absmax_reference(g: torch.Tensor, residual: torch.Tensor, offsets: S
     return out
 
 
-def _launch_shared(g, residual, offsets, scale_in, q, scales, r_out) -> None:
+def _flat_launch_args(g, residual, offsets, q=None):
+    """(the segments, the C offsets, the dtype code, the plan) of a flat pass."""
     segments = len(offsets) - 1
     if segments > MAX_SEGMENTS:
         raise ValueError(f"{segments} segments, more than the kernel's {MAX_SEGMENTS}")
-    longest = max(b - a for a, b in zip(offsets[:-1], offsets[1:]))
     aligned = all(t.data_ptr() % 16 == 0 for t in (g, residual) + ((q,) if q is not None else ()))
-    plan = plans.quantize_int8_plan(segments, longest, g.element_size(), aligned)
+    plan = plans.flat_quant_plan(g.numel(), aligned)
     offs = (ctypes.c_int * (segments + 1))(*offsets)
     dtype = _kernels.DTYPE_F32 if g.dtype == torch.float32 else _kernels.DTYPE_BF16
-    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-    with torch.cuda.device(g.device):
-        rc = _kernels.library().persia_quantize_int8_ef_shared(
-            g.data_ptr(), dtype, residual.data_ptr(), offs, segments, ptr(scale_in), ptr(q), scales.data_ptr(),
-            ptr(r_out), plan.vec, plan.threads, plan.units, plan.cluster, _kernels.stream_handle(g))
-    _kernels.check(rc, "quantize_int8_ef (shared scale)")
+    return segments, offs, dtype, plan
+
+
+_scratch: Dict[Tuple[int, int, Optional[int]], torch.Tensor] = {}
+_scratch_lock = threading.Lock()
+
+
+def _absmax_scratch(g: torch.Tensor) -> torch.Tensor:
+    """``segment_absmax``'s scratch for g's device and current stream:
+    (MAX_SEGMENTS + 1,) words, zero when a launch starts (each launch leaves
+    them so). No two launches that may overlap share one. Outside a CUDA
+    graph the key is (device, stream). In a capture it is (device, stream,
+    the capture's id): the capture's first call on that stream makes the
+    scratch in the capture, from the graph's own memory, and its zeroing is
+    a node of the graph, run at each replay before that call; so a graph's
+    scratch is its own, whatever the stream it is replayed on. A capture's
+    scratch leaves the map when another capture makes one (the graph's
+    pool keeps its memory while the graph lives)."""
+    stream = _kernels.stream_handle(g)
+    capture = _kernels.capture_id(stream)
+    key = (g.device.index, stream, capture)
+    with _scratch_lock:
+        scratch = _scratch.get(key)
+        if scratch is None:
+            if capture is not None:
+                for k in [k for k in _scratch if k[2] not in (None, capture)]:
+                    del _scratch[k]
+            scratch = _scratch[key] = torch.zeros(MAX_SEGMENTS + 1, dtype=torch.int32, device=g.device)
+    return scratch
 
 
 def segment_absmax(g: torch.Tensor, residual: torch.Tensor, offsets: Sequence[int]) -> torch.Tensor:
-    """(S,) f32: each segment's ``max(max |g + residual|, 1e-30)`` (K15
-    writing its scales alone on a CUDA tensor)."""
+    """(S,) f32: each segment's ``max(max |g + residual|, 1e-30)`` (one
+    flat pass over the vector on a CUDA tensor)."""
     _check(g, residual, offsets)
     if g.device.type == "cpu":
         return segment_absmax_reference(g, residual, offsets)
@@ -182,7 +211,13 @@ def segment_absmax(g: torch.Tensor, residual: torch.Tensor, offsets: Sequence[in
         raise ValueError(f"unsupported device {g.device}")
     scales = torch.empty(len(offsets) - 1, dtype=torch.float32, device=g.device)
     if scales.numel():
-        _launch_shared(g, residual, offsets, None, None, scales, None)
+        segments, offs, dtype, plan = _flat_launch_args(g, residual, offsets)
+        with torch.cuda.device(g.device):
+            rc = _kernels.library().persia_segment_absmax(
+                g.data_ptr(), dtype, residual.data_ptr(), offs, segments, _absmax_scratch(g).data_ptr(),
+                scales.data_ptr(), plan.vec, plan.threads, plan.units, plan.span, plan.grid,
+                _kernels.stream_handle(g))
+        _kernels.check(rc, "segment_absmax")
         segment_absmax.launches += 1
     return scales
 
@@ -190,20 +225,28 @@ def segment_absmax(g: torch.Tensor, residual: torch.Tensor, offsets: Sequence[in
 def quantize_int8_ef_shared(g: torch.Tensor, residual: torch.Tensor, offsets: Sequence[int], scale: torch.Tensor,
                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(q, scales, new residual)`` at the caller's (S,) ``scale`` (K15's
-    codes and residual at a shared scale; the residual written in place on
-    a CUDA tensor)."""
+    codes and residual at a shared scale, the codes as int32 for the sum;
+    the residual written in place on a CUDA tensor, one flat pass over the
+    vector)."""
     _check(g, residual, offsets)
     if scale.dtype != torch.float32 or scale.shape != (len(offsets) - 1,) or scale.device != g.device \
             or not scale.is_contiguous():
         raise ValueError(f"scale must be a contiguous ({len(offsets) - 1},) float32 tensor on {g.device}")
     if g.device.type == "cpu":
-        return quantize_int8_ef_reference(g, residual, offsets, scale=scale)
+        q, scales, new = quantize_int8_ef_reference(g, residual, offsets, scale=scale)
+        return q.to(torch.int32), scales, new
     if g.device.type != "cuda":
         raise ValueError(f"unsupported device {g.device}")
-    q = torch.empty(g.shape, dtype=torch.int8, device=g.device)
+    q = torch.empty(g.shape, dtype=torch.int32, device=g.device)
     scales = torch.empty(len(offsets) - 1, dtype=torch.float32, device=g.device)
     if scales.numel():
-        _launch_shared(g, residual, offsets, scale, q, scales, residual)
+        segments, offs, dtype, plan = _flat_launch_args(g, residual, offsets, q)
+        with torch.cuda.device(g.device):
+            rc = _kernels.library().persia_quantize_int8_shared(
+                g.data_ptr(), dtype, residual.data_ptr(), offs, segments, scale.data_ptr(), q.data_ptr(),
+                scales.data_ptr(), residual.data_ptr(), plan.vec, plan.threads, plan.units, plan.span, plan.grid,
+                _kernels.stream_handle(g))
+        _kernels.check(rc, "quantize_int8_ef_shared")
         quantize_int8_ef_shared.launches += 1
     return q, scales, residual
 

@@ -10,10 +10,11 @@ through one of the reference's algorithms, over ``torch.distributed``:
 - ``GradientAllReduce``: the exact mean (an all-reduce of the f32
   gradients, or of their bf16 rounding with ``dtype="bfloat16"``);
 - ``ByteGradAllReduce``: each leaf quantized to int8 at a scale shared by
-  the ranks (a MAX all-reduce of each leaf's absmax, K15's scales-only mode
-  ``segment_absmax``), coded at it (``quantize_int8_ef_shared``, K15 at a
-  shared scale), summed as int32 and descaled; the rounding error is the
-  error-feedback residual the next step adds back;
+  the ranks (a MAX all-reduce of each leaf's absmax, ``segment_absmax``),
+  coded at it as int32 (``quantize_int8_ef_shared``, K15 at a shared
+  scale; both one flat pass over the vector), summed as int32 and
+  descaled; the rounding error is the error-feedback residual the next
+  step adds back;
 - ``BlockInt8Ring``: a ring all-reduce whose every hop carries block-scaled
   int8 (``block_quantize_int8``, K16; ``block_dequantize_int8``, K17):
   n - 1 hops of reduce-scatter, then an all-gather of each rank's owned
@@ -228,18 +229,21 @@ def allreduce_mean(flat: torch.Tensor, mesh: DataMesh, dtype: str = "float32") -
     return _div(mesh.all_reduce(x).float(), mesh.size)
 
 
-def bytegrad_allreduce(flat: torch.Tensor, residual: torch.Tensor, offsets: List[int], mesh: DataMesh
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+def bytegrad_allreduce(flat: torch.Tensor, residual: torch.Tensor, offsets: List[int], mesh: DataMesh,
+                       lengths: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The int8 mean of ``flat`` over the ranks, a scale a leaf
-    (``offsets``): the leaves' absmax of ``flat + residual`` (K15's scales),
-    their MAX over the ranks, the codes at it (K15 at a shared scale), an
-    int32 sum, ``sum * (scale / 127) / n``. Returns ``(mean, new
-    residual)`` (the residual rewritten in place on a card)."""
+    (``offsets``): the leaves' absmax of ``flat + residual``
+    (``segment_absmax``), their MAX over the ranks, the codes at it as
+    int32 (K15 at a shared scale, the reference's cast to int32 in the
+    same pass), an int32 sum, ``sum * (scale / 127) / n``. ``lengths``:
+    the leaves' lengths (``np.diff(offsets)``) on ``flat``'s device, which
+    the caller makes once. Returns ``(mean, new residual)`` (the residual
+    rewritten in place on a card)."""
     scale = mesh.all_reduce(segment_absmax(flat, residual, offsets), "max")
     q, _scales, new_res = quantize_int8_ef_shared(flat, residual, offsets, scale)
-    summed = mesh.all_reduce(q.to(torch.int32))
-    lengths = torch.tensor(np.diff(offsets), device=flat.device)
-    step = torch.repeat_interleave(scale / torch.full((), 127.0, device=flat.device), lengths)
+    summed = mesh.all_reduce(q)
+    step = torch.repeat_interleave(scale / torch.full((), 127.0, device=flat.device), lengths,
+                                   output_size=offsets[-1])
     return _div(summed.float() * step, mesh.size), new_res
 
 
@@ -482,6 +486,9 @@ def build_sync_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimiz
     leaves = dense_leaves(model)
     offsets = np.concatenate([[0], np.cumsum([p.numel() for _path, p, _tr in leaves])]).tolist()
     n = mesh.size
+    # bytegrad's leaf lengths, made once on the parameters' device
+    lengths = torch.tensor(np.diff(offsets), device=leaves[0][1].device) \
+        if isinstance(algorithm, ByteGradAllReduce) else None
 
     def step(state: TrainState, batch: Dict):
         st = state.sync
@@ -509,7 +516,7 @@ def build_sync_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimiz
                     synced = _div(flat_sum[:flat_g.numel()], n)
                 elif isinstance(algorithm, ByteGradAllReduce):
                     res = st.residual if algorithm.error_feedback else torch.zeros_like(flat_g)
-                    synced, new_res = bytegrad_allreduce(flat_g, res, offsets, mesh)
+                    synced, new_res = bytegrad_allreduce(flat_g, res, offsets, mesh, lengths)
                     if algorithm.error_feedback:
                         st.residual = new_res
                 else:

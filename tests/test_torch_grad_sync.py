@@ -19,8 +19,10 @@ reference's ``persia_tpu/parallel/grad_sync.py`` on the CPU:
 - K15 at a shared scale (``segment_absmax``, ``quantize_int8_ef_shared``):
   the scales ``max(max |g + r|, 1e-30)`` bit for bit, the codes bit for
   bit the reference's ``quantize_int8_ef(g, r, scale=...)`` a leaf at a
-  time, the residual within 4 ulps of |v| (as the int8 wire's test holds
-  it);
+  time, as int32 (the reference's codes cast as its bytegrad casts
+  them), the residual within 4 ulps of |v| (as the int8 wire's test
+  holds it); ``bytegrad_allreduce`` on n ranks of threads bit for bit the
+  path that cast int8 codes and made its lengths each call;
 - the flat vector in the reference's ``ravel_pytree`` order bit for bit;
   ``_flat_chunk``, ``dense_param_count``, ``dense_sync_wire_bytes`` and
   ``sync_mode_algorithm`` equal to the reference's;
@@ -207,6 +209,10 @@ class _ThreadMesh:
                 mesh.barrier.wait()
                 return rows
 
+            def all_reduce(self, t, op="sum"):
+                rows = self.all_gather(t)
+                return t.copy_(rows.sum(0) if op == "sum" else rows.amax(0))
+
         view = _Rank()
         view.rank = rank
         return view
@@ -301,20 +307,87 @@ def test_shared_scale_quantize_matches_reference():
         assert scale[s].item() == want
     shared = scale * 1.5
     q, scales, res = quantize_int8_ef_shared(torch.from_numpy(g), torch.from_numpy(r.copy()), offsets, shared)
+    # the codes as int32 (the sum's dtype): the reference's int8 codes cast
+    # as its bytegrad casts them
+    assert q.dtype == torch.int32
     for s, (a, b) in enumerate(zip(offsets[:-1], offsets[1:])):
         if b == a:
             continue
         jq, js, _, jr = jgs.quantize_int8_ef(jnp.asarray(g[a:b]), jnp.asarray(r[a:b]),
                                             scale=jnp.maximum(jnp.float32(shared[s].item()), 1e-30))
-        np.testing.assert_array_equal(q[a:b].numpy(), np.asarray(jq))
+        np.testing.assert_array_equal(q[a:b].numpy(), np.asarray(jq.astype(jnp.int32)))
         assert scales[s].item() == float(js)
         v = g[a:b] + r[a:b]
         np.testing.assert_array_less(np.abs(res[a:b].numpy() - np.asarray(jr)), 4 * ULP * np.abs(v) + 1e-45)
+    # the plain version's int8 codes widened; scales and residual the same bits
     ref_q, ref_s, ref_r = quantize_int8_ef_reference(torch.from_numpy(g), torch.from_numpy(r.copy()), offsets,
                                                      scale=shared)
-    assert torch.equal(q, ref_q) and torch.equal(scales, ref_s) and torch.equal(res, ref_r)
+    assert torch.equal(q, ref_q.to(torch.int32)) and torch.equal(scales, ref_s) and _bits_equal(res, ref_r)
     with pytest.raises(ValueError, match="scale"):
         quantize_int8_ef_shared(torch.from_numpy(g), torch.from_numpy(r), offsets, shared[:2])
+
+
+def _bytegrad_before(flat, residual, offsets, mesh):
+    """bytegrad_allreduce as it was before its codes came as int32: the
+    int8 codes (the plain version's) cast for the sum, the lengths made
+    each call, no output_size."""
+    scale = mesh.all_reduce(segment_absmax(flat, residual, offsets), "max")
+    q, _scales, new_res = quantize_int8_ef_reference(flat, residual, offsets, scale=scale)
+    summed = mesh.all_reduce(q.to(torch.int32))
+    lengths = torch.tensor(np.diff(offsets))
+    step = torch.repeat_interleave(scale / torch.full((), 127.0), lengths)
+    return tgs._div(summed.float() * step, mesh.size), new_res
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_bytegrad_sums_int32_codes_with_lengths_made_once(monkeypatch, n):
+    """``bytegrad_allreduce`` on n ranks of threads, with the lengths made
+    once (as ``build_sync_train_step`` makes them) and passed to every call
+    (two steps): each rank's mean and new residual bit for bit the path that
+    cast int8 codes to int32 and made the lengths every call; it sums the
+    int32 codes the quantize returns and gives ``repeat_interleave`` its
+    ``output_size``."""
+    offsets = [0, 1, 33, 33, 500, 2000, 2001]
+    rng = np.random.default_rng(7)
+    gs = [(rng.normal(size=offsets[-1]) * 10.0 ** rng.integers(-3, 3, offsets[-1])).astype(np.float32)
+          for _ in range(n)]
+    rs = [(rng.normal(size=offsets[-1]) * 1e-4).astype(np.float32) for _ in range(n)]
+    calls = {"codes": [], "output_size": []}
+    shared, repeat = tgs.quantize_int8_ef_shared, torch.repeat_interleave
+
+    def spy_shared(*args, **kw):
+        out = shared(*args, **kw)
+        calls["codes"].append(out[0].dtype)
+        return out
+
+    def spy_repeat(*args, **kw):
+        calls["output_size"].append(kw.get("output_size"))
+        return repeat(*args, **kw)
+
+    def run(fn, **kw):
+        mesh = _ThreadMesh(n)
+        out = [None] * n
+
+        def rank(i):
+            out[i] = fn(torch.from_numpy(gs[i]), torch.from_numpy(rs[i].copy()), offsets, mesh.rank_view(i), **kw)
+
+        threads = [threading.Thread(target=rank, args=(i,)) for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert all(o is not None for o in out)
+        return out
+
+    want = run(_bytegrad_before)
+    monkeypatch.setattr(tgs, "quantize_int8_ef_shared", spy_shared)
+    monkeypatch.setattr(torch, "repeat_interleave", spy_repeat)
+    lengths = torch.tensor(np.diff(offsets))
+    for _ in range(2):
+        got = run(tgs.bytegrad_allreduce, lengths=lengths)
+        for (mean, res), (mean0, res0) in zip(got, want):
+            assert _bits_equal(mean, mean0) and _bits_equal(res, res0)
+    assert calls["codes"] == [torch.int32] * (2 * n) and calls["output_size"] == [offsets[-1]] * (2 * n)
 
 
 def test_flat_vector_and_geometry_match_reference():

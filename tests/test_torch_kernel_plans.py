@@ -427,6 +427,103 @@ def test_quantize_int8_plan_refuses_what_it_has_no_kernel_for(args):
         plans.quantize_int8_plan(*args)
 
 
+
+# K15's two dense-sync modes, flat (segment_absmax_kernel,
+# quantize_int8_shared_kernel): the bench DLRM tower's 12 leaves in the flat
+# vector's order (flax's sorted paths, each bias before its kernel; 341,073
+# f32) and by layer, 512 segments, empty and 1-element segments,
+# boundaries inside units and on a CTA's span boundary (the tower's plan:
+# 323 units a CTA, 2,584 elements), a vector of fewer elements than a unit
+TOWER_LEAVES = [256, 3328, 64, 16384, 16, 1024, 512, 187904, 256, 131072, 1, 256]
+FLAT_CASES = {
+    "tower": TOWER_LEAVES,
+    "tower_by_layer": [3328, 256, 16384, 64, 1024, 16, 187904, 512, 131072, 256, 256, 1],
+    "segments_512": [(i * 37) % 251 for i in range(512)],
+    "empty": [0, 7, 0, 0, 16 * 4096 + 5, 0],
+    "ones": [1] * 40 + [100_000] + [1] * 9,
+    "inside_units": [3, 5, 13, 2, 9, 4100, 1, 1, 6],
+    "many_in_a_unit": [3] + [0] * 10 + [1] * 3 + [5000],
+    "span_boundary": [2584, 2584 * 3, 1, 2583, 300_000],
+    "short": [2, 0, 3],
+}
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("case", sorted(FLAT_CASES))
+def test_flat_quant_plan_covers_every_element_once(case, aligned):
+    """By the kernels' own index arithmetic (flat_quant_cover): the
+    quantize writes every element exactly once and both kernels read it
+    once; segment_absmax reduces each segment in exactly the CTAs whose
+    spans hold one of its elements, and a CTA in one segment in that one."""
+    lengths = FLAT_CASES[case]
+    offsets = _quant_offsets(lengths)
+    p = plans.flat_quant_plan(offsets[-1], aligned)
+    assert p.vec == (8 if aligned else 1)
+    assert 32 <= p.threads <= plans.FLAT_QUANT_MAX_THREADS and p.threads % 32 == 0
+    assert 1 <= p.units <= plans.QUANT_MAX_UNITS[p.vec] and 1 <= p.span <= p.threads * p.units
+    assert p.tail < p.vec and p.tail <= p.threads
+    hits, touched = plans.flat_quant_cover(offsets, p)
+    assert hits.shape == (offsets[-1],) and (hits == 1).all()
+    assert len(touched) == p.grid
+    for b, segs in enumerate(touched):
+        _u0, _held, e0, e1 = p.span_of(b)
+        want = {s for s, (a, z) in enumerate(zip(offsets[:-1], offsets[1:])) if a < z and a < e1 and e0 < z}
+        assert segs == want
+    for s, (a, z) in enumerate(zip(offsets[:-1], offsets[1:])):
+        ctas = {b for b, segs in enumerate(touched) if s in segs}
+        assert ctas == {b for b in range(p.grid) if a < z and a < p.span_of(b)[3] and p.span_of(b)[2] < z}
+
+
+def test_flat_quant_plan_fills_one_wave_at_the_tower():
+    """The tower's 341,073 elements: 132 CTAs of 192 threads, 323 units a
+    CTA (2 a thread), the one element past the last unit in the last CTA;
+    the scalar plan also 132 CTAs. All but 6 CTAs lie inside one leaf; the
+    93.5 % of the bytes in the two large leaves spread over 124 of the 132
+    SMs."""
+    n = sum(TOWER_LEAVES)
+    p = plans.flat_quant_plan(n)
+    assert (p.vec, p.span, p.threads, p.units, p.grid, p.tail) == (8, 323, 192, 2, 132, 1)
+    q = plans.flat_quant_plan(n, aligned=False)
+    assert (q.vec, q.grid) == (1, 132) and q.span <= q.threads * q.units
+    _, touched = plans.flat_quant_cover(_quant_offsets(TOWER_LEAVES), p)
+    assert sum(len(t) == 1 for t in touched) == 126
+    assert sum(bool(t & {7, 9}) for t in touched) == 124
+    assert (187_904 + 131_072) / n > 0.935
+
+
+def test_flat_quant_plan_by_size():
+    """The plan depends on n and the alignment only; a short vector takes
+    one CTA; past 132 spans of 2,048 units the grid takes more waves; n
+    must fit 32-bit indexing."""
+    assert plans.flat_quant_plan(0) == plans.FlatQuantPlan(0, 8, 64, 32, 2, 1)
+    assert plans.flat_quant_plan(5).grid == 1 and plans.flat_quant_plan(5).tail == 5
+    big = plans.flat_quant_plan(100_000_000)
+    assert (big.span, big.threads, big.units) == (2048, 512, 4) and big.grid == 6104
+    for n in (1, 4095, 4096, 4097, 541_000, 2_162_688, 2_162_689):
+        p = plans.flat_quant_plan(n)
+        assert p.grid == max(1, -(-p.whole // p.span)) and p.span <= p.threads * p.units
+        assert p.grid <= 132 or p.span == plans.FLAT_QUANT_MAX_THREADS * plans.QUANT_MAX_UNITS[8]
+    with pytest.raises(ValueError, match="32 bits"):
+        plans.flat_quant_plan(1 << 31)
+    with pytest.raises(ValueError, match="offsets end"):
+        plans.flat_quant_cover([0, 10], plans.flat_quant_plan(11))
+
+
+def test_flat_quant_plan_constants_match_the_kernel():
+    import re
+    from pathlib import Path
+
+    src = (Path(plans.__file__).resolve().parent.parent / "csrc" / "quantize_int8.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kFlatMaxThreads") == plans.FLAT_QUANT_MAX_THREADS
+    assert const("kMaxQuantSegments") == plans.QUANT_MAX_SEGMENTS
+    assert (const("kMaxUnitsWide"), const("kMaxUnitsScalar")) == (plans.QUANT_MAX_UNITS[8], plans.QUANT_MAX_UNITS[1])
+    assert "__global__ void __launch_bounds__(kFlatMaxThreads, 1)\n    segment_absmax_kernel" in src
+    assert "__global__ void __launch_bounds__(kFlatMaxThreads, 1)\n    quantize_int8_shared_kernel" in src
+
 # the Criteo-1TB fused table: 26 stacked slots of 183,873,726 rows x 16 f32
 # (2,941,979,616 elements), where the rows past 2^27 have element offsets
 # past 2^31 - 1; K4's and K5's plans, argument records, routing and plain

@@ -2508,6 +2508,155 @@ def test_quantize_int8_shared_scale_kernel_matches_plain_bitwise(cuda, dtype):
     assert torch.equal(q, q2) and torch.equal(s, s2) and torch.equal(new, r2)
 
 
+
+# K15's dense-sync modes as flat passes: phase 3h's cases. The bench DLRM
+# tower's leaves in the flat vector's order (each bias before its kernel)
+# and by layer; 512 segments; empty and 1-element segments; boundaries
+# inside a unit (and 13 in one unit, empty segments); boundaries on a CTA's span boundary (the tower's plan
+# spans 2,584 elements at both unit sizes); a leaf of zeros (the floor), a
+# NaN, +-inf
+TOWER_LEAVES = [256, 3328, 64, 16384, 16, 1024, 512, 187904, 256, 131072, 1, 256]
+FLAT_CASES = {
+    "tower": TOWER_LEAVES,
+    "tower_by_layer": [3328, 256, 16384, 64, 1024, 16, 187904, 512, 131072, 256, 256, 1],
+    "segments_512": [(i * 37) % 251 for i in range(512)],
+    "empty_and_ones": [0, 1, 0, 1, 1, 5000, 0, 1, 3],
+    "inside_units": [3, 5, 13, 2, 9, 4100, 1, 1, 6],
+    "many_in_a_unit": [3] + [0] * 10 + [1] * 3 + [5000],
+    "span_boundary": [2584, 7752, 1, 2583, sum(TOWER_LEAVES) - 12920],
+    "specials": [4096, 1000, 1000, 513],
+}
+
+
+def flat_case(case, dev, dtype, off16=False, seed=21):
+    """(g, residual, offsets) of ``FLAT_CASES[case]``: normal g of mixed
+    magnitudes, a residual ~1e-4; "specials": leaf 0 all zeros (g and
+    residual), a NaN in leaf 1, +inf and -inf in leaf 2. ``off16``: g and
+    the residual start one element past a 16-byte boundary."""
+    lengths = FLAT_CASES[case]
+    offsets = np.concatenate([[0], np.cumsum(lengths)]).astype(int).tolist()
+    n = offsets[-1]
+    rng = np.random.default_rng(seed)
+    g = (rng.normal(size=n) * 10.0 ** rng.integers(-3, 2, n)).astype(np.float32)
+    r = (rng.normal(size=n) * 1e-4).astype(np.float32)
+    if case == "specials":
+        g[:4096] = 0
+        r[:4096] = 0
+        g[4096 + 17] = np.nan
+        g[5096 + 3], g[5096 + 900] = np.inf, -np.inf
+    lead = int(off16)
+    gbuf = torch.zeros(n + lead, dtype=dtype, device=dev)
+    rbuf = torch.zeros(n + lead, dtype=torch.float32, device=dev)
+    gbuf[lead:] = torch.from_numpy(g).to(dev, dtype)
+    rbuf[lead:] = torch.from_numpy(r).to(dev)
+    return gbuf[lead:], rbuf[lead:], offsets
+
+
+def _f32_bits_equal(a, b):
+    return a.dtype == b.dtype and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("off16", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(FLAT_CASES))
+def test_flat_dense_sync_modes_match_plain_bitwise(cuda, case, dtype, off16):
+    """``segment_absmax`` and ``quantize_int8_ef_shared``, one launch
+    each, bit for bit their plain versions at every case, f32 and bf16 g,
+    on 16 bytes (8-element units) and off them (the scalar plan); the int32
+    codes the plain version's int8 codes widened; the residual in place."""
+    from persia_tpu_torch.ops import plans
+    from persia_tpu_torch.ops.quantize_int8 import (
+        quantize_int8_ef_reference,
+        quantize_int8_ef_shared,
+        segment_absmax,
+        segment_absmax_reference,
+    )
+
+    g, res, offsets = flat_case(case, cuda, dtype, off16)
+    assert plans.flat_quant_plan(g.numel(), not off16).vec == (1 if off16 else 8)
+    if case == "span_boundary":
+        assert plans.flat_quant_plan(g.numel(), not off16).span * (1 if off16 else 8) == 2584
+    before = segment_absmax.launches
+    scale = segment_absmax(g, res, offsets)
+    assert segment_absmax.launches == before + 1
+    assert _f32_bits_equal(scale, segment_absmax_reference(g, res, offsets))
+    if case == "specials":
+        assert scale[0].item() == np.float32(1e-30) and np.isnan(scale[1].item()) and scale[2].item() == np.inf
+    shared = scale * 1.25
+    plain = res.clone()
+    before = quantize_int8_ef_shared.launches
+    q, s, new = quantize_int8_ef_shared(g, res, offsets, shared)
+    assert quantize_int8_ef_shared.launches == before + 1 and new.data_ptr() == res.data_ptr()
+    q2, s2, r2 = quantize_int8_ef_reference(g, plain, offsets, scale=shared)
+    assert q.dtype == torch.int32 and torch.equal(q, q2.to(torch.int32))
+    assert _f32_bits_equal(s, s2) and _f32_bits_equal(new, r2)
+
+
+def test_segment_absmax_scratch_resets_itself(cuda):
+    """Two calls in a row, a call on another stream (its own scratch), and
+    a call captured in a CUDA graph and replayed 3 times (an eager call of
+    other inputs between replays) give the plain version's scales: the
+    last CTA sets the scratch and its ticket back to zero."""
+    from persia_tpu_torch.ops import quantize_int8
+    from persia_tpu_torch.ops.quantize_int8 import segment_absmax, segment_absmax_reference
+
+    g, res, offsets = flat_case("tower", cuda, torch.float32)
+    g2, res2, _ = flat_case("tower", cuda, torch.float32, seed=22)
+    want, want2 = segment_absmax_reference(g, res, offsets), segment_absmax_reference(g2, res2, offsets)
+    assert torch.equal(segment_absmax(g, res, offsets), want)
+    assert torch.equal(segment_absmax(g2, res2, offsets), want2)
+    assert torch.equal(segment_absmax(g, res, offsets), want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        on_side = segment_absmax(g2, res2, offsets)
+        keys = set(quantize_int8._scratch)
+    torch.cuda.current_stream().wait_stream(side)
+    assert torch.equal(on_side, want2) and len(keys) >= 2
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = segment_absmax(g, res, offsets)
+    before = segment_absmax.launches
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        assert torch.equal(segment_absmax(g2, res2, offsets), want2)
+    assert segment_absmax.launches == before + 3  # the replays pass no wrapper
+
+
+def test_segment_absmax_graphs_replayed_at_once_keep_their_own_scratch(cuda):
+    """Two CUDA graphs, each capturing ``segment_absmax`` of other inputs on
+    ``torch.cuda.graph``'s shared capture stream, replayed at once on two
+    streams (the second first), 10 times: every replay gives the plain
+    version's scales, since each capture makes its own scratch (its key
+    holds the capture's id) and zeroes it in its graph."""
+    from persia_tpu_torch.ops import quantize_int8
+    from persia_tpu_torch.ops.quantize_int8 import segment_absmax, segment_absmax_reference
+
+    inputs = [flat_case("tower", cuda, torch.float32, seed=30 + i) for i in range(2)]
+    wants = [segment_absmax_reference(g, r, offsets) for g, r, offsets in inputs]
+    torch.cuda.synchronize()
+    graphs, outs, keys = [], [], []
+    for g, r, offsets in inputs:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs.append(segment_absmax(g, r, offsets))
+            keys.append([k for k in quantize_int8._scratch if k[2] is not None])
+        graphs.append(graph)
+    assert len(keys[0]) == len(keys[1]) == 1 and keys[0][0][2] != keys[1][0][2]
+    streams = [torch.cuda.Stream() for _ in graphs]
+    for _ in range(10):
+        for out in outs:
+            out.zero_()
+        torch.cuda.synchronize()
+        for graph, stream in zip(graphs[::-1], streams[::-1]):
+            with torch.cuda.stream(stream):
+                graph.replay()
+        torch.cuda.synchronize()
+        for out, want in zip(outs, wants):
+            assert _f32_bits_equal(out, want)
+
 @pytest.mark.parametrize("mode", ["f32", "bf16", "bytegrad", "block-int8-ring", "f32-sharded",
                                   "block-int8-ring-sharded"])
 def test_dense_sync_ctx_on_card_matches_cpu(cuda, mode):
