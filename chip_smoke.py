@@ -398,9 +398,14 @@ with and without the error feedback, K17 ``block_dequantize_int8`` as a
 hop's accumulate and as the all-gather's rows, the fused hop
 ``block_requantize_int8``, each also at ``SYNC_ODD_BLOCKS`` on its other
 plan, K15's two dense-sync modes, flat passes over the vector:
-``segment_absmax`` and the shared-scale quantize with int8 and int32
-codes over the tower's leaves and at ``FLAT_CASES``, f32 and bf16, on and
-off 16 bytes). After "5 (1TB)": phase 4q
+``segment_absmax`` and the shared-scale quantize, its codes int32 (the
+plain version's int8 codes widened), over the tower's leaves and at
+``FLAT_CASES``, f32 and bf16, on and off 16 bytes). Phase 3i holds K18
+``lp_ring_mix`` (LowPrecisionDecentralized's sync mix) bit for bit to its
+plain version at the tower's 12 leaves and at
+``testing.dense_sync.LP_MIX_CASES`` (512 segments, empty and 1-element
+segments, boundaries inside a unit), on and off 16 bytes, with codes of
++-127 and 0, a scale of 1e-30, NaN and +-inf in x. After "5 (1TB)": phase 4q
 runs the cache tier's sharded feeder (``feed_threads=4, feed_shards=8``)
 at 4k saturated's 2^18 rows and batches beside the unsharded walk in
 turns, synchronous and as the stream (samples/s, ``prepare_batch`` ms,
@@ -415,8 +420,19 @@ ranks; a rank's ring step 1 K16, 1 fused hop, 1 K17), then the ring alone
 at ``RING_RANKS`` gloo ranks on the card over the tower's padded vector,
 bit for bit the same ranks on the CPU (5 launches a rank); "5 (dense
 sync)" times K16 (also at a hop's chunk), K17, the fused hop (beside K17
-then K16) and K15's two modes (the quantize with int32 codes, int8
-beside). Phase 4r also times ``bytegrad_allreduce`` on the card a step.
+then K16), K15's two modes (the quantize's codes int32, as bytegrad sums
+them), and K18 and K15 at LowPrecisionDecentralized's 12 leaves. Phase 4r
+also times ``bytegrad_allreduce`` on the card a step. Phase 4s (after
+4r) runs ``build_sync_train_step`` with Decentralized(1), LocalSGD(2),
+LowPrecisionDecentralized(1) and QAdam(warmup 1) at bench width, 3 steps
+each: at world size 1 over NCCL, counted (LP 1 K15 and 1 K18 a step, QAdam
+1 ``segment_absmax`` and 1 shared quantize a step after its warmup) and
+held to the CPU port; at two gloo ranks on the card held to two CPU ranks
+(LP's ``shadow_left`` bit for bit the neighbour's ``shadow_self``); LP's
+sync alone at ``RING_RANKS`` gloo ranks, bit for bit as many CPU ranks;
+and ``TrainCtx.train_step_prepared`` at two gloo ranks ("f32",
+"block-int8-ring", a reproducible staleness-1 loader) beside
+``train_step``.
 ``--ab ROOT OUT.npz k16`` runs another tree's K16 and K17 (and fused hop)
 at those shapes; ``--ab ROOT OUT.npz k15s`` its two K15 modes.
 
@@ -739,7 +755,7 @@ KERNEL_NAMES = ("fa_fwd_wgmma_kernel", "fa_fwd_tf32x3_kernel", "tf32_split_kerne
                 "cache_aux_kernel", "entry_rows_kernel", "quantize_int8_ef_kernel", "segment_absmax_kernel",
                 "quantize_int8_shared_kernel",
                 "block_int8_quantize_warp_kernel", "block_int8_quantize_kernel", "block_int8_dequantize_vec_kernel",
-                "block_int8_dequantize_kernel")
+                "block_int8_dequantize_kernel", "lp_ring_mix_kernel")
 # the dense ring's kernels (K16 and the fused hop on the warp and the block
 # plan, K17 on the vector and the scalar plan)
 SYNC_KERNEL_NAMES = ("block_int8_quantize_warp_kernel", "block_int8_quantize_kernel",
@@ -763,6 +779,9 @@ K15_WIDE = "quantize_int8_ef_kernel<bf16,8>"
 FLAT_KERNEL_NAMES = ("segment_absmax_kernel", "quantize_int8_shared_kernel")
 FLAT_WIDE = {"segment_absmax_kernel<f32,8>": ("LDG.128",),
              "quantize_int8_shared_kernel<f32,8>": ("LDG.128", "STG.128")}
+# K18 at LowPrecisionDecentralized's template (4-element units: a float4 of
+# x and each shadow, read and written)
+LP_WIDE = "lp_ring_mix_kernel<4>"
 # K5's kernels, and the routing's: on the dim-16 f32 path none may spill
 K5_KERNELS = ("sparse_update_segments_kernel", "sparse_update_long_kernel", "sparse_update_short_kernel")
 K5_DIM16 = ("sparse_update_segments_kernel", "sparse_update_long_kernel<f32,4>",
@@ -925,6 +944,14 @@ def phase_build():
                 wide[k]["STG.64"] and wide[k]["SHFL"] for k in SYNC_WIDE[:2]):
             raise SystemExit(f"K16, the fused hop or K17 lacks its 16-byte loads and stores, 8-byte code stores or "
                              f"shuffles on the ring's path: {wide}")
+        lp = {k: {"registers": v.get("registers"), "spill_bytes": v.get("spill_bytes"),
+                  **{op: v.get("sass", {}).get(op, 0) for op in ("LDG.128", "STG.128")}}
+              for k, v in summary.items() if k.startswith("lp_ring_mix_kernel<")}
+        print(f"  K18 by unit (registers, spill bytes, 16-byte accesses): {json.dumps(lp)}", flush=True)
+        if len(lp) != 2 or any(v["spill_bytes"] is None or v["spill_bytes"] for v in lp.values()) or not (
+                lp.get(LP_WIDE, {}).get("LDG.128") and lp.get(LP_WIDE, {}).get("STG.128")):
+            raise SystemExit(f"K18 spills, or was not reported or lacks its 16-byte loads and stores at {LP_WIDE}: "
+                             f"{lp}")
         k5 = {k: summary.get(k, {}).get("spill_bytes") for k in K5_DIM16}
         print(f"  K5 and the routing on the dim-16 path, spill bytes: {k5}", flush=True)
         if any(v is None or v for v in k5.values()):
@@ -7972,6 +7999,32 @@ TWO_RANK_DEVICE = "cuda:0"  # both ranks on the one card
 # flat gradient on RING_RANKS gloo ranks on the one card, held to the same
 # ranks on the CPU; a rank launches 1 K16, RING_RANKS - 1 fused hops, 1 K17
 RING_RANKS = 4
+# phase 4s: the divergent-replica algorithms on build_sync_train_step at
+# SYNC_SPEC, 3 steps each (QAdam's warmup one step, so that steps 2-3 run
+# the int8 momentum), at world size 1 over NCCL and at two gloo ranks on
+# the one card; a rank's sync kernels a step (after QAdam's warmup)
+LP_SOURCE = "persia_tpu_torch/csrc/lp_ring.cu"
+LP_REPLACES = "persia_tpu/parallel/grad_sync.py:445"
+DIVERGENT_CASES = {
+    "decentralized": ("decentralized", {"period": 1}, {}),
+    "local_sgd": ("local_sgd", {"period": 2}, {}),
+    "lp": ("lp", {"period": 1}, {"quantize_int8_ef": 1, "lp_ring_mix": 1}),
+    "qadam": ("qadam", {"lr": 1e-3, "warmup_steps": 1}, {"segment_absmax": 1, "quantize_int8_ef_shared": 1}),
+}
+DIVERGENT_KERNELS = ("quantize_int8_ef", "lp_ring_mix", "segment_absmax", "quantize_int8_ef_shared")
+# QAdam after its warmup, card vs CPU: v froze at the warmup step's squared
+# gradient, and an update is lr * (m / bc1) / (sqrt(v / bc2) + eps). An int8
+# code of m that flips at a rounding midpoint between the two (their
+# gradients differ by ulps) moves m by a code step of its leaf (its scale /
+# 127), which an element with a small frozen v scales up (v = 0: by lr /
+# eps; 3.7 on one element at bench width, on the card). So each element is
+# held to SYNC_PARAM_ATOL plus QADAM_FLIPS code steps' worth of movement a
+# step after the warmup, lr / bc1 * (max |m| of its leaf / 127) /
+# (sqrt(v / bc2) + eps) each (the leaf's max |m| stands for its scale,
+# which it equals at one rank and may be under at two); every element
+# after the warmup step at SYNC_PARAM_ATOL, the losses at SYNC_LOSS_RTOL.
+QADAM_FLIPS = 4
+PREPARED_MODES = ("f32", "block-int8-ring")
 # card vs CPU: losses 1e-3 relative; parameters 6e-3 (Adam's steps are
 # +-lr whatever a gradient's size, so an int8 code or a bf16 rounding a
 # last bit moves flips a near-zero gradient and moves its parameter by
@@ -8581,7 +8634,7 @@ def ring_ranks_leg(dev):
     agree = all(np.array_equal(c[0], card[0][0]) for c in card)
     per_rank_launches = [c[2] for c in card]
     want = {"block_quantize_int8": 1, "block_requantize_int8": n - 1, "block_dequantize_int8": 1,
-            "segment_absmax": 0, "quantize_int8_ef_shared": 0}
+            "segment_absmax": 0, "quantize_int8_ef_shared": 0, "quantize_int8_ef": 0, "lp_ring_mix": 0}
     print(f"  each rank's sum and ef the CPU ranks' bits: {same}; every rank's sum the same: {agree}; launches a "
           f"rank {per_rank_launches} (expected {want}); {seconds:.1f} s (card and CPU side by side, process start "
           f"included)", flush=True)
@@ -8590,6 +8643,310 @@ def ring_ranks_leg(dev):
     totals = {k: sum(la[k] for la in per_rank_launches) for k in want}
     return totals, {"ranks": n, "elements_a_rank": int(p_pad), "bits_equal_cpu": same, "sums_agree": agree,
                     "launches_a_rank": per_rank_launches, "seconds": seconds}
+
+
+def phase_lp_kernels(dev):
+    """Phase 3i: K18 (``lp_ring_mix``) against its plain version on the
+    card, bit for bit (x and the three shadows, rewritten in place; one
+    launch a call): at the bench tower's 12 leaves and at
+    ``testing.dense_sync.LP_MIX_CASES`` (512 segments, empty and 1-element
+    segments, boundaries inside a 4-element unit), each on 16 bytes and off
+    them (the scalar plan), with and without NaN and infinities in x; every
+    case has codes of -127, 127 and 0 and a scale of 1e-30."""
+    import torch
+
+    from persia_tpu_torch.ops import plans
+    from persia_tpu_torch.ops.lp_ring import lp_ring_mix, lp_ring_mix_reference
+    from persia_tpu_torch.testing import dense_sync as tds
+
+    print("== phase 3i: K18 (lp_ring_mix, LowPrecisionDecentralized's sync mix) vs its plain version", flush=True)
+    bad = []
+    cases = {"tower": sync_leaf_sizes(), **tds.LP_MIX_CASES}
+    for case, lengths in cases.items():
+        results = []
+        for off16 in (False, True):
+            for specials in (False, True):
+                args, offsets = tds.lp_mix_inputs(lengths, dev, SEED + 110, off16, specials)
+                want = lp_ring_mix_reference(*args, offsets)
+                ins = []
+                for i, a in enumerate(args):  # the rewritten four keep the inputs' alignment
+                    if i < 4:
+                        buf = torch.empty(a.numel() + off16, dtype=a.dtype, device=dev)[int(off16):]
+                        buf.copy_(a)
+                        a = buf
+                    ins.append(a)
+                plan = plans.lp_ring_mix_plan(offsets[-1], not off16)
+                n0 = lp_ring_mix.launches
+                out = lp_ring_mix(*ins, offsets)
+                ok = lp_ring_mix.launches == n0 + 1 and plan.vec == (1 if off16 else 4) and all(
+                    o is i and bits_equal(o.view(torch.int32), w.view(torch.int32))
+                    for o, i, w in zip(out, ins, want))
+                results.append((f"{'off 16 B' if off16 else 'on 16 B'}{', NaN/inf' if specials else ''} (vec "
+                                f"{plan.vec}, grid {plan.grid})", ok))
+        print(f"  {case} ({len(lengths)} segments, {sum(lengths)} elements): "
+              + "; ".join(f"{k} {'ok' if v else 'FAIL'}" for k, v in results), flush=True)
+        bad += [f"{case} {k}" for k, v in results if not v]
+    if bad:
+        raise SystemExit(f"K18 disagrees with its plain version: {bad}")
+    return {"lp_ring_mix": 0.0}
+
+
+def divergent_cases():
+    return [dict(algorithm=name, kwargs=kw, steps=SYNC_STEPS, seed=SEED + 120) for name, kw, _k in
+            DIVERGENT_CASES.values()]
+
+
+def qadam_flip_step(cpu) -> np.ndarray:
+    """Per element, how far one flipped code of m moves a QAdam parameter
+    in one update after the warmup (``QADAM_FLIPS``), from the CPU run's m
+    and frozen v."""
+    algo = DIVERGENT_CASES["qadam"][1]
+    lr, eps, b1, b2, warm = algo["lr"], 1e-8, 0.9, 0.999, algo["warmup_steps"]  # QAdam's defaults beside lr
+    m, v = np.abs(cpu["algo_state"]["m"]), cpu["algo_state"]["v"]
+    sizes = sync_leaf_sizes()
+    code_step = np.repeat([leaf.max() / 127.0 if leaf.size else 0.0 for leaf in np.split(m, np.cumsum(sizes)[:-1])],
+                          sizes)
+    return lr / (1.0 - b1 ** (warm + 1)) * code_step / (np.sqrt(v / (1.0 - b2 ** warm)) + eps)
+
+
+def divergent_agree(key, card, cpu) -> tuple:
+    """(loss relative error, the parameters' largest error, the largest
+    error over its tolerance, ok) of a card run against the CPU port's:
+    the losses within ``SYNC_LOSS_RTOL``, the parameters after every step
+    within ``SYNC_PARAM_ATOL`` (QAdam's after its warmup also within
+    ``QADAM_FLIPS`` code flips a step, ``qadam_flip_step``)."""
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(card["losses"], cpu["losses"]))
+    param_err, over = 0.0, 0.0
+    for s, (a, b) in enumerate(zip(card["params"], cpu["params"])):
+        err = np.abs(a - b)
+        tol = np.full(err.shape, SYNC_PARAM_ATOL)
+        warm = DIVERGENT_CASES[key][1].get("warmup_steps", 0) if key == "qadam" else None
+        if warm is not None and s >= warm:
+            tol = tol + QADAM_FLIPS * (s + 1 - warm) * qadam_flip_step(cpu)
+        param_err, over = max(param_err, float(err.max())), max(over, float((err / tol).max()))
+    ok = (loss_err <= SYNC_LOSS_RTOL and over <= 1.0 and np.isfinite(card["losses"]).all()
+          and np.isfinite(card["params"][-1]).all())
+    return loss_err, param_err, over, ok
+
+
+def divergent_launches_ok(key, per_step) -> bool:
+    """A rank's sync kernels each step: ``DIVERGENT_CASES``'s (QAdam none
+    in its warmup step)."""
+    want = DIVERGENT_CASES[key][2]
+    for s, la in enumerate(per_step):
+        got = {k: la[k] for k in DIVERGENT_KERNELS if la.get(k)}
+        if got != ({} if key == "qadam" and s == 0 else want):
+            return False
+    return True
+
+
+def path_divergent_sync(dev):
+    """Phase 4s: ``grad_sync.build_sync_train_step`` with Decentralized(1),
+    LocalSGD(2), LowPrecisionDecentralized(1) and QAdam(warmup 1) at bench
+    width (``SYNC_SPEC``: B=4096, the tower's P = 341,073 in 12 leaves; 25
+    host-pooled slots and a raw one, ``testing.dense_sync.host_batches``),
+    ``SYNC_STEPS`` steps each, from ``replicate_for_local`` and
+    ``init_sync_opt_state``: at world size 1 over NCCL (counted: LP 1 K15
+    and 1 K18 a step, QAdam 1 ``segment_absmax`` and 1 shared quantize a
+    step after its warmup, none in it, the others none), held to the CPU
+    port (``divergent_agree``); at two gloo ranks on the one card, each
+    rank held to two CPU ranks, LP's ``shadow_left`` on each rank bit for
+    bit its neighbour's ``shadow_self``; LP's sync alone at ``RING_RANKS``
+    gloo ranks on the card over the tower's flat vector, bit for bit as
+    many CPU ranks (``lp_ranks_leg``); ``TrainCtx.train_step_prepared`` at
+    two gloo ranks (``prepared_leg``)."""
+    import torch
+    import torch.distributed as dist
+
+    from persia_tpu_torch import ops
+    from persia_tpu_torch.distributed import initialize_process_group
+    from persia_tpu_torch.parallel.mesh import data_parallel_mesh
+    from persia_tpu_torch.testing import dense_sync as tds
+
+    keys = list(DIVERGENT_CASES)
+    print(f"== phase 4s: the divergent-replica algorithms {keys} on build_sync_train_step at bench width "
+          f"(B={BATCH}, {SYNC_STEPS} steps), world size 1 over NCCL", flush=True)
+    cases = divergent_cases()
+    initialize_process_group(backend="nccl", init_method=f"tcp://localhost:{tds.free_port()}", world_size=1, rank=0)
+    try:
+        mesh = data_parallel_mesh()
+        if (mesh.size, mesh.backend) != (1, "nccl"):
+            raise SystemExit(f"divergent sync: a mesh of {mesh.size} ranks over {mesh.backend}")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        card = {k: tds.divergent_case(mesh, c, SYNC_SPEC, dev) for k, c in zip(keys, cases)}
+        torch.cuda.synchronize()
+        launches = launches_now()
+    finally:
+        dist.destroy_process_group()
+    n_lp = SYNC_STEPS
+    expect_path_launches("divergent sync (world size 1)", launches,
+                         exact={"quantize_int8_ef": n_lp, "lp_ring_mix": n_lp, "segment_absmax": SYNC_STEPS - 1,
+                                "quantize_int8_ef_shared": SYNC_STEPS - 1, "block_quantize_int8": 0,
+                                "block_dequantize_int8": 0, "block_requantize_int8": 0},
+                         at_least=("dot_interaction", "dot_interaction_bwd", "raw_gather_fwd", "raw_gather_bwd"))
+    t = time.perf_counter()
+    cpu = {k: tds.divergent_case(data_parallel_mesh(), c, SYNC_SPEC, torch.device("cpu"))
+           for k, c in zip(keys, cases)}
+    cpu_s = time.perf_counter() - t
+    record = {"params": int(card["lp"]["params"][-1].size), "algorithms": {}, "cpu_seconds": cpu_s}
+    bad = []
+    for k in keys:
+        a, b = card[k], cpu[k]
+        loss_err, param_err, over, ok = divergent_agree(k, a, b)
+        launches_ok = divergent_launches_ok(k, a["launches"])
+        per_step = [{n: la[n] for n in DIVERGENT_KERNELS if la[n]} for la in a["launches"]]
+        record["algorithms"][k] = {"kwargs": DIVERGENT_CASES[k][1], "losses": a["losses"], "cpu_losses": b["losses"],
+                                   "loss_rel_err_vs_cpu": loss_err, "param_max_abs_err_vs_cpu": param_err,
+                                   "param_err_over_tolerance": over,
+                                   "sync_launches_per_step": per_step}
+        print(f"  {k} {DIVERGENT_CASES[k][1]}: losses {[round(x, 6) for x in a['losses']]} (CPU "
+              f"{[round(x, 6) for x in b['losses']]}, rel err {loss_err:.2e}), params max abs err vs CPU "
+              f"{param_err:.2e} ({over:.2f} of its tolerance); sync launches a step {per_step} (expected {DIVERGENT_CASES[k][2]})", flush=True)
+        if not ok or not launches_ok:
+            bad.append(k)
+    print(f"  (CPU port {cpu_s:.1f} s)", flush=True)
+    if bad:
+        raise SystemExit(f"divergent sync: card and CPU disagree, or the launches differ, in {bad}")
+    two_launches, record["two_rank"] = divergent_two_ranks(keys, cases)
+    lp_launches, record["lp_ranks"] = lp_ranks_leg()
+    prepared_launches, record["prepared"] = prepared_leg()
+    return ({"divergent_sync": launches, "divergent_sync_two_ranks": two_launches, "lp_sync_ranks": lp_launches,
+             "prepared_two_ranks": prepared_launches}, record)
+
+
+def divergent_two_ranks(keys, cases):
+    """Phase 4s's two-rank leg: ``testing.dense_sync.divergent_rank`` on two
+    gloo ranks on the one card beside two CPU ranks (each leg its own
+    processes): each rank held to its CPU rank (``divergent_agree``), its
+    sync launches a step, LP's shadows' neighbour invariant bit for bit on
+    the card. Returns (every rank's sync launches, record)."""
+    from persia_tpu_torch.testing import dense_sync as tds
+
+    print("  two ranks on the one card over gloo, beside two CPU ranks", flush=True)
+    t = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        cpu_future = pool.submit(tds.run_function, 2, tds.divergent_rank, cases, SYNC_SPEC, "cpu", timeout=420)
+        card = tds.run_function(2, tds.divergent_rank, cases, SYNC_SPEC, TWO_RANK_DEVICE, device=TWO_RANK_DEVICE,
+                                timeout=420)
+        cpu = cpu_future.result()
+    seconds = time.perf_counter() - t
+    record = {"seconds": seconds, "algorithms": {}}
+    totals = dict.fromkeys(DIVERGENT_KERNELS, 0)
+    for i, k in enumerate(keys):
+        rows = []
+        ok = True
+        for r in range(2):
+            loss_err, param_err, over, agree = divergent_agree(k, card[r][i], cpu[r][i])
+            ok &= agree and divergent_launches_ok(k, card[r][i]["launches"])
+            rows.append((loss_err, param_err, over))
+            for la in card[r][i]["launches"]:
+                for n in DIVERGENT_KERNELS:
+                    totals[n] += la[n]
+        invariant = None
+        if k == "lp":
+            st = [card[r][i]["algo_state"] for r in range(2)]
+            invariant = all(np.array_equal(st[r]["shadow_left"].view(np.int32),
+                                           st[1 - r]["shadow_self"].view(np.int32)) for r in range(2))
+            ok &= invariant
+        same = np.array_equal(card[0][i]["params"][-1], card[1][i]["params"][-1])
+        record["algorithms"][k] = {"losses": card[0][i]["losses"], "errors_vs_cpu_by_rank": rows,
+                                   "ranks_same_params": same, "shadow_left_is_neighbours_self": invariant}
+        print(f"  {k} at 2 ranks: losses {[round(x, 6) for x in card[0][i]['losses']]}; (loss rel err, param max abs "
+              f"err, share of its tolerance) vs the CPU rank by rank "
+              f"{[(f'{a:.2e}', f'{b:.2e}', f'{c:.2f}') for a, b, c in rows]}; the ranks' parameters "
+              f"the same bits: {same}" + (f"; shadow_left = the neighbour's shadow_self, bitwise: {invariant}"
+                                          if invariant is not None else ""), flush=True)
+        if not ok:
+            raise SystemExit(f"divergent sync at two ranks on the card: {k} failed")
+    print(f"  two ranks: card and CPU side by side {seconds:.1f} s (process start included)", flush=True)
+    return totals, record
+
+
+def lp_ranks_leg():
+    """Phase 4s's LP-only leg: ``testing.dense_sync.lp_sync_rank`` (one
+    ``lp_ring_sync``) over the tower's flat vector and 12 leaves on
+    ``RING_RANKS`` gloo ranks on the one card, beside as many CPU ranks:
+    each rank's new x, shadows and residual the same bits, every rank's
+    ``shadow_left`` its left neighbour's ``shadow_self``, a rank's launches
+    1 K15 and 1 K18. Returns (the launches of all ranks, record)."""
+    from persia_tpu_torch.testing import dense_sync as tds
+
+    n = RING_RANKS
+    sizes = sync_leaf_sizes()
+    p = sum(sizes)
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(int).tolist()
+    rng = np.random.default_rng(SEED + 121)
+    x = (rng.normal(size=(n, p)) * 5e-2).astype(np.float32)
+    ss = (x + rng.normal(size=(n, p)) * 1e-3).astype(np.float32)
+    shadows = {"shadow_self": ss, "shadow_left": np.roll(ss, 1, axis=0), "shadow_right": np.roll(ss, -1, axis=0),
+               "residual": (rng.normal(size=(n, p)) * 1e-6).astype(np.float32)}
+    print(f"  LP's sync alone at {n} ranks on the one card over gloo ({p} elements, {len(sizes)} leaves), beside {n} "
+          f"CPU ranks", flush=True)
+    t = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        cpu_future = pool.submit(tds.run_function, n, tds.lp_sync_rank, x, shadows, offsets, "cpu", timeout=300)
+        card = tds.run_function(n, tds.lp_sync_rank, x, shadows, offsets, TWO_RANK_DEVICE, device=TWO_RANK_DEVICE,
+                                timeout=300)
+        cpu = cpu_future.result()
+    seconds = time.perf_counter() - t
+    bits = lambda a: a.view(np.int32)  # noqa: E731
+    same = [np.array_equal(bits(c[0]), bits(w[0])) and all(np.array_equal(bits(c[1][k]), bits(w[1][k])) for k in c[1])
+            for c, w in zip(card, cpu)]
+    invariant = all(np.array_equal(bits(card[r][1]["shadow_left"]), bits(card[(r - 1) % n][1]["shadow_self"]))
+                    for r in range(n))
+    per_rank = [{k: c[2][k] for k in DIVERGENT_KERNELS} for c in card]
+    want = {"quantize_int8_ef": 1, "lp_ring_mix": 1, "segment_absmax": 0, "quantize_int8_ef_shared": 0}
+    print(f"  each rank's x, shadows and residual the CPU ranks' bits: {same}; shadow_left = the left neighbour's "
+          f"shadow_self: {invariant}; launches a rank {per_rank} (expected {want}); {seconds:.1f} s (card and CPU side "
+          f"by side, process start included)", flush=True)
+    if not all(same) or not invariant or any(la != want for la in per_rank):
+        raise SystemExit(f"LP's sync at {n} ranks on the card: failed")
+    totals = {k: sum(la[k] for la in per_rank) for k in want}
+    return totals, {"ranks": n, "elements": p, "bits_equal_cpu": same, "neighbour_invariant": invariant,
+                    "launches_a_rank": per_rank, "seconds": seconds}
+
+
+def prepared_leg():
+    """Phase 4s's pipelined leg: ``TrainCtx.train_step_prepared`` at two gloo
+    ranks on the one card for ``PREPARED_MODES`` (rank 0 over a
+    ``DataLoader(reproducible=True, staleness=1)``, rank 1 with None), 3
+    steps at ``SYNC_SPEC`` on native stores, beside the synchronous
+    ``train_step`` at the same ranks on the same batches: losses within
+    ``SYNC_LOSS_RTOL`` (printed: bitwise or not), both ranks' parameters
+    the same bits. Returns (the ring kernels' launches, record)."""
+    from persia_tpu_torch.testing import dense_sync as tds
+
+    cases = []
+    for m in PREPARED_MODES:
+        cases += [dict(mode=m, steps=SYNC_STEPS, seed=SEED + 122, loader=True),
+                  dict(mode=m, steps=SYNC_STEPS, seed=SEED + 122)]
+    print(f"  train_step_prepared at two gloo ranks on the one card, {list(PREPARED_MODES)}, beside train_step",
+          flush=True)
+    t = time.perf_counter()
+    res = tds.run_ranks(2, cases, spec=SYNC_SPEC, device=TWO_RANK_DEVICE, backend="gloo", timeout=420)
+    seconds = time.perf_counter() - t
+    record = {"seconds": seconds, "modes": {}}
+    totals = dict.fromkeys(SYNC_KERNELS, 0)
+    for j, m in enumerate(PREPARED_MODES):
+        prep, sync = [res[r][2 * j] for r in range(2)], [res[r][2 * j + 1] for r in range(2)]
+        loss_err = max(abs(x - y) / abs(y) for x, y in zip(prep[0]["losses"], sync[0]["losses"]))
+        bitwise = all(a["losses"] == b["losses"] and np.array_equal(a["params"], b["params"])
+                      for a, b in zip(prep, sync))
+        same = np.array_equal(prep[0]["params"], prep[1]["params"])
+        for r in prep:
+            for la in r["launches"]:
+                for k in SYNC_KERNELS:
+                    totals[k] += la[k]
+        record["modes"][m] = {"losses": prep[0]["losses"], "sync_losses": sync[0]["losses"],
+                              "loss_rel_err_vs_sync": loss_err, "bitwise_sync": bitwise, "ranks_same_params": same}
+        print(f"  {m}: prepared losses {[round(x, 6) for x in prep[0]['losses']]}, train_step's "
+              f"{[round(x, 6) for x in sync[0]['losses']]} (rel err {loss_err:.2e}; bit for bit: {bitwise}); both "
+              f"ranks' parameters the same bits: {same}", flush=True)
+        if loss_err > SYNC_LOSS_RTOL or not same or len(prep[0]["losses"]) != SYNC_STEPS:
+            raise SystemExit(f"train_step_prepared at two ranks on the card: {m} failed")
+    print(f"  prepared leg {seconds:.1f} s (process start included)", flush=True)
+    return totals, record
 
 
 def time_sync_kernels(dev, launches, errs, inputs, floor):
@@ -8604,7 +8961,8 @@ def time_sync_kernels(dev, launches, errs, inputs, floor):
     leaves: ``segment_absmax`` beside ``torch._foreach_norm(ord=inf)`` over
     the 12 pre-summed leaves (``foreach_norm_inf_*``, a yardstick of the
     reduction alone, not the same function), the shared-scale quantize
-    (int32 codes, bytegrad's). ``launches``: each kernel's launches in phase 4r's counted runs."""
+    (int32 codes, bytegrad's). ``launches``: each kernel's launches in phases 4r's and 4s's counted
+    runs."""
     import torch
 
     from persia_tpu_torch.ops.block_int8 import (
@@ -8743,6 +9101,75 @@ def time_sync_kernels(dev, launches, errs, inputs, floor):
     return rows
 
 
+def time_lp_kernels(dev, launches, errs, floor):
+    """Phase 5's rows of LowPrecisionDecentralized's sync at the bench
+    tower's 12 leaves (P = 341,073): K18 (``lp_ring_mix``) and K15
+    (``quantize_int8_ef``, a scale a leaf, the f32 change and its residual:
+    ``quantize_int8_ef[lp ring]``), graph-replayed warm and cold (whole
+    copies rotated through more than the L2), beside the plain version (for
+    K18 its composed PyTorch calls, no single call computing it) and the
+    bound: K18 35 bytes an element (x and three shadows read and written,
+    three codes read), K15 13 (the change and the residual read, the codes
+    and the residual written). ``launches``: phase 4s's counted runs."""
+    import torch
+
+    from persia_tpu_torch.ops.lp_ring import lp_ring_mix, lp_ring_mix_reference
+    from persia_tpu_torch.ops.quantize_int8 import quantize_int8_ef, quantize_int8_ef_reference
+    from persia_tpu_torch.testing import dense_sync as tds
+
+    sizes = sync_leaf_sizes()
+    args, offsets = tds.lp_mix_inputs(sizes, dev, SEED + 130)
+    p, segs = offsets[-1], len(sizes)
+    x, ss = args[0], args[1]
+    delta = x - ss
+    res = (torch.randn(p, generator=torch.Generator().manual_seed(SEED + 131)) * 1e-6).to(dev)
+    mix_in = [a.clone() for a in args]
+
+    def mix_copy():
+        return tuple(a.clone() for a in args[:7])
+
+    cases = {
+        "lp_ring_mix": dict(
+            kernel=lambda: lp_ring_mix(*mix_in, offsets),
+            plain=lambda: lp_ring_mix_reference(*args, offsets),
+            cold=(lambda *t: lp_ring_mix(*t, *args[7:], offsets), mix_copy, p * 35),
+            bytes=p * 35 + segs * 12, ops=12 * p, source=LP_SOURCE, replaces=LP_REPLACES,
+            shape=[segs, p, "the tower's leaves: x and three shadows, three codes"]),
+        "quantize_int8_ef[lp ring]": dict(
+            kernel=lambda: quantize_int8_ef(delta, res, offsets),
+            plain=lambda: quantize_int8_ef_reference(delta, res, offsets),
+            cold=(lambda g, r: quantize_int8_ef(g, r, offsets), lambda: (delta.clone(), res.clone()), p * 8),
+            bytes=p * 13 + segs * 4, ops=6 * p, source=K15_SOURCE, replaces=K15_REPLACES,
+            shape=[segs, p, "the tower's leaves, f32: LowPrecisionDecentralized's change"]),
+    }
+    rows = []
+    for name, c in cases.items():
+        base = name.split("[")[0]
+        bms, by = bound(c["bytes"], c["ops"], "float32")
+        p0, k0, k1, p1 = timings(c["plain"]), timings(c["kernel"]), timings(c["kernel"]), timings(c["plain"])
+        cold = [cold_ms(*c["cold"])["ms"] for _ in range(2)]
+        by_path = {path: la[base] for path, la in launches.items() if la.get(base)}
+        r = dict(name=name, route="cuda", cuda_route="cuda", source=c["source"], replaces=c["replaces"],
+                 launches=sum(by_path.values()), launches_by_path=by_path, max_abs_err=errs[base],
+                 shape=c["shape"], ms=min(k0["graph"], k1["graph"]), ms_runs=[k0["graph"], k1["graph"]],
+                 eager_ms=min(k0["eager"], k1["eager"]), plain_ms=min(p0["graph"], p1["graph"]),
+                 plain_eager_ms=min(p0["eager"], p1["eager"]), bound_ms=bms, bound_by=by, library_ms=None,
+                 composite_ms=min(p0["graph"], p1["graph"]), cold_ms=min(cold), cold_ms_runs=cold,
+                 note="no single PyTorch call computes it; the plain version's composed calls: composite_ms")
+        if name == "lp_ring_mix":
+            r["also_replaces"] = ["persia_tpu/parallel/grad_sync.py:446", "persia_tpu/parallel/grad_sync.py:451",
+                                  "persia_tpu/parallel/grad_sync.py:452", "persia_tpu/parallel/grad_sync.py:453"]
+        r["over_launch_floor"] = r["ms"] / min(floor)
+        r["ms_over_floor"] = r["ms"] - min(floor)
+        r["cold_ms_over_floor"] = r["cold_ms"] - min(floor)
+        r["cold_share"] = bms / r["cold_ms"]
+        print(f"  {name} ({c['shape']}): warm {r['ms_runs']} ms, cold {cold} ms, bound {bms:.5f} ({by}; "
+              f"{r['cold_share']:.1%} cold, {bms / r['ms']:.1%} warm), {r['over_launch_floor']:.2f}x the launch "
+              f"floor; plain {r['plain_ms']:.4f} ms; launches {by_path}", flush=True)
+        rows.append(r)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -8777,7 +9204,8 @@ def main() -> int:
     phase("3b (1TB)", phase_fused_1tb_kernels, dev)
     errs.update({**phase("3c", phase_din_kernels, dev), **phase("3d", phase_bn_kernels, dev),
                  **phase("3e", phase_cache_kernels, dev), **phase("3f", phase_quant_kernels, dev),
-                 **phase("3g", phase_precision_kernels, dev), **phase("3h", phase_sync_kernels, dev)})
+                 **phase("3g", phase_precision_kernels, dev), **phase("3h", phase_sync_kernels, dev),
+                 **phase("3i", phase_lp_kernels, dev)})
     fa_routes = phase("4a", path_flash_attention, dev)
     serving_launches, serving, feats_shape = phase("4b", path_serving, dev)
     training_launches, training, train_batch = phase("4c", path_training, dev)
@@ -8824,10 +9252,13 @@ def main() -> int:
     print(f"  a profiler session after phases 4l-4n records device work: {profiler_after}", flush=True)
     feeder_launches, feeder = phase("4q", path_sharded_feeder, dev)
     sync_launches, dense_sync, sync_inputs_ = phase("4r", path_dense_sync, dev)
-    rows += phase("5 (dense sync)", time_sync_kernels, dev, sync_launches, errs, sync_inputs_, floor)
+    divergent_launches, divergent = phase("4s", path_divergent_sync, dev)
+    rows += phase("5 (dense sync)", lambda: time_sync_kernels(dev, {**sync_launches, **divergent_launches}, errs,
+                                                              sync_inputs_, floor)
+                  + time_lp_kernels(dev, divergent_launches, errs, floor))
     del sync_inputs_
     new_paths = {**fused_models_launches, **prec_launches, **criteo_launches, **h100t_launches, **quality_launches,
-                 **feeder_launches, **sync_launches}
+                 **feeder_launches, **sync_launches, **divergent_launches}
     launches.update(new_paths)
     # the launches the new paths' counted runs made of each kernel
     for r in rows:
@@ -8854,6 +9285,7 @@ def main() -> int:
     print(json.dumps({"quality": quality, "card": card}), flush=True)
     print(json.dumps({"sharded_feeder": feeder, "card": card}), flush=True)
     print(json.dumps({"dense_sync": dense_sync, "card": card}), flush=True)
+    print(json.dumps({"divergent_sync": divergent, "card": card}), flush=True)
     print(json.dumps({"phase_seconds": seconds, "profiler_records_device_work": {
         "before_phase_5": profiler_before, "after_4o_4p": profiler_mid, "after_4l_4n": profiler_after},
         "card": card}), flush=True)

@@ -9,9 +9,11 @@ looked up and staged; ``InferCtx`` runs the lookup-direct forward.
 Data parallelism: ``TrainCtx(mesh=data_parallel_mesh(), dense_sync=mode)``
 trains the dense half synchronously over the mesh's ranks (one process a
 device, ``parallel.mesh``), every rank calling ``train_step`` with the same
-global batch. Rank 0 holds the worker: it looks the batch up, hands every
-rank the staged embeddings (each rank takes its rows), and applies the
-global batch's embedding gradients, which the step gathers, once. The
+global batch, or ``train_step_prepared`` (rank 0 with its ``DataLoader``'s
+batch, the others with None). Rank 0 holds the worker: it looks the batch
+up, hands every rank the staged embeddings (each rank takes its rows), and
+applies the global batch's embedding gradients, which the step gathers,
+once. The
 dense gradients meet through ``mode`` (``parallel.grad_sync``); at one
 rank nothing moves.
 
@@ -163,6 +165,12 @@ def _to_device(arrays: Sequence, device: torch.device, non_blocking: bool = Fals
     return [t if as_dtype is None else t.view(as_dtype) for t, (_, as_dtype) in zip(out, host)]
 
 
+def _host_features(batch: PersiaBatch) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+    """A batch's dense features and labels as host f32 arrays."""
+    return ([f.data.astype(np.float32) for f in batch.non_id_type_features],
+            [l.data.astype(np.float32) for l in batch.labels])
+
+
 def staged_tensors(device_batch: Dict) -> List[torch.Tensor]:
     """Every tensor of a device batch."""
     out = list(device_batch["dense"]) + list(device_batch["labels"])
@@ -203,8 +211,7 @@ class EmbeddingCtx:
         it, the caller ordering the batch's use after it (``DataLoader``
         records an event)."""
         entries, counts = stage_embeddings(emb_batches, dtype=self.wire_dtype, csr=csr)
-        dense = [f.data.astype(np.float32) for f in batch.non_id_type_features]
-        labels = [l.data.astype(np.float32) for l in batch.labels]
+        dense, labels = _host_features(batch)
         keys = [list(e) for e in entries]
         flat = _to_device(dense + labels + [e[k] for e, ks in zip(entries, keys) for k in ks],
                           self.device, non_blocking)
@@ -526,18 +533,24 @@ class TrainCtx(EmbeddingCtx):
         self._global_step += 1
         return metrics
 
-    def _prepare_rank_share(self, batch: PersiaBatch, emb_batches):
+    def _prepare_rank_share(self, batch: Optional[PersiaBatch], emb_batches, lead_features: bool = False):
         """This rank's share of the global batch on the device: rank 0
         stages the looked-up embeddings and hands them to every rank; each
         takes its rows ``mesh.rows(B)`` of the dense features, the labels
         and the per-sample embedding inputs (the distinct rows whole) and
-        builds the backward kernels' CSRs over its rows. Returns (device
-        batch, true distinct counts, the global batch's layout: the shapes
-        the step's outputs unpack by)."""
-        staged = stage_embeddings(emb_batches, dtype=self.wire_dtype) if self._lead else None
-        entries, counts = self.mesh.broadcast_object(staged)
-        dense = [f.data.astype(np.float32) for f in batch.non_id_type_features]
-        labels = [l.data.astype(np.float32) for l in batch.labels]
+        builds the backward kernels' CSRs over its rows. The dense features
+        and labels are each rank's own ``batch``'s, or with
+        ``lead_features`` rank 0's, handed on with the embeddings (the other
+        ranks pass None). Returns (device batch, true distinct counts, the
+        global batch's layout: the shapes the step's outputs unpack by)."""
+        staged = None
+        if self._lead:
+            staged = stage_embeddings(emb_batches, dtype=self.wire_dtype)
+            if lead_features:
+                staged += (_host_features(batch),)
+        staged = self.mesh.broadcast_object(staged)
+        entries, counts = staged[:2]
+        dense, labels = staged[2] if lead_features else _host_features(batch)
         a, b = self.mesh.rows(labels[0].shape[0])
 
         def rows(x):
@@ -603,39 +616,53 @@ class TrainCtx(EmbeddingCtx):
         loader's ``BackwardEngine`` (bounded staleness). The device step of
         batch N overlaps the lookup of batch N+k.
 
+        Over a mesh of more than one rank every rank calls it: rank 0 with
+        its loader's batch and the loader, the others with None for both.
+        Rank 0 hands every rank its rows of the host arrays the loader staged
+        from (the loader's device batch is rank 0's whole batch, which the
+        step does not read), and alone returns the gradients through the
+        loader; the metrics are the global batch's on every rank.
+
         ``fetch_metrics=False`` (static loss scale only: the dynamic scale
         is read every step) skips the per-step header copy and returns
         None; ``last_prepared_metrics`` reads the last one after the loop."""
-        if self.mesh is not None and self.mesh.size > 1:
-            raise NotImplementedError("the pipelined step over a mesh of more than one rank is not part of the port")
-        device_batch = training_batch.device_batch
+        meshed = self.mesh is not None and self.mesh.size > 1
         defer = not fetch_metrics and not self.dynamic_loss_scale
         if not defer:
             self._deferred_header = None  # this step's metrics are fresher
         try:
-            if training_batch.ready is not None:
-                # the staging stream's copies first; their memory is in use
-                # on this stream until the step's work here is done
-                stream = torch.cuda.current_stream(self.device)
-                stream.wait_event(training_batch.ready)
-                for t in staged_tensors(device_batch):
-                    t.record_stream(stream)
+            if meshed:
+                lead = self._lead
+                device_batch, _counts, layout = self._prepare_rank_share(
+                    training_batch.batch if lead else None, training_batch.emb_batches if lead else None,
+                    lead_features=True)
+            else:
+                device_batch = layout = training_batch.device_batch
+                if training_batch.ready is not None:
+                    # the staging stream's copies first; their memory is in
+                    # use on this stream until the step's work here is done
+                    stream = torch.cuda.current_stream(self.device)
+                    stream.wait_event(training_batch.ready)
+                    for t in staged_tensors(device_batch):
+                        t.record_stream(stream)
             header, gpacked = self.run_step(device_batch)
-            fetch = self._grads_to_host_async(gpacked)
+            fetch = self._grads_to_host_async(gpacked) if self._lead else None
             if defer:
                 # keep the label shape, not the batch: holding the batch
                 # would pin its device tensors until the deferred fetch
-                self._deferred_header = (header, tuple(device_batch["labels"][0].shape))
+                self._deferred_header = (header, tuple(layout["labels"][0].shape))
                 metrics = None
             else:
-                metrics = self._metrics(header, device_batch)
+                metrics = self._metrics(header, layout)
         except Exception:
-            loader.mark_consumed(training_batch)
+            if self._lead:
+                loader.mark_consumed(training_batch)
             raise
-        # as in train_step: the worker divides by the dynamic loss scale
-        # composed with the static grad_scale
-        scale = (metrics or {}).get("loss_scale", 1.0) * self.grad_scale
-        loader.backward_packed(training_batch, fetch, scale_factor=scale, journal_id=self._journal_id())
+        if self._lead:
+            # as in train_step: the worker divides by the dynamic loss scale
+            # composed with the static grad_scale
+            scale = (metrics or {}).get("loss_scale", 1.0) * self.grad_scale
+            loader.backward_packed(training_batch, fetch, scale_factor=scale, journal_id=self._journal_id())
         self._global_step += 1
         return metrics
 

@@ -22,7 +22,8 @@ wire of the cache tier's parameter-server gradients, with its shared-scale
 modes ``segment_absmax`` and ``quantize_int8_ef_shared`` (the dense
 bytegrad all-reduce), nor the dense ring's ``block_quantize_int8`` (K16),
 ``block_dequantize_int8`` (K17) and their fold at a ring hop,
-``block_requantize_int8``."""
+``block_requantize_int8``, nor ``lp_ring_mix`` (K18), the mix of
+LowPrecisionDecentralized's ring sync."""
 
 from persia_tpu_torch.ops.attention_pool import (  # noqa: F401
     attention_pool,
@@ -46,6 +47,7 @@ from persia_tpu_torch.ops.embedding_pool import (  # noqa: F401
 )
 from persia_tpu_torch.ops.flash_attention import flash_attention, tf32_split_planes  # noqa: F401
 from persia_tpu_torch.ops.fused_gather import fused_gather  # noqa: F401
+from persia_tpu_torch.ops.lp_ring import lp_ring_mix  # noqa: F401
 from persia_tpu_torch.ops.quantize_int8 import (  # noqa: F401
     quantize_int8_ef,
     quantize_int8_ef_shared,
@@ -59,7 +61,7 @@ KERNEL_WRAPPERS = (
     flash_attention, tf32_split_planes, fused_gather, update_keys, sparse_update,
     raw_gather_fwd, raw_gather_bwd, attention_pool_fwd, attention_pool_bwd, batch_norm_fwd, batch_norm_bwd,
     cache_aux, gather_entry_rows, cached_gather, quantize_int8_ef, segment_absmax, quantize_int8_ef_shared,
-    block_quantize_int8, block_dequantize_int8, block_requantize_int8,
+    block_quantize_int8, block_dequantize_int8, block_requantize_int8, lp_ring_mix,
 )
 
 

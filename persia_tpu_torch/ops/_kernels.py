@@ -184,6 +184,8 @@ def library() -> ctypes.CDLL:
             lib.persia_block_requantize_int8.argtypes = [vp, vp, vp, vp, i32, i32, vp, vp, vp, vp, i32, i32, i32, vp]
             lib.persia_block_int8_dequantize.restype = i32
             lib.persia_block_int8_dequantize.argtypes = [vp, vp, i32, ll, i32, i32, vp, vp, vp, i32, i32, i32, vp]
+            lib.persia_lp_ring_mix.restype = i32
+            lib.persia_lp_ring_mix.argtypes = [vp] * 10 + [ctypes.POINTER(i32), i32, i32, i32, vp]
             _lib = lib
         return _lib
 

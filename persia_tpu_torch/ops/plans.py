@@ -1074,3 +1074,36 @@ def block_dequant_plan(block_size: int, elements: int) -> BlockInt8Plan:
         return BlockInt8Plan(vec=1, grid=grid, threads=32 * warps)
     grid = max(1, min(BLOCK_DEQUANT_MAX_GRID, -(-elements // BLOCK_DEQUANT_THREADS)))
     return BlockInt8Plan(vec=0, grid=grid, threads=BLOCK_DEQUANT_THREADS)
+
+
+# LowPrecisionDecentralized's sync mix, K18 (csrc/lp_ring.cu): a thread a
+# unit of 4 elements (vec 4: every f32 tensor on 16 bytes, every code
+# tensor on 4) or of one, grid-stride over the units, each block holding
+# the offsets and the scales / 127 in shared memory
+LP_MIX_MAX_SEGMENTS = QUANT_MAX_SEGMENTS  # kMaxMixSegments: K15's, whose codes it takes
+LP_MIX_THREADS = 256  # kMixThreads
+LP_MIX_MAX_GRID = H100_SMS * 8  # 8 blocks of 256 an SM: one wave
+
+
+@dataclass(frozen=True)
+class LpMixPlan:
+    n: int
+    vec: int  # elements a unit: 4 or 1
+    grid: int
+
+    @property
+    def units(self) -> int:
+        return self.n // self.vec
+
+
+def lp_ring_mix_plan(n: int, aligned: bool = True) -> LpMixPlan:
+    """K18's geometry over ``n`` elements: a unit of 4 where ``aligned``
+    (the f32 tensors on 16 bytes, the codes on 4), else of 1; a thread a
+    unit, the fewest blocks of ``LP_MIX_THREADS`` that give every unit a
+    thread, at most ``LP_MIX_MAX_GRID`` (one wave; the rest by the
+    grid-stride loop). By the shape and the alignment alone."""
+    if not 0 <= n < INT32_ELEMENTS:
+        raise ValueError(f"K18 indexes n = {n} elements in 32 bits")
+    vec = 4 if aligned else 1
+    grid = max(1, min(LP_MIX_MAX_GRID, -(-(n // vec) // LP_MIX_THREADS)))
+    return LpMixPlan(n=n, vec=vec, grid=grid)

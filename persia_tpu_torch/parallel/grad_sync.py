@@ -50,8 +50,27 @@ cotangents / n, gathered over the ranks; distinct-row cotangents summed
 over the ranks, then / n) and the header ``[mean loss | every rank's
 predictions]``.
 
-``Decentralized``, ``LocalSGD``, ``QAdam`` and ``LowPrecisionDecentralized``
-(divergent per-replica parameters) are not part of the port yet.
+The replicas that hold their own parameters (``Decentralized``,
+``LocalSGD``, ``LowPrecisionDecentralized``) update with their own
+gradients (the reference's per-replica leading axis is each rank's model
+and optimizer here; ``replicate_for_local`` starts every rank from rank
+0's, ``collapse_local`` gives their mean), then every ``period`` steps
+sync the flat parameters: with one ring neighbour (``Decentralized``,
+``ring_neighbor_average``: ring-left on an even sync ordinal, ring-right
+on an odd one, one parameter-sized message), over every rank (``LocalSGD``,
+the mean), or with both neighbours over an int8 wire
+(``LowPrecisionDecentralized``, ``lp_ring_sync``: the change since the last
+sync coded by K15 ``quantize_int8_ef`` a leaf a scale, the codes and
+scales sent both ways, and K18 ``lp_ring_mix`` advancing the three
+reconstruction shadows and averaging, in one pass). ``QAdam`` is the
+optimizer (``optimizer`` may be None): the exact mean of the gradients
+and Adam's m and v during its warmup, then m of the local gradients
+through ``bytegrad_allreduce`` (K15's two dense-sync modes) with v frozen.
+Their state (QAdam's m, v and residual; LP's shadows and residual) is
+``SyncState.algo_state``, made by ``init_sync_opt_state``; it is in no
+manifest, as in the reference. A rank's launches a sync step: LP 1 K15
+and 1 K18; QAdam 1 ``segment_absmax`` and 1 shared quantize after its
+warmup, none within it; ``Decentralized`` and ``LocalSGD`` none.
 
 The cache tier's parameter-server slots take the int8 error-feedback
 quantization of their gradients (``quantize_int8_ef``, K15, a scale a
@@ -68,6 +87,7 @@ import numpy as np
 import torch
 
 from persia_tpu_torch.ops.block_int8 import block_dequantize_int8, block_quantize_int8, block_requantize_int8
+from persia_tpu_torch.ops.lp_ring import lp_ring_mix
 from persia_tpu_torch.ops.quantize_int8 import (  # noqa: F401
     quantize_int8_ef,
     quantize_int8_ef_reference,
@@ -119,6 +139,59 @@ class BlockInt8Ring:
     def __post_init__(self):
         if self.block_size < 1:
             raise ValueError(f"block_size must be >= 1 (got {self.block_size})")
+
+
+@dataclass(frozen=True)
+class Decentralized:
+    """No gradient collective: each rank updates with its own gradients,
+    and every ``period`` steps averages its parameters with one ring
+    neighbour, ring-left and ring-right in turn by the sync's ordinal."""
+
+    period: int = 1
+
+
+@dataclass(frozen=True)
+class LocalSGD:
+    """Local updates, the parameters' mean over the ranks every ``period``
+    steps."""
+
+    period: int = 4
+
+
+@dataclass(frozen=True)
+class QAdam:
+    """Quantized-momentum Adam, which is the optimizer: during the warmup
+    (``step <= warmup_steps``) the exact mean of the gradients and Adam's m
+    and v; after it v freezes and m of the local gradients goes through the
+    int8 bytegrad all-reduce, its rounding error fed back."""
+
+    lr: float = 1e-3
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    warmup_steps: int = 100
+
+    def __post_init__(self):
+        # v freezes at the warmup's end and its bias correction with it:
+        # with no warmup step both are 0, and the first update 0 / 0
+        if self.warmup_steps < 1:
+            raise ValueError(f"QAdam requires warmup_steps >= 1 (got {self.warmup_steps}): v freezes at warmup end, "
+                             "so at least one warmup step must populate it")
+
+
+@dataclass(frozen=True)
+class LowPrecisionDecentralized:
+    """Every ``period`` steps each rank sends its parameters' change since
+    the last sync as int8 (a scale a leaf, error fed back) to both ring
+    neighbours, advances its shadows of itself and of them by the
+    dequantized changes, and takes ``(x + shadow_left + shadow_right) /
+    3``."""
+
+    period: int = 1
+
+
+#: the algorithms whose ranks hold parameters of their own
+LOCAL_ALGORITHMS = (Decentralized, LocalSGD, LowPrecisionDecentralized)
 
 
 DENSE_SYNC_MODES = (
@@ -313,6 +386,75 @@ def _block_ring_allreduce_flat(flat_g: torch.Tensor, ef: torch.Tensor, algorithm
     return flat_sum, err.reshape(-1) if algorithm.error_feedback else torch.zeros_like(acc)
 
 
+def ring_neighbor_average(flat: torch.Tensor, sync_idx: int, mesh: DataMesh) -> torch.Tensor:
+    """``(flat + the neighbour's flat) * 0.5``: the ring-left neighbour's
+    (the reference's ``ppermute`` over ``(i, i + 1)``) on an even sync
+    ordinal ``sync_idx``, the ring-right one's on an odd one; one
+    parameter-sized message a sync."""
+    (peer,) = mesh.ring_exchange([flat], 1 if sync_idx % 2 == 0 else -1)
+    return (flat + peer) * 0.5
+
+
+def lp_ring_sync(x: torch.Tensor, shadows: Dict[str, torch.Tensor], offsets: List[int], mesh: DataMesh
+                 ) -> torch.Tensor:
+    """One LowPrecisionDecentralized sync of the flat parameters ``x``
+    (rewritten in place and returned), ``shadows`` the algorithm's state
+    (``init_lp_decentralized_state``; updated in place), ``offsets`` the
+    leaves: the change ``x - shadow_self`` coded by K15 with the residual,
+    a scale a leaf; its int8 codes and f32 scales sent to both ring
+    neighbours and theirs received (at one rank a rank's own are both, as
+    a ``ppermute`` to itself gives them); K18 advances the three shadows by
+    the dequantized codes and takes ``(x + shadow_left + shadow_right) /
+    3``."""
+    ss = shadows["shadow_self"]
+    q, scales, shadows["residual"] = quantize_int8_ef(x - ss, shadows["residual"], offsets)
+    ql, s_l = mesh.ring_exchange([q, scales], 1)  # the ring-left neighbour's
+    qr, s_r = mesh.ring_exchange([q, scales], -1)  # the ring-right neighbour's
+    lp_ring_mix(x, ss, shadows["shadow_left"], shadows["shadow_right"], q, ql, qr, scales, s_l, s_r, offsets)
+    return x
+
+
+def init_qadam_state(model: torch.nn.Module, device=None) -> Dict[str, torch.Tensor]:
+    """QAdam's state over the flat parameters: ``m`` and ``v`` (the same on
+    every rank) and ``residual`` (this rank's), zeros."""
+    count = dense_param_count(model)
+    return {k: torch.zeros(count, dtype=torch.float32, device=device) for k in ("m", "v", "residual")}
+
+
+def init_lp_decentralized_state(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """LowPrecisionDecentralized's state over the flat parameters: the three
+    shadows, each a copy of them (every rank starts from the same ones,
+    ``replicate_for_local``), and a zero residual."""
+    x = ravel(dense_leaves(model), lambda p: p.detach())
+    return {"shadow_self": x.clone(), "shadow_left": x.clone(), "shadow_right": x.clone(),
+            "residual": torch.zeros_like(x)}
+
+
+def _qadam_update(algorithm: QAdam, state: Dict[str, torch.Tensor], flat_p: torch.Tensor, flat_g: torch.Tensor,
+                  step_no: int, offsets: List[int], lengths: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """QAdam's step ``step_no`` (from 1): m and v in ``state`` updated (the
+    residual too after the warmup); returns the new flat parameters ``p -
+    lr * (m / bc1) / (sqrt(v / bc2) + eps)``, with ``bc1 = 1 - b1^t`` and
+    ``bc2`` frozen at the warmup's end, both in f32."""
+    b1, b2 = algorithm.beta1, algorithm.beta2
+    m, v = state["m"], state["v"]
+    if step_no <= algorithm.warmup_steps:
+        g = allreduce_mean(flat_g, mesh)
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+    else:
+        m, state["residual"] = bytegrad_allreduce(b1 * m + (1 - b1) * flat_g, state["residual"], offsets, mesh,
+                                                  lengths)
+    state["m"], state["v"] = m, v
+    f32 = np.float32
+    t = f32(step_no)
+    bc1 = f32(1.0) - np.power(f32(b1), t)
+    bc2 = f32(1.0) - np.power(f32(b2), min(t, f32(algorithm.warmup_steps)))
+    dev = flat_p.device
+    bc1, bc2 = (torch.tensor(b, dtype=torch.float32, device=dev) for b in (bc1, bc2))
+    return flat_p - algorithm.lr * (m / bc1) / (torch.sqrt(v / bc2) + algorithm.eps)
+
+
 # ----------------------------------------------------------- the sync state
 
 
@@ -321,8 +463,12 @@ class SyncState:
     """The dense sync's per-rank state (the reference's ``{"opt", "ef"}``
     wrapper): ``ef`` the ring's error feedback (this rank's (Ppad,) row);
     for the sharded update ``shard`` (this rank's (chunk,) parameter
-    shard) and ``shard_opt`` (Adam over it: row ``rank`` of the moments).
-    ``count`` the elements P, ``chunk``/``p_pad`` the ring's geometry."""
+    shard) and ``shard_opt`` (Adam over it: row ``rank`` of the moments);
+    ``algo_state`` the reference's third step argument, over the flat
+    parameters (QAdam's ``m``, ``v``, ``residual``; LowPrecisionDecentralized's
+    ``shadow_self``, ``shadow_left``, ``shadow_right``, ``residual``: this
+    rank's rows). ``count`` the elements P, ``chunk``/``p_pad`` the ring's
+    geometry."""
 
     mesh: DataMesh
     algorithm: object
@@ -334,6 +480,7 @@ class SyncState:
     shard: Optional[torch.Tensor] = None
     shard_opt: Optional[torch.optim.Optimizer] = None
     residual: Optional[torch.Tensor] = field(default=None, repr=False)
+    algo_state: Optional[Dict[str, torch.Tensor]] = field(default=None, repr=False)
 
     @property
     def ring(self) -> bool:
@@ -398,9 +545,12 @@ class SyncState:
 
 def init_sync_opt_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer, mesh: DataMesh, algorithm,
                         sharded_update: bool = False, device=None) -> SyncState:
-    """The sync state of a fresh run: a zero ``ef`` for the ring, and for
-    the sharded update this rank's chunk of the flat parameters with an
-    Adam of ``optimizer``'s hyperparameters over it (zero moments)."""
+    """The sync state of a fresh run: a zero ``ef`` for the ring; for the
+    sharded update this rank's chunk of the flat parameters with an Adam of
+    ``optimizer``'s hyperparameters over it (zero moments); QAdam's and
+    LowPrecisionDecentralized's ``algo_state`` (``init_qadam_state``,
+    ``init_lp_decentralized_state``: call ``replicate_for_local`` first,
+    so that every rank's shadows start from rank 0's parameters)."""
     n = mesh.size
     count = dense_param_count(model)
     bs = algorithm.block_size if isinstance(algorithm, BlockInt8Ring) else 1
@@ -415,6 +565,10 @@ def init_sync_opt_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer
         st.shard = torch.zeros(chunk, dtype=torch.float32, device=device, requires_grad=True)
         hp = {k: v for k, v in optimizer.defaults.items() if k in ("lr", "betas", "eps", "weight_decay")}
         st.shard_opt = torch.optim.Adam([st.shard], **hp)
+    if isinstance(algorithm, QAdam):
+        st.algo_state = init_qadam_state(model, device)
+    elif isinstance(algorithm, LowPrecisionDecentralized):
+        st.algo_state = init_lp_decentralized_state(model)
     return st
 
 
@@ -466,15 +620,69 @@ def _sharded_flat_update(st: SyncState, flat_p: torch.Tensor, flat_g: torch.Tens
     return rows.reshape(-1)[:p_total]
 
 
+# ----------------------------------------------------------- state helpers
+
+
+def _host_state(obj):
+    """``obj`` (a state dict, nested) with its tensors copied to the host."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _host_state(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_state(v) for v in obj)
+    return obj
+
+
+def replicate_for_local(model: torch.nn.Module, optimizer: Optional[torch.optim.Optimizer], mesh: DataMesh) -> None:
+    """Start every rank from rank 0's parameters, batch statistics and
+    optimizer state, in place (the reference broadcasts one state to its
+    per-replica copies). At one rank nothing moves."""
+    if mesh.size == 1:
+        return
+    mine = (_host_state(model.state_dict()), _host_state(optimizer.state_dict()) if optimizer is not None else None)
+    sd, opt_sd = mesh.broadcast_object(mine if mesh.rank == 0 else None)
+    model.load_state_dict(sd)
+    if optimizer is not None:
+        optimizer.load_state_dict(opt_sd)
+
+
+def _tree_mean(rows: List):
+    """The reference's ``collapse_local`` leaf by leaf over nested dicts of
+    numpy arrays: integer and bool leaves rank 0's, others
+    ``astype(float32).mean(axis=0)`` in their dtype."""
+    if isinstance(rows[0], dict):
+        return {k: _tree_mean([r[k] for r in rows]) for k in rows[0]}
+    arr = np.stack([np.asarray(r) for r in rows])
+    if np.issubdtype(arr.dtype, np.integer) or arr.dtype == np.bool_:
+        return arr[0]
+    return arr.astype(np.float32).mean(axis=0).astype(arr.dtype)
+
+
+def collapse_local(state: TrainState, mesh: DataMesh) -> Dict:
+    """The ranks' mean of a run whose ranks hold their own parameters (the
+    deployable model): ``{"params", "batch_stats", "opt_state"}`` as
+    flax's trees (``weights``), every rank's gathered and averaged as the
+    reference's ``collapse_local`` averages its leading axis, and ``step``.
+    A collective: every rank calls it."""
+    from persia_tpu_torch.weights import _dense_tree
+
+    rows = mesh.all_gather_object(_dense_tree(state))
+    return {**_tree_mean(rows), "step": state.step}
+
+
 # ------------------------------------------------------------ the step
 
 
-def build_sync_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, mesh: DataMesh, algorithm,
-                          loss_fn: Callable = default_loss_fn, sharded_update: bool = False):
+def build_sync_train_step(model: torch.nn.Module, optimizer: Optional[torch.optim.Optimizer], mesh: DataMesh,
+                          algorithm, loss_fn: Callable = default_loss_fn, sharded_update: bool = False):
     """Returns ``step(state, batch) -> (header, gpacked)`` over this rank's
     share of the batch (``batch``, as ``build_train_step`` takes it), which
     updates ``state`` in place (``state.sync`` the ``SyncState``; the
-    bytegrad residual ``state.sync.residual``).
+    bytegrad residual ``state.sync.residual``, QAdam's and
+    LowPrecisionDecentralized's state ``state.sync.algo_state``).
+    ``optimizer`` updates the parameters (None for ``QAdam``, which is its
+    own).
 
     ``header`` is ``[mean loss over the ranks | every rank's predictions, in
     rank order]``; ``gpacked`` the embedding inputs' gradients of the
@@ -483,12 +691,32 @@ def build_sync_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimiz
     if sharded_update and not isinstance(algorithm, (GradientAllReduce, BlockInt8Ring)):
         raise ValueError("sharded_update composes with GradientAllReduce or BlockInt8Ring only "
                          f"(got {type(algorithm).__name__})")
+    local = isinstance(algorithm, LOCAL_ALGORITHMS)
+    qadam = isinstance(algorithm, QAdam)
+    if optimizer is None and not qadam:
+        raise ValueError(f"{type(algorithm).__name__} updates through the optimizer: pass one")
     leaves = dense_leaves(model)
     offsets = np.concatenate([[0], np.cumsum([p.numel() for _path, p, _tr in leaves])]).tolist()
     n = mesh.size
-    # bytegrad's leaf lengths, made once on the parameters' device
+    # bytegrad's (and QAdam's) leaf lengths, made once on the parameters' device
     lengths = torch.tensor(np.diff(offsets), device=leaves[0][1].device) \
-        if isinstance(algorithm, ByteGradAllReduce) else None
+        if isinstance(algorithm, (ByteGradAllReduce, QAdam)) else None
+
+    def local_sync(st: SyncState, step_no: int) -> None:
+        """The parameters' sync of the algorithms whose ranks hold their
+        own, every ``period`` steps."""
+        if step_no % algorithm.period:
+            return
+        flat = ravel(leaves, lambda p: p.detach())
+        if isinstance(algorithm, Decentralized):
+            # the direction alternates by the sync's ordinal, not the raw
+            # step: with an even period a step's parity would pick one side
+            flat = ring_neighbor_average(flat, step_no // algorithm.period, mesh)
+        elif isinstance(algorithm, LocalSGD):
+            flat = _div(mesh.all_reduce(flat), n)
+        else:
+            lp_ring_sync(flat, st.algo_state, offsets, mesh)
+        unravel_into(flat, leaves, lambda p: p)
 
     def step(state: TrainState, batch: Dict):
         st = state.sync
@@ -497,19 +725,26 @@ def build_sync_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimiz
         emb_leaves = [d.detach().requires_grad_(True) for d in emb_diff]
         logits = model(batch["dense"], _embedding_model_inputs(emb_leaves, emb_static))
         loss = loss_fn(logits, batch["labels"][0])
-        optimizer.zero_grad(set_to_none=True)
+        model.zero_grad(set_to_none=True)
         loss.backward()
         emb_grads = [l.grad if l.grad is not None else torch.zeros_like(l) for l in emb_leaves]
+        step_no = state.step + 1
         with torch.no_grad():
             for _path, p, _tr in leaves:  # a parameter the loss does not reach syncs a zero gradient
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            flat_g = ravel(leaves, lambda p: p.grad)
+            # the local algorithms' gradients drive each rank's update as they are
+            flat_g = None if local else ravel(leaves, lambda p: p.grad)
             if sharded_update:
                 flat_p = _sharded_flat_update(st, ravel(leaves, lambda p: p), flat_g)
                 unravel_into(flat_p, leaves, lambda p: p)
-                optimizer.zero_grad(set_to_none=True)
-            else:
+                model.zero_grad(set_to_none=True)
+            elif qadam:
+                flat_p = _qadam_update(algorithm, st.algo_state, ravel(leaves, lambda p: p), flat_g, step_no, offsets,
+                                       lengths, mesh)
+                unravel_into(flat_p, leaves, lambda p: p)
+                model.zero_grad(set_to_none=True)
+            elif not local:
                 if isinstance(algorithm, BlockInt8Ring):
                     flat_sum, new_ef = _block_ring_allreduce_flat(flat_g, st.ef, algorithm, mesh)
                     st.ef.copy_(new_ef)
@@ -522,9 +757,12 @@ def build_sync_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimiz
                 else:
                     synced = allreduce_mean(flat_g, mesh, algorithm.dtype)
                 unravel_into(synced, leaves, lambda p: p.grad)
-        if not sharded_update:
+        if not (sharded_update or qadam):
             optimizer.step()
-        state.step += 1
+        if local:
+            with torch.no_grad():
+                local_sync(st, step_no)
+        state.step = step_no
         with torch.no_grad():
             synced_emb = []
             for g, static in zip(emb_grads, emb_static):

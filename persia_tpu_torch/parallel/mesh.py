@@ -8,7 +8,8 @@ global batch, the rows ``[r·B/n, (r+1)·B/n)``, as ``P("data")`` splits
 them. At one rank nothing moves: a single process needs no process group.
 
 The collectives the dense sync needs (``all_reduce``, ``all_gather``,
-``ring_exchange``, ``broadcast_object``) run on the group's backend; where
+``ring_exchange`` either way round the ring, ``broadcast_object``,
+``all_gather_object``) run on the group's backend; where
 that is gloo and the tensor lies on a card, the payload travels through
 pinned host memory (gloo's collectives take CPU tensors).
 """
@@ -93,18 +94,23 @@ class DataMesh:
         full = self.all_reduce(t.clone())
         return full[self.rank * chunk:(self.rank + 1) * chunk].clone()
 
-    def ring_exchange(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Send ``tensors`` to ring-right (rank + 1) and receive the same
-        shapes from ring-left (rank - 1): one hop of a ring."""
-        right, left = (self.rank + 1) % self.size, (self.rank - 1) % self.size
+    def ring_exchange(self, tensors: List[torch.Tensor], towards: int = 1) -> List[torch.Tensor]:
+        """Send ``tensors`` to rank + ``towards`` and receive the same
+        shapes from rank - ``towards``: one hop of a ring (``towards`` 1,
+        ring-right, the reference's ``ppermute`` over ``(i, i + 1)``; -1,
+        ring-left, over ``(i, i - 1)``). At one rank a rank receives its own
+        tensors, as a ``ppermute`` to itself gives them."""
+        if self.size == 1:
+            return list(tensors)
+        dst, src = (self.rank + towards) % self.size, (self.rank - towards) % self.size
         sends, recvs, staged = [], [], []
         for t in tensors:
             x, st = self._staged(t.contiguous())
             sends.append(x)
             recvs.append(torch.empty_like(x))
             staged.append(st)
-        ops = [dist.P2POp(dist.isend, x, self._peer(right), group=self.group) for x in sends]
-        ops += [dist.P2POp(dist.irecv, r, self._peer(left), group=self.group) for r in recvs]
+        ops = [dist.P2POp(dist.isend, x, self._peer(dst), group=self.group) for x in sends]
+        ops += [dist.P2POp(dist.irecv, r, self._peer(src), group=self.group) for r in recvs]
         for w in dist.batch_isend_irecv(ops):
             w.wait()
         return [r.to(t.device) if st else r for r, t, st in zip(recvs, tensors, staged)]
@@ -122,6 +128,14 @@ class DataMesh:
                                    device=torch.device("cuda", torch.cuda.current_device())
                                    if self.backend == "nccl" else None)
         return box[0]
+
+    def all_gather_object(self, obj) -> List:
+        """Every rank's ``obj``, in rank order (pickled)."""
+        if self.size == 1:
+            return [obj]
+        out = [None] * self.size
+        dist.all_gather_object(out, obj, group=self.group)
+        return out
 
 
 def data_parallel_mesh(n_devices: Optional[int] = None) -> DataMesh:

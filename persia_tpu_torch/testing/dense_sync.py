@@ -4,14 +4,20 @@ starts ``world`` processes, one a rank, over a ``torch.distributed``
 process group (gloo on the CPU; gloo or NCCL on a card), runs the same
 list of cases in each and returns each rank's results; ``run_function``
 runs any importable ``fn(mesh, *args)`` so (``ring_allreduce_rank``: the
-ring alone; ``ring_allreduce_launches``: with its launches).
+ring alone; ``ring_allreduce_launches``: with its launches;
+``divergent_rank``: ``grad_sync.build_sync_train_step`` with an algorithm
+whose ranks hold their own parameters, or QAdam; ``lp_sync_rank``: the
+LowPrecisionDecentralized sync alone).
 
 A case is a dict: ``mode`` (a ``DENSE_SYNC_MODES`` mode), ``steps``,
 ``seed`` (the batches'), optionally ``snapshot`` ((job directory, k):
 ``snapshot_job`` once, after step k), ``stop_after`` (train
 only that many steps), ``resume`` (a job directory: resume from its newest
-manifest first, the servers rewound, and train the steps past it) and
-``state_bytes`` (return rank 0's dense bytes at the end). The model, the
+manifest first, the servers rewound, and train the steps past it),
+``state_bytes`` (return rank 0's dense bytes at the end) and ``loader``
+(train through ``train_step_prepared``: rank 0 over a ``DataLoader(
+reproducible=True, staleness=1)`` of the batches, the other ranks with
+``None`` for the batch and the loader). The model, the
 embedding configuration and the batches come from ``SPEC`` (or the
 caller's ``spec``): DLRM over ``vocabs`` single-id slots with the
 synthetic click data of ``testing.SyntheticClickDataset``, the servers two
@@ -102,13 +108,15 @@ def entries(stores, spec: Dict) -> Dict:
 
 
 def _launch_counts() -> Dict[str, int]:
-    from persia_tpu_torch.ops import block_int8, quantize_int8
+    from persia_tpu_torch.ops import block_int8, lp_ring, quantize_int8
 
     return {"block_quantize_int8": block_int8.block_quantize_int8.launches,
             "block_dequantize_int8": block_int8.block_dequantize_int8.launches,
             "block_requantize_int8": block_int8.block_requantize_int8.launches,
             "segment_absmax": quantize_int8.segment_absmax.launches,
-            "quantize_int8_ef_shared": quantize_int8.quantize_int8_ef_shared.launches}
+            "quantize_int8_ef_shared": quantize_int8.quantize_int8_ef_shared.launches,
+            "quantize_int8_ef": quantize_int8.quantize_int8_ef.launches,
+            "lp_ring_mix": lp_ring.lp_ring_mix.launches}
 
 
 def run_case(mesh, case: Dict, spec: Dict, device) -> Dict:
@@ -142,15 +150,27 @@ def run_case(mesh, case: Dict, spec: Dict, device) -> Dict:
     stop = case.get("stop_after", case["steps"])
     snap = case.get("snapshot")
     losses, preds, launches = [], None, []
+    loader = None
+    if case.get("loader") and mesh.rank == 0:
+        from persia_tpu_torch.data_loader import DataLoader
+
+        loader = DataLoader(iter(data[start:stop]), ctx, num_workers=2, staleness=1, reproducible=True)
+    prepared = iter(loader) if loader is not None else None
     for i in range(start, stop):
         before = _launch_counts()
-        met = ctx.train_step(data[i])
+        if case.get("loader"):
+            met = ctx.train_step_prepared(next(prepared) if prepared is not None else None, loader)
+        else:
+            met = ctx.train_step(data[i])
         after = _launch_counts()
         launches.append({k: after[k] - before[k] for k in after})
         losses.append(float(met["loss"]))
         preds = np.asarray(met["preds"])
         if snap and i + 1 == snap[1]:
             ctx.snapshot_job(snap[0])
+    if loader is not None:
+        loader.flush()
+        loader.shutdown()
     leaves = grad_sync.dense_leaves(model)
     st = ctx.state.sync
     out = {
@@ -189,6 +209,202 @@ def ring_allreduce_launches(mesh, block_size: int, per_rank: np.ndarray, ef: np.
     flat_sum, new_ef = ring_allreduce_rank(mesh, block_size, per_rank, ef, device)
     after = _launch_counts()
     return flat_sum, new_ef, {k: after[k] - before[k] for k in after}
+
+
+# --------------------------------------------- the divergent-replica algorithms
+
+#: ``divergent_rank``'s algorithms by name
+ALGORITHMS = ("decentralized", "local_sgd", "qadam", "lp", "f32")
+RAW_ROWS, RAW_LEN = 8, 4  # the last slot's distinct rows (the last one the pad) and ids a sample
+
+
+def algorithm(name: str, **kwargs):
+    """The ``grad_sync`` algorithm of a ``divergent_rank`` case."""
+    from persia_tpu_torch.parallel import grad_sync
+
+    cls = {"decentralized": grad_sync.Decentralized, "local_sgd": grad_sync.LocalSGD, "qadam": grad_sync.QAdam,
+           "lp": grad_sync.LowPrecisionDecentralized, "f32": grad_sync.GradientAllReduce}[name]
+    return cls(**kwargs)
+
+
+def host_batches(spec: Dict, steps: int, seed: int) -> List[Dict]:
+    """``steps`` global batches of ``spec["bsz"]`` rows as host arrays in
+    the step's layout (``parallel.train_step``), from a numpy seed: the
+    dense features, 0/1 labels, every slot but the last host-pooled (B,
+    dim) and the last a raw slot (``RAW_ROWS`` distinct rows, ``RAW_LEN``
+    ids a sample, the last row the pad, masked out)."""
+    rng = np.random.default_rng(seed)
+    b, dim, slots = spec["bsz"], spec["dim"], len(spec["vocabs"])
+    out = []
+    for _ in range(steps):
+        emb = [{"pooled": rng.normal(size=(b, dim)).astype(np.float32)} for _ in range(slots - 1)]
+        index = rng.integers(0, RAW_ROWS, (b, RAW_LEN)).astype(np.int32)
+        emb.append({"distinct": rng.normal(size=(RAW_ROWS, dim)).astype(np.float32), "index": index,
+                    "mask": index != RAW_ROWS - 1})
+        out.append({"dense": [rng.normal(size=(b, spec["dense"])).astype(np.float32)],
+                    "labels": [rng.integers(0, 2, (b, 1)).astype(np.float32)], "emb": emb})
+    return out
+
+
+def rank_batch(mesh, batch: Dict, device) -> Dict:
+    """This rank's rows of a ``host_batches`` batch as tensors on
+    ``device`` (a raw slot's distinct rows whole, with the backward's CSR
+    over the rank's rows)."""
+    import torch
+
+    from persia_tpu_torch.ops.raw_gather import raw_csr
+
+    a, b = mesh.rows(batch["labels"][0].shape[0])
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa: E731
+    emb = []
+    for e in batch["emb"]:
+        if "pooled" in e:
+            emb.append({"pooled": t(e["pooled"][a:b])})
+        else:
+            index = e["index"][a:b]
+            order, offsets, chunks = raw_csr(index, e["distinct"].shape[0])
+            emb.append({"distinct": t(e["distinct"]), "index": t(index), "mask": t(e["mask"][a:b]),
+                        "order": t(order), "offsets": t(offsets), "long_chunks": t(chunks)})
+    return {"dense": [t(d[a:b]) for d in batch["dense"]], "labels": [t(l[a:b]) for l in batch["labels"]],
+            "emb": emb}
+
+
+def dnn_model(spec: Dict, device="cpu", params_seed=None):
+    """DNN over ``spec``'s slots (dense MLP 16, sparse 32, hidden (32, 16),
+    f32) with seeded flax weights and batch statistics, loaded: (model,
+    params, batch_stats)."""
+    import torch
+
+    from persia_tpu_torch.models import DNN
+    from persia_tpu_torch.weights import seeded_batch_stats_like, seeded_flax_params_like, state_dict_from_flax
+
+    model = DNN(spec["dense"], [spec["dim"]] * len(spec["vocabs"]), 16, 32, (32, 16), compute_dtype=torch.float32,
+                device="cpu")
+    seed = spec["params_seed"] if params_seed is None else params_seed
+    params, stats = seeded_flax_params_like(model, seed), seeded_batch_stats_like(model, seed + 1)
+    model.load_state_dict(state_dict_from_flax(model, params, stats))
+    return model.to(device), params, stats
+
+
+def divergent_case(mesh, case: Dict, spec: Dict, device) -> Dict:
+    """One case of ``divergent_rank`` on this rank: the model (``case
+    ["model"]``: "dlrm", ``model_and_params``, or "dnn", ``dnn_model``),
+    each rank but 0 from other seeded weights, until ``replicate_for_local``
+    starts them from rank 0's; Adam(``spec["lr"]``) (none for QAdam); the
+    sync state from ``init_sync_opt_state``; ``case["steps"]`` steps of
+    ``build_sync_train_step`` over ``host_batches(spec, steps,
+    case["seed"])``, this rank's rows. Returns each step's loss (the
+    header's), flat parameters and the sync kernels' launches, the last
+    header and packed gradients, ``algo_state`` as numpy, the batch
+    statistics (flax's tree) and, with ``case["collapse"]``, this rank's
+    dense trees and ``collapse_local``'s result."""
+    import torch
+
+    from persia_tpu_torch.parallel import grad_sync
+    from persia_tpu_torch.parallel.train_step import init_train_state
+    from persia_tpu_torch.weights import _dense_tree, batch_stats_to_flax
+
+    seed = spec["params_seed"] + (mesh.rank > 0)  # the other ranks' weights differ until replicated
+    if case.get("model", "dlrm") == "dnn":
+        model = dnn_model(spec, device, seed)[0]
+    else:
+        model = model_and_params(dict(spec, params_seed=seed), device)[0]
+    algo = algorithm(case["algorithm"], **case.get("kwargs", {}))
+    qadam = isinstance(algo, grad_sync.QAdam)
+    opt = None if qadam else torch.optim.Adam(model.parameters(), lr=spec["lr"])
+    grad_sync.replicate_for_local(model, opt, mesh)
+    state = init_train_state(model, opt)
+    state.sync = grad_sync.init_sync_opt_state(model, opt, mesh, algo, device=torch.device(device))
+    step = grad_sync.build_sync_train_step(model, opt, mesh, algo)
+    leaves = grad_sync.dense_leaves(model)
+    losses, params, launches = [], [], []
+    header = gpacked = None
+    for batch in host_batches(spec, case["steps"], case["seed"]):
+        device_batch = rank_batch(mesh, batch, device)
+        before = _launch_counts()
+        header, gpacked = step(state, device_batch)
+        after = _launch_counts()
+        launches.append({k: after[k] - before[k] for k in after})
+        losses.append(float(header[0]))
+        params.append(grad_sync.ravel(leaves, lambda p: p.detach()).cpu().numpy())
+    algo_state = state.sync.algo_state
+    out = {"losses": losses, "params": params, "launches": launches, "header": header.cpu().numpy(),
+           "gpacked": gpacked.cpu().numpy(), "batch_stats": batch_stats_to_flax(model),
+           "algo_state": {k: v.cpu().numpy() for k, v in algo_state.items()} if algo_state else None}
+    if case.get("collapse"):  # this rank's rows (flax's trees) and their mean over the ranks
+        out["dense_tree"] = _dense_tree(state)
+        out["collapse"] = grad_sync.collapse_local(state, mesh)
+    return out
+
+
+def divergent_rank(mesh, cases: List[Dict], spec: Dict, device: str = "cpu") -> List[Dict]:
+    """``divergent_case`` of each case on this rank (``run_function``'s
+    ``fn``)."""
+    import torch
+
+    return [divergent_case(mesh, c, spec, torch.device(device)) for c in cases]
+
+
+#: K18's edge cases (segment lengths; ``lp_mix_inputs``): a leaf of each
+#: size class, 512 segments, empty and 1-element segments, boundaries inside
+#: a 4-element unit
+LP_MIX_CASES = {
+    "segments_512": [(i * 37) % 251 for i in range(512)],
+    "empty_and_ones": [0, 1, 0, 1, 1, 5000, 0, 1, 3],
+    "inside_units": [3, 5, 13, 2, 9, 4100, 1, 1, 6],
+    "many_in_a_unit": [3] + [0] * 10 + [1] * 3 + [5000],
+}
+
+
+def lp_mix_inputs(lengths: List[int], device, seed: int, off16: bool = False, specials: bool = False):
+    """K18's inputs over segments of ``lengths``: x and the three shadows
+    (normal), the three code vectors (uniform in [-127, 127], the first
+    elements of each segment -127, 127 and 0), the three scale vectors
+    (10^-6 to 10, the first segment's 1e-30); ``specials``: a NaN, +inf and
+    -inf in x; ``off16``: every tensor one element past its buffer's start
+    (the scalar plan). Returns (list of the ten tensors, offsets)."""
+    import torch
+
+    offsets = np.concatenate([[0], np.cumsum(lengths)]).astype(int).tolist()
+    n, segs = offsets[-1], len(lengths)
+    rng = np.random.default_rng(seed)
+    lead = int(off16)
+
+    def on_device(a):
+        buf = torch.zeros(a.size + lead, dtype=torch.from_numpy(a[:0]).dtype, device=device)
+        buf[lead:] = torch.from_numpy(a).to(device)
+        return buf[lead:]
+
+    f32 = [rng.normal(size=n).astype(np.float32) for _ in range(4)]
+    if specials and n >= 3:
+        f32[0][[0, n // 2, n - 1]] = [np.nan, np.inf, -np.inf]
+    codes = []
+    for _ in range(3):
+        q = rng.integers(-127, 128, n).astype(np.int8)
+        for a, b in zip(offsets[:-1], offsets[1:]):
+            q[a:min(b, a + 3)] = [-127, 127, 0][:min(b, a + 3) - a]
+        codes.append(q)
+    scales = [(10.0 ** rng.uniform(-6, 1, segs)).astype(np.float32) for _ in range(3)]
+    for sc in scales:
+        sc[:1] = np.float32(1e-30)
+    return [on_device(a) for a in f32 + codes + scales], offsets
+
+
+def lp_sync_rank(mesh, x: np.ndarray, shadows: Dict[str, np.ndarray], offsets: List[int], device: str = "cpu"):
+    """``grad_sync.lp_ring_sync`` alone on this rank's row of ``x`` and of
+    each of ``shadows`` (n, P): (the new x, the new shadows, the sync
+    kernels' launches), as numpy."""
+    import torch
+
+    from persia_tpu_torch.parallel import grad_sync
+
+    r = mesh.rank
+    xt = torch.from_numpy(x[r].copy()).to(device)
+    st = {k: torch.from_numpy(v[r].copy()).to(device) for k, v in shadows.items()}
+    before = _launch_counts()
+    grad_sync.lp_ring_sync(xt, st, offsets, mesh)
+    after = _launch_counts()
+    return xt.cpu().numpy(), {k: v.cpu().numpy() for k, v in st.items()}, {k: after[k] - before[k] for k in after}
 
 
 def _rank_main(rank: int, world: int, port: int, job, out_path: str, device: str, backend: str) -> None:
@@ -265,5 +481,7 @@ def run_ranks(world: int, cases: List[Dict], spec: Optional[Dict] = None, device
                         backend=backend, timeout=timeout)
 
 
-__all__ = ["SPEC", "batches", "embedding_config", "entries", "free_port", "model_and_params", "ring_allreduce_launches",
-           "ring_allreduce_rank", "run_case", "run_function", "run_ranks"]
+__all__ = ["ALGORITHMS", "SPEC", "algorithm", "batches", "divergent_case", "divergent_rank", "dnn_model",
+           "embedding_config", "entries", "free_port", "host_batches", "LP_MIX_CASES", "lp_mix_inputs", "lp_sync_rank",
+           "model_and_params",
+           "rank_batch", "ring_allreduce_launches", "ring_allreduce_rank", "run_case", "run_function", "run_ranks"]

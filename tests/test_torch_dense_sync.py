@@ -24,7 +24,13 @@ stores each. Checked:
   the reference's manifest (dense bytes with the ``{"opt", "ef"}``
   wrapper, servers) resumed by the port's ranks, and the port's by the
   reference, each landing where the other package's uninterrupted run
-  does.
+  does;
+- the pipelined step at n = 2 (``train_step_prepared``: rank 0 over a
+  ``DataLoader(reproducible=True, staleness=1)``, rank 1 with None) for
+  "f32" and "block-int8-ring", 3 steps, against the reference's
+  ``TrainCtx`` over a 2-device mesh with its ``DataLoader`` (losses,
+  parameters, the servers' entries), and bit for bit the port's own
+  synchronous ``train_step``.
 
 Tolerances, at 3-6x the readings on the CPU. Every mode but bf16 at
 n = 4: losses 1e-6 relative, parameters 1e-6 absolute, ``ef`` 5e-7
@@ -47,6 +53,7 @@ from jax.flatten_util import ravel_pytree
 
 import persia_tpu.config as jcfg
 from persia_tpu.ctx import TrainCtx as JaxTrainCtx
+from persia_tpu.data_loader import DataLoader as JaxDataLoader
 from persia_tpu.embedding import optim as joptim
 from persia_tpu.embedding.store import EmbeddingStore as JaxStore
 from persia_tpu.embedding.worker import EmbeddingWorker as JaxWorker
@@ -74,6 +81,7 @@ def _tol(n, mode):
 ENTRY_TOL = dict(rtol=1e-5, atol=1e-7)
 RESUME_MODES = ("block-int8-ring", "f32-sharded")
 RESUME_STEPS, RESUME_AT, RESUME_N = 4, 2, 2
+LOADER_MODES, LOADER_N = ("f32", "block-int8-ring"), 2
 
 
 def _jcfg():
@@ -121,14 +129,19 @@ def _jax_entries(stores):
     return out
 
 
-def _jax_run(n, mode, steps=STEPS, start=0, stop=None, snapshot=None, resume=None):
+def _jax_run(n, mode, steps=STEPS, start=0, stop=None, snapshot=None, resume=None, loader=False):
     ctx, stores = _jax_ctx(n, mode)
     if resume is not None:
         m = ctx.resume(resume)
         assert m is not None and m.step == start
     data = tds.batches(SPEC, steps, SEED)
     losses = []
-    for i in range(start, stop or steps):
+    if loader:  # the pipelined step over the reference's loader
+        dl = JaxDataLoader(iter(data[start:stop or steps]), ctx, num_workers=2, staleness=1, reproducible=True)
+        losses = [float(ctx.train_step_prepared(tb, dl)["loss"]) for tb in dl]
+        dl.flush()
+        dl.shutdown()
+    for i in range(start, start if loader else stop or steps):
         losses.append(float(ctx.train_step(data[i])["loss"]))
         if snapshot and i + 1 == snapshot[1]:
             ctx.snapshot_job(snapshot[0])
@@ -151,6 +164,8 @@ def runs(tmp_path_factory):
     ref = {(n, m): _jax_run(n, m) for n in WORLDS for m in DENSE_SYNC_MODES}
     for m in RESUME_MODES:
         ref[("fenced", m)] = _jax_run(RESUME_N, m, steps=RESUME_STEPS, snapshot=(str(root / f"ref_{m}"), RESUME_AT))
+    for m in LOADER_MODES:
+        ref[("loader", m)] = _jax_run(LOADER_N, m, loader=True)
     port = {}
     for n in WORLDS:
         cases = [dict(mode=m, steps=STEPS, seed=SEED) for m in DENSE_SYNC_MODES]
@@ -159,6 +174,8 @@ def runs(tmp_path_factory):
                 cases.append(dict(mode=m, steps=RESUME_STEPS, seed=SEED, snapshot=(str(root / f"port_{m}"), RESUME_AT),
                                   state_bytes=True))
                 cases.append(dict(mode=m, steps=RESUME_STEPS, seed=SEED, resume=str(root / f"ref_{m}")))
+        if n == LOADER_N:
+            cases += [dict(mode=m, steps=STEPS, seed=SEED, loader=True) for m in LOADER_MODES]
         res = tds.run_ranks(n, cases, timeout=240)
         for i, m in enumerate(DENSE_SYNC_MODES):
             port[(n, m)] = [r[i] for r in res]
@@ -166,6 +183,9 @@ def runs(tmp_path_factory):
             for k, m in enumerate(RESUME_MODES):
                 port[("fenced", m)] = [r[len(DENSE_SYNC_MODES) + 2 * k] for r in res]
                 port[("resumed", m)] = [r[len(DENSE_SYNC_MODES) + 2 * k + 1] for r in res]
+        if n == LOADER_N:
+            for k, m in enumerate(LOADER_MODES):
+                port[("loader", m)] = [r[len(cases) - len(LOADER_MODES) + k] for r in res]
     for m in RESUME_MODES:
         ref[("resumed", m)] = _jax_run(RESUME_N, m, steps=RESUME_STEPS, start=RESUME_AT,
                                        resume=str(root / f"port_{m}"))
@@ -261,3 +281,29 @@ def test_resume_across_packages(runs, mode):
         assert np.asarray(opt["ef"]).shape[0] == RESUME_N
     else:
         assert np.asarray(opt["opt"]["0"]["mu"]).shape[0] == RESUME_N
+
+
+@pytest.mark.parametrize("mode", LOADER_MODES)
+def test_pipelined_step_over_a_mesh_matches_reference(runs, mode):
+    """``train_step_prepared`` at n = 2 (rank 0 over the port's
+    ``DataLoader(reproducible=True, staleness=1)``, rank 1 with None for
+    the batch and the loader), 3 steps: the losses on both ranks and the
+    parameters against the reference's ``TrainCtx`` over a 2-device mesh
+    with its ``DataLoader``, the servers' entries; both ranks the same
+    parameters, and every number the bits of the port's synchronous
+    ``train_step`` over the same batches."""
+    ref, port = runs
+    want, got, sync = ref[("loader", mode)], port[("loader", mode)], port[(LOADER_N, mode)]
+    loss_tol, param_tol, entry_tol = _tol(LOADER_N, mode)
+    assert len(got) == LOADER_N
+    for r, s in zip(got, sync):
+        assert len(r["losses"]) == STEPS
+        np.testing.assert_allclose(r["losses"], want["losses"], **loss_tol)
+        assert r["losses"] == s["losses"]
+        np.testing.assert_array_equal(r["params"], s["params"])
+        np.testing.assert_array_equal(r["params"], got[0]["params"])
+    np.testing.assert_allclose(got[0]["params"], want["params"], rtol=0, atol=param_tol)
+    _assert_entries(got[0]["entries"], want["entries"], entry_tol)
+    assert got[0]["entries"].keys() == sync[0]["entries"].keys()
+    for k, v in sync[0]["entries"].items():
+        np.testing.assert_array_equal(got[0]["entries"][k], v)

@@ -3,6 +3,7 @@ plans.py), checked on the CPU: the kernels take these numbers as given."""
 
 import itertools
 
+import numpy as np
 import pytest
 
 from persia_tpu_torch.ops import plans
@@ -676,3 +677,67 @@ def test_block_int8_plan_constants_match_the_kernel():
     assert const("kWarpMaxThreads") == 32 * plans.BLOCK_INT8_WARP_MAX_WARPS
     assert const("kDequantVec") == plans.BLOCK_DEQUANT_VEC
     assert const("kDequantVecMaxThreads") == 32 * plans.BLOCK_DEQUANT_VEC_MAX_WARPS
+
+
+# ------------------------------------------------------------------- K18
+
+
+def lp_mix_cover(offsets, plan):
+    """Which K18 thread handles each element, by the kernel's own index
+    arithmetic (csrc/lp_ring.cu: a unit of ``vec`` elements a thread,
+    grid-stride; a unit a segment boundary crosses element by element; the
+    last n % vec elements to block 0's first threads): how many times each
+    element is written, and the elements a unit takes one at a time."""
+    n, vec = plan.n, plan.vec
+    hits = np.zeros(n, np.int32)
+    scalar = []
+    off = np.asarray(offsets)
+    for u in range(plan.units):  # every unit is some thread's: u < units, stride grid * threads
+        e = u * vec
+        k = np.searchsorted(off, e, side="right") - 1
+        hits[e:e + vec] += 1
+        if vec > 1 and off[k + 1] < e + vec:
+            scalar.extend(range(e, e + vec))
+    tail = n - plan.units * vec
+    assert tail < plans.LP_MIX_THREADS
+    hits[n - tail:] += 1
+    return hits, scalar
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("lengths", [[3328, 256, 16384, 64, 1024, 16, 187904, 512, 131072, 256, 256, 1],
+                                     [0, 1, 0, 1, 1, 5000, 0, 1, 3], [3] + [0] * 10 + [1] * 3 + [5000],
+                                     [(i * 37) % 251 for i in range(512)], [7]])
+def test_lp_ring_mix_plan_covers_every_element_once(lengths, aligned):
+    """K18's plan: every element written by exactly one thread; a unit
+    that a segment boundary crosses (and only such a unit) goes element by
+    element; the grid one wave at most, units past it by the grid-stride
+    loop."""
+    offsets = np.concatenate([[0], np.cumsum(lengths)]).astype(int)
+    n = int(offsets[-1])
+    plan = plans.lp_ring_mix_plan(n, aligned)
+    assert plan.vec == (4 if aligned else 1)
+    assert 1 <= plan.grid <= plans.LP_MIX_MAX_GRID
+    assert plan.grid * plans.LP_MIX_THREADS >= plan.units or plan.grid == plans.LP_MIX_MAX_GRID
+    hits, scalar = lp_mix_cover(offsets, plan)
+    assert (hits == 1).all()
+    inner = set(offsets[1:-1].tolist())
+    crossing = {e for e in range(0, plan.units * plan.vec, plan.vec)
+                if any(e < b < e + plan.vec for b in inner)} if plan.vec > 1 else set()
+    assert set(scalar) == {e + j for e in crossing for j in range(plan.vec)}
+
+
+def test_lp_ring_mix_plan_constants_match_the_kernel():
+    import re
+    from pathlib import Path
+
+    src = (Path(plans.__file__).resolve().parent.parent / "csrc" / "lp_ring.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kMaxMixSegments") == plans.LP_MIX_MAX_SEGMENTS == plans.QUANT_MAX_SEGMENTS
+    assert const("kMixThreads") == plans.LP_MIX_THREADS
+    assert plans.lp_ring_mix_plan(341_073).grid == min(plans.LP_MIX_MAX_GRID, -(-(341_073 // 4) // 256))
+    with pytest.raises(ValueError, match="32 bits"):
+        plans.lp_ring_mix_plan(1 << 31)

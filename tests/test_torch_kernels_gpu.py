@@ -2682,3 +2682,83 @@ def test_dense_sync_ctx_on_card_matches_cpu(cuda, mode):
         outs.append(res)
     np.testing.assert_allclose(outs[0]["losses"], outs[1]["losses"], rtol=1e-5)
     np.testing.assert_allclose(outs[0]["params"], outs[1]["params"], rtol=0, atol=1e-5)
+
+
+def _lp_mix_lengths(case):
+    from persia_tpu_torch.parallel import grad_sync
+    from persia_tpu_torch.testing import dense_sync as tds
+
+    if case == "tower":  # the bench DLRM tower's 12 leaves, in the flat vector's order
+        from persia_tpu_torch.models import DLRM
+
+        model = DLRM(13, 26, 16, (256, 64, 16), (512, 256), compute_dtype=torch.float32, device="cpu")
+        return [p.numel() for _path, p, _tr in grad_sync.dense_leaves(model)]
+    return tds.LP_MIX_CASES[case]
+
+
+@pytest.mark.parametrize("specials", [False, True])
+@pytest.mark.parametrize("off16", [False, True])
+@pytest.mark.parametrize("case", ["tower", "segments_512", "empty_and_ones", "inside_units", "many_in_a_unit"])
+def test_lp_ring_mix_kernel_matches_plain_bitwise(cuda, case, off16, specials):
+    """K18 against its plain version on the card, bit for bit: x and the
+    three shadows rewritten in place, one launch; codes of -127, 127 and 0,
+    a scale of 1e-30, NaN and infinities in x, tensors off 16 bytes (the
+    scalar plan)."""
+    from persia_tpu_torch.ops import plans
+    from persia_tpu_torch.ops.lp_ring import lp_ring_mix, lp_ring_mix_reference
+    from persia_tpu_torch.testing import dense_sync as tds
+
+    args, offsets = tds.lp_mix_inputs(_lp_mix_lengths(case), cuda, 70, off16, specials)
+    want = lp_ring_mix_reference(*args, offsets)
+    ins = [a.clone() if i < 4 else a for i, a in enumerate(args)]
+    if off16:  # clones start on 16 bytes: keep the four rewritten tensors off them
+        for i in range(4):
+            buf = torch.empty(ins[i].numel() + 1, dtype=torch.float32, device=cuda)[1:]
+            buf.copy_(args[i])
+            ins[i] = buf
+    assert plans.lp_ring_mix_plan(offsets[-1], not off16).vec == (1 if off16 else 4)
+    before = lp_ring_mix.launches
+    out = lp_ring_mix(*ins, offsets)
+    assert lp_ring_mix.launches == before + 1
+    for o, i, w in zip(out, ins, want):
+        assert o is i and _f32_bits_equal(o, w)
+
+
+def test_lp_ring_mix_kernel_refusals(cuda):
+    from persia_tpu_torch.ops.lp_ring import lp_ring_mix
+    from persia_tpu_torch.testing import dense_sync as tds
+
+    args, offsets = tds.lp_mix_inputs([600] * 513, cuda, 71)
+    with pytest.raises(ValueError, match="segments"):
+        lp_ring_mix(*args, offsets)
+    args, offsets = tds.lp_mix_inputs([10, 20], cuda, 72)
+    with pytest.raises(ValueError, match="int8"):
+        lp_ring_mix(*args[:4], args[4].int(), *args[5:], offsets)
+
+
+@pytest.mark.parametrize("name,kwargs,want", [
+    ("decentralized", {}, {}),
+    ("local_sgd", {"period": 2}, {}),
+    ("qadam", {"lr": 3e-3, "warmup_steps": 1}, {"segment_absmax": 1, "quantize_int8_ef_shared": 1}),
+    ("lp", {}, {"quantize_int8_ef": 1, "lp_ring_mix": 1}),
+])
+def test_divergent_algorithms_on_card_match_cpu(cuda, name, kwargs, want):
+    """``build_sync_train_step`` with each divergent-replica algorithm at
+    one rank on the card against the same on the CPU (plain versions), 3
+    steps: losses within 1e-5 relative, parameters within 1e-5 (QAdam's
+    after its warmup 1e-3 relative: its frozen v scales a rounding up);
+    a step's sync kernels: LowPrecisionDecentralized 1 K15 and 1 K18,
+    QAdam after its warmup 1 ``segment_absmax`` and 1 shared quantize (none
+    in it), the others none."""
+    from persia_tpu_torch.parallel.mesh import data_parallel_mesh
+    from persia_tpu_torch.testing import dense_sync as tds
+
+    case = dict(algorithm=name, kwargs=kwargs, steps=3, seed=9)
+    card = tds.divergent_case(data_parallel_mesh(), case, tds.SPEC, cuda)
+    cpu = tds.divergent_case(data_parallel_mesh(), case, tds.SPEC, torch.device("cpu"))
+    for s, launches in enumerate(card["launches"]):
+        expect = {} if name == "qadam" and s == 0 else want
+        assert {k: v for k, v in launches.items() if v} == expect, s
+    np.testing.assert_allclose(card["losses"], cpu["losses"], rtol=1e-5)
+    rtol = 1e-3 if name == "qadam" else 0
+    np.testing.assert_allclose(card["params"][-1], cpu["params"][-1], rtol=rtol, atol=1e-5)
